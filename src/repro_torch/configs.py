@@ -1,0 +1,131 @@
+"""Model and RowClone configuration of the port (a copy of what it needs
+from ``repro/configs``): :class:`ModelConfig` with :meth:`ModelConfig.reduced`,
+:class:`RowCloneConfig`, and the registry entry of the dense decoder the
+port serves.  ``tests/test_torch_contract.py`` pins the copy to the
+reference."""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict
+
+VOCAB_PAD_MULTIPLE = 256
+
+
+def pad_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyper-parameters.  The port serves ``family ==
+    "dense"``; the fields of the other families are kept so that
+    :meth:`reduced` derives the same smoke configuration as the
+    reference."""
+
+    arch_id: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    qkv_bias: bool = False
+    rope_theta: float = 500000.0
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+    shared_attn_every: int = 0
+    encoder_layers: int = 0
+    src_frames_ratio: int = 4
+    vision_tokens: int = 0
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_to(self.vocab_size, VOCAB_PAD_MULTIPLE)
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def num_attn_layers(self) -> int:
+        """Layers that own a KV cache (every layer of a dense decoder)."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"family {self.family!r} is not ported yet")
+        return self.num_layers
+
+    def reduced(self) -> "ModelConfig":
+        """Tiny same-family variant for CPU tests (the reference's rule)."""
+        return dataclasses.replace(
+            self,
+            arch_id=self.arch_id + "-smoke",
+            num_layers=min(self.num_layers, 4),
+            d_model=128,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 4) if self.num_kv_heads > 1
+            else 1,
+            head_dim=32,
+            d_ff=256,
+            moe_d_ff=64 if self.moe_d_ff else 0,
+            vocab_size=512,
+            num_experts=min(self.num_experts, 4),
+            top_k=min(self.top_k, 2),
+            num_shared_experts=min(self.num_shared_experts, 1),
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_heads=8 if self.ssm_heads else 0,
+            ssm_head_dim=32 if self.ssm_heads else 64,
+            ssm_chunk=32,
+            shared_attn_every=2 if self.shared_attn_every else 0,
+            encoder_layers=2 if self.encoder_layers else 0,
+            vision_tokens=16 if self.vision_tokens else 0,
+            dtype="float32",
+        )
+
+
+@dataclass(frozen=True)
+class RowCloneConfig:
+    """Settings for the in-memory copy/init engine (the paper's technique)."""
+    enable_fpm: bool = True        # subarray-local block copy
+    enable_psm: bool = True        # cross-slab copy
+    enable_zi: bool = True         # lazy-zero + alias-copy (RowClone-ZI)
+    page_size: int = 64            # tokens per KV block ("row" granularity)
+    zero_blocks_per_slab: int = 1  # reserved zero rows per subarray
+
+
+_REGISTRY: Dict[str, ModelConfig] = {
+    # llama3.2-3b: dense llama3-family decoder, 28L d_model=3072 24H
+    # (GQA kv=8) d_ff=8192 vocab=128256, tied embeddings
+    "llama3.2-3b": ModelConfig(
+        arch_id="llama3.2-3b", family="dense", num_layers=28, d_model=3072,
+        num_heads=24, num_kv_heads=8, head_dim=128, d_ff=8192,
+        vocab_size=128256, rope_theta=500000.0, tie_embeddings=True),
+}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    try:
+        return _REGISTRY[arch_id]
+    except KeyError:
+        raise KeyError(f"unknown arch {arch_id!r}; the port serves "
+                       f"{sorted(_REGISTRY)}") from None
+
+
+__all__ = ["ModelConfig", "RowCloneConfig", "get_config", "pad_to"]

@@ -1,0 +1,566 @@
+"""RowCloneEngine — the ``memcopy``/``meminit`` "ISA" and its dispatcher
+(port of ``repro/core/rowclone.py``, single device, fused path only).
+
+* ``memcopy(pairs)`` classifies each (src, dst) pair: ``alias`` (the source
+  is lazily zero under ZI: a metadata move, zero bytes), ``fpm`` (same
+  slab), ``psm`` (cross slab) or ``baseline`` (RowClone disabled), and
+  enqueues the tagged row;
+* ``meminit(ids)`` sets the ZI lazy-zero bit, or enqueues BuZ zero rows;
+* ``memcopy_cross`` / ``promote_staged`` move blocks between pools by
+  global ``base[pool] + block`` id (the :class:`PoolGroup` address space);
+* ``memand`` / ``memor`` / ``memnot`` compute on raw bits in place.
+
+Dispatch is queued and fused: at a flush boundary the whole table drains
+as ONE launch moving every pool (kernels/fused_dispatch.py).  The pools
+are torch tensors updated IN PLACE where the JAX engine donated them; each
+in-place write bumps the pool's generation, which is how a
+:class:`~repro_torch.core.stream.FlushTicket` knows it expired.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.allocator import SubarrayAllocator
+from repro_torch.core.cmdqueue import (CommandQueue, bucket_size,
+                                       space_war_rows, top_bucket)
+from repro_torch.core.journal import JournalRecord, TicketJournal
+from repro_torch.core.opcodes import (ALL_PRIMARY, OP_AND, OP_BASELINE_COPY,
+                                      OP_CROSS_POOL_COPY, OP_FPM_COPY,
+                                      OP_NOP, OP_NOT, OP_OR, OP_PSM_COPY,
+                                      check_pack_total, pack_bitwise_src,
+                                      row_rw)
+from repro_torch.core.poolspec import BlockRef, PoolGroup
+from repro_torch.core.stream import CommandStream
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.fused_dispatch import DrainInfo, check_drain
+
+
+@dataclasses.dataclass
+class EngineStats:
+    fpm_copies: int = 0
+    psm_copies: int = 0
+    alias_copies: int = 0
+    baseline_copies: int = 0
+    cross_pool_copies: int = 0
+    stage_promotions: int = 0   # staged blocks promoted into primary pools
+    retired_promotions: int = 0  # queued promotions cancelled pre-flush
+    zero_lazy: int = 0
+    zero_materialized: int = 0
+    bytes_fpm: int = 0
+    bytes_psm: int = 0
+    bytes_baseline: int = 0
+    bytes_cross: int = 0
+    bytes_avoided: int = 0      # alias + lazy zero
+    cross_stream_flushes: int = 0  # streams serialized by an overlap
+    launches: int = 0           # device dispatches issued for bulk movement
+    bitwise_ops: int = 0        # AND/OR/NOT compute rows enqueued
+    bytes_bitwise: int = 0      # destination bytes written by bitwise rows
+
+
+class RowCloneEngine:
+    """Owns block pools + allocator; dispatches copy/init requests.
+
+    ``pools`` maps name -> tensor ``(nblk_p, ...)`` (``block_axis=0``) or
+    layer-stacked ``(L, nblk_p, ...)`` (``block_axis=1``), all on one
+    device.  ``staging`` maps a staging pool to its primary twin, or
+    ``group`` gives the :class:`PoolGroup` directly.  Primary pools share
+    the allocator's block count; staging pools may be any size (one shared
+    slot space) and mirror their twin's block shape and dtype."""
+
+    def __init__(self, pools: Dict[str, torch.Tensor],
+                 allocator: SubarrayAllocator, *, enable_fpm: bool = True,
+                 enable_psm: bool = True, enable_zi: bool = True,
+                 block_axis: int = 0,
+                 staging: Optional[Dict[str, str]] = None,
+                 group: Optional[PoolGroup] = None):
+        self.alloc = allocator
+        self.enable_fpm = enable_fpm
+        self.enable_psm = enable_psm
+        self.enable_zi = enable_zi
+        self.block_axis = block_axis
+        if group is None:
+            group = PoolGroup.from_pools(pools, block_axis=block_axis,
+                                         staging=staging)
+        if set(group.names) != set(pools):
+            raise ValueError(f"pool group {group.names} does not match "
+                             f"pools {list(pools)}")
+        self.group = group
+        self.staging = dict(group.staging_map)
+        self.pools = {name: pools[name] for name in group.names}
+        devices = {p.device for p in self.pools.values()}
+        if len(devices) != 1:
+            raise ValueError(f"pools span devices {devices}")
+        self.device = devices.pop()
+        #: per-pool count of in-place writes (drains and out-of-band)
+        self.pool_generation: Dict[str, int] = {n: 0 for n in self.pools}
+        self.stats = EngineStats()
+        for spec in group:
+            p = self.pools[spec.name]
+            if p.shape[block_axis] != spec.nblk:
+                raise ValueError(f"pool {spec.name!r}: {p.shape[block_axis]}"
+                                 f" blocks != spec nblk {spec.nblk}")
+            if spec.role == "primary" and spec.nblk != allocator.num_blocks:
+                raise ValueError(f"primary pool {spec.name!r}: {spec.nblk} "
+                                 f"blocks != allocator's "
+                                 f"{allocator.num_blocks}")
+        stage_cap = 0
+        for sname, pname in self.staging.items():
+            s, p = self.pools[sname], self.pools[pname]
+            if self._block_shape(s) != self._block_shape(p) \
+                    or s.dtype != p.dtype:
+                raise ValueError(f"staging pool {sname!r} must mirror "
+                                 f"{pname!r}'s block shape and dtype")
+            cap = s.shape[block_axis]
+            if stage_cap not in (0, cap):
+                raise ValueError("staging pools must share one block count")
+            stage_cap = cap
+        self._live_queues: Dict[int, CommandQueue] = {}
+        self._stream_count = 0
+        self._default_stream = CommandStream(self, "default")
+        self._cur_queue = self._default_stream.queue
+        self.deferred = False
+        self._zero_blocks: Optional[Tuple[torch.Tensor, ...]] = None
+        self._stage_free: List[int] = list(range(stage_cap - 1, -1, -1))
+        self._stage_inflight: List[int] = []
+        #: log of drained flushes
+        self.journal = TicketJournal()
+        self._flush_index = 0
+
+    def _block_shape(self, p: torch.Tensor) -> Tuple[int, ...]:
+        shape = list(p.shape)
+        shape.pop(self.block_axis)
+        return tuple(shape)
+
+    # ------------------------------------------------------------------
+    # streams
+    # ------------------------------------------------------------------
+    def _note_pending(self, queue: CommandQueue) -> None:
+        self._live_queues[id(queue)] = queue
+
+    def _note_drained(self, queue: CommandQueue) -> None:
+        self._live_queues.pop(id(queue), None)
+
+    def stream(self, name: Optional[str] = None) -> CommandStream:
+        """Mint a new ordered :class:`CommandStream` on this engine."""
+        self._stream_count += 1
+        if name is None:
+            name = f"stream{self._stream_count}"
+        return CommandStream(self, name)
+
+    @property
+    def queue(self) -> CommandQueue:
+        """The DEFAULT stream's command queue."""
+        return self._default_stream.queue
+
+    def _cross_stream_guard(self, queue: CommandQueue, skeys, dkey) -> None:
+        """A command about to land on ``queue`` that reads or writes
+        another stream's pending WRITE, or writes another stream's pending
+        READ, drains that other stream first."""
+        for q in list(self._live_queues.values()):
+            if q is queue or not len(q):
+                continue
+            if q.has_pending_write(dkey) or q.has_pending_read(dkey) \
+                    or any(q.has_pending_write(k) for k in skeys):
+                self.stats.cross_stream_flushes += 1
+                q.flush()
+
+    # ------------------------------------------------------------------
+    @property
+    def num_blocks(self) -> int:
+        """Blocks per PRIMARY pool (the allocator's address space)."""
+        return self.alloc.num_blocks
+
+    @property
+    def stage_capacity(self) -> int:
+        """Staging slot ids available per staging pool (0 = no staging)."""
+        return self.group[next(iter(self.staging))].nblk if self.staging \
+            else 0
+
+    @property
+    def stage_slots_free(self) -> int:
+        """Staging slots currently on the free list."""
+        return len(self._stage_free)
+
+    @property
+    def n_primary(self) -> int:
+        return self.group.n_primary
+
+    @property
+    def primary_names(self) -> Tuple[str, ...]:
+        return self.group.primary_names
+
+    def _pool_block_bytes(self, name: str) -> int:
+        p = self.pools[name]
+        return int(np.prod(self._block_shape(p))) * p.element_size()
+
+    def _block_bytes(self) -> int:
+        """Bytes one plain command moves (one block of every primary pool)."""
+        return sum(self._pool_block_bytes(n) for n in self.primary_names)
+
+    def pool_bytes_resident(self) -> int:
+        """Total bytes resident across every pool (primary + staging)."""
+        return sum(p.numel() * p.element_size() for p in self.pools.values())
+
+    def _get_zero_blocks(self) -> Tuple[torch.Tensor, ...]:
+        """Per-pool reserved zero row for BuZ — allocated once."""
+        if self._zero_blocks is None:
+            self._zero_blocks = tuple(
+                torch.zeros((1,) + tuple(p.shape[self.block_axis + 1:]),
+                            dtype=p.dtype, device=p.device)
+                for p in self.pools.values())
+        return self._zero_blocks
+
+    def mark_pools_written(self, names: Sequence[str]) -> None:
+        """Record an out-of-band in-place write (e.g. the decode step's
+        K/V append): tickets that describe these pools expire."""
+        for n in names:
+            self.pool_generation[n] += 1
+
+    # ------------------------------------------------------------------
+    # flush control
+    # ------------------------------------------------------------------
+    def flush(self) -> int:
+        """Drain the DEFAULT stream's queue.  Returns launches issued."""
+        return self._default_stream.queue.flush()
+
+    def _flush_streams(self) -> None:
+        """Drain EVERY queue with pending commands."""
+        for q in list(self._live_queues.values()):
+            q.flush()
+
+    def _autoflush(self) -> None:
+        if not self.deferred:
+            self._cur_queue.flush()
+
+    @contextlib.contextmanager
+    def batch(self) -> Iterator[CommandQueue]:
+        """Defer flushing: commands enqueued inside the block drain as one
+        fused launch at exit."""
+        prev = self.deferred
+        self.deferred = True
+        try:
+            yield self._cur_queue
+        finally:
+            self.deferred = prev
+            if not self.deferred:
+                self._cur_queue.flush()
+
+    @property
+    def next_flush_index(self) -> int:
+        """Engine-wide index the NEXT drained flush will carry."""
+        return self._flush_index
+
+    def _drain_rows(self, rows: Sequence[Tuple[int, int, int]],
+                    queue: Optional[CommandQueue] = None) -> int:
+        """Space, chunk and dispatch one flush's rows; append the
+        :class:`JournalRecord`.  Every chunk runs the drain guards BEFORE
+        its dispatch; a raising guard journals the dispatched prefix as an
+        ``aborted`` record and re-raises."""
+        rows = [(int(op), int(s), int(d)) for op, s, d in rows]
+        idx = self._flush_index
+        self._flush_index += 1
+        spaced = space_war_rows(rows, self.group.locate, self.group.primary,
+                                self.group.total_blocks)
+        if queue is not None:
+            queue.stats.spacer_rows += len(spaced) - len(rows)
+        name = queue.name if queue is not None else "anon"
+        launches = 0
+        top = top_bucket()
+        for ci, lo in enumerate(range(0, len(spaced), top)):
+            chunk = spaced[lo:lo + top]
+            try:
+                check_drain(DrainInfo(
+                    flush=idx, chunk=ci,
+                    n_commands=sum(1 for r in chunk if r[0] >= 0),
+                    n_pools=len(self.pools), engine=self))
+            except Exception:
+                done = spaced[:lo]
+                if any(op >= 0 for op, _, _ in done):
+                    self.journal.append(JournalRecord(
+                        stream=name, index=idx, rows=tuple(done),
+                        launches=launches, aborted=True))
+                raise
+            table = np.full((bucket_size(len(chunk)), 3), OP_NOP, np.int32)
+            table[:len(chunk)] = np.asarray(chunk, np.int32)
+            launches += self._dispatch_table(table)
+        self.journal.append(JournalRecord(
+            stream=name, index=idx, rows=tuple(spaced), launches=launches,
+            war_hazards=(queue.stats.war_hazards if queue else 0),
+            spacer_rows=(queue.stats.spacer_rows if queue else 0)))
+        return launches
+
+    def _touched_pools(self, rows: Sequence[Tuple[int, int, int]]
+                       ) -> Tuple[str, ...]:
+        """Pool names a set of command rows WRITES."""
+        hit = set()
+        for op, s, d in rows:
+            if op < 0:
+                continue
+            _, writes = row_rw(op, s, d, self.group.locate,
+                               self.group.total_blocks)
+            for p, _b in writes:
+                if p == ALL_PRIMARY:
+                    hit.update(self.primary_names)
+                else:
+                    hit.add(self.group.names[p])
+        return tuple(n for n in self.group.names if n in hit)
+
+    def _dispatch_table(self, table: np.ndarray) -> int:
+        """Execute one bucket-padded table as ONE fused dispatch, in place.
+        Returns launches issued (0 for an all-NOP table)."""
+        live = [tuple(r) for r in table.tolist() if r[0] >= 0]
+        if not live:
+            return 0
+        kops.fused_dispatch(tuple(self.pools.values()),
+                            self._get_zero_blocks(), table,
+                            block_axis=self.block_axis,
+                            primary=self.group.primary)
+        self.mark_pools_written(self._touched_pools(live))
+        self.stats.launches += 1
+        return 1
+
+    # ------------------------------------------------------------------
+    # memcopy
+    # ------------------------------------------------------------------
+    def _primary_id(self, b) -> int:
+        """A primary-address-space operand: an int, or a BlockRef naming a
+        primary pool."""
+        if isinstance(b, BlockRef):
+            if b.pool not in self.group.primary_names:
+                raise ValueError(
+                    f"plain copy/init addresses primary pools; "
+                    f"{b.pool!r} is a staging pool (use memcopy_cross)")
+            if not 0 <= int(b.block) < self.num_blocks:
+                raise ValueError(f"block {b.block} out of range for "
+                                 f"primary pools ({self.num_blocks})")
+            return int(b.block)
+        return int(b)
+
+    def memcopy(self, pairs: Sequence[Tuple[object, object]]
+                ) -> Dict[str, int]:
+        """Copy block src -> dst in every primary pool, for each pair.
+        Returns the count per mechanism."""
+        counts = {"fpm": 0, "psm": 0, "baseline": 0}
+        bb = self._block_bytes()
+        for s, d in pairs:
+            s, d = self._primary_id(s), self._primary_id(d)
+            if self.enable_zi and self.alloc.is_zero[s]:
+                # ZI in-cache copy: a lazily-zero source is a metadata move
+                self.alloc.mark_zero([d])
+                self.stats.alias_copies += 1
+                self.stats.bytes_avoided += bb
+                continue
+            # mark now: a later pair of this call may read d as a source
+            self.alloc.mark_written([d])
+            if not self.enable_fpm:
+                op = OP_BASELINE_COPY
+            elif self.alloc.slab_of(s) == self.alloc.slab_of(d):
+                op = OP_FPM_COPY
+            elif self.enable_psm:
+                op = OP_PSM_COPY
+            else:
+                op = OP_BASELINE_COPY
+            if op == OP_FPM_COPY:
+                counts["fpm"] += 1
+                self.stats.fpm_copies += 1
+                self.stats.bytes_fpm += bb
+            elif op == OP_PSM_COPY:
+                counts["psm"] += 1
+                self.stats.psm_copies += 1
+                self.stats.bytes_psm += bb
+            else:
+                counts["baseline"] += 1
+                self.stats.baseline_copies += 1
+                self.stats.bytes_baseline += bb
+            self._cur_queue.enqueue(op, s, d)
+        self._autoflush()
+        return counts
+
+    def memcopy_cross(self, pairs: Sequence[Tuple[object, object]]) -> int:
+        """Pool-to-pool block copies: each ``(BlockRef, BlockRef)`` pair
+        becomes one ``OP_CROSS_POOL_COPY`` row with global ids.  A lazily
+        zero primary source is materialized first."""
+        pairs = list(pairs)
+        if not all(isinstance(s, BlockRef) and isinstance(d, BlockRef)
+                   for s, d in pairs):
+            raise TypeError("memcopy_cross pairs must be (BlockRef, BlockRef)")
+        for s, d in pairs:
+            self.group.gid(s), self.group.gid(d)
+        lazy_srcs = [int(s.block) for s, _ in pairs
+                     if s.pool in self.primary_names
+                     and self.enable_zi and self.alloc.is_zero[s.block]]
+        if lazy_srcs:
+            self.materialize_zeros(lazy_srcs)
+        for s, d in pairs:
+            self._cur_queue.enqueue(OP_CROSS_POOL_COPY, self.group.gid(s),
+                                    self.group.gid(d))
+            self.stats.cross_pool_copies += 1
+            self.stats.bytes_cross += self._pool_block_bytes(d.pool)
+            if d.pool in self.primary_names:
+                self.alloc.mark_written([int(d.block)])
+        self._autoflush()
+        return len(pairs)
+
+    # ------------------------------------------------------------------
+    # bitwise compute rows
+    # ------------------------------------------------------------------
+    def _bitwise_rows(self, triples, verb: str):
+        """``(a, b, dst)`` triples — all BlockRefs, or all primary ints
+        (fanned out to every primary pool) — as global-id rows; lazily
+        zero primary sources materialize first."""
+        rows = []
+        lazy = set()
+        for t in triples:
+            a, b, d = t
+            refs = [isinstance(x, BlockRef) for x in (a, b, d)]
+            if any(refs):
+                if not all(refs):
+                    raise TypeError(f"{verb}: each triple must be all "
+                                    f"BlockRefs or all ints, got {t!r}")
+                for x in (a, b):
+                    if x.pool in self.primary_names and self.enable_zi \
+                            and self.alloc.is_zero[int(x.block)]:
+                        lazy.add(int(x.block))
+                rows.append((self.group.gid(a), self.group.gid(b),
+                             self.group.gid(d), d))
+            else:
+                ai, bi, di = (self._primary_id(x) for x in (a, b, d))
+                for x in (ai, bi):
+                    if self.enable_zi and self.alloc.is_zero[x]:
+                        lazy.add(x)
+                for pname in self.primary_names:
+                    base = self.group.base(pname)
+                    rows.append((base + ai, base + bi, base + di,
+                                 BlockRef(pname, di)))
+        if lazy:
+            self.materialize_zeros(sorted(lazy))
+        return rows
+
+    def _membitwise(self, op: int, rows) -> int:
+        total = self.group.total_blocks
+        check_pack_total(total)
+        for a, b, d, dref in rows:
+            self._cur_queue.enqueue(op, pack_bitwise_src(a, b, total), d)
+            self.stats.bitwise_ops += 1
+            self.stats.bytes_bitwise += self._pool_block_bytes(dref.pool)
+            if dref.pool in self.primary_names:
+                self.alloc.mark_written([int(dref.block)])
+        self._autoflush()
+        return len(rows)
+
+    def memand(self, triples) -> int:
+        """``dst = a & b`` on raw bits, per ``(a, b, dst)`` triple."""
+        return self._membitwise(OP_AND, self._bitwise_rows(triples, "memand"))
+
+    def memor(self, triples) -> int:
+        """``dst = a | b`` on raw bits, per ``(a, b, dst)`` triple."""
+        return self._membitwise(OP_OR, self._bitwise_rows(triples, "memor"))
+
+    def memnot(self, pairs) -> int:
+        """``dst = ~src`` on raw bits, per ``(src, dst)`` pair."""
+        return self._membitwise(
+            OP_NOT, self._bitwise_rows([(s, s, d) for s, d in pairs],
+                                       "memnot"))
+
+    # ------------------------------------------------------------------
+    # staging
+    # ------------------------------------------------------------------
+    def stage_blocks(self, n: int) -> List[int]:
+        """Reserve ``n`` staging slot ids; drains every stream first when
+        the free list runs short (which reclaims drained promotions)."""
+        if not self.staging:
+            raise RuntimeError("engine has no staging pools")
+        if len(self._stage_free) < n:
+            self._flush_streams()
+        if len(self._stage_free) < n:
+            raise RuntimeError(
+                f"staging pool exhausted ({n} slots requested, "
+                f"{len(self._stage_free)} free of {self.stage_capacity})")
+        return [self._stage_free.pop() for _ in range(n)]
+
+    def release_stage_blocks(self, ids: Sequence[int]) -> None:
+        """Return reserved staging slots that were never promoted."""
+        self._stage_free.extend(int(b) for b in ids)
+
+    def promote_staged(self, pairs: Sequence[Tuple[int, object]]) -> int:
+        """Promote staged pages ``(staging_slot, dst primary block)`` into
+        primary blocks: one ``OP_CROSS_POOL_COPY`` per staging pool per
+        block; the slots return to the ring once the promotion drained."""
+        if not self.staging:
+            raise RuntimeError("engine has no staging pools")
+        pairs = [(int(s), self._primary_id(d)) for s, d in pairs]
+        with self.batch():
+            for sname, pname in self.staging.items():
+                self.memcopy_cross([(BlockRef(sname, s), BlockRef(pname, d))
+                                    for s, d in pairs])
+            self.stats.stage_promotions += len(pairs)
+            self._stage_inflight.extend(s for s, _ in pairs)
+        return len(pairs)
+
+    def retire_promotions(self, pairs: Sequence[Tuple[int, object]]) -> int:
+        """Cancel queued promotions ``(staging_slot, dst)`` on every live
+        queue and recycle their slots.  Returns rows retired."""
+        if not self.staging:
+            return 0
+        pairs = [(int(s), self._primary_id(d)) for s, d in pairs]
+        rows = [(OP_CROSS_POOL_COPY,
+                 self.group.base(sname) + s, self.group.base(pname) + d)
+                for sname, pname in self.staging.items()
+                for s, d in pairs]
+        removed = 0
+        for q in list(self._live_queues.values()):
+            removed += q.retire(rows)
+        self.stats.retired_promotions += removed
+        self._after_flush()
+        return removed
+
+    def _after_flush(self) -> None:
+        """A staging slot is reusable exactly when no stream still holds a
+        pending read of it."""
+        if not self._stage_inflight:
+            return
+        sidx = [self.group.index(name) for name in self.staging]
+        queues = list(self._live_queues.values())
+        still: List[int] = []
+        for slot in self._stage_inflight:
+            if any(q.has_pending_read((p, slot)) for q in queues
+                   for p in sidx):
+                still.append(slot)
+            else:
+                self._stage_free.append(slot)
+        self._stage_inflight = still
+
+    # ------------------------------------------------------------------
+    # meminit
+    # ------------------------------------------------------------------
+    def meminit(self, ids: Sequence[object],
+                lazy: Optional[bool] = None) -> int:
+        """Zero blocks.  Returns the number physically zeroed (0 with ZI)."""
+        ids = [self._primary_id(b) for b in ids]
+        if lazy is None:
+            lazy = self.enable_zi
+        if lazy:
+            self.alloc.mark_zero(ids)
+            self.stats.zero_lazy += len(ids)
+            self.stats.bytes_avoided += len(ids) * self._block_bytes()
+            return 0
+        self.materialize_zeros(ids)
+        return len(ids)
+
+    def materialize_zeros(self, ids: Sequence[object]) -> None:
+        """BuZ through the reserved zero row."""
+        ids = [self._primary_id(b) for b in ids]
+        if not ids:
+            return
+        self.stats.zero_materialized += len(ids)
+        self._cur_queue.enqueue_zero(ids)
+        self.alloc.mark_written(ids)
+        self._autoflush()
+
+
+__all__ = ["EngineStats", "RowCloneEngine"]

@@ -1,0 +1,73 @@
+"""K2 — paged decode attention: the CUDA wrapper and its launch counter.
+
+Replaces the TPU kernel ``_paged_attn_kernel`` of
+``repro/kernels/paged_attention.py`` (``paged_attention_slab_pallas``, the
+``pallas_call`` at :98).  The kernel is ``csrc/paged_attention.cu``; its
+plain version is :func:`repro_torch.kernels.ref.paged_attention_slab`.
+
+Bound on the card: bytes (the live K/V bytes read once, over 3.35 TB/s).
+One CTA per (kv head, sequence) compacts the blocks its sequence can see
+and streams only those pages, so blocks no sequence reads cost nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
+
+#: launches of the CUDA decode-attention kernel (not of its plain version)
+COUNTER = LaunchCounter("paged_attention")
+
+#: what the kernel is built for
+HEAD_DIM = 128
+MAX_GROUP = 8
+SMEM_LIMIT = 227 * 1024
+
+
+def paged_attention_slab_cuda(q, k_slab, v_slab, share_mask, base, seq_lens,
+                              *, page: int):
+    """Launch the kernel once; returns (acc (B,H,D), l (B,H), m (B,H)) fp32.
+    Raises on inputs the kernel does not take."""
+    nblk, pg, KVH, D = k_slab.shape
+    B, H, Dq = q.shape
+    if pg != page or Dq != D or D != HEAD_DIM:
+        raise ValueError(f"paged attention kernel: page {pg} vs {page}, "
+                         f"head dim {D} (needs {HEAD_DIM})")
+    if H % KVH or H // KVH > MAX_GROUP:
+        raise ValueError(f"paged attention kernel: {H} heads over {KVH} kv "
+                         f"heads (group <= {MAX_GROUP})")
+    bf16 = torch.bfloat16
+    for name, t, dt in (("q", q, bf16), ("k", k_slab, bf16),
+                        ("v", v_slab, bf16),
+                        ("share_mask", share_mask, torch.int8),
+                        ("base", base, torch.int32),
+                        ("seq_lens", seq_lens, torch.int32)):
+        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"paged attention kernel: {name} must be a "
+                             f"contiguous CUDA {dt} tensor")
+    if tuple(share_mask.shape) != (nblk, B) or base.shape[0] != nblk \
+            or seq_lens.shape[0] != B:
+        raise ValueError("paged attention kernel: table shapes disagree")
+    group = H // KVH
+    if 4 * (group * page + nblk) > SMEM_LIMIT:
+        raise ValueError("paged attention kernel: slab too large for one "
+                         "CTA's block list")
+    acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    fn = library("paged_attention").rc_paged_attention
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check(fn(q.data_ptr(), k_slab.data_ptr(), v_slab.data_ptr(),
+             share_mask.data_ptr(), base.data_ptr(), seq_lens.data_ptr(),
+             acc.data_ptr(), l.data_ptr(), m.data_ptr(), nblk, page, KVH, B,
+             group, float(D ** -0.5), stream_ptr(q.device)),
+          "paged attention kernel")
+    COUNTER.n += 1
+    return acc, l, m
+
+
+__all__ = ["COUNTER", "paged_attention_slab_cuda"]

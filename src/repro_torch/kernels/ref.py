@@ -1,0 +1,167 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function computes what its CUDA kernel computes, in straightforward
+tensor code.  They are the execution path for CPU tensors (the CPU tests
+hold them against the JAX package's oracles in ``repro/kernels/ref.py``),
+and ``chip_smoke.py`` holds every kernel against them on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.opcodes import (BITWISE_OPS, OP_AND, OP_CROSS_POOL_COPY,
+                                      OP_OR, OP_ZERO_INIT, PLAIN_COPY_OPS,
+                                      opspec)
+
+NEG_INF = -1e30
+
+_INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+
+
+def as_primary(primary: Optional[Sequence[bool]],
+               n_pools: int) -> Tuple[bool, ...]:
+    """Normalise the per-pool role vector (``None`` = every pool primary)."""
+    if primary is None:
+        return tuple([True] * n_pools)
+    if len(primary) != n_pools:
+        raise ValueError(f"role vector {primary!r} for {n_pools} pools")
+    return tuple(bool(p) for p in primary)
+
+
+def address_space(sizes: Sequence[int]):
+    """The global-id space of pools with these block counts: the
+    prefix-sum bases, the total, and ``locate(gid) -> (pool, block)``
+    (raises outside the space)."""
+    bases, run = [], 0
+    for n in sizes:
+        bases.append(run)
+        run += int(n)
+
+    def locate(gid: int) -> Tuple[int, int]:
+        if not 0 <= gid < run:
+            raise ValueError(f"global id {gid} outside {run} blocks")
+        for i in range(len(bases) - 1, -1, -1):
+            if gid >= bases[i]:
+                return i, gid - bases[i]
+
+    return tuple(bases), run, locate
+
+
+def _int_view(t: torch.Tensor) -> torch.Tensor:
+    """Same-itemsize integer view: AND/OR/NOT act on raw bit patterns."""
+    return t.view(_INT_OF_SIZE[t.element_size()])
+
+
+def fused_dispatch(pools: Sequence[torch.Tensor],
+                   zero_blocks: Sequence[torch.Tensor], cmds, *,
+                   block_axis: int = 0,
+                   primary: Optional[Sequence[bool]] = None
+                   ) -> Tuple[torch.Tensor, ...]:
+    """Apply one flushed ``(m, 3)`` ``[opcode, src, dst]`` table to every
+    pool, IN PLACE (the JAX version returns new arrays from donated ones).
+
+    Semantics of ``repro/kernels/ref.py fused_dispatch``: every source is
+    gathered from the PRE-flush state, then every destination is written.
+    Plain opcodes move the block in every primary pool; cross-pool and
+    bitwise rows name one ``(pool, block)`` by global ``base[pool] + block``
+    id, so staging pools receive only rows that name them; bitwise rows pack
+    their two sources as ``a * total + b``.  ``OP_NOP`` rows and rows with
+    ``dst == -1`` are skipped.  Returns the pools."""
+    pools = tuple(pools)
+    ba = block_axis
+    primary = as_primary(primary, len(pools))
+    _, total, locate = address_space([p.shape[ba] for p in pools])
+
+    def block(p: int, i: int) -> torch.Tensor:
+        return pools[p].select(ba, i)
+
+    if isinstance(cmds, torch.Tensor):
+        cmds = cmds.cpu().numpy()
+    writes = []
+    for op, s, d in np.asarray(cmds, np.int64).tolist():
+        if op < 0 or d < 0:
+            continue
+        opspec(op)                           # unknown opcodes raise
+        if op in PLAIN_COPY_OPS or op == OP_ZERO_INIT:
+            for p in range(len(pools)):
+                if not primary[p]:
+                    continue
+                val = (zero_blocks[p][0].to(pools[p].dtype)
+                       if op == OP_ZERO_INIT else block(p, s).clone())
+                writes.append((p, d, val))
+        elif op == OP_CROSS_POOL_COPY:
+            (ps, ls), (pd, ld) = locate(s), locate(d)
+            writes.append((pd, ld, block(ps, ls).clone()))
+        elif op in BITWISE_OPS:
+            a, b = divmod(s, total)
+            (pa, la), (pb, lb), (pd, ld) = locate(a), locate(b), locate(d)
+            ai = _int_view(block(pa, la))
+            bi = _int_view(block(pb, lb))
+            r = ai & bi if op == OP_AND else (ai | bi if op == OP_OR
+                                              else ~ai)
+            writes.append((pd, ld, r.view(pools[pd].dtype)))
+    for p, i, val in writes:
+        block(p, i).copy_(val)
+    return pools
+
+
+def paged_attention_slab(q, k_slab, v_slab, share_mask, base, seq_lens, *,
+                         page: int):
+    """Decode attention of one query per sequence over a pool slab, all
+    pairs (``repro/kernels/ref.py paged_attention_slab``).
+
+    q (B, H, D); k_slab / v_slab (nblk, page, KVH, D); share_mask (nblk, B);
+    base (nblk,); seq_lens (B,) including the current token.  Returns the
+    unnormalised acc (B, H, D) and l, m (B, H), fp32; a sequence with no
+    visible position gets m = -1e30, l = 0, acc = 0."""
+    nblk, pg, KVH, D = k_slab.shape
+    B, H, _ = q.shape
+    group = H // KVH
+    qg = q.to(k_slab.dtype).float().reshape(B, KVH, group, D)
+    k = k_slab.float()
+    v = v_slab.float()
+    s = torch.einsum("bkgd,npkd->bnkgp", qg, k) * (D ** -0.5)
+    pos = base.long()[:, None] + torch.arange(pg, device=q.device)[None, :]
+    valid = (share_mask.T > 0)[:, :, None] & \
+        (pos[None] < seq_lens.long()[:, None, None])          # (B, nblk, pg)
+    vm = valid[:, :, None, None, :]
+    s = torch.where(vm, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=(1, 4))                                    # (B, KVH, g)
+    p = torch.exp(s - m[:, None, :, :, None])
+    p = torch.where(vm, p, torch.zeros_like(p))
+    l = p.sum(dim=(1, 4))
+    acc = torch.einsum("bnkgp,npkd->bkgd", p, v)
+    return acc.reshape(B, H, D), l.reshape(B, H), m.reshape(B, H)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
+    """Prefill attention, q (B, H, Sq, D) against k / v (B, KVH, Skv, D):
+    causal plus the prefix-LM exception, GQA ``h // group``, fp32 softmax,
+    output in ``q.dtype``; a fully masked row gives 0
+    (``repro/kernels/flash_attention.py``)."""
+    B, H, Sq, D = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    group = H // KVH
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    s = (q.float() @ kk.transpose(-1, -2)) * (D ** -0.5)
+    rows = torch.arange(Sq, device=q.device)[:, None]
+    cols = torch.arange(Skv, device=q.device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = cols <= rows
+        if prefix_len:
+            ok = ok | (cols < prefix_len)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    return ((p @ vv) / l.clamp_min(1e-30)).to(q.dtype)
+
+
+__all__ = ["NEG_INF", "as_primary", "address_space", "fused_dispatch",
+           "paged_attention_slab", "flash_attention"]

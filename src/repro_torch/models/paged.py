@@ -1,0 +1,56 @@
+"""Paged KV-cache device math (port of ``repro/models/paged.py``, one
+device): the serving pools and the per-layer append-then-attend step."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core.poolspec import PoolGroup, PoolSpec
+from repro_torch.kernels import ops as kops
+
+
+def make_serving_pools(num_layers: int, nblk: int, page: int, kv_heads: int,
+                       head_dim: int, dtype: torch.dtype, device, *,
+                       stage_nblk: int
+                       ) -> Tuple[Dict[str, torch.Tensor], PoolGroup]:
+    """Layer-stacked ``(L, nblk, page, KVH, D)`` K/V pools (block axis 1)
+    plus their staging pools of ``stage_nblk`` slots, where prefill pages
+    park until ``OP_CROSS_POOL_COPY`` promotes them.  Returns the pools and
+    the :class:`PoolGroup` of the engine's address space."""
+    block_shape = (num_layers, page, kv_heads, head_dim)
+
+    def zeros(n):
+        return torch.zeros((num_layers, n, page, kv_heads, head_dim),
+                           dtype=dtype, device=device)
+
+    pools = {"k": zeros(nblk), "v": zeros(nblk),
+             "k_stage": zeros(stage_nblk), "v_stage": zeros(stage_nblk)}
+    specs = [PoolSpec("k", nblk, block_shape, dtype),
+             PoolSpec("v", nblk, block_shape, dtype),
+             PoolSpec("k_stage", stage_nblk, block_shape, dtype,
+                      role="staging", paired="k"),
+             PoolSpec("v_stage", stage_nblk, block_shape, dtype,
+                      role="staging", paired="v")]
+    return pools, PoolGroup(specs)
+
+
+def attend_append_local(q, k_new, v_new, k_slab, v_slab, rows, blk_ids,
+                        offsets, share_mask, base, seq_lens, *, page: int):
+    """Write this step's K/V into its block, IN PLACE (the JAX version
+    returns updated slabs), then attend over the slab.
+
+    q (B, H, D); k_new / v_new (B, KVH, D); k_slab / v_slab
+    (nblk, page, KVH, D); ``rows`` (n,) the batch slots that hold a
+    sequence and ``blk_ids`` / ``offsets`` (n,) where their token lands
+    (the JAX version drops the -1 ids of empty slots in its scatter; the
+    caller drops them here, once per step); seq_lens (B,) including the
+    new token.  Returns the normalised output (B, H, D) in q.dtype."""
+    k_slab[blk_ids, offsets] = k_new[rows].to(k_slab.dtype)
+    v_slab[blk_ids, offsets] = v_new[rows].to(v_slab.dtype)
+    acc, l, _ = kops.paged_attention_slab(q, k_slab, v_slab, share_mask,
+                                          base, seq_lens, page=page)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+__all__ = ["make_serving_pools", "attend_append_local"]

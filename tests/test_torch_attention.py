@@ -1,0 +1,170 @@
+"""The port's attention (the plain versions of K2 and K3, which the CPU
+runs) against the JAX package's oracles and its Pallas kernels in
+interpret mode.  Tolerances follow tests/test_kernels.py: atol 1e-4 for
+fp32 (summation order only), 2e-2 for bf16 outputs (one bf16 ulp near 2-4).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_contract import to_torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.paged_attention import paged_attention_slab_pallas
+from repro.models.attention import MaskInfo
+from repro.models.attention import flash_attention as jax_model_flash
+from repro_torch.kernels import ops
+from repro_torch.models.attention import prefill_attention
+
+NEG_INF = -1e30
+
+
+def _paged_case(seed, B=4, H=8, KVH=2, D=64, page=16, nblk=16):
+    """Pool slab with a CoW-shared prefix block (sequences 0 and 1), private
+    tails, ragged lengths, and an empty sequence (slot B-1)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((nblk, page, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((nblk, page, KVH, D)).astype(np.float32)
+    mask = np.zeros((nblk, B), np.int8)
+    base = np.zeros(nblk, np.int32)
+    lens = np.zeros(B, np.int32)
+    free = list(rng.permutation(nblk))
+    shared = free.pop()
+    for b in range(B - 1):
+        blocks = ([shared] if b < 2 else []) + \
+            [free.pop() for _ in range(int(rng.integers(1, 3)))]
+        for j, blk in enumerate(blocks):
+            mask[blk, b] = 1
+            base[blk] = j * page
+        lens[b] = (len(blocks) - 1) * page + int(rng.integers(1, page + 1))
+    return q, k, v, mask, base, lens
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_paged_attention_matches_reference_and_pallas(seed):
+    q, k, v, mask, base, lens = _paged_case(seed)
+    page = k.shape[1]
+    got = ops.paged_attention_slab(*(to_torch(x) for x in
+                                     (q, k, v, mask, base, lens)),
+                                   page=page)
+    want_ref = jref.paged_attention_slab(*(jnp.asarray(x) for x in
+                                           (q, k, v, mask, base, lens)),
+                                         page=page)
+    want_pl = paged_attention_slab_pallas(*(jnp.asarray(x) for x in
+                                            (q, k, v, mask, base, lens)),
+                                          page=page, block_chunk=4,
+                                          interpret=True)
+    for want in (want_ref, want_pl):
+        for name, a, b in zip(("acc", "l", "m"), got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                       rtol=1e-5, err_msg=name)
+    acc, l, m = (t.numpy() for t in got)
+    # the empty slot: m = -1e30 (not -inf), l = 0, acc = 0
+    assert (m[-1] == np.float32(NEG_INF)).all()
+    assert (l[-1] == 0).all() and (acc[-1] == 0).all()
+
+
+def test_paged_attention_shared_block_serves_every_reader():
+    """A CoW-shared block contributes to both sharers: dropping the second
+    reader's column changes its output and nobody else's."""
+    q, k, v, mask, base, lens = _paged_case(11)
+    page = k.shape[1]
+    full = ops.paged_attention_slab(*(to_torch(x) for x in
+                                      (q, k, v, mask, base, lens)),
+                                    page=page)
+    cut = mask.copy()
+    shared = int(np.nonzero(mask[:, 0] & mask[:, 1])[0][0])
+    cut[shared, 1] = 0
+    part = ops.paged_attention_slab(*(to_torch(x) for x in
+                                      (q, k, v, cut, base, lens)),
+                                    page=page)
+    assert not torch.allclose(full[0][1], part[0][1])
+    torch.testing.assert_close(full[0][0], part[0][0])
+
+
+@pytest.mark.parametrize("S", [50, 77, 128])
+@pytest.mark.parametrize("prefix", [0, 9])
+def test_prefill_attention_matches_reference_ragged(S, prefix):
+    """Ragged prompt lengths against the naive oracle (fp32, atol 1e-4)."""
+    rng = np.random.default_rng(S + prefix)
+    B, H, KVH, D = 1, 6, 2, 32
+    q = rng.standard_normal((B, H, S, D)).astype(np.float32)
+    k = rng.standard_normal((B, KVH, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, KVH, S, D)).astype(np.float32)
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    want = jref.flash_attention_ref(
+        *(jnp.asarray(x).transpose(0, 2, 1, 3) for x in (q, k, v)), pos,
+        pos, jnp.ones((B, S), bool), causal=True,
+        prefix_len=prefix).transpose(0, 2, 1, 3)
+    got = ops.flash_attention(to_torch(q), to_torch(k), to_torch(v),
+                              causal=True, prefix_len=prefix)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,atol", [(jnp.float32, 1e-4),
+                                        (jnp.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal,prefix", [(True, 0), (True, 16),
+                                           (False, 0)])
+def test_prefill_attention_matches_pallas_interpret(dtype, atol, causal,
+                                                    prefix):
+    """Divisible S against the TPU kernel body in interpret mode."""
+    B, H, KVH, S, D = 2, 4, 2, 64, 32
+    keys = jax.random.split(jax.random.key(21), 3)
+    q = jax.random.normal(keys[0], (B, H, S, D)).astype(dtype)
+    k = jax.random.normal(keys[1], (B, KVH, S, D)).astype(dtype)
+    v = jax.random.normal(keys[2], (B, KVH, S, D)).astype(dtype)
+    want = flash_attention_pallas(q, k, v, causal=causal, prefix_len=prefix,
+                                  bq=32, bk=32, interpret=True)
+    got = ops.flash_attention(to_torch(q), to_torch(k), to_torch(v),
+                              causal=causal, prefix_len=prefix)
+    assert got.dtype == to_torch(q).dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=atol)
+
+
+def test_model_prefill_attention_matches_model_scan():
+    """The model-layout entry (B, S, H, D) against the JAX model's scan
+    (models/attention.py), ragged S, fp32 (atol 1e-4)."""
+    rng = np.random.default_rng(5)
+    B, S, H, KVH, D = 2, 45, 4, 2, 32
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    want = jax_model_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           pos, pos, jnp.ones((B, S), bool), MaskInfo(True, 0))
+    got = prefill_attention(to_torch(q), to_torch(k), to_torch(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_match_plain_on_card():
+    """K2 and K3 on the card against their plain versions (bf16 inputs;
+    K2 atol 2e-3 on the normalised output, K3 atol 2e-2 on bf16 output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    q, k, v, mask, base, lens = _paged_case(1, B=4, H=12, KVH=4, D=128,
+                                            page=64, nblk=16)
+    args = [to_torch(x).cuda() for x in (q, k, v, mask, base, lens)]
+    for i in range(3):
+        args[i] = args[i].bfloat16()
+    acc, l, m = ops.paged_attention_slab(*args, page=64)
+    acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=64,
+                                               use_kernel=False)
+    torch.testing.assert_close(acc / l.clamp_min(1e-30)[..., None],
+                               acc_p / l_p.clamp_min(1e-30)[..., None],
+                               atol=2e-3, rtol=0)
+    torch.testing.assert_close(m, m_p, atol=2e-3, rtol=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for S in (64, 100):
+        qq = torch.randn((1, 8, S, 128), generator=g, device="cuda").bfloat16()
+        kk = torch.randn((1, 2, S, 128), generator=g, device="cuda").bfloat16()
+        vv = torch.randn((1, 2, S, 128), generator=g, device="cuda").bfloat16()
+        torch.testing.assert_close(
+            ops.flash_attention(qq, kk, vv).float(),
+            ops.flash_attention(qq, kk, vv, use_kernel=False).float(),
+            atol=2e-2, rtol=0)

@@ -1,0 +1,110 @@
+"""The PyTorch port stands alone: it imports neither JAX nor anything of the
+JAX package ``repro`` (not even its JAX-free modules), and neither does
+``chip_smoke.py``.  A CUDA kernel wrapper refuses CPU tensors instead of
+quietly running something else."""
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+#: an import of jax or of the reference package; ``repro_torch`` does not
+#: match (``repro`` must end the module name or be followed by a dot)
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|,|$)"
+    r"|from\s+repro(\.|\s))", re.M)
+
+
+def _modules():
+    import repro_torch
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_import_everything_loads_no_jax_or_reference():
+    """Import the package and every submodule, each as the first import of
+    the port, in a fresh interpreter: every import succeeds, and no
+    ``jax*`` module and no ``repro`` / ``repro.*`` module loads."""
+    names = _modules()
+    assert "repro_torch.launch.serve" in names and len(names) > 15
+    # each module is imported FIRST once (the port's own modules are
+    # dropped before each import), so no import order hides a cycle
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}:\n"
+            "    for m in [m for m in sys.modules "
+            "if m.startswith('repro_torch')]:\n"
+            "        del sys.modules[m]\n"
+            "    importlib.import_module(n)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m.startswith('jaxlib') or "
+            "m == 'repro' or m.startswith('repro.'))\n"
+            "print('BAD=' + ','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "BAD=\n" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]))
+def test_source_has_no_forbidden_import(path):
+    """No source file of the port, and not chip_smoke.py, names jax or the
+    reference package in an import statement."""
+    text = (ROOT / path).read_text()
+    hits = FORBIDDEN.findall(text)
+    assert not hits, f"{path}: {hits}"
+
+
+def test_pattern_tells_the_port_from_the_reference():
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("from repro.core import X")
+    assert FORBIDDEN.search("import repro")
+    assert FORBIDDEN.search("from repro import configs")
+    assert not FORBIDDEN.search("import repro_torch")
+    assert not FORBIDDEN.search("from repro_torch.core import X")
+
+
+def test_kernel_request_on_cpu_tensor_raises():
+    """use_kernel=True on a CPU tensor raises: the plain version runs only
+    for CPU tensors or under an explicit plain override."""
+    from repro_torch.kernels import ops
+    q = torch.zeros((1, 2, 4, 128))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q, use_kernel=True)
+    assert not ops.use_kernel_for(q, None)
+    with ops.plain_versions():
+        assert not ops.use_kernel_for(q, None)
+
+
+def test_entry_points_default_to_the_card():
+    """Without a GPU an entry point that was not asked for the CPU raises
+    rather than silently running there."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from repro_torch.configs import get_config
+    from repro_torch.weights import init_params
+    with pytest.raises(RuntimeError):
+        init_params(get_config("llama3.2-3b").reduced(), seed=0)
+
+
+def test_chip_smoke_refuses_without_gpu():
+    """chip_smoke.py exits non-zero and prints nothing on stdout when no
+    GPU is visible."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=300)
+    assert out.returncode != 0
+    assert out.stdout == ""

@@ -1,0 +1,96 @@
+"""The port's dense model against the JAX model on the reduced llama3.2-3b
+configuration (4 layers, d_model 128, fp32), with the JAX weights loaded
+through ``from_jax_params``.
+
+Tolerances: KV pages atol 1e-4 (fp32; attention and matmuls sum in another
+order).  Logits atol 4e-3: both heads are bf16 products (``lm.py:96``), so
+each side rounds its logits to bf16, and a logit whose fp32 sums straddle
+a rounding boundary differs by one bf16 ulp: at most 2**-8 = 3.9e-3 for
+|logit| < 1, which every logit of these random weights is.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_contract import to_torch
+
+from repro.configs import get_config as jget_config
+from repro.models import build_model, split_params
+from repro_torch.configs import get_config
+from repro_torch.models.lm import kv_to_pools
+from repro_torch.weights import from_jax_params
+
+LOGIT_ATOL = 4e-3
+KV_ATOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = jget_config("llama3.2-3b").reduced()
+    jmodel = build_model(jcfg)
+    params, _ = split_params(jmodel.init_params(jax.random.key(0)))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    cfg = get_config("llama3.2-3b").reduced()
+    return jmodel, params, from_jax_params(tree, cfg, device="cpu"), cfg
+
+
+@pytest.mark.parametrize("S", [24, 70])
+def test_prefill_logits_and_kv_pages(models, S):
+    jmodel, params, tmodel, cfg = models
+    prompt = np.random.default_rng(S).integers(2, cfg.vocab_size, (1, S))
+    logits_j, st = jmodel.prefill(params, {"tokens": jnp.asarray(prompt)},
+                                  None, margin_tokens=0)
+    logits_t, k, v = tmodel.prefill(torch.from_numpy(prompt))
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
+                               atol=LOGIT_ATOL)
+    page = tmodel.page
+    nper = st["k_pools"].shape[1]
+    for name, kv in (("k_pools", k), ("v_pools", v)):
+        np.testing.assert_allclose(
+            kv_to_pools(kv, page, torch.float32, nper).numpy(),
+            np.asarray(st[name]), atol=KV_ATOL, rtol=1e-4, err_msg=name)
+
+
+def test_decode_steps_over_paged_state(models):
+    """Two decode steps over the paged state a batched prefill built (the
+    identity block layout, one spare page per sequence): logits match and
+    the appended K/V land in the same slots."""
+    jmodel, params, tmodel, cfg = models
+    prompts = np.random.default_rng(1).integers(2, cfg.vocab_size, (3, 30))
+    logits_j, st = jmodel.prefill(params, {"tokens": jnp.asarray(prompts)},
+                                  None)
+    kp, vp = to_torch(st["k_pools"]), to_torch(st["v_pools"])
+    table, mask, base = (to_torch(st[n]) for n in
+                         ("block_table", "share_mask", "base"))
+    lens = to_torch(st["seq_lens"])
+    tok = np.asarray(jnp.argmax(logits_j, -1), np.int32)
+    for _ in range(2):
+        logits_j, st = jmodel.decode_step(params, st, jnp.asarray(tok), None)
+        logits_t = tmodel.decode_step(torch.from_numpy(tok.copy()).long(),
+                                      lens, kp, vp, table, mask, base)
+        lens = lens + 1
+        np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),
+                                   atol=LOGIT_ATOL)
+        tok = np.asarray(jnp.argmax(logits_j, -1), np.int32)
+    np.testing.assert_allclose(kp.numpy(), np.asarray(st["k_pools"]),
+                               atol=KV_ATOL, rtol=1e-4)
+    np.testing.assert_allclose(vp.numpy(), np.asarray(st["v_pools"]),
+                               atol=KV_ATOL, rtol=1e-4)
+
+
+def test_init_params_is_seeded_and_scaled():
+    """init_params draws from a torch.Generator: the same seed gives the
+    same weights, another seed others; scales follow the reference's
+    initialisers (embedding 0.02, dense 1/sqrt(in), norm gains 0)."""
+    from repro_torch.weights import init_params
+    cfg = get_config("llama3.2-3b").reduced()
+    a = init_params(cfg, seed=3, device="cpu")
+    b = init_params(cfg, seed=3, device="cpu")
+    c = init_params(cfg, seed=4, device="cpu")
+    assert torch.equal(a.layers[0].wq, b.layers[0].wq)
+    assert not torch.equal(a.layers[0].wq, c.layers[0].wq)
+    assert abs(float(a.embed.std()) - 0.02) < 2e-3
+    assert abs(float(a.layers[1].w_down.std()) - cfg.d_ff ** -0.5) < 5e-3
+    assert float(a.layers[2].ln1.abs().max()) == 0.0
