@@ -22,8 +22,25 @@ Phases (each raises on failure; the script then exits non-zero):
    sequence into 2, run 15 more rounds.  Checks the launch counts of every
    kernel on that run, finite logits, and the first round's logits against
    the same admissions and round run through the plain versions on the card.
+6. K5a (FPM copy), K5b (pool-to-pool copy) and K6 (BuZ zero-init) against
+   their plain versions, bitwise, at full width: flat pools of 14,336
+   llama3.2-3b K/V pages ``(14336, 64, 8, 128)`` bf16 and phase 2's
+   layer-stacked ``(28, 512, 64, 8, 128)``, m = 8 and 256 blocks per call,
+   ``-1`` padding and an in-call write-after-read pair; kernel, plain and
+   library-call times beside the byte bound.
+7. the fused drain against the per-mechanism fan-out: one fixed op script
+   (``launch/mechanisms.py ab_program``: every mechanism, 419 rows) through
+   two engines over identical full-width flat pools; pools bitwise equal, 1
+   launch per flush fused and ``AB_FANOUT_LAUNCHES`` fanned out (the count
+   the CPU tests pin against the JAX engine); ms per flush of each.  The
+   fan-out run is K5a's, K5b's and K6's main path: their launch counts are
+   read around it.
+8. Table 1 (``launch/mechanisms.py run``) on a phase-6 pool, m = 8 and 256,
+   and Fig. 2 (``launch/applications.py run``) at llama3.2-3b full width
+   with phase 5's weights, RowClone off and on.
 
-The last two lines are the ``kernels`` JSON and the device JSON.
+The last three lines are the ``kernels`` JSON, the card's name and power
+limit, and the device JSON.
 """
 from __future__ import annotations
 
@@ -68,21 +85,32 @@ def time_ms(fn, reps: int = 10, scrub=None) -> float:
     """Median device time of ``fn`` over ``reps`` launches, CUDA events;
     ``scrub`` (a large buffer) is rewritten before each launch so that the
     call finds the 50 MB L2 cold, as the serving path does."""
-    for _ in range(2):
-        fn()
+    from repro_torch.launch.mechanisms import time_ms as timed
+    return timed(fn, torch.device("cuda"), reps=reps, scrub=scrub)
+
+
+def device_ms(fn, key: str = "", reps: int = 5):
+    """Device time per call of ``fn`` from ``torch.profiler``: the summed
+    self device time of the CUDA events whose name holds ``key`` (every
+    device event for ``key=""``), over ``reps`` calls; None when the
+    profiler recorded no device time.  Unlike :func:`time_ms` it leaves
+    out the host work between two launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if scrub is not None:
-            scrub.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0.0)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and key in e.key)
+    return total / reps / 1e3 if total else None
+
+
+def _fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def phase_device():
@@ -407,7 +435,246 @@ def phase_serve():
         f"{SERVE_RTOL * scale:.3e}); argmax agrees on {agree}/{len(sids)}")
     if not max(errs) <= SERVE_RTOL * scale:
         raise AssertionError("serve logits differ from the plain versions")
+    del plain
+    return launches, cfg, params
+
+
+# ---------------------------------------------------------------------------
+# phases 6-8: the per-mechanism slice
+# ---------------------------------------------------------------------------
+
+#: flat pools of phase 6/7: the 28 x 512 pages phase 5's K pool holds
+FLAT_NBLK = 28 * MAX_SEQS * MAX_BLOCKS_PER_SEQ
+#: rows of one fan-out call (the engine's max_requests)
+MAX_REQUESTS = 256
+
+
+def _bf16_pool(shape, gen):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def _copy_ids(rng, nblk, m, n_src=None):
+    """m live ``[src, dst]`` rows (dsts distinct, none a source) with one
+    write-after-read pair (row m // 2 rewrites row 0's source, in-pool
+    only), padded with -1 rows to 256 (m = 8) or by 8 rows (m = 256)."""
+    if n_src is None:
+        perm = rng.permutation(nblk)
+        srcs, dsts = perm[:m], perm[m:2 * m].copy()
+        dsts[m // 2] = srcs[0]
+    else:
+        srcs = rng.permutation(n_src)[:m]
+        dsts = rng.permutation(nblk)[:m]
+    pad = max(MAX_REQUESTS - m, 8)
+    live = np.stack([srcs, dsts], 1)
+    return np.concatenate([live, np.full((pad, 2), -1)]).astype(np.int32)
+
+
+def _bitwise_equal(a, b) -> bool:
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def phase_copy_kernels(scrub):
+    """Phase 6: K5a, K5b, K6 against their plain versions; timings."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+    page_bytes = 64 * 8 * 128 * 2
+    shapes = {0: (FLAT_NBLK, 64, 8, 128),
+              1: (28, MAX_SEQS * MAX_BLOCKS_PER_SEQ, 64, 8, 128)}
+    pools = {ba: (_bf16_pool(shp, gen), _bf16_pool(shp, gen))
+             for ba, shp in shapes.items()}
+    rows = {}
+    for ba, (a, b) in pools.items():
+        nblk = a.shape[ba]
+        L = a.shape[0] if ba == 1 else 1
+        for m in (8, MAX_REQUESTS):
+            ids = _copy_ids(rng, nblk, m)
+            xids = _copy_ids(rng, nblk, m, n_src=nblk)
+            zids = ids[:, 1].copy()
+            live = ids[ids[:, 1] >= 0]
+            xlive = xids[xids[:, 1] >= 0]
+            t_src, t_dst = (torch.from_numpy(live[:, i].astype(np.int64))
+                            .cuda() for i in (0, 1))
+            x_src, x_dst = (torch.from_numpy(xlive[:, i].astype(np.int64))
+                            .cuda() for i in (0, 1))
+            calls = {
+                "fpm_copy": (
+                    lambda p, k: ops.fpm_copy(p, ids, block_axis=ba,
+                                              use_kernel=k),
+                    lambda p: p.index_copy_(ba, t_dst,
+                                            p.index_select(ba, t_src)), 2),
+                "fpm_copy_cross": (
+                    lambda p, k: ops.fpm_copy_cross(p, b, xids,
+                                                    block_axis=ba,
+                                                    use_kernel=k),
+                    lambda p: p.index_copy_(ba, x_dst,
+                                            b.index_select(ba, x_src)), 2),
+                "zero_init": (
+                    lambda p, k: ops.meminit_zero(p, zids, block_axis=ba,
+                                                  use_kernel=k),
+                    lambda p: p.index_fill_(ba, t_dst, 0), 1),
+            }
+            for name, (fn, lib, passes) in calls.items():
+                want = fn(a.clone(), False)
+                got = fn(a.clone(), True)
+                torch.cuda.synchronize()
+                if not _bitwise_equal(got, want):
+                    raise AssertionError(f"{name} differs from its plain "
+                                         f"version (axis {ba}, m={m})")
+                del want, got
+                ms = time_ms(lambda: fn(a, True), scrub=scrub)
+                plain_ms = time_ms(lambda: fn(a, False), reps=5,
+                                   scrub=scrub)
+                lib_ms = time_ms(lambda: lib(a), scrub=scrub)
+                dev = device_ms(lambda: fn(a, True), key="move_kernel")
+                nbytes = passes * m * L * page_bytes
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                log(f"[{name}] axis {ba} m={m}: bitwise equal to plain "
+                    f"(padding, WAR pair); kernel {ms:.4f} ms (device "
+                    f"only {_fmt_ms(dev)}), plain {plain_ms:.4f} ms, "
+                    f"library {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                    f"({nbytes} bytes)")
+                rows[(name, ba, m)] = dict(ms=ms, plain_ms=plain_ms,
+                                           library_ms=lib_ms,
+                                           bound_ms=bound)
+        # pool-to-pool copy within ONE pool: its WAR pair is ordered too
+        ids = _copy_ids(rng, nblk, 8)
+        want = ops.fpm_copy_cross(a.clone(), a, ids, block_axis=ba,
+                                  use_kernel=False)
+        c = a.clone()
+        got = ops.fpm_copy_cross(c, c, ids, block_axis=ba, use_kernel=True)
+        torch.cuda.synchronize()
+        if not _bitwise_equal(got, want):
+            raise AssertionError(f"fpm_copy_cross within one pool differs "
+                                 f"(axis {ba})")
+        del want, got, c
+    sources = {"fpm_copy": ("fpm_copy.cu", "src/repro/kernels/fpm_copy.py:60"),
+               "fpm_copy_cross": ("fpm_copy.cu",
+                                  "src/repro/kernels/fpm_copy.py:101"),
+               "zero_init": ("zero_init.cu",
+                             "src/repro/kernels/zero_init.py:46")}
+    out = []
+    for name, (src, replaces) in sources.items():
+        r = rows[(name, 0, MAX_REQUESTS)]
+        out.append(dict(name=name, source=f"src/repro_torch/csrc/{src}",
+                        replaces=replaces, max_abs_err=0.0,
+                        bound_by="bytes", **r))
+    return out, pools[0][0]
+
+
+def phase_ab(flat):
+    """Phase 7: the fused drain against the fan-out over identical pools.
+    Returns the launch counts of the fan-out run (the copy kernels' main
+    path)."""
+    from repro_torch.core.allocator import SubarrayAllocator
+    from repro_torch.core.rowclone import RowCloneEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mechanisms
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    v = _bf16_pool(flat.shape, gen)
+    stage = [_bf16_pool((64,) + tuple(flat.shape[1:]), gen)
+             for _ in range(2)]
+
+    def engine(use_fused):
+        pools = {"k": flat.clone(), "v": v.clone(),
+                 "k_stage": stage[0].clone(), "v_stage": stage[1].clone()}
+        return RowCloneEngine(pools, SubarrayAllocator(FLAT_NBLK, 4),
+                              use_fused=use_fused,
+                              staging={"k_stage": "k", "v_stage": "v"})
+
+    prog = mechanisms.ab_program(FLAT_NBLK)
+    fanout, fused = engine(False), engine(True)
+    counters = ops.KERNEL_COUNTERS
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    mechanisms.drive(fanout, prog)
+    torch.cuda.synchronize()
+    launches = {n: c.n for n, c in counters.items()}
+    for c in counters.values():
+        c.reset()
+    mechanisms.drive(fused, prog)
+    torch.cuda.synchronize()
+    fused_launches = {n: c.n for n, c in counters.items()}
+    bad = [n for n in fused.pools
+           if not _bitwise_equal(fused.pools[n], fanout.pools[n])]
+    rows = fused.journal.records[-1].rows
+    n_live = sum(1 for r in rows if r[0] >= 0)
+    n_fused, n_fanout = fused.stats.launches, fanout.stats.launches
+    checks = {
+        "pools bitwise equal": not bad,
+        "fused: 1 launch per flush": n_fused == 1
+        and fused_launches["fused_dispatch"] == 1,
+        "fan-out launches == CPU-pinned count":
+            n_fanout == mechanisms.AB_FANOUT_LAUNCHES,
+        "same table": fanout.journal.records[-1].rows == rows,
+        "K5a, K5b, K6 launched": all(launches[k] > 0 for k in (
+            "fpm_copy", "fpm_copy_cross", "zero_init")),
+        "no fused launch on the fan-out": launches["fused_dispatch"] == 0,
+    }
+    # ms per flush: re-drain the same table, in turns
+    times = {True: [], False: []}
+    for use_fused in (True, False, False, True, True, False):
+        eng = fused if use_fused else fanout
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._drain_rows(rows)
+        torch.cuda.synchronize()
+        times[use_fused].append((time.perf_counter() - t0) * 1e3)
+    dev = {f: device_ms(lambda: e._drain_rows(rows), reps=3)
+           for f, e in ((True, fused), (False, fanout))}
+    log(f"[A/B] device time per flush (profiler): fused "
+        f"{_fmt_ms(dev[True])}, fan-out {_fmt_ms(dev[False])}")
+    log(f"[A/B] {n_live} rows in one flush: fused {n_fused} "
+        f"launch, fan-out {n_fanout} launches (pinned "
+        f"{mechanisms.AB_FANOUT_LAUNCHES}); ms per flush (host clock, "
+        f"synchronised, median of 3): fused "
+        f"{float(np.median(times[True])):.3f}, fan-out "
+        f"{float(np.median(times[False])):.3f}; pools bitwise equal: "
+        f"{not bad}")
+    log("[A/B] launch counters, fan-out run: " + " ".join(
+        f"{k}={launches[k]}" for k in ("fused_dispatch", "fpm_copy",
+                                       "fpm_copy_cross", "zero_init"))
+        + "; fused run: " + " ".join(
+        f"{k}={fused_launches[k]}" for k in ("fused_dispatch", "fpm_copy",
+                                             "fpm_copy_cross",
+                                             "zero_init")))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"A/B checks failed: {failed} (pools {bad})")
     return launches
+
+
+def phase_table1(flat):
+    """Phase 8a: Table 1 on a phase-6 pool."""
+    from repro_torch.launch import mechanisms
+    for m in (8, MAX_REQUESTS):
+        for r in mechanisms.run(pool=flat, m=m):
+            log("[table1] " + json.dumps(r))
+
+
+def phase_fig2(cfg, params):
+    """Phase 8b: Fig. 2 at full width, RowClone off and on."""
+    from repro_torch.launch import applications
+    rows = applications.run(cfg, params, device="cuda")
+    for r in rows:
+        log("[fig2] " + json.dumps(r))
+    by = {(r["app"], r["rowclone"]): r for r in rows}
+    checks = {
+        "forkbench: on moves by FPM what off moves through compute":
+            by[("forkbench", "on")]["bytes_dma"]
+            == by[("forkbench", "off")]["bytes_compute"] > 0,
+        "forkbench: 30 tokens": by[("forkbench", "on")]["tokens"] == 30,
+        "buz-init: 24 blocks lazily zeroed on, materialised off":
+            by[("buz-init", "on")]["zero_lazy"] == 24
+            and by[("buz-init", "off")]["zero_mat"] == 24,
+        "migrate: on moves by PSM what off moves through compute":
+            by[("migrate", "on")]["bytes_ici"]
+            == by[("migrate", "off")]["bytes_compute"] > 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"Fig-2 checks failed: {failed}")
 
 
 def main() -> int:
@@ -420,9 +687,19 @@ def main() -> int:
     smi = phase_device()
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     kernels = [phase_k1(scrub), phase_k2(scrub), phase_k3(scrub)]
+    torch.cuda.empty_cache()
+    launches, cfg, params = phase_serve()
+    torch.cuda.empty_cache()
+    copy_kernels, flat = phase_copy_kernels(scrub)
     del scrub
     torch.cuda.empty_cache()
-    launches = phase_serve()
+    launches.update({k: v for k, v in phase_ab(flat).items()
+                     if k in ("fpm_copy", "fpm_copy_cross", "zero_init")})
+    phase_table1(flat)
+    del flat
+    torch.cuda.empty_cache()
+    phase_fig2(cfg, params)
+    kernels += copy_kernels
     for k in kernels:
         k["route"] = "cuda"
         k["launches"] = launches[k["name"]]

@@ -11,7 +11,7 @@ engine's device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,14 +53,17 @@ class PagedCoWCache:
         return self._free_slots.pop()
 
     # ------------------------------------------------------------------
-    def new_sequence(self, prompt_len: int = 0) -> int:
+    def new_sequence(self, prompt_len: int = 0,
+                     prefer_slab: Optional[int] = None) -> int:
         """Admit a sequence: reserve a batch slot, allocate its prompt
-        blocks and BuZ-lazy-zero them.  Returns the sequence id."""
+        blocks (in ``prefer_slab``, else slab ``id % num_slabs``, while it
+        has room) and BuZ-lazy-zero them.  Returns the sequence id."""
         slot = self._take_slot()
         sid = self._next_id
         self._next_id += 1
         nblk = (prompt_len + self.page - 1) // self.page
-        prefer = sid % self.alloc.num_slabs
+        prefer = sid % self.alloc.num_slabs if prefer_slab is None \
+            else prefer_slab
         blocks = self.alloc.alloc(nblk, prefer_slab=prefer, zeroed=False)
         if blocks:
             self.engine.meminit(blocks)

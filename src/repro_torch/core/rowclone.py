@@ -1,5 +1,5 @@
 """RowCloneEngine — the ``memcopy``/``meminit`` "ISA" and its dispatcher
-(port of ``repro/core/rowclone.py``, single device, fused path only).
+(port of ``repro/core/rowclone.py``, single device).
 
 * ``memcopy(pairs)`` classifies each (src, dst) pair: ``alias`` (the source
   is lazily zero under ZI: a metadata move, zero bytes), ``fpm`` (same
@@ -11,15 +11,22 @@
 * ``memand`` / ``memor`` / ``memnot`` compute on raw bits in place.
 
 Dispatch is queued and fused: at a flush boundary the whole table drains
-as ONE launch moving every pool (kernels/fused_dispatch.py).  The pools
-are torch tensors updated IN PLACE where the JAX engine donated them; each
-in-place write bumps the pool's generation, which is how a
+as ONE launch moving every pool (kernels/fused_dispatch.py).
+``use_fused=False`` drains it instead through the per-mechanism fan-out
+(the A/B leg the fused drain is measured against): one call per run of
+one opcode, per ``max_requests`` chunk, per pool — FPM rows through K5a,
+cross-pool rows through K5b, zero rows through K6, and PSM, baseline and
+bitwise rows as plain tensor code (jnp, not Pallas, in the JAX package).
+The pools are torch tensors updated IN PLACE where the JAX engine donated
+them; each in-place write bumps the pool's generation, which is how a
 :class:`~repro_torch.core.stream.FlushTicket` knows it expired.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import itertools
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,15 +36,18 @@ from repro_torch.core.allocator import SubarrayAllocator
 from repro_torch.core.cmdqueue import (CommandQueue, bucket_size,
                                        space_war_rows, top_bucket)
 from repro_torch.core.journal import JournalRecord, TicketJournal
-from repro_torch.core.opcodes import (ALL_PRIMARY, OP_AND, OP_BASELINE_COPY,
-                                      OP_CROSS_POOL_COPY, OP_FPM_COPY,
-                                      OP_NOP, OP_NOT, OP_OR, OP_PSM_COPY,
+from repro_torch.core.opcodes import (ALL_PRIMARY, BITWISE_OPS, OP_AND,
+                                      OP_BASELINE_COPY, OP_CROSS_POOL_COPY,
+                                      OP_FPM_COPY, OP_NOP, OP_NOT, OP_OR,
+                                      OP_PSM_COPY, OP_ZERO_INIT,
                                       check_pack_total, pack_bitwise_src,
-                                      row_rw)
+                                      row_rw, unpack_bitwise_src)
 from repro_torch.core.poolspec import BlockRef, PoolGroup
 from repro_torch.core.stream import CommandStream
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.fused_dispatch import DrainInfo, check_drain
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.fused_dispatch import (DrainInfo, check_drain,
+                                                notify_launch)
 
 
 @dataclasses.dataclass
@@ -70,19 +80,25 @@ class RowCloneEngine:
     device.  ``staging`` maps a staging pool to its primary twin, or
     ``group`` gives the :class:`PoolGroup` directly.  Primary pools share
     the allocator's block count; staging pools may be any size (one shared
-    slot space) and mirror their twin's block shape and dtype."""
+    slot space) and mirror their twin's block shape and dtype.
+
+    ``use_fused=False`` selects the per-mechanism fan-out drain, each call
+    padded to ``max_requests`` rows."""
 
     def __init__(self, pools: Dict[str, torch.Tensor],
                  allocator: SubarrayAllocator, *, enable_fpm: bool = True,
                  enable_psm: bool = True, enable_zi: bool = True,
-                 block_axis: int = 0,
+                 max_requests: int = 256, block_axis: int = 0,
+                 use_fused: bool = True,
                  staging: Optional[Dict[str, str]] = None,
                  group: Optional[PoolGroup] = None):
         self.alloc = allocator
         self.enable_fpm = enable_fpm
         self.enable_psm = enable_psm
         self.enable_zi = enable_zi
+        self.max_requests = max_requests
         self.block_axis = block_axis
+        self.use_fused = use_fused
         if group is None:
             group = PoolGroup.from_pools(pools, block_axis=block_axis,
                                          staging=staging)
@@ -206,6 +222,16 @@ class RowCloneEngine:
         """Total bytes resident across every pool (primary + staging)."""
         return sum(p.numel() * p.element_size() for p in self.pools.values())
 
+    def _pad(self, pairs: Sequence[Tuple[int, ...]], width: int = 2
+             ) -> np.ndarray:
+        """One fan-out call's ids, padded with ``-1`` rows to
+        ``max_requests``."""
+        arr = np.full((self.max_requests, width), -1, np.int32)
+        if pairs:
+            a = np.asarray(pairs, np.int32).reshape(-1, width)
+            arr[:len(a)] = a[:self.max_requests]
+        return arr
+
     def _get_zero_blocks(self) -> Tuple[torch.Tensor, ...]:
         """Per-pool reserved zero row for BuZ — allocated once."""
         if self._zero_blocks is None:
@@ -311,11 +337,14 @@ class RowCloneEngine:
         return tuple(n for n in self.group.names if n in hit)
 
     def _dispatch_table(self, table: np.ndarray) -> int:
-        """Execute one bucket-padded table as ONE fused dispatch, in place.
-        Returns launches issued (0 for an all-NOP table)."""
+        """Execute one bucket-padded table, in place: ONE fused dispatch,
+        or the fan-out with ``use_fused=False``.  Returns launches issued
+        (0 for an all-NOP table)."""
         live = [tuple(r) for r in table.tolist() if r[0] >= 0]
         if not live:
             return 0
+        if not self.use_fused:
+            return self._dispatch_legacy(live)
         kops.fused_dispatch(tuple(self.pools.values()),
                             self._get_zero_blocks(), table,
                             block_axis=self.block_axis,
@@ -323,6 +352,110 @@ class RowCloneEngine:
         self.mark_pools_written(self._touched_pools(live))
         self.stats.launches += 1
         return 1
+
+    # ------------------------------------------------------------------
+    # per-mechanism fan-out (use_fused=False)
+    # ------------------------------------------------------------------
+    def _dispatch_legacy(self, rows: Sequence[Tuple[int, int, int]]) -> int:
+        """One call per mechanism per pool, padded to ``max_requests``
+        (``repro/core/rowclone.py _dispatch_legacy``).  Rows batch per
+        CONSECUTIVE run of one opcode, in enqueue order: the queue admits
+        write-after-read pairs, which grouping the whole table would
+        reorder.  Within a call sources see the pre-call state."""
+        launches = 0
+        for op, run in _runs(rows, lambda r: r[0]):
+            run = [(s, d) for _, s, d in run]
+            if op in (OP_FPM_COPY, OP_PSM_COPY, OP_BASELINE_COPY):
+                launches += self._legacy_copy(op, run)
+            elif op == OP_ZERO_INIT:
+                launches += self._legacy_zero([d for _, d in run])
+            elif op == OP_CROSS_POOL_COPY:
+                launches += self._legacy_cross(run)
+            elif op in BITWISE_OPS:
+                launches += self._legacy_bitwise(op, run)
+        self.stats.launches += launches
+        return launches
+
+    def _legacy_launch(self, mechanism: str, name: str) -> None:
+        """Account one fan-out call that wrote pool ``name``."""
+        notify_launch(self.max_requests, 1, mechanism)
+        self.mark_pools_written((name,))
+
+    def _legacy_copy(self, op: int, pairs: List[Tuple[int, int]]) -> int:
+        """FPM (K5a), PSM (plain gather/scatter: one device holds every
+        slab) or baseline (float32 round-trip) copies of one run, per
+        chunk per primary pool."""
+        ba = self.block_axis
+        if op == OP_FPM_COPY:
+            mech, fn = "legacy_fpm", functools.partial(kops.fpm_copy,
+                                                       block_axis=ba)
+        elif op == OP_PSM_COPY:
+            mech, fn = "legacy_psm", functools.partial(kops.psm_copy,
+                                                       block_axis=ba)
+        else:
+            mech, fn = "legacy_baseline", functools.partial(
+                kops.baseline_copy, block_axis=ba)
+        launches = 0
+        for chunk in _chunks(pairs, self.max_requests):
+            ids = self._pad(chunk)
+            for name in self.primary_names:
+                fn(self.pools[name], ids)
+                self._legacy_launch(mech, name)
+                launches += 1
+        return launches
+
+    def _legacy_zero(self, ids_list: List[int]) -> int:
+        """BuZ zero rows (K6), per chunk per primary pool."""
+        launches = 0
+        for chunk in _chunks(ids_list, self.max_requests):
+            ids = self._pad(chunk, width=1)[:, 0]
+            for name in self.primary_names:
+                kops.meminit_zero(self.pools[name], ids,
+                                  block_axis=self.block_axis)
+                self._legacy_launch("legacy_zero", name)
+                launches += 1
+        return launches
+
+    def _legacy_cross(self, gid_pairs: List[Tuple[int, int]]) -> int:
+        """Cross-pool rows (K5b), split into runs of one (src pool, dst
+        pool) pair in ENQUEUE order: interleaved opposite directions may
+        carry a write-after-read."""
+        names = list(self.pools)
+        loc = [(self.group.locate(s), self.group.locate(d))
+               for s, d in gid_pairs]
+        launches = 0
+        for (ps, pd), run in _runs(loc, lambda x: (x[0][0], x[1][0])):
+            local = [(ls, ld) for (_, ls), (_, ld) in run]
+            for chunk in _chunks(local, self.max_requests):
+                kops.fpm_copy_cross(self.pools[names[pd]],
+                                    self.pools[names[ps]], self._pad(chunk),
+                                    block_axis=self.block_axis)
+                self._legacy_launch("legacy_cross", names[pd])
+                launches += 1
+        return launches
+
+    def _legacy_bitwise(self, op: int,
+                        packed_pairs: List[Tuple[int, int]]) -> int:
+        """AND/OR/NOT rows as plain tensor code, split into runs of one
+        (a pool, b pool, dst pool) triple in enqueue order."""
+        names = list(self.pools)
+        total = self.group.total_blocks
+        dec = []
+        for s, d in packed_pairs:
+            a, b = unpack_bitwise_src(s, total)
+            dec.append((self.group.locate(a), self.group.locate(b),
+                        self.group.locate(d)))
+        launches = 0
+        for (pa, pb, pd), run in _runs(
+                dec, lambda x: (x[0][0], x[1][0], x[2][0])):
+            local = [(la, lb, ld) for (_, la), (_, lb), (_, ld) in run]
+            for chunk in _chunks(local, self.max_requests):
+                _bitwise(self.pools[names[pd]], self.pools[names[pa]],
+                         self.pools[names[pb]], self._pad(chunk, width=3),
+                         op, self.block_axis)
+                self._legacy_launch("legacy_bitwise", names[pd])
+                launches += 1
+        return launches
 
     # ------------------------------------------------------------------
     # memcopy
@@ -561,6 +694,39 @@ class RowCloneEngine:
         self._cur_queue.enqueue_zero(ids)
         self.alloc.mark_written(ids)
         self._autoflush()
+
+
+def _chunks(seq, n):
+    for i in range(0, len(seq), n):
+        yield seq[i:i + n]
+
+
+def _runs(seq, key):
+    """``(key, items)`` for each maximal run of consecutive items sharing
+    ``key(item)``, in order."""
+    for k, group in itertools.groupby(seq, key):
+        yield k, list(group)
+
+
+def _bitwise(dst_pool: torch.Tensor, a_pool: torch.Tensor,
+             b_pool: torch.Tensor, ids: np.ndarray, op: int,
+             block_axis: int) -> None:
+    """Fan-out bitwise combine, in place (``_bitwise_jit``): gather both
+    sources from the pre-call state, combine their raw bits, scatter to
+    ``dst``; ``ids`` (m, 3) ``[a, b, dst]`` local rows, ``-1`` skips."""
+    ba = block_axis
+    t = torch.from_numpy(ids.astype(np.int64)).to(dst_pool.device)
+    keep = t[:, 2] >= 0
+    t = t[keep]
+
+    def gather(pool, idx):
+        return kref.int_view(pool.index_select(
+            ba, idx.clamp(0, pool.shape[ba] - 1)))
+
+    a = gather(a_pool, t[:, 0])
+    r = a & gather(b_pool, t[:, 1]) if op == OP_AND else (
+        a | gather(b_pool, t[:, 1]) if op == OP_OR else ~a)
+    dst_pool.index_copy_(ba, t[:, 2], r.view(dst_pool.dtype))
 
 
 __all__ = ["EngineStats", "RowCloneEngine"]

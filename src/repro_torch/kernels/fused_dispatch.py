@@ -151,27 +151,28 @@ def wave_schedule(rows: Sequence[Tuple[int, int, int]],
 # the CUDA wrapper
 # ---------------------------------------------------------------------------
 
-def _geometry(pools: Sequence[torch.Tensor], block_axis: int):
-    """(layers, page_bytes) shared by every pool; raises on what the
-    kernel does not take."""
+def block_geometry(pools: Sequence[torch.Tensor], block_axis: int
+                   ) -> Tuple[int, int, int]:
+    """(layers, page_bytes, word_bytes) of pools that share one device,
+    dtype and block shape; raises on what the kernels do not take.
+    ``word_bytes`` is the widest access (16, 8, ... 1 bytes) that divides
+    the page size and every pool's base address."""
     p0 = pools[0]
     blk = tuple(p0.shape[block_axis + 1:])
     layers = int(p0.shape[0]) if block_axis == 1 else 1
     for p in pools:
         if not p.is_cuda or p.device != p0.device:
-            raise ValueError("fused drain: every pool must be on one CUDA "
-                             "device")
+            raise ValueError("every pool must be on one CUDA device")
         if p.dtype != p0.dtype or tuple(p.shape[block_axis + 1:]) != blk \
                 or (block_axis == 1 and p.shape[0] != layers):
-            raise ValueError("fused drain: pools must share block shape "
-                             "and dtype")
+            raise ValueError("pools must share block shape and dtype")
         if not p.is_contiguous():
-            raise ValueError("fused drain: pools must be contiguous")
+            raise ValueError("pools must be contiguous")
     page_bytes = int(np.prod(blk, dtype=np.int64)) * p0.element_size()
-    if page_bytes % 16:
-        raise ValueError(f"fused drain: a page of {page_bytes} bytes is not "
-                         "a multiple of 16")
-    return layers, page_bytes
+    word = 16
+    while page_bytes % word or any(p.data_ptr() % word for p in pools):
+        word //= 2
+    return layers, page_bytes, word
 
 
 def fused_dispatch_cuda(pools: Sequence[torch.Tensor], cmds, *,
@@ -184,7 +185,10 @@ def fused_dispatch_cuda(pools: Sequence[torch.Tensor], cmds, *,
     construction."""
     pools = tuple(pools)
     primary = as_primary(primary, len(pools))
-    layers, page_bytes = _geometry(pools, block_axis)
+    layers, page_bytes, word = block_geometry(pools, block_axis)
+    if word != 16:
+        raise ValueError(f"fused drain: pages of {page_bytes} bytes are not "
+                         "16-byte aligned")
     sizes = [int(p.shape[block_axis]) for p in pools]
     bases, total, _ = address_space(sizes)
     if isinstance(cmds, torch.Tensor):
@@ -228,4 +232,4 @@ def fused_dispatch_cuda(pools: Sequence[torch.Tensor], cmds, *,
 __all__ = ["COUNTER", "DrainInfo", "add_drain_guard", "remove_drain_guard",
            "check_drain", "add_launch_hook", "remove_launch_hook",
            "launch_count", "notify_launch", "wave_schedule",
-           "fused_dispatch_cuda"]
+           "block_geometry", "fused_dispatch_cuda"]

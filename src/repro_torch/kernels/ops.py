@@ -21,12 +21,18 @@ from repro_torch.kernels.fused_dispatch import (COUNTER as FUSED_COUNTER,
                                                 notify_launch)
 from repro_torch.kernels.flash_attention import (COUNTER as FLASH_COUNTER,
                                                  flash_attention_cuda)
+from repro_torch.kernels.fpm_copy import (COUNTER as FPM_COUNTER,
+                                          CROSS_COUNTER, fpm_copy_cross_cuda,
+                                          fpm_copy_cuda)
 from repro_torch.kernels.paged_attention import (COUNTER as PAGED_COUNTER,
                                                  paged_attention_slab_cuda)
+from repro_torch.kernels.zero_init import (COUNTER as ZERO_COUNTER,
+                                           zero_init_cuda)
 
 #: every kernel's launch counter, by kernel name
 KERNEL_COUNTERS = {c.name: c for c in (FUSED_COUNTER, PAGED_COUNTER,
-                                       FLASH_COUNTER)}
+                                       FLASH_COUNTER, FPM_COUNTER,
+                                       CROSS_COUNTER, ZERO_COUNTER)}
 
 _override: Optional[bool] = None
 
@@ -72,6 +78,50 @@ def fused_dispatch(pools: Sequence[torch.Tensor],
     return out
 
 
+def fpm_copy(pool: torch.Tensor, ids, *, block_axis: int = 0,
+             use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """In-pool FPM block copy, in place.  ``ids``: (m, 2) ``[src, dst]``,
+    ``dst = -1`` skips.  Returns the pool."""
+    if use_kernel_for(pool, use_kernel):
+        return fpm_copy_cuda(pool, ids, block_axis=block_axis)
+    return ref.fpm_copy(pool, ids, block_axis=block_axis)
+
+
+def fpm_copy_cross(dst_pool: torch.Tensor, src_pool: torch.Tensor, ids, *,
+                   block_axis: int = 0,
+                   use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Pool-to-pool block copy ``dst_pool[dst] = src_pool[src]``, in
+    place.  Returns ``dst_pool``."""
+    if use_kernel_for(dst_pool, use_kernel):
+        return fpm_copy_cross_cuda(dst_pool, src_pool, ids,
+                                   block_axis=block_axis)
+    return ref.fpm_copy_cross(dst_pool, src_pool, ids, block_axis=block_axis)
+
+
+def meminit_zero(pool: torch.Tensor, ids, *, block_axis: int = 0,
+                 use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """BuZ: zero the blocks ``ids`` (m,), ``-1`` skips, in place — the
+    reserved zero block's broadcast, which the kernel does as zero stores.
+    Returns the pool."""
+    if use_kernel_for(pool, use_kernel):
+        return zero_init_cuda(pool, ids, block_axis=block_axis)
+    return ref.zero_init(pool, ids, block_axis=block_axis)
+
+
+def baseline_copy(pool: torch.Tensor, ids, *, block_axis: int = 0
+                  ) -> torch.Tensor:
+    """The mechanism RowClone replaces: blocks round-trip float32
+    arithmetic.  No kernel: the JAX package computes it outside Pallas."""
+    return ref.baseline_copy(pool, ids, block_axis=block_axis)
+
+
+def psm_copy(pool: torch.Tensor, ids, *, block_axis: int = 0
+             ) -> torch.Tensor:
+    """Cross-slab (PSM) copy on one device: a plain gather/scatter.  No
+    kernel: the JAX package's ``_psm_jit`` is jnp, not Pallas."""
+    return ref.fpm_copy(pool, ids, block_axis=block_axis)
+
+
 def paged_attention_slab(q, k_slab, v_slab, share_mask, base, seq_lens, *,
                          page: int, use_kernel: Optional[bool] = None):
     """Decode attention over one pool slab: (acc, l, m), fp32."""
@@ -92,4 +142,6 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0,
 
 
 __all__ = ["KERNEL_COUNTERS", "plain_versions", "use_kernel_for",
-           "fused_dispatch", "paged_attention_slab", "flash_attention"]
+           "fused_dispatch", "fpm_copy", "fpm_copy_cross", "meminit_zero",
+           "baseline_copy", "psm_copy", "paged_attention_slab",
+           "flash_attention"]

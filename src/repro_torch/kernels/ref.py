@@ -51,7 +51,7 @@ def address_space(sizes: Sequence[int]):
     return tuple(bases), run, locate
 
 
-def _int_view(t: torch.Tensor) -> torch.Tensor:
+def int_view(t: torch.Tensor) -> torch.Tensor:
     """Same-itemsize integer view: AND/OR/NOT act on raw bit patterns."""
     return t.view(_INT_OF_SIZE[t.element_size()])
 
@@ -99,14 +99,73 @@ def fused_dispatch(pools: Sequence[torch.Tensor],
         elif op in BITWISE_OPS:
             a, b = divmod(s, total)
             (pa, la), (pb, lb), (pd, ld) = locate(a), locate(b), locate(d)
-            ai = _int_view(block(pa, la))
-            bi = _int_view(block(pb, lb))
+            ai = int_view(block(pa, la))
+            bi = int_view(block(pb, lb))
             r = ai & bi if op == OP_AND else (ai | bi if op == OP_OR
                                               else ~ai)
             writes.append((pd, ld, r.view(pools[pd].dtype)))
     for p, i, val in writes:
         block(p, i).copy_(val)
     return pools
+
+
+def _ids(ids, device) -> torch.Tensor:
+    """Block ids (numpy, list or tensor) as int64 on ``device``."""
+    if not isinstance(ids, torch.Tensor):
+        ids = torch.from_numpy(np.asarray(ids, np.int64))
+    return ids.to(device=device, dtype=torch.int64)
+
+
+def _move(dst_pool: torch.Tensor, src_pool: torch.Tensor, ids,
+          block_axis: int, through_fp32: bool = False) -> torch.Tensor:
+    """``dst_pool[dst] = src_pool[src]`` along ``block_axis``, IN PLACE:
+    every source is gathered from the pre-call state (clipped into range),
+    then written; a ``dst`` outside ``[0, nblk)`` (the ``-1`` padding)
+    skips its pair."""
+    ids = _ids(ids, dst_pool.device).reshape(-1, 2)
+    src, dst = ids[:, 0], ids[:, 1]
+    keep = (dst >= 0) & (dst < dst_pool.shape[block_axis])
+    src = src.clamp(0, src_pool.shape[block_axis] - 1)[keep]
+    rows = src_pool.index_select(block_axis, src)
+    if through_fp32:
+        rows = rows.float() * 1.0
+    dst_pool.index_copy_(block_axis, dst[keep], rows.to(dst_pool.dtype))
+    return dst_pool
+
+
+def fpm_copy(pool: torch.Tensor, ids, *, block_axis: int = 0
+             ) -> torch.Tensor:
+    """In-pool block copy ``pool[dst] = pool[src]`` for each ``[src, dst]``
+    row of ``ids`` (``repro/kernels/ref.py fpm_copy``; for ``block_axis=1``
+    the layer-stacked ``_fpm_axis1_jit`` of ``repro/core/rowclone.py``).
+    Gather-then-scatter, in place; ``dst == -1`` skips.  Returns the pool."""
+    return _move(pool, pool, ids, block_axis)
+
+
+def fpm_copy_cross(dst_pool: torch.Tensor, src_pool: torch.Tensor, ids, *,
+                   block_axis: int = 0) -> torch.Tensor:
+    """Pool-to-pool block copy ``dst_pool[dst] = src_pool[src]``
+    (``repro/kernels/ref.py fpm_copy_cross``, ``_cross_axis1_jit``), in
+    place.  Returns ``dst_pool``."""
+    return _move(dst_pool, src_pool, ids, block_axis)
+
+
+def baseline_copy(pool: torch.Tensor, ids, *, block_axis: int = 0
+                  ) -> torch.Tensor:
+    """The copy RowClone replaces: :func:`fpm_copy` with every block
+    round-tripping float32 arithmetic, the copy through the compute units
+    (``repro/kernels/ref.py baseline_copy``, ``_baseline_axis1_jit``)."""
+    return _move(pool, pool, ids, block_axis, through_fp32=True)
+
+
+def zero_init(pool: torch.Tensor, ids, *, block_axis: int = 0
+              ) -> torch.Tensor:
+    """Zero the listed blocks, in place (``repro/kernels/ref.py
+    zero_init``, ``_zero_axis1_jit``); ``ids`` (m,), ``-1`` skips.  The
+    result equals copying the reserved all-zero block.  Returns the pool."""
+    ids = _ids(ids, pool.device).reshape(-1)
+    keep = (ids >= 0) & (ids < pool.shape[block_axis])
+    return pool.index_fill_(block_axis, ids[keep], 0)
 
 
 def paged_attention_slab(q, k_slab, v_slab, share_mask, base, seq_lens, *,
@@ -163,5 +222,7 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
     return ((p @ vv) / l.clamp_min(1e-30)).to(q.dtype)
 
 
-__all__ = ["NEG_INF", "as_primary", "address_space", "fused_dispatch",
+__all__ = ["NEG_INF", "as_primary", "address_space", "int_view",
+           "fused_dispatch",
+           "fpm_copy", "fpm_copy_cross", "baseline_copy", "zero_init",
            "paged_attention_slab", "flash_attention"]

@@ -218,13 +218,13 @@ def main() -> None:
         p = rng.integers(2, cfg.vocab_size, size=args.prompt_len)
         sids.append(eng.add_request(p.astype(np.int32)))
         print(f"[serve] admitted seq {sids[-1]} ({args.prompt_len} tokens)")
+    if args.fork:
+        kids = eng.fork(sids[0], args.fork)
+        print(f"[serve] forked seq {sids[0]} -> {kids} (CoW shares: "
+              f"{eng.engine.alloc.stats.cow_shares})")
     t0 = time.perf_counter()
-    for step in range(args.steps):
+    for _ in range(args.steps):
         eng.decode_round()
-        if step == 0 and args.fork:
-            kids = eng.fork(sids[0], args.fork)
-            print(f"[serve] forked seq {sids[0]} -> {kids} (CoW shares: "
-                  f"{eng.engine.alloc.stats.cow_shares})")
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     dt = time.perf_counter() - t0

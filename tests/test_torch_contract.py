@@ -60,14 +60,16 @@ def bits(x) -> np.ndarray:
 
 def port_engine_like(jeng) -> RowCloneEngine:
     """A port engine on the JAX engine's current bytes, allocator layout,
-    staging map and block axis."""
+    staging map, block axis, drain path and ``max_requests``."""
     a = jeng.alloc
     alloc = SubarrayAllocator(a.num_blocks, a.num_slabs,
                               reserved_zero_per_slab=len(a.zero_rows)
                               // a.num_slabs)
     pools = {n: to_torch(p) for n, p in jeng.pools.items()}
     return RowCloneEngine(pools, alloc, block_axis=jeng.block_axis,
-                          staging=dict(jeng.staging))
+                          staging=dict(jeng.staging),
+                          use_fused=jeng.use_fused,
+                          max_requests=jeng.max_requests)
 
 
 class PortHook:

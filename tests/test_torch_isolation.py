@@ -21,6 +21,12 @@ FORBIDDEN = re.compile(
     r"|from\s+repro(\.|\s))", re.M)
 
 
+#: modules of the per-mechanism slice; the scans below must reach them
+NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
+               "repro_torch.core.migration", "repro_torch.launch.mechanisms",
+               "repro_torch.launch.applications")
+
+
 def _modules():
     import repro_torch
     names = ["repro_torch"]
@@ -34,7 +40,7 @@ def test_import_everything_loads_no_jax_or_reference():
     the port, in a fresh interpreter: every import succeeds, and no
     ``jax*`` module and no ``repro`` / ``repro.*`` module loads."""
     names = _modules()
-    assert "repro_torch.launch.serve" in names and len(names) > 15
+    assert set(NEW_MODULES) < set(names) and len(names) > 20
     # each module is imported FIRST once (the port's own modules are
     # dropped before each import), so no import order hides a cycle
     code = ("import importlib, sys\n"
@@ -82,6 +88,11 @@ def test_kernel_request_on_cpu_tensor_raises():
     q = torch.zeros((1, 2, 4, 128))
     with pytest.raises(ValueError):
         ops.flash_attention(q, q, q, use_kernel=True)
+    for call in (lambda: ops.fpm_copy(q, [[0, 1]], use_kernel=True),
+                 lambda: ops.fpm_copy_cross(q, q, [[0, 1]], use_kernel=True),
+                 lambda: ops.meminit_zero(q, [0], use_kernel=True)):
+        with pytest.raises(ValueError):
+            call()
     assert not ops.use_kernel_for(q, None)
     with ops.plain_versions():
         assert not ops.use_kernel_for(q, None)
@@ -93,9 +104,41 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
     from repro_torch.configs import get_config
+    from repro_torch.launch import applications, mechanisms
     from repro_torch.weights import init_params
+    cfg = get_config("llama3.2-3b").reduced()
     with pytest.raises(RuntimeError):
-        init_params(get_config("llama3.2-3b").reduced(), seed=0)
+        init_params(cfg, seed=0)
+    with pytest.raises(RuntimeError):
+        mechanisms.run()
+    with pytest.raises(RuntimeError):
+        applications.run(cfg)
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_module_scanned_and_jax_free(module):
+    """Each module of the per-mechanism slice is on the import scan's list
+    and names neither jax nor the reference package."""
+    assert module in _modules()
+    path = PKG.joinpath(*module.split(".")[1:]).with_suffix(".py")
+    assert not FORBIDDEN.findall(path.read_text())
+
+
+@pytest.mark.parametrize("wrapper", ["fpm_copy", "fpm_copy_cross",
+                                     "zero_init"])
+def test_cuda_wrapper_refuses_cpu_tensors(wrapper):
+    """The CUDA wrappers themselves refuse CPU tensors (no CPU path hides
+    behind them)."""
+    from repro_torch.kernels import fpm_copy, zero_init
+    pool = torch.zeros((8, 16))
+    call = {"fpm_copy": lambda: fpm_copy.fpm_copy_cuda(
+                pool, [[0, 1]], block_axis=0),
+            "fpm_copy_cross": lambda: fpm_copy.fpm_copy_cross_cuda(
+                pool, pool, [[0, 1]], block_axis=0),
+            "zero_init": lambda: zero_init.zero_init_cuda(
+                pool, [1], block_axis=0)}[wrapper]
+    with pytest.raises(ValueError):
+        call()
 
 
 def test_chip_smoke_refuses_without_gpu():
