@@ -38,9 +38,28 @@ Phases (each raises on failure; the script then exits non-zero):
 8. Table 1 (``launch/mechanisms.py run``) on a phase-6 pool, m = 8 and 256,
    and Fig. 2 (``launch/applications.py run``) at llama3.2-3b full width
    with phase 5's weights, RowClone off and on.
+9. K4, the SSD intra-chunk term, against its plain version with bf16 x / B
+   / C and fp32 dt / cum as the models pass them: 8 chunk rows of Q = 256
+   at mamba2-780m's (H = 48, N = 128) and zamba2-2.7b's (H = 80, N = 64)
+   widths, and ragged single chunks of Q = 250 and 96; max |diff| <=
+   ``K4_RTOL`` x max |plain|; kernel, device-only and plain times beside
+   the bound.  Then K2 (B = 4, H = KVH = 32) and K3 (H = KVH = 32, S = 512
+   and 250) at zamba2's head dim 80.
+10. mamba2-780m at full width (48 layers, bf16, random weights from seed
+    0) through ``LanguageModel.prefill_state`` / ``decode_state``: prefill
+    4 prompts of 384 tokens (2 chunks) and one of 250 (one ragged chunk),
+    then 16 greedy decode steps on the 4.  Checks K4 == 48 launches per
+    prefill, finite logits, and the prefill and first-step logits against
+    the same calls through the plain versions; prints prefill ms, ms per
+    step, tokens/s and the state bytes, and a profile of a decode step and
+    a prefill.
+11. zamba2-2.7b at full width (54 Mamba2 layers, 9 shared-attention calls),
+    the same protocol: K4 == 54 and K3 == 9 per prefill, K2 == 9 per step.
 
-The last three lines are the ``kernels`` JSON, the card's name and power
-limit, and the device JSON.
+``--phases 1,9`` (for example) runs a subset and prints no JSON; the
+driver's run takes no arguments.  The last three lines of a full run are
+the ``kernels`` JSON (seven kernels), the card's name and power limit, and
+the device JSON.
 """
 from __future__ import annotations
 
@@ -200,10 +219,11 @@ def phase_k1(scrub):
                 bound_by="bytes", library_ms=None)
 
 
-def phase_k2(scrub):
+def phase_k2(scrub, B=MAX_SEQS, H=24, KVH=8, D=128):
+    """K2 against its plain version; the default shapes are llama3.2-3b's
+    serving slab, phase 9 passes zamba2's (B=4, H=KVH=32, D=80)."""
     from repro_torch.kernels import ops
-    B, H, KVH, D, page, nblk = MAX_SEQS, 24, 8, 128, 64, \
-        MAX_SEQS * MAX_BLOCKS_PER_SEQ
+    page, nblk = 64, MAX_SEQS * MAX_BLOCKS_PER_SEQ
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16()
@@ -247,7 +267,8 @@ def phase_k2(scrub):
     plain_ms = time_ms(lambda: ops.paged_attention_slab(
         *args, page=page, use_kernel=False), reps=5, scrub=scrub)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"[K2] max |out - plain| {err:.2e}, |m - plain| {err_m:.2e} "
+    log(f"[K2] B={B} H={H} KVH={KVH} D={D}: max |out - plain| {err:.2e}, "
+        f"|m - plain| {err_m:.2e} "
         f"(atol {K2_ATOL}); empty slot m=-1e30 l=0; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} bytes)")
     return dict(name="paged_attention", source="src/repro_torch/csrc/"
@@ -257,10 +278,13 @@ def phase_k2(scrub):
                 bound_ms=bound, bound_by="bytes", library_ms=None)
 
 
-def phase_k3(scrub):
+def phase_k3(scrub, H=24, KVH=8, D=128):
+    """K3 against its plain version at B=1, S=512 and a ragged S=250; the
+    default heads are llama3.2-3b's, phase 9 passes zamba2's (H=KVH=32,
+    D=80)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    B, H, KVH, D = 1, 24, 8, 128
+    B = 1
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = {}
     for S in (512, 250):
@@ -287,7 +311,8 @@ def phase_k3(scrub):
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         b_ops = flops / BF16_FLOPS * 1e3
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[K3] S={S}: max err {err:.2e} (atol {K3_ATOL}); kernel "
+        log(f"[K3] H={H} KVH={KVH} D={D} S={S}: max err {err:.2e} "
+            f"(atol {K3_ATOL}); kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
             f"bound {max(b_ops, b_bytes):.5f} ms ({flops:.3e} flop, "
             f"{nbytes} bytes)")
@@ -303,9 +328,10 @@ def phase_k3(scrub):
                 bound_by=r["by"], library_ms=r["lib_ms"])
 
 
-def profile_rounds(eng, rounds: int = 3) -> None:
-    """Where a steady round's time goes: torch.profiler over ``rounds``
-    more decode rounds (after the counted run), device time per kernel and
+def profile_rounds(step, rounds: int = 3, tag: str = "profile",
+                   what: str = "round") -> None:
+    """Where a steady step's time goes: torch.profiler over ``rounds`` more
+    calls of ``step`` (after the counted run), device time per kernel and
     the device's idle share of the wall clock."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -313,7 +339,7 @@ def profile_rounds(eng, rounds: int = 3) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
-            eng.decode_round()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -327,15 +353,16 @@ def profile_rounds(eng, rounds: int = 3) -> None:
             rows.append((dev, avg.count, avg.key))
     busy = sum(r[0] for r in rows)
     if not busy:
-        log("[profile] device time: not measured (the profiler recorded "
+        log(f"[{tag}] device time: not measured (the profiler recorded "
             "no kernel)")
         return
-    log(f"[profile] {rounds} steady rounds: wall {wall_us / rounds / 1e3:.2f}"
-        f" ms/round, device busy {busy / rounds / 1e3:.2f} ms/round, idle "
-        f"share {1 - busy / wall_us:.3f}")
+    log(f"[{tag}] {rounds} steady {what}s: wall "
+        f"{wall_us / rounds / 1e3:.2f} ms/{what}, device busy "
+        f"{busy / rounds / 1e3:.2f} ms/{what}, idle share "
+        f"{1 - busy / wall_us:.3f}")
     for dev, count, key in sorted(rows, reverse=True)[:10]:
-        log(f"[profile]   {dev / rounds / 1e3:8.3f} ms/round "
-            f"{count // rounds:5d} calls/round  {key[:90]}")
+        log(f"[{tag}]   {dev / rounds / 1e3:8.3f} ms/{what} "
+            f"{count // rounds:5d} calls/{what}  {key[:90]}")
 
 
 def _admit_all(eng, prompts):
@@ -413,7 +440,7 @@ def phase_serve():
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"serve checks failed: {failed}")
-    profile_rounds(eng)
+    profile_rounds(eng.decode_round)
 
     # the same admissions and first round through the plain versions
     del eng
@@ -677,29 +704,268 @@ def phase_fig2(cfg, params):
         raise AssertionError(f"Fig-2 checks failed: {failed}")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phases 9-11: the Mamba2 families (ssm, hybrid)
+# ---------------------------------------------------------------------------
+
+#: K4: both sides accumulate in fp32 in different orders; the error is
+#: held relative to the output's scale
+K4_RTOL = 1e-3
+#: (config, chunk rows Bc, Q, SSD heads H, state N) of phase 9: the chunk
+#: rows of phase 10/11's batch prefill (4 prompts x 2 chunks) and the
+#: ragged single chunks of a 250- and a 96-token prompt
+K4_CASES = (("mamba2-780m", 8, 256, 48, 128), ("zamba2-2.7b", 8, 256, 80, 64),
+            ("mamba2-780m", 1, 250, 48, 128), ("mamba2-780m", 1, 96, 48, 128),
+            ("zamba2-2.7b", 1, 250, 80, 64))
+#: phase 10/11: a batch of 4 prompts of 384 tokens (2 chunks of 256), one
+#: prompt of 250 (one ragged chunk), greedy decode steps on the batch
+SSM_BATCH, SSM_PROMPT, SSM_RAGGED, SSM_STEPS = 4, 384, 250, 16
+
+
+def _ssd_inputs(gen, Bc, Q, H, N, P=64):
+    """Chunk inputs as the model passes them: bf16 x / B / C, fp32 dt
+    (log-uniform in [1e-3, 1e-1], the init range) and its in-chunk cumsum
+    with A = -(1..H)."""
+    x = torch.randn((Bc, Q, H, P), generator=gen, device="cuda").bfloat16()
+    u = torch.rand((Bc, Q, H), generator=gen, device="cuda")
+    dt = torch.exp(np.log(1e-3) + u * (np.log(1e-1) - np.log(1e-3)))
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+    cum = torch.cumsum(dt * A, dim=1)
+    Bm = torch.randn((Bc, Q, N), generator=gen, device="cuda").bfloat16()
+    Cm = torch.randn((Bc, Q, N), generator=gen, device="cuda").bfloat16()
+    return x, dt.contiguous(), cum.contiguous(), Bm, Cm
+
+
+def phase_k4(scrub):
+    """Phase 9a: K4 against its plain version at the models' shapes."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = {}
+    for arch, Bc, Q, H, N in K4_CASES:
+        args = _ssd_inputs(gen, Bc, Q, H, N)
+        got = ops.ssd_intra_chunk(*args, use_kernel=True)
+        want = ops.ssd_intra_chunk(*args, use_kernel=False)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        finite = bool(torch.isfinite(got).all())
+        if not (finite and err <= K4_RTOL * scale):
+            raise AssertionError(f"K4 vs plain ({arch} Bc={Bc} Q={Q}): max "
+                                 f"err {err} vs {K4_RTOL} x {scale}, finite "
+                                 f"{finite}")
+        ms = time_ms(lambda: ops.ssd_intra_chunk(*args, use_kernel=True),
+                     scrub=scrub)
+        dev = device_ms(lambda: ops.ssd_intra_chunk(*args, use_kernel=True),
+                        key="ssd_intra")
+        plain_ms = time_ms(lambda: ops.ssd_intra_chunk(*args,
+                                                       use_kernel=False),
+                           reps=5, scrub=scrub)
+        P, elt = 64, 2
+        nbytes = (Bc * Q * H * P * elt + 2 * Bc * Q * H * 4
+                  + 2 * Bc * Q * N * elt + Bc * Q * H * P * 4)
+        flops = 2.0 * Q * Q * (N + P) * Bc * H
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ops = flops / BF16_FLOPS * 1e3
+        bound = max(b_bytes, b_ops)
+        log(f"[K4] {arch} Bc={Bc} Q={Q} H={H} N={N}: max err {err:.3e} "
+            f"(limit {K4_RTOL} x max |plain| {scale:.3e}); kernel "
+            f"{ms:.4f} ms (device only {_fmt_ms(dev)}), plain "
+            f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({nbytes} bytes -> "
+            f"{b_bytes:.5f} ms, {flops:.4e} flop -> {b_ops:.5f} ms)")
+        rows[(arch, Bc, Q)] = dict(err=err / scale, ms=ms, dev=dev,
+                                   plain_ms=plain_ms, bound=bound,
+                                   by="bytes" if b_bytes >= b_ops
+                                   else "operations", abs_err=err)
+        del args, got, want
+    r = rows[("mamba2-780m", 8, 256)]
+    return dict(name="ssd_intra_chunk",
+                source="src/repro_torch/csrc/ssd_chunk.cu",
+                replaces="src/repro/kernels/ssd_chunk.py:47",
+                max_abs_err=max(x["abs_err"] for x in rows.values()),
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"],
+                bound_by=r["by"], library_ms=None)
+
+
+def _state_bytes(state) -> int:
+    return sum(t.numel() * t.element_size() for t in state.values())
+
+
+def phase_mamba_model(arch: str) -> dict:
+    """Phases 10 (mamba2-780m) and 11 (zamba2-2.7b): full width, random
+    weights from seed 0.  Prefill a batch of 4 x 384 tokens and one
+    250-token prompt, then 16 greedy decode steps on the batch; check the
+    launch counts, finite logits, and the prefill and first-step logits
+    against the same calls through the plain versions.  Returns the launch
+    counts of the counted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.weights import init_params
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    tag = arch
+    log(f"[{tag}] {cfg.family}: {cfg.num_layers} Mamba2 layers, d_model "
+        f"{cfg.d_model}, {cfg.ssm_heads} SSD heads x {cfg.ssm_head_dim}, "
+        f"N {cfg.ssm_state}, {cfg.num_attn_layers} shared-attention calls; "
+        f"{n_params / 1e9:.3f} B params ({n_bytes / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    batch = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT))).cuda()
+    single = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (1, SSM_RAGGED))).cuda()
+    L, n_attn = cfg.num_layers, cfg.num_attn_layers
+    counters = ops.KERNEL_COUNTERS
+
+    def counts():
+        return {n: c.n for n, c in counters.items()}
+
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    total = {n: 0 for n in counters}
+    checks = {}
+    out = {}
+    for name, tokens in (("batch", batch), ("ragged", single)):
+        before = counts()
+        t = time.perf_counter()
+        logits, state = model.prefill_state(tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        got = {n: counts()[n] - before[n] for n in counters}
+        checks[f"{name} prefill: K4 == layers"] = \
+            got["ssd_intra_chunk"] == L
+        checks[f"{name} prefill: K3 == shared-attention calls"] = \
+            got["flash_attention"] == n_attn
+        checks[f"{name} prefill logits finite"] = \
+            bool(torch.isfinite(logits).all())
+        out[name] = (logits, state, ms)
+        log(f"[{tag}] prefill {tuple(tokens.shape)}: {ms:.1f} ms "
+            f"(host clock, synchronised), K4 {got['ssd_intra_chunk']}, K3 "
+            f"{got['flash_attention']} launches; state "
+            f"{_state_bytes(state) / 1e6:.1f} MB")
+    logits, state, _ = out["batch"]
+    prefill_logits, ragged_logits = logits, out["ragged"][0]
+    tok = logits.argmax(-1)
+    step_ms, per_step, first = [], [], None
+    for step in range(SSM_STEPS):
+        before = counts()
+        t = time.perf_counter()
+        logits, state = model.decode_state(state, tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({n: counts()[n] - before[n] for n in counters})
+        if step == 0:
+            first = (tok.clone(), logits.clone())
+        tok = logits.argmax(-1)
+    launches = counts()
+    checks["decode: K2 == shared-attention calls per step"] = all(
+        g["paged_attention"] == n_attn for g in per_step)
+    checks["decode: no K4 / K3"] = all(
+        g["ssd_intra_chunk"] == 0 and g["flash_attention"] == 0
+        for g in per_step)
+    checks["decode logits finite"] = bool(torch.isfinite(logits).all())
+    med = float(np.median(step_ms[1:]))
+    log(f"[{tag}] {SSM_STEPS} greedy decode steps on {SSM_BATCH} sequences: "
+        f"median {med:.2f} ms/step (steps 2-{SSM_STEPS}), "
+        f"{SSM_BATCH * SSM_STEPS / (sum(step_ms) / 1e3):.1f} tokens/s over "
+        f"all steps; state {_state_bytes(state) / 1e6:.1f} MB "
+        f"(seq_lens {int(state['seq_lens'][0])})")
+    log(f"[{tag}] launches (counted run: 2 prefills + {SSM_STEPS} steps): "
+        + " ".join(f"{k}={launches[k]}" for k in
+                   ("ssd_intra_chunk", "flash_attention", "paged_attention",
+                    "fused_dispatch")))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{arch} checks failed: {failed}")
+    profile_rounds(lambda: model.decode_state(state, tok), tag=tag,
+                   what="step")
+    profile_rounds(lambda: model.prefill_state(batch), rounds=2, tag=tag,
+                   what="prefill")
+    del state, out
+
+    # the same calls through the plain versions
+    with ops.plain_versions():
+        p_batch, p_state = model.prefill_state(batch)
+        p_single, _ = model.prefill_state(single)
+        p_step, _ = model.decode_state(p_state, first[0])
+    torch.cuda.synchronize()
+    for what, a, b in (("batch prefill", prefill_logits, p_batch),
+                       ("ragged prefill", ragged_logits, p_single),
+                       ("first decode step", first[1], p_step)):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+        log(f"[{tag}] {what} logits vs plain versions: max |diff| "
+            f"{err:.3e} (limit {SERVE_RTOL} x max |logit| = "
+            f"{SERVE_RTOL * scale:.3e}); argmax agrees on "
+            f"{agree}/{a.shape[0]}")
+        if not err <= SERVE_RTOL * scale:
+            raise AssertionError(f"{arch} {what} logits differ from the "
+                                 "plain versions")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run (default: all; "
+                         "phase 1 always runs, 5-8 run together); a partial "
+                         "run prints no kernels or device JSON")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    want = {int(x) for x in args.phases.split(",") if x} or set(range(1, 12))
+    if want & {5, 6, 7, 8}:
+        want |= {5, 6, 7, 8}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    kernels = [phase_k1(scrub), phase_k2(scrub), phase_k3(scrub)]
+    kernels, launches = [], {}
+    for ph, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3)):
+        if ph in want:
+            kernels.append(fn(scrub))
     torch.cuda.empty_cache()
-    launches, cfg, params = phase_serve()
-    torch.cuda.empty_cache()
-    copy_kernels, flat = phase_copy_kernels(scrub)
+    if 5 in want:
+        launches, cfg, params = phase_serve()
+        torch.cuda.empty_cache()
+        copy_kernels, flat = phase_copy_kernels(scrub)
+        torch.cuda.empty_cache()
+        launches.update({k: v for k, v in phase_ab(flat).items()
+                         if k in ("fpm_copy", "fpm_copy_cross",
+                                  "zero_init")})
+        phase_table1(flat)
+        del flat
+        torch.cuda.empty_cache()
+        phase_fig2(cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        kernels += copy_kernels
+    if 9 in want:
+        kernels.append(phase_k4(scrub))
+        # K2 and K3 at zamba2's shared-attention shapes (head dim 80)
+        phase_k2(scrub, B=SSM_BATCH, H=32, KVH=32, D=80)
+        phase_k3(scrub, H=32, KVH=32, D=80)
     del scrub
     torch.cuda.empty_cache()
-    launches.update({k: v for k, v in phase_ab(flat).items()
-                     if k in ("fpm_copy", "fpm_copy_cross", "zero_init")})
-    phase_table1(flat)
-    del flat
-    torch.cuda.empty_cache()
-    phase_fig2(cfg, params)
-    kernels += copy_kernels
+    # K4's main path is phases 10-11; K2 and K3 run there too (zamba2's
+    # shared block), so their launches add to phase 5's
+    for ph, arch in ((10, "mamba2-780m"), (11, "zamba2-2.7b")):
+        if ph in want:
+            for k, v in phase_mamba_model(arch).items():
+                launches[k] = launches.get(k, 0) + v
+    if want != set(range(1, 12)):
+        log(f"[partial run] phases {sorted(want)}: done")
+        return 0
     for k in kernels:
         k["route"] = "cuda"
         k["launches"] = launches[k["name"]]

@@ -1,8 +1,10 @@
 """Model and RowClone configuration of the port (a copy of what it needs
 from ``repro/configs``): :class:`ModelConfig` with :meth:`ModelConfig.reduced`,
-:class:`RowCloneConfig`, and the registry entry of the dense decoder the
-port serves.  ``tests/test_torch_contract.py`` pins the copy to the
-reference."""
+:class:`RowCloneConfig`, and the registry entries of the families the port
+runs: the dense decoder it serves (llama3.2-3b), the attention-free SSD
+stack (mamba2-780m) and the Mamba2 + shared-attention hybrid (zamba2-2.7b),
+the last two through ``LanguageModel.prefill_state`` / ``decode_state``.
+``tests/test_torch_contract.py`` pins the copy to the reference."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,8 +20,8 @@ def pad_to(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyper-parameters.  The port serves ``family ==
-    "dense"``; the fields of the other families are kept so that
+    """Architecture hyper-parameters.  The port runs ``family`` dense, ssm
+    and hybrid; the fields of the other families are kept so that
     :meth:`reduced` derives the same smoke configuration as the
     reference."""
 
@@ -65,12 +67,31 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def has_subquadratic_path(self) -> bool:
+        """The sequence-dependent state is O(1) (ssm) or attention is
+        confined to a few shared blocks (hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def num_attn_layers(self) -> int:
-        """Layers that own a KV cache (every layer of a dense decoder)."""
-        if self.family != "dense":
-            raise NotImplementedError(
-                f"family {self.family!r} is not ported yet")
-        return self.num_layers
+        """Layers that own a KV cache: every layer of a dense decoder, none
+        of an SSD stack, one shared-block invocation per segment of a
+        hybrid."""
+        if self.family == "dense":
+            return self.num_layers
+        if self.family == "ssm":
+            return 0
+        if self.family == "hybrid":
+            return self.num_layers // max(self.shared_attn_every, 1)
+        raise NotImplementedError(f"family {self.family!r} is not ported yet")
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (the reference's rule)."""
@@ -117,6 +138,21 @@ _REGISTRY: Dict[str, ModelConfig] = {
         arch_id="llama3.2-3b", family="dense", num_layers=28, d_model=3072,
         num_heads=24, num_kv_heads=8, head_dim=128, d_ff=8192,
         vocab_size=128256, rope_theta=500000.0, tie_embeddings=True),
+    # mamba2-780m: attention-free SSD stack, 48L d_model=1536 vocab=50280,
+    # ssm_state=128, d_inner 3072 = 48 SSD heads of head_dim 64
+    "mamba2-780m": ModelConfig(
+        arch_id="mamba2-780m", family="ssm", num_layers=48, d_model=1536,
+        num_heads=0, num_kv_heads=0, head_dim=0, d_ff=0, vocab_size=50280,
+        ssm_state=128, ssm_heads=48, ssm_head_dim=64, ssm_expand=2,
+        tie_embeddings=True),
+    # zamba2-2.7b: 54 Mamba2 layers d_model=2560 (80 SSD heads x 64,
+    # ssm_state=64) with one shared attention+MLP block (32H, kv=32,
+    # head_dim 80, d_ff=10240) after every 6 layers, vocab=32000
+    "zamba2-2.7b": ModelConfig(
+        arch_id="zamba2-2.7b", family="hybrid", num_layers=54, d_model=2560,
+        num_heads=32, num_kv_heads=32, head_dim=80, d_ff=10240,
+        vocab_size=32000, ssm_state=64, ssm_heads=80, ssm_head_dim=64,
+        ssm_expand=2, shared_attn_every=6, rope_theta=10000.0),
 }
 
 

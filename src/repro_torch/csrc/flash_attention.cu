@@ -12,10 +12,11 @@
 // Bound on this card: at prefill lengths the larger of the causal FLOPs over
 // 989 TFLOP/s and the bytes over 3.35 TB/s.  This first version is simple
 // and right rather than fast: one CTA of 256 threads per (64-row q tile,
-// head, batch), fp32 tiles of Q, K, V and P in shared memory (padded rows,
+// head, batch), for head dims D = 128 and 80 (a template parameter;
+// zamba2's shared block uses 80), fp32 tiles of Q, K, V and P in shared memory (padded rows,
 // no bank conflicts on the access patterns below), plain FMA for both
 // products, kv tiles walked only up to the causal edge.  Each thread owns
-// one query row and a quarter of its 64 scores and 128 output lanes; the
+// one query row and a quarter of its 64 scores and D output lanes; the
 // four threads of a row sit in one warp, so the row max and sum are two
 // shuffles and P is shared within the warp.  A tensor-core version
 // (mma.sync or wgmma) is a later change.
@@ -24,25 +25,30 @@
 
 namespace {
 
-constexpr int kD = 128;
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
-constexpr int kQS = kD + 1;   // padded row strides (floats)
-constexpr int kKS = kD + 1;
-constexpr int kVS = kD;
-constexpr int kPS = kBK + 1;
+constexpr int kPS = kBK + 1;  // padded row stride of P (floats)
 constexpr float kNegInf = -1e30f;
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * (kBQ * kQS + kBK * kKS + kBK * kVS + kBQ * kPS);
+// padded row strides of Q and K (floats); V is read along rows
+template <int kD>
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         (kBQ * (kD + 1) + kBK * (kD + 1) + kBK * kD + kBQ * kPS);
+}
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v,
              __nv_bfloat16* __restrict__ out, int S, int H, int KVH,
              int causal, int prefix_len, float scale) {
+  static_assert(kD % 4 == 0, "four threads split a row's D lanes");
+  constexpr int kQS = kD + 1;
+  constexpr int kKS = kD + 1;
+  constexpr int kVS = kD;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + kBQ * kQS;
@@ -139,17 +145,16 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-}  // namespace
-
-extern "C" int rc_flash_attention(void* q, void* k, void* v, void* out,
-                                  int B, int H, int KVH, int S, int causal,
-                                  int prefix_len, float scale, void* stream) {
+template <int kD>
+int launch(void* q, void* k, void* v, void* out, int B, int H, int KVH,
+           int S, int causal, int prefix_len, float scale, void* stream) {
+  constexpr size_t smem = smem_bytes<kD>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      flash_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_kernel<<<grid, kThreads, kSmemBytes,
+  flash_kernel<kD><<<grid, kThreads, smem,
                  reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const __nv_bfloat16*>(q),
       reinterpret_cast<const __nv_bfloat16*>(k),
@@ -157,4 +162,21 @@ extern "C" int rc_flash_attention(void* q, void* k, void* v, void* out,
       reinterpret_cast<__nv_bfloat16*>(out), S, H, KVH, causal, prefix_len,
       scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// head_dim must be 128 or 80 (the wrapper checks; anything else is refused
+// with cudaErrorInvalidValue)
+extern "C" int rc_flash_attention(void* q, void* k, void* v, void* out,
+                                  int B, int H, int KVH, int S, int head_dim,
+                                  int causal, int prefix_len, float scale,
+                                  void* stream) {
+  if (head_dim == 128)
+    return launch<128>(q, k, v, out, B, H, KVH, S, causal, prefix_len, scale,
+                       stream);
+  if (head_dim == 80)
+    return launch<80>(q, k, v, out, B, H, KVH, S, causal, prefix_len, scale,
+                      stream);
+  return (int)cudaErrorInvalidValue;
 }

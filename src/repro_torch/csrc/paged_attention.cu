@@ -13,12 +13,15 @@
 //
 // Bound on this card: bytes.  Every live K/V byte is read once; the least
 // time is the live KV bytes / 3.35 TB/s.  Design: one CTA of 128 threads per
-// (kv head, sequence).  The CTA first compacts, in block order, the blocks
+// (kv head, sequence), for head dims D = 128 and 80 (a template parameter;
+// zamba2's shared block uses 80).  At D = 80 lanes 20-31 of a scoring warp
+// and threads 80-127 of the output pass hold no element and only take part
+// in the block's barriers.  The CTA first compacts, in block order, the blocks
 // its sequence can see (a ballot over share_mask), then walks only those:
 // each warp scores page slots with 8-byte coalesced K loads and a warp
 // reduction for the `group` query heads of its kv head, the online softmax
-// runs in fp32 in shared memory, and each thread accumulates one of the D
-// output lanes from coalesced V loads.  Blocks no sequence reads are never
+// runs in fp32 in shared memory, and each of the first D threads accumulates
+// one of the D output lanes from coalesced V loads.  Blocks no sequence reads are never
 // touched.  The TPU's block_chunk tiling and its all-sequence score tile are
 // not carried over.
 #include <cuda_bf16.h>
@@ -27,12 +30,12 @@
 
 namespace {
 
-constexpr int kD = 128;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 8;
 constexpr float kNegInf = -1e30f;
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -86,11 +89,18 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const int n_vis = s_n;
 
+  static_assert(kD % 4 == 0 && kD <= 4 * 32 && kD <= kThreads,
+                "one warp scores a slot, one thread owns an output lane");
   // this lane's four elements of each query head of the group, pre-scaled
+  // (lanes past D / 4 hold zeros)
+  const bool lane_has_d = lane * 4 < kD;
+  const bool thread_has_d = tid < kD;
   float qr[kMaxGroup][4];
 #pragma unroll
   for (int g = 0; g < kMaxGroup; ++g) {
-    if (g < group) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qr[g][i] = 0.f;
+    if (g < group && lane_has_d) {
       const __nv_bfloat16* qp =
           q + ((long long)b * heads + kvh * group + g) * kD + lane * 4;
 #pragma unroll
@@ -109,8 +119,10 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
     const long long blk0 = ((long long)blk * page * kvh_n + kvh) * kD;
 
     for (int slot = warp; slot < nvalid; slot += kWarps) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(
-          k + blk0 + slot * slot_stride + lane * 4);
+      uint2 raw = make_uint2(0u, 0u);
+      if (lane_has_d)
+        raw = *reinterpret_cast<const uint2*>(
+            k + blk0 + slot * slot_stride + lane * 4);
       const __nv_bfloat162* kv2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
       const float2 k01 = __bfloat1622float2(kv2[0]);
       const float2 k23 = __bfloat1622float2(kv2[1]);
@@ -161,7 +173,7 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g) pv[g] = 0.f;
     const __nv_bfloat16* vp = v + blk0 + tid;
-    for (int slot = 0; slot < nvalid; ++slot) {
+    for (int slot = 0; thread_has_d && slot < nvalid; ++slot) {
       const float vv = __bfloat162float(vp[slot * slot_stride]);
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g)
@@ -177,7 +189,7 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   for (int g = 0; g < kMaxGroup; ++g) {
     if (g < group) {
       const long long bh = (long long)b * heads + kvh * group + g;
-      acc_out[bh * kD + tid] = acc[g];
+      if (thread_has_d) acc_out[bh * kD + tid] = acc[g];
       if (tid == 0) {
         l_out[bh] = s_l[g];
         m_out[bh] = s_m[g];
@@ -186,23 +198,20 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-}  // namespace
-
-extern "C" int rc_paged_attention(void* q, void* k, void* v, void* mask,
-                                  void* base, void* lens, void* acc, void* l,
-                                  void* m, int nblk, int page, int kvh,
-                                  int batch, int group, float scale,
-                                  void* stream) {
+template <int kD>
+int launch(void* q, void* k, void* v, void* mask, void* base, void* lens,
+           void* acc, void* l, void* m, int nblk, int page, int kvh,
+           int batch, int group, float scale, void* stream) {
   const size_t smem = sizeof(float) * (size_t)group * page +
                       sizeof(int) * (size_t)nblk;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_attn_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(kvh, batch);
-  paged_attn_kernel<<<grid, kThreads, smem,
+  paged_attn_kernel<kD><<<grid, kThreads, smem,
                       reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const __nv_bfloat16*>(q),
       reinterpret_cast<const __nv_bfloat16*>(k),
@@ -212,4 +221,22 @@ extern "C" int rc_paged_attention(void* q, void* k, void* v, void* mask,
       reinterpret_cast<float*>(acc), reinterpret_cast<float*>(l),
       reinterpret_cast<float*>(m), nblk, page, kvh, batch, group, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// head_dim must be 128 or 80 (the wrapper checks; anything else is refused
+// with cudaErrorInvalidValue)
+extern "C" int rc_paged_attention(void* q, void* k, void* v, void* mask,
+                                  void* base, void* lens, void* acc, void* l,
+                                  void* m, int nblk, int page, int kvh,
+                                  int batch, int group, int head_dim,
+                                  float scale, void* stream) {
+  if (head_dim == 128)
+    return launch<128>(q, k, v, mask, base, lens, acc, l, m, nblk, page, kvh,
+                       batch, group, scale, stream);
+  if (head_dim == 80)
+    return launch<80>(q, k, v, mask, base, lens, acc, l, m, nblk, page, kvh,
+                      batch, group, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }

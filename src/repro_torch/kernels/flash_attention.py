@@ -21,7 +21,9 @@ from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
 #: launches of the CUDA prefill-attention kernel (not of its plain version)
 COUNTER = LaunchCounter("flash_attention")
 
-HEAD_DIM = 128
+#: head dims the kernel is built for (llama3.2-3b 128, zamba2's shared
+#: block 80)
+HEAD_DIMS = (80, 128)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
@@ -30,11 +32,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     card; returns (B,H,S,D) bf16.  Raises on inputs it does not take."""
     B, H, S, D = q.shape
     KVH = k.shape[1]
-    if D != HEAD_DIM or H % KVH or tuple(k.shape) != (B, KVH, S, D) \
+    if D not in HEAD_DIMS or H % KVH or tuple(k.shape) != (B, KVH, S, D) \
             or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash attention kernel: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} "
-                         f"(head dim must be {HEAD_DIM})")
+                         f"(head dim must be one of {HEAD_DIMS})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.dtype != torch.bfloat16 or \
                 not t.is_contiguous():
@@ -42,11 +44,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                              "contiguous CUDA bf16 tensor")
     out = torch.empty_like(q)
     fn = library("flash_attention").rc_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-             KVH, S, int(bool(causal)), int(prefix_len), float(D ** -0.5),
+             KVH, S, D, int(bool(causal)), int(prefix_len), float(D ** -0.5),
              stream_ptr(q.device)),
           "flash attention kernel")
     COUNTER.n += 1

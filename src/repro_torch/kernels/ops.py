@@ -26,13 +26,16 @@ from repro_torch.kernels.fpm_copy import (COUNTER as FPM_COUNTER,
                                           fpm_copy_cuda)
 from repro_torch.kernels.paged_attention import (COUNTER as PAGED_COUNTER,
                                                  paged_attention_slab_cuda)
+from repro_torch.kernels.ssd_chunk import (COUNTER as SSD_COUNTER,
+                                           ssd_intra_chunk_cuda)
 from repro_torch.kernels.zero_init import (COUNTER as ZERO_COUNTER,
                                            zero_init_cuda)
 
 #: every kernel's launch counter, by kernel name
 KERNEL_COUNTERS = {c.name: c for c in (FUSED_COUNTER, PAGED_COUNTER,
-                                       FLASH_COUNTER, FPM_COUNTER,
-                                       CROSS_COUNTER, ZERO_COUNTER)}
+                                       FLASH_COUNTER, SSD_COUNTER,
+                                       FPM_COUNTER, CROSS_COUNTER,
+                                       ZERO_COUNTER)}
 
 _override: Optional[bool] = None
 
@@ -141,7 +144,16 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0,
     return ref.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
 
 
+def ssd_intra_chunk(xb, dtb, cum, Bb, Cb, *,
+                    use_kernel: Optional[bool] = None):
+    """The Mamba2 SSD intra-chunk term; xb (B,Q,H,P), dtb / cum (B,Q,H)
+    fp32, Bb / Cb (B,Q,N) -> (B,Q,H,P) fp32."""
+    if use_kernel_for(xb, use_kernel):
+        return ssd_intra_chunk_cuda(xb, dtb, cum, Bb, Cb)
+    return ref.ssd_intra_chunk(xb, dtb, cum, Bb, Cb)
+
+
 __all__ = ["KERNEL_COUNTERS", "plain_versions", "use_kernel_for",
            "fused_dispatch", "fpm_copy", "fpm_copy_cross", "meminit_zero",
            "baseline_copy", "psm_copy", "paged_attention_slab",
-           "flash_attention"]
+           "flash_attention", "ssd_intra_chunk"]

@@ -20,8 +20,8 @@ from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
 #: launches of the CUDA decode-attention kernel (not of its plain version)
 COUNTER = LaunchCounter("paged_attention")
 
-#: what the kernel is built for
-HEAD_DIM = 128
+#: what the kernel is built for (llama3.2-3b 128, zamba2's shared block 80)
+HEAD_DIMS = (80, 128)
 MAX_GROUP = 8
 SMEM_LIMIT = 227 * 1024
 
@@ -32,9 +32,9 @@ def paged_attention_slab_cuda(q, k_slab, v_slab, share_mask, base, seq_lens,
     Raises on inputs the kernel does not take."""
     nblk, pg, KVH, D = k_slab.shape
     B, H, Dq = q.shape
-    if pg != page or Dq != D or D != HEAD_DIM:
+    if pg != page or Dq != D or D not in HEAD_DIMS:
         raise ValueError(f"paged attention kernel: page {pg} vs {page}, "
-                         f"head dim {D} (needs {HEAD_DIM})")
+                         f"head dim {D} (needs one of {HEAD_DIMS})")
     if H % KVH or H // KVH > MAX_GROUP:
         raise ValueError(f"paged attention kernel: {H} heads over {KVH} kv "
                          f"heads (group <= {MAX_GROUP})")
@@ -58,13 +58,13 @@ def paged_attention_slab_cuda(q, k_slab, v_slab, share_mask, base, seq_lens,
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
     fn = library("paged_attention").rc_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     check(fn(q.data_ptr(), k_slab.data_ptr(), v_slab.data_ptr(),
              share_mask.data_ptr(), base.data_ptr(), seq_lens.data_ptr(),
              acc.data_ptr(), l.data_ptr(), m.data_ptr(), nblk, page, KVH, B,
-             group, float(D ** -0.5), stream_ptr(q.device)),
+             group, D, float(D ** -0.5), stream_ptr(q.device)),
           "paged attention kernel")
     COUNTER.n += 1
     return acc, l, m

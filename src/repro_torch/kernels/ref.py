@@ -222,7 +222,47 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
     return ((p @ vv) / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def ssd_intra_chunk(xb, dtb, cum, Bb, Cb):
+    """The Mamba2 SSD intra-chunk term (``repro/models/mamba2.py
+    _ssd_intra_chunk_jnp``, the oracle of the TPU kernel
+    ``repro/kernels/ssd_chunk.py``).
+
+    xb (B, Q, H, P); dtb, cum (B, Q, H), ``cum`` the inclusive cumsum of
+    ``dt * A`` within the chunk; Bb, Cb (B, Q, N).  Returns (B, Q, H, P)
+    fp32: ``y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j``.
+    The decay is selected, never multiplied, above the diagonal, where
+    ``cum_i - cum_j > 0`` may overflow."""
+    Q = xb.shape[1]
+    scores = Cb.float() @ Bb.float().transpose(1, 2)             # (B,Qi,Qj)
+    seg = cum.float()[:, :, None, :] - cum.float()[:, None, :, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=xb.device).tril()
+    L = torch.where(mask[None, :, :, None], torch.exp(seg),
+                    torch.zeros_like(seg))                       # (B,Qi,Qj,H)
+    W = scores[..., None] * L * dtb.float()[:, None, :, :]
+    return torch.einsum("bijh,bjhp->bihp", W, xb.float())
+
+
+def ssd_ref(x, dt, A, B_mat, C_mat, D_skip):
+    """Naive token-by-token state-space recurrence (``repro/kernels/ref.py
+    ssd_ref``), the oracle of the chunked path.  x (B, S, H, P); dt
+    (B, S, H) > 0; A (H,) < 0; B_mat, C_mat (B, S, N); D_skip (H,).
+    Returns y (B, S, H, P) in ``x.dtype``."""
+    Bb, S, H, P = x.shape
+    N = B_mat.shape[-1]
+    xf, Bf, Cf = x.float(), B_mat.float(), C_mat.float()
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t] * A[None, :])                  # (B,H)
+        dbx = torch.einsum("bhp,bn,bh->bhpn", xf[:, t], Bf[:, t], dt[:, t])
+        h = h * decay[..., None, None] + dbx
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, 1) + xf * D_skip[None, None, :, None]
+    return y.to(x.dtype)
+
+
 __all__ = ["NEG_INF", "as_primary", "address_space", "int_view",
            "fused_dispatch",
            "fpm_copy", "fpm_copy_cross", "baseline_copy", "zero_init",
-           "paged_attention_slab", "flash_attention"]
+           "paged_attention_slab", "flash_attention", "ssd_intra_chunk",
+           "ssd_ref"]

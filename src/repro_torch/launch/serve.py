@@ -49,6 +49,10 @@ class ServingEngine:
                  num_slabs: int = 4, rc: Optional[RowCloneConfig] = None,
                  max_admit_pages: Optional[int] = None,
                  admissions_per_round: int = 1, device="cuda"):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                "the serving engine targets the dense family; "
+                f"{cfg.family!r} decodes through LanguageModel.decode_state")
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"weights on {params.embed.device}, engine on "

@@ -1,16 +1,32 @@
-"""The dense language model (port of ``repro/models/lm.py``, the dense
-family): prefill over a prompt and one decode step over the paged pools."""
+"""The language model (port of ``repro/models/lm.py``) for the dense, ssm
+and hybrid families.
+
+* dense: :meth:`LanguageModel.prefill` over a prompt and
+  :meth:`LanguageModel.decode_step` over the paged pools, the pair the
+  serving engine drives;
+* every ported family: the facade pair of the reference's ``prefill`` /
+  ``decode_step`` — :meth:`LanguageModel.prefill_state` returns the
+  last-position logits and the serve state (``make_serve_state``'s keys),
+  :meth:`LanguageModel.decode_state` takes one token per sequence over it.
+  The ssm and hybrid families decode only this way, as in the reference,
+  whose serving engine refuses them.
+"""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs import ModelConfig, RowCloneConfig
 from repro_torch.models.common import embed, rms_norm
+from repro_torch.models.mamba2 import (Mamba2Layer, mamba2_decode_step,
+                                       mamba2_layer)
+from repro_torch.models.paged import identity_layout
 from repro_torch.models.transformer import (DecoderLayer, decoder_layer_decode,
                                             decoder_layer_train)
+
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -18,15 +34,17 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class LanguageModel(nn.Module):
-    """Weights of the dense decoder: embedding (tied to the head when
-    ``cfg.tie_embeddings``), final norm and the layers.  Build one with
-    :func:`repro_torch.weights.init_params` or
-    :func:`repro_torch.weights.from_jax_params`."""
+    """Weights of the model: embedding (tied to the head when
+    ``cfg.tie_embeddings``), final norm and the layers — decoder layers
+    (dense) or Mamba2 layers (ssm, hybrid), plus the one shared decoder
+    layer of the hybrid, which runs after every ``shared_attn_every``
+    Mamba2 layers.  Build one with :func:`repro_torch.weights.init_params`
+    or :func:`repro_torch.weights.from_jax_params`."""
 
     def __init__(self, cfg: ModelConfig, device,
                  rc: RowCloneConfig = RowCloneConfig()):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet")
         self.cfg = cfg
@@ -42,8 +60,11 @@ class LanguageModel(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.zeros((cfg.d_model, cfg.padded_vocab), dtype=dt,
                             device=device), requires_grad=False)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, dt, device)
+        layer = DecoderLayer if cfg.family == "dense" else Mamba2Layer
+        self.layers = nn.ModuleList(layer(cfg, dt, device)
                                     for _ in range(cfg.num_layers))
+        if cfg.family == "hybrid":
+            self.shared = DecoderLayer(cfg, dt, device)
 
     @property
     def act_dtype(self) -> torch.dtype:
@@ -55,11 +76,18 @@ class LanguageModel(nn.Module):
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return (x.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
 
+    def _dense_only(self, what: str) -> None:
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{what} serves the dense family; {self.cfg.family!r} runs "
+                "through prefill_state / decode_state")
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (last-position logits (B, V) fp32, k, v), k / v
         (L, B, S, KVH, D) post-RoPE."""
+        self._dense_only("prefill")
         cfg = self.cfg
         B, S = tokens.shape
         x = embed(self.embed, tokens, self.act_dtype)
@@ -81,14 +109,11 @@ class LanguageModel(nn.Module):
         (tokens already in the cache).  Appends every layer's K/V into
         ``k_pools`` / ``v_pools`` (L, nblk, page, KVH, D) IN PLACE and
         returns the next-position logits (B, V) fp32."""
+        self._dense_only("decode_step")
         cfg, page = self.cfg, self.page
         pos = seq_lens.long()
         x = embed(self.embed, tokens, self.act_dtype)
-        ids = torch.gather(block_table.long(), 1,
-                           (pos // page)[:, None])[:, 0]
-        # batch slots with a sequence (an empty slot's table row is -1)
-        rows = (ids >= 0).nonzero()[:, 0]
-        ids, offsets = ids[rows], (pos % page)[rows]
+        rows, ids, offsets = append_slots(pos, block_table, page)
         seq_incl = (pos + 1).to(torch.int32)
         for li, layer in enumerate(self.layers):
             x = decoder_layer_decode(layer, x, pos, k_pools[li], v_pools[li],
@@ -96,6 +121,139 @@ class LanguageModel(nn.Module):
                                      seq_incl, cfg, page)
         xn = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self._logits(xn)
+
+    # ------------------------------------------------------------------
+    # the facade pair over a serve state (every ported family)
+    # ------------------------------------------------------------------
+    def make_serve_state(self, batch: int, seq_len: int,
+                         filled: Optional[int] = None,
+                         dtype: Optional[torch.dtype] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """Zero serve state with the identity block layout (the reference's
+        ``make_serve_state`` on one device).  ``filled``: tokens already
+        present per sequence (default ``seq_len - 1``).  Keys: ``seq_lens``;
+        dense and hybrid ``block_table``, ``share_mask``, ``base``,
+        ``k_pools`` / ``v_pools`` (L_attn, nblk, page, KVH, D) in ``dtype``
+        (default the model dtype); ssm and hybrid ``conv_state``
+        (L, B, W-1, C) and ``ssm_state`` (L, B, H, P, N) fp32, with the
+        layer axis split (n_seg, shared_attn_every) for the hybrid."""
+        cfg, page = self.cfg, self.page
+        dev = self.embed.device
+        dtype = self.act_dtype if dtype is None else dtype
+        filled = seq_len - 1 if filled is None else filled
+        state = {"seq_lens": torch.full((batch,), filled, dtype=torch.int32,
+                                        device=dev)}
+        if cfg.family in ("dense", "hybrid"):
+            table, mask, base = identity_layout(batch, seq_len, page)
+            state["block_table"] = torch.from_numpy(table).to(dev)
+            state["share_mask"] = torch.from_numpy(mask).to(dev)
+            state["base"] = torch.from_numpy(base).to(dev)
+            state["k_pools"] = torch.zeros(
+                (cfg.num_attn_layers, base.shape[0], page, cfg.num_kv_heads,
+                 cfg.head_dim), dtype=dtype, device=dev)
+            state["v_pools"] = torch.zeros_like(state["k_pools"])
+        if cfg.family in ("ssm", "hybrid"):
+            lead = (cfg.num_layers,)
+            if cfg.family == "hybrid":
+                k = cfg.shared_attn_every
+                lead = (cfg.num_layers // k, k)
+            C = cfg.ssm_d_inner + 2 * cfg.ssm_state
+            state["conv_state"] = torch.zeros(
+                lead + (batch, cfg.ssm_conv_width - 1, C),
+                dtype=torch.float32, device=dev)
+            state["ssm_state"] = torch.zeros(
+                lead + (batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                        cfg.ssm_state), dtype=torch.float32, device=dev)
+        return state
+
+    def _per_layer(self, state: Dict[str, torch.Tensor]):
+        """Views of the recurrent states with one leading layer axis (the
+        hybrid's (n_seg, every) axes merged), and the number of Mamba2
+        layers between shared-block calls (all of them for ssm)."""
+        cfg = self.cfg
+        L = cfg.num_layers
+        conv, ssm = state["conv_state"], state["ssm_state"]
+        every = cfg.shared_attn_every if cfg.family == "hybrid" else L
+        return (conv.view((L,) + conv.shape[-3:]),
+                ssm.view((L,) + ssm.shape[-4:]), every)
+
+    @torch.no_grad()
+    def prefill_state(self, tokens: torch.Tensor,
+                      margin_tokens: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full forward over prompts of one length (no padding mask, as the
+        reference); returns the last-position logits (B, V) fp32 and the
+        serve state, with ``margin_tokens`` of decode capacity past the
+        prompt (default one page)."""
+        cfg, page = self.cfg, self.page
+        B, S = tokens.shape
+        margin = page if margin_tokens is None else margin_tokens
+        nper = (S + margin + page - 1) // page
+        if cfg.family == "dense":
+            logits, k, v = self.prefill(tokens)
+            state = self.make_serve_state(B, nper * page, filled=S)
+            state["k_pools"] = kv_to_pools(k, page, self.act_dtype, nper)
+            state["v_pools"] = kv_to_pools(v, page, self.act_dtype, nper)
+            return logits, state
+        state = self.make_serve_state(B, nper * page, filled=S)
+        conv, ssm, every = self._per_layer(state)
+        x = embed(self.embed, tokens, self.act_dtype)
+        pos = torch.arange(S, device=tokens.device).expand(B, S)
+        for li, layer in enumerate(self.layers):
+            x, ssm[li], conv[li] = mamba2_layer(layer, x, cfg)
+            if cfg.family == "hybrid" and (li + 1) % every == 0:
+                x, (k, v) = decoder_layer_train(self.shared, x, pos, cfg)
+                seg = li // every
+                for name, kv in (("k_pools", k), ("v_pools", v)):
+                    pool = state[name][seg].view(
+                        (B, nper * page) + tuple(k.shape[2:]))
+                    pool[:, :S] = kv
+        xn = rms_norm(x[:, -1, :], self.final_norm, cfg.norm_eps)
+        return self._logits(xn), state
+
+    @torch.no_grad()
+    def decode_state(self, state: Dict[str, torch.Tensor],
+                     tokens: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One token per sequence: ``tokens`` (B,) the token just sampled,
+        at position ``state["seq_lens"]``.  Updates the state's pools and
+        recurrent states IN PLACE (the reference returns new arrays) and
+        returns the next-position logits (B, V) fp32 and the state with
+        ``seq_lens`` advanced."""
+        cfg, page = self.cfg, self.page
+        if cfg.family == "dense":
+            logits = self.decode_step(
+                tokens, state["seq_lens"], state["k_pools"],
+                state["v_pools"], state["block_table"], state["share_mask"],
+                state["base"])
+            return logits, dict(state, seq_lens=state["seq_lens"] + 1)
+        pos = state["seq_lens"].long()
+        seq_incl = (pos + 1).to(torch.int32)
+        conv, ssm, every = self._per_layer(state)
+        if cfg.family == "hybrid":
+            rows, ids, offsets = append_slots(pos, state["block_table"], page)
+        x = embed(self.embed, tokens, self.act_dtype)
+        for li, layer in enumerate(self.layers):
+            x, conv[li], ssm[li] = mamba2_decode_step(layer, x, conv[li],
+                                                      ssm[li], cfg)
+            if cfg.family == "hybrid" and (li + 1) % every == 0:
+                seg = li // every
+                x = decoder_layer_decode(
+                    self.shared, x, pos, state["k_pools"][seg],
+                    state["v_pools"][seg], rows, ids, offsets,
+                    state["share_mask"], state["base"], seq_incl, cfg, page)
+        xn = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self._logits(xn), dict(state, seq_lens=seq_incl)
+
+
+def append_slots(pos: torch.Tensor, block_table: torch.Tensor, page: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where each sequence's token at ``pos`` (B,) lands: the batch slots
+    that hold a sequence (an empty slot's table row is -1) and their block
+    ids and in-block offsets."""
+    ids = torch.gather(block_table.long(), 1, (pos // page)[:, None])[:, 0]
+    rows = (ids >= 0).nonzero()[:, 0]
+    return rows, ids[rows], (pos % page)[rows]
 
 
 def kv_to_pools(kv: torch.Tensor, page: int, dtype: torch.dtype,
@@ -110,4 +268,5 @@ def kv_to_pools(kv: torch.Tensor, page: int, dtype: torch.dtype,
     return kv.reshape(L, B * nper, page, KVH, D).to(dtype)
 
 
-__all__ = ["LanguageModel", "kv_to_pools", "model_dtype"]
+__all__ = ["LanguageModel", "PORTED_FAMILIES", "append_slots", "kv_to_pools",
+           "model_dtype"]

@@ -1,0 +1,214 @@
+"""Mamba2 / SSD blocks (port of ``repro/models/mamba2.py``): the chunked
+prefill path and the O(1) one-token decode step.
+
+Prefill uses the SSD block decomposition (arXiv:2405.21060 §6): the
+intra-chunk quadratic term is K4 (``ops.ssd_intra_chunk``, one launch per
+layer with the chunks folded into the batch axis) and the inter-chunk
+state recurrence is a plain loop over chunks, as the reference's
+``lax.scan`` is jnp.  Every decay is ``exp`` of a within-chunk cumsum
+difference <= 0.  Decode carries ``(conv_state, ssm_state)`` in fp32.
+
+Dtypes follow the reference: the projections run in the activation dtype,
+the conv in fp32, ``dt`` and ``A`` in fp32; ``ssd_chunked`` returns ``y``
+in ``x.dtype`` and the final state in fp32.  Weights keep the JAX layout
+``(in, out)``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import rms_norm
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Mamba2Layer(nn.Module):
+    """One Mamba2 layer's weights.  ``w_in`` / ``w_out`` are in the model
+    dtype (the reference casts its fp32 weights to the activation dtype at
+    use); the conv, ``dt_bias``, ``A_log``, ``D`` and the norm gains stay
+    fp32."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+        super().__init__()
+        d, di = cfg.d_model, cfg.ssm_d_inner
+        H, N, W = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_conv_width
+        conv_ch = di + 2 * N
+        f32 = torch.float32
+        self.norm = _param((d,), f32, device)
+        # in_proj -> [z (di), xBC (di + 2N), dt (H)]
+        self.w_in = _param((d, 2 * di + 2 * N + H), dtype, device)
+        self.conv_w = _param((W, conv_ch), f32, device)
+        self.conv_b = _param((conv_ch,), f32, device)
+        self.dt_bias = _param((H,), f32, device)
+        self.A_log = _param((H,), f32, device)
+        self.D = _param((H,), f32, device)
+        self.gate_norm = _param((di,), f32, device)
+        self.w_out = _param((di, d), dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan (prefill)
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(x, dt, A, B_mat, C_mat, D_skip, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,H,P); dt (B,S,H) > 0 fp32; A (H,) < 0; B_mat / C_mat (B,S,N);
+    D_skip (H,).  Returns y (B,S,H,P) in ``x.dtype`` and the final state
+    (B,H,P,N) fp32.  S is padded to a chunk multiple only when S > chunk
+    (``dt = 0`` on the padding is a no-op); a shorter S is one ragged
+    chunk."""
+    Bb, S, H, P = x.shape
+    N = B_mat.shape[-1]
+    S_orig = S
+    if S % chunk and S > chunk:
+        pad = chunk - S % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B_mat = F.pad(B_mat, (0, 0, 0, pad))
+        C_mat = F.pad(C_mat, (0, 0, 0, pad))
+        S += pad
+    nc = max(S // chunk, 1)
+    Q = S // nc
+
+    xc = x.reshape(Bb * nc, Q, H, P)
+    dtc = dt.float().reshape(Bb * nc, Q, H)
+    Bc = B_mat.reshape(Bb * nc, Q, N)
+    Cc = C_mat.reshape(Bb * nc, Q, N)
+    cum = torch.cumsum(dtc * A[None, None, :], dim=1)            # inclusive
+    # the intra-chunk term does not depend on the carried state: one launch
+    # for every chunk of every sequence
+    y_intra = kops.ssd_intra_chunk(xc.contiguous(), dtc.contiguous(),
+                                   cum.contiguous(), Bc.contiguous(),
+                                   Cc.contiguous())
+    y_intra = y_intra.reshape(Bb, nc, Q, H, P)
+    cum = cum.reshape(Bb, nc, Q, H)
+    xf = x.float().reshape(Bb, nc, Q, H, P)
+    dtf = dtc.reshape(Bb, nc, Q, H)
+    Bf = B_mat.float().reshape(Bb, nc, Q, N)
+    Cf = C_mat.float().reshape(Bb, nc, Q, N)
+
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        cum_c = cum[:, c]
+        # contribution of the carried state
+        y_inter = torch.einsum("bqn,bhpn->bqhp", Cf[:, c], h) * \
+            torch.exp(cum_c)[..., None]
+        ys.append(y_intra[:, c] + y_inter)
+        # state update
+        w = torch.exp(cum_c[:, -1:, :] - cum_c) * dtf[:, c]      # (B,Q,H)
+        S_c = torch.einsum("bqhp,bqn->bhpn", xf[:, c] * w[..., None],
+                           Bf[:, c])
+        h = h * torch.exp(cum_c[:, -1, :])[:, :, None, None] + S_c
+    y = torch.stack(ys, 1).reshape(Bb, S, H, P)
+    y = y + x.float() * D_skip[None, None, :, None]
+    return y[:, :S_orig].to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x, w, b):
+    """x (B,S,C); w (W,C); b (C,).  Causal depthwise conv + silu, in fp32
+    whatever the activation dtype: W shifted multiply-adds (the reference's
+    ``lax.conv`` is XLA's, not a Pallas kernel)."""
+    W, S = w.shape[0], x.shape[1]
+    pad = F.pad(x.float(), (0, 0, W - 1, 0))
+    wf = w.float()
+    out = pad[:, 0:S] * wf[0]
+    for k in range(1, W):
+        out = out + pad[:, k:k + S] * wf[k]
+    return F.silu(out + b.float())
+
+
+def conv_step(conv_state, x_new, w, b):
+    """One decode step.  conv_state (B,W-1,C); x_new (B,C).  Returns the
+    activation (B,C) and the shifted state."""
+    window = torch.cat([conv_state, x_new[:, None, :]], dim=1)   # (B,W,C)
+    y = torch.einsum("bwc,wc->bc", window, w) + b[None, :]
+    return F.silu(y), window[:, 1:, :]
+
+
+# ---------------------------------------------------------------------------
+# full layer: prefill + decode
+# ---------------------------------------------------------------------------
+
+def _split_proj(proj, cfg: ModelConfig):
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    return proj[..., :di], proj[..., di:2 * di + 2 * N], \
+        proj[..., 2 * di + 2 * N:]
+
+
+def mamba2_layer(layer: Mamba2Layer, x, cfg: ModelConfig):
+    """Prefill forward.  x (B,S,d_model).  Returns (x + out, h_final
+    (B,H,P,N) fp32, conv_tail (B,W-1,C) fp32) so prefill can seed decode."""
+    B, S, _ = x.shape
+    di, N, H, P = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    h = rms_norm(x, layer.norm, cfg.norm_eps)
+    proj = h @ layer.w_in.to(h.dtype)
+    z, xBC, dt_raw = _split_proj(proj, cfg)
+    xBC = causal_conv1d(xBC, layer.conv_w, layer.conv_b).to(h.dtype)
+    xs = xBC[..., :di].reshape(B, S, H, P)
+    B_mat = xBC[..., di:di + N]
+    C_mat = xBC[..., di + N:]
+    dt = F.softplus(dt_raw.float() + layer.dt_bias[None, None, :])
+    A = -torch.exp(layer.A_log.float())
+    y, h_final = ssd_chunked(xs, dt, A, B_mat, C_mat, layer.D.float(),
+                             cfg.ssm_chunk)
+    y = y.reshape(B, S, di)
+    y = rms_norm(y * F.silu(z.float()).to(y.dtype), layer.gate_norm,
+                 cfg.norm_eps)
+    out = y @ layer.w_out.to(y.dtype)
+    return x + out, h_final, xbc_tail(layer, x, cfg)
+
+
+def xbc_tail(layer: Mamba2Layer, x, cfg: ModelConfig):
+    """Recompute the last W-1 pre-conv activations from the layer INPUT, in
+    fp32, to seed decode."""
+    W = cfg.ssm_conv_width
+    h = rms_norm(x[:, -(W - 1):, :], layer.norm, cfg.norm_eps)
+    _, xBC, _ = _split_proj(h @ layer.w_in.to(h.dtype), cfg)
+    return xBC.float()
+
+
+def mamba2_decode_step(layer: Mamba2Layer, x, conv_state, ssm_state,
+                       cfg: ModelConfig):
+    """One-token decode.  x (B,d_model); conv_state (B,W-1,di+2N) and
+    ssm_state (B,H,P,N) fp32.  Returns (y, conv_state', ssm_state'); the
+    step runs in fp32 and casts before ``w_out``."""
+    B, _ = x.shape
+    di, N, H, P = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    h = rms_norm(x, layer.norm, cfg.norm_eps)
+    z, xBC_new, dt_raw = _split_proj(h @ layer.w_in.to(h.dtype), cfg)
+    xBC, conv_state = conv_step(conv_state, xBC_new.float(),
+                                layer.conv_w.float(), layer.conv_b.float())
+    xt = xBC[..., :di].reshape(B, H, P)
+    B_t = xBC[..., di:di + N]
+    C_t = xBC[..., di + N:]
+    dt = F.softplus(dt_raw.float() + layer.dt_bias[None, :])
+    A = -torch.exp(layer.A_log.float())
+    decay = torch.exp(dt * A[None, :])                           # (B,H)
+    dbx = (xt * dt[..., None])[..., None] * B_t[:, None, None, :]
+    ssm_state = ssm_state * decay[..., None, None] + dbx
+    y = torch.einsum("bhpn,bn->bhp", ssm_state, C_t)
+    y = y + xt * layer.D.float()[None, :, None]
+    y = rms_norm(y.reshape(B, di) * F.silu(z.float()), layer.gate_norm,
+                 cfg.norm_eps)
+    out = y.to(x.dtype) @ layer.w_out.to(x.dtype)
+    return x + out, conv_state, ssm_state
+
+
+__all__ = ["Mamba2Layer", "ssd_chunked", "causal_conv1d", "conv_step",
+           "mamba2_layer", "xbc_tail", "mamba2_decode_step"]

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.poolspec import PoolGroup, PoolSpec
@@ -53,4 +54,20 @@ def attend_append_local(q, k_new, v_new, k_slab, v_slab, rows, blk_ids,
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-__all__ = ["make_serving_pools", "attend_append_local"]
+def identity_layout(batch: int, seq_len: int, page: int
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Block table, share mask and base of the contiguous layout where
+    sequence b's j-th block is pool row ``b * nper + j`` (the reference's
+    ``identity_layout`` on one device, ``dp = 1``).  Returns (block_table
+    (B, nper) int32, share_mask (nblk, B) int8, base (nblk,) int32)."""
+    nper = (seq_len + page - 1) // page
+    nblk = batch * nper
+    table = np.arange(nblk, dtype=np.int32).reshape(batch, nper)
+    owner = np.repeat(np.arange(batch, dtype=np.int32), nper)
+    base = np.tile(np.arange(nper, dtype=np.int32) * page, batch)
+    mask = np.zeros((nblk, batch), np.int8)
+    mask[np.arange(nblk), owner] = 1
+    return table, mask, base
+
+
+__all__ = ["make_serving_pools", "attend_append_local", "identity_layout"]

@@ -1,24 +1,34 @@
-"""Weights of the port's dense model.
+"""Weights of the port's models (dense, ssm, hybrid).
 
 * :func:`init_params` makes random weights on the target device from a
   seeded ``torch.Generator``, with the scales of the reference's
-  initialisers (``repro/models/common.py``): embedding N(0, 0.02), dense
-  N(0, 1/in), norm gains zero.  Nothing is downloaded.
+  initialisers (``repro/models/common.py``, ``repro/models/mamba2.py``):
+  embedding and untied head N(0, 0.02), dense N(0, 1/in), norm gains zero;
+  Mamba2 ``conv_w`` N(0, 1/W), ``dt_bias = log(expm1(dt))`` with ``dt``
+  log-uniform in [1e-3, 1e-1], ``A_log = log(1..H)``, ``D = 1``.  Nothing
+  is downloaded.
 * :func:`from_jax_params` loads the JAX parameter tree (after
   ``split_params``, every leaf converted to numpy; layer weights stacked on
-  a leading axis) into the port's modules, for the parity tests.
+  a leading axis, the hybrid's ``shared`` decoder layer unstacked) into the
+  port's modules, for the parity tests.
 
 The JAX layout ``(in, out)`` is kept.
 """
 from __future__ import annotations
 
-from typing import Mapping
+import math
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig, RowCloneConfig
 from repro_torch.models.lm import LanguageModel
+from repro_torch.models.mamba2 import Mamba2Layer
+from repro_torch.models.transformer import DecoderLayer
+
+#: range of the Mamba2 timestep at init (``mamba2.py:31-32``)
+DT_MIN, DT_MAX = 1e-3, 1e-1
 
 
 def resolve_device(device) -> torch.device:
@@ -45,14 +55,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                         dtype=torch.float32)
         p.data.copy_(w.mul_(scale))
 
-    normal_(model.embed, 0.02)
-    if not cfg.tie_embeddings:
-        normal_(model.lm_head, 0.02)
-    for layer in model.layers:
+    def decoder(layer: DecoderLayer) -> None:
         for name in ("wq", "wk", "wv", "w_gate", "w_up"):
             normal_(getattr(layer, name), cfg.d_model ** -0.5)
         normal_(layer.wo, cfg.q_dim ** -0.5)
         normal_(layer.w_down, cfg.d_ff ** -0.5)
+
+    def mamba(layer: Mamba2Layer) -> None:
+        H = cfg.ssm_heads
+        normal_(layer.w_in, cfg.d_model ** -0.5)
+        normal_(layer.conv_w, cfg.ssm_conv_width ** -0.5)
+        u = torch.rand((H,), generator=gen, device=device)
+        dt = torch.exp(math.log(DT_MIN) + u * (math.log(DT_MAX) -
+                                               math.log(DT_MIN)))
+        layer.dt_bias.data.copy_(torch.log(torch.expm1(dt)))
+        layer.A_log.data.copy_(torch.log(torch.arange(
+            1, H + 1, dtype=torch.float32, device=device)))
+        layer.D.data.fill_(1.0)
+        normal_(layer.w_out, cfg.ssm_d_inner ** -0.5)
+
+    normal_(model.embed, 0.02)
+    if not cfg.tie_embeddings:
+        normal_(model.lm_head, 0.02)
+    for layer in model.layers:
+        (decoder if isinstance(layer, DecoderLayer) else mamba)(layer)
+    if cfg.family == "hybrid":
+        decoder(model.shared)
     return model
 
 
@@ -64,10 +92,15 @@ def _to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+#: the Mamba2 layer's parameters, by their name in the JAX tree
+MAMBA2_PARAMS = ("norm", "w_in", "conv_w", "conv_b", "dt_bias", "A_log", "D",
+                 "gate_norm", "w_out")
+
+
 def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
                     rc: RowCloneConfig = RowCloneConfig()) -> LanguageModel:
-    """Map the JAX dense parameter tree (numpy leaves) into a
-    :class:`LanguageModel` on ``device``."""
+    """Map the JAX parameter tree (numpy leaves) of a dense, ssm or hybrid
+    model into a :class:`LanguageModel` on ``device``."""
     device = resolve_device(device)
     model = LanguageModel(cfg, device, rc)
 
@@ -78,18 +111,29 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
                              f"shape {tuple(p.shape)}")
         p.data.copy_(t.to(p.dtype))
 
+    def decoder(layer: DecoderLayer, d: Mapping,
+                i: Optional[int] = None) -> None:
+        at = (lambda a: a) if i is None else (lambda a: a[i])
+        put(layer.ln1, at(d["ln1"]))
+        put(layer.ln2, at(d["ln2"]))
+        for name in ("wq", "wk", "wv", "wo"):
+            put(getattr(layer, name), at(d["attn"][name]))
+        for name in ("w_gate", "w_up", "w_down"):
+            put(getattr(layer, name), at(d["mlp"][name]))
+
     put(model.embed, tree["embed"])
     put(model.final_norm, tree["final_norm"])
     if not cfg.tie_embeddings:
         put(model.lm_head, tree["lm_head"])
     lay = tree["layers"]
     for i, layer in enumerate(model.layers):
-        put(layer.ln1, lay["ln1"][i])
-        put(layer.ln2, lay["ln2"][i])
-        for name in ("wq", "wk", "wv", "wo"):
-            put(getattr(layer, name), lay["attn"][name][i])
-        for name in ("w_gate", "w_up", "w_down"):
-            put(getattr(layer, name), lay["mlp"][name][i])
+        if isinstance(layer, DecoderLayer):
+            decoder(layer, lay, i)
+        else:
+            for name in MAMBA2_PARAMS:
+                put(getattr(layer, name), lay[name][i])
+    if cfg.family == "hybrid":
+        decoder(model.shared, tree["shared"])
     return model
 
 

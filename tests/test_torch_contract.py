@@ -140,6 +140,68 @@ def common_stats(jeng, teng):
     return {k: j[k] for k in t}, t
 
 
+def jax_and_port_models(arch: str, **overrides):
+    """The reduced ``arch`` (with ``overrides``, e.g. ``dtype``) as a JAX
+    model with ``init_params(jax.random.key(0))`` and the port's model on
+    the CPU with the same weights (``from_jax_params``).  Returns (JAX
+    model, JAX params, port model, port config)."""
+    from repro.models import build_model, split_params
+    from repro_torch.weights import from_jax_params
+    jc = dataclasses.replace(jcfg.get_config(arch).reduced(), **overrides)
+    tc = dataclasses.replace(tcfg.get_config(arch).reduced(), **overrides)
+    jmodel = build_model(jc)
+    params, _ = split_params(jmodel.init_params(jax.random.key(0)))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    return jmodel, params, from_jax_params(tree, tc, device="cpu"), tc
+
+
+#: the serve-state leaves the facades carry, by family
+STATE_KEYS = {"dense": ("k_pools", "v_pools"),
+              "ssm": ("conv_state", "ssm_state"),
+              "hybrid": ("conv_state", "ssm_state", "k_pools", "v_pools")}
+
+
+def facade_parity(jmodel, params, tmodel, cfg, prompts, steps: int = 4, *,
+                  logit_atol: float, state_atol: float):
+    """``prefill_state`` then ``steps`` greedy ``decode_state`` calls of the
+    port against the JAX facade's ``prefill`` / ``decode_step`` on the same
+    prompts: logits within ``logit_atol`` at every call, identical greedy
+    tokens (both sides are fed the reference's token), and the state's
+    recurrent leaves and KV pools within ``state_atol`` (same layout as the
+    reference) after the prefill and after the last step."""
+    import jax.numpy as jnp
+
+    def same_state(sj, st, when):
+        assert sorted(st) == sorted(sj), when
+        for key in ("seq_lens", "block_table", "share_mask", "base"):
+            if key in sj:
+                np.testing.assert_array_equal(st[key].numpy(),
+                                              np.asarray(sj[key]),
+                                              err_msg=f"{key} {when}")
+        for key in STATE_KEYS[cfg.family]:
+            assert tuple(st[key].shape) == tuple(sj[key].shape), key
+            np.testing.assert_allclose(
+                st[key].float().numpy(),
+                np.asarray(sj[key]).astype(np.float32), atol=state_atol,
+                rtol=1e-4, err_msg=f"{key} {when}")
+
+    lj, sj = jmodel.prefill(params, {"tokens": jnp.asarray(prompts)}, None)
+    lt, st = tmodel.prefill_state(torch.from_numpy(prompts).long())
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=logit_atol)
+    same_state(sj, st, "after prefill")
+    for step in range(steps):
+        tok = np.asarray(jnp.argmax(lj, -1), np.int32)
+        np.testing.assert_array_equal(lt.argmax(-1).numpy(), tok,
+                                      err_msg=f"greedy token, step {step}")
+        lj, sj = jmodel.decode_step(params, sj, jnp.asarray(tok), None)
+        lt, st = tmodel.decode_state(st,
+                                     torch.from_numpy(tok.copy()).long())
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
+                                   atol=logit_atol,
+                                   err_msg=f"decode step {step}")
+    same_state(sj, st, f"after {steps} decode steps")
+
+
 # ---------------------------------------------------------------------------
 # registry and configuration
 # ---------------------------------------------------------------------------
@@ -163,16 +225,50 @@ def test_opcode_tables_match_reference():
         tops.check_pack_total(tops.MAX_PACK_BLOCKS + 1)
 
 
+#: the registry entries the port runs, one per ported family
+PORTED_ARCHS = ("llama3.2-3b", "mamba2-780m", "zamba2-2.7b")
+CONFIG_PROPS = ("padded_vocab", "q_dim", "kv_dim", "num_attn_layers",
+                "ssm_d_inner", "is_attention_free", "has_subquadratic_path")
+
+
 def test_config_copy_matches_reference():
-    full_t = tcfg.get_config("llama3.2-3b")
-    full_j = jcfg.get_config("llama3.2-3b")
-    for t, j in ((full_t, full_j), (full_t.reduced(), full_j.reduced())):
-        assert dataclasses.asdict(t) == dataclasses.asdict(j)
-        for prop in ("padded_vocab", "q_dim", "kv_dim", "num_attn_layers"):
-            assert getattr(t, prop) == getattr(j, prop), prop
+    assert sorted(tcfg._REGISTRY) == sorted(PORTED_ARCHS)
+    for arch in PORTED_ARCHS:
+        full_t = tcfg.get_config(arch)
+        full_j = jcfg.get_config(arch)
+        for t, j in ((full_t, full_j), (full_t.reduced(), full_j.reduced())):
+            assert dataclasses.asdict(t) == dataclasses.asdict(j), arch
+            for prop in CONFIG_PROPS:
+                assert getattr(t, prop) == getattr(j, prop), (arch, prop)
     rt = dataclasses.asdict(tcfg.RowCloneConfig())
     rj = dataclasses.asdict(jcfg.RowCloneConfig())
     assert rt == {k: rj[k] for k in rt}
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
+def test_family_sizes_pinned(arch):
+    """The sizes the port's models are built from, full and reduced: the
+    KV-owning layers (0 for ssm, one per shared-attention segment for
+    hybrid), d_inner and the padded vocabulary, as the reference reports
+    them and as the published configurations give them."""
+    want = {"llama3.2-3b": (28, 6144, 128256),
+            "mamba2-780m": (0, 3072, 50432),
+            "zamba2-2.7b": (9, 5120, 32000)}[arch]
+    t, j = tcfg.get_config(arch), jcfg.get_config(arch)
+    assert (t.num_attn_layers, t.ssm_d_inner, t.padded_vocab) == want
+    for cfg in (t, t.reduced()):
+        ref = j if cfg is t else j.reduced()
+        assert (cfg.num_attn_layers, cfg.ssm_d_inner, cfg.padded_vocab) == \
+            (ref.num_attn_layers, ref.ssm_d_inner, ref.padded_vocab)
+
+
+def test_unported_families_still_raise():
+    """moe, vlm and encdec are not ported: their KV-layer count raises
+    rather than guessing."""
+    for fam in ("moe", "vlm", "encdec"):
+        cfg = dataclasses.replace(tcfg.get_config("llama3.2-3b"), family=fam)
+        with pytest.raises(NotImplementedError):
+            cfg.num_attn_layers
 
 
 # ---------------------------------------------------------------------------

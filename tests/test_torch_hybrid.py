@@ -1,0 +1,196 @@
+"""The port's hybrid family (zamba2-2.7b reduced: 4 Mamba2 layers, the
+shared attention+MLP block after every 2) against the JAX facade: prefill
+through the Mamba2 layers and K3's plain version, greedy decode through
+the Mamba2 decode step and K2's plain version over each segment's own pool
+slab.  K2 and K3 at zamba2's head dim 80 are held against their plain
+versions on the card (tests marked ``cuda``).
+
+Tolerances as tests/test_torch_ssm.py: logits atol 2e-3, states and KV
+pools atol 1e-4 in fp32, 2e-2 in bf16.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from test_torch_contract import facade_parity, jax_and_port_models, to_torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.weights import MAMBA2_PARAMS, init_params
+
+
+@pytest.fixture(scope="module")
+def hybrid():
+    return jax_and_port_models("zamba2-2.7b")
+
+
+@pytest.mark.parametrize("S", [40, 20])
+def test_hybrid_facade_prefill_and_greedy_decode_match_reference(hybrid, S):
+    """prefill_state then 4 greedy decode_state steps against the JAX
+    facade: logits, greedy tokens, conv and ssm states and the per-segment
+    K/V pools (S = 40 pads the SSD scan to 2 chunks, S = 20 is one ragged
+    chunk)."""
+    jmodel, params, tmodel, cfg = hybrid
+    assert cfg.num_attn_layers == 2
+    prompts = np.random.default_rng(S + 2).integers(
+        2, cfg.vocab_size, (2, S)).astype(np.int32)
+    facade_parity(jmodel, params, tmodel, cfg, prompts, logit_atol=2e-3,
+                  state_atol=1e-4)
+
+
+def test_hybrid_decode_across_a_page_boundary(hybrid):
+    """A 62-token prompt (one page of margin by default): the decode steps
+    cross from the first 64-token page into the second, a new block of each
+    segment's slab."""
+    jmodel, params, tmodel, cfg = hybrid
+    prompts = np.random.default_rng(62).integers(
+        2, cfg.vocab_size, (1, 62)).astype(np.int32)
+    facade_parity(jmodel, params, tmodel, cfg, prompts, steps=4,
+                  logit_atol=2e-3, state_atol=1e-4)
+
+
+def test_hybrid_bf16_prefill_matches_reference():
+    """The reduced hybrid in bf16: one facade prefill, logits and the
+    segments' K/V pools (bf16, like the reference's) against JAX."""
+    jmodel, params, tmodel, cfg = jax_and_port_models("zamba2-2.7b",
+                                                      dtype="bfloat16")
+    prompts = np.random.default_rng(9).integers(2, cfg.vocab_size, (2, 40))
+    lj, sj = jmodel.prefill(params, {"tokens": jnp.asarray(prompts)}, None)
+    lt, st = tmodel.prefill_state(torch.from_numpy(prompts))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=2e-2)
+    for key in ("k_pools", "v_pools"):
+        assert st[key].dtype == torch.bfloat16
+        want = np.asarray(sj[key], np.float32)
+        # every segment reads bf16 activations of Mamba2 layers that may
+        # differ by an ulp where two sums rounded differently: held at 2e-2
+        # of the pools' scale (tests/test_torch_ssm.py checks the casts on
+        # a first layer, where the inputs are equal)
+        np.testing.assert_allclose(st[key].float().numpy(), want, rtol=0,
+                                   atol=2e-2 * max(1.0,
+                                                   float(np.abs(want).max())))
+
+
+def test_make_serve_state_matches_reference(hybrid):
+    jmodel, _, tmodel, _ = hybrid
+    sj = jmodel.make_serve_state(3, 128, None, filled=5, dtype=jnp.float32)
+    st = tmodel.make_serve_state(3, 128, filled=5)
+    assert sorted(st) == sorted(sj)
+    for key in sj:
+        assert tuple(st[key].shape) == tuple(sj[key].shape), key
+        np.testing.assert_array_equal(st[key].numpy(), np.asarray(sj[key]))
+
+
+def test_from_jax_params_fills_every_hybrid_parameter(hybrid):
+    """Every Mamba2 layer, the shared decoder layer and the untied head
+    come from the JAX tree: shapes equal, values equal, nothing but norm
+    gains and the conv bias left at zero."""
+    jmodel, params, tmodel, cfg = hybrid
+    for i, layer in enumerate(tmodel.layers):
+        for name in MAMBA2_PARAMS:
+            want = np.asarray(params["layers"][name][i])
+            np.testing.assert_array_equal(getattr(layer, name).numpy(), want)
+    sh = params["shared"]
+    for name, want in (("ln1", sh["ln1"]), ("ln2", sh["ln2"]),
+                       *((n, sh["attn"][n]) for n in ("wq", "wk", "wv",
+                                                      "wo")),
+                       *((n, sh["mlp"][n]) for n in ("w_gate", "w_up",
+                                                     "w_down"))):
+        got = getattr(tmodel.shared, name)
+        assert tuple(got.shape) == np.asarray(want).shape, name
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        if not name.startswith("ln"):
+            assert float(got.abs().max()) > 0, name
+    np.testing.assert_array_equal(tmodel.lm_head.numpy(),
+                                  np.asarray(params["lm_head"]))
+    assert float(tmodel.lm_head.abs().max()) > 0
+
+
+def test_init_params_hybrid_is_seeded_and_complete():
+    """init_params of the reduced hybrid is deterministic for a seed and
+    fills the shared block and the untied head (scale 0.02)."""
+    cfg = get_config("zamba2-2.7b").reduced()
+    a = init_params(cfg, seed=5, device="cpu")
+    b = init_params(cfg, seed=5, device="cpu")
+    for (na, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(pa, pb), na
+    c = init_params(cfg, seed=6, device="cpu")
+    assert not torch.equal(a.shared.wq, c.shared.wq)
+    for name, p in a.named_parameters():
+        if not any(k in name for k in ("norm", "ln", "conv_b")):
+            assert float(p.abs().max()) > 0, name
+    assert abs(float(a.lm_head.std()) - 0.02) < 2e-3
+    assert abs(float(a.shared.w_down.std()) - cfg.d_ff ** -0.5) < 5e-3
+
+
+def test_serving_engine_and_dense_entries_refuse_the_hybrid(hybrid):
+    """The serving engine serves the dense family (the reference refuses
+    other families in decode_round); the dense-only prefill / decode_step
+    pair raises for the hybrid, which decodes through decode_state."""
+    from repro_torch.launch.serve import ServingEngine
+    _, _, tmodel, cfg = hybrid
+    with pytest.raises(NotImplementedError):
+        ServingEngine(cfg, tmodel, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tmodel.prefill(torch.zeros((1, 4), dtype=torch.long))
+
+
+@pytest.mark.parametrize("wrapper", ["paged_attention", "flash_attention"])
+def test_head_dim_80_accepted_and_others_refused_before_launch(wrapper):
+    """The K2 / K3 wrappers take head dims 80 and 128 and refuse any other
+    before touching the card (CPU tensors are refused too)."""
+    from repro_torch.kernels import flash_attention, paged_attention
+    assert 80 in paged_attention.HEAD_DIMS and 128 in paged_attention.HEAD_DIMS
+    assert flash_attention.HEAD_DIMS == paged_attention.HEAD_DIMS
+    for D in (64, 80):
+        if wrapper == "paged_attention":
+            q = torch.zeros((2, 4, D), dtype=torch.bfloat16)
+            kv = torch.zeros((3, 16, 4, D), dtype=torch.bfloat16)
+            call = lambda: paged_attention.paged_attention_slab_cuda(  # noqa
+                q, kv, kv, torch.ones((3, 2), dtype=torch.int8),
+                torch.zeros(3, dtype=torch.int32),
+                torch.ones(2, dtype=torch.int32), page=16)
+        else:
+            q = torch.zeros((1, 4, 8, D), dtype=torch.bfloat16)
+            call = lambda: flash_attention.flash_attention_cuda(q, q, q)  # noqa
+        with pytest.raises(ValueError) as err:
+            call()
+        assert ("head dim" in str(err.value)) == (D == 64)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_at_head_dim_80_match_plain_on_card():
+    """K2 and K3 at zamba2's head dim 80 (H = KVH: group 1) against their
+    plain versions on the card (K2 atol 2e-3 on the normalised output, K3
+    atol 2e-2 on its bf16 output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(11)
+    B, H, D, page, nblk = 3, 8, 80, 64, 12
+    q = to_torch(rng.standard_normal((B, H, D)).astype(np.float32))
+    k = to_torch(rng.standard_normal((nblk, page, H, D)).astype(np.float32))
+    v = to_torch(rng.standard_normal((nblk, page, H, D)).astype(np.float32))
+    mask = np.zeros((nblk, B), np.int8)
+    base = np.zeros(nblk, np.int32)
+    for b in range(B):
+        for j in range(3):
+            mask[b * 4 + j, b] = 1
+            base[b * 4 + j] = j * page
+    lens = np.array([130, 64, 1], np.int32)
+    args = [q.bfloat16().cuda(), k.bfloat16().cuda(), v.bfloat16().cuda()] \
+        + [to_torch(a).cuda() for a in (mask, base, lens)]
+    acc, l, m = ops.paged_attention_slab(*args, page=page)
+    acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=page,
+                                               use_kernel=False)
+    torch.testing.assert_close(acc / l[..., None], acc_p / l_p[..., None],
+                               atol=2e-3, rtol=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for S in (64, 250):
+        qq, kk, vv = (torch.randn((1, 8, S, D), generator=g,
+                                  device="cuda").bfloat16()
+                      for _ in range(3))
+        torch.testing.assert_close(
+            ops.flash_attention(qq, kk, vv).float(),
+            ops.flash_attention(qq, kk, vv, use_kernel=False).float(),
+            atol=2e-2, rtol=0)

@@ -21,10 +21,12 @@ FORBIDDEN = re.compile(
     r"|from\s+repro(\.|\s))", re.M)
 
 
-#: modules of the per-mechanism slice; the scans below must reach them
+#: modules of the per-mechanism and the Mamba2 slices; the scans below
+#: must reach them
 NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.core.migration", "repro_torch.launch.mechanisms",
-               "repro_torch.launch.applications")
+               "repro_torch.launch.applications",
+               "repro_torch.kernels.ssd_chunk", "repro_torch.models.mamba2")
 
 
 def _modules():
@@ -88,9 +90,12 @@ def test_kernel_request_on_cpu_tensor_raises():
     q = torch.zeros((1, 2, 4, 128))
     with pytest.raises(ValueError):
         ops.flash_attention(q, q, q, use_kernel=True)
+    dt = torch.zeros((1, 2, 4))
     for call in (lambda: ops.fpm_copy(q, [[0, 1]], use_kernel=True),
                  lambda: ops.fpm_copy_cross(q, q, [[0, 1]], use_kernel=True),
-                 lambda: ops.meminit_zero(q, [0], use_kernel=True)):
+                 lambda: ops.meminit_zero(q, [0], use_kernel=True),
+                 lambda: ops.ssd_intra_chunk(q, dt, dt, q[0], q[0],
+                                             use_kernel=True)):
         with pytest.raises(ValueError):
             call()
     assert not ops.use_kernel_for(q, None)
@@ -125,18 +130,22 @@ def test_new_module_scanned_and_jax_free(module):
 
 
 @pytest.mark.parametrize("wrapper", ["fpm_copy", "fpm_copy_cross",
-                                     "zero_init"])
+                                     "zero_init", "ssd_intra_chunk"])
 def test_cuda_wrapper_refuses_cpu_tensors(wrapper):
     """The CUDA wrappers themselves refuse CPU tensors (no CPU path hides
     behind them)."""
-    from repro_torch.kernels import fpm_copy, zero_init
+    from repro_torch.kernels import fpm_copy, ssd_chunk, zero_init
     pool = torch.zeros((8, 16))
+    x, dt, bc = (torch.zeros((1, 8, 2, 64)), torch.zeros((1, 8, 2)),
+                 torch.zeros((1, 8, 16)))
     call = {"fpm_copy": lambda: fpm_copy.fpm_copy_cuda(
                 pool, [[0, 1]], block_axis=0),
             "fpm_copy_cross": lambda: fpm_copy.fpm_copy_cross_cuda(
                 pool, pool, [[0, 1]], block_axis=0),
             "zero_init": lambda: zero_init.zero_init_cuda(
-                pool, [1], block_axis=0)}[wrapper]
+                pool, [1], block_axis=0),
+            "ssd_intra_chunk": lambda: ssd_chunk.ssd_intra_chunk_cuda(
+                x, dt, dt, bc, bc)}[wrapper]
     with pytest.raises(ValueError):
         call()
 

@@ -94,3 +94,15 @@ def test_init_params_is_seeded_and_scaled():
     assert abs(float(a.embed.std()) - 0.02) < 2e-3
     assert abs(float(a.layers[1].w_down.std()) - cfg.d_ff ** -0.5) < 5e-3
     assert float(a.layers[2].ln1.abs().max()) == 0.0
+
+
+def test_dense_facade_pair_matches_reference(models):
+    """prefill_state / decode_state, the facade every ported family shares,
+    on the dense model: logits, greedy tokens and the KV pools against the
+    JAX facade (LOGIT_ATOL / KV_ATOL as above)."""
+    from test_torch_contract import facade_parity
+    jmodel, params, tmodel, cfg = models
+    prompts = np.random.default_rng(3).integers(
+        2, cfg.vocab_size, (2, 30)).astype(np.int32)
+    facade_parity(jmodel, params, tmodel, cfg, prompts, steps=2,
+                  logit_atol=LOGIT_ATOL, state_atol=KV_ATOL)
