@@ -43,8 +43,9 @@ Phases (each raises on failure; the script then exits non-zero):
    at mamba2-780m's (H = 48, N = 128) and zamba2-2.7b's (H = 80, N = 64)
    widths, and ragged single chunks of Q = 250 and 96; max |diff| <=
    ``K4_RTOL`` x max |plain|; kernel, device-only and plain times beside
-   the bound.  Then K2 (B = 4, H = KVH = 32) and K3 (H = KVH = 32, S = 512
-   and 250) at zamba2's head dim 80.
+   the bound.  Then K2 (B = 4, H = KVH = 32) and K3 (H = KVH = 32; B = 4 at
+   S = 384, phase 11's batch prefill, and B = 1 at S = 250 and 512) at
+   zamba2's head dim 80.
 10. mamba2-780m at full width (48 layers, bf16, random weights from seed
     0) through ``LanguageModel.prefill_state`` / ``decode_state``: prefill
     4 prompts of 384 tokens (2 chunks) and one of 250 (one ragged chunk),
@@ -55,11 +56,15 @@ Phases (each raises on failure; the script then exits non-zero):
     a prefill.
 11. zamba2-2.7b at full width (54 Mamba2 layers, 9 shared-attention calls),
     the same protocol: K4 == 54 and K3 == 9 per prefill, K2 == 9 per step.
+    In both phases every K4 (and K2 / K3) call of the two prefills and the
+    first step is then held against its plain version on the same inputs,
+    and for zamba2 four planted K2 / K3 faults (``hybrid_faults``) must
+    each fail that per-call check; their effect on the logits is printed
+    beside it.
 
-``--phases 1,9`` (for example) runs a subset and prints no JSON; the
-driver's run takes no arguments.  The last three lines of a full run are
-the ``kernels`` JSON (seven kernels), the card's name and power limit, and
-the device JSON.
+The last three lines are the ``kernels`` JSON (seven kernels; ``launches``
+sums the main-path runs that ``launches_by_path`` lists), the card's name
+and power limit, and the device JSON.
 """
 from __future__ import annotations
 
@@ -278,16 +283,16 @@ def phase_k2(scrub, B=MAX_SEQS, H=24, KVH=8, D=128):
                 bound_ms=bound, bound_by="bytes", library_ms=None)
 
 
-def phase_k3(scrub, H=24, KVH=8, D=128):
-    """K3 against its plain version at B=1, S=512 and a ragged S=250; the
-    default heads are llama3.2-3b's, phase 9 passes zamba2's (H=KVH=32,
-    D=80)."""
+def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250))):
+    """K3 against its plain version for each (B, S) of ``cases``; the
+    defaults are llama3.2-3b's heads at S=512 and a ragged S=250, phase 9
+    passes zamba2's heads (H=KVH=32, D=80) and its prefill shapes.  The
+    JSON row takes the first case's times."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    B = 1
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = {}
-    for S in (512, 250):
+    for B, S in cases:
         q = torch.randn((B, H, S, D), generator=gen,
                         device="cuda").bfloat16()
         k = torch.randn((B, KVH, S, D), generator=gen,
@@ -299,7 +304,8 @@ def phase_k3(scrub, H=24, KVH=8, D=128):
         torch.cuda.synchronize()
         err = float((out.float() - want.float()).abs().max())
         if not err <= K3_ATOL:
-            raise AssertionError(f"K3 vs plain at S={S}: max err {err}")
+            raise AssertionError(f"K3 vs plain at B={B} S={S}: max err "
+                                 f"{err}")
         ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True,
                                                  use_kernel=True),
                      scrub=scrub)
@@ -311,15 +317,15 @@ def phase_k3(scrub, H=24, KVH=8, D=128):
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         b_ops = flops / BF16_FLOPS * 1e3
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[K3] H={H} KVH={KVH} D={D} S={S}: max err {err:.2e} "
+        log(f"[K3] B={B} H={H} KVH={KVH} D={D} S={S}: max err {err:.2e} "
             f"(atol {K3_ATOL}); kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
             f"bound {max(b_ops, b_bytes):.5f} ms ({flops:.3e} flop, "
             f"{nbytes} bytes)")
-        rows[S] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                       bound=max(b_ops, b_bytes),
-                       by="operations" if b_ops >= b_bytes else "bytes")
-    r = rows[512]
+        rows[(B, S)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                            lib_ms=lib_ms, bound=max(b_ops, b_bytes),
+                            by="operations" if b_ops >= b_bytes else "bytes")
+    r = rows[cases[0]]
     return dict(name="flash_attention", source="src/repro_torch/csrc/"
                 "flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:93",
@@ -786,6 +792,102 @@ def phase_k4(scrub):
                 bound_by=r["by"], library_ms=None)
 
 
+def hybrid_faults() -> dict:
+    """Planted faults in the plain K2 / K3 that phase 11's per-call check
+    must catch, each a slip a head-dim-128 or single-batch kernel could make at
+    zamba2's shapes: {fault: (ops name, replacement)}."""
+    from repro_torch.kernels import ref
+    shrink = (80 / 128) ** 0.5          # leaves the softmax scale at 128's
+
+    def scaled(q):
+        return (q.float() * shrink).to(q.dtype)
+
+    def k3_scale(q, k, v, *, causal=True, prefix_len=0, use_kernel=None):
+        return ref.flash_attention(scaled(q), k, v, causal=causal,
+                                   prefix_len=prefix_len)
+
+    def k3_batch0(q, k, v, *, causal=True, prefix_len=0, use_kernel=None):
+        return ref.flash_attention(q, k[:1].expand_as(k), v[:1].expand_as(v),
+                                   causal=causal, prefix_len=prefix_len)
+
+    def k2_scale(q, k, v, share_mask, base, seq_lens, *, page,
+                 use_kernel=None):
+        return ref.paged_attention_slab(scaled(q), k, v, share_mask, base,
+                                        seq_lens, page=page)
+
+    def k2_drop_newest(q, k, v, share_mask, base, seq_lens, *, page,
+                       use_kernel=None):
+        return ref.paged_attention_slab(q, k, v, share_mask, base,
+                                        seq_lens - 1, page=page)
+
+    return {"K3 softmax scale 1/sqrt(128)": ("flash_attention", k3_scale),
+            "K3 reads batch row 0's K/V": ("flash_attention", k3_batch0),
+            "K2 softmax scale 1/sqrt(128)": ("paged_attention_slab",
+                                             k2_scale),
+            "K2 misses the newest token": ("paged_attention_slab",
+                                           k2_drop_newest)}
+
+
+#: the kernels of the Mamba2 families' path, held call by call
+TAPPED = ("ssd_intra_chunk", "flash_attention", "paged_attention_slab")
+
+
+def _call_reading(op, got, want):
+    """(max |diff|, limit) of one call's result against its plain version,
+    with phase 9's tolerances."""
+    if op == "paged_attention_slab":
+        (acc, l, m), (acc_p, l_p, m_p) = got, want
+        out = acc / l.clamp_min(1e-30)[..., None]
+        out_p = acc_p / l_p.clamp_min(1e-30)[..., None]
+        return max(float((out - out_p).abs().max()),
+                   float((m - m_p).abs().max())), K2_ATOL
+    err = float((got.float() - want.float()).abs().max())
+    if op == "flash_attention":
+        return err, K3_ATOL
+    return err, K4_RTOL * float(want.abs().max())
+
+
+def tapped(run, fault=None):
+    """Call ``run()`` with every K2 / K3 / K4 call held against its plain
+    version on the same inputs; ``fault`` = (op, fn) puts a planted fault
+    in place of that op's kernel.  Returns run()'s result and, per op
+    called, the number of calls and the reading (max |diff| and its limit)
+    of the call nearest its limit.  Its launches come after the counted
+    run and are not part of it."""
+    from repro_torch.kernels import ops
+    saved = {op: getattr(ops, op) for op in TAPPED}
+    reads = {}
+
+    def wrap(op):
+        def call(*args, use_kernel=None, **kw):
+            if fault is not None and fault[0] == op:
+                got = fault[1](*args, **kw)
+            else:
+                got = saved[op](*args, use_kernel=True, **kw)
+            err, limit = _call_reading(
+                op, got, saved[op](*args, use_kernel=False, **kw))
+            r = reads.setdefault(op, dict(calls=0, err=0.0, limit=limit))
+            r["calls"] += 1
+            if err / limit >= r["err"] / r["limit"]:
+                r.update(err=err, limit=limit)
+            return got
+        return call
+
+    for op in TAPPED:
+        setattr(ops, op, wrap(op))
+    try:
+        out = run()
+    finally:
+        for op, fn in saved.items():
+            setattr(ops, op, fn)
+    return out, reads
+
+
+def _fmt_reads(reads) -> str:
+    return ", ".join(f"{op} {r['calls']} calls, max |diff| {r['err']:.3e} "
+                     f"(limit {r['limit']:.3e})" for op, r in reads.items())
+
+
 def _state_bytes(state) -> int:
     return sum(t.numel() * t.element_size() for t in state.values())
 
@@ -906,72 +1008,85 @@ def phase_mamba_model(arch: str) -> dict:
         if not err <= SERVE_RTOL * scale:
             raise AssertionError(f"{arch} {what} logits differ from the "
                                  "plain versions")
+    # every kernel call of the path against its plain version on the same
+    # inputs (the limit above cannot tell a subtle K2 / K3 fault from the
+    # bf16 drift of 54 random layers), then the planted faults in its place
+    def path():
+        b_logits, st = model.prefill_state(batch)
+        model.prefill_state(single)
+        s_logits, _ = model.decode_state(st, first[0])
+        return b_logits, s_logits
+
+    _, reads = tapped(path)
+    log(f"[{tag}] every kernel call vs its plain version on the same "
+        "inputs: " + _fmt_reads(reads))
+    if any(r["err"] > r["limit"] for r in reads.values()):
+        raise AssertionError(f"{arch}: a kernel call differs from its plain "
+                             f"version: {reads}")
+    faults = hybrid_faults() if cfg.family == "hybrid" else {}
+    for fault, (op, fn) in faults.items():
+        (f_batch, f_step), reads = tapped(path, fault=(op, fn))
+        e2e = [(float((f - p).abs().max()), SERVE_RTOL * float(p.abs().max()))
+               for f, p in ((f_batch, p_batch), (f_step, p_step))]
+        caught = reads[op]["err"] > reads[op]["limit"]
+        log(f"[{tag}] planted fault '{fault}': per call {_fmt_reads(reads)};"
+            f" logits vs plain {e2e[0][0]:.3e} (batch prefill, limit "
+            f"{e2e[0][1]:.3e}), {e2e[1][0]:.3e} (first step, limit "
+            f"{e2e[1][1]:.3e}); caught per call: {caught}")
+        if not caught:
+            raise AssertionError(f"{arch}: the per-call check misses the "
+                                 f"planted fault '{fault}'")
     del model
     torch.cuda.empty_cache()
     return launches
 
 
-def main(argv=None) -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="",
-                    help="comma-separated phases to run (default: all; "
-                         "phase 1 always runs, 5-8 run together); a partial "
-                         "run prints no kernels or device JSON")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    want = {int(x) for x in args.phases.split(",") if x} or set(range(1, 12))
-    if want & {5, 6, 7, 8}:
-        want |= {5, 6, 7, 8}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    kernels, launches = [], {}
-    for ph, fn in ((2, phase_k1), (3, phase_k2), (4, phase_k3)):
-        if ph in want:
-            kernels.append(fn(scrub))
+    k1, k2, k3 = phase_k1(scrub), phase_k2(scrub), phase_k3(scrub)
     torch.cuda.empty_cache()
-    if 5 in want:
-        launches, cfg, params = phase_serve()
-        torch.cuda.empty_cache()
-        copy_kernels, flat = phase_copy_kernels(scrub)
-        torch.cuda.empty_cache()
-        launches.update({k: v for k, v in phase_ab(flat).items()
-                         if k in ("fpm_copy", "fpm_copy_cross",
-                                  "zero_init")})
-        phase_table1(flat)
-        del flat
-        torch.cuda.empty_cache()
-        phase_fig2(cfg, params)
-        del params
-        torch.cuda.empty_cache()
-        kernels += copy_kernels
-    if 9 in want:
-        kernels.append(phase_k4(scrub))
-        # K2 and K3 at zamba2's shared-attention shapes (head dim 80)
-        phase_k2(scrub, B=SSM_BATCH, H=32, KVH=32, D=80)
-        phase_k3(scrub, H=32, KVH=32, D=80)
+    # launch counts of each main-path run, by path
+    paths = {}
+    paths["llama3.2-3b serve"], cfg, params = phase_serve()
+    torch.cuda.empty_cache()
+    copy_kernels, flat = phase_copy_kernels(scrub)
+    torch.cuda.empty_cache()
+    paths["fan-out drain (A/B)"] = phase_ab(flat)
+    phase_table1(flat)
+    del flat
+    torch.cuda.empty_cache()
+    phase_fig2(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    k4 = phase_k4(scrub)
+    # K2 and K3 at zamba2's shared-attention shapes (head dim 80): phase 11's
+    # decode batch, its batch prefill and its ragged prefill
+    k2_80 = phase_k2(scrub, B=SSM_BATCH, H=32, KVH=32, D=80)
+    k3_80 = phase_k3(scrub, H=32, KVH=32, D=80,
+                     cases=((SSM_BATCH, SSM_PROMPT), (1, SSM_RAGGED),
+                            (1, 512)))
+    for row, more in ((k2, k2_80), (k3, k3_80)):
+        row["max_abs_err"] = max(row["max_abs_err"], more["max_abs_err"])
     del scrub
     torch.cuda.empty_cache()
-    # K4's main path is phases 10-11; K2 and K3 run there too (zamba2's
-    # shared block), so their launches add to phase 5's
-    for ph, arch in ((10, "mamba2-780m"), (11, "zamba2-2.7b")):
-        if ph in want:
-            for k, v in phase_mamba_model(arch).items():
-                launches[k] = launches.get(k, 0) + v
-    if want != set(range(1, 12)):
-        log(f"[partial run] phases {sorted(want)}: done")
-        return 0
+    for arch in ("mamba2-780m", "zamba2-2.7b"):
+        paths[arch] = phase_mamba_model(arch)
+    kernels = [k1, k2, k3] + copy_kernels + [k4]
     for k in kernels:
         k["route"] = "cuda"
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()
+                                 if c.get(k["name"])}
+        k["launches"] = sum(k["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in kernels]}))
     print(smi)

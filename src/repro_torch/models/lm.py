@@ -4,12 +4,12 @@ and hybrid families.
 * dense: :meth:`LanguageModel.prefill` over a prompt and
   :meth:`LanguageModel.decode_step` over the paged pools, the pair the
   serving engine drives;
-* every ported family: the facade pair of the reference's ``prefill`` /
+* ssm and hybrid: the facade pair of the reference's ``prefill`` /
   ``decode_step`` — :meth:`LanguageModel.prefill_state` returns the
   last-position logits and the serve state (``make_serve_state``'s keys),
   :meth:`LanguageModel.decode_state` takes one token per sequence over it.
-  The ssm and hybrid families decode only this way, as in the reference,
-  whose serving engine refuses them.
+  These families decode only this way, as in the reference, whose serving
+  engine refuses them.
 """
 from __future__ import annotations
 
@@ -82,6 +82,12 @@ class LanguageModel(nn.Module):
                 f"{what} serves the dense family; {self.cfg.family!r} runs "
                 "through prefill_state / decode_state")
 
+    def _mamba_only(self, what: str) -> None:
+        if self.cfg.family not in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"{what} serves the ssm and hybrid families; "
+                f"{self.cfg.family!r} runs through prefill / decode_step")
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -123,7 +129,7 @@ class LanguageModel(nn.Module):
         return self._logits(xn)
 
     # ------------------------------------------------------------------
-    # the facade pair over a serve state (every ported family)
+    # the facade pair over a serve state (ssm, hybrid)
     # ------------------------------------------------------------------
     def make_serve_state(self, batch: int, seq_len: int,
                          filled: Optional[int] = None,
@@ -131,19 +137,20 @@ class LanguageModel(nn.Module):
                          ) -> Dict[str, torch.Tensor]:
         """Zero serve state with the identity block layout (the reference's
         ``make_serve_state`` on one device).  ``filled``: tokens already
-        present per sequence (default ``seq_len - 1``).  Keys: ``seq_lens``;
-        dense and hybrid ``block_table``, ``share_mask``, ``base``,
-        ``k_pools`` / ``v_pools`` (L_attn, nblk, page, KVH, D) in ``dtype``
-        (default the model dtype); ssm and hybrid ``conv_state``
-        (L, B, W-1, C) and ``ssm_state`` (L, B, H, P, N) fp32, with the
-        layer axis split (n_seg, shared_attn_every) for the hybrid."""
+        present per sequence (default ``seq_len - 1``).  Keys: ``seq_lens``,
+        ``conv_state`` (L, B, W-1, C) and ``ssm_state`` (L, B, H, P, N)
+        fp32, with the layer axis split (n_seg, shared_attn_every) for the
+        hybrid, whose state adds ``block_table``, ``share_mask``, ``base``
+        and ``k_pools`` / ``v_pools`` (n_seg, nblk, page, KVH, D) in
+        ``dtype`` (default the model dtype)."""
+        self._mamba_only("make_serve_state")
         cfg, page = self.cfg, self.page
         dev = self.embed.device
         dtype = self.act_dtype if dtype is None else dtype
         filled = seq_len - 1 if filled is None else filled
         state = {"seq_lens": torch.full((batch,), filled, dtype=torch.int32,
                                         device=dev)}
-        if cfg.family in ("dense", "hybrid"):
+        if cfg.family == "hybrid":
             table, mask, base = identity_layout(batch, seq_len, page)
             state["block_table"] = torch.from_numpy(table).to(dev)
             state["share_mask"] = torch.from_numpy(mask).to(dev)
@@ -152,18 +159,17 @@ class LanguageModel(nn.Module):
                 (cfg.num_attn_layers, base.shape[0], page, cfg.num_kv_heads,
                  cfg.head_dim), dtype=dtype, device=dev)
             state["v_pools"] = torch.zeros_like(state["k_pools"])
-        if cfg.family in ("ssm", "hybrid"):
-            lead = (cfg.num_layers,)
-            if cfg.family == "hybrid":
-                k = cfg.shared_attn_every
-                lead = (cfg.num_layers // k, k)
-            C = cfg.ssm_d_inner + 2 * cfg.ssm_state
-            state["conv_state"] = torch.zeros(
-                lead + (batch, cfg.ssm_conv_width - 1, C),
-                dtype=torch.float32, device=dev)
-            state["ssm_state"] = torch.zeros(
-                lead + (batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                        cfg.ssm_state), dtype=torch.float32, device=dev)
+        lead = (cfg.num_layers,)
+        if cfg.family == "hybrid":
+            k = cfg.shared_attn_every
+            lead = (cfg.num_layers // k, k)
+        C = cfg.ssm_d_inner + 2 * cfg.ssm_state
+        state["conv_state"] = torch.zeros(
+            lead + (batch, cfg.ssm_conv_width - 1, C),
+            dtype=torch.float32, device=dev)
+        state["ssm_state"] = torch.zeros(
+            lead + (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            dtype=torch.float32, device=dev)
         return state
 
     def _per_layer(self, state: Dict[str, torch.Tensor]):
@@ -185,16 +191,11 @@ class LanguageModel(nn.Module):
         reference); returns the last-position logits (B, V) fp32 and the
         serve state, with ``margin_tokens`` of decode capacity past the
         prompt (default one page)."""
+        self._mamba_only("prefill_state")
         cfg, page = self.cfg, self.page
         B, S = tokens.shape
         margin = page if margin_tokens is None else margin_tokens
         nper = (S + margin + page - 1) // page
-        if cfg.family == "dense":
-            logits, k, v = self.prefill(tokens)
-            state = self.make_serve_state(B, nper * page, filled=S)
-            state["k_pools"] = kv_to_pools(k, page, self.act_dtype, nper)
-            state["v_pools"] = kv_to_pools(v, page, self.act_dtype, nper)
-            return logits, state
         state = self.make_serve_state(B, nper * page, filled=S)
         conv, ssm, every = self._per_layer(state)
         x = embed(self.embed, tokens, self.act_dtype)
@@ -220,13 +221,8 @@ class LanguageModel(nn.Module):
         recurrent states IN PLACE (the reference returns new arrays) and
         returns the next-position logits (B, V) fp32 and the state with
         ``seq_lens`` advanced."""
+        self._mamba_only("decode_state")
         cfg, page = self.cfg, self.page
-        if cfg.family == "dense":
-            logits = self.decode_step(
-                tokens, state["seq_lens"], state["k_pools"],
-                state["v_pools"], state["block_table"], state["share_mask"],
-                state["base"])
-            return logits, dict(state, seq_lens=state["seq_lens"] + 1)
         pos = state["seq_lens"].long()
         seq_incl = (pos + 1).to(torch.int32)
         conv, ssm, every = self._per_layer(state)

@@ -156,8 +156,7 @@ def jax_and_port_models(arch: str, **overrides):
 
 
 #: the serve-state leaves the facades carry, by family
-STATE_KEYS = {"dense": ("k_pools", "v_pools"),
-              "ssm": ("conv_state", "ssm_state"),
+STATE_KEYS = {"ssm": ("conv_state", "ssm_state"),
               "hybrid": ("conv_state", "ssm_state", "k_pools", "v_pools")}
 
 
