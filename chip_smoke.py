@@ -6,8 +6,10 @@
 Phases (each raises on failure; the script then exits non-zero):
 
 1. device and build — needs ``torch.cuda.is_available()``; prints the card's
-   name and power limit (``nvidia-smi``) and builds every kernel of the
-   port from ``src/repro_torch/csrc`` (nvcc, all sources in parallel).
+   name and power limit (``nvidia-smi``), builds every kernel of the
+   port from ``src/repro_torch/csrc`` (nvcc, all sources in parallel) and
+   counts K3's tensor-core instructions (``HGMMA`` in ``cuobjdump -sass``;
+   none fails the run).
 2. K1, the fused command drain, against its plain version at the serving
    pool shapes (four bf16 pools ``(28, nblk, 64, 8, 128)`` and the staging
    ring): every opcode, NOP padding, non-adjacent write-after-read pairs
@@ -15,13 +17,16 @@ Phases (each raises on failure; the script then exits non-zero):
 3. K2, paged decode attention, against its plain version at B=8, H=24,
    KVH=8, D=128, page=64, with CoW-shared blocks and an empty slot.
 4. K3, prefill attention, against its plain version at B=1, H=24, KVH=8,
-   D=128, causal, S=512 and a ragged S=250; SDPA is timed beside it as a
-   yardstick only (the port never calls it).
+   D=128, causal, S=512 and a ragged S=250, on the (B, S, H, D) views the
+   model passes, and at the edge cases ``K3_EDGES`` (S=1, S=65, a prefix
+   of 100, non-causal); card and device-only times; SDPA is timed beside
+   it as a yardstick only (the port never calls it).
 5. serve llama3.2-3b at full width (28 layers, d_model 3072, bf16, random
    weights from seed 0): admit 4 prompts, run one round, fork the first
    sequence into 2, run 15 more rounds.  Checks the launch counts of every
    kernel on that run, finite logits, and the first round's logits against
-   the same admissions and round run through the plain versions on the card.
+   the same admissions and round run through the plain versions on the card;
+   profiles three steady rounds and the four admissions into a fresh engine.
 6. K5a (FPM copy), K5b (pool-to-pool copy) and K6 (BuZ zero-init) against
    their plain versions, bitwise, at full width: flat pools of 14,336
    llama3.2-3b K/V pages ``(14336, 64, 8, 128)`` bf16 and phase 2's
@@ -151,6 +156,17 @@ def phase_device():
         for line in out.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    cuobjdump = Path(build.nvcc_path()).resolve().with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout.splitlines()
+    count = {op: sum(op in line for line in sass)
+             for op in ("HGMMA", "HMMA", "UTMALDG")}
+    hgmma = count["HGMMA"]
+    log("[build] K3 SASS (cuobjdump -sass libflash_attention.so): "
+        + ", ".join(f"{n} {op}" for op, n in count.items()))
+    if not hgmma:
+        raise AssertionError("K3 has no wgmma (HGMMA) instruction")
     return smi
 
 
@@ -283,22 +299,48 @@ def phase_k2(scrub, B=MAX_SEQS, H=24, KVH=8, D=128):
                 bound_ms=bound, bound_by="bytes", library_ms=None)
 
 
+#: K3 edge cases held against the plain version (B, S, causal,
+#: prefix_len) at each head configuration: one token, one row past a tile,
+#: a prefix-LM prefix across tiles, and full (non-causal) attention
+K3_EDGES = ((1, 1, True, 0), (1, 65, True, 0), (1, 250, True, 100),
+            (1, 250, False, 0))
+
+
+def _k3_inputs(gen, B, S, H, KVH, D):
+    """q / k / v as the model hands them to K3: (B, S, heads, D)
+    activations seen through (B, heads, S, D) views."""
+    return [torch.randn((B, S, n, D), generator=gen, device="cuda")
+            .bfloat16().transpose(1, 2) for n in (H, KVH, KVH)]
+
+
 def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250))):
-    """K3 against its plain version for each (B, S) of ``cases``; the
-    defaults are llama3.2-3b's heads at S=512 and a ragged S=250, phase 9
-    passes zamba2's heads (H=KVH=32, D=80) and its prefill shapes.  The
-    JSON row takes the first case's times."""
+    """K3 against its plain version for each causal (B, S) of ``cases``
+    and for :data:`K3_EDGES`; the defaults are llama3.2-3b's heads at
+    S=512 and a ragged S=250, phase 9 passes zamba2's heads (H=KVH=32,
+    D=80) and its prefill shapes.  The JSON row takes the first case's
+    times."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    errs = []
+    for B, S, causal, prefix in K3_EDGES:
+        q, k, v = _k3_inputs(gen, B, S, H, KVH, D)
+        out = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix,
+                                  use_kernel=True)
+        want = ops.flash_attention(q, k, v, causal=causal,
+                                   prefix_len=prefix, use_kernel=False)
+        torch.cuda.synchronize()
+        errs.append(float((out.float() - want.float()).abs().max()))
+        if not errs[-1] <= K3_ATOL:
+            raise AssertionError(f"K3 vs plain at B={B} S={S} causal="
+                                 f"{causal} prefix_len={prefix}: max err "
+                                 f"{errs[-1]}")
+    log(f"[K3] H={H} KVH={KVH} D={D} edge cases (B, S, causal, prefix_len) "
+        f"{K3_EDGES}: max err {', '.join(f'{e:.2e}' for e in errs)} "
+        f"(atol {K3_ATOL})")
     rows = {}
     for B, S in cases:
-        q = torch.randn((B, H, S, D), generator=gen,
-                        device="cuda").bfloat16()
-        k = torch.randn((B, KVH, S, D), generator=gen,
-                        device="cuda").bfloat16()
-        v = torch.randn((B, KVH, S, D), generator=gen,
-                        device="cuda").bfloat16()
+        q, k, v = _k3_inputs(gen, B, S, H, KVH, D)
         out = ops.flash_attention(q, k, v, causal=True, use_kernel=True)
         want = ops.flash_attention(q, k, v, causal=True, use_kernel=False)
         torch.cuda.synchronize()
@@ -309,6 +351,9 @@ def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250))):
         ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True,
                                                  use_kernel=True),
                      scrub=scrub)
+        dev = device_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                    use_kernel=True),
+                        key="flash_kernel")
         plain_ms = time_ms(lambda: ops.flash_attention(
             q, k, v, causal=True, use_kernel=False), reps=5, scrub=scrub)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -318,27 +363,29 @@ def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250))):
         b_ops = flops / BF16_FLOPS * 1e3
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"[K3] B={B} H={H} KVH={KVH} D={D} S={S}: max err {err:.2e} "
-            f"(atol {K3_ATOL}); kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-            f"bound {max(b_ops, b_bytes):.5f} ms ({flops:.3e} flop, "
+            f"(atol {K3_ATOL}); kernel {ms:.4f} ms (device only "
+            f"{_fmt_ms(dev)}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
+            f"ms, bound {max(b_ops, b_bytes):.5f} ms ({flops:.3e} flop, "
             f"{nbytes} bytes)")
-        rows[(B, S)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+        rows[(B, S)] = dict(err=err, ms=ms, dev=dev, plain_ms=plain_ms,
                             lib_ms=lib_ms, bound=max(b_ops, b_bytes),
                             by="operations" if b_ops >= b_bytes else "bytes")
     r = rows[cases[0]]
     return dict(name="flash_attention", source="src/repro_torch/csrc/"
                 "flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:93",
-                max_abs_err=max(x["err"] for x in rows.values()),
-                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"],
-                bound_by=r["by"], library_ms=r["lib_ms"])
+                max_abs_err=max([x["err"] for x in rows.values()] + errs),
+                ms=r["ms"], device_ms=r["dev"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound"], bound_by=r["by"],
+                library_ms=r["lib_ms"])
 
 
 def profile_rounds(step, rounds: int = 3, tag: str = "profile",
                    what: str = "round") -> None:
     """Where a steady step's time goes: torch.profiler over ``rounds`` more
     calls of ``step`` (after the counted run), device time per kernel and
-    the device's idle share of the wall clock."""
+    the device's idle share of the wall clock.  The ten largest kernels are
+    listed, and K3's below them wherever it ranks."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -366,9 +413,11 @@ def profile_rounds(step, rounds: int = 3, tag: str = "profile",
         f"{wall_us / rounds / 1e3:.2f} ms/{what}, device busy "
         f"{busy / rounds / 1e3:.2f} ms/{what}, idle share "
         f"{1 - busy / wall_us:.3f}")
-    for dev, count, key in sorted(rows, reverse=True)[:10]:
-        log(f"[{tag}]   {dev / rounds / 1e3:8.3f} ms/{what} "
-            f"{count // rounds:5d} calls/{what}  {key[:90]}")
+    ranked = sorted(rows, reverse=True)
+    for i, (dev, count, key) in enumerate(ranked):
+        if i < 10 or "flash_kernel" in key:
+            log(f"[{tag}]   {dev / rounds / 1e3:8.3f} ms/{what} "
+                f"{count // rounds:5d} calls/{what}  {key[:90]}")
 
 
 def _admit_all(eng, prompts):
@@ -447,9 +496,16 @@ def phase_serve():
     if failed:
         raise AssertionError(f"serve checks failed: {failed}")
     profile_rounds(eng.decode_round)
+    # the same four admissions into a fresh engine, profiled
+    del eng
+    torch.cuda.empty_cache()
+    fresh = ServingEngine(cfg, params, max_seqs=MAX_SEQS,
+                          max_blocks_per_seq=MAX_BLOCKS_PER_SEQ)
+    profile_rounds(lambda: _admit_all(fresh, prompts), rounds=1,
+                   what="admission")
+    del fresh
 
     # the same admissions and first round through the plain versions
-    del eng
     torch.cuda.empty_cache()
     with ops.plain_versions():
         plain = ServingEngine(cfg, params, max_seqs=MAX_SEQS,
@@ -567,7 +623,8 @@ def phase_copy_kernels(scrub):
                     f"only {_fmt_ms(dev)}), plain {plain_ms:.4f} ms, "
                     f"library {lib_ms:.4f} ms, bound {bound:.4f} ms "
                     f"({nbytes} bytes)")
-                rows[(name, ba, m)] = dict(ms=ms, plain_ms=plain_ms,
+                rows[(name, ba, m)] = dict(ms=ms, device_ms=dev,
+                                           plain_ms=plain_ms,
                                            library_ms=lib_ms,
                                            bound_ms=bound)
         # pool-to-pool copy within ONE pool: its WAR pair is ordered too
@@ -788,8 +845,8 @@ def phase_k4(scrub):
                 source="src/repro_torch/csrc/ssd_chunk.cu",
                 replaces="src/repro/kernels/ssd_chunk.py:47",
                 max_abs_err=max(x["abs_err"] for x in rows.values()),
-                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"],
-                bound_by=r["by"], library_ms=None)
+                ms=r["ms"], device_ms=r["dev"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound"], bound_by=r["by"], library_ms=None)
 
 
 def hybrid_faults() -> dict:
@@ -1085,9 +1142,9 @@ def main() -> int:
                                  if c.get(k["name"])}
         k["launches"] = sum(k["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+            "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: row.get(k) for k in keys}
                                   for row in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

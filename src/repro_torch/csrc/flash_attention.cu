@@ -1,182 +1,521 @@
-// K3: prefill attention, hand-written for Hopper (sm_90a).
+// K3: prefill attention, hand-written for Hopper (sm_90a) with tensor cores.
 //
 // Replaces the TPU kernel `_flash_kernel` in src/repro/kernels/flash_attention.py
 // (entered through `flash_attention_pallas`, `pallas_call` at :93):
 // q (B, H, S, D) against k / v (B, KVH, S, D) with a causal mask plus a
 // prefix-LM exception (key positions < prefix_len are visible to every
-// query), GQA head h -> kv head h / group, online softmax in fp32, output in
-// q's dtype (bf16 here).  A fully masked row gives 0 (acc / max(l, 1e-30)).
-// Unlike the Pallas kernel, which asserts S % bq == 0, this one masks a
-// ragged S: serve prompts have any length.
+// query), GQA head h -> kv head h / group, the scale D^-0.5 applied to the
+// fp32 scores after the product, online softmax in fp32, output in bf16.
+// A fully masked row gives 0.  Unlike the Pallas kernel, which asserts
+// S % bq == 0, this one takes a ragged S: serve prompts have any length.
 //
-// Bound on this card: at prefill lengths the larger of the causal FLOPs over
-// 989 TFLOP/s and the bytes over 3.35 TB/s.  This first version is simple
-// and right rather than fast: one CTA of 256 threads per (64-row q tile,
-// head, batch), for head dims D = 128 and 80 (a template parameter;
-// zamba2's shared block uses 80), fp32 tiles of Q, K, V and P in shared memory (padded rows,
-// no bank conflicts on the access patterns below), plain FMA for both
-// products, kv tiles walked only up to the causal edge.  Each thread owns
-// one query row and a quarter of its 64 scores and D output lanes; the
-// four threads of a row sit in one warp, so the row max and sum are two
-// shuffles and P is shared within the warp.  A tensor-core version
-// (mma.sync or wgmma) is a later change.
+// Bound on this card: at prefill lengths the causal FLOPs over 989 TFLOP/s
+// and the bytes over 3.35 TB/s are both a few microseconds, so the design
+// keeps the tensor cores fed and every operand out of registers it does not
+// need:
+//
+// * One CTA per (64-row q tile, head, batch): one consumer warpgroup (warps
+//   0-3) and one producer warp (warp 4).  The q tiles launch longest first
+//   (reverse blockIdx.x), so the causal rows that walk the most kv tiles
+//   start before the short ones.
+// * The producer loads the Q tile once and the K / V tiles through a
+//   two-stage ring with TMA (cp.async.bulk.tensor, 4-D maps over (D, S,
+//   heads, batch) built on the host from the caller's strides, so q / k / v
+//   may be transposed views of a (B, S, H, D) layout).  Each tile is two
+//   boxes of 64 rows x 64 bf16 columns in the 128-byte swizzle; at D = 80
+//   the second box's columns 80-127 lie past the tensor's edge and arrive as
+//   zeros, as do the rows past S, so the ragged tail costs no branch in the
+//   loads.  Per stage, one mbarrier for K and one for V (Q K^T starts while
+//   V is in flight) and an `empty` one hand the tiles between the roles.
+// * S = Q K^T is wgmma m64n64k16 with both operands in shared memory
+//   (K-major), D / 16 steps (five at D = 80: the arithmetic is not padded).
+//   The scores are scaled in fp32 after the product (folded with log2(e)
+//   into exp2f), masked only on diagonal tiles and the tile at the ragged
+//   edge, and tiles right of the diagonal are never loaded unless they lie
+//   in the prefix.
+// * O += P V is wgmma m64nDk16 with P in registers: the fp32 score
+//   fragments are rounded to bf16 in place (wgmma's A-register layout is
+//   its accumulator layout) and V is read from shared memory with the
+//   transpose bit (MN-major).  Rounding P to bf16 costs at most 2^-9 of each
+//   weight, below one bf16 ulp of the output; the sums stay fp32.
+// * The output is written straight from the accumulators to the caller's
+//   (B, S, H, D) buffer (strided), rows >= S masked.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
-constexpr int kPS = kBK + 1;  // padded row stride of P (floats)
-constexpr float kNegInf = -1e30f;
+constexpr int kBQ = 64;                      // q rows per CTA (one warpgroup)
+constexpr int kBK = 64;                      // kv rows per tile
+constexpr int kConsumers = 128;              // one warpgroup
+constexpr int kThreads = kConsumers + 32;    // + the producer warp
+constexpr int kStages = 2;
+constexpr int kBoxCols = 64;                 // bf16 columns in a 128-byte row
+constexpr int kBoxBytes = 64 * 128;          // 64 rows x 128 bytes
+constexpr int kTileBytes = 2 * kBoxBytes;    // 64 rows x 128 columns
+constexpr int kSmemBytes = kTileBytes * (1 + 2 * kStages) + 1024;
 
-// padded row strides of Q and K (floats); V is read along rows
-template <int kD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (kBQ * (kD + 1) + kBK * (kD + 1) + kBK * kD + kBQ * kPS);
+struct Params {
+  __nv_bfloat16* out;
+  long long osb, osh, oss;   // output strides (elements) of b, h, s
+  int S, H, KVH, causal, prefix_len;
+  float scale_log2;          // D^-0.5 * log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 4-D tensor map into shared memory; completes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1);
+// lbo / sbo in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// K-major operand (rows x D, two 64-column boxes): the k16 step `kk`
+// starts 32 bytes further into the swizzled row, or in the second box
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * kBoxBytes + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major V (kv rows x D): the k16 step `kk` is 16 kv rows further; the
+// second 64-column box lies kBoxBytes on (leading byte offset), each group
+// of 8 kv rows 1024 bytes on (stride byte offset)
+__device__ __forceinline__ uint64_t vmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, kBoxBytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads across a wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (m64 x n64, fp32) {+}= A (m64 x k16, shared, K-major) . B (n64 x k16,
+// shared, K-major); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (m64 x n128, fp32) += A (m64 x k16, bf16 registers) . B (k16 x n128,
+// shared, MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (m64 x n80, fp32) += A (m64 x k16, bf16 registers) . B (k16 x n80,
+// shared, MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <int kD>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v,
-             __nv_bfloat16* __restrict__ out, int S, int H, int KVH,
-             int causal, int prefix_len, float scale) {
-  static_assert(kD % 4 == 0, "four threads split a row's D lanes");
-  constexpr int kQS = kD + 1;
-  constexpr int kKS = kD + 1;
-  constexpr int kVS = kD;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBQ * kQS;
-  float* Vs = Ks + kBK * kKS;
-  float* Ps = Vs + kBK * kVS;
+__device__ __forceinline__ void pv_mma(float (&o)[kD / 2],
+                                       const uint32_t (&a)[4], uint64_t v) {
+  if constexpr (kD == 128) {
+    wgmma_rs_n128(o, a, v);
+  } else {
+    wgmma_rs_n80(o, a, v);
+  }
+}
 
-  const int q0 = blockIdx.x * kBQ;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_kernel(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const Params p) {
+  static_assert(kD % 16 == 0 && kD <= 2 * kBoxCols, "head dim");
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + kTileBytes;
+  const uint32_t sv = sk + kStages * kTileBytes;
+  // one barrier per stage for K and one for V, so that Q K^T starts while
+  // V is still in flight; `empty` hands a stage back to the producer
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_k = smem_u32(&bars[1]);                 // + 8 * stage
+  const uint32_t bar_v = smem_u32(&bars[1 + kStages]);       // + 8 * stage
+  const uint32_t bar_empty = smem_u32(&bars[1 + 2 * kStages]);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
+  const int q0 = qt * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int kvh = h / (H / KVH);
+  const int kvh = h / (p.H / p.KVH);
+  const int S = p.S;
+  // kv tiles to visit: a prefix of the sequence (causal edge or prefix)
+  int n_kv = (S + kBK - 1) / kBK;
+  if (p.causal) {
+    const int edge = max(qt + 1, (p.prefix_len + kBK - 1) / kBK);
+    n_kv = min(n_kv, edge);
+  }
   const int tid = threadIdx.x;
-  const int r = tid >> 2;     // query row within the tile
-  const int sub = tid & 3;    // quarter of the row this thread owns
-  const int row = q0 + r;
 
-  const __nv_bfloat16* qb = q + ((long long)b * H + h) * S * kD;
-  const __nv_bfloat16* kb = k + ((long long)b * KVH + kvh) * S * kD;
-  const __nv_bfloat16* vb = v + ((long long)b * KVH + kvh) * S * kD;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int i = tid; i < kBQ * kD; i += kThreads) {
-    const int rr = i / kD, dd = i % kD;
-    const int qr = q0 + rr;
-    Qs[rr * kQS + dd] =
-        qr < S ? __bfloat162float(qb[(long long)qr * kD + dd]) * scale : 0.f;
+  if (tid >= kConsumers) {
+    // producer warp: one lane issues every load
+    if (tid == kConsumers) {
+      mbar_expect_tx(bar_q, kTileBytes);
+      tma_load(sq, &tq, bar_q, 0, q0, h, b);
+      tma_load(sq + kBoxBytes, &tq, bar_q, kBoxCols, q0, h, b);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % kStages;
+        mbar_wait(bar_empty + 8 * s, ((t / kStages) & 1) ^ 1);
+        const uint32_t k_dst = sk + s * kTileBytes;
+        const uint32_t v_dst = sv + s * kTileBytes;
+        const int k0 = t * kBK;
+        mbar_expect_tx(bar_k + 8 * s, kTileBytes);
+        tma_load(k_dst, &tk, bar_k + 8 * s, 0, k0, kvh, b);
+        tma_load(k_dst + kBoxBytes, &tk, bar_k + 8 * s, kBoxCols, k0, kvh, b);
+        mbar_expect_tx(bar_v + 8 * s, kTileBytes);
+        tma_load(v_dst, &tv, bar_v + 8 * s, 0, k0, kvh, b);
+        tma_load(v_dst + kBoxBytes, &tv, bar_v + 8 * s, kBoxCols, k0, kvh, b);
+      }
+    }
+    return;
   }
 
-  float m = kNegInf, l = 0.f;
-  float acc[kD / 4];
-#pragma unroll
-  for (int i = 0; i < kD / 4; ++i) acc[i] = 0.f;
+  // consumer warpgroup: warp w owns q rows 16w..16w+15 of the tile; a
+  // thread holds rows r0 and r0 + 8, columns 8j + 2 (lane % 4) + {0, 1}
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int r0 = q0 + warp * 16 + (lane >> 2);
+  const int r1 = r0 + 8;
+  const int cq = 2 * (lane & 3);
+  const float sl2 = p.scale_log2;
 
-  for (int k0 = 0; k0 < S; k0 += kBK) {
-    // causal edge: every later tile lies right of the diagonal too
-    if (causal && k0 > q0 + kBQ - 1 && k0 >= prefix_len) break;
-    __syncthreads();
-    for (int i = tid; i < kBK * kD; i += kThreads) {
-      const int jj = i / kD, dd = i % kD;
-      const int kr = k0 + jj;
-      const bool ok = kr < S;
-      Ks[jj * kKS + dd] = ok ? __bfloat162float(kb[(long long)kr * kD + dd]) : 0.f;
-      Vs[jj * kVS + dd] = ok ? __bfloat162float(vb[(long long)kr * kD + dd]) : 0.f;
-    }
-    __syncthreads();
+  float o[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;   // running max of the raw scores
+  float l0 = 0.f, l1 = 0.f;               // this thread's part of the sums
 
-    float s[kBK / 4];
-    float mx = kNegInf;
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_kv; ++t) {
+    const int s = t % kStages;
+    const uint32_t phase = (t / kStages) & 1;
+    mbar_wait(bar_k + 8 * s, phase);
+    const uint32_t k_tile = sk + s * kTileBytes;
+    const uint32_t v_tile = sv + s * kTileBytes;
+
+    float sc[32];
 #pragma unroll
-    for (int c = 0; c < kBK / 4; ++c) {
-      const int j = sub + 4 * c;
-      const int col = k0 + j;
-      const bool valid =
-          col < S && (!causal || col <= row || col < prefix_len);
-      float dot = 0.f;
-      const float* qrow = Qs + r * kQS;
-      const float* krow = Ks + j * kKS;
-#pragma unroll 8
-      for (int dd = 0; dd < kD; ++dd) dot += qrow[dd] * krow[dd];
-      s[c] = valid ? dot : kNegInf;
-      mx = fmaxf(mx, s[c]);
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss_n64(sc, kmajor_desc(sq, kk), kmajor_desc(k_tile, kk),
+                   kk > 0 ? 1 : 0);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float corr = __expf(m - m_new);
-    float sum = 0.f;
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    const int k0 = t * kBK;
+    const bool edge = k0 + kBK > S;
+    const bool diag = p.causal && k0 + kBK - 1 > q0 && k0 + kBK > p.prefix_len;
+    if (edge || diag) {
 #pragma unroll
-    for (int c = 0; c < kBK / 4; ++c) {
-      const int j = sub + 4 * c;
-      const float p = s[c] > 0.5f * kNegInf ? __expf(s[c] - m_new) : 0.f;
-      Ps[r * kPS + j] = p;
-      sum += p;
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + cq + (e & 1);
+          const int row = (e & 2) ? r1 : r0;
+          const bool ok = col < S && (!p.causal || col <= row ||
+                                      col < p.prefix_len);
+          if (!ok) sc[4 * j + e] = -INFINITY;
+        }
+      }
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l = l * corr + sum;
-    m = m_new;
-    __syncwarp();
+
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int i = 0; i < kD / 4; ++i) acc[i] *= corr;
-    for (int j = 0; j < kBK; ++j) {
-      const float p = Ps[r * kPS + j];
-      const float* vrow = Vs + j * kVS + sub;
-#pragma unroll
-      for (int i = 0; i < kD / 4; ++i) acc[i] += p * vrow[4 * i];
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
-    __syncwarp();
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // a row with no visible column yet keeps max -inf: offset 0 then gives
+    // exp2(-inf) = 0 for every masked score instead of NaN
+    const float b0 = mx0 == -INFINITY ? 0.f : mx0 * sl2;
+    const float b1 = mx1 == -INFINITY ? 0.f : mx1 * sl2;
+    const float corr0 = exp2f(m0 * sl2 - b0);
+    const float corr1 = exp2f(m1 * sl2 - b1);
+    m0 = mx0;
+    m1 = mx1;
+
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sc[4 * j] = exp2f(fmaf(sc[4 * j], sl2, -b0));
+      sc[4 * j + 1] = exp2f(fmaf(sc[4 * j + 1], sl2, -b0));
+      sc[4 * j + 2] = exp2f(fmaf(sc[4 * j + 2], sl2, -b1));
+      sc[4 * j + 3] = exp2f(fmaf(sc[4 * j + 3], sl2, -b1));
+      sum0 += sc[4 * j] + sc[4 * j + 1];
+      sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      o[4 * j] *= corr0;
+      o[4 * j + 1] *= corr0;
+      o[4 * j + 2] *= corr1;
+      o[4 * j + 3] *= corr1;
+    }
+
+    // P as the A operand of O += P V: k16 step kk holds score columns
+    // 16kk..16kk+15, the accumulator blocks 2kk and 2kk + 1
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      a[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      a[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      a[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      a[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    mbar_wait(bar_v + 8 * s, phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pv_mma<kD>(o, a[kk], vmajor_desc(v_tile, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive(bar_empty + 8 * s);   // this stage's K / V are read
   }
 
-  if (row < S) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    __nv_bfloat16* ob = out + (((long long)b * H + h) * S + row) * kD + sub;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = p.out + (long long)b * p.osb + (long long)h * p.osh;
 #pragma unroll
-    for (int i = 0; i < kD / 4; ++i) ob[4 * i] = __float2bfloat16(acc[i] * inv);
+  for (int j = 0; j < kD / 8; ++j) {
+    const int col = 8 * j + cq;
+    if (r0 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * p.oss + col) =
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    }
+    if (r1 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r1 * p.oss + col) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
   }
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// 4-D map over (D, S, heads, batch) with the caller's strides (elements),
+// boxes of 64 columns x 64 rows; out-of-range elements load as zeros
+int make_map(CUtensorMap* map, void* ptr, int D, int S, int heads, int B,
+             long long ss, long long sh, long long sb) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {kBoxCols, kBK, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
 template <int kD>
-int launch(void* q, void* k, void* v, void* out, int B, int H, int KVH,
-           int S, int causal, int prefix_len, float scale, void* stream) {
-  constexpr size_t smem = smem_bytes<kD>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+int launch(void* q, void* k, void* v, const long long* st, int B, int H,
+           int KVH, int S, cudaStream_t stream, const Params& p) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, kD, S, H, B, st[2], st[1], st[0]);
+  if (!err) err = make_map(&tk, k, kD, S, KVH, B, st[5], st[4], st[3]);
+  if (!err) err = make_map(&tv, v, kD, S, KVH, B, st[8], st[7], st[6]);
+  if (err) return err;
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_kernel<kD><<<grid, kThreads, smem,
-                 reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q),
-      reinterpret_cast<const __nv_bfloat16*>(k),
-      reinterpret_cast<const __nv_bfloat16*>(v),
-      reinterpret_cast<__nv_bfloat16*>(out), S, H, KVH, causal, prefix_len,
-      scale);
+  flash_kernel<kD><<<grid, kThreads, kSmemBytes, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// head_dim must be 128 or 80 (the wrapper checks; anything else is refused
-// with cudaErrorInvalidValue)
+// q (B, H, S, D), k / v (B, KVH, S, D) bf16 at any strides whose last one is
+// 1 and whose others are multiples of 8 elements: `strides` holds (b, h, s)
+// of q, k, v and the output, 12 values in elements.  head_dim must be 128
+// or 80 (anything else gives cudaErrorInvalidValue); a tensor-map failure
+// gives 10000 + its CUresult.
 extern "C" int rc_flash_attention(void* q, void* k, void* v, void* out,
-                                  int B, int H, int KVH, int S, int head_dim,
-                                  int causal, int prefix_len, float scale,
-                                  void* stream) {
+                                  const long long* strides, int B, int H,
+                                  int KVH, int S, int head_dim, int causal,
+                                  int prefix_len, float scale, void* stream) {
+  Params p;
+  p.out = reinterpret_cast<__nv_bfloat16*>(out);
+  p.osb = strides[9];
+  p.osh = strides[10];
+  p.oss = strides[11];
+  p.S = S;
+  p.H = H;
+  p.KVH = KVH;
+  p.causal = causal;
+  p.prefix_len = prefix_len;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (head_dim == 128)
-    return launch<128>(q, k, v, out, B, H, KVH, S, causal, prefix_len, scale,
-                       stream);
+    return launch<128>(q, k, v, strides, B, H, KVH, S, st, p);
   if (head_dim == 80)
-    return launch<80>(q, k, v, out, B, H, KVH, S, causal, prefix_len, scale,
-                      stream);
+    return launch<80>(q, k, v, strides, B, H, KVH, S, st, p);
   return (int)cudaErrorInvalidValue;
 }

@@ -47,7 +47,8 @@ class LaunchCounter:
         self.n = 0
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH or the toolkit's."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -81,7 +82,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         if lib.exists():
             continue
         tmp = out_dir / f".lib{src.stem}.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         todo[src.stem] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, lib)
@@ -103,6 +104,11 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     return _LIBS
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built."""
+    return BUILD_ROOT / _digest() / f"lib{name}.so"
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (builds at first
     use)."""
@@ -116,6 +122,8 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as an integer."""
+    """PyTorch's current CUDA stream on ``device`` (a tensor's device, so
+    its index is set), as an integer.  PyTorch's raw-stream query skips
+    building a Stream object, a few microseconds of every launch."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -6,13 +6,17 @@ Replaces the TPU kernel ``_flash_kernel`` of
 plain version is :func:`repro_torch.kernels.ref.flash_attention`.
 
 Bound on the card: the larger of the causal FLOPs over 989 TFLOP/s and the
-bytes over 3.35 TB/s.  The first version is fp32 FMA on shared-memory tiles,
-one CTA per (64-row q tile, head, batch), walking kv tiles only up to the
-causal edge and masking a ragged sequence length.
+bytes over 3.35 TB/s.  The kernel runs both products on the tensor cores
+(``wgmma``) and loads its tiles with TMA through tensor maps built from the
+inputs' strides, so q / k / v may be strided views (the model passes the
+``(B, S, H, D)`` activations transposed, without a copy).  The output is
+written in ``(B, S, H, D)`` memory order and returned as its
+``(B, H, S, D)`` view, so the caller's transpose back is contiguous.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,33 +30,62 @@ COUNTER = LaunchCounter("flash_attention")
 HEAD_DIMS = (80, 128)
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         prefix_len: int = 0):
-    """Launch the kernel once; q (B,H,S,D), k/v (B,KVH,S,D) bf16 on the
-    card; returns (B,H,S,D) bf16.  Raises on inputs it does not take."""
-    B, H, S, D = q.shape
-    KVH = k.shape[1]
-    if D not in HEAD_DIMS or H % KVH or tuple(k.shape) != (B, KVH, S, D) \
-            or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"flash attention kernel: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} "
-                         f"(head dim must be one of {HEAD_DIMS})")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or \
-                not t.is_contiguous():
-            raise ValueError(f"flash attention kernel: {name} must be a "
-                             "contiguous CUDA bf16 tensor")
-    out = torch.empty_like(q)
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry, its argument types set once when the library loads."""
     fn = library("flash_attention").rc_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 4 + \
+        [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 7 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
-             KVH, S, D, int(bool(causal)), int(prefix_len), float(D ** -0.5),
-             stream_ptr(q.device)),
-          "flash attention kernel")
-    COUNTER.n += 1
+    return fn
+
+
+def tma_strides(name: str, t: torch.Tensor) -> tuple:
+    """The (b, h, s) strides of a (B, heads, S, D) bf16 operand, in
+    elements, as its tensor map takes them; raises ``ValueError`` unless
+    the last dimension is contiguous, the other strides are positive
+    multiples of 16 bytes and the data is 16-byte aligned.  A dimension of
+    size 1 is never stepped, so its stride is replaced by a valid one."""
+    sb, sh, ss, sd = t.stride()
+    nb, nh, ns, d = t.shape
+    out = (sb if nb > 1 else d, sh if nh > 1 else d, ss if ns > 1 else d)
+    if sd != 1 or t.data_ptr() % 16 or min(out) <= 0 or \
+            (out[0] | out[1] | out[2]) % 8:
+        raise ValueError(f"flash attention kernel: {name} {tuple(t.shape)} "
+                         f"with strides {t.stride()} (elements) needs a "
+                         "contiguous last dimension, other strides positive "
+                         "multiples of 16 bytes and 16-byte aligned data")
     return out
 
 
-__all__ = ["COUNTER", "flash_attention_cuda"]
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         prefix_len: int = 0):
+    """Launch the kernel once; q (B,H,S,D), k/v (B,KVH,S,D) bf16 on the
+    card, any strides :func:`tma_strides` takes; returns (B,H,S,D) bf16, a
+    view of a (B,S,H,D) buffer.  Raises on inputs it does not take."""
+    B, H, S, D = q.shape
+    KVH = k.shape[1]
+    if D not in HEAD_DIMS or H % KVH or k.shape != (B, KVH, S, D) \
+            or v.shape != k.shape:
+        raise ValueError(f"flash attention kernel: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"(head dim must be one of {HEAD_DIMS})")
+    if not q.is_cuda or not (q.dtype == k.dtype == v.dtype == torch.bfloat16
+                             and q.device == k.device == v.device):
+        raise ValueError("flash attention kernel: q, k, v must be bf16 "
+                         "tensors on one CUDA device")
+    strides = tma_strides("q", q) + tma_strides("k", k) + \
+        tma_strides("v", v) + (S * H * D, D, H * D)
+    out = torch.empty((B, S, H, D), dtype=torch.bfloat16, device=q.device)
+    if S:
+        check(_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), (ctypes.c_longlong * 12)(*strides),
+                       B, H, KVH, S, D, int(bool(causal)), int(prefix_len),
+                       D ** -0.5, stream_ptr(q.device)),
+              "flash attention kernel")
+        COUNTER.n += 1
+    return out.transpose(1, 2)
+
+
+__all__ = ["COUNTER", "HEAD_DIMS", "flash_attention_cuda", "tma_strides"]

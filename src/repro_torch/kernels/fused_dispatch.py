@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -168,7 +169,7 @@ def block_geometry(pools: Sequence[torch.Tensor], block_axis: int
             raise ValueError("pools must share block shape and dtype")
         if not p.is_contiguous():
             raise ValueError("pools must be contiguous")
-    page_bytes = int(np.prod(blk, dtype=np.int64)) * p0.element_size()
+    page_bytes = math.prod(blk) * p0.element_size()
     word = 16
     while page_bytes % word or any(p.data_ptr() % word for p in pools):
         word //= 2

@@ -29,10 +29,11 @@ def zero_init_cuda(pool: torch.Tensor, ids, *, block_axis: int
     """Zero the listed blocks on the card, in place, with ONE launch of K6
     (none when every id is padding)."""
     d = host_ids(ids, 1)[:, 0]
-    d = d[(d >= 0) & (d < pool.shape[block_axis])]
+    d = d.compress(d.view(np.uint64) < pool.shape[block_axis])
     if len(d):
-        block_move("rc_zero_init", pool, pool,
-                   np.stack([np.zeros_like(d), d], 1),
+        rows = np.zeros((len(d), 2), np.int64)
+        rows[:, 1] = d
+        block_move("rc_zero_init", pool, pool, rows,
                    np.zeros(len(d), np.int64), block_axis=block_axis)
         COUNTER.n += 1
     return pool

@@ -17,6 +17,7 @@ from repro.kernels.paged_attention import paged_attention_slab_pallas
 from repro.models.attention import MaskInfo
 from repro.models.attention import flash_attention as jax_model_flash
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import tma_strides
 from repro_torch.models.attention import prefill_attention
 
 NEG_INF = -1e30
@@ -141,6 +142,45 @@ def test_model_prefill_attention_matches_model_scan():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
+@pytest.mark.parametrize("S,causal,prefix", [(45, True, 0), (70, True, 20),
+                                              (33, False, 0)])
+def test_prefill_attention_strided_views_match_contiguous(S, causal, prefix):
+    """The transposed (B, S, H, D) views the model hands K3 and their
+    contiguous copies give the same plain result, and prefill_attention
+    (which passes the views) returns the (B, S, H, D) layout."""
+    rng = np.random.default_rng(S)
+    B, H, KVH, D = 2, 4, 2, 32
+    q, k, v = (to_torch(rng.standard_normal((B, S, n, D)).astype(np.float32))
+               for n in (H, KVH, KVH))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    assert not any(t.is_contiguous() for t in views)
+    got = ops.flash_attention(*views, causal=causal, prefix_len=prefix)
+    want = ops.flash_attention(*(t.contiguous() for t in views),
+                               causal=causal, prefix_len=prefix)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    model = prefill_attention(q, k, v, causal=causal, prefix_len=prefix)
+    torch.testing.assert_close(model, want.transpose(1, 2), atol=0, rtol=0)
+
+
+def test_tma_strides_take_views_and_refuse_the_rest():
+    """K3's tensor maps take any (B, heads, S, D) view with a contiguous
+    last dimension and 16-byte strides; size-1 dimensions get a valid
+    stride; everything else is refused before a launch."""
+    x = torch.zeros((2, 7, 4, 80), dtype=torch.bfloat16)      # (B, S, H, D)
+    assert tma_strides("q", x.transpose(1, 2)) == (7 * 4 * 80, 80, 4 * 80)
+    fused = torch.zeros((2, 7, 6 * 128), dtype=torch.bfloat16)
+    kv = fused[..., 128:].unflatten(-1, (5, 128)).transpose(1, 2)
+    assert tma_strides("k", kv) == (7 * 768, 128, 768)
+    one = torch.zeros((1, 1, 5, 128), dtype=torch.bfloat16)
+    assert tma_strides("q", one) == (128, 128, 128)
+    for bad in (x.transpose(2, 3),                     # last dim strided
+                torch.zeros((1, 2, 5, 20), dtype=torch.bfloat16),   # 40 B
+                x[..., 1:].transpose(1, 2),            # unaligned data
+                x[:1].expand(3, 7, 4, 80).transpose(1, 2)):   # stride 0
+        with pytest.raises(ValueError):
+            tma_strides("q", bad)
+
+
 @pytest.mark.cuda
 def test_cuda_attention_kernels_match_plain_on_card():
     """K2 and K3 on the card against their plain versions (bf16 inputs;
@@ -160,11 +200,14 @@ def test_cuda_attention_kernels_match_plain_on_card():
                                atol=2e-3, rtol=0)
     torch.testing.assert_close(m, m_p, atol=2e-3, rtol=0)
     g = torch.Generator(device="cuda").manual_seed(0)
-    for S in (64, 100):
-        qq = torch.randn((1, 8, S, 128), generator=g, device="cuda").bfloat16()
-        kk = torch.randn((1, 2, S, 128), generator=g, device="cuda").bfloat16()
-        vv = torch.randn((1, 2, S, 128), generator=g, device="cuda").bfloat16()
+    for S, D, causal, prefix in ((64, 128, True, 0), (100, 128, True, 0),
+                                 (1, 80, True, 0), (65, 80, True, 100),
+                                 (130, 80, False, 0)):
+        qq, kk, vv = (torch.randn((1, S, n, D), generator=g, device="cuda")
+                      .bfloat16().transpose(1, 2) for n in (8, 2, 2))
         torch.testing.assert_close(
-            ops.flash_attention(qq, kk, vv).float(),
-            ops.flash_attention(qq, kk, vv, use_kernel=False).float(),
+            ops.flash_attention(qq, kk, vv, causal=causal,
+                                prefix_len=prefix).float(),
+            ops.flash_attention(qq, kk, vv, causal=causal, prefix_len=prefix,
+                                use_kernel=False).float(),
             atol=2e-2, rtol=0)

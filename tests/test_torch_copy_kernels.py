@@ -29,6 +29,7 @@ from repro.kernels import ref as jref
 from repro.kernels.fpm_copy import fpm_copy_cross_pallas, fpm_copy_pallas
 from repro.kernels.zero_init import zero_init_pallas
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import fpm_copy as tfpm
 from repro_torch.kernels.fpm_copy import pair_waves
 
 DTYPES = [np.float32, jnp.bfloat16, np.int32]
@@ -239,6 +240,74 @@ def test_pair_waves_refuse_raw_and_waw():
     assert pair_waves([(1, 2), (2, 3)], same_pool=False).tolist() == [0, 0]
     with pytest.raises(ValueError, match="WAW"):
         pair_waves([(1, 2), (4, 2)], same_pool=False)
+
+
+@pytest.mark.parametrize("pairs,waves", [
+    ([(3, 8), (5, 9), (7, 1)], [0, 0, 0]),             # no WAR pair
+    # a WAR chain, and a wave-0 row after it: sorting moves that row up
+    ([(3, 8), (5, 9), (10, 3), (4, 10), (6, 7)], [0, 0, 1, 2, 0]),
+])
+def test_block_descriptor_words(pairs, waves):
+    """The descriptor's words as csrc/block_move.cuh documents them:
+    header, rows sorted by wave (stable), item prefix sums per wave and
+    two zeroed counters; written into a caller's buffer when one is
+    given."""
+    rows = np.asarray(pairs, np.int64)
+    w = pair_waves(rows)
+    assert w.tolist() == waves
+    layers, page_bytes, word = 3, 80 * 1024, 16
+    chunk, cpp = 32 * 1024, 3                 # 80 KiB pages: 3 chunks
+    n, n_waves = len(rows), max(waves) + 1
+    buf = np.full(64, -7, np.int64)
+    desc = tfpm.block_descriptor(1000, 2000, 40, 50, layers=layers,
+                                 page_bytes=page_bytes, word=word,
+                                 rows=rows, waves=w, out=buf)
+    words = tfpm.descriptor_words(n, n_waves)
+    assert len(desc) == words == 11 + 2 * n + n_waves + 1 + 2
+    assert np.shares_memory(desc, buf) and (buf[words:] == -7).all()
+    assert desc.tolist()[:11] == [1000, 2000, 40, 50, layers, page_bytes, n,
+                                  chunk, cpp, n_waves, word]
+    order = sorted(range(n), key=lambda i: waves[i])
+    assert desc[11:11 + 2 * n].reshape(n, 2).tolist() == \
+        [list(pairs[i]) for i in order]
+    per_row = layers * cpp
+    want_prefix = [0]
+    for k in range(n_waves):
+        want_prefix.append(want_prefix[-1] + waves.count(k) * per_row)
+    assert desc[11 + 2 * n:words - 2].tolist() == want_prefix
+    assert desc[-2:].tolist() == [0, 0]
+    np.testing.assert_array_equal(
+        tfpm.block_descriptor(1000, 2000, 40, 50, layers=layers,
+                              page_bytes=page_bytes, word=word, rows=rows,
+                              waves=w), desc)
+
+
+def test_fanout_passes_host_ids_to_the_block_moves(monkeypatch):
+    """The engine's fan-out hands K5a / K5b / K6 numpy ids, so their
+    wrappers schedule on the host without a device sync."""
+    from repro_torch.core.allocator import SubarrayAllocator
+    from repro_torch.core.rowclone import RowCloneEngine
+    from repro_torch.launch import mechanisms
+    seen = []
+    for name in ("fpm_copy", "fpm_copy_cross", "meminit_zero"):
+        real = getattr(ops, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            ids = args[2] if _name == "fpm_copy_cross" else args[1]
+            seen.append((_name, type(ids)))
+            return _real(*args, **kw)
+        monkeypatch.setattr(ops, name, spy)
+    nblk = 2560
+    pools = {n: torch.zeros((nblk, 4), dtype=torch.float32)
+             for n in ("k", "v")}
+    pools.update({n: torch.zeros((64, 4), dtype=torch.float32)
+                  for n in ("k_stage", "v_stage")})
+    eng = RowCloneEngine(pools, SubarrayAllocator(nblk, 4), use_fused=False,
+                         staging={"k_stage": "k", "v_stage": "v"})
+    mechanisms.drive(eng, mechanisms.ab_program(nblk))
+    assert {n for n, _ in seen} == {"fpm_copy", "fpm_copy_cross",
+                                    "meminit_zero"}
+    assert all(t is np.ndarray for _, t in seen), seen
 
 
 def test_kernel_request_on_cpu_tensor_raises():
