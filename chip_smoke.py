@@ -32,7 +32,8 @@ Phases (each raises on failure; the script then exits non-zero):
    llama3.2-3b K/V pages ``(14336, 64, 8, 128)`` bf16 and phase 2's
    layer-stacked ``(28, 512, 64, 8, 128)``, m = 8 and 256 blocks per call,
    ``-1`` padding and an in-call write-after-read pair; kernel, plain and
-   library-call times beside the byte bound.
+   library-call times beside the byte bound, and K5a's host work per call
+   split into its stages (schedule, descriptor, upload, launch).
 7. the fused drain against the per-mechanism fan-out: one fixed op script
    (``launch/mechanisms.py ab_program``: every mechanism, 419 rows) through
    two engines over identical full-width flat pools; pools bitwise equal, 1
@@ -562,8 +563,43 @@ def _bitwise_equal(a, b) -> bool:
     return torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+def _block_move_stages(pool, ids, scrub, reps: int = 20) -> dict:
+    """K5a's host work per call at axis 0, stage by stage on the host clock
+    (median of ``reps`` calls, each behind a queued ``scrub`` fill): the
+    calls ``fpm_copy_cuda`` makes, in its order (live rows and waves, the
+    pinned descriptor, its non-blocking upload, the launch), and then one
+    whole call of the wrapper."""
+    from repro_torch.kernels import fpm_copy as fc
+    from repro_torch.kernels import ops
+    n = pool.shape[0]
+    names = ("schedule", "descriptor", "upload", "launch", "wrapper")
+    times = {k: [] for k in names}
+    for _ in range(reps):
+        scrub.zero_()
+        t0 = time.perf_counter()
+        rows = fc._live_pairs(ids, n, n)
+        waves = fc.pair_waves(rows)
+        t1 = time.perf_counter()
+        host, items = fc.pinned_descriptor(pool, pool, rows, waves,
+                                           block_axis=0)
+        t2 = time.perf_counter()
+        desc = host.to(pool.device, non_blocking=True)
+        t3 = time.perf_counter()
+        fc.launch_descriptor("rc_fpm_copy", desc, items)
+        t4 = time.perf_counter()
+        scrub.zero_()
+        t5 = time.perf_counter()
+        ops.fpm_copy(pool, ids, use_kernel=True)
+        t6 = time.perf_counter()
+        torch.cuda.synchronize()
+        for k, a, b in zip(names, (t0, t1, t2, t3, t5), (t1, t2, t3, t4, t6)):
+            times[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
 def phase_copy_kernels(scrub):
-    """Phase 6: K5a, K5b, K6 against their plain versions; timings."""
+    """Phase 6: K5a, K5b, K6 against their plain versions; timings and
+    K5a's host stages."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rng = np.random.default_rng(SEED + 3)
@@ -627,6 +663,11 @@ def phase_copy_kernels(scrub):
                                            plain_ms=plain_ms,
                                            library_ms=lib_ms,
                                            bound_ms=bound)
+            if ba == 0 and m == MAX_REQUESTS:
+                st = _block_move_stages(a, ids, scrub)
+                log("[fpm_copy] axis 0 m=256 host ms per call (median of "
+                    "20): " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in st.items()))
         # pool-to-pool copy within ONE pool: its WAR pair is ordered too
         ids = _copy_ids(rng, nblk, 8)
         want = ops.fpm_copy_cross(a.clone(), a, ids, block_axis=ba,

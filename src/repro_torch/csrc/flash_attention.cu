@@ -33,11 +33,14 @@
 //   into exp2f), masked only on diagonal tiles and the tile at the ragged
 //   edge, and tiles right of the diagonal are never loaded unless they lie
 //   in the prefix.
-// * O += P V is wgmma m64nDk16 with P in registers: the fp32 score
-//   fragments are rounded to bf16 in place (wgmma's A-register layout is
-//   its accumulator layout) and V is read from shared memory with the
-//   transpose bit (MN-major).  Rounding P to bf16 costs at most 2^-9 of each
-//   weight, below one bf16 ulp of the output; the sums stay fp32.
+// * O += P V is wgmma m64nDk16 with P in registers (wgmma's A-register
+//   layout is its accumulator layout) and V read from shared memory with the
+//   transpose bit (MN-major).  The reference multiplies fp32 weights; one
+//   bf16 P would be off by up to 2^-8 of each weight, enough to flip the
+//   output's bf16 rounding by one ulp (1.6e-2 at |x| in [2, 4)) on many
+//   elements.  So P goes in as two bf16 parts, hi = bf16(P) and lo =
+//   bf16(P - hi), each through its own wgmma into the same fp32 sums: P is
+//   then off by at most 2^-16 of each weight.
 // * The output is written straight from the accumulators to the caller's
 //   (B, S, H, D) buffer (strided), rows >= S masked.
 #include <cuda.h>
@@ -222,6 +225,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&t);
 }
 
+// (x, y) as a bf16 pair `hi` and the pair of what hi leaves out, `lo`
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
 template <int kD>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const __grid_constant__ CUtensorMap tq,
@@ -381,20 +393,24 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
       o[4 * j + 3] *= corr1;
     }
 
-    // P as the A operand of O += P V: k16 step kk holds score columns
-    // 16kk..16kk+15, the accumulator blocks 2kk and 2kk + 1
-    uint32_t a[4][4];
+    // P as the A operand of O += P V, in hi and lo parts: k16 step kk holds
+    // score columns 16kk..16kk+15, the accumulator blocks 2kk and 2kk + 1
+    uint32_t a[4][4], a_lo[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      a[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-      a[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-      a[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-      a[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        split_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], a[kk][i],
+                   a_lo[kk][i]);
+      }
     }
     mbar_wait(bar_v + 8 * s, phase);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) pv_mma<kD>(o, a[kk], vmajor_desc(v_tile, kk));
+    for (int kk = 0; kk < 4; ++kk) {
+      pv_mma<kD>(o, a[kk], vmajor_desc(v_tile, kk));
+      pv_mma<kD>(o, a_lo[kk], vmajor_desc(v_tile, kk));
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);

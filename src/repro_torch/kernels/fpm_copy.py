@@ -144,30 +144,46 @@ def block_descriptor(dst_ptr: int, src_ptr: int, dst_nblk: int,
     return desc
 
 
-def block_move(entry: str, dst_pool: torch.Tensor, src_pool: torch.Tensor,
-               rows: np.ndarray, waves: np.ndarray, *,
-               block_axis: int) -> None:
-    """Launch ``entry`` (``rc_fpm_copy`` or ``rc_zero_init``) once over the
-    live ``(n, 2)`` ``[src, dst]`` rows, in wave order.  The descriptor is
-    built in pinned host memory and copied without blocking: PyTorch's
-    caching host allocator keeps the pinned block until the copy that reads
-    it has run, and the kernel follows the copy on the same stream."""
+def pinned_descriptor(dst_pool: torch.Tensor, src_pool: torch.Tensor,
+                      rows: np.ndarray, waves: np.ndarray, *,
+                      block_axis: int):
+    """:func:`block_descriptor` for the live ``(n, 2)`` ``[src, dst]`` rows
+    of one call, written into a pinned host tensor of exactly its length.
+    Returns that tensor and the call's work items."""
     layers, page_bytes, word = block_geometry((dst_pool, src_pool),
                                               block_axis)
-    # room for the most waves the rows can have (one per row)
-    host = torch.empty(descriptor_words(len(rows), len(rows)),
+    host = torch.empty(descriptor_words(len(rows), int(waves.max()) + 1),
                        dtype=torch.int64, pin_memory=True)
-    desc_np = block_descriptor(
+    desc = block_descriptor(
         dst_pool.data_ptr(), src_pool.data_ptr(),
         int(dst_pool.shape[block_axis]), int(src_pool.shape[block_axis]),
         layers=layers, page_bytes=page_bytes, word=word, rows=rows,
         waves=waves, out=host.numpy())
-    device = dst_pool.device
-    desc = host.to(device, non_blocking=True)
-    grid = max(1, min(int(desc_np[-3]), _sm_count(device) * CTAS_PER_SM))
+    return host, int(desc[-3])
+
+
+def launch_descriptor(entry: str, desc: torch.Tensor, items: int) -> None:
+    """Launch ``entry`` (``rc_fpm_copy`` or ``rc_zero_init``) once over the
+    descriptor ``desc`` on the card, on the current stream."""
+    device = desc.device
+    grid = max(1, min(items, _sm_count(device) * CTAS_PER_SM))
     ptr = desc.data_ptr()
-    check(_entry(entry)(ptr, ptr + 8 * (len(desc_np) - 2), grid,
+    check(_entry(entry)(ptr, ptr + 8 * (len(desc) - 2), grid,
                         stream_ptr(device)), entry)
+
+
+def block_move(entry: str, dst_pool: torch.Tensor, src_pool: torch.Tensor,
+               rows: np.ndarray, waves: np.ndarray, *,
+               block_axis: int) -> None:
+    """Launch ``entry`` once over the live ``(n, 2)`` ``[src, dst]`` rows,
+    in wave order.  The descriptor is built in pinned host memory and
+    copied without blocking: PyTorch's caching host allocator keeps the
+    pinned block until the copy that reads it has run, and the kernel
+    follows the copy on the same stream."""
+    host, items = pinned_descriptor(dst_pool, src_pool, rows, waves,
+                                    block_axis=block_axis)
+    launch_descriptor(entry, host.to(dst_pool.device, non_blocking=True),
+                      items)
 
 
 def _live_pairs(ids, n_src: int, n_dst: int) -> np.ndarray:
@@ -210,5 +226,6 @@ def fpm_copy_cross_cuda(dst_pool: torch.Tensor, src_pool: torch.Tensor, ids,
 
 
 __all__ = ["COUNTER", "CROSS_COUNTER", "pair_waves", "host_ids",
-           "block_descriptor", "descriptor_words", "block_move",
+           "block_descriptor", "descriptor_words", "pinned_descriptor",
+           "launch_descriptor", "block_move",
            "fpm_copy_cuda", "fpm_copy_cross_cuda"]

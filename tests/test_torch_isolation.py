@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of the
 JAX package ``repro`` (not even its JAX-free modules), and neither do
-``chip_smoke.py`` and ``tools/chip_ab.py``.  A CUDA kernel wrapper refuses
+``chip_smoke.py`` and ``chip_ab.py``.  A CUDA kernel wrapper refuses
 CPU tensors instead of quietly running something else."""
 import pkgutil
 import re
@@ -65,10 +65,10 @@ def test_import_everything_loads_no_jax_or_reference():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "chip_ab.py"]))
+    + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]))
 def test_source_has_no_forbidden_import(path):
     """No source file of the port, and neither chip_smoke.py nor
-    tools/chip_ab.py, names jax or the reference package in an import
+    chip_ab.py, names jax or the reference package in an import
     statement."""
     text = (ROOT / path).read_text()
     hits = FORBIDDEN.findall(text)
