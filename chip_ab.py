@@ -22,7 +22,7 @@ before each; ``device_ms``: the profiler's device time of the call):
   device ms of one call (busy, K3's kernel, copy kernels).
 
 Run it on the two checkouts in turns (parent, change, change, parent)
-inside one chip call: two calls may land on two cards.
+on one machine in one go: two separate runs may land on two cards.
 """
 from __future__ import annotations
 
