@@ -9,6 +9,12 @@ kernels and prints one JSON line, every time through ``chip_smoke.py``'s
 own helpers (``time_ms``: CUDA events around one call, the L2 scrubbed
 before each; ``device_ms``: the profiler's device time of the call):
 
+- ``k2``: paged decode attention through ``ops.paged_attention_slab`` on
+  phase 2's serving slab at llama3.2-3b's heads (B=8, H=24, KVH=8,
+  D=128) and zamba2-2.7b's (B=4, H=KVH=32, D=80): card ms and device ms;
+- ``k4``: the SSD intra-chunk term through ``ops.ssd_intra_chunk`` at
+  mamba2-780m's and zamba2-2.7b's batch prefill (8 chunk rows of 256,
+  bf16): card ms and device ms;
 - ``k3``: prefill attention through ``ops.flash_attention`` at
   llama3.2-3b's heads (B=1, H=24, KVH=8, D=128, S=512) and zamba2-2.7b's
   batch prefill (B=4, H=KVH=32, D=80, S=384), causal: card ms, device ms
@@ -17,9 +23,10 @@ before each; ``device_ms``: the profiler's device time of the call):
   padding and write-after-read pair): card ms, device ms and the library
   call's card ms;
 - ``e2e``: llama3.2-3b admitting chip_smoke's four prompts into a fresh
-  serving engine and zamba2-2.7b's batch prefill at full width (random
-  weights, seed 0): the host clock (synchronised, median of 3) and the
-  device ms of one call (busy, K3's kernel, copy kernels).
+  serving engine, one steady serving round of those four and a fork, and
+  zamba2-2.7b's batch prefill at full width (random weights, seed 0): the
+  host clock (synchronised, median of 3) and the device ms of one call
+  (busy, and K2's, K3's, K4's and the copy kernels' share).
 
 Run it on the two checkouts in turns (parent, change, change, parent)
 on one machine in one go: two separate runs may land on two cards.
@@ -65,6 +72,43 @@ def k3(torch, ops, scrub) -> dict:
     return out
 
 
+def k2(torch, ops, scrub) -> dict:
+    page, nblk = 64, cs.MAX_SEQS * cs.MAX_BLOCKS_PER_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+    out = {}
+    for B, H, KVH, D in ((cs.MAX_SEQS, 24, 8, 128), (cs.SSM_BATCH, 32, 32,
+                                                      80)):
+        q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((nblk, page, KVH, D), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        tables = cs._k2_layout(np.random.default_rng(cs.SEED), nblk, B, page,
+                               "serve")
+        args = (q, k, v) + tuple(torch.from_numpy(a).cuda() for a in tables)
+
+        def kern():
+            return ops.paged_attention_slab(*args, page=page,
+                                            use_kernel=True)
+
+        out[f"B{B}_H{H}_D{D}"] = dict(
+            ms=cs.time_ms(kern, scrub=scrub),
+            device_ms=cs.device_ms(kern, key="paged_attn"))
+    return out
+
+
+def k4(torch, ops, scrub) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
+    out = {}
+    for arch, Bc, Q, H, N in cs.K4_CASES[:2]:
+        args = cs._ssd_inputs(gen, Bc, Q, H, N)
+
+        def kern():
+            return ops.ssd_intra_chunk(*args, use_kernel=True)
+
+        out[arch] = dict(ms=cs.time_ms(kern, scrub=scrub),
+                         device_ms=cs.device_ms(kern, key="ssd_intra"))
+    return out
+
+
 def k5(torch, ops, scrub) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 3)
     rng = np.random.default_rng(cs.SEED + 3)
@@ -97,7 +141,8 @@ def k5(torch, ops, scrub) -> dict:
 def _host_and_device(torch, run, setup=lambda: None) -> dict:
     """Host ms of ``run(setup())`` (synchronised, median of 3 after a warm
     call; ``setup`` untimed) and the device ms of one call (``device_ms``
-    after its warm call): busy, K3's kernel, copy kernels."""
+    after its warm call): busy, K2's, K3's and K4's kernels, copy
+    kernels."""
     def timed():
         x = setup()
         torch.cuda.synchronize()
@@ -108,7 +153,8 @@ def _host_and_device(torch, run, setup=lambda: None) -> dict:
 
     timed()
     out = {"host_ms": float(np.median([timed() for _ in range(3)]))}
-    for name, key in (("busy", ""), ("k3", "flash_kernel"),
+    for name, key in (("busy", ""), ("k2", "paged_attn"),
+                      ("k3", "flash_kernel"), ("k4", "ssd_intra"),
                       ("copies", "direct_copy")):
         x = setup()
         out[f"{name}_ms"] = cs.device_ms(lambda: run(x), key=key, reps=1)
@@ -132,7 +178,18 @@ def e2e(torch) -> dict:
         setup=lambda: ServingEngine(
             cfg, params, max_seqs=cs.MAX_SEQS,
             max_blocks_per_seq=cs.MAX_BLOCKS_PER_SEQ))}
-    del params
+    torch.cuda.empty_cache()
+    # a steady round: the four prompts and a fork of the first, as phase 5
+    eng = ServingEngine(cfg, params, max_seqs=cs.MAX_SEQS,
+                        max_blocks_per_seq=cs.MAX_BLOCKS_PER_SEQ)
+    sids = cs._admit_all(eng, prompts)
+    eng.decode_round()
+    eng.fork(sids[0], 2)
+    for _ in range(2):
+        eng.decode_round()
+    res["llama_round"] = _host_and_device(torch,
+                                          lambda _: eng.decode_round())
+    del eng, params
     torch.cuda.empty_cache()
     cfg = get_config("zamba2-2.7b")
     model = init_params(cfg, seed=cs.SEED, device="cuda")
@@ -160,6 +217,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True)
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     out = {"tag": args.tag, "src": args.src, "smi": smi.stdout.strip(),
+           "k2": k2(torch, ops, scrub), "k4": k4(torch, ops, scrub),
            "k3": k3(torch, ops, scrub), "k5": k5(torch, ops, scrub)}
     del scrub
     torch.cuda.empty_cache()

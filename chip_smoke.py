@@ -7,15 +7,20 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. device and build — needs ``torch.cuda.is_available()``; prints the card's
    name and power limit (``nvidia-smi``), builds every kernel of the
-   port from ``src/repro_torch/csrc`` (nvcc, all sources in parallel) and
-   counts K3's tensor-core instructions (``HGMMA`` in ``cuobjdump -sass``;
-   none fails the run).
+   port from ``src/repro_torch/csrc`` (nvcc, all sources in parallel),
+   holds the design constants the CPU tests emulate (K2's split count,
+   page and group limits, K4's heads per CTA) equal to the libraries' own,
+   and counts K3's and K4's tensor-core instructions (``HGMMA`` in
+   ``cuobjdump -sass``; none in either fails the run).
 2. K1, the fused command drain, against its plain version at the serving
    pool shapes (four bf16 pools ``(28, nblk, 64, 8, 128)`` and the staging
    ring): every opcode, NOP padding, non-adjacent write-after-read pairs
    (three waves) and a staging role vector; bitwise equality.
 3. K2, paged decode attention, against its plain version at B=8, H=24,
-   KVH=8, D=128, page=64, with CoW-shared blocks and an empty slot.
+   KVH=8, D=128, page=64, with CoW-shared blocks and an empty slot, on
+   three slabs (``K2_LAYOUTS``: the serving layout, one sequence over 64
+   visible pages, one page per sequence); card and device-only times.
+   The bound counts the K/V slots some reader needs (a shared block once).
 4. K3, prefill attention, against its plain version at B=1, H=24, KVH=8,
    D=128, causal, S=512 and a ragged S=250, on the (B, S, H, D) views the
    model passes, and at the edge cases ``K3_EDGES`` (S=1, S=65, a prefix
@@ -157,17 +162,25 @@ def phase_device():
         for line in out.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    from repro_torch.kernels import paged_attention, ssd_chunk
+    for mod in (paged_attention, ssd_chunk):
+        for name, value in mod.kernel_constants().items():
+            log(f"[build] {mod.__name__}.{name} = {getattr(mod, name)}, "
+                f"library {value}")
+            if getattr(mod, name) != value:
+                raise AssertionError(f"{mod.__name__}.{name} disagrees with "
+                                     "the library it describes")
     cuobjdump = Path(build.nvcc_path()).resolve().with_name("cuobjdump")
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
-        capture_output=True, text=True, check=True).stdout.splitlines()
-    count = {op: sum(op in line for line in sass)
-             for op in ("HGMMA", "HMMA", "UTMALDG")}
-    hgmma = count["HGMMA"]
-    log("[build] K3 SASS (cuobjdump -sass libflash_attention.so): "
-        + ", ".join(f"{n} {op}" for op, n in count.items()))
-    if not hgmma:
-        raise AssertionError("K3 has no wgmma (HGMMA) instruction")
+    for kernel, lib in (("K3", "flash_attention"), ("K4", "ssd_chunk")):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(build.library_path(lib))],
+            capture_output=True, text=True, check=True).stdout.splitlines()
+        count = {op: sum(op in line for line in sass)
+                 for op in ("HGMMA", "HMMA", "UTMALDG")}
+        log(f"[build] {kernel} SASS (cuobjdump -sass lib{lib}.so): "
+            + ", ".join(f"{n} {op}" for op, n in count.items()))
+        if not count["HGMMA"]:
+            raise AssertionError(f"{kernel} has no wgmma (HGMMA) instruction")
     return smi
 
 
@@ -241,9 +254,52 @@ def phase_k1(scrub):
                 bound_by="bytes", library_ms=None)
 
 
+#: K2 slab layouts of phases 2 and 9 (slot B-1 stays empty in each):
+#: "serve", a forked 3-page prompt shared by sequences 0-2 and 1-8
+#: private pages each; "long", sequence 0 over MAX_BLOCKS_PER_SEQ visible
+#: pages (every CTA of the cluster busy; its first 3 shared with sequence
+#: 1); "single", one page per sequence
+K2_LAYOUTS = ("serve", "long", "single")
+
+
+def _k2_layout(rng, nblk, B, page, layout):
+    """share_mask (nblk, B) int8, base (nblk,) and seq_lens (B,) int32 of
+    one :data:`K2_LAYOUTS` case."""
+    mask = np.zeros((nblk, B), np.int8)
+    base = np.zeros(nblk, np.int32)
+    lens = np.zeros(B, np.int32)
+    free = list(rng.permutation(nblk))
+    shared = [free.pop() for _ in range(3)]
+    for b in range(B - 1):
+        if layout == "single":
+            blocks = [free.pop()]
+        elif layout == "long" and b == 0:
+            blocks = shared + [free.pop()
+                               for _ in range(MAX_BLOCKS_PER_SEQ - 3)]
+        else:
+            n = int(rng.integers(1, 9))
+            sharers = 3 if layout == "serve" else 2
+            blocks = (shared if b < sharers else []) + \
+                [free.pop() for _ in range(n)]
+        for j, blk in enumerate(blocks):
+            mask[blk, b] = 1
+            base[blk] = j * page
+        lens[b] = (len(blocks) - 1) * page + int(rng.integers(1, page + 1))
+    return mask, base, lens
+
+
+def _k2_slots(mask, base, lens, page) -> int:
+    """K/V slots K2 must read: of each visible block, the slots below some
+    reader's length (a shared block once, its longest reader's count)."""
+    need = np.clip(lens[None, :] - base[:, None], 0, page) * (mask > 0)
+    return int(need.max(1).sum())
+
+
 def phase_k2(scrub, B=MAX_SEQS, H=24, KVH=8, D=128):
-    """K2 against its plain version; the default shapes are llama3.2-3b's
-    serving slab, phase 9 passes zamba2's (B=4, H=KVH=32, D=80)."""
+    """K2 against its plain version on each :data:`K2_LAYOUTS` slab; the
+    default shapes are llama3.2-3b's serving slab, phase 9 passes zamba2's
+    (B=4, H=KVH=32, D=80).  Card and device-only times of the "serve" and
+    "long" layouts; the JSON row takes "serve"'s."""
     from repro_torch.kernels import ops
     page, nblk = 64, MAX_SEQS * MAX_BLOCKS_PER_SEQ
     rng = np.random.default_rng(SEED)
@@ -253,51 +309,56 @@ def phase_k2(scrub, B=MAX_SEQS, H=24, KVH=8, D=128):
                     device="cuda").bfloat16()
     v = torch.randn((nblk, page, KVH, D), generator=gen,
                     device="cuda").bfloat16()
-    mask = np.zeros((nblk, B), np.int8)
-    base = np.zeros(nblk, np.int32)
-    lens = np.zeros(B, np.int32)
-    free = list(rng.permutation(nblk))
-    shared = [free.pop() for _ in range(3)]      # a forked 3-page prompt
-    for b in range(B - 1):                        # slot B-1 stays empty
-        n = int(rng.integers(1, 9))
-        blocks = (shared if b < 3 else []) + [free.pop() for _ in range(n)]
-        for j, blk in enumerate(blocks):
-            mask[blk, b] = 1
-            base[blk] = j * page
-        lens[b] = (len(blocks) - 1) * page + int(rng.integers(1, page + 1))
-    args = (q, k, v, torch.from_numpy(mask).cuda(),
-            torch.from_numpy(base).cuda(), torch.from_numpy(lens).cuda())
-    acc, l, m = ops.paged_attention_slab(*args, page=page, use_kernel=True)
-    acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=page,
-                                               use_kernel=False)
-    torch.cuda.synchronize()
-    out = acc / l.clamp_min(1e-30)[..., None]
-    out_p = acc_p / l_p.clamp_min(1e-30)[..., None]
-    err = float((out - out_p).abs().max())
-    err_m = float((m - m_p).abs().max())
-    empty_ok = bool((m[B - 1] == -1e30).all() and (l[B - 1] == 0).all()
-                    and (acc[B - 1] == 0).all())
-    if not (err <= K2_ATOL and err_m <= K2_ATOL and empty_ok):
-        raise AssertionError(f"K2 vs plain: out err {err}, m err {err_m}, "
-                             f"empty slot ok {empty_ok}")
-    live_blocks = int((mask.sum(1) > 0).sum())
-    nbytes = live_blocks * page * KVH * D * 2 * 2 + q.numel() * 2 + \
-        B * H * (D + 2) * 4
-    ms = time_ms(lambda: ops.paged_attention_slab(*args, page=page,
-                                                  use_kernel=True),
-                 scrub=scrub)
-    plain_ms = time_ms(lambda: ops.paged_attention_slab(
-        *args, page=page, use_kernel=False), reps=5, scrub=scrub)
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"[K2] B={B} H={H} KVH={KVH} D={D}: max |out - plain| {err:.2e}, "
-        f"|m - plain| {err_m:.2e} "
-        f"(atol {K2_ATOL}); empty slot m=-1e30 l=0; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} bytes)")
+    rows = {}
+    for layout in K2_LAYOUTS:
+        mask, base, lens = _k2_layout(rng, nblk, B, page, layout)
+        args = (q, k, v, torch.from_numpy(mask).cuda(),
+                torch.from_numpy(base).cuda(), torch.from_numpy(lens).cuda())
+
+        def kern():
+            return ops.paged_attention_slab(*args, page=page,
+                                            use_kernel=True)
+
+        acc, l, m = kern()
+        acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=page,
+                                                   use_kernel=False)
+        torch.cuda.synchronize()
+        out = acc / l.clamp_min(1e-30)[..., None]
+        out_p = acc_p / l_p.clamp_min(1e-30)[..., None]
+        err = float((out - out_p).abs().max())
+        err_m = float((m - m_p).abs().max())
+        empty_ok = bool((m[B - 1] == -1e30).all() and (l[B - 1] == 0).all()
+                        and (acc[B - 1] == 0).all())
+        if not (err <= K2_ATOL and err_m <= K2_ATOL and empty_ok):
+            raise AssertionError(f"K2 vs plain ({layout}): out err {err}, m "
+                                 f"err {err_m}, empty slot ok {empty_ok}")
+        live_blocks = int((mask.sum(1) > 0).sum())
+        nbytes = _k2_slots(mask, base, lens, page) * KVH * D * 2 * 2 + \
+            q.numel() * 2 + B * H * (D + 2) * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        r = dict(err=max(err, err_m), bound=bound, ms=None, dev=None,
+                 plain_ms=None)
+        if layout != "single":
+            r["ms"] = time_ms(kern, scrub=scrub)
+            r["dev"] = device_ms(kern, key="paged_attn")
+        if layout == "serve":
+            r["plain_ms"] = time_ms(lambda: ops.paged_attention_slab(
+                *args, page=page, use_kernel=False), reps=5, scrub=scrub)
+        rows[layout] = r
+        log(f"[K2] B={B} H={H} KVH={KVH} D={D} {layout} ({live_blocks} live "
+            f"blocks, longest {int(mask.sum(0).max())} pages): max |out - "
+            f"plain| {err:.2e}, |m - plain| {err_m:.2e} (atol {K2_ATOL}); "
+            f"empty slot m=-1e30 l=0; kernel "
+            f"{_fmt_ms(r['ms'])} (device only {_fmt_ms(r['dev'])}), plain "
+            f"{_fmt_ms(r['plain_ms'])}, bound {bound:.4f} ms ({nbytes} "
+            "bytes)")
+    r = rows["serve"]
     return dict(name="paged_attention", source="src/repro_torch/csrc/"
                 "paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:98",
-                max_abs_err=max(err, err_m), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by="bytes", library_ms=None)
+                max_abs_err=max(x["err"] for x in rows.values()),
+                ms=r["ms"], device_ms=r["dev"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound"], bound_by="bytes", library_ms=None)
 
 
 #: K3 edge cases held against the plain version (B, S, causal,
@@ -381,12 +442,16 @@ def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250))):
                 library_ms=r["lib_ms"])
 
 
+#: profiler names of the attention and SSD kernels (K2, K3, K4)
+PORT_KERNEL_KEYS = ("paged_attn", "flash_kernel", "ssd_intra")
+
+
 def profile_rounds(step, rounds: int = 3, tag: str = "profile",
                    what: str = "round") -> None:
     """Where a steady step's time goes: torch.profiler over ``rounds`` more
     calls of ``step`` (after the counted run), device time per kernel and
     the device's idle share of the wall clock.  The ten largest kernels are
-    listed, and K3's below them wherever it ranks."""
+    listed, and K2's, K3's and K4's below them wherever they rank."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -416,7 +481,7 @@ def profile_rounds(step, rounds: int = 3, tag: str = "profile",
         f"{1 - busy / wall_us:.3f}")
     ranked = sorted(rows, reverse=True)
     for i, (dev, count, key) in enumerate(ranked):
-        if i < 10 or "flash_kernel" in key:
+        if i < 10 or any(k in key for k in PORT_KERNEL_KEYS):
             log(f"[{tag}]   {dev / rounds / 1e3:8.3f} ms/{what} "
                 f"{count // rounds:5d} calls/{what}  {key[:90]}")
 

@@ -8,13 +8,19 @@ version is :func:`repro_torch.kernels.ref.ssd_intra_chunk`.
 
 Bound on the card: bytes at the model's shapes (the inputs read once and
 the fp32 output written once, over 3.35 TB/s), with the kernel body's
-``2 Q^2 (N + P)`` FLOPs per chunk and head over 989 TFLOP/s close behind.
-The first version is fp32 FMA on shared-memory tiles, one CTA per (64-row
-i-tile, head, chunk row), walking the j-tiles only up to the diagonal.
+``2 Q^2 (N + P)`` FLOPs per chunk and head over 989 TFLOP/s below it.
+bf16 inputs (what the models pass) run on the tensor cores: one CTA per
+(64-row i-tile, :data:`HEADS_PER_CTA` heads, chunk row) forms ``C_i
+B_j^T`` once per j-tile for its heads with ``wgmma``, and feeds each
+head's decay-weighted W to ``W x_j`` as :data:`W_PARTS` bf16 parts
+(three: W exact to fp32 rounding); TMA brings the tiles, x through a
+tensor map over its (Bc, Q, H, P) strides.  fp32 inputs keep the first
+version's FMA body.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,6 +34,28 @@ HEAD_DIM = 64
 MAX_STATE = 256
 MAX_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: heads of a CTA of the bf16 kernel, which share its scores
+HEADS_PER_CTA = 2
+#: bf16 parts of W fed to the bf16 kernel's W x_j (the library has 2 and 3);
+#: read at each call
+W_PARTS = 3
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry, its argument types set once when the library loads."""
+    fn = library("ssd_chunk").rc_ssd_intra_chunk
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_constants() -> dict:
+    """The library's own value of :data:`HEADS_PER_CTA` (the CPU tests
+    emulate the head groups with the Python copy; ``chip_smoke.py`` holds
+    the two equal)."""
+    return {"HEADS_PER_CTA": library("ssd_chunk").rc_ssd_heads_per_cta()}
 
 
 def ssd_intra_chunk_cuda(xb, dtb, cum, Bb, Cb):
@@ -51,17 +79,18 @@ def ssd_intra_chunk_cuda(xb, dtb, cum, Bb, Cb):
         if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"SSD intra-chunk kernel: {name} must be a "
                              f"contiguous CUDA {dt} tensor")
+    if xb.dtype == torch.bfloat16 and (
+            N % 8 or any(t.data_ptr() % 16 for t in (xb, Bb, Cb))):
+        raise ValueError(f"SSD intra-chunk kernel: bf16 tiles come through "
+                         f"tensor maps, which need N % 8 == 0 (N = {N}) and "
+                         f"16-byte aligned x / B / C")
     y = torch.empty((B, Q, H, P), dtype=torch.float32, device=xb.device)
-    fn = library("ssd_chunk").rc_ssd_intra_chunk
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    check(fn(xb.data_ptr(), dtb.data_ptr(), cum.data_ptr(), Bb.data_ptr(),
-             Cb.data_ptr(), y.data_ptr(), B, Q, H, N, _DTYPES[xb.dtype],
-             stream_ptr(xb.device)),
+    check(_entry()(xb.data_ptr(), dtb.data_ptr(), cum.data_ptr(),
+                   Bb.data_ptr(), Cb.data_ptr(), y.data_ptr(), B, Q, H, N,
+                   _DTYPES[xb.dtype], W_PARTS, stream_ptr(xb.device)),
           "SSD intra-chunk kernel")
     COUNTER.n += 1
     return y
 
 
-__all__ = ["COUNTER", "ssd_intra_chunk_cuda"]
+__all__ = ["COUNTER", "kernel_constants", "ssd_intra_chunk_cuda"]

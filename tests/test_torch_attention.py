@@ -14,10 +14,11 @@ from test_torch_contract import to_torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.paged_attention import paged_attention_slab_pallas
-from repro.models.attention import MaskInfo
+from repro.models.attention import MaskInfo, lse_combine
 from repro.models.attention import flash_attention as jax_model_flash
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import tma_strides
+from repro_torch.kernels.paged_attention import SPLITS
 from repro_torch.models.attention import prefill_attention
 
 NEG_INF = -1e30
@@ -85,6 +86,124 @@ def test_paged_attention_shared_block_serves_every_reader():
                                     page=page)
     assert not torch.allclose(full[0][1], part[0][1])
     torch.testing.assert_close(full[0][0], part[0][0])
+
+
+def _layout_case(seed, pages, B=4, H=8, KVH=2, D=64, page=16, nblk=96):
+    """Pool slab where sequence b sees ``pages[b]`` blocks in a random block
+    order (0 pages: an empty slot); sequences 0 and 1 share their first
+    block (CoW), ragged lengths."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((nblk, page, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((nblk, page, KVH, D)).astype(np.float32)
+    mask = np.zeros((nblk, B), np.int8)
+    base = np.zeros(nblk, np.int32)
+    lens = np.zeros(B, np.int32)
+    free = list(rng.permutation(nblk))
+    shared = free.pop()
+    for b, n in enumerate(pages):
+        if not n:
+            continue
+        blocks = ([shared] if b < 2 else [free.pop()]) + \
+            [free.pop() for _ in range(n - 1)]
+        for j, blk in enumerate(blocks):
+            mask[blk, b] = 1
+            base[blk] = j * page
+        lens[b] = (n - 1) * page + int(rng.integers(1, page + 1))
+    return q, k, v, mask, base, lens
+
+
+def _split_masks(mask, base, lens, splits=SPLITS):
+    """The share mask of each CTA of K2's cluster: sequence b's visible
+    blocks in block order, split ``s`` keeping positions
+    ``[s n // splits, (s + 1) n // splits)`` of its ``n``."""
+    out = np.zeros((splits,) + mask.shape, np.int8)
+    for b in range(mask.shape[1]):
+        vis = np.flatnonzero((mask[:, b] > 0) & (base < lens[b]))
+        n = len(vis)
+        for s in range(splits):
+            out[s, vis[s * n // splits:(s + 1) * n // splits], b] = 1
+    return out
+
+
+def _merge(parts):
+    """Rank 0's merge of the splits' (acc, l, m): ``lse_combine`` without
+    its final division."""
+    m = torch.stack([p[2] for p in parts]).amax(0)
+    f = [torch.exp(p[2] - m) for p in parts]
+    l = sum(fi * p[1] for fi, p in zip(f, parts))
+    acc = sum(fi[..., None] * p[0] for fi, p in zip(f, parts))
+    return acc, l, m
+
+
+#: (pages per sequence) of the split-and-merge cases: more pages than
+#: splits beside short sequences (whose splits are mostly empty) and an
+#: empty slot; one page each; every slot empty
+SPLIT_CASES = ((19, 3, 1, 0), (1, 1, 1, 1), (0, 0, 0, 0))
+
+
+@pytest.mark.parametrize("pages", SPLIT_CASES,
+                         ids=["long", "single", "all_empty"])
+@pytest.mark.parametrize("seed", range(2))
+def test_paged_attention_split_and_merge_matches_unsplit_and_jax(pages,
+                                                                  seed):
+    """K2's cluster emulated in plain torch: the plain version on each
+    split's page range, merged as rank 0 merges them, equals the unsplit
+    plain version and the JAX oracle (fp32, atol 1e-5 on the normalised
+    output and m, rtol 1e-5 on l); empty splits add nothing, and an empty
+    sequence stays m = -1e30, l = 0, acc = 0."""
+    q, k, v, mask, base, lens = _layout_case(seed, pages)
+    page = k.shape[1]
+    masks = _split_masks(mask, base, lens)
+    n_vis = masks.sum(axis=(0, 1))
+    assert (n_vis == np.array(pages)).all()
+    # min(n, SPLITS) splits hold pages, the rest none
+    busy = (masks.sum(1) > 0).sum(0)
+    assert (busy == np.minimum(pages, SPLITS)).all()
+    qt, kt, vt, bt, lt = (to_torch(x) for x in (q, k, v, base, lens))
+    parts = [ops.paged_attention_slab(qt, kt, vt, to_torch(ms), bt, lt,
+                                      page=page) for ms in masks]
+    acc, l, m = _merge(parts)
+    full = ops.paged_attention_slab(qt, kt, vt, to_torch(mask), bt, lt,
+                                    page=page)
+    jax_out = jref.paged_attention_slab(*(jnp.asarray(x) for x in
+                                          (q, k, v, mask, base, lens)),
+                                        page=page)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    for want in (full, tuple(torch.from_numpy(np.array(x))
+                             for x in jax_out)):
+        want_out = want[0] / want[1].clamp_min(1e-30)[..., None]
+        np.testing.assert_allclose(out.numpy(), want_out.numpy(), atol=1e-5)
+        np.testing.assert_allclose(m.numpy(), want[2].numpy(), atol=1e-5)
+        np.testing.assert_allclose(l.numpy(), want[1].numpy(), atol=1e-5,
+                                   rtol=1e-5)
+    for b, n in enumerate(pages):
+        if not n:
+            assert (m[b] == np.float32(NEG_INF)).all()
+            assert (l[b] == 0).all() and (acc[b] == 0).all()
+    assert torch.isfinite(acc).all() and torch.isfinite(l).all()
+
+
+@pytest.mark.parametrize("pages", SPLIT_CASES[:2], ids=["long", "single"])
+def test_paged_attention_merge_rule_is_lse_combine(pages):
+    """The merge of the split partials, normalised, is the reference's
+    ``lse_combine`` over an axis of SPLITS members (``jax.vmap`` with an
+    axis name), with empty splits among them."""
+    q, k, v, mask, base, lens = _layout_case(7, pages)
+    page = k.shape[1]
+    qt, kt, vt, bt, lt = (to_torch(x) for x in (q, k, v, base, lens))
+    parts = [ops.paged_attention_slab(qt, kt, vt, to_torch(ms), bt, lt,
+                                      page=page)
+             for ms in _split_masks(mask, base, lens)]
+    acc, l, m = _merge(parts)
+    got = acc / l.clamp_min(1e-30)[..., None]
+    stacked = [jnp.asarray(np.stack([p[i].numpy() for p in parts]))
+               for i in range(3)]
+    want = jax.vmap(lambda a, ll, mm: lse_combine(a, ll, mm, "split"),
+                    axis_name="split")(*stacked)
+    for s in range(SPLITS):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[s]),
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("S", [50, 77, 128])
@@ -184,21 +303,29 @@ def test_tma_strides_take_views_and_refuse_the_rest():
 @pytest.mark.cuda
 def test_cuda_attention_kernels_match_plain_on_card():
     """K2 and K3 on the card against their plain versions (bf16 inputs;
-    K2 atol 2e-3 on the normalised output, K3 atol 2e-2 on bf16 output)."""
+    K2 atol 2e-3 on the normalised output, K3 atol 2e-2 on bf16 output).
+    K2 also on a sequence of 64 visible pages (every CTA of the cluster
+    busy), one page per sequence, and at head dim 80."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    q, k, v, mask, base, lens = _paged_case(1, B=4, H=12, KVH=4, D=128,
-                                            page=64, nblk=16)
-    args = [to_torch(x).cuda() for x in (q, k, v, mask, base, lens)]
-    for i in range(3):
-        args[i] = args[i].bfloat16()
-    acc, l, m = ops.paged_attention_slab(*args, page=64)
-    acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=64,
-                                               use_kernel=False)
-    torch.testing.assert_close(acc / l.clamp_min(1e-30)[..., None],
-                               acc_p / l_p.clamp_min(1e-30)[..., None],
-                               atol=2e-3, rtol=0)
-    torch.testing.assert_close(m, m_p, atol=2e-3, rtol=0)
+    cases = [_paged_case(1, B=4, H=12, KVH=4, D=128, page=64, nblk=16)]
+    for pages in ((64, 3, 1, 0), (1, 1, 1, 1)):
+        for H, KVH, D in ((12, 4, 128), (8, 8, 80)):
+            cases.append(_layout_case(2, pages, H=H, KVH=KVH, D=D, page=64,
+                                      nblk=80))
+    for case in cases:
+        args = [to_torch(x).cuda() for x in case]
+        for i in range(3):
+            args[i] = args[i].bfloat16()
+        acc, l, m = ops.paged_attention_slab(*args, page=64)
+        acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=64,
+                                                   use_kernel=False)
+        torch.testing.assert_close(acc / l.clamp_min(1e-30)[..., None],
+                                   acc_p / l_p.clamp_min(1e-30)[..., None],
+                                   atol=2e-3, rtol=0)
+        torch.testing.assert_close(m, m_p, atol=2e-3, rtol=0)
+        empty = args[5] == 0
+        assert (m[empty] == NEG_INF).all() and (l[empty] == 0).all()
     g = torch.Generator(device="cuda").manual_seed(0)
     for S, D, causal, prefix in ((64, 128, True, 0), (100, 128, True, 0),
                                  (1, 80, True, 0), (65, 80, True, 100),

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of the
-JAX package ``repro`` (not even its JAX-free modules), and neither do
-``chip_smoke.py`` and ``chip_ab.py``.  A CUDA kernel wrapper refuses
+JAX package ``repro`` (not even its JAX-free modules), and neither do the
+card scripts (``chip_smoke.py``, ``chip_ab.py``, ``chip_k4_logits.py``).  A
+CUDA kernel wrapper refuses
 CPU tensors instead of quietly running something else."""
 import pkgutil
 import re
@@ -65,11 +66,12 @@ def test_import_everything_loads_no_jax_or_reference():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]))
+    + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
+       ROOT / "chip_k4_logits.py"]))
 def test_source_has_no_forbidden_import(path):
-    """No source file of the port, and neither chip_smoke.py nor
-    chip_ab.py, names jax or the reference package in an import
-    statement."""
+    """No source file of the port, and none of the card scripts
+    (chip_smoke.py, chip_ab.py, chip_k4_logits.py), names jax or the
+    reference package in an import statement."""
     text = (ROOT / path).read_text()
     hits = FORBIDDEN.findall(text)
     assert not hits, f"{path}: {hits}"

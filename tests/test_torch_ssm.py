@@ -24,6 +24,7 @@ from repro.kernels.ssd_chunk import ssd_intra_chunk_pallas
 from repro.models import mamba2 as jm2
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ssd_chunk import HEADS_PER_CTA
 from repro_torch.models import mamba2 as tm2
 from repro_torch.weights import MAMBA2_PARAMS, init_params
 
@@ -68,6 +69,61 @@ def test_ssd_intra_chunk_never_forms_inf_above_the_diagonal():
     want = jm2._ssd_intra_chunk_jnp(*(jnp.asarray(a) for a in
                                       (xb, dtb, cum, Bm, Cm)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL)
+
+
+#: chip_smoke.py's K4 limit: max |diff| <= K4_RTOL x max |oracle|
+K4_RTOL = 1e-3
+
+
+def _bf16(a):
+    """The float32 values of ``a`` rounded to bf16 (the models' x / B / C)."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+def _k4_tensor_core_emulation(xb, dtb, cum, Bb, Cb, *, parts=3, tile=64):
+    """K4's bf16 path in plain torch: for each (i-tile, j-tile up to the
+    diagonal) the scores ``C_i B_j^T`` once per group of HEADS_PER_CTA heads,
+    then per head ``W = S exp(cum_i - cum_j) dt_j`` where j <= i, fed to
+    ``W x_j`` as ``parts`` bf16 parts (each the bf16 of what the earlier
+    ones leave out), each product summed in fp32."""
+    B, Q, H, P = xb.shape
+    y = torch.zeros((B, Q, H, P))
+    for i0 in range(0, Q, tile):
+        i1 = min(i0 + tile, Q)
+        rows = torch.arange(i0, i1)[:, None]
+        for j0 in range(0, i1, tile):
+            j1 = min(j0 + tile, Q)
+            low = torch.arange(j0, j1)[None, :] <= rows
+            for h0 in range(0, H, HEADS_PER_CTA):
+                S = Cb[:, i0:i1] @ Bb[:, j0:j1].transpose(1, 2)
+                for h in range(h0, min(h0 + HEADS_PER_CTA, H)):
+                    seg = cum[:, i0:i1, None, h] - cum[:, None, j0:j1, h]
+                    W = torch.where(low, S * torch.exp(seg), 0.0) * \
+                        dtb[:, None, j0:j1, h]
+                    x = xb[:, j0:j1, h]
+                    for _ in range(parts):
+                        part = W.bfloat16().float()
+                        y[:, i0:i1, h] += part @ x
+                        W = W - part
+    return y
+
+
+@pytest.mark.parametrize("Q,H,N", [(256, 6, 128), (250, 5, 64)])
+def test_ssd_intra_chunk_tensor_core_numerics_match_oracle(Q, H, N):
+    """The kernel's bf16 arithmetic (scores shared by a group of heads, W in
+    three bf16 parts) against the JAX oracle at a full chunk (Q = 256, N =
+    128) and a ragged one (Q = 250, a partial head group): within K4_RTOL x
+    max, and far closer than W as one or two bf16 parts."""
+    xb, dtb, cum, Bm, Cm = _chunk_case(Q + N, 2, Q, H, 64, N)
+    xb, Bm, Cm = _bf16(xb), _bf16(Bm), _bf16(Cm)
+    want = np.asarray(jm2._ssd_intra_chunk_jnp(
+        *(jnp.asarray(a) for a in (xb, dtb, cum, Bm, Cm))))
+    args = [to_torch(a) for a in (xb, dtb, cum, Bm, Cm)]
+    scale = float(np.abs(want).max())
+    err = [float(np.abs(_k4_tensor_core_emulation(*args, parts=n).numpy()
+                        - want).max()) for n in (3, 2, 1)]
+    assert err[0] <= K4_RTOL * scale
+    assert err[0] * 20 < err[1] and err[1] * 20 < err[2]
 
 
 def _scan_case(seed, B, S, H, P, N):
@@ -295,14 +351,18 @@ def test_init_params_ssm_is_seeded_and_scaled():
 @pytest.mark.cuda
 def test_cuda_ssd_intra_chunk_matches_plain_on_card():
     """K4 on the card against its plain version: bf16 and fp32 inputs, a
-    full chunk and ragged ones (max |diff| <= 1e-3 x max |plain|: fp32
-    sums in another order)."""
+    full chunk and ragged ones, state sizes 32 to 256, partial head groups
+    (max |diff| <= 1e-3 x max |plain|: fp32 sums in another order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    for Q, dtype in ((256, torch.bfloat16), (96, torch.bfloat16),
-                     (250, torch.float32)):
+    for Q, H, N, dtype in ((256, 6, 32, torch.bfloat16),
+                           (96, 6, 32, torch.bfloat16),
+                           (250, 6, 32, torch.float32),
+                           (256, 8, 128, torch.bfloat16),
+                           (256, 5, 64, torch.bfloat16),
+                           (250, 3, 256, torch.bfloat16)):
         xb, dtb, cum, Bm, Cm = (to_torch(a).cuda() for a in
-                                _chunk_case(Q, 2, Q, 6, 64, 32))
+                                _chunk_case(Q, 2, Q, H, 64, N))
         xb, Bm, Cm = (t.to(dtype) for t in (xb, Bm, Cm))
         got = ops.ssd_intra_chunk(xb, dtb, cum, Bm, Cm)
         want = ops.ssd_intra_chunk(xb, dtb, cum, Bm, Cm, use_kernel=False)
