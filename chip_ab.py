@@ -2,7 +2,7 @@
 """Time one checkout of the PyTorch port on one NVIDIA GPU, so that two
 checkouts (a parent and a change) can be compared on one card.
 
-    python3 chip_ab.py --src DIR --tag NAME
+    python3 chip_ab.py --src DIR --tag NAME [--rows k2,k4,k3,k5,e2e]
 
 Imports ``repro_torch`` from ``DIR`` (a checkout's ``src``), builds its
 kernels and prints one JSON line, every time through ``chip_smoke.py``'s
@@ -19,9 +19,9 @@ before each; ``device_ms``: the profiler's device time of the call):
   llama3.2-3b's heads (B=1, H=24, KVH=8, D=128, S=512) and zamba2-2.7b's
   batch prefill (B=4, H=KVH=32, D=80, S=384), causal: card ms, device ms
   and the SDPA call's card ms;
-- ``k5``: K5a, K5b and K6 at phase 6's axis-0 pools, m = 256 (with its
-  padding and write-after-read pair): card ms, device ms and the library
-  call's card ms;
+- ``k5``: K5a, K5b and K6 at phase 6's axis-0 pools, m = 8 and 256
+  (with their padding and write-after-read pair): card ms, device ms and
+  the library call's card ms;
 - ``e2e``: llama3.2-3b admitting chip_smoke's four prompts into a fresh
   serving engine, one steady serving round of those four and a fork, and
   zamba2-2.7b's batch prefill at full width (random weights, seed 0): the
@@ -50,6 +50,8 @@ def _args():
     ap.add_argument("--src", required=True,
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", required=True)
+    ap.add_argument("--rows", default="k2,k4,k3,k5,e2e",
+                    help="comma-separated rows to time (default: all)")
     return ap.parse_args()
 
 
@@ -111,31 +113,38 @@ def k4(torch, ops, scrub) -> dict:
 
 def k5(torch, ops, scrub) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 3)
-    rng = np.random.default_rng(cs.SEED + 3)
     shape = (cs.FLAT_NBLK, 64, 8, 128)
     pool, other = cs._bf16_pool(shape, gen), cs._bf16_pool(shape, gen)
-    ids = cs._copy_ids(rng, cs.FLAT_NBLK, cs.MAX_REQUESTS)
-    xids = cs._copy_ids(rng, cs.FLAT_NBLK, cs.MAX_REQUESTS,
-                        n_src=cs.FLAT_NBLK)
-    live, xlive = ids[ids[:, 1] >= 0], xids[xids[:, 1] >= 0]
-    t_src, t_dst, x_src, x_dst = (
-        torch.from_numpy(a[:, i].astype(np.int64)).cuda()
-        for a, i in ((live, 0), (live, 1), (xlive, 0), (xlive, 1)))
-    calls = {
-        "fpm_copy": (lambda: ops.fpm_copy(pool, ids, use_kernel=True),
-                     lambda: pool.index_copy_(0, t_dst,
-                                              pool.index_select(0, t_src))),
-        "fpm_copy_cross": (
-            lambda: ops.fpm_copy_cross(pool, other, xids, use_kernel=True),
-            lambda: pool.index_copy_(0, x_dst, other.index_select(0, x_src))),
-        "zero_init": (lambda: ops.meminit_zero(pool, ids[:, 1].copy(),
-                                               use_kernel=True),
-                      lambda: pool.index_fill_(0, t_dst, 0)),
-    }
-    return {name: dict(ms=cs.time_ms(fn, scrub=scrub),
-                       device_ms=cs.device_ms(fn, key="move_kernel"),
-                       library_ms=cs.time_ms(lib, scrub=scrub))
-            for name, (fn, lib) in calls.items()}
+    out = {}
+    for m in (8, cs.MAX_REQUESTS):
+        rng = np.random.default_rng(cs.SEED + 3)
+        ids = cs._copy_ids(rng, cs.FLAT_NBLK, m)
+        xids = cs._copy_ids(rng, cs.FLAT_NBLK, m, n_src=cs.FLAT_NBLK)
+        zids = ids[:, 1].copy()
+        live, xlive = ids[ids[:, 1] >= 0], xids[xids[:, 1] >= 0]
+        t_src, t_dst, x_src, x_dst = (
+            torch.from_numpy(a[:, i].astype(np.int64)).cuda()
+            for a, i in ((live, 0), (live, 1), (xlive, 0), (xlive, 1)))
+        calls = {
+            "fpm_copy": (
+                lambda: ops.fpm_copy(pool, ids, use_kernel=True),
+                lambda: pool.index_copy_(0, t_dst,
+                                         pool.index_select(0, t_src))),
+            "fpm_copy_cross": (
+                lambda: ops.fpm_copy_cross(pool, other, xids,
+                                           use_kernel=True),
+                lambda: pool.index_copy_(0, x_dst,
+                                         other.index_select(0, x_src))),
+            "zero_init": (lambda: ops.meminit_zero(pool, zids,
+                                                   use_kernel=True),
+                          lambda: pool.index_fill_(0, t_dst, 0)),
+        }
+        for name, (fn, lib) in calls.items():
+            out[f"{name}_m{m}"] = dict(
+                ms=cs.time_ms(fn, scrub=scrub),
+                device_ms=cs.device_ms(fn, key="move_kernel"),
+                library_ms=cs.time_ms(lib, scrub=scrub))
+    return out
 
 
 def _host_and_device(torch, run, setup=lambda: None) -> dict:
@@ -216,12 +225,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    out = {"tag": args.tag, "src": args.src, "smi": smi.stdout.strip(),
-           "k2": k2(torch, ops, scrub), "k4": k4(torch, ops, scrub),
-           "k3": k3(torch, ops, scrub), "k5": k5(torch, ops, scrub)}
+    rows = args.rows.split(",")
+    out = {"tag": args.tag, "src": args.src, "smi": smi.stdout.strip()}
+    for name, row in (("k2", k2), ("k4", k4), ("k3", k3), ("k5", k5)):
+        if name in rows:
+            out[name] = row(torch, ops, scrub)
     del scrub
     torch.cuda.empty_cache()
-    out["e2e"] = e2e(torch)
+    if "e2e" in rows:
+        out["e2e"] = e2e(torch)
     print(json.dumps(out))
     return 0
 

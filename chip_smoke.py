@@ -10,8 +10,9 @@ Phases (each raises on failure; the script then exits non-zero):
    port from ``src/repro_torch/csrc`` (nvcc, all sources in parallel),
    holds the design constants the CPU tests emulate (K2's split count,
    page and group limits, K4's heads per CTA) equal to the libraries' own,
-   and counts K3's and K4's tensor-core instructions (``HGMMA`` in
-   ``cuobjdump -sass``; none in either fails the run).
+   counts K3's and K4's tensor-core instructions (``HGMMA`` in
+   ``cuobjdump -sass``; none in either fails the run) and K5's and K6's
+   bulk copies (``UBLKCP``; none fails the run).
 2. K1, the fused command drain, against its plain version at the serving
    pool shapes (four bf16 pools ``(28, nblk, 64, 8, 128)`` and the staging
    ring): every opcode, NOP padding, non-adjacent write-after-read pairs
@@ -32,13 +33,24 @@ Phases (each raises on failure; the script then exits non-zero):
    kernel on that run, finite logits, and the first round's logits against
    the same admissions and round run through the plain versions on the card;
    profiles three steady rounds and the four admissions into a fresh engine.
-6. K5a (FPM copy), K5b (pool-to-pool copy) and K6 (BuZ zero-init) against
-   their plain versions, bitwise, at full width: flat pools of 14,336
-   llama3.2-3b K/V pages ``(14336, 64, 8, 128)`` bf16 and phase 2's
-   layer-stacked ``(28, 512, 64, 8, 128)``, m = 8 and 256 blocks per call,
-   ``-1`` padding and an in-call write-after-read pair; kernel, plain and
-   library-call times beside the byte bound, and K5a's host work per call
-   split into its stages (schedule, descriptor, upload, launch).
+6. K5a (FPM copy), K5b (pool-to-pool copy) and K6 (BuZ zero-init).  First
+   the library's host schedule (``rc_block_plan``) against the Python
+   statement of it (``_live_pairs``, ``pair_waves``, ``launch_rows``,
+   ``chunking``) on 1,000 seeded random tables of at most 264 rows (WAR
+   chains, padding, sources out of range, RAW / WAW pairs, int32 and int64
+   ids), each also run through the kernels over a small pool against the
+   plain versions, bitwise, or refused with the Python message; the design
+   constants against the library's.  Then, bitwise at full width: flat
+   pools of 14,336 llama3.2-3b K/V pages ``(14336, 64, 8, 128)`` bf16 and
+   phase 2's layer-stacked ``(28, 512, 64, 8, 128)``, m = 8 and 256 blocks
+   per call with ``-1`` padding and an in-call write-after-read pair, WAR
+   chains of depth 4 (in one pool, and K5b on one tensor), a call of 1,000
+   rows (above the launch parameters' room), and unaligned pages at
+   float32 / bfloat16 / int32 plus a base 4 bytes off (the word loop); one
+   launch per call.  Kernel, device-only, plain and library-call times
+   beside the byte bound; K5a's host work per call in stages (checks, the
+   library's schedule, ``block_move``, the whole wrapper); a profile of one
+   K5a and one K6 call (no host-to-device copy, no pinned allocation).
 7. the fused drain against the per-mechanism fan-out: one fixed op script
    (``launch/mechanisms.py ab_program``: every mechanism, 419 rows) through
    two engines over identical full-width flat pools; pools bitwise equal, 1
@@ -54,7 +66,8 @@ Phases (each raises on failure; the script then exits non-zero):
    at mamba2-780m's (H = 48, N = 128) and zamba2-2.7b's (H = 80, N = 64)
    widths, and ragged single chunks of Q = 250 and 96; max |diff| <=
    ``K4_RTOL`` x max |plain|; kernel, device-only and plain times beside
-   the bound.  Then K2 (B = 4, H = KVH = 32) and K3 (H = KVH = 32; B = 4 at
+   the bound; and the edge cases ``K4_EDGES`` (H = 5 and 3, N = 32 and
+   256, Q = 96 and 250, fp32 inputs).  Then K2 (B = 4, H = KVH = 32) and K3 (H = KVH = 32; B = 4 at
    S = 384, phase 11's batch prefill, and B = 1 at S = 250 and 512) at
    zamba2's head dim 80.
 10. mamba2-780m at full width (48 layers, bf16, random weights from seed
@@ -181,6 +194,15 @@ def phase_device():
             + ", ".join(f"{n} {op}" for op, n in count.items()))
         if not count["HGMMA"]:
             raise AssertionError(f"{kernel} has no wgmma (HGMMA) instruction")
+    for kernel, lib in (("K5", "fpm_copy"), ("K6", "zero_init")):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(build.library_path(lib))],
+            capture_output=True, text=True, check=True).stdout.splitlines()
+        n = sum("UBLKCP" in line for line in sass)
+        log(f"[build] {kernel} SASS (cuobjdump -sass lib{lib}.so): {n} "
+            "UBLKCP (bulk copy)")
+        if not n:
+            raise AssertionError(f"{kernel} has no bulk copy (UBLKCP)")
     return smi
 
 
@@ -631,41 +653,228 @@ def _bitwise_equal(a, b) -> bool:
 def _block_move_stages(pool, ids, scrub, reps: int = 20) -> dict:
     """K5a's host work per call at axis 0, stage by stage on the host clock
     (median of ``reps`` calls, each behind a queued ``scrub`` fill): the
-    calls ``fpm_copy_cuda`` makes, in its order (live rows and waves, the
-    pinned descriptor, its non-blocking upload, the launch), and then one
-    whole call of the wrapper."""
+    wrapper's checks (pool geometry, the ids as a host array), the
+    library's schedule alone (``rc_block_plan`` through ``plan``, its
+    Python call included), ``block_move`` (the checks and the one C call:
+    schedule and launch), and one whole call of the wrapper."""
     from repro_torch.kernels import fpm_copy as fc
     from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_dispatch import block_geometry
     n = pool.shape[0]
-    names = ("schedule", "descriptor", "upload", "launch", "wrapper")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    names = ("checks", "schedule", "block_move", "wrapper")
     times = {k: [] for k in names}
     for _ in range(reps):
         scrub.zero_()
         t0 = time.perf_counter()
-        rows = fc._live_pairs(ids, n, n)
-        waves = fc.pair_waves(rows)
+        layers, page_bytes, word = block_geometry((pool, pool), 0)
+        fc.id_array(ids, 2)
         t1 = time.perf_counter()
-        host, items = fc.pinned_descriptor(pool, pool, rows, waves,
-                                           block_axis=0)
+        fc.plan(ids, 2, n, n, same_pool=True, layers=layers,
+                page_bytes=page_bytes, bulk=word == 16, sms=sms)
         t2 = time.perf_counter()
-        desc = host.to(pool.device, non_blocking=True)
+        scrub.zero_()
         t3 = time.perf_counter()
-        fc.launch_descriptor("rc_fpm_copy", desc, items)
+        fc.block_move("rc_fpm_copy", pool, pool, ids, block_axis=0)
         t4 = time.perf_counter()
         scrub.zero_()
         t5 = time.perf_counter()
         ops.fpm_copy(pool, ids, use_kernel=True)
         t6 = time.perf_counter()
         torch.cuda.synchronize()
-        for k, a, b in zip(names, (t0, t1, t2, t3, t5), (t1, t2, t3, t4, t6)):
+        for k, a, b in zip(names, (t0, t1, t3, t5), (t1, t2, t4, t6)):
             times[k].append((b - a) * 1e3)
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
-def phase_copy_kernels(scrub):
-    """Phase 6: K5a, K5b, K6 against their plain versions; timings and
-    K5a's host stages."""
+#: tables of phase 6's schedule check, and the most rows of one
+SCHEDULE_TABLES, SCHEDULE_ROWS = 1000, 264
+
+
+def _random_table(rng, nblk, m, same_pool):
+    """One ``(m, 2)`` ``[src, dst]`` table of the schedule check: WAR
+    chains (a row rewrites an earlier row's source), padding, sources out
+    of range both ways, and with probability 0.1 a RAW or WAW pair."""
+    rows, written, srcs = [], set(), []
+    for _ in range(m):
+        r = rng.random()
+        if r < 0.15:
+            rows.append((int(rng.integers(-3, nblk + 3)), -1))
+            continue
+        s = int(rng.integers(-2, nblk + 2)) if r < 0.2 else \
+            int(rng.integers(0, nblk))
+        if srcs and rng.random() < 0.4:
+            d = srcs[int(rng.integers(0, len(srcs)))]   # WAR: chains
+        else:
+            d = int(rng.integers(0, nblk))
+        cs = min(max(s, 0), nblk - 1)
+        if d in written or (same_pool and cs in written):
+            continue
+        rows.append((s, d))
+        written.add(d)
+        srcs.append(cs)
+    if rows and rng.random() < 0.1:       # break the contract on purpose
+        live = [r for r in rows if r[1] >= 0]
+        if live:
+            a = live[int(rng.integers(0, len(live)))]
+            rows.append((a[1], int(rng.integers(0, nblk))) if same_pool
+                        and rng.random() < 0.5 else (0, a[1]))
+    dtype = np.int32 if rng.random() < 0.5 else np.int64
+    return np.asarray(rows, dtype).reshape(-1, 2)
+
+
+def _python_schedule(ids, nblk, same_pool):
+    """The Python statement of the schedule: (rows, waves) or the
+    ValueError text."""
+    from repro_torch.kernels import fpm_copy as fc
+    rows = fc._live_pairs(ids, nblk, nblk)
+    try:
+        return rows, fc.pair_waves(rows, same_pool=same_pool)
+    except ValueError as e:
+        return str(e), None
+
+
+def phase_schedule():
+    """Phase 6a: the library's schedule (``rc_block_plan``) against
+    ``_live_pairs`` / ``pair_waves`` / ``launch_rows`` / ``chunking`` on
+    :data:`SCHEDULE_TABLES` seeded random tables of at most
+    :data:`SCHEDULE_ROWS` rows, in-pool and pool-to-pool, int32 and int64
+    ids, then each table through the kernel over a small bf16 pool (one
+    tensor, or two for K5b) against the plain version, bitwise, or the
+    same ``ValueError`` text from the wrapper; K6's width-1 ids likewise.
+    The design constants against the library's."""
+    from repro_torch.kernels import fpm_copy as fc
     from repro_torch.kernels import ops
+    consts = fc.library_constants()
+    for name, value in consts.items():
+        if name != "param_bytes" and getattr(fc, name) != value:
+            raise AssertionError(f"fpm_copy.{name} = {getattr(fc, name)}, "
+                                 f"library {value}")
+    log(f"[schedule] constants equal the library's: {consts}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    nblk, page = 600, (16, 128)                      # 4 KiB bf16 pages
+    pool = _bf16_pool((nblk,) + page, gen)
+    other = _bf16_pool((nblk,) + page, gen)
+    counts = dict(tables=0, refused=0, multi_wave=0, deepest=0, rows=0)
+    for t in range(SCHEDULE_TABLES):
+        same = t % 3 != 2
+        m = int(rng.integers(1, SCHEDULE_ROWS + 1))
+        ids = _random_table(rng, nblk, m, same)
+        want_rows, waves = _python_schedule(ids, nblk, same)
+        code, rows, out = fc.plan(ids, 2, nblk, nblk, same_pool=same,
+                                  layers=1, page_bytes=4096, bulk=True,
+                                  sms=sms)
+        counts["tables"] += 1
+        if waves is None:
+            counts["refused"] += 1
+            if code not in (fc.RAW, fc.WAW):
+                raise AssertionError(f"table {t}: Python refused "
+                                     f"({want_rows}), library code {code}")
+            try:
+                (ops.fpm_copy(pool, ids, use_kernel=True) if same else
+                 ops.fpm_copy_cross(pool, other, ids, use_kernel=True))
+            except ValueError as e:
+                if str(e) != want_rows:
+                    raise AssertionError(f"table {t}: message {e!r}, "
+                                         f"Python {want_rows!r}")
+            else:
+                raise AssertionError(f"table {t}: the wrapper did not "
+                                     "refuse")
+            continue
+        want = fc.launch_rows(want_rows, waves)
+        plan = fc.chunking(len(want), 1, 4096, bulk=True, zero=False,
+                           sms=sms)
+        got_plan = (int(out[5]), int(out[3]), int(out[4]))
+        if code or not np.array_equal(rows, want) or \
+                int(out[6]) != (int(waves.max()) + 1 if len(waves) else 0) \
+                or (len(want) and got_plan != (plan[0],) + plan[2:]):
+            raise AssertionError(f"table {t}: library schedule differs "
+                                 f"(code {code}, out {out.tolist()}, plan "
+                                 f"{plan})")
+        counts["rows"] += len(want)
+        if len(waves) and waves.max() > 0:
+            counts["multi_wave"] += 1
+            counts["deepest"] = max(counts["deepest"], int(waves.max()) + 1)
+        for target in ("pool", "zero"):
+            if target == "zero":
+                zids = ids[:, 1].copy()
+                zw = ops.meminit_zero(pool.clone(), zids, use_kernel=False)
+                zg = ops.meminit_zero(pool.clone(), zids, use_kernel=True)
+            elif same:
+                zw = ops.fpm_copy(pool.clone(), ids, use_kernel=False)
+                zg = ops.fpm_copy(pool.clone(), ids, use_kernel=True)
+            else:
+                zw = ops.fpm_copy_cross(pool.clone(), other, ids,
+                                        use_kernel=False)
+                zg = ops.fpm_copy_cross(pool.clone(), other, ids,
+                                        use_kernel=True)
+            if not _bitwise_equal(zg, zw):
+                raise AssertionError(f"table {t} ({target}, same pool "
+                                     f"{same}): the kernel's pool differs "
+                                     "from the plain version's")
+    torch.cuda.synchronize()
+    log(f"[schedule] {counts['tables']} tables (<= {SCHEDULE_ROWS} rows, "
+        f"{counts['rows']} live rows): library schedule equal to "
+        f"pair_waves / launch_rows / chunking; {counts['refused']} "
+        f"refused with the Python message; {counts['multi_wave']} "
+        f"multi-wave (up to {counts['deepest']} waves); pools bitwise "
+        "equal to the plain versions (K5a, K5b, K6)")
+
+
+def _chain_ids(rng, nblk, chains, depth):
+    """``chains`` WAR chains of ``depth`` rows each, interleaved: row j of
+    a chain writes row j-1's source, so the chain takes ``depth`` waves."""
+    blocks = rng.permutation(nblk)[:chains * (depth + 1)]
+    rows = []
+    for j in range(depth):
+        for c in range(chains):
+            b = blocks[c * (depth + 1):(c + 1) * (depth + 1)]
+            rows.append((b[j + 1], b[j]))
+    return np.asarray(rows, np.int32)
+
+
+def _offset_copy(x):
+    """A copy of ``x`` whose data starts 4 bytes past an aligned address."""
+    raw = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = raw[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _profile_one_call(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its device events and the
+    CUDA runtime calls it made; a host-to-device copy or a pinned
+    allocation fails the run."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device, runtime = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device[e.key[:40]] = e.count
+        elif e.key.startswith("cuda"):
+            runtime[e.key] = e.count
+    bad = [n for n in list(device) + list(runtime)
+           if "HtoD" in n or "Memcpy" in n or "HostAlloc" in n
+           or "MallocHost" in n or "HostRegister" in n]
+    return dict(device=device, runtime=runtime, bad=bad)
+
+
+def phase_copy_kernels(scrub):
+    """Phase 6: K5a, K5b, K6 against their plain versions (bitwise) at
+    full width on both block axes, m = 8 and 256 with padding and a WAR
+    pair, WAR chains of depth 4 (one pool, and K5b on one tensor), one call
+    above the launch parameters' room, and unaligned-page pools; timings,
+    K5a's host stages and a profile of one call."""
+    from repro_torch.kernels import fpm_copy as fc
+    from repro_torch.kernels import ops
+    phase_schedule()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rng = np.random.default_rng(SEED + 3)
     page_bytes = 64 * 8 * 128 * 2
@@ -673,7 +882,24 @@ def phase_copy_kernels(scrub):
               1: (28, MAX_SEQS * MAX_BLOCKS_PER_SEQ, 64, 8, 128)}
     pools = {ba: (_bf16_pool(shp, gen), _bf16_pool(shp, gen))
              for ba, shp in shapes.items()}
+    counters = ops.KERNEL_COUNTERS
     rows = {}
+
+    def held(name, fn, pool, what, fresh=torch.clone):
+        """fn(pool, use_kernel) through the kernel against the plain
+        version on copies (``fresh``) of ``pool``, bitwise, and ONE launch
+        of the kernel."""
+        want = fn(fresh(pool), False)
+        before = counters[name].n
+        got = fn(fresh(pool), True)
+        torch.cuda.synchronize()
+        if not _bitwise_equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"({what})")
+        if counters[name].n - before != 1:
+            raise AssertionError(f"{name}: {counters[name].n - before} "
+                                 f"launches ({what})")
+
     for ba, (a, b) in pools.items():
         nblk = a.shape[ba]
         L = a.shape[0] if ba == 1 else 1
@@ -705,13 +931,8 @@ def phase_copy_kernels(scrub):
                     lambda p: p.index_fill_(ba, t_dst, 0), 1),
             }
             for name, (fn, lib, passes) in calls.items():
-                want = fn(a.clone(), False)
-                got = fn(a.clone(), True)
-                torch.cuda.synchronize()
-                if not _bitwise_equal(got, want):
-                    raise AssertionError(f"{name} differs from its plain "
-                                         f"version (axis {ba}, m={m})")
-                del want, got
+                held(name, fn, a, f"axis {ba}, m={m}")
+                out = fc.last_out.tolist()
                 ms = time_ms(lambda: fn(a, True), scrub=scrub)
                 plain_ms = time_ms(lambda: fn(a, False), reps=5,
                                    scrub=scrub)
@@ -720,10 +941,12 @@ def phase_copy_kernels(scrub):
                 nbytes = passes * m * L * page_bytes
                 bound = nbytes / HBM_BYTES_PER_S * 1e3
                 log(f"[{name}] axis {ba} m={m}: bitwise equal to plain "
-                    f"(padding, WAR pair); kernel {ms:.4f} ms (device "
-                    f"only {_fmt_ms(dev)}), plain {plain_ms:.4f} ms, "
-                    f"library {lib_ms:.4f} ms, bound {bound:.4f} ms "
-                    f"({nbytes} bytes)")
+                    f"(padding, WAR pair), 1 launch (chunk {out[5]} B, "
+                    f"{out[3]} items, grid {out[4]}, {out[6]} waves, bulk "
+                    f"{out[7]}); kernel {ms:.4f} ms (device only "
+                    f"{_fmt_ms(dev)}), plain {plain_ms:.4f} ms, library "
+                    f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} "
+                    "bytes)")
                 rows[(name, ba, m)] = dict(ms=ms, device_ms=dev,
                                            plain_ms=plain_ms,
                                            library_ms=lib_ms,
@@ -733,17 +956,69 @@ def phase_copy_kernels(scrub):
                 log("[fpm_copy] axis 0 m=256 host ms per call (median of "
                     "20): " + ", ".join(f"{k} {v:.4f}"
                                         for k, v in st.items()))
-        # pool-to-pool copy within ONE pool: its WAR pair is ordered too
+                trace = _profile_one_call(
+                    lambda: ops.fpm_copy(a, ids, use_kernel=True))
+                ztrace = _profile_one_call(
+                    lambda: ops.meminit_zero(a, zids, use_kernel=True))
+                for what, tr in (("fpm_copy", trace), ("zero_init", ztrace)):
+                    log(f"[{what}] profile of one m=256 call: device "
+                        f"events {tr['device']}, runtime calls "
+                        f"{tr['runtime']}; host-to-device copies or pinned "
+                        f"allocations: {tr['bad'] or 'none'}")
+                    if tr["bad"]:
+                        raise AssertionError(f"{what} copied to the device "
+                                             f"or pinned memory: {tr['bad']}")
+        # WAR chains of depth 4 (4 waves) within one pool, K5a and K5b on
+        # one tensor
+        chain = _chain_ids(rng, nblk, 64, 4)
+        held("fpm_copy", lambda p, k: ops.fpm_copy(
+            p, chain, block_axis=ba, use_kernel=k), a,
+            f"axis {ba}, 64 chains of depth 4")
+        waves = int(fc.last_out[6])
+        held("fpm_copy_cross", lambda p, k: ops.fpm_copy_cross(
+            p, p, chain, block_axis=ba, use_kernel=k), a,
+            f"axis {ba}, one pool, chains")
+        # the pool-to-pool copy within ONE pool with phase 6's WAR pair
         ids = _copy_ids(rng, nblk, 8)
-        want = ops.fpm_copy_cross(a.clone(), a, ids, block_axis=ba,
-                                  use_kernel=False)
-        c = a.clone()
-        got = ops.fpm_copy_cross(c, c, ids, block_axis=ba, use_kernel=True)
-        torch.cuda.synchronize()
-        if not _bitwise_equal(got, want):
-            raise AssertionError(f"fpm_copy_cross within one pool differs "
-                                 f"(axis {ba})")
-        del want, got, c
+        held("fpm_copy_cross", lambda p, k: ops.fpm_copy_cross(
+            p, p, ids, block_axis=ba, use_kernel=k), a, f"axis {ba}, one pool")
+        log(f"[fpm_copy] axis {ba}: 64 WAR chains of depth 4 ({waves} "
+            "waves) bitwise equal to plain, K5a and K5b on one tensor, one "
+            "launch each")
+    # above the launch parameters' room: the rows go through device memory
+    a = pools[0][0]
+    big = np.stack([np.arange(1000), np.arange(1000, 2000)], 1)[
+        rng.permutation(1000)].astype(np.int32)
+    held("fpm_copy", lambda p, k: ops.fpm_copy(p, big, use_kernel=k), a,
+         f"{len(big)} rows, above {fc.ROW_CAPACITY}")
+    held("zero_init", lambda p, k: ops.meminit_zero(
+        p, big[:, 1].copy(), use_kernel=k), a, "1000 ids")
+    log(f"[fpm_copy] {len(big)} live rows (above the parameters' "
+        f"{fc.ROW_CAPACITY}): bitwise equal to plain, one launch each for "
+        "K5a and K6")
+    # unaligned pages (the word loop) at the CPU tests' dtypes, and an
+    # aligned page size on a base 4 bytes off
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        p = torch.randn((4096, 3, 17), generator=gen, device="cuda")
+        p = (p * 100).to(dtype)
+        ids = _copy_ids(rng, 4096, MAX_REQUESTS)
+        for name, fn in (("fpm_copy", lambda q, k: ops.fpm_copy(
+                              q, ids, use_kernel=k)),
+                         ("zero_init", lambda q, k: ops.meminit_zero(
+                             q, ids[:, 1].copy(), use_kernel=k))):
+            held(name, fn, p, f"{dtype} pages of {p[0].nbytes} bytes")
+            if fc.last_out[7]:
+                raise AssertionError("an unaligned page took the bulk path")
+    off = torch.randn((4096, 8, 128), generator=gen, device="cuda")
+    ids = _copy_ids(rng, 4096, MAX_REQUESTS)
+    held("fpm_copy", lambda q, k: ops.fpm_copy(q, ids, use_kernel=k), off,
+         "base 4 bytes off", fresh=_offset_copy)
+    if fc.last_out[7]:
+        raise AssertionError("a base 4 bytes off took the bulk path")
+    log("[fpm_copy] unaligned pages (float32 / bfloat16 / int32, 204 / "
+        "102 / 204 bytes) and a base 4 bytes off: K5a and K6 bitwise equal "
+        "to plain through the word loop")
+    del off
     sources = {"fpm_copy": ("fpm_copy.cu", "src/repro/kernels/fpm_copy.py:60"),
                "fpm_copy_cross": ("fpm_copy.cu",
                                   "src/repro/kernels/fpm_copy.py:101"),
@@ -886,6 +1161,12 @@ K4_RTOL = 1e-3
 K4_CASES = (("mamba2-780m", 8, 256, 48, 128), ("zamba2-2.7b", 8, 256, 80, 64),
             ("mamba2-780m", 1, 250, 48, 128), ("mamba2-780m", 1, 96, 48, 128),
             ("zamba2-2.7b", 1, 250, 80, 64))
+#: K4 edge cases (Q, H, N, dtype of x / B / C) on 2 chunk rows: partial head
+#: groups (H = 5 and 3 for a kernel that takes two heads per CTA), state
+#: sizes 32 and 256, ragged Q = 96 and 250, and fp32 inputs
+K4_EDGES = ((256, 6, 32, torch.bfloat16), (96, 6, 32, torch.bfloat16),
+            (250, 6, 32, torch.float32), (256, 8, 128, torch.bfloat16),
+            (256, 5, 64, torch.bfloat16), (250, 3, 256, torch.bfloat16))
 #: phase 10/11: a batch of 4 prompts of 384 tokens (2 chunks of 256), one
 #: prompt of 250 (one ragged chunk), greedy decode steps on the batch
 SSM_BATCH, SSM_PROMPT, SSM_RAGGED, SSM_STEPS = 4, 384, 250, 16
@@ -909,6 +1190,23 @@ def phase_k4(scrub):
     """Phase 9a: K4 against its plain version at the models' shapes."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    edge = []
+    for Q, H, N, dtype in K4_EDGES:
+        x, dt, cum, Bm, Cm = _ssd_inputs(gen, 2, Q, H, N)
+        x, Bm, Cm = (t.to(dtype) for t in (x, Bm, Cm))
+        got = ops.ssd_intra_chunk(x, dt, cum, Bm, Cm, use_kernel=True)
+        want = ops.ssd_intra_chunk(x, dt, cum, Bm, Cm, use_kernel=False)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        edge.append(err)
+        if not (bool(torch.isfinite(got).all()) and err <= K4_RTOL * scale):
+            raise AssertionError(f"K4 vs plain at Q={Q} H={H} N={N} {dtype}:"
+                                 f" max err {err} vs {K4_RTOL} x {scale}")
+    log(f"[K4] edge cases (Q, H, N, dtype) on 2 chunk rows: "
+        + ", ".join(f"({Q}, {H}, {N}, {str(d)[6:]}) {e:.2e}"
+                    for (Q, H, N, d), e in zip(K4_EDGES, edge))
+        + f" (each within {K4_RTOL} x max |plain|)")
     rows = {}
     for arch, Bc, Q, H, N in K4_CASES:
         args = _ssd_inputs(gen, Bc, Q, H, N)
@@ -950,7 +1248,8 @@ def phase_k4(scrub):
     return dict(name="ssd_intra_chunk",
                 source="src/repro_torch/csrc/ssd_chunk.cu",
                 replaces="src/repro/kernels/ssd_chunk.py:47",
-                max_abs_err=max(x["abs_err"] for x in rows.values()),
+                max_abs_err=max([x["abs_err"] for x in rows.values()]
+                                + edge),
                 ms=r["ms"], device_ms=r["dev"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound"], bound_by=r["by"], library_ms=None)
 

@@ -161,6 +161,13 @@ class CommandQueue:
         self.stats.enqueued += 1
         self.stats.max_pending = max(self.stats.max_pending, len(self._cmds))
 
+    def enqueue_copy(self, opcode: int,
+                     pairs: Sequence[Tuple[int, int]]) -> None:
+        """Enqueue one copy command per ``(src, dst)`` pair under
+        ``opcode``."""
+        for s, d in pairs:
+            self.enqueue(opcode, s, d)
+
     def enqueue_zero(self, ids: Sequence[int]) -> None:
         """Enqueue a BuZ zero-init (reserved-zero-row broadcast) per id."""
         for b in ids:

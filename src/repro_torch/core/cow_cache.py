@@ -16,7 +16,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.allocator import SubarrayAllocator
+from repro_torch.core.allocator import OutOfBlocks, SubarrayAllocator
 from repro_torch.core.rowclone import RowCloneEngine
 
 
@@ -72,20 +72,41 @@ class PagedCoWCache:
         self._dirty = True
         return sid
 
-    def fork(self, parent_id: int, n_children: int = 1) -> List[int]:
+    def fork(self, parent_id: int, n_children: int = 1,
+             eager_copy: bool = False) -> List[int]:
         """CoW fork: children share every parent block (refcount bump —
-        zero bytes move now)."""
+        zero bytes move now).
+
+        ``eager_copy=True`` clones every block instead (children that
+        diverge at once): each destination is allocated in its source's
+        slab (FPM placement) and the copies of all children drain as ONE
+        launch at the end of the fork.  Out of blocks, a child's partial
+        clone is freed and :class:`OutOfBlocks` raised (children created
+        before it stand)."""
         parent = self.seqs[parent_id]
         out = []
-        for _ in range(n_children):
-            slot = self._take_slot()
-            sid = self._next_id
-            self._next_id += 1
-            self.alloc.share(parent.blocks)
-            self.seqs[sid] = Sequence(sid, parent.length, list(parent.blocks),
-                                      parent.slab_home)
-            self._slot_of[sid] = slot
-            out.append(sid)
+        with self.engine.batch():
+            for _ in range(n_children):
+                slot = self._take_slot()
+                sid = self._next_id
+                self._next_id += 1
+                if eager_copy and parent.blocks:
+                    blocks = []
+                    try:
+                        for b in parent.blocks:
+                            blocks.append(self.alloc.alloc_near(b))
+                    except OutOfBlocks:
+                        self.alloc.free(blocks)
+                        self._free_slots.append(slot)
+                        raise
+                    self.engine.memcopy(list(zip(parent.blocks, blocks)))
+                else:
+                    self.alloc.share(parent.blocks)
+                    blocks = list(parent.blocks)
+                self.seqs[sid] = Sequence(sid, parent.length, blocks,
+                                          parent.slab_home)
+                self._slot_of[sid] = slot
+                out.append(sid)
         self._dirty = True
         return out
 

@@ -474,10 +474,13 @@ class RowCloneEngine:
             return int(b.block)
         return int(b)
 
-    def memcopy(self, pairs: Sequence[Tuple[object, object]]
-                ) -> Dict[str, int]:
+    def memcopy(self, pairs: Sequence[Tuple[object, object]],
+                dst_is_fresh: bool = False) -> Dict[str, int]:
         """Copy block src -> dst in every primary pool, for each pair.
-        Returns the count per mechanism."""
+        Returns the count per mechanism.  ``dst_is_fresh`` (destinations
+        never written, e.g. CoW targets) is accepted as the reference
+        accepts it and changes nothing: the reference's ZI aliasing of
+        fresh destinations lives in the CoW cache's fork."""
         counts = {"fpm": 0, "psm": 0, "baseline": 0}
         bb = self._block_bytes()
         for s, d in pairs:

@@ -125,9 +125,9 @@ class CommandStream:
             eng._cur_queue, eng.deferred = prev_q, prev_d
 
     # the engine's verbs, routed onto this stream --------------------------
-    def memcopy(self, pairs):
+    def memcopy(self, pairs, dst_is_fresh: bool = False):
         with self.capture():
-            return self.engine.memcopy(pairs)
+            return self.engine.memcopy(pairs, dst_is_fresh=dst_is_fresh)
 
     def memcopy_cross(self, pairs):
         with self.capture():

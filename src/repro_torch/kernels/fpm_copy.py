@@ -1,5 +1,5 @@
-"""K5a / K5b — FPM block copy, in-pool and pool-to-pool: the host wave
-schedule and the CUDA wrappers.
+"""K5a / K5b — FPM block copy, in-pool and pool-to-pool: the wave schedule
+and the CUDA wrappers.
 
 Replaces the TPU kernels of ``repro/kernels/fpm_copy.py``:
 ``_fpm_copy_kernel`` (``fpm_copy_pallas``, the ``pallas_call`` at :60) and
@@ -11,16 +11,20 @@ plain versions are :func:`repro_torch.kernels.ref.fpm_copy` and
 Bound on the card: bytes (each pair reads and writes one block: L pages of
 a layer-stacked pool).  Sources see the pre-call state: the queue may put
 a write-after-read pair into one call, and the GPU runs pairs
-concurrently, so :func:`pair_waves` puts each writer in a later wave than
-every earlier reader of its block, and the kernel gates the waves inside
-ONE launch.  A RAW or WAW pair (which the command queue never flushes)
-raises rather than copy differently from the plain version.
+concurrently, so each writer goes in a later wave than every earlier
+reader of its block, and the kernel gates the waves inside ONE launch.  A
+RAW or WAW pair (which the command queue never flushes) raises rather
+than copy differently from the plain version.
 
-At the fan-out's sizes the device moves a call's blocks in tens of
-microseconds, so the wrapper's host work decides the call's time: the
-schedule is one table lookup per pair, :func:`block_descriptor` writes the
-kernel's words straight into pinned memory, and the upload does not
-block (a copy from pageable memory would wait for all queued work).
+At the fan-out's sizes the device moves a call's blocks in microseconds,
+so the host work decides the call's time.  The wrapper makes ONE C call:
+the library drops padding, clips sources, assigns waves, sorts the rows
+and passes them to the kernel as launch parameters, without a device
+allocation or a host-to-device copy (up to :data:`ROW_CAPACITY` live
+rows).  :func:`_live_pairs` and :func:`pair_waves` state that schedule in
+Python, :func:`launch_rows` and :func:`chunking` the launch's layout; the
+CPU tests pin them, and ``chip_smoke.py`` holds the library's schedule
+against them.
 """
 from __future__ import annotations
 
@@ -31,8 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
-from repro_torch.kernels.fused_dispatch import (CHUNK_BYTES, CTAS_PER_SM,
-                                                block_geometry)
+from repro_torch.kernels.fused_dispatch import block_geometry
 
 #: launches of the in-pool copy kernel (K5a)
 COUNTER = LaunchCounter("fpm_copy")
@@ -83,12 +86,8 @@ def pair_waves(pairs, same_pool: bool = True) -> np.ndarray:
 
 def host_ids(ids, width: int) -> np.ndarray:
     """Block ids (numpy, list or tensor) as an ``(m, width)`` int64 array
-    on the host: the wrappers schedule rows there.  A tensor on the card
-    costs a copy that waits for the work queued before it; the engine's
-    fan-out passes numpy and never takes that branch."""
-    if isinstance(ids, torch.Tensor):
-        ids = ids.cpu().numpy()
-    return np.asarray(ids, np.int64).reshape(-1, width)
+    on the host, for the Python schedule (:func:`id_array`)."""
+    return id_array(ids, width).astype(np.int64, copy=False)
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,94 +95,196 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# design constants of csrc/block_move.cuh (``chip_smoke.py`` checks them
+# against the library's ``rc_block_move_constants``)
+#: live rows the launch parameters carry; above it the rows go through a
+#: device buffer (the parameters stay under 4 KB)
+ROW_CAPACITY = 320
+#: chunk buffers of K5's shared-memory ring
+STAGES = 4
+#: chunk bytes of the bulk path: at least, at most
+MIN_CHUNK, MAX_CHUNK = 4 * 1024, 32 * 1024
+#: work items per SM the bulk path's chunk size aims at
+ITEMS_PER_SM = 2
+#: resident CTAs per SM the grid is sized for, and the shared memory an SM
+#: lends them
+MAX_CTAS_PER_SM, SMEM_PER_SM = 8, 227 * 1024
+#: the library's return codes for a refused pair and a missing row buffer
+RAW, WAW, NO_ROW_BUFFER = -1, -2, -3
+#: words of the ``out`` array a C entry fills: live rows, refused pair (2),
+#: work items, grid, chunk bytes, waves, bulk path
+OUT_WORDS = 8
+
+_SIGNATURE = {
+    "rc_fpm_copy": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p],
+    "rc_zero_init": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p],
+    "rc_block_plan": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(entry: str):
-    """The C entry (``rc_fpm_copy`` or ``rc_zero_init``), its argument types
-    set once when the library loads."""
-    lib = library("fpm_copy" if entry == "rc_fpm_copy" else "zero_init")
+    """A C entry of ``csrc/fpm_copy.cu`` or ``csrc/zero_init.cu``, its
+    argument types set once when the library loads."""
+    lib = library("zero_init" if entry == "rc_zero_init" else "fpm_copy")
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = _SIGNATURE[entry]
     fn.restype = ctypes.c_int
     return fn
 
 
-def descriptor_words(n_rows: int, n_waves: int) -> int:
-    """Length of :func:`block_descriptor`'s array."""
-    return 11 + 2 * n_rows + n_waves + 1 + 2
+def library_constants() -> dict:
+    """The design constants as the library has them (needs the card)."""
+    fn = library("fpm_copy").rc_block_move_constants
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = None
+    out = np.zeros(8, np.int64)
+    fn(out.ctypes.data)
+    names = ("ROW_CAPACITY", "STAGES", "MIN_CHUNK", "MAX_CHUNK",
+             "ITEMS_PER_SM", "MAX_CTAS_PER_SM", "SMEM_PER_SM")
+    return dict(zip(names, out.tolist()), param_bytes=int(out[7]))
 
 
-def block_descriptor(dst_ptr: int, src_ptr: int, dst_nblk: int,
-                     src_nblk: int, *, layers: int, page_bytes: int,
-                     word: int, rows: np.ndarray, waves: np.ndarray,
-                     out: np.ndarray = None) -> np.ndarray:
-    """The int64 words ``csrc/block_move.cuh`` reads for the live ``(n, 2)``
-    ``[src, dst]`` rows and their waves: the 11-word header, the rows
-    sorted by wave (stable), the ``n_waves + 1`` work-item prefix sums
-    (``layers x chunks_per_page`` items per row) and two zeroed counters.
-    Writes into the front of ``out`` (a pinned buffer's numpy view) when
-    given."""
-    n = len(rows)
-    n_waves = int(waves.max()) + 1
-    chunk = min(CHUNK_BYTES, page_bytes)
-    cpp = -(-page_bytes // chunk)
-    words = descriptor_words(n, n_waves)
-    desc = np.empty(words, np.int64) if out is None else out[:words]
-    desc[:11] = (dst_ptr, src_ptr, dst_nblk, src_nblk, layers, page_bytes,
-                 n, chunk, cpp, n_waves, word)
-    if n_waves == 1:                 # the common case: no sort, no count
-        desc[11:11 + 2 * n] = rows.reshape(-1)
-        desc[11 + 2 * n:] = (0, n * layers * cpp, 0, 0)
-        return desc
-    desc[11:11 + 2 * n] = rows[np.argsort(waves, kind="stable")].reshape(-1)
-    prefix = desc[11 + 2 * n:words - 2]
-    prefix[0] = 0
-    np.cumsum(np.bincount(waves, minlength=n_waves) * (layers * cpp),
-              out=prefix[1:])
-    desc[-2:] = 0
-    return desc
+def launch_rows(rows: np.ndarray, waves: np.ndarray) -> np.ndarray:
+    """The ``(n, 3)`` int32 rows the kernel gets for the live ``(n, 2)``
+    ``[src, dst]`` rows and their waves: ``[src, dst, first]``, sorted by
+    wave (stable), ``first`` the index of the first row of the row's wave
+    (its items wait until every item before that row has been read)."""
+    waves = np.asarray(waves, np.int64)
+    order = np.argsort(waves, kind="stable")
+    first = np.searchsorted(waves[order], waves[order], side="left")
+    out = np.empty((len(order), 3), np.int32)
+    out[:, :2] = np.asarray(rows).reshape(-1, 2)[order]
+    out[:, 2] = first
+    return out
 
 
-def pinned_descriptor(dst_pool: torch.Tensor, src_pool: torch.Tensor,
-                      rows: np.ndarray, waves: np.ndarray, *,
-                      block_axis: int):
-    """:func:`block_descriptor` for the live ``(n, 2)`` ``[src, dst]`` rows
-    of one call, written into a pinned host tensor of exactly its length.
-    Returns that tensor and the call's work items."""
-    layers, page_bytes, word = block_geometry((dst_pool, src_pool),
-                                              block_axis)
-    host = torch.empty(descriptor_words(len(rows), int(waves.max()) + 1),
-                       dtype=torch.int64, pin_memory=True)
-    desc = block_descriptor(
-        dst_pool.data_ptr(), src_pool.data_ptr(),
-        int(dst_pool.shape[block_axis]), int(src_pool.shape[block_axis]),
-        layers=layers, page_bytes=page_bytes, word=word, rows=rows,
-        waves=waves, out=host.numpy())
-    return host, int(desc[-3])
+def chunking(n_rows: int, layers: int, page_bytes: int, *, bulk: bool,
+             zero: bool, sms: int):
+    """(chunk bytes, chunks per page, work items, grid) of a call over
+    ``n_rows`` live rows.  The bulk path aims at :data:`ITEMS_PER_SM` items
+    per SM, 4-32 KiB, and splits a page evenly in multiples of 16 bytes;
+    its grid is what the SMs' shared memory holds (a ring of
+    :data:`STAGES` chunks for a copy, one tile for K6).  The word path
+    (pages not 16-byte aligned) moves 32 KiB chunks."""
+    if bulk:
+        slots = ITEMS_PER_SM * sms
+        c = (-(-(n_rows * layers * page_bytes) // slots) + 15) // 16 * 16
+        c = min(max(c, MIN_CHUNK), MAX_CHUNK)
+        pieces = -(-page_bytes // c)
+        c = (-(-page_bytes // pieces) + 15) // 16 * 16
+        per_sm = SMEM_PER_SM // ((1 if zero else STAGES) * c + 1024)
+        per_sm = min(max(per_sm, 1), MAX_CTAS_PER_SM)
+    else:
+        c = min(page_bytes, MAX_CHUNK)
+        per_sm = MAX_CTAS_PER_SM
+    cpp = -(-page_bytes // c)
+    items = n_rows * layers * cpp
+    return c, cpp, items, max(1, min(items, sms * per_sm))
 
 
-def launch_descriptor(entry: str, desc: torch.Tensor, items: int) -> None:
-    """Launch ``entry`` (``rc_fpm_copy`` or ``rc_zero_init``) once over the
-    descriptor ``desc`` on the card, on the current stream."""
-    device = desc.device
-    grid = max(1, min(items, _sm_count(device) * CTAS_PER_SM))
-    ptr = desc.data_ptr()
-    check(_entry(entry)(ptr, ptr + 8 * (len(desc) - 2), grid,
-                        stream_ptr(device)), entry)
+def id_array(ids, width: int) -> np.ndarray:
+    """Block ids (numpy, list or tensor) as a contiguous ``(m, width)``
+    int32 or int64 host array, without a copy when they already are one.
+    A tensor on the card costs a copy that waits for the work queued
+    before it; the engine's fan-out passes numpy and never takes that
+    branch."""
+    if isinstance(ids, torch.Tensor):
+        ids = ids.cpu().numpy()
+    a = np.asarray(ids)
+    if a.dtype != np.int32 and a.dtype != np.int64:
+        a = a.astype(np.int64)
+    return np.ascontiguousarray(a).reshape(-1, width)
+
+
+#: the counters of each (device, stream): next item, items read, CTAs out
+_COUNTERS = {}
+#: the ``out`` words of the last call (read by ``chip_smoke.py``)
+last_out = np.zeros(OUT_WORDS, np.int64)
+_LAST_OUT_PTR = last_out.ctypes.data
+
+
+def _counters(device: torch.device, stream: int) -> int:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        # zeroed on the stream that uses it; the kernel resets it after
+        buf = _COUNTERS[key] = torch.zeros(3, dtype=torch.int64,
+                                           device=device)
+    return buf.data_ptr()
 
 
 def block_move(entry: str, dst_pool: torch.Tensor, src_pool: torch.Tensor,
-               rows: np.ndarray, waves: np.ndarray, *,
-               block_axis: int) -> None:
-    """Launch ``entry`` once over the live ``(n, 2)`` ``[src, dst]`` rows,
-    in wave order.  The descriptor is built in pinned host memory and
-    copied without blocking: PyTorch's caching host allocator keeps the
-    pinned block until the copy that reads it has run, and the kernel
-    follows the copy on the same stream."""
-    host, items = pinned_descriptor(dst_pool, src_pool, rows, waves,
-                                    block_axis=block_axis)
-    launch_descriptor(entry, host.to(dst_pool.device, non_blocking=True),
-                      items)
+               ids, *, block_axis: int) -> int:
+    """ONE C call of ``entry`` (``rc_fpm_copy`` or ``rc_zero_init``) over
+    the raw ids on the card, on the current stream: schedule and launch
+    (none without live rows).  Returns the live rows.  Raises ``ValueError``
+    on a RAW or WAW pair, with :func:`pair_waves`'s message, and
+    ``RuntimeError`` when the launch is refused."""
+    layers, page_bytes, _ = block_geometry((dst_pool, src_pool), block_axis)
+    zero = entry == "rc_zero_init"
+    a = id_array(ids, 1 if zero else 2)
+    m = len(a)
+    device = dst_pool.device
+    stream = stream_ptr(device)
+    rows_buf, cap = None, 0
+    if m > ROW_CAPACITY:
+        # live rows above the parameters' room go through device memory
+        rows_buf = torch.empty(3 * m, dtype=torch.int32, device=device)
+        cap = m
+    counters = _counters(device, stream)
+    nblk = int(dst_pool.shape[block_axis])
+    buf = None if rows_buf is None else rows_buf.data_ptr()
+    if zero:
+        err = _entry(entry)(a.ctypes.data, a.itemsize, m,
+                            dst_pool.data_ptr(), nblk, layers, page_bytes,
+                            counters, buf, cap, _sm_count(device), stream,
+                            _LAST_OUT_PTR)
+    else:
+        err = _entry(entry)(a.ctypes.data, a.itemsize, m,
+                            dst_pool.data_ptr(), src_pool.data_ptr(), nblk,
+                            int(src_pool.shape[block_axis]), layers,
+                            page_bytes,
+                            int(dst_pool.data_ptr() == src_pool.data_ptr()),
+                            counters, buf, cap, _sm_count(device), stream,
+                            _LAST_OUT_PTR)
+    if err in (RAW, WAW):
+        pair = tuple(np.asarray(last_out[1:3], np.int64))
+        if err == WAW:
+            raise ValueError(f"pair {pair} rewrites a block an earlier "
+                             "pair writes (WAW)")
+        raise ValueError(f"pair {pair} reads a block an earlier pair "
+                         "writes (RAW)")
+    check(err, entry)
+    return int(last_out[0])
+
+
+def plan(ids, width: int, n_src: int, n_dst: int, *, same_pool: bool,
+         layers: int, page_bytes: int, bulk: bool, sms: int):
+    """The library's schedule of one call without a launch (needs the
+    card's build): ``(code, rows, out)``, ``rows`` the ``(n, 3)`` launch
+    rows, ``out`` the :data:`OUT_WORDS` words."""
+    a = id_array(ids, width)
+    rows = np.zeros((max(len(a), 1), 3), np.int32)
+    out = np.zeros(OUT_WORDS, np.int64)
+    code = _entry("rc_block_plan")(a.ctypes.data, a.itemsize, len(a), width,
+                                   n_src, n_dst, int(same_pool), layers,
+                                   page_bytes, int(bulk), sms,
+                                   rows.ctypes.data, out.ctypes.data)
+    return code, rows[:int(out[0])], out
 
 
 def _live_pairs(ids, n_src: int, n_dst: int) -> np.ndarray:
@@ -200,11 +301,7 @@ def fpm_copy_cuda(pool: torch.Tensor, ids, *, block_axis: int
                   ) -> torch.Tensor:
     """In-pool copy ``pool[dst] = pool[src]`` on the card, in place, with
     ONE launch of K5a (none when every row is padding)."""
-    n = int(pool.shape[block_axis])
-    rows = _live_pairs(ids, n, n)
-    if len(rows):
-        block_move("rc_fpm_copy", pool, pool, rows, pair_waves(rows),
-                   block_axis=block_axis)
+    if block_move("rc_fpm_copy", pool, pool, ids, block_axis=block_axis):
         COUNTER.n += 1
     return pool
 
@@ -215,17 +312,13 @@ def fpm_copy_cross_cuda(dst_pool: torch.Tensor, src_pool: torch.Tensor, ids,
     place, with ONE launch of K5b (none when every row is padding).  The
     two pools may be one tensor; then in-call WAR pairs are ordered as in
     K5a."""
-    rows = _live_pairs(ids, int(src_pool.shape[block_axis]),
-                       int(dst_pool.shape[block_axis]))
-    if len(rows):
-        same = dst_pool.data_ptr() == src_pool.data_ptr()
-        block_move("rc_fpm_copy", dst_pool, src_pool, rows,
-                   pair_waves(rows, same_pool=same), block_axis=block_axis)
+    if block_move("rc_fpm_copy", dst_pool, src_pool, ids,
+                  block_axis=block_axis):
         CROSS_COUNTER.n += 1
     return dst_pool
 
 
-__all__ = ["COUNTER", "CROSS_COUNTER", "pair_waves", "host_ids",
-           "block_descriptor", "descriptor_words", "pinned_descriptor",
-           "launch_descriptor", "block_move",
-           "fpm_copy_cuda", "fpm_copy_cross_cuda"]
+__all__ = ["COUNTER", "CROSS_COUNTER", "ROW_CAPACITY", "pair_waves",
+           "host_ids", "id_array", "launch_rows", "chunking", "block_move",
+           "plan", "library_constants", "fpm_copy_cuda",
+           "fpm_copy_cross_cuda"]

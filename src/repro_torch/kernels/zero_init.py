@@ -9,16 +9,18 @@ block.  The kernel is ``csrc/zero_init.cu`` over the shared body
 
 Bound on the card: bytes, writes only.  The kernel stores zero bytes and
 never reads the zero block (all zeros by construction), which halves the
-traffic of the broadcast and gives the same pool.  Zero rows only write,
-so one call is a single wave: no ordering is needed.
+traffic of the broadcast and gives the same pool: each CTA zeroes one
+shared tile and issues bulk stores from it.  Zero rows only write, so one
+call is a single wave.  The wrapper makes ONE C call, which drops the
+padding and launches with the ids as launch parameters
+(:func:`repro_torch.kernels.fpm_copy.block_move`).
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.kernels.build import LaunchCounter
-from repro_torch.kernels.fpm_copy import block_move, host_ids
+from repro_torch.kernels.fpm_copy import block_move
 
 #: launches of the zero-init kernel (K6)
 COUNTER = LaunchCounter("zero_init")
@@ -28,13 +30,7 @@ def zero_init_cuda(pool: torch.Tensor, ids, *, block_axis: int
                    ) -> torch.Tensor:
     """Zero the listed blocks on the card, in place, with ONE launch of K6
     (none when every id is padding)."""
-    d = host_ids(ids, 1)[:, 0]
-    d = d.compress(d.view(np.uint64) < pool.shape[block_axis])
-    if len(d):
-        rows = np.zeros((len(d), 2), np.int64)
-        rows[:, 1] = d
-        block_move("rc_zero_init", pool, pool, rows,
-                   np.zeros(len(d), np.int64), block_axis=block_axis)
+    if block_move("rc_zero_init", pool, pool, ids, block_axis=block_axis):
         COUNTER.n += 1
     return pool
 

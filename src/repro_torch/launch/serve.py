@@ -151,14 +151,17 @@ class ServingEngine:
         return self.engine.pool_bytes_resident()
 
     # ------------------------------------------------------------------
-    def decode_round(self) -> Dict[int, int]:
-        """One greedy token for every live sequence."""
+    def decode_round(self, sample_fn=None) -> Dict[int, int]:
+        """One token for every live sequence: greedy, or
+        ``sample_fn(logits)`` of each sequence's last logits (a numpy
+        vector) when given."""
         live = sorted(self.cache.seqs)
         if not live:
             if len(self.stream):
                 self.last_ticket = self.stream.flush()
             return {}
         next_tok = {sid: int(np.argmax(self.last_logits[sid]))
+                    if sample_fn is None else sample_fn(self.last_logits[sid])
                     for sid in live}
         with self.stream.capture():
             self.cache.append_tokens(live)

@@ -82,3 +82,46 @@ def test_fork_then_append_splits_once_per_sharer():
     _same(jc, tc)
     assert tc.engine.stats.fpm_copies == jc.engine.stats.fpm_copies == 2
     assert journal_rows(tc.engine) == journal_rows(jc.engine)
+
+
+@pytest.mark.parametrize("block_axis", [0, 1])
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_fork_eager_copy_matches_reference(use_fused, block_axis):
+    """``fork(..., eager_copy=True)`` clones every parent block next to its
+    source for each child, on both packages alike: the same tables,
+    allocator state and journal rows, bitwise pools, and the copies of
+    both children in ONE launch: the fused drain, or on the fan-out one
+    K5a call per primary pool (k and v), as the reference's."""
+    from repro.kernels import fused_dispatch as jfd
+    from test_torch_contract import PortHook
+    jeng = mk_engine(64, block_axis, use_fused=use_fused, stage_nblk=8,
+                     seed=5)
+    teng = port_engine_like(jeng)
+    jc, tc = (JCache(jeng, PAGE, MAX_BLOCKS, MAX_SEQS),
+              TCache(teng, PAGE, MAX_BLOCKS, MAX_SEQS))
+    for c in (jc, tc):
+        sid = c.new_sequence(prompt_len=2 * PAGE + 1)
+        c.alloc.mark_written(c.blocks_of(sid))      # the prompt landed
+        c.fork(sid, 1)                              # a CoW share first
+    events_j = []
+    hook = lambda n, p, m: events_j.append((n, p, m))  # noqa: E731
+    jfd.add_launch_hook(hook)
+    try:
+        kids_j = jc.fork(sid, 2, eager_copy=True)
+    finally:
+        jfd.remove_launch_hook(hook)
+    with PortHook() as events_t:
+        kids_t = tc.fork(sid, 2, eager_copy=True)
+    assert kids_t == kids_j
+    assert events_t == events_j
+    assert [m for _, _, m in events_t] == (["fused"] if use_fused else
+                                          ["legacy_fpm"] * 2)
+    _same(jc, tc)
+    parent = tc.blocks_of(sid)
+    for kid in kids_t:
+        assert set(tc.blocks_of(kid)).isdisjoint(parent)
+        assert [tc.alloc.slab_of(b) for b in tc.blocks_of(kid)] == \
+            [tc.alloc.slab_of(b) for b in parent]
+    assert tc.engine.stats.fpm_copies == jc.engine.stats.fpm_copies == 6
+    assert journal_rows(tc.engine) == journal_rows(jc.engine)
+    assert_same_pools(jc.engine, tc.engine, f"(fused={use_fused})")

@@ -1,0 +1,337 @@
+"""The port's CUDA kernels against their plain versions on the card: K1-K6
+(tests marked ``cuda``; each skips where no GPU is visible).
+
+This module imports only torch, numpy, pytest and ``repro_torch`` and makes
+its inputs with numpy, so that it runs on the card's machine, which has no
+JAX.  ``tests/conftest.py`` imports JAX, so run it there without the
+conftest:
+
+    PYTHONPATH=src python -m pytest -m cuda --noconftest tests/test_torch_card.py
+
+``tests/test_torch_isolation.py`` refuses a ``jax`` or ``repro.`` import
+here.  ``chip_smoke.py`` holds the same kernels at the models' full widths.
+"""
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.opcodes import keys_clash, row_rw
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fused_dispatch import wave_schedule
+
+NEG_INF = -1e30
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+
+
+def bits(t: torch.Tensor) -> np.ndarray:
+    """Raw bytes of a tensor, for bitwise comparison."""
+    return t.detach().cpu().contiguous().view(torch.uint8).numpy().reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# K1, the fused drain
+# ---------------------------------------------------------------------------
+
+#: pool sizes and staging role vector of the drain case
+RING = ([16, 16, 4, 4], (True, True, False, False))
+
+
+def gen_table(rng, sizes, primary, n_rows):
+    """Random contract ``[op, src, dst]`` rows: never two writes of one
+    block, no read of a block an earlier row wrote (the queue's
+    guarantee)."""
+    _, total, locate = ref.address_space(sizes)
+    nprim = sizes[primary.index(True)]
+    rows, written = [], []
+    for _ in range(50 * n_rows):
+        if len(rows) >= n_rows:
+            break
+        op = rng.choice([0, 1, 2, 3, 4, 4, 5, 6, 7, -1])
+        if op < 0:
+            rows.append((-1, -1, -1))
+            continue
+        if op <= 3:
+            s = -1 if op == 3 else rng.randrange(nprim)
+            d = rng.randrange(nprim)
+        elif op == 4:
+            s, d = rng.randrange(total), rng.randrange(total)
+        else:
+            a = rng.randrange(total)
+            b = a if op == 7 else rng.randrange(total)
+            s, d = a * total + b, rng.randrange(total)
+        reads, writes = row_rw(op, s, d, locate, total)
+        if any(keys_clash(w, x, primary) for w in writes for x in written):
+            continue
+        if any(keys_clash(r, x, primary) for r in reads for x in written):
+            continue
+        rows.append((op, s, d))
+        written.extend(writes)
+    return np.asarray(rows, np.int32)
+
+
+def _pools(seed, sizes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((3, n, 4, 8))
+                             .astype(np.float32)) for n in sizes]
+
+
+def _zero_blocks(pools, device="cpu"):
+    return [torch.zeros((1,) + tuple(p.shape[2:]), dtype=p.dtype,
+                        device=device) for p in pools]
+
+
+def _drain(pools, rows, primary):
+    """Rows drained in the given order through the plain drain, one at a
+    time (each row sees the state the rows before it left)."""
+    pools = [p.clone() for p in pools]
+    for row in rows:
+        ref.fused_dispatch(pools, _zero_blocks(pools), np.asarray([row]),
+                           block_axis=1, primary=primary)
+    return pools
+
+
+def _war_table(rng, sizes, primary, pools):
+    """A contract table with non-adjacent WAR pairs whose order matters:
+    its rows drained in reverse give other bytes than the whole table."""
+    for _ in range(200):
+        t = gen_table(rng, sizes, primary, 14)
+        live = [tuple(r) for r in t.tolist() if r[0] >= 0]
+        if max(wave_schedule(live, sizes, primary)) == 0:
+            continue
+        want = [p.clone() for p in pools]
+        ref.fused_dispatch(want, _zero_blocks(want), t, block_axis=1,
+                           primary=primary)
+        back = _drain(pools, list(reversed(live)), primary)
+        if any(not np.array_equal(bits(w), bits(b))
+               for w, b in zip(want, back)):
+            return t, want
+    raise AssertionError("no order-sensitive WAR table drawn")
+
+
+@pytest.mark.cuda
+def test_cuda_drain_matches_plain_on_card(card):
+    """K1 on the card against its plain version, bitwise, on a table
+    whose WAR pairs make the order matter (chip_smoke.py covers the
+    serving shapes)."""
+    sizes, primary = RING
+    pools = _pools(3, sizes)
+    table, want = _war_table(random.Random(3), sizes, primary, pools)
+    dev = [p.cuda() for p in pools]
+    ops.fused_dispatch(dev, _zero_blocks(dev, "cuda"), table, block_axis=1,
+                       primary=primary)
+    for w, g in zip(want, dev):
+        np.testing.assert_array_equal(bits(w), bits(g))
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3, attention
+# ---------------------------------------------------------------------------
+
+def _paged_case(seed, B=4, H=8, KVH=2, D=64, page=16, nblk=16):
+    """Pool slab with a CoW-shared prefix block (sequences 0 and 1), private
+    tails, ragged lengths, and an empty sequence (slot B-1)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((nblk, page, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((nblk, page, KVH, D)).astype(np.float32)
+    mask = np.zeros((nblk, B), np.int8)
+    base = np.zeros(nblk, np.int32)
+    lens = np.zeros(B, np.int32)
+    free = list(rng.permutation(nblk))
+    shared = free.pop()
+    for b in range(B - 1):
+        blocks = ([shared] if b < 2 else []) + \
+            [free.pop() for _ in range(int(rng.integers(1, 3)))]
+        for j, blk in enumerate(blocks):
+            mask[blk, b] = 1
+            base[blk] = j * page
+        lens[b] = (len(blocks) - 1) * page + int(rng.integers(1, page + 1))
+    return q, k, v, mask, base, lens
+
+
+def _layout_case(seed, pages, B=4, H=8, KVH=2, D=64, page=16, nblk=96):
+    """Pool slab where sequence b sees ``pages[b]`` blocks in a random block
+    order (0 pages: an empty slot); sequences 0 and 1 share their first
+    block (CoW), ragged lengths."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((nblk, page, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((nblk, page, KVH, D)).astype(np.float32)
+    mask = np.zeros((nblk, B), np.int8)
+    base = np.zeros(nblk, np.int32)
+    lens = np.zeros(B, np.int32)
+    free = list(rng.permutation(nblk))
+    shared = free.pop()
+    for b, n in enumerate(pages):
+        if not n:
+            continue
+        blocks = ([shared] if b < 2 else [free.pop()]) + \
+            [free.pop() for _ in range(n - 1)]
+        for j, blk in enumerate(blocks):
+            mask[blk, b] = 1
+            base[blk] = j * page
+        lens[b] = (n - 1) * page + int(rng.integers(1, page + 1))
+    return q, k, v, mask, base, lens
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_match_plain_on_card(card):
+    """K2 and K3 on the card against their plain versions (bf16 inputs;
+    K2 atol 2e-3 on the normalised output, K3 atol 2e-2 on bf16 output).
+    K2 also on a sequence of 64 visible pages (every CTA of the cluster
+    busy), one page per sequence, and at head dim 80."""
+    cases = [_paged_case(1, B=4, H=12, KVH=4, D=128, page=64, nblk=16)]
+    for pages in ((64, 3, 1, 0), (1, 1, 1, 1)):
+        for H, KVH, D in ((12, 4, 128), (8, 8, 80)):
+            cases.append(_layout_case(2, pages, H=H, KVH=KVH, D=D, page=64,
+                                      nblk=80))
+    for case in cases:
+        args = [torch.from_numpy(x).cuda() for x in case]
+        for i in range(3):
+            args[i] = args[i].bfloat16()
+        acc, l, m = ops.paged_attention_slab(*args, page=64)
+        acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=64,
+                                                   use_kernel=False)
+        torch.testing.assert_close(acc / l.clamp_min(1e-30)[..., None],
+                                   acc_p / l_p.clamp_min(1e-30)[..., None],
+                                   atol=2e-3, rtol=0)
+        torch.testing.assert_close(m, m_p, atol=2e-3, rtol=0)
+        empty = args[5] == 0
+        assert (m[empty] == NEG_INF).all() and (l[empty] == 0).all()
+    rng = np.random.default_rng(0)
+    for S, D, causal, prefix in ((64, 128, True, 0), (100, 128, True, 0),
+                                 (1, 80, True, 0), (65, 80, True, 100),
+                                 (130, 80, False, 0)):
+        qq, kk, vv = (torch.from_numpy(rng.standard_normal((1, S, n, D))
+                                       .astype(np.float32)).cuda()
+                      .bfloat16().transpose(1, 2) for n in (8, 2, 2))
+        torch.testing.assert_close(
+            ops.flash_attention(qq, kk, vv, causal=causal,
+                                prefix_len=prefix).float(),
+            ops.flash_attention(qq, kk, vv, causal=causal, prefix_len=prefix,
+                                use_kernel=False).float(),
+            atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_at_head_dim_80_match_plain_on_card(card):
+    """K2 and K3 at zamba2's head dim 80 (H = KVH: group 1) against their
+    plain versions on the card (K2 atol 2e-3 on the normalised output, K3
+    atol 2e-2 on its bf16 output)."""
+    rng = np.random.default_rng(11)
+    B, H, D, page, nblk = 3, 8, 80, 64, 12
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+               for shape in ((B, H, D), (nblk, page, H, D),
+                             (nblk, page, H, D)))
+    mask = np.zeros((nblk, B), np.int8)
+    base = np.zeros(nblk, np.int32)
+    for b in range(B):
+        for j in range(3):
+            mask[b * 4 + j, b] = 1
+            base[b * 4 + j] = j * page
+    lens = np.array([130, 64, 1], np.int32)
+    args = [q.bfloat16().cuda(), k.bfloat16().cuda(), v.bfloat16().cuda()] \
+        + [torch.from_numpy(a).cuda() for a in (mask, base, lens)]
+    acc, l, m = ops.paged_attention_slab(*args, page=page)
+    acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=page,
+                                               use_kernel=False)
+    torch.testing.assert_close(acc / l[..., None], acc_p / l_p[..., None],
+                               atol=2e-3, rtol=0)
+    for S in (64, 250):
+        qq, kk, vv = (torch.from_numpy(rng.standard_normal((1, 8, S, D))
+                                       .astype(np.float32)).cuda().bfloat16()
+                      for _ in range(3))
+        torch.testing.assert_close(
+            ops.flash_attention(qq, kk, vv).float(),
+            ops.flash_attention(qq, kk, vv, use_kernel=False).float(),
+            atol=2e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K4, the SSD intra-chunk term
+# ---------------------------------------------------------------------------
+
+def _chunk_case(seed, B, Q, H, P, N):
+    """Intra-chunk inputs: dt softplus'd, ``cum`` an in-chunk cumsum of
+    ``-0.2 dt`` (so <= 0 and decreasing)."""
+    rng = np.random.default_rng(seed)
+    xb = rng.standard_normal((B, Q, H, P)).astype(np.float32)
+    dtb = np.log1p(np.exp(rng.standard_normal((B, Q, H)))).astype(np.float32)
+    cum = np.cumsum(-0.2 * dtb, axis=1).astype(np.float32)
+    Bm = rng.standard_normal((B, Q, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, Q, N)).astype(np.float32)
+    return xb, dtb, cum, Bm, Cm
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_intra_chunk_matches_plain_on_card(card):
+    """K4 on the card against its plain version: bf16 and fp32 inputs, a
+    full chunk and ragged ones, state sizes 32 to 256, partial head groups
+    (max |diff| <= 1e-3 x max |plain|: fp32 sums in another order)."""
+    for Q, H, N, dtype in ((256, 6, 32, torch.bfloat16),
+                           (96, 6, 32, torch.bfloat16),
+                           (250, 6, 32, torch.float32),
+                           (256, 8, 128, torch.bfloat16),
+                           (256, 5, 64, torch.bfloat16),
+                           (250, 3, 256, torch.bfloat16)):
+        xb, dtb, cum, Bm, Cm = (torch.from_numpy(a).cuda() for a in
+                                _chunk_case(Q, 2, Q, H, 64, N))
+        xb, Bm, Cm = (t.to(dtype) for t in (xb, Bm, Cm))
+        got = ops.ssd_intra_chunk(xb, dtb, cum, Bm, Cm)
+        want = ops.ssd_intra_chunk(xb, dtb, cum, Bm, Cm, use_kernel=False)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= \
+            1e-3 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# K5a, K5b and K6, the block moves
+# ---------------------------------------------------------------------------
+
+#: the dtypes of tests/test_torch_copy_kernels.py
+DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+#: [src, dst] rows: padding, and a write-after-read pair (row 4 rewrites
+#: row 0's source)
+IDS = np.array([[0, 5], [3, 7], [2, -1], [1, 9], [6, 0]], np.int32)
+ZIDS = np.array([4, -1, 11, 2], np.int32)
+
+
+def make_pool(seed, shape, dtype):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal(shape) * 10)
+                         .astype(np.float32))
+    return x.to(torch.int32) if dtype == torch.int32 else x.to(dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_copy_kernels_match_plain_on_card(card):
+    """K5a, K5b and K6 against their plain versions on the card, both
+    block axes, with padding and an in-call WAR pair; the small pages
+    (4 KiB and 384 bytes down to 192) take the bulk copies where they are
+    16-byte aligned and the word loop where not."""
+    for ba, shape in ((0, (32, 8, 128)), (1, (3, 32, 4, 8)),
+                      (0, (32, 3, 17))):
+        for dtype in DTYPES:
+            pool = make_pool(7, shape, dtype).cuda()
+            src = make_pool(8, shape, dtype).cuda()
+            cases = [
+                (lambda p, k: ops.fpm_copy(p, IDS, block_axis=ba,
+                                           use_kernel=k)),
+                (lambda p, k: ops.fpm_copy_cross(p, src, IDS, block_axis=ba,
+                                                 use_kernel=k)),
+                (lambda p, k: ops.meminit_zero(p, ZIDS, block_axis=ba,
+                                               use_kernel=k)),
+            ]
+            for fn in cases:
+                want = fn(pool.clone(), False)
+                got = fn(pool.clone(), True)
+                torch.cuda.synchronize()
+                np.testing.assert_array_equal(bits(got), bits(want))

@@ -242,44 +242,43 @@ def test_pair_waves_refuse_raw_and_waw():
         pair_waves([(1, 2), (4, 2)], same_pool=False)
 
 
-@pytest.mark.parametrize("pairs,waves", [
-    ([(3, 8), (5, 9), (7, 1)], [0, 0, 0]),             # no WAR pair
+@pytest.mark.parametrize("pairs,waves,bulk_plan", [
+    ([(3, 8), (5, 9), (7, 1)], [0, 0, 0], (4096, 20, 180, 180)),
     # a WAR chain, and a wave-0 row after it: sorting moves that row up
-    ([(3, 8), (5, 9), (10, 3), (4, 10), (6, 7)], [0, 0, 1, 2, 0]),
+    ([(3, 8), (5, 9), (10, 3), (4, 10), (6, 7)], [0, 0, 1, 2, 0],
+     (4560, 18, 270, 270)),
 ])
-def test_block_descriptor_words(pairs, waves):
-    """The descriptor's words as csrc/block_move.cuh documents them:
-    header, rows sorted by wave (stable), item prefix sums per wave and
-    two zeroed counters; written into a caller's buffer when one is
-    given."""
+def test_block_descriptor_words(pairs, waves, bulk_plan):
+    """The launch parameters as csrc/block_move.cuh lays them out: the
+    rows ``[src, dst, first row of its wave]`` sorted by wave (stable), and
+    the chunking of 3-layer pages of 80 KiB over 132 SMs: the bulk path
+    aims at 2 items per SM in even 16-byte multiples of 4-32 KiB, the word
+    path moves 32 KiB chunks."""
     rows = np.asarray(pairs, np.int64)
     w = pair_waves(rows)
     assert w.tolist() == waves
-    layers, page_bytes, word = 3, 80 * 1024, 16
-    chunk, cpp = 32 * 1024, 3                 # 80 KiB pages: 3 chunks
-    n, n_waves = len(rows), max(waves) + 1
-    buf = np.full(64, -7, np.int64)
-    desc = tfpm.block_descriptor(1000, 2000, 40, 50, layers=layers,
-                                 page_bytes=page_bytes, word=word,
-                                 rows=rows, waves=w, out=buf)
-    words = tfpm.descriptor_words(n, n_waves)
-    assert len(desc) == words == 11 + 2 * n + n_waves + 1 + 2
-    assert np.shares_memory(desc, buf) and (buf[words:] == -7).all()
-    assert desc.tolist()[:11] == [1000, 2000, 40, 50, layers, page_bytes, n,
-                                  chunk, cpp, n_waves, word]
-    order = sorted(range(n), key=lambda i: waves[i])
-    assert desc[11:11 + 2 * n].reshape(n, 2).tolist() == \
-        [list(pairs[i]) for i in order]
-    per_row = layers * cpp
-    want_prefix = [0]
-    for k in range(n_waves):
-        want_prefix.append(want_prefix[-1] + waves.count(k) * per_row)
-    assert desc[11 + 2 * n:words - 2].tolist() == want_prefix
-    assert desc[-2:].tolist() == [0, 0]
-    np.testing.assert_array_equal(
-        tfpm.block_descriptor(1000, 2000, 40, 50, layers=layers,
-                              page_bytes=page_bytes, word=word, rows=rows,
-                              waves=w), desc)
+    got = tfpm.launch_rows(rows, w)
+    assert got.dtype == np.int32 and got.shape == (len(pairs), 3)
+    order = sorted(range(len(pairs)), key=lambda i: waves[i])
+    assert got[:, :2].tolist() == [list(pairs[i]) for i in order]
+    sorted_waves = [waves[i] for i in order]
+    assert got[:, 2].tolist() == [sorted_waves.index(x)
+                                  for x in sorted_waves]
+    layers, page, sms, n = 3, 80 * 1024, 132, len(pairs)
+    chunk, cpp, items, grid = tfpm.chunking(n, layers, page, bulk=True,
+                                            zero=False, sms=sms)
+    assert (chunk, cpp, items, grid) == bulk_plan
+    assert chunk % 16 == 0 and (cpp - 1) * chunk < page <= cpp * chunk
+    assert tfpm.MIN_CHUNK <= chunk <= tfpm.MAX_CHUNK
+    # K6's one tile per CTA leaves room for more CTAs, up to the cap
+    assert tfpm.chunking(n, layers, page, bulk=True, zero=True,
+                         sms=sms) == bulk_plan
+    assert tfpm.chunking(n, layers, page, bulk=False, zero=False,
+                         sms=sms) == (32768, 3, 9 * n, 9 * n)
+    # small pages: one chunk per page, 16-byte multiples kept
+    assert tfpm.chunking(n, 1, 4 * 8 * 4, bulk=True, zero=False,
+                         sms=sms)[:3] == (128, 1, n)
+    assert len(pairs) <= tfpm.ROW_CAPACITY
 
 
 def test_fanout_passes_host_ids_to_the_block_moves(monkeypatch):
@@ -322,29 +321,3 @@ def test_kernel_request_on_cpu_tensor_raises():
     ops.fpm_copy(pool, [[0, 1]])
     ops.meminit_zero(pool, [2])
     assert {n: c.n for n, c in ops.KERNEL_COUNTERS.items()} == before
-
-
-@pytest.mark.cuda
-def test_cuda_copy_kernels_match_plain_on_card():
-    """K5a, K5b and K6 against their plain versions on the card, both
-    block axes, with padding and an in-call WAR pair (needs a GPU)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    for ba, shape in ((0, (32, 8, 128)), (1, (3, 32, 4, 8))):
-        for dtype in DTYPES:
-            pool = to_torch(make_pool(7, shape, dtype)).cuda()
-            src = to_torch(make_pool(8, shape, dtype)).cuda()
-            cases = [
-                (lambda p, k: ops.fpm_copy(p, IDS, block_axis=ba,
-                                           use_kernel=k)),
-                (lambda p, k: ops.fpm_copy_cross(p, src, IDS, block_axis=ba,
-                                                 use_kernel=k)),
-                (lambda p, k: ops.meminit_zero(p, ZIDS, block_axis=ba,
-                                               use_kernel=k)),
-            ]
-            for fn in cases:
-                want = fn(pool.clone(), False)
-                got = fn(pool.clone(), True)
-                torch.cuda.synchronize()
-                np.testing.assert_array_equal(bits(got.cpu()),
-                                              bits(want.cpu()))

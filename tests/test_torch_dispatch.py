@@ -215,19 +215,3 @@ def test_wave_schedule_values_and_contract_errors():
         wave_schedule([(0, 1, 2), (0, 2, 3)], sizes, primary)
     with pytest.raises(ValueError, match="WAW"):
         wave_schedule([(0, 1, 2), (4, 7, 2)], sizes, primary)
-
-
-@pytest.mark.cuda
-def test_cuda_drain_matches_plain_on_card():
-    """K1 on the card against its plain version, bitwise (runs only where
-    a GPU is present; chip_smoke.py covers the serving shapes)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    sizes, primary = LAYOUTS["ring"]
-    pools = make_pools(np.random.default_rng(3), sizes, 1, np.float32)
-    table, _, _, want = _war_case(random.Random(3), sizes, primary, pools)
-    dev = [to_torch(p).cuda() for p in pools]
-    zbs = [to_torch(z).cuda() for z in zero_blocks_np(pools, 1)]
-    ops.fused_dispatch(dev, zbs, table, block_axis=1, primary=primary)
-    for w, g in zip(want, dev):
-        np.testing.assert_array_equal(bits(w), bits(g.cpu()))

@@ -132,3 +132,46 @@ def test_drain_guard_aborts_before_dispatch():
         tfd.remove_drain_guard(guard)
     assert teng.stats.launches == 0 and len(teng.journal) == 0
     assert bool((teng.pools["k"] == before).all())
+
+
+def _fresh_and_enqueue_copy_script(eng, opcodes):
+    """``memcopy(..., dst_is_fresh=...)`` on the engine and on a stream,
+    and ``CommandQueue.enqueue_copy``; returns the per-flush launches and
+    the mechanism counts."""
+    eng.alloc.mark_written(list(range(1, 32)))
+    out = [eng.memcopy([(1, 2), (3, 20)], dst_is_fresh=True),
+           eng.memcopy([(5, 6)], dst_is_fresh=False)]
+    s = eng.stream("fresh")
+    out.append(s.memcopy([(7, 8), (9, 24)], dst_is_fresh=True))
+    out.append(s.flush().launches)
+    q = eng.queue
+    q.enqueue_copy(opcodes.OP_FPM_COPY, [(10, 11), (12, 13)])
+    q.enqueue_copy(opcodes.OP_BASELINE_COPY, [(14, 15)])
+    out.append((len(q), q.flush()))
+    return out
+
+
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_memcopy_dst_is_fresh_and_enqueue_copy_match_reference(use_fused):
+    """The reference's ``memcopy(pairs, dst_is_fresh=...)`` (engine and
+    stream) and ``CommandQueue.enqueue_copy(opcode, pairs)``: the same
+    counts, launches, journal rows and stats, and bitwise pools."""
+    import repro.core.opcodes as jops
+    import repro_torch.core.opcodes as tops
+    jeng = mk_engine(32, 1, use_fused=use_fused, stage_nblk=8, seed=3)
+    teng = port_engine_like(jeng)
+    events_j = []
+    hook = lambda n, p, m: events_j.append((n, p, m))  # noqa: E731
+    jfd.add_launch_hook(hook)
+    try:
+        got_j = _fresh_and_enqueue_copy_script(jeng, jops)
+    finally:
+        jfd.remove_launch_hook(hook)
+    with PortHook() as events_t:
+        got_t = _fresh_and_enqueue_copy_script(teng, tops)
+    assert got_t == got_j
+    assert events_t == events_j
+    assert journal_rows(teng) == journal_rows(jeng)
+    j_stats, t_stats = common_stats(jeng, teng)
+    assert t_stats == j_stats
+    assert_same_pools(jeng, teng, f"(fused={use_fused})")

@@ -3,7 +3,7 @@ shared attention+MLP block after every 2) against the JAX facade: prefill
 through the Mamba2 layers and K3's plain version, greedy decode through
 the Mamba2 decode step and K2's plain version over each segment's own pool
 slab.  K2 and K3 at zamba2's head dim 80 are held against their plain
-versions on the card (tests marked ``cuda``).
+versions on the card in ``tests/test_torch_card.py``.
 
 Tolerances as tests/test_torch_ssm.py: logits atol 2e-3, states and KV
 pools atol 1e-4 in fp32, 2e-2 in bf16.
@@ -14,7 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
-from test_torch_contract import facade_parity, jax_and_port_models, to_torch
+from test_torch_contract import facade_parity, jax_and_port_models
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
@@ -157,40 +157,3 @@ def test_head_dim_80_accepted_and_others_refused_before_launch(wrapper):
         with pytest.raises(ValueError) as err:
             call()
         assert ("head dim" in str(err.value)) == (D == 64)
-
-
-@pytest.mark.cuda
-def test_cuda_attention_kernels_at_head_dim_80_match_plain_on_card():
-    """K2 and K3 at zamba2's head dim 80 (H = KVH: group 1) against their
-    plain versions on the card (K2 atol 2e-3 on the normalised output, K3
-    atol 2e-2 on its bf16 output)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    rng = np.random.default_rng(11)
-    B, H, D, page, nblk = 3, 8, 80, 64, 12
-    q = to_torch(rng.standard_normal((B, H, D)).astype(np.float32))
-    k = to_torch(rng.standard_normal((nblk, page, H, D)).astype(np.float32))
-    v = to_torch(rng.standard_normal((nblk, page, H, D)).astype(np.float32))
-    mask = np.zeros((nblk, B), np.int8)
-    base = np.zeros(nblk, np.int32)
-    for b in range(B):
-        for j in range(3):
-            mask[b * 4 + j, b] = 1
-            base[b * 4 + j] = j * page
-    lens = np.array([130, 64, 1], np.int32)
-    args = [q.bfloat16().cuda(), k.bfloat16().cuda(), v.bfloat16().cuda()] \
-        + [to_torch(a).cuda() for a in (mask, base, lens)]
-    acc, l, m = ops.paged_attention_slab(*args, page=page)
-    acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=page,
-                                               use_kernel=False)
-    torch.testing.assert_close(acc / l[..., None], acc_p / l_p[..., None],
-                               atol=2e-3, rtol=0)
-    g = torch.Generator(device="cuda").manual_seed(0)
-    for S in (64, 250):
-        qq, kk, vv = (torch.randn((1, 8, S, D), generator=g,
-                                  device="cuda").bfloat16()
-                      for _ in range(3))
-        torch.testing.assert_close(
-            ops.flash_attention(qq, kk, vv).float(),
-            ops.flash_attention(qq, kk, vv, use_kernel=False).float(),
-            atol=2e-2, rtol=0)

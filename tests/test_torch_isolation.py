@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of the
 JAX package ``repro`` (not even its JAX-free modules), and neither do the
-card scripts (``chip_smoke.py``, ``chip_ab.py``, ``chip_k4_logits.py``).  A
+card scripts (``chip_smoke.py``, ``chip_ab.py``, ``chip_k4_logits.py``) nor
+the card tests (``tests/test_torch_card.py``), which run where JAX is not
+installed.  A
 CUDA kernel wrapper refuses
 CPU tensors instead of quietly running something else."""
 import pkgutil
@@ -67,14 +69,39 @@ def test_import_everything_loads_no_jax_or_reference():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
     + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
-       ROOT / "chip_k4_logits.py"]))
+       ROOT / "chip_k4_logits.py", ROOT / "tests" / "test_torch_card.py"]))
 def test_source_has_no_forbidden_import(path):
-    """No source file of the port, and none of the card scripts
-    (chip_smoke.py, chip_ab.py, chip_k4_logits.py), names jax or the
-    reference package in an import statement."""
+    """No source file of the port, none of the card scripts
+    (chip_smoke.py, chip_ab.py, chip_k4_logits.py) and not the card tests
+    (tests/test_torch_card.py) names jax or the reference package in an
+    import statement."""
     text = (ROOT / path).read_text()
     hits = FORBIDDEN.findall(text)
     assert not hits, f"{path}: {hits}"
+
+
+def test_card_tests_import_without_jax():
+    """tests/test_torch_card.py imports in an interpreter where ``jax`` and
+    ``repro`` cannot be imported, and holds every ``cuda``-marked test of
+    the port (the card's machine has no JAX)."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "import test_torch_card as t\n"
+            "print('CUDA=' + ','.join(sorted(n for n, f in vars(t).items() "
+            "if n.startswith('test_') and any(m.name == 'cuda' for m in "
+            "getattr(f, 'pytestmark', ())))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300,
+                         env={"PYTHONPATH": f"{ROOT / 'tests'}:{ROOT / 'src'}",
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    marked = out.stdout.split("CUDA=")[1].split()[0].split(",")
+    assert len(marked) == 5, marked
+    marker = "@pytest.mark." + "cuda"
+    others = [p for p in (ROOT / "tests").glob("test_torch_*.py")
+              if p.name != "test_torch_card.py" and marker in p.read_text()]
+    assert not others, others
 
 
 def test_pattern_tells_the_port_from_the_reference():

@@ -30,6 +30,9 @@ PROMPT_LENS = (20, 45, 70)
 #: seed every greedy step keeps a top-1 / top-2 margin above 2 x LOGIT_ATOL
 PROMPT_SEED = 27
 ROUNDS = 6
+#: sampler seed of the sample_fn test; with it every draw keeps a top-1 /
+#: top-2 margin above 2 x LOGIT_ATOL
+SAMPLE_SEED = 0
 
 
 def _margin(logits):
@@ -37,8 +40,7 @@ def _margin(logits):
     return float(top2[1] - top2[0])
 
 
-@pytest.fixture(scope="module")
-def engines():
+def _engines():
     jcfg = jget_config("llama3.2-3b").reduced()
     params, _ = split_params(build_model(jcfg).init_params(
         jax.random.key(0)))
@@ -47,6 +49,11 @@ def engines():
                              cfg, device="cpu")
     return (JServing(jcfg, params, max_seqs=8),
             ServingEngine(cfg, tmodel, max_seqs=8, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def engines():
+    return _engines()
 
 
 def _round(eng, hook_ctx, fork_sid=None):
@@ -117,3 +124,45 @@ def test_free_before_flush_retires_promotion():
     assert eng.engine.stage_slots_free == free0
     assert len(eng.stream) == 0 and eng.kv_bytes_live() == live0
     assert eng.decode_round() == {} and eng.engine.stats.launches == 0
+
+
+class GumbelSampler:
+    """A seeded sampler: argmax of the logits plus Gumbel noise from its own
+    numpy generator (the Gumbel-max draw from softmax(logits)); records
+    each draw's top-1 / top-2 margin."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.margins = []
+        self.greedy = []
+
+    def __call__(self, logits):
+        z = logits + self.rng.gumbel(size=logits.shape)
+        self.margins.append(_margin(z))
+        self.greedy.append(int(np.argmax(z)) == int(np.argmax(logits)))
+        return int(np.argmax(z))
+
+
+def test_decode_round_sample_fn_matches_reference():
+    """``decode_round(sample_fn=...)`` as the reference's: the same seeded
+    sampler over both engines' logits gives the same tokens, round by
+    round, through a fork; the draws are not all greedy, and every draw's
+    margin exceeds twice the logit tolerance, so a differing token could
+    only come from a real divergence."""
+    jeng, teng = _engines()
+    rng = np.random.default_rng(PROMPT_SEED)
+    prompts = [rng.integers(2, 512, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    sids = [jeng.add_request(p.copy()) for p in prompts]
+    assert [teng.add_request(p.copy()) for p in prompts] == sids
+    samp_j, samp_t = GumbelSampler(SAMPLE_SEED), GumbelSampler(SAMPLE_SEED)
+    for rnd in range(3):
+        if rnd == 1:
+            assert jeng.fork(sids[0], 2) == teng.fork(sids[0], 2)
+        toks_j = jeng.decode_round(sample_fn=samp_j)
+        toks_t = teng.decode_round(sample_fn=samp_t)
+        assert toks_t == toks_j, rnd
+    assert teng.tokens == jeng.tokens
+    assert min(samp_j.margins) > 2 * LOGIT_ATOL, min(samp_j.margins)
+    assert not all(samp_j.greedy)
+    assert samp_t.greedy == samp_j.greedy
