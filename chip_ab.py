@@ -2,7 +2,7 @@
 """Time one checkout of the PyTorch port on one NVIDIA GPU, so that two
 checkouts (a parent and a change) can be compared on one card.
 
-    python3 chip_ab.py --src DIR --tag NAME [--rows k2,k4,k3,k5,e2e]
+    python3 chip_ab.py --src DIR --tag NAME [--rows k2,k4,k3,k5,k1,e2e]
 
 Imports ``repro_torch`` from ``DIR`` (a checkout's ``src``), builds its
 kernels and prints one JSON line, every time through ``chip_smoke.py``'s
@@ -22,6 +22,11 @@ before each; ``device_ms``: the profiler's device time of the call):
 - ``k5``: K5a, K5b and K6 at phase 6's axis-0 pools, m = 8 and 256
   (with their padding and write-after-read pair): card ms, device ms and
   the library call's card ms;
+- ``k1``: the fused drain on phase 2's serving table through
+  ``ops.fused_dispatch`` (layer-stacked pools) and on phase 7's 419-row
+  flush through one ``RowCloneEngine._drain_rows`` (flat pools): card ms,
+  K1's device ms, the device busy ms of the call, and the host clock
+  (synchronised, median of 3);
 - ``e2e``: llama3.2-3b admitting chip_smoke's four prompts into a fresh
   serving engine, one steady serving round of those four and a fork, and
   zamba2-2.7b's batch prefill at full width (random weights, seed 0): the
@@ -50,7 +55,7 @@ def _args():
     ap.add_argument("--src", required=True,
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", required=True)
-    ap.add_argument("--rows", default="k2,k4,k3,k5,e2e",
+    ap.add_argument("--rows", default="k2,k4,k3,k5,k1,e2e",
                     help="comma-separated rows to time (default: all)")
     return ap.parse_args()
 
@@ -147,6 +152,48 @@ def k5(torch, ops, scrub) -> dict:
     return out
 
 
+def _k1_reading(torch, fn, scrub) -> dict:
+    """Card ms, K1's device ms, the call's device busy ms and its host ms
+    (synchronised, median of 3 after a warm call) of ``fn``."""
+    def host():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    host()
+    return dict(ms=cs.time_ms(fn, scrub=scrub),
+                device_ms=cs.device_ms(fn, key="drain_kernel"),
+                busy_ms=cs.device_ms(fn),
+                host_ms=float(np.median([host() for _ in range(3)])))
+
+
+def k1(torch, ops, scrub) -> dict:
+    from repro_torch.launch import mechanisms
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    pools, zero_blocks, table, primary = cs.k1_serving_case(gen)
+    out = {"serving": _k1_reading(torch, lambda: ops.fused_dispatch(
+        pools, zero_blocks, table, block_axis=1, primary=primary,
+        use_kernel=True), scrub)}
+    del pools
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
+    shape = (cs.FLAT_NBLK, 64, 8, 128)
+    k, v = cs._bf16_pool(shape, gen), cs._bf16_pool(shape, gen)
+    stage = [cs._bf16_pool((64,) + shape[1:], gen) for _ in range(2)]
+    eng = cs.ab_engine(k, v, stage, True)
+    del k, v
+    mechanisms.drive(eng, mechanisms.ab_program(cs.FLAT_NBLK))
+    rows = eng.journal.records[-1].rows
+    out["ab_flush"] = _k1_reading(torch, lambda: eng._drain_rows(rows),
+                                  scrub)
+    out["ab_flush"]["rows"] = sum(1 for r in rows if r[0] >= 0)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def _host_and_device(torch, run, setup=lambda: None) -> dict:
     """Host ms of ``run(setup())`` (synchronised, median of 3 after a warm
     call; ``setup`` untimed) and the device ms of one call (``device_ms``
@@ -227,7 +274,8 @@ def main() -> int:
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = args.rows.split(",")
     out = {"tag": args.tag, "src": args.src, "smi": smi.stdout.strip()}
-    for name, row in (("k2", k2), ("k4", k4), ("k3", k3), ("k5", k5)):
+    for name, row in (("k2", k2), ("k4", k4), ("k3", k3), ("k5", k5),
+                      ("k1", k1)):
         if name in rows:
             out[name] = row(torch, ops, scrub)
     del scrub

@@ -11,12 +11,26 @@ Phases (each raises on failure; the script then exits non-zero):
    holds the design constants the CPU tests emulate (K2's split count,
    page and group limits, K4's heads per CTA) equal to the libraries' own,
    counts K3's and K4's tensor-core instructions (``HGMMA`` in
-   ``cuobjdump -sass``; none in either fails the run) and K5's and K6's
-   bulk copies (``UBLKCP``; none fails the run).
+   ``cuobjdump -sass``; none in either fails the run) and K1's, K5's and
+   K6's bulk copies (``UBLKCP``; none fails the run), and holds K1's design
+   constants (``fused_dispatch.constants``) equal to the library's.
 2. K1, the fused command drain, against its plain version at the serving
    pool shapes (four bf16 pools ``(28, nblk, 64, 8, 128)`` and the staging
    ring): every opcode, NOP padding, non-adjacent write-after-read pairs
-   (three waves) and a staging role vector; bitwise equality.
+   (three waves) and a staging role vector; bitwise equality, card,
+   device-only and plain ms beside the byte bound, the wrapper's host ms
+   in stages (checks, the library's plan, the whole call) and a profile
+   of one call (one launch, no host-to-device copy, no pinned
+   allocation).  Then the library's plan (``rc_fused_plan``) against the
+   Python statement (``plan_moves``, ``chunking``) on 1,000 seeded random
+   tables of at most 512 rows (WAR pairs and chains across plain,
+   cross-pool, bitwise and staging rows, packed and in-place bitwise
+   sources, RAW / WAW tables refused with the Python message, int32 and
+   int64, every tenth on a grid of one CTA), each drained by the kernel
+   over small pools against the plain version, bitwise; a 512-row table at
+   full width (its moves through the device buffer); unaligned pages at
+   float32 / bfloat16 / int32 and a base 4 bytes off (the word loop); and a
+   table of NOPs only (no launch).
 3. K2, paged decode attention, against its plain version at B=8, H=24,
    KVH=8, D=128, page=64, with CoW-shared blocks and an empty slot, on
    three slabs (``K2_LAYOUTS``: the serving layout, one sequence over 64
@@ -55,12 +69,16 @@ Phases (each raises on failure; the script then exits non-zero):
    (``launch/mechanisms.py ab_program``: every mechanism, 419 rows) through
    two engines over identical full-width flat pools; pools bitwise equal, 1
    launch per flush fused and ``AB_FANOUT_LAUNCHES`` fanned out (the count
-   the CPU tests pin against the JAX engine); ms per flush of each.  The
-   fan-out run is K5a's, K5b's and K6's main path: their launch counts are
-   read around it.
+   the CPU tests pin against the JAX engine); ms per flush of each, the
+   fused flush's card ms, K1's device ms and bound, its host ms in stages
+   (``space_war_rows``, the table and ``_touched_pools``,
+   ``ops.fused_dispatch``, the whole ``_drain_rows``) and K1's wrapper
+   stages on its table.  The fan-out run is K5a's, K5b's and K6's main
+   path, the fused run K1's: their launch counts are read around each.
 8. Table 1 (``launch/mechanisms.py run``) on a phase-6 pool, m = 8 and 256,
    and Fig. 2 (``launch/applications.py run``) at llama3.2-3b full width
-   with phase 5's weights, RowClone off and on.
+   with phase 5's weights, RowClone off and on (a main path of K1: its
+   launches are counted).
 9. K4, the SSD intra-chunk term, against its plain version with bf16 x / B
    / C and fp32 dt / cum as the models pass them: 8 chunk rows of Q = 256
    at mamba2-780m's (H = 48, N = 128) and zamba2-2.7b's (H = 80, N = 64)
@@ -194,7 +212,8 @@ def phase_device():
             + ", ".join(f"{n} {op}" for op, n in count.items()))
         if not count["HGMMA"]:
             raise AssertionError(f"{kernel} has no wgmma (HGMMA) instruction")
-    for kernel, lib in (("K5", "fpm_copy"), ("K6", "zero_init")):
+    for kernel, lib in (("K1", "fused_dispatch"), ("K5", "fpm_copy"),
+                        ("K6", "zero_init")):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(build.library_path(lib))],
             capture_output=True, text=True, check=True).stdout.splitlines()
@@ -203,16 +222,26 @@ def phase_device():
             "UBLKCP (bulk copy)")
         if not n:
             raise AssertionError(f"{kernel} has no bulk copy (UBLKCP)")
+    from repro_torch.kernels import fused_dispatch as fd
+    lib_consts, py_consts = fd.library_constants(), fd.constants()
+    for name, value in py_consts.items():
+        if lib_consts[name] != value:
+            raise AssertionError(f"fused_dispatch.{name} = {value}, library "
+                                 f"{lib_consts[name]}")
+    log(f"[build] K1 constants equal the library's: {lib_consts}")
     return smi
 
 
-def phase_k1(scrub):
+def k1_serving_case(gen):
+    """Phase 2's serving pools and table (also ``chip_ab.py``'s ``k1``
+    row): K and V ``(28, 512, 64, 8, 128)`` bf16, a staging ring of 64
+    blocks for each, and a 32-row table of 16 rows (every opcode, NOP
+    padding, staging roles, non-adjacent write-after-read pairs: three
+    waves).  Returns (pools, zero_blocks, table, primary)."""
     from repro_torch.core.opcodes import pack_bitwise_src
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.fused_dispatch import wave_schedule
+    from repro_torch.kernels import ref
     L, nblk, ring, page, kvh, D = 28, MAX_SEQS * MAX_BLOCKS_PER_SEQ, \
         MAX_BLOCKS_PER_SEQ, 64, 8, 128
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def pool(n):
         return torch.randn((L, n, page, kvh, D), generator=gen,
@@ -220,8 +249,7 @@ def phase_k1(scrub):
 
     pools = [pool(nblk), pool(nblk), pool(ring), pool(ring)]
     primary = (True, True, False, False)
-    sizes = [nblk, nblk, ring, ring]
-    bases, total, _ = ref.address_space(sizes)
+    bases, total, _ = ref.address_space([nblk, nblk, ring, ring])
     K, V, KS, VS = bases
     pk = lambda a, b: pack_bitwise_src(a, b, total)   # noqa: E731
     rows = [
@@ -235,45 +263,384 @@ def phase_k1(scrub):
         (0, 102, 100),            # WAR on (0, 100, 101): wave 1
         (3, -1, 102),             # WAR on the row above: wave 2
     ]
-    live = [r for r in rows if r[0] >= 0]
-    waves = wave_schedule(live, sizes, primary)
     table = np.full((32, 3), -1, np.int32)
     table[:len(rows)] = rows
     zero_blocks = [torch.zeros((1, page, kvh, D), dtype=torch.bfloat16,
                                device="cuda") for _ in pools]
+    return pools, zero_blocks, table, primary
+
+
+#: bytes a move reads, by kind (COPY, ZERO, AND, OR, NOT)
+K1_READS = (1, 0, 2, 2, 1)
+
+
+def k1_bytes(table, sizes, primary, layers: int, page_bytes: int) -> int:
+    """Bytes a drain of ``table`` must move: each move reads its sources'
+    pages once and writes its destination's, in every layer."""
+    from repro_torch.kernels import fused_dispatch as fd
+    moves, _ = fd.plan_moves(table, sizes, primary)
+    return int(sum(K1_READS[k] + 1 for k in moves[:, 0])) * layers * \
+        page_bytes
+
+
+def _k1_host_stages(pools, table, primary, block_axis, scrub,
+                    reps: int = 20) -> dict:
+    """K1's host work per call, stage by stage on the host clock (median of
+    ``reps`` calls, each behind a queued ``scrub`` fill): the wrapper's
+    checks (pool geometry, the table as a host array, the pool records),
+    the library's plan alone (``rc_fused_plan`` through ``plan``, its
+    Python call included), and one whole call of ``ops.fused_dispatch``."""
+    from repro_torch.kernels import fpm_copy as fc
+    from repro_torch.kernels import fused_dispatch as fd
+    from repro_torch.kernels import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sizes = [int(p.shape[block_axis]) for p in pools]
+    names = ("checks", "plan", "wrapper")
+    times = {k: [] for k in names}
+    for _ in range(reps):
+        scrub.zero_()
+        t0 = time.perf_counter()
+        layers, page_bytes, word = fc.block_geometry(pools, block_axis)
+        fc.id_array(table, 3)
+        fd._records(sizes, primary, [p.data_ptr() for p in pools])
+        t1 = time.perf_counter()
+        fd.plan(table, sizes, primary, layers=layers, page_bytes=page_bytes,
+                bulk=word == 16, sms=sms)
+        t2 = time.perf_counter()
+        scrub.zero_()
+        t3 = time.perf_counter()
+        ops.fused_dispatch(pools, [], table, block_axis=block_axis,
+                           primary=primary, use_kernel=True)
+        t4 = time.perf_counter()
+        torch.cuda.synchronize()
+        for k, a, b in zip(names, (t0, t1, t3), (t1, t2, t4)):
+            times[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def _k1_held(pools, zero_blocks, table, primary, what, block_axis=1,
+             max_grid=0, fresh=torch.clone) -> None:
+    """K1 on copies (``fresh``) of ``pools`` against its plain version,
+    bitwise, with ONE launch (none for a table without moves)."""
+    from repro_torch.kernels import fused_dispatch as fd
+    from repro_torch.kernels import ref
     want = [p.clone() for p in pools]
-    ref.fused_dispatch(want, zero_blocks, table, block_axis=1,
+    ref.fused_dispatch(want, zero_blocks, table, block_axis=block_axis,
                        primary=primary)
-    ops.fused_dispatch(pools, zero_blocks, table, block_axis=1,
-                       primary=primary, use_kernel=True)
+    got = [fresh(p) for p in pools]
+    before = fd.COUNTER.n
+    fd.fused_dispatch_cuda(got, table, block_axis=block_axis,
+                           primary=primary, max_grid=max_grid)
     torch.cuda.synchronize()
-    bad = [i for i, (a, b) in enumerate(zip(pools, want))
-           if not torch.equal(a.view(torch.int16), b.view(torch.int16))]
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not _bitwise_equal(a, b)]
     if bad:
         raise AssertionError(f"K1 differs from its plain version in pools "
-                             f"{bad}")
-    page_bytes = page * kvh * D * 2
-    moved = 0
-    for op, s, d in live:
-        pages = 2 if op <= 3 else 1          # plain rows: both primaries
-        reads = 0 if op == 3 else (2 if op in (5, 6) else 1)
-        moved += pages * L * page_bytes * (reads + 1)
-    ms = time_ms(lambda: ops.fused_dispatch(
-        pools, zero_blocks, table, block_axis=1, primary=primary,
-        use_kernel=True), scrub=scrub)
+                             f"{bad} ({what})")
+    launches = fd.COUNTER.n - before
+    if launches != (1 if fd.last_out[1] else 0):
+        raise AssertionError(f"K1: {launches} launches for "
+                             f"{int(fd.last_out[1])} moves ({what})")
+    del want, got
+
+
+#: tables of phase 2's plan check, and the most rows of one
+K1_TABLES, K1_ROWS = 1000, 512
+#: pools of the plan check: two primaries and two staging pools (blocks)
+K1_SIZES, K1_PRIMARY = (600, 600, 64, 64), (True, True, False, False)
+
+
+def _random_k1_table(rng, sizes, primary, m):
+    """One ``(m, 3)`` table of the plan check: every opcode, NOP padding
+    (``op < 0``, and ``dst < 0`` under a live opcode), write-after-read
+    pairs and chains (a row often writes a block an earlier row read: plain
+    rows over cross-pool, bitwise and staging reads, and the reverse),
+    packed bitwise sources (in place too), and with probability 0.1 a
+    RAW or WAW row at the end; int32 or int64."""
+    from repro_torch.kernels import ref
+    bases, total, _ = ref.address_space(sizes)
+    prim = [p for p, r in enumerate(primary) if r]
+    nprim = min(sizes[p] for p in prim)
+    w_all, w_pool, reads, rows = set(), set(), [], []
+
+    def written(key):
+        p, b = key
+        if p < 0:
+            return b in w_all or any((q, b) in w_pool for q in prim)
+        return (p, b) in w_pool or (primary[p] and b in w_all)
+
+    def any_key():
+        p = int(rng.integers(len(sizes)))
+        return p, int(rng.integers(sizes[p]))
+
+    def gid(key):
+        return bases[key[0]] + key[1]
+
+    for _ in range(4 * m):
+        if len(rows) >= m:
+            break
+        r = rng.random()
+        if r < 0.1:
+            rows.append((-1, -1, -1) if r < 0.08 else
+                        (int(rng.integers(0, 8)), int(rng.integers(0, 9)),
+                         -1))
+            continue
+        op = int(rng.choice([0, 1, 2, 3, 4, 4, 4, 5, 6, 7]))
+        if reads and rng.random() < 0.4:
+            dkey = reads[int(rng.integers(len(reads)))]   # a WAR pair
+        else:
+            dkey = (-1, int(rng.integers(nprim))) if op <= 3 else any_key()
+        if op <= 3:
+            if dkey[0] >= 0 and not primary[dkey[0]] or dkey[1] >= nprim:
+                continue
+            dkey = (-1, dkey[1])
+            s = -1 if op == 3 else int(rng.integers(nprim))
+            rkeys = [] if op == 3 else [(-1, s)]
+            d = dkey[1]
+        else:
+            if dkey[0] < 0:
+                dkey = (prim[int(rng.integers(len(prim)))], dkey[1])
+            d = gid(dkey)
+            if op == 4:
+                rkeys = [any_key()]
+                s = gid(rkeys[0])
+            else:
+                ka = dkey if rng.random() < 0.1 else any_key()  # in place
+                kb = ka if op == 7 else any_key()
+                s = gid(ka) * total + gid(kb)
+                rkeys = [ka] if ka == kb else [ka, kb]
+        if written(dkey) or any(written(k) for k in rkeys):
+            continue
+        rows.append((op, s, d))
+        if dkey[0] < 0:
+            w_all.add(dkey[1])
+        else:
+            w_pool.add(dkey)
+        reads.extend(k for k in rkeys if k != dkey)
+    hit = [(-1, b) for b in w_all] + sorted(w_pool)
+    if hit and rng.random() < 0.1:        # break the contract on purpose
+        key = hit[int(rng.integers(len(hit)))]
+        if key[0] < 0:
+            key = (prim[0], key[1])
+        if rng.random() < 0.5:             # WAW
+            rows.append((4, gid(any_key()), gid(key)))
+        else:                              # RAW
+            rows.append((4, gid(key), gid(any_key())))
+    dtype = np.int32 if rng.random() < 0.5 else np.int64
+    return np.asarray(rows, dtype).reshape(-1, 3)
+
+
+def phase_k1_plan():
+    """Phase 2b: the library's plan (``rc_fused_plan``) against
+    ``plan_moves`` / ``chunking`` on :data:`K1_TABLES` seeded random
+    tables of at most :data:`K1_ROWS` rows over :data:`K1_SIZES` (int32
+    and int64), each then drained by the kernel over small bf16 pools
+    (4 KiB pages in 2 layers, or 48 KiB pages, two chunks) against the
+    plain version, bitwise, or refused with the Python message; every
+    tenth table runs on a grid of 1, so that every kind of move goes
+    through one CTA."""
+    from repro_torch.kernels import fused_dispatch as fd
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    sets = {shape: ([torch.randn((shape[0], n, shape[1]), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for n in K1_SIZES]) for shape in ((2, 2048), (1, 24576))}
+    counts = dict(tables=0, refused=0, multi_wave=0, deepest=0, moves=0,
+                  above_params=0, grid1=0)
+    for t in range(K1_TABLES):
+        layers, width = ((2, 2048), (1, 24576))[t % 2]
+        pools = sets[(layers, width)]
+        page_bytes = width * 2
+        zb = [torch.zeros((1, width), dtype=torch.bfloat16, device="cuda")
+              for _ in pools]
+        m = int(rng.integers(1, K1_ROWS + 1))
+        table = _random_k1_table(rng, K1_SIZES, K1_PRIMARY, m)
+        max_grid = 1 if t % 10 == 9 else 0
+        try:
+            want, waves = fd.plan_moves(table, K1_SIZES, K1_PRIMARY)
+            msg = None
+        except ValueError as e:
+            msg = str(e)
+        code, moves, out = fd.plan(table, K1_SIZES, K1_PRIMARY,
+                                   layers=layers, page_bytes=page_bytes,
+                                   bulk=True, sms=sms, max_grid=max_grid)
+        counts["tables"] += 1
+        if msg is not None:
+            counts["refused"] += 1
+            if code not in (fd.RAW, fd.WAW):
+                raise AssertionError(f"table {t}: Python refused ({msg}), "
+                                     f"library code {code}")
+            try:
+                fd.fused_dispatch_cuda(pools, table, block_axis=1,
+                                       primary=K1_PRIMARY)
+            except ValueError as e:
+                if str(e) != msg:
+                    raise AssertionError(f"table {t}: message {e!r}, "
+                                         f"Python {msg!r}")
+            else:
+                raise AssertionError(f"table {t}: the wrapper did not "
+                                     "refuse")
+            continue
+        chunk, _, items, grid = fd.chunking(len(want), layers, page_bytes,
+                                            bulk=True, sms=sms)
+        if max_grid:
+            grid = min(grid, max_grid)
+        n_waves = max(waves) + 1 if waves else 0
+        expect = [len(waves), len(want), items, grid, chunk, n_waves, 1, -1]
+        if code or not np.array_equal(moves, want) or \
+                out.tolist() != expect:
+            raise AssertionError(f"table {t}: library plan differs (code "
+                                 f"{code}, out {out.tolist()}, Python "
+                                 f"{expect})")
+        counts["moves"] += len(want)
+        counts["above_params"] += len(want) > fd.MOVE_CAPACITY
+        counts["grid1"] += bool(max_grid)
+        if n_waves > 1:
+            counts["multi_wave"] += 1
+            counts["deepest"] = max(counts["deepest"], n_waves)
+        _k1_held(pools, zb, table, K1_PRIMARY, f"plan-check table {t}",
+                 max_grid=max_grid)
+    del sets
+    log(f"[K1 plan] {counts['tables']} tables (<= {K1_ROWS} rows, "
+        f"{counts['moves']} moves, {counts['above_params']} above the "
+        f"parameters' {fd.MOVE_CAPACITY} moves, {counts['grid1']} on a grid "
+        f"of 1): library plan equal to plan_moves / chunking; "
+        f"{counts['refused']} refused with the Python message; "
+        f"{counts['multi_wave']} multi-wave (up to {counts['deepest']} "
+        "waves); pools bitwise equal to the plain version")
+
+
+def phase_k1(scrub):
+    """Phase 2: K1 on the serving table (bitwise, card / device / plain
+    ms, the byte bound, host stages, a profile of one call), the plan
+    check, a 512-row table at full width, unaligned pages, and a table of
+    NOPs only."""
+    from repro_torch.kernels import fused_dispatch as fd
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    pools, zero_blocks, table, primary = k1_serving_case(gen)
+    sizes = [int(p.shape[1]) for p in pools]
+    L, page_bytes = int(pools[0].shape[0]), pools[0][0, 0].nbytes
+    _k1_held(pools, zero_blocks, table, primary, "serving table")
+    out = fd.last_out.tolist()
+    _, waves = fd.plan_moves(table, sizes, primary)
+
+    def kern():
+        ops.fused_dispatch(pools, zero_blocks, table, block_axis=1,
+                           primary=primary, use_kernel=True)
+
+    moved = k1_bytes(table, sizes, primary, L, page_bytes)
+    ms = time_ms(kern, scrub=scrub)
+    dev = device_ms(kern, key="drain_kernel")
     plain_ms = time_ms(lambda: ops.fused_dispatch(
         pools, zero_blocks, table, block_axis=1, primary=primary,
         use_kernel=False), reps=5, scrub=scrub)
     bound = moved / HBM_BYTES_PER_S * 1e3
-    log(f"[K1] bitwise equal to plain on {len(live)} rows "
-        f"({max(waves) + 1} waves); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({moved} bytes)")
-    del pools, want
+    log(f"[K1] bitwise equal to plain on {len(waves)} rows "
+        f"({max(waves) + 1} waves, {out[1]} moves, chunk {out[4]} B, "
+        f"{out[2]} items, grid {out[3]}, bulk {out[6]}); kernel {ms:.4f} "
+        f"ms (device only {_fmt_ms(dev)}), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({moved} bytes)")
+    st = _k1_host_stages(pools, table, primary, 1, scrub)
+    log("[K1] serving table host ms per call (median of 20): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in st.items()))
+    trace = _profile_one_call(kern)
+    launches = sum(n for k, n in trace["runtime"].items()
+                   if "LaunchKernel" in k)
+    log(f"[K1] profile of one call ({out[1]} moves, within the parameters' "
+        f"{fd.MOVE_CAPACITY}): device events {trace['device']}, runtime "
+        f"calls {trace['runtime']}; host-to-device copies or pinned "
+        f"allocations: {trace['bad'] or 'none'}")
+    if trace["bad"] or (trace["runtime"] and launches != 1):
+        raise AssertionError(f"K1: {launches} launches, copies or pinned "
+                             f"memory {trace['bad']} in one call")
+    del pools
+    torch.cuda.empty_cache()
+    phase_k1_plan()
+    # a full bucket of 512 rows at full width: above the parameters' room
+    pools, zero_blocks, _, primary = k1_serving_case(gen)
+    sizes = [int(p.shape[1]) for p in pools]
+    rng = np.random.default_rng(SEED + 12)
+    big = np.full((512, 3), -1, np.int32)
+    rows = _random_k1_table(rng, sizes, primary, 512)
+    while len(rows) < 300 or not _k1_contract(rows, sizes, primary):
+        rows = _random_k1_table(rng, sizes, primary, 512)
+    big[:len(rows)] = rows
+    _k1_held(pools, zero_blocks, big, primary, "512-row table")
+    out = fd.last_out.tolist()
+    fn = lambda: ops.fused_dispatch(   # noqa: E731
+        pools, zero_blocks, big, block_axis=1, primary=primary,
+        use_kernel=True)
+    big_ms, big_dev = time_ms(fn, scrub=scrub), device_ms(fn, "drain_kernel")
+    big_bound = k1_bytes(big, sizes, primary, L, page_bytes) / \
+        HBM_BYTES_PER_S * 1e3
+    log(f"[K1] 512-row table ({out[0]} live rows, {out[1]} moves through "
+        f"the device buffer, {out[5]} waves): bitwise equal to plain, one "
+        f"launch; kernel {big_ms:.4f} ms (device only {_fmt_ms(big_dev)}), "
+        f"bound {big_bound:.4f} ms")
+    # a table of NOPs only (and live opcodes with dst -1): no launch
+    nops = np.full((32, 3), -1, np.int32)
+    nops[::3, 0] = 0
+    before = [p.clone() for p in pools]
+    n0 = fd.COUNTER.n
+    ops.fused_dispatch(pools, zero_blocks, nops, block_axis=1,
+                       primary=primary, use_kernel=True)
+    torch.cuda.synchronize()
+    if fd.COUNTER.n != n0 or not all(_bitwise_equal(a, b)
+                                     for a, b in zip(pools, before)):
+        raise AssertionError("K1 launched or wrote for a table of NOPs")
+    del pools, before
+    torch.cuda.empty_cache()
+    # unaligned pages (the word loop) and a base 4 bytes off
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        pools = [(torch.randn((n, 3, 17), generator=gen, device="cuda")
+                  * 100).to(dtype) for n in K1_SIZES]
+        zb = [torch.zeros((1, 3, 17), dtype=dtype, device="cuda")
+              for _ in pools]
+        table = _k1_contract_table(rng, K1_SIZES, K1_PRIMARY, 256)
+        _k1_held(pools, zb, table, K1_PRIMARY, f"{dtype} pages of "
+                 f"{pools[0][0].nbytes} bytes", block_axis=0)
+        if fd.last_out[6]:
+            raise AssertionError("an unaligned page took the bulk path")
+    pools = [torch.randn((n, 8, 128), generator=gen, device="cuda")
+             for n in K1_SIZES]
+    zb = [torch.zeros((1, 8, 128), device="cuda") for _ in pools]
+    table = _k1_contract_table(rng, K1_SIZES, K1_PRIMARY, 256)
+    _k1_held(pools, zb, table, K1_PRIMARY, "a base 4 bytes off",
+             block_axis=0, fresh=_offset_copy)
+    if fd.last_out[6]:
+        raise AssertionError("a base 4 bytes off took the bulk path")
+    log("[K1] unaligned pages (float32 / bfloat16 / int32, 204 / 102 / 204 "
+        "bytes) and a base 4 bytes off: bitwise equal to plain through the "
+        "word loop; a table of NOPs: no launch")
+    del pools
     return dict(name="fused_dispatch", source="src/repro_torch/csrc/"
                 "fused_dispatch.cu",
                 replaces="src/repro/kernels/fused_dispatch.py:406",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", library_ms=None)
+                max_abs_err=0.0, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=None)
+
+
+def _k1_contract(table, sizes, primary) -> bool:
+    """Does ``table`` keep the contract (no RAW or WAW pair)?"""
+    from repro_torch.kernels.fused_dispatch import wave_schedule
+    live = [r for r in np.asarray(table, np.int64).tolist()
+            if r[0] >= 0 and r[2] >= 0]
+    try:
+        wave_schedule(live, sizes, primary)
+    except ValueError:
+        return False
+    return True
+
+
+def _k1_contract_table(rng, sizes, primary, m):
+    """A random table of :func:`_random_k1_table` that keeps the
+    contract."""
+    while True:
+        table = _random_k1_table(rng, sizes, primary, m)
+        if _k1_contract(table, sizes, primary):
+            return table
 
 
 #: K2 slab layouts of phases 2 and 9 (slot B-1 stays empty in each):
@@ -1033,28 +1400,70 @@ def phase_copy_kernels(scrub):
     return out, pools[0][0]
 
 
-def phase_ab(flat):
-    """Phase 7: the fused drain against the fan-out over identical pools.
-    Returns the launch counts of the fan-out run (the copy kernels' main
-    path)."""
+def ab_engine(k, v, stage, use_fused: bool):
+    """Phase 7's engine (also ``chip_ab.py``'s ``k1`` row) over copies of
+    the flat pools ``k``, ``v`` and the two staging pools ``stage``: the
+    fused drain, or the fan-out."""
     from repro_torch.core.allocator import SubarrayAllocator
     from repro_torch.core.rowclone import RowCloneEngine
+    pools = {"k": k.clone(), "v": v.clone(), "k_stage": stage[0].clone(),
+             "v_stage": stage[1].clone()}
+    return RowCloneEngine(pools, SubarrayAllocator(FLAT_NBLK, 4),
+                          use_fused=use_fused,
+                          staging={"k_stage": "k", "v_stage": "v"})
+
+
+def _fused_flush_stages(eng, rows, scrub, reps: int = 20) -> dict:
+    """The host work of one fused flush of ``rows`` (one chunk), stage by
+    stage on the host clock (median of ``reps``, each behind a queued
+    ``scrub`` fill): the WAR spacing (``space_war_rows``), the padded table
+    and the written-pool set (``_touched_pools``), ``ops.fused_dispatch``,
+    and one whole ``_drain_rows``."""
+    from repro_torch.core.cmdqueue import bucket_size, space_war_rows
+    from repro_torch.core.opcodes import OP_NOP
+    from repro_torch.kernels import ops
+    g = eng.group
+    names = ("space_war_rows", "table_and_touched_pools", "fused_dispatch",
+             "drain_rows")
+    times = {k: [] for k in names}
+    for _ in range(reps):
+        scrub.zero_()
+        t0 = time.perf_counter()
+        spaced = space_war_rows([(int(op), int(s), int(d))
+                                 for op, s, d in rows], g.locate, g.primary,
+                                g.total_blocks)
+        t1 = time.perf_counter()
+        table = np.full((bucket_size(len(spaced)), 3), OP_NOP, np.int32)
+        table[:len(spaced)] = np.asarray(spaced, np.int32)
+        eng._touched_pools([tuple(r) for r in table.tolist() if r[0] >= 0])
+        t2 = time.perf_counter()
+        ops.fused_dispatch(tuple(eng.pools.values()), eng._get_zero_blocks(),
+                           table, block_axis=eng.block_axis,
+                           primary=g.primary)
+        t3 = time.perf_counter()
+        scrub.zero_()
+        t4 = time.perf_counter()
+        eng._drain_rows(rows)
+        t5 = time.perf_counter()
+        torch.cuda.synchronize()
+        for k, a, b in zip(names, (t0, t1, t2, t4), (t1, t2, t3, t5)):
+            times[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def phase_ab(flat, scrub):
+    """Phase 7: the fused drain against the fan-out over identical pools.
+    Returns the launch counts of the fan-out run (the copy kernels' main
+    path) and of the fused run (K1's)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import mechanisms
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     v = _bf16_pool(flat.shape, gen)
     stage = [_bf16_pool((64,) + tuple(flat.shape[1:]), gen)
              for _ in range(2)]
-
-    def engine(use_fused):
-        pools = {"k": flat.clone(), "v": v.clone(),
-                 "k_stage": stage[0].clone(), "v_stage": stage[1].clone()}
-        return RowCloneEngine(pools, SubarrayAllocator(FLAT_NBLK, 4),
-                              use_fused=use_fused,
-                              staging={"k_stage": "k", "v_stage": "v"})
-
     prog = mechanisms.ab_program(FLAT_NBLK)
-    fanout, fused = engine(False), engine(True)
+    fanout, fused = ab_engine(flat, v, stage, False), \
+        ab_engine(flat, v, stage, True)
     counters = ops.KERNEL_COUNTERS
     for c in counters.values():
         c.reset()
@@ -1094,8 +1503,29 @@ def phase_ab(flat):
         times[use_fused].append((time.perf_counter() - t0) * 1e3)
     dev = {f: device_ms(lambda: e._drain_rows(rows), reps=3)
            for f, e in ((True, fused), (False, fanout))}
+    k1_dev = device_ms(lambda: fused._drain_rows(rows), key="drain_kernel",
+                       reps=3)
     log(f"[A/B] device time per flush (profiler): fused "
-        f"{_fmt_ms(dev[True])}, fan-out {_fmt_ms(dev[False])}")
+        f"{_fmt_ms(dev[True])} (K1 {_fmt_ms(k1_dev)}), fan-out "
+        f"{_fmt_ms(dev[False])}")
+    from repro_torch.kernels import fused_dispatch as fd
+    table = np.asarray([r for r in rows if r[0] >= 0], np.int32)
+    sizes = [int(p.shape[fused.block_axis]) for p in fused.pools.values()]
+    bound = k1_bytes(table, sizes, fused.group.primary, 1,
+                     flat[0].nbytes) / HBM_BYTES_PER_S * 1e3
+    ms = time_ms(lambda: fused._drain_rows(rows), scrub=scrub)
+    log(f"[A/B] fused flush of {n_live} rows: card {ms:.4f} ms (CUDA "
+        f"events around _drain_rows), K1 device {_fmt_ms(k1_dev)}, bound "
+        f"{bound:.4f} ms")
+    st = _fused_flush_stages(fused, rows, scrub)
+    log("[A/B] fused flush host ms (median of 20): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in st.items()))
+    pools = tuple(fused.pools.values())
+    st = _k1_host_stages(pools, table, fused.group.primary,
+                         fused.block_axis, scrub)
+    log(f"[A/B] K1 wrapper host ms on the {len(table)}-row table ("
+        f"{int(fd.last_out[1])} moves, median of 20): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in st.items()))
     log(f"[A/B] {n_live} rows in one flush: fused {n_fused} "
         f"launch, fan-out {n_fanout} launches (pinned "
         f"{mechanisms.AB_FANOUT_LAUNCHES}); ms per flush (host clock, "
@@ -1113,7 +1543,7 @@ def phase_ab(flat):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"A/B checks failed: {failed} (pools {bad})")
-    return launches
+    return launches, fused_launches
 
 
 def phase_table1(flat):
@@ -1125,9 +1555,16 @@ def phase_table1(flat):
 
 
 def phase_fig2(cfg, params):
-    """Phase 8b: Fig. 2 at full width, RowClone off and on."""
+    """Phase 8b: Fig. 2 at full width, RowClone off and on.  Returns the
+    launch counts of the run (K1's fused drains)."""
+    from repro_torch.kernels import ops
     from repro_torch.launch import applications
+    for c in ops.KERNEL_COUNTERS.values():
+        c.reset()
+    torch.cuda.synchronize()
     rows = applications.run(cfg, params, device="cuda")
+    torch.cuda.synchronize()
+    launches = {n: c.n for n, c in ops.KERNEL_COUNTERS.items()}
     for r in rows:
         log("[fig2] " + json.dumps(r))
     by = {(r["app"], r["rowclone"]): r for r in rows}
@@ -1146,6 +1583,9 @@ def phase_fig2(cfg, params):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"Fig-2 checks failed: {failed}")
+    log("[fig2] launch counters: " + " ".join(
+        f"{k}={v}" for k, v in launches.items() if v))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1520,11 +1960,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     copy_kernels, flat = phase_copy_kernels(scrub)
     torch.cuda.empty_cache()
-    paths["fan-out drain (A/B)"] = phase_ab(flat)
+    paths["fan-out drain (A/B)"], paths["fused drain (A/B)"] = \
+        phase_ab(flat, scrub)
     phase_table1(flat)
     del flat
     torch.cuda.empty_cache()
-    phase_fig2(cfg, params)
+    paths["Fig. 2"] = phase_fig2(cfg, params)
     del params
     torch.cuda.empty_cache()
     k4 = phase_k4(scrub)

@@ -1,6 +1,8 @@
 // Shared body of K5 (csrc/fpm_copy.cu) and K6 (csrc/zero_init.cu): one
 // launch moves (or zeroes) a list of blocks of one pool, in place, and the
-// host schedule that prepares it.
+// host schedule that prepares it.  K1 (csrc/fused_dispatch.cu) drains its
+// command tables with the device pieces below (bulk copies, the ring's
+// waits, the wave gate, the word loop, `leave`) and the same chunking.
 //
 // A block is `layers` pages of `page_bytes` each; page `layer` of block `b`
 // lies at base + (layer * nblk + b) * page_bytes, so a layer-stacked pool
@@ -127,12 +129,17 @@ __device__ __forceinline__ void add_release(unsigned long long* p) {
 // launch fails and the wrapper raises) rather than hang the card
 constexpr long long kSpinLimit = 1LL << 26;
 
-__device__ __forceinline__ void wait_gate(const Params& p,
-                                          unsigned long long gate) {
-  for (long long spins = 0; ld_acquire(p.counters + 1) < gate; ++spins) {
+__device__ __forceinline__ void wait_count(const unsigned long long* count,
+                                           unsigned long long gate) {
+  for (long long spins = 0; ld_acquire(count) < gate; ++spins) {
     if (spins > kSpinLimit) __trap();
     __nanosleep(64);
   }
+}
+
+__device__ __forceinline__ void wait_gate(const Params& p,
+                                          unsigned long long gate) {
+  wait_count(p.counters + 1, gate);
 }
 
 // wait until the phase of parity `parity` of the mbarrier at `bar` completes
@@ -239,37 +246,74 @@ __device__ __forceinline__ void zero_bulk(const Params& p, char* smem,
   bulk_wait_all();
 }
 
-template <typename Word, bool kZero>
-__device__ __forceinline__ void move_words(const char* src, char* dst,
-                                           long long nbytes) {
+// what a word loop writes: a copy of `a`, zero bytes, or a AND / OR b, or
+// NOT a, on the raw bits
+enum WordOp { kOpCopy = 0, kOpZero = 1, kOpAnd = 2, kOpOr = 3, kOpNot = 4 };
+
+template <int kOp, typename Lane>
+__device__ __forceinline__ Lane lane_op(Lane a, Lane b) {
+  if (kOp == kOpZero) return Lane(0);
+  if (kOp == kOpAnd) return Lane(a & b);
+  if (kOp == kOpOr) return Lane(a | b);
+  if (kOp == kOpNot) return Lane(~a);
+  return a;
+}
+
+template <int kOp>
+__device__ __forceinline__ int4 word_op(int4 a, int4 b) {
+  return make_int4(lane_op<kOp>(a.x, b.x), lane_op<kOp>(a.y, b.y),
+                   lane_op<kOp>(a.z, b.z), lane_op<kOp>(a.w, b.w));
+}
+
+template <int kOp>
+__device__ __forceinline__ int2 word_op(int2 a, int2 b) {
+  return make_int2(lane_op<kOp>(a.x, b.x), lane_op<kOp>(a.y, b.y));
+}
+
+template <int kOp, typename Word>
+__device__ __forceinline__ Word word_op(Word a, Word b) {
+  return lane_op<kOp>(a, b);
+}
+
+template <typename Word, int kOp>
+__device__ __forceinline__ void move_words(const char* a, const char* b,
+                                           char* dst, long long nbytes) {
   const long long n = nbytes / (long long)sizeof(Word);
-  const Word* s = reinterpret_cast<const Word*>(src);
+  const Word* sa = reinterpret_cast<const Word*>(a);
+  const Word* sb = reinterpret_cast<const Word*>(b);
   Word* d = reinterpret_cast<Word*>(dst);
   for (long long base = threadIdx.x; base < n;
        base += (long long)kThreads * kUnroll) {
-    Word v[kUnroll];
+    Word va[kUnroll], vb[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = base + (long long)u * kThreads;
-      if (i < n) v[u] = kZero ? Word() : s[i];
+      if (i < n) {
+        va[u] = kOp == kOpZero ? Word() : sa[i];
+        vb[u] = kOp == kOpAnd || kOp == kOpOr ? sb[i] : Word();
+      }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = base + (long long)u * kThreads;
-      if (i < n) d[i] = v[u];
+      if (i < n) d[i] = word_op<kOp>(va[u], vb[u]);
     }
   }
 }
 
-template <bool kZero>
-__device__ __forceinline__ void move_bytes(int word, const char* src,
-                                           char* dst, long long nbytes) {
+// kThreads threads move (or combine) `nbytes` in words of `word` bytes;
+// each word is read before it is written, by the same thread, so `dst`
+// may be `a` or `b`
+template <int kOp>
+__device__ __forceinline__ void move_bytes(int word, const char* a,
+                                           const char* b, char* dst,
+                                           long long nbytes) {
   switch (word) {
-    case 16: move_words<int4, kZero>(src, dst, nbytes); break;
-    case 8: move_words<int2, kZero>(src, dst, nbytes); break;
-    case 4: move_words<int, kZero>(src, dst, nbytes); break;
-    case 2: move_words<short, kZero>(src, dst, nbytes); break;
-    default: move_words<char, kZero>(src, dst, nbytes); break;
+    case 16: move_words<int4, kOp>(a, b, dst, nbytes); break;
+    case 8: move_words<int2, kOp>(a, b, dst, nbytes); break;
+    case 4: move_words<int, kOp>(a, b, dst, nbytes); break;
+    case 2: move_words<short, kOp>(a, b, dst, nbytes); break;
+    default: move_words<char, kOp>(a, b, dst, nbytes); break;
   }
 }
 
@@ -287,12 +331,25 @@ __device__ __forceinline__ void move_loop(const Params& p, long long n_items,
     const Item it = locate<kZero>(p, item);
     if (it.gate && threadIdx.x == 0) wait_gate(p, it.gate);
     __syncthreads();
-    move_bytes<kZero>(p.word, it.src, it.dst, it.bytes);
+    move_bytes<kZero ? kOpZero : kOpCopy>(p.word, it.src, nullptr, it.dst,
+                                          it.bytes);
     __syncthreads();
     if (threadIdx.x == 0) {
       __threadfence();
       add_release(p.counters + 1);
     }
+  }
+}
+
+// one thread per CTA, once every item the CTA took is done: the last CTA
+// out resets the counters ([0] next item, [1] items read, [2] CTAs out) for
+// the next call on this stream
+__device__ __forceinline__ void leave(unsigned long long* counters) {
+  __threadfence();
+  if (atomicAdd(counters + 2, 1ULL) == gridDim.x - 1) {
+    counters[0] = 0;
+    counters[1] = 0;
+    counters[2] = 0;
   }
 }
 
@@ -310,16 +367,7 @@ __global__ void __launch_bounds__(kThreads)
   } else if (threadIdx.x == 0) {
     copy_bulk(p, smem, bars, n_items);
   }
-  if (threadIdx.x == 0) {
-    // every item this CTA took is done: the last CTA out resets the
-    // counters for the next call on this stream
-    __threadfence();
-    if (atomicAdd(p.counters + 2, 1ULL) == gridDim.x - 1) {
-      p.counters[0] = 0;
-      p.counters[1] = 0;
-      p.counters[2] = 0;
-    }
-  }
+  if (threadIdx.x == 0) leave(p.counters);
 }
 
 // ---------------------------------------------------------------------------
@@ -438,9 +486,10 @@ static int word_bytes(long long page_bytes, const void* a, const void* b) {
   return word;
 }
 
-// chunk bytes, chunks per page, work items and grid of a call
+// chunk bytes, chunks per page, work items and grid of a call; the bulk
+// path's CTA holds `buffers` chunks of shared memory
 static void chunking(int n_rows, int layers, long long page_bytes, bool bulk,
-                     bool zero, int sms, int* chunk, int* cpp,
+                     int buffers, int sms, int* chunk, int* cpp,
                      long long* items, int* grid) {
   long long c;
   if (bulk) {
@@ -458,7 +507,7 @@ static void chunking(int n_rows, int layers, long long page_bytes, bool bulk,
   *items = (long long)n_rows * layers * *cpp;
   int per_sm = kMaxCtasPerSm;
   if (bulk) {
-    const long long smem = (zero ? 1 : kStages) * c + 1024;
+    const long long smem = buffers * c + 1024;
     per_sm = (int)(kSmemPerSm / smem);
     per_sm = per_sm < 1 ? 1 : (per_sm > kMaxCtasPerSm ? kMaxCtasPerSm : per_sm);
   }
@@ -479,8 +528,8 @@ static int plan(const Id* ids, long long m, int width, long long n_src,
   const int n = (int)(rows.size() / 3);
   long long items;
   int grid;
-  chunking(n, layers, page_bytes, bulk, zero, sms, &p->chunk, &p->cpp,
-           &items, &grid);
+  chunking(n, layers, page_bytes, bulk, zero ? 1 : kStages, sms, &p->chunk,
+           &p->cpp, &items, &grid);
   p->n_rows = n;
   p->layers = layers;
   p->page_bytes = page_bytes;
@@ -493,24 +542,31 @@ static int plan(const Id* ids, long long m, int width, long long n_src,
   return 0;
 }
 
+// lets `kKernel` take `bytes` of dynamic shared memory (above 48 KB),
+// once per device; returns a cudaError_t
+template <auto kKernel>
+static int allow_smem(int bytes) {
+  static cudaError_t set[kMaxDevices];
+  static bool done[kMaxDevices];
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    set[dev] = cudaFuncSetAttribute(
+        kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    done[dev] = true;
+  }
+  return (int)set[dev];
+}
+
 template <bool kZero, bool kBulk>
 static int launch_kernel(const Params& p, int grid, void* stream) {
   const int smem = kBulk ? (kZero ? 1 : kStages) * p.chunk : 0;
   if (kBulk && !kZero) {
-    // above 48 KB of dynamic shared memory: set once per device
-    static cudaError_t set[kMaxDevices];
-    static bool done[kMaxDevices];
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-    if (!done[dev]) {
-      set[dev] = cudaFuncSetAttribute(
-          move_kernel<kZero, kBulk>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, kStages * kMaxChunk);
-      done[dev] = true;
-    }
-    if (set[dev] != cudaSuccess) return (int)set[dev];
+    const int err =
+        allow_smem<&move_kernel<kZero, kBulk>>(kStages * kMaxChunk);
+    if (err) return err;
   }
   // the bulk copy runs on one thread of each CTA: one warp is launched
   const int threads = kBulk && !kZero ? 32 : kThreads;

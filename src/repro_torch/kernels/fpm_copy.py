@@ -24,18 +24,21 @@ allocation or a host-to-device copy (up to :data:`ROW_CAPACITY` live
 rows).  :func:`_live_pairs` and :func:`pair_waves` state that schedule in
 Python, :func:`launch_rows` and :func:`chunking` the launch's layout; the
 CPU tests pin them, and ``chip_smoke.py`` holds the library's schedule
-against them.
+against them.  :func:`block_geometry`, :func:`sm_count`,
+:func:`stream_counters` and :func:`chunking` serve K1's wrapper too
+(``kernels/fused_dispatch.py``), whose kernel shares ``block_move.cuh``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
-from repro_torch.kernels.fused_dispatch import block_geometry
 
 #: launches of the in-pool copy kernel (K5a)
 COUNTER = LaunchCounter("fpm_copy")
@@ -91,8 +94,34 @@ def host_ids(ids, width: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, asked once per device (K1, K5 and K6 size
+    their grids by it)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def block_geometry(pools: Sequence[torch.Tensor], block_axis: int
+                   ) -> Tuple[int, int, int]:
+    """(layers, page_bytes, word_bytes) of pools that share one device,
+    dtype and block shape; raises on what the kernels do not take.
+    ``word_bytes`` is the widest access (16, 8, ... 1 bytes) that divides
+    the page size and every pool's base address."""
+    p0 = pools[0]
+    blk = tuple(p0.shape[block_axis + 1:])
+    layers = int(p0.shape[0]) if block_axis == 1 else 1
+    for p in pools:
+        if not p.is_cuda or p.device != p0.device:
+            raise ValueError("every pool must be on one CUDA device")
+        if p.dtype != p0.dtype or tuple(p.shape[block_axis + 1:]) != blk \
+                or (block_axis == 1 and p.shape[0] != layers):
+            raise ValueError("pools must share block shape and dtype")
+        if not p.is_contiguous():
+            raise ValueError("pools must be contiguous")
+    page_bytes = math.prod(blk) * p0.element_size()
+    word = 16
+    while page_bytes % word or any(p.data_ptr() % word for p in pools):
+        word //= 2
+    return layers, page_bytes, word
 
 
 # design constants of csrc/block_move.cuh (``chip_smoke.py`` checks them
@@ -173,20 +202,22 @@ def launch_rows(rows: np.ndarray, waves: np.ndarray) -> np.ndarray:
 
 
 def chunking(n_rows: int, layers: int, page_bytes: int, *, bulk: bool,
-             zero: bool, sms: int):
+             zero: bool, sms: int, buffers: Optional[int] = None):
     """(chunk bytes, chunks per page, work items, grid) of a call over
     ``n_rows`` live rows.  The bulk path aims at :data:`ITEMS_PER_SM` items
     per SM, 4-32 KiB, and splits a page evenly in multiples of 16 bytes;
-    its grid is what the SMs' shared memory holds (a ring of
-    :data:`STAGES` chunks for a copy, one tile for K6).  The word path
-    (pages not 16-byte aligned) moves 32 KiB chunks."""
+    its grid is what the SMs' shared memory holds: ``buffers`` chunks a CTA
+    (by default a ring of :data:`STAGES` chunks for a copy, one tile for
+    K6).  The word path (pages not 16-byte aligned) moves 32 KiB chunks."""
+    if buffers is None:
+        buffers = 1 if zero else STAGES
     if bulk:
         slots = ITEMS_PER_SM * sms
         c = (-(-(n_rows * layers * page_bytes) // slots) + 15) // 16 * 16
         c = min(max(c, MIN_CHUNK), MAX_CHUNK)
         pieces = -(-page_bytes // c)
         c = (-(-page_bytes // pieces) + 15) // 16 * 16
-        per_sm = SMEM_PER_SM // ((1 if zero else STAGES) * c + 1024)
+        per_sm = SMEM_PER_SM // (buffers * c + 1024)
         per_sm = min(max(per_sm, 1), MAX_CTAS_PER_SM)
     else:
         c = min(page_bytes, MAX_CHUNK)
@@ -217,7 +248,10 @@ last_out = np.zeros(OUT_WORDS, np.int64)
 _LAST_OUT_PTR = last_out.ctypes.data
 
 
-def _counters(device: torch.device, stream: int) -> int:
+def stream_counters(device: torch.device, stream: int) -> int:
+    """The address of the work counters of ``stream`` on ``device``,
+    allocated once.  K1, K5 and K6 share them: calls on one stream run in
+    order, and each call's last CTA resets them."""
     key = (device.index, stream)
     buf = _COUNTERS.get(key)
     if buf is None:
@@ -245,13 +279,13 @@ def block_move(entry: str, dst_pool: torch.Tensor, src_pool: torch.Tensor,
         # live rows above the parameters' room go through device memory
         rows_buf = torch.empty(3 * m, dtype=torch.int32, device=device)
         cap = m
-    counters = _counters(device, stream)
+    counters = stream_counters(device, stream)
     nblk = int(dst_pool.shape[block_axis])
     buf = None if rows_buf is None else rows_buf.data_ptr()
     if zero:
         err = _entry(entry)(a.ctypes.data, a.itemsize, m,
                             dst_pool.data_ptr(), nblk, layers, page_bytes,
-                            counters, buf, cap, _sm_count(device), stream,
+                            counters, buf, cap, sm_count(device), stream,
                             _LAST_OUT_PTR)
     else:
         err = _entry(entry)(a.ctypes.data, a.itemsize, m,
@@ -259,7 +293,7 @@ def block_move(entry: str, dst_pool: torch.Tensor, src_pool: torch.Tensor,
                             int(src_pool.shape[block_axis]), layers,
                             page_bytes,
                             int(dst_pool.data_ptr() == src_pool.data_ptr()),
-                            counters, buf, cap, _sm_count(device), stream,
+                            counters, buf, cap, sm_count(device), stream,
                             _LAST_OUT_PTR)
     if err in (RAW, WAW):
         pair = tuple(np.asarray(last_out[1:3], np.int64))
@@ -320,5 +354,6 @@ def fpm_copy_cross_cuda(dst_pool: torch.Tensor, src_pool: torch.Tensor, ids,
 
 __all__ = ["COUNTER", "CROSS_COUNTER", "ROW_CAPACITY", "pair_waves",
            "host_ids", "id_array", "launch_rows", "chunking", "block_move",
+           "block_geometry", "sm_count", "stream_counters",
            "plan", "library_constants", "fpm_copy_cuda",
            "fpm_copy_cross_cuda"]

@@ -1,42 +1,54 @@
 """K1 — the fused command-table drain: launch accounting, drain guards, the
-host wave schedule and the CUDA wrapper.
+wave schedule, the Python statement of the kernel's plan, and the CUDA
+wrapper.
 
 Replaces the TPU kernel ``_make_kernel`` of
 ``repro/kernels/fused_dispatch.py`` (``fused_dispatch_pallas``, the
-``pallas_call`` at :406).  The kernel is ``csrc/fused_dispatch.cu``; its
-plain version is :func:`repro_torch.kernels.ref.fused_dispatch`.
+``pallas_call`` at :406).  The kernel is ``csrc/fused_dispatch.cu`` over the
+device pieces of ``csrc/block_move.cuh``; its plain version is
+:func:`repro_torch.kernels.ref.fused_dispatch`.
 
 Bound on the card: bytes (each row reads and writes one page per layer of
 every pool it touches; bound = bytes / 3.35 TB/s).  The kernel streams raw
-bytes with 16-byte vectors whatever the dtype.  Rows run concurrently on the
-GPU, so the host orders them: :func:`wave_schedule` puts every
-write-after-read writer in a later wave than every earlier reader of its
-block, and the kernel starts a wave's work only after the earlier waves are
-done, all inside ONE launch.  A table with a RAW or WAW pair breaks the
-contract (the command queue never flushes one) and raises here rather than
-drain differently from the plain version.
+bytes with bulk asynchronous copies whatever the dtype.  Rows run
+concurrently on the GPU, so each row gets a wave: :func:`wave_schedule`
+puts every write-after-read writer in a later wave than every earlier
+reader of its block, and a later wave's stores wait until the earlier
+waves' items have been read, all inside ONE launch.  A table with a RAW or
+WAW pair breaks the contract (the command queue never flushes one) and
+raises here rather than drain differently from the plain version.
+
+The wrapper makes ONE C call per drain: the library decodes the raw table,
+expands each row into moves (a plain row into one per primary pool),
+assigns the waves, sorts the moves and launches with them as launch
+parameters (up to :data:`MOVE_CAPACITY` moves; above, through a device
+buffer kept per stream), without numpy work or a blocking upload.
+:func:`plan_moves` and :func:`chunking` state that plan in Python; the CPU
+tests pin them, and ``chip_smoke.py`` holds the library's plan
+(``rc_fused_plan``) against them.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import math
+import functools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.opcodes import keys_clash, row_rw
+from repro_torch.core.opcodes import (OP_AND, OP_CROSS_POOL_COPY, OP_NOT,
+                                      OP_OR, OP_ZERO_INIT, keys_clash,
+                                      row_rw)
+from repro_torch.kernels import fpm_copy
 from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
+from repro_torch.kernels.fpm_copy import (OUT_WORDS, RAW, WAW,
+                                          block_geometry, id_array,
+                                          sm_count, stream_counters)
 from repro_torch.kernels.ref import address_space, as_primary
 
 #: launches of the CUDA drain kernel (not of its plain version)
 COUNTER = LaunchCounter("fused_dispatch")
-
-#: bytes of one page a CTA moves per work item
-CHUNK_BYTES = 32 * 1024
-#: resident CTAs per SM the drain's grid is sized for
-CTAS_PER_SM = 8
 
 # ---------------------------------------------------------------------------
 # dispatch accounting — every bulk-movement dispatch (kernel or plain
@@ -149,88 +161,243 @@ def wave_schedule(rows: Sequence[Tuple[int, int, int]],
 
 
 # ---------------------------------------------------------------------------
-# the CUDA wrapper
+# the kernel's plan, in Python
 # ---------------------------------------------------------------------------
 
-def block_geometry(pools: Sequence[torch.Tensor], block_axis: int
-                   ) -> Tuple[int, int, int]:
-    """(layers, page_bytes, word_bytes) of pools that share one device,
-    dtype and block shape; raises on what the kernels do not take.
-    ``word_bytes`` is the widest access (16, 8, ... 1 bytes) that divides
-    the page size and every pool's base address."""
-    p0 = pools[0]
-    blk = tuple(p0.shape[block_axis + 1:])
-    layers = int(p0.shape[0]) if block_axis == 1 else 1
-    for p in pools:
-        if not p.is_cuda or p.device != p0.device:
-            raise ValueError("every pool must be on one CUDA device")
-        if p.dtype != p0.dtype or tuple(p.shape[block_axis + 1:]) != blk \
-                or (block_axis == 1 and p.shape[0] != layers):
-            raise ValueError("pools must share block shape and dtype")
-        if not p.is_contiguous():
-            raise ValueError("pools must be contiguous")
-    page_bytes = math.prod(blk) * p0.element_size()
-    word = 16
-    while page_bytes % word or any(p.data_ptr() % word for p in pools):
-        word //= 2
-    return layers, page_bytes, word
+# design constants of csrc/fused_dispatch.cu (``chip_smoke.py`` checks them
+# against the library's ``rc_fused_constants``; the ring, chunk and grid
+# limits are csrc/block_move.cuh's, imported above)
+#: moves the launch parameters carry (the parameters stay under 4 KB);
+#: above it the moves go through a device buffer
+MOVE_CAPACITY = 188
+#: pools one drain takes
+MAX_POOLS = 16
+#: chunk slots of a CTA's ring (an AND / OR move takes two)
+STAGES = 4
+#: threads of a CTA
+THREADS = 128
+#: bytes of one move in the launch parameters
+MOVE_BYTES = 20
+#: the library's codes for a row the contract does not know (an opcode, or
+#: an id outside its space) and for too many pools
+BAD_ROW, TOO_MANY_POOLS = -4, -5
+
+#: kinds of move: a copy, zero bytes, AND / OR of two sources, NOT of one
+COPY, ZERO, AND, OR, NOT = range(5)
+_BITWISE = {OP_AND: AND, OP_OR: OR, OP_NOT: NOT}
+
+
+def plan_moves(rows, sizes: Sequence[int], primary: Sequence[bool]
+               ) -> Tuple[np.ndarray, List[int]]:
+    """The moves the kernel gets for a table, and the wave of each live
+    row (:func:`wave_schedule`, which raises on a RAW or WAW pair).
+
+    NOP rows (``op < 0`` or ``dst < 0``) drop.  A plain row (ops 0-3)
+    becomes one move per primary pool, in pool order; a cross-pool or
+    bitwise row one move between the ``(pool, block)`` its global ids name
+    (NOT reads its first source only).  Returns ``(n, 8)`` int32 rows
+    ``[kind, pd, dst, pa, a, pb, b, first]`` (unused pool and block -1),
+    sorted by wave (stable), ``first`` the index of the first move of the
+    move's wave: its stores wait until every item before that move has been
+    read."""
+    live = [(int(op), int(s), int(d)) for op, s, d in
+            np.asarray(rows, np.int64).reshape(-1, 3).tolist()
+            if op >= 0 and d >= 0]
+    waves = wave_schedule(live, sizes, primary)
+    _, total, locate = address_space(sizes)
+    moves, of_wave = [], []
+    for (op, s, d), w in zip(live, waves):
+        if op == OP_CROSS_POOL_COPY:
+            (ps, ls), (pd, ld) = locate(s), locate(d)
+            new = [(COPY, pd, ld, ps, ls, -1, -1)]
+        elif op in _BITWISE:
+            a, b = divmod(s, total)
+            (pa, la), (pb, lb), (pd, ld) = locate(a), locate(b), locate(d)
+            new = [(NOT, pd, ld, pa, la, -1, -1) if op == OP_NOT else
+                   (_BITWISE[op], pd, ld, pa, la, pb, lb)]
+        else:
+            new = [(ZERO, p, d, -1, -1, -1, -1) if op == OP_ZERO_INIT else
+                   (COPY, p, d, p, s, -1, -1)
+                   for p in range(len(sizes)) if primary[p]]
+        moves += new
+        of_wave += [w] * len(new)
+    out = np.empty((len(moves), 8), np.int32)
+    if moves:
+        order = np.argsort(of_wave, kind="stable")
+        w = np.asarray(of_wave)[order]
+        out[:, :7] = np.asarray(moves)[order]
+        out[:, 7] = np.searchsorted(w, w, side="left")
+    return out, waves
+
+
+def chunking(n_moves: int, layers: int, page_bytes: int, *, bulk: bool,
+             sms: int):
+    """(chunk bytes, chunks per page, work items, grid) of a drain of
+    ``n_moves`` moves: K5's rule (:func:`fpm_copy.chunking`) with a CTA
+    holding :data:`STAGES` ring slots and the zero tile (one CTA per SM at
+    32 KiB chunks)."""
+    return fpm_copy.chunking(n_moves, layers, page_bytes, bulk=bulk,
+                             zero=False, sms=sms, buffers=STAGES + 1)
+
+
+_SIGNATURE = {
+    "rc_fused_drain": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p],
+    "rc_fused_plan": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_void_p],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(entry: str):
+    """A C entry of ``csrc/fused_dispatch.cu``, its argument types set once
+    when the library loads."""
+    fn = getattr(library("fused_dispatch"), entry)
+    fn.argtypes = _SIGNATURE[entry]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def constants() -> dict:
+    """The design constants as this module states them (the chunk and
+    grid limits are K5's, csrc/block_move.cuh)."""
+    fc = fpm_copy
+    return dict(MOVE_CAPACITY=MOVE_CAPACITY, MAX_POOLS=MAX_POOLS,
+                STAGES=STAGES, MIN_CHUNK=fc.MIN_CHUNK,
+                MAX_CHUNK=fc.MAX_CHUNK, ITEMS_PER_SM=fc.ITEMS_PER_SM,
+                MAX_CTAS_PER_SM=fc.MAX_CTAS_PER_SM,
+                SMEM_PER_SM=fc.SMEM_PER_SM, THREADS=THREADS,
+                MOVE_BYTES=MOVE_BYTES)
+
+
+def library_constants() -> dict:
+    """The design constants as the library has them, and the launch
+    parameters' size (needs the card)."""
+    fn = library("fused_dispatch").rc_fused_constants
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = None
+    out = np.zeros(11, np.int64)
+    fn(out.ctypes.data)
+    names = ("MOVE_CAPACITY", "MAX_POOLS", "STAGES", "MIN_CHUNK",
+             "MAX_CHUNK", "ITEMS_PER_SM", "MAX_CTAS_PER_SM", "SMEM_PER_SM",
+             "THREADS", "param_bytes", "MOVE_BYTES")
+    return dict(zip(names, out.tolist()))
+
+
+def _records(sizes: Sequence[int], primary: Sequence[bool],
+             ptrs: Sequence[int]) -> np.ndarray:
+    """The ``(n_pools, 3)`` int64 pool records the library reads: base
+    address, blocks, primary."""
+    return np.array([(p, n, r) for p, n, r in zip(ptrs, sizes, primary)],
+                    np.int64).reshape(-1, 3)
+
+
+def plan(cmds, sizes: Sequence[int], primary: Sequence[bool], *,
+         layers: int, page_bytes: int, bulk: bool, sms: int,
+         max_grid: int = 0):
+    """The library's plan of one drain without a launch (needs the card's
+    build): ``(code, moves, out)``, ``moves`` as :func:`plan_moves` gives
+    them, ``out`` the :data:`OUT_WORDS` words (live rows, moves, work
+    items, grid, chunk bytes, waves, bulk path, refused row)."""
+    table = id_array(cmds, 3)
+    recs = _records(sizes, primary, [0] * len(sizes))
+    cap = max(1, len(table) * max(1, sum(map(bool, primary))))
+    moves = np.zeros((cap, 8), np.int32)
+    out = np.zeros(OUT_WORDS, np.int64)
+    code = _entry("rc_fused_plan")(table.ctypes.data, table.itemsize,
+                                   len(table), recs.ctypes.data, len(recs),
+                                   layers, page_bytes, int(bulk), sms,
+                                   max_grid, moves.ctypes.data, cap,
+                                   out.ctypes.data)
+    return code, moves[:int(out[1])], out
+
+
+def refusal(code: int, table: np.ndarray, row: int, sizes: Sequence[int]
+            ) -> ValueError:
+    """The error of a table the library refused, as :func:`wave_schedule`
+    and :func:`repro_torch.core.opcodes.row_rw` word it."""
+    op, s, d = (int(x) for x in table[row])
+    if code == RAW:
+        return ValueError(f"row {(op, s, d)} reads a block an earlier row "
+                          "of the table writes (RAW)")
+    if code == WAW:
+        return ValueError(f"row {(op, s, d)} rewrites a block an earlier "
+                          "row of the table writes (WAW)")
+    _, total, locate = address_space(sizes)
+    try:
+        row_rw(op, s, d, locate, total)
+    except ValueError as e:
+        return e
+    return ValueError(f"row {(op, s, d)} names a block outside the primary "
+                      "pools")
+
+
+#: the device buffer of each (device, stream) for moves above the launch
+#: parameters' room, grown when a table needs more
+_MOVE_BUFFERS: Dict[Tuple[int, int], torch.Tensor] = {}
+#: the ``out`` words of the last drain (read by ``chip_smoke.py``)
+last_out = np.zeros(OUT_WORDS, np.int64)
+_LAST_OUT_PTR = last_out.ctypes.data
+
+
+def _move_buffer(device: torch.device, stream: int, moves: int
+                 ) -> Tuple[int, int]:
+    """(address, capacity in moves) of the stream's move buffer, room for
+    at least ``moves``.  A buffer is only ever read by drains on its own
+    stream, after the copy that fills it."""
+    key = (device.index, stream)
+    buf = _MOVE_BUFFERS.get(key)
+    if buf is None or buf.numel() < moves * MOVE_BYTES:
+        buf = _MOVE_BUFFERS[key] = torch.empty(
+            max(moves, 512) * MOVE_BYTES, dtype=torch.uint8, device=device)
+    return buf.data_ptr(), buf.numel() // MOVE_BYTES
 
 
 def fused_dispatch_cuda(pools: Sequence[torch.Tensor], cmds, *,
                         block_axis: int,
-                        primary: Optional[Sequence[bool]] = None
-                        ) -> Tuple[torch.Tensor, ...]:
-    """Drain one command table over CUDA pools, in place, with ONE launch
-    of the kernel (none for a table without live rows).  Zero-init rows
-    store zero bytes: the reserved zero block is all zeros by
-    construction."""
+                        primary: Optional[Sequence[bool]] = None,
+                        max_grid: int = 0) -> Tuple[torch.Tensor, ...]:
+    """Drain one command table over CUDA pools, in place, with ONE C call
+    and ONE launch of the kernel (none for a table without moves), on the
+    current stream.  Zero-init rows store zero bytes: the reserved zero
+    block is all zeros by construction.  ``max_grid`` > 0 caps the grid
+    (the checks run every kind of move through one CTA).  Raises
+    ``ValueError`` on a table :func:`wave_schedule` refuses, with its
+    message, and ``RuntimeError`` when the launch is refused."""
     pools = tuple(pools)
     primary = as_primary(primary, len(pools))
-    layers, page_bytes, word = block_geometry(pools, block_axis)
-    if word != 16:
-        raise ValueError(f"fused drain: pages of {page_bytes} bytes are not "
-                         "16-byte aligned")
-    sizes = [int(p.shape[block_axis]) for p in pools]
-    bases, total, _ = address_space(sizes)
-    if isinstance(cmds, torch.Tensor):
-        cmds = cmds.cpu().numpy()
-    live = [(op, s, d) for op, s, d in np.asarray(cmds, np.int64).tolist()
-            if op >= 0 and d >= 0]
-    if not live:
-        return pools
-    waves = wave_schedule(live, sizes, primary)
-    order = sorted(range(len(live)), key=lambda i: (waves[i], i))
-    n_waves = max(waves) + 1
-    chunk = min(CHUNK_BYTES, page_bytes)
-    cpp = -(-page_bytes // chunk)
-    per_row = layers * cpp
-    counts = np.bincount(np.asarray(waves), minlength=n_waves)
-    prefix = np.concatenate([[0], np.cumsum(counts) * per_row])
-    header = [len(pools), layers, page_bytes, len(live), chunk, cpp,
-              n_waves, total]
-    recs = [v for i, p in enumerate(pools)
-            for v in (p.data_ptr(), sizes[i], bases[i], int(primary[i]))]
-    rows = [v for i in order for v in live[i]]
-    desc_np = np.asarray(header + recs + rows + prefix.tolist() + [0, 0],
-                         np.int64)
+    layers, page_bytes, _ = block_geometry(pools, block_axis)
+    table = id_array(cmds, 3)
     device = pools[0].device
-    desc = torch.from_numpy(desc_np).to(device)
-    counters = desc.data_ptr() + 8 * (len(desc_np) - 2)
-    n_items = int(prefix[-1])
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    grid = max(1, min(n_items, sms * CTAS_PER_SM))
-    lib = library("fused_dispatch")
-    fn = lib.rc_fused_drain
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    check(fn(desc.data_ptr(), counters, grid, stream_ptr(device)),
-          "fused drain kernel")
-    COUNTER.n += 1
+    stream = stream_ptr(device)
+    sizes = [int(p.shape[block_axis]) for p in pools]
+    recs = _records(sizes, primary, [p.data_ptr() for p in pools])
+    most = len(table) * max(1, sum(primary))
+    buf, cap = (_move_buffer(device, stream, most) if most > MOVE_CAPACITY
+                else (None, 0))
+    err = _entry("rc_fused_drain")(
+        table.ctypes.data, table.itemsize, len(table), recs.ctypes.data,
+        len(pools), layers, page_bytes, stream_counters(device, stream),
+        buf, cap, sm_count(device), max_grid, stream, _LAST_OUT_PTR)
+    if err in (RAW, WAW, BAD_ROW):
+        raise refusal(err, table, int(last_out[7]), sizes)
+    if err == TOO_MANY_POOLS:
+        raise ValueError(f"the fused drain takes at most {MAX_POOLS} pools, "
+                         f"not {len(pools)}")
+    check(err, "fused drain kernel")
+    if last_out[1]:
+        COUNTER.n += 1
     return pools
 
 
 __all__ = ["COUNTER", "DrainInfo", "add_drain_guard", "remove_drain_guard",
            "check_drain", "add_launch_hook", "remove_launch_hook",
-           "launch_count", "notify_launch", "wave_schedule",
-           "block_geometry", "fused_dispatch_cuda"]
+           "launch_count", "notify_launch", "wave_schedule", "plan_moves",
+           "chunking", "constants", "library_constants", "plan", "refusal",
+           "fused_dispatch_cuda", "MOVE_CAPACITY", "MAX_POOLS"]

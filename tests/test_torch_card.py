@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.core.opcodes import keys_clash, row_rw
+from repro_torch.kernels import fused_dispatch as fd
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_dispatch import wave_schedule
 
@@ -128,6 +129,83 @@ def test_cuda_drain_matches_plain_on_card(card):
                        primary=primary)
     for w, g in zip(want, dev):
         np.testing.assert_array_equal(bits(w), bits(g))
+
+
+#: pool sizes of the K1 cases below: two primaries, two staging pools
+WIDE = ([300, 300, 16, 16], (True, True, False, False))
+
+
+def _contract_table(rng, sizes, primary, n_rows):
+    """A random contract table (:func:`gen_table`) with a write-after-read
+    pair whose order matters."""
+    while True:
+        t = gen_table(rng, sizes, primary, n_rows)
+        live = [tuple(r) for r in t.tolist() if r[0] >= 0]
+        if max(wave_schedule(live, sizes, primary)) > 0:
+            return t
+
+
+def _drain_held(pools, table, primary, block_axis, max_grid=0):
+    """K1 (``fused_dispatch_cuda``) on card pools against its plain version
+    on copies, bitwise, with ONE launch."""
+    want = [p.clone() for p in pools]
+    ref.fused_dispatch(want, _zero_blocks(want, "cuda"), table,
+                       block_axis=block_axis, primary=primary)
+    before = fd.COUNTER.n
+    fd.fused_dispatch_cuda(pools, table, block_axis=block_axis,
+                           primary=primary, max_grid=max_grid)
+    torch.cuda.synchronize()
+    assert fd.COUNTER.n - before == 1
+    for w, g in zip(want, pools):
+        np.testing.assert_array_equal(bits(w), bits(g))
+
+
+@pytest.mark.cuda
+def test_cuda_drain_above_the_parameters_room(card):
+    """A table of more moves than the launch parameters carry goes through
+    the stream's device buffer: still one launch, bitwise equal."""
+    sizes, primary = WIDE
+    pools = [p.cuda() for p in _pools(5, sizes)]
+    table = _contract_table(random.Random(5), sizes, primary, 260)
+    _drain_held(pools, table, primary, 1)
+    assert fd.last_out[1] > fd.MOVE_CAPACITY
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.int32))
+def test_cuda_drain_unaligned_pages(card, dtype):
+    """Pages of 204 / 102 bytes, and 16-byte pages on a base 4 bytes off,
+    drain through the word loop (every opcode, WAR pairs), bitwise."""
+    sizes, primary = WIDE
+    rng = np.random.default_rng(6)
+    pools = [torch.from_numpy(rng.standard_normal((n, 3, 17)) * 100)
+             .to(dtype).cuda() for n in sizes]
+    table = _contract_table(random.Random(6), sizes, primary, 40)
+    _drain_held(pools, table, primary, 0)
+    assert fd.last_out[6] == 0
+    pools = [torch.from_numpy(rng.standard_normal((n, 8, 128)))
+             .to(dtype).cuda() for n in sizes]
+    raw = torch.empty(pools[1].numel() + 1, dtype=dtype, device="cuda")
+    pools[1] = raw[1:].view(pools[1].shape).copy_(pools[1])
+    _drain_held(pools, table, primary, 0)
+    assert fd.last_out[6] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_drain_every_opcode_on_one_cta(card):
+    """A grid of one CTA drains copy, zero, cross-pool and AND / OR / NOT
+    moves and WAR waves through one shared-memory ring, bitwise."""
+    sizes, primary = RING
+    pools = [p.cuda() for p in _pools(8, sizes)]
+    rng = random.Random(8)
+    while True:
+        table = _contract_table(rng, sizes, primary, 24)
+        ops_in = {int(op) for op in table[:, 0]}
+        if set(range(8)) <= ops_in:
+            break
+    _drain_held(pools, table, primary, 1, max_grid=1)
+    assert fd.last_out[3] == 1
 
 
 # ---------------------------------------------------------------------------

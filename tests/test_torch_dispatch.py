@@ -9,7 +9,15 @@ JAX package, bitwise, and the host wave schedule that orders K1's rows.
   every write-after-read writer after every earlier reader of its block:
   rows run wave by wave, in a shuffled order inside each wave, one row at a
   time through the plain drain, equal the reference on tables with
-  non-adjacent WAR pairs.
+  non-adjacent WAR pairs;
+* the Python statement of K1's plan (:func:`plan_moves`, :func:`chunking`):
+  its moves and gates follow :func:`wave_schedule`, running them wave by
+  wave (every read of a wave gathered, then scattered, as the kernel's
+  gate orders them) equals the reference and the TPU kernel body, RAW and
+  WAW tables are refused with the schedule's messages, and the chunking
+  of 128 KiB and unaligned pages;
+* the plain drain on unaligned block shapes (float32 ``(3,)``, bf16
+  ``(5,)``) against the jnp oracle.
 """
 import random
 
@@ -24,6 +32,7 @@ from test_torch_contract import bits, to_torch
 from repro.kernels import ref as jref
 from repro.kernels.fused_dispatch import fused_dispatch_pallas
 from repro_torch.core.opcodes import keys_clash, row_rw
+from repro_torch.kernels import fused_dispatch as fd
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_dispatch import wave_schedule
 
@@ -215,3 +224,185 @@ def test_wave_schedule_values_and_contract_errors():
         wave_schedule([(0, 1, 2), (0, 2, 3)], sizes, primary)
     with pytest.raises(ValueError, match="WAW"):
         wave_schedule([(0, 1, 2), (4, 7, 2)], sizes, primary)
+
+
+# ---------------------------------------------------------------------------
+# the Python statement of K1's plan
+# ---------------------------------------------------------------------------
+
+def _expand(op, s, d, sizes, primary):
+    """The moves of one live row, restated: a plain row moves its block in
+    each primary pool, the others name their pools by global id."""
+    _, total, locate = ref.address_space(sizes)
+    if op <= 3:
+        return [(fd.ZERO, p, d, -1, -1, -1, -1) if op == 3 else
+                (fd.COPY, p, d, p, s, -1, -1)
+                for p in range(len(sizes)) if primary[p]]
+    pd, ld = locate(d)
+    if op == 4:
+        return [(fd.COPY, pd, ld) + locate(s) + (-1, -1)]
+    a, b = divmod(s, total)
+    if op == 7:
+        return [(fd.NOT, pd, ld) + locate(a) + (-1, -1)]
+    return [((fd.AND, fd.OR)[op - 5], pd, ld) + locate(a) + locate(b)]
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("seed", range(3))
+def test_plan_moves_follow_the_wave_schedule(layout, seed):
+    """Every live row's moves, sorted by the row's wave (stable), each with
+    the index of its wave's first move: the order and gates K1 gets."""
+    sizes, primary = LAYOUTS[layout]
+    table = gen_table(random.Random(200 + seed), sizes, primary, 24,
+                      contract=True)
+    moves, waves = fd.plan_moves(table, sizes, primary)
+    live = [tuple(r) for r in table.tolist() if r[0] >= 0]
+    assert waves == wave_schedule(live, sizes, primary)
+    tagged = sorted(((w, mv) for r, w in zip(live, waves)
+                     for mv in _expand(*r, sizes, primary)),
+                    key=lambda x: x[0])
+    first = {}
+    for i, (w, _) in enumerate(tagged):
+        first.setdefault(w, i)
+    assert moves[:, :7].tolist() == [list(mv) for _, mv in tagged]
+    assert moves[:, 7].tolist() == [first[w] for w, _ in tagged]
+
+
+def run_moves(pools, moves, block_axis):
+    """Execute a plan on CPU pools as K1's gate orders it: wave by wave
+    (the moves sharing a ``first``), every read of the wave gathered from
+    the state the earlier waves left, then every write scattered."""
+    def page(p, b):
+        return pools[p].select(block_axis, b)
+
+    for w in np.unique(moves[:, 7]):
+        writes = []
+        for kind, pd, d, pa, a, pb, b, _ in moves[moves[:, 7] == w].tolist():
+            dst = page(pd, d)
+            if kind == fd.ZERO:
+                val = torch.zeros_like(dst)
+            elif kind == fd.COPY:
+                val = page(pa, a).clone()
+            else:
+                x = ref.int_view(page(pa, a))
+                val = (x & ref.int_view(page(pb, b)) if kind == fd.AND else
+                       x | ref.int_view(page(pb, b)) if kind == fd.OR
+                       else ~x).view(dst.dtype)
+            writes.append((dst, val))
+        for dst, val in writes:
+            dst.copy_(val)
+    return pools
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("block_axis", [0, 1])
+@pytest.mark.parametrize("seed", range(2))
+def test_plan_moves_drain_equals_reference(layout, block_axis, seed):
+    """The plan run wave by wave equals the gather-then-scatter reference,
+    bitwise, on tables with non-adjacent WAR pairs and chains."""
+    sizes, primary = LAYOUTS[layout]
+    rng = random.Random(300 + seed)
+    pools = make_pools(np.random.default_rng(seed), sizes, block_axis,
+                       ml_dtypes.bfloat16)
+    for _ in range(200):
+        table = gen_table(rng, sizes, primary, 20, contract=True)
+        moves, waves = fd.plan_moves(table, sizes, primary)
+        if max(waves, default=0) > 0:
+            break
+    want = jref.fused_dispatch([jnp.asarray(p) for p in pools],
+                               [jnp.asarray(z) for z in
+                                zero_blocks_np(pools, block_axis)],
+                               jnp.asarray(table), block_axis=block_axis,
+                               primary=primary)
+    got = run_moves([to_torch(p) for p in pools], moves, block_axis)
+    assert_same_bits(want, got)
+
+
+@pytest.mark.parametrize("layout,block_axis", [("ring", 1), ("ragged", 0)])
+def test_plan_moves_drain_matches_pallas_interpret(layout, block_axis):
+    """The plan run wave by wave equals the TPU kernel body in interpret
+    mode, bitwise."""
+    sizes, primary = LAYOUTS[layout]
+    pools = make_pools(np.random.default_rng(9), sizes, block_axis,
+                       np.float32)
+    table = gen_table(random.Random(9), sizes, primary, 16, contract=True)
+    want = fused_dispatch_pallas(
+        [jnp.asarray(p) for p in pools],
+        [jnp.asarray(z) for z in zero_blocks_np(pools, block_axis)],
+        jnp.asarray(table), block_axis=block_axis, interpret=True,
+        primary=primary, overlap=False)
+    moves, _ = fd.plan_moves(table, sizes, primary)
+    got = run_moves([to_torch(p) for p in pools], moves, block_axis)
+    for i, (w, g) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(bits(w), bits(g), err_msg=f"pool {i}")
+
+
+#: RING's global ids: K, V, K stage, V stage pools of 16, 16, 4, 4 blocks
+_K, _V, _KS, _VS = 0, 16, 32, 36
+REFUSED = {
+    "raw plain": ([(0, 1, 2), (0, 2, 3)], "RAW", 1),
+    "waw plain over cross": ([(0, 1, 2), (4, _KS + 1, _V + 2)], "WAW", 1),
+    "raw cross reads a plain write": ([(3, -1, 5), (4, _K + 5, _KS)], "RAW",
+                                      1),
+    "raw bitwise reads a staging write": (
+        [(4, _K + 1, _KS + 2), (5, (_KS + 2) * 40 + _K, _V + 9)], "RAW", 1),
+    "waw staging": ([(4, _K + 1, _VS), (7, (_V + 3) * 41, _VS)], "WAW", 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_plan_moves_refuses_raw_and_waw(case):
+    """A table breaking the contract is refused with the schedule's message
+    naming the row (the CUDA wrapper raises the same text)."""
+    rows, kind, bad = REFUSED[case]
+    sizes, primary = LAYOUTS["ring"]
+    with pytest.raises(ValueError) as err:
+        fd.plan_moves(np.asarray(rows), sizes, primary)
+    assert str(err.value).startswith(f"row {rows[bad]} ")
+    assert str(err.value).endswith(f"({kind})")
+    assert str(err.value) == str(fd.refusal(fd.RAW if kind == "RAW" else
+                                            fd.WAW, np.asarray(rows), bad,
+                                            sizes))
+
+
+@pytest.mark.parametrize("case", ["serving", "few", "unaligned"])
+def test_k1_chunking(case):
+    """K1's work items: 128 KiB layer-stacked pages in 32 KiB chunks on one
+    CTA per SM (a ring of 4 slots and the zero tile), a small call in 4 KiB
+    chunks with more CTAs per SM, and unaligned pages whole on the word
+    path."""
+    if case == "serving":
+        got = fd.chunking(24, 28, 131072, bulk=True, sms=132)
+        assert got == (32768, 4, 24 * 28 * 4, 132)
+    elif case == "few":
+        got = fd.chunking(8, 1, 131072, bulk=True, sms=132)
+        # 1 MiB over 264 slots: 4 KiB chunks; 5 x 4 KiB + 1 KiB a CTA
+        assert got == (4096, 32, 256, 256)
+        assert 232448 // (5 * 4096 + 1024) >= 8
+    else:
+        got = fd.chunking(300, 1, 204, bulk=False, sms=132)
+        assert got == (204, 1, 300, 300)
+    chunk, cpp, items, grid = got
+    assert chunk * cpp >= (131072 if case != "unaligned" else 204)
+
+
+@pytest.mark.parametrize("dtype,block", [("float32", (3,)),
+                                         ("bfloat16", (5,))])
+@pytest.mark.parametrize("block_axis", [0, 1])
+def test_plain_drain_unaligned_block_shape_matches_reference(dtype, block,
+                                                             block_axis):
+    """Blocks of 12 and 10 bytes (no 16-byte word fits; the CUDA drain
+    takes its word loop there) drain bitwise as the jnp oracle does."""
+    sizes, primary = LAYOUTS["ring"]
+    dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    rng = np.random.default_rng(11)
+    pools = [rng.standard_normal(((n,) if block_axis == 0 else (2, n))
+                                 + block).astype(np.float32).astype(dt)
+             for n in sizes]
+    table = gen_table(random.Random(11), sizes, primary, 20, contract=True)
+    zb = zero_blocks_np(pools, block_axis)
+    want = jref.fused_dispatch([jnp.asarray(p) for p in pools],
+                               [jnp.asarray(z) for z in zb],
+                               jnp.asarray(table), block_axis=block_axis,
+                               primary=primary)
+    assert_same_bits(want, run_port(pools, table, block_axis, primary, zb))
