@@ -42,11 +42,13 @@ Phases (each raises on failure; the script then exits non-zero):
    of 100, non-causal); card and device-only times; SDPA is timed beside
    it as a yardstick only (the port never calls it).
 5. serve llama3.2-3b at full width (28 layers, d_model 3072, bf16, random
-   weights from seed 0): admit 4 prompts, run one round, fork the first
-   sequence into 2, run 15 more rounds.  Checks the launch counts of every
-   kernel on that run, finite logits, and the first round's logits against
-   the same admissions and round run through the plain versions on the card;
-   profiles three steady rounds and the four admissions into a fresh engine.
+   weights from seed 0; ``phase_decoder_serve``): admit 4 prompts, run one
+   round, fork the first sequence into 2, run 15 more rounds.  Checks the
+   launch counts of every kernel on that run, finite logits, and the first
+   round's logits against the same admissions and round run through the
+   plain versions on the card, then every K2 / K3 call of the admissions
+   and the first round against its plain version (``tapped``); profiles
+   three steady rounds and the four admissions into a fresh engine.
 6. K5a (FPM copy), K5b (pool-to-pool copy) and K6 (BuZ zero-init).  First
    the library's host schedule (``rc_block_plan``) against the Python
    statement of it (``_live_pairs``, ``pair_waves``, ``launch_rows``,
@@ -87,7 +89,9 @@ Phases (each raises on failure; the script then exits non-zero):
    the bound; and the edge cases ``K4_EDGES`` (H = 5 and 3, N = 32 and
    256, Q = 96 and 250, fp32 inputs).  Then K2 (B = 4, H = KVH = 32) and K3 (H = KVH = 32; B = 4 at
    S = 384, phase 11's batch prefill, and B = 1 at S = 250 and 512) at
-   zamba2's head dim 80.
+   zamba2's head dim 80, and K2 (B = 8) and K3 (S = 512 and 250) at head
+   dim 128 with the head groups of the configs phases 12-13 serve: 32
+   heads over 4 KV heads (yi-6b, group 8) and 16 over 16 (deepseek-moe-16b).
 10. mamba2-780m at full width (48 layers, bf16, random weights from seed
     0) through ``LanguageModel.prefill_state`` / ``decode_state``: prefill
     4 prompts of 384 tokens (2 chunks) and one of 250 (one ragged chunk),
@@ -103,6 +107,28 @@ Phases (each raises on failure; the script then exits non-zero):
     and for zamba2 four planted K2 / K3 faults (``hybrid_faults``) must
     each fail that per-call check; their effect on the logits is printed
     beside it.
+
+12. deepseek-moe-16b at full width and depth (28 layers, 64 experts top-6
+    with 2 shared, 16 heads over 16 KV heads, 33.8 GB of bf16 random
+    weights from seed 0) through ``ServingEngine``, phase 5's protocol and
+    function:
+    K1 <= 1 launch per round (1 in a round with bulk work), K2 == 28 per
+    round, K3 == 28 per admission, the allocated parameters against
+    ``param_count()``, finite logits, the first round's logits against the
+    same admissions and round through the plain versions (fed the same
+    round-1 tokens) with the routing flips between the two runs counted
+    (``RouteLog``; if the logits differ with flips, the plain run replays
+    the kernel run's routing), then every K2 / K3 call of the admissions
+    and the first round against its plain version on the same inputs
+    (``tapped``).  Prints admission ms, ms per round, tokens/s and the
+    profiles of steady rounds and of the admissions, each split into K2,
+    K3, the expert products, the routing, the other device time and the
+    host gap.
+13. the same checks, on a short protocol (prompts of 250 and 512 tokens,
+    a fork, 4 rounds), for yi-6b and mistral-nemo-12b at full depth,
+    qwen2-72b cut to 16 of 80 layers with its QKV biases drawn nonzero from
+    the seed, and phi3.5-moe-42b-a6.6b cut to 8 of 32 layers
+    (``OTHER_CONFIGS``); each model is freed before the next is built.
 
 The last three lines are the ``kernels`` JSON (seven kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -833,28 +859,63 @@ def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250))):
 
 #: profiler names of the attention and SSD kernels (K2, K3, K4)
 PORT_KERNEL_KEYS = ("paged_attn", "flash_kernel", "ssd_intra")
+#: the moe stages that the profiles split out: (function of
+#: ``models/moe.py``, the profiler range it runs in)
+MOE_STAGES = (("route", "moe.routing"), ("expert_ffn", "moe.experts"))
 
 
 def profile_rounds(step, rounds: int = 3, tag: str = "profile",
                    what: str = "round") -> None:
     """Where a steady step's time goes: torch.profiler over ``rounds`` more
-    calls of ``step`` (after the counted run), device time per kernel and
-    the device's idle share of the wall clock.  The ten largest kernels are
-    listed, and K2's, K3's and K4's below them wherever they rank."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(rounds):
-            step()
+    calls of ``step`` (after the counted run), with the moe stages
+    (:data:`MOE_STAGES`) in ``record_function`` ranges.  Prints the wall
+    and device busy ms and the device's idle share; the ten largest
+    kernels, and K2's, K3's and K4's below them wherever they rank; then a
+    split per step: K2, K3, the kernels launched inside each moe range
+    (the expert products, the routing; where none ran there, the range's
+    span on the device), the rest of the device time, and the host gap
+    (wall - busy)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe
+    saved = {name: getattr(moe, name) for name, _ in MOE_STAGES}
+
+    def ranged(fn, label):
+        def call(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return call
+
+    for name, label in MOE_STAGES:
+        setattr(moe, name, ranged(saved[name], label))
+    try:
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+    cuda = torch.autograd.DeviceType.CUDA
+    labels = [label for _, label in MOE_STAGES]
+    inside = {label: 0.0 for label in labels}
+    span = {label: 0.0 for label in labels}
     rows = []
     for avg in prof.key_averages():
+        if avg.key in inside:
+            # the CPU range's device total sums the kernels launched in it;
+            # the device-side annotation is the range's span, not a kernel
+            if avg.device_type == cuda:
+                span[avg.key] += getattr(avg, "self_device_time_total", 0.0)
+            else:
+                inside[avg.key] += getattr(avg, "device_time_total", 0.0)
+            continue
         # device-side events only (kernels, memcpy, memset): a CPU op's
         # device time repeats the kernels it launched
-        if avg.device_type != torch.autograd.DeviceType.CUDA:
+        if avg.device_type != cuda:
             continue
         dev = getattr(avg, "self_device_time_total", 0.0)
         if dev > 0:
@@ -874,113 +935,26 @@ def profile_rounds(step, rounds: int = 3, tag: str = "profile",
             log(f"[{tag}]   {dev / rounds / 1e3:8.3f} ms/{what} "
                 f"{count // rounds:5d} calls/{what}  {key[:90]}")
 
+    def per_step(us):
+        return us / rounds / 1e3
+
+    k2 = sum(r[0] for r in rows if "paged_attn" in r[2])
+    k3 = sum(r[0] for r in rows if "flash_kernel" in r[2])
+    other = busy - k2 - k3 - sum(inside.values())
+    stages = "".join(
+        f", {name} {per_step(inside[label] or span[label]):.3f} ms ("
+        f"{'kernels in range' if inside[label] else 'range span'})"
+        for name, label in (("expert products", "moe.experts"),
+                            ("routing", "moe.routing"))
+        if inside[label] or span[label])
+    log(f"[{tag}] split per {what}: K2 {per_step(k2):.3f} ms, K3 "
+        f"{per_step(k3):.3f} ms{stages}, other device "
+        f"{per_step(other):.3f} ms, host gap "
+        f"{per_step(wall_us - busy):.2f} ms")
+
 
 def _admit_all(eng, prompts):
     return [eng.add_request(p) for p in prompts]
-
-
-def phase_serve():
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import ServingEngine
-    from repro_torch.weights import init_params
-    cfg = get_config("llama3.2-3b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    log(f"[serve] {cfg.arch_id}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {n_params / 1e9:.2f} B params "
-        f"({n_bytes / 1e9:.2f} GB), init {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
-               for n in PROMPT_LENS]
-    eng = ServingEngine(cfg, params, max_seqs=MAX_SEQS,
-                        max_blocks_per_seq=MAX_BLOCKS_PER_SEQ)
-    log(f"[serve] pools {eng.pool_bytes_resident() / 1e9:.2f} GB "
-        f"(K/V pools {eng.engine.pools['k'].numel() * 2 / 1e9:.2f} GB each)")
-
-    counters = ops.KERNEL_COUNTERS
-    for c in counters.values():
-        c.reset()
-    torch.cuda.synchronize()
-    t_admit = time.perf_counter()
-    sids = _admit_all(eng, prompts)
-    torch.cuda.synchronize()
-    t_admit = time.perf_counter() - t_admit
-    round_ms, fused_per_round, bulk = [], [], []
-    first_logits = None
-    n_tokens = 0
-    for rnd in range(ROUNDS):
-        if rnd == 1:
-            eng.fork(sids[0], 2)
-        before = counters["fused_dispatch"].n
-        t = time.perf_counter()
-        out = eng.decode_round()
-        torch.cuda.synchronize()
-        round_ms.append((time.perf_counter() - t) * 1e3)
-        n_tokens += len(out)
-        fused_per_round.append(counters["fused_dispatch"].n - before)
-        bulk.append(eng.last_ticket.commands > 0)
-        if rnd == 0:
-            first_logits = {s: eng.last_logits[s].copy() for s in sids}
-    launches = {n: c.n for n, c in counters.items()}
-    finite = all(np.isfinite(lg).all() for lg in eng.last_logits.values())
-    L = cfg.num_layers
-    checks = {
-        "fused <= 1 per round": max(fused_per_round) <= 1,
-        "fused == 1 on every round with bulk work":
-            all(f == 1 for f, b in zip(fused_per_round, bulk) if b),
-        "K2 launches == layers x rounds":
-            launches["paged_attention"] == L * ROUNDS,
-        "K3 launches == layers x admissions":
-            launches["flash_attention"] == L * len(prompts),
-        "logits finite": finite,
-    }
-    steady = float(np.median(round_ms[2:]))
-    log(f"[serve] admitted {len(prompts)} prompts {PROMPT_LENS} in "
-        f"{t_admit * 1e3:.1f} ms; {ROUNDS} rounds, median "
-        f"{steady:.2f} ms/round (rounds 3-{ROUNDS}), "
-        f"{n_tokens / (sum(round_ms) / 1e3):.1f} tokens/s over all rounds; "
-        f"fused launches per round {fused_per_round}")
-    log(f"[serve] kernels: K1 fused_dispatch={launches['fused_dispatch']} "
-        f"K2 paged_attention={launches['paged_attention']} "
-        f"K3 flash_attention={launches['flash_attention']}")
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"serve checks failed: {failed}")
-    profile_rounds(eng.decode_round)
-    # the same four admissions into a fresh engine, profiled
-    del eng
-    torch.cuda.empty_cache()
-    fresh = ServingEngine(cfg, params, max_seqs=MAX_SEQS,
-                          max_blocks_per_seq=MAX_BLOCKS_PER_SEQ)
-    profile_rounds(lambda: _admit_all(fresh, prompts), rounds=1,
-                   what="admission")
-    del fresh
-
-    # the same admissions and first round through the plain versions
-    torch.cuda.empty_cache()
-    with ops.plain_versions():
-        plain = ServingEngine(cfg, params, max_seqs=MAX_SEQS,
-                              max_blocks_per_seq=MAX_BLOCKS_PER_SEQ)
-        psids = _admit_all(plain, prompts)
-        plain.decode_round()
-    errs, scale = [], 0.0
-    for s, ps in zip(sids, psids):
-        a, b = first_logits[s], plain.last_logits[ps]
-        errs.append(float(np.abs(a - b).max()))
-        scale = max(scale, float(np.abs(b).max()))
-    agree = sum(int(np.argmax(first_logits[s]) == np.argmax(
-        plain.last_logits[ps])) for s, ps in zip(sids, psids))
-    log(f"[serve] round-1 logits vs plain versions: max |diff| "
-        f"{max(errs):.3e} (limit {SERVE_RTOL} x max |logit| = "
-        f"{SERVE_RTOL * scale:.3e}); argmax agrees on {agree}/{len(sids)}")
-    if not max(errs) <= SERVE_RTOL * scale:
-        raise AssertionError("serve logits differ from the plain versions")
-    del plain
-    return launches, cfg, params
 
 
 # ---------------------------------------------------------------------------
@@ -1752,10 +1726,14 @@ def _call_reading(op, got, want):
 def tapped(run, fault=None):
     """Call ``run()`` with every K2 / K3 / K4 call held against its plain
     version on the same inputs; ``fault`` = (op, fn) puts a planted fault
-    in place of that op's kernel.  Returns run()'s result and, per op
-    called, the number of calls and the reading (max |diff| and its limit)
-    of the call nearest its limit.  Its launches come after the counted
-    run and are not part of it."""
+    in place of that op's kernel.  K3's plain version takes the call's
+    bf16 inputs as fp32, so that it returns the attention before the bf16
+    rounding: two correct bf16 results can lie one ulp apart (3.1e-2 at
+    |x| >= 4, above ``K3_ATOL``), one correct result lies within half an
+    ulp of the fp32 one.  Returns run()'s result and, per op called, the
+    number of calls and the reading (max |diff| and its limit) of the call
+    nearest its limit.  Its launches come after the counted run and are
+    not part of it."""
     from repro_torch.kernels import ops
     saved = {op: getattr(ops, op) for op in TAPPED}
     reads = {}
@@ -1766,8 +1744,10 @@ def tapped(run, fault=None):
                 got = fault[1](*args, **kw)
             else:
                 got = saved[op](*args, use_kernel=True, **kw)
+            plain_args = [a.float() for a in args] \
+                if op == "flash_attention" else args
             err, limit = _call_reading(
-                op, got, saved[op](*args, use_kernel=False, **kw))
+                op, got, saved[op](*plain_args, use_kernel=False, **kw))
             r = reads.setdefault(op, dict(calls=0, err=0.0, limit=limit))
             r["calls"] += 1
             if err / limit >= r["err"] / r["limit"]:
@@ -1943,6 +1923,259 @@ def phase_mamba_model(arch: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 12-13: the moe family and the other dense configs, served
+# ---------------------------------------------------------------------------
+
+#: phase 13: (config, layers kept, None for full depth) — qwen2-72b (145 GB
+#: of weights) and phi3.5-moe-42b-a6.6b (84 GB) are cut in depth to fit the
+#: card; their widths stay the published ones
+OTHER_CONFIGS = (("yi-6b", None), ("mistral-nemo-12b", None),
+                 ("qwen2-72b", 16), ("phi3.5-moe-42b-a6.6b", 8))
+#: phase 13's short protocol: two prompts, a fork of the first before
+#: round 2, 4 rounds
+SHORT_PROMPT_LENS, SHORT_ROUNDS = (250, 512), 4
+#: scale of the QKV biases drawn for qwen2-72b: zero at init, as the
+#: reference's, and drawn here so that the bias add runs on real data
+QKV_BIAS_SCALE = 0.5
+
+
+class RouteLog:
+    """``models.moe.ROUTE_HOOK`` over runs of one protocol: in ``record``
+    mode it keeps each route call's top-k expert indices; in ``compare``
+    mode it counts, call by call in the same order, the choices a later
+    run makes that the recorded run did not (flips); ``replay`` counts
+    them too and routes the later run by the recorded indices."""
+
+    def __init__(self, num_experts: int):
+        self.E = num_experts
+        self.calls = []
+        self.reset("record")
+
+    def reset(self, mode: str) -> None:
+        self.mode, self.i, self.flips, self.choices = mode, 0, [], 0
+
+    def __call__(self, idx):
+        if self.mode == "record":
+            self.calls.append(idx.clone())
+            return idx
+        ref = self.calls[self.i]
+        self.i += 1
+        one_hot = torch.nn.functional.one_hot
+        mine = one_hot(idx, self.E).sum(-2)
+        theirs = one_hot(ref, self.E).sum(-2)
+        self.flips.append((mine > theirs).sum())
+        self.choices += idx.numel()
+        return ref if self.mode == "replay" else idx
+
+    def flipped(self) -> int:
+        return int(torch.stack(self.flips).sum()) if self.flips else 0
+
+
+def _draw_qkv_bias(model, seed: int) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for layer in model.layers:
+        for name in ("bq", "bk", "bv"):
+            p = getattr(layer, name)
+            p.data.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                         * QKV_BIAS_SCALE)
+
+
+def phase_decoder_serve(arch: str, layers=None, prompt_lens=PROMPT_LENS,
+                        rounds: int = ROUNDS, profile: bool = False):
+    """Phases 5, 12 and 13: serve ``arch`` at full width (``layers`` of its
+    layers when cut in depth) with random weights from seed 0 (qwen2-72b's
+    QKV biases drawn nonzero): admit ``prompt_lens``, one round, fork the
+    first sequence into 2 before round 2, ``rounds`` rounds in all.
+    Checks K1 <= 1 launch per round (1 in a round with bulk work), K2 ==
+    layers per round, K3 == layers per admission, the allocated parameters
+    against ``param_count()``, finite logits, the first round's logits
+    against the same admissions and round through the plain versions (fed
+    the same round-1 tokens; for moe the routing flips between the two
+    runs are counted, and if the logits differ with flips the plain run
+    replays the kernel run's routing), then every K2 and K3 call of the
+    admissions and the first round against its plain version on the same
+    inputs.  ``profile``: profiles of three steady rounds and of the
+    admissions into a fresh engine.  Returns the launch counts of the
+    counted run and the model."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import moe
+    from repro_torch.weights import init_params
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    cut = "full depth" if layers is None else \
+        f"depth cut: {layers} of {full.num_layers} layers"
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device="cuda")
+    if cfg.qkv_bias:
+        _draw_qkv_bias(params, SEED + 3)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    experts = (f", {cfg.num_experts} experts top-{cfg.top_k} of d_ff "
+               f"{cfg.moe_d_ff or cfg.d_ff} + {cfg.num_shared_experts} "
+               "shared" if cfg.family == "moe" else f", d_ff {cfg.d_ff}")
+    log(f"[{arch}] {cfg.family}, {cut}: d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads x "
+        f"{cfg.head_dim} (group {cfg.num_heads // cfg.num_kv_heads})"
+        f"{experts}{', QKV bias' if cfg.qkv_bias else ''}; param_count() "
+        f"{full.param_count() / 1e9:.3f} B (active "
+        f"{full.active_param_count() / 1e9:.3f} B) at full depth, "
+        f"{cfg.param_count() / 1e9:.3f} B (active "
+        f"{cfg.active_param_count() / 1e9:.3f} B) as run; allocated "
+        f"{n_params / 1e9:.3f} B params ({n_bytes / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in prompt_lens]
+
+    def engine():
+        return ServingEngine(cfg, params, max_seqs=MAX_SEQS,
+                             max_blocks_per_seq=MAX_BLOCKS_PER_SEQ)
+
+    eng = engine()
+    page_kib = eng.engine.pools["k"][0, 0].numel() * 2 // 1024
+    log(f"[{arch}] pools {eng.pool_bytes_resident() / 1e9:.2f} GB (K/V "
+        f"pools {eng.engine.pools['k'].numel() * 2 / 1e9:.2f} GB each; "
+        f"{cfg.num_kv_heads} KV heads per page, {page_kib} KiB per page "
+        "and layer)")
+    routes = RouteLog(cfg.num_experts) if cfg.family == "moe" else None
+    counters = ops.KERNEL_COUNTERS
+    for c in counters.values():
+        c.reset()
+    L = cfg.num_layers
+    k3_per_admission, sids = [], []
+    round_ms, fused, k2_per_round, bulk = [], [], [], []
+    n_tokens = 0
+    moe.ROUTE_HOOK = routes
+    try:
+        torch.cuda.synchronize()
+        t_admit = time.perf_counter()
+        for p in prompts:
+            before = counters["flash_attention"].n
+            sids.append(eng.add_request(p))
+            k3_per_admission.append(counters["flash_attention"].n - before)
+        torch.cuda.synchronize()
+        t_admit = time.perf_counter() - t_admit
+        for rnd in range(rounds):
+            if rnd == 1:
+                eng.fork(sids[0], 2)
+            before = {n: c.n for n, c in counters.items()}
+            t = time.perf_counter()
+            out = eng.decode_round()
+            torch.cuda.synchronize()
+            round_ms.append((time.perf_counter() - t) * 1e3)
+            n_tokens += len(out)
+            fused.append(counters["fused_dispatch"].n -
+                         before["fused_dispatch"])
+            k2_per_round.append(counters["paged_attention"].n -
+                                before["paged_attention"])
+            bulk.append(eng.last_ticket.commands > 0)
+            if rnd == 0:
+                moe.ROUTE_HOOK = None
+                first_logits = {s: eng.last_logits[s].copy() for s in sids}
+                first_tokens = dict(out)
+    finally:
+        moe.ROUTE_HOOK = None
+    launches = {n: c.n for n, c in counters.items()}
+    checks = {
+        "allocated parameters == param_count() + the final norm":
+            n_params == cfg.param_count() + cfg.d_model,
+        "K1 <= 1 per round": max(fused) <= 1,
+        "K1 == 1 on every round with bulk work":
+            any(bulk) and all(f == 1 for f, b in zip(fused, bulk) if b),
+        "K2 == layers per round": all(n == L for n in k2_per_round),
+        "K3 == layers per admission":
+            all(n == L for n in k3_per_admission),
+        "logits finite": all(np.isfinite(lg).all()
+                             for lg in eng.last_logits.values()),
+    }
+    steady = float(np.median(round_ms[2:]))
+    log(f"[{arch}] admitted {len(prompts)} prompts {tuple(prompt_lens)} in "
+        f"{t_admit * 1e3:.1f} ms; {rounds} rounds, median {steady:.2f} "
+        f"ms/round (rounds 3-{rounds}, host clock, synchronised), "
+        f"{n_tokens / (sum(round_ms) / 1e3):.1f} tokens/s over all rounds; "
+        f"K1 per round {fused}, K2 per round {sorted(set(k2_per_round))}, "
+        f"K3 per admission {k3_per_admission}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{arch} serve checks failed: {failed}")
+    if profile:
+        profile_rounds(eng.decode_round, tag=arch)
+    del eng
+    torch.cuda.empty_cache()
+    if profile:
+        # the same admissions into a fresh engine, profiled
+        fresh = engine()
+        profile_rounds(lambda: _admit_all(fresh, prompts), rounds=1,
+                       tag=arch, what="admission")
+        del fresh
+        torch.cuda.empty_cache()
+
+    # the same admissions and first round through the plain versions, fed
+    # the kernel run's round-1 tokens
+    def plain_run(mode):
+        if routes is not None:
+            routes.reset(mode)
+        moe.ROUTE_HOOK = routes
+        try:
+            with ops.plain_versions():
+                plain = engine()
+                psids = _admit_all(plain, prompts)
+                toks = iter([first_tokens[s] for s in sorted(first_tokens)])
+                plain.decode_round(sample_fn=lambda _: next(toks))
+        finally:
+            moe.ROUTE_HOOK = None
+        got = [plain.last_logits[ps] for ps in psids]
+        del plain
+        torch.cuda.empty_cache()
+        errs = [float(np.abs(first_logits[s] - b).max())
+                for s, b in zip(sids, got)]
+        scale = max(float(np.abs(b).max()) for b in got)
+        agree = sum(int(np.argmax(first_logits[s]) == np.argmax(b))
+                    for s, b in zip(sids, got))
+        flips = "" if routes is None else (
+            f"; routing flips {routes.flipped()} of {routes.choices} "
+            "choices" + (" (the plain run's own choices, replaced by the "
+                         "kernel run's)" if mode == "replay" else ""))
+        under = " under the kernel run's routing" if mode == "replay" \
+            else ""
+        log(f"[{arch}] round-1 logits vs plain versions{under}: max |diff| "
+            f"{max(errs):.3e} (limit {SERVE_RTOL} x max |logit| = "
+            f"{SERVE_RTOL * scale:.3e}); argmax agrees on "
+            f"{agree}/{len(sids)}{flips}")
+        return max(errs) <= SERVE_RTOL * scale
+
+    ok = plain_run("compare")
+    if not ok and routes is not None and routes.flipped():
+        ok = plain_run("replay")
+    if not ok:
+        raise AssertionError(f"{arch} serve logits differ from the plain "
+                             "versions")
+
+    # every K2 / K3 call of the admissions and the first round against its
+    # plain version on the same inputs (the calls' check of record)
+    def path():
+        tap = engine()
+        _admit_all(tap, prompts)
+        tap.decode_round()
+
+    _, reads = tapped(path)
+    torch.cuda.empty_cache()
+    log(f"[{arch}] every kernel call vs its plain version on the same "
+        "inputs: " + _fmt_reads(reads))
+    calls = {op: r["calls"] for op, r in reads.items()}
+    if calls != {"flash_attention": L * len(prompts),
+                 "paged_attention_slab": L} or \
+            any(r["err"] > r["limit"] for r in reads.values()):
+        raise AssertionError(f"{arch}: kernel calls vs plain: {reads}")
+    return launches, params
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this test "
@@ -1956,7 +2189,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # launch counts of each main-path run, by path
     paths = {}
-    paths["llama3.2-3b serve"], cfg, params = phase_serve()
+    paths["llama3.2-3b serve"], params = phase_decoder_serve(
+        "llama3.2-3b", profile=True)
     torch.cuda.empty_cache()
     copy_kernels, flat = phase_copy_kernels(scrub)
     torch.cuda.empty_cache()
@@ -1965,7 +2199,7 @@ def main() -> int:
     phase_table1(flat)
     del flat
     torch.cuda.empty_cache()
-    paths["Fig. 2"] = phase_fig2(cfg, params)
+    paths["Fig. 2"] = phase_fig2(params.cfg, params)
     del params
     torch.cuda.empty_cache()
     k4 = phase_k4(scrub)
@@ -1975,12 +2209,27 @@ def main() -> int:
     k3_80 = phase_k3(scrub, H=32, KVH=32, D=80,
                      cases=((SSM_BATCH, SSM_PROMPT), (1, SSM_RAGGED),
                             (1, 512)))
-    for row, more in ((k2, k2_80), (k3, k3_80)):
-        row["max_abs_err"] = max(row["max_abs_err"], more["max_abs_err"])
+    more = [(k2, k2_80), (k3, k3_80)]
+    # K2 and K3 at the served configs' head groups (head dim 128): yi-6b's
+    # 32 heads over 4 KV heads (group 8) and deepseek-moe-16b's 16 over 16
+    for H, KVH in ((32, 4), (16, 16)):
+        more += [(k2, phase_k2(scrub, H=H, KVH=KVH)),
+                 (k3, phase_k3(scrub, H=H, KVH=KVH))]
+    for row, other in more:
+        row["max_abs_err"] = max(row["max_abs_err"], other["max_abs_err"])
     del scrub
     torch.cuda.empty_cache()
     for arch in ("mamba2-780m", "zamba2-2.7b"):
         paths[arch] = phase_mamba_model(arch)
+    # each model is dropped with the returned tuple before the next is built
+    paths["deepseek-moe-16b serve"] = phase_decoder_serve(
+        "deepseek-moe-16b", profile=True)[0]
+    torch.cuda.empty_cache()
+    for arch, layers in OTHER_CONFIGS:
+        name = arch if layers is None else f"{arch} ({layers} layers)"
+        paths[f"{name} serve"] = phase_decoder_serve(
+            arch, layers, SHORT_PROMPT_LENS, SHORT_ROUNDS)[0]
+        torch.cuda.empty_cache()
     kernels = [k1, k2, k3] + copy_kernels + [k4]
     for k in kernels:
         k["route"] = "cuda"

@@ -1,9 +1,11 @@
 """Model and RowClone configuration of the port (a copy of what it needs
 from ``repro/configs``): :class:`ModelConfig` with :meth:`ModelConfig.reduced`,
 :class:`RowCloneConfig`, and the registry entries of the families the port
-runs: the dense decoder it serves (llama3.2-3b), the attention-free SSD
-stack (mamba2-780m) and the Mamba2 + shared-attention hybrid (zamba2-2.7b),
-the last two through ``LanguageModel.prefill_state`` / ``decode_state``.
+runs: the dense decoders it serves (llama3.2-3b, yi-6b, mistral-nemo-12b,
+qwen2-72b with its QKV bias), the mixture-of-experts decoders it serves
+(deepseek-moe-16b, phi3.5-moe-42b-a6.6b), the attention-free SSD stack
+(mamba2-780m) and the Mamba2 + shared-attention hybrid (zamba2-2.7b), the
+last two through ``LanguageModel.prefill_state`` / ``decode_state``.
 ``tests/test_torch_contract.py`` pins the copy to the reference."""
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from dataclasses import dataclass
 from typing import Dict
 
 VOCAB_PAD_MULTIPLE = 256
+#: the families whose every layer is a decoder layer with its own KV pages
+DECODER_FAMILIES = ("dense", "moe")
 
 
 def pad_to(x: int, m: int) -> int:
@@ -20,8 +24,8 @@ def pad_to(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyper-parameters.  The port runs ``family`` dense, ssm
-    and hybrid; the fields of the other families are kept so that
+    """Architecture hyper-parameters.  The port runs ``family`` dense, moe,
+    ssm and hybrid; the fields of the other families are kept so that
     :meth:`reduced` derives the same smoke configuration as the
     reference."""
 
@@ -82,10 +86,10 @@ class ModelConfig:
 
     @property
     def num_attn_layers(self) -> int:
-        """Layers that own a KV cache: every layer of a dense decoder, none
-        of an SSD stack, one shared-block invocation per segment of a
-        hybrid."""
-        if self.family == "dense":
+        """Layers that own a KV cache: every layer of a dense or moe
+        decoder, none of an SSD stack, one shared-block invocation per
+        segment of a hybrid."""
+        if self.family in DECODER_FAMILIES:
             return self.num_layers
         if self.family == "ssm":
             return 0
@@ -120,6 +124,58 @@ class ModelConfig:
             dtype="float32",
         )
 
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's, for the families the
+        port runs)."""
+        d, V = self.d_model, self.padded_vocab
+        n = V * d
+        if not self.tie_embeddings:
+            n += V * d
+        if self.family in ("ssm", "hybrid"):
+            n += self.num_layers * (_mamba2_layer_params(self) + d)
+            if self.family == "hybrid":
+                n += _attn_block_params(self) + _mlp_params(self, self.d_ff)
+            return n
+        if self.family not in DECODER_FAMILIES:
+            raise NotImplementedError(
+                f"family {self.family!r} is not ported yet")
+        per_layer = _attn_block_params(self) + 2 * d
+        if self.family == "moe":
+            e_ff = self.moe_d_ff or self.d_ff
+            per_layer += (self.num_experts + self.num_shared_experts) * \
+                3 * d * e_ff + d * self.num_experts
+        else:
+            per_layer += _mlp_params(self, self.d_ff)
+        return n + self.num_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses (moe: its top_k and the shared
+        experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        e_ff = self.moe_d_ff or self.d_ff
+        return self.param_count() - self.num_layers * \
+            (self.num_experts - self.top_k) * 3 * self.d_model * e_ff
+
+
+def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
+    return 3 * cfg.d_model * d_ff
+
+
+def _attn_block_params(cfg: ModelConfig) -> int:
+    d = cfg.d_model
+    n = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+    if cfg.qkv_bias:
+        n += cfg.q_dim + 2 * cfg.kv_dim
+    return n
+
+
+def _mamba2_layer_params(cfg: ModelConfig) -> int:
+    d, di = cfg.d_model, cfg.ssm_d_inner
+    n_h, st = cfg.ssm_heads, cfg.ssm_state
+    return d * (2 * di + 2 * st + n_h) + di * cfg.ssm_conv_width + \
+        2 * n_h + di * d
+
 
 @dataclass(frozen=True)
 class RowCloneConfig:
@@ -153,6 +209,38 @@ _REGISTRY: Dict[str, ModelConfig] = {
         num_heads=32, num_kv_heads=32, head_dim=80, d_ff=10240,
         vocab_size=32000, ssm_state=64, ssm_heads=80, ssm_head_dim=64,
         ssm_expand=2, shared_attn_every=6, rope_theta=10000.0),
+    # yi-6b: llama-architecture GQA decoder, 32L d_model=4096 32H (GQA
+    # kv=4) d_ff=11008 vocab=64000
+    "yi-6b": ModelConfig(
+        arch_id="yi-6b", family="dense", num_layers=32, d_model=4096,
+        num_heads=32, num_kv_heads=4, head_dim=128, d_ff=11008,
+        vocab_size=64000, rope_theta=5000000.0),
+    # mistral-nemo-12b: dense GQA decoder, 40L d_model=5120 32H (GQA kv=8)
+    # head_dim 128 (q_dim 4096 != d_model) d_ff=14336 vocab=131072
+    "mistral-nemo-12b": ModelConfig(
+        arch_id="mistral-nemo-12b", family="dense", num_layers=40,
+        d_model=5120, num_heads=32, num_kv_heads=8, head_dim=128,
+        d_ff=14336, vocab_size=131072, rope_theta=1000000.0),
+    # qwen2-72b: dense GQA decoder with QKV bias, 80L d_model=8192 64H
+    # (GQA kv=8) d_ff=29568 vocab=152064
+    "qwen2-72b": ModelConfig(
+        arch_id="qwen2-72b", family="dense", num_layers=80, d_model=8192,
+        num_heads=64, num_kv_heads=8, head_dim=128, d_ff=29568,
+        vocab_size=152064, qkv_bias=True, rope_theta=1000000.0),
+    # deepseek-moe-16b: 28L d_model=2048 16H (kv=16, MHA), 64 routed
+    # experts top-6 of d_ff 1408 plus 2 shared, vocab=102400
+    "deepseek-moe-16b": ModelConfig(
+        arch_id="deepseek-moe-16b", family="moe", num_layers=28,
+        d_model=2048, num_heads=16, num_kv_heads=16, head_dim=128,
+        d_ff=1408, vocab_size=102400, num_experts=64, top_k=6,
+        num_shared_experts=2, rope_theta=10000.0),
+    # phi3.5-moe-42b-a6.6b: 32L d_model=4096 32H (GQA kv=8), 16 experts
+    # top-2 of d_ff 6400, no shared expert, vocab=32064
+    "phi3.5-moe-42b-a6.6b": ModelConfig(
+        arch_id="phi3.5-moe-42b-a6.6b", family="moe", num_layers=32,
+        d_model=4096, num_heads=32, num_kv_heads=8, head_dim=128,
+        d_ff=6400, vocab_size=32064, num_experts=16, top_k=2,
+        rope_theta=10000.0),
 }
 
 
@@ -164,4 +252,9 @@ def get_config(arch_id: str) -> ModelConfig:
                        f"{sorted(_REGISTRY)}") from None
 
 
-__all__ = ["ModelConfig", "RowCloneConfig", "get_config", "pad_to"]
+def list_archs():
+    return sorted(_REGISTRY)
+
+
+__all__ = ["DECODER_FAMILIES", "ModelConfig", "RowCloneConfig", "get_config",
+           "list_archs", "pad_to"]

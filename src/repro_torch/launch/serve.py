@@ -1,5 +1,6 @@
 """Serving engine: continuous batched greedy decode over a RowClone-managed
-pool (port of ``repro/launch/serve.py``: the dense family on one GPU).
+pool (port of ``repro/launch/serve.py``: the dense and moe families on one
+GPU).
 
 * ``add_request`` runs the prefill (K3 in every layer), writes the prompt's
   KV pages into the staging ring, and enqueues the stage→KV promotion
@@ -27,7 +28,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import ModelConfig, RowCloneConfig, get_config
+from repro_torch.configs import (DECODER_FAMILIES, ModelConfig,
+                                 RowCloneConfig, get_config, list_archs)
 from repro_torch.core.allocator import SubarrayAllocator
 from repro_torch.core.cow_cache import PagedCoWCache
 from repro_torch.core.rowclone import RowCloneEngine
@@ -49,10 +51,11 @@ class ServingEngine:
                  num_slabs: int = 4, rc: Optional[RowCloneConfig] = None,
                  max_admit_pages: Optional[int] = None,
                  admissions_per_round: int = 1, device="cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in DECODER_FAMILIES:
             raise NotImplementedError(
-                "the serving engine targets the dense family; "
-                f"{cfg.family!r} decodes through LanguageModel.decode_state")
+                "the serving engine targets the "
+                f"{' and '.join(DECODER_FAMILIES)} families; {cfg.family!r} "
+                "decodes through LanguageModel.decode_state")
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"weights on {params.embed.device}, engine on "
@@ -193,7 +196,10 @@ def main() -> None:
     """CLI: admit random prompts, optionally fork, greedy-decode, print the
     RowClone mechanism stats."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--arch", default="llama3.2-3b", choices=list_archs(),
+                    help="the engine serves the dense and moe configs; the "
+                         "ssm and hybrid ones decode through "
+                         "LanguageModel.decode_state and are refused here")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=16)

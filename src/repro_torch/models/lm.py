@@ -1,7 +1,7 @@
-"""The language model (port of ``repro/models/lm.py``) for the dense, ssm
-and hybrid families.
+"""The language model (port of ``repro/models/lm.py``) for the dense, moe,
+ssm and hybrid families.
 
-* dense: :meth:`LanguageModel.prefill` over a prompt and
+* dense and moe: :meth:`LanguageModel.prefill` over a prompt and
   :meth:`LanguageModel.decode_step` over the paged pools, the pair the
   serving engine drives;
 * ssm and hybrid: the facade pair of the reference's ``prefill`` /
@@ -18,7 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs import ModelConfig, RowCloneConfig
+from repro_torch.configs import DECODER_FAMILIES, ModelConfig, RowCloneConfig
 from repro_torch.models.common import embed, rms_norm
 from repro_torch.models.mamba2 import (Mamba2Layer, mamba2_decode_step,
                                        mamba2_layer)
@@ -26,7 +26,7 @@ from repro_torch.models.paged import identity_layout
 from repro_torch.models.transformer import (DecoderLayer, decoder_layer_decode,
                                             decoder_layer_train)
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = DECODER_FAMILIES + ("ssm", "hybrid")
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -36,7 +36,7 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 class LanguageModel(nn.Module):
     """Weights of the model: embedding (tied to the head when
     ``cfg.tie_embeddings``), final norm and the layers — decoder layers
-    (dense) or Mamba2 layers (ssm, hybrid), plus the one shared decoder
+    (dense, moe) or Mamba2 layers (ssm, hybrid), plus the one shared decoder
     layer of the hybrid, which runs after every ``shared_attn_every``
     Mamba2 layers.  Build one with :func:`repro_torch.weights.init_params`
     or :func:`repro_torch.weights.from_jax_params`."""
@@ -60,7 +60,8 @@ class LanguageModel(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.zeros((cfg.d_model, cfg.padded_vocab), dtype=dt,
                             device=device), requires_grad=False)
-        layer = DecoderLayer if cfg.family == "dense" else Mamba2Layer
+        layer = DecoderLayer if cfg.family in DECODER_FAMILIES \
+            else Mamba2Layer
         self.layers = nn.ModuleList(layer(cfg, dt, device)
                                     for _ in range(cfg.num_layers))
         if cfg.family == "hybrid":
@@ -76,11 +77,12 @@ class LanguageModel(nn.Module):
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return (x.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
 
-    def _dense_only(self, what: str) -> None:
-        if self.cfg.family != "dense":
+    def _decoder_only(self, what: str) -> None:
+        if self.cfg.family not in DECODER_FAMILIES:
             raise NotImplementedError(
-                f"{what} serves the dense family; {self.cfg.family!r} runs "
-                "through prefill_state / decode_state")
+                f"{what} serves the {' and '.join(DECODER_FAMILIES)} "
+                f"families; {self.cfg.family!r} runs through prefill_state "
+                "/ decode_state")
 
     def _mamba_only(self, what: str) -> None:
         if self.cfg.family not in ("ssm", "hybrid"):
@@ -92,15 +94,16 @@ class LanguageModel(nn.Module):
     def prefill(self, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (last-position logits (B, V) fp32, k, v), k / v
-        (L, B, S, KVH, D) post-RoPE."""
-        self._dense_only("prefill")
+        (L, B, S, KVH, D) post-RoPE.  A moe layer's aux loss is dropped,
+        as the reference's serving path drops it."""
+        self._decoder_only("prefill")
         cfg = self.cfg
         B, S = tokens.shape
         x = embed(self.embed, tokens, self.act_dtype)
         pos = torch.arange(S, device=tokens.device).expand(B, S)
         ks, vs = [], []
         for layer in self.layers:
-            x, (k, v) = decoder_layer_train(layer, x, pos, cfg)
+            x, _, (k, v) = decoder_layer_train(layer, x, pos, cfg)
             ks.append(k)
             vs.append(v)
         xn = rms_norm(x[:, -1, :], self.final_norm, cfg.norm_eps)
@@ -115,7 +118,7 @@ class LanguageModel(nn.Module):
         (tokens already in the cache).  Appends every layer's K/V into
         ``k_pools`` / ``v_pools`` (L, nblk, page, KVH, D) IN PLACE and
         returns the next-position logits (B, V) fp32."""
-        self._dense_only("decode_step")
+        self._decoder_only("decode_step")
         cfg, page = self.cfg, self.page
         pos = seq_lens.long()
         x = embed(self.embed, tokens, self.act_dtype)
@@ -203,7 +206,8 @@ class LanguageModel(nn.Module):
         for li, layer in enumerate(self.layers):
             x, ssm[li], conv[li] = mamba2_layer(layer, x, cfg)
             if cfg.family == "hybrid" and (li + 1) % every == 0:
-                x, (k, v) = decoder_layer_train(self.shared, x, pos, cfg)
+                x, _, (k, v) = decoder_layer_train(self.shared, x, pos,
+                                                   cfg)
                 seg = li // every
                 for name, kv in (("k_pools", k), ("v_pools", v)):
                     pool = state[name][seg].view(

@@ -1,7 +1,8 @@
-"""Dense decoder layer (port of ``repro/models/transformer.py``, the dense
-family): GQA attention block + SwiGLU MLP, for prefill and for one decode
-step over the paged pools.  Weights keep the JAX layout ``(in, out)``, so
-``h @ w`` reads the same in both packages."""
+"""Decoder layer (port of ``repro/models/transformer.py``, the dense and
+moe families): GQA attention block (with the QKV bias where the config sets
+``qkv_bias``) + a SwiGLU MLP (dense) or a mixture-of-experts FFN (moe), for
+prefill and for one decode step over the paged pools.  Weights keep the JAX
+layout ``(in, out)``, so ``h @ w`` reads the same in both packages."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -12,6 +13,7 @@ from torch import nn
 from repro_torch.configs import ModelConfig
 from repro_torch.models.attention import prefill_attention
 from repro_torch.models.common import apply_rope, rms_norm, swiglu_mlp
+from repro_torch.models.moe import MoEFFN, moe_ffn_local
 from repro_torch.models.paged import attend_append_local
 
 
@@ -21,8 +23,10 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class DecoderLayer(nn.Module):
-    """One dense decoder layer's weights.  Norm gains stay fp32; the
-    projections are in the model dtype."""
+    """One decoder layer's weights.  Norm gains stay fp32; the projections
+    (and the QKV biases ``bq`` / ``bk`` / ``bv`` of a ``qkv_bias`` config)
+    are in the model dtype.  A dense layer holds its MLP's ``w_gate`` /
+    ``w_up`` / ``w_down``, a moe layer a :class:`MoEFFN` as ``moe``."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
@@ -33,17 +37,39 @@ class DecoderLayer(nn.Module):
         self.wk = _param((d, cfg.kv_dim), dtype, device)
         self.wv = _param((d, cfg.kv_dim), dtype, device)
         self.wo = _param((cfg.q_dim, d), dtype, device)
-        self.w_gate = _param((d, cfg.d_ff), dtype, device)
-        self.w_up = _param((d, cfg.d_ff), dtype, device)
-        self.w_down = _param((cfg.d_ff, d), dtype, device)
+        self.qkv_bias = cfg.qkv_bias
+        if cfg.qkv_bias:
+            self.bq = _param((cfg.q_dim,), dtype, device)
+            self.bk = _param((cfg.kv_dim,), dtype, device)
+            self.bv = _param((cfg.kv_dim,), dtype, device)
+        if cfg.family == "moe":
+            self.moe = MoEFFN(cfg, dtype, device)
+        else:
+            self.w_gate = _param((d, cfg.d_ff), dtype, device)
+            self.w_up = _param((d, cfg.d_ff), dtype, device)
+            self.w_down = _param((cfg.d_ff, d), dtype, device)
 
     def qkv(self, h: torch.Tensor):
+        """Q, K, V projections in ``h``'s dtype, the biases added after the
+        product (the reference's ``_qkv``)."""
         dt = h.dtype
-        return h @ self.wq.to(dt), h @ self.wk.to(dt), h @ self.wv.to(dt)
+        q, k, v = h @ self.wq.to(dt), h @ self.wk.to(dt), h @ self.wv.to(dt)
+        if self.qkv_bias:
+            q = q + self.bq.to(dt)
+            k = k + self.bk.to(dt)
+            v = v + self.bv.to(dt)
+        return q, k, v
 
-    def ffn(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    def ffn(self, x: torch.Tensor, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (B, S, d) -> (x + FFN(norm(x)), aux loss: 0 for dense)."""
         h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + swiglu_mlp(h, self.w_gate, self.w_up, self.w_down)
+        if cfg.family == "moe":
+            y, aux = moe_ffn_local(self.moe, h, cfg)
+        else:
+            y = swiglu_mlp(h, self.w_gate, self.w_up, self.w_down)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + y, aux
 
 
 def _heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
@@ -52,10 +78,11 @@ def _heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
 
 def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
                         pos: torch.Tensor, cfg: ModelConfig
-                        ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
-                                                       torch.Tensor]]:
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence layer for prefill: x (B, S, d), pos (B, S).  Returns
-    the new x and this layer's post-RoPE (k, v), each (B, S, KVH, D)."""
+    the new x, the FFN's aux loss (fp32 scalar, 0 for dense) and this
+    layer's post-RoPE (k, v), each (B, S, KVH, D)."""
     B, S, _ = x.shape
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     q, k, v = layer.qkv(h)
@@ -66,7 +93,8 @@ def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
     v = _heads(v, cfg.num_kv_heads, cfg.head_dim)
     o = prefill_attention(q, k, v, causal=True)
     x = x + o.reshape(B, S, cfg.q_dim) @ layer.wo.to(x.dtype)
-    return layer.ffn(x, cfg), (k, v)
+    x, aux = layer.ffn(x, cfg)
+    return x, aux, (k, v)
 
 
 def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
@@ -77,7 +105,8 @@ def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
                          base: torch.Tensor, seq_lens_incl: torch.Tensor,
                          cfg: ModelConfig, page: int) -> torch.Tensor:
     """One token per sequence: x (B, d), pos (B,).  Appends this layer's
-    new K/V into ``k_slab`` / ``v_slab`` IN PLACE and attends over them."""
+    new K/V into ``k_slab`` / ``v_slab`` IN PLACE and attends over them.
+    The FFN sees (B, 1, d): a moe layer routes each sequence alone."""
     B, _ = x.shape
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     q, k, v = layer.qkv(h[:, None, :])
@@ -89,7 +118,7 @@ def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
     o = attend_append_local(q, k, v, k_slab, v_slab, rows, blk_ids, offsets,
                             share_mask, base, seq_lens_incl, page=page)
     x = x + o.reshape(B, cfg.q_dim) @ layer.wo.to(x.dtype)
-    return layer.ffn(x, cfg)
+    return layer.ffn(x[:, None, :], cfg)[0][:, 0]
 
 
 __all__ = ["DecoderLayer", "decoder_layer_train", "decoder_layer_decode"]

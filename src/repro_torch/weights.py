@@ -1,9 +1,12 @@
-"""Weights of the port's models (dense, ssm, hybrid).
+"""Weights of the port's models (dense, moe, ssm, hybrid).
 
 * :func:`init_params` makes random weights on the target device from a
   seeded ``torch.Generator``, with the scales of the reference's
   initialisers (``repro/models/common.py``, ``repro/models/mamba2.py``):
-  embedding and untied head N(0, 0.02), dense N(0, 1/in), norm gains zero;
+  embedding and untied head N(0, 0.02), dense N(0, 1/in), norm gains and
+  QKV biases zero; a moe FFN's router N(0, 0.02), expert ``w_gate`` /
+  ``w_up`` N(0, 1/d) and ``w_down`` N(0, 1/f), shared experts as a dense
+  MLP (``repro/models/moe.py``);
   Mamba2 ``conv_w`` N(0, 1/W), ``dt_bias = log(expm1(dt))`` with ``dt``
   log-uniform in [1e-3, 1e-1], ``A_log = log(1..H)``, ``D = 1``.  Nothing
   is downloaded.
@@ -55,11 +58,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                         dtype=torch.float32)
         p.data.copy_(w.mul_(scale))
 
+    def mlp(m, f: int) -> None:
+        normal_(m.w_gate, cfg.d_model ** -0.5)
+        normal_(m.w_up, cfg.d_model ** -0.5)
+        normal_(m.w_down, f ** -0.5)
+
     def decoder(layer: DecoderLayer) -> None:
-        for name in ("wq", "wk", "wv", "w_gate", "w_up"):
+        for name in ("wq", "wk", "wv"):
             normal_(getattr(layer, name), cfg.d_model ** -0.5)
         normal_(layer.wo, cfg.q_dim ** -0.5)
-        normal_(layer.w_down, cfg.d_ff ** -0.5)
+        if cfg.family != "moe":
+            mlp(layer, cfg.d_ff)
+            return
+        moe = layer.moe
+        normal_(moe.router, 0.02)
+        mlp(moe, cfg.moe_d_ff or cfg.d_ff)
+        if moe.shared is not None:
+            mlp(moe.shared, moe.shared.w_down.shape[0])
 
     def mamba(layer: Mamba2Layer) -> None:
         H = cfg.ssm_heads
@@ -92,6 +107,9 @@ def _to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+#: a SwiGLU's parameters (the dense MLP, the experts, the shared experts)
+SWIGLU_PARAMS = ("w_gate", "w_up", "w_down")
+
 #: the Mamba2 layer's parameters, by their name in the JAX tree
 MAMBA2_PARAMS = ("norm", "w_in", "conv_w", "conv_b", "dt_bias", "A_log", "D",
                  "gate_norm", "w_out")
@@ -99,8 +117,8 @@ MAMBA2_PARAMS = ("norm", "w_in", "conv_w", "conv_b", "dt_bias", "A_log", "D",
 
 def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
                     rc: RowCloneConfig = RowCloneConfig()) -> LanguageModel:
-    """Map the JAX parameter tree (numpy leaves) of a dense, ssm or hybrid
-    model into a :class:`LanguageModel` on ``device``."""
+    """Map the JAX parameter tree (numpy leaves) of a dense, moe, ssm or
+    hybrid model into a :class:`LanguageModel` on ``device``."""
     device = resolve_device(device)
     model = LanguageModel(cfg, device, rc)
 
@@ -116,10 +134,20 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
         at = (lambda a: a) if i is None else (lambda a: a[i])
         put(layer.ln1, at(d["ln1"]))
         put(layer.ln2, at(d["ln2"]))
-        for name in ("wq", "wk", "wv", "wo"):
+        attn = ("wq", "wk", "wv", "wo") + \
+            (("bq", "bk", "bv") if cfg.qkv_bias else ())
+        for name in attn:
             put(getattr(layer, name), at(d["attn"][name]))
-        for name in ("w_gate", "w_up", "w_down"):
-            put(getattr(layer, name), at(d["mlp"][name]))
+        if cfg.family != "moe":
+            for name in SWIGLU_PARAMS:
+                put(getattr(layer, name), at(d["mlp"][name]))
+            return
+        for name in ("router",) + SWIGLU_PARAMS:
+            put(getattr(layer.moe, name), at(d["moe"][name]))
+        if layer.moe.shared is not None:
+            for name in SWIGLU_PARAMS:
+                put(getattr(layer.moe.shared, name),
+                    at(d["moe"]["shared"][name]))
 
     put(model.embed, tree["embed"])
     put(model.final_norm, tree["final_norm"])

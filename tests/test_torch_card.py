@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card: K1-K6
-(tests marked ``cuda``; each skips where no GPU is visible).
+(tests marked ``cuda``; each skips where no GPU is visible), K2 and K3
+also at the head groups of every served config.
 
 This module imports only torch, numpy, pytest and ``repro_torch`` and makes
 its inputs with numpy, so that it runs on the card's machine, which has no
@@ -327,6 +328,39 @@ def test_cuda_attention_kernels_at_head_dim_80_match_plain_on_card(card):
         qq, kk, vv = (torch.from_numpy(rng.standard_normal((1, 8, S, D))
                                        .astype(np.float32)).cuda().bfloat16()
                       for _ in range(3))
+        torch.testing.assert_close(
+            ops.flash_attention(qq, kk, vv).float(),
+            ops.flash_attention(qq, kk, vv, use_kernel=False).float(),
+            atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KVH", [(32, 4), (16, 16)])
+def test_cuda_attention_kernels_at_served_head_groups_match_plain_on_card(
+        card, H, KVH):
+    """K2 and K3 at head dim 128 with the head groups of the served
+    configs: yi-6b's 32 heads over 4 KV heads (group 8, K2's largest) and
+    deepseek-moe-16b's 16 over 16 (group 1), against their plain versions
+    (K2 atol 2e-3 on the normalised output, K3 atol 2e-2 on bf16)."""
+    for pages in ((64, 3, 1, 0), (2, 2, 5, 1)):
+        case = _layout_case(7, pages, H=H, KVH=KVH, D=128, page=64, nblk=80)
+        args = [torch.from_numpy(x).cuda() for x in case]
+        for i in range(3):
+            args[i] = args[i].bfloat16()
+        acc, l, m = ops.paged_attention_slab(*args, page=64)
+        acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=64,
+                                                   use_kernel=False)
+        torch.testing.assert_close(acc / l.clamp_min(1e-30)[..., None],
+                                   acc_p / l_p.clamp_min(1e-30)[..., None],
+                                   atol=2e-3, rtol=0)
+        torch.testing.assert_close(m, m_p, atol=2e-3, rtol=0)
+        empty = args[5] == 0
+        assert (m[empty] == NEG_INF).all() and (l[empty] == 0).all()
+    rng = np.random.default_rng(13)
+    for S in (1, 250, 512):
+        qq, kk, vv = (torch.from_numpy(rng.standard_normal((1, S, n, 128))
+                                       .astype(np.float32)).cuda()
+                      .bfloat16().transpose(1, 2) for n in (H, KVH, KVH))
         torch.testing.assert_close(
             ops.flash_attention(qq, kk, vv).float(),
             ops.flash_attention(qq, kk, vv, use_kernel=False).float(),

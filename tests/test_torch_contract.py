@@ -224,10 +224,20 @@ def test_opcode_tables_match_reference():
         tops.check_pack_total(tops.MAX_PACK_BLOCKS + 1)
 
 
-#: the registry entries the port runs, one per ported family
-PORTED_ARCHS = ("llama3.2-3b", "mamba2-780m", "zamba2-2.7b")
+#: the registry entries the port runs: every dense, moe, ssm and hybrid
+#: config of the reference
+PORTED_ARCHS = ("llama3.2-3b", "yi-6b", "mistral-nemo-12b", "qwen2-72b",
+                "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "mamba2-780m",
+                "zamba2-2.7b")
+#: properties, and methods called without arguments
 CONFIG_PROPS = ("padded_vocab", "q_dim", "kv_dim", "num_attn_layers",
-                "ssm_d_inner", "is_attention_free", "has_subquadratic_path")
+                "ssm_d_inner", "is_attention_free", "has_subquadratic_path",
+                "param_count", "active_param_count")
+
+
+def _prop(cfg, name):
+    value = getattr(cfg, name)
+    return value() if callable(value) else value
 
 
 def test_config_copy_matches_reference():
@@ -238,7 +248,7 @@ def test_config_copy_matches_reference():
         for t, j in ((full_t, full_j), (full_t.reduced(), full_j.reduced())):
             assert dataclasses.asdict(t) == dataclasses.asdict(j), arch
             for prop in CONFIG_PROPS:
-                assert getattr(t, prop) == getattr(j, prop), (arch, prop)
+                assert _prop(t, prop) == _prop(j, prop), (arch, prop)
     rt = dataclasses.asdict(tcfg.RowCloneConfig())
     rj = dataclasses.asdict(jcfg.RowCloneConfig())
     assert rt == {k: rj[k] for k in rt}
@@ -248,26 +258,43 @@ def test_config_copy_matches_reference():
 def test_family_sizes_pinned(arch):
     """The sizes the port's models are built from, full and reduced: the
     KV-owning layers (0 for ssm, one per shared-attention segment for
-    hybrid), d_inner and the padded vocabulary, as the reference reports
-    them and as the published configurations give them."""
-    want = {"llama3.2-3b": (28, 6144, 128256),
-            "mamba2-780m": (0, 3072, 50432),
-            "zamba2-2.7b": (9, 5120, 32000)}[arch]
+    hybrid), d_inner, the padded vocabulary and the parameter counts (all
+    and active, in millions), as the reference reports them and as the
+    published configurations give them."""
+    want = {"llama3.2-3b": (28, 6144, 128256, 3212, 3212),
+            "yi-6b": (32, 8192, 64000, 6061, 6061),
+            "mistral-nemo-12b": (40, 10240, 131072, 12247, 12247),
+            "qwen2-72b": (80, 16384, 152064, 72706, 72706),
+            "deepseek-moe-16b": (28, 4096, 102400, 16879, 2830),
+            "phi3.5-moe-42b-a6.6b": (32, 8192, 32256, 41874, 6641),
+            "mamba2-780m": (0, 3072, 50432, 780, 780),
+            "zamba2-2.7b": (9, 5120, 32000, 2422, 2422)}[arch]
+
+    def sizes(cfg):
+        return (cfg.num_attn_layers, cfg.ssm_d_inner, cfg.padded_vocab,
+                cfg.param_count() // 10**6, cfg.active_param_count() // 10**6)
+
     t, j = tcfg.get_config(arch), jcfg.get_config(arch)
-    assert (t.num_attn_layers, t.ssm_d_inner, t.padded_vocab) == want
+    assert sizes(t) == want
     for cfg in (t, t.reduced()):
         ref = j if cfg is t else j.reduced()
-        assert (cfg.num_attn_layers, cfg.ssm_d_inner, cfg.padded_vocab) == \
-            (ref.num_attn_layers, ref.ssm_d_inner, ref.padded_vocab)
+        assert sizes(cfg) == sizes(ref)
 
 
 def test_unported_families_still_raise():
-    """moe, vlm and encdec are not ported: their KV-layer count raises
-    rather than guessing."""
-    for fam in ("moe", "vlm", "encdec"):
+    """vlm and encdec are not ported: their KV-layer count and parameter
+    count raise rather than guessing.  moe is ported: every layer owns a
+    KV cache, as the reference counts it."""
+    for fam in ("vlm", "encdec"):
         cfg = dataclasses.replace(tcfg.get_config("llama3.2-3b"), family=fam)
         with pytest.raises(NotImplementedError):
             cfg.num_attn_layers
+        with pytest.raises(NotImplementedError):
+            cfg.param_count()
+    for arch in ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"):
+        t, j = tcfg.get_config(arch), jcfg.get_config(arch)
+        assert t.family == "moe"
+        assert t.num_attn_layers == j.num_attn_layers == t.num_layers
 
 
 # ---------------------------------------------------------------------------

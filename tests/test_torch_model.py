@@ -1,6 +1,9 @@
-"""The port's dense model against the JAX model on the reduced llama3.2-3b
-configuration (4 layers, d_model 128, fp32), with the JAX weights loaded
-through ``from_jax_params``.
+"""The port's dense model against the JAX model on the reduced dense
+configurations (4 layers, d_model 128, fp32): llama3.2-3b, yi-6b (GQA
+group 4 after the cut), mistral-nemo-12b and qwen2-72b, with the JAX
+weights loaded through ``from_jax_params``.  qwen2-72b's QKV biases are
+zero at init in both packages, so its ``bq`` / ``bk`` / ``bv`` are drawn
+nonzero from a seed in the JAX tree before both packages load it.
 
 Tolerances: KV pages atol 1e-4 (fp32; attention and matmuls sum in another
 order).  Logits atol 4e-3: both heads are bf16 products (``lm.py:96``), so
@@ -26,13 +29,33 @@ LOGIT_ATOL = 4e-3
 KV_ATOL = 1e-4
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jget_config("llama3.2-3b").reduced()
+#: the dense configurations, reduced
+DENSE_ARCHS = ("llama3.2-3b", "yi-6b", "mistral-nemo-12b", "qwen2-72b")
+#: scale of the seeded QKV biases (the projections' outputs are O(1))
+BIAS_SCALE = 0.5
+
+
+def perturb_qkv_bias(tree, seed: int = 0):
+    """Draw the (stacked) ``bq`` / ``bk`` / ``bv`` of a numpy parameter
+    tree from a seed, in place."""
+    rng = np.random.default_rng(seed)
+    attn = tree["layers"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        attn[name] = (rng.standard_normal(attn[name].shape) *
+                      BIAS_SCALE).astype(attn[name].dtype)
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def models(request):
+    arch = request.param
+    jcfg = jget_config(arch).reduced()
     jmodel = build_model(jcfg)
     params, _ = split_params(jmodel.init_params(jax.random.key(0)))
-    tree = jax.tree_util.tree_map(np.asarray, params)
-    cfg = get_config("llama3.2-3b").reduced()
+    tree = jax.tree_util.tree_map(np.array, params)
+    if jcfg.qkv_bias:
+        perturb_qkv_bias(tree)
+        params = jax.tree_util.tree_map(jnp.asarray, tree)
+    cfg = get_config(arch).reduced()
     return jmodel, params, from_jax_params(tree, cfg, device="cpu"), cfg
 
 
@@ -94,6 +117,21 @@ def test_init_params_is_seeded_and_scaled():
     assert abs(float(a.embed.std()) - 0.02) < 2e-3
     assert abs(float(a.layers[1].w_down.std()) - cfg.d_ff ** -0.5) < 5e-3
     assert float(a.layers[2].ln1.abs().max()) == 0.0
+
+
+def test_qkv_bias_is_loaded_and_applied(models):
+    """qwen2-72b's seeded biases reach every layer and move q / k / v by
+    exactly the bias; the other dense configs hold none."""
+    _, _, tmodel, cfg = models
+    layer = tmodel.layers[1]
+    assert hasattr(layer, "bq") == cfg.qkv_bias
+    if not cfg.qkv_bias:
+        return
+    assert float(layer.bq.abs().min()) > 0
+    h = torch.zeros((1, 2, cfg.d_model))
+    q, k, v = layer.qkv(h)
+    for got, bias in ((q, layer.bq), (k, layer.bk), (v, layer.bv)):
+        torch.testing.assert_close(got[0, 0], bias, atol=0, rtol=0)
 
 
 def test_facade_pair_refuses_the_dense_family(models):
