@@ -2,7 +2,7 @@
 """Time one checkout of the PyTorch port on one NVIDIA GPU, so that two
 checkouts (a parent and a change) can be compared on one card.
 
-    python3 chip_ab.py --src DIR --tag NAME [--rows k2,k4,k3,k5,k1,e2e]
+    python3 chip_ab.py --src DIR --tag NAME [--rows k2,k4,k3,k5,k1,e2e,bits]
 
 Imports ``repro_torch`` from ``DIR`` (a checkout's ``src``), builds its
 kernels and prints one JSON line, every time through ``chip_smoke.py``'s
@@ -33,6 +33,14 @@ before each; ``device_ms``: the profiler's device time of the call):
   host clock (synchronised, median of 3) and the device ms of one call
   (busy, and K2's, K3's, K4's and the copy kernels' share).
 
+The row ``bits`` (not in the default list) times nothing: it runs K3 and
+K2 at head dims 80 and 128 (zamba2-2.7b's 32 / 32 heads, llama3.2-3b's 24
+/ 8, yi-6b's 32 / 4 and deepseek-moe-16b's 16 / 16; K3 causal with
+prefixes 0 and 100 at ragged S, K2 on a ragged slab with a shared block)
+on inputs drawn from a fixed seed, and prints the SHA-256 of each
+output's bytes, so that two checkouts' lines show whether a kernel change
+left those head dims' results bit for bit as they were.
+
 Run it on the two checkouts in turns (parent, change, change, parent)
 on one machine in one go: two separate runs may land on two cards.
 """
@@ -56,8 +64,57 @@ def _args():
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", required=True)
     ap.add_argument("--rows", default="k2,k4,k3,k5,k1,e2e",
-                    help="comma-separated rows to time (default: all)")
+                    help="comma-separated rows (default: every timed row; "
+                         "bits only when named)")
     return ap.parse_args()
+
+
+def bits(torch, ops, scrub) -> dict:
+    """SHA-256 (first 16 hex digits) of K3's and K2's outputs at head dims
+    80 and 128 on seeded inputs, by case."""
+    import hashlib
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    def digest(t):
+        raw = t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        return hashlib.sha256(raw).hexdigest()[:16]
+
+    for D, H, KVH, cases in ((80, 32, 32, ((4, 384, 0), (1, 250, 100),
+                                           (1, 65, 0))),
+                             (128, 24, 8, ((1, 512, 0), (1, 250, 0),
+                                           (2, 300, 100))),
+                             (128, 32, 4, ((1, 512, 0),)),
+                             (128, 16, 16, ((1, 250, 0),))):
+        for B, S, prefix in cases:
+            q, k, v = (rnd(B, S, n, D).transpose(1, 2)
+                       for n in (H, KVH, KVH))
+            out[f"k3 D={D} H={H} KVH={KVH} B={B} S={S} prefix={prefix}"] = \
+                digest(ops.flash_attention(q, k, v, prefix_len=prefix,
+                                           use_kernel=True))
+        nblk, page, lens = 64, 64, (700, 64, 1, 130, 0, 333)
+        mask = np.zeros((nblk, len(lens)), np.int8)
+        base = np.zeros(nblk, np.int32)
+        blocks = iter(np.random.default_rng(D + H).permutation(nblk))
+        first = None
+        for b, n in enumerate(lens):
+            for j in range(-(-n // page)):
+                blk = next(blocks)
+                first = blk if first is None else first
+                mask[blk, b], base[blk] = 1, j * page
+        mask[first, 1] = 1                 # a block shared by two readers
+        acc, l, m = ops.paged_attention_slab(
+            rnd(len(lens), H, D), rnd(nblk, page, KVH, D),
+            rnd(nblk, page, KVH, D), torch.from_numpy(mask).cuda(),
+            torch.from_numpy(base).cuda(),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"),
+            page=page, use_kernel=True)
+        for name, t in (("acc", acc), ("l", l), ("m", m)):
+            out[f"k2 D={D} H={H} KVH={KVH} {name}"] = digest(t)
+    return out
 
 
 def k3(torch, ops, scrub) -> dict:
@@ -275,7 +332,7 @@ def main() -> int:
     rows = args.rows.split(",")
     out = {"tag": args.tag, "src": args.src, "smi": smi.stdout.strip()}
     for name, row in (("k2", k2), ("k4", k4), ("k3", k3), ("k5", k5),
-                      ("k1", k1)):
+                      ("k1", k1), ("bits", bits)):
         if name in rows:
             out[name] = row(torch, ops, scrub)
     del scrub

@@ -10,10 +10,12 @@ Phases (each raises on failure; the script then exits non-zero):
    port from ``src/repro_torch/csrc`` (nvcc, all sources in parallel),
    holds the design constants the CPU tests emulate (K2's split count,
    page and group limits, K4's heads per CTA) equal to the libraries' own,
-   counts K3's and K4's tensor-core instructions (``HGMMA`` in
-   ``cuobjdump -sass``; none in either fails the run) and K1's, K5's and
-   K6's bulk copies (``UBLKCP``; none fails the run), and holds K1's design
-   constants (``fused_dispatch.constants``) equal to the library's.
+   prints ptxas's registers and spills per kernel instantiation, counts
+   K3's and K4's tensor-core instructions (``HGMMA`` in ``cuobjdump
+   -sass``; none in either, or in any of K3's head-dim instantiations,
+   fails the run) and K1's, K5's and K6's bulk copies (``UBLKCP``; none
+   fails the run), and holds K1's design constants
+   (``fused_dispatch.constants``) equal to the library's.
 2. K1, the fused command drain, against its plain version at the serving
    pool shapes (four bf16 pools ``(28, nblk, 64, 8, 128)`` and the staging
    ring): every opcode, NOP padding, non-adjacent write-after-read pairs
@@ -92,6 +94,11 @@ Phases (each raises on failure; the script then exits non-zero):
    zamba2's head dim 80, and K2 (B = 8) and K3 (S = 512 and 250) at head
    dim 128 with the head groups of the configs phases 12-13 serve: 32
    heads over 4 KV heads (yi-6b, group 8) and 16 over 16 (deepseek-moe-16b).
+   Then K2 (B = 8, the three slabs) and K3 (``K3_CASES_256``: phase 14's
+   batch prefill, S = 512 and a ragged 313 with the 256-patch prefix and
+   without, at B = 1 and 4, the first five timed; ``K3_EDGES_256``: S = 1
+   and 65) at paligemma-3b's head dim 256 with 8 heads over 1 KV head;
+   SDPA beside K3 as a yardstick (with the prefix as a boolean mask).
 10. mamba2-780m at full width (48 layers, bf16, random weights from seed
     0) through ``LanguageModel.prefill_state`` / ``decode_state``: prefill
     4 prompts of 384 tokens (2 chunks) and one of 250 (one ragged chunk),
@@ -129,6 +136,20 @@ Phases (each raises on failure; the script then exits non-zero):
     qwen2-72b cut to 16 of 80 layers with its QKV biases drawn nonzero from
     the seed, and phi3.5-moe-42b-a6.6b cut to 8 of 32 layers
     (``OTHER_CONFIGS``); each model is freed before the next is built.
+
+14. paligemma-3b (vlm) at full width and depth (18 layers, 8 heads over 1
+    KV head x 256, the 257,280-wide tied head; random bf16 weights from
+    seed 0, patch embeddings N(0, 1) x 0.02 from the seed) through
+    ``LanguageModel.prefill_state`` / ``decode_state`` (``phase_vlm``):
+    prefill 4 x (256 patches + 128 tokens) and one 256 + 57, then 16
+    greedy decode steps on the 4.  Checks K3 == 18 launches per prefill,
+    K2 == 18 per step, the allocated parameters against
+    ``param_count()``, finite logits, the prefill and first-step logits
+    against the plain versions, and every K2 / K3 call of the two
+    prefills and the first step against its plain version (``tapped``);
+    prints prefill ms, ms per step, tokens/s, the state bytes, and the
+    profiles of a step and a prefill split into K2, K3, the GEMMs, the
+    other device time and the host gap.
 
 The last three lines are the ``kernels`` JSON (seven kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -205,6 +226,30 @@ def _fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
+def _kernel_label(text: str) -> str:
+    """``flash_kernel<256>`` for a line that names a mangled kernel
+    instantiation (ptxas, cuobjdump), else the bare name it holds."""
+    import re
+    m = re.search(r"([A-Za-z_]*kernel)ILi(\d+)E", text)
+    if m:
+        return f"{m[1]}<{m[2]}>"
+    m = re.search(r"([A-Za-z_]*kernel)", text)
+    return m[1] if m else text.strip()[-60:]
+
+
+def _sass_counts(sass, op: str) -> dict:
+    """Lines holding ``op`` in each function of ``cuobjdump -sass``
+    output, by :func:`_kernel_label`."""
+    out, fn = {}, None
+    for line in sass:
+        if "Function : " in line:
+            fn = _kernel_label(line.split("Function : ", 1)[1])
+            out.setdefault(fn, 0)
+        elif fn is not None and op in line:
+            out[fn] += 1
+    return out
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False")
@@ -216,9 +261,12 @@ def phase_device():
     build.build_all()
     log(f"[build] kernels built in {build.last_build_seconds:.1f} s")
     for name, out in build.last_build_log.items():
+        entry = ""
         for line in out.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = _kernel_label(line) + ": "
+            elif "Used" in line or "spill" in line:
+                log(f"[build] {name}: {entry}{line.strip()}")
     from repro_torch.kernels import paged_attention, ssd_chunk
     for mod in (paged_attention, ssd_chunk):
         for name, value in mod.kernel_constants().items():
@@ -238,6 +286,16 @@ def phase_device():
             + ", ".join(f"{n} {op}" for op, n in count.items()))
         if not count["HGMMA"]:
             raise AssertionError(f"{kernel} has no wgmma (HGMMA) instruction")
+        if kernel == "K3":
+            # every head dim's instantiation runs its products on wgmma
+            per = _sass_counts(sass, "HGMMA")
+            log(f"[build] K3 HGMMA per instantiation: {per}")
+            from repro_torch.kernels.flash_attention import HEAD_DIMS
+            missing = [D for D in HEAD_DIMS
+                       if not per.get(f"flash_kernel<{D}>")]
+            if missing:
+                raise AssertionError(f"K3 at head dim {missing} has no wgmma "
+                                     "(HGMMA) instruction")
     for kernel, lib in (("K1", "fused_dispatch"), ("K5", "fpm_copy"),
                         ("K6", "zero_init")):
         sass = subprocess.run(
@@ -783,6 +841,16 @@ K3_EDGES = ((1, 1, True, 0), (1, 65, True, 0), (1, 250, True, 100),
             (1, 250, False, 0))
 
 
+#: phase 9's K3 cases at paligemma-3b's head dim 256, (B, S, prefix_len):
+#: phase 14's batch prefill, then S = 512 and a ragged 313 with the
+#: 256-patch prefix and without, at B = 1 (timed) and 4; its edge cases
+#: are one token and one row past a tile at both batches
+K3_CASES_256 = ((4, 384, 256),) + tuple(
+    (B, S, prefix) for B in (1, 4) for S in (512, 313)
+    for prefix in (256, 0))
+K3_EDGES_256 = tuple((B, S, True, 0) for S in (1, 65) for B in (1, 4))
+
+
 def _k3_inputs(gen, B, S, H, KVH, D):
     """q / k / v as the model hands them to K3: (B, S, heads, D)
     activations seen through (B, heads, S, D) views."""
@@ -790,17 +858,25 @@ def _k3_inputs(gen, B, S, H, KVH, D):
             .bfloat16().transpose(1, 2) for n in (H, KVH, KVH)]
 
 
-def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250))):
-    """K3 against its plain version for each causal (B, S) of ``cases``
-    and for :data:`K3_EDGES`; the defaults are llama3.2-3b's heads at
-    S=512 and a ragged S=250, phase 9 passes zamba2's heads (H=KVH=32,
-    D=80) and its prefill shapes.  The JSON row takes the first case's
-    times."""
+def _k3_pairs(S: int, prefix: int) -> int:
+    """(query, key) pairs a causal prefill with a prefix-LM prefix of
+    ``prefix`` visits: row r sees max(r + 1, prefix) keys (at most S)."""
+    return int(np.minimum(np.maximum(np.arange(1, S + 1), prefix), S).sum())
+
+
+def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250)),
+             edges=K3_EDGES, timed=None):
+    """K3 against its plain version for each causal (B, S) or (B, S,
+    prefix_len) of ``cases`` and for the (B, S, causal, prefix_len) of
+    ``edges``; the defaults are llama3.2-3b's heads at S=512 and a ragged
+    S=250 and :data:`K3_EDGES`, phase 9 passes the other configs' heads and
+    prefill shapes.  The first ``timed`` cases (all by default) are timed;
+    the JSON row takes the first case's times."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     errs = []
-    for B, S, causal, prefix in K3_EDGES:
+    for B, S, causal, prefix in edges:
         q, k, v = _k3_inputs(gen, B, S, H, KVH, D)
         out = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix,
                                   use_kernel=True)
@@ -813,40 +889,56 @@ def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250))):
                                  f"{causal} prefix_len={prefix}: max err "
                                  f"{errs[-1]}")
     log(f"[K3] H={H} KVH={KVH} D={D} edge cases (B, S, causal, prefix_len) "
-        f"{K3_EDGES}: max err {', '.join(f'{e:.2e}' for e in errs)} "
+        f"{edges}: max err {', '.join(f'{e:.2e}' for e in errs)} "
         f"(atol {K3_ATOL})")
     rows = {}
-    for B, S in cases:
+    for case in cases:
+        B, S, prefix = (tuple(case) + (0,))[:3]
         q, k, v = _k3_inputs(gen, B, S, H, KVH, D)
-        out = ops.flash_attention(q, k, v, causal=True, use_kernel=True)
-        want = ops.flash_attention(q, k, v, causal=True, use_kernel=False)
+
+        def kern():
+            return ops.flash_attention(q, k, v, causal=True,
+                                       prefix_len=prefix, use_kernel=True)
+
+        out = kern()
+        want = ops.flash_attention(q, k, v, causal=True, prefix_len=prefix,
+                                   use_kernel=False)
         torch.cuda.synchronize()
         err = float((out.float() - want.float()).abs().max())
         if not err <= K3_ATOL:
-            raise AssertionError(f"K3 vs plain at B={B} S={S}: max err "
-                                 f"{err}")
-        ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True,
-                                                 use_kernel=True),
-                     scrub=scrub)
-        dev = device_ms(lambda: ops.flash_attention(q, k, v, causal=True,
-                                                    use_kernel=True),
-                        key="flash_kernel")
+            raise AssertionError(f"K3 vs plain at B={B} S={S} prefix_len="
+                                 f"{prefix}: max err {err}")
+        if timed is not None and len(rows) >= timed:
+            rows[case] = dict(err=err)
+            log(f"[K3] B={B} H={H} KVH={KVH} D={D} S={S} prefix_len="
+                f"{prefix}: max err {err:.2e} (atol {K3_ATOL}); not timed")
+            continue
+        ms = time_ms(kern, scrub=scrub)
+        dev = device_ms(kern, key="flash_kernel")
         plain_ms = time_ms(lambda: ops.flash_attention(
-            q, k, v, causal=True, use_kernel=False), reps=5, scrub=scrub)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), scrub=scrub)
-        flops = 4.0 * B * H * D * (S * (S + 1) / 2)
+            q, k, v, causal=True, prefix_len=prefix, use_kernel=False),
+            reps=5, scrub=scrub)
+        if prefix:
+            rows_i = torch.arange(S, device="cuda")
+            mask = (rows_i[None, :] <= rows_i[:, None]) | \
+                (rows_i[None, :] < prefix)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), scrub=scrub)
+        else:
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), scrub=scrub)
+        flops = 4.0 * B * H * D * _k3_pairs(S, prefix)
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         b_ops = flops / BF16_FLOPS * 1e3
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[K3] B={B} H={H} KVH={KVH} D={D} S={S}: max err {err:.2e} "
-            f"(atol {K3_ATOL}); kernel {ms:.4f} ms (device only "
-            f"{_fmt_ms(dev)}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
-            f"ms, bound {max(b_ops, b_bytes):.5f} ms ({flops:.3e} flop, "
-            f"{nbytes} bytes)")
-        rows[(B, S)] = dict(err=err, ms=ms, dev=dev, plain_ms=plain_ms,
-                            lib_ms=lib_ms, bound=max(b_ops, b_bytes),
-                            by="operations" if b_ops >= b_bytes else "bytes")
+        log(f"[K3] B={B} H={H} KVH={KVH} D={D} S={S} prefix_len={prefix}: "
+            f"max err {err:.2e} (atol {K3_ATOL}); kernel {ms:.4f} ms (device "
+            f"only {_fmt_ms(dev)}), plain {plain_ms:.4f} ms, SDPA "
+            f"{lib_ms:.4f} ms, bound {max(b_ops, b_bytes):.5f} ms "
+            f"({flops:.3e} flop, {nbytes} bytes)")
+        rows[case] = dict(err=err, ms=ms, dev=dev, plain_ms=plain_ms,
+                          lib_ms=lib_ms, bound=max(b_ops, b_bytes),
+                          by="operations" if b_ops >= b_bytes else "bytes")
     r = rows[cases[0]]
     return dict(name="flash_attention", source="src/repro_torch/csrc/"
                 "flash_attention.cu",
@@ -864,6 +956,10 @@ PORT_KERNEL_KEYS = ("paged_attn", "flash_kernel", "ssd_intra")
 MOE_STAGES = (("route", "moe.routing"), ("expert_ffn", "moe.experts"))
 
 
+#: name fragments of the cuBLAS / CUTLASS matrix-product kernels
+GEMM_KEYS = ("gemm", "Gemm", "GEMM", "nvjet", "xmma", "cutlass")
+
+
 def profile_rounds(step, rounds: int = 3, tag: str = "profile",
                    what: str = "round") -> None:
     """Where a steady step's time goes: torch.profiler over ``rounds`` more
@@ -873,8 +969,9 @@ def profile_rounds(step, rounds: int = 3, tag: str = "profile",
     kernels, and K2's, K3's and K4's below them wherever they rank; then a
     split per step: K2, K3, the kernels launched inside each moe range
     (the expert products, the routing; where none ran there, the range's
-    span on the device), the rest of the device time, and the host gap
-    (wall - busy)."""
+    span on the device) or, where no moe range ran, the matrix-product
+    kernels (:data:`GEMM_KEYS`), the rest of the device time, and the host
+    gap (wall - busy)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.models import moe
     saved = {name: getattr(moe, name) for name, _ in MOE_STAGES}
@@ -947,6 +1044,18 @@ def profile_rounds(step, rounds: int = 3, tag: str = "profile",
         for name, label in (("expert products", "moe.experts"),
                             ("routing", "moe.routing"))
         if inside[label] or span[label])
+    if not stages:
+        # a moe range's kernels hold its products: split the GEMMs out only
+        # where no range ran, so that no kernel counts twice
+        mm = [r for r in rows if any(g in r[2] for g in GEMM_KEYS)
+              and not any(k in r[2] for k in PORT_KERNEL_KEYS)]
+        gemm = sum(r[0] for r in mm)
+        other -= gemm
+        stages += (f", GEMMs {per_step(gemm):.3f} ms "
+                   f"({sum(r[1] for r in mm) // rounds} calls; the largest "
+                   "kernel "
+                   f"{max((r[0] for r in mm), default=0) / rounds / 1e3:.3f}"
+                   " ms)")
     log(f"[{tag}] split per {what}: K2 {per_step(k2):.3f} ms, K3 "
         f"{per_step(k3):.3f} ms{stages}, other device "
         f"{per_step(other):.3f} ms, host gap "
@@ -2176,6 +2285,163 @@ def phase_decoder_serve(arch: str, layers=None, prompt_lens=PROMPT_LENS,
     return launches, params
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the vlm family through the facade pair
+# ---------------------------------------------------------------------------
+
+#: phase 14: a batch of 4 prompts of 128 text tokens behind the 256 patch
+#: embeddings (384 positions, 6 pages), one prompt of 57 (313 positions,
+#: a ragged last tile), and greedy decode steps on the batch
+VLM_BATCH, VLM_TEXT, VLM_RAGGED, VLM_STEPS = 4, 128, 57, 16
+
+
+def phase_vlm(arch: str = "paligemma-3b") -> dict:
+    """Phase 14: ``arch`` at full width and depth with random bf16 weights
+    from seed 0 and patch embeddings drawn from the seed with numpy
+    (N(0, 1) x 0.02), through ``LanguageModel.prefill_state`` /
+    ``decode_state``: prefill the batch and the ragged prompt, then
+    :data:`VLM_STEPS` greedy decode steps on the batch.  Checks K3 ==
+    layers per prefill and K2 == layers per step, the allocated parameters
+    against ``param_count()``, finite logits, the prefill and first-step
+    logits against the same calls through the plain versions, and every K2
+    / K3 call of the two prefills and the first step against its plain
+    version on the same inputs.  Returns the launch counts of the counted
+    run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.weights import init_params
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[{arch}] {cfg.family}, full depth: {cfg.num_layers} decoder "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads} KV head x {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"{cfg.vision_tokens} patch embeddings (prefix-LM), tied head "
+        f"{cfg.padded_vocab} wide; param_count() "
+        f"{cfg.param_count() / 1e9:.3f} B, allocated {n_params / 1e9:.3f} B "
+        f"params ({n_bytes / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+
+    def prompt(B, S):
+        tokens = rng.integers(2, cfg.vocab_size, (B, S))
+        patches = rng.standard_normal((B, cfg.vision_tokens, cfg.d_model))
+        return (torch.from_numpy(tokens).cuda(),
+                torch.from_numpy((patches * 0.02).astype(np.float32)).cuda())
+
+    batch, single = prompt(VLM_BATCH, VLM_TEXT), prompt(1, VLM_RAGGED)
+    L = cfg.num_layers
+    counters = ops.KERNEL_COUNTERS
+
+    def counts():
+        return {n: c.n for n, c in counters.items()}
+
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    checks = {"allocated parameters == param_count() + the final norm":
+              n_params == cfg.param_count() + cfg.d_model}
+    out = {}
+    for name, inputs in (("batch", batch), ("ragged", single)):
+        before = counts()
+        t = time.perf_counter()
+        logits, state = model.prefill_state(*inputs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        got = {n: counts()[n] - before[n] for n in counters}
+        checks[f"{name} prefill: K3 == layers"] = \
+            got["flash_attention"] == L
+        checks[f"{name} prefill: no K2"] = got["paged_attention"] == 0
+        checks[f"{name} prefill logits finite"] = \
+            bool(torch.isfinite(logits).all())
+        out[name] = (logits, state, ms)
+        S = int(state["seq_lens"][0])
+        log(f"[{arch}] prefill {tuple(inputs[0].shape)} text tokens + "
+            f"{cfg.vision_tokens} patches = {S} positions: {ms:.1f} ms (host "
+            f"clock, synchronised), {inputs[0].shape[0] * S / ms * 1e3:.0f} "
+            f"positions/s, K3 {got['flash_attention']} launches; state "
+            f"{_state_bytes(state) / 1e6:.1f} MB")
+    logits, state, _ = out["batch"]
+    prefill_logits, ragged_logits = logits, out["ragged"][0]
+    tok = logits.argmax(-1)
+    step_ms, per_step, first = [], [], None
+    for step in range(VLM_STEPS):
+        before = counts()
+        t = time.perf_counter()
+        logits, state = model.decode_state(state, tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({n: counts()[n] - before[n] for n in counters})
+        if step == 0:
+            first = (tok.clone(), logits.clone())
+        tok = logits.argmax(-1)
+    launches = counts()
+    checks["decode: K2 == layers per step"] = all(
+        g["paged_attention"] == L for g in per_step)
+    checks["decode: no K3"] = all(g["flash_attention"] == 0
+                                  for g in per_step)
+    checks["decode logits finite"] = bool(torch.isfinite(logits).all())
+    med = float(np.median(step_ms[1:]))
+    log(f"[{arch}] {VLM_STEPS} greedy decode steps on {VLM_BATCH} "
+        f"sequences: median {med:.2f} ms/step (steps 2-{VLM_STEPS}), "
+        f"{VLM_BATCH * VLM_STEPS / (sum(step_ms) / 1e3):.1f} tokens/s over "
+        f"all steps; state {_state_bytes(state) / 1e6:.1f} MB (seq_lens "
+        f"{int(state['seq_lens'][0])})")
+    log(f"[{arch}] launches (counted run: 2 prefills + {VLM_STEPS} steps): "
+        + " ".join(f"{k}={launches[k]}" for k in
+                   ("flash_attention", "paged_attention", "fused_dispatch")))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{arch} checks failed: {failed}")
+    profile_rounds(lambda: model.decode_state(state, tok), tag=arch,
+                   what="step")
+    profile_rounds(lambda: model.prefill_state(*batch), rounds=2, tag=arch,
+                   what="prefill")
+    del state, out
+
+    # the same calls through the plain versions
+    with ops.plain_versions():
+        p_batch, p_state = model.prefill_state(*batch)
+        p_single, _ = model.prefill_state(*single)
+        p_step, _ = model.decode_state(p_state, first[0])
+    torch.cuda.synchronize()
+    for what, a, b in (("batch prefill", prefill_logits, p_batch),
+                       ("ragged prefill", ragged_logits, p_single),
+                       ("first decode step", first[1], p_step)):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+        log(f"[{arch}] {what} logits vs plain versions: max |diff| "
+            f"{err:.3e} (limit {SERVE_RTOL} x max |logit| = "
+            f"{SERVE_RTOL * scale:.3e}); argmax agrees on "
+            f"{agree}/{a.shape[0]}")
+        if not err <= SERVE_RTOL * scale:
+            raise AssertionError(f"{arch} {what} logits differ from the "
+                                 "plain versions")
+    del p_state
+
+    # every kernel call of the path against its plain version on the same
+    # inputs (the calls' check of record)
+    def path():
+        _, st = model.prefill_state(*batch)
+        model.prefill_state(*single)
+        model.decode_state(st, first[0])
+
+    _, reads = tapped(path)
+    log(f"[{arch}] every kernel call vs its plain version on the same "
+        "inputs: " + _fmt_reads(reads))
+    calls = {op: r["calls"] for op, r in reads.items()}
+    if calls != {"flash_attention": 2 * L, "paged_attention_slab": L} or \
+            any(r["err"] > r["limit"] for r in reads.values()):
+        raise AssertionError(f"{arch}: kernel calls vs plain: {reads}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this test "
@@ -2215,6 +2481,12 @@ def main() -> int:
     for H, KVH in ((32, 4), (16, 16)):
         more += [(k2, phase_k2(scrub, H=H, KVH=KVH)),
                  (k3, phase_k3(scrub, H=H, KVH=KVH))]
+    # K2 and K3 at paligemma-3b's head dim 256 (8 heads over 1 KV head):
+    # K2 on the serving slab, K3 at phase 14's batch prefill and at S = 512
+    # and a ragged 313, each with the 256-patch prefix and without
+    more += [(k2, phase_k2(scrub, H=8, KVH=1, D=256)),
+             (k3, phase_k3(scrub, H=8, KVH=1, D=256, cases=K3_CASES_256,
+                           edges=K3_EDGES_256, timed=5))]
     for row, other in more:
         row["max_abs_err"] = max(row["max_abs_err"], other["max_abs_err"])
     del scrub
@@ -2230,6 +2502,7 @@ def main() -> int:
         paths[f"{name} serve"] = phase_decoder_serve(
             arch, layers, SHORT_PROMPT_LENS, SHORT_ROUNDS)[0]
         torch.cuda.empty_cache()
+    paths["paligemma-3b"] = phase_vlm()
     kernels = [k1, k2, k3] + copy_kernels + [k4]
     for k in kernels:
         k["route"] = "cuda"

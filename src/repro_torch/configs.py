@@ -3,9 +3,10 @@ from ``repro/configs``): :class:`ModelConfig` with :meth:`ModelConfig.reduced`,
 :class:`RowCloneConfig`, and the registry entries of the families the port
 runs: the dense decoders it serves (llama3.2-3b, yi-6b, mistral-nemo-12b,
 qwen2-72b with its QKV bias), the mixture-of-experts decoders it serves
-(deepseek-moe-16b, phi3.5-moe-42b-a6.6b), the attention-free SSD stack
-(mamba2-780m) and the Mamba2 + shared-attention hybrid (zamba2-2.7b), the
-last two through ``LanguageModel.prefill_state`` / ``decode_state``.
+(deepseek-moe-16b, phi3.5-moe-42b-a6.6b), the vision-language decoder
+(paligemma-3b), the attention-free SSD stack (mamba2-780m) and the Mamba2 +
+shared-attention hybrid (zamba2-2.7b), the last three through
+``LanguageModel.prefill_state`` / ``decode_state``.
 ``tests/test_torch_contract.py`` pins the copy to the reference."""
 from __future__ import annotations
 
@@ -14,8 +15,11 @@ from dataclasses import dataclass
 from typing import Dict
 
 VOCAB_PAD_MULTIPLE = 256
-#: the families whose every layer is a decoder layer with its own KV pages
+#: the families the serving engine serves
 DECODER_FAMILIES = ("dense", "moe")
+#: the families whose every layer is a decoder layer with its own KV pages
+#: (vlm: the dense stack behind a prefix of patch embeddings)
+DECODER_STACKS = DECODER_FAMILIES + ("vlm",)
 
 
 def pad_to(x: int, m: int) -> int:
@@ -25,7 +29,7 @@ def pad_to(x: int, m: int) -> int:
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters.  The port runs ``family`` dense, moe,
-    ssm and hybrid; the fields of the other families are kept so that
+    vlm, ssm and hybrid; the fields of the other families are kept so that
     :meth:`reduced` derives the same smoke configuration as the
     reference."""
 
@@ -86,10 +90,10 @@ class ModelConfig:
 
     @property
     def num_attn_layers(self) -> int:
-        """Layers that own a KV cache: every layer of a dense or moe
+        """Layers that own a KV cache: every layer of a dense, moe or vlm
         decoder, none of an SSD stack, one shared-block invocation per
         segment of a hybrid."""
-        if self.family in DECODER_FAMILIES:
+        if self.family in DECODER_STACKS:
             return self.num_layers
         if self.family == "ssm":
             return 0
@@ -136,7 +140,7 @@ class ModelConfig:
             if self.family == "hybrid":
                 n += _attn_block_params(self) + _mlp_params(self, self.d_ff)
             return n
-        if self.family not in DECODER_FAMILIES:
+        if self.family not in DECODER_STACKS:
             raise NotImplementedError(
                 f"family {self.family!r} is not ported yet")
         per_layer = _attn_block_params(self) + 2 * d
@@ -241,6 +245,14 @@ _REGISTRY: Dict[str, ModelConfig] = {
         d_model=4096, num_heads=32, num_kv_heads=8, head_dim=128,
         d_ff=6400, vocab_size=32064, num_experts=16, top_k=2,
         rope_theta=10000.0),
+    # paligemma-3b: gemma decoder behind 256 patch embeddings (prefix-LM
+    # mask), 18L d_model=2048 8H (MQA kv=1) head_dim 256 d_ff=16384
+    # vocab=257216, tied embeddings
+    "paligemma-3b": ModelConfig(
+        arch_id="paligemma-3b", family="vlm", num_layers=18, d_model=2048,
+        num_heads=8, num_kv_heads=1, head_dim=256, d_ff=16384,
+        vocab_size=257216, vision_tokens=256, rope_theta=10000.0,
+        tie_embeddings=True),
 }
 
 
@@ -256,5 +268,5 @@ def list_archs():
     return sorted(_REGISTRY)
 
 
-__all__ = ["DECODER_FAMILIES", "ModelConfig", "RowCloneConfig", "get_config",
-           "list_archs", "pad_to"]
+__all__ = ["DECODER_FAMILIES", "DECODER_STACKS", "ModelConfig",
+           "RowCloneConfig", "get_config", "list_archs", "pad_to"]

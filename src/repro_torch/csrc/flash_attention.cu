@@ -18,6 +18,13 @@
 //   0-3) and one producer warp (warp 4).  The q tiles launch longest first
 //   (reverse blockIdx.x), so the causal rows that walk the most kv tiles
 //   start before the short ones.
+// * At D = 256 (paligemma-3b) one warpgroup's O accumulator would be 128
+//   fp32 registers a thread on top of the scores and P's parts, so the head
+//   dim is split over two consumer warpgroups (warps 0-7; the producer is
+//   warp 8): both compute the same S = Q K^T over all 256 columns and run
+//   the same softmax, and each keeps O for its own 128 columns (64
+//   registers, as at D = 128).  A tile is then four 64-column boxes
+//   (32 KiB): Q plus two K / V stages take 160 KiB, one CTA per SM.
 // * The producer loads the Q tile once and the K / V tiles through a
 //   two-stage ring with TMA (cp.async.bulk.tensor, 4-D maps over (D, S,
 //   heads, batch) built on the host from the caller's strides, so q / k / v
@@ -54,11 +61,21 @@ namespace {
 
 constexpr int kBQ = 64;                      // q rows per CTA (one warpgroup)
 constexpr int kBK = 64;                      // kv rows per tile
-constexpr int kConsumers = 128;              // one warpgroup
-constexpr int kThreads = kConsumers + 32;    // + the producer warp
 constexpr int kStages = 2;
-constexpr int kTileBytes = 2 * kBoxBytes;    // 64 rows x 128 columns
-constexpr int kSmemBytes = kTileBytes * (1 + 2 * kStages) + 1024;
+
+// the CTA's shape for head dim kD: one consumer warpgroup up to D = 128,
+// two above it, each owning kDW columns of O
+template <int kD>
+struct Shape {
+  static constexpr int kGroups = kD > 128 ? 2 : 1;     // consumer warpgroups
+  static constexpr int kDW = kD / kGroups;             // O columns of one
+  static constexpr int kConsumers = 128 * kGroups;
+  static constexpr int kThreads = kConsumers + 32;     // + the producer warp
+  static constexpr int kBoxes = kD > 128 ? 4 : 2;      // 64-column boxes
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;  // a 64-row tile
+  static constexpr int kSmemBytes = kTileBytes * (1 + 2 * kStages) + 1024;
+  static constexpr int kMinBlocks = kGroups == 1 ? 2 : 1;
+};
 
 struct Params {
   __nv_bfloat16* out;
@@ -67,10 +84,11 @@ struct Params {
   float scale_log2;          // D^-0.5 * log2(e)
 };
 
-template <int kD>
-__device__ __forceinline__ void pv_mma(float (&o)[kD / 2],
+// O (kN columns) += P V, P from registers
+template <int kN>
+__device__ __forceinline__ void pv_mma(float (&o)[kN / 2],
                                        const uint32_t (&a)[4], uint64_t v) {
-  if constexpr (kD == 128) {
+  if constexpr (kN == 128) {
     wgmma_rs_n128(o, a, v);
   } else {
     wgmma_rs_n80(o, a, v);
@@ -78,11 +96,17 @@ __device__ __forceinline__ void pv_mma(float (&o)[kD / 2],
 }
 
 template <int kD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(Shape<kD>::kThreads, Shape<kD>::kMinBlocks)
 flash_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, const Params p) {
-  static_assert(kD % 16 == 0 && kD <= 2 * kBoxCols, "head dim");
+  using Sh = Shape<kD>;
+  constexpr int kConsumers = Sh::kConsumers;
+  constexpr int kTileBytes = Sh::kTileBytes;
+  constexpr int kDW = Sh::kDW;
+  static_assert(kD % 16 == 0 && (kDW == 128 || kDW == 80) &&
+                    kD <= Sh::kBoxes * kBoxCols,
+                "head dim: a warpgroup's O columns are one wgmma's n");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
@@ -125,8 +149,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     // producer warp: one lane issues every load
     if (tid == kConsumers) {
       mbar_expect_tx(bar_q, kTileBytes);
-      tma_load(sq, &tq, bar_q, 0, q0, h, b);
-      tma_load(sq + kBoxBytes, &tq, bar_q, kBoxCols, q0, h, b);
+#pragma unroll
+      for (int c = 0; c < Sh::kBoxes; ++c)
+        tma_load(sq + c * kBoxBytes, &tq, bar_q, c * kBoxCols, q0, h, b);
       for (int t = 0; t < n_kv; ++t) {
         const int s = t % kStages;
         mbar_wait(bar_empty + 8 * s, ((t / kStages) & 1) ^ 1);
@@ -134,28 +159,36 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t v_dst = sv + s * kTileBytes;
         const int k0 = t * kBK;
         mbar_expect_tx(bar_k + 8 * s, kTileBytes);
-        tma_load(k_dst, &tk, bar_k + 8 * s, 0, k0, kvh, b);
-        tma_load(k_dst + kBoxBytes, &tk, bar_k + 8 * s, kBoxCols, k0, kvh, b);
+#pragma unroll
+        for (int c = 0; c < Sh::kBoxes; ++c)
+          tma_load(k_dst + c * kBoxBytes, &tk, bar_k + 8 * s, c * kBoxCols,
+                   k0, kvh, b);
         mbar_expect_tx(bar_v + 8 * s, kTileBytes);
-        tma_load(v_dst, &tv, bar_v + 8 * s, 0, k0, kvh, b);
-        tma_load(v_dst + kBoxBytes, &tv, bar_v + 8 * s, kBoxCols, k0, kvh, b);
+#pragma unroll
+        for (int c = 0; c < Sh::kBoxes; ++c)
+          tma_load(v_dst + c * kBoxBytes, &tv, bar_v + 8 * s, c * kBoxCols,
+                   k0, kvh, b);
       }
     }
     return;
   }
 
-  // consumer warpgroup: warp w owns q rows 16w..16w+15 of the tile; a
-  // thread holds rows r0 and r0 + 8, columns 8j + 2 (lane % 4) + {0, 1}
-  const int warp = tid >> 5;
+  // consumer warpgroup g owns O columns [g kDW, (g + 1) kDW); its warp w
+  // owns q rows 16w..16w+15 of the tile; a thread holds rows r0 and r0 + 8,
+  // columns 8j + 2 (lane % 4) + {0, 1} of the scores and of its O columns
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int r0 = q0 + warp * 16 + (lane >> 2);
   const int r1 = r0 + 8;
   const int cq = 2 * (lane & 3);
   const float sl2 = p.scale_log2;
+  // this warpgroup's V columns start kDW / 64 boxes into a tile
+  const uint32_t v_cols = wg * (kDW / kBoxCols) * kBoxBytes;
 
-  float o[kD / 2];
+  float o[kDW / 2];
 #pragma unroll
-  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kDW / 2; ++i) o[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;   // running max of the raw scores
   float l0 = 0.f, l1 = 0.f;               // this thread's part of the sums
 
@@ -229,7 +262,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     l0 = l0 * corr0 + sum0;
     l1 = l1 * corr1 + sum1;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
+    for (int j = 0; j < kDW / 8; ++j) {
       o[4 * j] *= corr0;
       o[4 * j + 1] *= corr0;
       o[4 * j + 2] *= corr1;
@@ -251,8 +284,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      pv_mma<kD>(o, a[kk], vmajor_desc(v_tile, kk));
-      pv_mma<kD>(o, a_lo[kk], vmajor_desc(v_tile, kk));
+      pv_mma<kDW>(o, a[kk], vmajor_desc(v_tile + v_cols, kk));
+      pv_mma<kDW>(o, a_lo[kk], vmajor_desc(v_tile + v_cols, kk));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -266,9 +299,10 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = p.out + (long long)b * p.osb + (long long)h * p.osh;
+  __nv_bfloat16* ob = p.out + (long long)b * p.osb + (long long)h * p.osh +
+                      wg * kDW;
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
+  for (int j = 0; j < kDW / 8; ++j) {
     const int col = 8 * j + cq;
     if (r0 < S) {
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * p.oss + col) =
@@ -284,11 +318,12 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
 template <int kD>
 int launch(void* q, void* k, void* v, const long long* st, int B, int H,
            int KVH, int S, cudaStream_t stream, const Params& p) {
+  using Sh = Shape<kD>;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
         flash_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
+        Sh::kSmemBytes);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
@@ -298,7 +333,8 @@ int launch(void* q, void* k, void* v, const long long* st, int B, int H,
   if (!err) err = make_map(&tv, v, kD, S, KVH, B, st[8], st[7], st[6]);
   if (err) return err;
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_kernel<kD><<<grid, kThreads, kSmemBytes, stream>>>(tq, tk, tv, p);
+  flash_kernel<kD><<<grid, Sh::kThreads, Sh::kSmemBytes, stream>>>(tq, tk,
+                                                                   tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -306,9 +342,9 @@ int launch(void* q, void* k, void* v, const long long* st, int B, int H,
 
 // q (B, H, S, D), k / v (B, KVH, S, D) bf16 at any strides whose last one is
 // 1 and whose others are multiples of 8 elements: `strides` holds (b, h, s)
-// of q, k, v and the output, 12 values in elements.  head_dim must be 128
-// or 80 (anything else gives cudaErrorInvalidValue); a tensor-map failure
-// gives 10000 + its CUresult.
+// of q, k, v and the output, 12 values in elements.  head_dim must be 80,
+// 128 or 256 (anything else gives cudaErrorInvalidValue); a tensor-map
+// failure gives 10000 + its CUresult.
 extern "C" int rc_flash_attention(void* q, void* k, void* v, void* out,
                                   const long long* strides, int B, int H,
                                   int KVH, int S, int head_dim, int causal,
@@ -329,5 +365,7 @@ extern "C" int rc_flash_attention(void* q, void* k, void* v, void* out,
     return launch<128>(q, k, v, strides, B, H, KVH, S, st, p);
   if (head_dim == 80)
     return launch<80>(q, k, v, strides, B, H, KVH, S, st, p);
+  if (head_dim == 256)
+    return launch<256>(q, k, v, strides, B, H, KVH, S, st, p);
   return (int)cudaErrorInvalidValue;
 }

@@ -24,18 +24,20 @@
 //   Every CTA redoes the compaction (a ballot over share_mask's column, 512
 //   bytes at the serving shape) rather than receive it from rank 0: it costs
 //   one round of loads and saves a cluster barrier.
-// * Inside a CTA (128 threads), the pages of its range go through two
-//   shared-memory stages with cp.async (16-byte copies, only the page's
-//   valid slots): page t + 1 is in flight while page t is scored.  Rows are
-//   padded by 16 bytes, so the 16-byte reads of neighbouring slots fall in
-//   distinct banks.
-// * Scores: thread t takes slot t % 64 and half t / 64 of the head dim, for
-//   all `group` query heads of its kv head at once (the query, pre-scaled,
-//   sits in shared memory as fp32), so each K load serves the whole group.
-//   One warp per query head then runs the online softmax in fp32.
+// * Inside a CTA (128 threads; 256 at D = 256), the pages of its range go
+//   through two shared-memory stages with cp.async (16-byte copies, only the
+//   page's valid slots): page t + 1 is in flight while page t is scored.
+//   Rows are padded by 16 bytes, so the 16-byte reads of neighbouring slots
+//   fall in distinct banks.
+// * Scores: thread t takes slot t % 64 and part t / 64 of the head dim
+//   (halves; quarters at D = 256), for all `group` query heads of its kv
+//   head at once (the query, pre-scaled, sits in shared memory as fp32), so
+//   each K load serves the whole group.  One warp per query head then sums
+//   the parts in order and runs the online softmax in fp32.
 // * P V from shared memory: thread t owns output pair t % (D / 2) of every
-//   head of the group, over a third or half of the page's slots; the slot
-//   subsets are summed once, after the last page.
+//   head of the group, over a third or half of the page's slots (half at
+//   D = 256, where the CTA's 256 threads give every pair two threads); the
+//   slot subsets are summed once, after the last page.
 // * Merge through distributed shared memory: each CTA leaves its (acc, l,
 //   m) in its own shared memory; after a cluster barrier rank 0 reads all
 //   eight and merges them with the reference's `lse_combine` rule
@@ -58,29 +60,32 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kSplits = 8;          // CTAs per cluster: the portable maximum
 constexpr int kMaxGroup = 8;
 constexpr int kMaxPage = 64;        // slots of a page (the serving page)
 constexpr float kNegInf = -1e30f;
 
-// shared-memory layout for head dim kD (offsets in bytes)
+// the CTA's threads and shared-memory layout for head dim kD (offsets in
+// bytes): 128 threads score a slot in two halves of the head dim and give
+// each output pair two or three slot subsets up to D = 128; 256 threads, in
+// quarters and with two subsets, at D = 256
 template <int kD>
 struct Layout {
+  static constexpr int kThreads = kD > 128 ? 256 : 128;
+  static constexpr int kParts = kThreads / kMaxPage;      // of a slot's score
   static constexpr int kRow = kD + 8;                     // padded bf16 row
   static constexpr int kTile = kMaxPage * kRow;           // bf16 of a page
   static constexpr int kK = 0;                            // K, 2 stages
   static constexpr int kV = kK + 2 * kTile * 2;           // V, 2 stages
   static constexpr int kQ = kV + 2 * kTile * 2;           // group x D fp32
-  static constexpr int kPart = kQ + kMaxGroup * kD * 4;   // 2 halves' scores
-  static constexpr int kP = kPart + 2 * kMaxGroup * kMaxPage * 4;
+  static constexpr int kPart = kQ + kMaxGroup * kD * 4;   // parts' scores
+  static constexpr int kP = kPart + kParts * kMaxGroup * kMaxPage * 4;
   static constexpr int kAcc = kP + kMaxGroup * kMaxPage * 4;
   static constexpr int kML = kAcc + kMaxGroup * kD * 4;   // m, then l
   static constexpr int kList = kML + 2 * kMaxGroup * 4;   // nblk ints, bits
-  static size_t bytes(int nblk) {
+  static size_t bytes(int nblk) {   // + one bit word a warp per round
     return (size_t)kList + 4 * (size_t)nblk +
-           16 * (size_t)((nblk + 127) / 128);
+           (kThreads / 8) * (size_t)((nblk + kThreads - 1) / kThreads);
   }
 };
 
@@ -98,7 +103,8 @@ __device__ __forceinline__ void cp_async_wait_one() {
 }
 
 template <int kD>
-__global__ void __cluster_dims__(kSplits, 1, 1) __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kSplits, 1, 1)
+    __launch_bounds__(Layout<kD>::kThreads)
 paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
@@ -109,13 +115,18 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   int nblk, int page, int kvh_n, int batch, int group,
                   float scale) {
   using Lay = Layout<kD>;
+  constexpr int kThreads = Lay::kThreads;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kParts = Lay::kParts;
   constexpr int kRow = Lay::kRow;
   constexpr int kTile = Lay::kTile;
   constexpr int kChunks = kD / 8;            // 16-byte chunks of a row
   constexpr int kPairs = kD / 2;             // output pairs of a head
   constexpr int kSub = kThreads / kPairs;    // slot subsets of P V
-  static_assert(kD % 16 == 0 && kSub >= 2 && kThreads == 2 * kMaxPage,
-                "two threads score a slot, a thread owns an output pair");
+  static_assert(kD % 16 == 0 && kSub >= 2 && kChunks % kParts == 0 &&
+                    kThreads == kParts * kMaxPage,
+                "kParts threads score a slot, two or more own an output "
+                "pair");
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + Lay::kK);
@@ -220,18 +231,18 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();                 // page t is in shared memory
     const int nvalid = s_nvalid[st];
 
-    // partial scores over one half of the head dim
+    // partial scores over one part of the head dim
     {
       const int j = tid & (kMaxPage - 1);
-      const int half = tid / kMaxPage;
+      const int slice = tid / kMaxPage;   // the part of the head dim
       float sc[kMaxGroup];
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g) sc[g] = 0.f;
       if (j < nvalid) {
         const __nv_bfloat16* kr = sk + st * kTile + j * kRow;
 #pragma unroll
-        for (int c = 0; c < kChunks / 2; ++c) {
-          const int d0 = (half * (kChunks / 2) + c) * 8;
+        for (int c = 0; c < kChunks / kParts; ++c) {
+          const int d0 = (slice * (kChunks / kParts) + c) * 8;
           const uint4 raw = *reinterpret_cast<const uint4*>(kr + d0);
           const __nv_bfloat162* h2 =
               reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -258,17 +269,23 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
       }
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g)
-        if (g < group) part[(half * kMaxGroup + g) * kMaxPage + j] = sc[g];
+        if (g < group)
+          part[(slice * kMaxGroup + g) * kMaxPage + j] = sc[g];
     }
     __syncthreads();
 
     // online softmax, one warp per query head of the group
     for (int g = warp; g < group; g += kWarps) {
-      const float* p0 = part + g * kMaxPage;
-      const float* p1 = part + (kMaxGroup + g) * kMaxPage;
+      const float* pg = part + g * kMaxPage;
+      float t0 = pg[lane], t1 = pg[lane + 32];
+#pragma unroll
+      for (int i = 1; i < kParts; ++i) {     // the parts, in order
+        t0 += pg[i * kMaxGroup * kMaxPage + lane];
+        t1 += pg[i * kMaxGroup * kMaxPage + lane + 32];
+      }
       const bool ok0 = lane < nvalid, ok1 = lane + 32 < nvalid;
-      const float s0 = ok0 ? p0[lane] + p1[lane] : kNegInf;
-      const float s1 = ok1 ? p0[lane + 32] + p1[lane + 32] : kNegInf;
+      const float s0 = ok0 ? t0 : kNegInf;
+      const float s1 = ok1 ? t1 : kNegInf;
       float mx = fmaxf(s0, s1);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -382,7 +399,8 @@ template <int kD>
 int launch(void* q, void* k, void* v, void* mask, void* base, void* lens,
            void* acc, void* l, void* m, int nblk, int page, int kvh,
            int batch, int group, float scale, void* stream) {
-  const size_t smem = Layout<kD>::bytes(nblk);
+  using Lay = Layout<kD>;
+  const size_t smem = Lay::bytes(nblk);
   static size_t allowed = 48 * 1024;   // raised once per larger slab
   if (smem > allowed) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -392,7 +410,7 @@ int launch(void* q, void* k, void* v, void* mask, void* base, void* lens,
     allowed = smem;
   }
   dim3 grid(kSplits, kvh, batch);
-  paged_attn_kernel<kD><<<grid, kThreads, smem,
+  paged_attn_kernel<kD><<<grid, Lay::kThreads, smem,
                           reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const __nv_bfloat16*>(q),
       reinterpret_cast<const __nv_bfloat16*>(k),
@@ -411,6 +429,7 @@ int launch(void* q, void* k, void* v, void* mask, void* base, void* lens,
 extern "C" long long rc_paged_attention_smem(int head_dim, int nblk) {
   if (head_dim == 128) return (long long)Layout<128>::bytes(nblk);
   if (head_dim == 80) return (long long)Layout<80>::bytes(nblk);
+  if (head_dim == 256) return (long long)Layout<256>::bytes(nblk);
   return -1;
 }
 
@@ -420,8 +439,8 @@ extern "C" int rc_paged_attention_splits() { return kSplits; }
 extern "C" int rc_paged_attention_max_page() { return kMaxPage; }
 extern "C" int rc_paged_attention_max_group() { return kMaxGroup; }
 
-// head_dim must be 128 or 80 and page <= 64, group <= 8 (the wrapper checks;
-// another head dim is refused with cudaErrorInvalidValue)
+// head_dim must be 80, 128 or 256 and page <= 64, group <= 8 (the wrapper
+// checks; another head dim is refused with cudaErrorInvalidValue)
 extern "C" int rc_paged_attention(void* q, void* k, void* v, void* mask,
                                   void* base, void* lens, void* acc, void* l,
                                   void* m, int nblk, int page, int kvh,
@@ -433,5 +452,8 @@ extern "C" int rc_paged_attention(void* q, void* k, void* v, void* mask,
   if (head_dim == 80)
     return launch<80>(q, k, v, mask, base, lens, acc, l, m, nblk, page, kvh,
                       batch, group, scale, stream);
+  if (head_dim == 256)
+    return launch<256>(q, k, v, mask, base, lens, acc, l, m, nblk, page, kvh,
+                       batch, group, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

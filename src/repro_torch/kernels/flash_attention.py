@@ -26,8 +26,8 @@ from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
 COUNTER = LaunchCounter("flash_attention")
 
 #: head dims the kernel is built for (llama3.2-3b 128, zamba2's shared
-#: block 80)
-HEAD_DIMS = (80, 128)
+#: block 80, paligemma-3b 256: its head dim split over two warpgroups)
+HEAD_DIMS = (80, 128, 256)
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,8 +26,9 @@ from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
 #: launches of the CUDA decode-attention kernel (not of its plain version)
 COUNTER = LaunchCounter("paged_attention")
 
-#: what the kernel is built for (llama3.2-3b 128, zamba2's shared block 80)
-HEAD_DIMS = (80, 128)
+#: what the kernel is built for (llama3.2-3b 128, zamba2's shared block 80,
+#: paligemma-3b 256: a CTA of 256 threads there)
+HEAD_DIMS = (80, 128, 256)
 MAX_GROUP = 8
 MAX_PAGE = 64
 #: CTAs of a cluster, each taking one contiguous range of visible blocks

@@ -38,6 +38,17 @@ from repro_torch.models.paged import make_serving_pools
 from repro_torch.weights import init_params, resolve_device
 
 
+#: why the engine refuses the vlm family
+VLM_REFUSAL = (
+    "the serving engine does not serve the vlm family: the reference's "
+    "admission (src/repro/launch/serve.py:385-405) sizes a sequence as its "
+    "text prompt and drops the vision_tokens patch positions that its "
+    "prefill writes in front of it, so a prompt whose patches and text "
+    "outgrow the prompt's pages fails to broadcast and decode appends over "
+    "the text's KV at the wrong RoPE position; the vlm runs through "
+    "LanguageModel.prefill_state / decode_state")
+
+
 class ServingEngine:
     """Serving facade over RowCloneEngine + PagedCoWCache: admission
     (prefill + staged promotion), CoW fork, free, and greedy decode rounds
@@ -51,6 +62,8 @@ class ServingEngine:
                  num_slabs: int = 4, rc: Optional[RowCloneConfig] = None,
                  max_admit_pages: Optional[int] = None,
                  admissions_per_round: int = 1, device="cuda"):
+        if cfg.family == "vlm":
+            raise NotImplementedError(VLM_REFUSAL)
         if cfg.family not in DECODER_FAMILIES:
             raise NotImplementedError(
                 "the serving engine targets the "
@@ -198,7 +211,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b", choices=list_archs(),
                     help="the engine serves the dense and moe configs; the "
-                         "ssm and hybrid ones decode through "
+                         "vlm, ssm and hybrid ones decode through "
                          "LanguageModel.decode_state and are refused here")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

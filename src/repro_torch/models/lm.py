@@ -1,15 +1,17 @@
 """The language model (port of ``repro/models/lm.py``) for the dense, moe,
-ssm and hybrid families.
+vlm, ssm and hybrid families.  Each family decodes through one pair
+(:data:`ENTRY_PAIRS`):
 
 * dense and moe: :meth:`LanguageModel.prefill` over a prompt and
   :meth:`LanguageModel.decode_step` over the paged pools, the pair the
   serving engine drives;
-* ssm and hybrid: the facade pair of the reference's ``prefill`` /
+* vlm, ssm and hybrid: the facade pair of the reference's ``prefill`` /
   ``decode_step`` — :meth:`LanguageModel.prefill_state` returns the
   last-position logits and the serve state (``make_serve_state``'s keys),
   :meth:`LanguageModel.decode_state` takes one token per sequence over it.
-  These families decode only this way, as in the reference, whose serving
-  engine refuses them.
+  The reference's serving engine refuses ssm and hybrid; it admits vlm but
+  drops the patch positions its prefill writes, so the port's engine
+  refuses vlm too (``launch/serve.py``).
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs import DECODER_FAMILIES, ModelConfig, RowCloneConfig
+from repro_torch.configs import (DECODER_FAMILIES, DECODER_STACKS,
+                                 ModelConfig, RowCloneConfig)
 from repro_torch.models.common import embed, rms_norm
 from repro_torch.models.mamba2 import (Mamba2Layer, mamba2_decode_step,
                                        mamba2_layer)
@@ -26,7 +29,12 @@ from repro_torch.models.paged import identity_layout
 from repro_torch.models.transformer import (DecoderLayer, decoder_layer_decode,
                                             decoder_layer_train)
 
-PORTED_FAMILIES = DECODER_FAMILIES + ("ssm", "hybrid")
+PORTED_FAMILIES = DECODER_STACKS + ("ssm", "hybrid")
+#: the families each entry pair takes: the engine's pair (``prefill`` /
+#: ``decode_step``) and the facade's (``prefill_state`` / ``decode_state``
+#: / ``make_serve_state``)
+ENTRY_PAIRS = {"prefill / decode_step": DECODER_FAMILIES,
+               "prefill_state / decode_state": ("vlm", "ssm", "hybrid")}
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -36,10 +44,11 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 class LanguageModel(nn.Module):
     """Weights of the model: embedding (tied to the head when
     ``cfg.tie_embeddings``), final norm and the layers — decoder layers
-    (dense, moe) or Mamba2 layers (ssm, hybrid), plus the one shared decoder
-    layer of the hybrid, which runs after every ``shared_attn_every``
-    Mamba2 layers.  Build one with :func:`repro_torch.weights.init_params`
-    or :func:`repro_torch.weights.from_jax_params`."""
+    (dense, moe, vlm) or Mamba2 layers (ssm, hybrid), plus the one shared
+    decoder layer of the hybrid, which runs after every
+    ``shared_attn_every`` Mamba2 layers.  Build one with
+    :func:`repro_torch.weights.init_params` or
+    :func:`repro_torch.weights.from_jax_params`."""
 
     def __init__(self, cfg: ModelConfig, device,
                  rc: RowCloneConfig = RowCloneConfig()):
@@ -60,7 +69,7 @@ class LanguageModel(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.zeros((cfg.d_model, cfg.padded_vocab), dtype=dt,
                             device=device), requires_grad=False)
-        layer = DecoderLayer if cfg.family in DECODER_FAMILIES \
+        layer = DecoderLayer if cfg.family in DECODER_STACKS \
             else Mamba2Layer
         self.layers = nn.ModuleList(layer(cfg, dt, device)
                                     for _ in range(cfg.num_layers))
@@ -77,18 +86,15 @@ class LanguageModel(nn.Module):
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return (x.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
 
-    def _decoder_only(self, what: str) -> None:
-        if self.cfg.family not in DECODER_FAMILIES:
+    def _pair_of(self, pair: str, what: str) -> None:
+        """Raise unless this model's family takes ``pair`` of
+        :data:`ENTRY_PAIRS`, naming the pair it takes."""
+        if self.cfg.family not in ENTRY_PAIRS[pair]:
+            other = next(p for p, fams in ENTRY_PAIRS.items()
+                         if self.cfg.family in fams)
             raise NotImplementedError(
-                f"{what} serves the {' and '.join(DECODER_FAMILIES)} "
-                f"families; {self.cfg.family!r} runs through prefill_state "
-                "/ decode_state")
-
-    def _mamba_only(self, what: str) -> None:
-        if self.cfg.family not in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{what} serves the ssm and hybrid families; "
-                f"{self.cfg.family!r} runs through prefill / decode_step")
+                f"{what} serves the {', '.join(ENTRY_PAIRS[pair])} "
+                f"families; {self.cfg.family!r} runs through {other}")
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor
@@ -96,7 +102,7 @@ class LanguageModel(nn.Module):
         """tokens (B, S) -> (last-position logits (B, V) fp32, k, v), k / v
         (L, B, S, KVH, D) post-RoPE.  A moe layer's aux loss is dropped,
         as the reference's serving path drops it."""
-        self._decoder_only("prefill")
+        self._pair_of("prefill / decode_step", "prefill")
         cfg = self.cfg
         B, S = tokens.shape
         x = embed(self.embed, tokens, self.act_dtype)
@@ -118,7 +124,7 @@ class LanguageModel(nn.Module):
         (tokens already in the cache).  Appends every layer's K/V into
         ``k_pools`` / ``v_pools`` (L, nblk, page, KVH, D) IN PLACE and
         returns the next-position logits (B, V) fp32."""
-        self._decoder_only("decode_step")
+        self._pair_of("prefill / decode_step", "decode_step")
         cfg, page = self.cfg, self.page
         pos = seq_lens.long()
         x = embed(self.embed, tokens, self.act_dtype)
@@ -132,7 +138,7 @@ class LanguageModel(nn.Module):
         return self._logits(xn)
 
     # ------------------------------------------------------------------
-    # the facade pair over a serve state (ssm, hybrid)
+    # the facade pair over a serve state (vlm, ssm, hybrid)
     # ------------------------------------------------------------------
     def make_serve_state(self, batch: int, seq_len: int,
                          filled: Optional[int] = None,
@@ -140,20 +146,21 @@ class LanguageModel(nn.Module):
                          ) -> Dict[str, torch.Tensor]:
         """Zero serve state with the identity block layout (the reference's
         ``make_serve_state`` on one device).  ``filled``: tokens already
-        present per sequence (default ``seq_len - 1``).  Keys: ``seq_lens``,
+        present per sequence (default ``seq_len - 1``).  Keys: ``seq_lens``;
+        for vlm and hybrid ``block_table``, ``share_mask``, ``base`` and
+        ``k_pools`` / ``v_pools`` (num_attn_layers, nblk, page, KVH, D) in
+        ``dtype`` (default the model dtype); for ssm and hybrid
         ``conv_state`` (L, B, W-1, C) and ``ssm_state`` (L, B, H, P, N)
         fp32, with the layer axis split (n_seg, shared_attn_every) for the
-        hybrid, whose state adds ``block_table``, ``share_mask``, ``base``
-        and ``k_pools`` / ``v_pools`` (n_seg, nblk, page, KVH, D) in
-        ``dtype`` (default the model dtype)."""
-        self._mamba_only("make_serve_state")
+        hybrid."""
+        self._pair_of("prefill_state / decode_state", "make_serve_state")
         cfg, page = self.cfg, self.page
         dev = self.embed.device
         dtype = self.act_dtype if dtype is None else dtype
         filled = seq_len - 1 if filled is None else filled
         state = {"seq_lens": torch.full((batch,), filled, dtype=torch.int32,
                                         device=dev)}
-        if cfg.family == "hybrid":
+        if cfg.num_attn_layers:
             table, mask, base = identity_layout(batch, seq_len, page)
             state["block_table"] = torch.from_numpy(table).to(dev)
             state["share_mask"] = torch.from_numpy(mask).to(dev)
@@ -162,6 +169,8 @@ class LanguageModel(nn.Module):
                 (cfg.num_attn_layers, base.shape[0], page, cfg.num_kv_heads,
                  cfg.head_dim), dtype=dtype, device=dev)
             state["v_pools"] = torch.zeros_like(state["k_pools"])
+        if cfg.family == "vlm":
+            return state
         lead = (cfg.num_layers,)
         if cfg.family == "hybrid":
             k = cfg.shared_attn_every
@@ -188,31 +197,51 @@ class LanguageModel(nn.Module):
 
     @torch.no_grad()
     def prefill_state(self, tokens: torch.Tensor,
+                      patch_embeds: Optional[torch.Tensor] = None,
                       margin_tokens: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full forward over prompts of one length (no padding mask, as the
         reference); returns the last-position logits (B, V) fp32 and the
         serve state, with ``margin_tokens`` of decode capacity past the
-        prompt (default one page)."""
-        self._mamba_only("prefill_state")
+        prompt (default one page).  vlm: ``patch_embeds`` (B,
+        vision_tokens, d_model), required, go in front of the tokens'
+        embeddings and are visible to every position (prefix-LM); the
+        sequence is then ``vision_tokens + S`` long."""
+        self._pair_of("prefill_state / decode_state", "prefill_state")
         cfg, page = self.cfg, self.page
-        B, S = tokens.shape
+        if (patch_embeds is None) == (cfg.family == "vlm"):
+            raise ValueError(f"patch_embeds: required for the vlm family, "
+                             f"refused for {cfg.family!r}")
+        x = embed(self.embed, tokens, self.act_dtype)
+        prefix = 0
+        if patch_embeds is not None:
+            x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+            prefix = patch_embeds.shape[1]
+        B, S, _ = x.shape
         margin = page if margin_tokens is None else margin_tokens
         nper = (S + margin + page - 1) // page
         state = self.make_serve_state(B, nper * page, filled=S)
-        conv, ssm, every = self._per_layer(state)
-        x = embed(self.embed, tokens, self.act_dtype)
+
+        def to_pools(i: int, k: torch.Tensor, v: torch.Tensor) -> None:
+            # the identity layout: sequence b's blocks are contiguous rows
+            for name, kv in (("k_pools", k), ("v_pools", v)):
+                state[name][i].view((B, nper * page) +
+                                    tuple(kv.shape[2:]))[:, :S] = kv
+
         pos = torch.arange(S, device=tokens.device).expand(B, S)
-        for li, layer in enumerate(self.layers):
-            x, ssm[li], conv[li] = mamba2_layer(layer, x, cfg)
-            if cfg.family == "hybrid" and (li + 1) % every == 0:
-                x, _, (k, v) = decoder_layer_train(self.shared, x, pos,
-                                                   cfg)
-                seg = li // every
-                for name, kv in (("k_pools", k), ("v_pools", v)):
-                    pool = state[name][seg].view(
-                        (B, nper * page) + tuple(k.shape[2:]))
-                    pool[:, :S] = kv
+        if cfg.family == "vlm":
+            for li, layer in enumerate(self.layers):
+                x, _, (k, v) = decoder_layer_train(layer, x, pos, cfg,
+                                                   prefix_len=prefix)
+                to_pools(li, k, v)
+        else:
+            conv, ssm, every = self._per_layer(state)
+            for li, layer in enumerate(self.layers):
+                x, ssm[li], conv[li] = mamba2_layer(layer, x, cfg)
+                if cfg.family == "hybrid" and (li + 1) % every == 0:
+                    x, _, (k, v) = decoder_layer_train(self.shared, x, pos,
+                                                       cfg)
+                    to_pools(li // every, k, v)
         xn = rms_norm(x[:, -1, :], self.final_norm, cfg.norm_eps)
         return self._logits(xn), state
 
@@ -225,23 +254,31 @@ class LanguageModel(nn.Module):
         recurrent states IN PLACE (the reference returns new arrays) and
         returns the next-position logits (B, V) fp32 and the state with
         ``seq_lens`` advanced."""
-        self._mamba_only("decode_state")
+        self._pair_of("prefill_state / decode_state", "decode_state")
         cfg, page = self.cfg, self.page
         pos = state["seq_lens"].long()
         seq_incl = (pos + 1).to(torch.int32)
-        conv, ssm, every = self._per_layer(state)
-        if cfg.family == "hybrid":
+        if cfg.num_attn_layers:
             rows, ids, offsets = append_slots(pos, state["block_table"], page)
+
+        def attend(layer: DecoderLayer, x: torch.Tensor,
+                   i: int) -> torch.Tensor:
+            return decoder_layer_decode(
+                layer, x, pos, state["k_pools"][i], state["v_pools"][i],
+                rows, ids, offsets, state["share_mask"], state["base"],
+                seq_incl, cfg, page)
+
         x = embed(self.embed, tokens, self.act_dtype)
-        for li, layer in enumerate(self.layers):
-            x, conv[li], ssm[li] = mamba2_decode_step(layer, x, conv[li],
-                                                      ssm[li], cfg)
-            if cfg.family == "hybrid" and (li + 1) % every == 0:
-                seg = li // every
-                x = decoder_layer_decode(
-                    self.shared, x, pos, state["k_pools"][seg],
-                    state["v_pools"][seg], rows, ids, offsets,
-                    state["share_mask"], state["base"], seq_incl, cfg, page)
+        if cfg.family == "vlm":
+            for li, layer in enumerate(self.layers):
+                x = attend(layer, x, li)
+        else:
+            conv, ssm, every = self._per_layer(state)
+            for li, layer in enumerate(self.layers):
+                x, conv[li], ssm[li] = mamba2_decode_step(layer, x, conv[li],
+                                                          ssm[li], cfg)
+                if cfg.family == "hybrid" and (li + 1) % every == 0:
+                    x = attend(self.shared, x, li // every)
         xn = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self._logits(xn), dict(state, seq_lens=seq_incl)
 
@@ -268,5 +305,5 @@ def kv_to_pools(kv: torch.Tensor, page: int, dtype: torch.dtype,
     return kv.reshape(L, B * nper, page, KVH, D).to(dtype)
 
 
-__all__ = ["LanguageModel", "PORTED_FAMILIES", "append_slots", "kv_to_pools",
-           "model_dtype"]
+__all__ = ["ENTRY_PAIRS", "LanguageModel", "PORTED_FAMILIES", "append_slots",
+           "kv_to_pools", "model_dtype"]

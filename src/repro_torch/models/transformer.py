@@ -1,8 +1,9 @@
-"""Decoder layer (port of ``repro/models/transformer.py``, the dense and
-moe families): GQA attention block (with the QKV bias where the config sets
-``qkv_bias``) + a SwiGLU MLP (dense) or a mixture-of-experts FFN (moe), for
-prefill and for one decode step over the paged pools.  Weights keep the JAX
-layout ``(in, out)``, so ``h @ w`` reads the same in both packages."""
+"""Decoder layer (port of ``repro/models/transformer.py``, the dense, moe
+and vlm families): GQA attention block (with the QKV bias where the config
+sets ``qkv_bias``) + a SwiGLU MLP (dense, vlm) or a mixture-of-experts FFN
+(moe), for prefill and for one decode step over the paged pools.  Weights
+keep the JAX layout ``(in, out)``, so ``h @ w`` reads the same in both
+packages."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -77,12 +78,15 @@ def _heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
 
 
 def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
-                        pos: torch.Tensor, cfg: ModelConfig
+                        pos: torch.Tensor, cfg: ModelConfig,
+                        prefix_len: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence layer for prefill: x (B, S, d), pos (B, S).  Returns
-    the new x, the FFN's aux loss (fp32 scalar, 0 for dense) and this
-    layer's post-RoPE (k, v), each (B, S, KVH, D)."""
+    """Full-sequence layer for prefill: x (B, S, d), pos (B, S); key
+    positions below ``prefix_len`` are visible to every query (the vlm's
+    patch prefix, the reference's ``MaskInfo.prefix_len``).  Returns the
+    new x, the FFN's aux loss (fp32 scalar, 0 for dense) and this layer's
+    post-RoPE (k, v), each (B, S, KVH, D)."""
     B, S, _ = x.shape
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     q, k, v = layer.qkv(h)
@@ -91,7 +95,7 @@ def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
     k = apply_rope(_heads(k, cfg.num_kv_heads, cfg.head_dim), pos,
                    cfg.rope_theta)
     v = _heads(v, cfg.num_kv_heads, cfg.head_dim)
-    o = prefill_attention(q, k, v, causal=True)
+    o = prefill_attention(q, k, v, causal=True, prefix_len=prefix_len)
     x = x + o.reshape(B, S, cfg.q_dim) @ layer.wo.to(x.dtype)
     x, aux = layer.ffn(x, cfg)
     return x, aux, (k, v)

@@ -1,4 +1,4 @@
-"""Weights of the port's models (dense, moe, ssm, hybrid).
+"""Weights of the port's models (dense, moe, vlm, ssm, hybrid).
 
 * :func:`init_params` makes random weights on the target device from a
   seeded ``torch.Generator``, with the scales of the reference's
@@ -6,7 +6,8 @@
   embedding and untied head N(0, 0.02), dense N(0, 1/in), norm gains and
   QKV biases zero; a moe FFN's router N(0, 0.02), expert ``w_gate`` /
   ``w_up`` N(0, 1/d) and ``w_down`` N(0, 1/f), shared experts as a dense
-  MLP (``repro/models/moe.py``);
+  MLP (``repro/models/moe.py``); a vlm's tree is the dense one's, its head
+  tied to the embedding;
   Mamba2 ``conv_w`` N(0, 1/W), ``dt_bias = log(expm1(dt))`` with ``dt``
   log-uniform in [1e-3, 1e-1], ``A_log = log(1..H)``, ``D = 1``.  Nothing
   is downloaded.
@@ -117,8 +118,8 @@ MAMBA2_PARAMS = ("norm", "w_in", "conv_w", "conv_b", "dt_bias", "A_log", "D",
 
 def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
                     rc: RowCloneConfig = RowCloneConfig()) -> LanguageModel:
-    """Map the JAX parameter tree (numpy leaves) of a dense, moe, ssm or
-    hybrid model into a :class:`LanguageModel` on ``device``."""
+    """Map the JAX parameter tree (numpy leaves) of a dense, moe, vlm, ssm
+    or hybrid model into a :class:`LanguageModel` on ``device``."""
     device = resolve_device(device)
     model = LanguageModel(cfg, device, rc)
 

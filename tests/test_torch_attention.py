@@ -298,3 +298,59 @@ def test_tma_strides_take_views_and_refuse_the_rest():
                 x[:1].expand(3, 7, 4, 80).transpose(1, 2)):   # stride 0
         with pytest.raises(ValueError):
             tma_strides("q", bad)
+
+
+# ---------------------------------------------------------------------------
+# head dim 256: paligemma-3b's 8 heads over 1 KV head
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,atol", [(jnp.float32, 1e-4),
+                                        (jnp.bfloat16, 2e-2)])
+@pytest.mark.parametrize("prefix", [16, 0])
+def test_prefill_attention_at_head_dim_256_matches_pallas_and_model(
+        dtype, atol, prefix):
+    """The plain K3 at paligemma's head shape (H = 8 over KVH = 1, D = 256),
+    causal with a prefix-LM prefix of 16 and without, against the TPU
+    kernel body in interpret mode and against the JAX model's scan
+    (``repro.models.attention.flash_attention``, (B, S, H, D) layout)."""
+    B, H, KVH, S, D = 2, 8, 1, 64, 256
+    rng = np.random.default_rng(256 + prefix)
+    q, k, v = (jnp.asarray(rng.standard_normal((B, n, S, D))
+                           .astype(np.float32)).astype(dtype)
+               for n in (H, KVH, KVH))
+    got = ops.flash_attention(to_torch(q), to_torch(k), to_torch(v),
+                              causal=True, prefix_len=prefix)
+    assert got.dtype == to_torch(q).dtype
+    want_pl = flash_attention_pallas(q, k, v, causal=True, prefix_len=prefix,
+                                     bq=32, bk=32, interpret=True)
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    want_model = jax_model_flash(
+        *(x.transpose(0, 2, 1, 3) for x in (q, k, v)), pos, pos,
+        jnp.ones((B, S), bool), MaskInfo(True, prefix)).transpose(0, 2, 1, 3)
+    for want in (want_pl, want_model):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("pages", SPLIT_CASES[:2], ids=["long", "single"])
+def test_paged_attention_at_head_dim_256_matches_pallas(pages):
+    """The plain K2 and its split-and-merge emulation at paligemma's head
+    shape (H = 8 over KVH = 1: group 8, D = 256) against the TPU kernel in
+    interpret mode (fp32: acc, l, m atol 1e-4 rtol 1e-5, as above)."""
+    q, k, v, mask, base, lens = _layout_case(3, pages, H=8, KVH=1, D=256,
+                                             nblk=32)
+    page = k.shape[1]
+    want = paged_attention_slab_pallas(*(jnp.asarray(x) for x in
+                                         (q, k, v, mask, base, lens)),
+                                       page=page, block_chunk=4,
+                                       interpret=True)
+    qt, kt, vt, bt, lt = (to_torch(x) for x in (q, k, v, base, lens))
+    full = ops.paged_attention_slab(qt, kt, vt, to_torch(mask), bt, lt,
+                                    page=page)
+    split = _merge([ops.paged_attention_slab(qt, kt, vt, to_torch(ms), bt,
+                                             lt, page=page)
+                    for ms in _split_masks(mask, base, lens)])
+    for got in (full, split):
+        for name, a, b in zip(("acc", "l", "m"), got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                       rtol=1e-5, err_msg=name)

@@ -367,6 +367,42 @@ def test_cuda_attention_kernels_at_served_head_groups_match_plain_on_card(
             atol=2e-2, rtol=0)
 
 
+@pytest.mark.cuda
+def test_cuda_attention_kernels_at_head_dim_256_match_plain_on_card(card):
+    """K2 and K3 at paligemma-3b's head shape, 8 heads over 1 KV head at
+    D = 256 (a CTA of 256 threads in K2, two consumer warpgroups in K3),
+    against their plain versions: K2 on a slab with a 64-page sequence,
+    CoW-shared blocks and an empty slot, and on 7 pages each (atol 2e-3 on
+    the normalised output and m); K3 with the 256-patch prefix and without,
+    at a ragged S = 313 and S = 384, B = 1 and 4, and at S = 1 and 65
+    (atol 2e-2 on its bf16 output)."""
+    for pages in ((64, 3, 1, 0), (7, 7, 7, 7)):
+        case = _layout_case(5, pages, H=8, KVH=1, D=256, page=64, nblk=96)
+        args = [torch.from_numpy(x).cuda() for x in case]
+        for i in range(3):
+            args[i] = args[i].bfloat16()
+        acc, l, m = ops.paged_attention_slab(*args, page=64)
+        acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=64,
+                                                   use_kernel=False)
+        torch.testing.assert_close(acc / l.clamp_min(1e-30)[..., None],
+                                   acc_p / l_p.clamp_min(1e-30)[..., None],
+                                   atol=2e-3, rtol=0)
+        torch.testing.assert_close(m, m_p, atol=2e-3, rtol=0)
+        empty = args[5] == 0
+        assert (m[empty] == NEG_INF).all() and (l[empty] == 0).all()
+    rng = np.random.default_rng(17)
+    for B, S, prefix in ((1, 313, 256), (4, 384, 256), (1, 313, 0),
+                         (4, 384, 0), (4, 65, 0), (1, 1, 0)):
+        qq, kk, vv = (torch.from_numpy(rng.standard_normal((B, S, n, 256))
+                                       .astype(np.float32)).cuda()
+                      .bfloat16().transpose(1, 2) for n in (8, 1, 1))
+        torch.testing.assert_close(
+            ops.flash_attention(qq, kk, vv, prefix_len=prefix).float(),
+            ops.flash_attention(qq, kk, vv, prefix_len=prefix,
+                                use_kernel=False).float(),
+            atol=2e-2, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # K4, the SSD intra-chunk term
 # ---------------------------------------------------------------------------

@@ -157,16 +157,18 @@ def jax_and_port_models(arch: str, **overrides):
 
 #: the serve-state leaves the facades carry, by family
 STATE_KEYS = {"ssm": ("conv_state", "ssm_state"),
-              "hybrid": ("conv_state", "ssm_state", "k_pools", "v_pools")}
+              "hybrid": ("conv_state", "ssm_state", "k_pools", "v_pools"),
+              "vlm": ("k_pools", "v_pools")}
 
 
 def facade_parity(jmodel, params, tmodel, cfg, prompts, steps: int = 4, *,
-                  logit_atol: float, state_atol: float):
+                  logit_atol: float, state_atol: float, patches=None):
     """``prefill_state`` then ``steps`` greedy ``decode_state`` calls of the
     port against the JAX facade's ``prefill`` / ``decode_step`` on the same
-    prompts: logits within ``logit_atol`` at every call, identical greedy
-    tokens (both sides are fed the reference's token), and the state's
-    recurrent leaves and KV pools within ``state_atol`` (same layout as the
+    prompts (and, for vlm, the same ``patches`` as ``patch_embeds``):
+    logits within ``logit_atol`` at every call, identical greedy tokens
+    (both sides are fed the reference's token), and the state's recurrent
+    leaves and KV pools within ``state_atol`` (same layout as the
     reference) after the prefill and after the last step."""
     import jax.numpy as jnp
 
@@ -184,8 +186,13 @@ def facade_parity(jmodel, params, tmodel, cfg, prompts, steps: int = 4, *,
                 np.asarray(sj[key]).astype(np.float32), atol=state_atol,
                 rtol=1e-4, err_msg=f"{key} {when}")
 
-    lj, sj = jmodel.prefill(params, {"tokens": jnp.asarray(prompts)}, None)
-    lt, st = tmodel.prefill_state(torch.from_numpy(prompts).long())
+    batch = {"tokens": jnp.asarray(prompts)}
+    extra = {}
+    if patches is not None:
+        batch["patch_embeds"] = jnp.asarray(patches)
+        extra["patch_embeds"] = torch.from_numpy(patches)
+    lj, sj = jmodel.prefill(params, batch, None)
+    lt, st = tmodel.prefill_state(torch.from_numpy(prompts).long(), **extra)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=logit_atol)
     same_state(sj, st, "after prefill")
     for step in range(steps):
@@ -224,11 +231,11 @@ def test_opcode_tables_match_reference():
         tops.check_pack_total(tops.MAX_PACK_BLOCKS + 1)
 
 
-#: the registry entries the port runs: every dense, moe, ssm and hybrid
-#: config of the reference
+#: the registry entries the port runs: every dense, moe, vlm, ssm and
+#: hybrid config of the reference
 PORTED_ARCHS = ("llama3.2-3b", "yi-6b", "mistral-nemo-12b", "qwen2-72b",
-                "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "mamba2-780m",
-                "zamba2-2.7b")
+                "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "paligemma-3b",
+                "mamba2-780m", "zamba2-2.7b")
 #: properties, and methods called without arguments
 CONFIG_PROPS = ("padded_vocab", "q_dim", "kv_dim", "num_attn_layers",
                 "ssm_d_inner", "is_attention_free", "has_subquadratic_path",
@@ -267,6 +274,7 @@ def test_family_sizes_pinned(arch):
             "qwen2-72b": (80, 16384, 152064, 72706, 72706),
             "deepseek-moe-16b": (28, 4096, 102400, 16879, 2830),
             "phi3.5-moe-42b-a6.6b": (32, 8192, 32256, 41874, 6641),
+            "paligemma-3b": (18, 4096, 257280, 2508, 2508),
             "mamba2-780m": (0, 3072, 50432, 780, 780),
             "zamba2-2.7b": (9, 5120, 32000, 2422, 2422)}[arch]
 
@@ -282,18 +290,20 @@ def test_family_sizes_pinned(arch):
 
 
 def test_unported_families_still_raise():
-    """vlm and encdec are not ported: their KV-layer count and parameter
-    count raise rather than guessing.  moe is ported: every layer owns a
-    KV cache, as the reference counts it."""
-    for fam in ("vlm", "encdec"):
-        cfg = dataclasses.replace(tcfg.get_config("llama3.2-3b"), family=fam)
-        with pytest.raises(NotImplementedError):
-            cfg.num_attn_layers
-        with pytest.raises(NotImplementedError):
-            cfg.param_count()
-    for arch in ("deepseek-moe-16b", "phi3.5-moe-42b-a6.6b"):
+    """encdec is not ported: its KV-layer count and parameter count raise
+    rather than guessing.  moe and vlm are ported: every layer owns a KV
+    cache, as the reference counts it."""
+    cfg = dataclasses.replace(tcfg.get_config("llama3.2-3b"),
+                              family="encdec")
+    with pytest.raises(NotImplementedError):
+        cfg.num_attn_layers
+    with pytest.raises(NotImplementedError):
+        cfg.param_count()
+    for arch, fam in (("deepseek-moe-16b", "moe"),
+                      ("phi3.5-moe-42b-a6.6b", "moe"),
+                      ("paligemma-3b", "vlm")):
         t, j = tcfg.get_config(arch), jcfg.get_config(arch)
-        assert t.family == "moe"
+        assert t.family == fam
         assert t.num_attn_layers == j.num_attn_layers == t.num_layers
 
 
