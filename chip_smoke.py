@@ -151,6 +151,22 @@ Phases (each raises on failure; the script then exits non-zero):
     profiles of a step and a prefill split into K2, K3, the GEMMs, the
     other device time and the host gap.
 
+15. (run right after phase 5, on its weights) the remaining
+    ``ServingEngine`` features on llama3.2-3b at full width and depth
+    (``phase_serving_features``): 4 prompts of 512 tokens sharing a
+    384-token prefix, one engine at a time.  (a) ``dedup_admit``: 18 pages
+    shared by 3 admissions, 14 resident blocks against 32, tokens
+    identical to the dedup-off run's; (b) ``demote`` of the third
+    sequence before round 3 and ``resume`` before round 5 over 64 spill
+    slots: parked and resumed blocks bitwise equal to their sources,
+    tokens identical to the unpreempted run's, the rows in the round's
+    one K1 launch (card ms and bound printed); (c) an 8-slot
+    double-buffered ring: a 16-page burst in one K1 launch, one shrink
+    after a window without admission, one regrow with no flush of its
+    own; (d) ``fused_staging=False``: tokens and K/V pools bitwise equal
+    to the fused leg's, ``legacy_stage`` events and no K1 launch,
+    admission card ms of both legs.  K1 <= 1 launch a round throughout.
+
 The last three lines are the ``kernels`` JSON (seven kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
 and power limit, and the device JSON.
@@ -2286,6 +2302,414 @@ def phase_decoder_serve(arch: str, layers=None, prompt_lens=PROMPT_LENS,
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the remaining ServingEngine features, llama3.2-3b at full width
+# ---------------------------------------------------------------------------
+
+#: phase 15's prompts: 4 of FEAT_PAGES pages, the first FEAT_SHARED pages
+#: (the shared prefix) common to all four
+FEAT_PAGES, FEAT_SHARED, FEAT_PROMPTS = 8, 6, 4
+#: (a) and (d) run FEAT_ROUNDS rounds; (b) demotes the third sequence
+#: before round PREEMPT_AT, resumes it before round RESUME_AT and runs to
+#: round PREEMPT_ROUNDS
+FEAT_ROUNDS, PREEMPT_AT, RESUME_AT, PREEMPT_ROUNDS = 6, 3, 5, 8
+#: (b)'s spill slots, (c)'s nominal staging ring
+FEAT_SPILL, FEAT_RING = 64, 8
+
+
+class K1Events:
+    """CUDA events around each K1 launch of the serving engine: a drain
+    guard records one before the drain's host work, the launch hook one
+    right after the launch, so the elapsed time is the call's card ms
+    (host work included, as ``time_ms``).  ``round`` tags the calls."""
+
+    def __init__(self):
+        self.calls, self.round, self._start = [], None, None
+
+    def _guard(self, info):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self._start = (ev, info.n_commands)
+
+    def _hook(self, n, pools, mech):
+        if mech == "fused" and self._start is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.calls.append((self.round, self._start[0], ev,
+                               self._start[1]))
+            self._start = None
+
+    def __enter__(self):
+        from repro_torch.kernels import fused_dispatch as fd
+        fd.add_drain_guard(self._guard)
+        fd.add_launch_hook(self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import fused_dispatch as fd
+        fd.remove_drain_guard(self._guard)
+        fd.remove_launch_hook(self._hook)
+
+    def by_round(self) -> dict:
+        """round -> [(card ms, live rows)] of its K1 launches."""
+        torch.cuda.synchronize()
+        out = {}
+        for rnd, a, b, n in self.calls:
+            out.setdefault(rnd, []).append((a.elapsed_time(b), n))
+        return out
+
+
+def _logit_diff(a: dict, b: dict) -> tuple:
+    """(max |a - b|, the limit SERVE_RTOL x max |b|, bitwise?) over the
+    sequences of two ``last_logits``-like dicts."""
+    err = max(float(np.abs(a[s] - b[s]).max()) for s in b)
+    scale = max(float(np.abs(x).max()) for x in b.values())
+    same = all(np.array_equal(a[s], b[s]) for s in b)
+    return err, SERVE_RTOL * scale, same
+
+
+def _serve_rounds(eng, rounds: int, before_round=None, timer=None):
+    """``rounds`` greedy rounds; ``before_round(r)`` runs before round r
+    (1-based).  Returns K1 launches per round and every round's
+    ``last_logits`` (copies)."""
+    from repro_torch.kernels import ops
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+    per_round, logits = [], []
+    for rnd in range(1, rounds + 1):
+        if before_round is not None:
+            before_round(rnd)
+        if timer is not None:
+            timer.round = rnd
+        n0 = k1.n
+        eng.decode_round()
+        per_round.append(k1.n - n0)
+        logits.append({s: lg.copy() for s, lg in eng.last_logits.items()})
+    torch.cuda.synchronize()
+    return per_round, logits
+
+
+def _timed_admissions(eng, prompts):
+    """Admit ``prompts``; returns the sids and each admission's card ms
+    (CUDA events around ``add_request``)."""
+    sids, ms = [], []
+    for p in prompts:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        sids.append(eng.add_request(p))
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return sids, ms
+
+
+def phase_serving_features(params, smi: str) -> dict:
+    """Phase 15: dedup-on-admit, demote / resume, the double-buffered and
+    adaptive staging ring and the ``fused_staging=False`` leg of
+    ``ServingEngine``, on phase 5's llama3.2-3b weights at full width and
+    depth.  A reference engine (fused staging, dedup off, FEAT_SPILL spill
+    slots) serves FEAT_PROMPTS prompts of FEAT_PAGES pages with a
+    FEAT_SHARED-page common prefix for PREEMPT_ROUNDS rounds; against it:
+
+    (a) the same prompts with ``dedup_admit=True``: 18 pages shared by 3
+        admissions, 14 resident blocks against 32 after admission,
+        identical tokens over FEAT_ROUNDS rounds, logits within
+        SERVE_RTOL;
+    (b) the third sequence demoted before round PREEMPT_AT and resumed
+        before round RESUME_AT: the parked spill slots and the resumed
+        blocks bitwise equal to the source blocks, the resumed tokens
+        identical to the reference's, the demote and resume rows in the
+        round's one K1 launch, their card ms against the bytes' bound;
+    (c) a ring of FEAT_RING slots, double-buffered: two admissions of
+        FEAT_PAGES pages in one round drain as one K1 launch, a window of
+        rounds without admission shrinks the ring once, the next
+        admission regrows it with no flush of its own;
+    (d) the ``fused_staging=False`` leg: tokens and K/V pools after the
+        admissions' round bitwise equal to the reference's, staging as
+        ``legacy_stage`` events and no K1 launch; admission card ms of
+        both legs.
+
+    K1 <= 1 launch a round throughout.  Returns the phase's launch counts
+    by kernel."""
+    from repro_torch.kernels import fused_dispatch as fd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.obs import metrics
+    cfg = params.cfg
+    counters = ops.KERNEL_COUNTERS
+    k1 = counters["fused_dispatch"]
+    page = 64
+    rng = np.random.default_rng(SEED + 15)
+    shared = rng.integers(2, cfg.vocab_size, size=FEAT_SHARED * page)
+    prompts = [np.concatenate([shared, rng.integers(
+        2, cfg.vocab_size, size=(FEAT_PAGES - FEAT_SHARED) * page)])
+        .astype(np.int32) for _ in range(FEAT_PROMPTS)]
+    tag = "[llama3.2-3b features]"
+
+    def engine(**kw):
+        return ServingEngine(cfg, params, max_seqs=MAX_SEQS,
+                             max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, **kw)
+
+    checks = {}
+    t_phase = time.perf_counter()
+    for c in counters.values():
+        c.reset()
+
+    # the reference run: fused staging, dedup off, spill pools
+    ref = engine(spill_pages=FEAT_SPILL)
+    block_bytes = ref.engine._block_bytes()
+    # an engine holds its allocator's reserved zero blocks from the start
+    reserved = ref.kv_bytes_live()
+    k1_admit = k1.n
+    _admit_all(ref, prompts)
+    k1_admit = k1.n - k1_admit
+    ref_live = ref.kv_bytes_live() - reserved
+    first_pools = {}
+
+    def keep_pools(rnd):
+        if rnd == 2:
+            first_pools.update({n: ref.engine.pools[n].clone()
+                                for n in ("k", "v")})
+
+    ref_k1, ref_logits = _serve_rounds(ref, PREEMPT_ROUNDS, keep_pools)
+    ref_tokens = {s: list(t) for s, t in ref.tokens.items()}
+    ref_group = len(ref.engine.group.names)
+    del ref
+    torch.cuda.empty_cache()
+    log(f"{tag} reference: {FEAT_PROMPTS} prompts of {FEAT_PAGES * page} "
+        f"tokens ({FEAT_SHARED * page}-token common prefix), "
+        f"{ref_group} pools in K1's group (K/V, staging ring, "
+        f"{FEAT_SPILL} spill slots), K1 per round {ref_k1} ({smi})")
+    checks["reference: no K1 launch at admission, <= 1 a round"] = \
+        k1_admit == 0 and max(ref_k1) <= 1 and ref_k1[0] == 1
+
+    # (a) dedup-on-admit
+    on = engine(dedup_admit=True)
+    _admit_all(on, prompts)
+    on_live = on.kv_bytes_live() - reserved
+    on_k1, on_logits = _serve_rounds(on, FEAT_ROUNDS)
+    err, limit, same = _logit_diff(on_logits[-1],
+                                   ref_logits[FEAT_ROUNDS - 1])
+    shared_pages = (FEAT_PROMPTS - 1) * FEAT_SHARED
+    resident = FEAT_PAGES + (FEAT_PROMPTS - 1) * (FEAT_PAGES - FEAT_SHARED)
+    checks.update({
+        "(a) dedup: tokens identical": all(
+            on.tokens[s] == ref_tokens[s][:len(on.tokens[s])]
+            for s in on.tokens),
+        "(a) dedup: logits within SERVE_RTOL": err <= limit,
+        f"(a) dedup_pages_shared == {shared_pages}, dedup_hits == "
+        f"{FEAT_PROMPTS - 1}": (on.dedup_pages_shared, on.dedup_hits)
+        == (shared_pages, FEAT_PROMPTS - 1),
+        f"(a) kv_bytes_live {resident} blocks against "
+        f"{FEAT_PROMPTS * FEAT_PAGES}": (on_live, ref_live) == (
+            resident * block_bytes, FEAT_PROMPTS * FEAT_PAGES * block_bytes),
+        "(a) K1 <= 1 a round": max(on_k1) <= 1,
+    })
+    log(f"{tag} (a) dedup-on-admit: {on.dedup_hits} hits, "
+        f"{on.dedup_pages_shared} pages shared, kv_bytes_live after "
+        f"admission {on_live} B against {ref_live} B without dedup (above "
+        f"the {reserved} B of reserved zero blocks) "
+        f"({on.dedup_bytes_saved} B saved); K1 per round {on_k1}; logits "
+        f"after round {FEAT_ROUNDS} vs dedup off: max |diff| {err:.3e} "
+        f"(limit {limit:.3e}, bitwise {same}) ({smi})")
+    del on
+    torch.cuda.empty_cache()
+
+    # (b) demote and resume
+    pre = engine(spill_pages=FEAT_SPILL)
+    psids = _admit_all(pre, prompts)
+    victim = psids[2]
+    moved = {}
+
+    def preempt(rnd):
+        if rnd == PREEMPT_AT:
+            blocks = pre.cache.blocks_of(victim)
+            moved["blocks"] = blocks
+            moved["before"] = {n: pre.engine.pools[n][:, blocks].clone()
+                               for n in ("k", "v")}
+            pre.demote(victim)
+            moved["slots"] = list(pre.demoted[victim].slots)
+        elif rnd == RESUME_AT:
+            slots = moved["slots"]
+            moved["parked"] = {n: pre.engine.pools[n + "_spill"][:, slots]
+                               .clone() for n in ("k", "v")}
+            moved["sid"] = sid = pre.resume(victim)
+            fresh = pre.cache.blocks_of(sid)
+            moved["fresh"] = fresh
+
+            def land(n_rows, n_pools, mech):
+                if mech == "fused" and "landed" not in moved:
+                    moved["landed"] = {
+                        n: pre.engine.pools[n][:, fresh].clone()
+                        for n in ("k", "v")}
+            moved["hook"] = land
+            fd.add_launch_hook(land)
+
+    with K1Events() as timer:
+        try:
+            pre_k1, pre_logits = _serve_rounds(pre, PREEMPT_ROUNDS, preempt,
+                                               timer)
+        finally:
+            if "hook" in moved:
+                fd.remove_launch_hook(moved["hook"])
+    k1_ms = timer.by_round()
+    new = moved["sid"]
+    resumed = pre.tokens[new]
+    n_blocks = len(moved["blocks"])
+    gen = PREEMPT_ROUNDS - (RESUME_AT - PREEMPT_AT)
+    # the resumed sequence after round R has the tokens of the reference's
+    # after round R - (RESUME_AT - PREEMPT_AT)
+    want_logits = ref_logits[gen - 1][victim]
+    err_b, limit_b, same_b = _logit_diff({victim: pre.last_logits[new]},
+                                         {victim: want_logits})
+    others = {s: pre.last_logits[s] for s in psids if s != victim}
+    err_o, limit_o, _ = _logit_diff(others, {
+        s: ref_logits[-1][s] for s in others})
+    st = pre.engine.stats
+    page_bytes = block_bytes // 2
+    rows_ms = {}
+    for name, rnd in (("demote", PREEMPT_AT), ("resume", RESUME_AT)):
+        (ms, rows), = k1_ms[rnd]
+        rows_ms[name] = (ms, rows, 2 * rows * page_bytes / HBM_BYTES_PER_S
+                         * 1e3)
+    checks.update({
+        "(b) parked spill slots == source blocks, bitwise": all(
+            _bitwise_equal(moved["parked"][n], moved["before"][n])
+            for n in ("k", "v")),
+        "(b) resumed blocks == parked slots, bitwise": all(
+            _bitwise_equal(moved["landed"][n], moved["parked"][n])
+            for n in ("k", "v")),
+        "(b) resumed tokens identical": resumed ==
+        ref_tokens[victim][:len(resumed)],
+        "(b) resumed logits within SERVE_RTOL": err_b <= limit_b,
+        "(b) other sequences' logits within SERVE_RTOL": err_o <= limit_o,
+        "(b) K1 <= 1 a round, demote and resume rows in it":
+            max(pre_k1) <= 1 and pre_k1[PREEMPT_AT - 1] == 1
+            and pre_k1[RESUME_AT - 1] == 1,
+        f"(b) demotions == spill_promotions == {n_blocks}":
+            st.demotions == st.spill_promotions == n_blocks,
+        "(b) spill slots all free again":
+            pre.engine.spill_slots_free == FEAT_SPILL,
+    })
+    log(f"{tag} (b) demote seq {victim} ({n_blocks} blocks) before round "
+        f"{PREEMPT_AT}, resume as seq {new} before round {RESUME_AT}; K1 "
+        f"per round {pre_k1}; " + "; ".join(
+            f"{name} round K1 {ms:.4f} card ms, {rows} rows "
+            f"({2 * rows * page_bytes} B, bound {bound:.4f} ms)"
+            for name, (ms, rows, bound) in rows_ms.items())
+        + f"; resumed logits vs unpreempted: max |diff| {err_b:.3e} (limit "
+        f"{limit_b:.3e}, bitwise {same_b}), others {err_o:.3e} ({smi})")
+    del pre
+    torch.cuda.empty_cache()
+
+    # (c) the double-buffered, adaptive ring
+    metrics.reset()
+    ring = engine(max_admit_pages=FEAT_RING, double_buffer=True)
+    n0 = k1.n
+    for p in prompts[:2]:
+        ring.add_request(p)
+    burst_admit = k1.n - n0
+    burst_k1, _ = _serve_rounds(ring, 1)
+    idle, shrunk_at = 0, None
+    while shrunk_at is None and idle < 2 * ring.RING_WINDOW:
+        _serve_rounds(ring, 1)
+        idle += 1
+        if ring.ring_shrinks:
+            shrunk_at = idle + 1
+    limit_c = ring.engine.stage_limit
+    gauge = metrics.gauge_value("engine.stage_limit")
+    n0 = k1.n
+    ring.add_request(prompts[2])
+    regrow_admit = k1.n - n0
+    regrow_k1, _ = _serve_rounds(ring, 1)
+    checks.update({
+        f"(c) burst of {2 * FEAT_PAGES} pages on a {FEAT_RING}-slot ring: "
+        "one K1 launch": burst_admit == 0 and burst_k1 == [1],
+        "(c) one shrink after a window without admission":
+            ring.ring_shrinks == 1 and shrunk_at == 2 * ring.RING_WINDOW
+            and limit_c is not None and gauge == limit_c
+            and metrics.get("serve.ring_shrinks") == 1,
+        "(c) the next admission regrows the ring with no flush of its own":
+            ring.ring_regrows == 1 and ring.engine.stage_limit is None
+            and regrow_admit == 0 and regrow_k1 == [1]
+            and metrics.get("serve.ring_regrows") == 1,
+    })
+    log(f"{tag} (c) ring of {FEAT_RING} slots x 2: burst admission K1 "
+        f"{burst_admit}, its round {burst_k1}; shrink at round {shrunk_at} "
+        f"to {limit_c} slots (engine.stage_limit gauge {gauge}); regrow "
+        f"{ring.ring_regrows}, admission K1 {regrow_admit}, its round "
+        f"{regrow_k1} ({smi})")
+    del ring
+    torch.cuda.empty_cache()
+
+    # (d) the fused_staging=False leg
+    legacy = engine(fused_staging=False)
+    events = []
+    hook = (lambda n, p, m: events.append(m))
+    fd.add_launch_hook(hook)
+    n0 = k1.n
+    try:
+        _admit_all(legacy, prompts)
+    finally:
+        fd.remove_launch_hook(hook)
+    legacy_admit_k1 = k1.n - n0
+    pools_equal = {}
+
+    def compare_pools(rnd):
+        if rnd == 2:
+            pools_equal.update({n: _bitwise_equal(legacy.engine.pools[n],
+                                                  first_pools[n])
+                                for n in ("k", "v")})
+
+    legacy_k1, _ = _serve_rounds(legacy, FEAT_ROUNDS, compare_pools)
+    first_pools.clear()
+    checks.update({
+        "(d) legacy leg: tokens identical": all(
+            legacy.tokens[s] == ref_tokens[s][:len(legacy.tokens[s])]
+            for s in legacy.tokens),
+        "(d) legacy leg: K/V pools after the admissions' round bitwise":
+            pools_equal == {"k": True, "v": True},
+        "(d) legacy staging: legacy_stage events, no K1 launch":
+            events == ["legacy_stage"] * (2 * FEAT_PROMPTS)
+            and legacy_admit_k1 == 0,
+    })
+    log(f"{tag} (d) fused_staging=False: K1 per round {legacy_k1}; "
+        f"{len(events)} legacy_stage events ({smi})")
+    del legacy
+    torch.cuda.empty_cache()
+    # the two legs' admissions in turns on fresh engines (fused, legacy,
+    # legacy, fused): median card ms of the 4 admissions (the fused leg's
+    # promotions drain in its first round, not here), then the staging
+    # write's device ms (index_copy_ into the ring or the K/V pools) in a
+    # profiled fifth
+    from torch.profiler import ProfilerActivity, profile
+    turns = []
+    for fused in (True, False, False, True):
+        eng = engine(fused_staging=fused)
+        _, ms = _timed_admissions(eng, prompts)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.add_request(prompts[0])
+            torch.cuda.synchronize()
+        write = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "index_copy" in e.key) / 1e3
+        turns.append(f"{'fused' if fused else 'legacy'} "
+                     f"{np.median(ms):.2f} ms (write {write:.4f} ms)")
+        del eng
+        torch.cuda.empty_cache()
+    log(f"{tag} (d) admissions in turns, median card ms of 4 and the "
+        f"staging write's device ms: {'; '.join(turns)} ({smi})")
+
+    launches = {n: c.n for n, c in counters.items()}
+    log(f"{tag} phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serving features checks failed: {failed}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the vlm family through the facade pair
 # ---------------------------------------------------------------------------
 
@@ -2457,6 +2881,9 @@ def main() -> int:
     paths = {}
     paths["llama3.2-3b serve"], params = phase_decoder_serve(
         "llama3.2-3b", profile=True)
+    torch.cuda.empty_cache()
+    paths["llama3.2-3b serving features"] = phase_serving_features(params,
+                                                                   smi)
     torch.cuda.empty_cache()
     copy_kernels, flat = phase_copy_kernels(scrub)
     torch.cuda.empty_cache()

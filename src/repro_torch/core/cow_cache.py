@@ -142,6 +142,24 @@ class PagedCoWCache:
         with self.engine.batch():
             return [self.append_token(sid) for sid in seq_ids]
 
+    def remap_blocks(self, seq_id: int, blocks: List[int]) -> None:
+        """Replace a sequence's block list with caller-held blocks (the
+        cache takes over their refcounts) and release the OLD list,
+        refcount-aware; positions whose id is unchanged keep their ref.
+        The length must match (relocation, not truncation)."""
+        seq = self.seqs[seq_id]
+        blocks = [int(b) for b in blocks]
+        if len(blocks) != len(seq.blocks):
+            raise ValueError(
+                f"remap_blocks: {len(blocks)} blocks for a sequence "
+                f"holding {len(seq.blocks)} (relocation must preserve "
+                "the block count)")
+        stale = [old for old, new in zip(seq.blocks, blocks) if old != new]
+        if stale:
+            self.alloc.free(stale)
+        seq.blocks = blocks
+        self._dirty = True
+
     def free_sequence(self, seq_id: int) -> None:
         """Release a sequence's blocks (refcount-aware) and its slot."""
         seq = self.seqs.pop(seq_id)

@@ -8,7 +8,10 @@
 * ``meminit(ids)`` sets the ZI lazy-zero bit, or enqueues BuZ zero rows;
 * ``memcopy_cross`` / ``promote_staged`` move blocks between pools by
   global ``base[pool] + block`` id (the :class:`PoolGroup` address space);
-* ``memand`` / ``memor`` / ``memnot`` compute on raw bits in place.
+* ``memand`` / ``memor`` / ``memnot`` compute on raw bits in place;
+* ``demote_to_spill`` / ``promote_spilled`` park primary blocks in the
+  spill pools and bring them back (preemption), and ``set_stage_limit``
+  clamps the staging ring (the serving layer's adaptive ring).
 
 Dispatch is queued and fused: at a flush boundary the whole table drains
 as ONE launch moving every pool (kernels/fused_dispatch.py).
@@ -48,6 +51,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.fused_dispatch import (DrainInfo, check_drain,
                                                 notify_launch)
+from repro_torch.obs import metrics as obs_metrics
 
 
 @dataclasses.dataclass
@@ -59,6 +63,8 @@ class EngineStats:
     cross_pool_copies: int = 0
     stage_promotions: int = 0   # staged blocks promoted into primary pools
     retired_promotions: int = 0  # queued promotions cancelled pre-flush
+    demotions: int = 0          # primary blocks parked in spill slots
+    spill_promotions: int = 0   # spill slots promoted back into primaries
     zero_lazy: int = 0
     zero_materialized: int = 0
     bytes_fpm: int = 0
@@ -135,14 +141,34 @@ class RowCloneEngine:
             if stage_cap not in (0, cap):
                 raise ValueError("staging pools must share one block count")
             stage_cap = cap
+        for spec in group:
+            if spec.role == "spill" and (
+                    self._block_shape(self.pools[spec.name])
+                    != self._block_shape(self.pools[spec.paired])
+                    or self.pools[spec.name].dtype
+                    != self.pools[spec.paired].dtype):
+                raise ValueError(f"spill pool {spec.name!r} must mirror "
+                                 f"{spec.paired!r}'s block shape and dtype")
         self._live_queues: Dict[int, CommandQueue] = {}
         self._stream_count = 0
         self._default_stream = CommandStream(self, "default")
         self._cur_queue = self._default_stream.queue
         self.deferred = False
         self._zero_blocks: Optional[Tuple[torch.Tensor, ...]] = None
+        # staging slot free list, slots whose promotion is still queued
+        # (reclaimed once no stream holds a pending READ of them), and
+        # free slots parked above the adaptive ring limit
         self._stage_free: List[int] = list(range(stage_cap - 1, -1, -1))
         self._stage_inflight: List[int] = []
+        self._stage_parked: List[int] = []
+        self._stage_limit: Optional[int] = None
+        # demotion: primary pool -> its spill twin, and the engine-owned
+        # demotion slot space handed over by enable_demotion
+        self._spill_map: Dict[str, str] = {
+            spec.paired: spec.name for spec in group if spec.role == "spill"}
+        self._spill_slots: Tuple[int, ...] = ()
+        self._spill_free: List[int] = []
+        self._spill_inflight: List[int] = []
         #: log of drained flushes
         self.journal = TicketJournal()
         self._flush_index = 0
@@ -199,8 +225,62 @@ class RowCloneEngine:
 
     @property
     def stage_slots_free(self) -> int:
-        """Staging slots currently on the free list."""
+        """Staging slots currently on the free list (slots whose
+        promotion is still queued, and slots parked above the ring limit,
+        are not)."""
         return len(self._stage_free)
+
+    @property
+    def stage_limit(self) -> Optional[int]:
+        """The adaptive ring clamp: usable slots are ids ``<
+        stage_limit``.  None = full capacity."""
+        return self._stage_limit
+
+    def set_stage_limit(self, limit: Optional[int]) -> int:
+        """Clamp the staging ring to ``limit`` usable slots (ids below
+        it); FREE slots at or above it park until the limit is raised, so
+        reserved and in-flight slots are untouched.  ``None`` (or a limit
+        >= :attr:`stage_capacity`) restores the full ring.  Returns the
+        usable-slot count."""
+        cap = self.stage_capacity
+        if limit is None or int(limit) >= cap:
+            self._stage_limit = None
+            self._stage_free.extend(self._stage_parked)
+            self._stage_parked = []
+            effective = cap
+        else:
+            lim = max(int(limit), 0)
+            self._stage_limit = lim
+            usable = [s for s in self._stage_free if s < lim] + \
+                [s for s in self._stage_parked if s < lim]
+            parked = [s for s in self._stage_free if s >= lim] + \
+                [s for s in self._stage_parked if s >= lim]
+            self._stage_free = usable
+            self._stage_parked = parked
+            effective = lim
+        obs_metrics.set_gauge("engine.stage_limit", effective)
+        return effective
+
+    def _reclaim_stage_slots(self, slots: Sequence[int]) -> None:
+        """Freed staging slots join the free list, or the parked list
+        when the ring limit excludes their ids."""
+        lim = self._stage_limit
+        if lim is None:
+            self._stage_free.extend(slots)
+            return
+        for s in slots:
+            (self._stage_free if s < lim else self._stage_parked).append(s)
+
+    @property
+    def spill_capacity(self) -> int:
+        """Demotion slots the engine owns (0 until ``enable_demotion``)."""
+        return len(self._spill_slots)
+
+    @property
+    def spill_slots_free(self) -> int:
+        """Demotion slots neither parking a block nor awaiting the drain
+        of a queued resume."""
+        return len(self._spill_free)
 
     @property
     def n_primary(self) -> int:
@@ -621,7 +701,7 @@ class RowCloneEngine:
 
     def release_stage_blocks(self, ids: Sequence[int]) -> None:
         """Return reserved staging slots that were never promoted."""
-        self._stage_free.extend(int(b) for b in ids)
+        self._reclaim_stage_slots([int(b) for b in ids])
 
     def promote_staged(self, pairs: Sequence[Tuple[int, object]]) -> int:
         """Promote staged pages ``(staging_slot, dst primary block)`` into
@@ -655,21 +735,102 @@ class RowCloneEngine:
         self._after_flush()
         return removed
 
+    # ------------------------------------------------------------------
+    # demotion: preemption parks primary blocks in spill slots (the
+    # reverse of promotion), resumption promotes them back
+    # ------------------------------------------------------------------
+    def enable_demotion(self, slots: Sequence[int]) -> None:
+        """Hand the engine spill-pool slot ids for preemption: they become
+        the demotion slot space that :meth:`demote_to_spill` draws from."""
+        if not self._spill_map:
+            raise RuntimeError(
+                "engine has no spill pools (PoolSpec(role='spill')); "
+                "serving builds them via make_serving_pools")
+        cap = min(self.group[n].nblk for n in self._spill_map.values())
+        slots = [int(s) for s in slots]
+        for s in slots:
+            if not 0 <= s < cap:
+                raise ValueError(f"spill slot {s} out of range ({cap})")
+        self._spill_slots = tuple(slots)
+        self._spill_free = list(reversed(slots))
+        self._spill_inflight = []
+
+    def demote_to_spill(self, blocks: Sequence[object]) -> List[int]:
+        """Park primary blocks in spill slots: one ``OP_CROSS_POOL_COPY``
+        per primary pool per block (k -> k_spill and v -> v_spill travel
+        together) on the current queue.  Returns the slot of each block,
+        in block order; the caller owns them until :meth:`promote_spilled`
+        or :meth:`release_spill_slots`.  The copy reads the pools' bytes:
+        blocks written out of band of the allocator's ZI metadata (the
+        decode step's append) must be ``alloc.mark_written`` first."""
+        if not self._spill_slots:
+            raise RuntimeError("demotion not enabled (enable_demotion)")
+        blocks = [self._primary_id(b) for b in blocks]
+        if len(self._spill_free) < len(blocks):
+            raise RuntimeError(
+                f"spill slots exhausted ({len(blocks)} requested, "
+                f"{len(self._spill_free)} free of {self.spill_capacity})")
+        slots = [self._spill_free.pop() for _ in blocks]
+        with self.batch():
+            for pname, sname in self._spill_map.items():
+                self.memcopy_cross(
+                    [(BlockRef(pname, b), BlockRef(sname, s))
+                     for b, s in zip(blocks, slots)])
+            self.stats.demotions += len(blocks)
+        return slots
+
+    def promote_spilled(self, pairs: Sequence[Tuple[int, object]]) -> int:
+        """Promote parked bytes ``(spill_slot, dst primary block)`` back
+        into primary blocks (resumption); the slots return to the demotion
+        free list once no stream holds a pending read of them."""
+        if not self._spill_slots:
+            raise RuntimeError("demotion not enabled (enable_demotion)")
+        pairs = [(int(s), self._primary_id(d)) for s, d in pairs]
+        with self.batch():
+            for pname, sname in self._spill_map.items():
+                self.memcopy_cross(
+                    [(BlockRef(sname, s), BlockRef(pname, d))
+                     for s, d in pairs])
+            self.stats.spill_promotions += len(pairs)
+            self._spill_inflight.extend(s for s, _ in pairs)
+        return len(pairs)
+
+    def release_spill_slots(self, ids: Sequence[int]) -> None:
+        """Return demotion slots whose parked bytes are no longer needed,
+        without promoting them.  Idempotent: free and in-flight slots are
+        skipped."""
+        for s in ids:
+            s = int(s)
+            if s not in self._spill_free and s not in self._spill_inflight:
+                self._spill_free.append(s)
+
     def _after_flush(self) -> None:
-        """A staging slot is reusable exactly when no stream still holds a
-        pending read of it."""
-        if not self._stage_inflight:
-            return
-        sidx = [self.group.index(name) for name in self.staging]
+        """A staging or in-flight demotion slot is reusable exactly when no
+        stream still holds a pending read of it."""
+        self._stage_inflight = self._reclaim_read(
+            self._stage_inflight, self.staging, self._reclaim_stage_slots)
+        self._spill_inflight = self._reclaim_read(
+            self._spill_inflight, self._spill_map.values(),
+            self._spill_free.extend)
+
+    def _reclaim_read(self, inflight: List[int], names, reclaim
+                      ) -> List[int]:
+        """Hand the slots of ``inflight`` that no live queue still reads
+        (in any pool of ``names``) to ``reclaim``; returns the rest."""
+        if not inflight:
+            return inflight
+        idx = [self.group.index(n) for n in names]
         queues = list(self._live_queues.values())
         still: List[int] = []
-        for slot in self._stage_inflight:
+        freed: List[int] = []
+        for slot in inflight:
             if any(q.has_pending_read((p, slot)) for q in queues
-                   for p in sidx):
+                   for p in idx):
                 still.append(slot)
             else:
-                self._stage_free.append(slot)
-        self._stage_inflight = still
+                freed.append(slot)
+        reclaim(freed)
+        return still
 
     # ------------------------------------------------------------------
     # meminit

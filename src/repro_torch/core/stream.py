@@ -157,6 +157,16 @@ class CommandStream:
         with self.capture():
             return self.engine.promote_staged(pairs)
 
+    def demote_to_spill(self, blocks):
+        """Enqueue primary -> spill demotions; returns the slot ids."""
+        with self.capture():
+            return self.engine.demote_to_spill(blocks)
+
+    def promote_spilled(self, pairs):
+        """Enqueue spill -> primary resume promotions."""
+        with self.capture():
+            return self.engine.promote_spilled(pairs)
+
     # ------------------------------------------------------------------
     def flush(self) -> FlushTicket:
         """Drain the stream's pending commands and return the receipt."""

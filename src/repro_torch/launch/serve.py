@@ -7,22 +7,37 @@ GPU).
   (``OP_CROSS_POOL_COPY`` rows) on the engine's serve
   :class:`~repro_torch.core.stream.CommandStream`;
 * ``fork`` shares every page by refcount (zero bytes move);
+* ``dedup_admit=True``: prompt pages whose chained fingerprint
+  (:func:`page_fingerprint`) and tokens match a live registry entry share
+  the donor's block by refcount instead of promoting their own copy;
+* ``demote`` parks a sequence's blocks in the spill pools (cross-pool rows
+  on the serve stream) and ``resume`` copies them back into fresh blocks;
 * ``decode_round`` captures the round's CoW splits and tail-block inits
-  onto the same stream and flushes it: promotions, splits and inits drain
-  as ONE fused launch (K1).  Then one decode step appends each sequence's
-  K/V into its block and attends over the paged pool (K2 in every layer).
+  onto the same stream and flushes it: promotions, demotions, resumes,
+  splits and inits drain as ONE fused launch (K1).  Then one decode step
+  appends each sequence's K/V into its block and attends over the paged
+  pool (K2 in every layer).
 
 The staging ring is sized by the admission policy:
 ``admissions_per_round x max_blocks_per_seq`` slots unless
 ``max_admit_pages`` says otherwise (:data:`ServingEngine.FULL_TWIN` keeps
-full-size staging twins).
+full-size staging twins); ``double_buffer=True`` doubles the slots, so a
+burst of admissions past the nominal ring parks in the second half while
+the first half's promotions are still queued.  The adaptive ring
+(``adaptive_ring=True``) clamps the ring after :data:`RING_WINDOW` rounds
+of low admission pressure and reopens it on demand.  ``fused_staging=False``
+is the seed's A/B leg: no staging pools, the prefill's pages written
+straight into the K/V pools (:func:`_stage_legacy`), eager CoW work.
+
+Not ported (the constructor refuses them): checkpointing, fault injection
+and recovery (ROADMAP queue 1, item 9) and the mesh (item 12).
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations
 
 import argparse
-import time
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -33,8 +48,10 @@ from repro_torch.configs import (DECODER_FAMILIES, ModelConfig,
 from repro_torch.core.allocator import SubarrayAllocator
 from repro_torch.core.cow_cache import PagedCoWCache
 from repro_torch.core.rowclone import RowCloneEngine
+from repro_torch.kernels.fused_dispatch import notify_launch
 from repro_torch.models.lm import LanguageModel, kv_to_pools, model_dtype
 from repro_torch.models.paged import make_serving_pools
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.weights import init_params, resolve_device
 
 
@@ -48,20 +65,104 @@ VLM_REFUSAL = (
     "the text's KV at the wrong RoPE position; the vlm runs through "
     "LanguageModel.prefill_state / decode_state")
 
+#: constructor arguments of the reference that the port does not take yet:
+#: name -> (the reference's default, which means "off", and the ROADMAP
+#: queue item that brings it)
+NOT_PORTED = {
+    "mesh": (None, "ROADMAP queue 1 item 12 (multi-GPU)"),
+    "fault_plan": (None, "ROADMAP queue 1 item 9 (robustness: fault "
+                         "injection)"),
+    "auto_recover": (False, "ROADMAP queue 1 item 9 (robustness: "
+                            "recover())"),
+    "ckpt_pages": (0, "ROADMAP queue 1 item 9 (robustness: pool "
+                      "checkpoints)"),
+    "ckpt_dir": (None, "ROADMAP queue 1 item 9 (robustness: pool "
+                       "checkpoints)"),
+    "ckpt_window": (None, "ROADMAP queue 1 item 9 (robustness: pool "
+                          "checkpoints)"),
+}
+
+
+@dataclasses.dataclass
+class DemotedSeq:
+    """Host-side record of a preempted sequence: what :meth:`ServingEngine
+    .resume` needs to continue it bitwise-identically (the reference's
+    record without its non-dense host state, which the port's families
+    do not have)."""
+
+    length: int                  #: sequence length at demotion time
+    slots: List[int]             #: spill slots parking the KV bytes
+    slab_home: int               #: preferred slab for re-allocation
+    logits: np.ndarray           #: last logits (greedy argmax source)
+    tokens: List[int]            #: token history (prompt + generated)
+
+
+#: 64-bit fold constants (splitmix64 / FNV mixes) of the page fingerprint
+_FP_MASK = (1 << 64) - 1
+_FP_WORD = 0x9E3779B97F4A7C15
+_FP_POS = 0xC2B2AE3D27D4EB4F
+_FP_CHAIN = 0x100000001B3
+
+
+def xor_fold(acc: int, word: int) -> int:
+    """One XOR-fold step over 64-bit words, composed from the engine's
+    bitwise opcode identities: ``x ^ y == (x | y) & ~(x & y)`` (an OR, an
+    AND, a NOT and a final AND)."""
+    both = acc & word
+    either = acc | word
+    return (either & (~both & _FP_MASK)) & _FP_MASK
+
+
+def page_fingerprint(chain: int, tokens) -> int:
+    """Chained fingerprint of one prompt page: position-salted token words
+    folded with :func:`xor_fold` into the previous page's fingerprint
+    (``chain``), so equal keys mean equal page *prefixes*; the page's token
+    count is folded last, so a short tail page never aliases a full page
+    that starts with the same tokens."""
+    fp = chain & _FP_MASK
+    for i, t in enumerate(tokens):
+        word = ((int(t) + 1) * _FP_WORD + (i + 1) * _FP_POS) & _FP_MASK
+        fp = xor_fold((fp * _FP_CHAIN) & _FP_MASK, word)
+    return xor_fold(fp, (len(tokens) * _FP_POS) & _FP_MASK)
+
 
 class ServingEngine:
     """Serving facade over RowCloneEngine + PagedCoWCache: admission
-    (prefill + staged promotion), CoW fork, free, and greedy decode rounds
-    whose bulk movement drains as one fused launch."""
+    (prefill + staged promotion, or the legacy direct write), dedup on
+    admission, CoW fork, free, preemption by demotion, and greedy decode
+    rounds whose bulk movement drains as one fused launch."""
 
     #: ``max_admit_pages`` value that keeps full-size staging twins
     FULL_TWIN = 0
 
+    #: adaptive ring: rounds of low admission pressure before it shrinks
+    RING_WINDOW = 4
+
     def __init__(self, cfg: ModelConfig, params: LanguageModel, *,
                  max_seqs: int = 16, max_blocks_per_seq: int = 64,
                  num_slabs: int = 4, rc: Optional[RowCloneConfig] = None,
+                 fused_staging: bool = True,
                  max_admit_pages: Optional[int] = None,
-                 admissions_per_round: int = 1, device="cuda"):
+                 admissions_per_round: int = 1, double_buffer: bool = False,
+                 spill_pages: int = 0, dedup_admit: bool = False,
+                 adaptive_ring: bool = True, device="cuda",
+                 **not_ported):
+        """``max_admit_pages`` sizes the staging ring (``None``: the
+        admission policy's ``admissions_per_round x max_blocks_per_seq``;
+        :data:`FULL_TWIN`: full twins); ``double_buffer`` doubles it.
+        ``spill_pages > 0`` builds spill pools of that many slots for
+        :meth:`demote` / :meth:`resume`.  ``dedup_admit`` and
+        ``adaptive_ring`` apply to fused staging only.  Arguments of
+        :data:`NOT_PORTED` raise ``NotImplementedError`` unless they hold
+        the reference's default (off)."""
+        for name, value in not_ported.items():
+            if name not in NOT_PORTED:
+                raise TypeError(f"unexpected keyword argument {name!r}")
+            off, item = NOT_PORTED[name]
+            if not (type(value) is type(off) and value == off):
+                raise NotImplementedError(
+                    f"ServingEngine({name}={value!r}) is not ported yet: "
+                    f"{item}")
         if cfg.family == "vlm":
             raise NotImplementedError(VLM_REFUSAL)
         if cfg.family not in DECODER_FAMILIES:
@@ -76,19 +177,31 @@ class ServingEngine:
         self.cfg = cfg
         self.rc = rc or RowCloneConfig()
         self.model = params
+        self.fused_staging = fused_staging
         page = self.rc.page_size
         nblk = max_seqs * max_blocks_per_seq
         nblk = -(-nblk // num_slabs) * num_slabs
         if max_admit_pages is None:
             max_admit_pages = admissions_per_round * max_blocks_per_seq
-        stage_nblk = nblk if max_admit_pages == self.FULL_TWIN \
-            else int(max_admit_pages)
+        if max_admit_pages == self.FULL_TWIN:
+            self.ring_capacity = stage_nblk = nblk
+        else:
+            self.ring_capacity = int(max_admit_pages)
+            stage_nblk = self.ring_capacity * (2 if double_buffer else 1)
+        self.spill_pages = int(spill_pages)
         alloc = SubarrayAllocator(
             nblk, num_slabs,
             reserved_zero_per_slab=self.rc.zero_blocks_per_slab)
+        # one PoolGroup of up to six pools (k, v, their staging ring and
+        # their spill pools): K1 drains promotions, demotions and resumes
+        # of a round in one launch.  K1's room (csrc/fused_dispatch.cu
+        # kMaxPools = 16, kMaxPackBlocks = 46340) holds it: llama3.2-3b at
+        # max_seqs 8 x 64 blocks with a 64-slot ring and 64 spill slots is
+        # 2 x (512 + 64 + 64) = 1,280 blocks
         pools, group = make_serving_pools(
             cfg.num_attn_layers, nblk, page, cfg.num_kv_heads, cfg.head_dim,
-            model_dtype(cfg), self.device, stage_nblk=stage_nblk)
+            model_dtype(cfg), self.device, staging=fused_staging,
+            stage_nblk=stage_nblk, ckpt_nblk=self.spill_pages)
         self.engine = RowCloneEngine(
             pools, alloc, enable_fpm=self.rc.enable_fpm,
             enable_psm=self.rc.enable_psm, enable_zi=self.rc.enable_zi,
@@ -100,22 +213,71 @@ class ServingEngine:
         #: the round's bulk movement rides this stream (one launch/round)
         self.stream = self.engine.stream("serve")
         self.last_ticket = None
+        #: admissions whose promotions have not drained (demote refuses)
+        self._staged_sids: List[int] = []
         #: per-admission stage→KV promotions still queued (free() retires)
         self._pending_promotions: Dict[int, List[Tuple[int, int]]] = {}
+        #: preempted sequences parked in spill slots, by sid
+        self.demoted: Dict[int, DemotedSeq] = {}
+        #: demoted blocks held until the round's flush drains their reads
+        self._free_after_flush: List[int] = []
+        #: dedup registry: chained page fingerprint -> (donor block, page
+        #: tokens); the tokens are checked on every hit
+        self.dedup_admit = bool(dedup_admit) and fused_staging
+        self._dedup_registry: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+        #: registry keys per registering sid (free() drops them)
+        self._dedup_keys: Dict[int, List[int]] = {}
+        self.dedup_hits = 0           #: admissions that shared >= 1 page
+        self.dedup_pages_shared = 0   #: prompt pages satisfied by sharing
+        self.dedup_bytes_saved = 0    #: KV bytes those pages never took
+        #: adaptive ring controller (fused staging only)
+        self.adaptive_ring = bool(adaptive_ring) and fused_staging
+        self._ring_window: List[int] = []   #: admitted pages, last rounds
+        self._round_admitted_pages = 0
+        self.ring_shrinks = 0         #: times the controller clamped it
+        self.ring_regrows = 0         #: times demand reopened it
+        if self.spill_pages:
+            self.engine.enable_demotion(range(self.spill_pages))
 
     # ------------------------------------------------------------------
-    def add_request(self, prompt: np.ndarray) -> int:
+    def add_request(self, prompt: np.ndarray, stream=None) -> int:
         """Prefill ``prompt`` (S,) int32 into the staging ring and enqueue
-        its promotion on the serve stream.  Returns the sequence id."""
+        its promotion on the serve stream (or on ``stream``), or write it
+        straight into the K/V pools (``fused_staging=False``).  Returns
+        the sequence id."""
+        stream = self.stream if stream is None else stream
         S = int(prompt.shape[0])
-        with self.stream.capture():
+        if self.fused_staging:
+            with stream.capture():
+                sid = self.cache.new_sequence(prompt_len=S)
+        else:
             sid = self.cache.new_sequence(prompt_len=S)
         blocks = self.cache.blocks_of(sid)
+        tokens = torch.as_tensor(np.asarray(prompt, np.int64),
+                                 device=self.device)[None]
         eng = self.engine
+        if not self.fused_staging:
+            try:
+                logits, k, v = self.model.prefill(tokens)
+            except Exception:
+                self.cache.free_sequence(sid)
+                raise
+            eng.alloc.mark_written(blocks)
+            for name, kv in (("k", k), ("v", v)):
+                _stage_legacy(eng.pools[name], kv, blocks, self.rc.page_size)
+                notify_launch(len(blocks), 1, "legacy_stage")
+            eng.mark_pools_written(("k", "v"))
+            return self._admitted(sid, prompt, logits)
+        if self.adaptive_ring and eng.stage_limit is not None \
+                and eng.stage_slots_free < len(blocks):
+            # regrow on demand BEFORE reserving: the clamp never fails or
+            # early-flushes an admission the full ring could hold
+            eng.set_stage_limit(None)
+            self.ring_regrows += 1
+            self._ring_window = []
+            obs_metrics.inc("serve.ring_regrows")
         stage_ids = eng.stage_blocks(len(blocks))
         try:
-            tokens = torch.as_tensor(np.asarray(prompt, np.int64),
-                                     device=self.device)[None]
             logits, k, v = self.model.prefill(tokens)
             ids = torch.as_tensor(stage_ids, device=self.device)
             for name, kv in (("k_stage", k), ("v_stage", v)):
@@ -128,17 +290,67 @@ class ServingEngine:
             eng.release_stage_blocks(stage_ids)
             self.cache.free_sequence(sid)
             raise
+        self._round_admitted_pages += len(stage_ids)
         pairs = list(zip(stage_ids, blocks))
+        if self.dedup_admit:
+            pairs = self._dedup_pages(sid, prompt, stage_ids, blocks)
         if pairs:
-            self.stream.promote_staged(pairs)
+            stream.promote_staged(pairs)
+        self._staged_sids.append(sid)
         self._pending_promotions[sid] = pairs
+        return self._admitted(sid, prompt, logits)
+
+    def _admitted(self, sid: int, prompt: np.ndarray,
+                  logits: torch.Tensor) -> int:
         self.last_logits[sid] = logits[0].cpu().numpy()
         self.tokens[sid] = [int(t) for t in prompt]
         return sid
 
+    def _dedup_pages(self, sid: int, prompt: np.ndarray,
+                     stage_ids: List[int],
+                     blocks: List[int]) -> List[Tuple[int, int]]:
+        """Collapse this admission's prompt pages onto registered donor
+        blocks where the chained fingerprints and tokens match.  Returns
+        the surviving (stage slot, block) promotions; matched pages share
+        the donor by refcount and their slots return to the ring, and
+        unmatched pages register as donors (the registry holds its own
+        refcount on each)."""
+        page = self.cache.page
+        new_blocks = list(blocks)
+        keep: List[Tuple[int, int]] = []
+        released: List[int] = []
+        registered: List[int] = []
+        chain = 0
+        for j, b in enumerate(blocks):
+            toks = tuple(int(t) for t in prompt[j * page:(j + 1) * page])
+            chain = page_fingerprint(chain, toks)
+            hit = self._dedup_registry.get(chain)
+            if hit is not None and hit[1] == toks:
+                self.engine.alloc.share([hit[0]])
+                new_blocks[j] = hit[0]
+                released.append(stage_ids[j])
+                self.dedup_pages_shared += 1
+                self.dedup_bytes_saved += self.engine._block_bytes()
+            else:
+                keep.append((stage_ids[j], b))
+                if hit is None:
+                    self.engine.alloc.share([b])
+                    self._dedup_registry[chain] = (b, toks)
+                    registered.append(chain)
+        if registered:
+            self._dedup_keys[sid] = registered
+        if released:
+            self.dedup_hits += 1
+            self.engine.release_stage_blocks(released)
+            self.cache.remap_blocks(sid, new_blocks)
+        return keep
+
     def fork(self, sid: int, n: int) -> List[int]:
         """CoW-fork ``sid`` into ``n`` children (zero bytes move)."""
-        with self.stream.capture():
+        if self.fused_staging:
+            with self.stream.capture():
+                kids = self.cache.fork(sid, n)
+        else:
             kids = self.cache.fork(sid, n)
         for c in kids:
             self.last_logits[c] = self.last_logits[sid].copy()
@@ -146,16 +358,72 @@ class ServingEngine:
         return kids
 
     def free(self, sid: int) -> None:
-        """Release a sequence: its still-queued promotions are RETIRED (a
-        stale promotion would otherwise land in re-issued blocks), then its
-        blocks, slot and host state."""
+        """Release a sequence: a demoted one releases its spill slots; a
+        live one drops its dedup registry entries, RETIRES its still-queued
+        promotions (a stale promotion would land in re-issued blocks) but
+        keeps those into blocks a live dedup sharer still holds, then
+        releases its blocks, slot and host state."""
+        parked = self.demoted.pop(sid, None)
+        if parked is not None:
+            self.engine.release_spill_slots(parked.slots)
+            return
+        for key in self._dedup_keys.pop(sid, []):
+            blk, _ = self._dedup_registry.pop(key)
+            self.engine.alloc.free([blk])
         pending = self._pending_promotions.pop(sid, None)
+        if pending and self.dedup_admit:
+            pending = [(s, d) for s, d in pending
+                       if not self.engine.alloc.is_shared(d)]
         if pending:
             self.engine.retire_promotions(pending)
+        if sid in self._staged_sids:
+            self._staged_sids.remove(sid)
         self.cache.free_sequence(sid)
         self.last_logits.pop(sid, None)
         self.tokens.pop(sid, None)
 
+    # ------------------------------------------------------------------
+    def demote(self, sid: int, stream=None) -> None:
+        """Preempt ``sid``: enqueue the copy of its blocks into spill slots
+        and release its batch slot.  The blocks stay allocated until the
+        round's flush has drained their reads.  A sequence admitted this
+        round (promotion still queued) is refused."""
+        if sid in self._staged_sids:
+            raise RuntimeError(
+                f"cannot demote seq {sid}: its admission promotion has "
+                "not drained yet (preempt it next round)")
+        stream = self.stream if stream is None else stream
+        seq = self.cache.seqs[sid]
+        blocks = list(seq.blocks)
+        # the decode step writes the pools out of band of the allocator's
+        # ZI metadata: mark the blocks written so the copy moves the bytes
+        self.engine.alloc.mark_written(blocks)
+        slots = stream.demote_to_spill(blocks)
+        self.demoted[sid] = DemotedSeq(
+            length=seq.length, slots=list(slots), slab_home=seq.slab_home,
+            logits=self.last_logits.pop(sid),
+            tokens=self.tokens.pop(sid, []))
+        # hold the blocks past free_sequence until the flush
+        self.engine.alloc.share(blocks)
+        self.cache.free_sequence(sid)
+        self._free_after_flush.extend(blocks)
+
+    def resume(self, sid: int, stream=None) -> int:
+        """Un-park a demoted sequence into fresh blocks (same slab
+        preference) through a spill→KV promotion; returns its NEW sid."""
+        d = self.demoted.pop(sid)
+        stream = self.stream if stream is None else stream
+        with stream.capture():
+            new_sid = self.cache.new_sequence(prompt_len=d.length,
+                                              prefer_slab=d.slab_home)
+        blocks = self.cache.blocks_of(new_sid)
+        assert len(blocks) == len(d.slots), (len(blocks), len(d.slots))
+        stream.promote_spilled(list(zip(d.slots, blocks)))
+        self.last_logits[new_sid] = d.logits
+        self.tokens[new_sid] = d.tokens
+        return new_sid
+
+    # ------------------------------------------------------------------
     def kv_bytes_live(self) -> int:
         """Primary-pool KV bytes backed by allocated blocks."""
         alloc = self.engine.alloc
@@ -163,26 +431,64 @@ class ServingEngine:
             self.engine._block_bytes()
 
     def pool_bytes_resident(self) -> int:
-        """Bytes of every pool (K/V + staging ring)."""
+        """Bytes of every pool (K/V, staging ring, spill pools)."""
         return self.engine.pool_bytes_resident()
 
-    # ------------------------------------------------------------------
+    def _post_flush(self) -> None:
+        """Round-boundary bookkeeping after the serve stream's flush:
+        nothing is in flight any more, demoted blocks go back to the
+        allocator, and the adaptive ring takes its sample."""
+        self._staged_sids = []
+        self._pending_promotions.clear()
+        if self._free_after_flush:
+            self.engine.alloc.free(self._free_after_flush)
+            self._free_after_flush = []
+        eng = self.engine
+        if not eng.staging:
+            return
+        effective = eng.stage_limit if eng.stage_limit is not None \
+            else eng.stage_capacity
+        in_use = eng.stage_capacity - eng.stage_slots_free \
+            - len(eng._stage_parked)
+        obs_metrics.set_gauge("serve.ring_occupancy", in_use)
+        obs_metrics.set_gauge("serve.ring_limit", effective)
+        if not self.adaptive_ring:
+            return
+        self._ring_window.append(self._round_admitted_pages)
+        self._round_admitted_pages = 0
+        if len(self._ring_window) < self.RING_WINDOW:
+            return
+        peak = max(self._ring_window)
+        self._ring_window = []
+        # a whole window at <= half the usable ring: clamp to 2x its peak
+        if effective > 1 and peak <= effective // 2:
+            new_limit = max(2 * peak, 1)
+            if new_limit < effective:
+                eng.set_stage_limit(new_limit)
+                self.ring_shrinks += 1
+                obs_metrics.inc("serve.ring_shrinks")
+
     def decode_round(self, sample_fn=None) -> Dict[int, int]:
         """One token for every live sequence: greedy, or
         ``sample_fn(logits)`` of each sequence's last logits (a numpy
-        vector) when given."""
+        vector) when given.  With no live sequence the round still drains
+        the stream (demotions must land)."""
         live = sorted(self.cache.seqs)
         if not live:
             if len(self.stream):
                 self.last_ticket = self.stream.flush()
+                self._post_flush()
             return {}
         next_tok = {sid: int(np.argmax(self.last_logits[sid]))
                     if sample_fn is None else sample_fn(self.last_logits[sid])
                     for sid in live}
-        with self.stream.capture():
-            self.cache.append_tokens(live)
+        if self.fused_staging:
+            with self.stream.capture():
+                self.cache.append_tokens(live)
+        else:
+            self.cache.append_tokens(live)      # legacy leg: eager
         self.last_ticket = self.stream.flush()
-        self._pending_promotions.clear()
+        self._post_flush()
         table, mask, base = self.cache.device_tables()
         B = self.cache.max_seqs
         toks = np.zeros((B,), np.int64)
@@ -205,6 +511,16 @@ class ServingEngine:
         return next_tok
 
 
+def _stage_legacy(pool: torch.Tensor, kv: torch.Tensor, blocks: List[int],
+                  page: int) -> None:
+    """The seed's staging leg (``fused_staging=False``): write the
+    prefill's pages ``(L, 1, S, KVH, D)`` straight into the K/V pool's
+    ``blocks``, in place, outside the command queue (an ``index_copy_``;
+    the reference's is a jnp scatter, not a Pallas kernel)."""
+    ids = torch.as_tensor(blocks, dtype=torch.int64, device=pool.device)
+    pool.index_copy_(1, ids, kv_to_pools(kv, page, pool.dtype, len(blocks)))
+
+
 def main() -> None:
     """CLI: admit random prompts, optionally fork, greedy-decode, print the
     RowClone mechanism stats."""
@@ -222,6 +538,10 @@ def main() -> None:
     ap.add_argument("--staging-ring", type=int, default=-1,
                     help="staging slots (max_admit_pages); 0 = full twin, "
                          "-1 = derive from the admission policy")
+    ap.add_argument("--double-buffer", action="store_true",
+                    help="double-buffered staging ring: admission bursts "
+                         "past the ring capacity park in the second half "
+                         "at one launch per round")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -233,6 +553,7 @@ def main() -> None:
     eng = ServingEngine(cfg, params, max_seqs=max(args.requests * 4, 8),
                         max_admit_pages=(None if args.staging_ring < 0
                                          else args.staging_ring),
+                        double_buffer=args.double_buffer,
                         device=args.device)
     print(f"[serve] resident pool bytes: "
           f"{eng.pool_bytes_resident() / 1e6:.1f} MB (staging slots: "
@@ -248,12 +569,12 @@ def main() -> None:
         kids = eng.fork(sids[0], args.fork)
         print(f"[serve] forked seq {sids[0]} -> {kids} (CoW shares: "
               f"{eng.engine.alloc.stats.cow_shares})")
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        eng.decode_round()
-    if eng.device.type == "cuda":
-        torch.cuda.synchronize(eng.device)
-    dt = time.perf_counter() - t0
+    with obs_metrics.Stopwatch() as sw:
+        for _ in range(args.steps):
+            eng.decode_round()
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+    dt = sw.s
     n_live = len(eng.cache.seqs)
     print(f"[serve] {args.steps} rounds x {n_live} seqs in {dt:.2f}s on "
           f"{eng.device} ({args.steps * n_live / dt:.1f} tok/s)")

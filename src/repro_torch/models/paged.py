@@ -2,7 +2,7 @@
 device): the serving pools and the per-layer append-then-attend step."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -13,26 +13,38 @@ from repro_torch.kernels import ops as kops
 
 def make_serving_pools(num_layers: int, nblk: int, page: int, kv_heads: int,
                        head_dim: int, dtype: torch.dtype, device, *,
-                       stage_nblk: int
+                       staging: bool = True,
+                       stage_nblk: Optional[int] = None, ckpt_nblk: int = 0
                        ) -> Tuple[Dict[str, torch.Tensor], PoolGroup]:
-    """Layer-stacked ``(L, nblk, page, KVH, D)`` K/V pools (block axis 1)
-    plus their staging pools of ``stage_nblk`` slots, where prefill pages
-    park until ``OP_CROSS_POOL_COPY`` promotes them.  Returns the pools and
-    the :class:`PoolGroup` of the engine's address space."""
+    """Layer-stacked ``(L, nblk, page, KVH, D)`` K/V pools (block axis 1),
+    plus (``staging=True``) their staging pools of ``stage_nblk`` slots
+    (``None``: a full-size twin), where prefill pages park until
+    ``OP_CROSS_POOL_COPY`` promotes them, plus (``ckpt_nblk > 0``)
+    ``k_spill`` / ``v_spill`` pools of that many slots (``role="spill"``),
+    where demoted blocks park.  Returns the pools and the
+    :class:`PoolGroup` of the engine's address space (the reference's
+    mesh placement hints are not ported: one device)."""
     block_shape = (num_layers, page, kv_heads, head_dim)
 
     def zeros(n):
         return torch.zeros((num_layers, n, page, kv_heads, head_dim),
                            dtype=dtype, device=device)
 
-    pools = {"k": zeros(nblk), "v": zeros(nblk),
-             "k_stage": zeros(stage_nblk), "v_stage": zeros(stage_nblk)}
+    pools = {"k": zeros(nblk), "v": zeros(nblk)}
     specs = [PoolSpec("k", nblk, block_shape, dtype),
-             PoolSpec("v", nblk, block_shape, dtype),
-             PoolSpec("k_stage", stage_nblk, block_shape, dtype,
-                      role="staging", paired="k"),
-             PoolSpec("v_stage", stage_nblk, block_shape, dtype,
-                      role="staging", paired="v")]
+             PoolSpec("v", nblk, block_shape, dtype)]
+    extra = []
+    if staging:
+        extra.append(("stage", "staging",
+                      nblk if stage_nblk is None else stage_nblk))
+    if ckpt_nblk > 0:
+        extra.append(("spill", "spill", ckpt_nblk))
+    for suffix, role, n in extra:
+        for twin in ("k", "v"):
+            name = f"{twin}_{suffix}"
+            pools[name] = zeros(n)
+            specs.append(PoolSpec(name, n, block_shape, dtype, role=role,
+                                  paired=twin))
     return pools, PoolGroup(specs)
 
 

@@ -483,3 +483,52 @@ def test_cuda_copy_kernels_match_plain_on_card(card):
                 got = fn(pool.clone(), True)
                 torch.cuda.synchronize()
                 np.testing.assert_array_equal(bits(got), bits(want))
+
+
+# ---------------------------------------------------------------------------
+# demote / resume through K1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_demote_resume_roundtrip_through_k1(card):
+    """The serving engine's preemption pair on the card, on its six-pool
+    group (K/V, staging ring, spill pools; bf16 pages of 64 x 8 x 128):
+    ``demote_to_spill`` parks three blocks in one K1 launch and the spill
+    slots equal the blocks bitwise; ``promote_spilled`` lands them in
+    fresh blocks in one K1 launch, bitwise; the slots return to the free
+    list."""
+    from repro_torch.core.allocator import SubarrayAllocator
+    from repro_torch.core.rowclone import RowCloneEngine
+    from repro_torch.models.paged import make_serving_pools
+    L, nblk = 2, 32
+    pools, group = make_serving_pools(L, nblk, 64, 8, 128, torch.bfloat16,
+                                      "cuda", stage_nblk=8, ckpt_nblk=8)
+    alloc = SubarrayAllocator(nblk, 4, reserved_zero_per_slab=1)
+    eng = RowCloneEngine(pools, alloc, block_axis=1, group=group)
+    eng.enable_demotion(range(8))
+    blocks = alloc.alloc(3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n in ("k", "v"):
+        eng.pools[n][:, blocks] = torch.randn(
+            (L, 3, 64, 8, 128), generator=gen, device="cuda").to(
+                torch.bfloat16)
+    alloc.mark_written(blocks)
+    want = {n: eng.pools[n][:, blocks].clone() for n in ("k", "v")}
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+    n0 = k1.n
+    slots = eng.demote_to_spill(blocks)
+    torch.cuda.synchronize()
+    assert k1.n == n0 + 1 and eng.stats.demotions == 3
+    for n in ("k", "v"):
+        np.testing.assert_array_equal(
+            bits(eng.pools[n + "_spill"][:, slots]), bits(want[n]))
+    alloc.free(blocks)
+    fresh = alloc.alloc(3, prefer_slab=1)
+    assert fresh != blocks
+    eng.promote_spilled(list(zip(slots, fresh)))
+    torch.cuda.synchronize()
+    assert k1.n == n0 + 2 and eng.stats.spill_promotions == 3
+    for n in ("k", "v"):
+        np.testing.assert_array_equal(bits(eng.pools[n][:, fresh]),
+                                      bits(want[n]))
+    assert eng.spill_slots_free == eng.spill_capacity == 8
