@@ -34,12 +34,15 @@ before each; ``device_ms``: the profiler's device time of the call):
   (busy, and K2's, K3's, K4's and the copy kernels' share).
 
 The row ``bits`` (not in the default list) times nothing: it runs K3 and
-K2 at head dims 80 and 128 (zamba2-2.7b's 32 / 32 heads, llama3.2-3b's 24
-/ 8, yi-6b's 32 / 4 and deepseek-moe-16b's 16 / 16; K3 causal with
-prefixes 0 and 100 at ragged S, K2 on a ragged slab with a shared block)
-on inputs drawn from a fixed seed, and prints the SHA-256 of each
-output's bytes, so that two checkouts' lines show whether a kernel change
-left those head dims' results bit for bit as they were.
+K2 at head dims 80, 128, 256 and 64 (zamba2-2.7b's 32 / 32 heads,
+llama3.2-3b's 24 / 8, yi-6b's 32 / 4, deepseek-moe-16b's 16 / 16,
+paligemma-3b's 8 / 1 and seamless-m4t-medium's 16 / 16; K3 causal with
+prefixes 0, 100 and 256 at ragged S, and at D = 64 also non-causal with
+Sq != Skv; K2 on a ragged slab with a shared block) on inputs drawn from
+a fixed seed, and prints the SHA-256 of each output's bytes, so that two
+checkouts' lines show whether a kernel change left those head dims'
+results bit for bit as they were.  A case the checkout's wrapper refuses
+prints ``refused``.
 
 Run it on the two checkouts in turns (parent, change, change, parent)
 on one machine in one go: two separate runs may land on two cards.
@@ -69,9 +72,27 @@ def _args():
     return ap.parse_args()
 
 
+#: the ``bits`` row's cases: (D, H, KVH, K3 cases (B, Sq, Skv, causal,
+#: prefix_len)); the head dims in the order they came, so that a case's
+#: inputs stay the same draws when a head dim is added after it
+BITS_CASES = (
+    (80, 32, 32, ((4, 384, 384, True, 0), (1, 250, 250, True, 100),
+                  (1, 65, 65, True, 0))),
+    (128, 24, 8, ((1, 512, 512, True, 0), (1, 250, 250, True, 0),
+                  (2, 300, 300, True, 100))),
+    (128, 32, 4, ((1, 512, 512, True, 0),)),
+    (128, 16, 16, ((1, 250, 250, True, 0),)),
+    (256, 8, 1, ((4, 384, 384, True, 256), (1, 313, 313, True, 0))),
+    (64, 16, 16, ((4, 512, 512, True, 0), (1, 57, 57, True, 0),
+                  (1, 14, 14, False, 0), (4, 512, 128, False, 0),
+                  (1, 57, 14, False, 0), (4, 1, 128, False, 0))))
+
+
 def bits(torch, ops, scrub) -> dict:
-    """SHA-256 (first 16 hex digits) of K3's and K2's outputs at head dims
-    80 and 128 on seeded inputs, by case."""
+    """SHA-256 (first 16 hex digits) of K3's and K2's outputs on seeded
+    inputs, by case of :data:`BITS_CASES`; ``refused`` where the
+    checkout's wrapper raises ``ValueError`` (a head dim or shape it does
+    not take)."""
     import hashlib
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {}
@@ -83,18 +104,22 @@ def bits(torch, ops, scrub) -> dict:
         raw = t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
         return hashlib.sha256(raw).hexdigest()[:16]
 
-    for D, H, KVH, cases in ((80, 32, 32, ((4, 384, 0), (1, 250, 100),
-                                           (1, 65, 0))),
-                             (128, 24, 8, ((1, 512, 0), (1, 250, 0),
-                                           (2, 300, 100))),
-                             (128, 32, 4, ((1, 512, 0),)),
-                             (128, 16, 16, ((1, 250, 0),))):
-        for B, S, prefix in cases:
-            q, k, v = (rnd(B, S, n, D).transpose(1, 2)
-                       for n in (H, KVH, KVH))
-            out[f"k3 D={D} H={H} KVH={KVH} B={B} S={S} prefix={prefix}"] = \
-                digest(ops.flash_attention(q, k, v, prefix_len=prefix,
-                                           use_kernel=True))
+    def held(key, call):
+        try:
+            out[key] = digest(call())
+        except ValueError:
+            out[key] = "refused"
+
+    for D, H, KVH, cases in BITS_CASES:
+        for B, Sq, Skv, causal, prefix in cases:
+            q = rnd(B, Sq, H, D).transpose(1, 2)
+            k, v = (rnd(B, Skv, KVH, D).transpose(1, 2) for _ in range(2))
+            shape = f"S={Sq}" if Sq == Skv else f"Sq={Sq} Skv={Skv}"
+            kind = f"prefix={prefix}" if causal else "non-causal"
+            held(f"k3 D={D} H={H} KVH={KVH} B={B} {shape} {kind}",
+                 lambda: ops.flash_attention(q, k, v, causal=causal,
+                                             prefix_len=prefix,
+                                             use_kernel=True))
         nblk, page, lens = 64, 64, (700, 64, 1, 130, 0, 333)
         mask = np.zeros((nblk, len(lens)), np.int8)
         base = np.zeros(nblk, np.int32)
@@ -106,14 +131,17 @@ def bits(torch, ops, scrub) -> dict:
                 first = blk if first is None else first
                 mask[blk, b], base[blk] = 1, j * page
         mask[first, 1] = 1                 # a block shared by two readers
-        acc, l, m = ops.paged_attention_slab(
-            rnd(len(lens), H, D), rnd(nblk, page, KVH, D),
-            rnd(nblk, page, KVH, D), torch.from_numpy(mask).cuda(),
-            torch.from_numpy(base).cuda(),
-            torch.tensor(lens, dtype=torch.int32, device="cuda"),
-            page=page, use_kernel=True)
-        for name, t in (("acc", acc), ("l", l), ("m", m)):
-            out[f"k2 D={D} H={H} KVH={KVH} {name}"] = digest(t)
+        args = (rnd(len(lens), H, D), rnd(nblk, page, KVH, D),
+                rnd(nblk, page, KVH, D), torch.from_numpy(mask).cuda(),
+                torch.from_numpy(base).cuda(),
+                torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        try:
+            got = ops.paged_attention_slab(*args, page=page, use_kernel=True)
+        except ValueError:
+            got = (None,) * 3
+        for name, t in zip(("acc", "l", "m"), got):
+            out[f"k2 D={D} H={H} KVH={KVH} {name}"] = \
+                "refused" if t is None else digest(t)
     return out
 
 

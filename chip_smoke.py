@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 9,16]
+
+``--phases`` runs only the listed phases and those they need (phase 1
+always runs); with no argument every phase runs.
 
 Phases (each raises on failure; the script then exits non-zero):
 
@@ -99,6 +102,11 @@ Phases (each raises on failure; the script then exits non-zero):
    without, at B = 1 and 4, the first five timed; ``K3_EDGES_256``: S = 1
    and 65) at paligemma-3b's head dim 256 with 8 heads over 1 KV head;
    SDPA beside K3 as a yardstick (with the prefix as a boolean mask).
+   Then K2 (B = 4 and 8, the three slabs) and K3 (``K3_CASES_64``: causal
+   S = 512 and a ragged 57, non-causal Sq = Skv = 128 and 14, non-causal
+   Sq = 512 over Skv = 128 and 57 over 14, one query over 128, and the
+   edges Skv = 1 and 65 over 200) at seamless-m4t-medium's head dim 64
+   with 16 heads over 16 KV heads.
 10. mamba2-780m at full width (48 layers, bf16, random weights from seed
     0) through ``LanguageModel.prefill_state`` / ``decode_state``: prefill
     4 prompts of 384 tokens (2 chunks) and one of 250 (one ragged chunk),
@@ -166,6 +174,27 @@ Phases (each raises on failure; the script then exits non-zero):
     own; (d) ``fused_staging=False``: tokens and K/V pools bitwise equal
     to the fused leg's, ``legacy_stage`` events and no K1 launch,
     admission card ms of both legs.  K1 <= 1 launch a round throughout.
+
+16. seamless-m4t-medium (encdec) at full width and depth (12 encoder and
+    12 decoder layers, d_model 1024, 16 heads over 16 KV heads x 64, the
+    256,256-wide untied head; random bf16 weights from seed 0, source
+    frames N(0, 1) x 0.02 from the seed) through
+    ``LanguageModel.prefill_state`` / ``decode_state`` (``phase_encdec``):
+    prefill 4 x 512 tokens over 128 frames and 1 x 57 over 14, then 16
+    greedy decode steps on the 4.  Checks K3 == 36 launches per prefill
+    (12 encoder, 12 causal, 12 cross), K2 == 12 and K3 == 12 per step,
+    the allocated parameters against ``param_count()``, finite logits, the
+    prefill and first-step logits against the plain versions, and every
+    K2 / K3 call of the two prefills and the first step against its plain
+    version (``tapped``); prints prefill ms, ms per step, tokens/s, the
+    state bytes and the profiles of a step and a prefill.  Then
+    (``phase_admission``) ``ServingEngine`` admits two seamless prompts
+    (250 and 512 tokens, over zero source frames) and, after seamless is
+    freed, two zamba2-2.7b prompts at full width: the promoted blocks
+    bitwise equal to the facade's prefill of the same prompt, ``_extras``
+    bitwise equal to its state, one K1 launch in the round, no K1 at
+    admission, ``decode_round`` refused, and after ``free`` the allocator
+    and ``_extras`` back where they started.
 
 The last three lines are the ``kernels`` JSON (seven kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -867,27 +896,55 @@ K3_CASES_256 = ((4, 384, 256),) + tuple(
 K3_EDGES_256 = tuple((B, S, True, 0) for S in (1, 65) for B in (1, 4))
 
 
-def _k3_inputs(gen, B, S, H, KVH, D):
+#: phase 9's K3 cases at seamless-m4t-medium's head dim 64 (16 heads over
+#: 16 KV heads), (B, Sq, Skv, causal): phase 16's decoder self-attention
+#: (causal, its batch prefill and its ragged prompt), encoder (non-causal,
+#: Sq = Skv = 128 and 14) and cross-attention (512 text rows over 128
+#: frames, 57 over 14, and one query over 128: the decode step's), then
+#: the edges, one frame and 65 rows over 200; the first seven timed
+K3_CASES_64 = ((4, 512, 512, True), (1, 57, 57, True),
+               (4, 128, 128, False), (1, 14, 14, False),
+               (4, 512, 128, False), (1, 57, 14, False),
+               (4, 1, 128, False), (1, 65, 1, False), (1, 65, 200, False))
+
+
+def _k3_inputs(gen, B, S, H, KVH, D, Skv=None):
     """q / k / v as the model hands them to K3: (B, S, heads, D)
-    activations seen through (B, heads, S, D) views."""
-    return [torch.randn((B, S, n, D), generator=gen, device="cuda")
-            .bfloat16().transpose(1, 2) for n in (H, KVH, KVH)]
+    activations seen through (B, heads, S, D) views; k / v of ``Skv``
+    positions (default S)."""
+    Skv = S if Skv is None else Skv
+    return [torch.randn((B, n_s, n, D), generator=gen, device="cuda")
+            .bfloat16().transpose(1, 2)
+            for n, n_s in ((H, S), (KVH, Skv), (KVH, Skv))]
 
 
-def _k3_pairs(S: int, prefix: int) -> int:
-    """(query, key) pairs a causal prefill with a prefix-LM prefix of
-    ``prefix`` visits: row r sees max(r + 1, prefix) keys (at most S)."""
-    return int(np.minimum(np.maximum(np.arange(1, S + 1), prefix), S).sum())
+def _k3_pairs(Sq: int, Skv: int, causal: bool, prefix: int) -> int:
+    """(query, key) pairs K3 visits: all Sq x Skv without the causal mask;
+    with it, row r sees max(r + 1, prefix) keys (at most Skv)."""
+    if not causal:
+        return Sq * Skv
+    return int(np.minimum(np.maximum(np.arange(1, Sq + 1), prefix),
+                          Skv).sum())
+
+
+def _k3_case(case) -> tuple:
+    """(B, Sq, Skv, causal, prefix_len) of a ``phase_k3`` case: causal (B,
+    S) or (B, S, prefix_len) over its own S, or (B, Sq, Skv, causal)."""
+    if len(case) == 4:
+        return tuple(case) + (0,)
+    B, S, prefix = (tuple(case) + (0,))[:3]
+    return B, S, S, True, prefix
 
 
 def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250)),
              edges=K3_EDGES, timed=None):
-    """K3 against its plain version for each causal (B, S) or (B, S,
-    prefix_len) of ``cases`` and for the (B, S, causal, prefix_len) of
-    ``edges``; the defaults are llama3.2-3b's heads at S=512 and a ragged
-    S=250 and :data:`K3_EDGES`, phase 9 passes the other configs' heads and
-    prefill shapes.  The first ``timed`` cases (all by default) are timed;
-    the JSON row takes the first case's times."""
+    """K3 against its plain version for each case of ``cases`` (causal (B,
+    S) or (B, S, prefix_len), or (B, Sq, Skv, causal)) and for the (B, S,
+    causal, prefix_len) of ``edges``; the defaults are llama3.2-3b's heads
+    at S=512 and a ragged S=250 and :data:`K3_EDGES`, phase 9 passes the
+    other configs' heads and prefill shapes.  The first ``timed`` cases
+    (all by default) are timed; the JSON row takes the first case's
+    times."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -904,35 +961,38 @@ def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250)),
             raise AssertionError(f"K3 vs plain at B={B} S={S} causal="
                                  f"{causal} prefix_len={prefix}: max err "
                                  f"{errs[-1]}")
-    log(f"[K3] H={H} KVH={KVH} D={D} edge cases (B, S, causal, prefix_len) "
-        f"{edges}: max err {', '.join(f'{e:.2e}' for e in errs)} "
-        f"(atol {K3_ATOL})")
+    if edges:
+        log(f"[K3] H={H} KVH={KVH} D={D} edge cases (B, S, causal, "
+            f"prefix_len) {edges}: max err "
+            f"{', '.join(f'{e:.2e}' for e in errs)} (atol {K3_ATOL})")
     rows = {}
     for case in cases:
-        B, S, prefix = (tuple(case) + (0,))[:3]
-        q, k, v = _k3_inputs(gen, B, S, H, KVH, D)
+        B, S, Skv, causal, prefix = _k3_case(case)
+        q, k, v = _k3_inputs(gen, B, S, H, KVH, D, Skv)
+        what = f"S={S}" if Skv == S else f"Sq={S} Skv={Skv}"
+        what += f" prefix_len={prefix}" if causal else " non-causal"
 
         def kern():
-            return ops.flash_attention(q, k, v, causal=True,
+            return ops.flash_attention(q, k, v, causal=causal,
                                        prefix_len=prefix, use_kernel=True)
 
         out = kern()
-        want = ops.flash_attention(q, k, v, causal=True, prefix_len=prefix,
+        want = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix,
                                    use_kernel=False)
         torch.cuda.synchronize()
         err = float((out.float() - want.float()).abs().max())
         if not err <= K3_ATOL:
-            raise AssertionError(f"K3 vs plain at B={B} S={S} prefix_len="
-                                 f"{prefix}: max err {err}")
+            raise AssertionError(f"K3 vs plain at B={B} {what}: max err "
+                                 f"{err}")
         if timed is not None and len(rows) >= timed:
             rows[case] = dict(err=err)
-            log(f"[K3] B={B} H={H} KVH={KVH} D={D} S={S} prefix_len="
-                f"{prefix}: max err {err:.2e} (atol {K3_ATOL}); not timed")
+            log(f"[K3] B={B} H={H} KVH={KVH} D={D} {what}: max err "
+                f"{err:.2e} (atol {K3_ATOL}); not timed")
             continue
         ms = time_ms(kern, scrub=scrub)
         dev = device_ms(kern, key="flash_kernel")
         plain_ms = time_ms(lambda: ops.flash_attention(
-            q, k, v, causal=True, prefix_len=prefix, use_kernel=False),
+            q, k, v, causal=causal, prefix_len=prefix, use_kernel=False),
             reps=5, scrub=scrub)
         if prefix:
             rows_i = torch.arange(S, device="cuda")
@@ -942,16 +1002,16 @@ def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250)),
                 q, k, v, attn_mask=mask, enable_gqa=True), scrub=scrub)
         else:
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), scrub=scrub)
-        flops = 4.0 * B * H * D * _k3_pairs(S, prefix)
+                q, k, v, is_causal=causal, enable_gqa=True), scrub=scrub)
+        flops = 4.0 * B * H * D * _k3_pairs(S, Skv, causal, prefix)
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         b_ops = flops / BF16_FLOPS * 1e3
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[K3] B={B} H={H} KVH={KVH} D={D} S={S} prefix_len={prefix}: "
-            f"max err {err:.2e} (atol {K3_ATOL}); kernel {ms:.4f} ms (device "
-            f"only {_fmt_ms(dev)}), plain {plain_ms:.4f} ms, SDPA "
-            f"{lib_ms:.4f} ms, bound {max(b_ops, b_bytes):.5f} ms "
-            f"({flops:.3e} flop, {nbytes} bytes)")
+        log(f"[K3] B={B} H={H} KVH={KVH} D={D} {what}: max err {err:.2e} "
+            f"(atol {K3_ATOL}); kernel {ms:.4f} ms (device only "
+            f"{_fmt_ms(dev)}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+            f"bound {max(b_ops, b_bytes):.5f} ms ({flops:.3e} flop, {nbytes} "
+            "bytes)")
         rows[case] = dict(err=err, ms=ms, dev=dev, plain_ms=plain_ms,
                           lib_ms=lib_ms, bound=max(b_ops, b_bytes),
                           by="operations" if b_ops >= b_bytes else "bytes")
@@ -2866,71 +2926,415 @@ def phase_vlm(arch: str = "paligemma-3b") -> dict:
     return launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 16: the encdec family through the facade pair, and the engine's
+# admission of the encdec and hybrid families
+# ---------------------------------------------------------------------------
+
+#: phase 16: a batch of 4 prompts of 512 tokens over 128 source frames, one
+#: of 57 tokens over 14 frames (ragged tiles in every kind of attention),
+#: and greedy decode steps on the batch
+ENC_BATCH, ENC_TEXT, ENC_RAGGED, ENC_STEPS = 4, 512, 57, 16
+#: phase 16b: the prompts admitted into the serving engine, per family
+ADMIT_LENS = (250, 512)
+
+
+def phase_encdec(arch: str = "seamless-m4t-medium"):
+    """Phase 16: ``arch`` at full width and depth with random bf16 weights
+    from seed 0 and source frames drawn from the seed with numpy (N(0, 1)
+    x 0.02, ``S // src_frames_ratio`` of them), through
+    ``LanguageModel.prefill_state`` / ``decode_state``: prefill the batch
+    and the ragged prompt, then :data:`ENC_STEPS` greedy decode steps on
+    the batch.  Checks K3 == encoder + 2 x decoder layers per prefill (the
+    encoder's, the decoder's causal and its cross-attention calls), K2 ==
+    K3 == decoder layers per step (self-attention over the pools, one
+    query over the frames), the allocated parameters against
+    ``param_count()``, finite logits, the prefill and first-step logits
+    against the plain versions, and every K2 / K3 call of the two prefills
+    and the first step against its plain version on the same inputs.
+    Returns the launch counts of the counted run and the model."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.weights import init_params
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[{arch}] {cfg.family}, full depth: {cfg.encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, untied head {cfg.padded_vocab} "
+        f"wide; param_count() {cfg.param_count():,}, allocated "
+        f"{n_params:,} params ({n_bytes / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+
+    def prompt(B, S):
+        tokens = rng.integers(2, cfg.vocab_size, (B, S))
+        frames = rng.standard_normal(
+            (B, max(S // cfg.src_frames_ratio, 1), cfg.d_model)) * 0.02
+        return (torch.from_numpy(tokens).cuda(),
+                torch.from_numpy(frames.astype(np.float32)).cuda())
+
+    batch, single = prompt(ENC_BATCH, ENC_TEXT), prompt(1, ENC_RAGGED)
+    L = cfg.num_layers
+    per_prefill = cfg.encoder_layers + 2 * L
+    counters = ops.KERNEL_COUNTERS
+
+    def counts():
+        return {n: c.n for n, c in counters.items()}
+
+    def prefill(inputs):
+        return model.prefill_state(inputs[0], src_embeds=inputs[1])
+
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    checks = {"allocated parameters == param_count() + the final and "
+              "encoder norms": n_params == cfg.param_count() + 2 * cfg.d_model}
+    out = {}
+    for name, inputs in (("batch", batch), ("ragged", single)):
+        before = counts()
+        t = time.perf_counter()
+        logits, state = prefill(inputs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        got = {n: counts()[n] - before[n] for n in counters}
+        checks[f"{name} prefill: K3 == encoder + 2 x decoder layers"] = \
+            got["flash_attention"] == per_prefill
+        checks[f"{name} prefill: no K2"] = got["paged_attention"] == 0
+        checks[f"{name} prefill logits finite"] = \
+            bool(torch.isfinite(logits).all())
+        checks[f"{name} prefill: cross K/V over the frames"] = \
+            tuple(state["cross_k"].shape) == (L,) + tuple(
+                inputs[1].shape[:2]) + (cfg.num_kv_heads, cfg.head_dim)
+        out[name] = (logits, state, ms)
+        B, S = inputs[0].shape
+        log(f"[{arch}] prefill {B} x {S} tokens over {inputs[1].shape[1]} "
+            f"frames: {ms:.1f} ms (host clock, synchronised), "
+            f"{B * S / ms * 1e3:.0f} tokens/s, K3 {got['flash_attention']} "
+            f"launches; state {_state_bytes(state) / 1e6:.1f} MB (cross K/V "
+            f"{2 * state['cross_k'].numel() * 2:,} B)")
+    logits, state, _ = out["batch"]
+    prefill_logits, ragged_logits = logits, out["ragged"][0]
+    tok = logits.argmax(-1)
+    step_ms, per_step, first = [], [], None
+    for step in range(ENC_STEPS):
+        before = counts()
+        t = time.perf_counter()
+        logits, state = model.decode_state(state, tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({n: counts()[n] - before[n] for n in counters})
+        if step == 0:
+            first = (tok.clone(), logits.clone())
+        tok = logits.argmax(-1)
+    launches = counts()
+    checks["decode: K2 == decoder layers per step"] = all(
+        g["paged_attention"] == L for g in per_step)
+    checks["decode: K3 == decoder layers per step (cross)"] = all(
+        g["flash_attention"] == L for g in per_step)
+    checks["decode logits finite"] = bool(torch.isfinite(logits).all())
+    med = float(np.median(step_ms[1:]))
+    log(f"[{arch}] {ENC_STEPS} greedy decode steps on {ENC_BATCH} "
+        f"sequences: median {med:.2f} ms/step (steps 2-{ENC_STEPS}), "
+        f"{ENC_BATCH * ENC_STEPS / (sum(step_ms) / 1e3):.1f} tokens/s over "
+        f"all steps; state {_state_bytes(state) / 1e6:.1f} MB (seq_lens "
+        f"{int(state['seq_lens'][0])})")
+    log(f"[{arch}] launches (counted run: 2 prefills + {ENC_STEPS} steps): "
+        + " ".join(f"{k}={launches[k]}" for k in
+                   ("flash_attention", "paged_attention", "fused_dispatch")))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{arch} checks failed: {failed}")
+    profile_rounds(lambda: model.decode_state(state, tok), tag=arch,
+                   what="step")
+    profile_rounds(lambda: prefill(batch), rounds=2, tag=arch,
+                   what="prefill")
+    del state, out
+
+    # the same calls through the plain versions
+    with ops.plain_versions():
+        p_batch, p_state = prefill(batch)
+        p_single, _ = prefill(single)
+        p_step, _ = model.decode_state(p_state, first[0])
+    torch.cuda.synchronize()
+    for what, a, b in (("batch prefill", prefill_logits, p_batch),
+                       ("ragged prefill", ragged_logits, p_single),
+                       ("first decode step", first[1], p_step)):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+        log(f"[{arch}] {what} logits vs plain versions: max |diff| "
+            f"{err:.3e} (limit {SERVE_RTOL} x max |logit| = "
+            f"{SERVE_RTOL * scale:.3e}); argmax agrees on "
+            f"{agree}/{a.shape[0]}")
+        if not err <= SERVE_RTOL * scale:
+            raise AssertionError(f"{arch} {what} logits differ from the "
+                                 "plain versions")
+    del p_state
+
+    def path():
+        _, st = prefill(batch)
+        prefill(single)
+        model.decode_state(st, first[0])
+
+    _, reads = tapped(path)
+    log(f"[{arch}] every kernel call vs its plain version on the same "
+        "inputs: " + _fmt_reads(reads))
+    calls = {op: r["calls"] for op, r in reads.items()}
+    if calls != {"flash_attention": 2 * per_prefill + L,
+                 "paged_attention_slab": L} or \
+            any(r["err"] > r["limit"] for r in reads.values()):
+        raise AssertionError(f"{arch}: kernel calls vs plain: {reads}")
+    torch.cuda.empty_cache()
+    return launches, model
+
+
+def phase_admission(model) -> dict:
+    """Phase 16b: ``ServingEngine`` (8 sequences x 64 blocks) admits the
+    :data:`ADMIT_LENS` prompts of ``model``'s family (encdec or hybrid) at
+    full width through the facade's prefill (an encdec's over zero source
+    frames, as the reference's admission), and one round's flush of the
+    serve stream drains their promotions.  Checks K3 (and for the hybrid
+    K4) once per attention (Mamba2) layer and admission, no K1 at
+    admission and one K1 launch in the round, the promoted blocks bitwise
+    equal to the facade's prefill of the same prompt (no decode margin),
+    ``_extras`` bitwise equal to that prefill's state (shapes included),
+    ``decode_round`` refused with the reference's message, and after
+    ``free`` the allocator and ``_extras`` back where they started.
+    Returns the launch counts of the admissions and the round."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (DECODE_REFUSAL, EXTRA_KEYS,
+                                          ServingEngine)
+    cfg = model.cfg
+    tag = f"[{cfg.arch_id} admission]"
+    eng = ServingEngine(cfg, model, max_seqs=MAX_SEQS,
+                        max_blocks_per_seq=MAX_BLOCKS_PER_SEQ)
+    alloc = eng.engine.alloc
+    free0 = alloc.total_free()
+    rng = np.random.default_rng(SEED + 16)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in ADMIT_LENS]
+    counters = ops.KERNEL_COUNTERS
+
+    def counts():
+        return {n: c.n for n, c in counters.items()}
+
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    checks = {}
+    per_admit = cfg.num_attn_layers + (cfg.encoder_layers +
+                                       cfg.num_layers
+                                       if cfg.family == "encdec" else 0)
+    sids = []
+    for p in prompts:
+        before = counts()
+        t = time.perf_counter()
+        sids.append(eng.add_request(p))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        got = {n: counts()[n] - before[n] for n in counters}
+        checks[f"{len(p)}-token admission: K3 == {per_admit}"] = \
+            got["flash_attention"] == per_admit
+        if cfg.family == "hybrid":
+            checks[f"{len(p)}-token admission: K4 == Mamba2 layers"] = \
+                got["ssd_intra_chunk"] == cfg.num_layers
+        checks[f"{len(p)}-token admission: no K1"] = \
+            got["fused_dispatch"] == 0
+        log(f"{tag} {len(p)} tokens: {ms:.1f} ms (host clock, "
+            f"synchronised), {len(eng.cache.blocks_of(sids[-1]))} blocks "
+            f"staged; extras " + ", ".join(
+                f"{k} {tuple(t.shape)}"
+                for k, t in eng._extras[sids[-1]].items()))
+    before = counts()
+    eng.stream.flush()
+    eng._post_flush()
+    torch.cuda.synchronize()
+    k1 = counts()["fused_dispatch"] - before["fused_dispatch"]
+    launches = counts()
+    checks["the round's flush: one K1 launch"] = k1 == 1
+    for sid, p in zip(sids, prompts):
+        extra = {}
+        if cfg.family == "encdec":
+            extra["src_embeds"] = torch.zeros(
+                (1, max(len(p) // cfg.src_frames_ratio, 1), cfg.d_model),
+                device="cuda")
+        _, st = model.prefill_state(torch.from_numpy(p)[None].long().cuda(),
+                                    margin_tokens=0, **extra)
+        blocks = eng.cache.blocks_of(sid)
+        checks[f"{len(p)}-token promoted blocks == facade prefill, "
+               "bitwise"] = all(
+            torch.equal(eng.engine.pools[n][:, blocks], st[n + "_pools"])
+            for n in ("k", "v"))
+        held = eng._extras[sid]
+        checks[f"{len(p)}-token _extras == facade state, bitwise"] = \
+            sorted(held) == sorted(k for k in EXTRA_KEYS if k in st) and \
+            all(torch.equal(t, st[k]) for k, t in held.items())
+    try:
+        eng.decode_round()
+        checks["decode_round refused"] = False
+    except NotImplementedError as err:
+        checks["decode_round refused"] = str(err) == DECODE_REFUSAL
+    for sid in sids:
+        eng.free(sid)
+    checks["after free: allocator and _extras as at the start"] = \
+        alloc.total_free() == free0 and eng._extras == {} and \
+        not eng.cache.seqs
+    log(f"{tag} launches (admissions + the round's flush): " + " ".join(
+        f"{k}={launches[k]}" for k in ("flash_attention", "ssd_intra_chunk",
+                                       "fused_dispatch")))
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{cfg.arch_id} admission checks failed: "
+                             f"{failed}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: phase groups that ``--phases`` selects, with the phases each needs:
+#: 7-8 run on phase 6's pools, 8's Fig. 2 and 15 on phase 5's weights
+PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,)}
+
+
+def _selected(spec) -> set:
+    """The phases to run for ``--phases`` (all of 2-16 by default), with
+    what they need; phase 1 always runs."""
+    if spec is None:
+        return set(range(2, 17))
+    chosen = {int(x) for x in spec.split(",") if x.strip()}
+    for n in list(chosen):
+        chosen.update(PHASE_NEEDS.get(n, ()))
+    return chosen
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma list of the phases to run, with those they "
+                         "need (phase 1 always runs; default: all)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    run = _selected(args.phases)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     scrub = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    k1, k2, k3 = phase_k1(scrub), phase_k2(scrub), phase_k3(scrub)
+    # each kernel's JSON row, by name; phase 9's other shapes merge into it
+    rows = {}
+
+    def merge(row):
+        if row["name"] in rows:
+            held = rows[row["name"]]
+            held["max_abs_err"] = max(held["max_abs_err"],
+                                      row["max_abs_err"])
+        else:
+            rows[row["name"]] = row
+
+    for n, phase in ((2, phase_k1), (3, phase_k2), (4, phase_k3)):
+        if n in run:
+            merge(phase(scrub))
     torch.cuda.empty_cache()
     # launch counts of each main-path run, by path
     paths = {}
-    paths["llama3.2-3b serve"], params = phase_decoder_serve(
-        "llama3.2-3b", profile=True)
-    torch.cuda.empty_cache()
-    paths["llama3.2-3b serving features"] = phase_serving_features(params,
-                                                                   smi)
-    torch.cuda.empty_cache()
-    copy_kernels, flat = phase_copy_kernels(scrub)
-    torch.cuda.empty_cache()
-    paths["fan-out drain (A/B)"], paths["fused drain (A/B)"] = \
-        phase_ab(flat, scrub)
-    phase_table1(flat)
-    del flat
-    torch.cuda.empty_cache()
-    paths["Fig. 2"] = phase_fig2(params.cfg, params)
+    params = None
+    if 5 in run:
+        paths["llama3.2-3b serve"], params = phase_decoder_serve(
+            "llama3.2-3b", profile=True)
+        torch.cuda.empty_cache()
+    if 15 in run:
+        paths["llama3.2-3b serving features"] = phase_serving_features(
+            params, smi)
+        torch.cuda.empty_cache()
+    if 6 in run:
+        copy_kernels, flat = phase_copy_kernels(scrub)
+        for row in copy_kernels:
+            merge(row)
+        torch.cuda.empty_cache()
+        if 7 in run:
+            paths["fan-out drain (A/B)"], paths["fused drain (A/B)"] = \
+                phase_ab(flat, scrub)
+        if 8 in run:
+            phase_table1(flat)
+        del flat
+        torch.cuda.empty_cache()
+    if 8 in run:
+        paths["Fig. 2"] = phase_fig2(params.cfg, params)
     del params
     torch.cuda.empty_cache()
-    k4 = phase_k4(scrub)
-    # K2 and K3 at zamba2's shared-attention shapes (head dim 80): phase 11's
-    # decode batch, its batch prefill and its ragged prefill
-    k2_80 = phase_k2(scrub, B=SSM_BATCH, H=32, KVH=32, D=80)
-    k3_80 = phase_k3(scrub, H=32, KVH=32, D=80,
-                     cases=((SSM_BATCH, SSM_PROMPT), (1, SSM_RAGGED),
-                            (1, 512)))
-    more = [(k2, k2_80), (k3, k3_80)]
-    # K2 and K3 at the served configs' head groups (head dim 128): yi-6b's
-    # 32 heads over 4 KV heads (group 8) and deepseek-moe-16b's 16 over 16
-    for H, KVH in ((32, 4), (16, 16)):
-        more += [(k2, phase_k2(scrub, H=H, KVH=KVH)),
-                 (k3, phase_k3(scrub, H=H, KVH=KVH))]
-    # K2 and K3 at paligemma-3b's head dim 256 (8 heads over 1 KV head):
-    # K2 on the serving slab, K3 at phase 14's batch prefill and at S = 512
-    # and a ragged 313, each with the 256-patch prefix and without
-    more += [(k2, phase_k2(scrub, H=8, KVH=1, D=256)),
-             (k3, phase_k3(scrub, H=8, KVH=1, D=256, cases=K3_CASES_256,
-                           edges=K3_EDGES_256, timed=5))]
-    for row, other in more:
-        row["max_abs_err"] = max(row["max_abs_err"], other["max_abs_err"])
+    if 9 in run:
+        merge(phase_k4(scrub))
+        # K2 and K3 at zamba2's shared-attention shapes (head dim 80): phase
+        # 11's decode batch, its batch prefill and its ragged prefill
+        merge(phase_k2(scrub, B=SSM_BATCH, H=32, KVH=32, D=80))
+        merge(phase_k3(scrub, H=32, KVH=32, D=80,
+                       cases=((SSM_BATCH, SSM_PROMPT), (1, SSM_RAGGED),
+                              (1, 512))))
+        # K2 and K3 at the served configs' head groups (head dim 128):
+        # yi-6b's 32 heads over 4 KV heads (group 8) and deepseek-moe-16b's
+        # 16 over 16
+        for H, KVH in ((32, 4), (16, 16)):
+            merge(phase_k2(scrub, H=H, KVH=KVH))
+            merge(phase_k3(scrub, H=H, KVH=KVH))
+        # K2 and K3 at paligemma-3b's head dim 256 (8 heads over 1 KV
+        # head): K2 on the serving slab, K3 at phase 14's batch prefill and
+        # at S = 512 and a ragged 313, each with the 256-patch prefix and
+        # without
+        merge(phase_k2(scrub, H=8, KVH=1, D=256))
+        merge(phase_k3(scrub, H=8, KVH=1, D=256, cases=K3_CASES_256,
+                       edges=K3_EDGES_256, timed=5))
+        # K2 and K3 at seamless-m4t-medium's head dim 64 (16 heads over 16
+        # KV heads): K2 at phase 16's decode batch and at 8 sequences, K3
+        # at phase 16's self-, encoder and cross-attention shapes
+        for B in (ENC_BATCH, MAX_SEQS):
+            merge(phase_k2(scrub, B=B, H=16, KVH=16, D=64))
+        merge(phase_k3(scrub, H=16, KVH=16, D=64, cases=K3_CASES_64,
+                       edges=(), timed=7))
     del scrub
     torch.cuda.empty_cache()
-    for arch in ("mamba2-780m", "zamba2-2.7b"):
-        paths[arch] = phase_mamba_model(arch)
-    # each model is dropped with the returned tuple before the next is built
-    paths["deepseek-moe-16b serve"] = phase_decoder_serve(
-        "deepseek-moe-16b", profile=True)[0]
-    torch.cuda.empty_cache()
-    for arch, layers in OTHER_CONFIGS:
-        name = arch if layers is None else f"{arch} ({layers} layers)"
-        paths[f"{name} serve"] = phase_decoder_serve(
-            arch, layers, SHORT_PROMPT_LENS, SHORT_ROUNDS)[0]
+    for n, arch in ((10, "mamba2-780m"), (11, "zamba2-2.7b")):
+        if n in run:
+            paths[arch] = phase_mamba_model(arch)
+    if 12 in run:
+        # each model is dropped with the returned tuple before the next is
+        # built
+        paths["deepseek-moe-16b serve"] = phase_decoder_serve(
+            "deepseek-moe-16b", profile=True)[0]
         torch.cuda.empty_cache()
-    paths["paligemma-3b"] = phase_vlm()
-    kernels = [k1, k2, k3] + copy_kernels + [k4]
+    if 13 in run:
+        for arch, layers in OTHER_CONFIGS:
+            name = arch if layers is None else f"{arch} ({layers} layers)"
+            paths[f"{name} serve"] = phase_decoder_serve(
+                arch, layers, SHORT_PROMPT_LENS, SHORT_ROUNDS)[0]
+            torch.cuda.empty_cache()
+    if 14 in run:
+        paths["paligemma-3b"] = phase_vlm()
+    if 16 in run:
+        from repro_torch.configs import get_config
+        from repro_torch.weights import init_params
+        paths["seamless-m4t-medium"], model = phase_encdec()
+        paths["seamless-m4t-medium admission"] = phase_admission(model)
+        del model
+        torch.cuda.empty_cache()
+        model = init_params(get_config("zamba2-2.7b"), seed=SEED,
+                            device="cuda")
+        paths["zamba2-2.7b admission"] = phase_admission(model)
+        del model
+        torch.cuda.empty_cache()
+    kernels = [rows[n] for n in ("fused_dispatch", "paged_attention",
+                                 "flash_attention", "fpm_copy",
+                                 "fpm_copy_cross", "zero_init",
+                                 "ssd_intra_chunk") if n in rows]
     for k in kernels:
         k["route"] = "cuda"
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()

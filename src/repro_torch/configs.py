@@ -4,8 +4,9 @@ from ``repro/configs``): :class:`ModelConfig` with :meth:`ModelConfig.reduced`,
 runs: the dense decoders it serves (llama3.2-3b, yi-6b, mistral-nemo-12b,
 qwen2-72b with its QKV bias), the mixture-of-experts decoders it serves
 (deepseek-moe-16b, phi3.5-moe-42b-a6.6b), the vision-language decoder
-(paligemma-3b), the attention-free SSD stack (mamba2-780m) and the Mamba2 +
-shared-attention hybrid (zamba2-2.7b), the last three through
+(paligemma-3b), the attention-free SSD stack (mamba2-780m), the Mamba2 +
+shared-attention hybrid (zamba2-2.7b) and the encoder-decoder
+(seamless-m4t-medium), the last four through
 ``LanguageModel.prefill_state`` / ``decode_state``.
 ``tests/test_torch_contract.py`` pins the copy to the reference."""
 from __future__ import annotations
@@ -15,11 +16,8 @@ from dataclasses import dataclass
 from typing import Dict
 
 VOCAB_PAD_MULTIPLE = 256
-#: the families the serving engine serves
+#: the families the serving engine decodes
 DECODER_FAMILIES = ("dense", "moe")
-#: the families whose every layer is a decoder layer with its own KV pages
-#: (vlm: the dense stack behind a prefix of patch embeddings)
-DECODER_STACKS = DECODER_FAMILIES + ("vlm",)
 
 
 def pad_to(x: int, m: int) -> int:
@@ -28,10 +26,8 @@ def pad_to(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyper-parameters.  The port runs ``family`` dense, moe,
-    vlm, ssm and hybrid; the fields of the other families are kept so that
-    :meth:`reduced` derives the same smoke configuration as the
-    reference."""
+    """Architecture hyper-parameters.  The port runs every ``family`` of
+    the reference: dense, moe, vlm, ssm, hybrid and encdec."""
 
     arch_id: str
     family: str
@@ -91,15 +87,14 @@ class ModelConfig:
     @property
     def num_attn_layers(self) -> int:
         """Layers that own a KV cache: every layer of a dense, moe or vlm
-        decoder, none of an SSD stack, one shared-block invocation per
-        segment of a hybrid."""
-        if self.family in DECODER_STACKS:
-            return self.num_layers
+        decoder and every decoder layer of an encdec (its self-attention),
+        none of an SSD stack, one shared-block invocation per segment of a
+        hybrid."""
         if self.family == "ssm":
             return 0
         if self.family == "hybrid":
             return self.num_layers // max(self.shared_attn_every, 1)
-        raise NotImplementedError(f"family {self.family!r} is not ported yet")
+        return self.num_layers
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (the reference's rule)."""
@@ -129,8 +124,7 @@ class ModelConfig:
         )
 
     def param_count(self) -> int:
-        """Analytic parameter count (the reference's, for the families the
-        port runs)."""
+        """Analytic parameter count (the reference's)."""
         d, V = self.d_model, self.padded_vocab
         n = V * d
         if not self.tie_embeddings:
@@ -140,9 +134,6 @@ class ModelConfig:
             if self.family == "hybrid":
                 n += _attn_block_params(self) + _mlp_params(self, self.d_ff)
             return n
-        if self.family not in DECODER_STACKS:
-            raise NotImplementedError(
-                f"family {self.family!r} is not ported yet")
         per_layer = _attn_block_params(self) + 2 * d
         if self.family == "moe":
             e_ff = self.moe_d_ff or self.d_ff
@@ -150,7 +141,14 @@ class ModelConfig:
                 3 * d * e_ff + d * self.num_experts
         else:
             per_layer += _mlp_params(self, self.d_ff)
-        return n + self.num_layers * per_layer
+        n += self.num_layers * per_layer
+        if self.family == "encdec":
+            # the encoder layers, and each decoder layer's cross-attention
+            # and its norm
+            n += self.encoder_layers * (_attn_block_params(self) +
+                                        _mlp_params(self, self.d_ff) + 2 * d)
+            n += self.num_layers * (_attn_block_params(self) + d)
+        return n
 
     def active_param_count(self) -> int:
         """Parameters a token uses (moe: its top_k and the shared
@@ -253,6 +251,15 @@ _REGISTRY: Dict[str, ModelConfig] = {
         num_heads=8, num_kv_heads=1, head_dim=256, d_ff=16384,
         vocab_size=257216, vision_tokens=256, rope_theta=10000.0,
         tie_embeddings=True),
+    # seamless-m4t-medium: encoder-decoder, 12 encoder + 12 decoder layers
+    # d_model=1024 16H (kv=16, MHA) head_dim 64 d_ff=4096 vocab=256206;
+    # the audio frontend is a stub: the encoder reads precomputed frame
+    # embeddings, src_len = seq_len // src_frames_ratio
+    "seamless-m4t-medium": ModelConfig(
+        arch_id="seamless-m4t-medium", family="encdec", num_layers=12,
+        d_model=1024, num_heads=16, num_kv_heads=16, head_dim=64, d_ff=4096,
+        vocab_size=256206, encoder_layers=12, src_frames_ratio=4,
+        rope_theta=10000.0),
 }
 
 
@@ -268,5 +275,5 @@ def list_archs():
     return sorted(_REGISTRY)
 
 
-__all__ = ["DECODER_FAMILIES", "DECODER_STACKS", "ModelConfig",
+__all__ = ["DECODER_FAMILIES", "ModelConfig",
            "RowCloneConfig", "get_config", "list_archs", "pad_to"]

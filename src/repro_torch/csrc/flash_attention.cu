@@ -2,12 +2,16 @@
 //
 // Replaces the TPU kernel `_flash_kernel` in src/repro/kernels/flash_attention.py
 // (entered through `flash_attention_pallas`, `pallas_call` at :93):
-// q (B, H, S, D) against k / v (B, KVH, S, D) with a causal mask plus a
-// prefix-LM exception (key positions < prefix_len are visible to every
-// query), GQA head h -> kv head h / group, the scale D^-0.5 applied to the
-// fp32 scores after the product, online softmax in fp32, output in bf16.
-// A fully masked row gives 0.  Unlike the Pallas kernel, which asserts
-// S % bq == 0, this one takes a ragged S: serve prompts have any length.
+// q (B, H, Sq, D) against k / v (B, KVH, Skv, D), non-causal (every key
+// below Skv is visible) or with a causal mask (key column <= query row, both
+// counted from 0) plus a prefix-LM exception (key positions < prefix_len are
+// visible to every query), GQA head h -> kv head h / group, the scale D^-0.5
+// applied to the fp32 scores after the product, online softmax in fp32,
+// output in bf16.  A fully masked row gives 0.  Sq and Skv differ for an
+// encoder-decoder's cross-attention (text queries over S_src frames; one
+// query at a decode step).  Unlike the Pallas kernel, which asserts
+// Sq % bq == 0 and Sk % bk == 0, this one takes ragged lengths: serve
+// prompts have any length.
 //
 // Bound on this card: at prefill lengths the causal FLOPs over 989 TFLOP/s
 // and the bytes over 3.35 TB/s are both a few microseconds, so the design
@@ -17,7 +21,9 @@
 // * One CTA per (64-row q tile, head, batch): one consumer warpgroup (warps
 //   0-3) and one producer warp (warp 4).  The q tiles launch longest first
 //   (reverse blockIdx.x), so the causal rows that walk the most kv tiles
-//   start before the short ones.
+//   start before the short ones.  A non-causal CTA visits every kv tile
+//   below Skv whatever its q tile; a causal one the tiles up to its last
+//   row (or the prefix), never past Skv.
 // * At D = 256 (paligemma-3b) one warpgroup's O accumulator would be 128
 //   fp32 registers a thread on top of the scores and P's parts, so the head
 //   dim is split over two consumer warpgroups (warps 0-7; the producer is
@@ -29,18 +35,21 @@
 //   two-stage ring with TMA (cp.async.bulk.tensor, 4-D maps over (D, S,
 //   heads, batch) built on the host from the caller's strides, so q / k / v
 //   may be transposed views of a (B, S, H, D) layout).  Each tile is two
-//   boxes of 64 rows x 64 bf16 columns in the 128-byte swizzle; at D = 80
-//   the second box's columns 80-127 lie past the tensor's edge and arrive as
-//   zeros, as do the rows past S, so the ragged tail costs no branch in the
-//   loads.  Per stage, one mbarrier for K and one for V (Q K^T starts while
+//   boxes of 64 rows x 64 bf16 columns in the 128-byte swizzle (one box at
+//   D = 64, seamless-m4t-medium's head dim); at D = 80 the second box's
+//   columns 80-127 lie past the tensor's edge and arrive as zeros, as do
+//   the rows past Sq or Skv, so the ragged tail costs no branch in the
+//   loads.  A short key length (an encoder of 14 frames) fills most of its
+//   one tile with zeros: the mask, not the fill, keeps those columns out of
+//   the softmax.  Per stage, one mbarrier for K and one for V (Q K^T starts while
 //   V is in flight) and an `empty` one hand the tiles between the roles.
 // * S = Q K^T is wgmma m64n64k16 with both operands in shared memory
 //   (K-major), D / 16 steps (five at D = 80: the arithmetic is not padded).
 //   The scores are scaled in fp32 after the product (folded with log2(e)
 //   into exp2f), masked only on diagonal tiles and the tile at the ragged
-//   edge, and tiles right of the diagonal are never loaded unless they lie
-//   in the prefix.
-// * O += P V is wgmma m64nDk16 with P in registers (wgmma's A-register
+//   kv edge, and tiles right of the diagonal are never loaded unless they
+//   lie in the prefix.
+// * O += P V is wgmma m64nDk16 (n = 64, 80 or 128) with P in registers (wgmma's A-register
 //   layout is its accumulator layout) and V read from shared memory with the
 //   transpose bit (MN-major).  The reference multiplies fp32 weights; one
 //   bf16 P would be off by up to 2^-8 of each weight, enough to flip the
@@ -49,7 +58,7 @@
 //   bf16(P - hi), each through its own wgmma into the same fp32 sums: P is
 //   then off by at most 2^-16 of each weight.
 // * The output is written straight from the accumulators to the caller's
-//   (B, S, H, D) buffer (strided), rows >= S masked.
+//   (B, Sq, H, D) buffer (strided), rows >= Sq masked.
 //
 // The mbarrier, TMA, descriptor and wgmma helpers live in hopper.cuh, which
 // K4 (ssd_chunk.cu) shares.
@@ -71,7 +80,7 @@ struct Shape {
   static constexpr int kDW = kD / kGroups;             // O columns of one
   static constexpr int kConsumers = 128 * kGroups;
   static constexpr int kThreads = kConsumers + 32;     // + the producer warp
-  static constexpr int kBoxes = kD > 128 ? 4 : 2;      // 64-column boxes
+  static constexpr int kBoxes = kD > 128 ? 4 : kD > 64 ? 2 : 1;  // of 64 cols
   static constexpr int kTileBytes = kBoxes * kBoxBytes;  // a 64-row tile
   static constexpr int kSmemBytes = kTileBytes * (1 + 2 * kStages) + 1024;
   static constexpr int kMinBlocks = kGroups == 1 ? 2 : 1;
@@ -80,7 +89,7 @@ struct Shape {
 struct Params {
   __nv_bfloat16* out;
   long long osb, osh, oss;   // output strides (elements) of b, h, s
-  int S, H, KVH, causal, prefix_len;
+  int Sq, Skv, H, KVH, causal, prefix_len;
   float scale_log2;          // D^-0.5 * log2(e)
 };
 
@@ -90,8 +99,10 @@ __device__ __forceinline__ void pv_mma(float (&o)[kN / 2],
                                        const uint32_t (&a)[4], uint64_t v) {
   if constexpr (kN == 128) {
     wgmma_rs_n128(o, a, v);
-  } else {
+  } else if constexpr (kN == 80) {
     wgmma_rs_n80(o, a, v);
+  } else {
+    wgmma_rs_n64(o, a, v);
   }
 }
 
@@ -104,7 +115,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int kConsumers = Sh::kConsumers;
   constexpr int kTileBytes = Sh::kTileBytes;
   constexpr int kDW = Sh::kDW;
-  static_assert(kD % 16 == 0 && (kDW == 128 || kDW == 80) &&
+  static_assert(kD % 16 == 0 && (kDW == 128 || kDW == 80 || kDW == 64) &&
                     kD <= Sh::kBoxes * kBoxCols,
                 "head dim: a warpgroup's O columns are one wgmma's n");
   extern __shared__ unsigned char smem_raw[];
@@ -125,9 +136,10 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KVH);
-  const int S = p.S;
-  // kv tiles to visit: a prefix of the sequence (causal edge or prefix)
-  int n_kv = (S + kBK - 1) / kBK;
+  const int Skv = p.Skv;
+  // kv tiles to visit: all of them, or (causal) a prefix of them up to the
+  // causal edge or the prefix, whichever lies further
+  int n_kv = (Skv + kBK - 1) / kBK;
   if (p.causal) {
     const int edge = max(qt + 1, (p.prefix_len + kBK - 1) / kBK);
     n_kv = min(n_kv, edge);
@@ -214,7 +226,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(sc);
 
     const int k0 = t * kBK;
-    const bool edge = k0 + kBK > S;
+    const bool edge = k0 + kBK > Skv;
     const bool diag = p.causal && k0 + kBK - 1 > q0 && k0 + kBK > p.prefix_len;
     if (edge || diag) {
 #pragma unroll
@@ -223,7 +235,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + 8 * j + cq + (e & 1);
           const int row = (e & 2) ? r1 : r0;
-          const bool ok = col < S && (!p.causal || col <= row ||
+          const bool ok = col < Skv && (!p.causal || col <= row ||
                                       col < p.prefix_len);
           if (!ok) sc[4 * j + e] = -INFINITY;
         }
@@ -304,11 +316,11 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int j = 0; j < kDW / 8; ++j) {
     const int col = 8 * j + cq;
-    if (r0 < S) {
+    if (r0 < p.Sq) {
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * p.oss + col) =
           __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
     }
-    if (r1 < S) {
+    if (r1 < p.Sq) {
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r1 * p.oss + col) =
           __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
@@ -317,7 +329,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int kD>
 int launch(void* q, void* k, void* v, const long long* st, int B, int H,
-           int KVH, int S, cudaStream_t stream, const Params& p) {
+           int KVH, cudaStream_t stream, const Params& p) {
   using Sh = Shape<kD>;
   static bool attr_set = false;
   if (!attr_set) {
@@ -328,11 +340,11 @@ int launch(void* q, void* k, void* v, const long long* st, int B, int H,
     attr_set = true;
   }
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, kD, S, H, B, st[2], st[1], st[0]);
-  if (!err) err = make_map(&tk, k, kD, S, KVH, B, st[5], st[4], st[3]);
-  if (!err) err = make_map(&tv, v, kD, S, KVH, B, st[8], st[7], st[6]);
+  int err = make_map(&tq, q, kD, p.Sq, H, B, st[2], st[1], st[0]);
+  if (!err) err = make_map(&tk, k, kD, p.Skv, KVH, B, st[5], st[4], st[3]);
+  if (!err) err = make_map(&tv, v, kD, p.Skv, KVH, B, st[8], st[7], st[6]);
   if (err) return err;
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  dim3 grid((p.Sq + kBQ - 1) / kBQ, H, B);
   flash_kernel<kD><<<grid, Sh::kThreads, Sh::kSmemBytes, stream>>>(tq, tk,
                                                                    tv, p);
   return (int)cudaGetLastError();
@@ -340,32 +352,32 @@ int launch(void* q, void* k, void* v, const long long* st, int B, int H,
 
 }  // namespace
 
-// q (B, H, S, D), k / v (B, KVH, S, D) bf16 at any strides whose last one is
-// 1 and whose others are multiples of 8 elements: `strides` holds (b, h, s)
-// of q, k, v and the output, 12 values in elements.  head_dim must be 80,
-// 128 or 256 (anything else gives cudaErrorInvalidValue); a tensor-map
-// failure gives 10000 + its CUresult.
+// q (B, H, Sq, D), k / v (B, KVH, Skv, D) bf16 at any strides whose last
+// one is 1 and whose others are multiples of 8 elements: `strides` holds
+// (b, h, s) of q, k, v and the output, 12 values in elements.  Sq, Skv >= 1.
+// head_dim must be 64, 80, 128 or 256 (anything else gives
+// cudaErrorInvalidValue); a tensor-map failure gives 10000 + its CUresult.
 extern "C" int rc_flash_attention(void* q, void* k, void* v, void* out,
                                   const long long* strides, int B, int H,
-                                  int KVH, int S, int head_dim, int causal,
-                                  int prefix_len, float scale, void* stream) {
+                                  int KVH, int Sq, int Skv, int head_dim,
+                                  int causal, int prefix_len, float scale,
+                                  void* stream) {
   Params p;
   p.out = reinterpret_cast<__nv_bfloat16*>(out);
   p.osb = strides[9];
   p.osh = strides[10];
   p.oss = strides[11];
-  p.S = S;
+  p.Sq = Sq;
+  p.Skv = Skv;
   p.H = H;
   p.KVH = KVH;
   p.causal = causal;
   p.prefix_len = prefix_len;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (head_dim == 128)
-    return launch<128>(q, k, v, strides, B, H, KVH, S, st, p);
-  if (head_dim == 80)
-    return launch<80>(q, k, v, strides, B, H, KVH, S, st, p);
-  if (head_dim == 256)
-    return launch<256>(q, k, v, strides, B, H, KVH, S, st, p);
+  if (head_dim == 128) return launch<128>(q, k, v, strides, B, H, KVH, st, p);
+  if (head_dim == 80) return launch<80>(q, k, v, strides, B, H, KVH, st, p);
+  if (head_dim == 256) return launch<256>(q, k, v, strides, B, H, KVH, st, p);
+  if (head_dim == 64) return launch<64>(q, k, v, strides, B, H, KVH, st, p);
   return (int)cudaErrorInvalidValue;
 }

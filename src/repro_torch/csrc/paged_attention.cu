@@ -35,9 +35,10 @@
 //   each K load serves the whole group.  One warp per query head then sums
 //   the parts in order and runs the online softmax in fp32.
 // * P V from shared memory: thread t owns output pair t % (D / 2) of every
-//   head of the group, over a third or half of the page's slots (half at
-//   D = 256, where the CTA's 256 threads give every pair two threads); the
-//   slot subsets are summed once, after the last page.
+//   head of the group, over a quarter, a third or half of the page's slots
+//   (a quarter at D = 64, where 128 threads give each of the 32 pairs four;
+//   half at D = 256, where the CTA's 256 threads give every pair two
+//   threads); the slot subsets are summed once, after the last page.
 // * Merge through distributed shared memory: each CTA leaves its (acc, l,
 //   m) in its own shared memory; after a cluster barrier rank 0 reads all
 //   eight and merges them with the reference's `lse_combine` rule
@@ -67,8 +68,8 @@ constexpr float kNegInf = -1e30f;
 
 // the CTA's threads and shared-memory layout for head dim kD (offsets in
 // bytes): 128 threads score a slot in two halves of the head dim and give
-// each output pair two or three slot subsets up to D = 128; 256 threads, in
-// quarters and with two subsets, at D = 256
+// each output pair two to four slot subsets up to D = 128 (four at D = 64);
+// 256 threads, in quarters and with two subsets, at D = 256
 template <int kD>
 struct Layout {
   static constexpr int kThreads = kD > 128 ? 256 : 128;
@@ -427,6 +428,7 @@ int launch(void* q, void* k, void* v, void* mask, void* base, void* lens,
 // Shared memory a call takes for `nblk` slab blocks (the wrapper checks it
 // against the card's 227 KB).
 extern "C" long long rc_paged_attention_smem(int head_dim, int nblk) {
+  if (head_dim == 64) return (long long)Layout<64>::bytes(nblk);
   if (head_dim == 128) return (long long)Layout<128>::bytes(nblk);
   if (head_dim == 80) return (long long)Layout<80>::bytes(nblk);
   if (head_dim == 256) return (long long)Layout<256>::bytes(nblk);
@@ -439,7 +441,7 @@ extern "C" int rc_paged_attention_splits() { return kSplits; }
 extern "C" int rc_paged_attention_max_page() { return kMaxPage; }
 extern "C" int rc_paged_attention_max_group() { return kMaxGroup; }
 
-// head_dim must be 80, 128 or 256 and page <= 64, group <= 8 (the wrapper
+// head_dim must be 64, 80, 128 or 256 and page <= 64, group <= 8 (the wrapper
 // checks; another head dim is refused with cudaErrorInvalidValue)
 extern "C" int rc_paged_attention(void* q, void* k, void* v, void* mask,
                                   void* base, void* lens, void* acc, void* l,
@@ -455,5 +457,8 @@ extern "C" int rc_paged_attention(void* q, void* k, void* v, void* mask,
   if (head_dim == 256)
     return launch<256>(q, k, v, mask, base, lens, acc, l, m, nblk, page, kvh,
                        batch, group, scale, stream);
+  if (head_dim == 64)
+    return launch<64>(q, k, v, mask, base, lens, acc, l, m, nblk, page, kvh,
+                      batch, group, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

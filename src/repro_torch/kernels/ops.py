@@ -137,7 +137,10 @@ def paged_attention_slab(q, k_slab, v_slab, share_mask, base, seq_lens, *,
 
 def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0,
                     use_kernel: Optional[bool] = None):
-    """Prefill attention; q (B,H,S,D), k/v (B,KVH,S,D)."""
+    """Prefill attention; q (B,H,Sq,D) against k/v (B,KVH,Skv,D):
+    causal (key column <= query row, both from 0) with the prefix-LM
+    exception, or non-causal (every key visible); Sq != Skv for an
+    encoder-decoder's cross-attention."""
     if use_kernel_for(q, use_kernel):
         return flash_attention_cuda(q, k, v, causal=causal,
                                     prefix_len=prefix_len)

@@ -26,9 +26,10 @@ from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
 #: launches of the CUDA decode-attention kernel (not of its plain version)
 COUNTER = LaunchCounter("paged_attention")
 
-#: what the kernel is built for (llama3.2-3b 128, zamba2's shared block 80,
-#: paligemma-3b 256: a CTA of 256 threads there)
-HEAD_DIMS = (80, 128, 256)
+#: what the kernel is built for (seamless-m4t-medium's decoder 64, zamba2's
+#: shared block 80, llama3.2-3b 128, paligemma-3b 256: a CTA of 256 threads
+#: there)
+HEAD_DIMS = (64, 80, 128, 256)
 MAX_GROUP = 8
 MAX_PAGE = 64
 #: CTAs of a cluster, each taking one contiguous range of visible blocks

@@ -1,11 +1,15 @@
 """Serving engine: continuous batched greedy decode over a RowClone-managed
-pool (port of ``repro/launch/serve.py``: the dense and moe families on one
-GPU).
+pool (port of ``repro/launch/serve.py`` on one GPU: the dense and moe
+families served, the hybrid and encdec families admitted).
 
 * ``add_request`` runs the prefill (K3 in every layer), writes the prompt's
   KV pages into the staging ring, and enqueues the stage→KV promotion
   (``OP_CROSS_POOL_COPY`` rows) on the engine's serve
-  :class:`~repro_torch.core.stream.CommandStream`;
+  :class:`~repro_torch.core.stream.CommandStream`.  A hybrid or encdec
+  prompt goes through the facade's ``prefill_state`` (an encdec's over
+  zero source frames, as the reference's ``_prefill_batch``), and its
+  per-sequence state that is not paged — the hybrid's conv / ssm state,
+  the encdec's cross K/V — stays in ``_extras``;
 * ``fork`` shares every page by refcount (zero bytes move);
 * ``dedup_admit=True``: prompt pages whose chained fingerprint
   (:func:`page_fingerprint`) and tokens match a live registry entry share
@@ -16,7 +20,9 @@ GPU).
   onto the same stream and flushes it: promotions, demotions, resumes,
   splits and inits drain as ONE fused launch (K1).  Then one decode step
   appends each sequence's K/V into its block and attends over the paged
-  pool (K2 in every layer).
+  pool (K2 in every layer).  The hybrid and encdec families decode
+  through ``LanguageModel.decode_state``: ``decode_round`` refuses them,
+  as the reference's does.
 
 The staging ring is sized by the admission policy:
 ``admissions_per_round x max_blocks_per_seq`` slots unless
@@ -65,6 +71,16 @@ VLM_REFUSAL = (
     "the text's KV at the wrong RoPE position; the vlm runs through "
     "LanguageModel.prefill_state / decode_state")
 
+#: the families the engine admits: the decoders it serves, and the hybrid
+#: and encdec, whose prompts it admits and whose decode runs through the
+#: facade (the ssm family has no KV pages to stage)
+ADMITTED_FAMILIES = DECODER_FAMILIES + ("hybrid", "encdec")
+#: the per-sequence serve state outside the paged pools, kept in ``_extras``
+EXTRA_KEYS = ("conv_state", "ssm_state", "cross_k", "cross_v")
+#: the reference's ``decode_round`` refusal of the other families
+DECODE_REFUSAL = ("CLI decode loop demo targets decoder-only archs; other "
+                  "families decode through model.decode_step directly")
+
 #: constructor arguments of the reference that the port does not take yet:
 #: name -> (the reference's default, which means "off", and the ROADMAP
 #: queue item that brings it)
@@ -86,15 +102,14 @@ NOT_PORTED = {
 @dataclasses.dataclass
 class DemotedSeq:
     """Host-side record of a preempted sequence: what :meth:`ServingEngine
-    .resume` needs to continue it bitwise-identically (the reference's
-    record without its non-dense host state, which the port's families
-    do not have)."""
+    .resume` needs to continue it bitwise-identically."""
 
     length: int                  #: sequence length at demotion time
     slots: List[int]             #: spill slots parking the KV bytes
     slab_home: int               #: preferred slab for re-allocation
     logits: np.ndarray           #: last logits (greedy argmax source)
     tokens: List[int]            #: token history (prompt + generated)
+    extras: Optional[dict]       #: non-paged state (hybrid, encdec)
 
 
 #: 64-bit fold constants (splitmix64 / FNV mixes) of the page fingerprint
@@ -165,10 +180,10 @@ class ServingEngine:
                     f"{item}")
         if cfg.family == "vlm":
             raise NotImplementedError(VLM_REFUSAL)
-        if cfg.family not in DECODER_FAMILIES:
+        if cfg.family not in ADMITTED_FAMILIES:
             raise NotImplementedError(
-                "the serving engine targets the "
-                f"{' and '.join(DECODER_FAMILIES)} families; {cfg.family!r} "
+                f"the serving engine admits the {', '.join(ADMITTED_FAMILIES)}"
+                f" families; {cfg.family!r} has no KV pages to stage and "
                 "decodes through LanguageModel.decode_state")
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
@@ -210,6 +225,8 @@ class ServingEngine:
                                    max_seqs)
         self.last_logits: Dict[int, np.ndarray] = {}
         self.tokens: Dict[int, List[int]] = {}
+        #: per-sequence state outside the pools (:data:`EXTRA_KEYS`)
+        self._extras: Dict[int, Dict[str, torch.Tensor]] = {}
         #: the round's bulk movement rides this stream (one launch/round)
         self.stream = self.engine.stream("serve")
         self.last_ticket = None
@@ -253,21 +270,19 @@ class ServingEngine:
         else:
             sid = self.cache.new_sequence(prompt_len=S)
         blocks = self.cache.blocks_of(sid)
-        tokens = torch.as_tensor(np.asarray(prompt, np.int64),
-                                 device=self.device)[None]
         eng = self.engine
         if not self.fused_staging:
             try:
-                logits, k, v = self.model.prefill(tokens)
+                logits, pages, extras = self._prefill(prompt, len(blocks))
             except Exception:
                 self.cache.free_sequence(sid)
                 raise
             eng.alloc.mark_written(blocks)
-            for name, kv in (("k", k), ("v", v)):
-                _stage_legacy(eng.pools[name], kv, blocks, self.rc.page_size)
+            for name, kv in zip(("k", "v"), pages):
+                _stage_legacy(eng.pools[name], kv, blocks)
                 notify_launch(len(blocks), 1, "legacy_stage")
             eng.mark_pools_written(("k", "v"))
-            return self._admitted(sid, prompt, logits)
+            return self._admitted(sid, prompt, logits, extras)
         if self.adaptive_ring and eng.stage_limit is not None \
                 and eng.stage_slots_free < len(blocks):
             # regrow on demand BEFORE reserving: the clamp never fails or
@@ -278,12 +293,10 @@ class ServingEngine:
             obs_metrics.inc("serve.ring_regrows")
         stage_ids = eng.stage_blocks(len(blocks))
         try:
-            logits, k, v = self.model.prefill(tokens)
+            logits, pages, extras = self._prefill(prompt, len(blocks))
             ids = torch.as_tensor(stage_ids, device=self.device)
-            for name, kv in (("k_stage", k), ("v_stage", v)):
-                pool = eng.pools[name]
-                pool.index_copy_(1, ids, kv_to_pools(kv, self.rc.page_size,
-                                                     pool.dtype, len(blocks)))
+            for name, kv in zip(("k_stage", "v_stage"), pages):
+                eng.pools[name].index_copy_(1, ids, kv)
             # out-of-band staging write: expires older tickets on these pools
             eng.mark_pools_written(("k_stage", "v_stage"))
         except Exception:
@@ -298,12 +311,43 @@ class ServingEngine:
             stream.promote_staged(pairs)
         self._staged_sids.append(sid)
         self._pending_promotions[sid] = pairs
-        return self._admitted(sid, prompt, logits)
+        return self._admitted(sid, prompt, logits, extras)
 
-    def _admitted(self, sid: int, prompt: np.ndarray,
-                  logits: torch.Tensor) -> int:
+    def _prefill(self, prompt: np.ndarray, n_blocks: int
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
+                            Dict[str, torch.Tensor]]:
+        """Prefill one prompt: its logits (1, V), its K and V pages
+        (L, n_blocks, page, KVH, D) in the pools' dtype, and its state
+        outside the pools (:data:`EXTRA_KEYS`; empty for dense and moe).
+        The hybrid and encdec run the facade's prefill with no decode
+        margin, whose pools come out in the identity layout of
+        ``n_blocks`` blocks; an encdec reads zero source frames of
+        ``max(S // src_frames_ratio, 1)`` (the reference's
+        ``_prefill_batch``, ``serve.py:382-392``)."""
+        cfg, page = self.cfg, self.rc.page_size
+        tokens = torch.as_tensor(np.asarray(prompt, np.int64),
+                                 device=self.device)[None]
+        if cfg.family in DECODER_FAMILIES:
+            logits, k, v = self.model.prefill(tokens)
+            dtype = self.engine.pools["k"].dtype
+            return logits, (kv_to_pools(k, page, dtype, n_blocks),
+                            kv_to_pools(v, page, dtype, n_blocks)), {}
+        extra = {}
+        if cfg.family == "encdec":
+            extra["src_embeds"] = torch.zeros(
+                (1, max(len(prompt) // cfg.src_frames_ratio, 1),
+                 cfg.d_model), dtype=torch.float32, device=self.device)
+        logits, st = self.model.prefill_state(tokens, margin_tokens=0,
+                                              **extra)
+        return logits, (st["k_pools"], st["v_pools"]), \
+            {k: st[k] for k in EXTRA_KEYS if k in st}
+
+    def _admitted(self, sid: int, prompt: np.ndarray, logits: torch.Tensor,
+                  extras: Dict[str, torch.Tensor]) -> int:
         self.last_logits[sid] = logits[0].cpu().numpy()
         self.tokens[sid] = [int(t) for t in prompt]
+        if extras:
+            self._extras[sid] = extras
         return sid
 
     def _dedup_pages(self, sid: int, prompt: np.ndarray,
@@ -355,6 +399,12 @@ class ServingEngine:
         for c in kids:
             self.last_logits[c] = self.last_logits[sid].copy()
             self.tokens[c] = list(self.tokens[sid])
+            # the children share the parent's tensors, as the reference
+            # shares its immutable arrays: safe only because the engine
+            # never decodes these families (LanguageModel.decode_state
+            # updates a state's tensors in place)
+            if sid in self._extras:
+                self._extras[c] = self._extras[sid]
         return kids
 
     def free(self, sid: int) -> None:
@@ -362,10 +412,11 @@ class ServingEngine:
         live one drops its dedup registry entries, RETIRES its still-queued
         promotions (a stale promotion would land in re-issued blocks) but
         keeps those into blocks a live dedup sharer still holds, then
-        releases its blocks, slot and host state."""
+        releases its blocks, slot and host state (``_extras`` included)."""
         parked = self.demoted.pop(sid, None)
         if parked is not None:
             self.engine.release_spill_slots(parked.slots)
+            self._extras.pop(sid, None)
             return
         for key in self._dedup_keys.pop(sid, []):
             blk, _ = self._dedup_registry.pop(key)
@@ -381,6 +432,7 @@ class ServingEngine:
         self.cache.free_sequence(sid)
         self.last_logits.pop(sid, None)
         self.tokens.pop(sid, None)
+        self._extras.pop(sid, None)
 
     # ------------------------------------------------------------------
     def demote(self, sid: int, stream=None) -> None:
@@ -402,7 +454,8 @@ class ServingEngine:
         self.demoted[sid] = DemotedSeq(
             length=seq.length, slots=list(slots), slab_home=seq.slab_home,
             logits=self.last_logits.pop(sid),
-            tokens=self.tokens.pop(sid, []))
+            tokens=self.tokens.pop(sid, []),
+            extras=self._extras.pop(sid, None))
         # hold the blocks past free_sequence until the flush
         self.engine.alloc.share(blocks)
         self.cache.free_sequence(sid)
@@ -421,6 +474,8 @@ class ServingEngine:
         stream.promote_spilled(list(zip(d.slots, blocks)))
         self.last_logits[new_sid] = d.logits
         self.tokens[new_sid] = d.tokens
+        if d.extras is not None:
+            self._extras[new_sid] = d.extras
         return new_sid
 
     # ------------------------------------------------------------------
@@ -472,7 +527,10 @@ class ServingEngine:
         """One token for every live sequence: greedy, or
         ``sample_fn(logits)`` of each sequence's last logits (a numpy
         vector) when given.  With no live sequence the round still drains
-        the stream (demotions must land)."""
+        the stream (demotions must land).  The hybrid and encdec families
+        are refused, as the reference refuses them."""
+        if self.cfg.family not in DECODER_FAMILIES:
+            raise NotImplementedError(DECODE_REFUSAL)
         live = sorted(self.cache.seqs)
         if not live:
             if len(self.stream):
@@ -511,14 +569,15 @@ class ServingEngine:
         return next_tok
 
 
-def _stage_legacy(pool: torch.Tensor, kv: torch.Tensor, blocks: List[int],
-                  page: int) -> None:
+def _stage_legacy(pool: torch.Tensor, pages: torch.Tensor,
+                  blocks: List[int]) -> None:
     """The seed's staging leg (``fused_staging=False``): write the
-    prefill's pages ``(L, 1, S, KVH, D)`` straight into the K/V pool's
-    ``blocks``, in place, outside the command queue (an ``index_copy_``;
-    the reference's is a jnp scatter, not a Pallas kernel)."""
+    prefill's pages ``(L, len(blocks), page, KVH, D)`` straight into the
+    K/V pool's ``blocks``, in place, outside the command queue (an
+    ``index_copy_``; the reference's is a jnp scatter, not a Pallas
+    kernel)."""
     ids = torch.as_tensor(blocks, dtype=torch.int64, device=pool.device)
-    pool.index_copy_(1, ids, kv_to_pools(kv, page, pool.dtype, len(blocks)))
+    pool.index_copy_(1, ids, pages)
 
 
 def main() -> None:
@@ -526,9 +585,11 @@ def main() -> None:
     RowClone mechanism stats."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b", choices=list_archs(),
-                    help="the engine serves the dense and moe configs; the "
-                         "vlm, ssm and hybrid ones decode through "
-                         "LanguageModel.decode_state and are refused here")
+                    help="the engine serves the dense and moe configs; it "
+                         "admits the hybrid and encdec ones, whose decode "
+                         "rounds it refuses, and refuses the vlm and ssm "
+                         "ones (all four decode through "
+                         "LanguageModel.decode_state)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=16)

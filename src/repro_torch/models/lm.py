@@ -1,17 +1,19 @@
-"""The language model (port of ``repro/models/lm.py``) for the dense, moe,
-vlm, ssm and hybrid families.  Each family decodes through one pair
-(:data:`ENTRY_PAIRS`):
+"""The language model (port of ``repro/models/lm.py``) for every family of
+the reference: dense, moe, vlm, ssm, hybrid and encdec.  Each family
+decodes through one pair (:data:`ENTRY_PAIRS`):
 
 * dense and moe: :meth:`LanguageModel.prefill` over a prompt and
   :meth:`LanguageModel.decode_step` over the paged pools, the pair the
   serving engine drives;
-* vlm, ssm and hybrid: the facade pair of the reference's ``prefill`` /
-  ``decode_step`` — :meth:`LanguageModel.prefill_state` returns the
-  last-position logits and the serve state (``make_serve_state``'s keys),
-  :meth:`LanguageModel.decode_state` takes one token per sequence over it.
-  The reference's serving engine refuses ssm and hybrid; it admits vlm but
-  drops the patch positions its prefill writes, so the port's engine
-  refuses vlm too (``launch/serve.py``).
+* vlm, ssm, hybrid and encdec: the facade pair of the reference's
+  ``prefill`` / ``decode_step`` — :meth:`LanguageModel.prefill_state`
+  returns the last-position logits and the serve state
+  (``make_serve_state``'s keys), :meth:`LanguageModel.decode_state` takes
+  one token per sequence over it.  The serving engine admits hybrid and
+  encdec prompts through ``prefill_state`` but decodes none of these
+  families, as the reference's ``decode_round`` refuses them; the
+  reference's admission drops a vlm prompt's patch positions, so the
+  port's engine refuses vlm (``launch/serve.py``).
 """
 from __future__ import annotations
 
@@ -20,21 +22,24 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs import (DECODER_FAMILIES, DECODER_STACKS,
-                                 ModelConfig, RowCloneConfig)
+from repro_torch.configs import (DECODER_FAMILIES, ModelConfig,
+                                 RowCloneConfig)
 from repro_torch.models.common import embed, rms_norm
 from repro_torch.models.mamba2 import (Mamba2Layer, mamba2_decode_step,
                                        mamba2_layer)
 from repro_torch.models.paged import identity_layout
-from repro_torch.models.transformer import (DecoderLayer, decoder_layer_decode,
+from repro_torch.models.transformer import (DecoderLayer, attn_block_train,
+                                            cross_block_train,
+                                            decoder_layer_decode,
                                             decoder_layer_train)
 
-PORTED_FAMILIES = DECODER_STACKS + ("ssm", "hybrid")
 #: the families each entry pair takes: the engine's pair (``prefill`` /
 #: ``decode_step``) and the facade's (``prefill_state`` / ``decode_state``
 #: / ``make_serve_state``)
 ENTRY_PAIRS = {"prefill / decode_step": DECODER_FAMILIES,
-               "prefill_state / decode_state": ("vlm", "ssm", "hybrid")}
+               "prefill_state / decode_state": ("vlm", "ssm", "hybrid",
+                                                "encdec")}
+PORTED_FAMILIES = tuple(f for fams in ENTRY_PAIRS.values() for f in fams)
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -44,9 +49,11 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 class LanguageModel(nn.Module):
     """Weights of the model: embedding (tied to the head when
     ``cfg.tie_embeddings``), final norm and the layers — decoder layers
-    (dense, moe, vlm) or Mamba2 layers (ssm, hybrid), plus the one shared
-    decoder layer of the hybrid, which runs after every
-    ``shared_attn_every`` Mamba2 layers.  Build one with
+    (dense, moe, vlm; encdec with cross-attention) or Mamba2 layers (ssm,
+    hybrid), plus the one shared decoder layer of the hybrid, which runs
+    after every ``shared_attn_every`` Mamba2 layers, and the encoder of an
+    encdec (``enc_layers``, ``encoder_layers`` decoder layers run without
+    the causal mask, and its norm ``enc_norm``).  Build one with
     :func:`repro_torch.weights.init_params` or
     :func:`repro_torch.weights.from_jax_params`."""
 
@@ -54,8 +61,7 @@ class LanguageModel(nn.Module):
                  rc: RowCloneConfig = RowCloneConfig()):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet")
+            raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         self.page = rc.page_size
         dt = model_dtype(cfg)
@@ -69,12 +75,22 @@ class LanguageModel(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.zeros((cfg.d_model, cfg.padded_vocab), dtype=dt,
                             device=device), requires_grad=False)
-        layer = DecoderLayer if cfg.family in DECODER_STACKS \
-            else Mamba2Layer
-        self.layers = nn.ModuleList(layer(cfg, dt, device)
-                                    for _ in range(cfg.num_layers))
+        if cfg.family in ("ssm", "hybrid"):
+            self.layers = nn.ModuleList(Mamba2Layer(cfg, dt, device)
+                                        for _ in range(cfg.num_layers))
+        else:
+            cross = cfg.family == "encdec"
+            self.layers = nn.ModuleList(DecoderLayer(cfg, dt, device, cross)
+                                        for _ in range(cfg.num_layers))
         if cfg.family == "hybrid":
             self.shared = DecoderLayer(cfg, dt, device)
+        if cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(
+                DecoderLayer(cfg, dt, device)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = nn.Parameter(
+                torch.zeros((cfg.d_model,), dtype=torch.float32,
+                            device=device), requires_grad=False)
 
     @property
     def act_dtype(self) -> torch.dtype:
@@ -138,7 +154,7 @@ class LanguageModel(nn.Module):
         return self._logits(xn)
 
     # ------------------------------------------------------------------
-    # the facade pair over a serve state (vlm, ssm, hybrid)
+    # the facade pair over a serve state (vlm, ssm, hybrid, encdec)
     # ------------------------------------------------------------------
     def make_serve_state(self, batch: int, seq_len: int,
                          filled: Optional[int] = None,
@@ -147,12 +163,14 @@ class LanguageModel(nn.Module):
         """Zero serve state with the identity block layout (the reference's
         ``make_serve_state`` on one device).  ``filled``: tokens already
         present per sequence (default ``seq_len - 1``).  Keys: ``seq_lens``;
-        for vlm and hybrid ``block_table``, ``share_mask``, ``base`` and
-        ``k_pools`` / ``v_pools`` (num_attn_layers, nblk, page, KVH, D) in
-        ``dtype`` (default the model dtype); for ssm and hybrid
+        for vlm, hybrid and encdec ``block_table``, ``share_mask``, ``base``
+        and ``k_pools`` / ``v_pools`` (num_attn_layers, nblk, page, KVH, D)
+        in ``dtype`` (default the model dtype); for ssm and hybrid
         ``conv_state`` (L, B, W-1, C) and ``ssm_state`` (L, B, H, P, N)
         fp32, with the layer axis split (n_seg, shared_attn_every) for the
-        hybrid."""
+        hybrid; for encdec ``cross_k`` / ``cross_v`` (L, B, S_src, KVH, D)
+        in ``dtype``, ``S_src = max(seq_len // src_frames_ratio, 1)`` (the
+        reference's ``lm.py:248-253``)."""
         self._pair_of("prefill_state / decode_state", "make_serve_state")
         cfg, page = self.cfg, self.page
         dev = self.embed.device
@@ -169,7 +187,13 @@ class LanguageModel(nn.Module):
                 (cfg.num_attn_layers, base.shape[0], page, cfg.num_kv_heads,
                  cfg.head_dim), dtype=dtype, device=dev)
             state["v_pools"] = torch.zeros_like(state["k_pools"])
-        if cfg.family == "vlm":
+        if cfg.family == "encdec":
+            S_src = max(seq_len // cfg.src_frames_ratio, 1)
+            state["cross_k"] = torch.zeros(
+                (cfg.num_layers, batch, S_src, cfg.num_kv_heads,
+                 cfg.head_dim), dtype=dtype, device=dev)
+            state["cross_v"] = torch.zeros_like(state["cross_k"])
+        if cfg.family not in ("ssm", "hybrid"):
             return state
         lead = (cfg.num_layers,)
         if cfg.family == "hybrid":
@@ -198,7 +222,8 @@ class LanguageModel(nn.Module):
     @torch.no_grad()
     def prefill_state(self, tokens: torch.Tensor,
                       patch_embeds: Optional[torch.Tensor] = None,
-                      margin_tokens: Optional[int] = None
+                      margin_tokens: Optional[int] = None,
+                      src_embeds: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full forward over prompts of one length (no padding mask, as the
         reference); returns the last-position logits (B, V) fp32 and the
@@ -206,12 +231,19 @@ class LanguageModel(nn.Module):
         prompt (default one page).  vlm: ``patch_embeds`` (B,
         vision_tokens, d_model), required, go in front of the tokens'
         embeddings and are visible to every position (prefix-LM); the
-        sequence is then ``vision_tokens + S`` long."""
+        sequence is then ``vision_tokens + S`` long.  encdec:
+        ``src_embeds`` (B, S_src, d_model), required, are the encoder's
+        input frames (RoPE over positions 0..S_src-1, no causal mask, then
+        ``enc_norm``); each decoder layer attends over them after its
+        self-attention, and the state keeps each layer's cross K/V as
+        ``cross_k`` / ``cross_v`` (L, B, S_src, KVH, D)."""
         self._pair_of("prefill_state / decode_state", "prefill_state")
         cfg, page = self.cfg, self.page
-        if (patch_embeds is None) == (cfg.family == "vlm"):
-            raise ValueError(f"patch_embeds: required for the vlm family, "
-                             f"refused for {cfg.family!r}")
+        for name, given, fam in (("patch_embeds", patch_embeds, "vlm"),
+                                 ("src_embeds", src_embeds, "encdec")):
+            if (given is None) == (cfg.family == fam):
+                raise ValueError(f"{name}: required for the {fam} family, "
+                                 f"refused for {cfg.family!r}")
         x = embed(self.embed, tokens, self.act_dtype)
         prefix = 0
         if patch_embeds is not None:
@@ -234,6 +266,18 @@ class LanguageModel(nn.Module):
                 x, _, (k, v) = decoder_layer_train(layer, x, pos, cfg,
                                                    prefix_len=prefix)
                 to_pools(li, k, v)
+        elif cfg.family == "encdec":
+            enc = self._encode(src_embeds.to(x.dtype))
+            xks, xvs = [], []
+            for li, layer in enumerate(self.layers):
+                x, (k, v) = attn_block_train(layer, x, pos, cfg)
+                x, (xk, xv) = cross_block_train(layer, x, enc, cfg)
+                x, _ = layer.ffn(x, cfg)
+                to_pools(li, k, v)
+                xks.append(xk)
+                xvs.append(xv)
+            state["cross_k"] = torch.stack(xks)
+            state["cross_v"] = torch.stack(xvs)
         else:
             conv, ssm, every = self._per_layer(state)
             for li, layer in enumerate(self.layers):
@@ -244,6 +288,17 @@ class LanguageModel(nn.Module):
                     to_pools(li // every, k, v)
         xn = rms_norm(x[:, -1, :], self.final_norm, cfg.norm_eps)
         return self._logits(xn), state
+
+    def _encode(self, src: torch.Tensor) -> torch.Tensor:
+        """The encoder stack over frames src (B, S_src, d), then
+        ``enc_norm``: RoPE over positions 0..S_src-1 and no causal mask
+        (the reference's ``_backbone_train``, ``lm.py:130-139``)."""
+        B, S_src, _ = src.shape
+        pos = torch.arange(S_src, device=src.device).expand(B, S_src)
+        for layer in self.enc_layers:
+            src, _, _ = decoder_layer_train(layer, src, pos, self.cfg,
+                                            causal=False)
+        return rms_norm(src, self.enc_norm, self.cfg.norm_eps)
 
     @torch.no_grad()
     def decode_state(self, state: Dict[str, torch.Tensor],
@@ -263,13 +318,15 @@ class LanguageModel(nn.Module):
 
         def attend(layer: DecoderLayer, x: torch.Tensor,
                    i: int) -> torch.Tensor:
+            cross = (state["cross_k"][i], state["cross_v"][i]) \
+                if cfg.family == "encdec" else None
             return decoder_layer_decode(
                 layer, x, pos, state["k_pools"][i], state["v_pools"][i],
                 rows, ids, offsets, state["share_mask"], state["base"],
-                seq_incl, cfg, page)
+                seq_incl, cfg, page, cross_kv=cross)
 
         x = embed(self.embed, tokens, self.act_dtype)
-        if cfg.family == "vlm":
+        if cfg.family in ("vlm", "encdec"):
             for li, layer in enumerate(self.layers):
                 x = attend(layer, x, li)
         else:

@@ -1,12 +1,14 @@
-"""Decoder layer (port of ``repro/models/transformer.py``, the dense, moe
-and vlm families): GQA attention block (with the QKV bias where the config
-sets ``qkv_bias``) + a SwiGLU MLP (dense, vlm) or a mixture-of-experts FFN
-(moe), for prefill and for one decode step over the paged pools.  Weights
-keep the JAX layout ``(in, out)``, so ``h @ w`` reads the same in both
-packages."""
+"""Decoder layer (port of ``repro/models/transformer.py``): GQA attention
+block (with the QKV bias where the config sets ``qkv_bias``) + a SwiGLU MLP
+(dense, vlm, encdec, the hybrid's shared block) or a mixture-of-experts FFN
+(moe), for prefill and for one decode step over the paged pools.  An
+encoder-decoder's decoder layer has a cross-attention block between the two
+(``cross=True``), and its encoder layers are decoder layers run without the
+causal mask.  Weights keep the JAX layout ``(in, out)``, so ``h @ w`` reads
+the same in both packages."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,13 +25,30 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+class CrossAttention(nn.Module):
+    """The cross-attention projections of an encoder-decoder's decoder
+    layer (the reference's ``xattn``): ``wq`` reads the decoder's stream,
+    ``wk`` / ``wv`` the encoder's output, ``wo`` writes back."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.wq = _param((d, cfg.q_dim), dtype, device)
+        self.wk = _param((d, cfg.kv_dim), dtype, device)
+        self.wv = _param((d, cfg.kv_dim), dtype, device)
+        self.wo = _param((cfg.q_dim, d), dtype, device)
+
+
 class DecoderLayer(nn.Module):
     """One decoder layer's weights.  Norm gains stay fp32; the projections
     (and the QKV biases ``bq`` / ``bk`` / ``bv`` of a ``qkv_bias`` config)
     are in the model dtype.  A dense layer holds its MLP's ``w_gate`` /
-    ``w_up`` / ``w_down``, a moe layer a :class:`MoEFFN` as ``moe``."""
+    ``w_up`` / ``w_down``, a moe layer a :class:`MoEFFN` as ``moe``; with
+    ``cross=True`` it also holds the cross-attention's norm ``ln_x`` and a
+    :class:`CrossAttention` as ``xattn``."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device,
+                 cross: bool = False):
         super().__init__()
         d = cfg.d_model
         self.ln1 = _param((d,), torch.float32, device)
@@ -49,6 +68,9 @@ class DecoderLayer(nn.Module):
             self.w_gate = _param((d, cfg.d_ff), dtype, device)
             self.w_up = _param((d, cfg.d_ff), dtype, device)
             self.w_down = _param((cfg.d_ff, d), dtype, device)
+        if cross:
+            self.ln_x = _param((d,), torch.float32, device)
+            self.xattn = CrossAttention(cfg, dtype, device)
 
     def qkv(self, h: torch.Tensor):
         """Q, K, V projections in ``h``'s dtype, the biases added after the
@@ -77,15 +99,13 @@ def _heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, d))
 
 
-def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
-                        pos: torch.Tensor, cfg: ModelConfig,
-                        prefix_len: int = 0
-                        ) -> Tuple[torch.Tensor, torch.Tensor,
-                                   Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence layer for prefill: x (B, S, d), pos (B, S); key
-    positions below ``prefix_len`` are visible to every query (the vlm's
-    patch prefix, the reference's ``MaskInfo.prefix_len``).  Returns the
-    new x, the FFN's aux loss (fp32 scalar, 0 for dense) and this layer's
+def attn_block_train(layer: DecoderLayer, x: torch.Tensor,
+                     pos: torch.Tensor, cfg: ModelConfig, prefix_len: int = 0,
+                     causal: bool = True
+                     ) -> Tuple[torch.Tensor,
+                                Tuple[torch.Tensor, torch.Tensor]]:
+    """The self-attention block over a full sequence: x (B, S, d), pos
+    (B, S).  Returns x plus the attention's output and this layer's
     post-RoPE (k, v), each (B, S, KVH, D)."""
     B, S, _ = x.shape
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
@@ -95,10 +115,45 @@ def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
     k = apply_rope(_heads(k, cfg.num_kv_heads, cfg.head_dim), pos,
                    cfg.rope_theta)
     v = _heads(v, cfg.num_kv_heads, cfg.head_dim)
-    o = prefill_attention(q, k, v, causal=True, prefix_len=prefix_len)
-    x = x + o.reshape(B, S, cfg.q_dim) @ layer.wo.to(x.dtype)
+    o = prefill_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+    return x + o.reshape(B, S, cfg.q_dim) @ layer.wo.to(x.dtype), (k, v)
+
+
+def cross_block_train(layer: DecoderLayer, x: torch.Tensor,
+                      enc_out: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor,
+                                 Tuple[torch.Tensor, torch.Tensor]]:
+    """The cross-attention block (the reference's ``cross_block_train``):
+    the decoder's x (B, S, d) attends over the normed encoder output
+    enc_out (B, S_src, d), no RoPE, every frame visible.  Returns x plus
+    the block's output and the cross (k, v), each (B, S_src, KVH, D): the
+    serve state's ``cross_k`` / ``cross_v`` of this layer."""
+    B, S, _ = x.shape
+    h = rms_norm(x, layer.ln_x, cfg.norm_eps)
+    xa, dt = layer.xattn, h.dtype
+    q = _heads(h @ xa.wq.to(dt), cfg.num_heads, cfg.head_dim)
+    k = _heads(enc_out @ xa.wk.to(dt), cfg.num_kv_heads, cfg.head_dim)
+    v = _heads(enc_out @ xa.wv.to(dt), cfg.num_kv_heads, cfg.head_dim)
+    # every frame visible to every query: the reference's mask with zero
+    # positions and every frame valid
+    o = prefill_attention(q, k, v, causal=False)
+    return x + o.reshape(B, S, cfg.q_dim) @ xa.wo.to(x.dtype), (k, v)
+
+
+def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
+                        pos: torch.Tensor, cfg: ModelConfig,
+                        prefix_len: int = 0, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence layer for prefill: x (B, S, d), pos (B, S); key
+    positions below ``prefix_len`` are visible to every query (the vlm's
+    patch prefix, the reference's ``MaskInfo.prefix_len``);
+    ``causal=False`` makes every position visible to every query (an
+    encoder layer).  Returns the new x, the FFN's aux loss (fp32 scalar, 0
+    for dense) and this layer's post-RoPE (k, v), each (B, S, KVH, D)."""
+    x, kv = attn_block_train(layer, x, pos, cfg, prefix_len, causal)
     x, aux = layer.ffn(x, cfg)
-    return x, aux, (k, v)
+    return x, aux, kv
 
 
 def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
@@ -107,9 +162,14 @@ def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
                          blk_ids: torch.Tensor, offsets: torch.Tensor,
                          share_mask: torch.Tensor,
                          base: torch.Tensor, seq_lens_incl: torch.Tensor,
-                         cfg: ModelConfig, page: int) -> torch.Tensor:
+                         cfg: ModelConfig, page: int,
+                         cross_kv: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None
+                         ) -> torch.Tensor:
     """One token per sequence: x (B, d), pos (B,).  Appends this layer's
-    new K/V into ``k_slab`` / ``v_slab`` IN PLACE and attends over them.
+    new K/V into ``k_slab`` / ``v_slab`` IN PLACE and attends over them;
+    with ``cross_kv`` = (k, v), each (B, S_src, KVH, D), the token then
+    attends over the encoder's frames (no RoPE, every frame visible).
     The FFN sees (B, 1, d): a moe layer routes each sequence alone."""
     B, _ = x.shape
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
@@ -122,7 +182,16 @@ def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
     o = attend_append_local(q, k, v, k_slab, v_slab, rows, blk_ids, offsets,
                             share_mask, base, seq_lens_incl, page=page)
     x = x + o.reshape(B, cfg.q_dim) @ layer.wo.to(x.dtype)
+    if cross_kv is not None:
+        hx = rms_norm(x, layer.ln_x, cfg.norm_eps)
+        xa = layer.xattn
+        qx = _heads(hx[:, None, :] @ xa.wq.to(x.dtype), cfg.num_heads,
+                    cfg.head_dim)
+        ox = prefill_attention(qx, *cross_kv, causal=False)
+        x = x + ox.reshape(B, cfg.q_dim) @ xa.wo.to(x.dtype)
     return layer.ffn(x[:, None, :], cfg)[0][:, 0]
 
 
-__all__ = ["DecoderLayer", "decoder_layer_train", "decoder_layer_decode"]
+__all__ = ["CrossAttention", "DecoderLayer", "attn_block_train",
+           "cross_block_train", "decoder_layer_train",
+           "decoder_layer_decode"]

@@ -1,4 +1,4 @@
-"""Weights of the port's models (dense, moe, vlm, ssm, hybrid).
+"""Weights of the port's models (dense, moe, vlm, ssm, hybrid, encdec).
 
 * :func:`init_params` makes random weights on the target device from a
   seeded ``torch.Generator``, with the scales of the reference's
@@ -7,14 +7,17 @@
   QKV biases zero; a moe FFN's router N(0, 0.02), expert ``w_gate`` /
   ``w_up`` N(0, 1/d) and ``w_down`` N(0, 1/f), shared experts as a dense
   MLP (``repro/models/moe.py``); a vlm's tree is the dense one's, its head
-  tied to the embedding;
+  tied to the embedding; an encdec's encoder layers are dense decoder
+  layers, its decoder layers' cross-attention ``xattn`` is drawn as a
+  self-attention's projections, ``enc_norm`` and ``ln_x`` are zero;
   Mamba2 ``conv_w`` N(0, 1/W), ``dt_bias = log(expm1(dt))`` with ``dt``
   log-uniform in [1e-3, 1e-1], ``A_log = log(1..H)``, ``D = 1``.  Nothing
   is downloaded.
 * :func:`from_jax_params` loads the JAX parameter tree (after
   ``split_params``, every leaf converted to numpy; layer weights stacked on
-  a leading axis, the hybrid's ``shared`` decoder layer unstacked) into the
-  port's modules, for the parity tests.
+  a leading axis, the hybrid's ``shared`` decoder layer unstacked, an
+  encdec's ``enc_layers`` stacked and ``enc_norm``) into the port's
+  modules, for the parity tests.
 
 The JAX layout ``(in, out)`` is kept.
 """
@@ -64,10 +67,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         normal_(m.w_up, cfg.d_model ** -0.5)
         normal_(m.w_down, f ** -0.5)
 
-    def decoder(layer: DecoderLayer) -> None:
+    def attn(m) -> None:
         for name in ("wq", "wk", "wv"):
-            normal_(getattr(layer, name), cfg.d_model ** -0.5)
-        normal_(layer.wo, cfg.q_dim ** -0.5)
+            normal_(getattr(m, name), cfg.d_model ** -0.5)
+        normal_(m.wo, cfg.q_dim ** -0.5)
+
+    def decoder(layer: DecoderLayer) -> None:
+        attn(layer)
+        if hasattr(layer, "xattn"):
+            attn(layer.xattn)
         if cfg.family != "moe":
             mlp(layer, cfg.d_ff)
             return
@@ -97,6 +105,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         (decoder if isinstance(layer, DecoderLayer) else mamba)(layer)
     if cfg.family == "hybrid":
         decoder(model.shared)
+    for layer in getattr(model, "enc_layers", ()):
+        decoder(layer)
     return model
 
 
@@ -118,8 +128,8 @@ MAMBA2_PARAMS = ("norm", "w_in", "conv_w", "conv_b", "dt_bias", "A_log", "D",
 
 def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
                     rc: RowCloneConfig = RowCloneConfig()) -> LanguageModel:
-    """Map the JAX parameter tree (numpy leaves) of a dense, moe, vlm, ssm
-    or hybrid model into a :class:`LanguageModel` on ``device``."""
+    """Map the JAX parameter tree (numpy leaves) of a model of any family
+    into a :class:`LanguageModel` on ``device``."""
     device = resolve_device(device)
     model = LanguageModel(cfg, device, rc)
 
@@ -139,6 +149,10 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
             (("bq", "bk", "bv") if cfg.qkv_bias else ())
         for name in attn:
             put(getattr(layer, name), at(d["attn"][name]))
+        if hasattr(layer, "xattn"):
+            put(layer.ln_x, at(d["ln_x"]))
+            for name in ("wq", "wk", "wv", "wo"):
+                put(getattr(layer.xattn, name), at(d["xattn"][name]))
         if cfg.family != "moe":
             for name in SWIGLU_PARAMS:
                 put(getattr(layer, name), at(d["mlp"][name]))
@@ -163,6 +177,10 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
                 put(getattr(layer, name), lay[name][i])
     if cfg.family == "hybrid":
         decoder(model.shared, tree["shared"])
+    if cfg.family == "encdec":
+        for i, layer in enumerate(model.enc_layers):
+            decoder(layer, tree["enc_layers"], i)
+        put(model.enc_norm, tree["enc_norm"])
     return model
 
 

@@ -354,3 +354,54 @@ def test_paged_attention_at_head_dim_256_matches_pallas(pages):
         for name, a, b in zip(("acc", "l", "m"), got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
                                        rtol=1e-5, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# head dim 64 and Sq != Skv: seamless-m4t-medium's cross-attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,atol", [(jnp.float32, 1e-4),
+                                        (jnp.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Sq,Skv", [(64, 16), (1, 16)])
+def test_cross_attention_at_head_dim_64_matches_pallas_and_model(
+        dtype, atol, Sq, Skv):
+    """The plain K3 at seamless's head dim 64 (4 heads over 4 KV heads),
+    non-causal with Sq != Skv: the prefill cross-attention (64 text rows
+    over 16 frames) and the decode step's (one query over 16 frames),
+    against the TPU kernel body in interpret mode and against the JAX
+    model's scan with zero positions and every frame valid (the
+    reference's cross-attention call, ``transformer.py:103-121``)."""
+    B, H, KVH, D = 2, 4, 4, 64
+    rng = np.random.default_rng(64 + Sq)
+    q = jnp.asarray(rng.standard_normal((B, H, Sq, D))
+                    .astype(np.float32)).astype(dtype)
+    k, v = (jnp.asarray(rng.standard_normal((B, KVH, Skv, D))
+                        .astype(np.float32)).astype(dtype) for _ in range(2))
+    got = ops.flash_attention(to_torch(q), to_torch(k), to_torch(v),
+                              causal=False)
+    assert got.dtype == to_torch(q).dtype and got.shape == (B, H, Sq, D)
+    want_pl = flash_attention_pallas(q, k, v, causal=False, bq=32, bk=16,
+                                     interpret=True)
+    want_model = jax_model_flash(
+        *(x.transpose(0, 2, 1, 3) for x in (q, k, v)),
+        jnp.zeros((B, Sq), jnp.int32), jnp.zeros((B, Skv), jnp.int32),
+        jnp.ones((B, Skv), bool), MaskInfo(causal=False)
+    ).transpose(0, 2, 1, 3)
+    for want in (want_pl, want_model):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(64, 128), (128, 32)])
+def test_causal_mask_with_sq_ne_skv_matches_pallas(Sq, Skv):
+    """Causal with Sq != Skv keeps the Pallas kernel's mask, key column <=
+    query row with both counted from 0 (fp32, D = 64)."""
+    B, H, KVH, D = 1, 4, 2, 64
+    rng = np.random.default_rng(Sq + Skv)
+    q = rng.standard_normal((B, H, Sq, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, KVH, Skv, D)).astype(np.float32)
+            for _ in range(2))
+    want = flash_attention_pallas(*(jnp.asarray(x) for x in (q, k, v)),
+                                  causal=True, bq=32, bk=32, interpret=True)
+    got = ops.flash_attention(to_torch(q), to_torch(k), to_torch(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)

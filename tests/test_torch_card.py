@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card: K1-K6
 (tests marked ``cuda``; each skips where no GPU is visible), K2 and K3
-also at the head groups of every served config.
+also at the head groups of every served config and at every head dim, K3
+with Sq != Skv.
 
 This module imports only torch, numpy, pytest and ``repro_torch`` and makes
 its inputs with numpy, so that it runs on the card's machine, which has no
@@ -400,6 +401,48 @@ def test_cuda_attention_kernels_at_head_dim_256_match_plain_on_card(card):
             ops.flash_attention(qq, kk, vv, prefix_len=prefix).float(),
             ops.flash_attention(qq, kk, vv, prefix_len=prefix,
                                 use_kernel=False).float(),
+            atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_at_head_dim_64_match_plain_on_card(card):
+    """K2 and K3 at seamless-m4t-medium's head shape, 16 heads over 16 KV
+    heads x 64, against their plain versions: K2 on a slab with a 64-page
+    sequence, CoW-shared blocks and an empty slot, and on 2-5 pages each
+    (atol 2e-3 on the normalised output and m); K3 causal at S = 512 and a
+    ragged 57, non-causal at Sq = Skv = 14 (the encoder), and non-causal
+    with Sq != Skv: 512 over 128 and 57 over 14 (prefill cross-attention),
+    one query over 128 (the decode step's), and the edges Skv = 1 and 65
+    over 200 (atol 2e-2 on its bf16 output)."""
+    for pages in ((64, 3, 1, 0), (2, 2, 5, 1)):
+        case = _layout_case(19, pages, H=16, KVH=16, D=64, page=64, nblk=80)
+        args = [torch.from_numpy(x).cuda() for x in case]
+        for i in range(3):
+            args[i] = args[i].bfloat16()
+        acc, l, m = ops.paged_attention_slab(*args, page=64)
+        acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=64,
+                                                   use_kernel=False)
+        torch.testing.assert_close(acc / l.clamp_min(1e-30)[..., None],
+                                   acc_p / l_p.clamp_min(1e-30)[..., None],
+                                   atol=2e-3, rtol=0)
+        torch.testing.assert_close(m, m_p, atol=2e-3, rtol=0)
+        empty = args[5] == 0
+        assert (m[empty] == NEG_INF).all() and (l[empty] == 0).all()
+    rng = np.random.default_rng(23)
+    for B, Sq, Skv, causal in ((1, 512, 512, True), (1, 57, 57, True),
+                               (2, 14, 14, False), (1, 512, 128, False),
+                               (1, 57, 14, False), (4, 1, 128, False),
+                               (1, 65, 1, False), (1, 65, 200, False)):
+        qq = torch.from_numpy(rng.standard_normal((B, Sq, 16, 64)).astype(
+            np.float32)).cuda().bfloat16().transpose(1, 2)
+        kk, vv = (torch.from_numpy(rng.standard_normal((B, Skv, 16, 64))
+                                   .astype(np.float32)).cuda().bfloat16()
+                  .transpose(1, 2) for _ in range(2))
+        got = ops.flash_attention(qq, kk, vv, causal=causal)
+        assert got.shape == (B, 16, Sq, 64)
+        torch.testing.assert_close(
+            got.float(), ops.flash_attention(qq, kk, vv, causal=causal,
+                                             use_kernel=False).float(),
             atol=2e-2, rtol=0)
 
 

@@ -158,14 +158,17 @@ def jax_and_port_models(arch: str, **overrides):
 #: the serve-state leaves the facades carry, by family
 STATE_KEYS = {"ssm": ("conv_state", "ssm_state"),
               "hybrid": ("conv_state", "ssm_state", "k_pools", "v_pools"),
-              "vlm": ("k_pools", "v_pools")}
+              "vlm": ("k_pools", "v_pools"),
+              "encdec": ("k_pools", "v_pools", "cross_k", "cross_v")}
 
 
 def facade_parity(jmodel, params, tmodel, cfg, prompts, steps: int = 4, *,
-                  logit_atol: float, state_atol: float, patches=None):
+                  logit_atol: float, state_atol: float, patches=None,
+                  src=None):
     """``prefill_state`` then ``steps`` greedy ``decode_state`` calls of the
     port against the JAX facade's ``prefill`` / ``decode_step`` on the same
-    prompts (and, for vlm, the same ``patches`` as ``patch_embeds``):
+    prompts (and, for vlm, the same ``patches`` as ``patch_embeds``; for
+    encdec, the same ``src`` frames as ``src_embeds``):
     logits within ``logit_atol`` at every call, identical greedy tokens
     (both sides are fed the reference's token), and the state's recurrent
     leaves and KV pools within ``state_atol`` (same layout as the
@@ -188,9 +191,10 @@ def facade_parity(jmodel, params, tmodel, cfg, prompts, steps: int = 4, *,
 
     batch = {"tokens": jnp.asarray(prompts)}
     extra = {}
-    if patches is not None:
-        batch["patch_embeds"] = jnp.asarray(patches)
-        extra["patch_embeds"] = torch.from_numpy(patches)
+    for name, a in (("patch_embeds", patches), ("src_embeds", src)):
+        if a is not None:
+            batch[name] = jnp.asarray(a)
+            extra[name] = torch.from_numpy(a)
     lj, sj = jmodel.prefill(params, batch, None)
     lt, st = tmodel.prefill_state(torch.from_numpy(prompts).long(), **extra)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=logit_atol)
@@ -231,11 +235,10 @@ def test_opcode_tables_match_reference():
         tops.check_pack_total(tops.MAX_PACK_BLOCKS + 1)
 
 
-#: the registry entries the port runs: every dense, moe, vlm, ssm and
-#: hybrid config of the reference
+#: the registry entries the port runs: every config of the reference
 PORTED_ARCHS = ("llama3.2-3b", "yi-6b", "mistral-nemo-12b", "qwen2-72b",
                 "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "paligemma-3b",
-                "mamba2-780m", "zamba2-2.7b")
+                "mamba2-780m", "zamba2-2.7b", "seamless-m4t-medium")
 #: properties, and methods called without arguments
 CONFIG_PROPS = ("padded_vocab", "q_dim", "kv_dim", "num_attn_layers",
                 "ssm_d_inner", "is_attention_free", "has_subquadratic_path",
@@ -265,9 +268,10 @@ def test_config_copy_matches_reference():
 def test_family_sizes_pinned(arch):
     """The sizes the port's models are built from, full and reduced: the
     KV-owning layers (0 for ssm, one per shared-attention segment for
-    hybrid), d_inner, the padded vocabulary and the parameter counts (all
-    and active, in millions), as the reference reports them and as the
-    published configurations give them."""
+    hybrid, the decoder layers for encdec), d_inner, the padded vocabulary
+    and the parameter counts (all and active, in millions), as the
+    reference reports them and as the published configurations give
+    them."""
     want = {"llama3.2-3b": (28, 6144, 128256, 3212, 3212),
             "yi-6b": (32, 8192, 64000, 6061, 6061),
             "mistral-nemo-12b": (40, 10240, 131072, 12247, 12247),
@@ -276,7 +280,8 @@ def test_family_sizes_pinned(arch):
             "phi3.5-moe-42b-a6.6b": (32, 8192, 32256, 41874, 6641),
             "paligemma-3b": (18, 4096, 257280, 2508, 2508),
             "mamba2-780m": (0, 3072, 50432, 780, 780),
-            "zamba2-2.7b": (9, 5120, 32000, 2422, 2422)}[arch]
+            "zamba2-2.7b": (9, 5120, 32000, 2422, 2422),
+            "seamless-m4t-medium": (12, 2048, 256256, 977, 977)}[arch]
 
     def sizes(cfg):
         return (cfg.num_attn_layers, cfg.ssm_d_inner, cfg.padded_vocab,
@@ -289,16 +294,23 @@ def test_family_sizes_pinned(arch):
         assert sizes(cfg) == sizes(ref)
 
 
-def test_unported_families_still_raise():
-    """encdec is not ported: its KV-layer count and parameter count raise
-    rather than guessing.  moe and vlm are ported: every layer owns a KV
-    cache, as the reference counts it."""
-    cfg = dataclasses.replace(tcfg.get_config("llama3.2-3b"),
-                              family="encdec")
-    with pytest.raises(NotImplementedError):
-        cfg.num_attn_layers
-    with pytest.raises(NotImplementedError):
-        cfg.param_count()
+def test_family_kv_layers_and_params_match_reference():
+    """The encdec counts its decoder layers as KV-owning and adds the
+    encoder and the cross-attention to its parameters, as the reference
+    does, also for a dense config recast as encdec (977,858,560 for
+    seamless-m4t-medium); moe and vlm: every layer owns a KV cache, as the
+    reference counts it."""
+    for cfg_t, cfg_j in ((tcfg.get_config("seamless-m4t-medium"),
+                          jcfg.get_config("seamless-m4t-medium")),
+                         *((dataclasses.replace(c.get_config("llama3.2-3b"),
+                                                family="encdec",
+                                                encoder_layers=3)
+                            for c in (tcfg, jcfg)),)):
+        for t, j in ((cfg_t, cfg_j), (cfg_t.reduced(), cfg_j.reduced())):
+            assert t.num_attn_layers == j.num_attn_layers == t.num_layers
+            assert t.param_count() == j.param_count()
+    assert tcfg.get_config("seamless-m4t-medium").param_count() == \
+        977_858_560
     for arch, fam in (("deepseek-moe-16b", "moe"),
                       ("phi3.5-moe-42b-a6.6b", "moe"),
                       ("paligemma-3b", "vlm")):

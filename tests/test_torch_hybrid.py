@@ -125,13 +125,22 @@ def test_init_params_hybrid_is_seeded_and_complete():
 
 
 def test_serving_engine_and_dense_entries_refuse_the_hybrid(hybrid):
-    """The serving engine serves the dense family (the reference refuses
-    other families in decode_round); the dense-only prefill / decode_step
-    pair raises for the hybrid, which decodes through decode_state."""
-    from repro_torch.launch.serve import ServingEngine
+    """The serving engine admits a hybrid prompt (its conv / ssm state in
+    ``_extras``) but refuses its decode round with the reference's
+    message (tests/test_torch_encdec.py holds the admission against the
+    JAX engine); the dense-only prefill / decode_step pair raises for the
+    hybrid, which decodes through decode_state."""
+    from repro_torch.launch.serve import DECODE_REFUSAL, ServingEngine
     _, _, tmodel, cfg = hybrid
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, tmodel, device="cpu")
+    eng = ServingEngine(cfg, tmodel, max_seqs=2, max_blocks_per_seq=4,
+                        device="cpu")
+    sid = eng.add_request(np.arange(2, 12, dtype=np.int32))
+    assert sorted(eng._extras[sid]) == ["conv_state", "ssm_state"]
+    with pytest.raises(NotImplementedError) as err:
+        eng.decode_round()
+    assert str(err.value) == DECODE_REFUSAL
+    eng.free(sid)
+    assert eng._extras == {}
     with pytest.raises(NotImplementedError):
         tmodel.prefill(torch.zeros((1, 4), dtype=torch.long))
 
@@ -139,11 +148,11 @@ def test_serving_engine_and_dense_entries_refuse_the_hybrid(hybrid):
 @pytest.mark.parametrize("wrapper", ["paged_attention", "flash_attention"])
 def test_head_dim_80_accepted_and_others_refused_before_launch(wrapper):
     """The K2 / K3 wrappers take head dims 80 and 128 and refuse any other
-    before touching the card (CPU tensors are refused too)."""
+    (96) before touching the card (CPU tensors are refused too)."""
     from repro_torch.kernels import flash_attention, paged_attention
     assert 80 in paged_attention.HEAD_DIMS and 128 in paged_attention.HEAD_DIMS
     assert flash_attention.HEAD_DIMS == paged_attention.HEAD_DIMS
-    for D in (64, 80):
+    for D in (96, 80):
         if wrapper == "paged_attention":
             q = torch.zeros((2, 4, D), dtype=torch.bfloat16)
             kv = torch.zeros((3, 16, 4, D), dtype=torch.bfloat16)
@@ -156,4 +165,4 @@ def test_head_dim_80_accepted_and_others_refused_before_launch(wrapper):
             call = lambda: flash_attention.flash_attention_cuda(q, q, q)  # noqa
         with pytest.raises(ValueError) as err:
             call()
-        assert ("head dim" in str(err.value)) == (D == 64)
+        assert ("head dim" in str(err.value)) == (D == 96)
