@@ -196,6 +196,32 @@ Phases (each raises on failure; the script then exits non-zero):
     admission, ``decode_round`` refused, and after ``free`` the allocator
     and ``_extras`` back where they started.
 
+17. (run after phase 8, on phase 5's weights) the traffic layer
+    (``phase_traffic``; ``launch/scheduler.py`` ``RequestScheduler`` and
+    ``launch/multitenant.py``) on llama3.2-3b at full width and depth.
+    (a) ``run_traffic`` with poisson and bursty arrivals (32 rounds, seed
+    0) over the reference's undersized engine (4 slots x 8 blocks over 2
+    slabs, 235 MB of K/V pools, an 8-slot double-buffered ring, 8 spill
+    slots): <= 1 K1 launch every round, equal to the ``RoundReport``'s;
+    every request done with its tokens; the bursty leg preempts and
+    resumes; allocator, batch slots, ring and spill slots reclaimed; the
+    schedule fields of every report equal to a CPU replay of the recorded
+    arrival script on the reduced config; ms per round, launches per
+    round, per-tenant token latency, TTFT and goodput; a profile of churn
+    rounds split into K1, K2, K3, GEMMs, other, host gap and idle share,
+    and one churn round's K2 / K3 calls against their plain versions.
+    (b) the preemption parity script: a 2-slot engine that preempts
+    against its same-batch twin without spill slots, tokens bitwise equal,
+    the gold waiter admitted one round after the demotion, parked and
+    resumed blocks bitwise equal to their sources, the tight run's K2 / K3
+    calls against their plain versions; an 8-slot engine's agreement
+    printed (first differing token and its top-2 margin).  (c) cancel of
+    a queued, a running and a parked request.  (d) ``run_dedup`` on
+    llama3.2-3b, then ``multitenant.run()`` (Fig. 3/4: the 1 / 2 / 3-copy
+    mixes, RowClone off and on) on yi-6b at full width and depth (12.1 GB
+    of random weights, a 2,048-block engine), and one mix leg's K2 / K3
+    calls against their plain versions.
+
 The last three lines are the ``kernels`` JSON (seven kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
 and power limit, and the device JSON.
@@ -1025,8 +1051,9 @@ def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250)),
                 library_ms=r["lib_ms"])
 
 
-#: profiler names of the attention and SSD kernels (K2, K3, K4)
-PORT_KERNEL_KEYS = ("paged_attn", "flash_kernel", "ssd_intra")
+#: profiler names of the attention, SSD and drain kernels (K2, K3, K4, K1)
+PORT_KERNEL_KEYS = ("paged_attn", "flash_kernel", "ssd_intra",
+                    "drain_kernel")
 #: the moe stages that the profiles split out: (function of
 #: ``models/moe.py``, the profiler range it runs in)
 MOE_STAGES = (("route", "moe.routing"), ("expert_ffn", "moe.experts"))
@@ -1042,8 +1069,8 @@ def profile_rounds(step, rounds: int = 3, tag: str = "profile",
     calls of ``step`` (after the counted run), with the moe stages
     (:data:`MOE_STAGES`) in ``record_function`` ranges.  Prints the wall
     and device busy ms and the device's idle share; the ten largest
-    kernels, and K2's, K3's and K4's below them wherever they rank; then a
-    split per step: K2, K3, the kernels launched inside each moe range
+    kernels, and K1's, K2's, K3's and K4's below them wherever they rank;
+    then a split per step: K1, K2, K3, the kernels launched inside each moe range
     (the expert products, the routing; where none ran there, the range's
     span on the device) or, where no moe range ran, the matrix-product
     kernels (:data:`GEMM_KEYS`), the rest of the device time, and the host
@@ -1113,7 +1140,8 @@ def profile_rounds(step, rounds: int = 3, tag: str = "profile",
 
     k2 = sum(r[0] for r in rows if "paged_attn" in r[2])
     k3 = sum(r[0] for r in rows if "flash_kernel" in r[2])
-    other = busy - k2 - k3 - sum(inside.values())
+    drains = sum(r[0] for r in rows if "drain_kernel" in r[2])
+    other = busy - k2 - k3 - drains - sum(inside.values())
     stages = "".join(
         f", {name} {per_step(inside[label] or span[label]):.3f} ms ("
         f"{'kernels in range' if inside[label] else 'range span'})"
@@ -1132,7 +1160,8 @@ def profile_rounds(step, rounds: int = 3, tag: str = "profile",
                    "kernel "
                    f"{max((r[0] for r in mm), default=0) / rounds / 1e3:.3f}"
                    " ms)")
-    log(f"[{tag}] split per {what}: K2 {per_step(k2):.3f} ms, K3 "
+    log(f"[{tag}] split per {what}: K1 {per_step(drains):.3f} ms, K2 "
+        f"{per_step(k2):.3f} ms, K3 "
         f"{per_step(k3):.3f} ms{stages}, other device "
         f"{per_step(other):.3f} ms, host gap "
         f"{per_step(wall_us - busy):.2f} ms")
@@ -3198,16 +3227,452 @@ def phase_admission(model) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the traffic layer
+# ---------------------------------------------------------------------------
+
+#: phase 17: rounds of arrivals per traffic leg (``bench_dispatch.py``
+#: TRAFFIC_ROUNDS) and the tokens per request of the preemption parity
+#: script (TRAFFIC_PARITY_TOKENS)
+TRAFFIC_ROUNDS, PARITY_TOKENS = 32, 8
+#: the Fig. 3/4 mix's model, at full width and depth
+FIG34_ARCH = "yi-6b"
+
+
+def _top2(logits) -> float:
+    top = np.sort(logits)[-2:]
+    return float(top[1] - top[0])
+
+
+class RoundLog:
+    """Wraps one serving engine's ``decode_round``, which the scheduler
+    calls once a step: per call, K1 launches since the previous call
+    returned (a flush forced while the lanes merge counts in its round)
+    and the ``RoundReport`` count to hold them against (the ticket's
+    launches, or 0 where ``last_ticket`` is the previous round's); before
+    the call, each live sequence's top-1 / top-2 logit margin by request
+    id (``sched`` maps the sequences)."""
+
+    def __init__(self, eng, sched=None):
+        from repro_torch.kernels import ops
+        self.eng, self.sched = eng, sched
+        self.k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+        self.rounds, self.margins = [], []
+        self._n, self._ticket = self.k1.n, eng.last_ticket
+        self._call = eng.decode_round
+        eng.decode_round = self
+
+    def __call__(self, *a, **kw):
+        eng = self.eng
+        if self.sched is not None:
+            by_sid = self.sched._by_sid
+            self.margins.append({by_sid[s]: _top2(eng.last_logits[s])
+                                 for s in eng.cache.seqs if s in by_sid})
+        out = self._call(*a, **kw)
+        fresh = eng.last_ticket is not self._ticket
+        self._ticket = eng.last_ticket
+        self.rounds.append((self.k1.n - self._n,
+                            self._ticket.launches if fresh else 0))
+        self._n = self.k1.n
+        return out
+
+    def agree(self) -> bool:
+        """<= 1 K1 launch in every round, equal to the report's count."""
+        return all(got <= 1 and got == rep for got, rep in self.rounds)
+
+
+class ParkWatch:
+    """The bytes each ``demote`` parks in the spill slots and each
+    ``resume`` brings back, held bitwise against their sources at the K1
+    launch that moves them."""
+
+    def __init__(self, eng):
+        from repro_torch.kernels import fused_dispatch as fd
+        self.eng, self.todo, self.checked, self.bad = eng, [], 0, 0
+        self._demote, self._resume = eng.demote, eng.resume
+        eng.demote, eng.resume = self.demote, self.resume
+        self._fd = fd
+        fd.add_launch_hook(self)
+
+    def close(self):
+        self._fd.remove_launch_hook(self)
+
+    def demote(self, sid, stream=None):
+        pools = self.eng.engine.pools
+        blocks = self.eng.cache.blocks_of(sid)
+        before = {n: pools[n][:, blocks].clone() for n in ("k", "v")}
+        self._demote(sid, stream=stream)
+        self.todo.append((self.eng.demoted[sid].slots, "_spill", before))
+
+    def resume(self, sid, stream=None):
+        pools = self.eng.engine.pools
+        slots = self.eng.demoted[sid].slots
+        parked = {n: pools[n + "_spill"][:, slots].clone()
+                  for n in ("k", "v")}
+        new = self._resume(sid, stream=stream)
+        self.todo.append((self.eng.cache.blocks_of(new), "", parked))
+        return new
+
+    def __call__(self, n_rows, n_pools, mech):
+        if mech != "fused":
+            return
+        pools = self.eng.engine.pools
+        for ids, suffix, want in self.todo:
+            for name in ("k", "v"):
+                self.checked += 1
+                self.bad += not _bitwise_equal(pools[name + suffix][:, ids],
+                                               want[name])
+        self.todo = []
+
+
+def _capacity(eng) -> tuple:
+    """What a drained engine gives back: free blocks, live sequences,
+    staging slots free + parked, spill slots free, parked sequences."""
+    e = eng.engine
+    return (e.alloc.total_free(), len(eng.cache.seqs),
+            len(e._stage_free) + len(e._stage_parked), e.spill_slots_free,
+            len(eng.demoted))
+
+
+def _schedule(rep) -> tuple:
+    """A RoundReport's schedule fields (no launch count, no clock)."""
+    return (rep.round_index, rep.admitted, rep.finished, rep.preempted,
+            rep.resumed, rep.tokens)
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import ops
+    return {n: c.n for n, c in ops.KERNEL_COUNTERS.items()}
+
+
+def _since(before: dict) -> dict:
+    return {n: c - before.get(n, 0) for n, c in _counts().items()}
+
+
+def _preempt_script(eng, prompts, tokens=PARITY_TOKENS, tap=False):
+    """``bench_dispatch.py _traffic_parity``'s script: two free requests,
+    two rounds, a gold arrival, drain.  Returns the scheduler, the request
+    ids in submission order, its RoundLog and the K2 / K3 reads (``tap``:
+    every call held against its plain version)."""
+    from repro_torch.launch.scheduler import RequestScheduler, TenantSpec
+    sched = RequestScheduler(eng, [TenantSpec("gold", 2),
+                                   TenantSpec("free", 0)])
+    rl = RoundLog(eng, sched)
+
+    def run():
+        rids = [sched.submit("free", p, max_new_tokens=tokens)
+                for p in prompts[:2]]
+        sched.step()
+        sched.step()
+        rids.append(sched.submit("gold", prompts[2], max_new_tokens=tokens))
+        sched.drain(max_rounds=120)
+        return rids
+
+    rids, reads = tapped(run) if tap else (run(), {})
+    torch.cuda.synchronize()
+    return sched, rids, rl, reads
+
+
+def phase_traffic(params, smi: str) -> dict:
+    """Phase 17: the traffic layer (``launch/scheduler.py``,
+    ``launch/multitenant.py``) at full width, on phase 5's llama3.2-3b
+    weights, then the Fig. 3/4 mix on yi-6b.
+
+    (a) ``run_traffic`` poisson and bursty, TRAFFIC_ROUNDS rounds at seed 0,
+        over the reference's undersized engine (``traffic_engine``: 4 slots
+        x 8 blocks over 2 slabs, an 8-slot double-buffered ring, 8 spill
+        slots): <= 1 K1 launch every round and equal to the report's; every
+        request done with its tokens; the bursty leg preempts and resumes;
+        the allocator, batch slots, ring and spill slots back where they
+        started; the schedule fields of every RoundReport equal to a CPU
+        replay of the recorded arrival script on the reduced config.  Ms
+        per round, launches per round, per-tenant latency, TTFT and
+        goodput; a profile of churn rounds (K1, K2, K3, GEMMs, other, host
+        gap, idle share) and one churn round's K2 / K3 calls held against
+        their plain versions.
+    (b) the preemption parity script on a tight engine (2 slots, 8 spill
+        slots) against its same-batch twin (2 slots, no spill slots):
+        tokens bitwise equal, the gold waiter admitted one round after the
+        demotion, each parked and resumed block bitwise equal to its
+        source, <= 1 K1 launch a round; the tight run's K2 / K3 calls held
+        against their plain versions; the roomy engine's (8 slots)
+        agreement printed, with the first differing step and the roomy
+        run's top-2 margin there.
+    (c) the reference's cancel script: a queued, a running and a parked
+        request cancelled, gold done with its 4 tokens, the spill slots
+        and the cache empty.
+    (d) ``run_dedup`` on llama3.2-3b (tokens match, <= 1 launch a round),
+        then ``multitenant.run()`` on yi-6b at full width and depth: the
+        weighted speedups of the 1 / 2 / 3-copy mixes, RowClone off and
+        on (printed, no threshold: host-bound wall clock), and one mix
+        leg's K2 / K3 calls held against their plain versions.
+
+    Returns the launch counts by path ((c) counts with (b))."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import multitenant as mt
+    from repro_torch.launch.scheduler import RequestScheduler, TenantSpec
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.obs import metrics
+    from repro_torch.weights import init_params
+    cfg = params.cfg
+    tag = "[llama3.2-3b traffic]"
+    t_phase = time.perf_counter()
+    checks, paths = {}, {}
+    rcfg = get_config("llama3.2-3b").reduced()
+    rparams = init_params(rcfg, seed=SEED, device="cpu")
+
+    # (a) the traffic legs
+    before = _counts()
+    legs = {}
+    for pattern in ("poisson", "bursty"):
+        eng = mt.traffic_engine(cfg, params)
+        start = _capacity(eng)
+        rl = RoundLog(eng)
+        res = mt.run_traffic(pattern, rounds=TRAFFIC_ROUNDS, seed=SEED,
+                             eng=eng)
+        torch.cuda.synchronize()
+        end = _capacity(eng)
+        full = (0, eng.engine.stage_capacity, eng.engine.spill_capacity, 0)
+        kv = sum(eng.engine.pools[n].numel()
+                 * eng.engine.pools[n].element_size() for n in ("k", "v"))
+        del eng
+        replay = mt.run_traffic(
+            pattern, rounds=TRAFFIC_ROUNDS, seed=SEED,
+            eng=mt.traffic_engine(rcfg, rparams), script=res.arrivals)
+        tokens = sum(sum(r.tokens.values()) for r in res.reports)
+        checks.update({
+            f"(a) {pattern}: <= 1 K1 launch a round, equal to the report's":
+                rl.agree() and len(rl.rounds) == len(res.launches),
+            f"(a) {pattern}: every request done with its tokens":
+                res.completed == res.submitted > 0
+                and tokens == 8 * res.submitted,
+            f"(a) {pattern}: allocator, slots, ring, spill slots reclaimed":
+                end == start and start[1:] == full,
+            f"(a) {pattern}: schedule equal to the CPU replay":
+                [_schedule(r) for r in res.reports]
+                == [_schedule(r) for r in replay.reports],
+        })
+        if pattern == "bursty":
+            checks["(a) bursty: preempts and resumes"] = \
+                len(res.preempted_rids) >= 1 and any(
+                    r.resumed for r in res.reports)
+        ms = [r.round_us / 1e3 for r in res.reports]
+        legs[pattern] = res
+        log(f"{tag} (a) {pattern}: {res.submitted} requests over "
+            f"{len(res.reports)} rounds ({TRAFFIC_ROUNDS} with arrivals), "
+            f"{len(res.preempted_rids)} preempted, "
+            f"{sum(len(r.resumed) for r in res.reports)} resumes; ms per "
+            f"round median {metrics.percentile(ms, 50):.2f}, p99 "
+            f"{metrics.percentile(ms, 99):.2f}; K1 launches per round mean "
+            f"{np.mean([g for g, _ in rl.rounds]):.3f}, max "
+            f"{max(g for g, _ in rl.rounds)}; K/V pools {kv / 1e6:.1f} MB "
+            f"({smi})")
+        for t, m in res.per_tenant.items():
+            log(f"{tag} (a) {pattern} {t:>6}: {m['completed']}/"
+                f"{m['submitted']} done, token latency p50 / p99 "
+                f"{m['p50_token_latency_rounds']:.1f} / "
+                f"{m['p99_token_latency_rounds']:.1f} rounds, TTFT p50 "
+                f"{m['p50_ttft_rounds']:.1f} rounds, goodput "
+                f"{m['goodput_tok_s']:.1f} tok/s, preemptions "
+                f"{m['preemptions']}")
+    paths["llama3.2-3b traffic"] = _since(before)
+
+    # churn rounds: two silver requests decode throughout, a free request
+    # of 16 tokens arrives every round and leaves after one token; each
+    # round retires one, admits one (K3), drains its promotion (K1) and
+    # decodes (K2)
+    eng = mt.traffic_engine(cfg, params)
+    sched = RequestScheduler(eng, list(mt.TENANTS))
+    rng = np.random.default_rng(SEED + 17)
+    for _ in range(2):
+        sched.submit("silver", rng.integers(2, cfg.vocab_size, size=16)
+                     .astype(np.int32), max_new_tokens=64)
+
+    def churn():
+        sched.submit("free", rng.integers(2, cfg.vocab_size, size=16)
+                     .astype(np.int32), max_new_tokens=1)
+        rep = sched.step()
+        assert rep.admitted and rep.launches == 1, rep
+    for _ in range(3):
+        churn()
+    torch.cuda.synchronize()
+    profile_rounds(churn, rounds=3, tag="llama3.2-3b churn")
+    _, reads = tapped(churn)
+    checks["(a) a churn round's K2 / K3 calls within their limits"] = \
+        set(reads) == {"paged_attention_slab", "flash_attention"} and all(
+            r["err"] <= r["limit"] for r in reads.values())
+    log(f"{tag} (a) one churn round held against the plain versions: "
+        f"{_fmt_reads(reads)}")
+    del eng, sched
+    torch.cuda.empty_cache()
+
+    # (b) preemption parity: tight, its same-batch twin, roomy
+    before = _counts()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(2, cfg.vocab_size, size=16).astype(np.int32)
+               for _ in range(3)]
+    small = dict(max_blocks_per_seq=8, max_admit_pages=8, double_buffer=True,
+                 device=params.embed.device)
+
+    def engine(**kw):
+        return ServingEngine(cfg, params, **small, **kw)
+
+    tight_eng = engine(max_seqs=2, num_slabs=2, spill_pages=8)
+    watch = ParkWatch(tight_eng)
+    try:
+        tight, t_rids, t_log, reads = _preempt_script(tight_eng, prompts,
+                                                      tap=True)
+    finally:
+        watch.close()
+    twin, w_rids, w_log, _ = _preempt_script(
+        engine(max_seqs=2, num_slabs=2, spill_pages=0), prompts)
+    roomy, r_rids, r_log, _ = _preempt_script(engine(max_seqs=8), prompts)
+    toks = {name: [s.requests[r].tokens_out for r in rids]
+            for name, s, rids in (("tight", tight, t_rids),
+                                  ("twin", twin, w_rids),
+                                  ("roomy", roomy, r_rids))}
+    pre = {name: sum(q.preemptions for q in s.requests.values())
+           for name, s in (("tight", tight), ("twin", twin),
+                           ("roomy", roomy))}
+    demote_round = next((r.round_index for r in tight.reports
+                         if r.preempted), None)
+    admit_round = next((r.round_index for r in tight.reports
+                        if t_rids[2] in r.admitted), None)
+    checks.update({
+        "(b) tight preempts, twin and roomy do not":
+            pre["tight"] >= 1 and pre["twin"] == pre["roomy"] == 0,
+        "(b) tight tokens == same-batch twin tokens, bitwise":
+            toks["tight"] == toks["twin"]
+            and all(len(t) == PARITY_TOKENS for t in toks["tight"]),
+        "(b) gold admitted one round after the demotion":
+            demote_round is not None and admit_round == demote_round + 1,
+        "(b) tight resumes": any(r.resumed for r in tight.reports),
+        "(b) parked and resumed blocks bitwise equal to their sources":
+            watch.checked >= 4 and watch.bad == 0,
+        "(b) <= 1 K1 launch a round (tight, twin, roomy)":
+            t_log.agree() and w_log.agree() and r_log.agree(),
+        "(b) the tight run's K2 / K3 calls within their limits":
+            all(r["err"] <= r["limit"] for r in reads.values())
+            and len(reads) == 2,
+    })
+    diffs = []
+    for i, (a, b) in enumerate(zip(toks["tight"], toks["roomy"])):
+        if a != b:
+            step = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+            margin = [m[r_rids[i]] for m in r_log.margins
+                      if r_rids[i] in m][step]
+            diffs.append(f"request {i} first differs at token {step} "
+                         f"(roomy top-2 margin {margin:.4g})")
+    log(f"{tag} (b) tight: demotion in round {demote_round}, gold admitted "
+        f"in round {admit_round}, {pre['tight']} preemption(s), "
+        f"{watch.checked} block copies checked bitwise, K1 per round "
+        f"{[g for g, _ in t_log.rounds]}; tokens == same-batch twin: "
+        f"{toks['tight'] == toks['twin']}; tokens == roomy (8 slots): "
+        f"{toks['tight'] == toks['roomy']}"
+        + (f" ({'; '.join(diffs)})" if diffs else "")
+        + f"; tight run held against the plain versions: "
+        f"{_fmt_reads(reads)} ({smi})")
+    del tight_eng, tight, twin, roomy
+    torch.cuda.empty_cache()
+
+    # (c) cancel in every state (tests/test_scheduler.py
+    # test_cancel_in_every_state, at full width)
+    eng = engine(max_seqs=2, num_slabs=2, spill_pages=8)
+    sched = RequestScheduler(eng, [TenantSpec("gold", 1),
+                                   TenantSpec("free", 0)])
+    prng = np.random.default_rng(7)
+
+    def mk(n):
+        return prng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+    r_free = [sched.submit("free", mk(9), max_new_tokens=32),
+              sched.submit("free", mk(9), max_new_tokens=32)]
+    sched.step()
+    sched.step()
+    r_gold = sched.submit("gold", mk(9), max_new_tokens=4)
+    sched.step()
+    parked = [r for r in r_free if sched.requests[r].state == "preempted"]
+    ok_c = len(parked) == 1
+    if ok_c:
+        running = next(r for r in r_free if r != parked[0])
+        sched.cancel(parked[0])
+        ok_c = eng.engine.spill_slots_free == eng.engine.spill_capacity
+        sched.cancel(running)
+        r_q = sched.submit("free", mk(9), max_new_tokens=4)
+        sched.cancel(r_q)
+        sched.drain(max_rounds=60)
+        torch.cuda.synchronize()
+        ok_c = ok_c and all(sched.requests[r].state == "cancelled"
+                            for r in (parked[0], running, r_q))
+    gold = sched.requests[r_gold]
+    checks["(c) cancel: queued, running and parked unwound, gold done"] = \
+        ok_c and gold.state == "done" and len(gold.tokens_out) == 4 \
+        and eng.cache.seqs == {} \
+        and eng.engine.spill_slots_free == eng.engine.spill_capacity
+    log(f"{tag} (c) cancel: {len(parked)} parked, gold {gold.state} with "
+        f"{len(gold.tokens_out)} tokens, spill slots free "
+        f"{eng.engine.spill_slots_free}/{eng.engine.spill_capacity}")
+    paths["llama3.2-3b preempt parity"] = _since(before)
+    del eng, sched
+    torch.cuda.empty_cache()
+
+    # (d) dedup traffic, then the Fig. 3/4 mix on yi-6b
+    before = _counts()
+    row = mt.run_dedup(rounds=4, seed=SEED, cfg=cfg, params=params)
+    paths["llama3.2-3b dedup traffic"] = _since(before)
+    torch.cuda.empty_cache()
+    checks["(d) dedup traffic: tokens match, <= 1 launch a round"] = \
+        row["tokens_match"] and row["max_launches_per_round"] <= 1 \
+        and row["pages_shared"] > 0
+    log(f"{tag} (d) dedup traffic, {row['tenants']} tenants: resident KV "
+        f"{row['kv_bytes_live_on']} B against {row['kv_bytes_live_off']} B "
+        f"({row['resident_reduction']:.1%} saved), {row['pages_shared']} "
+        f"pages shared, tokens match {row['tokens_match']}, max "
+        f"{row['max_launches_per_round']:.0f} launch a round")
+    ycfg = get_config(FIG34_ARCH)
+    t0 = time.perf_counter()
+    yparams = init_params(ycfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    ybytes = sum(p.numel() * p.element_size() for p in yparams.parameters())
+    log(f"[{FIG34_ARCH} Fig. 3/4] weights {ybytes / 1e9:.2f} GB made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    before = _counts()
+    rows = mt.run(cfg=ycfg, params=yparams)
+    paths[f"{FIG34_ARCH} Fig. 3/4"] = _since(before)
+    for r in rows:
+        log(f"[{FIG34_ARCH} Fig. 3/4] {r['mix']}: weighted speedup "
+            f"RowClone off {r['ws_baseline']:.3f}, on {r['ws_rowclone']:.3f}"
+            f" (on / off {r['improvement']:.3f}) ({smi})")
+    _, reads = tapped(lambda: mt._run_mix(ycfg, yparams, 1, 3, True))
+    checks[f"(d) {FIG34_ARCH}: a mix leg's K2 / K3 calls within their "
+           "limits"] = len(reads) == 2 and all(
+               r["err"] <= r["limit"] for r in reads.values())
+    checks[f"(d) {FIG34_ARCH}: the off legs drain their copies through K1"] \
+        = paths[f"{FIG34_ARCH} Fig. 3/4"]["fused_dispatch"] > 0
+    log(f"[{FIG34_ARCH} Fig. 3/4] one mix leg (1 copy + 3 plain, RowClone "
+        f"on) held against the plain versions: {_fmt_reads(reads)}; K1 "
+        f"launches in the sweep {paths[f'{FIG34_ARCH} Fig. 3/4']['fused_dispatch']}")
+    del yparams
+    torch.cuda.empty_cache()
+
+    log(f"{tag} phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"traffic checks failed: {failed}")
+    return paths
+
+
 #: phase groups that ``--phases`` selects, with the phases each needs:
-#: 7-8 run on phase 6's pools, 8's Fig. 2 and 15 on phase 5's weights
-PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,)}
+#: 7-8 run on phase 6's pools, 8's Fig. 2, 15 and 17 on phase 5's weights
+PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,)}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-16 by default), with
+    """The phases to run for ``--phases`` (all of 2-17 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 17))
+        return set(range(2, 18))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -3270,6 +3735,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if 8 in run:
         paths["Fig. 2"] = phase_fig2(params.cfg, params)
+    if 17 in run:
+        paths.update(phase_traffic(params, smi))
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     if 9 in run:

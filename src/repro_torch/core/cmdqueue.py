@@ -217,6 +217,17 @@ class CommandQueue:
             self.engine._note_drained(self)
         return removed
 
+    def abort(self) -> List[Tuple[int, int, int]]:
+        """Discard every pending command WITHOUT dispatching: the hazard
+        maps clear and the queue leaves the engine's live set.  Returns
+        the dropped rows, for the caller to account for or re-enqueue
+        (:meth:`~repro_torch.core.stream.CommandStream.adopt`)."""
+        cmds, self._cmds = self._cmds, []
+        self._pending_dsts = {}
+        self._pending_srcs = {}
+        self.engine._note_drained(self)
+        return cmds
+
 
 __all__ = ["BUCKETS", "top_bucket", "bucket_size", "space_war_rows",
            "QueueStats", "CommandQueue"]

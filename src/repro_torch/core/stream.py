@@ -168,6 +168,23 @@ class CommandStream:
             return self.engine.promote_spilled(pairs)
 
     # ------------------------------------------------------------------
+    def adopt(self, other: "CommandStream") -> int:
+        """Move another stream's pending rows onto THIS stream (the
+        scheduler's lane merge: adoption order is enqueue order, so one
+        flush drains every lane's work as one launch with the
+        higher-priority lanes' rows first).  ``other``'s queue empties
+        without dispatching, and leaves the engine's live set, before the
+        first row re-enqueues here, so the cross-stream guard never
+        flushes it; each row then runs the full hazard matrix again.
+        Returns the number of rows adopted."""
+        if other is self:
+            return 0
+        rows = other.queue.abort()
+        for op, s, d in rows:
+            self.queue.enqueue(op, s, d)
+        return len(rows)
+
+    # ------------------------------------------------------------------
     def flush(self) -> FlushTicket:
         """Drain the stream's pending commands and return the receipt."""
         eng = self.engine

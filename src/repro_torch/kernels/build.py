@@ -15,9 +15,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict
+
+from repro_torch.obs import metrics as obs_metrics
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -76,7 +77,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     out_dir = BUILD_ROOT / _digest()
     out_dir.mkdir(parents=True, exist_ok=True)
     todo = {}
-    t0 = time.perf_counter()
+    t0 = obs_metrics.now()
     for src in sorted(CSRC.glob("*.cu")):
         lib = out_dir / f"lib{src.stem}.so"
         if lib.exists():
@@ -95,7 +96,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                           f"{log}")
             continue
         os.replace(tmp, lib)
-    last_build_seconds = time.perf_counter() - t0
+    last_build_seconds = obs_metrics.now() - t0
     if errors:
         raise KernelBuildError("CUDA kernel build failed:\n" +
                                "\n".join(errors))

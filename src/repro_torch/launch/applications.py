@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import gc
 import json
-import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -35,6 +34,7 @@ from repro_torch.core.migration import execute as migrate_execute
 from repro_torch.core.migration import plan_rebalance
 from repro_torch.launch.serve import ServingEngine
 from repro_torch.models.lm import LanguageModel
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.weights import init_params, resolve_device
 
 
@@ -49,11 +49,11 @@ def _timed(fn: Callable[[], None], device: torch.device) -> float:
     """Seconds of ``fn()`` on the host clock, synchronised on the card."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
+    t0 = obs_metrics.now()
     fn()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return time.perf_counter() - t0
+    return obs_metrics.now() - t0
 
 
 def forkbench(cfg, params, on: bool, device) -> Dict:

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -41,6 +40,7 @@ from repro_torch.core.allocator import SubarrayAllocator
 from repro_torch.core.poolspec import BlockRef
 from repro_torch.core.rowclone import RowCloneEngine
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.weights import resolve_device
 
 #: H100 SXM memory rate (NVIDIA data sheet)
@@ -73,16 +73,16 @@ def time_ms(fn: Callable[[], object], device: torch.device, reps: int = 20,
             end.synchronize()
             times.append(start.elapsed_time(end))
         else:
-            t0 = time.perf_counter()
+            t0 = obs_metrics.now()
             fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+            times.append((obs_metrics.now() - t0) * 1e3)
     return float(np.median(times))
 
 
 def _host_ms_per_block(fn: Callable[[], object], m: int) -> float:
-    t0 = time.perf_counter()
+    t0 = obs_metrics.now()
     fn()
-    return (time.perf_counter() - t0) * 1e3 / m
+    return (obs_metrics.now() - t0) * 1e3 / m
 
 
 def run(device="cuda", nblk: int = 64, m: int = 8, *,

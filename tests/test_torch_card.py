@@ -575,3 +575,61 @@ def test_cuda_demote_resume_roundtrip_through_k1(card):
         np.testing.assert_array_equal(bits(eng.pools[n][:, fresh]),
                                       bits(want[n]))
     assert eng.spill_slots_free == eng.spill_capacity == 8
+
+
+# ---------------------------------------------------------------------------
+# the traffic layer: preemption under the scheduler
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_scheduler_preemption_matches_same_batch_twin(card):
+    """Two tenants over llama3.2-3b at full width cut to 2 layers: two free
+    requests fill a 2-slot engine, a gold arrival preempts one (demote into
+    the spill slots, resume later).  Every round drains at most one K1
+    launch, the report's count agrees with the launch counter, and every
+    request's tokens equal, bitwise, those of a same-batch twin
+    (``max_seqs=2`` without spill slots: gold waits, nothing is
+    preempted), whose decode GEMMs have the same shapes."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.scheduler import RequestScheduler, TenantSpec
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), num_layers=2)
+    model = init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=16).astype(np.int32)
+               for _ in range(3)]
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+
+    def drive(spill_pages):
+        eng = ServingEngine(cfg, model, max_seqs=2, max_blocks_per_seq=8,
+                            num_slabs=2, max_admit_pages=8,
+                            double_buffer=True, spill_pages=spill_pages)
+        sched = RequestScheduler(eng, [TenantSpec("gold", 2),
+                                       TenantSpec("free", 0)])
+        rids = [sched.submit("free", p, max_new_tokens=8)
+                for p in prompts[:2]]
+        per_round, ticket = [], None
+        while not sched.idle:
+            if len(sched.reports) == 2:
+                rids.append(sched.submit("gold", prompts[2],
+                                         max_new_tokens=8))
+            n0 = k1.n
+            rep = sched.step()
+            fresh = eng.last_ticket is not ticket
+            ticket = eng.last_ticket
+            per_round.append((k1.n - n0, rep.launches if fresh else 0))
+            assert len(sched.reports) < 60
+        torch.cuda.synchronize()
+        return ([sched.requests[r].tokens_out for r in rids],
+                sum(q.preemptions for q in sched.requests.values()),
+                per_round)
+
+    tight, preempted, rounds = drive(8)
+    twin, twin_preempted, twin_rounds = drive(0)
+    assert preempted > 0 and twin_preempted == 0
+    for got, reported in rounds + twin_rounds:
+        assert got <= 1 and got == reported
+    assert [len(t) for t in tight] == [8, 8, 8]
+    assert tight == twin

@@ -24,13 +24,15 @@ FORBIDDEN = re.compile(
     r"|from\s+repro(\.|\s))", re.M)
 
 
-#: modules of the per-mechanism, the Mamba2, the moe and the serving
-#: features slices; the scans below must reach them
+#: modules of the per-mechanism, the Mamba2, the moe, the serving
+#: features and the traffic slices; the scans below must reach them
 NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.core.migration", "repro_torch.launch.mechanisms",
                "repro_torch.launch.applications",
                "repro_torch.kernels.ssd_chunk", "repro_torch.models.mamba2",
-               "repro_torch.models.moe", "repro_torch.obs.metrics")
+               "repro_torch.models.moe", "repro_torch.obs.metrics",
+               "repro_torch.launch.scheduler",
+               "repro_torch.launch.multitenant")
 
 
 def _modules():
@@ -98,7 +100,7 @@ def test_card_tests_import_without_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     marked = out.stdout.split("CUDA=")[1].split()[0].split(",")
-    assert len(marked) == 12, marked
+    assert len(marked) == 13, marked
     marker = "@pytest.mark." + "cuda"
     others = [p for p in (ROOT / "tests").glob("test_torch_*.py")
               if p.name != "test_torch_card.py" and marker in p.read_text()]

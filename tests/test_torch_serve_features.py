@@ -129,17 +129,18 @@ def _emit(m):
     m.inc("queue.enqueued", 3, stream="serve")
     m.set_gauge("serve.ring_limit", 4)
     m.set_gauge("engine.stage_limit", 2.5, pool="k")
+    m.observe("sched.round_us", 125.0)
+    m.observe("sched.round_us", 75.5)
 
 
 def _series(m):
-    snap = m.snapshot()
-    return {k: snap[k] for k in ("counters", "gauges")}
+    return m.snapshot()
 
 
 def test_metrics_registry_matches_reference():
-    """The port's counter and gauge registry records the same series as
-    the reference's for one emission script (snapshot, reads, disable,
-    reset)."""
+    """The port's registry records the same series as the reference's for
+    one emission script (snapshot of counters, gauges and histograms,
+    reads, disable, reset)."""
     t, j = tmetrics.MetricsRegistry(), jmetrics.MetricsRegistry()
     _emit(t)
     _emit(j)
@@ -148,13 +149,16 @@ def test_metrics_registry_matches_reference():
     assert t.gauge_value("serve.ring_limit") == j.gauge_value(
         "serve.ring_limit") == 4.0
     assert t.gauge_value("never") is None and t.get("never") == 0.0
+    assert t.hist("sched.round_us") == j.hist("sched.round_us") == [
+        125.0, 75.5]
     t.enabled = j.enabled = False
     _emit(t)
     _emit(j)
     assert _series(t) == _series(j)
     t.reset()
     j.reset()
-    assert _series(t) == _series(j) == {"counters": {}, "gauges": {}}
+    assert _series(t) == _series(j) == {"counters": {}, "gauges": {},
+                                        "histograms": {}}
     prev = tmetrics.set_metrics_enabled(False)
     assert prev is True and not tmetrics.metrics_enabled()
     tmetrics.set_metrics_enabled(prev)
