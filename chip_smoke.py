@@ -222,6 +222,26 @@ Phases (each raises on failure; the script then exits non-zero):
     of random weights, a 2,048-block engine), and one mix leg's K2 / K3
     calls against their plain versions.
 
+18. (run after phase 17, on phase 5's weights) the recovery path
+    (``phase_recovery``; ``core/journal.py`` replay, ``RowCloneEngine
+    .snapshot`` / ``recover``, ``runtime/fault.py``, ``checkpoint/``) on
+    llama3.2-3b at full width and depth.  (a) the bench's
+    ``fault_recovery`` leg (8 x 16 blocks, 8 checkpoint slots, 3 prompts
+    of 24 tokens, 6 rounds): a launch failure at round 1 and a donation
+    error on the third admission at round 3, recovered in place against a
+    clean twin with the same checkpoint stream: tokens bitwise equal,
+    ``fired`` as injected, the serve flush back to <= 1 launch within 2
+    rounds and after, the checkpoint stream running; ``recover()``'s wall
+    ms and K1 launches, the harvest ms a round.  (b) a quiesced
+    ``PoolCheckpoint.drain()`` pass into a temporary directory, 3 copy
+    flushes, ``k`` and ``v`` killed, ``recover(snapshot=latest())``: the
+    pools restored and bitwise equal after replaying the 3 flushes; K1's
+    card ms per replayed flush against its bound and the ms to save a
+    pass; a second kill and recovery with every replayed K1 call held
+    against its plain version (``K1Tap``).  (c) a mid-flush abort of 600
+    copies over 1,280-block pools: the 512-row prefix journaled aborted,
+    the suffix re-drained (tapped), pools bitwise equal to a clean twin's.
+
 The last three lines are the ``kernels`` JSON (seven kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
 and power limit, and the device JSON.
@@ -3663,16 +3683,419 @@ def phase_traffic(params, smi: str) -> dict:
     return paths
 
 
+#: phase 18 (a): the bench's fault_recovery leg (benchmarks/
+#: bench_dispatch.py FAULT_*): prompts of FAULT_PROMPT tokens, FAULT_ROUNDS
+#: rounds, a launch failure injected at round FAULT_ROUND, a donation error
+#: on the third admission at FAULT_READMIT_ROUND, FAULT_CKPT_PAGES spill
+#: slots of checkpoint windows, an engine of 8 sequences x FAULT_BLOCKS
+FAULT_PROMPT, FAULT_ROUNDS, FAULT_ROUND, FAULT_READMIT_ROUND = 24, 6, 1, 3
+FAULT_CKPT_PAGES, FAULT_BLOCKS = 8, 16
+#: (b): copy flushes drained after the quiesced snapshot, blocks per flush
+SNAP_FLUSHES, SNAP_COPIES = 3, 4
+#: (c): copies of the mid-flush abort (above the 512-row top bucket:
+#: two chunks) over pools of ABORT_NBLK blocks
+ABORT_COPIES, ABORT_NBLK = 600, 1280
+
+
+class K1Tap:
+    """Every K1 call (``ops.fused_dispatch``) inside the block is held
+    against its plain version on copies of the same pools, bitwise; the
+    kernel call itself is the counted one, the plain version launches no
+    kernel."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self.calls, self.bad, self.rows = 0, [], 0
+        self._saved = saved = ops.fused_dispatch
+
+        def call(pools, zero_blocks, cmds, *, block_axis=0, primary=None,
+                 use_kernel=None):
+            want = [p.clone() for p in pools]
+            ref.fused_dispatch(want, zero_blocks, cmds,
+                               block_axis=block_axis, primary=primary)
+            out = saved(pools, zero_blocks, cmds, block_axis=block_axis,
+                        primary=primary, use_kernel=True)
+            torch.cuda.synchronize()
+            self.calls += 1
+            self.rows += int((np.asarray(cmds)[:, 0] >= 0).sum())
+            if not all(_bitwise_equal(a, b) for a, b in zip(pools, want)):
+                self.bad.append(self.calls)
+            del want
+            return out
+
+        ops.fused_dispatch = call
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.fused_dispatch = self._saved
+
+    def ok(self) -> bool:
+        return self.calls > 0 and not self.bad
+
+
+def _fault_rounds(eng, prompts, plan=None, on_round=None):
+    """``bench_dispatch.py _drive_fault_rounds`` at full width: two
+    admissions, FAULT_ROUNDS rounds, a launch failure on round
+    FAULT_ROUND's next drain and, at FAULT_READMIT_ROUND, a donation
+    error on the third admission, then its re-admission.  Returns the
+    tokens in admission order, the serve flush's launches a round (-1: it
+    failed and recovered) and K1's launches a round (serve flush and
+    checkpoint window)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.fault import InjectedFault
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+    order, serve, per_round = [], [], []
+    for p in prompts[:2]:
+        order.append(eng.add_request(p))
+    for r in range(FAULT_ROUNDS):
+        if plan is not None and r == FAULT_ROUND:
+            plan.launch_failures += (eng.engine.next_flush_index,)
+        n0 = k1.n
+        if r == FAULT_READMIT_ROUND:
+            if plan is not None:
+                plan.donation_errors += (eng._admission_ordinal,)
+                try:
+                    eng.add_request(prompts[2])
+                except InjectedFault:
+                    pass        # evicted; re-admitted below
+            order.append(eng.add_request(prompts[2]))
+        if on_round is not None:
+            on_round(r)
+        eng.decode_round()
+        t = eng.last_ticket
+        serve.append(int(t.launches) if t is not None else -1)
+        per_round.append(k1.n - n0)
+    torch.cuda.synchronize()
+    return [eng.tokens[s] for s in order if s in eng.tokens], serve, \
+        per_round
+
+
+def phase_recovery(params, smi: str) -> dict:
+    """Phase 18: the recovery path (``core/journal.py`` replay,
+    ``RowCloneEngine.snapshot`` / ``recover``, ``runtime/fault.py``
+    ``FaultPlan``, ``checkpoint/``, ``ServingEngine(fault_plan=,
+    auto_recover=, ckpt_*)``) on phase 5's llama3.2-3b weights at full
+    width and depth.
+
+    (a) the bench's ``fault_recovery`` leg: an engine of 8 sequences x
+        FAULT_BLOCKS blocks (128 blocks of 3,670,016 B per K / V pool) with
+        FAULT_CKPT_PAGES checkpoint slots, 3 prompts of FAULT_PROMPT
+        tokens, FAULT_ROUNDS rounds, a launch failure at round FAULT_ROUND
+        and a donation error on the third admission at round
+        FAULT_READMIT_ROUND, against a clean twin with the same checkpoint
+        stream: tokens bitwise equal, ``fired`` as injected, the serve
+        flush back to <= 1 launch within 2 rounds and at most 1 launch a
+        round after, the checkpoint stream still running; ``recover()``'s
+        wall ms and K1 launches, the harvest ms a round.  The leg again
+        on a fresh engine, with every K2 / K3 call held against its plain
+        version (``tapped``): its launches are not the path's.
+    (b) a quiesced snapshot round trip on (a)'s engine: a
+        ``PoolCheckpoint.drain()`` pass (``async_save=False``, into a
+        temporary directory removed afterwards), SNAP_FLUSHES copy flushes,
+        ``k`` and ``v`` killed, ``recover(snapshot=latest())``: pools
+        restored, the post-snapshot flushes replayed, pools bitwise equal
+        to their state before the kill; K1's card ms per replayed flush
+        against its byte bound, the ms to save a pass.  A second kill and
+        recovery replays the same tables with every K1 call held against
+        its plain version (``K1Tap``); its launches are not the path's.
+    (c) a mid-flush abort: ABORT_COPIES copies in one flush (two chunks)
+        over full-width pools of ABORT_NBLK blocks, a ``midflush_aborts``
+        plan: the 512-row prefix journaled ``aborted``, ``recover()``
+        re-drains the suffix (tapped), pools bitwise equal to a clean
+        twin's.
+
+    Returns the phase's launch counts by kernel."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager, PoolCheckpoint
+    from repro_torch.core.allocator import SubarrayAllocator
+    from repro_torch.core.rowclone import RowCloneEngine
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import pool_dead
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.runtime.fault import FaultPlan, InjectedFault
+    cfg = params.cfg
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+    tag = "[llama3.2-3b recovery]"
+    checks = {}
+    t_phase = time.perf_counter()
+    before = _counts()
+    checked = {}
+
+    def check_run(fn):
+        """Run ``fn``, a run that only holds kernels against their plain
+        versions, and keep its launches out of the path's count."""
+        c0 = _counts()
+        out = fn()
+        for n, c in _since(c0).items():
+            checked[n] = checked.get(n, 0) + c
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(2, cfg.vocab_size, size=FAULT_PROMPT)
+                   .astype(np.int32) for _ in range(3)]
+
+        def engine(plan, sub):
+            return ServingEngine(
+                cfg, params, max_seqs=MAX_SEQS,
+                max_blocks_per_seq=FAULT_BLOCKS, fault_plan=plan,
+                auto_recover=plan is not None,
+                ckpt_pages=FAULT_CKPT_PAGES, ckpt_dir=f"{tmp}/{sub}")
+
+        # (a) the fault_recovery leg against its clean twin
+        twin = engine(None, "twin")
+        want, twin_serve, _ = _fault_rounds(twin, prompts)
+        del twin
+        torch.cuda.empty_cache()
+        plan = FaultPlan()
+        eng = engine(plan, "fault")
+        pool_mb = eng.engine.pools["k"].numel() * 2 / 1e6
+        spill_mb = sum(eng.engine.pools[n].numel() * 2
+                       for n in ("k_spill", "v_spill")) / 1e6
+        recoveries, harvests = [], {}
+        rec, harvest = eng.recover, eng.pool_ckpt._harvest
+
+        def timed_recover():
+            n0 = k1.n
+            t0 = time.perf_counter()
+            rep = rec()
+            torch.cuda.synchronize()
+            recoveries.append(((time.perf_counter() - t0) * 1e3,
+                               k1.n - n0, rep))
+            return rep
+
+        def timed_harvest():
+            t0 = time.perf_counter()
+            harvest()
+            harvests[rnd[0]] = (time.perf_counter() - t0) * 1e3
+
+        rnd = [0]
+        eng.recover = timed_recover
+        eng.pool_ckpt._harvest = timed_harvest
+        got, serve, per_round = _fault_rounds(
+            eng, prompts, plan, on_round=lambda r: rnd.__setitem__(0, r))
+        del eng.recover, eng.pool_ckpt._harvest
+        rounds_to_recover = next(
+            (i for i, n in enumerate(serve[FAULT_ROUND:]) if 0 <= n <= 1),
+            len(serve))
+        ck = eng.pool_ckpt
+        checks.update({
+            "(a) tokens bitwise equal to the clean twin's":
+                got == want and len(got) == 3,
+            "(a) fired == [launch_failure, donation_error]":
+                [k for k, _ in plan.fired] == ["launch_failure",
+                                               "donation_error"],
+            "(a) one evicted admission, re-admitted":
+                len(eng.evicted_sids) == 1 and len(recoveries) == 2,
+            "(a) rounds_to_recover <= 2": rounds_to_recover <= 2,
+            "(a) <= 1 K1 launch a round on the serve flush after recovery":
+                max(serve[FAULT_ROUND + 1:]) <= 1
+                and min(serve[FAULT_ROUND + 1:]) >= 0,
+            "(a) the checkpoint stream still active":
+                ck._cursor > 0 or ck.passes > 0,
+        })
+        log(f"{tag} (a) fault_recovery leg: {MAX_SEQS} x {FAULT_BLOCKS} "
+            f"blocks, K / V pools of {pool_mb:.1f} MB each, checkpoint "
+            f"spill pools {spill_mb:.1f} MB; serve-flush launches a round "
+            f"{serve} (clean twin {twin_serve}), K1 launches a round "
+            f"{per_round}; rounds_to_recover {rounds_to_recover}; fired "
+            f"{plan.fired}; evicted {eng.evicted_sids}; tokens == clean "
+            f"twin: {got == want}; checkpoint cursor {ck._cursor} / "
+            f"{ck.nblk}, passes {ck.passes} ({smi})")
+        for i, (ms, n, rep) in enumerate(recoveries):
+            log(f"{tag} (a) recover() {i + 1}: {ms:.3f} wall ms, {n} K1 "
+                f"launches (re-drained {rep.redrained_flushes}, evicted "
+                f"rows {rep.evicted_rows}, promotions "
+                f"{rep.evicted_promotions}, pools lost {rep.pools_lost}, "
+                f"retries {rep.retries}) ({smi})")
+        log(f"{tag} (a) harvest ms by round: " + ", ".join(
+            f"{r}: {ms:.3f}" for r, ms in sorted(harvests.items()))
+            + f" ({2 * FAULT_CKPT_PAGES} blocks, "
+            f"{spill_mb:.1f} MB a window) ({smi})")
+
+        # (a) again on a fresh engine, every K2 / K3 call held against its
+        # plain version at the leg's shapes (B=8 slab of FAULT_BLOCKS
+        # blocks a sequence, prefills of FAULT_PROMPT tokens)
+        tplan = FaultPlan()
+        teng = engine(tplan, "tapped")
+        (tgot, _, _), reads = check_run(
+            lambda: tapped(lambda: _fault_rounds(teng, prompts, tplan)))
+        checks["(a) the leg's K2 / K3 calls within K2_ATOL / K3_ATOL, its "
+               "tokens the clean twin's"] = \
+            set(reads) == {"paged_attention_slab", "flash_attention"} \
+            and all(r["err"] <= r["limit"] for r in reads.values()) \
+            and tgot == want
+        log(f"{tag} (a) the leg again, held against the plain versions: "
+            f"{_fmt_reads(reads)}; tokens == clean twin: {tgot == want}")
+        del teng
+        torch.cuda.empty_cache()
+
+        # (b) a quiesced snapshot, copy flushes, kill, recover + replay
+        rce = eng.engine
+        pc = PoolCheckpoint(rce, CheckpointManager(f"{tmp}/quiesced",
+                                                   async_save=False),
+                            window=FAULT_CKPT_PAGES)
+        save_ms = []
+        save = pc._save_pass
+
+        def timed_save():
+            t0 = time.perf_counter()
+            save()
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+
+        pc._save_pass = timed_save
+        t0 = time.perf_counter()
+        pc.drain()
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        snap = pc.latest()
+        live = [b for s in sorted(eng.cache.seqs)
+                for b in eng.cache.blocks_of(s)]
+        fresh = rce.alloc.alloc(SNAP_FLUSHES * SNAP_COPIES)
+        # decode writes the pools outside the allocator's ZI metadata:
+        # mark the sources written so the copies move their bytes
+        rce.alloc.mark_written(live)
+        for i in range(SNAP_FLUSHES):
+            dst = fresh[i * SNAP_COPIES:(i + 1) * SNAP_COPIES]
+            rce.memcopy([(live[(i + j) % len(live)], d)
+                         for j, d in enumerate(dst)])
+        torch.cuda.synchronize()
+        kept = {n: rce.pools[n].clone() for n in rce.pools}
+        replay_recs = rce.journal.since(snap.index)
+        group = rce.group
+        sizes = [spec.nblk for spec in group]
+        layers, page_bytes = int(kept["k"].shape[0]), \
+            int(np.prod(kept["k"].shape[2:])) * 2
+        bounds = [k1_bytes(r.rows, sizes, group.primary, layers, page_bytes)
+                  / HBM_BYTES_PER_S * 1e3 for r in replay_recs]
+        for n in ("k", "v"):
+            rce.kill_pool(n)
+        dead = all(pool_dead(rce.pools[n]) for n in ("k", "v"))
+        with K1Events() as timer:
+            t0 = time.perf_counter()
+            rep = rce.recover(snapshot=snap)
+            torch.cuda.synchronize()
+            recover_ms = (time.perf_counter() - t0) * 1e3
+        replay_ms = [ms for ms, _ in timer.by_round().get(None, [])]
+        same = all(_bitwise_equal(rce.pools[n], kept[n]) for n in kept)
+        # again, with every replayed K1 call held against its plain version
+        for n in ("k", "v"):
+            rce.kill_pool(n)
+        with K1Tap() as tap_b:
+            rep2 = check_run(lambda: rce.recover(snapshot=snap))
+        same2 = all(_bitwise_equal(rce.pools[n], kept[n]) for n in kept)
+        rce.alloc.free(fresh)
+        snap_mb = sum(a.nbytes for a in snap.arrays.values()) / 1e6
+        checks.update({
+            "(b) pools_restored == (k, v), nothing lost":
+                dead and rep.pools_restored == ("k", "v")
+                and not rep.pools_lost,
+            f"(b) replayed_flushes == {SNAP_FLUSHES}, the flushes after "
+            "the snapshot": rep.replayed_flushes == SNAP_FLUSHES
+                == len(replay_recs) and rep2.replayed_flushes == SNAP_FLUSHES,
+            "(b) pools bitwise equal to their state before the kill":
+                same and same2,
+            "(b) the replayed K1 calls bitwise equal to the plain version":
+                tap_b.ok() and tap_b.calls == SNAP_FLUSHES,
+        })
+        log(f"{tag} (b) quiesced pass: {pc.nblk // pc.window} windows + "
+            f"save in {drain_ms:.1f} ms, save of the pass ({snap_mb:.1f} MB "
+            f"on the host, arrays.npz + manifest.json) "
+            f"{save_ms[-1]:.1f} ms; snapshot index {snap.index}; "
+            f"{SNAP_FLUSHES} copy flushes of {SNAP_COPIES} blocks, k and v "
+            f"killed; recover(snapshot) {recover_ms:.1f} wall ms, restored "
+            f"{rep.pools_restored}, replayed {rep.replayed_flushes}; pools "
+            f"bitwise equal: {same} ({smi})")
+        log(f"{tag} (b) K1 per replayed flush: " + "; ".join(
+            f"{ms:.4f} card ms against a {b:.4f} ms bound "
+            f"({len([x for x in r.rows if x[0] >= 0])} rows)"
+            for ms, b, r in zip(replay_ms, bounds, replay_recs))
+            + f"; tapped again: {tap_b.calls} calls, {tap_b.rows} rows, "
+            f"bitwise {not tap_b.bad} ({smi})")
+        del kept, pc, snap, eng, rce
+        torch.cuda.empty_cache()
+
+        # (c) a mid-flush abort at full width
+        shape = (cfg.num_attn_layers, ABORT_NBLK, 64, cfg.num_kv_heads,
+                 cfg.head_dim)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+        base = {n: torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for n in ("k", "v")}
+
+        def flat_engine(pools):
+            return RowCloneEngine(pools, SubarrayAllocator(ABORT_NBLK, 4),
+                                  block_axis=1, enable_zi=False)
+
+        clean = flat_engine({n: p.clone() for n, p in base.items()})
+        abort = flat_engine(base)
+        pairs = [(2 * i, 2 * i + 1) for i in range(ABORT_COPIES)]
+        aplan = FaultPlan(midflush_aborts=(abort.next_flush_index,))
+        raised = False
+        with aplan.active(abort):
+            try:
+                abort.memcopy(pairs)
+            except InjectedFault:
+                raised = True
+        prefix = abort.journal.records[-1] if abort.journal.records \
+            else None
+        suffix = len(abort._aborted[0].suffix) if abort._aborted else 0
+        with K1Tap() as tap_c:
+            n0 = k1.n
+            rep_c = abort.recover()
+            k1_c = k1.n - n0
+        clean.memcopy(pairs)
+        torch.cuda.synchronize()
+        same_c = all(_bitwise_equal(abort.pools[n], clean.pools[n])
+                     for n in ("k", "v"))
+        checks.update({
+            "(c) the 512-row prefix journaled aborted, the suffix stashed":
+                raised and aplan.fired == [("midflush_abort", 0)]
+                and prefix is not None and prefix.aborted
+                and len(prefix.rows) == 512
+                and suffix == ABORT_COPIES - 512,
+            "(c) recover() re-drains the suffix in one K1 launch":
+                rep_c.redrained_flushes == 1 and k1_c == 1,
+            "(c) pools bitwise equal to the clean twin's": same_c,
+            "(c) the re-drain's K1 call bitwise equal to the plain version":
+                tap_c.ok() and tap_c.calls == 1,
+        })
+        log(f"{tag} (c) mid-flush abort: {ABORT_COPIES} copies over pools "
+            f"of {ABORT_NBLK} blocks ({shape}), prefix of "
+            f"{len(prefix.rows) if prefix else 0} rows journaled aborted "
+            f"({prefix.launches if prefix else 0} launch), suffix "
+            f"{suffix} rows re-drained in {k1_c} K1 launch; pools bitwise "
+            f"equal to the clean twin's: {same_c} ({smi})")
+        del clean, abort, base
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths = {"llama recovery": {n: c - checked.get(n, 0)
+                                for n, c in _since(before).items()}}
+    checks["K2 and K3 ran on the path (decode, admission, re-admission)"] = \
+        paths["llama recovery"]["paged_attention"] > 0 \
+        and paths["llama recovery"]["flash_attention"] > 0
+    log(f"{tag} phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"recovery checks failed: {failed}")
+    return paths
+
+
 #: phase groups that ``--phases`` selects, with the phases each needs:
-#: 7-8 run on phase 6's pools, 8's Fig. 2, 15 and 17 on phase 5's weights
-PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,)}
+#: 7-8 run on phase 6's pools, 8's Fig. 2, 15, 17 and 18 on phase 5's
+#: weights
+PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,)}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-17 by default), with
+    """The phases to run for ``--phases`` (all of 2-18 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 18))
+        return set(range(2, 19))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -3737,6 +4160,9 @@ def main(argv=None) -> int:
         paths["Fig. 2"] = phase_fig2(params.cfg, params)
     if 17 in run:
         paths.update(phase_traffic(params, smi))
+        torch.cuda.empty_cache()
+    if 18 in run:
+        paths.update(phase_recovery(params, smi))
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()

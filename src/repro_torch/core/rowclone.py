@@ -30,6 +30,7 @@ import contextlib
 import dataclasses
 import functools
 import itertools
+import time
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,7 +39,10 @@ import torch
 from repro_torch.core.allocator import SubarrayAllocator
 from repro_torch.core.cmdqueue import (CommandQueue, bucket_size,
                                        space_war_rows, top_bucket)
-from repro_torch.core.journal import JournalRecord, TicketJournal
+from repro_torch.core.journal import (AbortedFlush, JournalRecord,
+                                      PoolSnapshot, RecoveryError,
+                                      RecoveryReport, TicketJournal,
+                                      from_host, to_host)
 from repro_torch.core.opcodes import (ALL_PRIMARY, BITWISE_OPS, OP_AND,
                                       OP_BASELINE_COPY, OP_CROSS_POOL_COPY,
                                       OP_FPM_COPY, OP_NOP, OP_NOT, OP_OR,
@@ -169,9 +173,18 @@ class RowCloneEngine:
         self._spill_slots: Tuple[int, ...] = ()
         self._spill_free: List[int] = []
         self._spill_inflight: List[int] = []
-        #: log of drained flushes
+        # a degraded recover()'s sticky ring cap: the adaptive ring may
+        # shrink below it, but regrowing on demand never exceeds it
+        self._stage_degraded_cap: Optional[int] = None
+        #: replayable log of drained flushes
         self.journal = TicketJournal()
         self._flush_index = 0
+        #: undispatched suffixes of failed flushes, for recover()
+        self._aborted: List[AbortedFlush] = []
+        # each pool's (shape, dtype), frozen so recover() can resurrect or
+        # restore a killed pool
+        self._pool_layouts = {name: (tuple(p.shape), p.dtype)
+                              for name, p in self.pools.items()}
 
     def _block_shape(self, p: torch.Tensor) -> Tuple[int, ...]:
         shape = list(p.shape)
@@ -362,19 +375,31 @@ class RowCloneEngine:
         return self._flush_index
 
     def _drain_rows(self, rows: Sequence[Tuple[int, int, int]],
-                    queue: Optional[CommandQueue] = None) -> int:
+                    queue: Optional[CommandQueue] = None,
+                    record: bool = True, pre_spaced: bool = False) -> int:
         """Space, chunk and dispatch one flush's rows; append the
-        :class:`JournalRecord`.  Every chunk runs the drain guards BEFORE
-        its dispatch; a raising guard journals the dispatched prefix as an
-        ``aborted`` record and re-raises."""
+        :class:`JournalRecord` on success.  The one drain path of
+        ``CommandQueue.flush``, ``TicketJournal.replay`` (``record=False,
+        pre_spaced=True``: records hold spaced rows) and ``recover()``'s
+        re-drains of aborted suffixes (``pre_spaced=True``).
+
+        Every chunk runs the drain guards BEFORE its dispatch.  A guard or
+        a dispatch that raises (a wrapper refuses a killed pool before it
+        launches) aborts the flush: the dispatched prefix is journaled as
+        an ``aborted`` record and the undispatched suffix stashed for
+        ``recover()``."""
         rows = [(int(op), int(s), int(d)) for op, s, d in rows]
         idx = self._flush_index
         self._flush_index += 1
-        spaced = space_war_rows(rows, self.group.locate, self.group.primary,
-                                self.group.total_blocks)
-        if queue is not None:
-            queue.stats.spacer_rows += len(spaced) - len(rows)
-        name = queue.name if queue is not None else "anon"
+        if pre_spaced:
+            spaced = rows
+        else:
+            spaced = space_war_rows(rows, self.group.locate,
+                                    self.group.primary,
+                                    self.group.total_blocks)
+            if queue is not None:
+                queue.stats.spacer_rows += len(spaced) - len(rows)
+        name = queue.name if queue is not None else "replay"
         launches = 0
         top = top_bucket()
         for ci, lo in enumerate(range(0, len(spaced), top)):
@@ -384,20 +409,31 @@ class RowCloneEngine:
                     flush=idx, chunk=ci,
                     n_commands=sum(1 for r in chunk if r[0] >= 0),
                     n_pools=len(self.pools), engine=self))
+                table = np.full((bucket_size(len(chunk)), 3), OP_NOP,
+                                np.int32)
+                table[:len(chunk)] = np.asarray(chunk, np.int32)
+                # not ported yet: the sanitizer's table and shadow checks
+                launches += self._dispatch_table(table)
             except Exception:
-                done = spaced[:lo]
-                if any(op >= 0 for op, _, _ in done):
-                    self.journal.append(JournalRecord(
-                        stream=name, index=idx, rows=tuple(done),
-                        launches=launches, aborted=True))
+                if record:
+                    done = spaced[:lo]
+                    if any(op >= 0 for op, _, _ in done):
+                        # the dispatched chunks moved bytes: journal them
+                        # so replay reproduces the partial state
+                        self.journal.append(JournalRecord(
+                            stream=name, index=idx, rows=tuple(done),
+                            launches=launches, aborted=True))
+                    self._aborted.append(AbortedFlush(
+                        queue=name, index=idx, rows=tuple(rows),
+                        suffix=tuple(spaced[lo:])))
                 raise
-            table = np.full((bucket_size(len(chunk)), 3), OP_NOP, np.int32)
-            table[:len(chunk)] = np.asarray(chunk, np.int32)
-            launches += self._dispatch_table(table)
-        self.journal.append(JournalRecord(
-            stream=name, index=idx, rows=tuple(spaced), launches=launches,
-            war_hazards=(queue.stats.war_hazards if queue else 0),
-            spacer_rows=(queue.stats.spacer_rows if queue else 0)))
+        # not ported yet: span("drain"), FlushTiming and the drain.* metrics
+        if record:
+            self.journal.append(JournalRecord(
+                stream=name, index=idx, rows=tuple(spaced),
+                launches=launches,
+                war_hazards=(queue.stats.war_hazards if queue else 0),
+                spacer_rows=(queue.stats.spacer_rows if queue else 0)))
         return launches
 
     def _touched_pools(self, rows: Sequence[Tuple[int, int, int]]
@@ -415,6 +451,137 @@ class RowCloneEngine:
                 else:
                     hit.add(self.group.names[p])
         return tuple(n for n in self.group.names if n in hit)
+
+    # ------------------------------------------------------------------
+    # snapshot + recovery
+    # ------------------------------------------------------------------
+    def kill_pool(self, name: str) -> None:
+        """Free pool ``name``'s storage in place, keeping its shape (the
+        port's counterpart of the reference's donated-and-lost buffer,
+        ``jax.Array.delete``): every block-moving wrapper then refuses the
+        pool until :meth:`recover` resurrects it, and tickets that describe
+        it expire.  A CPU pool that a numpy array shares (``Tensor.numpy()``)
+        cannot be resized, and torch raises."""
+        self.pools[name].untyped_storage().resize_(0)
+        self.mark_pools_written((name,))
+
+    def snapshot(self) -> PoolSnapshot:
+        """Host copies of EVERY pool (:func:`~repro_torch.core.journal
+        .to_host`: bfloat16 as uint16 bits), consistent through the last
+        drained flush (quiesce the streams first for an exact snapshot)."""
+        return PoolSnapshot(
+            index=self._flush_index - 1,
+            arrays={n: to_host(p) for n, p in self.pools.items()})
+
+    def _reads_lost(self, row: Tuple[int, int, int],
+                    lost_idx: frozenset) -> bool:
+        """Does a row read or write a pool that died without a snapshot?
+        Such rows are unrecoverable: recover() drops them.  Plain opcodes
+        key ``ALL_PRIMARY`` (-1), never a lost pool index."""
+        if not lost_idx:
+            return False
+        op, s, d = row
+        reads, writes = row_rw(op, s, d, self.group.locate,
+                               self.group.total_blocks)
+        return any(p in lost_idx for p, _b in reads + writes)
+
+    def recover(self, snapshot: Optional[PoolSnapshot] = None,
+                max_retries: int = 3, backoff: float = 0.05,
+                degraded_stage_capacity: Optional[int] = None
+                ) -> RecoveryReport:
+        """Return the engine to a serviceable state after a failed flush
+        or a killed pool, in five steps:
+
+        1. **Evict**: every live stream's queued rows are dropped
+           (``CommandQueue.abort``); promotions out of the staging pools
+           are counted apart, for the serving layer to evict.
+        2. **Restore**: killed pools come back from ``snapshot`` when it
+           covers them, else as zeros (``pools_lost``).  Live pools are
+           never touched.
+        3. **Reset staging**: every slot returns to the free list;
+           ``degraded_stage_capacity`` caps the ring (sticky: regrowing
+           on demand stops there).
+        4. **Replay**: when step 2 restored pools from the snapshot, the
+           journal re-drains every record after ``snapshot.index``.
+        5. **Re-drain**: aborted flushes' undispatched suffixes re-drain
+           pre-spaced, up to ``max_retries`` attempts each with
+           exponential backoff; exhaustion raises :class:`RecoveryError`.
+           Rows touching pools lost without a snapshot drop."""
+        aborted, self._aborted = list(self._aborted), []
+        evicted = 0
+        evicted_promotions = 0
+        staging_idx = frozenset(self.group.index(n) for n in self.staging)
+        for q in list(self._live_queues.values()):
+            for op, s, d in q.abort():
+                if op < 0:
+                    continue
+                evicted += 1
+                if op == OP_CROSS_POOL_COPY and \
+                        self.group.locate(int(s))[0] in staging_idx:
+                    evicted_promotions += 1
+        restored: List[str] = []
+        lost: List[str] = []
+        for name in list(self.pools):
+            if not kref.pool_dead(self.pools[name]):
+                continue
+            shape, dtype = self._pool_layouts[name]
+            if snapshot is not None and name in snapshot.arrays:
+                t = from_host(snapshot.arrays[name], dtype, self.device)
+                if tuple(t.shape) != shape:
+                    raise RecoveryError(
+                        f"snapshot of pool {name!r} has shape "
+                        f"{tuple(t.shape)}, the pool {shape}")
+                restored.append(name)
+            else:
+                t = torch.zeros(shape, dtype=dtype, device=self.device)
+                lost.append(name)
+            self.pools[name] = t
+            self.mark_pools_written((name,))
+        # every reservation and queued promotion is void now; in-flight
+        # resume promotions were aborted with the queues (the serving
+        # layer re-promotes or releases their slots)
+        self._stage_inflight = []
+        self._spill_inflight = []
+        cap = self.stage_capacity
+        self._stage_free = list(range(cap - 1, -1, -1))
+        self._stage_parked = []
+        self._stage_limit = None
+        if degraded_stage_capacity is not None:
+            self._stage_degraded_cap = min(cap, int(degraded_stage_capacity))
+            self.set_stage_limit(self._stage_degraded_cap)
+        else:
+            self._stage_degraded_cap = None
+        replayed = 0
+        if restored and snapshot is not None:
+            replayed = self.journal.replay(self, after=snapshot.index)
+        retries = 0
+        lost_idx = frozenset(self.group.index(n) for n in lost)
+        redrained = 0
+        for ab in aborted:
+            rows = [r for r in ab.suffix
+                    if not self._reads_lost(r, lost_idx)]
+            if not any(op >= 0 for op, _, _ in rows):
+                continue
+            for attempt in range(max_retries):
+                try:
+                    self._drain_rows(rows, record=True, pre_spaced=True)
+                    redrained += 1
+                    break
+                except Exception as e:
+                    self._aborted = []  # failed retries don't re-stash
+                    retries += 1
+                    if attempt == max_retries - 1:
+                        raise RecoveryError(
+                            f"re-drain of flush {ab.index} (stream "
+                            f"{ab.queue!r}) still failing after "
+                            f"{max_retries} attempts") from e
+                    time.sleep(backoff * (2 ** attempt))
+        return RecoveryReport(
+            evicted_rows=evicted, evicted_promotions=evicted_promotions,
+            pools_restored=tuple(restored), pools_lost=tuple(lost),
+            replayed_flushes=replayed, redrained_flushes=redrained,
+            retries=retries,
+            degraded=degraded_stage_capacity is not None)
 
     def _dispatch_table(self, table: np.ndarray) -> int:
         """Execute one bucket-padded table, in place: ONE fused dispatch,

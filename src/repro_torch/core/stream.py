@@ -13,7 +13,8 @@ bytes alive as the JAX version's donated buffers did.  Instead every pool
 carries a generation counter that each in-place write bumps (a later drain,
 or the serving decode step's K/V append); a ticket whose pools moved on is
 :attr:`~FlushTicket.expired` and its :meth:`~FlushTicket.block_state`
-raises, as the reference does once its buffers were donated.
+raises, as the reference does once its buffers were donated.  Killing a
+pool (``RowCloneEngine.kill_pool``) bumps its generation too.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import numpy as np
 
 from repro_torch.core.cmdqueue import CommandQueue
 from repro_torch.core.poolspec import BlockRef
+from repro_torch.kernels.ref import pool_dead
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +71,16 @@ class FlushTicket:
                 "(ticket metadata never expires)")
 
     def wait(self) -> "FlushTicket":
-        """Block until the drain finished on the device."""
+        """Block until the drain finished on the device.  Scoped to the
+        pools the flush WROTE (``touched``): a later write to, or the
+        death of, any other pool leaves it valid (a checkpoint ticket
+        survives the decode step and a killed primary); a touched pool
+        that was killed raises, as the reference's deleted buffer does."""
+        eng = self._engine
+        if any(pool_dead(eng.pools[n]) for n in self.touched):
+            raise RuntimeError(
+                f"FlushTicket(stream={self.stream!r}, seq={self.seq}) "
+                "expired: a pool it wrote was killed")
         if self._event is not None:
             self._event.synchronize()
         return self
@@ -83,7 +94,7 @@ class FlushTicket:
         ba = eng.block_axis
 
         def fetch(name: str, b: int) -> np.ndarray:
-            return eng.pools[name].select(ba, b).cpu().numpy()
+            return eng.pools[name].select(ba, b).to("cpu", copy=True).numpy()
 
         if isinstance(ref, BlockRef):
             self._check_live([ref.pool])

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
+from repro_torch.kernels.ref import require_live
 
 #: launches of the in-pool copy kernel (K5a)
 COUNTER = LaunchCounter("fpm_copy")
@@ -105,7 +106,9 @@ def block_geometry(pools: Sequence[torch.Tensor], block_axis: int
     """(layers, page_bytes, word_bytes) of pools that share one device,
     dtype and block shape; raises on what the kernels do not take.
     ``word_bytes`` is the widest access (16, 8, ... 1 bytes) that divides
-    the page size and every pool's base address."""
+    the page size and every pool's base address.  A pool whose storage
+    was freed raises here, before any address is read."""
+    require_live(pools)
     p0 = pools[0]
     blk = tuple(p0.shape[block_axis + 1:])
     layers = int(p0.shape[0]) if block_axis == 1 else 1

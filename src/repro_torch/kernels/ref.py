@@ -51,6 +51,21 @@ def address_space(sizes: Sequence[int]):
     return tuple(bases), run, locate
 
 
+def pool_dead(t: torch.Tensor) -> bool:
+    """Has ``t``'s storage been freed (``RowCloneEngine.kill_pool``)?  A
+    dead pool keeps its shape over zero bytes."""
+    return t.numel() > 0 and t.untyped_storage().nbytes() == 0
+
+
+def require_live(pools: Sequence[torch.Tensor]) -> None:
+    """Raise before any work when a pool's storage was freed: a kernel
+    must never read or write through the freed (null) address."""
+    for i, p in enumerate(pools):
+        if pool_dead(p):
+            raise RuntimeError(f"pool {i} of shape {tuple(p.shape)} has no "
+                               "storage (killed): recover() restores it")
+
+
 def int_view(t: torch.Tensor) -> torch.Tensor:
     """Same-itemsize integer view: AND/OR/NOT act on raw bit patterns."""
     return t.view(_INT_OF_SIZE[t.element_size()])
@@ -72,6 +87,7 @@ def fused_dispatch(pools: Sequence[torch.Tensor],
     their two sources as ``a * total + b``.  ``OP_NOP`` rows and rows with
     ``dst == -1`` are skipped.  Returns the pools."""
     pools = tuple(pools)
+    require_live(pools)
     ba = block_axis
     primary = as_primary(primary, len(pools))
     _, total, locate = address_space([p.shape[ba] for p in pools])

@@ -35,8 +35,14 @@ of low admission pressure and reopens it on demand.  ``fused_staging=False``
 is the seed's A/B leg: no staging pools, the prefill's pages written
 straight into the K/V pools (:func:`_stage_legacy`), eager CoW work.
 
-Not ported (the constructor refuses them): checkpointing, fault injection
-and recovery (ROADMAP queue 1, item 9) and the mesh (item 12).
+Fault tolerance: ``ckpt_pages > 0`` adds spill slots for a background
+:class:`~repro_torch.checkpoint.PoolCheckpoint` ticked once per decode
+round; ``fault_plan`` installs a :class:`~repro_torch.runtime.fault
+.FaultPlan` against this engine; ``auto_recover=True`` catches a failed
+round flush, checkpoint tick or admission and runs :meth:`ServingEngine
+.recover` in place.  Admissions a recovery evicts land in
+``evicted_sids`` for the caller to re-admit.  The mesh is not ported (the
+constructor refuses it; ROADMAP queue 1, item 12).
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
@@ -49,12 +55,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager, PoolCheckpoint
 from repro_torch.configs import (DECODER_FAMILIES, ModelConfig,
                                  RowCloneConfig, get_config, list_archs)
 from repro_torch.core.allocator import SubarrayAllocator
 from repro_torch.core.cow_cache import PagedCoWCache
+from repro_torch.core.journal import RecoveryReport
 from repro_torch.core.rowclone import RowCloneEngine
 from repro_torch.kernels.fused_dispatch import notify_launch
+from repro_torch.kernels.ref import pool_dead
 from repro_torch.models.lm import LanguageModel, kv_to_pools, model_dtype
 from repro_torch.models.paged import make_serving_pools
 from repro_torch.obs import metrics as obs_metrics
@@ -86,16 +95,6 @@ DECODE_REFUSAL = ("CLI decode loop demo targets decoder-only archs; other "
 #: queue item that brings it)
 NOT_PORTED = {
     "mesh": (None, "ROADMAP queue 1 item 12 (multi-GPU)"),
-    "fault_plan": (None, "ROADMAP queue 1 item 9 (robustness: fault "
-                         "injection)"),
-    "auto_recover": (False, "ROADMAP queue 1 item 9 (robustness: "
-                            "recover())"),
-    "ckpt_pages": (0, "ROADMAP queue 1 item 9 (robustness: pool "
-                      "checkpoints)"),
-    "ckpt_dir": (None, "ROADMAP queue 1 item 9 (robustness: pool "
-                       "checkpoints)"),
-    "ckpt_window": (None, "ROADMAP queue 1 item 9 (robustness: pool "
-                          "checkpoints)"),
 }
 
 
@@ -159,17 +158,26 @@ class ServingEngine:
                  fused_staging: bool = True,
                  max_admit_pages: Optional[int] = None,
                  admissions_per_round: int = 1, double_buffer: bool = False,
+                 fault_plan=None, auto_recover: bool = False,
+                 ckpt_pages: int = 0, ckpt_dir: Optional[str] = None,
+                 ckpt_window: Optional[int] = None,
                  spill_pages: int = 0, dedup_admit: bool = False,
                  adaptive_ring: bool = True, device="cuda",
                  **not_ported):
         """``max_admit_pages`` sizes the staging ring (``None``: the
         admission policy's ``admissions_per_round x max_blocks_per_seq``;
         :data:`FULL_TWIN`: full twins); ``double_buffer`` doubles it.
-        ``spill_pages > 0`` builds spill pools of that many slots for
-        :meth:`demote` / :meth:`resume`.  ``dedup_admit`` and
-        ``adaptive_ring`` apply to fused staging only.  Arguments of
-        :data:`NOT_PORTED` raise ``NotImplementedError`` unless they hold
-        the reference's default (off)."""
+        ``ckpt_pages > 0`` adds that many spill slots for a
+        :class:`PoolCheckpoint` in ``ckpt_dir`` (windows of
+        ``min(ckpt_window, ckpt_pages)`` blocks), ``spill_pages > 0`` that
+        many more for :meth:`demote` / :meth:`resume`: both share the
+        spill pools, checkpoint windows in slots ``[0, ckpt_pages)``.
+        ``fault_plan`` is installed against this engine; ``auto_recover``
+        runs :meth:`recover` when a round's flush, checkpoint tick or
+        admission fails.  ``dedup_admit`` and ``adaptive_ring`` apply to
+        fused staging only.  Arguments of :data:`NOT_PORTED` raise
+        ``NotImplementedError`` unless they hold the reference's default
+        (off)."""
         for name, value in not_ported.items():
             if name not in NOT_PORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -193,6 +201,7 @@ class ServingEngine:
         self.rc = rc or RowCloneConfig()
         self.model = params
         self.fused_staging = fused_staging
+        self.double_buffer = double_buffer
         page = self.rc.page_size
         nblk = max_seqs * max_blocks_per_seq
         nblk = -(-nblk // num_slabs) * num_slabs
@@ -203,6 +212,7 @@ class ServingEngine:
         else:
             self.ring_capacity = int(max_admit_pages)
             stage_nblk = self.ring_capacity * (2 if double_buffer else 1)
+        self.ckpt_pages = int(ckpt_pages)
         self.spill_pages = int(spill_pages)
         alloc = SubarrayAllocator(
             nblk, num_slabs,
@@ -216,7 +226,8 @@ class ServingEngine:
         pools, group = make_serving_pools(
             cfg.num_attn_layers, nblk, page, cfg.num_kv_heads, cfg.head_dim,
             model_dtype(cfg), self.device, staging=fused_staging,
-            stage_nblk=stage_nblk, ckpt_nblk=self.spill_pages)
+            stage_nblk=stage_nblk,
+            ckpt_nblk=self.ckpt_pages + self.spill_pages)
         self.engine = RowCloneEngine(
             pools, alloc, enable_fpm=self.rc.enable_fpm,
             enable_psm=self.rc.enable_psm, enable_zi=self.rc.enable_zi,
@@ -230,14 +241,28 @@ class ServingEngine:
         #: the round's bulk movement rides this stream (one launch/round)
         self.stream = self.engine.stream("serve")
         self.last_ticket = None
-        #: admissions whose promotions have not drained (demote refuses)
+        self.auto_recover = auto_recover
+        self.fault_plan = fault_plan
+        if fault_plan is not None:
+            fault_plan.install(self.engine)
+        #: admissions whose promotions have not drained (demote refuses;
+        #: a recovery that lost the staged bytes evicts them)
         self._staged_sids: List[int] = []
         #: per-admission stage→KV promotions still queued (free() retires)
         self._pending_promotions: Dict[int, List[Tuple[int, int]]] = {}
         #: preempted sequences parked in spill slots, by sid
         self.demoted: Dict[int, DemotedSeq] = {}
+        #: resumes whose spill→KV promotions have not drained (a recovery
+        #: evicts them like staged admissions)
+        self._resumed: List[Tuple[int, List[int]]] = []
+        #: sequences a recovery evicted; re-admitting their prompts
+        #: reproduces the KV bytes
+        self.evicted_sids: List[int] = []
         #: demoted blocks held until the round's flush drains their reads
         self._free_after_flush: List[int] = []
+        #: fused-staging admissions so far (donation-error injections
+        #: name these ordinals)
+        self._admission_ordinal = 0
         #: dedup registry: chained page fingerprint -> (donor block, page
         #: tokens); the tokens are checked on every hit
         self.dedup_admit = bool(dedup_admit) and fused_staging
@@ -253,8 +278,20 @@ class ServingEngine:
         self._round_admitted_pages = 0
         self.ring_shrinks = 0         #: times the controller clamped it
         self.ring_regrows = 0         #: times demand reopened it
+        self.last_recovery: Optional[RecoveryReport] = None
+        self.pool_ckpt: Optional[PoolCheckpoint] = None
+        if self.ckpt_pages:
+            if ckpt_dir is None:
+                raise ValueError("ckpt_pages > 0 needs ckpt_dir")
+            # windows stay inside the checkpoint's slot range: with
+            # demotion the spill pools are larger
+            self.pool_ckpt = PoolCheckpoint(
+                self.engine, CheckpointManager(ckpt_dir),
+                window=(min(int(ckpt_window), self.ckpt_pages)
+                        if ckpt_window is not None else self.ckpt_pages))
         if self.spill_pages:
-            self.engine.enable_demotion(range(self.spill_pages))
+            self.engine.enable_demotion(
+                range(self.ckpt_pages, self.ckpt_pages + self.spill_pages))
 
     # ------------------------------------------------------------------
     def add_request(self, prompt: np.ndarray, stream=None) -> int:
@@ -283,16 +320,25 @@ class ServingEngine:
                 notify_launch(len(blocks), 1, "legacy_stage")
             eng.mark_pools_written(("k", "v"))
             return self._admitted(sid, prompt, logits, extras)
+        ordinal = self._admission_ordinal
+        self._admission_ordinal += 1
+        ceil = eng._stage_degraded_cap   # None = full capacity
         if self.adaptive_ring and eng.stage_limit is not None \
-                and eng.stage_slots_free < len(blocks):
-            # regrow on demand BEFORE reserving: the clamp never fails or
-            # early-flushes an admission the full ring could hold
-            eng.set_stage_limit(None)
+                and eng.stage_slots_free < len(blocks) \
+                and (ceil is None or eng.stage_limit < ceil):
+            # regrow on demand BEFORE reserving, up to a degraded
+            # recovery's sticky cap: the clamp never fails or early-flushes
+            # an admission the unclamped ring could hold
+            eng.set_stage_limit(ceil)
             self.ring_regrows += 1
             self._ring_window = []
             obs_metrics.inc("serve.ring_regrows")
         stage_ids = eng.stage_blocks(len(blocks))
         try:
+            if self.fault_plan is not None:
+                # donation errors fire after the slots are reserved: the
+                # staging pools die under the admission's prefill
+                self.fault_plan.check_admission(ordinal, eng)
             logits, pages, extras = self._prefill(prompt, len(blocks))
             ids = torch.as_tensor(stage_ids, device=self.device)
             for name, kv in zip(("k_stage", "v_stage"), pages):
@@ -301,7 +347,15 @@ class ServingEngine:
             eng.mark_pools_written(("k_stage", "v_stage"))
         except Exception:
             eng.release_stage_blocks(stage_ids)
-            self.cache.free_sequence(sid)
+            if any(pool_dead(eng.pools[n]) for n in eng.staging):
+                # the staging ring died: this admission (and any earlier
+                # one whose promotion is queued) lost its staged bytes
+                self.free(sid)
+                self.evicted_sids.append(sid)
+                if self.auto_recover:
+                    self.recover()
+            else:
+                self.cache.free_sequence(sid)
             raise
         self._round_admitted_pages += len(stage_ids)
         pairs = list(zip(stage_ids, blocks))
@@ -476,7 +530,63 @@ class ServingEngine:
         self.tokens[new_sid] = d.tokens
         if d.extras is not None:
             self._extras[new_sid] = d.extras
+        self._resumed.append((new_sid, list(d.slots)))
         return new_sid
+
+    # ------------------------------------------------------------------
+    def recover(self) -> RecoveryReport:
+        """Return the serving engine to a clean state after a failed
+        flush, checkpoint tick or admission: ``RowCloneEngine.recover``
+        with the serving policy around it.
+
+        The latest pool checkpoint (when one exists) restores killed K/V
+        pools; a killed double-buffered staging ring comes back at
+        single-buffer capacity (the degraded mode); admissions whose
+        staged bytes were lost (a killed ring, or promotions evicted from
+        the queues), in-flight resumes, and demoted sequences whose spill
+        pools died are freed into ``evicted_sids``.  Aborted flushes'
+        suffixes re-drain inside the engine call, completing promotions
+        that had already dispatched."""
+        eng = self.engine
+        staging_dead = any(pool_dead(eng.pools[n]) for n in eng.staging)
+        # probe the spill pools BEFORE the engine resurrects them: dead
+        # spill pools take every demoted sequence's parked bytes along
+        spill_dead = self.spill_pages > 0 and any(
+            pool_dead(eng.pools[s.name]) for s in eng.group
+            if s.role == "spill")
+        degraded = None
+        if staging_dead and self.double_buffer:
+            degraded = self.ring_capacity
+        snap = self.pool_ckpt.latest() if self.pool_ckpt is not None \
+            else None
+        rep = eng.recover(snapshot=snap, degraded_stage_capacity=degraded)
+        if self.pool_ckpt is not None:
+            self.pool_ckpt.reset()
+        if staging_dead or rep.evicted_promotions:
+            for sid in list(self._staged_sids):
+                if sid in self.cache.seqs:
+                    self.free(sid)
+                    self.evicted_sids.append(sid)
+        # the aborted queues dropped the demote reads: release the blocks
+        # held for them now
+        if self._free_after_flush:
+            eng.alloc.free(self._free_after_flush)
+            self._free_after_flush = []
+        for sid, slots in self._resumed:
+            if sid in self.cache.seqs:
+                self.free(sid)
+                self.evicted_sids.append(sid)
+            eng.release_spill_slots(slots)
+        self._resumed = []
+        if spill_dead:
+            for sid in list(self.demoted):
+                self.free(sid)
+                self.evicted_sids.append(sid)
+        self._staged_sids = []
+        self._pending_promotions.clear()
+        self.last_ticket = None
+        self.last_recovery = rep
+        return rep
 
     # ------------------------------------------------------------------
     def kv_bytes_live(self) -> int:
@@ -495,6 +605,7 @@ class ServingEngine:
         allocator, and the adaptive ring takes its sample."""
         self._staged_sids = []
         self._pending_promotions.clear()
+        self._resumed = []
         if self._free_after_flush:
             self.engine.alloc.free(self._free_after_flush)
             self._free_after_flush = []
@@ -534,7 +645,12 @@ class ServingEngine:
         live = sorted(self.cache.seqs)
         if not live:
             if len(self.stream):
-                self.last_ticket = self.stream.flush()
+                try:
+                    self.last_ticket = self.stream.flush()
+                except Exception:
+                    if not self.auto_recover:
+                        raise
+                    self.recover()
                 self._post_flush()
             return {}
         next_tok = {sid: int(np.argmax(self.last_logits[sid]))
@@ -545,7 +661,18 @@ class ServingEngine:
                 self.cache.append_tokens(live)
         else:
             self.cache.append_tokens(live)      # legacy leg: eager
-        self.last_ticket = self.stream.flush()
+        try:
+            self.last_ticket = self.stream.flush()
+        except Exception:
+            if not self.auto_recover:
+                raise
+            # the aborted flush's suffix re-drains inside recover() (same
+            # rows, same bytes), so this round decodes as the clean run
+            self.recover()
+            live = [s for s in live if s in self.cache.seqs]
+            next_tok = {s: next_tok[s] for s in live}
+            if not live:
+                return {}
         self._post_flush()
         table, mask, base = self.cache.device_tables()
         B = self.cache.max_seqs
@@ -566,6 +693,15 @@ class ServingEngine:
         for sid in live:
             self.last_logits[sid] = logits[self.cache.slot_of(sid)]
             self.tokens[sid].append(next_tok[sid])
+        if self.pool_ckpt is not None:
+            # one checkpoint window a round on the ckpt stream, harvested
+            # next round
+            try:
+                self.pool_ckpt.step()
+            except Exception:
+                if not self.auto_recover:
+                    raise
+                self.recover()
         return next_tok
 
 

@@ -633,3 +633,70 @@ def test_cuda_scheduler_preemption_matches_same_batch_twin(card):
         assert got <= 1 and got == reported
     assert [len(t) for t in tight] == [8, 8, 8]
     assert tight == twin
+
+
+# ---------------------------------------------------------------------------
+# the recovery path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_launch_failure_recovers_token_identical(card, tmp_path):
+    """llama3.2-3b at full width cut to 2 layers, with the checkpoint
+    stream: a launch failure injected on round 1's drain and a donation
+    error on the third admission, both recovered in place (the evicted
+    prompt re-admitted).  Greedy tokens equal a clean twin's bitwise, every
+    round after the fault drains at most one K1 launch, and a killed pool
+    makes K1's wrapper raise instead of launching."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.runtime.fault import FaultPlan, InjectedFault
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), num_layers=2)
+    model = init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=24).astype(np.int32)
+               for _ in range(3)]
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+
+    def drive(plan, sub):
+        eng = ServingEngine(cfg, model, max_seqs=8, max_blocks_per_seq=16,
+                            fault_plan=plan, auto_recover=plan is not None,
+                            ckpt_pages=8, ckpt_dir=str(tmp_path / sub))
+        order = [eng.add_request(p) for p in prompts[:2]]
+        per_round = []
+        for r in range(6):
+            if r == 1 and plan is not None:
+                plan.launch_failures += (eng.engine.next_flush_index,)
+            if r == 3:
+                if plan is not None:
+                    plan.donation_errors += (eng._admission_ordinal,)
+                    with pytest.raises(InjectedFault):
+                        eng.add_request(prompts[2])
+                order.append(eng.add_request(prompts[2]))
+            n0 = k1.n
+            eng.decode_round()
+            t = eng.last_ticket
+            per_round.append((k1.n - n0, t.launches if t else -1))
+        torch.cuda.synchronize()
+        return eng, [eng.tokens[s] for s in order], per_round
+
+    _, clean, _ = drive(None, "clean")
+    plan = FaultPlan()
+    eng, got, per_round = drive(plan, "fault")
+    assert [k for k, _ in plan.fired] == ["launch_failure", "donation_error"]
+    assert len(eng.evicted_sids) == 1 and eng.last_recovery is not None
+    assert got == clean
+    # after the fault round: the serve flush drains in <= 1 K1 launch,
+    # and the checkpoint window adds one
+    for total, serve in per_round[2:]:
+        assert 0 <= serve <= 1 and total == serve + 1
+    assert eng.pool_ckpt._cursor > 0 or eng.pool_ckpt.passes > 0
+    eng.engine.kill_pool("v")
+    n0 = k1.n
+    with pytest.raises(RuntimeError, match="no storage"):
+        ops.fused_dispatch(tuple(eng.engine.pools.values()),
+                           eng.engine._get_zero_blocks(),
+                           np.array([[0, 0, 1]], np.int32))
+    torch.cuda.synchronize()
+    assert k1.n == n0

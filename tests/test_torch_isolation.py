@@ -32,7 +32,10 @@ NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.kernels.ssd_chunk", "repro_torch.models.mamba2",
                "repro_torch.models.moe", "repro_torch.obs.metrics",
                "repro_torch.launch.scheduler",
-               "repro_torch.launch.multitenant")
+               "repro_torch.launch.multitenant",
+               "repro_torch.runtime.fault",
+               "repro_torch.checkpoint.manager",
+               "repro_torch.checkpoint.pool_checkpoint")
 
 
 def _modules():
@@ -100,7 +103,7 @@ def test_card_tests_import_without_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     marked = out.stdout.split("CUDA=")[1].split()[0].split(",")
-    assert len(marked) == 13, marked
+    assert len(marked) == 14, marked
     marker = "@pytest.mark." + "cuda"
     others = [p for p in (ROOT / "tests").glob("test_torch_*.py")
               if p.name != "test_torch_card.py" and marker in p.read_text()]

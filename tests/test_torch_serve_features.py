@@ -804,23 +804,51 @@ def test_reference_failing_test_is_a_prefill_near_tie(served):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "item 12"),
-    (dict(fault_plan=object()), "item 9"),
+    (dict(fault_plan="plan"), "item 9"),
     (dict(auto_recover=True), "item 9"),
     (dict(ckpt_pages=4), "item 9"),
-    (dict(ckpt_dir="ckpt"), "item 9"),
+    (dict(ckpt_dir="dir"), "item 9"),
     (dict(ckpt_window=2), "item 9"),
 ])
-def test_unported_arguments_raise(served, kw, item):
-    """The reference's fault-tolerance and mesh arguments raise
-    NotImplementedError naming their ROADMAP queue item; their defaults
-    (off) are accepted."""
-    _, _, cfg, tmodel = served
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_arguments_raise(served, kw, item, tmp_path):
+    """The mesh argument raises NotImplementedError naming its ROADMAP
+    queue item (12) and its default (off) is accepted.  The
+    fault-tolerance arguments item 9 brought are no longer refused: each
+    builds, or raises, as the JAX engine does with it (``ckpt_pages``
+    without ``ckpt_dir`` raises ValueError in both; ``fault_plan`` is each
+    package's own ``FaultPlan``)."""
+    jcfg, params, cfg, tmodel = served
+    name = next(iter(kw))
+    if item == "item 12":
+        with pytest.raises(NotImplementedError, match=item):
+            ServingEngine(cfg, tmodel, max_seqs=2, max_blocks_per_seq=2,
+                          device="cpu", **kw)
+        off = {k: tserve.NOT_PORTED[k][0] for k in kw}
         ServingEngine(cfg, tmodel, max_seqs=2, max_blocks_per_seq=2,
-                      device="cpu", **kw)
-    off = {k: tserve.NOT_PORTED[k][0] for k in kw}
-    ServingEngine(cfg, tmodel, max_seqs=2, max_blocks_per_seq=2,
-                  device="cpu", **off)
+                      device="cpu", **off)
+    else:
+        import repro.runtime.fault as jfault
+        import repro_torch.runtime.fault as tfault
+        assert name not in tserve.NOT_PORTED
+        outcome = []
+        for make, fault in ((lambda **a: jserve.ServingEngine(
+                jcfg, params, **a), jfault),
+                (lambda **a: ServingEngine(cfg, tmodel, device="cpu", **a),
+                 tfault)):
+            args = dict(kw)
+            if name == "fault_plan":
+                args[name] = fault.FaultPlan()
+            if name == "ckpt_dir":
+                args[name] = str(tmp_path / "ckpt")
+            try:
+                eng = make(max_seqs=2, max_blocks_per_seq=2, **args)
+            except ValueError as e:
+                outcome.append(("ValueError", str(e)))
+                continue
+            outcome.append((eng.auto_recover, eng.pool_ckpt is None,
+                            eng.engine.spill_capacity,
+                            len(eng.engine.group.names)))
+        assert outcome[1] == outcome[0]
     with pytest.raises(TypeError):
         ServingEngine(cfg, tmodel, device="cpu", not_an_argument=1)
 
