@@ -242,6 +242,29 @@ Phases (each raises on failure; the script then exits non-zero):
     copies over 1,280-block pools: the 512-row prefix journaled aborted,
     the suffix re-drained (tapped), pools bitwise equal to a clean twin's.
 
+19. (run after phase 18, on phase 5's weights) the observability half
+    (``phase_observability``; ``core/sanitizer.py``, ``obs/trace.py``, the
+    core's ``drain.*`` / ``queue.*`` / ``engine.bytes_*`` series,
+    ``obs/autotune.py``, ``launch/autotune.py``) on llama3.2-3b at full
+    width and depth.  (a) a ``ServingEngine`` sanitized through
+    ``REPRO_SANITIZE=1`` (every chunk shadow-drained by the plain version
+    on host copies, bitwise), the twin's script (two admissions, a fork, 4
+    rounds, a third admission and a round) with every K2 / K3 call
+    tapped, a check run left out of the path's count; every report ok,
+    ``tables_checked == shadow_runs ==`` K1 launches, tokens equal to an
+    unsanitized twin's, then a planted K1 fault caught as ``shadow-diff``.
+    (b) the twin's counters equal its journal, tickets and K1's counter.
+    (c) an admission and its round under ``torch.profiler``: K1 launched
+    inside a ``drain`` range nested in a ``flush`` range; the ticket's
+    host ``drain_us`` beside K1's device time.  (d) rounds and 64-row
+    flushes with observability on and off, in turns (printed, not gated).
+    (e) the autotuner's flush matrix over two ``(28, 1024, 64, 8, 128)``
+    bf16 pools and its ring sweep, into a temporary directory: 1.0
+    launches a flush, every bucket set's K1 calls and a 600-row flush (one
+    1,024-row table) bitwise against the plain version, the profile read
+    back, and ServingEngine's ring resolved kwarg > profile > policy on
+    the card.
+
 The last three lines are the ``kernels`` JSON (seven kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
 and power limit, and the device JSON.
@@ -3369,6 +3392,18 @@ def _since(before: dict) -> dict:
     return {n: c - before.get(n, 0) for n, c in _counts().items()}
 
 
+def check_run(fn, checked: dict):
+    """Run ``fn``, a run that only holds kernels against their plain
+    versions, and add its launches to ``checked``, so that a path's count
+    leaves them out (also when ``fn`` raises)."""
+    c0 = _counts()
+    try:
+        return fn()
+    finally:
+        for n, c in _since(c0).items():
+            checked[n] = checked.get(n, 0) + c
+
+
 def _preempt_script(eng, prompts, tokens=PARITY_TOKENS, tap=False):
     """``bench_dispatch.py _traffic_parity``'s script: two free requests,
     two rounds, a gold arrival, drain.  Returns the scheduler, the request
@@ -3822,16 +3857,6 @@ def phase_recovery(params, smi: str) -> dict:
     t_phase = time.perf_counter()
     before = _counts()
     checked = {}
-
-    def check_run(fn):
-        """Run ``fn``, a run that only holds kernels against their plain
-        versions, and keep its launches out of the path's count."""
-        c0 = _counts()
-        out = fn()
-        for n, c in _since(c0).items():
-            checked[n] = checked.get(n, 0) + c
-        return out
-
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         rng = np.random.default_rng(SEED)
@@ -3922,7 +3947,8 @@ def phase_recovery(params, smi: str) -> dict:
         tplan = FaultPlan()
         teng = engine(tplan, "tapped")
         (tgot, _, _), reads = check_run(
-            lambda: tapped(lambda: _fault_rounds(teng, prompts, tplan)))
+            lambda: tapped(lambda: _fault_rounds(teng, prompts, tplan)),
+            checked)
         checks["(a) the leg's K2 / K3 calls within K2_ATOL / K3_ATOL, its "
                "tokens the clean twin's"] = \
             set(reads) == {"paged_attention_slab", "flash_attention"} \
@@ -3984,7 +4010,7 @@ def phase_recovery(params, smi: str) -> dict:
         for n in ("k", "v"):
             rce.kill_pool(n)
         with K1Tap() as tap_b:
-            rep2 = check_run(lambda: rce.recover(snapshot=snap))
+            rep2 = check_run(lambda: rce.recover(snapshot=snap), checked)
         same2 = all(_bitwise_equal(rce.pools[n], kept[n]) for n in kept)
         rce.alloc.free(fresh)
         snap_mb = sum(a.nbytes for a in snap.arrays.values()) / 1e6
@@ -4085,17 +4111,487 @@ def phase_recovery(params, smi: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the observability half (sanitizer, spans, metrics, autotune)
+# ---------------------------------------------------------------------------
+
+#: (a) prompts: two admitted before the rounds (the first forked into 2),
+#: one in the last round; a sequence's block count; the rounds
+OBS_PROMPTS, OBS_BLOCKS, OBS_ROUNDS = (100, 128, 60), 16, 4
+#: (d) rounds (and flushes) timed with observability on and off, each
+OBS_COST_REPS = 24
+#: (e) the flush matrix's pools: llama3.2-3b's layer-stacked K/V pages; a
+#: flush of BIG_ROWS rows over BIG_NBLK blocks pads to one 1,024-row table
+#: under the bucket set (16, 64, 256, 1024), two chunks under the default
+SWEEP_NBLK, BIG_NBLK, BIG_ROWS = 1024, 2048, 600
+
+
+def _obs_script(eng, prompts, tap=False):
+    """Phase 19's serving script: admit two prompts, one round, fork the
+    first into 2 (after its promotions drained, as phase 5 does), the rest
+    of OBS_ROUNDS rounds, then admit the third and run one more round.
+    With ``tap`` every K2 / K3 call of the script is held against its
+    plain version.  Returns the tokens in admission order, K1 launches a
+    round, the tickets of the rounds' flushes that drained rows and the
+    K2 / K3 reads (empty without ``tap``)."""
+    from repro_torch.kernels import ops
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+    per_round, tickets = [], []
+
+    def one_round():
+        n0 = k1.n
+        eng.decode_round()
+        per_round.append(k1.n - n0)
+        tickets.append(eng.last_ticket)
+
+    def script():
+        sids = [eng.add_request(p) for p in prompts[:2]]
+        for r in range(OBS_ROUNDS):
+            if r == 1:
+                sids += eng.fork(sids[0], 1)
+            one_round()
+        sids.append(eng.add_request(prompts[2]))
+        one_round()
+        return sids
+
+    sids, reads = tapped(script) if tap else (script(), {})
+    torch.cuda.synchronize()
+    drained = [t for t in tickets if t is not None and t.commands]
+    return [eng.tokens[s] for s in sids], per_round, drained, reads
+
+
+def _journal_counts(records):
+    """Rows by opcode name, spacers and launches of journal records."""
+    from repro_torch.core.opcodes import OPCODE_NAMES
+    rows, spacers = {}, 0
+    for rec in records:
+        for op, _s, _d in rec.rows:
+            if op < 0:
+                spacers += 1
+            else:
+                name = OPCODE_NAMES[int(op)]
+                rows[name] = rows.get(name, 0) + 1
+    return rows, spacers, sum(r.launches for r in records)
+
+
+def phase_observability(params, smi: str) -> dict:
+    """Phase 19: the observability half (``core/sanitizer.py``,
+    ``obs/trace.py``, the core's ``drain.*`` / ``queue.*`` /
+    ``engine.bytes_*`` series, ``obs/autotune.py`` and
+    ``launch/autotune.py``) on phase 5's llama3.2-3b weights at full
+    width and depth.
+
+    (a) a ``ServingEngine`` (8 sequences x OBS_BLOCKS blocks) whose
+        ``RowCloneEngine`` gets a sanitizer from ``REPRO_SANITIZE=1`` at
+        construction, ``shadow_every=1``, runs the twin's script (two
+        admissions, a fork, OBS_ROUNDS rounds, a third admission and one
+        more round) with every K2 / K3 call held against its plain
+        version (``tapped``), so every prefill and decode shape of the
+        path is held.  It is a check run: its launches are left out of
+        the path's count.  Every report ok, ``tables_checked ==
+        shadow_runs ==`` the K1 launches of the run (each shadow drain is
+        the plain version on host copies, bit for bit), tokens equal to
+        an unsanitized twin's, <= 1 K1 launch a round on both.  Then a
+        planted K1 whose output differs in one block: the flush raises
+        ``SanitizerError`` with only a ``shadow-diff`` finding.
+    (b) over the twin: ``drain.rows`` by opcode, ``drain.spacer_rows`` and
+        ``drain.launches`` equal to its journal records (and the launches
+        to the tickets' and K1's counter), ``queue.enqueued`` to the
+        tickets' commands, one histogram sample a flush.
+    (c) an admission and its round under ``torch.profiler``: ``flush``
+        ranges with ``drain`` nested inside, the K1 kernel attributed to a
+        ``drain`` range; ``FlushTicket.timing.drain_us`` (host wall-clock
+        around an asynchronous launch) printed beside K1's device time
+        from the same trace.
+    (d) what observability costs: OBS_COST_REPS rounds (and 64-row
+        flushes over (e)'s pools) each with tracing and metrics on and
+        off, in turns; medians and spreads, and the host cost of one
+        labeled ``inc()``.  Nothing is gated on these times.
+    (e) ``launch/autotune.py``'s flush matrix (the reference's bucket
+        sets, batches and reps) over full-width pools (two ``(28,
+        SWEEP_NBLK, 64, 8, 128)`` bf16 pools), a short ring sweep with
+        phase 5's weights, into a temporary directory: 1.0 launches a
+        flush under every bucket set; each set's batches, and a BIG_ROWS
+        table over BIG_NBLK-block pools (one 1,024-row table under (16,
+        64, 256, 1024)), drained once more with every K1 call held against
+        its plain version (``K1Tap``); the profile written, read back,
+        loaded by an engine on the card, and ServingEngine's ring
+        resolved kwarg > profile > policy.
+
+    Returns the phase's launch counts by kernel."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import cmdqueue
+    from repro_torch.core.allocator import SubarrayAllocator
+    from repro_torch.core.rowclone import RowCloneEngine
+    from repro_torch.core.sanitizer import SanitizerError
+    from repro_torch.kernels import ops
+    from repro_torch.launch import autotune
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.obs import autotune as obs_autotune
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace
+    cfg = params.cfg
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+    tag = "[llama3.2-3b observability]"
+    checks = {}
+    t_phase = time.perf_counter()
+    before = _counts()
+    checked = {}
+    rng = np.random.default_rng(SEED + 19)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in OBS_PROMPTS + (OBS_PROMPTS[0],)]
+
+    def engine():
+        return ServingEngine(cfg, params, max_seqs=MAX_SEQS,
+                             max_blocks_per_seq=OBS_BLOCKS)
+
+    # (b)'s twin first, on a clean registry
+    obs_metrics.reset()
+    trace.reset_spans()
+    twin = engine()
+    assert twin.engine.sanitizer is None
+    n0 = k1.n
+    want, twin_rounds, tickets, _ = _obs_script(twin, prompts)
+    twin_k1 = k1.n - n0
+    reg = obs_metrics.registry()
+    recs = [r for r in twin.engine.journal.records if not r.aborted]
+    j_rows, j_spacers, j_launches = _journal_counts(recs)
+    got_rows = {}
+    for labels, v in reg.series("drain.rows").items():
+        op = dict(labels)["opcode"]
+        got_rows[op] = got_rows.get(op, 0) + int(v)
+    got_spacers = int(sum(reg.series("drain.spacer_rows").values()))
+    got_launches = int(sum(reg.series("drain.launches").values()))
+    enqueued = int(sum(reg.series("queue.enqueued").values()))
+    hist_n = {k: len(v) for k, v in reg.hists.items()
+              if k[0] in ("drain.flush_us", "drain.table_len")}
+    checks.update({
+        "(b) drain.rows by opcode == the journal records' rows":
+            got_rows == j_rows and sum(j_rows.values()) > 0,
+        "(b) drain.spacer_rows == the journal's spacers":
+            got_spacers == j_spacers,
+        "(b) drain.launches == the journal's == the tickets' == K1's":
+            got_launches == j_launches == twin_k1
+            == sum(t.launches for t in tickets),
+        "(b) queue.enqueued == the tickets' commands":
+            enqueued == sum(t.commands for t in tickets),
+        "(b) one drain.flush_us and one drain.table_len sample a flush":
+            sum(hist_n.values()) == 2 * len(recs) > 0,
+        "(b) every ticket carries a FlushTiming":
+            all(t.timing is not None and t.timing.launches == t.launches
+                for t in tickets),
+    })
+    moved = {}
+    for labels, v in reg.series("engine.bytes_moved").items():
+        mech = dict(labels)["mechanism"]
+        moved[mech] = moved.get(mech, 0) + int(v)
+    log(f"{tag} (b) unsanitized twin: K1 launches a round {twin_rounds}, "
+        f"{len(recs)} flushes; drain.rows {got_rows} (journal {j_rows}), "
+        f"spacers {got_spacers} ({j_spacers}), drain.launches "
+        f"{got_launches} (journal {j_launches}, K1 {twin_k1}), "
+        f"queue.enqueued {enqueued} (tickets "
+        f"{sum(t.commands for t in tickets)}); engine.bytes_moved by "
+        f"mechanism {moved}; "
+        f"timings (residency / drain us, table) " + ", ".join(
+            f"{t.timing.queue_residency_us:.1f} / {t.timing.drain_us:.1f}, "
+            f"{t.timing.table_len}" for t in tickets))
+
+    # (a) the sanitized engine
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        eng = engine()
+    finally:
+        os.environ.pop("REPRO_SANITIZE", None)
+    san = eng.engine.sanitizer
+    n0 = k1.n
+    t0 = time.perf_counter()
+    got, san_rounds, _, reads = check_run(
+        lambda: _obs_script(eng, prompts, tap=True), checked)
+    san_s = time.perf_counter() - t0
+    san_k1 = k1.n - n0
+    pool_mb = sum(p.numel() * p.element_size()
+                  for p in eng.engine.pools.values()) / 1e6
+    checks.update({
+        "(a) the sanitizer attached by REPRO_SANITIZE=1, shadow_every=1":
+            san is not None and san.shadow_every == 1,
+        "(a) every sanitizer report ok":
+            bool(san.reports) and all(r.ok for r in san.reports),
+        "(a) tables_checked == shadow_runs == the run's K1 launches":
+            san.tables_checked == san.shadow_runs == san_k1 > 0,
+        "(a) tokens equal to the unsanitized twin's":
+            got == want and len(got) == 4,
+        "(a) <= 1 K1 launch a round, sanitized and twin":
+            max(san_rounds) <= 1 and max(twin_rounds) <= 1
+            and san_rounds == twin_rounds,
+        "(a) the script's K2 / K3 calls within K2_ATOL / K3_ATOL":
+            set(reads) == {"paged_attention_slab", "flash_attention"}
+            and all(r["err"] <= r["limit"] for r in reads.values()),
+    })
+    log(f"{tag} (a) sanitized engine ({pool_mb:.1f} MB of pools, every "
+        f"chunk shadowed): K1 launches a round {san_rounds} (twin "
+        f"{twin_rounds}); tables_checked {san.tables_checked}, shadow_runs "
+        f"{san.shadow_runs}, K1 launches {san_k1}; tokens == twin: "
+        f"{got == want}; script {san_s:.1f} s with the shadow copies; the "
+        f"script's K2 / K3 calls: {_fmt_reads(reads)} ({smi})")
+    # the planted fault: a K1 whose output differs in one block
+    real = ops.fused_dispatch
+
+    def bad(pools, zero_blocks, cmds, **kw):
+        out = real(pools, zero_blocks, cmds, **kw)
+        pools[0].select(1, 2).view(torch.int16).bitwise_xor_(1)
+        return out
+
+    rce = eng.engine
+    src = rce.alloc.alloc(1)
+    dst = rce.alloc.alloc(1)
+    rce.alloc.mark_written(src)
+    # the error's message and findings only: its traceback would keep
+    # the engine's pools alive
+    caught, found = "NOT raised", None
+    ops.fused_dispatch = bad
+    try:
+        check_run(lambda: rce.memcopy([(src[0], dst[0])]), checked)
+    except SanitizerError as e:
+        caught = str(e).replace("\n", " | ")
+        found = {f.check for f in e.report.findings}
+    finally:
+        ops.fused_dispatch = real
+    checks["(a) a planted K1 fault raises SanitizerError, shadow-diff only"] \
+        = found == {"shadow-diff"}
+    log(f"{tag} (a) planted fault: {caught}")
+    del eng, rce, san
+
+    # (c) an admission and its round under torch.profiler (the trace
+    # missed K1 where it was the window's first kernel)
+    torch.cuda.synchronize()
+    trace.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        twin.add_request(prompts[3])
+        twin.decode_round()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    cuda = torch.autograd.DeviceType.CUDA
+    # the trace's raw events: a kernel and the runtime call that launched
+    # it share a correlation id, so a kernel lies in a range when its
+    # launch call does
+    kev = prof.profiler.kineto_results.events()
+    ranges = {n: [(e.start_ns(), e.end_ns()) for e in kev
+                  if e.name() == n and e.device_type() == cpu]
+              for n in ("flush", "drain")}
+    nested = [d for d in ranges["drain"] if any(
+        f[0] <= d[0] and d[1] <= f[1] for f in ranges["flush"])]
+    launch_at = {e.correlation_id(): e.start_ns() for e in kev
+                 if e.device_type() == cpu and "LaunchKernel" in e.name()}
+    k1_ev = [e for e in kev if e.device_type() == cuda
+             and "drain_kernel" in e.name()]
+    in_drain = [e for e in k1_ev if any(
+        a <= launch_at.get(e.correlation_id(), -1) <= b
+        for a, b in ranges["drain"])]
+    k1_us = sum(e.duration_ns() for e in k1_ev) / 1e3
+    timing = twin.last_ticket.timing
+    checks.update({
+        "(c) flush ranges with a drain range nested inside":
+            bool(ranges["flush"]) and len(nested) == len(ranges["drain"])
+            >= 1,
+        "(c) the K1 kernel launched inside a drain range":
+            len(in_drain) == len(k1_ev) == twin.last_ticket.launches == 1,
+        "(c) the span records: flush -> drain": [
+            (r.name, r.depth) for r in trace.spans()
+            if r.name in ("flush", "drain")] == [("flush", 0), ("drain", 1)],
+    })
+    log(f"{tag} (c) profiled round: {len(ranges['flush'])} flush "
+        f"range(s), {len(ranges['drain'])} drain range(s) ({len(nested)} "
+        f"nested in a flush), K1 kernels {len(k1_ev)}, launched inside a "
+        f"drain range {len(in_drain)}; FlushTicket.timing.drain_us "
+        f"{timing.drain_us:.1f} us (host wall-clock around the "
+        f"asynchronous launch) beside K1's device time {k1_us:.1f} us in "
+        f"the same trace; queue residency "
+        f"{timing.queue_residency_us:.1f} us, table {timing.table_len} "
+        f"rows ({smi})")
+    if len(in_drain) != 1:
+        dev = sorted({e.name()[:60] for e in kev if e.device_type() == cuda})
+        log(f"{tag} (c) device events: {len(dev)} names, {dev[:25]}; "
+            f"launch calls {len(launch_at)}; K1 correlation ids "
+            f"{[e.correlation_id() for e in k1_ev]}; launch calls in the "
+            f"drain range: {[(c, t) for c, t in launch_at.items() if any(a <= t <= b for a, b in ranges['drain'])]}")
+
+    # (e)'s pools: two full-width layer-stacked pools
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 190)
+    L, KVH, D = cfg.num_attn_layers, cfg.num_kv_heads, cfg.head_dim
+
+    def wide_engine(nblk=SWEEP_NBLK):
+        pools = {n: torch.randn((L, nblk, 64, KVH, D), generator=gen,
+                                device="cuda", dtype=torch.bfloat16)
+                 for n in ("k", "v")}
+        return RowCloneEngine(pools, SubarrayAllocator(nblk, 4,
+                                                       reserved_zero_per_slab=1),
+                              block_axis=1)
+
+    # (d) observability on and off, in turns
+    flat = wide_engine()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    cost = {("round", True): [], ("round", False): [],
+            ("flush", True): [], ("flush", False): []}
+    for i in range(2 * OBS_COST_REPS):
+        on = i % 2 == 0
+        prev_m = obs_metrics.set_metrics_enabled(on)
+        prev_t = trace.set_tracing(on)
+        try:
+            cost[("round", on)].append(timed(twin.decode_round))
+            cost[("flush", on)].append(timed(
+                lambda: autotune.flush_once(flat, 64, i)))
+        finally:
+            obs_metrics.set_metrics_enabled(prev_m)
+            trace.set_tracing(prev_t)
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        obs_metrics.inc("queue.enqueued", stream="serve",
+                        opcode="cross_pool_copy")
+    inc_us = (time.perf_counter() - t0) * 1e6 / 10000
+    for what in ("round", "flush"):
+        s_on = obs_metrics.summarize(cost[(what, True)])
+        s_off = obs_metrics.summarize(cost[(what, False)])
+        kind = (f"decode rounds of {len(twin.cache.seqs)} sequences"
+                if what == "round" else "64-row flushes over (e)'s pools")
+        plural = "flushes" if what == "flush" else "rounds"
+        log(f"{tag} (d) {plural} ({kind}), "
+            f"{OBS_COST_REPS} each in turns: on p50 {s_on['p50']:.3f} ms "
+            f"(min {s_on['min']:.3f}, p90 {s_on['p90']:.3f}, max "
+            f"{s_on['max']:.3f}); off p50 {s_off['p50']:.3f} ms (min "
+            f"{s_off['min']:.3f}, p90 {s_off['p90']:.3f}, max "
+            f"{s_off['max']:.3f}) ({smi})")
+    log(f"{tag} (d) one labeled inc() {inc_us:.3f} us on the host; a "
+        f"64-row flush enqueues 64 rows ({smi})")
+    del twin, flat
+
+    # (e) the card sweep, into a temporary directory
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tuned_")
+    env_keys = ("REPRO_TUNED_DIR", "REPRO_NO_TUNED")
+    env_prev = {k: os.environ.get(k) for k in env_keys}
+    try:
+        # the sweep measures raw configurations (tune sets REPRO_NO_TUNED
+        # around it); every engine built after it reads the new profile
+        os.environ.pop("REPRO_NO_TUNED", None)
+        os.environ["REPRO_TUNED_DIR"] = tmp
+        t0 = time.perf_counter()
+        n0 = k1.n
+        prof_e = autotune.tune(out_dir=tmp, device="cuda",
+                               make_engine=wide_engine, model=params)
+        sweep_s = time.perf_counter() - t0
+        rows = prof_e.swept["flush"]["rows"]
+        for r in rows + prof_e.swept.get("ring", {}).get("rows", []):
+            log(f"{tag} (e) {json.dumps(r)}")
+        # every bucket set once more, each K1 call held against its plain
+        # version; and one table of BIG_ROWS rows
+        taps = {}
+        for buckets in autotune.BUCKET_SETS:
+            with autotune.buckets_installed(buckets), K1Tap() as tap:
+                def drain_all():
+                    out = []
+                    for batch in autotune.BATCHES:
+                        e = wide_engine()
+                        autotune.flush_once(e, batch, 0)
+                        out.append((batch, e.last_drain_timing))
+                        del e
+                    big = wide_engine(nblk=BIG_NBLK)
+                    autotune.flush_once(big, BIG_ROWS, 0)
+                    out.append((BIG_ROWS, big.last_drain_timing))
+                    return out
+                timings = check_run(drain_all, checked)
+            top = buckets[-1]
+            taps[buckets] = dict(
+                bitwise=tap.ok(), calls=tap.calls,
+                drains=[(b, t.table_len, t.launches) for b, t in timings],
+                fit=tap.calls == sum(t.launches for _, t in timings)
+                and all(t.launches == -(-b // top) for b, t in timings))
+        big_1024 = [(n, ln) for b, n, ln in
+                    taps[(16, 64, 256, 1024)]["drains"] if b == BIG_ROWS]
+        # the profile round trip, and kwarg > profile > policy for the
+        # serving ring on the card
+        loaded = obs_autotune.load_profile(prof_e.backend)
+        loaded_by_engine = wide_engine(nblk=64).profile == prof_e
+        tight = dataclasses.replace(prof_e, ring_capacity=5)
+        obs_autotune.save_profile(tight, directory=tmp)
+        srv = ServingEngine(cfg, params, max_seqs=2, max_blocks_per_seq=4)
+        srv_kw = ServingEngine(cfg, params, max_seqs=2, max_blocks_per_seq=4,
+                               max_admit_pages=3)
+        os.environ["REPRO_NO_TUNED"] = "1"
+        srv_def = ServingEngine(cfg, params, max_seqs=2, max_blocks_per_seq=4)
+        precedence = (srv.ring_capacity, srv_kw.ring_capacity,
+                      srv_def.ring_capacity, srv_def.engine.profile is None)
+        del srv, srv_kw, srv_def
+        checks.update({
+            "(e) 1.0 K1 launches a flush under every bucket set":
+                len(rows) == len(autotune.BUCKET_SETS)
+                and all(r["launches_per_flush"] == 1.0 for r in rows),
+            "(e) every bucket set's K1 calls bitwise equal to the plain "
+            "version, launches == ceil(rows / top bucket)":
+                all(t["bitwise"] and t["fit"] for t in taps.values()),
+            "(e) a 1,024-row table under (16, 64, 256, 1024), one launch":
+                big_1024 == [(1024, 1)],
+            "(e) the profile written (backend cuda), read back equal, "
+            "loaded by an engine":
+                prof_e.backend == "cuda" and loaded == prof_e
+                and loaded_by_engine,
+            "(e) the serving ring: kwarg > profile > policy on the card":
+                precedence == (5, 3, 4, True),
+            "(e) the default buckets restored":
+                cmdqueue.get_buckets() == cmdqueue.DEFAULT_BUCKETS,
+        })
+        log(f"{tag} (e) sweep {sweep_s:.1f} s, {k1.n - n0} K1 launches; "
+            f"winner buckets {list(prof_e.buckets)}, ring "
+            f"{prof_e.ring_capacity}, {prof_e.us_per_flush:.1f} us/flush "
+            f"against the default's {prof_e.baseline_us_per_flush:.1f} "
+            f"({smi}); the serving ring (profile, kwarg, policy; no profile "
+            f"loaded under REPRO_NO_TUNED) {precedence}; taps: " + "; ".join(
+                f"{list(b)}: {t['calls']} calls, bitwise {t['bitwise']}, "
+                f"(rows, table, launches) {t['drains']}"
+                for b, t in taps.items()))
+    finally:
+        cmdqueue.set_buckets(None)
+        for k, v in env_prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths = {"llama observability": {n: c - checked.get(n, 0)
+                                     for n, c in _since(before).items()}}
+    p = paths["llama observability"]
+    checks["K1, K2 and K3 ran on the path"] = \
+        p["fused_dispatch"] > 0 and p["paged_attention"] > 0 \
+        and p["flash_attention"] > 0
+    log(f"{tag} phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"observability checks failed: {failed}")
+    return paths
+
+
 #: phase groups that ``--phases`` selects, with the phases each needs:
-#: 7-8 run on phase 6's pools, 8's Fig. 2, 15, 17 and 18 on phase 5's
+#: 7-8 run on phase 6's pools, 8's Fig. 2, 15, 17, 18 and 19 on phase 5's
 #: weights
-PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,)}
+PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,)}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-18 by default), with
+    """The phases to run for ``--phases`` (all of 2-19 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 19))
+        return set(range(2, 20))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -4163,6 +4659,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if 18 in run:
         paths.update(phase_recovery(params, smi))
+        torch.cuda.empty_cache()
+    if 19 in run:
+        paths.update(phase_observability(params, smi))
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()

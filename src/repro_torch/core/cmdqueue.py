@@ -6,7 +6,9 @@ flush boundaries, where the whole table drains as ONE fused launch over
 every pool (kernels/fused_dispatch.py).  Tables pad to the
 power-of-two buckets 8/32/128/512; longer tables drain in overflow chunks.
 The buckets are kept although a CUDA drain does not recompile per shape:
-they keep the journal rows comparable with the reference.
+they keep the journal rows comparable with the reference.  The set is
+process-wide and a tuned profile may retarget it (:func:`set_buckets`);
+read it through :func:`get_buckets`.
 
 Hazard guards track both sides of every pending command as ``(pool,
 block)`` keys (plain opcodes touch the block in every primary pool):
@@ -23,27 +25,57 @@ block)`` keys (plain opcodes touch the block in every primary pool):
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from repro_torch.core.opcodes import (ALL_PRIMARY, OP_NOP, OP_ZERO_INIT,
-                                      keys_clash, row_rw)
+                                      OPCODE_NAMES, keys_clash, row_rw)
+from repro_torch.obs import metrics as obs_metrics
 
-#: padding buckets — the only command-table lengths a flush produces
-BUCKETS: Tuple[int, ...] = (8, 32, 128, 512)
+#: the hand-picked bucket set (what :func:`set_buckets` restores on None)
+DEFAULT_BUCKETS: Tuple[int, ...] = (8, 32, 128, 512)
+
+#: padding buckets — the only command-table lengths a flush produces.
+#: Module-global so a tuned profile can retarget it process-wide; read it
+#: through :func:`get_buckets`, not a from-import (which would freeze it).
+BUCKETS: Tuple[int, ...] = DEFAULT_BUCKETS
+
+
+def set_buckets(buckets: Optional[Sequence[int]]) -> Tuple[int, ...]:
+    """Retarget the process-wide bucket set (``None`` restores
+    :data:`DEFAULT_BUCKETS`): strictly increasing positive ints.  Every
+    later flush pads to the new set (padding rows are ``OP_NOP``, so pool
+    bytes are unaffected).  Returns the installed tuple."""
+    global BUCKETS
+    if buckets is None:
+        BUCKETS = DEFAULT_BUCKETS
+        return BUCKETS
+    bs = tuple(int(b) for b in buckets)
+    if not bs or any(b <= 0 for b in bs) or list(bs) != sorted(set(bs)):
+        raise ValueError(f"buckets must be strictly increasing positive "
+                         f"ints, got {buckets!r}")
+    BUCKETS = bs
+    return BUCKETS
+
+
+def get_buckets() -> Tuple[int, ...]:
+    """The current process-wide bucket set (see :func:`set_buckets`)."""
+    return BUCKETS
 
 
 def top_bucket() -> int:
     """The largest bucket — the overflow chunk size of every drain."""
-    return BUCKETS[-1]
+    return get_buckets()[-1]
 
 
 def bucket_size(n: int) -> int:
     """Smallest bucket holding ``n`` commands (callers chunk above the top
     bucket)."""
-    for b in BUCKETS:
+    buckets = get_buckets()
+    for b in buckets:
         if n <= b:
             return b
-    return BUCKETS[-1]
+    return buckets[-1]
 
 
 def space_war_rows(rows: Sequence[Tuple[int, int, int]], locate,
@@ -94,7 +126,9 @@ class CommandQueue:
     ALL_PRIMARY = ALL_PRIMARY
 
     def __init__(self, engine):
-        self.engine = engine
+        # a weak proxy: the engine owns its queues, so `del engine` frees
+        # the pools at once instead of at the next cycle collection
+        self.engine = weakref.proxy(engine)
         self.stats = QueueStats()
         #: display name for journal records (CommandStream sets its own)
         self.name = "anon"
@@ -103,6 +137,17 @@ class CommandQueue:
         # pool indices (ALL_PRIMARY = the block in every primary pool)
         self._pending_dsts: Dict[int, Set[int]] = {}
         self._pending_srcs: Dict[int, Set[int]] = {}
+        # wall-clock of the oldest pending row (queue residency); None
+        # while empty: armed on the first enqueue, popped by the drain
+        self._first_enqueue_t: Optional[float] = None
+
+    def pop_residency_us(self) -> float:
+        """Microseconds the OLDEST pending row sat queued (0.0 when the
+        clock is unarmed); read-and-reset, once per drain, so
+        ``FlushTicket.timing.queue_residency_us`` measures first enqueue
+        -> flush for each flush."""
+        t0, self._first_enqueue_t = self._first_enqueue_t, None
+        return 0.0 if t0 is None else (obs_metrics.now() - t0) * 1e6
 
     def __len__(self) -> int:
         return len(self._cmds)
@@ -152,13 +197,19 @@ class CommandQueue:
         if any(self.has_pending_write(k) for k in skeys) \
                 or self.has_pending_write(dkey):
             self.stats.hazard_flushes += 1
+            obs_metrics.inc("queue.hazard_flushes", stream=self.name)
             self.flush()
         elif self.has_pending_read(dkey):
             self.stats.war_hazards += 1
+            obs_metrics.inc("queue.war_hazards", stream=self.name)
+        if self._first_enqueue_t is None:
+            self._first_enqueue_t = obs_metrics.now()
         self._cmds.append((int(opcode), int(src), int(dst)))
         self._track(skeys, dkey)
         self.engine._note_pending(self)
         self.stats.enqueued += 1
+        obs_metrics.inc("queue.enqueued", stream=self.name,
+                        opcode=OPCODE_NAMES.get(int(opcode), str(opcode)))
         self.stats.max_pending = max(self.stats.max_pending, len(self._cmds))
 
     def enqueue_copy(self, opcode: int,
@@ -213,7 +264,9 @@ class CommandQueue:
         for op, s, d in kept:
             self._track(*self._hazard_keys(op, s, d))
         self.stats.retired += removed
+        obs_metrics.inc("queue.retired", removed, stream=self.name)
         if not kept:
+            self._first_enqueue_t = None
             self.engine._note_drained(self)
         return removed
 
@@ -225,9 +278,11 @@ class CommandQueue:
         cmds, self._cmds = self._cmds, []
         self._pending_dsts = {}
         self._pending_srcs = {}
+        self._first_enqueue_t = None
         self.engine._note_drained(self)
         return cmds
 
 
-__all__ = ["BUCKETS", "top_bucket", "bucket_size", "space_war_rows",
+__all__ = ["BUCKETS", "DEFAULT_BUCKETS", "set_buckets", "get_buckets",
+           "top_bucket", "bucket_size", "space_war_rows",
            "QueueStats", "CommandQueue"]

@@ -23,6 +23,12 @@ bitwise rows as plain tensor code (jnp, not Pallas, in the JAX package).
 The pools are torch tensors updated IN PLACE where the JAX engine donated
 them; each in-place write bumps the pool's generation, which is how a
 :class:`~repro_torch.core.stream.FlushTicket` knows it expired.
+
+Every drain runs inside a ``"drain"`` span (obs/trace.py), leaves its
+:class:`~repro_torch.obs.trace.FlushTiming` on ``last_drain_timing`` and
+emits the reference's ``drain.*`` series; the verbs emit
+``engine.bytes_moved`` / ``engine.bytes_avoided``.  ``sanitize`` attaches
+the drain sanitizer (core/sanitizer.py).
 """
 from __future__ import annotations
 
@@ -47,15 +53,19 @@ from repro_torch.core.opcodes import (ALL_PRIMARY, BITWISE_OPS, OP_AND,
                                       OP_BASELINE_COPY, OP_CROSS_POOL_COPY,
                                       OP_FPM_COPY, OP_NOP, OP_NOT, OP_OR,
                                       OP_PSM_COPY, OP_ZERO_INIT,
-                                      check_pack_total, pack_bitwise_src,
-                                      row_rw, unpack_bitwise_src)
+                                      OPCODE_NAMES, check_pack_total,
+                                      pack_bitwise_src, row_rw,
+                                      unpack_bitwise_src)
 from repro_torch.core.poolspec import BlockRef, PoolGroup
+from repro_torch.core.sanitizer import DrainSanitizer, sanitize_enabled
 from repro_torch.core.stream import CommandStream
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.fused_dispatch import (DrainInfo, check_drain,
                                                 notify_launch)
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.autotune import backend_key, load_profile
+from repro_torch.obs.trace import FlushTiming, span
 
 
 @dataclasses.dataclass
@@ -93,7 +103,18 @@ class RowCloneEngine:
     slot space) and mirror their twin's block shape and dtype.
 
     ``use_fused=False`` selects the per-mechanism fan-out drain, each call
-    padded to ``max_requests`` rows."""
+    padded to ``max_requests`` rows.
+
+    ``sanitize`` attaches a :class:`~repro_torch.core.sanitizer
+    .DrainSanitizer` (``None``: the ``REPRO_SANITIZE`` environment
+    variable decides): every chunk is checked against the opcode contract
+    before its launch and shadow-drained by the plain version after it;
+    it issues no launches.
+
+    The reference's ``overlap`` argument (its overlapped-DMA toggle) has
+    no counterpart: K1's waves take the place of the TPU's depth-2 drain
+    (kernels/fused_dispatch.py), so a profile's ``overlap`` field is read
+    and written but applies to nothing."""
 
     def __init__(self, pools: Dict[str, torch.Tensor],
                  allocator: SubarrayAllocator, *, enable_fpm: bool = True,
@@ -101,7 +122,8 @@ class RowCloneEngine:
                  max_requests: int = 256, block_axis: int = 0,
                  use_fused: bool = True,
                  staging: Optional[Dict[str, str]] = None,
-                 group: Optional[PoolGroup] = None):
+                 group: Optional[PoolGroup] = None,
+                 sanitize: Optional[bool] = None):
         self.alloc = allocator
         self.enable_fpm = enable_fpm
         self.enable_psm = enable_psm
@@ -122,6 +144,10 @@ class RowCloneEngine:
         if len(devices) != 1:
             raise ValueError(f"pools span devices {devices}")
         self.device = devices.pop()
+        #: this backend's TunedProfile, or None (obs/autotune.py)
+        self.profile = load_profile(backend_key(self.device))
+        #: FlushTiming of the most recent drain (FlushTicket.timing source)
+        self.last_drain_timing: Optional[FlushTiming] = None
         #: per-pool count of in-place writes (drains and out-of-band)
         self.pool_generation: Dict[str, int] = {n: 0 for n in self.pools}
         self.stats = EngineStats()
@@ -185,6 +211,11 @@ class RowCloneEngine:
         # restore a killed pool
         self._pool_layouts = {name: (tuple(p.shape), p.dtype)
                               for name, p in self.pools.items()}
+        if sanitize is None:
+            sanitize = sanitize_enabled()
+        #: the attached drain sanitizer, or None (core/sanitizer.py)
+        self.sanitizer: Optional[DrainSanitizer] = \
+            DrainSanitizer(self) if sanitize else None
 
     def _block_shape(self, p: torch.Tensor) -> Tuple[int, ...]:
         shape = list(p.shape)
@@ -383,14 +414,17 @@ class RowCloneEngine:
         pre_spaced=True``: records hold spaced rows) and ``recover()``'s
         re-drains of aborted suffixes (``pre_spaced=True``).
 
-        Every chunk runs the drain guards BEFORE its dispatch.  A guard or
+        Every chunk runs the drain guards (and the sanitizer's table check
+        and snapshot) BEFORE its dispatch.  A guard, a sanitizer finding or
         a dispatch that raises (a wrapper refuses a killed pool before it
         launches) aborts the flush: the dispatched prefix is journaled as
         an ``aborted`` record and the undispatched suffix stashed for
-        ``recover()``."""
+        ``recover()``.  The ``"drain"`` span closes on either path."""
         rows = [(int(op), int(s), int(d)) for op, s, d in rows]
         idx = self._flush_index
         self._flush_index += 1
+        residency_us = queue.pop_residency_us() if queue is not None else 0.0
+        t_drain = obs_metrics.now()
         if pre_spaced:
             spaced = rows
         else:
@@ -401,33 +435,61 @@ class RowCloneEngine:
                 queue.stats.spacer_rows += len(spaced) - len(rows)
         name = queue.name if queue is not None else "replay"
         launches = 0
+        table_len = 0
         top = top_bucket()
-        for ci, lo in enumerate(range(0, len(spaced), top)):
-            chunk = spaced[lo:lo + top]
-            try:
-                check_drain(DrainInfo(
-                    flush=idx, chunk=ci,
-                    n_commands=sum(1 for r in chunk if r[0] >= 0),
-                    n_pools=len(self.pools), engine=self))
-                table = np.full((bucket_size(len(chunk)), 3), OP_NOP,
-                                np.int32)
-                table[:len(chunk)] = np.asarray(chunk, np.int32)
-                # not ported yet: the sanitizer's table and shadow checks
-                launches += self._dispatch_table(table)
-            except Exception:
-                if record:
-                    done = spaced[:lo]
-                    if any(op >= 0 for op, _, _ in done):
-                        # the dispatched chunks moved bytes: journal them
-                        # so replay reproduces the partial state
-                        self.journal.append(JournalRecord(
-                            stream=name, index=idx, rows=tuple(done),
-                            launches=launches, aborted=True))
-                    self._aborted.append(AbortedFlush(
-                        queue=name, index=idx, rows=tuple(rows),
-                        suffix=tuple(spaced[lo:])))
-                raise
-        # not ported yet: span("drain"), FlushTiming and the drain.* metrics
+        with span("drain", stream=name, flush=idx):
+            for ci, lo in enumerate(range(0, len(spaced), top)):
+                chunk = spaced[lo:lo + top]
+                try:
+                    check_drain(DrainInfo(
+                        flush=idx, chunk=ci,
+                        n_commands=sum(1 for r in chunk if r[0] >= 0),
+                        n_pools=len(self.pools), engine=self))
+                    table = np.full((bucket_size(len(chunk)), 3), OP_NOP,
+                                    np.int32)
+                    table[:len(chunk)] = np.asarray(chunk, np.int32)
+                    table_len += len(table)
+                    san = self.sanitizer
+                    shadow_pre = None
+                    if san is not None:
+                        san.check_table(table, flush=idx, chunk=ci)
+                        shadow_pre = san.shadow_snapshot()
+                    launches += self._dispatch_table(table)
+                    if shadow_pre is not None:
+                        san.check_shadow(shadow_pre, table)
+                except Exception:
+                    if record:
+                        done = spaced[:lo]
+                        if any(op >= 0 for op, _, _ in done):
+                            # the dispatched chunks moved bytes: journal
+                            # them so replay reproduces the partial state
+                            self.journal.append(JournalRecord(
+                                stream=name, index=idx, rows=tuple(done),
+                                launches=launches, aborted=True))
+                        self._aborted.append(AbortedFlush(
+                            queue=name, index=idx, rows=tuple(rows),
+                            suffix=tuple(spaced[lo:])))
+                    raise
+        drain_us = (obs_metrics.now() - t_drain) * 1e6
+        self.last_drain_timing = FlushTiming(
+            queue_residency_us=residency_us, drain_us=drain_us,
+            table_len=table_len, launches=launches)
+        if obs_metrics.metrics_enabled():
+            op_counts: Dict[int, int] = {}
+            spacers = 0
+            for op, _s, _d in spaced:
+                if op < 0:
+                    spacers += 1
+                else:
+                    op_counts[op] = op_counts.get(op, 0) + 1
+            for op, cnt in op_counts.items():
+                obs_metrics.inc("drain.rows", cnt, stream=name,
+                                opcode=OPCODE_NAMES.get(op, str(op)))
+            if spacers:
+                obs_metrics.inc("drain.spacer_rows", spacers, stream=name)
+            obs_metrics.inc("drain.launches", launches, stream=name)
+            obs_metrics.observe("drain.flush_us", drain_us, stream=name)
+            obs_metrics.observe("drain.table_len", table_len, stream=name)
         if record:
             self.journal.append(JournalRecord(
                 stream=name, index=idx, rows=tuple(spaced),
@@ -730,6 +792,7 @@ class RowCloneEngine:
         fresh destinations lives in the CoW cache's fork."""
         counts = {"fpm": 0, "psm": 0, "baseline": 0}
         bb = self._block_bytes()
+        aliased = 0
         for s, d in pairs:
             s, d = self._primary_id(s), self._primary_id(d)
             if self.enable_zi and self.alloc.is_zero[s]:
@@ -737,6 +800,7 @@ class RowCloneEngine:
                 self.alloc.mark_zero([d])
                 self.stats.alias_copies += 1
                 self.stats.bytes_avoided += bb
+                aliased += 1
                 continue
             # mark now: a later pair of this call may read d as a source
             self.alloc.mark_written([d])
@@ -761,6 +825,14 @@ class RowCloneEngine:
                 self.stats.baseline_copies += 1
                 self.stats.bytes_baseline += bb
             self._cur_queue.enqueue(op, s, d)
+        if obs_metrics.metrics_enabled():
+            for mech, c in counts.items():
+                if c:
+                    obs_metrics.inc("engine.bytes_moved", c * bb,
+                                    mechanism=mech)
+            if aliased:
+                obs_metrics.inc("engine.bytes_avoided", aliased * bb,
+                                mechanism="alias")
         self._autoflush()
         return counts
 
@@ -784,6 +856,9 @@ class RowCloneEngine:
                                     self.group.gid(d))
             self.stats.cross_pool_copies += 1
             self.stats.bytes_cross += self._pool_block_bytes(d.pool)
+            obs_metrics.inc("engine.bytes_moved",
+                            self._pool_block_bytes(d.pool),
+                            mechanism="cross", pool=d.pool)
             if d.pool in self.primary_names:
                 self.alloc.mark_written([int(d.block)])
         self._autoflush()
@@ -831,6 +906,9 @@ class RowCloneEngine:
             self._cur_queue.enqueue(op, pack_bitwise_src(a, b, total), d)
             self.stats.bitwise_ops += 1
             self.stats.bytes_bitwise += self._pool_block_bytes(dref.pool)
+            obs_metrics.inc("engine.bytes_moved",
+                            self._pool_block_bytes(dref.pool),
+                            mechanism="bitwise", pool=dref.pool)
             if dref.pool in self.primary_names:
                 self.alloc.mark_written([int(dref.block)])
         self._autoflush()
@@ -1012,6 +1090,9 @@ class RowCloneEngine:
             self.alloc.mark_zero(ids)
             self.stats.zero_lazy += len(ids)
             self.stats.bytes_avoided += len(ids) * self._block_bytes()
+            obs_metrics.inc("engine.bytes_avoided",
+                            len(ids) * self._block_bytes(),
+                            mechanism="zero_lazy")
             return 0
         self.materialize_zeros(ids)
         return len(ids)

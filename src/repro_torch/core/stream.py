@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import weakref
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -27,6 +28,7 @@ import numpy as np
 from repro_torch.core.cmdqueue import CommandQueue
 from repro_torch.core.poolspec import BlockRef
 from repro_torch.kernels.ref import pool_dead
+from repro_torch.obs.trace import FlushTiming, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +48,9 @@ class FlushTicket:
     _engine: Any = dataclasses.field(repr=False)
     _gens: Dict[str, int] = dataclasses.field(repr=False)
     _event: Any = dataclasses.field(default=None, repr=False)
+    #: the drain's timing (queue residency, drain wall-clock, padded
+    #: table length, launches); None on an empty flush
+    timing: Optional[FlushTiming] = None
 
     @property
     def moved(self) -> bool:
@@ -81,8 +86,9 @@ class FlushTicket:
             raise RuntimeError(
                 f"FlushTicket(stream={self.stream!r}, seq={self.seq}) "
                 "expired: a pool it wrote was killed")
-        if self._event is not None:
-            self._event.synchronize()
+        with span("ticket-wait", stream=self.stream, seq=self.seq):
+            if self._event is not None:
+                self._event.synchronize()
         return self
 
     def block_state(self, ref: Union[BlockRef, int]
@@ -109,7 +115,7 @@ class CommandStream:
     verbs but do NOT flush on return."""
 
     def __init__(self, engine, name: str):
-        self.engine = engine
+        self.engine = weakref.proxy(engine)    # the engine owns its streams
         self.name = name
         self.queue = CommandQueue(engine)
         self.queue.name = name
@@ -202,7 +208,9 @@ class CommandStream:
         rows = self.queue.pending
         n = len(rows)
         index = eng.next_flush_index if n else -1
-        launches = self.queue.flush()
+        with span("flush", stream=self.name, seq=self._seq):
+            launches = self.queue.flush()
+        timing = eng.last_drain_timing if n else None
         event = None
         pool0 = next(iter(eng.pools.values()))
         if launches and pool0.is_cuda:
@@ -214,7 +222,7 @@ class CommandStream:
             war_hazards=self.queue.stats.war_hazards,
             spacer_rows=self.queue.stats.spacer_rows, index=index,
             touched=eng._touched_pools(rows), _engine=eng,
-            _gens=dict(eng.pool_generation), _event=event)
+            _gens=dict(eng.pool_generation), _event=event, timing=timing)
         self._seq += 1
         return ticket
 

@@ -67,6 +67,7 @@ from repro_torch.kernels.ref import pool_dead
 from repro_torch.models.lm import LanguageModel, kv_to_pools, model_dtype
 from repro_torch.models.paged import make_serving_pools
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.autotune import backend_key, load_profile
 from repro_torch.weights import init_params, resolve_device
 
 
@@ -164,7 +165,8 @@ class ServingEngine:
                  spill_pages: int = 0, dedup_admit: bool = False,
                  adaptive_ring: bool = True, device="cuda",
                  **not_ported):
-        """``max_admit_pages`` sizes the staging ring (``None``: the
+        """``max_admit_pages`` sizes the staging ring (``None``: the tuned
+        profile's ``ring_capacity`` where one is loaded, else the
         admission policy's ``admissions_per_round x max_blocks_per_seq``;
         :data:`FULL_TWIN`: full twins); ``double_buffer`` doubles it.
         ``ckpt_pages > 0`` adds that many spill slots for a
@@ -205,6 +207,12 @@ class ServingEngine:
         page = self.rc.page_size
         nblk = max_seqs * max_blocks_per_seq
         nblk = -(-nblk // num_slabs) * num_slabs
+        if max_admit_pages is None:
+            # a tuned ring size applies only without an explicit kwarg
+            # (kwarg > profile > the admission policy's derivation)
+            prof = load_profile(backend_key(self.device))
+            if prof is not None and prof.ring_capacity is not None:
+                max_admit_pages = int(prof.ring_capacity)
         if max_admit_pages is None:
             max_admit_pages = admissions_per_round * max_blocks_per_seq
         if max_admit_pages == self.FULL_TWIN:

@@ -700,3 +700,64 @@ def test_cuda_launch_failure_recovers_token_identical(card, tmp_path):
                            np.array([[0, 0, 1]], np.int32))
     torch.cuda.synchronize()
     assert k1.n == n0
+
+
+# ---------------------------------------------------------------------------
+# the drain sanitizer: K1 held to its plain version on live tables
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_sanitized_drain_shadow_check(card):
+    """A sanitized engine over serving-shaped bf16 pools on the card
+    (K/V and a staging ring, pages of 64 x 8 x 128): copies, zero inits
+    and promotions drain through K1 in one launch a flush, and every
+    chunk's shadow drain (the plain version on host copies) agrees bit for
+    bit.  A planted K1 whose output differs in one block then raises
+    ``SanitizerError`` with a ``shadow-diff`` finding only, and the flush
+    is stashed for ``recover()``."""
+    from repro_torch.core.allocator import SubarrayAllocator
+    from repro_torch.core.poolspec import BlockRef
+    from repro_torch.core.rowclone import RowCloneEngine
+    from repro_torch.core.sanitizer import SanitizerError
+    from repro_torch.models.paged import make_serving_pools
+    L, nblk = 2, 32
+    pools, group = make_serving_pools(L, nblk, 64, 8, 128, torch.bfloat16,
+                                      "cuda", stage_nblk=8)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for p in pools.values():
+        p.copy_(torch.randn(p.shape, generator=gen, device="cuda"))
+    alloc = SubarrayAllocator(nblk, 4, reserved_zero_per_slab=1)
+    eng = RowCloneEngine(pools, alloc, block_axis=1, group=group,
+                         sanitize=True)
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+    n0 = k1.n
+    src = alloc.alloc(4)
+    alloc.mark_written(src)
+    dst = alloc.alloc(6)
+    s = eng.stream("serve")
+    s.memcopy(list(zip(src, dst[:4])))
+    s.materialize_zeros(dst[4:5])
+    s.promote_staged([(0, dst[5])])
+    t = s.flush()
+    torch.cuda.synchronize()
+    san = eng.sanitizer
+    assert t.launches == 1 and k1.n == n0 + 1
+    assert san.tables_checked == san.shadow_runs == 1
+    assert all(r.ok for r in san.reports)
+    real = ops.fused_dispatch
+
+    def bad(pools, zero_blocks, cmds, **kw):
+        out = real(pools, zero_blocks, cmds, **kw)
+        pools[0].select(1, 2).view(torch.int16).bitwise_xor_(1)
+        return out
+
+    ops.fused_dispatch = bad
+    try:
+        more = alloc.alloc(2)
+        with pytest.raises(SanitizerError) as ei:
+            eng.memcopy([(src[0], more[0]), (src[1], more[1])])
+    finally:
+        ops.fused_dispatch = real
+    assert {f.check for f in ei.value.report.findings} == {"shadow-diff"}
+    assert "pool 'k': 1 block(s)" in str(ei.value)
+    assert len(eng._aborted) == 1 and san.shadow_runs == 2

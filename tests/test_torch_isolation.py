@@ -25,7 +25,8 @@ FORBIDDEN = re.compile(
 
 
 #: modules of the per-mechanism, the Mamba2, the moe, the serving
-#: features and the traffic slices; the scans below must reach them
+#: features, the traffic, the recovery and the observability slices; the
+#: scans below must reach them
 NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.core.migration", "repro_torch.launch.mechanisms",
                "repro_torch.launch.applications",
@@ -35,7 +36,9 @@ NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.launch.multitenant",
                "repro_torch.runtime.fault",
                "repro_torch.checkpoint.manager",
-               "repro_torch.checkpoint.pool_checkpoint")
+               "repro_torch.checkpoint.pool_checkpoint",
+               "repro_torch.core.sanitizer", "repro_torch.obs.trace",
+               "repro_torch.obs.autotune", "repro_torch.launch.autotune")
 
 
 def _modules():
@@ -103,7 +106,7 @@ def test_card_tests_import_without_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     marked = out.stdout.split("CUDA=")[1].split()[0].split(",")
-    assert len(marked) == 14, marked
+    assert len(marked) == 15, marked
     marker = "@pytest.mark." + "cuda"
     others = [p for p in (ROOT / "tests").glob("test_torch_*.py")
               if p.name != "test_torch_card.py" and marker in p.read_text()]
