@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 9,16]
+    python3 chip_smoke.py [--phases 9,16,20]
 
 ``--phases`` runs only the listed phases and those they need (phase 1
 always runs); with no argument every phase runs.
@@ -265,7 +265,27 @@ Phases (each raises on failure; the script then exits non-zero):
     back, and ServingEngine's ring resolved kwarg > profile > policy on
     the card.
 
-The last three lines are the ``kernels`` JSON (seven kernels; ``launches``
+20. (run after phase 19) K7 and the sharded bulk-movement drain over a
+    rank mesh on one card, at llama3.2-3b's full pool width (blocks of 28
+    layers x 64 tokens x 8 KV heads x 128 dims, bf16, block axis 1;
+    ``phase_mesh``).  (a) K7 alone over 4 and 8 ranks on cuda:0 (slabs
+    of 32 blocks, rows at every hop -(n-1) .. n-1 with skip rows) bitwise
+    against its plain version, one launch a call; card, device, plain and
+    library (``index_copy_(index_select)`` per rank pair) ms beside the
+    byte bound.  (b) engines over (1, 4) ranks of ``("data", "model")``
+    (K / V of 256 blocks, a staging ring of 32 slots, sharded and then
+    replicated on every rank), the fan-out and the single-slab fused
+    engine on three seeded property programs: pools bitwise three ways,
+    one ``fused_mesh`` notify a flush with the sharded ring, K7 and K1
+    device launches a flush printed.  (c) ``plan_rebalance`` on a cache
+    over the mesh engine: the plan and the pools bitwise equal to one
+    device's, blocks moved across ranks through K7.  (d) a snapshot,
+    more flushes, every pool killed, ``recover(snapshot=)``: bitwise.
+    (e) with two cards or more, (a) with ranks on distinct cards after
+    enabling peer access; with one, ``peer leg: 1 card visible, not
+    run``.
+
+The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
 and power limit, and the device JSON.
 """
@@ -316,24 +336,31 @@ def time_ms(fn, reps: int = 10, scrub=None) -> float:
     return timed(fn, torch.device("cuda"), reps=reps, scrub=scrub)
 
 
-def device_ms(fn, key: str = "", reps: int = 5):
-    """Device time per call of ``fn`` from ``torch.profiler``: the summed
-    self device time of the CUDA events whose name holds ``key`` (every
-    device event for ``key=""``), over ``reps`` calls; None when the
-    profiler recorded no device time.  Unlike :func:`time_ms` it leaves
-    out the host work between two launches."""
+def device_ms(fn, key: str, reps: int = 5):
+    """(device ms per launch, launches recorded) of the kernels whose name
+    holds ``key``, over ``reps`` calls of ``fn`` (one such launch each)
+    under ``torch.profiler``; (None, 0) when no launch was recorded.  Each
+    call opens with a one-element write, so that no window starts on the
+    kernel measured (the profiler may drop a window's first kernel,
+    ROADMAP §3), and the time is divided by the launches the trace
+    recorded: a dropped launch shows as a lower count, not a shorter
+    time.  Unlike :func:`time_ms` it leaves out the host work between two
+    launches."""
     from torch.profiler import ProfilerActivity, profile
+    opener = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            opener.add_(1)
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0.0)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and key in e.key)
-    return total / reps / 1e3 if total else None
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and key in e.key]
+    count = sum(e.count for e in hits)
+    total = sum(getattr(e, "self_device_time_total", 0.0) for e in hits)
+    return (total / count / 1e3 if count else None), count
 
 
 def _fmt_ms(x) -> str:
@@ -730,7 +757,7 @@ def phase_k1(scrub):
 
     moved = k1_bytes(table, sizes, primary, L, page_bytes)
     ms = time_ms(kern, scrub=scrub)
-    dev = device_ms(kern, key="drain_kernel")
+    dev, _ = device_ms(kern, key="drain_kernel")
     plain_ms = time_ms(lambda: ops.fused_dispatch(
         pools, zero_blocks, table, block_axis=1, primary=primary,
         use_kernel=False), reps=5, scrub=scrub)
@@ -770,7 +797,8 @@ def phase_k1(scrub):
     fn = lambda: ops.fused_dispatch(   # noqa: E731
         pools, zero_blocks, big, block_axis=1, primary=primary,
         use_kernel=True)
-    big_ms, big_dev = time_ms(fn, scrub=scrub), device_ms(fn, "drain_kernel")
+    big_ms = time_ms(fn, scrub=scrub)
+    big_dev, _ = device_ms(fn, "drain_kernel")
     big_bound = k1_bytes(big, sizes, primary, L, page_bytes) / \
         HBM_BYTES_PER_S * 1e3
     log(f"[K1] 512-row table ({out[0]} live rows, {out[1]} moves through "
@@ -927,7 +955,7 @@ def phase_k2(scrub, B=MAX_SEQS, H=24, KVH=8, D=128):
                  plain_ms=None)
         if layout != "single":
             r["ms"] = time_ms(kern, scrub=scrub)
-            r["dev"] = device_ms(kern, key="paged_attn")
+            r["dev"] = device_ms(kern, key="paged_attn")[0]
         if layout == "serve":
             r["plain_ms"] = time_ms(lambda: ops.paged_attention_slab(
                 *args, page=page, use_kernel=False), reps=5, scrub=scrub)
@@ -1059,7 +1087,7 @@ def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250)),
                 f"{err:.2e} (atol {K3_ATOL}); not timed")
             continue
         ms = time_ms(kern, scrub=scrub)
-        dev = device_ms(kern, key="flash_kernel")
+        dev, _ = device_ms(kern, key="flash_kernel")
         plain_ms = time_ms(lambda: ops.flash_attention(
             q, k, v, causal=causal, prefix_len=prefix, use_kernel=False),
             reps=5, scrub=scrub)
@@ -1535,7 +1563,7 @@ def phase_copy_kernels(scrub):
                 plain_ms = time_ms(lambda: fn(a, False), reps=5,
                                    scrub=scrub)
                 lib_ms = time_ms(lambda: lib(a), scrub=scrub)
-                dev = device_ms(lambda: fn(a, True), key="move_kernel")
+                dev, _ = device_ms(lambda: fn(a, True), key="move_kernel")
                 nbytes = passes * m * L * page_bytes
                 bound = nbytes / HBM_BYTES_PER_S * 1e3
                 log(f"[{name}] axis {ba} m={m}: bitwise equal to plain "
@@ -1732,13 +1760,13 @@ def phase_ab(flat, scrub):
         eng._drain_rows(rows)
         torch.cuda.synchronize()
         times[use_fused].append((time.perf_counter() - t0) * 1e3)
-    dev = {f: device_ms(lambda: e._drain_rows(rows), reps=3)
-           for f, e in ((True, fused), (False, fanout))}
-    k1_dev = device_ms(lambda: fused._drain_rows(rows), key="drain_kernel",
-                       reps=3)
-    log(f"[A/B] device time per flush (profiler): fused "
-        f"{_fmt_ms(dev[True])} (K1 {_fmt_ms(k1_dev)}), fan-out "
-        f"{_fmt_ms(dev[False])}")
+    card = {f: time_ms(lambda: e._drain_rows(rows), reps=3)
+            for f, e in ((True, fused), (False, fanout))}
+    k1_dev, _ = device_ms(lambda: fused._drain_rows(rows),
+                          key="drain_kernel", reps=3)
+    log(f"[A/B] card time per flush (CUDA events): fused "
+        f"{card[True]:.4f} ms (K1 device {_fmt_ms(k1_dev)}), fan-out "
+        f"{card[False]:.4f} ms")
     from repro_torch.kernels import fused_dispatch as fd
     table = np.asarray([r for r in rows if r[0] >= 0], np.int32)
     sizes = [int(p.shape[fused.block_axis]) for p in fused.pools.values()]
@@ -1893,8 +1921,9 @@ def phase_k4(scrub):
                                  f"{finite}")
         ms = time_ms(lambda: ops.ssd_intra_chunk(*args, use_kernel=True),
                      scrub=scrub)
-        dev = device_ms(lambda: ops.ssd_intra_chunk(*args, use_kernel=True),
-                        key="ssd_intra")
+        dev, _ = device_ms(lambda: ops.ssd_intra_chunk(*args,
+                                                       use_kernel=True),
+                           key="ssd_intra")
         plain_ms = time_ms(lambda: ops.ssd_intra_chunk(*args,
                                                        use_kernel=False),
                            reps=5, scrub=scrub)
@@ -4581,6 +4610,398 @@ def phase_observability(params, smi: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 20: K7 and the sharded bulk-movement drain over a rank mesh
+# ---------------------------------------------------------------------------
+
+#: phase 20's block: phase 5's K / V page (64 tokens x 8 KV heads x 128
+#: dims, bf16) over llama3.2-3b's 28 layers, block axis 1
+MESH_LAYERS, MESH_PAGE = 28, (64, 8, 128)
+#: blocks of each K / V pool of (b)'s engines (a multiple of 8 ranks) and
+#: slots of their staging ring
+MESH_NBLK, MESH_RING = 256, 32
+#: property programs of (b), and their instructions
+MESH_PROGRAMS, MESH_INSTR = 3, 12
+#: the instruction kinds of tests/test_dispatch_properties.py gen_program
+MESH_KINDS = ("copy", "copy", "zero", "lazy", "cross", "cross", "war",
+              "bit", "bit")
+MESH_BIT_POOLS = ("k", "v", "k_stage", "v_stage")
+MESH_CROSS = (("k", "v"), ("v", "k"), ("k_stage", "k"), ("v_stage", "v"),
+              ("k", "k_stage"), ("v", "v_stage"), ("k_stage", "v"),
+              ("k_stage", "v_stage"))
+
+
+def _mesh_program(rng, nblk: int, snblk: int, n_instr: int) -> list:
+    """A random instruction stream in ``mechanisms.drive``'s format, drawn
+    as ``gen_program`` draws it (duplicate destinations force hazard
+    flushes, adjacent write-after-read pairs, in-place bitwise rows,
+    staging traffic both ways); its ``war`` kind becomes a copy followed
+    by a zero or a rewrite of the copied block."""
+    sizes = {"k": nblk, "v": nblk, "k_stage": snblk, "v_stage": snblk}
+    prog = []
+    for _ in range(n_instr):
+        kind = rng.choice(MESH_KINDS)
+        if kind == "copy":
+            prog.append(["copy", [[rng.randrange(nblk), rng.randrange(nblk)]
+                                  for _ in range(rng.randint(1, 6))]])
+        elif kind in ("zero", "lazy"):
+            prog.append([kind, [rng.randrange(nblk)
+                                for _ in range(rng.randint(1, 4))]])
+        elif kind == "war":
+            a, b, c = (rng.randrange(nblk) for _ in range(3))
+            if rng.random() < 0.5:
+                prog.append(["copy", [[a, b], [c, a]]])
+            else:
+                prog += [["copy", [[a, b]]], ["zero", [a]]]
+        elif kind == "bit":
+            op = rng.choice(["and", "or", "not"])
+            n = rng.randint(1, 4)
+            width = 2 if op == "not" else 3
+            if rng.random() < 0.5:
+                prog.append(["bit", op, [[rng.randrange(nblk)
+                                          for _ in range(width)]
+                                         for _ in range(n)], "int"])
+            else:
+                prog.append(["bit", op, [[[p, rng.randrange(sizes[p])]
+                                          for p in (rng.choice(MESH_BIT_POOLS)
+                                                    for _ in range(width))]
+                                         for _ in range(n)], "ref"])
+        else:
+            sp, dp = rng.choice(MESH_CROSS)
+            prog.append(["cross", [[rng.randrange(sizes[sp]),
+                                    rng.randrange(sizes[dp])]
+                                   for _ in range(rng.randint(1, 4))],
+                         sp, dp])
+    return prog
+
+
+def _mesh_block(n):
+    """``n`` zero-filled blocks' shape (block axis 1)."""
+    return (MESH_LAYERS, n) + MESH_PAGE
+
+
+def _mesh_engine(pools, mesh, use_fused=True, ring_replicated=False,
+                 num_slabs=4):
+    """An engine over copies of ``pools`` (K / V and their staging ring):
+    one device (``mesh=None``) or a rank mesh; the ring replicated on
+    every rank with ``ring_replicated``."""
+    from repro_torch.core.allocator import SubarrayAllocator
+    from repro_torch.core.poolspec import PoolGroup, PoolSpec
+    from repro_torch.core.rowclone import RowCloneEngine
+    nblk, snblk = pools["k"].shape[1], pools["k_stage"].shape[1]
+    blk = (MESH_LAYERS,) + MESH_PAGE
+    hint = () if ring_replicated else None
+    group = PoolGroup([
+        PoolSpec("k", nblk, blk, torch.bfloat16),
+        PoolSpec("v", nblk, blk, torch.bfloat16),
+        PoolSpec("k_stage", snblk, blk, torch.bfloat16, role="staging",
+                 paired="k", sharding=hint),
+        PoolSpec("v_stage", snblk, blk, torch.bfloat16, role="staging",
+                 paired="v", sharding=hint)])
+    eng = RowCloneEngine({n: p.clone() for n, p in pools.items()},
+                         SubarrayAllocator(nblk, num_slabs), mesh=mesh,
+                         block_axis=1, use_fused=use_fused, group=group,
+                         max_requests=64)
+    eng.alloc.mark_written(list(range(nblk)))
+    return eng
+
+
+def _mesh_pools(gen, nblk, snblk):
+    return {n: _bf16_pool(_mesh_block(nb), gen) for n, nb in
+            (("k", nblk), ("v", nblk), ("k_stage", snblk),
+             ("v_stage", snblk))}
+
+
+def _same_pools(a, b) -> list:
+    """Names of the pools of engines ``a`` and ``b`` that differ."""
+    return [n for n in a.pools if not _bitwise_equal(a.pools[n], b.pools[n])]
+
+
+def _k7_case(gen, rng, n, ss=32):
+    """K7's inputs on ``n`` ranks of the card: full-width slabs of ``ss``
+    blocks and (n, 2n - 1, 3) rows at every hop -(n-1) .. n-1 with skip
+    rows (sources in each slab's low half, destinations in its high
+    half, one writer a block)."""
+    slabs = [_bf16_pool(_mesh_block(ss), gen) for _ in range(n)]
+    ids = np.full((n, 2 * n - 1, 3), -1, np.int64)
+    free = {r: list(rng.permutation(np.arange(ss // 2, ss)))
+            for r in range(n)}
+    for my in range(n):
+        for j, hop in enumerate(range(-(n - 1), n)):
+            tgt = (my + hop + n) % n
+            if rng.random() < 0.2 or not free[tgt]:
+                continue
+            ids[my, j] = (rng.integers(0, ss // 2), free[tgt].pop(), hop)
+    return slabs, ids
+
+
+def _k7_library(slabs, ids):
+    """The library's answer to one K7 call: ``index_copy_`` of an
+    ``index_select`` for each (sender, receiver) pair."""
+    n = len(slabs)
+    groups = {}
+    for my in range(n):
+        for s, d, hop in ids[my][ids[my, :, 0] >= 0].tolist():
+            groups.setdefault((my, (my + hop + n) % n), []).append((s, d))
+    calls = [(slabs[my], slabs[tgt],
+              torch.tensor([s for s, _ in prs], device="cuda"),
+              torch.tensor([d for _, d in prs], device="cuda"))
+             for (my, tgt), prs in groups.items()]
+
+    def run():
+        for src, dst, si, di in calls:
+            dst.index_copy_(1, di, src.index_select(1, si))
+    return run
+
+
+def mesh_peer_leg(gen, rng, tag: str) -> dict:
+    """Phase 20 (e): K7 with its ranks on distinct cards (one rank a card,
+    at most 4), peer access enabled, bitwise against its plain version on
+    the CPU; the host-clock ms of a call with every card synchronised,
+    beside the bytes that cross between cards.  With one card visible it
+    prints that it did not run.  Returns its checks."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import psm_transfer as k7
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"{tag} (e) peer leg: 1 card visible, not run")
+        return {}
+    n = min(cards, 4)
+    names = {torch.cuda.get_device_name(r) for r in range(n)}
+    slabs, ids = _k7_case(gen, rng, n, ss=16)
+    slabs = [s.to(f"cuda:{r}") for r, s in enumerate(slabs)]
+    want = ops.psm_transfer([s.cpu() for s in slabs], ids, block_axis=1)
+    n0 = k7.COUNTER.n
+    got = ops.psm_transfer([s.clone() for s in slabs], ids, block_axis=1)
+    for r in range(n):
+        torch.cuda.synchronize(r)
+    launches = k7.COUNTER.n - n0
+    ok = all(_bitwise_equal(g.cpu(), w) for g, w in zip(got, want))
+    live = ids[ids[:, :, 0] >= 0]
+    remote = int((live[:, 2] % n != 0).sum())
+    block_bytes = MESH_LAYERS * int(np.prod(MESH_PAGE)) * 2
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ops.psm_transfer(slabs, ids, block_axis=1)
+        for r in range(n):
+            torch.cuda.synchronize(r)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"{tag} (e) peer leg: {n} cards ({', '.join(sorted(names))}), peer "
+        f"access enabled, {len(live)} rows ({remote} to another card, "
+        f"{remote * block_bytes} B over NVLink), {launches} launches (one a "
+        f"source card), bitwise {ok}; host ms a call, every card "
+        f"synchronised (median of 5): {float(np.median(times)):.4f}")
+    return {f"(e) peer leg over {n} cards bitwise": ok,
+            "(e) one K7 launch a source card":
+                launches == int((ids[:, :, 0] >= 0).any(1).sum())}
+
+
+def phase_mesh(scrub, smi: str):
+    """Phase 20: K7 and the sharded drain over a rank mesh on one card at
+    llama3.2-3b's full pool width.  Returns K7's JSON row and the launch
+    counts of the mesh path (the engines of (b)-(d) over ranks)."""
+    import random
+    import warnings
+    from repro_torch.core import migration
+    from repro_torch.core.cow_cache import PagedCoWCache
+    from repro_torch.kernels import fused_dispatch as fd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import psm_transfer as k7
+    from repro_torch.launch import mechanisms
+    from repro_torch.launch.mesh import make_test_mesh
+    tag = "[llama3.2-3b mesh]"
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rng = np.random.default_rng(SEED + 20)
+    checks = {}
+    block_bytes = MESH_LAYERS * int(np.prod(MESH_PAGE)) * 2
+    lib, py = k7.library_constants(), dict(
+        CHUNK=k7.CHUNK, CTAS_PER_SM=k7.CTAS_PER_SM,
+        RECORD_WORDS=k7.RECORD_WORDS, ROW_WORDS=k7.ROW_WORDS)
+    checks["K7 constants equal the library's"] = lib == py
+    log(f"{tag} card {smi}; block {block_bytes} B ({MESH_LAYERS} layers x "
+        f"{MESH_PAGE} bf16)")
+    # (a) K7 alone at n = 4 and 8 ranks
+    row = None
+    for n in (4, 8):
+        slabs, ids = _k7_case(gen, rng, n)
+        live = int((ids[:, :, 0] >= 0).sum())
+        want = ops.psm_transfer([s.clone() for s in slabs], ids,
+                                block_axis=1, use_kernel=False)
+        n0 = k7.COUNTER.n
+        got = ops.psm_transfer([s.clone() for s in slabs], ids, block_axis=1)
+        torch.cuda.synchronize()
+        ok = all(_bitwise_equal(g, w) for g, w in zip(got, want))
+        checks[f"(a) K7 bitwise, n={n}, hops -{n - 1}..{n - 1}"] = ok
+        checks[f"(a) K7 one launch, n={n}"] = k7.COUNTER.n - n0 == 1
+        del got, want
+        out = k7.last_out.tolist()
+        run_k7 = lambda: ops.psm_transfer(slabs, ids, block_axis=1)
+        ms = time_ms(run_k7, scrub=scrub)
+        dev, seen = device_ms(run_k7, key="psm_kernel", reps=10)
+        plain = time_ms(lambda: ops.psm_transfer(slabs, ids, block_axis=1,
+                                                 use_kernel=False),
+                        reps=5, scrub=scrub)
+        library_ms = time_ms(_k7_library(slabs, ids), scrub=scrub)
+        nbytes = 2 * live * block_bytes
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"{tag} (a) K7 n={n}: {live} rows over hops -{n - 1}..{n - 1} "
+            f"({ids.shape[1] * n - live} skip rows), bitwise {ok}; items "
+            f"{out[1]}, grid {out[2]}, chunk {out[3]} B; card {ms:.4f} ms, "
+            f"device {_fmt_ms(dev)} ({seen} of 10 launches in the trace), "
+            f"bound {bound:.4f} ms ({nbytes} B, "
+            f"bytes), plain {plain:.4f} ms, library {library_ms:.4f} ms "
+            "(index_copy_(index_select) per rank pair)")
+        if n == 8:
+            row = dict(name="psm_transfer",
+                       source="src/repro_torch/csrc/psm_transfer.cu",
+                       replaces="src/repro/kernels/psm_transfer.py:74",
+                       max_abs_err=0.0, ms=ms, device_ms=dev,
+                       plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                       library_ms=library_ms)
+        del slabs
+        torch.cuda.empty_cache()
+    # (b) the sharded engine: fan-out, single-slab fused and mesh, bitwise
+    mesh = make_test_mesh((1, 4), ("data", "model"), devices="cuda:0")
+    pools = _mesh_pools(gen, MESH_NBLK, MESH_RING)
+    paths = {"llama3.2-3b mesh": {}}
+
+    def count(fn):
+        """Run a main-path piece, adding its launches to the path."""
+        c0 = _counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in _since(c0).items():
+            paths["llama3.2-3b mesh"][k] = \
+                paths["llama3.2-3b mesh"].get(k, 0) + v
+        return out
+
+    prng = random.Random(SEED + 20)
+    progs = [_mesh_program(prng, MESH_NBLK, MESH_RING, MESH_INSTR)
+             for _ in range(MESH_PROGRAMS)]
+    for ring_rep in (False, True):
+        what = "replicated ring" if ring_rep else "sharded ring"
+        fan = _mesh_engine(pools, None, use_fused=False)
+        one = _mesh_engine(pools, None)
+        me = _mesh_engine(pools, mesh, ring_replicated=ring_rep)
+        per_rank = [sum(me.slabs(n)[r].numel() * 2 for n in me.pools)
+                    for r in range(mesh.size)]
+        log(f"{tag} (b) {what}: {mesh.size} ranks on cuda:0, bytes a rank "
+            f"{per_rank}, total {sum(per_rank)} B (K / V "
+            f"{MESH_NBLK} blocks, ring {MESH_RING} slots)")
+        events = []
+        hook = lambda n_, p_, mech: events.append(mech)
+        for prog in progs:
+            mechanisms.drive(fan, prog)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mechanisms.drive(one, prog)
+            torch.cuda.synchronize()
+            t_one = (time.perf_counter() - t0) * 1e3
+            fd.add_launch_hook(hook)
+            try:
+                c0 = _counts()
+                f0 = me.queue.stats.flushes
+                t0 = time.perf_counter()
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    count(lambda: mechanisms.drive(me, prog))
+                t_mesh = (time.perf_counter() - t0) * 1e3
+                ran = _since(c0)
+                flushes = me.queue.stats.flushes - f0
+            finally:
+                fd.remove_launch_hook(hook)
+            mesh_n = events.count("fused_mesh")
+            legacy = len(events) - mesh_n
+            events.clear()
+            bad = _same_pools(me, one) + _same_pools(one, fan)
+            checks[f"(b) {what}: bitwise three ways"] = \
+                checks.get(f"(b) {what}: bitwise three ways", True) \
+                and not bad
+            if not ring_rep:
+                checks["(b) one fused_mesh notify a flush"] = \
+                    checks.get("(b) one fused_mesh notify a flush", True) \
+                    and mesh_n == flushes and not legacy
+            log(f"{tag} (b) {what}: {flushes} flushes, {mesh_n} fused_mesh "
+                f"notifies, {legacy} fan-out calls (degraded flushes); K7 "
+                f"{ran['psm_transfer']}, K1 {ran['fused_dispatch']} device "
+                f"launches ({ran['psm_transfer'] / max(flushes, 1):.2f} / "
+                f"{ran['fused_dispatch'] / max(flushes, 1):.2f} a flush); "
+                f"program ms (host clock, synchronised): mesh {t_mesh:.3f}, "
+                f"one device {t_one:.3f}; differing pools {bad or 'none'}")
+        if not ring_rep:
+            checks["(b) K7 and K1 ran on the mesh"] = \
+                paths["llama3.2-3b mesh"].get("psm_transfer", 0) > 0 \
+                and paths["llama3.2-3b mesh"].get("fused_dispatch", 0) > 0
+        del fan, one, me
+        torch.cuda.empty_cache()
+    # (c) PSM migration over the mesh against one device
+    twins = {}
+    for key, m in (("mesh", mesh), ("one", None)):
+        eng = _mesh_engine(pools, m)
+        cache = PagedCoWCache(eng, MESH_PAGE[0], 32, 8)
+        sids = [cache.new_sequence(prompt_len=MESH_PAGE[0] * b,
+                                   prefer_slab=0) for b in (8, 12, 4, 16)]
+        sids.append(cache.new_sequence(prompt_len=6 * MESH_PAGE[0],
+                                       prefer_slab=1))
+        for sid in sids:
+            # prompt blocks hold data: no lazily zero source aliases away
+            eng.alloc.mark_written(cache.blocks_of(sid))
+        cache.fork(sids[2], 1)
+        plan = migration.plan_rebalance(cache)
+        if m is None:
+            migration.execute(plan, cache, chunk_blocks=8)
+        else:
+            c0 = _counts()
+            count(lambda: migration.execute(plan, cache, chunk_blocks=8))
+            ran = _since(c0)
+        twins[key] = (eng, plan)
+    (me, mplan), (one, oplan) = twins["mesh"], twins["one"]
+    bad = _same_pools(me, one)
+    per = MESH_NBLK // mesh.size
+    ranks = sum(1 for s, d in mplan.moves if s // per != d // per)
+    checks["(c) migration: the plan and the pools bitwise"] = \
+        mplan.moves == oplan.moves and not bad
+    checks["(c) migration moved blocks across ranks through K7"] = \
+        ranks > 0 and ran["psm_transfer"] > 0
+    log(f"{tag} (c) migration: {len(mplan.moves)} moves ({ranks} across "
+        f"ranks, {me.stats.psm_copies} PSM copies in {me.stats.launches} "
+        f"sharded drains), K7 {ran['psm_transfer']} / K1 "
+        f"{ran['fused_dispatch']} launches, pools bitwise {not bad}")
+    del twins, me, one
+    torch.cuda.empty_cache()
+    # (d) snapshot and replay of a mesh engine
+    small = _mesh_pools(gen, 64, 16)
+    eng = _mesh_engine(small, mesh)
+    prog = _mesh_program(prng, 64, 16, 8)
+    count(lambda: mechanisms.drive(eng, prog[:4]))
+    snap = eng.snapshot()
+    count(lambda: mechanisms.drive(eng, prog[4:]))
+    want = {n: p for n, p in eng.pools.items()}
+    todo = len(eng.journal.since(snap.index))
+    for n in list(eng.pools):
+        eng.kill_pool(n)
+    rep = count(lambda: eng.recover(snapshot=snap))
+    bad = [n for n in want if not _bitwise_equal(eng.pools[n], want[n])]
+    checks["(d) replay of a mesh engine bitwise"] = \
+        not bad and rep.replayed_flushes == todo \
+        and set(rep.pools_restored) == set(want)
+    log(f"{tag} (d) snapshot at flush {snap.index}, {todo} flushes "
+        f"replayed, pools restored {list(rep.pools_restored)}, differing "
+        f"{bad or 'none'}")
+    del eng, want, small, pools
+    torch.cuda.empty_cache()
+    checks.update(mesh_peer_leg(gen, rng, tag))
+    log(f"{tag} phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh checks failed: {failed}")
+    return row, paths
+
+
 #: phase groups that ``--phases`` selects, with the phases each needs:
 #: 7-8 run on phase 6's pools, 8's Fig. 2, 15, 17, 18 and 19 on phase 5's
 #: weights
@@ -4588,10 +5009,10 @@ PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,)}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-19 by default), with
+    """The phases to run for ``--phases`` (all of 2-20 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 20))
+        return set(range(2, 21))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -4663,6 +5084,11 @@ def main(argv=None) -> int:
     if 19 in run:
         paths.update(phase_observability(params, smi))
         torch.cuda.empty_cache()
+    if 20 in run:
+        k7_row, mesh_paths = phase_mesh(scrub, smi)
+        merge(k7_row)
+        paths.update(mesh_paths)
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     if 9 in run:
@@ -4727,7 +5153,8 @@ def main(argv=None) -> int:
     kernels = [rows[n] for n in ("fused_dispatch", "paged_attention",
                                  "flash_attention", "fpm_copy",
                                  "fpm_copy_cross", "zero_init",
-                                 "ssd_intra_chunk") if n in rows]
+                                 "ssd_intra_chunk", "psm_transfer")
+               if n in rows]
     for k in kernels:
         k["route"] = "cuda"
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()

@@ -4,8 +4,10 @@ port of ``repro/core/migration.py``.
 Plans block moves between slabs for load balancing, elastic scaling or
 defragmentation, batched by (src_slab, dst_slab) pair and issued in
 chunks through the engine's ``memcopy``, which tags cross-slab pairs as
-PSM copies.  On one GPU every slab lives on the same card, so a PSM copy
-is a device-local gather/scatter rather than an interconnect transfer.
+PSM copies.  Those go through K7, the PSM transfer (kernels/psm_transfer.py):
+on a one-device engine as K7 with one rank and hop 0 in the fan-out (or
+as rows of K1's fused drain), and on an engine over a rank mesh as K7's
+hops between the ranks' slabs, in the sharded drain and in its fan-out.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """RowCloneEngine — the ``memcopy``/``meminit`` "ISA" and its dispatcher
-(port of ``repro/core/rowclone.py``, single device).
+(port of ``repro/core/rowclone.py``).
 
 * ``memcopy(pairs)`` classifies each (src, dst) pair: ``alias`` (the source
   is lazily zero under ZI: a metadata move, zero bytes), ``fpm`` (same
@@ -18,11 +18,21 @@ as ONE launch moving every pool (kernels/fused_dispatch.py).
 ``use_fused=False`` drains it instead through the per-mechanism fan-out
 (the A/B leg the fused drain is measured against): one call per run of
 one opcode, per ``max_requests`` chunk, per pool — FPM rows through K5a,
-cross-pool rows through K5b, zero rows through K6, and PSM, baseline and
-bitwise rows as plain tensor code (jnp, not Pallas, in the JAX package).
+cross-pool rows through K5b, zero rows through K6, PSM rows through K7
+(one rank, hop 0), and baseline and bitwise rows as plain tensor code
+(jnp, not Pallas, in the JAX package).
 The pools are torch tensors updated IN PLACE where the JAX engine donated
 them; each in-place write bumps the pool's generation, which is how a
 :class:`~repro_torch.core.stream.FlushTicket` knows it expired.
+
+``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh` of more than one
+rank) holds every pool as one slab per rank on that rank's device, a
+replicated pool (``PoolSpec.sharding == ()``) whole on every rank.  A
+flush then drains as ONE sharded drain of its ``ShardPlan``
+(``_dispatch_sharded``: K7 hops, K1 per rank), and the fan-out runs per
+rank (K5a / K5b for blocks that stay on a rank, K7 for blocks that change
+rank and for every PSM pair, K6 for zero rows).  ``engine.pools`` then
+reads each pool back whole (:class:`MeshPools`).
 
 Every drain runs inside a ``"drain"`` span (obs/trace.py), leaves its
 :class:`~repro_torch.obs.trace.FlushTiming` on ``last_drain_timing`` and
@@ -32,11 +42,14 @@ the drain sanitizer (core/sanitizer.py).
 """
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import dataclasses
 import functools
 import itertools
 import time
+import warnings
+import weakref
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,7 +57,8 @@ import torch
 
 from repro_torch.core.allocator import SubarrayAllocator
 from repro_torch.core.cmdqueue import (CommandQueue, bucket_size,
-                                       space_war_rows, top_bucket)
+                                       partition_commands, space_war_rows,
+                                       top_bucket)
 from repro_torch.core.journal import (AbortedFlush, JournalRecord,
                                       PoolSnapshot, RecoveryError,
                                       RecoveryReport, TicketJournal,
@@ -53,7 +67,7 @@ from repro_torch.core.opcodes import (ALL_PRIMARY, BITWISE_OPS, OP_AND,
                                       OP_BASELINE_COPY, OP_CROSS_POOL_COPY,
                                       OP_FPM_COPY, OP_NOP, OP_NOT, OP_OR,
                                       OP_PSM_COPY, OP_ZERO_INIT,
-                                      OPCODE_NAMES, check_pack_total,
+                                      OPCODE_NAMES, check_pack_total, opspec,
                                       pack_bitwise_src, row_rw,
                                       unpack_bitwise_src)
 from repro_torch.core.poolspec import BlockRef, PoolGroup
@@ -61,8 +75,12 @@ from repro_torch.core.sanitizer import DrainSanitizer, sanitize_enabled
 from repro_torch.core.stream import CommandStream
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.fpm_copy import _live_pairs, pair_waves
 from repro_torch.kernels.fused_dispatch import (DrainInfo, check_drain,
                                                 notify_launch)
+from repro_torch.launch.mesh import (DeviceMesh, pool_partition_spec,
+                                     pool_shard_axes, pool_shard_count,
+                                     pool_shard_ranks)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.autotune import backend_key, load_profile
 from repro_torch.obs.trace import FlushTiming, span
@@ -97,13 +115,24 @@ class RowCloneEngine:
 
     ``pools`` maps name -> tensor ``(nblk_p, ...)`` (``block_axis=0``) or
     layer-stacked ``(L, nblk_p, ...)`` (``block_axis=1``), all on one
-    device.  ``staging`` maps a staging pool to its primary twin, or
-    ``group`` gives the :class:`PoolGroup` directly.  Primary pools share
-    the allocator's block count; staging pools may be any size (one shared
-    slot space) and mirror their twin's block shape and dtype.
+    device (without a mesh).  ``staging`` maps a staging pool to its
+    primary twin, or ``group`` gives the :class:`PoolGroup` directly.
+    Primary pools share the allocator's block count; staging pools may be
+    any size (one shared slot space) and mirror their twin's block shape
+    and dtype.
 
     ``use_fused=False`` selects the per-mechanism fan-out drain, each call
     padded to ``max_requests`` rows.
+
+    ``mesh``: a :class:`~repro_torch.launch.mesh.DeviceMesh` whose axes
+    are pool axes.  With more than one rank the given (whole) pools are
+    split into per-rank slabs on the ranks' devices: a pool of ``nblk``
+    blocks into slabs of ``ceil(nblk / S)`` (the last ones shorter when
+    ``S`` does not divide ``nblk``; such a pool degrades every flush to
+    the fan-out, with one warning), a pool whose ``sharding`` hint is
+    ``()`` into ``S`` whole replicas.  ``engine.pools`` is then a
+    :class:`MeshPools`: reading a pool gathers it whole, assigning one
+    scatters it.  A mesh of one rank is one device.
 
     ``sanitize`` attaches a :class:`~repro_torch.core.sanitizer
     .DrainSanitizer` (``None``: the ``REPRO_SANITIZE`` environment
@@ -117,7 +146,8 @@ class RowCloneEngine:
     and written but applies to nothing."""
 
     def __init__(self, pools: Dict[str, torch.Tensor],
-                 allocator: SubarrayAllocator, *, enable_fpm: bool = True,
+                 allocator: SubarrayAllocator, *,
+                 mesh: Optional[DeviceMesh] = None, enable_fpm: bool = True,
                  enable_psm: bool = True, enable_zi: bool = True,
                  max_requests: int = 256, block_axis: int = 0,
                  use_fused: bool = True,
@@ -139,11 +169,16 @@ class RowCloneEngine:
                              f"pools {list(pools)}")
         self.group = group
         self.staging = dict(group.staging_map)
+        self.mesh = mesh
         self.pools = {name: pools[name] for name in group.names}
+        if mesh is not None and mesh.size == 1:
+            self.pools = {n: p.to(mesh.devices[0])
+                          for n, p in self.pools.items()}
         devices = {p.device for p in self.pools.values()}
-        if len(devices) != 1:
+        if len(devices) != 1 and not self._multi_device():
             raise ValueError(f"pools span devices {devices}")
-        self.device = devices.pop()
+        self.device = mesh.devices[pool_shard_ranks(mesh)[0]] \
+            if self._multi_device() else devices.pop()
         #: this backend's TunedProfile, or None (obs/autotune.py)
         self.profile = load_profile(backend_key(self.device))
         #: FlushTiming of the most recent drain (FlushTicket.timing source)
@@ -211,6 +246,13 @@ class RowCloneEngine:
         # restore a killed pool
         self._pool_layouts = {name: (tuple(p.shape), p.dtype)
                               for name, p in self.pools.items()}
+        #: per pool, its slab on each rank (shard order), under a mesh
+        self._slabs: Optional[Dict[str, List[torch.Tensor]]] = None
+        self._warned_unshardable = False
+        #: (n_shards, deltas, slots) of the last sharded drain's plan
+        self._last_plan_sig: Optional[Tuple] = None
+        if self._multi_device():
+            self._split_into_slabs()
         if sanitize is None:
             sanitize = sanitize_enabled()
         #: the attached drain sanitizer, or None (core/sanitizer.py)
@@ -221,6 +263,130 @@ class RowCloneEngine:
         shape = list(p.shape)
         shape.pop(self.block_axis)
         return tuple(shape)
+
+    # ------------------------------------------------------------------
+    # the rank mesh: per-rank slabs
+    # ------------------------------------------------------------------
+    def _multi_device(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    @property
+    def n_shards(self) -> int:
+        """Ranks each sharded pool splits over (1 without a mesh)."""
+        return pool_shard_count(self.mesh) if self._multi_device() else 1
+
+    def _pool_replicated(self) -> Tuple[bool, ...]:
+        """Per-pool replication vector from the ``PoolSpec.sharding``
+        hints: ``()`` holds the pool whole on every rank."""
+        return tuple(s.sharding == () for s in self.group)
+
+    def _slab_size(self, p: int) -> int:
+        """Blocks of pool ``p``'s slab on rank 0 (every rank but the last
+        ones of a ragged pool)."""
+        nblk = self.group[p].nblk
+        if self._pool_replicated()[p]:
+            return nblk
+        return -(-nblk // self.n_shards)
+
+    def _slab_range(self, p: int, rank: int) -> Tuple[int, int]:
+        """(first block, blocks) of pool ``p`` held by ``rank``."""
+        nblk, ss = self.group[p].nblk, self._slab_size(p)
+        if self._pool_replicated()[p]:
+            return 0, nblk
+        start = min(rank * ss, nblk)
+        return start, min(ss, nblk - start)
+
+    def _split_into_slabs(self) -> None:
+        """Move the given whole pools into per-rank slabs."""
+        for spec in self.group:
+            axes = pool_partition_spec(self.mesh, spec)[-1]
+            if spec.sharding != () and axes != pool_shard_axes(self.mesh):
+                raise ValueError(
+                    f"pool {spec.name!r}: sharding {spec.sharding} over part "
+                    "of the mesh is not ported (the joint pool axes or ())")
+        devs = [self.mesh.devices[r] for r in pool_shard_ranks(self.mesh)]
+        self._shard_devices = devs
+        self._slabs = {n: [] for n in self.group.names}
+        whole, self.pools = self.pools, MeshPools(self)
+        for name in self.group.names:
+            self._scatter(name, whole[name])
+
+    def _scatter(self, name: str, t: torch.Tensor) -> None:
+        """Write the whole pool ``t`` into ``name``'s slabs: in place where
+        every slab is alive, as fresh slabs otherwise (recover)."""
+        p = self.group.index(name)
+        ba = self.block_axis
+        old = self._slabs[name]
+        live = len(old) == self.n_shards and \
+            not any(kref.pool_dead(x) for x in old)
+        new = []
+        for r, dev in enumerate(self._shard_devices):
+            start, n = self._slab_range(p, r)
+            piece = t.narrow(ba, start, n)
+            if live:
+                old[r].copy_(piece)
+            else:
+                new.append(piece.to(dev, copy=True).contiguous())
+        if not live:
+            self._slabs[name] = new
+
+    def _gather(self, name: str) -> torch.Tensor:
+        """A copy of the whole pool ``name`` on the engine's device."""
+        slabs = self._slabs[name]
+        if any(kref.pool_dead(x) for x in slabs):
+            raise RuntimeError(f"pool {name!r} has no storage (killed): "
+                               "recover() restores it")
+        if self._pool_replicated()[self.group.index(name)]:
+            return slabs[0].to(self.device, copy=True)
+        return torch.cat([x.to(self.device) for x in slabs], self.block_axis)
+
+    def slabs(self, name: str) -> List[torch.Tensor]:
+        """Pool ``name``'s slab on each rank, in shard order (the live
+        storage under a mesh; the whole pool alone without one)."""
+        if self._slabs is None:
+            return [self.pools[name]]
+        return list(self._slabs[name])
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """The distinct devices that hold the pools: the engine's device,
+        or under a mesh every rank's device, in shard order."""
+        if self._slabs is None:
+            return (self.device,)
+        return tuple(dict.fromkeys(self._shard_devices))
+
+    def block(self, name: str, b: int) -> torch.Tensor:
+        """Block ``b`` of pool ``name`` as a view of the storage that holds
+        it (under a mesh, of its slab; a replicated pool's rank-0
+        replica)."""
+        ba = self.block_axis
+        if self._slabs is None:
+            return self.pools[name].select(ba, b)
+        rank, lb = self._read_at(self.group.index(name), int(b), 0)
+        return self._slabs[name][rank].select(ba, lb)
+
+    def pool_is_dead(self, name: str) -> bool:
+        """Was pool ``name`` killed (:meth:`kill_pool`) and not yet
+        recovered?"""
+        if self._slabs is None:
+            return kref.pool_dead(self.pools[name])
+        return any(kref.pool_dead(x) for x in self._slabs[name])
+
+    def _read_at(self, p: int, blk: int, rank: int) -> Tuple[int, int]:
+        """(rank, slab block) to read block ``blk`` of pool ``p`` from for
+        a write on ``rank``: a replica is read where it is written."""
+        if self._pool_replicated()[p]:
+            return rank, blk
+        ss = self._slab_size(p)
+        return blk // ss, blk % ss
+
+    def _write_at(self, p: int, blk: int) -> List[Tuple[int, int]]:
+        """Every (rank, slab block) that holds block ``blk`` of pool
+        ``p``: one, or every rank's replica."""
+        if self._pool_replicated()[p]:
+            return [(r, blk) for r in range(self.n_shards)]
+        ss = self._slab_size(p)
+        return [(blk // ss, blk % ss)]
 
     # ------------------------------------------------------------------
     # streams
@@ -335,8 +501,8 @@ class RowCloneEngine:
         return self.group.primary_names
 
     def _pool_block_bytes(self, name: str) -> int:
-        p = self.pools[name]
-        return int(np.prod(self._block_shape(p))) * p.element_size()
+        shape, dtype = self._pool_layouts[name]
+        return int(np.prod(shape)) // shape[self.block_axis] * dtype.itemsize
 
     def _block_bytes(self) -> int:
         """Bytes one plain command moves (one block of every primary pool)."""
@@ -344,7 +510,8 @@ class RowCloneEngine:
 
     def pool_bytes_resident(self) -> int:
         """Total bytes resident across every pool (primary + staging)."""
-        return sum(p.numel() * p.element_size() for p in self.pools.values())
+        return sum(int(np.prod(shape)) * dtype.itemsize
+                   for shape, dtype in self._pool_layouts.values())
 
     def _pad(self, pairs: Sequence[Tuple[int, ...]], width: int = 2
              ) -> np.ndarray:
@@ -360,9 +527,9 @@ class RowCloneEngine:
         """Per-pool reserved zero row for BuZ — allocated once."""
         if self._zero_blocks is None:
             self._zero_blocks = tuple(
-                torch.zeros((1,) + tuple(p.shape[self.block_axis + 1:]),
-                            dtype=p.dtype, device=p.device)
-                for p in self.pools.values())
+                torch.zeros((1,) + shape[self.block_axis + 1:], dtype=dtype,
+                            device=self.device)
+                for shape, dtype in self._pool_layouts.values())
         return self._zero_blocks
 
     def mark_pools_written(self, names: Sequence[str]) -> None:
@@ -425,7 +592,7 @@ class RowCloneEngine:
         self._flush_index += 1
         residency_us = queue.pop_residency_us() if queue is not None else 0.0
         t_drain = obs_metrics.now()
-        if pre_spaced:
+        if pre_spaced or not self._flush_spacing():
             spaced = rows
         else:
             spaced = space_war_rows(rows, self.group.locate,
@@ -452,9 +619,10 @@ class RowCloneEngine:
                     san = self.sanitizer
                     shadow_pre = None
                     if san is not None:
-                        san.check_table(table, flush=idx, chunk=ci)
+                        san.check_table(table, flush=idx, chunk=ci,
+                                        spaced=self._flush_spacing())
                         shadow_pre = san.shadow_snapshot()
-                    launches += self._dispatch_table(table)
+                    launches += self._dispatch_table(table, queue)
                     if shadow_pre is not None:
                         san.check_shadow(shadow_pre, table)
                 except Exception:
@@ -523,8 +691,10 @@ class RowCloneEngine:
         ``jax.Array.delete``): every block-moving wrapper then refuses the
         pool until :meth:`recover` resurrects it, and tickets that describe
         it expire.  A CPU pool that a numpy array shares (``Tensor.numpy()``)
-        cannot be resized, and torch raises."""
-        self.pools[name].untyped_storage().resize_(0)
+        cannot be resized, and torch raises.  Under a mesh every slab of
+        the pool dies."""
+        for t in self.slabs(name):
+            t.untyped_storage().resize_(0)
         self.mark_pools_written((name,))
 
     def snapshot(self) -> PoolSnapshot:
@@ -584,7 +754,7 @@ class RowCloneEngine:
         restored: List[str] = []
         lost: List[str] = []
         for name in list(self.pools):
-            if not kref.pool_dead(self.pools[name]):
+            if not self.pool_is_dead(name):
                 continue
             shape, dtype = self._pool_layouts[name]
             if snapshot is not None and name in snapshot.arrays:
@@ -645,20 +815,89 @@ class RowCloneEngine:
             retries=retries,
             degraded=degraded_stage_capacity is not None)
 
-    def _dispatch_table(self, table: np.ndarray) -> int:
-        """Execute one bucket-padded table, in place: ONE fused dispatch,
-        or the fan-out with ``use_fused=False``.  Returns launches issued
-        (0 for an all-NOP table)."""
+    def _flush_spacing(self) -> bool:
+        """Should a flush WAR-space its global table?  Not when it drains
+        through the sharded path: ``partition_commands`` spaces each
+        rank's sub-table instead, and the plan's spacers are credited to
+        the flushing queue (``_dispatch_sharded``)."""
+        return not (self.use_fused and self._multi_device())
+
+    def _dispatch_table(self, table: np.ndarray,
+                        queue: Optional[CommandQueue] = None) -> int:
+        """Execute one bucket-padded table, in place: ONE fused dispatch
+        (under a mesh one sharded drain), or the fan-out with
+        ``use_fused=False``.  Returns launches issued (0 for an all-NOP
+        table).  ``queue`` (the flushing queue) is credited with the
+        sharded plan's spacers."""
         live = [tuple(r) for r in table.tolist() if r[0] >= 0]
         if not live:
             return 0
         if not self.use_fused:
             return self._dispatch_legacy(live)
+        if self._multi_device():
+            replicated = self._pool_replicated()
+            ragged = [sp.name for i, sp in enumerate(self.group)
+                      if not replicated[i] and sp.nblk % self.n_shards]
+            if ragged:
+                # slabs would be ragged: degrade to the fan-out, loudly
+                # (the caller loses the one-launch-per-flush invariant)
+                if not self._warned_unshardable:
+                    self._warned_unshardable = True
+                    warnings.warn(
+                        f"RowCloneEngine: pools {ragged} have block counts "
+                        f"not divisible by {self.n_shards} device shards; "
+                        "mesh flushes fall back to the multi-launch legacy "
+                        "fan-out")
+                return self._dispatch_legacy(live)
+            if any(replicated) and self._writes_replicated(live, replicated):
+                # a sharded -> replicated write needs a broadcast hop the
+                # sharded drain does not model: the fan-out writes every
+                # replica
+                return self._dispatch_legacy(live)
+            return self._dispatch_sharded(live, replicated, queue)
         kops.fused_dispatch(tuple(self.pools.values()),
                             self._get_zero_blocks(), table,
                             block_axis=self.block_axis,
                             primary=self.group.primary)
         self.mark_pools_written(self._touched_pools(live))
+        self.stats.launches += 1
+        return 1
+
+    def _writes_replicated(self, rows, replicated: Tuple[bool, ...]
+                           ) -> bool:
+        """Does any global-dst row write a replicated pool from a SHARDED
+        source?  (Replicated -> replicated writes drain in the sharded
+        path: every rank applies them to its replica.)"""
+        for op, s, d in rows:
+            if op < 0 or opspec(op).dst_kind != "global":
+                continue
+            reads, writes = row_rw(op, s, d, self.group.locate,
+                                   self.group.total_blocks)
+            if replicated[writes[0][0]] and any(not replicated[p]
+                                                for p, _b in reads):
+                return True
+        return False
+
+    def _dispatch_sharded(self, rows, replicated: Tuple[bool, ...],
+                          queue: Optional[CommandQueue] = None) -> int:
+        """ONE sharded drain of the whole table: its ``ShardPlan``
+        (slab-local sub-tables, each pool partitioned by its own slab
+        size, replicated pools whole on every rank; cross-slab commands as
+        K7 hops) checked by the sanitizer, then drained by K7 and K1 per
+        rank (kernels/fused_dispatch.py ``sharded_fused_dispatch``)."""
+        plan = partition_commands(rows, n_shards=self.n_shards,
+                                  group=self.group, replicated=replicated)
+        if self.sanitizer is not None:
+            self.sanitizer.check_plan(rows, plan, replicated)
+        self._last_plan_sig = (plan.n_shards, plan.deltas,
+                               int(plan.send_rows.shape[2]))
+        if queue is not None:
+            queue.stats.spacer_rows += plan.n_spacers
+        kops.fused_dispatch_sharded(
+            [self._slabs[n] for n in self.group.names], plan, mesh=self.mesh,
+            block_axis=self.block_axis, primary=self.group.primary,
+            replicated=replicated)
+        self.mark_pools_written(self._touched_pools(rows))
         self.stats.launches += 1
         return 1
 
@@ -691,11 +930,15 @@ class RowCloneEngine:
         self.mark_pools_written((name,))
 
     def _legacy_copy(self, op: int, pairs: List[Tuple[int, int]]) -> int:
-        """FPM (K5a), PSM (plain gather/scatter: one device holds every
-        slab) or baseline (float32 round-trip) copies of one run, per
-        chunk per primary pool."""
+        """FPM (K5a), PSM (K7 with one rank and hop 0; under a mesh, the
+        ranks and hops the pairs span) or baseline (float32 round-trip,
+        no kernel) copies of one run, per chunk per primary pool."""
         ba = self.block_axis
-        if op == OP_FPM_COPY:
+        if self._multi_device():
+            fn = functools.partial(self._mesh_copy, op)
+            mech = {OP_FPM_COPY: "legacy_fpm", OP_PSM_COPY: "legacy_psm"}.get(
+                op, "legacy_baseline")
+        elif op == OP_FPM_COPY:
             mech, fn = "legacy_fpm", functools.partial(kops.fpm_copy,
                                                        block_axis=ba)
         elif op == OP_PSM_COPY:
@@ -708,7 +951,10 @@ class RowCloneEngine:
         for chunk in _chunks(pairs, self.max_requests):
             ids = self._pad(chunk)
             for name in self.primary_names:
-                fn(self.pools[name], ids)
+                if self._multi_device():
+                    fn(name, ids)
+                else:
+                    fn(self.pools[name], ids)
                 self._legacy_launch(mech, name)
                 launches += 1
         return launches
@@ -719,8 +965,11 @@ class RowCloneEngine:
         for chunk in _chunks(ids_list, self.max_requests):
             ids = self._pad(chunk, width=1)[:, 0]
             for name in self.primary_names:
-                kops.meminit_zero(self.pools[name], ids,
-                                  block_axis=self.block_axis)
+                if self._multi_device():
+                    self._mesh_zero(name, ids)
+                else:
+                    kops.meminit_zero(self.pools[name], ids,
+                                      block_axis=self.block_axis)
                 self._legacy_launch("legacy_zero", name)
                 launches += 1
         return launches
@@ -736,9 +985,13 @@ class RowCloneEngine:
         for (ps, pd), run in _runs(loc, lambda x: (x[0][0], x[1][0])):
             local = [(ls, ld) for (_, ls), (_, ld) in run]
             for chunk in _chunks(local, self.max_requests):
-                kops.fpm_copy_cross(self.pools[names[pd]],
-                                    self.pools[names[ps]], self._pad(chunk),
-                                    block_axis=self.block_axis)
+                if self._multi_device():
+                    self._mesh_moves(names[ps], names[pd], self._pad(chunk))
+                else:
+                    kops.fpm_copy_cross(self.pools[names[pd]],
+                                        self.pools[names[ps]],
+                                        self._pad(chunk),
+                                        block_axis=self.block_axis)
                 self._legacy_launch("legacy_cross", names[pd])
                 launches += 1
         return launches
@@ -759,12 +1012,133 @@ class RowCloneEngine:
                 dec, lambda x: (x[0][0], x[1][0], x[2][0])):
             local = [(la, lb, ld) for (_, la), (_, lb), (_, ld) in run]
             for chunk in _chunks(local, self.max_requests):
-                _bitwise(self.pools[names[pd]], self.pools[names[pa]],
-                         self.pools[names[pb]], self._pad(chunk, width=3),
-                         op, self.block_axis)
+                if self._multi_device():
+                    ids = self._pad(chunk, width=3)
+                    ids = ids[ids[:, 2] >= 0]
+                    srcs = [(pa, ids[:, 0])] + (
+                        [] if op == OP_NOT else [(pb, ids[:, 1])])
+                    self._mesh_plain(pd, ids[:, 2], srcs,
+                                     functools.partial(_combine, op))
+                else:
+                    _bitwise(self.pools[names[pd]], self.pools[names[pa]],
+                             self.pools[names[pb]], self._pad(chunk, width=3),
+                             op, self.block_axis)
                 self._legacy_launch("legacy_bitwise", names[pd])
                 launches += 1
         return launches
+
+    # -- the fan-out over a rank mesh ------------------------------------
+    def _mesh_copy(self, op: int, name: str, ids: np.ndarray) -> None:
+        """One fan-out call of a plain copy run on pool ``name`` under a
+        mesh: FPM and PSM through :meth:`_mesh_moves` (PSM pairs all
+        through K7), baseline as plain tensor code per rank
+        (:meth:`_mesh_plain`, float32 round trip)."""
+        if op == OP_BASELINE_COPY:
+            p = self.group.index(name)
+            ids = np.asarray(ids, np.int64).reshape(-1, 2)
+            ids = ids[(ids[:, 1] >= 0) & (ids[:, 1] < self.group[p].nblk)]
+            self._mesh_plain(p, ids[:, 1], [(p, ids[:, 0])],
+                             lambda v, dtype: (v[0].float() * 1.0).to(dtype))
+            return
+        self._mesh_moves(name, name, ids, psm=op == OP_PSM_COPY)
+
+    def _mesh_blocks(self, p: int, blks: np.ndarray, rank: int
+                     ) -> torch.Tensor:
+        """Blocks ``blks`` of pool ``p`` (pool ids, clipped into range) as
+        a write on ``rank`` reads them: taken from the slabs that hold
+        them, on ``rank``'s device, in order."""
+        ba = self.block_axis
+        slabs = self._slabs[self.group.names[p]]
+        blks = np.clip(np.asarray(blks, np.int64), 0, self.group[p].nblk - 1)
+        at = np.array([self._read_at(p, b, rank) for b in blks.tolist()],
+                      np.int64).reshape(-1, 2)
+        dev = self._shard_devices[rank]
+        parts, order = [], []
+        for rs in np.unique(at[:, 0]).tolist():
+            sel = np.flatnonzero(at[:, 0] == rs)
+            idx = torch.as_tensor(at[sel, 1], device=slabs[rs].device)
+            parts.append(slabs[rs].index_select(ba, idx).to(dev))
+            order.append(sel)
+        inv = np.argsort(np.concatenate(order), kind="stable")
+        return torch.cat(parts, ba).index_select(
+            ba, torch.as_tensor(inv, device=dev))
+
+    def _mesh_plain(self, pd: int, dsts: np.ndarray, srcs, combine
+                    ) -> None:
+        """Plain-code fan-out rows under a mesh, per rank: block
+        ``dsts[i]`` of pool ``pd`` (every replica of a replicated pool)
+        becomes ``combine([operand blocks], dtype)``, the operands
+        ``srcs`` ``[(pool, ids)]`` read for that rank (:meth:`_mesh_blocks`)
+        from the pre-call state before any rank writes."""
+        ba = self.block_axis
+        slabs = self._slabs[self.group.names[pd]]
+        per: Dict[int, Tuple[List[int], List[int]]] = {}
+        for i, d in enumerate(np.asarray(dsts, np.int64).tolist()):
+            for r, ld in self._write_at(pd, d):
+                rows, lds = per.setdefault(r, ([], []))
+                rows.append(i)
+                lds.append(ld)
+        out = {r: (lds, combine([self._mesh_blocks(p, np.asarray(ids)[rows],
+                                                    r) for p, ids in srcs],
+                                slabs[r].dtype))
+               for r, (rows, lds) in per.items()}
+        for r, (lds, vals) in out.items():
+            slabs[r].index_copy_(
+                ba, torch.as_tensor(lds, device=slabs[r].device), vals)
+
+    def _mesh_moves(self, src: str, dst: str, ids: np.ndarray,
+                    psm: bool = False) -> None:
+        """``dst[d] = src[s]`` for the ``(m, 2)`` pool-local ids (``-1``
+        padding, sources clipped) over the ranks' slabs, sources read
+        before the call writes, in waves (:func:`pair_waves`: a later
+        pair may overwrite an earlier pair's source).  In each wave a
+        block that stays on its rank moves by K5a (K5b between pools) on
+        that rank, a block that changes rank by ONE K7 launch; ``psm``
+        sends every pair through K7, hop 0 included.  A replicated
+        destination is written on every rank, from the replica of a
+        replicated source on that rank."""
+        ps, pd = self.group.index(src), self.group.index(dst)
+        live = _live_pairs(ids, self.group[ps].nblk, self.group[pd].nblk)
+        if not len(live):
+            return
+        waves = pair_waves(live, same_pool=ps == pd)
+        ba = self.block_axis
+        for w in range(int(waves.max()) + 1):
+            local: Dict[int, List[Tuple[int, int]]] = {}
+            hops = []
+            for s, d in live[waves == w].tolist():
+                for rd, ld in self._write_at(pd, d):
+                    rs, ls = self._read_at(ps, s, rd)
+                    if rs == rd and not psm:
+                        local.setdefault(rd, []).append((ls, ld))
+                    else:
+                        hops.append((0, rs, ls, ld, rd - rs))
+            for r, prs in local.items():
+                a = np.asarray(prs, np.int64)
+                if ps == pd:
+                    kops.fpm_copy(self._slabs[dst][r], a, block_axis=ba)
+                else:
+                    kops.fpm_copy_cross(self._slabs[dst][r],
+                                        self._slabs[src][r], a,
+                                        block_axis=ba)
+            if hops:
+                kops.psm_transfer_rows(
+                    [(self._slabs[src], self._slabs[dst])],
+                    np.asarray(hops, np.int64), block_axis=ba)
+
+    def _mesh_zero(self, name: str, ids: np.ndarray) -> None:
+        """BuZ rows of one fan-out call under a mesh: K6 on each rank that
+        holds a listed block."""
+        p = self.group.index(name)
+        nblk = self.group[p].nblk
+        per: Dict[int, List[int]] = {}
+        for b in np.asarray(ids, np.int64).reshape(-1).tolist():
+            if 0 <= b < nblk:
+                for r, lb in self._write_at(p, b):
+                    per.setdefault(r, []).append(lb)
+        for r, lbs in per.items():
+            kops.meminit_zero(self._slabs[name][r], np.asarray(lbs, np.int64),
+                              block_axis=self.block_axis)
 
     # ------------------------------------------------------------------
     # memcopy
@@ -1108,6 +1482,37 @@ class RowCloneEngine:
         self._autoflush()
 
 
+class MeshPools(collections.abc.MutableMapping):
+    """``engine.pools`` of an engine over a rank mesh: pool name -> the
+    WHOLE pool.  Reading a pool gathers its slabs into a new tensor on the
+    engine's device (a replicated pool: a copy of rank 0's replica);
+    writes to that tensor do not reach the slabs.  Assigning a whole pool
+    writes it into the slabs (in place while they are alive, fresh after a
+    kill).  The slabs themselves are ``engine.slabs(name)``."""
+
+    def __init__(self, engine: "RowCloneEngine"):
+        self._engine = weakref.proxy(engine)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        if name not in self._engine.group.names:
+            raise KeyError(name)
+        return self._engine._gather(name)
+
+    def __setitem__(self, name: str, t: torch.Tensor) -> None:
+        if name not in self._engine.group.names:
+            raise KeyError(name)
+        self._engine._scatter(name, t)
+
+    def __delitem__(self, name: str) -> None:
+        raise TypeError("an engine's pools cannot be removed")
+
+    def __iter__(self):
+        return iter(self._engine.group.names)
+
+    def __len__(self) -> int:
+        return len(self._engine.group)
+
+
 def _chunks(seq, n):
     for i in range(0, len(seq), n):
         yield seq[i:i + n]
@@ -1118,6 +1523,16 @@ def _runs(seq, key):
     ``key(item)``, in order."""
     for k, group in itertools.groupby(seq, key):
         yield k, list(group)
+
+
+def _combine(op: int, vals: Sequence[torch.Tensor], dtype: torch.dtype
+             ) -> torch.Tensor:
+    """The raw-bit AND / OR of two block stacks, or NOT of one, as
+    ``dtype``."""
+    a = kref.int_view(vals[0])
+    r = a & kref.int_view(vals[1]) if op == OP_AND else (
+        a | kref.int_view(vals[1]) if op == OP_OR else ~a)
+    return r.view(dtype)
 
 
 def _bitwise(dst_pool: torch.Tensor, a_pool: torch.Tensor,
@@ -1132,13 +1547,11 @@ def _bitwise(dst_pool: torch.Tensor, a_pool: torch.Tensor,
     t = t[keep]
 
     def gather(pool, idx):
-        return kref.int_view(pool.index_select(
-            ba, idx.clamp(0, pool.shape[ba] - 1)))
+        return pool.index_select(ba, idx.clamp(0, pool.shape[ba] - 1))
 
-    a = gather(a_pool, t[:, 0])
-    r = a & gather(b_pool, t[:, 1]) if op == OP_AND else (
-        a | gather(b_pool, t[:, 1]) if op == OP_OR else ~a)
-    dst_pool.index_copy_(ba, t[:, 2], r.view(dst_pool.dtype))
+    vals = [gather(a_pool, t[:, 0])] + (
+        [] if op == OP_NOT else [gather(b_pool, t[:, 1])])
+    dst_pool.index_copy_(ba, t[:, 2], _combine(op, vals, dst_pool.dtype))
 
 
-__all__ = ["EngineStats", "RowCloneEngine"]
+__all__ = ["EngineStats", "RowCloneEngine", "MeshPools"]

@@ -1,5 +1,5 @@
 """Drain sanitizer — dynamic validation of every flushed table (port of
-``repro/core/sanitizer.py``, single device).
+``repro/core/sanitizer.py``).
 
 ``RowCloneEngine(sanitize=True)`` (or ``REPRO_SANITIZE=1`` at
 construction) attaches a :class:`DrainSanitizer`, and every chunk that
@@ -35,16 +35,19 @@ that cannot be copied (a killed pool) makes the snapshot raise.
 Failures raise :class:`SanitizerError` carrying a :class:`SanitizerReport`;
 the drain's abort path stashes the undispatched suffix as for any
 mid-flush failure.  The check ids and messages are the reference's, so
-both packages report the same findings on the same table.  The
-reference's ``check_plan`` (the mesh partition check) waits for the
-port's multi-GPU drain (ROADMAP item 12).
+both packages report the same findings on the same table.
+
+On an engine over a rank mesh, :meth:`DrainSanitizer.check_plan` also
+holds every ``ShardPlan`` to the rows it partitions (the same global read
+and write sets, every rank's sub-table WAR-spaced) between partitioning
+and the sharded drain's launches.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import weakref
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -106,6 +109,8 @@ class SanitizerError(RuntimeError):
 #: checks run on every table (check_table)
 _TABLE_CHECKS = ("opcode-registry", "nop-well-formed", "operand-contract",
                  "staging-legality", "raw-waw-free", "war-adjacency")
+#: checks run on every sharded plan (check_plan)
+_PLAN_CHECKS = ("plan-partition", "plan-war-adjacency")
 
 
 class DrainSanitizer:
@@ -125,6 +130,7 @@ class DrainSanitizer:
         self.max_reports = max_reports
         self.reports: List[SanitizerReport] = []
         self.tables_checked = 0
+        self.plans_checked = 0
         self.shadow_runs = 0
         self._chunk_counter = 0
         self._ctx: Tuple[int, int] = (-1, -1)
@@ -145,10 +151,15 @@ class DrainSanitizer:
         return self.engine.group.locate(int(gid))
 
     # ------------------------------------------------------------------
-    def check_table(self, table: np.ndarray, flush: int, chunk: int) -> None:
+    def check_table(self, table: np.ndarray, flush: int, chunk: int,
+                    spaced: bool = True) -> None:
         """Run every static check on one bucket-padded chunk; raises
         :class:`SanitizerError` when any fails.  Called by the drain after
-        the drain guards and before the launch."""
+        the drain guards and before the launch.  ``spaced=False`` (a table
+        the sharded drain partitions: its rank sub-tables are spaced and
+        :meth:`check_plan` checks them) leaves out ``war-adjacency``,
+        which the reference runs there too and so refuses every adjacent
+        write-after-read pair of a sanitized mesh engine (ROADMAP §3)."""
         self._ctx = (flush, chunk)
         self.tables_checked += 1
         group = self.engine.group
@@ -187,8 +198,9 @@ class DrainSanitizer:
                         f"{sp.constant_name} dst resolves to non-primary "
                         f"pool {group.names[p]!r} but its contract "
                         "forbids staging destinations", i))
-        self._check_order(decoded, primary, findings)
-        self._emit(findings, _TABLE_CHECKS, n_rows)
+        self._check_order(decoded, primary, findings, war=spaced)
+        self._emit(findings, _TABLE_CHECKS if spaced else tuple(
+            c for c in _TABLE_CHECKS if c != "war-adjacency"), n_rows)
 
     def _check_row(self, sp, op: int, s: int, d: int, nblk: int,
                    total: int, findings: List[Finding], i: int):
@@ -236,12 +248,12 @@ class DrainSanitizer:
             return None
         return row_rw(op, s, d, self._locate, total)
 
-    def _check_order(self, decoded, primary,
-                     findings: List[Finding]) -> None:
-        """Whole-table RAW / WAW absence and adjacent-row WAR disjointness
-        over the decoded ``(reads, writes)`` of each row (None = padding
-        or undecodable: padding resets the adjacency window, as the
-        spacer does)."""
+    def _check_order(self, decoded, primary, findings: List[Finding],
+                     check_prefix: str = "", war: bool = True) -> None:
+        """Whole-table RAW / WAW absence and (``war``) adjacent-row WAR
+        disjointness over the decoded ``(reads, writes)`` of each row
+        (None = padding or undecodable: padding resets the adjacency
+        window, as the spacer does)."""
         written: List[Tuple[Tuple[int, int], int]] = []
         prev_reads: Tuple = ()
         for i, rw in enumerate(decoded):
@@ -253,25 +265,124 @@ class DrainSanitizer:
                 for w, j in written:
                     if keys_clash(r, w, primary):
                         findings.append(Finding(
-                            "raw-waw-free",
+                            check_prefix + "raw-waw-free",
                             f"row reads {r} written by row {j} in the "
                             "same table (RAW must flush-split)", i))
             for wk in writes:
                 for w, j in written:
                     if keys_clash(wk, w, primary):
                         findings.append(Finding(
-                            "raw-waw-free",
+                            check_prefix + "raw-waw-free",
                             f"row rewrites {wk} written by row {j} in "
                             "the same table (WAW must flush-split)", i))
-            if any(keys_clash(r, w, primary)
-                   for r in prev_reads for w in writes):
+            if war and any(keys_clash(r, w, primary)
+                           for r in prev_reads for w in writes):
                 findings.append(Finding(
-                    "war-adjacency",
+                    check_prefix + "war-adjacency",
                     "row writes a block the immediately preceding row "
                     "reads — the overlapped drain's trailing wait races "
                     "this (missing OP_NOP spacer)", i))
             written.extend((w, i) for w in writes)
             prev_reads = reads
+
+    # ------------------------------------------------------------------
+    def check_plan(self, rows: Sequence[Tuple[int, int, int]], plan,
+                   replicated: Tuple[bool, ...]) -> None:
+        """Validate a :class:`~repro_torch.core.cmdqueue.ShardPlan`
+        against the rows it partitions: the per-rank sub-tables plus the
+        transfer plan must reproduce exactly the global read and write key
+        sets of the flushed rows, and every sub-table must honour the WAR
+        adjacency contract on its own.  Called by ``_dispatch_sharded``
+        between partitioning and the launches."""
+        self.plans_checked += 1
+        group = self.engine.group
+        primary = group.primary
+        ss = plan.shard_sizes
+        local_base: List[int] = []
+        run = 0
+        for s_p in ss:
+            local_base.append(run)
+            run += s_p
+        lt = run
+        ss0 = ss[primary.index(True)]
+
+        def _local_locate(gid: int) -> Tuple[int, int]:
+            for p in range(len(ss) - 1, -1, -1):
+                if gid >= local_base[p]:
+                    return p, gid - local_base[p]
+            raise ValueError(f"slab-local id {gid} below every pool base")
+
+        def _expand(key: Tuple[int, int]) -> Set[Tuple[int, int]]:
+            p, b = key
+            if p == ALL_PRIMARY:
+                return {(q, b) for q, is_p in enumerate(primary) if is_p}
+            return {(p, b)}
+
+        def _globalize(key: Tuple[int, int], sh: int) -> Tuple[int, int]:
+            p, b = key
+            if p == ALL_PRIMARY:
+                return (p, sh * ss0 + b)
+            if replicated[p]:
+                return (p, b)
+            return (p, sh * ss[p] + b)
+
+        findings: List[Finding] = []
+        want_reads: Set[Tuple[int, int]] = set()
+        want_writes: Set[Tuple[int, int]] = set()
+        for op, s, d in rows:
+            if op < 0:
+                continue
+            reads, writes = row_rw(op, s, d, self._locate,
+                                   group.total_blocks)
+            for r in reads:
+                want_reads |= _expand(r)
+            for w in writes:
+                want_writes |= _expand(w)
+
+        got_reads: Set[Tuple[int, int]] = set()
+        got_writes: Set[Tuple[int, int]] = set()
+        for sh in range(plan.n_shards):
+            decoded = []
+            for op, s, d in np.asarray(plan.local_tables[sh]).tolist():
+                if op < 0:
+                    decoded.append(None)
+                    continue
+                rw = row_rw(op, s, d, _local_locate, lt)
+                decoded.append(rw)
+                reads, writes = rw
+                for r in reads:
+                    got_reads |= _expand(_globalize(r, sh))
+                for w in writes:
+                    got_writes |= _expand(_globalize(w, sh))
+            self._check_order(decoded, primary, findings,
+                              check_prefix="plan-")
+        S = plan.n_shards
+        for k, delta in enumerate(plan.deltas):
+            for sh_d in range(S):
+                sh_s = (sh_d - delta) % S
+                for j in range(plan.recv_tables.shape[2]):
+                    bp, dp, dr, _comb = (
+                        int(x) for x in plan.recv_tables[k, sh_d, j])
+                    if dr < 0:
+                        continue
+                    src_row = int(plan.send_rows[k, sh_s, j])
+                    got_reads |= _expand(_globalize(
+                        (ALL_PRIMARY if bp < 0 else bp, src_row), sh_s))
+                    got_writes |= _expand(_globalize(
+                        (ALL_PRIMARY if dp < 0 else dp, dr), sh_d))
+
+        for label, want, got in (("write", want_writes, got_writes),
+                                 ("read", want_reads, got_reads)):
+            missing = sorted(want - got)[:4]
+            extra = sorted(got - want)[:4]
+            if missing or extra:
+                findings.append(Finding(
+                    "plan-partition",
+                    f"ShardPlan {label} set diverges from the flushed "
+                    f"rows: missing {missing}, extra {extra} "
+                    "((pool, block) keys, truncated)"))
+        self._emit(findings, _PLAN_CHECKS,
+                   sum(1 for op, _s, _d in rows if op >= 0))
 
     # ------------------------------------------------------------------
     def shadow_snapshot(self) -> Optional[Dict[str, np.ndarray]]:

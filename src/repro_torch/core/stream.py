@@ -27,7 +27,6 @@ import numpy as np
 
 from repro_torch.core.cmdqueue import CommandQueue
 from repro_torch.core.poolspec import BlockRef
-from repro_torch.kernels.ref import pool_dead
 from repro_torch.obs.trace import FlushTiming, span
 
 
@@ -47,7 +46,9 @@ class FlushTicket:
     touched: Tuple[str, ...]    #: pools this flush WROTE
     _engine: Any = dataclasses.field(repr=False)
     _gens: Dict[str, int] = dataclasses.field(repr=False)
-    _event: Any = dataclasses.field(default=None, repr=False)
+    #: one CUDA event per card that holds the engine's pools (every rank's
+    #: card under a mesh), recorded on its current stream after the drain
+    _events: Tuple[Any, ...] = dataclasses.field(default=(), repr=False)
     #: the drain's timing (queue residency, drain wall-clock, padded
     #: table length, launches); None on an empty flush
     timing: Optional[FlushTiming] = None
@@ -82,13 +83,13 @@ class FlushTicket:
         survives the decode step and a killed primary); a touched pool
         that was killed raises, as the reference's deleted buffer does."""
         eng = self._engine
-        if any(pool_dead(eng.pools[n]) for n in self.touched):
+        if any(eng.pool_is_dead(n) for n in self.touched):
             raise RuntimeError(
                 f"FlushTicket(stream={self.stream!r}, seq={self.seq}) "
                 "expired: a pool it wrote was killed")
         with span("ticket-wait", stream=self.stream, seq=self.seq):
-            if self._event is not None:
-                self._event.synchronize()
+            for event in self._events:
+                event.synchronize()
         return self
 
     def block_state(self, ref: Union[BlockRef, int]
@@ -100,7 +101,7 @@ class FlushTicket:
         ba = eng.block_axis
 
         def fetch(name: str, b: int) -> np.ndarray:
-            return eng.pools[name].select(ba, b).to("cpu", copy=True).numpy()
+            return eng.block(name, b).to("cpu", copy=True).numpy()
 
         if isinstance(ref, BlockRef):
             self._check_live([ref.pool])
@@ -211,18 +212,19 @@ class CommandStream:
         with span("flush", stream=self.name, seq=self._seq):
             launches = self.queue.flush()
         timing = eng.last_drain_timing if n else None
-        event = None
-        pool0 = next(iter(eng.pools.values()))
-        if launches and pool0.is_cuda:
+        events = []
+        if launches:
             import torch
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(pool0.device))
+            for dev in eng.devices:
+                if dev.type == "cuda":
+                    events.append(torch.cuda.Event())
+                    events[-1].record(torch.cuda.current_stream(dev))
         ticket = FlushTicket(
             stream=self.name, seq=self._seq, commands=n, launches=launches,
             war_hazards=self.queue.stats.war_hazards,
             spacer_rows=self.queue.stats.spacer_rows, index=index,
             touched=eng._touched_pools(rows), _engine=eng,
-            _gens=dict(eng.pool_generation), _event=event, timing=timing)
+            _gens=dict(eng.pool_generation), _events=tuple(events), timing=timing)
         self._seq += 1
         return ticket
 

@@ -396,8 +396,180 @@ def fused_dispatch_cuda(pools: Sequence[torch.Tensor], cmds, *,
     return pools
 
 
+# ---------------------------------------------------------------------------
+# the sharded drain over a rank mesh
+# ---------------------------------------------------------------------------
+
+def landing_plan(plan, primary: Sequence[bool], kinds: Sequence[int]):
+    """How a plan's transfers travel and land, on the host: ``(hops,
+    phase0, phase1, n_recv)``.
+
+    ``kinds[p]`` names pool ``p``'s receive buffer (:func:`block_kinds`):
+    pools of one block shape and dtype share one, so that a block lands
+    bit for bit whatever its pool.  ``hops`` (k, 5) int64
+    are K7's rows ``[pool, sender, send_row, slot, delta]``: block
+    ``send_row`` of pool ``pool`` on the sender goes to block ``slot`` of
+    its kind's receive buffer on rank ``(sender + delta) % S``.  A
+    whole-block entry (a plain opcode) sends its block of every primary
+    pool; a cross-pool or bitwise entry the block of the pool it names.
+    ``phase0[r]`` / ``phase1[r]`` are rank ``r``'s landing rows in the
+    address space of its slabs followed by its receive buffers in kind
+    order (global id ``lt + base[kind] + slot``, ``lt`` the plan's
+    slab-local total): phase 0 a cross-pool copy (or ``OP_NOT``) of the
+    slot into the destination, phase 1 ``OP_AND`` / ``OP_OR`` of the
+    landed destination with the slot (two-source bitwise rows packed
+    against the whole address space).  ``n_recv[kind]`` is the largest
+    slot count of any rank for that kind (0: no buffer)."""
+    S = plan.n_shards
+    n_kinds = max(kinds) + 1
+    bases = np.concatenate([[0], np.cumsum(plan.shard_sizes)[:-1]])
+    lt = int(sum(plan.shard_sizes))
+    prim = [p for p, is_p in enumerate(primary) if is_p]
+    hops, landing = [], []
+    slots = np.zeros((S, n_kinds), np.int64)
+    # the live entries, in (delta, receiver, slot) order
+    for k, sh_d, j in zip(*np.nonzero(plan.recv_tables[..., 2] >= 0)):
+        delta = plan.deltas[k]
+        sh_s = (int(sh_d) - delta) % S
+        bp, dp, dr, comb = (int(x) for x in plan.recv_tables[k, sh_d, j])
+        row = int(plan.send_rows[k, sh_s, j])
+        for q, pd in ([(bp, dp)] if bp >= 0 else [(p, p) for p in prim]):
+            g = kinds[q]
+            c = int(slots[sh_d, g])
+            slots[sh_d, g] += 1
+            hops.append((q, sh_s, row, c, delta))
+            landing.append((int(sh_d), g, c, int(bases[pd]) + dr, comb))
+    n_recv = slots.max(0).tolist()
+    rbase = np.concatenate([[0], np.cumsum(n_recv)[:-1]]) + lt
+    total = lt + int(sum(n_recv))
+    phase0 = [[] for _ in range(S)]
+    phase1 = [[] for _ in range(S)]
+    for sh_d, g, c, dst, comb in landing:
+        src = int(rbase[g]) + c
+        if comb in (OP_AND, OP_OR):
+            phase1[sh_d].append((comb, dst * total + src, dst))
+        elif comb == OP_NOT:
+            phase0[sh_d].append((OP_NOT, src * total + src, dst))
+        else:
+            phase0[sh_d].append((OP_CROSS_POOL_COPY, src, dst))
+    return (np.asarray(hops, np.int64).reshape(-1, 5), phase0, phase1,
+            n_recv)
+
+
+def _with_blocks(shape, block_axis: int, n: int) -> List[int]:
+    out = list(shape)
+    out[block_axis] = n
+    return out
+
+
+def block_kinds(pools: Sequence[torch.Tensor], block_axis: int
+                ) -> List[int]:
+    """Per pool, the index of its (block shape, dtype) among the pools'
+    distinct ones, in first-seen order."""
+    seen: Dict[Tuple, int] = {}
+    return [seen.setdefault((tuple(t.shape[block_axis + 1:]),
+                             t.shape[0] if block_axis else 1, t.dtype),
+                            len(seen)) for t in pools]
+
+
+def _repack(table: np.ndarray, lt: int, total: int) -> np.ndarray:
+    """A slab-local sub-table with its two-source rows re-packed from the
+    slab total ``lt`` to ``total`` (the receive buffers join the address
+    space after every slab, so no other id moves)."""
+    t = np.array(table, np.int64)
+    bit = np.isin(t[:, 0], (OP_AND, OP_OR, OP_NOT))
+    a, b = np.divmod(t[bit, 1], lt)
+    t[bit, 1] = a * total + b
+    return t
+
+
+def sharded_fused_dispatch(slabs: Sequence[Sequence[torch.Tensor]], plan, *,
+                           mesh, block_axis: int = 0,
+                           primary: Optional[Sequence[bool]] = None,
+                           replicated: Optional[Sequence[bool]] = None,
+                           use_kernel: bool = False) -> None:
+    """Drain one partitioned flush (a cmdqueue ``ShardPlan``) over the
+    ranks' slabs, in place: ``slabs[p][r]`` is pool ``p``'s slab on rank
+    ``r`` (a replicated pool's whole replica), ``use_kernel`` picks K7 and
+    K1 (CUDA slabs) or their plain versions.  The reference's order:
+
+    1. every transfer source is read from the PRE-drain slabs: K7 pushes
+       them all into per-rank receive buffers (the hop), one buffer and
+       ONE launch per (block shape, dtype) among the travelling pools, so
+       every block lands bit for bit;
+    2. each rank drains its slab-local sub-table with K1, with the
+       phase-0 landing rows (overwrites, ``OP_NOT`` inverting) appended:
+       the receive buffers are more (non-primary) pools of the drain, and
+       K1's waves order a landing after every earlier read of its block;
+    3. ranks with ``OP_AND`` / ``OP_OR`` combines drain them in a second
+       K1 launch over the landed blocks (phase 1).
+
+    Device launches per flush: K7 once per block kind that travels (once
+    when the pools share one block shape and dtype), K1 once per
+    rank with rows, and once more per rank with combines.  Reports ONE
+    ``fused_mesh`` dispatch (:func:`notify_launch`), as the reference's
+    one collective launch does."""
+    from repro_torch.kernels import psm_transfer as k7
+    from repro_torch.kernels import ref
+    n_pools = len(slabs)
+    S = plan.n_shards
+    primary = as_primary(primary, n_pools)
+    replicated = tuple(replicated) if replicated is not None \
+        else (False,) * n_pools
+    kinds = block_kinds([slabs[p][0] for p in range(n_pools)], block_axis)
+    hops, phase0, phase1, n_recv = landing_plan(plan, primary, kinds)
+    lt = int(sum(plan.shard_sizes))
+    # per kind with travelling blocks, one receive buffer on each rank,
+    # shaped and typed like that kind's slabs
+    recv = {}
+    for g, n in enumerate(n_recv):
+        if n:
+            like = [slabs[kinds.index(g)][r] for r in range(S)]
+            recv[g] = [torch.empty(_with_blocks(t.shape, block_axis, n),
+                                   dtype=t.dtype, device=t.device)
+                       for t in like]
+    for g in recv:
+        qs = [q for q in range(n_pools) if kinds[q] == g]
+        rows = hops[np.isin(hops[:, 0], qs)]
+        rows[:, 0] = np.searchsorted(qs, rows[:, 0])
+        tables = [(list(slabs[q]), recv[g]) for q in qs]
+        rows = k7.check_rows(tables, rows, block_axis)
+        if use_kernel:
+            k7.psm_transfer_cuda(tables, rows, block_axis=block_axis)
+        else:
+            ref.psm_transfer(tables, rows, block_axis=block_axis)
+    roles = primary + (False,) * len(recv)
+    total = lt + int(sum(n_recv))
+    for phase in (0, 1):
+        for r in range(S):
+            extra = (phase0 if phase == 0 else phase1)[r]
+            if phase:
+                base = np.zeros((0, 3), np.int64)
+            elif recv:
+                base = _repack(plan.local_tables[r], lt, total)
+            else:
+                base = np.asarray(plan.local_tables[r], np.int64)
+            if extra:
+                base = np.concatenate([base, np.asarray(extra, np.int64)])
+            if not (base[:, 0] >= 0).any():
+                continue
+            pools = [slabs[p][r] for p in range(n_pools)] + \
+                [recv[g][r] for g in sorted(recv)]
+            if use_kernel:
+                fused_dispatch_cuda(pools, base, block_axis=block_axis,
+                                    primary=roles)
+            else:
+                zeros = [torch.zeros((1,) + tuple(t.shape[block_axis + 1:]),
+                                     dtype=t.dtype, device=t.device)
+                         for t in pools]
+                ref.fused_dispatch(pools, zeros, base,
+                                   block_axis=block_axis, primary=roles)
+    notify_launch(int(plan.local_tables.shape[1]), n_pools, "fused_mesh")
+
+
 __all__ = ["COUNTER", "DrainInfo", "add_drain_guard", "remove_drain_guard",
            "check_drain", "add_launch_hook", "remove_launch_hook",
            "launch_count", "notify_launch", "wave_schedule", "plan_moves",
            "chunking", "constants", "library_constants", "plan", "refusal",
-           "fused_dispatch_cuda", "MOVE_CAPACITY", "MAX_POOLS"]
+           "fused_dispatch_cuda", "MOVE_CAPACITY", "MAX_POOLS",
+           "landing_plan", "sharded_fused_dispatch"]

@@ -13,19 +13,25 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_dispatch import (COUNTER as FUSED_COUNTER,
                                                 fused_dispatch_cuda,
-                                                notify_launch)
+                                                notify_launch,
+                                                sharded_fused_dispatch)
 from repro_torch.kernels.flash_attention import (COUNTER as FLASH_COUNTER,
                                                  flash_attention_cuda)
 from repro_torch.kernels.fpm_copy import (COUNTER as FPM_COUNTER,
-                                          CROSS_COUNTER, fpm_copy_cross_cuda,
-                                          fpm_copy_cuda)
+                                          CROSS_COUNTER, _live_pairs,
+                                          fpm_copy_cross_cuda, fpm_copy_cuda,
+                                          pair_waves)
 from repro_torch.kernels.paged_attention import (COUNTER as PAGED_COUNTER,
                                                  paged_attention_slab_cuda)
+from repro_torch.kernels.psm_transfer import (COUNTER as PSM_COUNTER,
+                                              check_rows, psm_transfer_cuda,
+                                              rank_rows)
 from repro_torch.kernels.ssd_chunk import (COUNTER as SSD_COUNTER,
                                            ssd_intra_chunk_cuda)
 from repro_torch.kernels.zero_init import (COUNTER as ZERO_COUNTER,
@@ -35,7 +41,7 @@ from repro_torch.kernels.zero_init import (COUNTER as ZERO_COUNTER,
 KERNEL_COUNTERS = {c.name: c for c in (FUSED_COUNTER, PAGED_COUNTER,
                                        FLASH_COUNTER, SSD_COUNTER,
                                        FPM_COUNTER, CROSS_COUNTER,
-                                       ZERO_COUNTER)}
+                                       ZERO_COUNTER, PSM_COUNTER)}
 
 _override: Optional[bool] = None
 
@@ -81,6 +87,19 @@ def fused_dispatch(pools: Sequence[torch.Tensor],
     return out
 
 
+def fused_dispatch_sharded(slabs, plan, *, mesh, block_axis: int = 0,
+                           primary=None, replicated=None,
+                           use_kernel: Optional[bool] = None) -> None:
+    """Drain one ``ShardPlan`` over the ranks' slabs (``slabs[p][r]``), in
+    place: K7 for the hops and K1 per rank on CUDA slabs, their plain
+    versions on CPU slabs (kernels/fused_dispatch.py
+    ``sharded_fused_dispatch``); one ``fused_mesh`` dispatch."""
+    sharded_fused_dispatch(slabs, plan, mesh=mesh, block_axis=block_axis,
+                           primary=primary, replicated=replicated,
+                           use_kernel=use_kernel_for(slabs[0][0],
+                                                     use_kernel))
+
+
 def fpm_copy(pool: torch.Tensor, ids, *, block_axis: int = 0,
              use_kernel: Optional[bool] = None) -> torch.Tensor:
     """In-pool FPM block copy, in place.  ``ids``: (m, 2) ``[src, dst]``,
@@ -118,11 +137,58 @@ def baseline_copy(pool: torch.Tensor, ids, *, block_axis: int = 0
     return ref.baseline_copy(pool, ids, block_axis=block_axis)
 
 
-def psm_copy(pool: torch.Tensor, ids, *, block_axis: int = 0
-             ) -> torch.Tensor:
-    """Cross-slab (PSM) copy on one device: a plain gather/scatter.  No
-    kernel: the JAX package's ``_psm_jit`` is jnp, not Pallas."""
-    return ref.fpm_copy(pool, ids, block_axis=block_axis)
+def psm_transfer_rows(tables, rows, *, block_axis: int = 0,
+                      use_kernel: Optional[bool] = None) -> int:
+    """K7 over wide rows ``[table, my, src, dst, hop]`` (see
+    kernels/psm_transfer.py): checked on the host, then one launch per
+    source card on CUDA slabs, the plain version on CPU slabs.  In place.
+    Returns the launches (0 on the plain version)."""
+    rows = check_rows(tables, rows, block_axis)
+    if use_kernel_for(tables[0][0][0], use_kernel):
+        return psm_transfer_cuda(tables, rows, block_axis=block_axis)
+    ref.psm_transfer(tables, rows, block_axis=block_axis)
+    return 0
+
+
+def psm_transfer(slabs: Sequence[torch.Tensor], ids, *,
+                 dst_slabs: Optional[Sequence[torch.Tensor]] = None,
+                 block_axis: int = 0,
+                 use_kernel: Optional[bool] = None) -> Sequence[torch.Tensor]:
+    """The PSM transfer over the ``n`` ranks' slabs, in place: ``ids``
+    (n, m, 3) int, rank ``i``'s rows ``[src_local, dst_local, hop]`` at
+    ``ids[i]`` (``src = -1`` skips); each copies block ``src_local`` of
+    ``slabs[i]`` into block ``dst_local`` of rank ``(i + hop + n) % n``'s
+    destination slab (``dst_slabs``, by default ``slabs``).  One launch
+    serves every rank on one card.  Returns the destination slabs."""
+    dst = list(slabs if dst_slabs is None else dst_slabs)
+    psm_transfer_rows([(list(slabs), dst)], rank_rows(ids, len(slabs)),
+                      block_axis=block_axis, use_kernel=use_kernel)
+    return dst
+
+
+def psm_copy(pool: torch.Tensor, ids, *, block_axis: int = 0,
+             use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Cross-slab (PSM) copy within one pool on one device, in place:
+    K7 with one rank and hop 0, one launch per wave of
+    :func:`~repro_torch.kernels.fpm_copy.pair_waves` (a later pair may
+    overwrite an earlier pair's source; K7 takes no such pair in one
+    call).  ``ids`` (m, 2) ``[src, dst]``, ``dst = -1`` skips, sources
+    clipped into the pool as the plain version clips them.  Returns the
+    pool."""
+    if not use_kernel_for(pool, use_kernel):
+        return ref.fpm_copy(pool, ids, block_axis=block_axis)
+    nblk = int(pool.shape[block_axis])
+    live = _live_pairs(ids, nblk, nblk)
+    waves = pair_waves(live)
+    table = [([pool], [pool])]
+    for w in range(int(waves.max()) + 1 if len(live) else 0):
+        part = live[waves == w]
+        rows = np.zeros((len(part), 5), np.int64)
+        rows[:, 2:4] = part
+        # in range (_live_pairs), one writer a block and no source another
+        # pair of the wave writes (pair_waves): K7's contract holds
+        psm_transfer_cuda(table, rows, block_axis=block_axis)
+    return pool
 
 
 def paged_attention_slab(q, k_slab, v_slab, share_mask, base, seq_lens, *,
@@ -157,6 +223,7 @@ def ssd_intra_chunk(xb, dtb, cum, Bb, Cb, *,
 
 
 __all__ = ["KERNEL_COUNTERS", "plain_versions", "use_kernel_for",
-           "fused_dispatch", "fpm_copy", "fpm_copy_cross", "meminit_zero",
-           "baseline_copy", "psm_copy", "paged_attention_slab",
+           "fused_dispatch", "fused_dispatch_sharded", "fpm_copy",
+           "fpm_copy_cross", "meminit_zero", "baseline_copy", "psm_transfer",
+           "psm_transfer_rows", "psm_copy", "paged_attention_slab",
            "flash_attention", "ssd_intra_chunk"]

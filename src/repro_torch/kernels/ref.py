@@ -184,6 +184,43 @@ def zero_init(pool: torch.Tensor, ids, *, block_axis: int = 0
     return pool.index_fill_(block_axis, ids[keep], 0)
 
 
+def psm_transfer(tables, rows, *, block_axis: int = 0) -> None:
+    """The PSM transfer over a rank mesh, in place (the plain version of
+    K7; the reference's global ``_psm_jit`` gather / scatter on ids
+    ``rank * slab + local``).  ``tables``: pairs of per-rank slab lists
+    (sources, destinations); ``rows`` (k, 5) ``[table, my, src, dst,
+    hop]``, checked (kernels/psm_transfer.py ``check_rows``): each copies
+    block ``src`` of rank ``my``'s source slab into block ``dst`` of rank
+    ``(my + hop + n) % n``'s destination slab.  Every source is read
+    (``index_select`` per source slab) before any block is written
+    (``index_copy_`` per destination slab)."""
+    r = np.asarray(rows, np.int64).reshape(-1, 5)
+    if not len(r):
+        return
+    n = len(tables[0][0])
+    tgt = (r[:, 1] + r[:, 4] + n) % n
+    got = [None] * len(r)
+    for (t, my), idx in _groups(zip(r[:, 0].tolist(), r[:, 1].tolist())):
+        src = tables[t][0][my]
+        blocks = src.index_select(
+            block_axis, torch.as_tensor(r[idx, 2], device=src.device))
+        for j, i in enumerate(idx):
+            got[i] = blocks.narrow(block_axis, j, 1)
+    for (t, g), idx in _groups(zip(r[:, 0].tolist(), tgt.tolist())):
+        dst = tables[t][1][g]
+        vals = torch.cat([got[i].to(dst.device) for i in idx], block_axis)
+        dst.index_copy_(block_axis,
+                        torch.as_tensor(r[idx, 3], device=dst.device), vals)
+
+
+def _groups(keys):
+    """``(key, [indices])`` for each distinct key, in first-seen order."""
+    out = {}
+    for i, k in enumerate(keys):
+        out.setdefault(k, []).append(i)
+    return out.items()
+
+
 def paged_attention_slab(q, k_slab, v_slab, share_mask, base, seq_lens, *,
                          page: int):
     """Decode attention of one query per sequence over a pool slab, all
@@ -280,5 +317,5 @@ def ssd_ref(x, dt, A, B_mat, C_mat, D_skip):
 __all__ = ["NEG_INF", "as_primary", "address_space", "int_view",
            "fused_dispatch",
            "fpm_copy", "fpm_copy_cross", "baseline_copy", "zero_init",
-           "paged_attention_slab", "flash_attention", "ssd_intra_chunk",
-           "ssd_ref"]
+           "psm_transfer", "paged_attention_slab", "flash_attention",
+           "ssd_intra_chunk", "ssd_ref"]

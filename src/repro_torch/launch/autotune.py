@@ -17,8 +17,8 @@ candidate unseats the default only by a 3% margin) and saved as
 the reference's.  Two of the reference's axes are not swept, and the
 profile's ``swept`` says so: ``overlap`` (K1 has no overlapped-DMA
 toggle, so the profile keeps the default ``True``) and
-``max_delta_signatures`` (the port has no sharded drain yet, ROADMAP item
-12).
+``max_delta_signatures`` (it bounds the reference's jit cache, and the
+port's sharded drain compiles nothing per plan).
 
 Every timed flush or round synchronizes the card before the clock stops,
 so a time covers the device work, not only the host's enqueue.
@@ -70,8 +70,9 @@ NOT_SWEPT = {
     "overlap": "not swept: K1 has no overlapped-DMA toggle (its waves "
                "take the place of the TPU's depth-2 drain); the profile "
                "keeps the default True",
-    "delta_signatures": "not swept: the port has no sharded drain yet "
-                        "(ROADMAP item 12)",
+    "delta_signatures": "not swept: the bound caps the reference's jit "
+                        "cache; the port's sharded drain compiles nothing "
+                        "per plan",
 }
 
 

@@ -10,9 +10,9 @@ One "row" is one KV block (64 tokens x 8 KV heads x 128 dims).  Rows:
   copy-fpm       K5a, a pure byte move (``ops.fpm_copy``)
   copy-zi-alias  the RowClone-ZI in-cache copy of a lazily zero block: a
                  metadata move, host time per block
-  copy-psm       the fan-out's cross-slab copy, which on one card is a
-                 plain gather/scatter (``ops.psm_copy``); the JAX row
-                 timed ``baseline_copy`` as a CPU stand-in
+  copy-psm       the fan-out's cross-slab copy: K7 with one rank and hop
+                 0 (``ops.psm_copy``, one launch per wave of the ids);
+                 the JAX row timed ``baseline_copy`` as a CPU stand-in
   zero-baseline  zeros made and scattered by tensor code
   zero-buz       K6 (``ops.meminit_zero``)
   zero-zi        the lazy-zero bit, host time per block
@@ -138,7 +138,7 @@ def run(device="cuda", nblk: int = 64, m: int = 8, *,
         dict(mech="copy-psm", bytes_moved=copy_b, bytes_compute=0,
              bytes_ici=m * block_bytes,
              measured_ms=timed(lambda: kops.psm_copy(pool, ids)),
-             note="one device: the fan-out's PSM gather/scatter"),
+             note="one device: K7 with one rank, hop 0"),
         dict(mech="zero-baseline", bytes_moved=zero_b,
              bytes_compute=zero_b, bytes_ici=0,
              measured_ms=timed(zero_baseline)),

@@ -5,12 +5,13 @@ The engine's throughput constants (the bucket set of ``cmdqueue``, the
 ``overlap`` toggle, the staging-ring capacity and the sharded bound
 ``max_delta_signatures``) were hand-picked.  The port reads and writes all
 four, but only the bucket set and the ring capacity apply: K1 has no
-overlapped-DMA toggle and the port has no sharded drain yet.  ``launch/autotune.py`` sweeps
-them against representative command streams, picks winners with
-:func:`pick_winner` and persists the result as a JSON
-:class:`TunedProfile` under ``configs/tuned/<backend>.json``.  The schema
-and the JSON are the reference's, so a file either package wrote loads in
-the other.
+overlapped-DMA toggle, and the sharded drain compiles nothing per plan, so
+there is no cache for ``max_delta_signatures`` to bound.
+``launch/autotune.py`` sweeps them against representative command
+streams, picks winners with :func:`pick_winner` and persists the result
+as a JSON :class:`TunedProfile` under ``configs/tuned/<backend>.json``.
+The schema and the JSON are the reference's, so a file either package
+wrote loads in the other.
 
 ``RowCloneEngine`` / ``ServingEngine`` call :func:`load_profile` at
 startup; precedence is **explicit kwarg > tuned profile > built-in
@@ -45,8 +46,9 @@ class TunedProfile:
     """One backend's tuned engine constants and the measurements behind
     them.  ``ring_capacity=None`` keeps the serving layer's
     policy-derived staging ring.  ``max_delta_signatures`` is read and
-    written for the reference's schema; the port has no sharded drain
-    (ROADMAP item 12), so it applies to nothing yet."""
+    written for the reference's schema; it bounds the reference's jit
+    cache, and the port's sharded drain has none, so it applies to
+    nothing."""
 
     backend: str                              #: "cpu" or "cuda"
     buckets: Tuple[int, ...] = (8, 32, 128, 512)   #: table bucket sizes
@@ -148,7 +150,7 @@ def apply_profile(profile: TunedProfile) -> Dict[str, object]:
     constructor, where an explicit kwarg wins; ``overlap`` applies to
     nothing, K1 has no overlapped-DMA toggle).  Returns the
     applied values; ``max_delta_signatures`` is returned as read, since
-    the port has no sharded drain to bound."""
+    the port's sharded drain has no jit cache to bound."""
     from repro_torch.core import cmdqueue
     cmdqueue.set_buckets(profile.buckets)
     return {"buckets": tuple(profile.buckets),

@@ -761,3 +761,142 @@ def test_cuda_sanitized_drain_shadow_check(card):
     assert {f.check for f in ei.value.report.findings} == {"shadow-diff"}
     assert "pool 'k': 1 block(s)" in str(ei.value)
     assert len(eng._aborted) == 1 and san.shadow_runs == 2
+
+
+# ---------------------------------------------------------------------------
+# K7, the PSM transfer, and the sharded drain over a rank mesh on one card
+# ---------------------------------------------------------------------------
+
+def mesh_rows(rng, n, ss, skip=0.2):
+    """(n, m, 3) per-rank rows at every hop -(n-1) .. n-1, with skip rows:
+    sources in the low half of each slab, destinations in the high half,
+    never two rows writing one block."""
+    ids = np.full((n, 2 * n - 1, 3), -1, np.int64)
+    free = {r: list(rng.permutation(np.arange(ss // 2, ss))) for r in range(n)}
+    for my in range(n):
+        for j, hop in enumerate(range(-(n - 1), n)):
+            tgt = (my + hop + n) % n
+            if rng.random() < skip or not free[tgt]:
+                continue
+            ids[my, j] = (rng.integers(0, ss // 2), free[tgt].pop(), hop)
+    return ids
+
+
+@pytest.mark.cuda
+def test_cuda_psm_transfer_matches_plain_on_card(card):
+    """K7 over 4 and 8 ranks on one card against its plain version,
+    bitwise, one launch a call: both block axes, 2- and 4-byte dtypes,
+    16-byte pages and pages the word loop takes 4 bytes at a time."""
+    from repro_torch.kernels import psm_transfer as k7
+    rng = np.random.default_rng(7)
+    for n in (4, 8):
+        for ba, blk in ((0, (8, 128)), (1, (8, 128)), (0, (3, 17))):
+            for dtype in (torch.bfloat16, torch.float32, torch.int16):
+                ss = 16
+                shape = (ss,) + blk if ba == 0 else (3, ss) + blk
+                slabs = [make_pool(100 + r, shape, torch.float32).to(dtype)
+                         .cuda() for r in range(n)]
+                ids = mesh_rows(rng, n, ss)
+                want = ops.psm_transfer([s.clone() for s in slabs], ids,
+                                        block_axis=ba, use_kernel=False)
+                n0 = k7.COUNTER.n
+                got = ops.psm_transfer([s.clone() for s in slabs], ids,
+                                       block_axis=ba)
+                torch.cuda.synchronize()
+                assert k7.COUNTER.n == n0 + 1
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(bits(g), bits(w))
+
+
+@pytest.mark.cuda
+def test_cuda_psm_copy_launches_k7_and_never_the_plain_version(card,
+                                                               monkeypatch):
+    """``ops.psm_copy`` on a CUDA pool runs K7 (one launch per wave: a
+    write-after-read pair makes two) and never reaches ``kernels/ref.py``;
+    a K7 that does not build raises instead of running the plain
+    version."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import psm_transfer as k7
+    pool = make_pool(3, (32, 8, 128), torch.bfloat16).cuda()
+    ids = np.array([[0, 5], [3, 7], [2, -1], [1, 9], [6, 0]], np.int32)
+    want = ops.psm_copy(pool.clone(), ids, use_kernel=False)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    for name in ("fpm_copy", "psm_transfer", "fpm_copy_cross"):
+        monkeypatch.setattr(ref, name, refuse)
+    n0 = k7.COUNTER.n
+    got = ops.psm_copy(pool.clone(), ids)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert k7.COUNTER.n == n0 + 2             # [6, 0] rewrites row 0's source
+
+    def no_build(name):
+        raise build.KernelBuildError("nvcc refused the source")
+
+    k7._entry.cache_clear()
+    monkeypatch.setattr(k7, "library", no_build)
+    try:
+        with pytest.raises(build.KernelBuildError):
+            ops.psm_copy(pool.clone(), ids)
+        with pytest.raises(build.KernelBuildError):
+            ops.psm_transfer([pool.clone(), pool.clone()],
+                             np.array([[[0, 1, 1]], [[-1, 0, 0]]]))
+    finally:
+        k7._entry.cache_clear()
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_engine_matches_the_plain_mesh_engine(card):
+    """An engine over 8 ranks on one card (layer-stacked bf16 pools and a
+    staging pair) drains a flush of copies within and across ranks, zero
+    rows, cross-pool and AND / OR / NOT rows through ONE sharded drain (K7
+    and K1 launched) to pools bitwise equal to the same engine over 8 CPU
+    ranks (the plain versions); then the fan-out leg (K5a, K6, K7)."""
+    from repro_torch.core.allocator import SubarrayAllocator
+    from repro_torch.core.poolspec import BlockRef
+    from repro_torch.core.rowclone import RowCloneEngine
+    from repro_torch.launch.mesh import make_test_mesh
+    nblk, snblk = 64, 16
+
+    def engine(device, use_fused):
+        pools = {n: make_pool(i, (3, nb, 8, 128), torch.float32)
+                 .to(torch.bfloat16) for i, (n, nb) in enumerate(
+                     (("k", nblk), ("v", nblk), ("k_stage", snblk),
+                      ("v_stage", snblk)))}
+        mesh = make_test_mesh((2, 4), ("data", "model"), devices=device)
+        eng = RowCloneEngine(pools, SubarrayAllocator(nblk, 4), mesh=mesh,
+                             block_axis=1, use_fused=use_fused,
+                             staging={"k_stage": "k", "v_stage": "v"})
+        eng.alloc.mark_written(list(range(nblk)))
+        return eng
+
+    def script(eng):
+        with eng.batch():
+            eng.memcopy([(1, 2), (3, 40), (17, 60), (9, 33)])
+            eng.materialize_zeros([5, 50])
+            eng.memcopy_cross([(BlockRef("k_stage", 3), BlockRef("k", 20)),
+                               (BlockRef("k", 44), BlockRef("v_stage", 9))])
+            eng.memand([(BlockRef("k", 10), BlockRef("v", 55),
+                         BlockRef("v", 30))])
+            eng.memor([(11, 52, 12)])
+            eng.memnot([(BlockRef("v", 63), BlockRef("k", 0))])
+
+    counters = ops.KERNEL_COUNTERS
+    for use_fused in (True, False):
+        cpu, gpu = engine("cpu", use_fused), engine("cuda", use_fused)
+        script(cpu)
+        c0 = {n: c.n for n, c in counters.items()}
+        script(gpu)
+        torch.cuda.synchronize()
+        ran = {n: c.n - c0[n] for n, c in counters.items()}
+        for name in cpu.pools:
+            np.testing.assert_array_equal(bits(gpu.pools[name]),
+                                          bits(cpu.pools[name]), name)
+        if use_fused:
+            assert gpu.stats.launches == 1
+            assert ran["psm_transfer"] == 1 and ran["fused_dispatch"] >= 1
+        else:
+            assert ran["psm_transfer"] >= 1 and ran["fpm_copy"] >= 1 \
+                and ran["zero_init"] >= 1

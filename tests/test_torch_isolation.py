@@ -25,8 +25,8 @@ FORBIDDEN = re.compile(
 
 
 #: modules of the per-mechanism, the Mamba2, the moe, the serving
-#: features, the traffic, the recovery and the observability slices; the
-#: scans below must reach them
+#: features, the traffic, the recovery, the observability and the mesh
+#: slices; the scans below must reach them
 NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.core.migration", "repro_torch.launch.mechanisms",
                "repro_torch.launch.applications",
@@ -38,7 +38,8 @@ NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.checkpoint.manager",
                "repro_torch.checkpoint.pool_checkpoint",
                "repro_torch.core.sanitizer", "repro_torch.obs.trace",
-               "repro_torch.obs.autotune", "repro_torch.launch.autotune")
+               "repro_torch.obs.autotune", "repro_torch.launch.autotune",
+               "repro_torch.launch.mesh", "repro_torch.kernels.psm_transfer")
 
 
 def _modules():
@@ -106,7 +107,7 @@ def test_card_tests_import_without_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     marked = out.stdout.split("CUDA=")[1].split()[0].split(",")
-    assert len(marked) == 15, marked
+    assert len(marked) == 18, marked
     marker = "@pytest.mark." + "cuda"
     others = [p for p in (ROOT / "tests").glob("test_torch_*.py")
               if p.name != "test_torch_card.py" and marker in p.read_text()]
@@ -133,6 +134,10 @@ def test_kernel_request_on_cpu_tensor_raises():
     for call in (lambda: ops.fpm_copy(q, [[0, 1]], use_kernel=True),
                  lambda: ops.fpm_copy_cross(q, q, [[0, 1]], use_kernel=True),
                  lambda: ops.meminit_zero(q, [0], use_kernel=True),
+                 lambda: ops.psm_copy(q, [[0, 1]], use_kernel=True),
+                 lambda: ops.psm_transfer([q[0], q[0]], [[[0, 1, 1]],
+                                                         [[-1, 0, 0]]],
+                                          use_kernel=True),
                  lambda: ops.ssd_intra_chunk(q, dt, dt, q[0], q[0],
                                              use_kernel=True)):
         with pytest.raises(ValueError):
