@@ -2,7 +2,7 @@
 """Time one checkout of the PyTorch port on one NVIDIA GPU, so that two
 checkouts (a parent and a change) can be compared on one card.
 
-    python3 chip_ab.py --src DIR --tag NAME [--rows k2,k4,k3,k5,k1,e2e,bits]
+    python3 chip_ab.py --src DIR --tag NAME [--rows k2,k4,k3,k5,k7,k1,e2e,bits]
 
 Imports ``repro_torch`` from ``DIR`` (a checkout's ``src``), builds its
 kernels and prints one JSON line, every time through ``chip_smoke.py``'s
@@ -22,6 +22,12 @@ before each; ``device_ms``: the profiler's device time of the call):
 - ``k5``: K5a, K5b and K6 at phase 6's axis-0 pools, m = 8 and 256
   (with their padding and write-after-read pair): card ms, device ms and
   the library call's card ms;
+- ``k7``: the PSM transfer through ``ops.psm_transfer`` on phase 20
+  (a)'s calls (llama3.2-3b blocks, 4 and 8 ranks on the card, the same
+  seeds) and Table 1's ``copy-psm`` (``ops.psm_copy`` at m = 8 and 256 on
+  a phase-6 axis-0 pool): card ms, device ms and, for K7 alone, the
+  host us a call (``chip_smoke.host_call_us``: the least of three
+  batches of 20 calls);
 - ``k1``: the fused drain on phase 2's serving table through
   ``ops.fused_dispatch`` (layer-stacked pools) and on phase 7's 419-row
   flush through one ``RowCloneEngine._drain_rows`` (flat pools): card ms,
@@ -66,7 +72,7 @@ def _args():
     ap.add_argument("--src", required=True,
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", required=True)
-    ap.add_argument("--rows", default="k2,k4,k3,k5,k1,e2e",
+    ap.add_argument("--rows", default="k2,k4,k3,k5,k7,k1,e2e",
                     help="comma-separated rows (default: every timed row; "
                          "bits only when named)")
     return ap.parse_args()
@@ -237,6 +243,34 @@ def k5(torch, ops, scrub) -> dict:
     return out
 
 
+def k7(torch, ops, scrub) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 20)
+    rng = np.random.default_rng(cs.SEED + 20)
+    out = {}
+    for n in (4, 8):
+        slabs, ids = cs._k7_case(gen, rng, n)
+
+        def run():
+            ops.psm_transfer(slabs, ids, block_axis=1)
+
+        out[f"n{n}"] = dict(
+            rows=int((ids[:, :, 0] >= 0).sum()),
+            ms=cs.time_ms(run, scrub=scrub),
+            device_ms=cs.device_ms(run, key="psm_kernel", reps=10),
+            host_us=cs.host_call_us(run))
+        del slabs
+        torch.cuda.empty_cache()
+    pool = cs._bf16_pool((cs.FLAT_NBLK, 64, 8, 128), gen)
+    half = cs.FLAT_NBLK // 2
+    for m in (8, cs.MAX_REQUESTS):
+        ids = np.asarray([[i, half + i] for i in range(m)], np.int32)
+        fn = lambda: ops.psm_copy(pool, ids)
+        out[f"copy_psm_m{m}"] = dict(
+            ms=cs.time_ms(fn, scrub=scrub),
+            device_ms=cs.device_ms(fn, key="psm_kernel"))
+    return out
+
+
 def _k1_reading(torch, fn, scrub) -> dict:
     """Card ms, K1's device ms, the call's device busy ms and its host ms
     (synchronised, median of 3 after a warm call) of ``fn``."""
@@ -360,7 +394,7 @@ def main() -> int:
     rows = args.rows.split(",")
     out = {"tag": args.tag, "src": args.src, "smi": smi.stdout.strip()}
     for name, row in (("k2", k2), ("k4", k4), ("k3", k3), ("k5", k5),
-                      ("k1", k1), ("bits", bits)):
+                      ("k7", k7), ("k1", k1), ("bits", bits)):
         if name in rows:
             out[name] = row(torch, ops, scrub)
     del scrub

@@ -16,8 +16,8 @@ Phases (each raises on failure; the script then exits non-zero):
    prints ptxas's registers and spills per kernel instantiation, counts
    K3's and K4's tensor-core instructions (``HGMMA`` in ``cuobjdump
    -sass``; none in either, or in any of K3's head-dim instantiations,
-   fails the run) and K1's, K5's and K6's bulk copies (``UBLKCP``; none
-   fails the run), and holds K1's design constants
+   fails the run) and K1's, K5's, K6's and K7's bulk copies (``UBLKCP``;
+   none fails the run), and holds K1's design constants
    (``fused_dispatch.constants``) equal to the library's.
 2. K1, the fused command drain, against its plain version at the serving
    pool shapes (four bf16 pools ``(28, nblk, 64, 8, 128)`` and the staging
@@ -268,14 +268,23 @@ Phases (each raises on failure; the script then exits non-zero):
 20. (run after phase 19) K7 and the sharded bulk-movement drain over a
     rank mesh on one card, at llama3.2-3b's full pool width (blocks of 28
     layers x 64 tokens x 8 KV heads x 128 dims, bf16, block axis 1;
-    ``phase_mesh``).  (a) K7 alone over 4 and 8 ranks on cuda:0 (slabs
-    of 32 blocks, rows at every hop -(n-1) .. n-1 with skip rows) bitwise
-    against its plain version, one launch a call; card, device, plain and
-    library (``index_copy_(index_select)`` per rank pair) ms beside the
-    byte bound.  (b) engines over (1, 4) ranks of ``("data", "model")``
-    (K / V of 256 blocks, a staging ring of 32 slots, sharded and then
-    replicated on every rank), the fan-out and the single-slab fused
-    engine on three seeded property programs: pools bitwise three ways,
+    ``phase_mesh``).  (a) K7's constants and its library plan
+    (``rc_psm_plan``) against the Python statement (``plan_rows``) on
+    1,000 seeded random calls (1-8 ranks, 1-3 tables, shared and
+    unaligned slabs on two cards, refused rows of every kind); K7 alone
+    over 4 and 8 ranks on cuda:0 (slabs of 32 blocks, rows at every hop
+    -(n-1) .. n-1 with skip rows) bitwise against its plain version, one
+    launch a call; card, device, plain and library
+    (``index_copy_(index_select)`` per rank pair) ms beside the byte
+    bound, the wrapper's host us a call and the route (bulk or word,
+    items, grid, chunk); the same 8 ranks with one base 8 bytes off (the
+    word loop) and a call of more rows than the launch parameters carry
+    (llama3.2-3b's per-layer pages, the rows through the pinned and the
+    device buffer), both bitwise in one launch.  (b) engines over (1, 4)
+    ranks of ``("data", "model")`` (K / V of 256 blocks, a staging ring
+    of 32 slots, sharded and then replicated on every rank), the fan-out
+    and the single-slab fused engine on three seeded property programs:
+    pools bitwise three ways,
     one ``fused_mesh`` notify a flush with the sharded ring, K7 and K1
     device launches a flush printed.  (c) ``plan_rebalance`` on a cache
     over the mesh engine: the plan and the pools bitwise equal to one
@@ -438,7 +447,7 @@ def phase_device():
                 raise AssertionError(f"K3 at head dim {missing} has no wgmma "
                                      "(HGMMA) instruction")
     for kernel, lib in (("K1", "fused_dispatch"), ("K5", "fpm_copy"),
-                        ("K6", "zero_init")):
+                        ("K6", "zero_init"), ("K7", "psm_transfer")):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(build.library_path(lib))],
             capture_output=True, text=True, check=True).stdout.splitlines()
@@ -1461,10 +1470,13 @@ def _chain_ids(rng, nblk, chains, depth):
     return np.asarray(rows, np.int32)
 
 
-def _offset_copy(x):
-    """A copy of ``x`` whose data starts 4 bytes past an aligned address."""
-    raw = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    out = raw[1:].view(x.shape)
+def _offset_copy(x, offset=None):
+    """A contiguous copy of ``x`` whose data starts ``offset`` bytes (one
+    element by default) past an aligned address."""
+    offset = x.element_size() if offset is None else offset
+    nbytes = x.numel() * x.element_size()
+    raw = torch.empty(nbytes + 16, dtype=torch.uint8, device=x.device)
+    out = raw[offset:offset + nbytes].view(x.dtype).view(x.shape)
     out.copy_(x)
     return out
 
@@ -4754,6 +4766,132 @@ def _k7_library(slabs, ids):
     return run
 
 
+#: phase 20 (a): random calls on which the library's K7 plan is held
+#: against the Python statement, and rows a rank of the leg above the
+#: launch parameters' room
+K7_PLAN_CALLS, K7_WIDE_ROWS = 1000, 40
+
+
+def _k7_plan_call(rng):
+    """One random K7 call over fake slab records for the plan check:
+    ``(records, n, rows, card, layers, page_bytes)``.  1-8 ranks, 1-3
+    tables drawn from a few records (shared between tables and sides, one
+    in ten 8 bytes off, on cards 0 and 1); rows in range, then perhaps one
+    pushed outside the call, a copied destination (WAW) or a source on
+    another row's destination (RAW); one call in twenty has 170-400 rows
+    that clash nowhere (above the launch parameters' room)."""
+    n = int(rng.choice([1, 2, 4, 8]))
+    nt = int(rng.integers(1, 4))
+    page = int(rng.choice([102, 4096, 131072]))
+    layers = int(rng.choice([1, 28]))
+    wide = rng.random() < 0.05
+    pool = []
+    for i in range(int(rng.integers(1, 2 * n + 2))):
+        base = (1 << 44) + i * (1 << 36) + (8 if rng.random() < 0.1 else 0)
+        pool.append((base, 1024 if wide else int(rng.integers(2, 64)),
+                     int(rng.integers(2))))
+    rec = np.zeros((nt, 2, n, 3), np.int64)
+    for t in range(nt):
+        src = rng.integers(0, len(pool), n)
+        dst = src if rng.random() < 0.4 else rng.integers(0, len(pool), n)
+        rec[t, 0] = [pool[i] for i in src]
+        rec[t, 1] = [pool[i] for i in dst]
+    if wide:
+        m = int(rng.integers(170, 401))
+        rows = np.array([[int(rng.integers(nt)), i % n, i, 512 + i,
+                          int(rng.integers(-(n - 1), n))] for i in range(m)],
+                        np.int64)
+        return rec, n, rows, int(rng.integers(2)), layers, page
+    rows = []
+    for _ in range(int(rng.integers(0, 4 * n + 4))):
+        t, my = int(rng.integers(nt)), int(rng.integers(n))
+        hop = int(rng.integers(-(n - 1), n))
+        tgt = (my + hop + n) % n
+        rows.append([t, my, int(rng.integers(rec[t, 0, my, 1])),
+                     int(rng.integers(rec[t, 1, tgt, 1])), hop])
+    rows = np.asarray(rows, np.int64).reshape(-1, 5)
+    if len(rows):
+        i, j = rng.integers(len(rows), size=2)
+        what = rng.random()
+        if what < 0.15:
+            rows[i, int(rng.integers(5))] = int(rng.choice([-n, -1, n, 99]))
+        elif what < 0.3:
+            rows[j] = rows[i]
+        elif what < 0.45:
+            t, my, _, d, hop = (int(x) for x in rows[i])
+            tgt = (my + hop + n) % n
+            rows[j] = (t, tgt, d, rng.integers(rec[t, 1, tgt, 1]), 0)
+    return rec, n, rows, int(rng.integers(2)), layers, page
+
+
+def _k7_plan_check(rng, sms: int):
+    """(calls whose library plan equals the Python statement, code counts
+    by name, the first differing call)."""
+    from repro_torch.kernels import psm_transfer as k7
+    names = {0: "kept", k7.OUTSIDE: "outside", k7.BLOCK_OUTSIDE: "block",
+             k7.WAW: "waw", k7.RAW: "raw"}
+    same, counts, first_bad = 0, {}, None
+    for i in range(K7_PLAN_CALLS):
+        rec, n, rows, card, layers, page = _k7_plan_call(rng)
+        kw = dict(layers=layers, page_bytes=page, sms=sms)
+        got = k7.plan(rec, n, rows, card, **kw)
+        want = k7.plan_rows(rec, n, rows, card, **kw)
+        ok = got[0] == want[0] and np.array_equal(got[1], want[1]) \
+            and np.array_equal(got[2], want[2])
+        same += ok
+        key = names.get(want[0], str(want[0]))
+        if want[0] == 0 and want[2][7]:
+            key = "kept above the parameters' room"
+        counts[key] = counts.get(key, 0) + 1
+        if not ok and first_bad is None:
+            first_bad = (i, got[0], want[0], got[2].tolist(),
+                         want[2].tolist())
+    return same, counts, first_bad
+
+
+def _k7_leg(slabs, ids, block_axis: int, scrub):
+    """K7 once against its plain version (bitwise, one launch; the slabs
+    are moved in place) and timed: (bitwise, launches, the call's ``out``
+    words, card ms, (device ms, launches recorded), host us a call)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import psm_transfer as k7
+    want = ops.psm_transfer([s.clone() for s in slabs], ids,
+                            block_axis=block_axis, use_kernel=False)
+    # in place: a clone would not keep a slab's base alignment
+    n0 = k7.COUNTER.n
+    ops.psm_transfer(slabs, ids, block_axis=block_axis)
+    torch.cuda.synchronize()
+    launches = k7.COUNTER.n - n0
+    out = k7.last_out.tolist()
+    ok = all(_bitwise_equal(g, w) for g, w in zip(slabs, want))
+    del want
+    run = lambda: ops.psm_transfer(slabs, ids, block_axis=block_axis)
+    ms = time_ms(run, scrub=scrub)
+    dev = device_ms(run, key="psm_kernel", reps=10)
+    return ok, launches, out, ms, dev, host_call_us(run)
+
+
+def host_call_us(fn, calls: int = 20, batches: int = 3) -> float:
+    """The host's us a call of ``fn`` (a launch that returns before the
+    card is done): ``calls`` calls back to back, the card synchronised
+    before and after each batch; the least of ``batches``."""
+    best = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return min(best)
+
+
+def _route(out) -> str:
+    return (f"route {'bulk' if out[5] else 'word'} ({out[6]}-byte words), "
+            f"{out[0]} rows{' through the row buffer' if out[7] else ''}, "
+            f"items {out[1]}, grid {out[2]}, chunk {out[3]} B")
+
+
 def mesh_peer_leg(gen, rng, tag: str) -> dict:
     """Phase 20 (e): K7 with its ranks on distinct cards (one rank a card,
     at most 4), peer access enabled, bitwise against its plain version on
@@ -4776,6 +4914,7 @@ def mesh_peer_leg(gen, rng, tag: str) -> dict:
     for r in range(n):
         torch.cuda.synchronize(r)
     launches = k7.COUNTER.n - n0
+    route = _route(k7.last_out.tolist())
     ok = all(_bitwise_equal(g.cpu(), w) for g, w in zip(got, want))
     live = ids[ids[:, :, 0] >= 0]
     remote = int((live[:, 2] % n != 0).sum())
@@ -4790,7 +4929,8 @@ def mesh_peer_leg(gen, rng, tag: str) -> dict:
     log(f"{tag} (e) peer leg: {n} cards ({', '.join(sorted(names))}), peer "
         f"access enabled, {len(live)} rows ({remote} to another card, "
         f"{remote * block_bytes} B over NVLink), {launches} launches (one a "
-        f"source card), bitwise {ok}; host ms a call, every card "
+        f"source card; the last card's {route}), bitwise {ok}; host ms a "
+        f"call, every card "
         f"synchronised (median of 5): {float(np.median(times)):.4f}")
     return {f"(e) peer leg over {n} cards bitwise": ok,
             "(e) one K7 launch a source card":
@@ -4816,30 +4956,30 @@ def phase_mesh(scrub, smi: str):
     rng = np.random.default_rng(SEED + 20)
     checks = {}
     block_bytes = MESH_LAYERS * int(np.prod(MESH_PAGE)) * 2
-    lib, py = k7.library_constants(), dict(
-        CHUNK=k7.CHUNK, CTAS_PER_SM=k7.CTAS_PER_SM,
-        RECORD_WORDS=k7.RECORD_WORDS, ROW_WORDS=k7.ROW_WORDS)
+    lib, py = k7.library_constants(), k7.constants()
     checks["K7 constants equal the library's"] = lib == py
     log(f"{tag} card {smi}; block {block_bytes} B ({MESH_LAYERS} layers x "
-        f"{MESH_PAGE} bf16)")
+        f"{MESH_PAGE} bf16); K7 constants {lib}")
+    # (a) the library's plan against the Python statement
+    # (the new legs draw from their own seeds: (a)-(e) keep their inputs)
+    rng27 = np.random.default_rng(SEED + 27)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    same, counts, first_bad = _k7_plan_check(rng27, sms)
+    checks[f"(a) K7's library plan equals plan_rows on {K7_PLAN_CALLS} "
+           "calls"] = same == K7_PLAN_CALLS
+    log(f"{tag} (a) K7 plan: {same} of {K7_PLAN_CALLS} random calls equal "
+        f"to plan_rows ({counts}); first differing "
+        f"{first_bad or 'none'}")
     # (a) K7 alone at n = 4 and 8 ranks
     row = None
     for n in (4, 8):
         slabs, ids = _k7_case(gen, rng, n)
         live = int((ids[:, :, 0] >= 0).sum())
-        want = ops.psm_transfer([s.clone() for s in slabs], ids,
-                                block_axis=1, use_kernel=False)
-        n0 = k7.COUNTER.n
-        got = ops.psm_transfer([s.clone() for s in slabs], ids, block_axis=1)
-        torch.cuda.synchronize()
-        ok = all(_bitwise_equal(g, w) for g, w in zip(got, want))
+        ok, launches, out, ms, (dev, seen), host_us = _k7_leg(
+            slabs, ids, 1, scrub)
         checks[f"(a) K7 bitwise, n={n}, hops -{n - 1}..{n - 1}"] = ok
-        checks[f"(a) K7 one launch, n={n}"] = k7.COUNTER.n - n0 == 1
-        del got, want
-        out = k7.last_out.tolist()
-        run_k7 = lambda: ops.psm_transfer(slabs, ids, block_axis=1)
-        ms = time_ms(run_k7, scrub=scrub)
-        dev, seen = device_ms(run_k7, key="psm_kernel", reps=10)
+        checks[f"(a) K7 one launch, n={n}"] = launches == 1
+        checks[f"(a) K7 bulk route, n={n}"] = out[5] == 1
         plain = time_ms(lambda: ops.psm_transfer(slabs, ids, block_axis=1,
                                                  use_kernel=False),
                         reps=5, scrub=scrub)
@@ -4847,11 +4987,11 @@ def phase_mesh(scrub, smi: str):
         nbytes = 2 * live * block_bytes
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"{tag} (a) K7 n={n}: {live} rows over hops -{n - 1}..{n - 1} "
-            f"({ids.shape[1] * n - live} skip rows), bitwise {ok}; items "
-            f"{out[1]}, grid {out[2]}, chunk {out[3]} B; card {ms:.4f} ms, "
-            f"device {_fmt_ms(dev)} ({seen} of 10 launches in the trace), "
-            f"bound {bound:.4f} ms ({nbytes} B, "
-            f"bytes), plain {plain:.4f} ms, library {library_ms:.4f} ms "
+            f"({ids.shape[1] * n - live} skip rows), bitwise {ok}; "
+            f"{_route(out)}; card {ms:.4f} ms, device {_fmt_ms(dev)} "
+            f"({seen} of 10 launches in the trace), host {host_us:.1f} us "
+            f"a call, bound {bound:.4f} ms ({nbytes} B, bytes), plain "
+            f"{plain:.4f} ms, library {library_ms:.4f} ms "
             "(index_copy_(index_select) per rank pair)")
         if n == 8:
             row = dict(name="psm_transfer",
@@ -4860,8 +5000,44 @@ def phase_mesh(scrub, smi: str):
                        max_abs_err=0.0, ms=ms, device_ms=dev,
                        plain_ms=plain, bound_ms=bound, bound_by="bytes",
                        library_ms=library_ms)
+            # the same call with rank 0's slab 8 bytes off: the word loop
+            slabs[0] = _offset_copy(slabs[0], 8)
+            ok, launches, out, ms, (dev, seen), host_us = _k7_leg(
+                slabs, ids, 1, scrub)
+            checks["(a) K7 word loop (a base 8 bytes off) bitwise in one "
+                   "launch"] = ok and launches == 1 and out[5] == 0
+            log(f"{tag} (a) K7 n=8, rank 0's base 8 bytes off: bitwise "
+                f"{ok}; {_route(out)}; card {ms:.4f} ms, device "
+                f"{_fmt_ms(dev)} ({seen} of 10), host {host_us:.1f} us, "
+                f"bound {bound:.4f} ms")
         del slabs
         torch.cuda.empty_cache()
+    # (a) more rows than the launch parameters carry: per-layer pages
+    n, ss = 8, 96
+    gen27 = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    slabs = [_bf16_pool((ss,) + MESH_PAGE, gen27) for _ in range(n)]
+    ids = np.full((n, K7_WIDE_ROWS, 3), -1, np.int64)
+    free = {r: list(rng27.permutation(np.arange(ss // 2, ss)))
+            for r in range(n)}
+    for my in range(n):
+        for j in range(K7_WIDE_ROWS):
+            tgt = (my + int(rng27.integers(-(n - 1), n)) + n) % n
+            if free[tgt]:
+                ids[my, j] = (rng27.integers(0, ss // 2), free[tgt].pop(),
+                              tgt - my)
+    live = int((ids[:, :, 0] >= 0).sum())
+    ok, launches, out, ms, (dev, seen), host_us = _k7_leg(
+        slabs, ids, 0, scrub)
+    checks[f"(a) K7 above the launch parameters' room ({live} rows) "
+           "bitwise in one launch"] = \
+        ok and launches == 1 and out[7] == 1 and live > k7.ROW_CAPACITY
+    page_bytes = int(np.prod(MESH_PAGE)) * 2
+    bound = 2 * live * page_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"{tag} (a) K7 n=8, {live} rows of {page_bytes} B pages: bitwise "
+        f"{ok}; {_route(out)}; card {ms:.4f} ms, device {_fmt_ms(dev)} "
+        f"({seen} of 10), host {host_us:.1f} us, bound {bound:.4f} ms")
+    del slabs
+    torch.cuda.empty_cache()
     # (b) the sharded engine: fan-out, single-slab fused and mesh, bitwise
     mesh = make_test_mesh((1, 4), ("data", "model"), devices="cuda:0")
     pools = _mesh_pools(gen, MESH_NBLK, MESH_RING)

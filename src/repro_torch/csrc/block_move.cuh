@@ -2,7 +2,9 @@
 // launch moves (or zeroes) a list of blocks of one pool, in place, and the
 // host schedule that prepares it.  K1 (csrc/fused_dispatch.cu) drains its
 // command tables with the device pieces below (bulk copies, the ring's
-// waits, the wave gate, the word loop, `leave`) and the same chunking.
+// waits, the wave gate, the word loop, `leave`) and the same chunking; K7
+// (csrc/psm_transfer.cu) moves its rows with the bulk copies, the ring's
+// waits, the word loop and the same chunking, without gate or counters.
 //
 // A block is `layers` pages of `page_bytes` each; page `layer` of block `b`
 // lies at base + (layer * nblk + b) * page_bytes, so a layer-stacked pool

@@ -533,11 +533,11 @@ def sharded_fused_dispatch(slabs: Sequence[Sequence[torch.Tensor]], plan, *,
         rows = hops[np.isin(hops[:, 0], qs)]
         rows[:, 0] = np.searchsorted(qs, rows[:, 0])
         tables = [(list(slabs[q]), recv[g]) for q in qs]
-        rows = k7.check_rows(tables, rows, block_axis)
         if use_kernel:
             k7.psm_transfer_cuda(tables, rows, block_axis=block_axis)
         else:
-            ref.psm_transfer(tables, rows, block_axis=block_axis)
+            ref.psm_transfer(tables, k7.check_rows(tables, rows, block_axis),
+                             block_axis=block_axis)
     roles = primary + (False,) * len(recv)
     total = lt + int(sum(n_recv))
     for phase in (0, 1):

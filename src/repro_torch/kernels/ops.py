@@ -140,13 +140,14 @@ def baseline_copy(pool: torch.Tensor, ids, *, block_axis: int = 0
 def psm_transfer_rows(tables, rows, *, block_axis: int = 0,
                       use_kernel: Optional[bool] = None) -> int:
     """K7 over wide rows ``[table, my, src, dst, hop]`` (see
-    kernels/psm_transfer.py): checked on the host, then one launch per
-    source card on CUDA slabs, the plain version on CPU slabs.  In place.
-    Returns the launches (0 on the plain version)."""
-    rows = check_rows(tables, rows, block_axis)
+    kernels/psm_transfer.py): on CUDA slabs one C call per source card
+    checks, plans and launches once; on CPU slabs :func:`check_rows`
+    checks and the plain version moves.  In place.  Returns the launches
+    (0 on the plain version)."""
     if use_kernel_for(tables[0][0][0], use_kernel):
         return psm_transfer_cuda(tables, rows, block_axis=block_axis)
-    ref.psm_transfer(tables, rows, block_axis=block_axis)
+    ref.psm_transfer(tables, check_rows(tables, rows, block_axis),
+                     block_axis=block_axis)
     return 0
 
 

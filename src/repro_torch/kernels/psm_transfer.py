@@ -1,12 +1,12 @@
 """K7 — the PSM transfer: block pushes between the slabs of a rank mesh,
-the host contract and the CUDA wrapper.
+the host contract, the plan and the CUDA wrapper.
 
 Replaces the TPU kernel ``_psm_kernel`` of ``repro/kernels/psm_transfer.py``
 (``psm_transfer_pallas``, the ``pallas_call`` at :74), which pushed
 slab-local blocks into the slab of the device at a signed hop along one
 mesh axis with remote DMAs, ``PIPELINE_DEPTH`` of them in flight.  The
-kernel is ``csrc/psm_transfer.cu`` over the word loop of
-``csrc/block_move.cuh``; its plain version is
+kernel is ``csrc/psm_transfer.cu`` over the bulk-copy pieces and the word
+loop of ``csrc/block_move.cuh``; its plain version is
 :func:`repro_torch.kernels.ref.psm_transfer`.
 
 The contract, kept from the reference: a row ``[src_local, dst_local,
@@ -25,11 +25,21 @@ the slabs of all ranks are local memory; on several cards with peer
 access the destination addresses are peer addresses, and the wrapper
 launches once per source card.
 
+:func:`check_rows` states the contract on tensors and is the plain path's
+check.  On the card the wrapper makes ONE C call per source card, which
+checks the rows, plans and launches (``csrc/psm_transfer.cu``);
+:func:`plan_rows` states that plan in Python (the same refusals, the rows
+kept and resolved to the launch parameters' layout, the route and
+:func:`~repro_torch.kernels.fpm_copy.chunking`), the CPU tests pin it to
+:func:`check_rows`, and ``chip_smoke.py`` holds the library's plan
+(:func:`plan`) against it.
+
 Bound on the card: bytes (each row reads and writes one block: L pages of
 a layer-stacked slab).
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 import math
@@ -39,20 +49,33 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
-from repro_torch.kernels.fpm_copy import sm_count
+from repro_torch.kernels.fpm_copy import chunking, sm_count
 from repro_torch.kernels.ref import require_live
 
 #: launches of the PSM transfer kernel (K7)
 COUNTER = LaunchCounter("psm_transfer")
 
-#: bytes of the kernel's work item at most (a page splits into chunks of
-#: this size; csrc/psm_transfer.cu ``kChunk``)
-CHUNK = 16 * 1024
-#: CTAs per SM the grid is sized for (``kCtasPerSm``)
-CTAS_PER_SM = 8
-#: int64 words of one slab record (source base, source blocks, destination
-#: base, destination blocks) and of one row
-RECORD_WORDS, ROW_WORDS = 4, 5
+# design constants of csrc/psm_transfer.cu (``chip_smoke.py`` checks them
+# against the library's ``rc_psm_constants``)
+#: rows the launch parameters carry (``kRowCap``; 24-byte rows under 4 KB);
+#: above it the rows go through a pinned host and a device buffer
+ROW_CAPACITY = 169
+#: chunk slots of the bulk route's ring, and bulk loads in flight a CTA
+STAGES, LOOKAHEAD = 4, 3
+#: int64 words of one slab record (base address, blocks, card) and of one
+#: row; bytes of a row as the kernel reads it (source and destination
+#: addresses, the two slabs' block counts as int32)
+SLAB_WORDS, ROW_WORDS, ROW_BYTES = 3, 5, 24
+#: bytes of the launch parameters: a 40-byte head and the rows
+PARAM_BYTES = 40 + ROW_CAPACITY * ROW_BYTES
+#: words of the ``out`` array a C entry fills: rows launched, work items,
+#: grid, chunk bytes, chunks per page, bulk route, word bytes, rows through
+#: the device buffer, refused row, the row it reads from (RAW)
+OUT_WORDS = 10
+#: the library's refusal codes: a table, rank or hop outside the call, a
+#: block outside its slab, two rows writing one block, a row reading a
+#: block another row writes; and a missing row buffer
+OUTSIDE, BLOCK_OUTSIDE, WAW, RAW, NO_ROW_BUFFER = -1, -2, -3, -4, -5
 
 #: a pair of per-rank slab lists: (sources, destinations), rank order
 Table = Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]
@@ -65,13 +88,30 @@ def rank_rows(ids, n: int, table: int = 0) -> np.ndarray:
     0``), in rank order."""
     if isinstance(ids, torch.Tensor):
         ids = ids.cpu().numpy()
-    a = np.asarray(ids, np.int64).reshape(n, -1, 3)
-    my, j = np.nonzero(a[:, :, 0] >= 0)
-    out = np.empty((len(my), ROW_WORDS), np.int64)
+    a = np.asarray(ids, np.int64).reshape(-1, 3)
+    live = np.flatnonzero(a[:, 0] >= 0)
+    out = np.empty((len(live), ROW_WORDS), np.int64)
     out[:, 0] = table
-    out[:, 1] = my
-    out[:, 2:] = a[my, j]
+    out[:, 1] = live // (len(a) // n)
+    out[:, 2:] = a[live]
     return out
+
+
+def refusal(code: int, rows: np.ndarray, i: int, j: int, n_tables: int,
+            n: int) -> ValueError:
+    """The error of a refused call, naming row ``i`` (and, for a row that
+    reads a block another row writes, that row ``j``)."""
+    row = rows[i].tolist()
+    if code == OUTSIDE:
+        return ValueError(f"row {row} names a table, rank or hop outside "
+                          f"the call ({n_tables} tables, {n} ranks)")
+    if code == BLOCK_OUTSIDE:
+        return ValueError(f"row {row} names a block outside its slab")
+    if code == WAW:
+        return ValueError(f"row {row} writes a block another row of the "
+                          "call writes")
+    return ValueError(f"row {row} reads a block row {rows[j].tolist()} of "
+                      "the call writes")
 
 
 def check_rows(tables: Sequence[Table], rows, block_axis: int
@@ -101,18 +141,15 @@ def check_rows(tables: Sequence[Table], rows, block_axis: int
     bad = (tab < 0) | (tab >= nt) | (my < 0) | (my >= n) | \
         (hop <= -n) | (hop >= n)
     if bad.any():
-        i = int(np.flatnonzero(bad)[0])
-        raise ValueError(f"row {r[i].tolist()} names a table, rank or hop "
-                         f"outside the call ({nt} tables, {n} ranks)")
+        raise refusal(OUTSIDE, r, int(np.flatnonzero(bad)[0]), -1, nt, n)
     tgt = (my + hop + n) % n
     nblk = np.array([[[int(t.shape[block_axis]) for t in side]
                       for side in table] for table in tables], np.int64)
     bad = (s < 0) | (s >= nblk[tab, 0, my]) | (d < 0) | \
         (d >= nblk[tab, 1, tgt])
     if bad.any():
-        i = int(np.flatnonzero(bad)[0])
-        raise ValueError(f"row {r[i].tolist()} names a block outside its "
-                         "slab")
+        raise refusal(BLOCK_OUTSIDE, r, int(np.flatnonzero(bad)[0]), -1, nt,
+                      n)
     # blocks keyed by the storage they live in: tables may share slabs
     ident: Dict[Tuple, int] = {}
 
@@ -127,18 +164,102 @@ def check_rows(tables: Sequence[Table], rows, block_axis: int
     sorted_dst = dst_key[order]
     dup = np.flatnonzero(sorted_dst[1:] == sorted_dst[:-1])
     if len(dup):
-        i = int(order[dup[0] + 1])
-        raise ValueError(f"row {r[i].tolist()} writes a block another row "
-                         "of the call writes")
+        raise refusal(WAW, r, int(order[dup[0] + 1]), -1, nt, n)
     at = np.minimum(np.searchsorted(sorted_dst, src_key), len(r) - 1)
     j = order[at]
     bad = np.flatnonzero((sorted_dst[at] == src_key)
                          & (j != np.arange(len(r))))
     if len(bad):
         i = int(bad[0])
-        raise ValueError(f"row {r[i].tolist()} reads a block row "
-                         f"{r[j[i]].tolist()} of the call writes")
+        raise refusal(RAW, r, i, int(j[i]), nt, n)
     return r
+
+
+# ---------------------------------------------------------------------------
+# the plan of one call, as the library makes it
+# ---------------------------------------------------------------------------
+
+def plan_rows(slabs, n: int, rows, card: int, *, layers: int,
+              page_bytes: int, sms: int):
+    """The library's plan of one call on ``card``, in Python: ``(code,
+    launch rows, out)``.  ``slabs`` holds :data:`SLAB_WORDS` int64 per
+    (table, side, rank) (base address, blocks, card); ``rows`` the raw
+    ``[table, my, src, dst, hop]`` rows.  ``code`` is 0 or the refusal
+    (``out[8]`` the refused row, ``out[9]`` the row it reads from), found
+    as ``csrc/psm_transfer.cu`` finds it: a table, rank or hop outside the
+    call (a first pass), a block outside its slab (a second pass), the
+    first equal pair of destination keys in key order (WAW), the first row
+    whose source key is another row's destination key (RAW), a key being
+    the slab's identity (the order in which its (card, base) first
+    appears, sources before destinations) and the block.  The launch rows
+    (:func:`launch_rows`) are those whose source slab lies on ``card``, in
+    row order; ``out`` holds the :data:`OUT_WORDS` words."""
+    r = np.asarray(rows, np.int64).reshape(-1, ROW_WORDS)
+    rec = np.asarray(slabs, np.int64).reshape(-1, 2, n, SLAB_WORDS)
+    nt = len(rec)
+    out = np.zeros(OUT_WORDS, np.int64)
+    out[8:] = -1
+    empty = np.zeros((0, 3), np.int64)
+    if not len(r):
+        return 0, empty, out
+    tab, my, s, d, hop = r.T
+    bad = (tab < 0) | (tab >= nt) | (my < 0) | (my >= n) | \
+        (hop <= -n) | (hop >= n)
+    if bad.any():
+        out[8] = np.flatnonzero(bad)[0]
+        return OUTSIDE, empty, out
+    tgt = (my + hop + n) % n
+    src, dst = rec[tab, 0, my], rec[tab, 1, tgt]
+    bad = (s < 0) | (s >= src[:, 1]) | (d < 0) | (d >= dst[:, 1])
+    if bad.any():
+        out[8] = np.flatnonzero(bad)[0]
+        return BLOCK_OUTSIDE, empty, out
+    seen: Dict[Tuple[int, int], int] = {}
+    ident = np.zeros((nt, 2, n), np.int64)
+    for side in (0, 1):
+        for t in range(nt):
+            for k in range(n):
+                key = (int(rec[t, side, k, 2]), int(rec[t, side, k, 0]))
+                ident[t, side, k] = seen.setdefault(key, len(seen))
+    src_key = (ident[tab, 0, my] << 40) + s
+    dst_key = (ident[tab, 1, tgt] << 40) + d
+    order = np.argsort(dst_key, kind="stable")
+    keys = dst_key[order]
+    dup = np.flatnonzero(keys[1:] == keys[:-1])
+    if len(dup):
+        out[8] = order[dup[0] + 1]
+        return WAW, empty, out
+    at = np.minimum(np.searchsorted(keys, src_key), len(r) - 1)
+    j = order[at]
+    raw = np.flatnonzero((keys[at] == src_key) & (j != np.arange(len(r))))
+    if len(raw):
+        out[8], out[9] = raw[0], j[raw[0]]
+        return RAW, empty, out
+    word = 16
+    while page_bytes % word or (rec[..., 0] % word).any():
+        word //= 2
+    mine = src[:, 2] == card
+    kept = launch_rows(src[mine], dst[mine], s[mine], d[mine], page_bytes)
+    bulk = word == 16
+    chunk, cpp, items, grid = chunking(len(kept), layers, page_bytes,
+                                       bulk=bulk, zero=False, sms=sms,
+                                       buffers=STAGES)
+    out[:8] = (len(kept), items, grid, chunk, cpp, bulk, word,
+               len(kept) > ROW_CAPACITY)
+    return 0, kept, out
+
+
+def launch_rows(src, dst, s, d, page_bytes: int) -> np.ndarray:
+    """The ``(k, 3)`` int64 words of the kernel's rows (``Row`` in
+    csrc/psm_transfer.cu) for source and destination slab records
+    (``(k, 3)`` each) and block ids: the source block's address, the
+    destination block's, and the two slabs' block counts as two int32
+    (source in the low half)."""
+    out = np.empty((len(s), 3), np.int64)
+    out[:, 0] = src[:, 0] + s * page_bytes
+    out[:, 1] = dst[:, 0] + d * page_bytes
+    out[:, 2] = src[:, 1] | (dst[:, 1] << 32)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -146,11 +267,15 @@ def check_rows(tables: Sequence[Table], rows, block_axis: int
 # ---------------------------------------------------------------------------
 
 _SIGNATURE = {
-    "rc_psm_transfer": [ctypes.c_void_p, ctypes.c_longlong,
-                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_void_p, ctypes.c_void_p],
+    "rc_psm_transfer": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    "rc_psm_plan": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
     "rc_enable_peer": [ctypes.c_int, ctypes.c_int],
 }
 
@@ -164,111 +289,177 @@ def _entry(entry: str):
     return fn
 
 
+def constants() -> dict:
+    """The design constants as this module states them."""
+    return dict(ROW_CAPACITY=ROW_CAPACITY, STAGES=STAGES,
+                LOOKAHEAD=LOOKAHEAD, SLAB_WORDS=SLAB_WORDS,
+                ROW_WORDS=ROW_WORDS, ROW_BYTES=ROW_BYTES,
+                PARAM_BYTES=PARAM_BYTES, OUT_WORDS=OUT_WORDS)
+
+
 def library_constants() -> dict:
     """The design constants as the library has them (needs the card)."""
     fn = library("psm_transfer").rc_psm_constants
     fn.argtypes = [ctypes.c_void_p]
     fn.restype = None
-    out = np.zeros(4, np.int64)
+    out = np.zeros(8, np.int64)
     fn(out.ctypes.data)
-    return dict(zip(("CHUNK", "CTAS_PER_SM", "RECORD_WORDS", "ROW_WORDS"),
-                    out.tolist()))
+    return dict(zip(constants(), out.tolist()))
 
 
-def geometry(tables: Sequence[Table], block_axis: int
-             ) -> Tuple[int, int, int]:
-    """(layers, page_bytes, word_bytes) of every slab of a call: CUDA,
-    contiguous, one dtype, one block shape; ``word_bytes`` the widest
-    access (16 ... 1) dividing the page and every base address."""
-    slabs = [t for table in tables for side in table for t in side]
-    require_live(slabs)
-    p0 = slabs[0]
-    blk = tuple(p0.shape[block_axis + 1:])
-    layers = int(p0.shape[0]) if block_axis == 1 else 1
-    for t in slabs:
-        if not t.is_cuda:
-            raise ValueError("K7 moves CUDA slabs only")
-        if t.dtype != p0.dtype or tuple(t.shape[block_axis + 1:]) != blk \
-                or (block_axis == 1 and t.shape[0] != layers):
+def plan(slabs, n: int, rows, card: int, *, layers: int, page_bytes: int,
+         sms: int):
+    """The library's plan of one call without a launch (needs the card's
+    build): ``(code, launch rows, out)`` as :func:`plan_rows` gives
+    them."""
+    rec = np.ascontiguousarray(slabs, np.int64).reshape(-1, SLAB_WORDS)
+    r = np.ascontiguousarray(rows, np.int64).reshape(-1, ROW_WORDS)
+    kept = np.zeros((max(len(r), 1), 3), np.int64)
+    out = np.zeros(OUT_WORDS, np.int64)
+    code = _entry("rc_psm_plan")(
+        rec.ctypes.data, len(rec) // (2 * n), n, r.ctypes.data, len(r), card,
+        layers, page_bytes, sms, kept.ctypes.data, len(kept),
+        out.ctypes.data)
+    return code, kept[:int(out[0]) if code == 0 else 0], out
+
+
+def slab_records(tables: Sequence[Table], block_axis: int):
+    """``(records, layers, page_bytes, devices)`` of a call's slabs on the
+    card: :data:`SLAB_WORDS` int64 per (table, side, rank) and the devices
+    holding slabs, by card index.  Raises ``ValueError``
+    with :func:`check_rows`'s message for a table without a slab per rank
+    or with slabs of two block shapes or dtypes, and for slabs that are
+    not CUDA or not contiguous, or whose tables differ in block shape or
+    dtype (one launch moves one page size); ``RuntimeError`` for a killed
+    slab."""
+    n = len(tables[0][0])
+    ba = block_axis
+    words = []
+    devices: Dict[int, torch.device] = {}
+    # each distinct slab is read once: (its kind, its record); equal kinds
+    # are one object, compared by identity
+    seen: Dict[int, Tuple[Tuple, Tuple[int, int, int]]] = {}
+    kinds: Dict[Tuple, Tuple] = {}
+    kind = None
+    for src, dst in tables:
+        if len(src) != n or len(dst) != n:
+            raise ValueError(f"every table needs one slab per rank ({n})")
+        own = None
+        for t in (*src, *dst):
+            held = seen.get(id(t))
+            if held is None:
+                if not t.is_cuda:
+                    raise ValueError("K7 moves CUDA slabs only")
+                if not t.is_contiguous():
+                    raise ValueError("slabs must be contiguous")
+                if not t.untyped_storage().nbytes():
+                    require_live((t,))
+                shape, dev = t.shape, t.device
+                devices.setdefault(dev.index, dev)
+                k = (t.dtype, shape[ba + 1:], shape[0] if ba else 1)
+                held = seen[id(t)] = (kinds.setdefault(k, k), (
+                    t.data_ptr(), shape[ba], dev.index))
+            if own is None:
+                own = held[0]
+            elif held[0] is not own:
+                raise ValueError("a table's slabs must share block shape "
+                                 "and dtype")
+            words += held[1]
+        if kind is None:
+            kind = own
+        elif own is not kind:
             raise ValueError("slabs must share block shape and dtype")
-        if not t.is_contiguous():
-            raise ValueError("slabs must be contiguous")
-    page_bytes = math.prod(blk) * p0.element_size()
-    word = 16
-    while page_bytes % word or any(t.data_ptr() % word for t in slabs):
-        word //= 2
-    return layers, page_bytes, word
+    page_bytes = math.prod(kind[1]) * tables[0][0][0].element_size()
+    return (np.frombuffer(array.array("q", words), np.int64), int(kind[2]),
+            page_bytes, devices)
 
 
-#: the device buffer of each (device, stream) that takes a call's slab
-#: records and rows, grown when a call needs more
-_BUFFERS: Dict[Tuple[int, int], torch.Tensor] = {}
-#: the ``out`` words of the last launch: rows, work items, grid, chunk
-last_out = np.zeros(4, np.int64)
+#: per (device, stream), the device buffer and the pinned host buffer that
+#: take a call's rows above :data:`ROW_CAPACITY`, and the event the library
+#: records after each copy out of the pinned one (and waits for before it
+#: rewrites it); grown when a call needs more
+_BUFFERS: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor,
+                                      torch.cuda.Event]] = {}
+#: the ``out`` words of the last C call (read by ``chip_smoke.py``)
+last_out = np.zeros(OUT_WORDS, np.int64)
 _LAST_OUT_PTR = last_out.ctypes.data
 
 
-def _buffer(device: torch.device, stream: int, nbytes: int
-            ) -> Tuple[int, int]:
+def _row_buffers(device: torch.device, stream: int, n_rows: int):
+    """(device buffer, pinned buffer, event) of ``stream``, room for at
+    least ``n_rows`` rows; the event is recorded once here, so that the
+    library can wait for it."""
     key = (device.index, stream)
-    buf = _BUFFERS.get(key)
-    if buf is None or buf.numel() < nbytes:
-        buf = _BUFFERS[key] = torch.empty(max(nbytes, 1 << 16),
-                                          dtype=torch.uint8, device=device)
-    return buf.data_ptr(), buf.numel()
+    held = _BUFFERS.get(key)
+    if held is None or held[0].numel() < n_rows * ROW_BYTES:
+        if held is not None:
+            held[2].synchronize()   # torch does not know of that copy
+        nbytes = max(n_rows, 4 * ROW_CAPACITY) * ROW_BYTES
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        held = _BUFFERS[key] = (
+            torch.empty(nbytes, dtype=torch.uint8, device=device),
+            torch.empty(nbytes, dtype=torch.uint8, pin_memory=True), event)
+    return held
 
 
-def _enable_peers(pairs) -> None:
-    for dev, peer in pairs:
-        check(_entry("rc_enable_peer")(dev, peer),
-              f"peer access {dev} -> {peer}")
+def _enable_peers(cards) -> None:
+    """Peer access between every two of ``cards`` (enabling twice is
+    fine)."""
+    for dev in cards:
+        for peer in cards:
+            if dev != peer:
+                check(_entry("rc_enable_peer")(dev, peer),
+                      f"peer access {dev} -> {peer}")
 
 
-def psm_transfer_cuda(tables: Sequence[Table], rows: np.ndarray, *,
+def psm_transfer_cuda(tables: Sequence[Table], rows, *,
                       block_axis: int) -> int:
-    """Run checked rows (:func:`check_rows`) on the card, in place: ONE C
-    call and ONE launch of K7 per source card holding rows (none without
-    rows), each on that card's current stream.  With ranks on several
-    cards, peer access is enabled for the pairs the call uses and every
-    card the call touches is synchronized before and after it.  Returns
+    """Run raw rows on the card, in place: ONE C call per card holding
+    source slabs, which checks every row as :func:`check_rows` does,
+    plans and makes ONE launch of K7 for the rows whose source lies on
+    that card (none without rows), on that card's current stream.  Raises
+    ``ValueError`` with :func:`check_rows`'s message before any launch.
+    With slabs on several cards, peer access is enabled between them and
+    every such card is synchronized before and after the call.  Returns
     the launches."""
-    if not len(rows):
+    r = np.ascontiguousarray(rows, np.int64).reshape(-1, ROW_WORDS)
+    if not len(r):
         return 0
-    layers, page_bytes, word = geometry(tables, block_axis)
-    n = len(tables[0][0])
-    rec = np.array([[(s.data_ptr(), s.shape[block_axis], d.data_ptr(),
-                      d.shape[block_axis]) for s, d in zip(*table)]
-                    for table in tables], np.int64).reshape(-1)
-    # the card of each (table, rank)'s source and destination slab
-    card = np.array([[[t.device.index for t in side] for side in table]
-                     for table in tables], np.int64)
-    tab, my = rows[:, 0], rows[:, 1]
-    src_card = card[tab, 0, my]
-    dst_card = card[tab, 1, (my + rows[:, 4] + n) % n]
-    cards = np.unique(np.concatenate([src_card, dst_card])).tolist()
-    if len(cards) > 1:
-        pairs = np.unique(np.stack([src_card, dst_card], 1), axis=0)
-        _enable_peers([(a, b) for a, b in pairs.tolist() if a != b])
-        for c in cards:
+    slabs, layers, page_bytes, devices = slab_records(tables, block_axis)
+    n, nt = len(tables[0][0]), len(tables)
+    many = len(devices) > 1
+    if many:
+        _enable_peers(list(devices))
+        for c in devices:
             torch.cuda.synchronize(c)
+    srcs = {t.device.index for table in tables for t in table[0]} \
+        if many else devices
     launches = 0
-    for c in np.unique(src_card).tolist():
-        part = np.ascontiguousarray(rows[src_card == c])
-        device = torch.device("cuda", c)
+    for c in srcs:
+        device = devices[c]
         stream = stream_ptr(device)
-        host = np.concatenate([rec, part.reshape(-1)])
-        buf, cap = _buffer(device, stream, host.nbytes)
+        pinned = dev_buf = done = None
+        cap = 0
+        if len(r) > ROW_CAPACITY:
+            dev_buf, held, event = _row_buffers(device, stream, len(r))
+            pinned, done = held.data_ptr(), event.cuda_event
+            dev_buf, cap = dev_buf.data_ptr(), dev_buf.numel() // ROW_BYTES
         err = _entry("rc_psm_transfer")(
-            host.ctypes.data, len(rec), len(part), n, layers, page_bytes,
-            word, buf, cap, c, sm_count(device), stream, _LAST_OUT_PTR)
+            slabs.ctypes.data, nt, n, r.ctypes.data, len(r), c, layers,
+            page_bytes, sm_count(device), pinned, dev_buf, cap, done, stream,
+            _LAST_OUT_PTR)
+        if err < 0 and err != NO_ROW_BUFFER:
+            raise refusal(err, r, int(last_out[8]), int(last_out[9]), nt, n)
         check(err, "psm transfer kernel")
-        launches += 1
-    if len(cards) > 1:
-        for c in cards:
+        launches += bool(last_out[0])
+    if many:
+        for c in devices:
             torch.cuda.synchronize(c)
     COUNTER.n += launches
     return launches
 
 
-__all__ = ["COUNTER", "CHUNK", "CTAS_PER_SM", "rank_rows", "check_rows",
-           "geometry", "psm_transfer_cuda", "library_constants"]
+__all__ = ["COUNTER", "ROW_CAPACITY", "rank_rows", "check_rows", "refusal",
+           "plan_rows", "launch_rows", "plan", "constants",
+           "library_constants", "slab_records", "psm_transfer_cuda"]

@@ -847,6 +847,115 @@ def test_cuda_psm_copy_launches_k7_and_never_the_plain_version(card,
         k7._entry.cache_clear()
 
 
+def _offset_slab(seed, shape, dtype, offset):
+    """A contiguous slab whose base lies ``offset`` bytes past a 16-byte
+    boundary (a view into a larger byte buffer)."""
+    src = make_pool(seed, shape, dtype).cuda()
+    nbytes = src.numel() * src.element_size()
+    raw = torch.empty(nbytes + 16, dtype=torch.uint8, device="cuda")
+    out = raw[offset:offset + nbytes].view(dtype).view(shape)
+    out.copy_(src)
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_psm_transfer_routes_and_row_buffer(card):
+    """K7 in ONE launch a call, bitwise against its plain version, over
+    each route the host picks from the geometry: the bulk copies (16-byte
+    aligned pages and bases), the word loop (a 102-byte page, and a base 8
+    bytes off), and a call of more rows than the launch parameters carry
+    (the rows through the pinned and the device buffer), twice in a row on
+    one stream."""
+    from repro_torch.kernels import psm_transfer as k7
+    rng = np.random.default_rng(11)
+    n = 8
+    cases = [("bulk", (2, 64, 8, 128), torch.bfloat16, 0, 1, 16),
+             ("word, 102-byte page", (3, 16, 3, 17), torch.bfloat16, 0, 0, 2),
+             ("word, base 8 bytes off", (16, 8, 128), torch.float32, 8, 0, 8)]
+    for what, shape, dtype, off, bulk, word in cases:
+        ba = 1 if len(shape) == 4 else 0
+        slabs = [_offset_slab(200 + r, shape, dtype, off if r == 0 else 0)
+                 for r in range(n)]
+        ids = mesh_rows(rng, n, shape[ba])
+        want = ops.psm_transfer([s.clone() for s in slabs], ids,
+                                block_axis=ba, use_kernel=False)
+        n0 = k7.COUNTER.n
+        got = ops.psm_transfer(slabs, ids, block_axis=ba)
+        torch.cuda.synchronize()
+        assert k7.COUNTER.n == n0 + 1, what
+        assert (k7.last_out[5], k7.last_out[6], k7.last_out[7]) == \
+            (bulk, word, 0), what
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(bits(g), bits(w), what)
+    # 8 ranks x 40 rows: above ROW_CAPACITY
+    ss = 96
+    slabs = [make_pool(300 + r, (ss, 8, 128), torch.bfloat16).cuda()
+             for r in range(n)]
+    for rep in range(2):
+        ids = np.full((n, 40, 3), -1, np.int64)
+        free = {r: list(rng.permutation(np.arange(ss // 2, ss)))
+                for r in range(n)}
+        for my in range(n):
+            for j in range(40):
+                hop = int(rng.integers(-(n - 1), n))
+                tgt = (my + hop + n) % n
+                if free[tgt]:
+                    ids[my, j] = (rng.integers(0, ss // 2), free[tgt].pop(),
+                                  hop)
+        live = int((ids[:, :, 0] >= 0).sum())
+        assert live > k7.ROW_CAPACITY
+        want = ops.psm_transfer([s.clone() for s in slabs], ids,
+                                use_kernel=False)
+        n0 = k7.COUNTER.n
+        ops.psm_transfer(slabs, ids)
+        torch.cuda.synchronize()
+        assert k7.COUNTER.n == n0 + 1 and k7.last_out[7] == 1, rep
+        assert k7.last_out[0] == live
+        for g, w in zip(slabs, want):
+            np.testing.assert_array_equal(bits(g), bits(w))
+
+
+@pytest.mark.cuda
+def test_cuda_psm_refusals_come_from_the_library(card, monkeypatch):
+    """On CUDA slabs every K7 caller reaches the C entry without
+    ``check_rows``: each refusal of the contract is raised by the library
+    with ``check_rows``'s message, before any launch (no launch counted,
+    the slabs untouched), and a row reading the block it writes runs."""
+    from repro_torch.kernels import fused_dispatch as fdm
+    from repro_torch.kernels import psm_transfer as k7
+    slabs = [make_pool(400 + r, (4, 2, 64), torch.float32).cuda()
+             for r in range(4)]
+    t = [(slabs, slabs)]
+    bad = [[[0, 0, 1, 2, 4]], [[0, 5, 1, 2, 1]], [[0, 0, 4, 2, 1]],
+           [[1, 0, 1, 2, 1]], [[0, 0, 1, 2, 1], [0, 2, 3, 2, -1]],
+           [[0, 0, 1, 2, 1], [0, 1, 2, 3, 1]]]
+    messages = []
+    for rows in bad:
+        with pytest.raises(ValueError) as ei:
+            k7.check_rows(t, rows, 0)
+        messages.append(str(ei.value))
+    before = [bits(s) for s in slabs]
+
+    def refuse(*a, **k):
+        raise AssertionError("check_rows ran on the card path")
+
+    for mod in (k7, ops, fdm):
+        if hasattr(mod, "check_rows"):
+            monkeypatch.setattr(mod, "check_rows", refuse)
+    n0 = k7.COUNTER.n
+    for rows, msg in zip(bad, messages):
+        with pytest.raises(ValueError) as ei:
+            ops.psm_transfer_rows(t, rows)
+        assert str(ei.value) == msg
+    torch.cuda.synchronize()
+    assert k7.COUNTER.n == n0
+    for s, b in zip(slabs, before):
+        np.testing.assert_array_equal(bits(s), b)
+    assert ops.psm_transfer_rows(t, [[0, 1, 2, 2, 0]]) == 1
+    torch.cuda.synchronize()
+    assert k7.COUNTER.n == n0 + 1
+
+
 @pytest.mark.cuda
 def test_cuda_mesh_engine_matches_the_plain_mesh_engine(card):
     """An engine over 8 ranks on one card (layer-stacked bf16 pools and a
