@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 9,16,20]
+    python3 chip_smoke.py [--phases 9,16,21]
 
 ``--phases`` runs only the listed phases and those they need (phase 1
 always runs); with no argument every phase runs.
@@ -85,7 +85,8 @@ Phases (each raises on failure; the script then exits non-zero):
 8. Table 1 (``launch/mechanisms.py run``) on a phase-6 pool, m = 8 and 256,
    and Fig. 2 (``launch/applications.py run``) at llama3.2-3b full width
    with phase 5's weights, RowClone off and on (a main path of K1: its
-   launches are counted).
+   launches are counted); its ``checkpoint`` application trains yi-6b
+   reduced for 12 steps with a checkpoint every 3, blocking and async.
 9. K4, the SSD intra-chunk term, against its plain version with bf16 x / B
    / C and fp32 dt / cum as the models pass them: 8 chunk rows of Q = 256
    at mamba2-780m's (H = 48, N = 128) and zamba2-2.7b's (H = 80, N = 64)
@@ -293,6 +294,26 @@ Phases (each raises on failure; the script then exits non-zero):
     (e) with two cards or more, (a) with ranks on distinct cards after
     enabling peer access; with one, ``peer leg: 1 card visible, not
     run``.
+
+21. (run last, every earlier model freed) training (``phase_train``;
+    ``launch/train.py``, ``data/``, ``optim/``, ``LanguageModel.loss_fn``).
+    (a) llama3.2-3b at full width and depth (28 layers, 3.21 B fp32 master
+    parameters from seed 0, bf16 views) for 8 steps of ``make_train_step``
+    with the ``TrainConfig`` that ``train_loop`` builds for 8 steps
+    (warm-up 1), remat ``"minimal"``, ``make_batch`` batches of B = 2 x
+    S = 1,024 (B = 1 if the peak passed 75 GB): the memory reckoning
+    before, ``max_memory_allocated`` after, every loss and grad_norm
+    finite, step 0's loss within [ln V - 1, ln V + 2], lr following
+    ``cosine_schedule``; ms a step (median of steps 2-7), tokens/s, and
+    a profile of one step split into the training attention, the matrix
+    products, the optimizer, the rest and the host gap.  (b) llama3.2-3b
+    and yi-6b reduced, 3 steps on the card and on the CPU from the same
+    weights and batches: losses, grad_norm and the updated weights agree
+    within the stated tolerances.  (c) reduced ``train_loop`` on the
+    card: 20 steps, then a failure at 15 with a checkpoint every 10 and
+    a resume whose losses equal steps 10-19; microbatches 2 against 1;
+    mamba2-780m, zamba2-2.7b and deepseek-moe-16b finite.  No K1-K7
+    launch in the phase.
 
 The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -1826,8 +1847,10 @@ def phase_table1(flat):
 
 
 def phase_fig2(cfg, params):
-    """Phase 8b: Fig. 2 at full width, RowClone off and on.  Returns the
-    launch counts of the run (K1's fused drains)."""
+    """Phase 8b: Fig. 2 at full width, RowClone off and on (the
+    ``checkpoint`` application trains yi-6b reduced on the card, as the
+    reference).  Returns the launch counts of the run (K1's fused
+    drains)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import applications
     for c in ops.KERNEL_COUNTERS.values():
@@ -1850,6 +1873,9 @@ def phase_fig2(cfg, params):
         "migrate: on moves by PSM what off moves through compute":
             by[("migrate", "on")]["bytes_ici"]
             == by[("migrate", "off")]["bytes_compute"] > 0,
+        "checkpoint: 4 checkpoints of yi-6b reduced, blocking off and async"
+        " on": by[("checkpoint", "off")]["checkpoints"]
+            == by[("checkpoint", "on")]["checkpoints"] == 4,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -5181,14 +5207,387 @@ def phase_mesh(scrub, smi: str):
 #: phase groups that ``--phases`` selects, with the phases each needs:
 #: 7-8 run on phase 6's pools, 8's Fig. 2, 15, 17, 18 and 19 on phase 5's
 #: weights
-PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,)}
+# ---------------------------------------------------------------------------
+# phase 21: training (TrainConfig, the data pipeline, AdamW, the loss and the
+# training forward, make_train_step / train_loop with checkpoints)
+# ---------------------------------------------------------------------------
+
+#: (a) llama3.2-3b at full width and depth: the batch, steps, the peak
+#: memory above which the run drops to B = 1
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "llama3.2-3b", 2, 1024, 8
+TRAIN_PEAK_LIMIT = 75e9
+#: (b) card against CPU: the reduced configs, steps, batch
+TRAIN_XDEV_ARCHS, TRAIN_XDEV_STEPS, TRAIN_XDEV_B, TRAIN_XDEV_S = \
+    ("llama3.2-3b", "yi-6b"), 3, 4, 64
+#: (b) the losses are fp32 means of fp32 sums in another order (cuBLAS's
+#: fp32 products against the CPU's; TF32 off): rtol 1e-4; grad_norm, the
+#: norm of bf16 cotangents summed in another order (one bf16 ulp 2^-8):
+#: rtol 1e-2; the weights after the steps: 99.9% within 1e-2 x lr + 1e-6,
+#: every one within 2 lr a step (Adam moves a weight by about lr x sign(g):
+#: a grad within its error of zero may step either way)
+XDEV_LOSS_RTOL, XDEV_GNORM_RTOL = 1e-4, 1e-2
+#: (c) the restart: the resumed losses against steps 10-19 of the run
+#: without a failure, on the same card: rtol 1e-5 (the reference's; the
+#: embedding's backward accumulates with sorted, not atomic, adds)
+RESTART_RTOL = 1e-5
+#: (c) microbatches 2 against 1: rtol 2e-2 (the reference's
+#: tests/test_system.py: the fp32 sums of two halves in another order)
+MICRO_RTOL = 2e-2
+
+#: the profile's categories: ranges chip_smoke opens around the training
+#: attention (the call and every KV-chunk body, recomputations included)
+#: and the optimizer
+TRAIN_RANGES = {"attention": "train.attention", "optimizer": "train.adamw"}
+
+
+def _ranged(fn, label):
+    from torch.profiler import record_function
+
+    def call(*args, **kw):
+        with record_function(label):
+            return fn(*args, **kw)
+    return call
+
+
+class TrainRanges:
+    """Open :data:`TRAIN_RANGES` ranges while in effect: around
+    ``attention_train`` (transformer.py's reference), around each KV-chunk
+    body that models/attention.py checkpoints (so that backward's
+    recomputation is in the range), and around ``apply_updates``."""
+
+    def __enter__(self):
+        from repro_torch.launch import train
+        from repro_torch.models import attention, transformer
+        att, opt = TRAIN_RANGES["attention"], TRAIN_RANGES["optimizer"]
+        ckpt = attention.checkpointed
+        self.saved = [(transformer, "attention_train"),
+                      (attention, "checkpointed"), (train, "apply_updates")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        transformer.attention_train = _ranged(transformer.attention_train,
+                                              att)
+        attention.checkpointed = \
+            lambda fn, *a, **k: ckpt(_ranged(fn, att), *a, **k)
+        train.apply_updates = _ranged(train.apply_updates, opt)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def train_split(events) -> dict:
+    """Split a profiled training step's device time (``events``:
+    ``prof.events()``) by the CPU op that launched each kernel (the op's
+    ``kernels``): the training attention (inside a ``train.attention``
+    range, or the backward of an op that ran inside one, linked by its
+    forward thread and sequence number), the optimizer (inside
+    ``train.adamw``), the matrix products elsewhere (:data:`GEMM_KEYS`)
+    and the rest (elementwise, reductions, copies).  A range's
+    device-side span, linked to it under its own name, is not a kernel;
+    a kernel linked to two events of one correlation id counts once
+    (``repeats`` counts the drops).  Returns us per category."""
+    att, opt = TRAIN_RANGES["attention"], TRAIN_RANGES["optimizer"]
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def ancestors(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    def in_range(e, label):
+        return any(a.name == label for a in ancestors(e))
+
+    ops = [e for e in events if e.device_type != cuda]
+    fwd = {(e.thread, e.sequence_nr) for e in ops
+           if e.sequence_nr >= 0 and "evaluate_function" not in e.name
+           and in_range(e, att)}
+    out = {"attention": 0.0, "optimizer": 0.0, "gemm": 0.0, "other": 0.0,
+           "repeats": 0}
+    seen = set()
+    for e in ops:
+        for k in e.kernels:
+            if k.name == e.name:
+                continue
+            key = (e.id, k.name, k.duration)
+            if key in seen:
+                out["repeats"] += 1
+                continue
+            seen.add(key)
+            if in_range(e, opt):
+                cat = "optimizer"
+            elif in_range(e, att) or any(
+                    "evaluate_function" in a.name
+                    and (a.fwd_thread, a.sequence_nr) in fwd
+                    for a in ancestors(e)):
+                cat = "attention"
+            elif any(g in k.name for g in GEMM_KEYS):
+                cat = "gemm"
+            else:
+                cat = "other"
+            out[cat] += k.duration
+    return out
+
+
+def profile_train_step(step, smi: str, tag: str, step_ms: float) -> None:
+    """One more training step under torch.profiler with
+    :class:`TrainRanges`: wall and device busy ms, idle share (also
+    against ``step_ms``, the unprofiled step: the profiler's own host
+    work stretches the profiled one), the ten largest kernels, and the
+    split (:func:`train_split`) into the training attention, the matrix
+    products, the optimizer, the rest of the device time and the host
+    gap."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with TrainRanges(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # device-side events, less the ranges' spans (ours and autograd's:
+    # a span carries its CPU range's name)
+    ranges = {e.name for e in events if e.device_type != cuda}
+    kernels = {}
+    for e in events:
+        if e.device_type == cuda and e.name not in ranges \
+                and not getattr(e, "is_user_annotation", False):
+            us, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    rows = [(us, n, name) for name, (us, n) in kernels.items()]
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        log(f"{tag} profile: device time not measured (the profiler "
+            "recorded no kernel)")
+        return
+    log(f"{tag} profile of one step: wall {wall_us / 1e3:.2f} ms, device "
+        f"busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}; "
+        f"against the unprofiled median step ({step_ms:.1f} ms) "
+        f"{1 - busy / 1e3 / step_ms:.3f} ({smi})")
+    for dev, count, key in sorted(rows, reverse=True)[:10]:
+        log(f"{tag}   {dev / 1e3:8.3f} ms {count:6d} calls  {key[:90]}")
+    split = train_split(events)
+    cats = ("attention", "gemm", "optimizer", "other")
+    log(f"{tag} split: training attention {split['attention'] / 1e3:.2f} "
+        f"ms, GEMMs {split['gemm'] / 1e3:.2f} ms, optimizer (AdamW, clip) "
+        f"{split['optimizer'] / 1e3:.2f} ms, elementwise and other "
+        f"{split['other'] / 1e3:.2f} ms (sum "
+        f"{sum(split[c] for c in cats) / busy:.3f} of busy, "
+        f"{split['repeats']} repeated kernel records dropped); host gap "
+        f"{(wall_us - busy) / 1e3:.2f} ms under the profiler, "
+        f"{step_ms - busy / 1e3:.2f} ms against the unprofiled step")
+
+
+def _xdev_params_ok(card: dict, cpu: dict, lr_sum: float):
+    """(ok, worst |diff|, share within the tight bound) of the weights
+    after the card-against-CPU steps (see :data:`XDEV_LOSS_RTOL`)."""
+    worst, n_tight, n = 0.0, 0, 0
+    for name, t in card.items():
+        d = (t.detach().cpu() - cpu[name].detach()).abs()
+        worst = max(worst, float(d.max()))
+        n_tight += int((d <= 1e-2 * lr_sum + 1e-6).sum())
+        n += d.numel()
+    share = n_tight / n
+    return worst <= 2 * lr_sum + 1e-6 and share >= 0.999, worst, share
+
+
+def phase_train(smi: str) -> None:
+    """Phase 21: training (see the module docstring)."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.launch.train import (make_train_step, train_loop,
+                                          train_state)
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.runtime import NodeFailure
+    from repro_torch.weights import init_params
+    tag = f"[{TRAIN_ARCH} training]"
+    t_phase = time.perf_counter()
+    c0 = _counts()
+    checks = {}
+    f32 = torch.float32
+
+    # (a) full width and depth -----------------------------------------
+    cfg = get_config(TRAIN_ARCH)
+    # what train_loop builds for an 8-step run
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS,
+                       warmup_steps=max(TRAIN_STEPS // 10, 1))
+    n_par = cfg.param_count()
+    gb = 1e9
+    log(f"{tag} (a) reckoning: {n_par:,} parameters; fp32 masters, grads, "
+        f"m and v 4 x {4 * n_par / gb:.2f} = {16 * n_par / gb:.1f} GB; bf16 "
+        f"views {2 * n_par / gb:.1f} GB; one chunk of logits {TRAIN_B} x 512 "
+        f"x {cfg.padded_vocab:,} x 4 B = "
+        f"{TRAIN_B * 512 * cfg.padded_vocab * 4 / gb:.2f} GB; layer inputs "
+        f"kept {cfg.num_layers} x {TRAIN_B} x {TRAIN_S} x {cfg.d_model} x 2 B"
+        f" = {cfg.num_layers * TRAIN_B * TRAIN_S * cfg.d_model * 2 / gb:.2f}"
+        " GB; predicted peak 62-68 GB")
+    B = TRAIN_B
+    for attempt in (0, 1):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()    # what earlier phases keep
+        model = init_params(cfg, seed=SEED, device="cuda", param_dtype=f32)
+        allocated = torch.cuda.memory_allocated() - held
+        state = train_state(model)
+        step = make_train_step(model, tcfg)
+        batches = [to_device(make_batch(cfg, B, TRAIN_S, i), "cuda")
+                   for i in range(TRAIN_STEPS)]
+        metrics, times = [], []
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated()
+        if peak <= TRAIN_PEAK_LIMIT or B == 1:
+            break
+        log(f"{tag} (a) peak {peak / gb:.2f} GB at B = {B} passes "
+            f"{TRAIN_PEAK_LIMIT / gb:.0f} GB: B = 1")
+        B = 1
+        del model, state, step, batches
+    losses = [m["loss"] for m in metrics]
+    lrs = [m["lr"] for m in metrics]
+    want_lr = [float(cosine_schedule(tcfg, float(i + 1)))
+               for i in range(TRAIN_STEPS)]
+    steady = sorted(times[2:])
+    ms = 1e3 * steady[len(steady) // 2]
+    tokens = B * TRAIN_S
+    ln_v = math.log(cfg.padded_vocab)
+    log(f"{tag} (a) {TRAIN_STEPS} steps at B = {B} x S = {TRAIN_S} "
+        f"({tokens} tokens a step), remat {tcfg.remat_policy!r}: losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"{tag} (a) grad_norm " + " ".join(f"{m['grad_norm']:.3f}"
+                                           for m in metrics)
+        + "; lr " + " ".join(f"{x:.3e}" for x in lrs))
+    log(f"{tag} (a) weights {allocated / gb:.2f} GB allocated for "
+        f"{n_par:,} fp32 parameters; peak torch.cuda.max_memory_allocated "
+        f"{peak / gb:.2f} GB, of which {held / gb:.2f} GB held by earlier "
+        "phases; step ms "
+        + " ".join(f"{1e3 * t:.1f}" for t in times)
+        + f"; median of steps 2-7 {ms:.1f} ms, {tokens / ms * 1e3:.0f} "
+        f"tokens/s ({smi})")
+    checks.update({
+        "(a) every loss and grad_norm finite":
+            all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                for m in metrics),
+        f"(a) step 0's loss within [ln V - 1, ln V + 2] = [{ln_v - 1:.2f}, "
+        f"{ln_v + 2:.2f}]": ln_v - 1 <= losses[0] <= ln_v + 2,
+        "(a) lr follows cosine_schedule":
+            all(abs(a - b) <= 1e-6 * abs(b) for a, b in zip(lrs, want_lr)),
+        f"(a) peak memory under 80 GB ({peak / gb:.2f} GB)": peak < 80e9,
+        "(a) every parameter fp32 and its grads' state on the card":
+            all(p.dtype == f32 and p.is_cuda for p in state.params.values()),
+    })
+    profile_train_step(lambda: step(state, batches[0]), smi, tag, ms)
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+
+    # (b) card against CPU ---------------------------------------------
+    for arch in TRAIN_XDEV_ARCHS:
+        rcfg = get_config(arch).reduced()
+        xcfg = TrainConfig(total_steps=8, warmup_steps=1)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = init_params(rcfg, seed=SEED, device="cpu",
+                                param_dtype=f32).to(dev)
+            state = train_state(model)
+            step = make_train_step(model, xcfg)
+            out = []
+            for i in range(TRAIN_XDEV_STEPS):
+                state, m = step(state, to_device(
+                    make_batch(rcfg, TRAIN_XDEV_B, TRAIN_XDEV_S, i), dev))
+                out.append({k: float(v) for k, v in m.items()})
+            runs[dev] = (out, state.params)
+        (cpu_m, cpu_p), (card_m, card_p) = runs["cpu"], runs["cuda"]
+        lr_sum = sum(m["lr"] for m in cpu_m)
+        p_ok, worst, share = _xdev_params_ok(card_p, cpu_p, lr_sum)
+        loss_ok = all(abs(a["loss"] - b["loss"]) <= XDEV_LOSS_RTOL *
+                      abs(b["loss"]) for a, b in zip(card_m, cpu_m))
+        gn_ok = all(abs(a["grad_norm"] - b["grad_norm"]) <= XDEV_GNORM_RTOL
+                    * b["grad_norm"] for a, b in zip(card_m, cpu_m))
+        log(f"{tag} (b) {arch} reduced, {TRAIN_XDEV_STEPS} steps card / "
+            "CPU: losses " + " ".join(f"{a['loss']:.6f}/{b['loss']:.6f}"
+                                      for a, b in zip(card_m, cpu_m))
+            + "; grad_norm " + " ".join(
+                f"{a['grad_norm']:.5f}/{b['grad_norm']:.5f}"
+                for a, b in zip(card_m, cpu_m))
+            + f"; weights: max |diff| {worst:.3e} (2 x sum lr "
+            f"{2 * lr_sum:.3e}), {share:.5f} within 1e-2 x sum lr + 1e-6")
+        checks[f"(b) {arch}: losses within rtol {XDEV_LOSS_RTOL}"] = loss_ok
+        checks[f"(b) {arch}: grad_norm within rtol {XDEV_GNORM_RTOL}"] = \
+            gn_ok
+        checks[f"(b) {arch}: updated weights agree"] = p_ok
+        del runs, model, state, step
+
+    # (c) restart, microbatches, Mamba2 and moe on the card --------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        loop = dict(batch=2, seq_len=64, smoke=True, device="cuda",
+                    log_every=100)
+        t0 = time.perf_counter()
+        _, ref_losses = train_loop(TRAIN_ARCH, steps=20, **loop)
+        t_ref = time.perf_counter() - t0
+        raised = False
+        try:
+            train_loop(TRAIN_ARCH, steps=20, ckpt_dir=tmp,
+                       inject_failure_at=15, checkpoint_every=10, **loop)
+        except NodeFailure:
+            raised = True
+        _, resumed = train_loop(TRAIN_ARCH, steps=20, ckpt_dir=tmp,
+                                checkpoint_every=10, **loop)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed,
+                                                      ref_losses[10:]))
+        log(f"{tag} (c) restart: 20 steps ({t_ref:.2f} s), failure at 15, "
+            f"resumed from step 10: {len(resumed)} losses, max rel diff "
+            f"{rel:.3e} against steps 10-19 (rtol {RESTART_RTOL})")
+        checks["(c) NodeFailure at step 15, resumed from checkpoint 10"] = \
+            raised and len(resumed) == 10
+        checks[f"(c) resumed losses equal steps 10-19 (rtol "
+               f"{RESTART_RTOL})"] = rel <= RESTART_RTOL
+        _, l1 = train_loop("yi-6b", steps=8, microbatches=1,
+                           **dict(loop, batch=4))
+        _, l2 = train_loop("yi-6b", steps=8, microbatches=2,
+                           **dict(loop, batch=4))
+        rel_mb = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+        log(f"{tag} (c) yi-6b reduced microbatches 2 against 1, 8 steps: "
+            f"max rel diff {rel_mb:.3e} (rtol {MICRO_RTOL})")
+        checks[f"(c) microbatches 2 track 1 (rtol {MICRO_RTOL})"] = \
+            rel_mb <= MICRO_RTOL
+        for arch, seq in (("mamba2-780m", 128), ("zamba2-2.7b", 64),
+                          ("deepseek-moe-16b", 64)):
+            _, ls = train_loop(arch, steps=10, **dict(loop, seq_len=seq))
+            log(f"{tag} (c) {arch} reduced, 10 steps: losses "
+                + " ".join(f"{x:.4f}" for x in ls))
+            checks[f"(c) {arch} losses finite"] = \
+                all(math.isfinite(x) for x in ls)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = {n: c for n, c in _since(c0).items() if c}
+    checks["no K1-K7 launch in training"] = not launched
+    log(f"{tag} kernel launches in phase 21: {launched or 'none'}")
+    log(f"{tag} phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"training checks failed: {failed}")
+
+
+PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,),
+               21: ()}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-20 by default), with
+    """The phases to run for ``--phases`` (all of 2-21 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 21))
+        return set(range(2, 22))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -5325,6 +5724,11 @@ def main(argv=None) -> int:
                             device="cuda")
         paths["zamba2-2.7b admission"] = phase_admission(model)
         del model
+        torch.cuda.empty_cache()
+    if 21 in run:
+        # every earlier model is freed: the 3.2B model's fp32 training
+        # state needs most of the card
+        phase_train(smi)
         torch.cuda.empty_cache()
     kernels = [rows[n] for n in ("fused_dispatch", "paged_attention",
                                  "flash_attention", "fpm_copy",

@@ -51,7 +51,10 @@ def _rebuild(example, leaves) -> Any:
         out = {k: _rebuild(example[k], leaves) for k in sorted(example)}
         return {k: out[k] for k in example}
     if isinstance(example, (list, tuple)):
-        return type(example)(_rebuild(v, leaves) for v in example)
+        items = [_rebuild(v, leaves) for v in example]
+        if hasattr(example, "_fields"):          # a NamedTuple
+            return type(example)(*items)
+        return type(example)(items)
     return next(leaves)
 
 
@@ -73,8 +76,9 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, state, blocking: bool = False) -> None:
-        """Checkpoint ``state`` (a nested dict / list / tuple of tensors
-        and numpy arrays) at ``step``.  Every leaf is copied to the host
+        """Checkpoint ``state`` (a nested dict / list / tuple / NamedTuple
+        of tensors and numpy arrays, e.g. ``launch/train.py TrainState``)
+        at ``step``.  Every leaf is copied to the host
         before this returns; the disk write runs on a background thread
         unless ``async_save`` is off or ``blocking`` is set."""
         self.wait()  # one in-flight save at a time

@@ -7,13 +7,15 @@ qwen2-72b with its QKV bias), the mixture-of-experts decoders it serves
 (paligemma-3b), the attention-free SSD stack (mamba2-780m), the Mamba2 +
 shared-attention hybrid (zamba2-2.7b) and the encoder-decoder
 (seamless-m4t-medium), the last four through
-``LanguageModel.prefill_state`` / ``decode_state``.
+``LanguageModel.prefill_state`` / ``decode_state``; the training
+hyper-parameters :class:`TrainConfig` and the input shapes
+:data:`SHAPES`.
 ``tests/test_torch_contract.py`` pins the copy to the reference."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 VOCAB_PAD_MULTIPLE = 256
 #: the families the serving engine decodes
@@ -189,6 +191,52 @@ class RowCloneConfig:
     zero_blocks_per_slab: int = 1  # reserved zero rows per subarray
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters (the reference's, every field and
+    default).  ``remat_policy`` names a ``models/transformer.py
+    REMAT_POLICIES`` entry; ``sharding`` and ``grad_compress`` choose the
+    mesh's rules and the compressed DP all-reduce, which wait for the mesh
+    (ROADMAP item 12b): on one device they change nothing."""
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    microbatches: int = 1          # gradient accumulation
+    remat_policy: str = "minimal"  # none | minimal | dots
+    sharding: str = "fsdp"         # fsdp | tp
+    grad_compress: bool = False    # int8 error-feedback DP all-reduce
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape of the assigned set (the reference's)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig
+                     ) -> Tuple[bool, str]:
+    """(runnable, reason): long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.has_subquadratic_path:
+        return False, "pure full-attention arch: 500k context skipped per spec"
+    return True, ""
+
+
 _REGISTRY: Dict[str, ModelConfig] = {
     # llama3.2-3b: dense llama3-family decoder, 28L d_model=3072 24H
     # (GQA kv=8) d_ff=8192 vocab=128256, tied embeddings
@@ -275,5 +323,6 @@ def list_archs():
     return sorted(_REGISTRY)
 
 
-__all__ = ["DECODER_FAMILIES", "ModelConfig",
-           "RowCloneConfig", "get_config", "list_archs", "pad_to"]
+__all__ = ["DECODER_FAMILIES", "SHAPES", "ModelConfig", "RowCloneConfig",
+           "ShapeConfig", "TrainConfig", "get_config", "list_archs",
+           "pad_to", "shape_applicable"]

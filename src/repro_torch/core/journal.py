@@ -65,7 +65,8 @@ def from_host(a, dtype: torch.dtype, device) -> torch.Tensor:
     target takes an array of 2-byte items (uint16 bits, or a bfloat16
     array the JAX package wrote) bit for bit; other arrays convert by
     value."""
-    a = np.ascontiguousarray(np.asarray(a))
+    shape = np.shape(a)           # ascontiguousarray makes a 0-d array 1-d
+    a = np.ascontiguousarray(np.asarray(a)).reshape(shape)
     size = torch.empty((), dtype=dtype).element_size()
     if a.dtype.itemsize == size and (dtype in _HOST_BITS
                                      or a.dtype.kind not in "fiub"):

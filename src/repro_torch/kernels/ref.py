@@ -15,6 +15,10 @@ import torch
 from repro_torch.core.opcodes import (BITWISE_OPS, OP_AND, OP_CROSS_POOL_COPY,
                                       OP_OR, OP_ZERO_INIT, PLAIN_COPY_OPS,
                                       opspec)
+# K4's plain version is the model-level intra-chunk term that training runs
+# (the reference's ``_ssd_intra_chunk_jnp``, the oracle of its kernel): one
+# copy, kept in models/
+from repro_torch.models.mamba2 import ssd_intra_chunk
 
 NEG_INF = -1e30
 
@@ -273,26 +277,6 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
     p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     return ((p @ vv) / l.clamp_min(1e-30)).to(q.dtype)
-
-
-def ssd_intra_chunk(xb, dtb, cum, Bb, Cb):
-    """The Mamba2 SSD intra-chunk term (``repro/models/mamba2.py
-    _ssd_intra_chunk_jnp``, the oracle of the TPU kernel
-    ``repro/kernels/ssd_chunk.py``).
-
-    xb (B, Q, H, P); dtb, cum (B, Q, H), ``cum`` the inclusive cumsum of
-    ``dt * A`` within the chunk; Bb, Cb (B, Q, N).  Returns (B, Q, H, P)
-    fp32: ``y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j``.
-    The decay is selected, never multiplied, above the diagonal, where
-    ``cum_i - cum_j > 0`` may overflow."""
-    Q = xb.shape[1]
-    scores = Cb.float() @ Bb.float().transpose(1, 2)             # (B,Qi,Qj)
-    seg = cum.float()[:, :, None, :] - cum.float()[:, None, :, :]
-    mask = torch.ones((Q, Q), dtype=torch.bool, device=xb.device).tril()
-    L = torch.where(mask[None, :, :, None], torch.exp(seg),
-                    torch.zeros_like(seg))                       # (B,Qi,Qj,H)
-    W = scores[..., None] * L * dtb.float()[:, None, :, :]
-    return torch.einsum("bijh,bjhp->bihp", W, xb.float())
 
 
 def ssd_ref(x, dt, A, B_mat, C_mat, D_skip):

@@ -1,20 +1,24 @@
 """Fig. 2 on the card: the application-level effect of RowClone(-ZI), port
-of ``benchmarks/fig2_applications.py`` for three of its four applications,
-each run with RowClone off (baseline copies, materialised zeros) and on
-(FPM + PSM + ZI) through the port's ServingEngine:
+of ``benchmarks/fig2_applications.py``, each application run with
+RowClone off and on:
 
-  forkbench  admit a 48-token prompt, fork it into 4, decode 6 rounds
-             (CoW-heavy: the paper's fork microbenchmark)
-  buz-init   admit 24 sequences of 64 tokens without prefill; with
-             RowClone off every fresh block is zeroed (shell / boot-up
-             zeroing)
-  migrate    home 4 sequences on slab 0, then rebalance the slabs with
-             :mod:`repro_torch.core.migration` (page migration)
+  forkbench   admit a 48-token prompt, fork it into 4, decode 6 rounds
+              (CoW-heavy: the paper's fork microbenchmark)
+  buz-init    admit 24 sequences of 64 tokens without prefill; with
+              RowClone off every fresh block is zeroed (shell / boot-up
+              zeroing)
+  migrate     home 4 sequences on slab 0, then rebalance the slabs with
+              :mod:`repro_torch.core.migration` (page migration)
+  checkpoint  train yi-6b reduced for 12 steps with a checkpoint every 3
+              (``launch/train.py train_loop``): off writes each checkpoint
+              before the next step, on writes it on a background thread
+              (the paper's process checkpointing)
 
-Each row carries the JAX rows' stats fields and ``wall_s``, the host clock
-around the application after ``torch.cuda.synchronize()`` on the card; a
-third row per application is the off / on wall-clock ratio.  The
-``checkpoint`` application needs training, which the port does not have.
+The first three run through the port's ServingEngine, off with baseline
+copies and materialised zeros, on with FPM + PSM + ZI.  Each row carries
+the JAX rows' stats fields and ``wall_s``, the host clock around the
+application after ``torch.cuda.synchronize()`` on the card; a third row
+per application is the off / on wall-clock ratio.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.applications --smoke \\
           --device cpu
@@ -24,6 +28,8 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import shutil
+import tempfile
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -33,6 +39,7 @@ from repro_torch.configs import ModelConfig, RowCloneConfig, get_config
 from repro_torch.core.migration import execute as migrate_execute
 from repro_torch.core.migration import plan_rebalance
 from repro_torch.launch.serve import ServingEngine
+from repro_torch.launch.train import train_loop
 from repro_torch.models.lm import LanguageModel
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.weights import init_params, resolve_device
@@ -111,8 +118,24 @@ def migrate(cfg, params, on: bool, device) -> Dict:
                 bytes_compute=eng.engine.stats.bytes_baseline)
 
 
+def checkpoint(cfg, params, on: bool, device) -> Dict:
+    """Training with a checkpoint every 3 steps into a temporary
+    directory (removed after): asynchronous writes on, blocking off.  It
+    trains its own model (yi-6b reduced, as the reference), not
+    ``cfg`` / ``params``."""
+    d = tempfile.mkdtemp()
+    try:
+        dt = _timed(lambda: train_loop(
+            "yi-6b", steps=12, batch=2, seq_len=64, smoke=True, ckpt_dir=d,
+            checkpoint_every=3, log_every=100, device=device,
+            async_save=on), device)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(wall_s=dt, checkpoints=4)
+
+
 APPS = (("forkbench", forkbench), ("buz-init", buz_init),
-        ("migrate", migrate))
+        ("migrate", migrate), ("checkpoint", checkpoint))
 
 
 def run(cfg: Optional[ModelConfig] = None,

@@ -1,28 +1,130 @@
-"""Prefill attention of the port's models (port of the prefill half of
-``repro/models/attention.py``): the model's ``(B, S, H, D)`` layout
-handed to K3 as ``(B, H, S, D)`` views, without a copy
-(kernels/flash_attention.py reads any 16-byte-aligned strides): a
-decoder's causal self-attention plus the prefix-LM exception, an
-encoder's non-causal self-attention, and an encoder-decoder's
-cross-attention over the encoder's frames.  Decode attention is K2, called
-from models/paged.py."""
+"""Attention of the port's models (port of ``repro/models/attention.py``).
+
+* Prefill: :func:`prefill_attention` hands the model's ``(B, S, H, D)``
+  layout to K3 as ``(B, H, S, D)`` views, without a copy
+  (kernels/flash_attention.py reads any 16-byte-aligned strides): a
+  decoder's causal self-attention plus the prefix-LM exception, an
+  encoder's non-causal self-attention, and an encoder-decoder's
+  cross-attention over the encoder's frames.
+* Training: :func:`attention_train` and :func:`flash_attention`, the
+  reference's model-level online softmax over KV chunks, each chunk's body
+  checkpointed so that backward recomputes its scores instead of keeping
+  O(Sq x Skv) softmax residuals.  The reference trains through this
+  function and never through a Pallas kernel; the port's training forward
+  likewise calls no kernel (``models/transformer.py`` chooses by
+  ``impl=``).
+
+Decode attention is K2, called from models/paged.py.
+"""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models.common import checkpointed
+
+NEG_INF = -1e30
+
+
+class MaskInfo(NamedTuple):
+    """The attention mask pattern.
+
+    causal: the causal LM mask; prefix_len: key positions below it are
+    visible to every query (PaliGemma's prefix-LM), 0 for pure causal.
+    """
+    causal: bool = True
+    prefix_len: int = 0
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True,
                       prefix_len: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, KVH, D) -> (B, Sq, H, D) in
-    q.dtype.  The kernel writes its output in (B, Sq, H, D) order, so the
-    result is contiguous for the o-projection."""
+    q.dtype, through K3.  The kernel writes its output in (B, Sq, H, D)
+    order, so the result is contiguous for the o-projection."""
     out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
                                prefix_len=prefix_len)
     return out.transpose(1, 2)
 
 
-__all__ = ["prefill_attention"]
+def _mask(pos_q: torch.Tensor, pos_kv: torch.Tensor, kv_valid: torch.Tensor,
+          info: MaskInfo) -> torch.Tensor:
+    """pos_q (B, Sq), pos_kv (B, Skv), kv_valid (B, Skv) bool ->
+    (B, Sq, Skv) bool."""
+    m = kv_valid[:, None, :]
+    if info.causal:
+        allowed = pos_q[:, :, None] >= pos_kv[:, None, :]
+        if info.prefix_len:
+            allowed = allowed | (pos_kv < info.prefix_len)[:, None, :]
+        m = m & allowed
+    return m
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pos_q: torch.Tensor, pos_kv: torch.Tensor,
+                    kv_valid: torch.Tensor, info: MaskInfo,
+                    kv_chunk: int = 512) -> torch.Tensor:
+    """Online-softmax attention, memory O(Sq x kv_chunk).
+
+    q (B, Sq, H, D); k, v (B, Skv, KVH, D) with H % KVH == 0; Skv splits
+    into ``max(Skv // kv_chunk, 1)`` equal chunks.  The products are fp32
+    accumulations of the inputs' values (the reference's
+    ``preferred_element_type=float32``), the probabilities are cast to
+    v's dtype before the second.  Returns (B, Sq, H, D) in q.dtype."""
+    B, Sq, H, D = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    group = H // KVH
+    scale = D ** -0.5
+    n_chunks = max(Skv // kv_chunk, 1)
+    kv_chunk = Skv // n_chunks
+    if kv_chunk * n_chunks != Skv:
+        raise ValueError(f"{Skv} keys do not split into {n_chunks} equal "
+                         "chunks")
+    qg = q.reshape(B, Sq, KVH, group, D).float()
+
+    def body(m, l, acc, kb, vb, pb, valid):
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kb.float()) * scale
+        msk = _mask(pos_q, pb, valid, info)                    # (B,Sq,c)
+        s = torch.where(msk[:, :, None, None, :], s,
+                        torch.full((), NEG_INF, device=s.device))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_new = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bqkgc,bckd->bqkgd", p.to(vb.dtype).float(),
+                          vb.float())
+        return m_new, l_new, acc * corr[..., None] + pv
+
+    m = torch.full((B, Sq, KVH, group), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Sq, KVH, group), dtype=torch.float32,
+                    device=q.device)
+    acc = torch.zeros((B, Sq, KVH, group, D), dtype=torch.float32,
+                      device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        m, l, acc = checkpointed(body, m, l, acc, k[:, sl], v[:, sl],
+                                 pos_kv[:, sl], kv_valid[:, sl])
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pos: torch.Tensor, info: MaskInfo, mesh=None,
+                    kv_chunk: int = 512) -> torch.Tensor:
+    """Full-sequence attention for training: q (B, S, H, D), k / v
+    (B, S, KVH, D), pos (B, S), every key valid.  ``mesh`` shards heads
+    or the sequence in the reference; the port trains on one device until
+    the mesh (ROADMAP item 12b)."""
+    if mesh is not None:
+        raise NotImplementedError("sharded training attention needs the "
+                                  "mesh (ROADMAP item 12b)")
+    kv_valid = torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
+    return flash_attention(q, k, v, pos, pos, kv_valid, info, kv_chunk)
+
+
+__all__ = ["MaskInfo", "NEG_INF", "attention_train", "flash_attention",
+           "prefill_attention"]

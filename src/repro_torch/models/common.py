@@ -1,12 +1,13 @@
 """Shared model blocks (port of ``repro/models/common.py``): RMS norm with
-a ``(1 + scale)`` gain, split-half rotary embeddings, the SwiGLU MLP and the
-embedding lookup.  Plain tensor code: the JAX package computed these outside
-any Pallas kernel too.
+a ``(1 + scale)`` gain, split-half rotary embeddings, the SwiGLU MLP, the
+embedding lookup and the sequence-chunked training cross-entropy.  Plain
+tensor code: the JAX package computed these outside any Pallas kernel too.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -53,5 +54,56 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
     return table[tokens].to(dtype)
 
 
+def checkpointed(fn, *args, **kwargs):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: backward recomputes
+    its activations instead of keeping them (the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``; ``context_fn`` narrows
+    it, ``models/transformer.py REMAT_POLICIES``).  The training forward
+    draws no random numbers, so no RNG state is stashed."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
+
+
+def chunked_softmax_xent(x_final: torch.Tensor, w_out: torch.Tensor,
+                         labels: torch.Tensor, mask: torch.Tensor,
+                         chunk: int = 512,
+                         z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean cross-entropy over the masked positions plus ``z_loss`` times
+    the mean squared log-partition, over sequence chunks so that the full
+    fp32 logits never exist at once.  x_final (B, S, D); w_out (D, V);
+    labels / mask (B, S).  S is padded up to a multiple of the chunk count
+    (``max(S // chunk, 1)``; the padding is masked); each chunk's logits
+    are a bf16 x bf16 product read as fp32, and backward recomputes them
+    (the reference's checkpointed scan body)."""
+    B, S, D = x_final.shape
+    n_chunks = max(S // chunk, 1)
+    if S % n_chunks:
+        pad = n_chunks - S % n_chunks
+        x_final = F.pad(x_final, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+        S += pad
+    chunk = S // n_chunks
+    labels = labels.long()
+    mask = mask.float()
+
+    def body(xb, lb, mb):
+        logits = (xb.to(torch.bfloat16) @ w_out.to(torch.bfloat16)).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lb[..., None])[..., 0]
+        return ((lse - gold) * mb).sum(), (lse.square() * mb).sum()
+
+    loss_sum = z_sum = torch.zeros((), dtype=torch.float32,
+                                   device=x_final.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        ce, zl = checkpointed(body, x_final[:, sl], labels[:, sl],
+                              mask[:, sl])
+        loss_sum = loss_sum + ce
+        z_sum = z_sum + zl
+    denom = mask.sum().clamp_min(1.0)
+    return loss_sum / denom + z_loss * z_sum / denom
+
+
 __all__ = ["rms_norm", "rope_frequencies", "apply_rope", "swiglu_mlp",
-           "embed"]
+           "embed", "checkpointed", "chunked_softmax_xent"]

@@ -14,6 +14,11 @@ decodes through one pair (:data:`ENTRY_PAIRS`):
   families, as the reference's ``decode_round`` refuses them; the
   reference's admission drops a vlm prompt's patch positions, so the
   port's engine refuses vlm (``launch/serve.py``).
+
+Every family trains through :meth:`LanguageModel.loss_fn` (the module's
+``forward``): the reference's ``_backbone_train`` and ``loss_fn``, with
+autograd, no kernel and the stacks checkpointed.  The serving pairs run
+under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -24,14 +29,17 @@ from torch import nn
 
 from repro_torch.configs import (DECODER_FAMILIES, ModelConfig,
                                  RowCloneConfig)
-from repro_torch.models.common import embed, rms_norm
+from repro_torch.models.attention import MaskInfo
+from repro_torch.models.common import (checkpointed, chunked_softmax_xent,
+                                       embed, rms_norm)
 from repro_torch.models.mamba2 import (Mamba2Layer, mamba2_decode_step,
                                        mamba2_layer)
 from repro_torch.models.paged import identity_layout
 from repro_torch.models.transformer import (DecoderLayer, attn_block_train,
                                             cross_block_train,
                                             decoder_layer_decode,
-                                            decoder_layer_train)
+                                            decoder_layer_train,
+                                            decoder_stack_train, remat_call)
 
 #: the families each entry pair takes: the engine's pair (``prefill`` /
 #: ``decode_step``) and the facade's (``prefill_state`` / ``decode_state``
@@ -55,16 +63,20 @@ class LanguageModel(nn.Module):
     encdec (``enc_layers``, ``encoder_layers`` decoder layers run without
     the causal mask, and its norm ``enc_norm``).  Build one with
     :func:`repro_torch.weights.init_params` or
-    :func:`repro_torch.weights.from_jax_params`."""
+    :func:`repro_torch.weights.from_jax_params`.  The matrices are in
+    ``param_dtype`` (default the model dtype; fp32 for training, whose
+    forward reads bf16 views of them, ``launch/train.py``), the norm
+    gains, the Mamba2 conv and SSD parameters in fp32."""
 
     def __init__(self, cfg: ModelConfig, device,
-                 rc: RowCloneConfig = RowCloneConfig()):
+                 rc: RowCloneConfig = RowCloneConfig(),
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         self.page = rc.page_size
-        dt = model_dtype(cfg)
+        dt = param_dtype or model_dtype(cfg)
         self.embed = nn.Parameter(
             torch.zeros((cfg.padded_vocab, cfg.d_model), dtype=dt,
                         device=device), requires_grad=False)
@@ -101,6 +113,107 @@ class LanguageModel(nn.Module):
         ``lm.py:94-98`` of the reference); logits come back fp32."""
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return (x.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
+
+    # ------------------------------------------------------------------
+    # training forward (full sequence; the reference's _backbone_train)
+    # ------------------------------------------------------------------
+    def forward(self, batch: Dict[str, torch.Tensor],
+                remat: str = "minimal"
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The module's forward is the training loss (:meth:`loss_fn`)."""
+        return self.loss_fn(batch, remat)
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor],
+                remat: str = "minimal"
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of a ``data.make_batch`` batch on this
+        model's device: ``tokens`` / ``labels`` / ``mask`` (B, S), a vlm's
+        ``patch_embeds`` and an encdec's ``src_embeds``.  Returns (total,
+        {"loss", "aux"}): the masked mean cross-entropy with its z-loss
+        (``common.chunked_softmax_xent``), the moe layers' aux losses
+        summed (0 for the other families), ``total = loss + 1e-2 aux``.
+        ``remat`` names the decoder stack's policy
+        (``transformer.REMAT_POLICIES``).  Differentiable; no kernel runs
+        (the training attention and SSD term are model-level functions)."""
+        cfg = self.cfg
+        x, aux, prefix = self._backbone_train(batch, remat)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        if prefix:
+            x = x[:, prefix:, :]
+        w = self.embed.T if cfg.tie_embeddings else self.lm_head
+        loss = chunked_softmax_xent(x, w, batch["labels"], batch["mask"])
+        total = loss + 1e-2 * aux
+        return total, {"loss": loss, "aux": aux}
+
+    def _backbone_train(self, batch: Dict[str, torch.Tensor], remat: str
+                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """(final hidden (B, S, d) before the final norm, aux loss fp32,
+        the length of the patch prefix to drop before the loss)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed(self.embed, tokens.long(), self.act_dtype)
+        prefix = 0
+        if cfg.family == "vlm":
+            patches = batch["patch_embeds"].to(x.dtype)
+            x = torch.cat([patches, x], dim=1)
+            prefix = patches.shape[1]
+        B, S, _ = x.shape
+        pos = torch.arange(S, device=x.device).expand(B, S)
+        info = MaskInfo(causal=True, prefix_len=prefix)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family in ("dense", "moe", "vlm"):
+            x, aux = decoder_stack_train(self.layers, x, pos, cfg, info,
+                                         remat=remat)
+            return x, aux, prefix
+        if cfg.family == "ssm":
+            return self._mamba_stack_train(x), zero, 0
+        if cfg.family == "hybrid":
+            x, aux = self._hybrid_stack_train(x, pos, info, remat)
+            return x, aux, 0
+        # encdec: the encoder over the source frames, then the decoder
+        # with cross-attention
+        enc = batch["src_embeds"].to(x.dtype)
+        B_e, S_src, _ = enc.shape
+        pos_e = torch.arange(S_src, device=x.device).expand(B_e, S_src)
+        enc, _ = decoder_stack_train(self.enc_layers, enc, pos_e, cfg,
+                                     MaskInfo(causal=False), remat=remat)
+        enc = rms_norm(enc, self.enc_norm, cfg.norm_eps)
+        x, aux = decoder_stack_train(self.layers, x, pos, cfg, info,
+                                     enc_out=enc, remat=remat)
+        return x, aux, 0
+
+    def _mamba_stack_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The ssm stack: every layer checkpointed, whatever the policy
+        (the reference's ``nothing_saveable`` scan body)."""
+        def body(layer, h):
+            return mamba2_layer(layer, h, self.cfg, impl="jax")[0]
+
+        for layer in self.layers:
+            x = checkpointed(body, layer, x)
+        return x
+
+    def _hybrid_stack_train(self, x: torch.Tensor, pos: torch.Tensor,
+                            info: MaskInfo, remat: str
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The hybrid's segments: ``shared_attn_every`` Mamba2 layers then
+        the shared decoder layer, each segment under the remat policy."""
+        cfg = self.cfg
+        k = cfg.shared_attn_every
+
+        def segment(seg, h):
+            for layer in seg:
+                h = mamba2_layer(layer, h, cfg, impl="jax")[0]
+            h, a, _ = decoder_layer_train(self.shared, h, pos, cfg,
+                                          info.prefix_len, info.causal,
+                                          impl="jax")
+            return h, a
+
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for s in range(cfg.num_layers // k):
+            x, a = remat_call(remat, segment, self.layers[s * k:(s + 1) * k],
+                              x)
+            aux = aux + a
+        return x, aux
 
     def _pair_of(self, pair: str, what: str) -> None:
         """Raise unless this model's family takes ``pair`` of

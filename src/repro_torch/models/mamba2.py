@@ -1,11 +1,13 @@
 """Mamba2 / SSD blocks (port of ``repro/models/mamba2.py``): the chunked
 prefill path and the O(1) one-token decode step.
 
-Prefill uses the SSD block decomposition (arXiv:2405.21060 §6): the
-intra-chunk quadratic term is K4 (``ops.ssd_intra_chunk``, one launch per
-layer with the chunks folded into the batch axis) and the inter-chunk
-state recurrence is a plain loop over chunks, as the reference's
-``lax.scan`` is jnp.  Every decay is ``exp`` of a within-chunk cumsum
+Prefill and training use the SSD block decomposition (arXiv:2405.21060
+§6): the intra-chunk quadratic term is K4 for prefill
+(``ops.ssd_intra_chunk``, one launch per layer with the chunks folded into
+the batch axis) and the model-level :func:`ssd_intra_chunk` for training
+(``impl="jax"``, as the reference trains), and the inter-chunk state
+recurrence is a plain loop over chunks, as the reference's ``lax.scan`` is
+jnp.  Every decay is ``exp`` of a within-chunk cumsum
 difference <= 0.  Decode carries ``(conv_state, ssm_state)`` in fp32.
 
 Dtypes follow the reference: the projections run in the activation dtype,
@@ -22,7 +24,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import ModelConfig
-from repro_torch.kernels import ops as kops
 from repro_torch.models.common import rms_norm
 
 
@@ -56,16 +57,49 @@ class Mamba2Layer(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# SSD chunked scan (prefill)
+# SSD chunked scan (prefill and training)
 # ---------------------------------------------------------------------------
 
-def ssd_chunked(x, dt, A, B_mat, C_mat, D_skip, chunk: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+#: the intra-chunk term each ``impl`` runs (the reference's names):
+#: ``"pallas"`` K4, ``"jax"`` the model-level :func:`ssd_intra_chunk`
+SSD_IMPLS = ("pallas", "jax")
+
+
+def ssd_intra_chunk(xb, dtb, cum, Bb, Cb):
+    """The SSD intra-chunk quadratic term (the reference's
+    ``_ssd_intra_chunk_jnp``, K4's plain version).
+
+    xb (B, Q, H, P); dtb, cum (B, Q, H), ``cum`` the inclusive cumsum of
+    ``dt * A`` within the chunk; Bb, Cb (B, Q, N).  Returns (B, Q, H, P)
+    fp32: ``y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j``.
+    The decay is selected, never multiplied, above the diagonal, where
+    ``cum_i - cum_j > 0`` may overflow."""
+    Q = xb.shape[1]
+    scores = Cb.float() @ Bb.float().transpose(1, 2)             # (B,Qi,Qj)
+    seg = cum.float()[:, :, None, :] - cum.float()[:, None, :, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=xb.device).tril()
+    L = torch.where(mask[None, :, :, None], torch.exp(seg),
+                    torch.zeros_like(seg))                       # (B,Qi,Qj,H)
+    W = scores[..., None] * L * dtb.float()[:, None, :, :]
+    return torch.einsum("bijh,bjhp->bihp", W, xb.float())
+
+
+def ssd_chunked(x, dt, A, B_mat, C_mat, D_skip, chunk: int,
+                impl: str = "pallas") -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,H,P); dt (B,S,H) > 0 fp32; A (H,) < 0; B_mat / C_mat (B,S,N);
     D_skip (H,).  Returns y (B,S,H,P) in ``x.dtype`` and the final state
     (B,H,P,N) fp32.  S is padded to a chunk multiple only when S > chunk
     (``dt = 0`` on the padding is a no-op); a shorter S is one ragged
-    chunk."""
+    chunk.  ``impl`` (:data:`SSD_IMPLS`) chooses the intra-chunk term:
+    K4 (prefill) or the model-level function (training); either takes
+    every chunk of every sequence in one call."""
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        intra_fn = kops.ssd_intra_chunk
+    elif impl == "jax":
+        intra_fn = ssd_intra_chunk
+    else:
+        raise ValueError(f"impl {impl!r}: one of {SSD_IMPLS}")
     Bb, S, H, P = x.shape
     N = B_mat.shape[-1]
     S_orig = S
@@ -84,11 +118,10 @@ def ssd_chunked(x, dt, A, B_mat, C_mat, D_skip, chunk: int
     Bc = B_mat.reshape(Bb * nc, Q, N)
     Cc = C_mat.reshape(Bb * nc, Q, N)
     cum = torch.cumsum(dtc * A[None, None, :], dim=1)            # inclusive
-    # the intra-chunk term does not depend on the carried state: one launch
+    # the intra-chunk term does not depend on the carried state: one call
     # for every chunk of every sequence
-    y_intra = kops.ssd_intra_chunk(xc.contiguous(), dtc.contiguous(),
-                                   cum.contiguous(), Bc.contiguous(),
-                                   Cc.contiguous())
+    y_intra = intra_fn(xc.contiguous(), dtc.contiguous(), cum.contiguous(),
+                       Bc.contiguous(), Cc.contiguous())
     y_intra = y_intra.reshape(Bb, nc, Q, H, P)
     cum = cum.reshape(Bb, nc, Q, H)
     xf = x.float().reshape(Bb, nc, Q, H, P)
@@ -149,8 +182,10 @@ def _split_proj(proj, cfg: ModelConfig):
         proj[..., 2 * di + 2 * N:]
 
 
-def mamba2_layer(layer: Mamba2Layer, x, cfg: ModelConfig):
-    """Prefill forward.  x (B,S,d_model).  Returns (x + out, h_final
+def mamba2_layer(layer: Mamba2Layer, x, cfg: ModelConfig,
+                 impl: str = "pallas"):
+    """Full-sequence forward (prefill with K4, training with
+    ``impl="jax"``).  x (B,S,d_model).  Returns (x + out, h_final
     (B,H,P,N) fp32, conv_tail (B,W-1,C) fp32) so prefill can seed decode."""
     B, S, _ = x.shape
     di, N, H, P = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, \
@@ -165,7 +200,7 @@ def mamba2_layer(layer: Mamba2Layer, x, cfg: ModelConfig):
     dt = F.softplus(dt_raw.float() + layer.dt_bias[None, None, :])
     A = -torch.exp(layer.A_log.float())
     y, h_final = ssd_chunked(xs, dt, A, B_mat, C_mat, layer.D.float(),
-                             cfg.ssm_chunk)
+                             cfg.ssm_chunk, impl)
     y = y.reshape(B, S, di)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), layer.gate_norm,
                  cfg.norm_eps)
@@ -210,5 +245,6 @@ def mamba2_decode_step(layer: Mamba2Layer, x, conv_state, ssm_state,
     return x + out, conv_state, ssm_state
 
 
-__all__ = ["Mamba2Layer", "ssd_chunked", "causal_conv1d", "conv_step",
+__all__ = ["Mamba2Layer", "SSD_IMPLS", "ssd_intra_chunk", "ssd_chunked",
+           "causal_conv1d", "conv_step",
            "mamba2_layer", "xbc_tail", "mamba2_decode_step"]

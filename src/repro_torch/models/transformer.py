@@ -5,17 +5,28 @@ block (with the QKV bias where the config sets ``qkv_bias``) + a SwiGLU MLP
 encoder-decoder's decoder layer has a cross-attention block between the two
 (``cross=True``), and its encoder layers are decoder layers run without the
 causal mask.  Weights keep the JAX layout ``(in, out)``, so ``h @ w`` reads
-the same in both packages."""
+the same in both packages.
+
+The full-sequence functions serve prefill (K3, ``impl="pallas"``) and
+training (``impl="jax"``: the model-level attention of models/attention.py
+that the reference trains through); :func:`decoder_stack_train` is the
+training stack, each layer under a remat policy (:data:`REMAT_POLICIES`)."""
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.attention import prefill_attention
-from repro_torch.models.common import apply_rope, rms_norm, swiglu_mlp
+from repro_torch.models.attention import (MaskInfo, attention_train,
+                                         flash_attention, prefill_attention)
+from repro_torch.models.common import (apply_rope, checkpointed, rms_norm,
+                                       swiglu_mlp)
 from repro_torch.models.moe import MoEFFN, moe_ffn_local
 from repro_torch.models.paged import attend_append_local
 
@@ -99,9 +110,26 @@ def _heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, d))
 
 
+#: the attention each full-sequence function runs, by the name its
+#: ``impl`` argument takes (the reference's ``ssd_chunked`` names):
+#: ``"pallas"`` K3 (prefill), ``"jax"`` the model-level online softmax of
+#: models/attention.py (training, as the reference trains)
+ATTENTION_IMPLS = ("pallas", "jax")
+
+
+def _self_attention(q, k, v, pos, prefix_len: int, causal: bool,
+                    impl: str) -> torch.Tensor:
+    if impl == "pallas":
+        return prefill_attention(q, k, v, causal=causal,
+                                 prefix_len=prefix_len)
+    if impl == "jax":
+        return attention_train(q, k, v, pos, MaskInfo(causal, prefix_len))
+    raise ValueError(f"impl {impl!r}: one of {ATTENTION_IMPLS}")
+
+
 def attn_block_train(layer: DecoderLayer, x: torch.Tensor,
                      pos: torch.Tensor, cfg: ModelConfig, prefix_len: int = 0,
-                     causal: bool = True
+                     causal: bool = True, impl: str = "pallas"
                      ) -> Tuple[torch.Tensor,
                                 Tuple[torch.Tensor, torch.Tensor]]:
     """The self-attention block over a full sequence: x (B, S, d), pos
@@ -115,12 +143,13 @@ def attn_block_train(layer: DecoderLayer, x: torch.Tensor,
     k = apply_rope(_heads(k, cfg.num_kv_heads, cfg.head_dim), pos,
                    cfg.rope_theta)
     v = _heads(v, cfg.num_kv_heads, cfg.head_dim)
-    o = prefill_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+    o = _self_attention(q, k, v, pos, prefix_len, causal, impl)
     return x + o.reshape(B, S, cfg.q_dim) @ layer.wo.to(x.dtype), (k, v)
 
 
 def cross_block_train(layer: DecoderLayer, x: torch.Tensor,
-                      enc_out: torch.Tensor, cfg: ModelConfig
+                      enc_out: torch.Tensor, cfg: ModelConfig,
+                      impl: str = "pallas"
                       ) -> Tuple[torch.Tensor,
                                  Tuple[torch.Tensor, torch.Tensor]]:
     """The cross-attention block (the reference's ``cross_block_train``):
@@ -136,24 +165,93 @@ def cross_block_train(layer: DecoderLayer, x: torch.Tensor,
     v = _heads(enc_out @ xa.wv.to(dt), cfg.num_kv_heads, cfg.head_dim)
     # every frame visible to every query: the reference's mask with zero
     # positions and every frame valid
-    o = prefill_attention(q, k, v, causal=False)
+    if impl == "jax":
+        S_src, dev = enc_out.shape[1], x.device
+        o = flash_attention(q, k, v,
+                            torch.zeros((B, S), dtype=torch.long, device=dev),
+                            torch.zeros((B, S_src), dtype=torch.long,
+                                        device=dev),
+                            torch.ones((B, S_src), dtype=torch.bool,
+                                       device=dev),
+                            MaskInfo(causal=False))
+    else:
+        o = _self_attention(q, k, v, None, 0, False, impl)
     return x + o.reshape(B, S, cfg.q_dim) @ xa.wo.to(x.dtype), (k, v)
 
 
 def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
                         pos: torch.Tensor, cfg: ModelConfig,
-                        prefix_len: int = 0, causal: bool = True
+                        prefix_len: int = 0, causal: bool = True,
+                        enc_out: Optional[torch.Tensor] = None,
+                        impl: str = "pallas"
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence layer for prefill: x (B, S, d), pos (B, S); key
-    positions below ``prefix_len`` are visible to every query (the vlm's
-    patch prefix, the reference's ``MaskInfo.prefix_len``);
-    ``causal=False`` makes every position visible to every query (an
-    encoder layer).  Returns the new x, the FFN's aux loss (fp32 scalar, 0
-    for dense) and this layer's post-RoPE (k, v), each (B, S, KVH, D)."""
-    x, kv = attn_block_train(layer, x, pos, cfg, prefix_len, causal)
+    """Full-sequence layer: x (B, S, d), pos (B, S); key positions below
+    ``prefix_len`` are visible to every query (the vlm's patch prefix, the
+    reference's ``MaskInfo.prefix_len``); ``causal=False`` makes every
+    position visible to every query (an encoder layer); with ``enc_out``
+    the cross-attention block runs after the self-attention.  ``impl``
+    chooses the attention (:data:`ATTENTION_IMPLS`: K3 for prefill, the
+    model-level function for training).  Returns the new x, the FFN's
+    aux loss (fp32 scalar, 0 for dense) and this layer's post-RoPE
+    (k, v), each (B, S, KVH, D)."""
+    x, kv = attn_block_train(layer, x, pos, cfg, prefix_len, causal, impl)
+    if enc_out is not None:
+        x, _ = cross_block_train(layer, x, enc_out, cfg, impl)
     x, aux = layer.ffn(x, cfg)
     return x, aux, kv
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy of ``"dots"``: keep the outputs of the
+    matrix products without batch dimensions (a token stream times a
+    weight), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: the reference's remat policies: what a checkpointed layer keeps for
+#: backward, as the ``context_fn`` of ``torch.utils.checkpoint``.
+#: ``"none"`` keeps every activation (no checkpoint), ``"minimal"`` only
+#: the layer's input (the reference's ``nothing_saveable``), ``"dots"`` the
+#: products without batch dimensions (``checkpoint_dots_with_no_batch_
+#: dims``); any other name checkpoints as ``"minimal"``, as the reference's
+#: ``REMAT_POLICIES.get`` then gives no policy
+REMAT_POLICIES = {
+    "none": None,
+    "minimal": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _save_dots),
+}
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)`` under the remat policy named ``remat``."""
+    if remat == "none":
+        return fn(*args)
+    return checkpointed(fn, *args, context_fn=REMAT_POLICIES.get(
+        remat, noop_context_fn))
+
+
+def decoder_stack_train(layers, x: torch.Tensor, pos: torch.Tensor,
+                        cfg: ModelConfig, info: MaskInfo,
+                        enc_out: Optional[torch.Tensor] = None,
+                        remat: str = "minimal"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward of a decoder (or encoder) stack: each layer
+    under the remat policy ``remat``, the training attention
+    (``impl="jax"``).  Returns (x, the layers' aux losses summed)."""
+    def body(layer, h):
+        h, a, _ = decoder_layer_train(layer, h, pos, cfg, info.prefix_len,
+                                      info.causal, enc_out, impl="jax")
+        return h, a
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in layers:
+        x, a = remat_call(remat, body, layer, x)
+        aux = aux + a
+    return x, aux
 
 
 def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
@@ -192,6 +290,7 @@ def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
     return layer.ffn(x[:, None, :], cfg)[0][:, 0]
 
 
-__all__ = ["CrossAttention", "DecoderLayer", "attn_block_train",
-           "cross_block_train", "decoder_layer_train",
-           "decoder_layer_decode"]
+__all__ = ["ATTENTION_IMPLS", "CrossAttention", "DecoderLayer",
+           "REMAT_POLICIES", "attn_block_train", "cross_block_train",
+           "decoder_layer_decode", "decoder_layer_train",
+           "decoder_stack_train", "remat_call"]

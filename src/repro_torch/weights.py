@@ -17,14 +17,19 @@
   ``split_params``, every leaf converted to numpy; layer weights stacked on
   a leading axis, the hybrid's ``shared`` decoder layer unstacked, an
   encdec's ``enc_layers`` stacked and ``enc_norm``) into the port's
-  modules, for the parity tests.
+  modules, for the parity tests; :func:`jax_path` is the correspondence
+  of names it loads through.
+
+Serving holds the matrices in the model dtype; training holds every
+parameter in fp32 (``param_dtype=torch.float32``), the reference's master
+weights.
 
 The JAX layout ``(in, out)`` is kept.
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,10 +54,13 @@ def resolve_device(device) -> torch.device:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
-                rc: RowCloneConfig = RowCloneConfig()) -> LanguageModel:
-    """Random weights made on ``device`` from ``torch.Generator(seed)``."""
+                rc: RowCloneConfig = RowCloneConfig(),
+                param_dtype: Optional[torch.dtype] = None) -> LanguageModel:
+    """Random weights made on ``device`` from ``torch.Generator(seed)``;
+    ``param_dtype=torch.float32`` makes every parameter fp32 (training's
+    master weights), by default the matrices are in the model dtype."""
     device = resolve_device(device)
-    model = LanguageModel(cfg, device, rc)
+    model = LanguageModel(cfg, device, rc, param_dtype=param_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -126,62 +134,57 @@ MAMBA2_PARAMS = ("norm", "w_in", "conv_w", "conv_b", "dt_bias", "A_log", "D",
                  "gate_norm", "w_out")
 
 
+#: the attention projections and biases, held under ``attn`` in the JAX
+#: tree and directly on the port's decoder layer
+_ATTN_PARAMS = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """The JAX tree's path of the port's parameter ``name`` (as
+    ``named_parameters`` gives it) and its index on the tree's stacked
+    layer axis (None for an unstacked leaf): ``layers.3.wq`` is
+    ``("layers", "attn", "wq")`` at 3, a dense layer's ``w_up`` sits under
+    ``mlp``, the hybrid's ``shared.*`` is unstacked; every other name maps
+    one to one (``layers.0.moe.shared.w_gate``, ``layers.1.xattn.wk``, a
+    Mamba2 layer's ``A_log``, ``enc_layers.0.ln1``, ``final_norm``).
+    :func:`from_jax_params` loads through it and the optimizer's decay
+    mask reads the reference's path names through it."""
+    parts = name.split(".")
+    if parts[0] in ("layers", "enc_layers"):
+        top, idx, rest = parts[0], int(parts[1]), parts[2:]
+    elif parts[0] == "shared":
+        top, idx, rest = parts[0], None, parts[1:]
+    else:
+        return tuple(parts), None
+    if rest[0] in _ATTN_PARAMS:
+        rest = ["attn"] + rest
+    elif rest[0] in SWIGLU_PARAMS:
+        rest = ["mlp"] + rest
+    return (top, *rest), idx
+
+
 def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
-                    rc: RowCloneConfig = RowCloneConfig()) -> LanguageModel:
+                    rc: RowCloneConfig = RowCloneConfig(),
+                    param_dtype: Optional[torch.dtype] = None
+                    ) -> LanguageModel:
     """Map the JAX parameter tree (numpy leaves) of a model of any family
-    into a :class:`LanguageModel` on ``device``."""
+    into a :class:`LanguageModel` on ``device``, every parameter through
+    :func:`jax_path`.  ``param_dtype=torch.float32`` keeps the JAX fp32
+    tree exactly (training's master weights); by default the matrices
+    are rounded to the model dtype, as for serving."""
     device = resolve_device(device)
-    model = LanguageModel(cfg, device, rc)
-
-    def put(p: torch.nn.Parameter, a) -> None:
-        t = _to_torch(a)
+    model = LanguageModel(cfg, device, rc, param_dtype=param_dtype)
+    for name, p in model.named_parameters():
+        path, idx = jax_path(name)
+        a = tree
+        for key in path:
+            a = a[key]
+        t = _to_torch(a if idx is None else np.asarray(a)[idx])
         if tuple(t.shape) != tuple(p.shape):
-            raise ValueError(f"shape {tuple(t.shape)} for a parameter of "
-                             f"shape {tuple(p.shape)}")
+            raise ValueError(f"{name}: shape {tuple(t.shape)} for a "
+                             f"parameter of shape {tuple(p.shape)}")
         p.data.copy_(t.to(p.dtype))
-
-    def decoder(layer: DecoderLayer, d: Mapping,
-                i: Optional[int] = None) -> None:
-        at = (lambda a: a) if i is None else (lambda a: a[i])
-        put(layer.ln1, at(d["ln1"]))
-        put(layer.ln2, at(d["ln2"]))
-        attn = ("wq", "wk", "wv", "wo") + \
-            (("bq", "bk", "bv") if cfg.qkv_bias else ())
-        for name in attn:
-            put(getattr(layer, name), at(d["attn"][name]))
-        if hasattr(layer, "xattn"):
-            put(layer.ln_x, at(d["ln_x"]))
-            for name in ("wq", "wk", "wv", "wo"):
-                put(getattr(layer.xattn, name), at(d["xattn"][name]))
-        if cfg.family != "moe":
-            for name in SWIGLU_PARAMS:
-                put(getattr(layer, name), at(d["mlp"][name]))
-            return
-        for name in ("router",) + SWIGLU_PARAMS:
-            put(getattr(layer.moe, name), at(d["moe"][name]))
-        if layer.moe.shared is not None:
-            for name in SWIGLU_PARAMS:
-                put(getattr(layer.moe.shared, name),
-                    at(d["moe"]["shared"][name]))
-
-    put(model.embed, tree["embed"])
-    put(model.final_norm, tree["final_norm"])
-    if not cfg.tie_embeddings:
-        put(model.lm_head, tree["lm_head"])
-    lay = tree["layers"]
-    for i, layer in enumerate(model.layers):
-        if isinstance(layer, DecoderLayer):
-            decoder(layer, lay, i)
-        else:
-            for name in MAMBA2_PARAMS:
-                put(getattr(layer, name), lay[name][i])
-    if cfg.family == "hybrid":
-        decoder(model.shared, tree["shared"])
-    if cfg.family == "encdec":
-        for i, layer in enumerate(model.enc_layers):
-            decoder(layer, tree["enc_layers"], i)
-        put(model.enc_norm, tree["enc_norm"])
     return model
 
 
-__all__ = ["resolve_device", "init_params", "from_jax_params"]
+__all__ = ["resolve_device", "init_params", "from_jax_params", "jax_path"]

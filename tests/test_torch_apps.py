@@ -9,7 +9,8 @@
   llama3.2-3b: every stats field of forkbench, buz-init and migrate equals
   the JAX ``_forkbench`` / ``_buz_init`` / ``_migrate`` result, RowClone
   off and on (wall clocks not compared; the random weights differ and the
-  stats do not depend on them);
+  stats do not depend on them); ``run`` gives every application's rows,
+  the ``checkpoint`` application's training included;
 * the serve CLIs fork at the same point (right after admission), so the
   same arguments give the same RowClone stats.
 """
@@ -24,7 +25,8 @@ import pytest
 
 from test_dispatch_properties import mk_engine
 from test_torch_contract import (assert_same_pools, common_stats,
-                                 journal_rows, port_engine_like)
+                                 journal_rows, one_thread,
+                                 port_engine_like)
 
 import repro.core.migration as jmig
 import repro.launch.serve as jserve
@@ -149,6 +151,7 @@ def test_fig2_stats_match_reference(app, fig2_models):
         assert got == want, (app, on)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_fig2_run_rows(fig2_models):
     _, (cfg, params) = fig2_models
     rows = applications.run(cfg, params, device="cpu")

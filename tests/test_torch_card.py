@@ -1009,3 +1009,88 @@ def test_cuda_mesh_engine_matches_the_plain_mesh_engine(card):
         else:
             assert ran["psm_transfer"] >= 1 and ran["fpm_copy"] >= 1 \
                 and ran["zero_init"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# training (launch/train.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_train_full_width_step_fits_the_card(card):
+    """One training step of llama3.2-3b at full width and depth (fp32
+    masters, grads and moments, bf16 views, B = 2 x S = 1,024): finite,
+    its peak allocation under 80 GB."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.launch.train import make_train_step, train_state
+    from repro_torch.weights import init_params
+    cfg = get_config("llama3.2-3b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, 0, "cuda", param_dtype=torch.float32)
+    step = make_train_step(model, TrainConfig(total_steps=8, warmup_steps=1))
+    state, m = step(train_state(model),
+                    to_device(make_batch(cfg, 2, 1024, 0), "cuda"))
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
+    assert torch.cuda.max_memory_allocated() < 80e9
+    del model, state, step
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_train_steps_on_card_match_cpu(card):
+    """Three steps of llama3.2-3b reduced from the same fp32 weights on the
+    same batches on the card and on the CPU: losses rtol 1e-4, grad_norm
+    rtol 1e-2, weights 99.9% within 1e-2 x lr and all within 2 lr a step
+    (chip_smoke.py phase 21 (b) gives the reasons)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.launch.train import make_train_step, train_state
+    from repro_torch.weights import init_params
+    cfg = get_config("llama3.2-3b").reduced()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = init_params(cfg, 0, "cpu", param_dtype=torch.float32).to(dev)
+        state = train_state(model)
+        step = make_train_step(model, TrainConfig(total_steps=8,
+                                                  warmup_steps=1))
+        ms = []
+        for i in range(3):
+            state, m = step(state, to_device(make_batch(cfg, 4, 64, i), dev))
+            ms.append({k: float(v) for k, v in m.items()})
+        out[dev] = (ms, {n: p.detach().cpu() for n, p in
+                         state.params.items()})
+    (cm, cp), (gm, gp) = out["cpu"], out["cuda"]
+    for a, b in zip(gm, cm):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+        assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-2)
+    lr = sum(m["lr"] for m in cm)
+    diffs = torch.cat([(gp[n] - cp[n]).abs().reshape(-1) for n in cp])
+    assert float(diffs.max()) <= 2 * lr + 1e-6
+    assert float((diffs <= 1e-2 * lr + 1e-6).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "deepseek-moe-16b",
+                                  "paligemma-3b", "mamba2-780m",
+                                  "zamba2-2.7b", "seamless-m4t-medium"])
+def test_training_launches_no_kernel(card, arch):
+    """A training step of each family on the card launches none of K1-K7
+    (the reference trains through no Pallas kernel), and its loss is
+    finite."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.launch.train import make_train_step, train_state
+    from repro_torch.weights import init_params
+    cfg = get_config(arch).reduced()
+    model = init_params(cfg, 0, "cuda", param_dtype=torch.float32)
+    step = make_train_step(model, TrainConfig(total_steps=4, warmup_steps=1))
+    counters = ops.KERNEL_COUNTERS
+    c0 = {n: c.n for n, c in counters.items()}
+    _, m = step(train_state(model),
+                to_device(make_batch(cfg, 2, 64, 0), "cuda"))
+    torch.cuda.synchronize()
+    assert {n: c.n - c0[n] for n, c in counters.items()} == \
+        {n: 0 for n in counters}
+    assert np.isfinite(float(m["loss"]))

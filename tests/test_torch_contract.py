@@ -140,6 +140,20 @@ def common_stats(jeng, teng):
     return {k: j[k] for k in t}, t
 
 
+@pytest.fixture
+def one_thread():
+    """Run the test's torch work on one CPU thread: under ``-n 6`` each
+    worker's default pool (a thread a core) oversubscribes the cores and
+    small training steps run many times slower; the reduced models gain
+    nothing from more threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def jax_and_port_models(arch: str, **overrides):
     """The reduced ``arch`` (with ``overrides``, e.g. ``dtype``) as a JAX
     model with ``init_params(jax.random.key(0))`` and the port's model on
@@ -262,6 +276,19 @@ def test_config_copy_matches_reference():
     rt = dataclasses.asdict(tcfg.RowCloneConfig())
     rj = dataclasses.asdict(jcfg.RowCloneConfig())
     assert rt == {k: rj[k] for k in rt}
+    # the training hyper-parameters and the input shapes, field for field
+    assert dataclasses.asdict(tcfg.TrainConfig()) == \
+        dataclasses.asdict(jcfg.TrainConfig())
+    assert [f.name for f in dataclasses.fields(tcfg.TrainConfig)] == \
+        [f.name for f in dataclasses.fields(jcfg.TrainConfig)]
+    assert sorted(tcfg.SHAPES) == sorted(jcfg.SHAPES)
+    for name, shape in tcfg.SHAPES.items():
+        assert dataclasses.asdict(shape) == \
+            dataclasses.asdict(jcfg.SHAPES[name])
+        for arch in PORTED_ARCHS:
+            assert tcfg.shape_applicable(tcfg.get_config(arch), shape) == \
+                jcfg.shape_applicable(jcfg.get_config(arch),
+                                      jcfg.SHAPES[name]), (arch, name)
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
