@@ -315,6 +315,33 @@ Phases (each raises on failure; the script then exits non-zero):
     mamba2-780m, zamba2-2.7b and deepseek-moe-16b finite.  No K1-K7
     launch in the phase.
 
+22. (run after phase 20, on phase 5's weights) sharded serving over a rank
+    mesh (``phase_mesh_serve``; ``ServingEngine(mesh=)``,
+    ``PagedCoWCache(batch_groups=)``, the mesh branch of
+    ``paged_attend_append`` and ``lse_combine``): llama3.2-3b at full width
+    and depth over 8 ranks of the card ((2, 4) over ``("data", "model")``,
+    ``max_seqs`` 8, 64 blocks a sequence, 4 allocator slabs: 512 blocks of
+    3,670,016 B a pool, slabs of 64 blocks, 2 batch groups, a 64-slot
+    sharded ring).  (a) phase 5's protocol against the single-device
+    engine, each round fed that engine's tokens: the mesh engine's own
+    greedy choice equal at every step except where the single engine's
+    top-1 / top-2 margin is within twice the largest |logit| difference of
+    the two on that step (logged with its position), logits within
+    ``SERVE_RTOL``; at most one ``fused_mesh`` drain a round, K2 28 x 8 a
+    round, K3 28 per admission, every block in its sequence's group, K1
+    and K7 on the path; one layer's 8 partials combined in fp32 against
+    the plain version's one sweep of the gathered pool (``K2_ATOL``); every
+    K2 / K3 call of the admissions and the first round against its plain
+    version (``tapped``).  (b) a cross-group fork (group 0 filled with CoW
+    children): the child in group 1, its copies in the round's single
+    drain with K7, bitwise equal to the parent's blocks.  (c) a replicated
+    3-slot ring for 3 rounds of a 150-token admission: one ``fused_mesh``
+    drain a round, tokens as in (a) against the single-device engine with
+    the same ring.  (d) ms a round of both engines beside the card's name
+    and power limit; one profiled steady round and one profiled round with
+    a second cross-group fork: K2, K1, K7 and the LSE combine's device ms,
+    the host gap, the idle share.
+
 The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
 and power limit, and the device JSON.
@@ -5579,15 +5606,456 @@ def phase_train(smi: str) -> None:
         raise AssertionError(f"training checks failed: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: sharded serving over a rank mesh (ServingEngine(mesh=),
+# PagedCoWCache(batch_groups=), the mesh branch of paged_attend_append)
+# ---------------------------------------------------------------------------
+
+#: phase 22's mesh: 8 ranks on the card, the batch in 2 groups of 4
+MESH_SERVE_SHAPE, MESH_SERVE_AXES = (2, 4), ("data", "model")
+#: (b) the prompts are phase 5's cut to this many tokens (two blocks)
+CROSS_PROMPT = 120
+#: (c) the replicated ring: 3 slots (8 shards do not divide it), prompts
+#: of at most 3 pages, rounds
+REPL_RING, REPL_PROMPT, REPL_ROUNDS = 3, 150, 3
+
+
+class _GreedyWatch:
+    """A ``sample_fn`` that feeds an engine the tokens of another run (the
+    single-device engine's, in the live sequences' order) and records its
+    own greedy choice and the logits it chose from, so the two engines
+    stay on one script and every step is comparable."""
+
+    def __init__(self):
+        self.feed, self.own = iter(()), []
+
+    def round(self, toks: dict):
+        self.feed = iter([toks[s] for s in sorted(toks)])
+        self.own.append([])
+
+    def __call__(self, logits):
+        self.own[-1].append((int(np.argmax(logits)), logits))
+        return next(self.feed)
+
+
+def _compare_greedy(ref_logits, ref_toks, watch, tag: str) -> tuple:
+    """Each step's greedy choice of the mesh engine against the
+    single-device engine's token (``ref_logits``: the logits each round's
+    tokens were chosen from).  A step differs only where the single
+    engine's top-1 / top-2 margin is within twice the largest |logit|
+    difference of the two engines on that step (the only steps where the
+    two can rank the top pair differently); such steps are logged with
+    their position.  Returns (steps, near-tie steps, unexcused steps, max
+    |logit diff|, limit of it)."""
+    steps = ties = bad = 0
+    worst, limit = 0.0, 0.0
+    for rnd, (lg_ref, toks) in enumerate(zip(ref_logits, ref_toks)):
+        for (own, lg), sid in zip(watch.own[rnd], sorted(toks)):
+            ref = lg_ref[sid]
+            diff = float(np.abs(lg - ref).max())
+            worst = max(worst, diff)
+            limit = max(limit, SERVE_RTOL * float(np.abs(ref).max()))
+            steps += 1
+            if own == toks[sid]:
+                continue
+            margin = _top2(ref)
+            if margin <= 2 * diff:
+                ties += 1
+                log(f"{tag} near-tie at round {rnd + 1}, sequence {sid}: "
+                    f"mesh {own} vs single {toks[sid]}, margin {margin:.3e}"
+                    f" <= 2 x |logit diff| {diff:.3e}")
+            else:
+                bad += 1
+                log(f"{tag} DIFFERS at round {rnd + 1}, sequence {sid}: "
+                    f"mesh {own} vs single {toks[sid]}, margin {margin:.3e}"
+                    f" > 2 x |logit diff| {diff:.3e}")
+    return steps, ties, bad, worst, limit
+
+
+def _global_mask(cache) -> np.ndarray:
+    """The share mask of a batch-group cache in GLOBAL columns (slot), the
+    layout one sweep over the whole pool reads."""
+    mask = np.zeros((cache.alloc.num_blocks, cache.max_seqs), np.int8)
+    for sid, seq in cache.seqs.items():
+        mask[seq.blocks, cache.slot_of(sid)] = 1
+    return mask
+
+
+def _profile_mesh_round(step, tag: str) -> dict:
+    """One profiled round of the mesh engine: wall and device busy ms, the
+    idle share, and the device ms of K2, K1, K7 and the LSE combine (the
+    kernels launched inside ``lse_combine``, run in a profiler range)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import paged
+    saved = paged.lse_combine
+
+    def ranged(*args, **kw):
+        with record_function("mesh.lse_combine"):
+            return saved(*args, **kw)
+
+    paged.lse_combine = ranged
+    try:
+        torch.cuda.synchronize()
+        opening = torch.zeros(1, device="cuda")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # the trace can drop its window's first kernel (ROADMAP §3):
+            # open the window with a one-element write
+            opening.add_(1)
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        paged.lse_combine = saved
+    cuda = torch.autograd.DeviceType.CUDA
+    avgs = prof.key_averages()
+    # a range's device-side span carries its CPU range's name (the
+    # engine's "flush" / "drain" spans): not a kernel
+    ranges = {a.key for a in avgs if a.device_type != cuda}
+    rows, combine = [], 0.0
+    for avg in avgs:
+        if avg.key == "mesh.lse_combine":
+            if avg.device_type != cuda:
+                combine += getattr(avg, "device_time_total", 0.0)
+            continue
+        if avg.device_type != cuda or avg.key in ranges:
+            continue
+        dev = getattr(avg, "self_device_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev, avg.count, avg.key))
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        log(f"{tag} (d) device time: not measured (the profiler recorded "
+            "no kernel)")
+        return {}
+
+    def of(key):
+        return sum(r[0] for r in rows if key in r[2]) / 1e3
+
+    out = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+           "idle": 1 - busy / wall_us, "K2_ms": of("paged_attn"),
+           "K1_ms": of("drain_kernel"), "K7_ms": of("psm_kernel"),
+           "combine_ms": combine / 1e3}
+    out["other_ms"] = out["busy_ms"] - out["K2_ms"] - out["K1_ms"] \
+        - out["K7_ms"] - out["combine_ms"]
+    log(f"{tag} (d) one profiled round: wall {out['wall_ms']:.2f} ms, "
+        f"device busy {out['busy_ms']:.2f} ms, idle share "
+        f"{out['idle']:.3f}; K2 {out['K2_ms']:.3f} ms "
+        f"({sum(r[1] for r in rows if 'paged_attn' in r[2])} launches), "
+        f"K1 {out['K1_ms']:.3f} ms, K7 {out['K7_ms']:.3f} ms, LSE combine "
+        f"{out['combine_ms']:.3f} ms (kernels in its range), other device "
+        f"{out['other_ms']:.3f} ms, host gap "
+        f"{out['wall_ms'] - out['busy_ms']:.2f} ms")
+    for dev, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"{tag} (d)   {dev / 1e3:8.3f} ms {count:5d} calls  {key[:90]}")
+    return out
+
+
+def phase_mesh_serve(params, smi: str) -> dict:
+    """Phase 22: ``ServingEngine(mesh=)`` over 8 ranks of the card,
+    llama3.2-3b at full width and depth on phase 5's weights.  Returns the
+    launch counts of the path (the counted run of (a) and the fork round
+    of (b))."""
+    from repro_torch.kernels import fused_dispatch as fd
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import paged
+    tag = "[llama3.2-3b mesh serve]"
+    t_phase = time.perf_counter()
+    cfg = params.cfg
+    L = cfg.num_layers
+    mesh = make_test_mesh(MESH_SERVE_SHAPE, MESH_SERVE_AXES, devices="cuda")
+    n = mesh.size
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(2, cfg.vocab_size, size=k).astype(np.int32)
+               for k in PROMPT_LENS]
+    checks, path = {}, {}
+    events = []
+    hook = lambda n_, p_, mech: events.append(mech)
+
+    def engine(m, **kw):
+        return ServingEngine(cfg, params, max_seqs=MAX_SEQS,
+                             max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, mesh=m,
+                             **kw)
+
+    # (a) phase 5's protocol, the single-device engine first
+    one = engine(None)
+    sids = _admit_all(one, prompts)
+    ref_toks, ref_logits, one_ms = [], [], []
+    for rnd in range(ROUNDS):
+        if rnd == 1:
+            one.fork(sids[0], 2)
+        # the logits each round's tokens come from
+        ref_logits.append({s: lg.copy() for s, lg in one.last_logits.items()})
+        t = time.perf_counter()
+        ref_toks.append(one.decode_round())
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t) * 1e3)
+    del one
+    torch.cuda.empty_cache()
+    eng = engine(mesh)
+    cache = eng.cache
+    ss = eng.engine.num_blocks // n
+    log(f"{tag} card {smi}; {n} ranks on cuda:0 ({MESH_SERVE_SHAPE} over "
+        f"{MESH_SERVE_AXES}); {eng.engine.num_blocks} blocks a pool, slabs "
+        f"of {ss}, {eng.engine._pool_block_bytes('k')} B a block; "
+        f"batch_groups {cache.batch_groups}, mask columns "
+        f"{cache.device_tables()[1].shape[1]}; ring {eng.engine.stage_capacity}"
+        f" slots, hint {eng.engine.group['k_stage'].sharding}")
+    checks["(a) batch_groups == 2, 4 local mask columns, slabs of 64"] = \
+        cache.batch_groups == 2 and \
+        cache.device_tables()[1].shape[1] == MAX_SEQS // 2 and ss == 64
+    watch = _GreedyWatch()
+    c_path = _counts()
+    k3_per, mesh_ms, per_round = [], [], []
+    fd.add_launch_hook(hook)
+    try:
+        msids = []
+        for p in prompts:
+            c0 = _counts()
+            msids.append(eng.add_request(p))
+            k3_per.append(_since(c0)["flash_attention"])
+        for rnd in range(ROUNDS):
+            if rnd == 1:
+                eng.fork(msids[0], 2)
+            watch.round(ref_toks[rnd])
+            e0, c0 = len(events), _counts()
+            t = time.perf_counter()
+            eng.decode_round(sample_fn=watch)
+            torch.cuda.synchronize()
+            mesh_ms.append((time.perf_counter() - t) * 1e3)
+            ran = _since(c0)
+            per_round.append((events[e0:], ran["fused_dispatch"],
+                              ran["psm_transfer"], ran["paged_attention"]))
+    finally:
+        fd.remove_launch_hook(hook)
+    for k, v in _since(c_path).items():
+        path[k] = path.get(k, 0) + v
+    checks["(a) the same sequence ids"] = msids == sids
+    steps, ties, bad, worst, limit = _compare_greedy(ref_logits, ref_toks,
+                                                     watch, tag)
+    checks["(a) greedy tokens equal the single-device engine's (or differ "
+           "at logged near-ties)"] = bad == 0
+    checks["(a) logits within SERVE_RTOL x max |logit| of the single-device "
+           "engine's"] = worst <= limit
+    checks["(a) at most one fused_mesh drain a round"] = all(
+        ev in ([], ["fused_mesh"]) for ev, *_ in per_round)
+    checks[f"(a) K2 == {L} x {n} a round"] = all(
+        k2 == L * n for *_, k2 in per_round)
+    checks[f"(a) K3 == {L} per admission"] = all(k == L for k in k3_per)
+    checks["(a) every block of a sequence lies in its group"] = all(
+        cache.group_of_block(b) == seq.group
+        for seq in cache.seqs.values() for b in seq.blocks)
+    checks["(a) K7 and K1 ran on the path"] = \
+        path.get("psm_transfer", 0) > 0 and path.get("fused_dispatch", 0) > 0
+    steady = lambda xs: float(np.median(xs[2:]))
+    log(f"{tag} (a) admitted {PROMPT_LENS}, forked, {ROUNDS} rounds: "
+        f"{steps} greedy steps, {ties} near-ties, {bad} unexcused; max "
+        f"|logit diff| vs single {worst:.3e} (limit {limit:.3e}); K1 / K7 "
+        f"/ K2 a round {[(k1, k7, k2) for _, k1, k7, k2 in per_round]}; "
+        f"fused_mesh a round {[len(ev) for ev, *_ in per_round]}; K3 per "
+        f"admission {k3_per}; groups "
+        f"{sorted((s, q.group) for s, q in cache.seqs.items())}")
+    log(f"{tag} (d) ms a round (rounds 3-{ROUNDS}, median, host clock, "
+        f"synchronised), {smi}: mesh {steady(mesh_ms):.2f} ms, single "
+        f"device {steady(one_ms):.2f} ms ({steady(mesh_ms) / steady(one_ms):.2f}x)")
+    # the combined attention of one layer against one sweep of the whole
+    # pool (the plain version), on the engine's live tables
+    li = L // 2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    q = torch.randn((MAX_SEQS, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    table, mask, base = cache.device_tables()
+    lens = torch.as_tensor(cache.seq_lens(), device="cuda")
+    none = torch.zeros(0, dtype=torch.long, device="cuda")
+    ks = [s[li] for s in eng.engine.slabs("k")]
+    vs = [s[li] for s in eng.engine.slabs("v")]
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    empty_kv = torch.zeros((MAX_SEQS, kvh, hd), dtype=torch.bfloat16,
+                           device="cuda")
+    combined, saved = [], paged.lse_combine
+
+    def keep(*args, **kw):
+        combined.append(saved(*args, **kw))
+        return combined[-1]
+
+    # the fp32 combine of each group, kept before the output's bf16 cast
+    paged.lse_combine = keep
+    c0 = _counts()
+    try:
+        got = paged.paged_attend_append(
+            mesh, q, empty_kv, empty_kv, ks, vs, [(none, none, none)] * n,
+            mask, base, lens, page=eng.rc.page_size)
+    finally:
+        paged.lse_combine = saved
+    checked = _since(c0)
+    fp32 = torch.cat(combined)
+    whole_k, whole_v = torch.cat(ks), torch.cat(vs)
+    gmask = torch.as_tensor(_global_mask(cache), device="cuda")
+    acc, l, _ = kref.paged_attention_slab(q, whole_k, whole_v, gmask, base,
+                                          lens, page=eng.rc.page_size)
+    want = acc / l.clamp_min(1e-30)[..., None]
+    err = float((fp32 - want).abs().max())
+    checks["(a) one layer's combined attention equals one sweep of the "
+           "gathered pool (plain version)"] = \
+        err <= K2_ATOL and checked["paged_attention"] == n and \
+        len(combined) == cache.batch_groups and \
+        torch.equal(got, fp32.to(got.dtype))
+    log(f"{tag} (a) layer {li}: {n} K2 partials LSE-combined in "
+        f"{len(combined)} groups vs the plain version over the whole pool "
+        f"with global columns, fp32 before the output's bf16 cast: max "
+        f"|diff| {err:.3e} (limit K2_ATOL {K2_ATOL})")
+    prof = _profile_mesh_round(eng.decode_round, tag)
+    checks["(d) the profile saw K2"] = prof.get("K2_ms", 0) > 0
+    del eng, cache, whole_k, whole_v, ks, vs
+    torch.cuda.empty_cache()
+
+    # every K2 / K3 call of the admissions and the first round against its
+    # plain version on the same inputs (a check run, left out of the path)
+    def tapped_path():
+        tap = engine(mesh)
+        _admit_all(tap, prompts)
+        tap.decode_round()
+
+    _, reads = tapped(tapped_path)
+    torch.cuda.empty_cache()
+    calls = {op: r["calls"] for op, r in reads.items()}
+    checks["(a) the first round's per-rank K2 calls and the admissions' K3 "
+           "calls equal their plain versions"] = \
+        calls == {"flash_attention": L * len(prompts),
+                  "paged_attention_slab": L * n} and \
+        all(r["err"] <= r["limit"] for r in reads.values())
+    log(f"{tag} (a) every kernel call vs its plain version: "
+        + _fmt_reads(reads))
+
+    # (b) a cross-group fork: group 0's slots full, the child lands in
+    # group 1 and its blocks are copied across ranks in the round's drain
+    eng = engine(mesh)
+    cache = eng.cache
+    xs = _admit_all(eng, [p[:CROSS_PROMPT] for p in prompts])
+    eng.decode_round()
+    parent = next(s for s in xs if cache.seqs[s].group == 0)
+    # CoW children fill the parent's group (shares, nothing moves)
+    eng.fork(parent, len(cache._free_slots[0]))
+    eng.decode_round()
+    checks["(b) group 0's slots full, group 1's not"] = \
+        not cache._free_slots[0] and bool(cache._free_slots[1])
+    before = cache.seqs[parent].length
+    kid = eng.fork(parent, 1)[0]
+    e0, c0 = len(events), _counts()
+    fd.add_launch_hook(hook)
+    try:
+        eng.decode_round()
+        torch.cuda.synchronize()
+    finally:
+        fd.remove_launch_hook(hook)
+    ran = _since(c0)
+    for k, v in ran.items():
+        path[k] = path.get(k, 0) + v
+    page = eng.rc.page_size
+    same = True
+    for j, (bp, bk) in enumerate(zip(cache.blocks_of(parent),
+                                     cache.blocks_of(kid))):
+        upto = min(page, before - j * page)
+        if upto <= 0:
+            break
+        for name in ("k", "v"):
+            a = eng.engine.block(name, bp)[:, :upto]
+            b = eng.engine.block(name, bk)[:, :upto]
+            same = same and _bitwise_equal(a, b)
+    kid_ranks = sorted({b // ss for b in cache.blocks_of(kid)})
+    par_ranks = sorted({b // ss for b in cache.blocks_of(parent)})
+    checks["(b) the cross-group child lies in group 1"] = \
+        cache.seqs[kid].group == 1 and all(
+            cache.group_of_block(b) == 1 for b in cache.blocks_of(kid))
+    checks["(b) its copies rode the round's single drain with K7"] = \
+        events[e0:] == ["fused_mesh"] and ran["psm_transfer"] > 0
+    checks["(b) the child's blocks equal the parent's, bitwise"] = same
+    log(f"{tag} (b) fork of sequence {parent} (group 0, ranks {par_ranks}) "
+        f"with group 0 full: child {kid} in group "
+        f"{cache.seqs[kid].group} on ranks {kid_ranks}; the round: "
+        f"{events[e0:]}, K7 {ran['psm_transfer']}, K1 "
+        f"{ran['fused_dispatch']}; {before} positions bitwise {same}")
+    # (d) a round with bulk work: another cross-group fork, profiled.  The
+    # counters hold that K7 and K1 ran; the trace may drop a launch
+    # (ROADMAP §3), and then their device ms read "not in the trace"
+    if cache._free_slots[1]:
+        eng.fork(parent, 1)
+        c0 = _counts()
+        bulk = _profile_mesh_round(eng.decode_round, tag + " bulk round")
+        ran = _since(c0)
+        checks["(d) K7 and K1 launched in the profiled bulk round"] = \
+            ran["psm_transfer"] > 0 and ran["fused_dispatch"] > 0
+        lost = [k for k in ("K7_ms", "K1_ms") if not bulk.get(k)]
+        log(f"{tag} bulk round (d) K7 {ran['psm_transfer']} and K1 "
+            f"{ran['fused_dispatch']} launches by the counters; "
+            + (f"{lost} not in the trace" if lost else
+               "both in the trace"))
+    del eng, cache
+    torch.cuda.empty_cache()
+
+    # (c) a replicated 3-slot ring against the single-device engine with
+    # the same ring
+    rprompts = [rng.integers(2, cfg.vocab_size, size=REPL_PROMPT).astype(
+        np.int32) for _ in range(REPL_ROUNDS)]
+    one = engine(None, max_admit_pages=REPL_RING)
+    ref_toks, ref_logits = [], []
+    for p in rprompts:
+        one.add_request(p)
+        ref_logits.append({s: lg.copy() for s, lg in one.last_logits.items()})
+        ref_toks.append(one.decode_round())
+    del one
+    torch.cuda.empty_cache()
+    eng = engine(mesh, max_admit_pages=REPL_RING)
+    watch = _GreedyWatch()
+    rounds = []
+    fd.add_launch_hook(hook)
+    try:
+        for p, toks in zip(rprompts, ref_toks):
+            e0 = len(events)
+            eng.add_request(p)
+            watch.round(toks)
+            eng.decode_round(sample_fn=watch)
+            rounds.append(events[e0:])
+    finally:
+        fd.remove_launch_hook(hook)
+    torch.cuda.synchronize()
+    steps, ties, bad, worst, limit = _compare_greedy(ref_logits, ref_toks,
+                                                     watch, tag)
+    checks["(c) the 3-slot ring is replicated on every rank"] = \
+        eng.engine.group["k_stage"].sharding == () and \
+        len(eng.engine.slabs("k_stage")) == n and \
+        eng.engine.stage_capacity == REPL_RING
+    checks["(c) one fused_mesh drain a round"] = all(
+        r == ["fused_mesh"] for r in rounds)
+    checks["(c) tokens equal the single-device engine's with the same ring "
+           "(or differ at logged near-ties)"] = bad == 0 and worst <= limit
+    log(f"{tag} (c) replicated {REPL_RING}-slot ring, {REPL_ROUNDS} rounds "
+        f"of one {REPL_PROMPT}-token admission: drains {rounds}; {steps} "
+        f"steps, {ties} near-ties, {bad} unexcused, max |logit diff| "
+        f"{worst:.3e} (limit {limit:.3e})")
+    del eng
+    torch.cuda.empty_cache()
+    log(f"{tag} phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh serving checks failed: {failed}")
+    return {"llama3.2-3b mesh serve": path}
+
+
 PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,),
-               21: ()}
+               21: (), 22: (5,)}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-21 by default), with
+    """The phases to run for ``--phases`` (all of 2-22 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 22))
+        return set(range(2, 23))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -5663,6 +6131,9 @@ def main(argv=None) -> int:
         k7_row, mesh_paths = phase_mesh(scrub, smi)
         merge(k7_row)
         paths.update(mesh_paths)
+        torch.cuda.empty_cache()
+    if 22 in run:
+        paths.update(phase_mesh_serve(params, smi))
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()

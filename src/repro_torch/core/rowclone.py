@@ -365,6 +365,37 @@ class RowCloneEngine:
         rank, lb = self._read_at(self.group.index(name), int(b), 0)
         return self._slabs[name][rank].select(ba, lb)
 
+    def write_blocks(self, name: str, ids: Sequence[int],
+                     pages: torch.Tensor) -> None:
+        """Write ``pages`` (pool ``name``'s layout with ``len(ids)`` blocks
+        on the block axis) into its blocks ``ids``, in place and outside
+        the command queue (the serving layer's prefill writes).  Under a
+        mesh each page goes into the slab that holds its block, and into
+        every replica of a replicated pool (:meth:`_write_at`): a write
+        into ``engine.pools[name]`` would land in a gathered copy.
+        Tickets that describe the pool expire."""
+        ba = self.block_axis
+        ids = [int(b) for b in ids]
+        if self._slabs is None:
+            pool = self.pools[name]
+            pool.index_copy_(ba, torch.as_tensor(ids, device=pool.device),
+                             pages.to(pool.device))
+        else:
+            p = self.group.index(name)
+            by_rank: Dict[int, Tuple[List[int], List[int]]] = {}
+            for j, b in enumerate(ids):
+                for rank, lb in self._write_at(p, b):
+                    src, dst = by_rank.setdefault(rank, ([], []))
+                    src.append(j)
+                    dst.append(lb)
+            for rank, (src, dst) in by_rank.items():
+                slab = self._slabs[name][rank]
+                part = pages.index_select(
+                    ba, torch.as_tensor(src, device=pages.device))
+                slab.index_copy_(ba, torch.as_tensor(dst, device=slab.device),
+                                 part.to(slab.device))
+        self.mark_pools_written((name,))
+
     def pool_is_dead(self, name: str) -> bool:
         """Was pool ``name`` killed (:meth:`kill_pool`) and not yet
         recovered?"""

@@ -1,6 +1,7 @@
 """Serving engine: continuous batched greedy decode over a RowClone-managed
-pool (port of ``repro/launch/serve.py`` on one GPU: the dense and moe
-families served, the hybrid and encdec families admitted).
+pool (port of ``repro/launch/serve.py``: the dense and moe families
+served, the hybrid and encdec families admitted, on one device or over a
+rank mesh).
 
 * ``add_request`` runs the prefill (K3 in every layer), writes the prompt's
   KV pages into the staging ring, and enqueues the stage→KV promotion
@@ -33,7 +34,8 @@ the first half's promotions are still queued.  The adaptive ring
 (``adaptive_ring=True``) clamps the ring after :data:`RING_WINDOW` rounds
 of low admission pressure and reopens it on demand.  ``fused_staging=False``
 is the seed's A/B leg: no staging pools, the prefill's pages written
-straight into the K/V pools (:func:`_stage_legacy`), eager CoW work.
+straight into the K/V pools (``RowCloneEngine.write_blocks``), eager CoW
+work.
 
 Fault tolerance: ``ckpt_pages > 0`` adds spill slots for a background
 :class:`~repro_torch.checkpoint.PoolCheckpoint` ticked once per decode
@@ -41,8 +43,19 @@ round; ``fault_plan`` installs a :class:`~repro_torch.runtime.fault
 .FaultPlan` against this engine; ``auto_recover=True`` catches a failed
 round flush, checkpoint tick or admission and runs :meth:`ServingEngine
 .recover` in place.  Admissions a recovery evicts land in
-``evicted_sids`` for the caller to re-admit.  The mesh is not ported (the
-constructor refuses it; ROADMAP queue 1, item 12).
+``evicted_sids`` for the caller to re-admit.
+
+``mesh`` (a :class:`~repro_torch.launch.mesh.DeviceMesh`) holds every pool
+as one slab per rank (ranks may share a device): the pool size rounds up
+to a multiple of the shard count and the allocator's slabs, a ring or
+spill window the shard count does not divide is replicated on every
+rank, the decode batch shards over the mesh's (pod, data) axes into
+``cache.batch_groups`` groups whose sequences keep their blocks in their
+group's slabs, each round's bulk movement drains as one sharded drain (K7
+hops and K1 per rank), and each layer's decode attention runs K2 once per
+rank and LSE-combines the partials (models/paged.py).  The rest of the
+model (QKV, RoPE, FFN, logits) runs whole on the mesh's first device;
+prefill writes reach the slabs through ``RowCloneEngine.write_blocks``.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
@@ -50,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -63,9 +77,10 @@ from repro_torch.core.cow_cache import PagedCoWCache
 from repro_torch.core.journal import RecoveryReport
 from repro_torch.core.rowclone import RowCloneEngine
 from repro_torch.kernels.fused_dispatch import notify_launch
-from repro_torch.kernels.ref import pool_dead
+from repro_torch.launch.mesh import (DeviceMesh, pool_shard_count,
+                                     pool_shard_ranks)
 from repro_torch.models.lm import LanguageModel, kv_to_pools, model_dtype
-from repro_torch.models.paged import make_serving_pools
+from repro_torch.models.paged import batch_shard_count, make_serving_pools
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.autotune import backend_key, load_profile
 from repro_torch.weights import init_params, resolve_device
@@ -93,10 +108,8 @@ DECODE_REFUSAL = ("CLI decode loop demo targets decoder-only archs; other "
 
 #: constructor arguments of the reference that the port does not take yet:
 #: name -> (the reference's default, which means "off", and the ROADMAP
-#: queue item that brings it)
-NOT_PORTED = {
-    "mesh": (None, "ROADMAP queue 1 item 12 (multi-GPU)"),
-}
+#: queue item that brings it); none is left
+NOT_PORTED: Dict[str, Tuple[object, str]] = {}
 
 
 @dataclasses.dataclass
@@ -163,7 +176,8 @@ class ServingEngine:
                  ckpt_pages: int = 0, ckpt_dir: Optional[str] = None,
                  ckpt_window: Optional[int] = None,
                  spill_pages: int = 0, dedup_admit: bool = False,
-                 adaptive_ring: bool = True, device="cuda",
+                 adaptive_ring: bool = True,
+                 mesh: Optional[DeviceMesh] = None, device=None,
                  **not_ported):
         """``max_admit_pages`` sizes the staging ring (``None``: the tuned
         profile's ``ring_capacity`` where one is loaded, else the
@@ -177,9 +191,12 @@ class ServingEngine:
         ``fault_plan`` is installed against this engine; ``auto_recover``
         runs :meth:`recover` when a round's flush, checkpoint tick or
         admission fails.  ``dedup_admit`` and ``adaptive_ring`` apply to
-        fused staging only.  Arguments of :data:`NOT_PORTED` raise
-        ``NotImplementedError`` unless they hold the reference's default
-        (off)."""
+        fused staging only.  ``mesh``: a :class:`DeviceMesh` whose ranks
+        hold the pools' slabs (see the module docstring); the engine's
+        device is then its first shard's, and ``device`` (default
+        ``"cuda"`` without a mesh) must agree.  Arguments of
+        :data:`NOT_PORTED` raise ``NotImplementedError`` unless they hold
+        the reference's default (off)."""
         for name, value in not_ported.items():
             if name not in NOT_PORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -195,18 +212,33 @@ class ServingEngine:
                 f"the serving engine admits the {', '.join(ADMITTED_FAMILIES)}"
                 f" families; {cfg.family!r} has no KV pages to stage and "
                 "decodes through LanguageModel.decode_state")
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh, not "
+                            f"{type(mesh).__name__}")
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None
+                                         else device)
+        else:
+            self.device = resolve_device(
+                mesh.devices[pool_shard_ranks(mesh)[0]])
+            if device is not None and \
+                    resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"shard's {self.device}")
         if params.embed.device.type != self.device.type:
             raise ValueError(f"weights on {params.embed.device}, engine on "
                              f"{self.device}")
         self.cfg = cfg
         self.rc = rc or RowCloneConfig()
+        self.mesh = mesh
         self.model = params
         self.fused_staging = fused_staging
         self.double_buffer = double_buffer
         page = self.rc.page_size
-        nblk = max_seqs * max_blocks_per_seq
-        nblk = -(-nblk // num_slabs) * num_slabs
+        # the pool tiles both the allocator's slabs and the mesh's shards
+        shards = pool_shard_count(mesh)
+        align = math.lcm(num_slabs, shards)
+        nblk = -(-max_seqs * max_blocks_per_seq // align) * align
         if max_admit_pages is None:
             # a tuned ring size applies only without an explicit kwarg
             # (kwarg > profile > the admission policy's derivation)
@@ -222,6 +254,7 @@ class ServingEngine:
             stage_nblk = self.ring_capacity * (2 if double_buffer else 1)
         self.ckpt_pages = int(ckpt_pages)
         self.spill_pages = int(spill_pages)
+        total_spill = self.ckpt_pages + self.spill_pages
         alloc = SubarrayAllocator(
             nblk, num_slabs,
             reserved_zero_per_slab=self.rc.zero_blocks_per_slab)
@@ -230,18 +263,29 @@ class ServingEngine:
         # of a round in one launch.  K1's room (csrc/fused_dispatch.cu
         # kMaxPools = 16, kMaxPackBlocks = 46340) holds it: llama3.2-3b at
         # max_seqs 8 x 64 blocks with a 64-slot ring and 64 spill slots is
-        # 2 x (512 + 64 + 64) = 1,280 blocks
+        # 2 x (512 + 64 + 64) = 1,280 blocks.  Under a mesh a ring or a
+        # spill window that the shard count does not divide is held whole
+        # on every rank instead of rounded up
         pools, group = make_serving_pools(
             cfg.num_attn_layers, nblk, page, cfg.num_kv_heads, cfg.head_dim,
             model_dtype(cfg), self.device, staging=fused_staging,
             stage_nblk=stage_nblk,
-            ckpt_nblk=self.ckpt_pages + self.spill_pages)
+            replicate_staging=stage_nblk % shards != 0,
+            ckpt_nblk=total_spill,
+            replicate_ckpt=total_spill % shards != 0)
         self.engine = RowCloneEngine(
-            pools, alloc, enable_fpm=self.rc.enable_fpm,
+            pools, alloc, mesh=mesh, enable_fpm=self.rc.enable_fpm,
             enable_psm=self.rc.enable_psm, enable_zi=self.rc.enable_zi,
             block_axis=1, group=group)
+        del pools       # under a mesh the engine holds slab copies
+        # shard the decode batch over (pod, data) when the cache can pin
+        # each sequence's blocks inside its group's slabs; otherwise keep
+        # global share-mask columns (a replicated batch)
+        dp = batch_shard_count(mesh, max_seqs)
+        if dp > 1 and (num_slabs % dp or nblk % dp):
+            dp = 1
         self.cache = PagedCoWCache(self.engine, page, max_blocks_per_seq,
-                                   max_seqs)
+                                   max_seqs, batch_groups=dp)
         self.last_logits: Dict[int, np.ndarray] = {}
         self.tokens: Dict[int, List[int]] = {}
         #: per-sequence state outside the pools (:data:`EXTRA_KEYS`)
@@ -323,10 +367,12 @@ class ServingEngine:
                 self.cache.free_sequence(sid)
                 raise
             eng.alloc.mark_written(blocks)
+            # the seed's leg: the prefill's pages straight into the K/V
+            # pools, outside the command queue (the reference's is one jnp
+            # scatter per pool, not a Pallas kernel)
             for name, kv in zip(("k", "v"), pages):
-                _stage_legacy(eng.pools[name], kv, blocks)
+                eng.write_blocks(name, blocks, kv)
                 notify_launch(len(blocks), 1, "legacy_stage")
-            eng.mark_pools_written(("k", "v"))
             return self._admitted(sid, prompt, logits, extras)
         ordinal = self._admission_ordinal
         self._admission_ordinal += 1
@@ -348,14 +394,13 @@ class ServingEngine:
                 # staging pools die under the admission's prefill
                 self.fault_plan.check_admission(ordinal, eng)
             logits, pages, extras = self._prefill(prompt, len(blocks))
-            ids = torch.as_tensor(stage_ids, device=self.device)
+            # out-of-band staging write (into every replica of a
+            # replicated ring): expires older tickets on these pools
             for name, kv in zip(("k_stage", "v_stage"), pages):
-                eng.pools[name].index_copy_(1, ids, kv)
-            # out-of-band staging write: expires older tickets on these pools
-            eng.mark_pools_written(("k_stage", "v_stage"))
+                eng.write_blocks(name, stage_ids, kv)
         except Exception:
             eng.release_stage_blocks(stage_ids)
-            if any(pool_dead(eng.pools[n]) for n in eng.staging):
+            if any(eng.pool_is_dead(n) for n in eng.staging):
                 # the staging ring died: this admission (and any earlier
                 # one whose promotion is queued) lost its staged bytes
                 self.free(sid)
@@ -391,7 +436,7 @@ class ServingEngine:
                                  device=self.device)[None]
         if cfg.family in DECODER_FAMILIES:
             logits, k, v = self.model.prefill(tokens)
-            dtype = self.engine.pools["k"].dtype
+            dtype = self.engine.group["k"].dtype
             return logits, (kv_to_pools(k, page, dtype, n_blocks),
                             kv_to_pools(v, page, dtype, n_blocks)), {}
         extra = {}
@@ -420,8 +465,11 @@ class ServingEngine:
         the surviving (stage slot, block) promotions; matched pages share
         the donor by refcount and their slots return to the ring, and
         unmatched pages register as donors (the registry holds its own
-        refcount on each)."""
-        page = self.cache.page
+        refcount on each).  Under sharded batches a donor is shared only
+        into a sequence of its own batch group."""
+        cache = self.cache
+        group = cache.seqs[sid].group
+        page = cache.page
         new_blocks = list(blocks)
         keep: List[Tuple[int, int]] = []
         released: List[int] = []
@@ -431,7 +479,9 @@ class ServingEngine:
             toks = tuple(int(t) for t in prompt[j * page:(j + 1) * page])
             chain = page_fingerprint(chain, toks)
             hit = self._dedup_registry.get(chain)
-            if hit is not None and hit[1] == toks:
+            if hit is not None and hit[1] == toks and (
+                    cache.batch_groups == 1
+                    or cache.group_of_block(hit[0]) == group):
                 self.engine.alloc.share([hit[0]])
                 new_blocks[j] = hit[0]
                 released.append(stage_ids[j])
@@ -452,7 +502,9 @@ class ServingEngine:
         return keep
 
     def fork(self, sid: int, n: int) -> List[int]:
-        """CoW-fork ``sid`` into ``n`` children (zero bytes move)."""
+        """CoW-fork ``sid`` into ``n`` children (zero bytes move).  The
+        eager cross-group copies of a sharded batch's fork are captured on
+        the serve stream and drain with the round."""
         if self.fused_staging:
             with self.stream.capture():
                 kids = self.cache.fork(sid, n)
@@ -556,11 +608,11 @@ class ServingEngine:
         suffixes re-drain inside the engine call, completing promotions
         that had already dispatched."""
         eng = self.engine
-        staging_dead = any(pool_dead(eng.pools[n]) for n in eng.staging)
+        staging_dead = any(eng.pool_is_dead(n) for n in eng.staging)
         # probe the spill pools BEFORE the engine resurrects them: dead
         # spill pools take every demoted sequence's parked bytes along
         spill_dead = self.spill_pages > 0 and any(
-            pool_dead(eng.pools[s.name]) for s in eng.group
+            eng.pool_is_dead(s.name) for s in eng.group
             if s.role == "spill")
         degraded = None
         if staging_dead and self.double_buffer:
@@ -691,10 +743,12 @@ class ServingEngine:
             toks[slot] = next_tok[sid]
             pos[slot] = self.cache.seqs[sid].length - 1
         eng = self.engine
+        # the appends go into the slabs themselves (under a mesh
+        # ``eng.pools`` would gather a copy)
         logits = self.model.decode_step(
             torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(pos).to(self.device), eng.pools["k"],
-            eng.pools["v"], table, mask, base)
+            torch.from_numpy(pos).to(self.device), eng.slabs("k"),
+            eng.slabs("v"), table, mask, base, mesh=self.mesh)
         # out-of-band decode-step append into the K/V pools
         eng.mark_pools_written(("k", "v"))
         logits = logits.cpu().numpy()
@@ -711,17 +765,6 @@ class ServingEngine:
                     raise
                 self.recover()
         return next_tok
-
-
-def _stage_legacy(pool: torch.Tensor, pages: torch.Tensor,
-                  blocks: List[int]) -> None:
-    """The seed's staging leg (``fused_staging=False``): write the
-    prefill's pages ``(L, len(blocks), page, KVH, D)`` straight into the
-    K/V pool's ``blocks``, in place, outside the command queue (an
-    ``index_copy_``; the reference's is a jnp scatter, not a Pallas
-    kernel)."""
-    ids = torch.as_tensor(blocks, dtype=torch.int64, device=pool.device)
-    pool.index_copy_(1, ids, pages)
 
 
 def main() -> None:

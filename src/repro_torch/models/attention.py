@@ -14,11 +14,12 @@
   likewise calls no kernel (``models/transformer.py`` chooses by
   ``impl=``).
 
-Decode attention is K2, called from models/paged.py.
+Decode attention is K2, called from models/paged.py; under a rank mesh
+its per-rank partials meet in :func:`lse_combine`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -126,5 +127,26 @@ def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention(q, k, v, pos, pos, kv_valid, info, kv_chunk)
 
 
+def lse_combine(accs: Sequence[torch.Tensor], ls: Sequence[torch.Tensor],
+                ms: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    """Combine the flash partials of several ranks (the reference's
+    ``lse_combine``, whose ``pmax`` / ``psum`` run over a mesh axis): per
+    rank acc (B, H, D), l and m (B, H), fp32.  Brings them to ``device``
+    (default the first partial's) and combines in the reference's order:
+    the max of ``m``, ``corr = exp(m - m_g)``, the sums of ``l * corr`` and
+    of ``acc * corr``, then ``acc_g / max(l_g, 1e-30)``.  A rank that sees
+    no position of a row holds ``m = -1e30, l = 0, acc = 0`` there (K2 and
+    its plain version), so its ``corr`` underflows to 0; a row no rank
+    sees comes out 0.  Plain tensor code, not a kernel."""
+    dev = accs[0].device if device is None else device
+    m = torch.stack([x.to(dev) for x in ms])
+    m_g = m.amax(dim=0)
+    corr = torch.exp(m - m_g)
+    l_g = (torch.stack([x.to(dev) for x in ls]) * corr).sum(dim=0)
+    acc_g = (torch.stack([x.to(dev) for x in accs])
+             * corr[..., None]).sum(dim=0)
+    return acc_g / l_g.clamp_min(1e-30)[..., None]
+
+
 __all__ = ["MaskInfo", "NEG_INF", "attention_train", "flash_attention",
-           "prefill_attention"]
+           "lse_combine", "prefill_attention"]

@@ -22,6 +22,7 @@ under ``torch.no_grad``.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -29,12 +30,13 @@ from torch import nn
 
 from repro_torch.configs import (DECODER_FAMILIES, ModelConfig,
                                  RowCloneConfig)
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models.attention import MaskInfo
 from repro_torch.models.common import (checkpointed, chunked_softmax_xent,
                                        embed, rms_norm)
 from repro_torch.models.mamba2 import (Mamba2Layer, mamba2_decode_step,
                                        mamba2_layer)
-from repro_torch.models.paged import identity_layout
+from repro_torch.models.paged import identity_layout, rank_appends
 from repro_torch.models.transformer import (DecoderLayer, attn_block_train,
                                             cross_block_train,
                                             decoder_layer_decode,
@@ -246,23 +248,36 @@ class LanguageModel(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
-                    k_pools: torch.Tensor, v_pools: torch.Tensor,
-                    block_table: torch.Tensor, share_mask: torch.Tensor,
-                    base: torch.Tensor) -> torch.Tensor:
+                    k_pools, v_pools, block_table: torch.Tensor,
+                    share_mask: torch.Tensor, base: torch.Tensor, *,
+                    mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
         """tokens (B,) just sampled, seq_lens (B,) the position of each
         (tokens already in the cache).  Appends every layer's K/V into
-        ``k_pools`` / ``v_pools`` (L, nblk, page, KVH, D) IN PLACE and
-        returns the next-position logits (B, V) fp32."""
+        ``k_pools`` / ``v_pools`` IN PLACE and returns the next-position
+        logits (B, V) fp32.  The pools are (L, nblk, page, KVH, D) tensors,
+        or under a ``mesh`` of more than one rank the per-rank slab lists
+        (``RowCloneEngine.slabs("k")``, each (L, slab, page, KVH, D), in
+        shard order); the block table, share mask (local columns when the
+        batch shards, :func:`~repro_torch.models.paged
+        .paged_attend_append`) and base address the GLOBAL block ids.
+        Everything but the paged attention runs whole on the model's
+        device."""
         self._pair_of("prefill / decode_step", "decode_step")
         cfg, page = self.cfg, self.page
+        ks = list(k_pools) if isinstance(k_pools, (list, tuple)) \
+            else [k_pools]
+        vs = list(v_pools) if isinstance(v_pools, (list, tuple)) \
+            else [v_pools]
         pos = seq_lens.long()
         x = embed(self.embed, tokens, self.act_dtype)
-        rows, ids, offsets = append_slots(pos, block_table, page)
+        appends = rank_appends(*append_slots(pos, block_table, page),
+                               [s.shape[1] for s in ks])
         seq_incl = (pos + 1).to(torch.int32)
         for li, layer in enumerate(self.layers):
-            x = decoder_layer_decode(layer, x, pos, k_pools[li], v_pools[li],
-                                     rows, ids, offsets, share_mask, base,
-                                     seq_incl, cfg, page)
+            x = decoder_layer_decode(layer, x, pos, [s[li] for s in ks],
+                                     [s[li] for s in vs], appends,
+                                     share_mask, base, seq_incl, cfg, page,
+                                     mesh=mesh)
         xn = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self._logits(xn)
 
@@ -270,11 +285,17 @@ class LanguageModel(nn.Module):
     # the facade pair over a serve state (vlm, ssm, hybrid, encdec)
     # ------------------------------------------------------------------
     def make_serve_state(self, batch: int, seq_len: int,
+                         mesh: Optional[DeviceMesh] = None,
                          filled: Optional[int] = None,
                          dtype: Optional[torch.dtype] = None
                          ) -> Dict[str, torch.Tensor]:
         """Zero serve state with the identity block layout (the reference's
-        ``make_serve_state`` on one device).  ``filled``: tokens already
+        ``make_serve_state``).  ``mesh``: the batch shards over its (pod,
+        data) axes when their size divides ``batch`` (``dp``), and the
+        share mask then has the ``batch // dp`` LOCAL columns of
+        :func:`~repro_torch.models.paged.identity_layout`; the pools stay
+        whole (:meth:`decode_state` over slabs is not ported and refuses
+        local columns).  ``filled``: tokens already
         present per sequence (default ``seq_len - 1``).  Keys: ``seq_lens``;
         for vlm, hybrid and encdec ``block_table``, ``share_mask``, ``base``
         and ``k_pools`` / ``v_pools`` (num_attn_layers, nblk, page, KVH, D)
@@ -292,7 +313,12 @@ class LanguageModel(nn.Module):
         state = {"seq_lens": torch.full((batch,), filled, dtype=torch.int32,
                                         device=dev)}
         if cfg.num_attn_layers:
-            table, mask, base = identity_layout(batch, seq_len, page)
+            dp = 1
+            if mesh is not None:
+                dp = math.prod(mesh.axis_size(a) for a in ("pod", "data")
+                               if a in mesh.axis_names)
+                dp = 1 if batch % dp else dp
+            table, mask, base = identity_layout(batch, seq_len, page, dp)
             state["block_table"] = torch.from_numpy(table).to(dev)
             state["share_mask"] = torch.from_numpy(mask).to(dev)
             state["base"] = torch.from_numpy(base).to(dev)
@@ -427,16 +453,22 @@ class LanguageModel(nn.Module):
         pos = state["seq_lens"].long()
         seq_incl = (pos + 1).to(torch.int32)
         if cfg.num_attn_layers:
-            rows, ids, offsets = append_slots(pos, state["block_table"], page)
+            B = tokens.shape[0]
+            if state["share_mask"].shape[1] != B:
+                raise NotImplementedError(
+                    f"a share mask of {state['share_mask'].shape[1]} local "
+                    f"columns for {B} sequences needs decode_state(mesh=) "
+                    "over slabs, which is not ported (ROADMAP item 12b)")
+            appends = [append_slots(pos, state["block_table"], page)]
 
         def attend(layer: DecoderLayer, x: torch.Tensor,
                    i: int) -> torch.Tensor:
             cross = (state["cross_k"][i], state["cross_v"][i]) \
                 if cfg.family == "encdec" else None
             return decoder_layer_decode(
-                layer, x, pos, state["k_pools"][i], state["v_pools"][i],
-                rows, ids, offsets, state["share_mask"], state["base"],
-                seq_incl, cfg, page, cross_kv=cross)
+                layer, x, pos, [state["k_pools"][i]], [state["v_pools"][i]],
+                appends, state["share_mask"], state["base"], seq_incl, cfg,
+                page, cross_kv=cross)
 
         x = embed(self.embed, tokens, self.act_dtype)
         if cfg.family in ("vlm", "encdec"):

@@ -14,7 +14,7 @@ training stack, each layer under a remat policy (:data:`REMAT_POLICIES`)."""
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -23,12 +23,13 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     noop_context_fn)
 
 from repro_torch.configs import ModelConfig
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models.attention import (MaskInfo, attention_train,
                                          flash_attention, prefill_attention)
 from repro_torch.models.common import (apply_rope, checkpointed, rms_norm,
                                        swiglu_mlp)
 from repro_torch.models.moe import MoEFFN, moe_ffn_local
-from repro_torch.models.paged import attend_append_local
+from repro_torch.models.paged import paged_attend_append
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -255,20 +256,24 @@ def decoder_stack_train(layers, x: torch.Tensor, pos: torch.Tensor,
 
 
 def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
-                         pos: torch.Tensor, k_slab: torch.Tensor,
-                         v_slab: torch.Tensor, rows: torch.Tensor,
-                         blk_ids: torch.Tensor, offsets: torch.Tensor,
+                         pos: torch.Tensor, k_slabs: Sequence[torch.Tensor],
+                         v_slabs: Sequence[torch.Tensor], appends,
                          share_mask: torch.Tensor,
                          base: torch.Tensor, seq_lens_incl: torch.Tensor,
                          cfg: ModelConfig, page: int,
                          cross_kv: Optional[Tuple[torch.Tensor,
-                                                  torch.Tensor]] = None
+                                                  torch.Tensor]] = None,
+                         mesh: Optional[DeviceMesh] = None
                          ) -> torch.Tensor:
     """One token per sequence: x (B, d), pos (B,).  Appends this layer's
-    new K/V into ``k_slab`` / ``v_slab`` IN PLACE and attends over them;
-    with ``cross_kv`` = (k, v), each (B, S_src, KVH, D), the token then
-    attends over the encoder's frames (no RoPE, every frame visible).
-    The FFN sees (B, 1, d): a moe layer routes each sequence alone."""
+    new K/V into its slabs IN PLACE and attends over them
+    (:func:`~repro_torch.models.paged.paged_attend_append`: ``k_slabs`` /
+    ``v_slabs`` this layer's slab on each rank of ``mesh``, one whole pool
+    without one; ``appends`` from ``rank_appends``); with ``cross_kv`` =
+    (k, v), each (B, S_src, KVH, D), the token then attends over the
+    encoder's frames (no RoPE, every frame visible).  The rest of the
+    layer runs whole on x's device.  The FFN sees (B, 1, d): a moe layer
+    routes each sequence alone."""
     B, _ = x.shape
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     q, k, v = layer.qkv(h[:, None, :])
@@ -277,7 +282,7 @@ def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
     k = apply_rope(_heads(k, cfg.num_kv_heads, cfg.head_dim), pos[:, None],
                    cfg.rope_theta)[:, 0]
     v = _heads(v, cfg.num_kv_heads, cfg.head_dim)[:, 0]
-    o = attend_append_local(q, k, v, k_slab, v_slab, rows, blk_ids, offsets,
+    o = paged_attend_append(mesh, q, k, v, k_slabs, v_slabs, appends,
                             share_mask, base, seq_lens_incl, page=page)
     x = x + o.reshape(B, cfg.q_dim) @ layer.wo.to(x.dtype)
     if cross_kv is not None:

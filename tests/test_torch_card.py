@@ -1011,6 +1011,81 @@ def test_cuda_mesh_engine_matches_the_plain_mesh_engine(card):
                 and ran["zero_init"] >= 1
 
 
+@pytest.mark.cuda
+def test_cuda_mesh_serving_matches_cpu_ranks(card):
+    """``ServingEngine(mesh=)`` over 8 ranks of the card ((2, 4) over
+    ``("data", "model")``, 2 batch groups) against the same engine over 8
+    CPU ranks and the single-device engine on the card, llama3.2-3b at
+    full width cut to 2 layers: 3 prompts, a round, a fork, 2 rounds, each
+    round fed the CPU engine's greedy tokens.  On the card every round
+    drains in at most one ``fused_mesh`` dispatch and launches K2 once per
+    rank and layer; the block tables equal the CPU engine's and the logits
+    agree within 5e-2 x max |logit| (bf16 GEMMs on two machines); the
+    pages that no attention output feeds (every prompt position, and
+    layer 0 everywhere) equal the single-device engine's bitwise, moved
+    there through K1 and K7.  The CPU and card pools cannot agree bitwise:
+    their GEMMs sum in other orders."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.weights import init_params
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), num_layers=2)
+    cpu_model = init_params(cfg, 0, "cpu")
+    card_model = init_params(cfg, 0, "cpu").to("cuda")
+    kw = dict(max_seqs=8, max_blocks_per_seq=4, num_slabs=4)
+    engines = {
+        "cpu": ServingEngine(cfg, cpu_model, mesh=make_test_mesh(
+            (2, 4), ("data", "model"), devices="cpu"), **kw),
+        "card": ServingEngine(cfg, card_model, mesh=make_test_mesh(
+            (2, 4), ("data", "model"), devices="cuda"), **kw),
+        "one": ServingEngine(cfg, card_model, device="cuda", **kw)}
+    assert engines["card"].cache.batch_groups == 2
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=24).astype(np.int32)
+               for _ in range(3)]
+    sids = {n: [e.add_request(p) for p in prompts]
+            for n, e in engines.items()}
+    assert sids["cpu"] == sids["card"] == sids["one"]
+    mechs = []
+    hook = lambda n, p, m: mechs.append(m)
+    k2 = ops.KERNEL_COUNTERS["paged_attention"]
+    for rnd in range(3):
+        if rnd == 1:
+            for e in engines.values():
+                e.fork(sids["cpu"][0], 1)
+        toks = engines["cpu"].decode_round()
+        for n in ("card", "one"):
+            order = iter([toks[s] for s in sorted(toks)])
+            m0, c0 = len(mechs), k2.n
+            fd.add_launch_hook(hook)
+            try:
+                assert engines[n].decode_round(
+                    sample_fn=lambda _: next(order)) == toks
+            finally:
+                fd.remove_launch_hook(hook)
+            torch.cuda.synchronize()
+            if n == "card":
+                assert mechs[m0:] in ([], ["fused_mesh"]), mechs[m0:]
+                assert k2.n - c0 == cfg.num_layers * 8
+    cpu, card, one = (engines[n] for n in ("cpu", "card", "one"))
+    for s in cpu.cache.seqs:
+        assert card.cache.blocks_of(s) == cpu.cache.blocks_of(s)
+        scale = float(np.abs(cpu.last_logits[s]).max())
+        for other in (cpu, one):
+            assert float(np.abs(card.last_logits[s]
+                                - other.last_logits[s]).max()) \
+                <= 5e-2 * scale
+        ss = card.engine.num_blocks // 8
+        for bm, b1 in zip(card.cache.blocks_of(s), one.cache.blocks_of(s)):
+            for name in ("k", "v"):
+                got = card.engine.slabs(name)[bm // ss][:, bm % ss]
+                want = one.engine.block(name, b1)
+                np.testing.assert_array_equal(bits(got[0]), bits(want[0]))
+                np.testing.assert_array_equal(bits(got[1, :24]),
+                                              bits(want[1, :24]))
+
+
 # ---------------------------------------------------------------------------
 # training (launch/train.py)
 # ---------------------------------------------------------------------------

@@ -182,9 +182,9 @@ def test_decode_cross_path_matches_reference(encdec):
         cross_kv=(jnp.asarray(xk), jnp.asarray(xv)))
     kt, vt = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
     post = torch.from_numpy(pos).long()
+    appends = [(torch.arange(B), torch.from_numpy(ids).long(), post % page)]
     xt = ttfm.decoder_layer_decode(
-        tmodel.layers[1], torch.from_numpy(x), post, kt, vt,
-        torch.arange(B), torch.from_numpy(ids).long(), post % page,
+        tmodel.layers[1], torch.from_numpy(x), post, [kt], [vt], appends,
         torch.from_numpy(mask), torch.from_numpy(base),
         torch.from_numpy(pos + 1), cfg, page,
         cross_kv=(torch.from_numpy(xk), torch.from_numpy(xv)))
@@ -194,9 +194,8 @@ def test_decode_cross_path_matches_reference(encdec):
     np.testing.assert_allclose(vt.numpy(), np.asarray(vj), atol=KV_ATOL)
     # without the cross K/V the layer is another function
     xt0 = ttfm.decoder_layer_decode(
-        tmodel.layers[1], torch.from_numpy(x), post, kt.clone(), vt.clone(),
-        torch.arange(B), torch.from_numpy(ids).long(), post % page,
-        torch.from_numpy(mask), torch.from_numpy(base),
+        tmodel.layers[1], torch.from_numpy(x), post, [kt.clone()],
+        [vt.clone()], appends, torch.from_numpy(mask), torch.from_numpy(base),
         torch.from_numpy(pos + 1), cfg, page)
     assert float((xt0 - xt).abs().max()) > 1e-3
 

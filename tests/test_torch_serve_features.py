@@ -811,21 +811,28 @@ def test_reference_failing_test_is_a_prefill_near_tie(served):
     (dict(ckpt_window=2), "item 9"),
 ])
 def test_unported_arguments_raise(served, kw, item, tmp_path):
-    """The mesh argument raises NotImplementedError naming its ROADMAP
-    queue item (12) and its default (off) is accepted.  The
-    fault-tolerance arguments item 9 brought are no longer refused: each
-    builds, or raises, as the JAX engine does with it (``ckpt_pages``
-    without ``ckpt_dir`` raises ValueError in both; ``fault_plan`` is each
-    package's own ``FaultPlan``)."""
+    """The arguments ROADMAP items 9 and 12 brought are no longer refused.
+    ``mesh`` (item 12) has left ``NOT_PORTED``: a non-mesh raises
+    TypeError, a ``DeviceMesh`` builds an engine over its ranks, and the
+    default (off) builds one on the device.  The fault-tolerance
+    arguments of item 9 each build, or raise, as the JAX engine does with
+    them (``ckpt_pages`` without ``ckpt_dir`` raises ValueError in both;
+    ``fault_plan`` is each package's own ``FaultPlan``)."""
     jcfg, params, cfg, tmodel = served
     name = next(iter(kw))
     if item == "item 12":
-        with pytest.raises(NotImplementedError, match=item):
+        from repro_torch.launch.mesh import make_test_mesh
+        assert name not in tserve.NOT_PORTED
+        with pytest.raises(TypeError, match="DeviceMesh"):
             ServingEngine(cfg, tmodel, max_seqs=2, max_blocks_per_seq=2,
                           device="cpu", **kw)
-        off = {k: tserve.NOT_PORTED[k][0] for k in kw}
-        ServingEngine(cfg, tmodel, max_seqs=2, max_blocks_per_seq=2,
-                      device="cpu", **off)
+        mesh = make_test_mesh((2, 2), ("data", "model"), devices="cpu")
+        eng = ServingEngine(cfg, tmodel, max_seqs=2, max_blocks_per_seq=2,
+                            mesh=mesh)
+        assert eng.engine.n_shards == 4 and eng.cache.batch_groups == 2
+        eng = ServingEngine(cfg, tmodel, max_seqs=2, max_blocks_per_seq=2,
+                            device="cpu", mesh=None)
+        assert eng.engine.n_shards == 1
     else:
         import repro.runtime.fault as jfault
         import repro_torch.runtime.fault as tfault
