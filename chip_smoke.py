@@ -342,6 +342,30 @@ Phases (each raises on failure; the script then exits non-zero):
     a second cross-group fork: K2, K1, K7 and the LSE combine's device ms,
     the host gap, the idle share.
 
+23. (run after phase 16, every earlier model freed) the model layer over a
+    rank mesh (``phase_mesh_model``; ``prefill_state(mesh=)`` /
+    ``decode_state(mesh=)`` over per-rank slabs, ``moe_ffn``'s mesh
+    paths).  (a) paligemma-3b, zamba2-2.7b and seamless-m4t-medium at full
+    width and depth over 8 ranks of the card ((2, 4) over ``("data",
+    "model")``), B = 4 so the share mask has 2 local columns: 4 x (256
+    patches + 128), 4 x 384 and 4 x 512 over 128 frames, 128 tokens of
+    decode room (the block count a multiple of 8), the prefill and 16
+    decode steps fed the single-device facade's greedy tokens.  K3 (and
+    K4) per prefill as phases 11, 14 and 16, K2 == attention layers x 8 a
+    step (144 / 72 / 96), logits within ``SERVE_RTOL`` of the
+    single-device facade's in the same call (argmax mismatches printed
+    with their top-1 / top-2 margin), every K2 / K3 / K4 call of the
+    prefill and the first step against its plain version (``tapped``), ms
+    a step on the mesh and on one device, one profiled step.  (b)
+    deepseek-moe-16b at full width and depth in ``ServingEngine(mesh=)``
+    over ``("model",)`` 8 (8 experts a rank): admissions of 96, 384, 250
+    and 512 tokens, each FFN on the all-to-all path exactly where 8
+    divides the length (``moe.PATH_COUNTS``), 8 rounds with K2 == 28 x 8;
+    then layer 14's ``moe_ffn_a2a`` on the 384-token admission's captured
+    input over the 8 card ranks against 8 CPU ranks: every rank's kept
+    routes equal, the output within the bf16 tolerance, and the rows where
+    ``moe_ffn_local`` differs counted.
+
 The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
 and power limit, and the device JSON.
@@ -6047,15 +6071,392 @@ def phase_mesh_serve(params, smi: str) -> dict:
     return {"llama3.2-3b mesh serve": path}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the model layer over a rank mesh (prefill_state / decode_state
+# over slabs for vlm, hybrid and encdec; moe_ffn's all-to-all in a mesh
+# engine)
+# ---------------------------------------------------------------------------
+
+#: (a) the facade legs: arch -> (text tokens a prompt, whether it takes
+#: patches, source frames); B = 4 over (2, 4) ranks of ("data", "model")
+FACADE_MESH_LEGS = (("paligemma-3b", VLM_TEXT), ("zamba2-2.7b", SSM_PROMPT),
+                    ("seamless-m4t-medium", ENC_TEXT))
+FACADE_MESH_B, FACADE_MESH_STEPS = 4, 16
+#: decode room past the prompt: 128 tokens keeps the 4 sequences' block
+#: count a multiple of the 8 ranks (the reference's shard_map condition)
+FACADE_MARGIN = 128
+#: (b) deepseek-moe-16b over ("model",) 8: the admissions (the all-to-all
+#: where 8 divides the length, else the local path) and the rounds
+MOE_MESH_RANKS, MOE_MESH_LENS, MOE_MESH_ROUNDS = 8, (96, 384, 250, 512), 8
+#: (b) the captured layer of the 384-token admission
+MOE_CAPTURE_LEN, MOE_CAPTURE_LAYER = 384, 14
+#: (b) decode rounds of deepseek over ("data",) 8 (the FSDP path: one
+#: local FFN a batch row and layer) and on one device, the same prompts
+MOE_DATA_ROUNDS = 4
+#: (b) card against CPU outputs of one bf16 moe layer: the moe tests' bf16
+#: tolerance (tests/test_torch_moe.py DTYPES)
+MOE_BF16_ATOL, MOE_BF16_RTOL = 2e-2, 2.0 ** -7
+
+
+def _facade_inputs(cfg, rng, B: int, S: int) -> tuple:
+    """tokens (B, S) and the family's extra input on the card: patch
+    embeddings (vlm) or ``S // src_frames_ratio`` source frames (encdec),
+    N(0, 1) x 0.02 from the seed, as phases 14 and 16."""
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size, (B, S))).cuda()
+    extra = {}
+    n = {"vlm": cfg.vision_tokens,
+         "encdec": max(S // max(cfg.src_frames_ratio, 1), 1)}.get(cfg.family)
+    if n:
+        a = (rng.standard_normal((B, n, cfg.d_model)) * 0.02).astype(
+            np.float32)
+        key = "patch_embeds" if cfg.family == "vlm" else "src_embeds"
+        extra[key] = torch.from_numpy(a).cuda()
+    return tokens, extra
+
+
+def _facade_mesh_leg(arch: str, text: int, mesh, smi: str) -> dict:
+    """(a) one facade leg: the single-device facade, then the same prompts
+    over ``mesh`` fed its greedy tokens; returns the mesh run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.weights import init_params
+    cfg = get_config(arch)
+    tag = f"[{arch} mesh facade]"
+    n = mesh.size
+    model = init_params(cfg, seed=SEED, device="cuda")
+    tokens, extra = _facade_inputs(cfg, np.random.default_rng(SEED),
+                                   FACADE_MESH_B, text)
+    L = cfg.num_attn_layers
+    prefill_k3 = {"vlm": L, "hybrid": L,
+                  "encdec": cfg.encoder_layers + 2 * L}[cfg.family]
+    checks = {}
+
+    def prefill(m=None):
+        return model.prefill_state(tokens, margin_tokens=FACADE_MARGIN,
+                                   mesh=m, **extra)
+
+    # the single-device facade: its logits and greedy tokens
+    logits, state = prefill()
+    ref_logits, toks, one_ms = [logits], [], []
+    for _ in range(FACADE_MESH_STEPS):
+        toks.append(ref_logits[-1].argmax(-1))
+        t = time.perf_counter()
+        logits, state = model.decode_state(state, toks[-1])
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t) * 1e3)
+        ref_logits.append(logits)
+    nblk = state["base"].shape[0]
+    del state
+    # the mesh: prefill over slabs, the same tokens
+    c0 = _counts()
+    logits, state = prefill(mesh)
+    pre = _since(c0)
+    got, mesh_ms, k2 = [logits], [], []
+    for step in range(FACADE_MESH_STEPS):
+        c1 = _counts()
+        t = time.perf_counter()
+        logits, state = model.decode_state(state, toks[step], mesh=mesh)
+        torch.cuda.synchronize()
+        mesh_ms.append((time.perf_counter() - t) * 1e3)
+        k2.append(_since(c1)["paged_attention"])
+        got.append(logits)
+    path = _since(c0)
+    slabs = state["k_pools"]
+    checks[f"{n} slabs of {nblk // n} blocks, mask columns "
+           f"{FACADE_MESH_B // 2}"] = \
+        len(slabs) == n and all(s.shape[1] == nblk // n for s in slabs) and \
+        state["share_mask"].shape[1] == FACADE_MESH_B // 2
+    checks[f"prefill: K3 == {prefill_k3}, no K2"] = \
+        pre["flash_attention"] == prefill_k3 and pre["paged_attention"] == 0
+    if cfg.family == "hybrid":
+        checks[f"prefill: K4 == {cfg.num_layers}"] = \
+            pre["ssd_intra_chunk"] == cfg.num_layers
+    checks[f"decode: K2 == {L} x {n} = {L * n} a step"] = \
+        all(k == L * n for k in k2)
+    worst, limit, flips, bad = 0.0, 0.0, [], 0
+    for step, (a, b) in enumerate(zip(got, ref_logits)):
+        diff = float((a - b).abs().max())
+        worst = max(worst, diff)
+        limit = max(limit, SERVE_RTOL * float(b.abs().max()))
+        for s in (a.argmax(-1) != b.argmax(-1)).nonzero()[:, 0].tolist():
+            margin = _top2(b[s].float().cpu().numpy())
+            flips.append((step, s, margin))
+            # a near-tie: within twice the two runs' |logit diff| there
+            bad += margin > 2 * float((a[s] - b[s]).abs().max())
+    checks["logits within SERVE_RTOL x max |logit| of the single-device "
+           "facade's"] = worst <= limit and all(
+        bool(torch.isfinite(g).all()) for g in got)
+    checks["greedy tokens equal the single-device facade's but at "
+           "near-ties"] = bad == 0
+    med = lambda xs: float(np.median(xs[1:]))
+    log(f"{tag} {FACADE_MESH_B} x {tuple(tokens.shape)[1]} tokens"
+        f"{' + ' + str(cfg.vision_tokens) + ' patches' if 'patch_embeds' in extra else ''}"
+        f"{' over ' + str(extra['src_embeds'].shape[1]) + ' frames' if 'src_embeds' in extra else ''}"
+        f", margin {FACADE_MARGIN}: {nblk} blocks in {n} slabs of "
+        f"{nblk // n}, mask columns {state['share_mask'].shape[1]}; prefill "
+        f"K3 {pre['flash_attention']} K4 {pre['ssd_intra_chunk']}; K2 a step"
+        f" {sorted(set(k2))}; logits vs single device over the prefill and "
+        f"{FACADE_MESH_STEPS} steps: max |diff| {worst:.3e} (limit "
+        f"{limit:.3e}); argmax mismatches (step, sequence, single top-1 / "
+        f"top-2 margin) {flips or 'none'}, {bad} beyond twice the "
+        "sequence's |logit diff|")
+    log(f"{tag} ms a step (steps 2-{FACADE_MESH_STEPS}, median, host clock, "
+        f"synchronised), {smi}: mesh {med(mesh_ms):.2f} ms, single device "
+        f"{med(one_ms):.2f} ms ({med(mesh_ms) / med(one_ms):.2f}x)")
+    tok = toks[-1]
+    prof = _profile_mesh_round(
+        lambda: model.decode_state(state, tok, mesh=mesh), tag)
+    checks["the profile saw K2"] = prof.get("K2_ms", 0) > 0
+    del state, got, ref_logits
+
+    # every K2 / K3 / K4 call of the prefill and the first step against its
+    # plain version (a check run, left out of the path)
+    def taps():
+        _, st = prefill(mesh)
+        model.decode_state(st, toks[0], mesh=mesh)
+
+    _, reads = tapped(taps)
+    # an encdec step adds one K3 call a layer (one query over the frames)
+    want = {"flash_attention": prefill_k3 + (L if cfg.family == "encdec"
+                                              else 0),
+            "paged_attention_slab": L * n}
+    if cfg.family == "hybrid":
+        want["ssd_intra_chunk"] = cfg.num_layers
+    checks["every K2 / K3 / K4 call of the prefill and the first step "
+           "equals its plain version"] = \
+        {op: r["calls"] for op, r in reads.items()} == want and \
+        all(r["err"] <= r["limit"] for r in reads.values())
+    log(f"{tag} every kernel call vs its plain version: "
+        + _fmt_reads(reads))
+    del model
+    torch.cuda.empty_cache()
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{arch} mesh facade checks failed: {failed}")
+    return path
+
+
+class _RouteRecord:
+    """Wraps ``moe.route_local`` while on: keeps each call's (idx, pos,
+    keep) on the host, in call order (the ranks of an all-to-all)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.saved, self.calls = moe, moe.route_local, []
+
+    def __enter__(self):
+        def call(*args, **kw):
+            out = self.saved(*args, **kw)
+            self.calls.append(tuple(t.cpu() for t in out[1:4]))
+            return out
+        self.moe.route_local = call
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route_local = self.saved
+
+
+def _moe_rounds(cfg, model, mesh, prompts) -> dict:
+    """Admit ``prompts`` into a ``ServingEngine`` over ``mesh`` (None: one
+    device) and run :data:`MOE_DATA_ROUNDS` decode rounds: the ms of each
+    round, the moe path counts of each, the launches of the admissions and
+    rounds, and each sequence's logits after round 1."""
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import moe
+    c0 = _counts()
+    eng = ServingEngine(cfg, model, max_seqs=MAX_SEQS,
+                        max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, mesh=mesh,
+                        device="cuda")
+    for p in prompts:
+        eng.add_request(p)
+    out = {"ms": [], "paths": []}
+    for r in range(MOE_DATA_ROUNDS):
+        moe.PATH_COUNTS.clear()
+        t = time.perf_counter()
+        eng.decode_round()
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["paths"].append(dict(moe.PATH_COUNTS))
+        if r == 0:
+            out["logits"] = {s: lg.copy() for s, lg in
+                             eng.last_logits.items()}
+    out["launches"] = _since(c0)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_mesh_leg(smi: str) -> dict:
+    """(b) deepseek-moe-16b in ``ServingEngine(mesh=)`` over ("model",) 8
+    ranks of the card; returns the launches of the admissions and rounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import moe, transformer
+    from repro_torch.weights import init_params
+    arch = "deepseek-moe-16b"
+    tag = f"[{arch} mesh serve]"
+    cfg = get_config(arch)
+    L, T = cfg.num_layers, MOE_MESH_RANKS
+    mesh = make_test_mesh((T,), ("model",), devices="cuda")
+    model = init_params(cfg, seed=SEED, device="cuda")
+    eng = ServingEngine(cfg, model, max_seqs=MAX_SEQS,
+                        max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, mesh=mesh)
+    rng = np.random.default_rng(SEED + 23)
+    prompts = [rng.integers(2, cfg.vocab_size, size=k).astype(np.int32)
+               for k in MOE_MESH_LENS]
+    checks, taken, captured = {}, [], {}
+    saved_ffn = transformer.moe_ffn
+
+    def capture(p, x, cfg_, mesh_=None):
+        if x.shape[1] == MOE_CAPTURE_LEN:
+            i = captured.setdefault("calls", 0)
+            if i == MOE_CAPTURE_LAYER:
+                captured["x"] = x.clone()
+            captured["calls"] = i + 1
+        return saved_ffn(p, x, cfg_, mesh_)
+
+    transformer.moe_ffn = capture
+    c0 = _counts()
+    try:
+        for p in prompts:
+            moe.PATH_COUNTS.clear()
+            eng.add_request(p)
+            taken.append(dict(moe.PATH_COUNTS))
+    finally:
+        transformer.moe_ffn = saved_ffn
+    k2, ms = [], []
+    for _ in range(MOE_MESH_ROUNDS):
+        c1 = _counts()
+        t = time.perf_counter()
+        eng.decode_round()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        k2.append(_since(c1)["paged_attention"])
+    path = _since(c0)
+    want = [{"a2a" if len(p) % T == 0 else "local": L} for p in prompts]
+    checks[f"each admission's FFN took the a2a path exactly where {T} "
+           "divides its length"] = taken == want
+    checks[f"decode: K2 == {L} x {T} a round"] = all(k == L * T for k in k2)
+    checks["logits finite"] = all(np.isfinite(lg).all()
+                                  for lg in eng.last_logits.values())
+    log(f"{tag} {T} ranks on cuda:0 over ('model',), E_l = "
+        f"{cfg.num_experts // T}; admissions {MOE_MESH_LENS}: paths "
+        f"{taken}; {MOE_MESH_ROUNDS} rounds, K2 a round {sorted(set(k2))}, "
+        f"K1 {path['fused_dispatch']}, K7 {path['psm_transfer']}, K3 "
+        f"{path['flash_attention']}; ms a round (rounds 2-"
+        f"{MOE_MESH_ROUNDS}, median, host clock), {smi}: "
+        f"{float(np.median(ms[1:])):.2f}")
+    # one layer's all-to-all on the captured input: the card's 8 ranks
+    # against 8 CPU ranks (check runs, left out of the path)
+    layer = model.layers[MOE_CAPTURE_LAYER].moe
+    x = captured["x"]
+    with _RouteRecord() as card:
+        y_card, aux_card = moe.moe_ffn_a2a(layer, x, cfg, mesh)
+    y_local, _ = moe.moe_ffn_local(layer, x, cfg)
+    del eng
+    torch.cuda.empty_cache()
+
+    # decode rounds over ("data",) T: every round's FFN takes the FSDP
+    # path, one moe_ffn_local a batch row; against one device's engine
+    runs = {name: _moe_rounds(cfg, model, m, prompts) for name, m in (
+        ("one device", None),
+        ("data", make_test_mesh((T,), ("data",), devices="cuda")))}
+    one, dat = runs["one device"], runs["data"]
+    worst = max(float(np.abs(dat["logits"][s] - lg).max())
+                for s, lg in one["logits"].items())
+    limit = SERVE_RTOL * max(float(np.abs(lg).max())
+                             for lg in one["logits"].values())
+    checks[f"('data',) {T}: every round's FFN takes the fsdp path, one "
+           "device's the local path"] = \
+        all(p == {"fsdp": L} for p in dat["paths"]) and \
+        all(p == {"local": L} for p in one["paths"])
+    checks[f"('data',) {T}: K2 == {L} x {T} a round, one device's {L}"] = \
+        dat["launches"]["paged_attention"] == L * T * MOE_DATA_ROUNDS and \
+        one["launches"]["paged_attention"] == L * MOE_DATA_ROUNDS
+    checks[f"('data',) {T}: round 1's logits within SERVE_RTOL x max "
+           "|logit| of one device's"] = \
+        set(dat["logits"]) == set(one["logits"]) and worst <= limit
+    med = lambda xs: float(np.median(xs[1:]))
+    log(f"{tag} ('data',) {T} ranks on cuda:0, {MOE_DATA_ROUNDS} rounds of "
+        f"{MAX_SEQS} rows after admitting {MOE_MESH_LENS}: paths a round "
+        f"{dat['paths'][0]} (one device {one['paths'][0]}); K2 "
+        f"{dat['launches']['paged_attention']} (one device "
+        f"{one['launches']['paged_attention']}); round 1 logits max |diff| "
+        f"{worst:.3e} (limit "
+        f"{limit:.3e}); ms a round (rounds 2-{MOE_DATA_ROUNDS}, median, "
+        f"host clock), {smi}: ('data',) fsdp {med(dat['ms']):.2f}, one "
+        f"device local {med(one['ms']):.2f} "
+        f"({med(dat['ms']) / med(one['ms']):.2f}x)")
+    del model
+    torch.cuda.empty_cache()
+    cpu_layer = moe.MoEFFN(cfg, x.dtype, "cpu")
+    cpu_layer.load_state_dict({k: v.cpu() for k, v in
+                               layer.state_dict().items()})
+    del layer
+    torch.cuda.empty_cache()
+    cpu_mesh = make_test_mesh((T,), ("model",), devices="cpu")
+    t = time.perf_counter()
+    with _RouteRecord() as host:
+        y_cpu, aux_cpu = moe.moe_ffn_a2a(cpu_layer, x.cpu(), cfg, cpu_mesh)
+    cpu_s = time.perf_counter() - t
+    same = [all(torch.equal(a, b) for a, b in zip(r1, r2))
+            for r1, r2 in zip(card.calls, host.calls)]
+    kept = sum(int(r[2].sum()) for r in card.calls)
+    choices = sum(r[2].numel() for r in card.calls)
+    yc, yh = y_card.float().cpu(), y_cpu.float()
+    err = float((yc - yh).abs().max())
+    ok_y = bool(((yc - yh).abs() <= MOE_BF16_ATOL
+                 + MOE_BF16_RTOL * yh.abs()).all())
+    yl = y_local.float().cpu()
+    rows = int(((yl - yc).abs() > MOE_BF16_ATOL
+                + MOE_BF16_RTOL * yc.abs()).any(-1).sum())
+    checks[f"layer {MOE_CAPTURE_LAYER}'s all-to-all: the kept routes (idx, "
+           f"pos, keep) of every rank equal over {T} card and {T} CPU "
+           "ranks"] = len(card.calls) == len(host.calls) == T and all(same)
+    checks["its output within the bf16 tolerance of the CPU ranks'"] = \
+        ok_y and bool(torch.isfinite(yc).all())
+    log(f"{tag} layer {MOE_CAPTURE_LAYER}, the {MOE_CAPTURE_LEN}-token "
+        f"admission's input: {T} card ranks vs {T} CPU ranks "
+        f"({cpu_s:.1f} s on the CPU): routes equal per rank {same}, "
+        f"{kept} of {choices} choices kept; max |y diff| {err:.3e} (atol "
+        f"{MOE_BF16_ATOL} + rtol {MOE_BF16_RTOL:.3e}); aux {float(aux_card):.6f}"
+        f" vs {float(aux_cpu):.6f}; {rows} of {x.shape[1]} rows differ from "
+        "moe_ffn_local on the same input")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{arch} mesh serve checks failed: {failed}")
+    return {f"{arch} mesh serve": path,
+            f"{arch} data-mesh serve": dat["launches"]}
+
+
+def phase_mesh_model(smi: str) -> dict:
+    """Phase 23: the model layer over ranks that share the card.  Returns
+    the launch counts of each leg's counted run."""
+    from repro_torch.launch.mesh import make_test_mesh
+    t_phase = time.perf_counter()
+    mesh = make_test_mesh(MESH_SERVE_SHAPE, MESH_SERVE_AXES, devices="cuda")
+    paths = {}
+    for arch, text in FACADE_MESH_LEGS:
+        paths[f"{arch} mesh facade"] = _facade_mesh_leg(arch, text, mesh,
+                                                        smi)
+    paths.update(_moe_mesh_leg(smi))
+    log(f"[mesh model] phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,),
-               21: (), 22: (5,)}
+               21: (), 22: (5,), 23: ()}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-22 by default), with
+    """The phases to run for ``--phases`` (all of 2-23 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 23))
+        return set(range(2, 24))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -6195,6 +6596,9 @@ def main(argv=None) -> int:
                             device="cuda")
         paths["zamba2-2.7b admission"] = phase_admission(model)
         del model
+        torch.cuda.empty_cache()
+    if 23 in run:
+        paths.update(phase_mesh_model(smi))
         torch.cuda.empty_cache()
     if 21 in run:
         # every earlier model is freed: the 3.2B model's fp32 training

@@ -53,9 +53,12 @@ rank, the decode batch shards over the mesh's (pod, data) axes into
 ``cache.batch_groups`` groups whose sequences keep their blocks in their
 group's slabs, each round's bulk movement drains as one sharded drain (K7
 hops and K1 per rank), and each layer's decode attention runs K2 once per
-rank and LSE-combines the partials (models/paged.py).  The rest of the
-model (QKV, RoPE, FFN, logits) runs whole on the mesh's first device;
-prefill writes reach the slabs through ``RowCloneEngine.write_blocks``.
+rank and LSE-combines the partials (models/paged.py).  A moe FFN takes
+the path the mesh gives it, in prefill and decode alike (``models/moe.py
+moe_ffn``: a prompt whose length the ``model`` axis divides goes through
+the all-to-all over the experts).  The rest of the model (QKV, RoPE, a
+dense FFN, logits) runs whole on the mesh's first device; prefill writes
+reach the slabs through ``RowCloneEngine.write_blocks``.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
@@ -435,7 +438,7 @@ class ServingEngine:
         tokens = torch.as_tensor(np.asarray(prompt, np.int64),
                                  device=self.device)[None]
         if cfg.family in DECODER_FAMILIES:
-            logits, k, v = self.model.prefill(tokens)
+            logits, k, v = self.model.prefill(tokens, self.mesh)
             dtype = self.engine.group["k"].dtype
             return logits, (kv_to_pools(k, page, dtype, n_blocks),
                             kv_to_pools(v, page, dtype, n_blocks)), {}

@@ -22,7 +22,6 @@ under ``torch.no_grad``.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -30,13 +29,15 @@ from torch import nn
 
 from repro_torch.configs import (DECODER_FAMILIES, ModelConfig,
                                  RowCloneConfig)
-from repro_torch.launch.mesh import DeviceMesh
+from repro_torch.launch.mesh import (DeviceMesh, pool_shard_count,
+                                     pool_shard_ranks)
 from repro_torch.models.attention import MaskInfo
 from repro_torch.models.common import (checkpointed, chunked_softmax_xent,
                                        embed, rms_norm)
 from repro_torch.models.mamba2 import (Mamba2Layer, mamba2_decode_step,
                                        mamba2_layer)
-from repro_torch.models.paged import identity_layout, rank_appends
+from repro_torch.models.paged import (batch_shard_count, identity_layout,
+                                     rank_appends)
 from repro_torch.models.transformer import (DecoderLayer, attn_block_train,
                                             cross_block_train,
                                             decoder_layer_decode,
@@ -228,10 +229,14 @@ class LanguageModel(nn.Module):
                 f"families; {self.cfg.family!r} runs through {other}")
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor
+    def prefill(self, tokens: torch.Tensor,
+                mesh: Optional[DeviceMesh] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (last-position logits (B, V) fp32, k, v), k / v
-        (L, B, S, KVH, D) post-RoPE.  A moe layer's aux loss is dropped,
+        (L, B, S, KVH, D) post-RoPE.  A moe layer's FFN takes the path
+        ``mesh`` gives it (``moe.moe_ffn``: all-to-all over ``model``,
+        FSDP, or local); everything else runs whole on the model's device,
+        the function GSPMD computes.  A moe layer's aux loss is dropped,
         as the reference's serving path drops it."""
         self._pair_of("prefill / decode_step", "prefill")
         cfg = self.cfg
@@ -240,7 +245,8 @@ class LanguageModel(nn.Module):
         pos = torch.arange(S, device=tokens.device).expand(B, S)
         ks, vs = [], []
         for layer in self.layers:
-            x, _, (k, v) = decoder_layer_train(layer, x, pos, cfg)
+            x, _, (k, v) = decoder_layer_train(layer, x, pos, cfg,
+                                               mesh=mesh)
             ks.append(k)
             vs.append(v)
         xn = rms_norm(x[:, -1, :], self.final_norm, cfg.norm_eps)
@@ -293,9 +299,13 @@ class LanguageModel(nn.Module):
         ``make_serve_state``).  ``mesh``: the batch shards over its (pod,
         data) axes when their size divides ``batch`` (``dp``), and the
         share mask then has the ``batch // dp`` LOCAL columns of
-        :func:`~repro_torch.models.paged.identity_layout`; the pools stay
-        whole (:meth:`decode_state` over slabs is not ported and refuses
-        local columns).  ``filled``: tokens already
+        :func:`~repro_torch.models.paged.identity_layout`; under a mesh of
+        more than one rank ``k_pools`` / ``v_pools`` are lists of per-rank
+        slabs in shard order (``pool_shard_ranks``, as
+        ``RowCloneEngine.slabs``), each (num_attn_layers, slab, page, KVH,
+        D) on its rank's device with ``slab = ceil(nblk / ranks)`` (the
+        last ones shorter); everything else stays whole on the model's
+        device.  ``filled``: tokens already
         present per sequence (default ``seq_len - 1``).  Keys: ``seq_lens``;
         for vlm, hybrid and encdec ``block_table``, ``share_mask``, ``base``
         and ``k_pools`` / ``v_pools`` (num_attn_layers, nblk, page, KVH, D)
@@ -313,19 +323,25 @@ class LanguageModel(nn.Module):
         state = {"seq_lens": torch.full((batch,), filled, dtype=torch.int32,
                                         device=dev)}
         if cfg.num_attn_layers:
-            dp = 1
-            if mesh is not None:
-                dp = math.prod(mesh.axis_size(a) for a in ("pod", "data")
-                               if a in mesh.axis_names)
-                dp = 1 if batch % dp else dp
-            table, mask, base = identity_layout(batch, seq_len, page, dp)
+            table, mask, base = identity_layout(
+                batch, seq_len, page, batch_shard_count(mesh, batch))
             state["block_table"] = torch.from_numpy(table).to(dev)
             state["share_mask"] = torch.from_numpy(mask).to(dev)
             state["base"] = torch.from_numpy(base).to(dev)
-            state["k_pools"] = torch.zeros(
-                (cfg.num_attn_layers, base.shape[0], page, cfg.num_kv_heads,
-                 cfg.head_dim), dtype=dtype, device=dev)
-            state["v_pools"] = torch.zeros_like(state["k_pools"])
+            nblk = base.shape[0]
+            shape = (cfg.num_attn_layers, nblk, page, cfg.num_kv_heads,
+                     cfg.head_dim)
+            if mesh is None or mesh.size == 1:
+                state["k_pools"] = torch.zeros(shape, dtype=dtype, device=dev)
+                state["v_pools"] = torch.zeros_like(state["k_pools"])
+            else:
+                ranks = pool_shard_ranks(mesh)
+                ss = -(-nblk // len(ranks))
+                for name in ("k_pools", "v_pools"):
+                    state[name] = [torch.zeros(
+                        (shape[0], min(ss, max(nblk - i * ss, 0)))
+                        + shape[2:], dtype=dtype, device=mesh.devices[r])
+                        for i, r in enumerate(ranks)]
         if cfg.family == "encdec":
             S_src = max(seq_len // cfg.src_frames_ratio, 1)
             state["cross_k"] = torch.zeros(
@@ -362,7 +378,8 @@ class LanguageModel(nn.Module):
     def prefill_state(self, tokens: torch.Tensor,
                       patch_embeds: Optional[torch.Tensor] = None,
                       margin_tokens: Optional[int] = None,
-                      src_embeds: Optional[torch.Tensor] = None
+                      src_embeds: Optional[torch.Tensor] = None,
+                      mesh: Optional[DeviceMesh] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full forward over prompts of one length (no padding mask, as the
         reference); returns the last-position logits (B, V) fp32 and the
@@ -375,7 +392,12 @@ class LanguageModel(nn.Module):
         input frames (RoPE over positions 0..S_src-1, no causal mask, then
         ``enc_norm``); each decoder layer attends over them after its
         self-attention, and the state keeps each layer's cross K/V as
-        ``cross_k`` / ``cross_v`` (L, B, S_src, KVH, D)."""
+        ``cross_k`` / ``cross_v`` (L, B, S_src, KVH, D).  ``mesh``: the
+        state is :meth:`make_serve_state`'s for that mesh (per-rank slabs,
+        local mask columns when the batch shards); the forward runs whole
+        on the model's device (the function GSPMD computes), and each page
+        goes through the block table into the slab that holds its
+        block."""
         self._pair_of("prefill_state / decode_state", "prefill_state")
         cfg, page = self.cfg, self.page
         for name, given, fam in (("patch_embeds", patch_embeds, "vlm"),
@@ -391,13 +413,9 @@ class LanguageModel(nn.Module):
         B, S, _ = x.shape
         margin = page if margin_tokens is None else margin_tokens
         nper = (S + margin + page - 1) // page
-        state = self.make_serve_state(B, nper * page, filled=S)
-
-        def to_pools(i: int, k: torch.Tensor, v: torch.Tensor) -> None:
-            # the identity layout: sequence b's blocks are contiguous rows
-            for name, kv in (("k_pools", k), ("v_pools", v)):
-                state[name][i].view((B, nper * page) +
-                                    tuple(kv.shape[2:]))[:, :S] = kv
+        state = self.make_serve_state(B, nper * page, mesh=mesh, filled=S)
+        if cfg.num_attn_layers:
+            to_pools = _page_writer(state, page, nper)
 
         pos = torch.arange(S, device=tokens.device).expand(B, S)
         if cfg.family == "vlm":
@@ -441,34 +459,38 @@ class LanguageModel(nn.Module):
 
     @torch.no_grad()
     def decode_state(self, state: Dict[str, torch.Tensor],
-                     tokens: torch.Tensor
+                     tokens: torch.Tensor,
+                     mesh: Optional[DeviceMesh] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One token per sequence: ``tokens`` (B,) the token just sampled,
         at position ``state["seq_lens"]``.  Updates the state's pools and
         recurrent states IN PLACE (the reference returns new arrays) and
         returns the next-position logits (B, V) fp32 and the state with
-        ``seq_lens`` advanced."""
+        ``seq_lens`` advanced.  ``mesh``: the mesh the state was made for
+        (its pools are per-rank slabs); each rank appends the tokens that
+        land in its slab and runs K2 over it, and the partials are
+        LSE-combined (``paged.paged_attend_append``); the rest runs whole
+        on the model's device.  Refused, as the reference's ``shard_map``
+        refuses it, when the ranks do not divide the block count."""
         self._pair_of("prefill_state / decode_state", "decode_state")
         cfg, page = self.cfg, self.page
         pos = state["seq_lens"].long()
         seq_incl = (pos + 1).to(torch.int32)
         if cfg.num_attn_layers:
-            B = tokens.shape[0]
-            if state["share_mask"].shape[1] != B:
-                raise NotImplementedError(
-                    f"a share mask of {state['share_mask'].shape[1]} local "
-                    f"columns for {B} sequences needs decode_state(mesh=) "
-                    "over slabs, which is not ported (ROADMAP item 12b)")
-            appends = [append_slots(pos, state["block_table"], page)]
+            ks, vs = _slab_list(state["k_pools"]), _slab_list(state["v_pools"])
+            _check_slabs(state, ks, tokens.shape[0], mesh)
+            appends = rank_appends(*append_slots(pos, state["block_table"],
+                                                 page),
+                                   [s.shape[1] for s in ks])
 
         def attend(layer: DecoderLayer, x: torch.Tensor,
                    i: int) -> torch.Tensor:
             cross = (state["cross_k"][i], state["cross_v"][i]) \
                 if cfg.family == "encdec" else None
             return decoder_layer_decode(
-                layer, x, pos, [state["k_pools"][i]], [state["v_pools"][i]],
+                layer, x, pos, [s[i] for s in ks], [s[i] for s in vs],
                 appends, state["share_mask"], state["base"], seq_incl, cfg,
-                page, cross_kv=cross)
+                page, cross_kv=cross, mesh=mesh)
 
         x = embed(self.embed, tokens, self.act_dtype)
         if cfg.family in ("vlm", "encdec"):
@@ -483,6 +505,60 @@ class LanguageModel(nn.Module):
                     x = attend(self.shared, x, li // every)
         xn = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self._logits(xn), dict(state, seq_lens=seq_incl)
+
+
+def _slab_list(pools) -> list:
+    """A state's K or V pools as a slab list (one whole pool: one slab)."""
+    return list(pools) if isinstance(pools, (list, tuple)) else [pools]
+
+
+def _check_slabs(state: Dict[str, torch.Tensor], ks: list, batch: int,
+                 mesh: Optional[DeviceMesh]) -> None:
+    """Refuse a state that ``mesh`` cannot decode: slabs of another mesh,
+    local mask columns without a mesh, or (the reference's ``shard_map``
+    condition) a block count the pool shards do not divide."""
+    cols, nblk = state["share_mask"].shape[1], state["base"].shape[0]
+    n = 1 if mesh is None else pool_shard_count(mesh)
+    if n == 1 or mesh.size == 1:
+        if len(ks) != 1 or cols != batch:
+            raise ValueError(
+                f"a state of {len(ks)} slabs and {cols} mask columns for "
+                f"{batch} sequences needs the mesh it was made for: "
+                "decode_state(state, tokens, mesh=)")
+        return
+    if len(ks) != n:
+        raise ValueError(f"a state of {len(ks)} slabs for a mesh of {n} "
+                         "pool shards: make it with make_serve_state(mesh=) "
+                         "or prefill_state(mesh=) of this mesh")
+    if nblk % n:
+        raise ValueError(f"{nblk} blocks do not divide over {n} pool "
+                         "shards (the reference's shard_map refuses them)")
+
+
+def _page_writer(state: Dict[str, torch.Tensor], page: int, nper: int):
+    """``to_pools(i, k, v)``: write attention layer i's K / V (B, S, KVH,
+    D) of a prefill into the state's pools.  The state has
+    :meth:`LanguageModel.make_serve_state`'s identity layout, where
+    sequence b's blocks are pool rows ``b * nper`` to ``b * nper + nper -
+    1``: a whole pool takes K / V in place through a view; slab r of a
+    slab list takes the pages of its own rows (zero past S), copied to
+    its rank's device."""
+    ks, vs = _slab_list(state["k_pools"]), _slab_list(state["v_pools"])
+
+    def to_pools(i: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        for kv, slabs in ((k, ks), (v, vs)):
+            if len(slabs) == 1:
+                B, S = kv.shape[:2]
+                slabs[0][i].view((B, nper * page) +
+                                 tuple(kv.shape[2:]))[:, :S] = kv
+                continue
+            pages = kv_to_pools(kv[None], page, slabs[0].dtype, nper)[0]
+            start = 0
+            for slab in slabs:
+                slab[i].copy_(pages[start:start + slab.shape[1]])
+                start += slab.shape[1]
+
+    return to_pools
 
 
 def append_slots(pos: torch.Tensor, block_table: torch.Tensor, page: int

@@ -28,7 +28,7 @@ from repro_torch.models.attention import (MaskInfo, attention_train,
                                          flash_attention, prefill_attention)
 from repro_torch.models.common import (apply_rope, checkpointed, rms_norm,
                                        swiglu_mlp)
-from repro_torch.models.moe import MoEFFN, moe_ffn_local
+from repro_torch.models.moe import MoEFFN, moe_ffn
 from repro_torch.models.paged import paged_attend_append
 
 
@@ -95,12 +95,15 @@ class DecoderLayer(nn.Module):
             v = v + self.bv.to(dt)
         return q, k, v
 
-    def ffn(self, x: torch.Tensor, cfg: ModelConfig
+    def ffn(self, x: torch.Tensor, cfg: ModelConfig,
+            mesh: Optional[DeviceMesh] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (B, S, d) -> (x + FFN(norm(x)), aux loss: 0 for dense)."""
+        """x (B, S, d) -> (x + FFN(norm(x)), aux loss: 0 for dense).  A moe
+        FFN takes the path ``mesh`` gives it (``moe.moe_ffn``); a dense one
+        runs whole on x's device whatever the mesh."""
         h = rms_norm(x, self.ln2, cfg.norm_eps)
         if cfg.family == "moe":
-            y, aux = moe_ffn_local(self.moe, h, cfg)
+            y, aux = moe_ffn(self.moe, h, cfg, mesh)
         else:
             y = swiglu_mlp(h, self.w_gate, self.w_up, self.w_down)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -184,7 +187,8 @@ def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
                         pos: torch.Tensor, cfg: ModelConfig,
                         prefix_len: int = 0, causal: bool = True,
                         enc_out: Optional[torch.Tensor] = None,
-                        impl: str = "pallas"
+                        impl: str = "pallas",
+                        mesh: Optional[DeviceMesh] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence layer: x (B, S, d), pos (B, S); key positions below
@@ -193,13 +197,15 @@ def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
     position visible to every query (an encoder layer); with ``enc_out``
     the cross-attention block runs after the self-attention.  ``impl``
     chooses the attention (:data:`ATTENTION_IMPLS`: K3 for prefill, the
-    model-level function for training).  Returns the new x, the FFN's
-    aux loss (fp32 scalar, 0 for dense) and this layer's post-RoPE
-    (k, v), each (B, S, KVH, D)."""
+    model-level function for training); ``mesh`` reaches the FFN alone
+    (a moe layer's mesh path; attention runs whole on x's device, the
+    function GSPMD computes).  Returns the new x, the FFN's aux loss
+    (fp32 scalar, 0 for dense) and this layer's post-RoPE (k, v), each
+    (B, S, KVH, D)."""
     x, kv = attn_block_train(layer, x, pos, cfg, prefix_len, causal, impl)
     if enc_out is not None:
         x, _ = cross_block_train(layer, x, enc_out, cfg, impl)
-    x, aux = layer.ffn(x, cfg)
+    x, aux = layer.ffn(x, cfg, mesh)
     return x, aux, kv
 
 
@@ -272,8 +278,10 @@ def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
     without one; ``appends`` from ``rank_appends``); with ``cross_kv`` =
     (k, v), each (B, S_src, KVH, D), the token then attends over the
     encoder's frames (no RoPE, every frame visible).  The rest of the
-    layer runs whole on x's device.  The FFN sees (B, 1, d): a moe layer
-    routes each sequence alone."""
+    layer runs whole on x's device, but for a moe FFN, which takes the
+    path ``mesh`` gives it (``moe.moe_ffn``).  The FFN sees (B, 1, d): a
+    moe layer routes each sequence alone (one position shards over no
+    ``model`` axis of more than one rank)."""
     B, _ = x.shape
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     q, k, v = layer.qkv(h[:, None, :])
@@ -292,7 +300,7 @@ def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
                     cfg.head_dim)
         ox = prefill_attention(qx, *cross_kv, causal=False)
         x = x + ox.reshape(B, cfg.q_dim) @ xa.wo.to(x.dtype)
-    return layer.ffn(x[:, None, :], cfg)[0][:, 0]
+    return layer.ffn(x[:, None, :], cfg, mesh)[0][:, 0]
 
 
 __all__ = ["ATTENTION_IMPLS", "CrossAttention", "DecoderLayer",

@@ -1086,6 +1086,133 @@ def test_cuda_mesh_serving_matches_cpu_ranks(card):
                                               bits(want[1, :24]))
 
 
+@pytest.mark.cuda
+def test_cuda_mesh_model_layer_matches_cpu_ranks(card):
+    """The model layer over 8 ranks of the card against 8 CPU ranks.
+    zamba2-2.7b at full width cut to 2 shared blocks (12 Mamba2 layers),
+    4 prompts of 16 tokens over ``(2, 4)`` of ``("data", "model")``:
+    ``prefill_state(mesh=)`` and 2 ``decode_state(mesh=)`` steps fed the
+    CPU run's greedy tokens, K2 once per rank and shared block a step, the
+    slabs' layout equal, logits within 5e-2 x max |logit| (bf16 GEMMs on
+    two machines).  Then ``moe_ffn_a2a`` of reduced deepseek-moe-16b with
+    its published routing (64 experts, top 6) in fp32 over ``("model",)``
+    8: every rank's kept routes equal and the output within 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.weights import init_params
+    full = get_config("zamba2-2.7b")
+    cfg = dataclasses.replace(full, num_layers=2 * full.shared_attn_every)
+    models = {"cpu": init_params(cfg, 0, "cpu")}
+    models["card"] = init_params(cfg, 0, "cpu").to("cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (4, 16)))
+    k2 = ops.KERNEL_COUNTERS["paged_attention"]
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", "cuda")):
+        mesh = make_test_mesh((2, 4), ("data", "model"), devices=dev)
+        lg, st = models[name].prefill_state(tokens.to(dev), mesh=mesh)
+        runs[name] = [lg.float().cpu()]
+        for step in range(2):
+            tok = runs["cpu"][step].argmax(-1).to(dev)
+            c0 = k2.n
+            lg, st = models[name].decode_state(st, tok, mesh=mesh)
+            if name == "card":
+                assert k2.n - c0 == 2 * 8
+            runs[name].append(lg.float().cpu())
+        runs[name + " slabs"] = [tuple(s.shape) for s in st["k_pools"]]
+    assert runs["card slabs"] == runs["cpu slabs"] and \
+        len(runs["cpu slabs"]) == 8
+    for a, b in zip(runs["card"], runs["cpu"]):
+        assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max())
+
+    mcfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(),
+                               num_experts=64, top_k=6)
+    gen = torch.Generator().manual_seed(0)
+    layer = moe.MoEFFN(mcfg, torch.float32, "cpu")
+    for p in layer.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=gen)
+                     * p.shape[-2] ** -0.5)
+    x = torch.randn((2, 256, mcfg.d_model), generator=gen)
+    routes, ys = {}, {}
+    saved = moe.route_local
+    for name, dev in (("cpu", "cpu"), ("card", "cuda")):
+        calls = routes.setdefault(name, [])
+
+        def record(*args, **kw):
+            out = saved(*args, **kw)
+            calls.append([t.cpu() for t in out[1:4]])
+            return out
+
+        moe.route_local = record
+        try:
+            ys[name] = moe.moe_ffn_a2a(
+                layer.to(dev), x.to(dev), mcfg,
+                make_test_mesh((8,), ("model",), devices=dev))[0].cpu()
+        finally:
+            moe.route_local = saved
+    assert len(routes["card"]) == len(routes["cpu"]) == 8
+    for a, b in zip(routes["card"], routes["cpu"]):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert not all(bool(r[2].all()) for r in routes["cpu"]), "no drop"
+    assert float((ys["card"] - ys["cpu"]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_moe_mesh_paths_over_mixed_devices(card):
+    """The moe mesh paths with ranks on two devices: a mesh of 8 ranks
+    alternating the card and the CPU, the layer and x on the card, against
+    the same mesh with every rank on the card.  Reduced deepseek-moe-16b
+    (shared experts included) with its published routing (64 experts, top
+    6) in fp32: ``moe_ffn_a2a`` over ``("model",)`` 8 (2 x 256 tokens) and
+    ``moe_ffn_fsdp`` over ``("data",)`` 8 (8 x 32 tokens) take their path,
+    every rank's kept routes are equal, the output within 1e-4 and aux
+    within 1e-5."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(),
+                              num_experts=64, top_k=6)
+    assert cfg.num_shared_experts
+    gen = torch.Generator().manual_seed(0)
+    layer = moe.MoEFFN(cfg, torch.float32, "cpu")
+    for p in layer.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=gen)
+                     * p.shape[-2] ** -0.5)
+    layer.to("cuda")
+    saved = moe.route
+    for fn, axes, shape in ((moe.moe_ffn_a2a, ("model",), (2, 256)),
+                            (moe.moe_ffn_fsdp, ("data",), (8, 32))):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen).cuda()
+        want = "a2a" if fn is moe.moe_ffn_a2a else "fsdp"
+        runs = {}
+        for name, devs in (("card", "cuda"), ("mixed", ["cuda", "cpu"] * 4)):
+            mesh = make_test_mesh((8,), axes, devices=devs)
+            assert moe.moe_path(mesh, x.shape, cfg) == want
+            calls = []
+
+            def record(*args, **kw):
+                out = saved(*args, **kw)
+                calls.append([t.cpu() for t in out[1:4]])
+                return out
+
+            moe.route = record
+            try:
+                y, aux = fn(layer, x, cfg, mesh)
+            finally:
+                moe.route = saved
+            assert y.device == x.device and aux.device == x.device
+            runs[name] = (y.cpu(), aux.cpu(), calls)
+        (y0, a0, r0), (y1, a1, r1) = runs["card"], runs["mixed"]
+        assert len(r0) == len(r1) == 8, want
+        for a, b in zip(r0, r1):
+            assert all(torch.equal(u, v) for u, v in zip(a, b)), want
+        assert float((y1 - y0).abs().max()) <= 1e-4, want
+        assert abs(float(a1 - a0)) <= 1e-5, want
+
+
 # ---------------------------------------------------------------------------
 # training (launch/train.py)
 # ---------------------------------------------------------------------------

@@ -25,8 +25,8 @@ FORBIDDEN = re.compile(
 
 
 #: modules of the per-mechanism, the Mamba2, the moe, the serving
-#: features, the traffic, the recovery, the observability, the mesh and
-#: the training slices; the scans below must reach them
+#: features, the traffic, the recovery, the observability, the mesh, the
+#: training and the sharding-rules slices; the scans below must reach them
 NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.core.migration", "repro_torch.launch.mechanisms",
                "repro_torch.launch.applications",
@@ -41,7 +41,8 @@ NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.obs.autotune", "repro_torch.launch.autotune",
                "repro_torch.launch.mesh", "repro_torch.kernels.psm_transfer",
                "repro_torch.data.pipeline", "repro_torch.optim.adamw",
-               "repro_torch.optim.compress", "repro_torch.launch.train")
+               "repro_torch.optim.compress", "repro_torch.launch.train",
+               "repro_torch.sharding.rules")
 
 
 def _modules():
@@ -109,7 +110,7 @@ def test_card_tests_import_without_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     marked = out.stdout.split("CUDA=")[1].split()[0].split(",")
-    assert len(marked) == 24, marked
+    assert len(marked) == 26, marked
     marker = "@pytest.mark." + "cuda"
     others = [p for p in (ROOT / "tests").glob("test_torch_*.py")
               if p.name != "test_torch_card.py" and marker in p.read_text()]

@@ -559,8 +559,9 @@ def test_mesh_argument_validation(served):
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "zamba2-2.7b",
                                   "seamless-m4t-medium"])
 def test_families_over_the_mesh_match_single_device(arch):
-    """moe is served over the (2, 4) mesh with the FFN whole on the
-    engine's device; hybrid and encdec are admitted.  Each sequence's
+    """moe is served over the (2, 4) mesh (its FFN takes the local path:
+    a batch of one does not divide over ``data``, and a decode step's one
+    position not over ``model``); hybrid and encdec are admitted.  Each sequence's
     pages (gathered from the slabs at its blocks), its extras and, for
     moe, its greedy tokens equal the port's single-device engine's."""
     cfg = get_config(arch).reduced()
@@ -778,17 +779,30 @@ def test_legacy_staging_leg_over_the_mesh(served):
 def test_make_serve_state_dp_matches_reference(mesh_name, batch):
     """``make_serve_state(mesh=)``'s ``dp``: the block table, share mask
     (local columns when the batch divides over (pod, data)) and base equal
-    the reference's; ``decode_state`` refuses local columns (its mesh
-    path over slabs is not ported)."""
+    the reference's; the pools are one slab per rank.  ``decode_state``
+    over the mesh decodes such a state (local columns included) as the
+    single-device facade decodes the unsharded state, and refuses it
+    without the mesh; where the shards do not divide the block count (6
+    blocks over 4 ranks) it refuses, as the reference's ``shard_map``."""
     shape, axes = MESHES[mesh_name]
     jcfg = jget_config("zamba2-2.7b").reduced()
     cfg = get_config("zamba2-2.7b").reduced()
     jst = build_model(jcfg).make_serve_state(batch, 64,
                                              jax_mesh_like(shape, axes))
     model = init_params(cfg, seed=0, device="cpu")
-    st = model.make_serve_state(batch, 64, mesh_of(mesh_name))
+    mesh = mesh_of(mesh_name)
+    st = model.make_serve_state(batch, 64, mesh)
     for k in ("block_table", "share_mask", "base"):
         np.testing.assert_array_equal(st[k].numpy(), np.asarray(jst[k]))
+    assert len(st["k_pools"]) == mesh.size
+    toks = torch.arange(batch, dtype=torch.long) + 2
+    if batch % mesh.size:
+        with pytest.raises(ValueError, match="do not divide"):
+            model.decode_state(st, toks, mesh=mesh)
+        return
     if st["share_mask"].shape[1] != batch:
-        with pytest.raises(NotImplementedError, match="12b"):
-            model.decode_state(st, torch.zeros(batch, dtype=torch.long))
+        with pytest.raises(ValueError, match="mesh"):
+            model.decode_state(st, toks)
+    got, _ = model.decode_state(st, toks, mesh=mesh)
+    want, _ = model.decode_state(model.make_serve_state(batch, 64), toks)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=OUT_ATOL)
