@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 9,16,21]
+    python3 chip_smoke.py [--phases 9,16,21,24]
 
 ``--phases`` runs only the listed phases and those they need (phase 1
 always runs); with no argument every phase runs.
@@ -365,6 +365,34 @@ Phases (each raises on failure; the script then exits non-zero):
     input over the 8 card ranks against 8 CPU ranks: every rank's kept
     routes equal, the output within the bf16 tolerance, and the rows where
     ``moe_ffn_local`` differs counted.
+
+24. (run after phase 21, with phase 21's model freed) training over a
+    rank mesh (``phase_mesh_train``; ``make_train_step(mesh=)``,
+    ``build_train_step``, the placed ``TrainState``, ``attention_train``
+    by blocks, the moe mesh paths in training, ``runtime/elastic.py``).
+    (a) llama3.2-3b at full width and depth over 8 ranks of the card
+    ((2, 4) over ``("data", "model")``) under ``"fsdp"``, phase 21 (a)'s
+    ``TrainConfig``, weights (seed 0) and batches, 8 steps: each step's
+    loss and grad_norm against phase 21 (a)'s within
+    ``MESH_LOSS0_RTOL`` / ``MESH_LOSS_RTOL`` / ``MESH_GNORM0_RTOL`` /
+    ``MESH_GNORM_RTOL``, ms a step (median of steps 2-7) and its ratio to
+    phase 21's, ``max_memory_allocated`` beside phase 21's, the bytes of
+    masters and moments each rank holds (stored once), the ms of one
+    bf16 gather of the views, a profile of one step.  (b) the same under
+    ``"tp"`` (``DEFAULT_RULES``: heads over ``model``, the batch over
+    ``data``), 3 steps, and its profile.  (c) deepseek-moe-16b at published width (64
+    experts top 6) cut to ``MOE_TRAIN_LAYERS`` layers (the reckoning
+    printed), 3 steps over ``("model",)`` 8 under ``"tp"`` (the
+    all-to-all) and ``("data",)`` 8 under ``"fsdp"``: forward and
+    recomputed path counts, finite losses, step 0's within [ln V - 1,
+    ln V + 2] beside the loss without a mesh under ``no_grad``; then one
+    layer's loss and grads (fp32 activations) over 8 card ranks against 8
+    CPU ranks: routes equal, loss and grads within the stated limits.  (d) ``train_loop``
+    of llama3.2-3b reduced over the 8 ranks, a checkpoint every 5 steps
+    and a ``NodeFailure`` at 7, ``plan_remesh`` to 4 ranks,
+    ``elastic_restore`` onto them and the steps resumed: losses of steps
+    5-9 against the run without a failure (``ELASTIC_RTOL``).  No K1-K7
+    launch in the phase.
 
 The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -5443,8 +5471,10 @@ def _xdev_params_ok(card: dict, cpu: dict, lr_sum: float):
     return worst <= 2 * lr_sum + 1e-6 and share >= 0.999, worst, share
 
 
-def phase_train(smi: str) -> None:
-    """Phase 21: training (see the module docstring)."""
+def phase_train(smi: str) -> dict:
+    """Phase 21: training (see the module docstring).  Returns (a)'s run
+    for phase 24: the batch, each step's loss and grad_norm, ms a step
+    (median of steps 2-7) and the peak allocation."""
     import math
     import shutil
     import tempfile
@@ -5538,6 +5568,9 @@ def phase_train(smi: str) -> None:
     profile_train_step(lambda: step(state, batches[0]), smi, tag, ms)
     del model, state, step, batches
     torch.cuda.empty_cache()
+    single = {"B": B, "losses": losses,
+              "grad_norms": [m["grad_norm"] for m in metrics], "ms": ms,
+              "peak": peak}
 
     # (b) card against CPU ---------------------------------------------
     for arch in TRAIN_XDEV_ARCHS:
@@ -5628,6 +5661,374 @@ def phase_train(smi: str) -> None:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"training checks failed: {failed}")
+    return single
+
+
+# ---------------------------------------------------------------------------
+# phase 24: training over a rank mesh (make_train_step(mesh=) under
+# TrainConfig.sharding, build_train_step's shardings, attention_train by
+# blocks, moe training through the mesh paths, the elastic restore)
+# ---------------------------------------------------------------------------
+
+#: (a) / (b): phase 21 (a)'s weights and batches over 8 ranks of the card
+MESH_TRAIN_SHAPE, MESH_TRAIN_AXES = (2, 4), ("data", "model")
+MESH_TP_STEPS = 3
+#: (a) / (b) limits against phase 21 (a)'s single-device run.  Step 0's
+#: loss is the same function with the training attention run by blocks
+#: (batch rows, or heads: fp32 products of other shapes): rtol 1e-5.
+#: Later losses: Adam moves a weight by about lr x sign(g) a step, and a
+#: grad within its error of zero may step either way, so the weights
+#: drift apart by up to 2 lr a step: rtol 1e-3.  grad_norm, the norm of
+#: bf16 cotangents summed per block in another order: rtol 1e-3 at step
+#: 0, 1e-2 later (phase 21 (b)'s)
+MESH_LOSS0_RTOL, MESH_LOSS_RTOL = 1e-5, 1e-3
+MESH_GNORM0_RTOL, MESH_GNORM_RTOL = 1e-3, 1e-2
+#: (c) deepseek-moe-16b at its published width, the depth cut to what fits
+#: beside 18 B a parameter (fp32 masters, grads, m, v, bf16 views); the
+#: batch (B divisible by 8 for ("data",) 8, S by 8 for ("model",) 8)
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 8, 512, 3
+#: (c) one layer on 8 card ranks against 8 CPU ranks: the tokens; fp32
+#: activations (the bf16 ones of the published config round the CPU's and
+#: the card's products apart, and the router then ranks experts apart:
+#: PR 31's chip run 1); the loss rtol 1e-4 (phase 21 (b)'s); each leaf's
+#: grad within 2^-5 of the leaf's largest |grad| (the grads are bf16
+#: cotangents of the bf16 views: a few bf16 ulps of 2^-8 summed in another
+#: order; the CPU tests' 3%)
+MOE_XDEV_B, MOE_XDEV_S = 2, 128
+MOE_XDEV_LOSS_RTOL, MOE_XDEV_GRAD_SHARE = 1e-4, 2 ** -5
+#: (d) the elastic run: llama3.2-3b reduced, B x S, steps, a checkpoint
+#: every 5 steps, a failure at step 7; the resumed steps 5-9 on 4 ranks
+#: (2 microbatches keep the batch) against the run without a failure:
+#: rtol 1e-3 (two microbatches' fp32 sums in another order; the CPU test,
+#: tests/test_torch_mesh_elastic.py, holds 1e-4)
+ELASTIC_B, ELASTIC_S, ELASTIC_STEPS = 4, 64, 10
+ELASTIC_EVERY, ELASTIC_FAIL, ELASTIC_RTOL = 5, 7, 1e-3
+
+
+def _within(a: float, b: float, rtol: float) -> bool:
+    return abs(a - b) <= rtol * abs(b)
+
+
+def _loss_without_mesh(model, params, batch, tcfg) -> float:
+    """The loss of ``batch`` against bf16 views of ``params`` gathered on
+    the card, without a mesh (every moe FFN on the local path), under
+    ``no_grad``."""
+    from repro_torch.launch.train import bf16_views
+    with torch.no_grad():
+        _, met = torch.func.functional_call(
+            model, bf16_views(params, "cuda"), (batch, tcfg.remat_policy))
+    return float(met["loss"])
+
+
+def _mesh_train_run(cfg, tcfg, mesh, batches, before=None) -> dict:
+    """Seed-``SEED`` fp32 weights of ``cfg`` on the card, the state placed
+    by ``build_train_step``'s ``shard_state`` over ``mesh`` (the model's
+    own tensors released), one step a batch.  ``before(model, params)``
+    runs first.  Returns the metrics, the step times, the peak allocation
+    (reset before the weights), the parameter count, the bytes each rank
+    holds, the ms of one bf16 gather of the views, and the model, state
+    and step."""
+    from repro_torch.data import batch_logical_axes
+    from repro_torch.launch.mesh import rank_bytes
+    from repro_torch.launch.train import (bf16_views, build_train_step,
+                                          train_state)
+    from repro_torch.models import moe
+    from repro_torch.weights import init_params, params_axes
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model = init_params(cfg, seed=SEED, device="cuda",
+                        param_dtype=torch.float32)
+    n_par = sum(p.numel() for p in model.parameters())
+    step, shard_state, _ = build_train_step(
+        model, tcfg, mesh, params_axes(model), batch_logical_axes(cfg))
+    state = train_state(model, shard_state(dict(model.named_parameters())))
+    leaves = [x for tree in (state.params, state.opt.m, state.opt.v)
+              for x in tree.values()]
+    out = {"rank_bytes": rank_bytes(leaves, mesh), "held": held,
+           "n_par": n_par}
+    if before is not None:
+        out["before"] = before(model, state.params)
+    moe.PATH_COUNTS.clear()
+    moe.RECOMPUTE_COUNTS.clear()
+    metrics, times = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out.update(metrics=metrics, times=times,
+               peak=torch.cuda.max_memory_allocated(),
+               paths=dict(moe.PATH_COUNTS),
+               recomputed=dict(moe.RECOMPUTE_COUNTS))
+    with torch.no_grad():
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        views = bf16_views(state.params, "cuda")
+        t1.record()
+        torch.cuda.synchronize()
+        out["gather_ms"] = t0.elapsed_time(t1)
+        del views
+    out.update(model=model, state=state, step=step)
+    return out
+
+
+def _held_against_single(run: dict, single: dict, steps: int, tag: str,
+                         what: str, smi: str, checks: dict) -> None:
+    """Print and check a mesh run of llama3.2-3b against phase 21 (a)."""
+    gb = 1e9
+    ms_ = run["metrics"]
+    losses = [m["loss"] for m in ms_]
+    gnorms = [m["grad_norm"] for m in ms_]
+    # the median of steps 2-7; of a 3-step run, the slower of steps 1-2
+    tail = sorted(run["times"][2:] if steps > 3 else run["times"][1:])
+    ms = 1e3 * tail[len(tail) // 2]
+    log(f"{tag} {what}: losses (mesh / one device) " + " ".join(
+        f"{a:.6f}/{b:.6f}" for a, b in zip(losses, single["losses"])))
+    log(f"{tag} {what}: grad_norm " + " ".join(
+        f"{a:.5f}/{b:.5f}" for a, b in zip(gnorms, single["grad_norms"])))
+    log(f"{tag} {what}: step ms " + " ".join(
+        f"{1e3 * t:.1f}" for t in run["times"])
+        + f"; steady {ms:.1f} ms against phase 21's {single['ms']:.1f} ms "
+        f"= {ms / single['ms']:.3f}x; peak max_memory_allocated "
+        f"{run['peak'] / gb:.2f} GB (phase 21: {single['peak'] / gb:.2f} "
+        f"GB; {run['held'] / gb:.2f} GB held before); per rank "
+        + " ".join(f"{b / gb:.3f}" for b in run["rank_bytes"])
+        + f" GB of masters and moments ({sum(run['rank_bytes']) / gb:.2f}"
+        f" GB); one bf16 gather of the views {run['gather_ms']:.2f} ms "
+        f"({smi})")
+    checks[f"{what}: step 0's loss within rtol {MESH_LOSS0_RTOL}"] = \
+        _within(losses[0], single["losses"][0], MESH_LOSS0_RTOL)
+    checks[f"{what}: every loss within rtol {MESH_LOSS_RTOL}"] = all(
+        _within(a, b, MESH_LOSS_RTOL)
+        for a, b in zip(losses, single["losses"]))
+    checks[f"{what}: step 0's grad_norm within rtol {MESH_GNORM0_RTOL}"] = \
+        _within(gnorms[0], single["grad_norms"][0], MESH_GNORM0_RTOL)
+    checks[f"{what}: every grad_norm within rtol {MESH_GNORM_RTOL}"] = all(
+        _within(a, b, MESH_GNORM_RTOL)
+        for a, b in zip(gnorms, single["grad_norms"]))
+    checks[f"{what}: peak under 80 GB"] = run["peak"] < 80e9
+
+
+def _moe_xdev_layer(tcfg, checks: dict, tag: str) -> None:
+    """(c)'s last check: one deepseek-moe-16b layer at published width,
+    its loss and grads over ``("model",)`` 8 card ranks against 8 CPU
+    ranks from the same weights and batch: the routes of every route call
+    (forward and recomputation) equal, the loss and each leaf's grads
+    within :data:`MOE_XDEV_LOSS_RTOL` / :data:`MOE_XDEV_GRAD_SHARE`."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_logical_axes, make_batch, to_device
+    from repro_torch.launch.mesh import gather, make_test_mesh, place
+    from repro_torch.launch.train import build_train_step, loss_and_grads
+    from repro_torch.models import moe
+    from repro_torch.weights import init_params, params_axes
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), num_layers=1,
+                              dtype="float32")
+    model = init_params(cfg, seed=SEED, device="cpu",
+                        param_dtype=torch.float32)
+    batch = to_device(make_batch(cfg, MOE_XDEV_B, MOE_XDEV_S, 0), "cpu")
+    runs = {}
+    for name, devs in (("card", "cuda"), ("cpu", "cpu")):
+        mesh = make_test_mesh((8,), ("model",), devices=devs)
+        _, shard_state, _ = build_train_step(
+            model, tcfg, mesh, params_axes(model), batch_logical_axes(cfg))
+        sh = shard_state(dict(model.named_parameters()))
+        params = {n: place(p, sh.params[n])
+                  for n, p in model.named_parameters()}
+        routes = []
+
+        def hook(idx):
+            routes.append(idx.cpu())
+            return idx
+
+        moe.ROUTE_HOOK = hook
+        try:
+            total, met, grads = loss_and_grads(model, params, batch, tcfg,
+                                               mesh)
+        finally:
+            moe.ROUTE_HOOK = None
+        runs[name] = (float(met["loss"]), routes,
+                      {n: gather(g, "cpu") for n, g in grads.items()})
+        del params, grads
+    (lc, rc, gc), (lx, rx, gx) = runs["card"], runs["cpu"]
+    same_routes = len(rc) == len(rx) > 0 and all(
+        torch.equal(a, b) for a, b in zip(rc, rx))
+    worst = max(float((gc[n] - gx[n]).abs().max()) /
+                max(float(gx[n].abs().max()), 1e-30) for n in gx)
+    log(f"{tag} (c) one layer at published width (fp32 activations), ("
+        f"\"model\",) 8: loss card {lc:.6f} / CPU {lx:.6f}; {len(rc)} "
+        f"route calls, routes {'equal' if same_routes else 'DIFFER'}; "
+        f"worst leaf's grad |diff| / its largest |grad| {worst:.3e} "
+        f"(limit {MOE_XDEV_GRAD_SHARE:.3e})")
+    checks["(c) one layer: routes equal on card and CPU ranks"] = \
+        same_routes
+    checks[f"(c) one layer: loss within rtol {MOE_XDEV_LOSS_RTOL}"] = \
+        _within(lc, lx, MOE_XDEV_LOSS_RTOL)
+    checks["(c) one layer: grads within the bf16 limit"] = \
+        worst <= MOE_XDEV_GRAD_SHARE
+
+
+def phase_mesh_train(smi: str, single: dict) -> None:
+    """Phase 24: training over ranks of the card (see the module
+    docstring); ``single`` is phase 21 (a)'s run."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import batch_logical_axes, make_batch, to_device
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import (build_train_step, train_loop,
+                                          train_state)
+    from repro_torch.runtime import (NodeFailure, build_mesh,
+                                     elastic_restore, plan_remesh)
+    from repro_torch.weights import init_params, params_axes
+    tag = "[mesh training]"
+    t_phase = time.perf_counter()
+    c0 = _counts()
+    checks = {}
+    gb = 1e9
+    mesh = make_test_mesh(MESH_TRAIN_SHAPE, MESH_TRAIN_AXES, devices="cuda")
+
+    # (a) / (b) llama3.2-3b at full width and depth -----------------------
+    cfg = get_config(TRAIN_ARCH)
+    B = single["B"]
+    batches = [to_device(make_batch(cfg, B, TRAIN_S, i), "cuda")
+               for i in range(TRAIN_STEPS)]
+    base = TrainConfig(total_steps=TRAIN_STEPS,
+                       warmup_steps=max(TRAIN_STEPS // 10, 1))
+    for what, sharding, steps in (("(a) fsdp", "fsdp", TRAIN_STEPS),
+                                  ("(b) tp", "tp", MESH_TP_STEPS)):
+        tcfg = dataclasses.replace(base, sharding=sharding)
+        run = _mesh_train_run(cfg, tcfg, mesh, batches[:steps])
+        _held_against_single(run, single, steps, tag, what, smi, checks)
+        checks[f"{what}: masters and moments stored once "
+               f"({12 * run['n_par'] / gb:.2f} GB)"] = \
+            sum(run["rank_bytes"]) == 12 * run["n_par"]
+        checks[f"{what}: the model's own parameters released"] = all(
+            p.numel() == 0 for p in run["model"].parameters())
+        tail = sorted(run["times"][2:] if steps > 3 else run["times"][1:])
+        profile_train_step(lambda: run["step"](run["state"], batches[0]),
+                           smi, f"{tag} {what}", 1e3 * tail[len(tail) // 2])
+        del run
+        torch.cuda.empty_cache()
+    del batches
+    torch.cuda.empty_cache()
+
+    # (c) deepseek-moe-16b at published width, depth cut -------------------
+    mcfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                               num_layers=MOE_TRAIN_LAYERS)
+    n_par = mcfg.param_count()
+    full = get_config("deepseek-moe-16b")
+    log(f"{tag} (c) deepseek-moe-16b cut to {MOE_TRAIN_LAYERS} of "
+        f"{full.num_layers} layers (width, 64 experts top 6 kept): "
+        f"{n_par:,} parameters x 18 B (fp32 masters, grads, m, v, bf16 "
+        f"views) = {18 * n_par / gb:.1f} GB; the whole depth would need "
+        f"{18 * full.param_count() / gb:.0f} GB")
+    ln_v = math.log(mcfg.padded_vocab)
+    mbatches = [to_device(make_batch(mcfg, MOE_TRAIN_B, MOE_TRAIN_S, i),
+                          "cuda") for i in range(MOE_TRAIN_STEPS)]
+    for what, shape, axes, sharding, want in (
+            ("(c) model 8 tp", (8,), ("model",), "tp", "a2a"),
+            ("(c) data 8 fsdp", (8,), ("data",), "fsdp", "fsdp")):
+        tcfg = dataclasses.replace(base, sharding=sharding)
+        mmesh = make_test_mesh(shape, axes, devices="cuda")
+        run = _mesh_train_run(
+            mcfg, tcfg, mmesh, mbatches,
+            before=lambda model, params, _t=tcfg: _loss_without_mesh(
+                model, params, mbatches[0], _t))
+        losses = [m["loss"] for m in run["metrics"]]
+        tail = sorted(run["times"][1:])
+        log(f"{tag} {what}: B = {MOE_TRAIN_B} x S = {MOE_TRAIN_S}, "
+            f"losses " + " ".join(f"{x:.4f}" for x in losses)
+            + f" (step 0 without a mesh, no_grad: {run['before']:.4f}); "
+            f"aux " + " ".join(f"{m['aux']:.4f}" for m in run["metrics"])
+            + f"; forward paths {run['paths']}, recomputed "
+            f"{run['recomputed']}; step ms " + " ".join(
+                f"{1e3 * t:.1f}" for t in run["times"])
+            + f" (the slower of steps 1-2 {1e3 * tail[len(tail) // 2]:.1f}); "
+            f"peak {run['peak'] / gb:.2f} GB; per rank " + " ".join(
+                f"{b / gb:.2f}" for b in run["rank_bytes"]) + f" GB ({smi})")
+        layers = MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS
+        checks[f"{what}: every FFN on the {want} path "
+               f"({layers} forward calls)"] = \
+            run["paths"] == {want: layers} == run["recomputed"]
+        checks[f"{what}: losses finite"] = all(
+            math.isfinite(x) for x in losses)
+        checks[f"{what}: step 0's loss within [ln V - 1, ln V + 2]"] = \
+            ln_v - 1 <= losses[0] <= ln_v + 2
+        del run
+        torch.cuda.empty_cache()
+    del mbatches
+    torch.cuda.empty_cache()
+    _moe_xdev_layer(dataclasses.replace(base, sharding="tp"), checks, tag)
+    torch.cuda.empty_cache()
+
+    # (d) elastic: a failure over 8 ranks, resumed on 4 ----------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        loop = dict(steps=ELASTIC_STEPS, batch=ELASTIC_B, seq_len=ELASTIC_S,
+                    smoke=True, log_every=100, mesh=mesh, async_save=False)
+        _, ref = train_loop(TRAIN_ARCH, **loop)
+        raised = False
+        try:
+            train_loop(TRAIN_ARCH, ckpt_dir=tmp,
+                       checkpoint_every=ELASTIC_EVERY,
+                       inject_failure_at=ELASTIC_FAIL, **loop)
+        except NodeFailure:
+            raised = True
+        decision = plan_remesh(4, model_parallel=mesh.axis_size("model"),
+                               global_batch=ELASTIC_B,
+                               old_dp=mesh.axis_size("data"))
+        mesh4 = build_mesh(decision, "cuda")
+        rcfg = get_config(TRAIN_ARCH).reduced()
+        tcfg = TrainConfig(total_steps=ELASTIC_STEPS,
+                           warmup_steps=max(ELASTIC_STEPS // 10, 1),
+                           microbatches=decision.microbatches)
+        model = init_params(rcfg, seed=SEED + 1, device="cuda",
+                            param_dtype=torch.float32)
+        step, shard_state, _ = build_train_step(
+            model, tcfg, mesh4, params_axes(model), batch_logical_axes(rcfg))
+        example = train_state(model)
+        state, start = elastic_restore(
+            CheckpointManager(tmp), example, mesh4,
+            lambda m: shard_state(example.params))
+        resumed = []
+        for i in range(start, ELASTIC_STEPS):
+            state, m = step(state, to_device(
+                make_batch(rcfg, ELASTIC_B, ELASTIC_S, i), "cuda"))
+            resumed.append(float(m["loss"]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, ref[start:]))
+        log(f"{tag} (d) elastic: {ELASTIC_STEPS} steps over "
+            f"{MESH_TRAIN_SHAPE}, failure at {ELASTIC_FAIL}, plan_remesh "
+            f"to {decision.mesh_shape} ({decision.microbatches} "
+            f"microbatches), restored step {start}: losses "
+            + " ".join(f"{a:.6f}/{b:.6f}" for a, b in
+                       zip(resumed, ref[start:]))
+            + f"; max rel diff {rel:.3e} (rtol {ELASTIC_RTOL})")
+        checks[f"(d) NodeFailure at step {ELASTIC_FAIL}, restored from "
+               f"checkpoint {ELASTIC_EVERY} onto 4 ranks"] = \
+            raised and start == ELASTIC_EVERY and \
+            decision.mesh_shape == (1, 4)
+        checks[f"(d) resumed losses within rtol {ELASTIC_RTOL}"] = \
+            rel <= ELASTIC_RTOL
+        del model, state, step, example
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = {n: c for n, c in _since(c0).items() if c}
+    checks["no K1-K7 launch in mesh training"] = not launched
+    log(f"{tag} kernel launches in phase 24: {launched or 'none'}")
+    log(f"{tag} phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh training checks failed: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -6449,14 +6850,14 @@ def phase_mesh_model(smi: str) -> dict:
 
 
 PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,),
-               21: (), 22: (5,), 23: ()}
+               21: (), 22: (5,), 23: (), 24: (21,)}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-23 by default), with
+    """The phases to run for ``--phases`` (all of 2-24 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 24))
+        return set(range(2, 25))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -6603,8 +7004,11 @@ def main(argv=None) -> int:
     if 21 in run:
         # every earlier model is freed: the 3.2B model's fp32 training
         # state needs most of the card
-        phase_train(smi)
+        single = phase_train(smi)
         torch.cuda.empty_cache()
+        if 24 in run:
+            phase_mesh_train(smi, single)
+            torch.cuda.empty_cache()
     kernels = [rows[n] for n in ("fused_dispatch", "paged_attention",
                                  "flash_attention", "fpm_copy",
                                  "fpm_copy_cross", "zero_init",

@@ -14,6 +14,12 @@ zero-copy snapshot (an immutable array handle) does not carry over:
 :meth:`CheckpointManager.save` copies every tensor to the host on the
 calling thread (bfloat16 as its uint16 bits, ``core/journal.py
 to_host``), and only the disk write runs on the background thread.
+
+A state placed over a rank mesh (``launch.mesh.Sharded`` leaves) is saved
+as whole arrays, as the reference's ``np.asarray`` saves a sharded
+``jax.Array``, so a checkpoint does not depend on the mesh it came from;
+:meth:`CheckpointManager.restore` places each leaf by the ``Sharding``
+it is given (an elastic restore passes the new mesh's).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.journal import from_host, to_host
+from repro_torch.launch.mesh import Sharded, Sharding, gather, place
 
 
 def _leaves(tree) -> List[Any]:
@@ -59,7 +66,10 @@ def _rebuild(example, leaves) -> Any:
 
 
 def _host_copy(leaf) -> np.ndarray:
-    """A host copy of one leaf, made now (the caller may mutate it)."""
+    """A host copy of one leaf, made now (the caller may mutate it); a
+    sharded leaf whole."""
+    if isinstance(leaf, Sharded):
+        return to_host(gather(leaf, "cpu"))
     if isinstance(leaf, torch.Tensor):
         return to_host(leaf)
     return np.array(leaf, copy=True)
@@ -137,11 +147,15 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, example_state, step: Optional[int] = None):
+    def restore(self, example_state, step: Optional[int] = None,
+                shardings=None):
         """Rebuild ``example_state``'s structure from checkpoint ``step``
         (default: the latest).  A tensor leaf of the example comes back as
         a tensor of its dtype on its device (bits reinterpreted for
-        bfloat16), any other leaf as the stored numpy array.  Returns
+        bfloat16), a ``Sharded`` leaf placed as it is, any other leaf as
+        the stored numpy array.  ``shardings``: a tree matching the state
+        of ``launch.mesh.Sharding`` leaves; each leaf is then placed by
+        its own (``launch.mesh.place``) in the example's dtype.  Returns
         ``(state, step)``."""
         self.wait()
         step = self.latest_step() if step is None else step
@@ -149,11 +163,15 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step}", "arrays.npz")
         examples = _leaves(example_state)
+        placements = _leaves(shardings) if shardings is not None \
+            else [getattr(ex, "sharding", None) for ex in examples]
         with np.load(path) as data:
             loaded = []
-            for i, ex in enumerate(examples):
+            for i, (ex, sh) in enumerate(zip(examples, placements)):
                 a = data[f"a{i}"]
-                if isinstance(ex, torch.Tensor):
+                if isinstance(sh, Sharding):
+                    a = place(from_host(a, ex.dtype, "cpu"), sh)
+                elif isinstance(ex, torch.Tensor):
                     a = from_host(a, ex.dtype, ex.device)
                 loaded.append(a)
         return _rebuild(example_state, iter(loaded)), step

@@ -195,9 +195,11 @@ class RowCloneConfig:
 class TrainConfig:
     """Training hyper-parameters (the reference's, every field and
     default).  ``remat_policy`` names a ``models/transformer.py
-    REMAT_POLICIES`` entry; ``sharding`` and ``grad_compress`` choose the
-    mesh's rules and the compressed DP all-reduce, which wait for the mesh
-    (ROADMAP item 12b): on one device they change nothing."""
+    REMAT_POLICIES`` entry; ``sharding`` picks the rules a step over a
+    mesh runs under (``"fsdp"``: ``FSDP_RULES``, else ``DEFAULT_RULES``;
+    ``launch/train.py``).  ``grad_compress`` is declared and read by
+    nothing, as in the reference: its step calls no compressed all-reduce
+    (``optim/compress.py``)."""
     learning_rate: float = 3e-4
     warmup_steps: int = 100
     total_steps: int = 1000

@@ -1,6 +1,7 @@
 """Training of the port (port of ``repro/launch/train.py``): the
-train step with mixed precision and microbatch accumulation, and the loop
-with checkpoints, restarts and the straggler ledger.
+train step with mixed precision and microbatch accumulation, on one
+device or over a rank mesh, and the loop with checkpoints, restarts and
+the straggler ledger.
 
 Mixed precision is the reference's ``cast_bf16``: the fp32 master weights
 are held as the model's parameters, and each step computes the loss
@@ -13,9 +14,20 @@ checkpointed blocks from the module's attributes.  At the reduced
 configs (fp32 activations) the bf16-rounded weights then meet fp32
 activations, as in the reference.
 
-The reference's ``build_jit_train_step`` shards and jits the step over a
-mesh; it has no counterpart until the mesh (ROADMAP item 12b), nor have
-``mesh=`` and the compressed DP all-reduce (``optim/compress.py``).
+Over a rank mesh (``DeviceMesh``) the step computes the loss, its grads
+and backward's recomputations under ``FSDP_RULES`` when
+``tcfg.sharding == "fsdp"``, else ``DEFAULT_RULES`` (the reference's
+``use_rules``).  :func:`build_train_step` is the counterpart of the
+reference's ``build_jit_train_step``: its ``shard_state`` gives each
+parameter's ``launch.mesh.Sharding`` from its logical axes
+(``weights.params_axes``), and ``train_state(model, shardings)`` places
+the fp32 masters and both moments as the blocks each rank's coordinates
+select, each once, on its rank's device, releasing the model's own
+tensors.  A step casts each block to bf16 where it lies and gathers the
+views on the loss device (the mesh's first rank's), where the loss runs
+whole but for a moe FFN's mesh path and the training attention, which
+run rank by rank; autograd brings each block its grads, and AdamW updates
+each block where it lies.
 
 CLI (CPU-sized by default, ``--full`` for the published width):
 
@@ -32,32 +44,59 @@ from torch import nn
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_config
-from repro_torch.data import make_batch, to_device
+from repro_torch.data import batch_logical_axes, make_batch, to_device
+from repro_torch.launch.mesh import (DeviceMesh, gather, pieces, place,
+                                     sharding_for, tree_shardings,
+                                     with_pieces)
 from repro_torch.models.lm import LanguageModel
 from repro_torch.optim import AdamWState, apply_updates, init_state
 from repro_torch.runtime import HeartbeatLedger, NodeFailure
-from repro_torch.weights import init_params, resolve_device
+from repro_torch.sharding.rules import DEFAULT_RULES, FSDP_RULES, use_rules
+from repro_torch.weights import init_params, params_axes, resolve_device
 
 
 class TrainState(NamedTuple):
-    params: Dict[str, torch.Tensor]    # the model's fp32 master parameters
+    #: the fp32 masters: the model's own parameters, or over a mesh
+    #: ``launch.mesh.Sharded`` blocks (a leaf the spec does not shard:
+    #: one tensor on the first rank's device)
+    params: Dict[str, object]
     opt: AdamWState
 
 
-def train_state(model: LanguageModel) -> TrainState:
+def train_rules(tcfg: TrainConfig) -> Dict:
+    """The rule set a step runs under: ``FSDP_RULES`` for
+    ``sharding="fsdp"``, else ``DEFAULT_RULES``."""
+    return FSDP_RULES if tcfg.sharding == "fsdp" else DEFAULT_RULES
+
+
+def train_state(model: LanguageModel,
+                shardings: Optional[TrainState] = None) -> TrainState:
     """The state that trains ``model``: its own parameters (made to
-    require grad) and a fresh optimizer state."""
+    require grad) and a fresh optimizer state.  With ``shardings`` (the
+    ``shard_state`` of :func:`build_train_step`), each parameter is
+    placed by its ``Sharding`` and the model's own tensor released (the
+    masters are held once; the model then runs only through a step), and
+    the moments are zeros in the same layout."""
     params = dict(model.named_parameters())
+    if shardings is not None:
+        placed = {}
+        for n, p in params.items():
+            placed[n] = place(p, shardings.params[n])
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        params = placed
     for p in params.values():
-        p.requires_grad_(True)
+        for t in pieces(p):
+            t.requires_grad_(True)
     return TrainState(params, init_state(params))
 
 
-def bf16_views(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def bf16_views(params: Dict, device=None) -> Dict[str, torch.Tensor]:
     """The reference's ``cast_bf16``: every fp32 parameter with ``ndim >
-    1`` as a bf16 tensor made through autograd, the others as they are."""
-    return {n: p.to(torch.bfloat16)
-            if p.dtype == torch.float32 and p.ndim > 1 else p
+    1`` as a bf16 tensor made through autograd, the others as they are,
+    each whole on ``device`` (default its own; a sharded one's blocks
+    are cast where they lie, then gathered)."""
+    return {n: gather(p, device, torch.bfloat16 if p.dtype == torch.float32
+                      and p.ndim > 1 else None)
             for n, p in params.items()}
 
 
@@ -69,73 +108,134 @@ class _LossAndGrads(nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, batch, remat: str, wrt: List[torch.Tensor]):
-        total, metrics = self.model.loss_fn(batch, remat)
+    def forward(self, batch, remat: str, wrt: List[torch.Tensor],
+                mesh: Optional[DeviceMesh] = None):
+        total, metrics = self.model.loss_fn(batch, remat, mesh)
         grads = torch.autograd.grad(total, wrt)
         return total.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 
 
-def make_train_step(model: LanguageModel, tcfg: TrainConfig, mesh=None
+def loss_and_grads(model: LanguageModel, params: Dict, batch: Dict,
+                   tcfg: TrainConfig, mesh: Optional[DeviceMesh] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict]:
+    """The loss of ``batch`` against bf16 views of ``params`` and its
+    grads, laid out as ``params`` (a sharded parameter's grads as its
+    blocks).  Over ``mesh`` the views, the batch and the loss lie on the
+    mesh's first rank's device, and everything runs under
+    :func:`train_rules`, backward's recomputations included.  Returns
+    (total, {"loss", "aux"}, grads).  Each piece of ``params`` is made to
+    require grad (a restored state's too)."""
+    device = mesh.devices[0] if mesh is not None else None
+    wrt = [t.requires_grad_(True) for p in params.values()
+           for t in pieces(p)]
+    views = bf16_views(params, device)
+    if device is not None:
+        batch = {k: gather(v, device) for k, v in batch.items()}
+    # ranks on two devices: backward on one thread, since torch's
+    # non-reentrant checkpoint starts a frame's recomputation without a
+    # lock, and two autograd device threads (the aux loss reaches a rank's
+    # router at once) would both start it
+    one_thread = mesh is not None and len(set(mesh.devices)) > 1
+    with use_rules(train_rules(tcfg)), \
+            torch.autograd.set_multithreading_enabled(not one_thread):
+        total, metrics, flat = torch.func.functional_call(
+            _LossAndGrads(model), {f"model.{n}": v for n, v in views.items()},
+            (batch, tcfg.remat_policy, wrt, mesh))
+    grads, i = {}, 0
+    for n, p in params.items():
+        k = len(pieces(p))
+        grads[n] = with_pieces(p, flat[i:i + k])
+        i += k
+    return total, metrics, grads
+
+
+def make_train_step(model: LanguageModel, tcfg: TrainConfig,
+                    mesh: Optional[DeviceMesh] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``, the state
     updated IN PLACE (``optim/adamw.py``).  ``batch``: tensors on the
-    model's device (``data.to_device``).  ``tcfg.microbatches = m > 1``
-    splits the batch's leading dim into m slices, sums their fp32 grads
-    and divides the grads and the loss by m.  Metrics: ``loss`` (the
-    cross-entropy; with m > 1 the mean total), ``aux`` (m = 1), ``grad_norm``
-    and ``lr``, as 0-d tensors."""
-    if mesh is not None:
-        raise NotImplementedError("sharded training needs the mesh "
-                                  "(ROADMAP item 12b)")
-    run = _LossAndGrads(model)
-
-    def grads_of(params, batch):
-        views = bf16_views(params)
-        return torch.func.functional_call(
-            run, {f"model.{n}": v for n, v in views.items()},
-            (batch, tcfg.remat_policy, list(params.values())))
-
+    model's device (``data.to_device``); over ``mesh`` on any device, or
+    placed, and gathered on the mesh's first rank's device.
+    ``tcfg.microbatches = m > 1`` splits the batch's leading dim into m
+    slices, sums their fp32 grads and divides the grads and the loss by
+    m.  Metrics: ``loss`` (the cross-entropy; with m > 1 the mean total),
+    ``aux`` (m = 1), ``grad_norm`` and ``lr``, as 0-d tensors."""
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
+        if mesh is not None:
+            batch = {k: gather(v, mesh.devices[0]) for k, v in batch.items()}
         m = tcfg.microbatches
         if m > 1:
             mbs = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])
                    for k, v in batch.items()}
-            acc = [torch.zeros_like(p, dtype=torch.float32)
-                   for p in params.values()]
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=next(iter(params.values())).device)
+            acc = {n: with_pieces(p, [torch.zeros_like(
+                t, dtype=torch.float32) for t in pieces(p)])
+                for n, p in params.items()}
+            loss = 0.0
             for i in range(m):
-                total, _, grads = grads_of(params,
-                                           {k: v[i] for k, v in mbs.items()})
-                for a, g in zip(acc, grads):
-                    a.add_(g.float())
+                total, _, grads = loss_and_grads(
+                    model, params, {k: v[i] for k, v in mbs.items()}, tcfg,
+                    mesh)
+                for n, g in grads.items():
+                    for a, t in zip(pieces(acc[n]), pieces(g)):
+                        a.add_(t.float())
                 loss = loss + total
-            grads = [a.div_(m) for a in acc]
+            grads = {n: with_pieces(a, [t.div_(m) for t in pieces(a)])
+                     for n, a in acc.items()}
             loss = loss / m
             metrics = {}
         else:
-            loss, metrics, grads = grads_of(params, batch)
-        grads = dict(zip(params, grads))
+            loss, metrics, grads = loss_and_grads(model, params, batch,
+                                                  tcfg, mesh)
         _, opt, om = apply_updates(params, grads, state.opt, tcfg)
         return TrainState(params, opt), {"loss": loss, **metrics, **om}
 
     return train_step
 
 
+def build_train_step(model: LanguageModel, tcfg: TrainConfig,
+                     mesh: DeviceMesh, params_axes: Dict[str, tuple],
+                     batch_ax: Dict[str, tuple]):
+    """The counterpart of the reference's ``build_jit_train_step``
+    (``repro/launch/train.py:103-124``): returns ``(step_fn, shard_state,
+    batch_shardings)``.  ``shard_state(params_like)`` gives the
+    ``TrainState`` of ``launch.mesh.Sharding`` (under
+    :func:`train_rules`, from ``params_axes``, as
+    ``weights.params_axes`` gives them): each parameter's and, laid out
+    alike, each moment's; the optimizer step replicated.
+    ``batch_shardings(batch_like)`` gives each batch leaf's from
+    ``batch_ax`` (``data.batch_logical_axes``)."""
+    rules = train_rules(tcfg)
+    step_fn = make_train_step(model, tcfg, mesh)
+
+    def shard_state(params_like) -> TrainState:
+        with use_rules(rules):
+            p_sh = tree_shardings(mesh, params_like, params_axes)
+            return TrainState(p_sh, AdamWState(sharding_for(mesh, (), ()),
+                                               p_sh, p_sh))
+
+    def batch_shardings(batch_like) -> Dict:
+        with use_rules(rules):
+            return {k: sharding_for(mesh, v.shape, batch_ax[k])
+                    for k, v in batch_like.items()}
+
+    return step_fn, shard_state, batch_shardings
+
+
 def _load(state: TrainState, saved: TrainState) -> None:
-    """Copy a restored state into the live one (the model's parameters
-    and the moments are the tensors the step updates in place)."""
+    """Copy a restored state into the live one (the parameters and the
+    moments are the tensors the step updates in place), piece by
+    piece."""
     with torch.no_grad():
-        for n, p in state.params.items():
-            p.copy_(saved.params[n])
         state.opt.step.copy_(saved.opt.step)
-        for live, kept in ((state.opt.m, saved.opt.m),
+        for live, kept in ((state.params, saved.params),
+                           (state.opt.m, saved.opt.m),
                            (state.opt.v, saved.opt.v)):
-            for n, t in live.items():
-                t.copy_(kept[n])
+            for n, x in live.items():
+                for a, b in zip(pieces(x), pieces(kept[n])):
+                    a.copy_(b)
 
 
 def train_loop(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 128,
@@ -152,9 +252,13 @@ def train_loop(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 128,
     raised at step ``inject_failure_at``.  The weights are fp32 masters
     from ``init_params(cfg, seed)`` unless ``model`` (fp32 parameters, on
     ``device``) is given; ``async_save=False`` writes each checkpoint
-    before the next step.  Returns (the state, the losses of the steps
-    run)."""
-    device = resolve_device(device)
+    before the next step.  Over ``mesh`` the model is made on the mesh's
+    first rank's device, the state is placed by :func:`build_train_step`'s
+    shardings (``TrainConfig.sharding``'s default rules, as the
+    reference's loop), the batches are made there, and a restore places
+    the checkpoint for this mesh, whatever mesh saved it.  Returns (the
+    state, the losses of the steps run)."""
+    device = mesh.devices[0] if mesh is not None else resolve_device(device)
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.reduced()
@@ -164,15 +268,21 @@ def train_loop(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 128,
     if model is None:
         model = init_params(cfg, seed=tcfg.seed, device=device,
                             param_dtype=torch.float32)
-    state = train_state(model)
-    step_fn = make_train_step(model, tcfg, mesh)
+    shardings = None
+    if mesh is None:
+        step_fn = make_train_step(model, tcfg)
+    else:
+        step_fn, shard_state, _ = build_train_step(
+            model, tcfg, mesh, params_axes(model), batch_logical_axes(cfg))
+        shardings = shard_state(dict(model.named_parameters()))
+    state = train_state(model, shardings)
 
     ckpt = CheckpointManager(ckpt_dir, async_save=async_save) \
         if ckpt_dir else None
     ledger = HeartbeatLedger()
     start = 0
     if ckpt and ckpt.latest_step() is not None:
-        saved, start = ckpt.restore(state)
+        saved, start = ckpt.restore(state, shardings=shardings)
         _load(state, saved)
         print(f"[train] restored step {start}")
 

@@ -9,10 +9,11 @@
 * Training: :func:`attention_train` and :func:`flash_attention`, the
   reference's model-level online softmax over KV chunks, each chunk's body
   checkpointed so that backward recomputes its scores instead of keeping
-  O(Sq x Skv) softmax residuals.  The reference trains through this
-  function and never through a Pallas kernel; the port's training forward
-  likewise calls no kernel (``models/transformer.py`` chooses by
-  ``impl=``).
+  O(Sq x Skv) softmax residuals; over a rank mesh one call per block of
+  the layout the reference constrains q to, on the block's rank.  The
+  reference trains through this function and never through a Pallas
+  kernel; the port's training forward likewise calls no kernel
+  (``models/transformer.py`` chooses by ``impl=``).
 
 Decode attention is K2, called from models/paged.py; under a rank mesh
 its per-rank partials meet in :func:`lse_combine`.
@@ -24,7 +25,9 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import Sharding, assemble
 from repro_torch.models.common import checkpointed
+from repro_torch.sharding.rules import logical_to_spec
 
 NEG_INF = -1e30
 
@@ -113,18 +116,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
+#: the logical axes of q that the reference's ``attention_train``
+#: constrains it to, by strategy (``attention.py:102-122``): its heads
+#: over ``model``, or its query positions
+TRAIN_Q_AXES = {"heads": ("batch", None, "act_heads", None),
+                "seq": ("batch", "act_seq_tp", None, None)}
+
+
+def _kv_for(k: torch.Tensor, heads: slice, group: int) -> torch.Tensor:
+    """The K/V heads that q heads ``heads`` read (head h reads h // group):
+    a slice where the block holds whole groups, else one K/V head per q
+    head (the block's heads straddle a group)."""
+    h0, h1 = heads.start, heads.stop
+    if h0 % group == 0 and (h1 - h0) % group == 0:
+        return k[:, :, h0 // group:h1 // group]
+    idx = torch.arange(h0, h1, device=k.device) // group
+    return k.index_select(2, idx)
+
+
 def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     pos: torch.Tensor, info: MaskInfo, mesh=None,
+                    strategy: str = "heads",
                     kv_chunk: int = 512) -> torch.Tensor:
     """Full-sequence attention for training: q (B, S, H, D), k / v
-    (B, S, KVH, D), pos (B, S), every key valid.  ``mesh`` shards heads
-    or the sequence in the reference; the port trains on one device until
-    the mesh (ROADMAP item 12b)."""
-    if mesh is not None:
-        raise NotImplementedError("sharded training attention needs the "
-                                  "mesh (ROADMAP item 12b)")
+    (B, S, KVH, D), pos (B, S), every key valid.
+
+    Over a ``mesh`` of more than one rank, q splits by the spec that
+    :data:`TRAIN_Q_AXES` ``[strategy]`` resolves to under the active rules
+    (``sharding.rules.logical_to_spec`` with q's dims: a dim that its axes
+    do not divide stays whole, as the reference's ``constrain``), and each
+    distinct block runs :func:`flash_attention` on the device of the
+    lowest rank that holds it: its batch rows, its query positions against
+    every key of those rows (``"seq"``), its heads against the K/V heads
+    they read (``"heads"``).  The outputs come back to q's device.  The
+    function is the whole call's: attention of a row, position and head
+    reads nothing of another."""
     kv_valid = torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
-    return flash_attention(q, k, v, pos, pos, kv_valid, info, kv_chunk)
+    if mesh is None or mesh.size == 1:
+        return flash_attention(q, k, v, pos, pos, kv_valid, info, kv_chunk)
+    sh = Sharding(mesh, logical_to_spec(TRAIN_Q_AXES[strategy], mesh,
+                                        dims=tuple(q.shape)))
+    group = q.shape[2] // k.shape[2]
+    outs = {}
+    for block, rank in sh.owners().items():
+        rows, seq, heads, _ = sh.slices(block, q.shape)
+        dev = mesh.devices[rank]
+        o = flash_attention(
+            q[rows, seq, heads].to(dev),
+            _kv_for(k[rows], heads, group).to(dev),
+            _kv_for(v[rows], heads, group).to(dev), pos[rows, seq].to(dev),
+            pos[rows].to(dev), kv_valid[rows].to(dev), info, kv_chunk)
+        outs[block] = o.to(q.device)
+    return assemble(outs, sh.counts(4))
 
 
 def lse_combine(accs: Sequence[torch.Tensor], ls: Sequence[torch.Tensor],
@@ -148,5 +191,5 @@ def lse_combine(accs: Sequence[torch.Tensor], ls: Sequence[torch.Tensor],
     return acc_g / l_g.clamp_min(1e-30)[..., None]
 
 
-__all__ = ["MaskInfo", "NEG_INF", "attention_train", "flash_attention",
-           "lse_combine", "prefill_attention"]
+__all__ = ["MaskInfo", "NEG_INF", "TRAIN_Q_AXES", "attention_train",
+           "flash_attention", "lse_combine", "prefill_attention"]

@@ -121,13 +121,13 @@ class LanguageModel(nn.Module):
     # training forward (full sequence; the reference's _backbone_train)
     # ------------------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor],
-                remat: str = "minimal"
+                remat: str = "minimal", mesh: Optional[DeviceMesh] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The module's forward is the training loss (:meth:`loss_fn`)."""
-        return self.loss_fn(batch, remat)
+        return self.loss_fn(batch, remat, mesh)
 
     def loss_fn(self, batch: Dict[str, torch.Tensor],
-                remat: str = "minimal"
+                remat: str = "minimal", mesh: Optional[DeviceMesh] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss of a ``data.make_batch`` batch on this
         model's device: ``tokens`` / ``labels`` / ``mask`` (B, S), a vlm's
@@ -136,10 +136,14 @@ class LanguageModel(nn.Module):
         (``common.chunked_softmax_xent``), the moe layers' aux losses
         summed (0 for the other families), ``total = loss + 1e-2 aux``.
         ``remat`` names the decoder stack's policy
-        (``transformer.REMAT_POLICIES``).  Differentiable; no kernel runs
-        (the training attention and SSD term are model-level functions)."""
+        (``transformer.REMAT_POLICIES``).  Over ``mesh`` every decoder
+        stack (the hybrid's shared block too) runs its training attention
+        by blocks on their ranks and a moe FFN by its mesh path, under the
+        active rules; the rest runs whole on the model's device.
+        Differentiable; no kernel runs (the training attention and SSD
+        term are model-level functions)."""
         cfg = self.cfg
-        x, aux, prefix = self._backbone_train(batch, remat)
+        x, aux, prefix = self._backbone_train(batch, remat, mesh)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         if prefix:
             x = x[:, prefix:, :]
@@ -148,7 +152,8 @@ class LanguageModel(nn.Module):
         total = loss + 1e-2 * aux
         return total, {"loss": loss, "aux": aux}
 
-    def _backbone_train(self, batch: Dict[str, torch.Tensor], remat: str
+    def _backbone_train(self, batch: Dict[str, torch.Tensor], remat: str,
+                        mesh: Optional[DeviceMesh] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """(final hidden (B, S, d) before the final norm, aux loss fp32,
         the length of the patch prefix to drop before the loss)."""
@@ -166,12 +171,12 @@ class LanguageModel(nn.Module):
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family in ("dense", "moe", "vlm"):
             x, aux = decoder_stack_train(self.layers, x, pos, cfg, info,
-                                         remat=remat)
+                                         remat=remat, mesh=mesh)
             return x, aux, prefix
         if cfg.family == "ssm":
             return self._mamba_stack_train(x), zero, 0
         if cfg.family == "hybrid":
-            x, aux = self._hybrid_stack_train(x, pos, info, remat)
+            x, aux = self._hybrid_stack_train(x, pos, info, remat, mesh)
             return x, aux, 0
         # encdec: the encoder over the source frames, then the decoder
         # with cross-attention
@@ -179,10 +184,11 @@ class LanguageModel(nn.Module):
         B_e, S_src, _ = enc.shape
         pos_e = torch.arange(S_src, device=x.device).expand(B_e, S_src)
         enc, _ = decoder_stack_train(self.enc_layers, enc, pos_e, cfg,
-                                     MaskInfo(causal=False), remat=remat)
+                                     MaskInfo(causal=False), remat=remat,
+                                     mesh=mesh)
         enc = rms_norm(enc, self.enc_norm, cfg.norm_eps)
         x, aux = decoder_stack_train(self.layers, x, pos, cfg, info,
-                                     enc_out=enc, remat=remat)
+                                     enc_out=enc, remat=remat, mesh=mesh)
         return x, aux, 0
 
     def _mamba_stack_train(self, x: torch.Tensor) -> torch.Tensor:
@@ -196,10 +202,13 @@ class LanguageModel(nn.Module):
         return x
 
     def _hybrid_stack_train(self, x: torch.Tensor, pos: torch.Tensor,
-                            info: MaskInfo, remat: str
+                            info: MaskInfo, remat: str,
+                            mesh: Optional[DeviceMesh] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The hybrid's segments: ``shared_attn_every`` Mamba2 layers then
-        the shared decoder layer, each segment under the remat policy."""
+        the shared decoder layer, each segment under the remat policy; the
+        shared block's attention always takes the ``"heads"`` strategy
+        (the reference's ``lm.py:167``)."""
         cfg = self.cfg
         k = cfg.shared_attn_every
 
@@ -208,7 +217,8 @@ class LanguageModel(nn.Module):
                 h = mamba2_layer(layer, h, cfg, impl="jax")[0]
             h, a, _ = decoder_layer_train(self.shared, h, pos, cfg,
                                           info.prefix_len, info.causal,
-                                          impl="jax")
+                                          impl="jax", mesh=mesh,
+                                          strategy="heads")
             return h, a
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

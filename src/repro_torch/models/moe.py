@@ -53,8 +53,11 @@ CAPACITY_FACTOR = 1.25
 ROUTE_HOOK: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 #: calls of :func:`moe_ffn` by the path they took (``"local"``,
-#: ``"fsdp"``, ``"a2a"``; a path that fell back counts as ``"local"``)
+#: ``"fsdp"``, ``"a2a"``; a path that fell back counts as ``"local"``),
+#: forward calls only: a checkpointed layer's recomputation during
+#: backward counts in :data:`RECOMPUTE_COUNTS`
 PATH_COUNTS: Dict[str, int] = collections.Counter()
+RECOMPUTE_COUNTS: Dict[str, int] = collections.Counter()
 
 
 def capacity(cfg: ModelConfig, seq_len: int) -> int:
@@ -261,9 +264,11 @@ def moe_ffn(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y (B, S, d) in x's dtype on x's device, aux loss
     fp32 scalar), by the path :func:`moe_path` names (counted in
-    :data:`PATH_COUNTS`)."""
+    :data:`PATH_COUNTS`, or in :data:`RECOMPUTE_COUNTS` when backward
+    recomputes it).  Every path carries gradients."""
     path = moe_path(mesh, x.shape, cfg)
-    PATH_COUNTS[path] += 1
+    in_backward = torch._C._current_graph_task_id() != -1
+    (RECOMPUTE_COUNTS if in_backward else PATH_COUNTS)[path] += 1
     if path == "a2a":
         return moe_ffn_a2a(p, x, cfg, mesh)
     if path == "fsdp":
@@ -363,7 +368,7 @@ def moe_ffn_a2a(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig,
     return _shared(p, x, y), aux / (T * dps)
 
 
-__all__ = ["CAPACITY_FACTOR", "PATH_COUNTS", "ROUTE_HOOK", "MoEFFN", "SwiGLU",
-           "a2a_layout", "capacity", "expert_ffn", "fsdp_batch_axes",
+__all__ = ["CAPACITY_FACTOR", "PATH_COUNTS", "RECOMPUTE_COUNTS", "ROUTE_HOOK",
+           "MoEFFN", "SwiGLU", "a2a_layout", "capacity", "expert_ffn", "fsdp_batch_axes",
            "moe_ffn", "moe_ffn_a2a", "moe_ffn_fsdp", "moe_ffn_local",
            "moe_path", "route", "route_local"]

@@ -30,6 +30,7 @@ from repro_torch.models.common import (apply_rope, checkpointed, rms_norm,
                                        swiglu_mlp)
 from repro_torch.models.moe import MoEFFN, moe_ffn
 from repro_torch.models.paged import paged_attend_append
+from repro_torch.sharding.rules import attn_strategy
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -122,23 +123,29 @@ ATTENTION_IMPLS = ("pallas", "jax")
 
 
 def _self_attention(q, k, v, pos, prefix_len: int, causal: bool,
-                    impl: str) -> torch.Tensor:
+                    impl: str, mesh: Optional[DeviceMesh] = None,
+                    strategy: str = "heads") -> torch.Tensor:
     if impl == "pallas":
         return prefill_attention(q, k, v, causal=causal,
                                  prefix_len=prefix_len)
     if impl == "jax":
-        return attention_train(q, k, v, pos, MaskInfo(causal, prefix_len))
+        return attention_train(q, k, v, pos, MaskInfo(causal, prefix_len),
+                               mesh, strategy)
     raise ValueError(f"impl {impl!r}: one of {ATTENTION_IMPLS}")
 
 
 def attn_block_train(layer: DecoderLayer, x: torch.Tensor,
                      pos: torch.Tensor, cfg: ModelConfig, prefix_len: int = 0,
-                     causal: bool = True, impl: str = "pallas"
+                     causal: bool = True, impl: str = "pallas",
+                     mesh: Optional[DeviceMesh] = None,
+                     strategy: str = "heads"
                      ) -> Tuple[torch.Tensor,
                                 Tuple[torch.Tensor, torch.Tensor]]:
     """The self-attention block over a full sequence: x (B, S, d), pos
     (B, S).  Returns x plus the attention's output and this layer's
-    post-RoPE (k, v), each (B, S, KVH, D)."""
+    post-RoPE (k, v), each (B, S, KVH, D).  The training attention
+    (``impl="jax"``) splits over ``mesh`` by ``strategy``
+    (``attention.attention_train``); K3 runs whole."""
     B, S, _ = x.shape
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     q, k, v = layer.qkv(h)
@@ -147,7 +154,8 @@ def attn_block_train(layer: DecoderLayer, x: torch.Tensor,
     k = apply_rope(_heads(k, cfg.num_kv_heads, cfg.head_dim), pos,
                    cfg.rope_theta)
     v = _heads(v, cfg.num_kv_heads, cfg.head_dim)
-    o = _self_attention(q, k, v, pos, prefix_len, causal, impl)
+    o = _self_attention(q, k, v, pos, prefix_len, causal, impl, mesh,
+                        strategy)
     return x + o.reshape(B, S, cfg.q_dim) @ layer.wo.to(x.dtype), (k, v)
 
 
@@ -188,7 +196,8 @@ def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
                         prefix_len: int = 0, causal: bool = True,
                         enc_out: Optional[torch.Tensor] = None,
                         impl: str = "pallas",
-                        mesh: Optional[DeviceMesh] = None
+                        mesh: Optional[DeviceMesh] = None,
+                        strategy: str = "heads"
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence layer: x (B, S, d), pos (B, S); key positions below
@@ -197,12 +206,14 @@ def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
     position visible to every query (an encoder layer); with ``enc_out``
     the cross-attention block runs after the self-attention.  ``impl``
     chooses the attention (:data:`ATTENTION_IMPLS`: K3 for prefill, the
-    model-level function for training); ``mesh`` reaches the FFN alone
-    (a moe layer's mesh path; attention runs whole on x's device, the
-    function GSPMD computes).  Returns the new x, the FFN's aux loss
-    (fp32 scalar, 0 for dense) and this layer's post-RoPE (k, v), each
-    (B, S, KVH, D)."""
-    x, kv = attn_block_train(layer, x, pos, cfg, prefix_len, causal, impl)
+    model-level function for training); ``mesh`` reaches the FFN (a moe
+    layer's mesh path) and the training attention, which splits by
+    ``strategy`` (``sharding.rules.attn_strategy``); K3, the
+    cross-attention and the rest run whole on x's device, the function
+    GSPMD computes.  Returns the new x, the FFN's aux loss (fp32 scalar, 0
+    for dense) and this layer's post-RoPE (k, v), each (B, S, KVH, D)."""
+    x, kv = attn_block_train(layer, x, pos, cfg, prefix_len, causal, impl,
+                             mesh, strategy)
     if enc_out is not None:
         x, _ = cross_block_train(layer, x, enc_out, cfg, impl)
     x, aux = layer.ffn(x, cfg, mesh)
@@ -244,14 +255,22 @@ def remat_call(remat: str, fn, *args):
 def decoder_stack_train(layers, x: torch.Tensor, pos: torch.Tensor,
                         cfg: ModelConfig, info: MaskInfo,
                         enc_out: Optional[torch.Tensor] = None,
-                        remat: str = "minimal"
+                        remat: str = "minimal",
+                        mesh: Optional[DeviceMesh] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward of a decoder (or encoder) stack: each layer
     under the remat policy ``remat``, the training attention
-    (``impl="jax"``).  Returns (x, the layers' aux losses summed)."""
+    (``impl="jax"``), over ``mesh`` by the strategy
+    ``sharding.rules.attn_strategy`` picks (the reference's
+    ``transformer.py:162``).  Returns (x, the layers' aux losses
+    summed)."""
+    strategy = attn_strategy(cfg.num_heads, mesh) if mesh is not None \
+        else "heads"
+
     def body(layer, h):
         h, a, _ = decoder_layer_train(layer, h, pos, cfg, info.prefix_len,
-                                      info.causal, enc_out, impl="jax")
+                                      info.causal, enc_out, impl="jax",
+                                      mesh=mesh, strategy=strategy)
         return h, a
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,6 +1,10 @@
 """AdamW with decoupled weight decay, global-norm clipping and a cosine
 schedule (port of ``repro/optim/adamw.py``), over a flat dict of
-parameters keyed by the port's names (``model.named_parameters()``).
+parameters keyed by the port's names (``model.named_parameters()``).  A
+parameter is a tensor or, over a rank mesh, a ``launch.mesh.Sharded``
+whose blocks lie on their ranks' devices: each block, its grads and its
+moments are updated where they lie, the decay decided by the
+parameter's name.
 
 The arithmetic is the reference's, in fp32 and in its order: ``m``, ``v``,
 the bias corrections with the step as fp32, ``delta``, the decay on the
@@ -18,23 +22,28 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs import TrainConfig
+from repro_torch.launch.mesh import pieces, with_pieces
 from repro_torch.weights import jax_path
 
 
 class AdamWState(NamedTuple):
-    step: torch.Tensor                 # () int32, on the parameters' device
+    step: torch.Tensor                 # () int32, on the first parameter's
     m: Dict[str, torch.Tensor]         # like params, fp32
     v: Dict[str, torch.Tensor]         # like params, fp32
 
 
-def init_state(params: Dict[str, torch.Tensor]) -> AdamWState:
-    dev = next(iter(params.values())).device
-    return AdamWState(
-        torch.zeros((), dtype=torch.int32, device=dev),
-        {n: torch.zeros_like(p, dtype=torch.float32)
-         for n, p in params.items()},
-        {n: torch.zeros_like(p, dtype=torch.float32)
-         for n, p in params.items()})
+def _zeros(p):
+    return with_pieces(p, [torch.zeros_like(t, dtype=torch.float32)
+                           for t in pieces(p)])
+
+
+def init_state(params: Dict) -> AdamWState:
+    """Step 0 (on the device of the first parameter's first piece) and
+    zero moments laid out as the parameters."""
+    dev = pieces(next(iter(params.values())))[0].device
+    return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
+                      {n: _zeros(p) for n, p in params.items()},
+                      {n: _zeros(p) for n, p in params.items()})
 
 
 def cosine_schedule(cfg: TrainConfig, step) -> torch.Tensor:
@@ -49,18 +58,23 @@ def cosine_schedule(cfg: TrainConfig, step) -> torch.Tensor:
     return cfg.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum() for x in tree.values()))
+def global_norm(tree: Dict) -> torch.Tensor:
+    """The norm of every piece of every leaf, summed on the first piece's
+    device."""
+    ts = [t for x in tree.values() for t in pieces(x)]
+    dev = ts[0].device
+    return torch.sqrt(sum(t.float().square().sum().to(dev) for t in ts))
 
 
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
-                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+def clip_by_global_norm(grads: Dict, max_norm: float
+                        ) -> Tuple[Dict, torch.Tensor]:
     """Scale the grads IN PLACE so that their global norm is at most
     ``max_norm``.  Returns (the grads, their norm before clipping)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
-        g.mul_(scale)
+        for t in pieces(g):
+            t.mul_(scale.to(t.device))
     return grads, norm
 
 
@@ -80,14 +94,12 @@ def decays(name: str) -> bool:
 
 
 @torch.no_grad()
-def apply_updates(params: Dict[str, torch.Tensor],
-                  grads: Dict[str, torch.Tensor], state: AdamWState,
+def apply_updates(params: Dict, grads: Dict, state: AdamWState,
                   cfg: TrainConfig
-                  ) -> Tuple[Dict[str, torch.Tensor], AdamWState,
-                             Dict[str, torch.Tensor]]:
+                  ) -> Tuple[Dict, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step: clip the grads, update ``m`` / ``v`` and the
-    parameters IN PLACE.  Returns (params, the state with the step
-    advanced, {"grad_norm", "lr"})."""
+    parameters IN PLACE, piece by piece where each piece lies.  Returns
+    (params, the state with the step advanced, {"grad_norm", "lr"})."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     step = state.step + 1
     stepf = step.float()
@@ -95,20 +107,25 @@ def apply_updates(params: Dict[str, torch.Tensor],
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
-    for n, p in params.items():
-        g = grads[n].float()
-        m, v = state.m[n], state.v[n]
-        m.mul_(b1).add_(g * (1 - b1))
-        v.mul_(b2).add_(g.square() * (1 - b2))
-        mh = m / bc1
-        delta = mh.div_((v / bc2).sqrt_().add_(1e-8))
-        p32 = p.float()
-        if decays(n):
-            delta.add_(cfg.weight_decay * p32)
-        if p.dtype == torch.float32:
-            p.sub_(delta.mul_(lr))
-        else:
-            p.copy_(p32 - lr * delta)
+    scalars = {}            # (lr, bc1, bc2) on each device a piece uses
+    for n, par in params.items():
+        for p, g, m, v in zip(pieces(par), pieces(grads[n]),
+                              pieces(state.m[n]), pieces(state.v[n])):
+            if p.device not in scalars:
+                scalars[p.device] = [t.to(p.device) for t in (lr, bc1, bc2)]
+            lr_d, bc1_d, bc2_d = scalars[p.device]
+            g = g.float()
+            m.mul_(b1).add_(g * (1 - b1))
+            v.mul_(b2).add_(g.square() * (1 - b2))
+            mh = m / bc1_d
+            delta = mh.div_((v / bc2_d).sqrt_().add_(1e-8))
+            p32 = p.float()
+            if decays(n):
+                delta.add_(cfg.weight_decay * p32)
+            if p.dtype == torch.float32:
+                p.sub_(delta.mul_(lr_d))
+            else:
+                p.copy_(p32 - lr_d * delta)
     return params, AdamWState(step, state.m, state.v), \
         {"grad_norm": gnorm, "lr": lr}
 

@@ -179,10 +179,12 @@ class RestartPolicy:
 
 def run_with_restarts(train_loop: Callable[[int, object], object],
                       init_state, ckpt: CheckpointManager,
-                      policy: RestartPolicy) -> object:
+                      policy: RestartPolicy, shardings=None) -> object:
     """Drive ``train_loop(start_step, state) -> state`` with restart on
     :class:`NodeFailure`: resume from the latest checkpoint (or from the
-    start), at most ``policy.max_restarts`` times."""
+    start), at most ``policy.max_restarts`` times.  ``shardings`` (a tree
+    of ``launch.mesh.Sharding`` matching the state) places the restored
+    state (``CheckpointManager.restore``)."""
     state = init_state
     start = 0
     restarts = 0
@@ -198,5 +200,6 @@ def run_with_restarts(train_loop: Callable[[int, object], object],
             if step is None:
                 state, start = init_state, 0
             else:
-                state, start = ckpt.restore(init_state, step)
+                state, start = ckpt.restore(init_state, step,
+                                            shardings=shardings)
                 start = step

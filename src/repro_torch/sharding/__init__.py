@@ -1,10 +1,8 @@
 """Logical-axis sharding rules of the port (``rules.py``)."""
 from repro_torch.sharding.rules import (DEFAULT_RULES, FSDP_RULES,
                                         active_rules, attn_strategy,
-                                        axis_size, batch_spec_axes,
-                                        divisible, logical_to_spec,
+                                        axis_size, logical_to_spec,
                                         use_rules)
 
 __all__ = ["DEFAULT_RULES", "FSDP_RULES", "active_rules", "attn_strategy",
-           "axis_size", "batch_spec_axes", "divisible", "logical_to_spec",
-           "use_rules"]
+           "axis_size", "logical_to_spec", "use_rules"]

@@ -12,11 +12,15 @@ training rules (the batch over every axis), activated with
 
 :func:`logical_to_spec` returns the reference's ``PartitionSpec`` as a
 plain tuple: one entry per dimension, ``None``, a mesh axis name, or a
-tuple of axis names sharded jointly.  The reference's ``constrain`` and
-``named_sharding`` have no counterpart: they hand a placement to GSPMD,
-and the port places every tensor explicitly (a slab on its rank's device,
-everything else whole on the model's device), so there is nothing to
-annotate.
+tuple of axis names sharded jointly.  ``launch/mesh.py`` ``sharding_for``
+reads it to place the training state; ``models/attention.py
+attention_train`` to split the training attention into the blocks the
+reference's ``constrain`` names; ``models/transformer.py`` asks
+:func:`attn_strategy` which of its two layouts to use.  The reference's
+``constrain`` and ``named_sharding`` have no counterpart: they hand a
+placement to GSPMD, and the port places every tensor explicitly (a block
+or a slab on its rank's device, everything else whole on the model's
+device), so there is nothing to annotate.
 """
 from __future__ import annotations
 
@@ -167,25 +171,13 @@ def logical_to_spec(logical_axes: Sequence[Optional[str]], mesh: DeviceMesh,
     return tuple(out)
 
 
-def divisible(n: int, mesh: DeviceMesh, axis: str) -> bool:
-    if axis not in mesh.axis_names:
-        return True
-    return n % mesh.axis_size(axis) == 0
-
-
 def axis_size(mesh: DeviceMesh, axis) -> int:
-    """Ranks along ``axis`` (a name or a tuple of names, jointly); 1 for an
-    axis the mesh does not have."""
+    """Ranks along ``axis`` (a name or a tuple of names, jointly; each
+    name through ``DeviceMesh.axis_size``); 1 for an axis the mesh does
+    not have."""
     if isinstance(axis, tuple):
         return math.prod(axis_size(mesh, a) for a in axis)
     return mesh.axis_size(axis) if axis in mesh.axis_names else 1
-
-
-def batch_spec_axes(global_batch: int, mesh: DeviceMesh) -> Optional[str]:
-    """The batch's logical name when it shards over (pod, data), else None
-    (a replicated batch, as a long context of batch 1)."""
-    dp = axis_size(mesh, ("pod", "data"))
-    return "batch" if global_batch % dp == 0 else None
 
 
 def attn_strategy(num_q_heads: int, mesh: DeviceMesh) -> str:
@@ -196,5 +188,4 @@ def attn_strategy(num_q_heads: int, mesh: DeviceMesh) -> str:
 
 
 __all__ = ["DEFAULT_RULES", "FSDP_RULES", "active_rules", "attn_strategy",
-           "axis_size", "batch_spec_axes", "divisible", "logical_to_spec",
-           "mesh_axis_names", "use_rules"]
+           "axis_size", "logical_to_spec", "mesh_axis_names", "use_rules"]

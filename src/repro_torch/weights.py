@@ -19,6 +19,10 @@
   encdec's ``enc_layers`` stacked and ``enc_norm``) into the port's
   modules, for the parity tests; :func:`jax_path` is the correspondence
   of names it loads through.
+* :func:`param_axes` gives each parameter the reference's logical axes
+  (``split_params``'s axes tree, without the stacked ``"layers"`` entry,
+  which resolves to no mesh axis under either rule set): what the
+  training state is placed by over a mesh (``launch/train.py``).
 
 Serving holds the matrices in the model dtype; training holds every
 parameter in fp32 (``param_dtype=torch.float32``), the reference's master
@@ -29,7 +33,7 @@ The JAX layout ``(in, out)`` is kept.
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -163,6 +167,45 @@ def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
     return (top, *rest), idx
 
 
+#: the reference's logical axes of each parameter, by its leaf name
+#: (``repro/models/common.py``, ``transformer.py``, ``mamba2.py``,
+#: ``lm.py`` initialisers); a moe FFN's expert weights and router by
+#: :data:`_MOE_AXES`
+_LEAF_AXES = {
+    "embed": ("vocab", "embed"), "lm_head": ("embed", "vocab"),
+    "final_norm": ("norm",), "enc_norm": ("norm",), "ln1": ("norm",),
+    "ln2": ("norm",), "ln_x": ("norm",),
+    "wq": ("embed", "qkv"), "wk": ("embed", "qkv"), "wv": ("embed", "qkv"),
+    "wo": ("qkv", "embed"), "bq": ("qkv",), "bk": ("qkv",), "bv": ("qkv",),
+    "w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"),
+    "w_down": ("ffn", "embed"),
+    "norm": ("norm",), "w_in": ("embed", "ssm_inner"),
+    "conv_w": ("conv_w", "conv_ch"), "conv_b": ("conv_ch",),
+    "dt_bias": ("ssm_heads_p",), "A_log": ("ssm_heads_p",),
+    "D": ("ssm_heads_p",), "gate_norm": ("ssm_inner",),
+    "w_out": ("ssm_inner", "embed"),
+}
+_MOE_AXES = {"router": ("embed", "experts"),
+             "w_gate": ("experts", "embed", "ffn"),
+             "w_up": ("experts", "embed", "ffn"),
+             "w_down": ("experts", "ffn", "embed")}
+
+
+def param_axes(name: str) -> Tuple[str, ...]:
+    """The reference's logical axes of the port's parameter ``name`` (as
+    ``named_parameters`` gives it), one per dimension of the port's
+    tensor: a layer's axes without the stacked ``"layers"`` entry."""
+    path, _ = jax_path(name)
+    if len(path) >= 2 and path[-2] == "moe":
+        return _MOE_AXES[path[-1]]
+    return _LEAF_AXES[path[-1]]
+
+
+def params_axes(model: LanguageModel) -> Dict[str, Tuple[str, ...]]:
+    """:func:`param_axes` of every parameter of ``model``."""
+    return {n: param_axes(n) for n, _ in model.named_parameters()}
+
+
 def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
                     rc: RowCloneConfig = RowCloneConfig(),
                     param_dtype: Optional[torch.dtype] = None
@@ -187,4 +230,5 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
     return model
 
 
-__all__ = ["resolve_device", "init_params", "from_jax_params", "jax_path"]
+__all__ = ["resolve_device", "init_params", "from_jax_params", "jax_path",
+           "param_axes", "params_axes"]

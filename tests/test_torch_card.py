@@ -1274,6 +1274,57 @@ def test_train_steps_on_card_match_cpu(card):
 
 
 @pytest.mark.cuda
+def test_mesh_train_step_over_mixed_devices(card):
+    """Two ``make_train_step`` steps over a (2, 4) mesh whose ranks
+    alternate the card and the CPU, against the same mesh with every rank
+    on the card: reduced deepseek-moe-16b with its published routing (64
+    experts, top 6) under ``"tp"`` (the moe FFN through the all-to-all,
+    the attention by heads), the state placed by ``shard_state`` (a block
+    an odd rank owns lies on the CPU and is updated there).  Losses rtol
+    1e-4, grad_norm rtol 1e-3, weights 99.9% within 1e-2 x lr and all
+    within 2 lr a step (phase 21 (b)'s reasons: fp32 products of two
+    devices)."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import batch_logical_axes, make_batch, to_device
+    from repro_torch.launch.mesh import gather, make_test_mesh, pieces
+    from repro_torch.launch.train import build_train_step, train_state
+    from repro_torch.models import moe
+    from repro_torch.weights import init_params, params_axes
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b").reduced(),
+                              num_experts=64, top_k=6)
+    tcfg = TrainConfig(total_steps=8, warmup_steps=1, sharding="tp")
+    out = {}
+    for name, devs in (("card", "cuda"), ("mixed", ["cuda", "cpu"] * 4)):
+        mesh = make_test_mesh((2, 4), ("data", "model"), devices=devs)
+        model = init_params(cfg, 0, "cpu", param_dtype=torch.float32)
+        step, shard_state, _ = build_train_step(
+            model, tcfg, mesh, params_axes(model), batch_logical_axes(cfg))
+        state = train_state(model, shard_state(dict(
+            model.named_parameters())))
+        placed = {t.device.type for p in state.params.values()
+                  for t in pieces(p)}
+        assert placed == {d.type for d in mesh.devices}, placed
+        moe.PATH_COUNTS.clear()
+        ms = []
+        for i in range(2):
+            state, m = step(state, to_device(make_batch(cfg, 2, 64, i),
+                                             "cuda"))
+            ms.append({k: float(v) for k, v in m.items()})
+        assert dict(moe.PATH_COUNTS) == {"a2a": 2 * cfg.num_layers}
+        out[name] = (ms, {n: gather(p, "cpu").detach()
+                          for n, p in state.params.items()})
+    (cm, cp), (xm, xp) = out["card"], out["mixed"]
+    for a, b in zip(xm, cm):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+        assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-3)
+    lr = sum(m["lr"] for m in cm)
+    diffs = torch.cat([(xp[n] - cp[n]).abs().reshape(-1) for n in cp])
+    assert float(diffs.max()) <= 2 * lr + 1e-6
+    assert float((diffs <= 1e-2 * lr + 1e-6).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "deepseek-moe-16b",
                                   "paligemma-3b", "mamba2-780m",
                                   "zamba2-2.7b", "seamless-m4t-medium"])

@@ -42,7 +42,7 @@ NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.launch.mesh", "repro_torch.kernels.psm_transfer",
                "repro_torch.data.pipeline", "repro_torch.optim.adamw",
                "repro_torch.optim.compress", "repro_torch.launch.train",
-               "repro_torch.sharding.rules")
+               "repro_torch.sharding.rules", "repro_torch.runtime.elastic")
 
 
 def _modules():
@@ -110,7 +110,7 @@ def test_card_tests_import_without_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     marked = out.stdout.split("CUDA=")[1].split()[0].split(",")
-    assert len(marked) == 26, marked
+    assert len(marked) == 27, marked
     marker = "@pytest.mark." + "cuda"
     others = [p for p in (ROOT / "tests").glob("test_torch_*.py")
               if p.name != "test_torch_card.py" and marker in p.read_text()]

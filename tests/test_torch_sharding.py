@@ -3,8 +3,7 @@ the reference's (``repro/sharding/rules.py``): the two rule tables, every
 logical name of both resolved over the six meshes of
 ``tests/test_torch_mesh_serve.py::test_mesh_arithmetic_matches_reference``
 with dims that divide and dims that do not, names that compete for one
-mesh axis, ``use_rules`` nesting, ``attn_strategy``, ``batch_spec_axes``,
-``axis_size`` and ``divisible``.  The reference's ``PartitionSpec`` is
+mesh axis, ``use_rules`` nesting, ``attn_strategy`` and ``axis_size``.  The reference's ``PartitionSpec`` is
 read as a tuple; its rules read only a mesh's ``axis_names`` and
 ``shape``, so the JAX side needs no forced devices.
 """
@@ -68,22 +67,15 @@ def test_logical_to_spec_matches_reference(shape, axes, rule_set):
 
 @pytest.mark.parametrize("shape,axes", MESHES)
 def test_mesh_helpers_match_reference(shape, axes):
-    """``attn_strategy`` over head counts, ``batch_spec_axes`` over batch
-    sizes, ``axis_size`` of every axis, absent ones and groups, and
-    ``divisible``."""
+    """``attn_strategy`` over head counts and ``axis_size`` of every axis,
+    absent ones and groups."""
     tm, jm = pair(shape, axes)
     for heads in (1, 3, 4, 8, 16, 24, 32):
         assert rules.attn_strategy(heads, tm) == \
             jrules.attn_strategy(heads, jm)
-    for batch in range(1, 17):
-        assert rules.batch_spec_axes(batch, tm) == \
-            jrules.batch_spec_axes(batch, jm)
     for ax in ("pod", "data", "model", ("pod", "data"),
                ("pod", "data", "model"), ("data", "model"), "other"):
         assert rules.axis_size(tm, ax) == jrules.axis_size(jm, ax)
-    for n in (1, 2, 3, 4, 6, 8):
-        for ax in ("data", "model", "pod"):
-            assert rules.divisible(n, tm, ax) == jrules.divisible(n, jm, ax)
 
 
 def test_use_rules_nests_like_the_reference():

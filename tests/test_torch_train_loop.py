@@ -15,7 +15,9 @@ bf16-rounded weights, as the reference's ``cast_bf16``):
   weights against the reference's ``train_loop``: rtol 1e-4 (2e-5 seen);
 * a training step of every family with the kernels' wrappers and plain
   versions of attention and SSD (``kernels/ops.py``, ``kernels/ref.py``)
-  made to raise: training calls no kernel and no kernel's plain version.
+  made to raise: training calls no kernel and no kernel's plain version;
+* a step over a mesh of CPU ranks against one device's (the reference's
+  mesh step is held in ``tests/test_torch_mesh_train.py``).
 """
 import numpy as np
 import pytest
@@ -142,8 +144,39 @@ def test_training_calls_no_kernel(arch, monkeypatch):
     assert np.isfinite(float(metrics["grad_norm"]))
 
 
-def test_make_train_step_refuses_a_mesh():
-    model = init_params(get_config("llama3.2-3b").reduced(), 0, "cpu",
-                        param_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="12b"):
-        ttrain.make_train_step(model, TrainConfig(), mesh=object())
+def test_make_train_step_over_a_mesh_holds_the_masters_once():
+    """``make_train_step(mesh=)`` (what replaced its refusal): over (2, 4)
+    CPU ranks with the state placed by ``build_train_step``'s
+    ``shard_state``, one step gives one device's loss (rtol 1e-5) and
+    ``grad_norm`` (rtol 1e-3) and weights (the tolerance above); the
+    model's own parameters are released and every fp32 master and moment
+    is stored once over the ranks."""
+    from repro_torch.data import batch_logical_axes
+    from repro_torch.launch.mesh import gather, make_test_mesh, rank_bytes
+    from repro_torch.weights import params_axes
+    cfg = get_config("llama3.2-3b").reduced()
+    kw = dict(total_steps=8, warmup_steps=1, learning_rate=LR)
+    batch = to_device(make_batch(cfg, 4, 64, 0), "cpu")
+    one = init_params(cfg, 0, "cpu", param_dtype=torch.float32)
+    state1, m1 = ttrain.make_train_step(one, TrainConfig(**kw))(
+        ttrain.train_state(one), batch)
+    model = init_params(cfg, 0, "cpu", param_dtype=torch.float32)
+    n_par = sum(p.numel() for p in model.parameters())
+    mesh = make_test_mesh((2, 4), ("data", "model"), devices="cpu")
+    step, shard_state, _ = ttrain.build_train_step(
+        model, TrainConfig(**kw), mesh, params_axes(model),
+        batch_logical_axes(cfg))
+    state = ttrain.train_state(model, shard_state(dict(
+        model.named_parameters())))
+    assert all(p.numel() == 0 for p in model.parameters())
+    held = rank_bytes(list(state.params.values()) + list(state.opt.m.values())
+                      + list(state.opt.v.values()), mesh)
+    assert sum(held) == 3 * 4 * n_par and min(held) > 0
+    state, m = step(state, batch)
+    assert float(m["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-5)
+    assert float(m["grad_norm"]) == pytest.approx(float(m1["grad_norm"]),
+                                                  rel=1e-3)
+    assert int(state.opt.step) == 1
+    for name, p in state.params.items():
+        diff = (gather(p) - state1.params[name]).detach().abs().max()
+        assert float(diff) <= 2e-6 + 2 * LR, name

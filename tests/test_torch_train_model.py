@@ -133,17 +133,25 @@ def test_flash_attention_matches_reference(case):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
-def test_attention_train_is_causal_flash_and_refuses_a_mesh():
+def test_attention_train_is_causal_flash_and_takes_a_mesh():
+    """Without a mesh (or over one rank) the call is ``flash_attention``
+    with every key valid; over (2, 4) CPU ranks it runs by blocks (the
+    cases are in ``tests/test_torch_mesh_train.py``) to the same values."""
+    from repro_torch.launch.mesh import make_test_mesh
     rng = np.random.default_rng(0)
-    q = torch.tensor(rng.standard_normal((1, 8, 2, 16)), dtype=torch.float32)
-    pos = torch.arange(8)[None]
+    q = torch.tensor(rng.standard_normal((2, 8, 4, 16)), dtype=torch.float32)
+    pos = torch.arange(8).expand(2, 8)
     info = tatt.MaskInfo(True, 0)
     out = tatt.attention_train(q, q, q, pos, info)
     want = tatt.flash_attention(q, q, q, pos, pos,
-                                torch.ones((1, 8), dtype=torch.bool), info)
+                                torch.ones((2, 8), dtype=torch.bool), info)
     assert torch.equal(out, want)
-    with pytest.raises(NotImplementedError, match="12b"):
-        tatt.attention_train(q, q, q, pos, info, mesh=object())
+    one = make_test_mesh((1,), ("model",), devices="cpu")
+    assert torch.equal(tatt.attention_train(q, q, q, pos, info, one), want)
+    mesh = make_test_mesh((2, 4), ("data", "model"), devices="cpu")
+    np.testing.assert_allclose(
+        tatt.attention_train(q, q, q, pos, info, mesh).numpy(), want.numpy(),
+        atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

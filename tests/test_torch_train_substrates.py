@@ -310,11 +310,37 @@ def test_compression_matches_reference(kind):
                 np.asarray(jerr[k]).tobytes(), k
 
 
-def test_compression_over_dp_axes_needs_the_mesh():
+def test_compression_over_dp_axes_takes_one_tree_per_rank():
+    """Over DP axes the call takes a ``mesh`` and one tree per rank (what
+    replaced its refusal; without a mesh it still raises): each rank gets
+    the mean of its DP group's compressed grads, and keeps its own
+    residual (the reference's ``shard_map`` is held in
+    ``tests/test_torch_mesh_elastic.py``)."""
+    from repro_torch.launch.mesh import make_test_mesh
     g = (torch.ones(4),)
     for fn in (tcompress.compress_psum_bf16, tcompress.compress_psum_int8):
-        with pytest.raises(NotImplementedError, match="12b"):
+        with pytest.raises(ValueError, match="mesh="):
             fn(g, g, ("data",), 2)
+    mesh = make_test_mesh((2, 2), ("data", "model"), devices="cpu")
+    rng = np.random.default_rng(1)
+    grads = [(torch.tensor(rng.standard_normal(6), dtype=torch.float32),)
+             for _ in range(4)]
+    zero = [(torch.zeros(6),) for _ in range(4)]
+    out, err = tcompress.compress_psum_bf16(grads, zero, ("data",), 2,
+                                            mesh=mesh)
+    for r, partner in ((0, 2), (1, 3), (2, 0), (3, 1)):
+        want = (grads[r][0].bfloat16().float() +
+                grads[partner][0].bfloat16().float()).bfloat16().float() / 2
+        assert torch.equal(out[r][0], want)
+        assert torch.equal(err[r][0], grads[r][0] -
+                           grads[r][0].bfloat16().float())
+    out8, _ = tcompress.compress_psum_int8(grads, zero, ("data", "model"), 4,
+                                           mesh=mesh)
+    mean = sum(t[0] for t in grads) / 4
+    scale = max(float(t[0].abs().max()) for t in grads) / 127
+    for r in range(4):
+        assert torch.equal(out8[r][0], out8[0][0])
+        assert float((out8[r][0] - mean).abs().max()) <= scale
 
 
 # ---------------------------------------------------------------------------
