@@ -393,6 +393,22 @@ Phases (each raises on failure; the script then exits non-zero):
     ``elastic_restore`` onto them and the steps resumed: losses of steps
     5-9 against the run without a failure (``ELASTIC_RTOL``).  No K1-K7
     launch in the phase.
+25. (run last, on a card no earlier phase holds) the dry-run
+    (``phase_dryrun``; ``launch/dryrun.py``, ``launch/op_cost.py``,
+    ``kernels/cost.py``).  (a) phase 21's cell (llama3.2-3b, fp32
+    masters, B = 2 x S = 1,024, remat ``"minimal"``) walked over ``meta``
+    on one rank against the real step on the card: the walk's peak
+    against ``max_memory_allocated`` (``DRY_PEAK_RTOL``), its FLOPs equal
+    to ``FlopCounterMode``'s over the step, its roofline time at most the
+    step's device busy ms.  (b) phase 5's serving cells at full width:
+    one decode round over 8 sequences x 64 full blocks and a 512-token
+    prefill, walked; K2's and K3's calls (one a layer) and bytes a call
+    equal to phases 2 and 4's rule over card tensors of the same calls.
+    (c) ``python -m repro_torch.launch.dryrun --mesh single`` over every
+    (arch, shape), a process a cell, ``DRY_WORKERS`` at once, cheapest
+    first, for ``DRY_SWEEP_S`` seconds: each row, the counts of ok / skip
+    / error / not finished and the time; an error fails the phase.  No
+    K1-K7 launch: the walk reckons kernels at their boundary.
 
 The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -412,9 +428,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: peaks of one H100 SXM (NVIDIA data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
+
+class _Cost:
+    """``repro_torch.kernels.cost`` (the H100's peaks and every kernel's
+    work), imported at first use: ``chip_ab.py`` imports this script
+    before it puts the checkout it times on the path."""
+
+    def __getattr__(self, name):
+        from repro_torch.kernels import cost as module
+        return getattr(module, name)
+
+
+cost = _Cost()
 
 SEED = 0
 PROMPT_LENS = (96, 250, 384, 512)
@@ -602,19 +627,6 @@ def k1_serving_case(gen):
     zero_blocks = [torch.zeros((1, page, kvh, D), dtype=torch.bfloat16,
                                device="cuda") for _ in pools]
     return pools, zero_blocks, table, primary
-
-
-#: bytes a move reads, by kind (COPY, ZERO, AND, OR, NOT)
-K1_READS = (1, 0, 2, 2, 1)
-
-
-def k1_bytes(table, sizes, primary, layers: int, page_bytes: int) -> int:
-    """Bytes a drain of ``table`` must move: each move reads its sources'
-    pages once and writes its destination's, in every layer."""
-    from repro_torch.kernels import fused_dispatch as fd
-    moves, _ = fd.plan_moves(table, sizes, primary)
-    return int(sum(K1_READS[k] + 1 for k in moves[:, 0])) * layers * \
-        page_bytes
 
 
 def _k1_host_stages(pools, table, primary, block_axis, scrub,
@@ -864,13 +876,13 @@ def phase_k1(scrub):
         ops.fused_dispatch(pools, zero_blocks, table, block_axis=1,
                            primary=primary, use_kernel=True)
 
-    moved = k1_bytes(table, sizes, primary, L, page_bytes)
+    moved = cost.k1_bytes(table, sizes, primary, L, page_bytes)
     ms = time_ms(kern, scrub=scrub)
     dev, _ = device_ms(kern, key="drain_kernel")
     plain_ms = time_ms(lambda: ops.fused_dispatch(
         pools, zero_blocks, table, block_axis=1, primary=primary,
         use_kernel=False), reps=5, scrub=scrub)
-    bound = moved / HBM_BYTES_PER_S * 1e3
+    bound = moved / cost.HBM_BYTES_PER_S * 1e3
     log(f"[K1] bitwise equal to plain on {len(waves)} rows "
         f"({max(waves) + 1} waves, {out[1]} moves, chunk {out[4]} B, "
         f"{out[2]} items, grid {out[3]}, bulk {out[6]}); kernel {ms:.4f} "
@@ -908,8 +920,8 @@ def phase_k1(scrub):
         use_kernel=True)
     big_ms = time_ms(fn, scrub=scrub)
     big_dev, _ = device_ms(fn, "drain_kernel")
-    big_bound = k1_bytes(big, sizes, primary, L, page_bytes) / \
-        HBM_BYTES_PER_S * 1e3
+    big_bound = cost.k1_bytes(big, sizes, primary, L, page_bytes) / \
+        cost.HBM_BYTES_PER_S * 1e3
     log(f"[K1] 512-row table ({out[0]} live rows, {out[1]} moves through "
         f"the device buffer, {out[5]} waves): bitwise equal to plain, one "
         f"launch; kernel {big_ms:.4f} ms (device only {_fmt_ms(big_dev)}), "
@@ -1012,13 +1024,6 @@ def _k2_layout(rng, nblk, B, page, layout):
     return mask, base, lens
 
 
-def _k2_slots(mask, base, lens, page) -> int:
-    """K/V slots K2 must read: of each visible block, the slots below some
-    reader's length (a shared block once, its longest reader's count)."""
-    need = np.clip(lens[None, :] - base[:, None], 0, page) * (mask > 0)
-    return int(need.max(1).sum())
-
-
 def phase_k2(scrub, B=MAX_SEQS, H=24, KVH=8, D=128):
     """K2 against its plain version on each :data:`K2_LAYOUTS` slab; the
     default shapes are llama3.2-3b's serving slab, phase 9 passes zamba2's
@@ -1057,9 +1062,8 @@ def phase_k2(scrub, B=MAX_SEQS, H=24, KVH=8, D=128):
             raise AssertionError(f"K2 vs plain ({layout}): out err {err}, m "
                                  f"err {err_m}, empty slot ok {empty_ok}")
         live_blocks = int((mask.sum(1) > 0).sum())
-        nbytes = _k2_slots(mask, base, lens, page) * KVH * D * 2 * 2 + \
-            q.numel() * 2 + B * H * (D + 2) * 4
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        nbytes = cost.k2_work(*args, page=page).bytes
+        bound = nbytes / cost.HBM_BYTES_PER_S * 1e3
         r = dict(err=max(err, err_m), bound=bound, ms=None, dev=None,
                  plain_ms=None)
         if layout != "single":
@@ -1122,15 +1126,6 @@ def _k3_inputs(gen, B, S, H, KVH, D, Skv=None):
     return [torch.randn((B, n_s, n, D), generator=gen, device="cuda")
             .bfloat16().transpose(1, 2)
             for n, n_s in ((H, S), (KVH, Skv), (KVH, Skv))]
-
-
-def _k3_pairs(Sq: int, Skv: int, causal: bool, prefix: int) -> int:
-    """(query, key) pairs K3 visits: all Sq x Skv without the causal mask;
-    with it, row r sees max(r + 1, prefix) keys (at most Skv)."""
-    if not causal:
-        return Sq * Skv
-    return int(np.minimum(np.maximum(np.arange(1, Sq + 1), prefix),
-                          Skv).sum())
 
 
 def _k3_case(case) -> tuple:
@@ -1209,10 +1204,10 @@ def phase_k3(scrub, H=24, KVH=8, D=128, cases=((1, 512), (1, 250)),
         else:
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), scrub=scrub)
-        flops = 4.0 * B * H * D * _k3_pairs(S, Skv, causal, prefix)
-        nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
-        b_ops = flops / BF16_FLOPS * 1e3
-        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        nbytes, flops = cost.k3_work(q, k, v, causal=causal,
+                                     prefix_len=prefix)
+        b_ops = flops / cost.BF16_FLOPS * 1e3
+        b_bytes = nbytes / cost.HBM_BYTES_PER_S * 1e3
         log(f"[K3] B={B} H={H} KVH={KVH} D={D} {what}: max err {err:.2e} "
             f"(atol {K3_ATOL}); kernel {ms:.4f} ms (device only "
             f"{_fmt_ms(dev)}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
@@ -1676,8 +1671,8 @@ def phase_copy_kernels(scrub):
                                    scrub=scrub)
                 lib_ms = time_ms(lambda: lib(a), scrub=scrub)
                 dev, _ = device_ms(lambda: fn(a, True), key="move_kernel")
-                nbytes = passes * m * L * page_bytes
-                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                nbytes = cost.block_move_bytes(m, L, page_bytes, passes)
+                bound = nbytes / cost.HBM_BYTES_PER_S * 1e3
                 log(f"[{name}] axis {ba} m={m}: bitwise equal to plain "
                     f"(padding, WAR pair), 1 launch (chunk {out[5]} B, "
                     f"{out[3]} items, grid {out[4]}, {out[6]} waves, bulk "
@@ -1882,8 +1877,8 @@ def phase_ab(flat, scrub):
     from repro_torch.kernels import fused_dispatch as fd
     table = np.asarray([r for r in rows if r[0] >= 0], np.int32)
     sizes = [int(p.shape[fused.block_axis]) for p in fused.pools.values()]
-    bound = k1_bytes(table, sizes, fused.group.primary, 1,
-                     flat[0].nbytes) / HBM_BYTES_PER_S * 1e3
+    bound = cost.k1_bytes(table, sizes, fused.group.primary, 1,
+                          flat[0].nbytes) / cost.HBM_BYTES_PER_S * 1e3
     ms = time_ms(lambda: fused._drain_rows(rows), scrub=scrub)
     log(f"[A/B] fused flush of {n_live} rows: card {ms:.4f} ms (CUDA "
         f"events around _drain_rows), K1 device {_fmt_ms(k1_dev)}, bound "
@@ -2044,12 +2039,9 @@ def phase_k4(scrub):
         plain_ms = time_ms(lambda: ops.ssd_intra_chunk(*args,
                                                        use_kernel=False),
                            reps=5, scrub=scrub)
-        P, elt = 64, 2
-        nbytes = (Bc * Q * H * P * elt + 2 * Bc * Q * H * 4
-                  + 2 * Bc * Q * N * elt + Bc * Q * H * P * 4)
-        flops = 2.0 * Q * Q * (N + P) * Bc * H
-        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ops = flops / BF16_FLOPS * 1e3
+        nbytes, flops = cost.k4_work(*args)
+        b_bytes = nbytes / cost.HBM_BYTES_PER_S * 1e3
+        b_ops = flops / cost.BF16_FLOPS * 1e3
         bound = max(b_bytes, b_ops)
         log(f"[K4] {arch} Bc={Bc} Q={Q} H={H} N={N}: max err {err:.3e} "
             f"(limit {K4_RTOL} x max |plain| {scale:.3e}); kernel "
@@ -2847,8 +2839,9 @@ def phase_serving_features(params, smi: str) -> dict:
     rows_ms = {}
     for name, rnd in (("demote", PREEMPT_AT), ("resume", RESUME_AT)):
         (ms, rows), = k1_ms[rnd]
-        rows_ms[name] = (ms, rows, 2 * rows * page_bytes / HBM_BYTES_PER_S
-                         * 1e3)
+        rows_ms[name] = (ms, rows, cost.block_move_bytes(rows, 1, page_bytes,
+                                                         2)
+                         / cost.HBM_BYTES_PER_S * 1e3)
     checks.update({
         "(b) parked spill slots == source blocks, bitwise": all(
             _bitwise_equal(moved["parked"][n], moved["before"][n])
@@ -4140,8 +4133,9 @@ def phase_recovery(params, smi: str) -> dict:
         sizes = [spec.nblk for spec in group]
         layers, page_bytes = int(kept["k"].shape[0]), \
             int(np.prod(kept["k"].shape[2:])) * 2
-        bounds = [k1_bytes(r.rows, sizes, group.primary, layers, page_bytes)
-                  / HBM_BYTES_PER_S * 1e3 for r in replay_recs]
+        bounds = [cost.k1_bytes(r.rows, sizes, group.primary, layers,
+                                page_bytes)
+                  / cost.HBM_BYTES_PER_S * 1e3 for r in replay_recs]
         for n in ("k", "v"):
             rce.kill_pool(n)
         dead = all(pool_dead(rce.pools[n]) for n in ("k", "v"))
@@ -5089,8 +5083,8 @@ def phase_mesh(scrub, smi: str):
                                                  use_kernel=False),
                         reps=5, scrub=scrub)
         library_ms = time_ms(_k7_library(slabs, ids), scrub=scrub)
-        nbytes = 2 * live * block_bytes
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        nbytes = cost.block_move_bytes(live, 1, block_bytes, 2)
+        bound = nbytes / cost.HBM_BYTES_PER_S * 1e3
         log(f"{tag} (a) K7 n={n}: {live} rows over hops -{n - 1}..{n - 1} "
             f"({ids.shape[1] * n - live} skip rows), bitwise {ok}; "
             f"{_route(out)}; card {ms:.4f} ms, device {_fmt_ms(dev)} "
@@ -5137,7 +5131,8 @@ def phase_mesh(scrub, smi: str):
            "bitwise in one launch"] = \
         ok and launches == 1 and out[7] == 1 and live > k7.ROW_CAPACITY
     page_bytes = int(np.prod(MESH_PAGE)) * 2
-    bound = 2 * live * page_bytes / HBM_BYTES_PER_S * 1e3
+    bound = cost.block_move_bytes(live, 1, page_bytes, 2) / \
+        cost.HBM_BYTES_PER_S * 1e3
     log(f"{tag} (a) K7 n=8, {live} rows of {page_bytes} B pages: bitwise "
         f"{ok}; {_route(out)}; card {ms:.4f} ms, device {_fmt_ms(dev)} "
         f"({seen} of 10), host {host_us:.1f} us, bound {bound:.4f} ms")
@@ -6849,15 +6844,277 @@ def phase_mesh_model(smi: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the dry-run (launch/dryrun.py, launch/op_cost.py, kernels/cost.py)
+# ---------------------------------------------------------------------------
+
+#: (a) the walked step against the real one: phase 21's cell
+DRY_ARCH, DRY_B, DRY_S = TRAIN_ARCH, TRAIN_B, TRAIN_S
+#: (a) the walk's peak against ``max_memory_allocated``: within 10% (the
+#: caching allocator rounds each block up and holds cuBLAS's workspace)
+DRY_PEAK_RTOL = 0.10
+#: (c) the sweep's share of the phase: seconds, worker processes
+DRY_SWEEP_S, DRY_WORKERS = 150.0, 6
+
+
+class _NoModules:
+    """``FlopCounterMode``'s module tracker, without the module hooks:
+    they refuse the ``autograd.grad`` a training step calls inside its
+    forward; every count goes to the global total."""
+
+    parents = {"Global"}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+
+def _dry_walk(cfg, shape, mesh):
+    from repro_torch.launch.dryrun import analyse, walk_cell
+    walk, _, t_walk = walk_cell(cfg, shape, mesh)
+    return walk, analyse(walk, cfg, shape, mesh.size), t_walk
+
+
+def _sweep_cells() -> list:
+    """Every (arch, shape) of the ``--mesh single`` sweep, cheapest first:
+    the prefill and decode cells (the loss runs whole on the first rank,
+    few ops), then the train cells by their layers' attention blocks (256
+    a layer over 16 x 16 ranks; an ssm stack has none)."""
+    from repro_torch.configs import SHAPES, get_config, list_archs
+    order = {"prefill": 0, "decode": 1, "train": 2}
+
+    def weight(cell):
+        cfg, shape = get_config(cell[0]), SHAPES[cell[1]]
+        return (order[shape.kind],
+                cfg.num_attn_layers + cfg.encoder_layers
+                if shape.kind == "train" else 0, cell)
+
+    return sorted(((a, s) for a in list_archs() for s in SHAPES), key=weight)
+
+
+def dry_sweep(budget_s: float, workers: int, tag: str) -> dict:
+    """``python -m repro_torch.launch.dryrun --mesh single`` over every
+    cell, one process a cell, ``workers`` at once, for ``budget_s``
+    seconds: a cell still running then is stopped and counted as not
+    finished.  Returns the rows and the counts."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cells, running, rows = _sweep_cells(), [], []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        def start(arch, shape):
+            out = os.path.join(tmp, f"{arch}.{shape}.jsonl")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--out", out], env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.DEVNULL)
+            running.append((proc, out, arch, shape, time.perf_counter()))
+
+        def reap(proc, out, arch, shape, t_start):
+            if os.path.exists(out):
+                with open(out) as f:
+                    rows.extend(json.loads(line) for line in f)
+            else:
+                rows.append({"arch": arch, "shape": shape, "mesh": "16x16",
+                             "status": "error",
+                             "error": f"exit {proc.returncode}"})
+
+        try:
+            while cells or running:
+                while cells and len(running) < workers and \
+                        time.perf_counter() - t0 < budget_s:
+                    start(*cells.pop(0))
+                for item in list(running):
+                    if item[0].poll() is not None:
+                        running.remove(item)
+                        reap(*item)
+                if time.perf_counter() - t0 >= budget_s:
+                    break
+                time.sleep(0.2)
+        finally:
+            for proc, *_ in running:
+                proc.kill()
+                proc.wait()
+    n = {s: sum(r["status"] == s for r in rows)
+         for s in ("ok", "skip", "error")}
+    n["not finished"] = len(running) + len(cells)
+    n["seconds"] = time.perf_counter() - t0
+    for r in rows:
+        what = r.get("dominant") or r.get("reason") or r.get("error", "")
+        extra = ""
+        if r["status"] == "ok":
+            extra = (f"; busiest rank {r['busiest_rank']}: t_compute "
+                     f"{r['t_compute_s'] * 1e3:.3f} / t_memory "
+                     f"{r['t_memory_s'] * 1e3:.3f} / t_peer "
+                     f"{r['t_collective_s'] * 1e3:.3f} ms, temp "
+                     f"{r['memory']['temp_size_in_bytes'] / 2 ** 30:.2f} "
+                     f"GiB, walk {r['compile_s']} s")
+        log(f"{tag} (c) {r['arch']} {r['shape']}: {r['status']} "
+            f"{str(what)[:100]}{extra}")
+    return {"rows": rows, "counts": n}
+
+
+def phase_dryrun(smi: str) -> None:
+    """Phase 25: the dry-run.  (a) llama3.2-3b at phase 21's cell, one
+    device: the walk over ``meta`` against the real step on the card, in
+    the same call: its peak against ``max_memory_allocated``, its FLOPs
+    against ``FlopCounterMode``'s over the step (equal: the same formulas
+    over the same ops), its roofline time against the step's device busy
+    ms (a bound: at most the busy time).  (b) phase 5's serving cells at
+    full width: one decode round's K2 calls (8 sequences x 64 blocks, the
+    identity layout full) and a 512-token prefill's K3 calls, the walk's
+    bytes a call equal to the bound bytes of phases 2 and 4's rule over
+    card tensors of the same call.  (c) the ``--mesh single`` sweep, as
+    much of it as :data:`DRY_SWEEP_S` holds."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.data import make_batch, to_device
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import make_train_step, train_state
+    from repro_torch.models.paged import identity_layout
+    from repro_torch.weights import init_params
+    tag = "[dry-run]"
+    t_phase = time.perf_counter()
+    checks = {}
+    one = make_test_mesh((1, 1), devices="meta")
+    gb = 1e9
+
+    # (a) the walk against the real step --------------------------------
+    cfg = get_config(DRY_ARCH)
+    shape = ShapeConfig("train", DRY_S, DRY_B, "train")
+    walk, row, t_walk = _dry_walk(cfg, shape, one)
+    walk_peak = walk.peak[0]
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model = init_params(cfg, seed=SEED, device="cuda",
+                        param_dtype=torch.float32)
+    state = train_state(model)
+    step = make_train_step(model, TrainConfig())
+    batch = to_device(make_batch(cfg, DRY_B, DRY_S, 0), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    fc = FlopCounterMode(display=False)
+    fc.mod_tracker = _NoModules()
+    with fc:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    real_flops = fc.get_total_flops()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == cuda) / 1e3
+    del model, state, step, batch, fc, prof
+    torch.cuda.empty_cache()
+    t_roof = max(row["t_compute_s"], row["t_memory_s"]) * 1e3
+    log(f"{tag} (a) {DRY_ARCH} train B = {DRY_B} x S = {DRY_S}, one "
+        f"device: walk {row['ops']:,} ops in {t_walk:.1f} s; peak "
+        f"{walk_peak / gb:.3f} GB reckoned (arguments "
+        f"{row['memory']['argument_size_in_bytes'] / gb:.3f} GB), "
+        f"max_memory_allocated {peak / gb:.3f} GB (ratio "
+        f"{walk_peak / peak:.4f}); FLOPs {walk.flops[0]:.6e} reckoned, "
+        f"FlopCounterMode {real_flops:.6e}; HBM bytes "
+        f"{walk.bytes[0]:.6e}; roofline {t_roof:.2f} ms ({row['dominant']}"
+        f"-bound: compute {row['t_compute_s'] * 1e3:.2f}, memory "
+        f"{row['t_memory_s'] * 1e3:.2f} ms) against the step's device "
+        f"busy {busy:.2f} ms ({t_roof / busy:.3f} of it) and wall "
+        f"{step_ms:.1f} ms ({smi})")
+    checks.update({
+        "(a) the walk's FLOPs equal FlopCounterMode's":
+            walk.flops[0] == real_flops,
+        f"(a) the walk's peak within {DRY_PEAK_RTOL:.0%} of "
+        "max_memory_allocated": abs(walk_peak / peak - 1) <= DRY_PEAK_RTOL,
+        "(a) the roofline time at most the device busy time":
+            0 < t_roof <= busy,
+    })
+
+    # (b) the serving cells' kernels at their boundary ------------------
+    page, B, nper = 64, MAX_SEQS, MAX_BLOCKS_PER_SEQ
+    S = nper * page
+    dec = ShapeConfig("decode", S, B, "decode")
+    walk, row, _ = _dry_walk(cfg, dec, one)
+    k2 = row["kernels"]["K2"]
+    _, mask, base = identity_layout(B, S, page)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((B, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device="cuda").bfloat16()
+    kv = torch.zeros((B * nper, page, cfg.num_kv_heads, cfg.head_dim),
+                     dtype=torch.bfloat16, device="cuda")
+    want2 = cost.k2_work(q, kv, kv, torch.from_numpy(mask).cuda(),
+                         torch.from_numpy(base).cuda(),
+                         torch.full((B,), S, dtype=torch.int32,
+                                    device="cuda"), page=page)
+    pre = ShapeConfig("prefill", 512, 1, "prefill")
+    walk, row_p, _ = _dry_walk(cfg, pre, one)
+    k3 = row_p["kernels"]["K3"]
+    q3 = torch.zeros((1, cfg.num_heads, 512, cfg.head_dim),
+                     dtype=torch.bfloat16, device="cuda")
+    k3t = torch.zeros((1, cfg.num_kv_heads, 512, cfg.head_dim),
+                      dtype=torch.bfloat16, device="cuda")
+    want3 = cost.k3_work(q3, k3t, k3t)
+    log(f"{tag} (b) decode round ({B} sequences x {nper} blocks, full): "
+        f"K2 {k2['calls']} calls, {k2['bytes'] // k2['calls']:,} B a call "
+        f"reckoned, {want2.bytes:,} B by phase 2's rule on the card's "
+        f"tensors; prefill 1 x 512: K3 {k3['calls']} calls, "
+        f"{k3['bytes'] // k3['calls']:,} B a call, {want3.bytes:,} B by "
+        f"phase 4's; roofline of the decode step "
+        f"{max(row['t_compute_s'], row['t_memory_s']) * 1e3:.3f} ms, of "
+        f"the prefill "
+        f"{max(row_p['t_compute_s'], row_p['t_memory_s']) * 1e3:.3f} ms "
+        "(reckoned against the published peaks)")
+    checks.update({
+        "(b) K2 a decode round: one call a layer":
+            k2["calls"] == cfg.num_layers,
+        "(b) K2's bytes a call equal phase 2's rule":
+            k2["bytes"] == want2.bytes * k2["calls"],
+        "(b) K3 a prefill: one call a layer": k3["calls"] == cfg.num_layers,
+        "(b) K3's bytes a call equal phase 4's rule (8,388,608)":
+            k3["bytes"] == want3.bytes * k3["calls"]
+            and want3.bytes == 8_388_608,
+    })
+
+    # (c) the sweep -----------------------------------------------------
+    sweep = dry_sweep(DRY_SWEEP_S, DRY_WORKERS, tag)
+    n = sweep["counts"]
+    log(f"{tag} (c) --mesh single sweep: {n['ok']} ok, {n['skip']} skip, "
+        f"{n['error']} error, {n['not finished']} not finished in "
+        f"{n['seconds']:.1f} s ({DRY_WORKERS} processes, a "
+        f"{DRY_SWEEP_S:.0f} s budget)")
+    checks["(c) no sweep cell errs"] = n["error"] == 0
+    checks["(c) the sweep reached a cell of each kind"] = {
+        r["shape"] for r in sweep["rows"] if r["status"] == "ok"} >= {
+        "prefill_32k", "decode_32k"}
+    log(f"{tag} phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"dry-run checks failed: {failed}")
+
+
 PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,),
-               21: (), 22: (5,), 23: (), 24: (21,)}
+               21: (), 22: (5,), 23: (), 24: (21,), 25: ()}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-24 by default), with
+    """The phases to run for ``--phases`` (all of 2-25 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 25))
+        return set(range(2, 26))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -7009,6 +7266,10 @@ def main(argv=None) -> int:
         if 24 in run:
             phase_mesh_train(smi, single)
             torch.cuda.empty_cache()
+    if 25 in run:
+        # last, on a card no earlier phase holds
+        phase_dryrun(smi)
+        torch.cuda.empty_cache()
     kernels = [rows[n] for n in ("fused_dispatch", "paged_attention",
                                  "flash_attention", "fpm_copy",
                                  "fpm_copy_cross", "zero_init",

@@ -509,8 +509,8 @@ def sharded_fused_dispatch(slabs: Sequence[Sequence[torch.Tensor]], plan, *,
     rank with rows, and once more per rank with combines.  Reports ONE
     ``fused_mesh`` dispatch (:func:`notify_launch`), as the reference's
     one collective launch does."""
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import psm_transfer as k7
-    from repro_torch.kernels import ref
     n_pools = len(slabs)
     S = plan.n_shards
     primary = as_primary(primary, n_pools)
@@ -533,7 +533,13 @@ def sharded_fused_dispatch(slabs: Sequence[Sequence[torch.Tensor]], plan, *,
         rows = hops[np.isin(hops[:, 0], qs)]
         rows[:, 0] = np.searchsorted(qs, rows[:, 0])
         tables = [(list(slabs[q]), recv[g]) for q in qs]
-        if use_kernel:
+        if cost.BOUNDARY is not None:
+            cost.BOUNDARY(
+                "K7", lambda d: cost.k7_work(tables[0][0][0], rows,
+                                             block_axis=block_axis),
+                [t for tb in tables for side in tb for t in side],
+                lambda: k7.check_rows(tables, rows, block_axis))
+        elif use_kernel:
             k7.psm_transfer_cuda(tables, rows, block_axis=block_axis)
         else:
             ref.psm_transfer(tables, k7.check_rows(tables, rows, block_axis),
@@ -555,7 +561,11 @@ def sharded_fused_dispatch(slabs: Sequence[Sequence[torch.Tensor]], plan, *,
                 continue
             pools = [slabs[p][r] for p in range(n_pools)] + \
                 [recv[g][r] for g in sorted(recv)]
-            if use_kernel:
+            if cost.BOUNDARY is not None:
+                cost.BOUNDARY("K1", lambda d: cost.k1_work(
+                    pools, base, block_axis=block_axis, primary=roles),
+                    pools, lambda: pools)
+            elif use_kernel:
                 fused_dispatch_cuda(pools, base, block_axis=block_axis,
                                     primary=roles)
             else:

@@ -7,6 +7,14 @@ a whole code path, runs the plain version on the card (``chip_smoke.py``
 compares the two that way).  ``use_kernel=True`` on a CPU tensor raises.
 There is no fallback: on a CUDA tensor a kernel that does not build or
 does not launch raises.
+
+While an op-cost walk is active (``launch/op_cost.py``, over ``meta``
+tensors only), each entry hands its call to the walk's kernel boundary
+(``kernels/cost.py BOUNDARY``): the walk records the call's work by
+``kernels/cost.py``'s rule and runs the plain version, uncounted, only to
+give the outputs their shapes.  K1, K5a, K5b, K6 and K7 write their pools
+in place, so their outputs are those pools and nothing runs (their plain
+versions select rows by value, which ``meta`` tensors have not).
 """
 from __future__ import annotations
 
@@ -16,7 +24,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import cost, ref
 from repro_torch.kernels.fused_dispatch import (COUNTER as FUSED_COUNTER,
                                                 fused_dispatch_cuda,
                                                 notify_launch,
@@ -77,7 +85,12 @@ def fused_dispatch(pools: Sequence[torch.Tensor],
     """Drain one flushed ``(m, 3)`` command table over every pool, IN
     PLACE, as one dispatch (see kernels/fused_dispatch.py).  Returns the
     pools."""
-    if use_kernel_for(pools[0], use_kernel):
+    if cost.BOUNDARY is not None:
+        out = cost.BOUNDARY(
+            "K1", lambda d: cost.k1_work(pools, cmds, block_axis=block_axis,
+                                         primary=primary),
+            list(pools) + list(zero_blocks), lambda: pools)
+    elif use_kernel_for(pools[0], use_kernel):
         out = fused_dispatch_cuda(pools, cmds, block_axis=block_axis,
                                   primary=primary)
     else:
@@ -104,6 +117,10 @@ def fpm_copy(pool: torch.Tensor, ids, *, block_axis: int = 0,
              use_kernel: Optional[bool] = None) -> torch.Tensor:
     """In-pool FPM block copy, in place.  ``ids``: (m, 2) ``[src, dst]``,
     ``dst = -1`` skips.  Returns the pool."""
+    if cost.BOUNDARY is not None:
+        return cost.BOUNDARY(
+            "K5a", lambda d: cost.k5_work(pool, ids, block_axis=block_axis),
+            [pool], lambda: pool)
     if use_kernel_for(pool, use_kernel):
         return fpm_copy_cuda(pool, ids, block_axis=block_axis)
     return ref.fpm_copy(pool, ids, block_axis=block_axis)
@@ -114,6 +131,11 @@ def fpm_copy_cross(dst_pool: torch.Tensor, src_pool: torch.Tensor, ids, *,
                    use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Pool-to-pool block copy ``dst_pool[dst] = src_pool[src]``, in
     place.  Returns ``dst_pool``."""
+    if cost.BOUNDARY is not None:
+        return cost.BOUNDARY(
+            "K5b", lambda d: cost.k5_work(dst_pool, ids,
+                                          block_axis=block_axis),
+            [dst_pool, src_pool], lambda: dst_pool)
     if use_kernel_for(dst_pool, use_kernel):
         return fpm_copy_cross_cuda(dst_pool, src_pool, ids,
                                    block_axis=block_axis)
@@ -125,6 +147,10 @@ def meminit_zero(pool: torch.Tensor, ids, *, block_axis: int = 0,
     """BuZ: zero the blocks ``ids`` (m,), ``-1`` skips, in place — the
     reserved zero block's broadcast, which the kernel does as zero stores.
     Returns the pool."""
+    if cost.BOUNDARY is not None:
+        return cost.BOUNDARY(
+            "K6", lambda d: cost.k6_work(pool, ids, block_axis=block_axis),
+            [pool], lambda: pool)
     if use_kernel_for(pool, use_kernel):
         return zero_init_cuda(pool, ids, block_axis=block_axis)
     return ref.zero_init(pool, ids, block_axis=block_axis)
@@ -144,6 +170,13 @@ def psm_transfer_rows(tables, rows, *, block_axis: int = 0,
     checks, plans and launches once; on CPU slabs :func:`check_rows`
     checks and the plain version moves.  In place.  Returns the launches
     (0 on the plain version)."""
+    if cost.BOUNDARY is not None:
+        slab = tables[0][0][0]
+        cost.BOUNDARY(
+            "K7", lambda d: cost.k7_work(slab, rows, block_axis=block_axis),
+            [t for tb in tables for side in tb for t in side],
+            lambda: check_rows(tables, rows, block_axis))
+        return 0
     if use_kernel_for(tables[0][0][0], use_kernel):
         return psm_transfer_cuda(tables, rows, block_axis=block_axis)
     ref.psm_transfer(tables, check_rows(tables, rows, block_axis),
@@ -176,6 +209,10 @@ def psm_copy(pool: torch.Tensor, ids, *, block_axis: int = 0,
     call).  ``ids`` (m, 2) ``[src, dst]``, ``dst = -1`` skips, sources
     clipped into the pool as the plain version clips them.  Returns the
     pool."""
+    if cost.BOUNDARY is not None:
+        return cost.BOUNDARY(
+            "K7", lambda d: cost.k5_work(pool, ids, block_axis=block_axis),
+            [pool], lambda: pool)
     if not use_kernel_for(pool, use_kernel):
         return ref.fpm_copy(pool, ids, block_axis=block_axis)
     nblk = int(pool.shape[block_axis])
@@ -195,6 +232,14 @@ def psm_copy(pool: torch.Tensor, ids, *, block_axis: int = 0,
 def paged_attention_slab(q, k_slab, v_slab, share_mask, base, seq_lens, *,
                          page: int, use_kernel: Optional[bool] = None):
     """Decode attention over one pool slab: (acc, l, m), fp32."""
+    if cost.BOUNDARY is not None:
+        return cost.BOUNDARY(
+            "K2", lambda d: cost.k2_work(q, k_slab, v_slab, share_mask, base,
+                                         seq_lens, page=page,
+                                         fill=d.get("fill")),
+            [k_slab, v_slab, q, share_mask, base, seq_lens],
+            lambda: ref.paged_attention_slab(q, k_slab, v_slab, share_mask,
+                                             base, seq_lens, page=page))
     if use_kernel_for(q, use_kernel):
         return paged_attention_slab_cuda(q, k_slab, v_slab, share_mask, base,
                                          seq_lens, page=page)
@@ -208,6 +253,12 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0,
     causal (key column <= query row, both from 0) with the prefix-LM
     exception, or non-causal (every key visible); Sq != Skv for an
     encoder-decoder's cross-attention."""
+    if cost.BOUNDARY is not None:
+        return cost.BOUNDARY(
+            "K3", lambda d: cost.k3_work(q, k, v, causal=causal,
+                                         prefix_len=prefix_len),
+            [q, k, v], lambda: ref.flash_attention(q, k, v, causal=causal,
+                                                   prefix_len=prefix_len))
     if use_kernel_for(q, use_kernel):
         return flash_attention_cuda(q, k, v, causal=causal,
                                     prefix_len=prefix_len)
@@ -218,6 +269,11 @@ def ssd_intra_chunk(xb, dtb, cum, Bb, Cb, *,
                     use_kernel: Optional[bool] = None):
     """The Mamba2 SSD intra-chunk term; xb (B,Q,H,P), dtb / cum (B,Q,H)
     fp32, Bb / Cb (B,Q,N) -> (B,Q,H,P) fp32."""
+    if cost.BOUNDARY is not None:
+        return cost.BOUNDARY(
+            "K4", lambda d: cost.k4_work(xb, dtb, cum, Bb, Cb),
+            [xb, dtb, cum, Bb, Cb],
+            lambda: ref.ssd_intra_chunk(xb, dtb, cum, Bb, Cb))
     if use_kernel_for(xb, use_kernel):
         return ssd_intra_chunk_cuda(xb, dtb, cum, Bb, Cb)
     return ref.ssd_intra_chunk(xb, dtb, cum, Bb, Cb)

@@ -40,11 +40,10 @@ from repro_torch.core.allocator import SubarrayAllocator
 from repro_torch.core.poolspec import BlockRef
 from repro_torch.core.rowclone import RowCloneEngine
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.cost import HBM_BYTES_PER_S
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.weights import resolve_device
 
-#: H100 SXM memory rate (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
 #: one KV block: page x KV heads x head_dim
 BLOCK = (64, 8, 128)
 #: bytes of the L2-scrub buffer (the H100's L2 is 50 MB)

@@ -18,9 +18,19 @@ logical axes under the active rules, :func:`tree_shardings` over a tree).
 select, each on its rank's device, and stores a block once: ranks whose
 coordinates differ only in axes the spec does not name share the copy of
 the lowest of them.  :func:`gather` makes the whole tensor again.
+
+Every move of a tensor onto a rank's device goes through :func:`to_rank`
+(or :func:`to_rank_of`), work done rank by rank runs inside
+:func:`rank_scope`, and a tensor made on a rank's device outside one is
+marked with :func:`on_rank`: plain ``.to`` calls and no-ops, unless an op-cost
+walk is active (``launch/op_cost.py`` sets :data:`WALK`), which reckons
+each rank's work over ``meta`` tensors, where every rank's device is one.
+:func:`make_production_mesh` gives the meshes that walk's dry-run
+reckons.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -29,6 +39,11 @@ import torch
 
 #: the mesh axes a pool's block axis shards over, in shard order
 POOL_AXES = ("pod", "data", "model")
+
+#: the active op-cost walk (``launch/op_cost.py``), or None: it places
+#: the moves of :func:`to_rank` / :func:`to_rank_of` and the marks of
+#: :func:`on_rank`
+WALK = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +94,53 @@ def make_test_mesh(shape: Tuple[int, ...] = (2, 2),
     else:
         devs = tuple(torch.device(d) for d in devices)
     return DeviceMesh(tuple(axes), tuple(int(s) for s in shape), devs)
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices="meta"
+                         ) -> DeviceMesh:
+    """The reference's production meshes (``repro/launch/mesh.py``):
+    (16, 16) over ``("data", "model")``, or (2, 16, 16) over ``("pod",
+    "data", "model")`` with ``multi_pod``, every rank on ``devices``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_test_mesh(shape, axes, devices=devices)
+
+
+def to_rank(t: torch.Tensor, mesh: DeviceMesh, rank: int, *,
+            path: str = "other", **kw) -> torch.Tensor:
+    """``t.to(mesh.devices[rank], **kw)``; under an op-cost walk, a copy
+    on ``rank`` whose bytes from another rank count to ``path``."""
+    if WALK is not None:
+        return WALK.move(t, rank, path, **kw)
+    return t.to(mesh.devices[rank], **kw)
+
+
+def to_rank_of(t: torch.Tensor, like: torch.Tensor, *,
+               path: str = "other") -> torch.Tensor:
+    """``t.to(like.device)``; under an op-cost walk, onto ``like``'s
+    rank."""
+    if WALK is not None:
+        return WALK.move(t, WALK.rank_of(like), path)
+    return t.to(like.device)
+
+
+@contextlib.contextmanager
+def rank_scope(rank: int):
+    """The work inside runs on ``rank``'s device: an op-cost walk counts
+    it, and places what it makes, on ``rank``."""
+    if WALK is None:
+        yield
+    else:
+        with WALK.scope(rank):
+            yield
+
+
+def on_rank(t: torch.Tensor, rank: int) -> torch.Tensor:
+    """``t``, made on ``rank``'s device; an op-cost walk marks it as that
+    rank's."""
+    if WALK is not None:
+        WALK.tag(t, rank)
+    return t
 
 
 def pool_shard_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
@@ -243,10 +305,11 @@ def place(x: torch.Tensor, sharding: Sharding
     owners = sharding.owners()
     devs = sharding.mesh.devices
     if len(owners) == 1:
-        return x.to(devs[0])
+        return to_rank(x, sharding.mesh, 0, path="place")
     return Sharded(sharding, x.shape, {
-        b: x[sharding.slices(b, x.shape)].to(
-            devs[r], memory_format=torch.contiguous_format, copy=True)
+        b: to_rank(x[sharding.slices(b, x.shape)], sharding.mesh, r,
+                   path="place", memory_format=torch.contiguous_format,
+                   copy=True)
         for b, r in owners.items()})
 
 
@@ -271,10 +334,21 @@ def gather(x: Union[torch.Tensor, Sharded], device=None,
     through :func:`place` is bitwise."""
     if isinstance(x, torch.Tensor):
         return x.to(dtype or x.dtype).to(device or x.device)
-    first = next(iter(x.blocks.values()))
-    device = device or first.device
-    blocks = {b: t.to(dtype or t.dtype).to(device)
-              for b, t in x.blocks.items()}
+    mesh = x.sharding.mesh
+    # the rank that receives: the first block's owner, or the lowest rank
+    # on ``device`` (None: a device outside the mesh)
+    if device is None:
+        dst = x.sharding.owners()[next(iter(x.blocks))]
+    else:
+        device = torch.device(device)
+        dst = mesh.devices.index(device) if device in mesh.devices else None
+
+    def move(t: torch.Tensor) -> torch.Tensor:
+        t = t.to(dtype or t.dtype)
+        return t.to(device) if dst is None else \
+            to_rank(t, mesh, dst, path="gather")
+
+    blocks = {b: move(t) for b, t in x.blocks.items()}
     return assemble(blocks, x.sharding.counts(len(x.sharding.spec)))
 
 
@@ -307,8 +381,10 @@ def rank_bytes(values, mesh: DeviceMesh) -> List[int]:
     return out
 
 
-__all__ = ["POOL_AXES", "DeviceMesh", "Sharded", "Sharding", "assemble",
-           "gather", "make_test_mesh", "pieces", "place",
+__all__ = ["POOL_AXES", "WALK", "DeviceMesh", "Sharded", "Sharding",
+           "assemble", "gather", "make_production_mesh", "make_test_mesh",
+           "on_rank", "pieces", "place", "rank_scope", "to_rank",
+           "to_rank_of",
            "pool_partition_spec", "pool_shard_axes", "pool_shard_count",
            "pool_shard_ranks", "rank_bytes", "sharding_for",
            "tree_shardings", "with_pieces"]

@@ -20,12 +20,13 @@ its per-rank partials meet in :func:`lse_combine`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import Sharding, assemble
+from repro_torch.launch.mesh import (Sharding, assemble, rank_scope,
+                                     to_rank, to_rank_of)
 from repro_torch.models.common import checkpointed
 from repro_torch.sharding.rules import logical_to_spec
 
@@ -160,33 +161,39 @@ def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = {}
     for block, rank in sh.owners().items():
         rows, seq, heads, _ = sh.slices(block, q.shape)
-        dev = mesh.devices[rank]
-        o = flash_attention(
-            q[rows, seq, heads].to(dev),
-            _kv_for(k[rows], heads, group).to(dev),
-            _kv_for(v[rows], heads, group).to(dev), pos[rows, seq].to(dev),
-            pos[rows].to(dev), kv_valid[rows].to(dev), info, kv_chunk)
-        outs[block] = o.to(q.device)
+        with rank_scope(rank):
+            o = flash_attention(*(
+                to_rank(t, mesh, rank, path="attention") for t in (
+                    q[rows, seq, heads], _kv_for(k[rows], heads, group),
+                    _kv_for(v[rows], heads, group), pos[rows, seq],
+                    pos[rows], kv_valid[rows])), info, kv_chunk)
+        outs[block] = to_rank_of(o, q, path="attention")
     return assemble(outs, sh.counts(4))
 
 
 def lse_combine(accs: Sequence[torch.Tensor], ls: Sequence[torch.Tensor],
-                ms: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+                ms: Sequence[torch.Tensor],
+                home: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Combine the flash partials of several ranks (the reference's
     ``lse_combine``, whose ``pmax`` / ``psum`` run over a mesh axis): per
-    rank acc (B, H, D), l and m (B, H), fp32.  Brings them to ``device``
-    (default the first partial's) and combines in the reference's order:
-    the max of ``m``, ``corr = exp(m - m_g)``, the sums of ``l * corr`` and
-    of ``acc * corr``, then ``acc_g / max(l_g, 1e-30)``.  A rank that sees
+    rank acc (B, H, D), l and m (B, H), fp32.  Brings them to ``home``'s
+    device (default the first partial's; under an op-cost walk, its rank)
+    and combines in the reference's order: the max of ``m``, ``corr =
+    exp(m - m_g)``, the sums of ``l * corr`` and of ``acc * corr``, then
+    ``acc_g / max(l_g, 1e-30)``.  A rank that sees
     no position of a row holds ``m = -1e30, l = 0, acc = 0`` there (K2 and
     its plain version), so its ``corr`` underflows to 0; a row no rank
     sees comes out 0.  Plain tensor code, not a kernel."""
-    dev = accs[0].device if device is None else device
-    m = torch.stack([x.to(dev) for x in ms])
+    home = accs[0] if home is None else home
+
+    def to(x):
+        return to_rank_of(x, home, path="lse_combine")
+
+    m = torch.stack([to(x) for x in ms])
     m_g = m.amax(dim=0)
     corr = torch.exp(m - m_g)
-    l_g = (torch.stack([x.to(dev) for x in ls]) * corr).sum(dim=0)
-    acc_g = (torch.stack([x.to(dev) for x in accs])
+    l_g = (torch.stack([to(x) for x in ls]) * corr).sum(dim=0)
+    acc_g = (torch.stack([to(x) for x in accs])
              * corr[..., None]).sum(dim=0)
     return acc_g / l_g.clamp_min(1e-30)[..., None]
 

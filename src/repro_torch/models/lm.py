@@ -29,7 +29,7 @@ from torch import nn
 
 from repro_torch.configs import (DECODER_FAMILIES, ModelConfig,
                                  RowCloneConfig)
-from repro_torch.launch.mesh import (DeviceMesh, pool_shard_count,
+from repro_torch.launch.mesh import (DeviceMesh, on_rank, pool_shard_count,
                                      pool_shard_ranks)
 from repro_torch.models.attention import MaskInfo
 from repro_torch.models.common import (checkpointed, chunked_softmax_xent,
@@ -266,7 +266,8 @@ class LanguageModel(nn.Module):
     def decode_step(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
                     k_pools, v_pools, block_table: torch.Tensor,
                     share_mask: torch.Tensor, base: torch.Tensor, *,
-                    mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+                    mesh: Optional[DeviceMesh] = None,
+                    appends=None) -> torch.Tensor:
         """tokens (B,) just sampled, seq_lens (B,) the position of each
         (tokens already in the cache).  Appends every layer's K/V into
         ``k_pools`` / ``v_pools`` IN PLACE and returns the next-position
@@ -276,8 +277,10 @@ class LanguageModel(nn.Module):
         shard order); the block table, share mask (local columns when the
         batch shards, :func:`~repro_torch.models.paged
         .paged_attend_append`) and base address the GLOBAL block ids.
-        Everything but the paged attention runs whole on the model's
-        device."""
+        ``appends``: the step's ``paged.rank_appends`` where the caller
+        knows them (the dry-run's declared layout), else read from the
+        block table (one host sync).  Everything but the paged attention
+        runs whole on the model's device."""
         self._pair_of("prefill / decode_step", "decode_step")
         cfg, page = self.cfg, self.page
         ks = list(k_pools) if isinstance(k_pools, (list, tuple)) \
@@ -286,8 +289,9 @@ class LanguageModel(nn.Module):
             else [v_pools]
         pos = seq_lens.long()
         x = embed(self.embed, tokens, self.act_dtype)
-        appends = rank_appends(*append_slots(pos, block_table, page),
-                               [s.shape[1] for s in ks])
+        if appends is None:
+            appends = rank_appends(*append_slots(pos, block_table, page),
+                                   [s.shape[1] for s in ks])
         seq_incl = (pos + 1).to(torch.int32)
         for li, layer in enumerate(self.layers):
             x = decoder_layer_decode(layer, x, pos, [s[li] for s in ks],
@@ -333,25 +337,8 @@ class LanguageModel(nn.Module):
         state = {"seq_lens": torch.full((batch,), filled, dtype=torch.int32,
                                         device=dev)}
         if cfg.num_attn_layers:
-            table, mask, base = identity_layout(
-                batch, seq_len, page, batch_shard_count(mesh, batch))
-            state["block_table"] = torch.from_numpy(table).to(dev)
-            state["share_mask"] = torch.from_numpy(mask).to(dev)
-            state["base"] = torch.from_numpy(base).to(dev)
-            nblk = base.shape[0]
-            shape = (cfg.num_attn_layers, nblk, page, cfg.num_kv_heads,
-                     cfg.head_dim)
-            if mesh is None or mesh.size == 1:
-                state["k_pools"] = torch.zeros(shape, dtype=dtype, device=dev)
-                state["v_pools"] = torch.zeros_like(state["k_pools"])
-            else:
-                ranks = pool_shard_ranks(mesh)
-                ss = -(-nblk // len(ranks))
-                for name in ("k_pools", "v_pools"):
-                    state[name] = [torch.zeros(
-                        (shape[0], min(ss, max(nblk - i * ss, 0)))
-                        + shape[2:], dtype=dtype, device=mesh.devices[r])
-                        for i, r in enumerate(ranks)]
+            state.update(paged_state(cfg, batch, seq_len, page, mesh, dtype,
+                                     dev))
         if cfg.family == "encdec":
             S_src = max(seq_len // cfg.src_frames_ratio, 1)
             state["cross_k"] = torch.zeros(
@@ -470,7 +457,7 @@ class LanguageModel(nn.Module):
     @torch.no_grad()
     def decode_state(self, state: Dict[str, torch.Tensor],
                      tokens: torch.Tensor,
-                     mesh: Optional[DeviceMesh] = None
+                     mesh: Optional[DeviceMesh] = None, *, appends=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One token per sequence: ``tokens`` (B,) the token just sampled,
         at position ``state["seq_lens"]``.  Updates the state's pools and
@@ -481,7 +468,8 @@ class LanguageModel(nn.Module):
         land in its slab and runs K2 over it, and the partials are
         LSE-combined (``paged.paged_attend_append``); the rest runs whole
         on the model's device.  Refused, as the reference's ``shard_map``
-        refuses it, when the ranks do not divide the block count."""
+        refuses it, when the ranks do not divide the block count.
+        ``appends``: as :meth:`decode_step`'s."""
         self._pair_of("prefill_state / decode_state", "decode_state")
         cfg, page = self.cfg, self.page
         pos = state["seq_lens"].long()
@@ -489,9 +477,10 @@ class LanguageModel(nn.Module):
         if cfg.num_attn_layers:
             ks, vs = _slab_list(state["k_pools"]), _slab_list(state["v_pools"])
             _check_slabs(state, ks, tokens.shape[0], mesh)
-            appends = rank_appends(*append_slots(pos, state["block_table"],
-                                                 page),
-                                   [s.shape[1] for s in ks])
+            if appends is None:
+                appends = rank_appends(*append_slots(
+                    pos, state["block_table"], page),
+                    [s.shape[1] for s in ks])
 
         def attend(layer: DecoderLayer, x: torch.Tensor,
                    i: int) -> torch.Tensor:
@@ -515,6 +504,36 @@ class LanguageModel(nn.Module):
                     x = attend(self.shared, x, li // every)
         xn = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self._logits(xn), dict(state, seq_lens=seq_incl)
+
+
+def paged_state(cfg: ModelConfig, batch: int, seq_len: int, page: int,
+                mesh: Optional[DeviceMesh], dtype: torch.dtype, device
+                ) -> Dict[str, object]:
+    """The paged half of a serve state (:meth:`LanguageModel
+    .make_serve_state`'s ``block_table``, ``share_mask``, ``base``,
+    ``k_pools``, ``v_pools``): the identity layout of ``batch`` sequences
+    of ``seq_len`` slots, zero pools (num_attn_layers, nblk, page, KVH, D)
+    on ``device``, or under a mesh of more than one rank one slab per
+    rank in shard order, each on its rank's device."""
+    table, mask, base = identity_layout(batch, seq_len, page,
+                                        batch_shard_count(mesh, batch))
+    state = {"block_table": torch.from_numpy(table).to(device),
+             "share_mask": torch.from_numpy(mask).to(device),
+             "base": torch.from_numpy(base).to(device)}
+    nblk = base.shape[0]
+    shape = (cfg.num_attn_layers, nblk, page, cfg.num_kv_heads, cfg.head_dim)
+    if mesh is None or mesh.size == 1:
+        state["k_pools"] = torch.zeros(shape, dtype=dtype, device=device)
+        state["v_pools"] = torch.zeros_like(state["k_pools"])
+        return state
+    ranks = pool_shard_ranks(mesh)
+    ss = -(-nblk // len(ranks))
+    for name in ("k_pools", "v_pools"):
+        state[name] = [on_rank(torch.zeros(
+            (shape[0], min(ss, max(nblk - i * ss, 0))) + shape[2:],
+            dtype=dtype, device=mesh.devices[r]), r)
+            for i, r in enumerate(ranks)]
+    return state
 
 
 def _slab_list(pools) -> list:
@@ -594,4 +613,4 @@ def kv_to_pools(kv: torch.Tensor, page: int, dtype: torch.dtype,
 
 
 __all__ = ["ENTRY_PAIRS", "LanguageModel", "PORTED_FAMILIES", "append_slots",
-           "kv_to_pools", "model_dtype"]
+           "kv_to_pools", "model_dtype", "paged_state"]

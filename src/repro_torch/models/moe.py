@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import ModelConfig
-from repro_torch.launch.mesh import DeviceMesh
+from repro_torch.launch.mesh import (DeviceMesh, rank_scope, to_rank,
+                                     to_rank_of)
 from repro_torch.models.common import swiglu_mlp
 from repro_torch.models.paged import batch_shard_axes, batch_shard_count
 from repro_torch.sharding.rules import active_rules
@@ -289,10 +290,12 @@ def moe_ffn_fsdp(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig,
     n = math.prod(mesh.axis_size(a) for a in axes)
     ys, auxs = [], []
     for i, rows in enumerate(x.chunk(n)):
-        dev = mesh.devices[_rank(mesh, _coords(mesh, axes, i))]
-        y, aux = moe_ffn_local(p, rows.to(dev), cfg)
-        ys.append(y.to(x.device))
-        auxs.append(aux.to(x.device))
+        r = _rank(mesh, _coords(mesh, axes, i))
+        with rank_scope(r):
+            y, aux = moe_ffn_local(p, to_rank(rows, mesh, r, path="moe"),
+                                   cfg)
+        ys.append(to_rank_of(y, x, path="moe"))
+        auxs.append(to_rank_of(aux, x, path="moe"))
     return torch.cat(ys), torch.stack(auxs).mean()
 
 
@@ -332,39 +335,47 @@ def moe_ffn_a2a(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(dps):
         coord = _coords(mesh, dp_axes, g)
-        devs = [mesh.devices[_rank(mesh, dict(coord, model=t))]
-                for t in range(T)]
+        ranks = [_rank(mesh, dict(coord, model=t)) for t in range(T)]
         rows = slice(g * B_l, (g + 1) * B_l)
         routes, sends = [], []
-        for t, dev in enumerate(devs):
-            xf = x[rows, t * S_l:(t + 1) * S_l].reshape(N, d).to(dev)
-            gate_k, idx_k, pos_k, keep_k, probs, logits = route_local(
-                xf, p.router, k, C)
-            xk = torch.where(keep_k[..., None], xf[:, None, :],
-                             torch.zeros((), dtype=x.dtype, device=dev))
-            buf = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
-            buf.index_put_((idx_k.reshape(-1), pos_k.reshape(-1)),
-                           xk.reshape(-1, d), accumulate=True)
-            sends.append(buf.view(T, E_l, C, d))
-            routes.append((gate_k, idx_k, pos_k, keep_k))
-            aux = aux + _aux(idx_k, probs, logits, E).to(x.device)
+        for t, r in enumerate(ranks):
+            with rank_scope(r):
+                dev = mesh.devices[r]
+                xf = to_rank(x[rows, t * S_l:(t + 1) * S_l].reshape(N, d),
+                             mesh, r, path="all-to-all")
+                gate_k, idx_k, pos_k, keep_k, probs, logits = route_local(
+                    xf, p.router, k, C)
+                xk = torch.where(keep_k[..., None], xf[:, None, :],
+                                 torch.zeros((), dtype=x.dtype, device=dev))
+                buf = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
+                buf.index_put_((idx_k.reshape(-1), pos_k.reshape(-1)),
+                               xk.reshape(-1, d), accumulate=True)
+                sends.append(buf.view(T, E_l, C, d))
+                routes.append((gate_k, idx_k, pos_k, keep_k))
+                a = _aux(idx_k, probs, logits, E)
+            aux = aux + to_rank_of(a, x, path="all-to-all")
         # exchange: rank u's tokens are slice u of every rank's buffer,
         # laid out (E_l, T, C, d) as the reference's swapaxes
         outs = []
-        for u, dev in enumerate(devs):
-            tokens = torch.stack([s[u].to(dev) for s in sends], 1)
-            outs.append(expert_ffn(p, tokens.view(E_l, T * C, d),
-                                   slice(u * E_l, (u + 1) * E_l))
-                        .view(E_l, T, C, d))
+        for u, r in enumerate(ranks):
+            with rank_scope(r):
+                tokens = torch.stack([to_rank(s[u], mesh, r,
+                                              path="all-to-all")
+                                      for s in sends], 1)
+                outs.append(expert_ffn(p, tokens.view(E_l, T * C, d),
+                                       slice(u * E_l, (u + 1) * E_l))
+                            .view(E_l, T, C, d))
         # the inverse exchange and each rank's combine
-        for t, dev in enumerate(devs):
-            mine = torch.cat([o[:, t].to(dev) for o in outs])
-            gate_k, idx_k, pos_k, keep_k = routes[t]
-            picked = mine[idx_k, pos_k]                          # (N, k, d)
-            w = (gate_k * keep_k).to(x.dtype)
-            yl = (w[:, None, :] @ picked)[:, 0, :]
-            y[rows, t * S_l:(t + 1) * S_l] = yl.view(B_l, S_l, d).to(
-                x.device)
+        for t, r in enumerate(ranks):
+            with rank_scope(r):
+                mine = torch.cat([to_rank(o[:, t], mesh, r,
+                                          path="all-to-all") for o in outs])
+                gate_k, idx_k, pos_k, keep_k = routes[t]
+                picked = mine[idx_k, pos_k]                      # (N, k, d)
+                w = (gate_k * keep_k).to(x.dtype)
+                yl = (w[:, None, :] @ picked)[:, 0, :]
+            y[rows, t * S_l:(t + 1) * S_l] = to_rank_of(
+                yl.view(B_l, S_l, d), x, path="all-to-all")
     return _shared(p, x, y), aux / (T * dps)
 
 

@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.core.poolspec import PoolGroup, PoolSpec
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import DeviceMesh, pool_shard_axes
+from repro_torch.launch.mesh import (DeviceMesh, pool_shard_axes,
+                                     pool_shard_ranks, rank_scope)
 from repro_torch.models.attention import lse_combine
 
 #: the hint of every sharded serving pool (the reference's)
@@ -194,6 +195,7 @@ def paged_attend_append(mesh: Optional[DeviceMesh], q, k_new, v_new,
         raise ValueError(f"share mask of {share_mask.shape[1]} columns for "
                          f"a batch of {B} over {dp} groups")
     bl, per = B // dp, n // dp
+    ranks = pool_shard_ranks(mesh)
     outs, start = [], 0
     for g in range(dp):
         rs = slice(g * bl, (g + 1) * bl)
@@ -201,13 +203,14 @@ def paged_attend_append(mesh: Optional[DeviceMesh], q, k_new, v_new,
         for r in range(g * per, (g + 1) * per):
             ns = k_slabs[r].shape[0]
             rows, ids, offs = appends[r]
-            parts.append(_append_partial(
-                q[rs], k_new, v_new, k_slabs[r], v_slabs[r], rows, ids, offs,
-                share_mask[start:start + ns], base[start:start + ns],
-                seq_lens[rs], page))
+            with rank_scope(ranks[r]):
+                parts.append(_append_partial(
+                    q[rs], k_new, v_new, k_slabs[r], v_slabs[r], rows, ids,
+                    offs, share_mask[start:start + ns],
+                    base[start:start + ns], seq_lens[rs], page))
             start += ns
         accs, ls, ms = zip(*parts)
-        outs.append(lse_combine(accs, ls, ms, device=q.device))
+        outs.append(lse_combine(accs, ls, ms, home=q))
     return torch.cat(outs).to(q.dtype)
 
 

@@ -26,7 +26,8 @@ FORBIDDEN = re.compile(
 
 #: modules of the per-mechanism, the Mamba2, the moe, the serving
 #: features, the traffic, the recovery, the observability, the mesh, the
-#: training and the sharding-rules slices; the scans below must reach them
+#: training, the sharding-rules and the dry-run slices; the scans below
+#: must reach them
 NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.core.migration", "repro_torch.launch.mechanisms",
                "repro_torch.launch.applications",
@@ -42,7 +43,9 @@ NEW_MODULES = ("repro_torch.kernels.fpm_copy", "repro_torch.kernels.zero_init",
                "repro_torch.launch.mesh", "repro_torch.kernels.psm_transfer",
                "repro_torch.data.pipeline", "repro_torch.optim.adamw",
                "repro_torch.optim.compress", "repro_torch.launch.train",
-               "repro_torch.sharding.rules", "repro_torch.runtime.elastic")
+               "repro_torch.sharding.rules", "repro_torch.runtime.elastic",
+               "repro_torch.kernels.cost", "repro_torch.launch.op_cost",
+               "repro_torch.launch.dryrun")
 
 
 def _modules():
