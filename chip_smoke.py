@@ -408,7 +408,32 @@ Phases (each raises on failure; the script then exits non-zero):
     (arch, shape), a process a cell, ``DRY_WORKERS`` at once, cheapest
     first, for ``DRY_SWEEP_S`` seconds: each row, the counts of ok / skip
     / error / not finished and the time; an error fails the phase.  No
-    K1-K7 launch: the walk reckons kernels at their boundary.
+    K1-K7 launch: the walk reckons kernels at their boundary.  The placed
+    dense serving cells come last in the sweep: phase 26 walks them.
+26. (run after phase 22, on phase 5's weights) the dense decoder's
+    serving weights placed over a rank mesh (``phase_placed_serve``;
+    ``weights.place_params``, ``prefill`` / ``decode_step`` on placed
+    weights, ``ServingEngine(mesh=)``): llama3.2-3b at full width and
+    depth, a second copy of phase 5's weights placed over (2, 4) ranks of
+    the card by ``DEFAULT_RULES``.  (a) phase 5's protocol through the
+    single-device engine and phase 22's unplaced mesh engine; (b) each
+    rank's weight bytes at rest (``rank_bytes``) within 5% of an eighth,
+    every matrix split, the memory placing took; (c) the placed engine fed
+    the single engine's tokens: its own greedy choice equal but at logged
+    near-ties (phase 22's rule), logits within ``SERVE_RTOL``, at most one
+    ``fused_mesh`` drain a round, K2 28 x 8 a round, K3 28 x 4 per
+    admission (one a block of heads), K1 and K7 on the path, every K2 /
+    K3 call of the admissions and the first round against its plain
+    version (``tapped``), ``max_memory_allocated``; (d) ms a round of the
+    three engines and one profiled round of the placed one; (e) K3 with
+    ``q_offset`` on the last 2,048 query rows of a 4,096 prefill against
+    its plain version (within ``K3_OFFSET_RTOL`` x its max |value|) and
+    the whole prefill's rows (bitwise), card and device ms beside its
+    bound, the plain version and SDPA with the offset mask; (f)
+    ``PLACED_DRY_CELLS`` walked with placed weights (a process each,
+    started once (a)-(e) are timed, beside (c)'s check run): the decode
+    cells under 8 GiB of arguments on the busiest rank, the prefill cells
+    within 74.5 GiB.
 
 The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -416,6 +441,7 @@ and power limit, and the device JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -453,6 +479,11 @@ MAX_BLOCKS_PER_SEQ = 64
 K2_ATOL = 2e-3
 #: K3: bf16 output (one bf16 ulp at |x| ~ 2-4 is 1.6e-2), as the JAX tests
 K3_ATOL = 2e-2
+#: K3 over a block of query rows (phase 26 (e)): the outputs of N(0, 1)
+#: inputs over 2,049-4,096 keys are small (mean |x| ~ 0.024, max ~ 0.5),
+#: so the limit scales with them: one bf16 step at the largest output
+#: value (both sides round one fp32 result once)
+K3_OFFSET_RTOL = 2 ** -7
 #: serve logits: 28 bf16 layers run through two attention implementations
 #: (different summation orders, bf16 re-rounding of every activation)
 SERVE_RTOL = 5e-2
@@ -2073,13 +2104,12 @@ def hybrid_faults() -> dict:
     def scaled(q):
         return (q.float() * shrink).to(q.dtype)
 
-    def k3_scale(q, k, v, *, causal=True, prefix_len=0, use_kernel=None):
-        return ref.flash_attention(scaled(q), k, v, causal=causal,
-                                   prefix_len=prefix_len)
+    def k3_scale(q, k, v, *, use_kernel=None, **kw):
+        return ref.flash_attention(scaled(q), k, v, **kw)
 
-    def k3_batch0(q, k, v, *, causal=True, prefix_len=0, use_kernel=None):
+    def k3_batch0(q, k, v, *, use_kernel=None, **kw):
         return ref.flash_attention(q, k[:1].expand_as(k), v[:1].expand_as(v),
-                                   causal=causal, prefix_len=prefix_len)
+                                   **kw)
 
     def k2_scale(q, k, v, share_mask, base, seq_lens, *, page,
                  use_kernel=None):
@@ -6853,8 +6883,9 @@ DRY_ARCH, DRY_B, DRY_S = TRAIN_ARCH, TRAIN_B, TRAIN_S
 #: (a) the walk's peak against ``max_memory_allocated``: within 10% (the
 #: caching allocator rounds each block up and holds cuBLAS's workspace)
 DRY_PEAK_RTOL = 0.10
-#: (c) the sweep's share of the phase: seconds, worker processes
-DRY_SWEEP_S, DRY_WORKERS = 150.0, 6
+#: (c) the sweep's share of the phase: seconds, worker processes (phase
+#: 26 walks the placed dense cells)
+DRY_SWEEP_S, DRY_WORKERS = 80.0, 6
 
 
 class _NoModules:
@@ -6879,16 +6910,21 @@ def _dry_walk(cfg, shape, mesh):
 
 def _sweep_cells() -> list:
     """Every (arch, shape) of the ``--mesh single`` sweep, cheapest first:
-    the prefill and decode cells (the loss runs whole on the first rank,
-    few ops), then the train cells by their layers' attention blocks (256
-    a layer over 16 x 16 ranks; an ssm stack has none)."""
+    the prefill and decode cells whose weights lie whole on the first rank
+    (few ops), then those of the placed families (every rank computes its
+    blocks: 0.4-2.5 M ops a cell; phase 26 walks them), then the train
+    cells by their layers' attention blocks (256 a layer over 16 x 16
+    ranks; an ssm stack has none)."""
     from repro_torch.configs import SHAPES, get_config, list_archs
-    order = {"prefill": 0, "decode": 1, "train": 2}
+    from repro_torch.models.lm import PLACED_FAMILIES
+    order = {"prefill": 0, "decode": 1, "train": 3}
 
     def weight(cell):
         cfg, shape = get_config(cell[0]), SHAPES[cell[1]]
-        return (order[shape.kind],
-                cfg.num_attn_layers + cfg.encoder_layers
+        kind = order[shape.kind]
+        if kind < 2 and cfg.family in PLACED_FAMILIES:
+            kind = 2
+        return (kind, cfg.num_attn_layers + cfg.encoder_layers
                 if shape.kind == "train" else 0, cell)
 
     return sorted(((a, s) for a in list_archs() for s in SHAPES), key=weight)
@@ -7106,15 +7142,349 @@ def phase_dryrun(smi: str) -> None:
         raise AssertionError(f"dry-run checks failed: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the dense decoder's serving weights placed over a rank mesh
+# (weights.place_params; prefill / decode_step / ServingEngine(mesh=) on
+# the placed weights; K3's q_offset)
+# ---------------------------------------------------------------------------
+
+#: (e) K3's row block: the last 2,048 query rows of a 4,096 prefill
+PLACED_K3_S, PLACED_K3_ROWS = 4096, 2048
+#: (f) the dense cells walked again with placed weights, a process each
+#: (the other dense cells, 60-296 s of walk each on a CPU, are left to the
+#: CLI: the script keeps within its time)
+PLACED_DRY_CELLS = (("llama3.2-3b", "prefill_32k"),
+                    ("llama3.2-3b", "decode_32k"), ("yi-6b", "decode_32k"))
+#: (f) what a rank of one H100 holds (80 GB), and the decode cells' bound
+#: on a rank's arguments (its slabs and about 1/256 of the weights)
+RANK_GIB, DECODE_ARGS_GIB = 74.5, 8.0
+#: (f) seconds the walks may take
+PLACED_DRY_TIMEOUT = 420
+
+
+@contextlib.contextmanager
+def _walking(cells):
+    """:func:`_start_walks` into a temporary directory; every process still
+    running when the block ends is stopped."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        walks = _start_walks(cells, tmp)
+        try:
+            yield walks
+        finally:
+            for proc, *_ in walks:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+
+
+def _start_walks(cells, out_dir):
+    """One ``python -m repro_torch.launch.dryrun`` process a cell, all at
+    once; returns them with their output files."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape in cells:
+        out = os.path.join(out_dir, f"{arch}.{shape}.jsonl")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", out],
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE),
+            out, arch, shape))
+    return procs
+
+
+def phase_placed_serve(params, smi: str, scrub) -> dict:
+    """Phase 26: llama3.2-3b's weights placed over (2, 4) ranks of the card
+    (``weights.place_params`` under ``DEFAULT_RULES``) and served by
+    ``ServingEngine(mesh=)``, each rank computing its blocks, at full
+    width and depth, against the single-device engine on phase 5's
+    weights (the same seed).  Returns the launch counts of the placed
+    engine's run."""
+    import os
+    import tempfile
+
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_dispatch as fd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Sharded, make_test_mesh, rank_bytes
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.sharding.rules import attn_strategy
+    from repro_torch.weights import init_params, place_params
+    tag = "[llama3.2-3b placed]"
+    t_phase = time.perf_counter()
+    cfg = params.cfg
+    L = cfg.num_layers
+    mesh = make_test_mesh(MESH_SERVE_SHAPE, MESH_SERVE_AXES, devices="cuda")
+    n = mesh.size
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(2, cfg.vocab_size, size=k).astype(np.int32)
+               for k in PROMPT_LENS]
+    checks, path = {}, {}
+    events = []
+    hook = lambda n_, p_, mech: events.append(mech)
+
+    def engine(model, m):
+        return ServingEngine(cfg, model, max_seqs=MAX_SEQS,
+                             max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, mesh=m)
+
+    def serve(eng, watch=None, counted=None):
+        """Phase 5's protocol; per admission its K3 launches, per round
+        (drains, K1, K7, K2) and ms (synchronised host clock)."""
+        k3, rounds, ms, toks, logits = [], [], [], [], []
+        c_all = _counts()
+        sids = []
+        for p in prompts:
+            c0 = _counts()
+            sids.append(eng.add_request(p))
+            k3.append(_since(c0)["flash_attention"])
+        for rnd in range(ROUNDS):
+            if rnd == 1:
+                eng.fork(sids[0], 2)
+            logits.append({s: lg.copy() for s, lg in eng.last_logits.items()})
+            e0, c0 = len(events), _counts()
+            t = time.perf_counter()
+            if watch is None:
+                toks.append(eng.decode_round())
+            else:
+                watch.round(ref_toks[rnd])
+                eng.decode_round(sample_fn=watch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            ran = _since(c0)
+            rounds.append((events[e0:], ran["fused_dispatch"],
+                           ran["psm_transfer"], ran["paged_attention"]))
+        if counted is not None:
+            for k, v in _since(c_all).items():
+                counted[k] = counted.get(k, 0) + v
+        return sids, k3, rounds, ms, toks, logits
+
+    steady = lambda xs: float(np.median(xs[2:]))
+    fd.add_launch_hook(hook)
+    try:
+        # (a) the single-device engine, then phase 22's unplaced mesh
+        # engine, on phase 5's weights
+        one = engine(params, None)
+        sids, _, _, one_ms, ref_toks, ref_logits = serve(one)
+        del one
+        torch.cuda.empty_cache()
+        whole = engine(params, mesh)
+        _, _, _, whole_ms, whole_toks, _ = serve(whole)
+        del whole
+        torch.cuda.empty_cache()
+        # (b) the weights placed: a second copy made from the same seed
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = place_params(init_params(cfg, seed=SEED, device="cuda"),
+                             mesh)
+        placed_peak = torch.cuda.max_memory_allocated() - held
+        values = list(model.placement.values.values())
+        at_rest = rank_bytes(values, mesh)
+        total = sum(at_rest)
+        split = sum(isinstance(v, Sharded) for v in values)
+        torch.cuda.reset_peak_memory_stats()
+        eng = engine(model, mesh)
+        watch = _GreedyWatch()
+        msids, k3_per, per_round, placed_ms, _, _ = serve(eng, watch, path)
+        serve_peak = torch.cuda.max_memory_allocated()
+    finally:
+        fd.remove_launch_hook(hook)
+    strategy = attn_strategy(cfg.num_heads, mesh)
+    log(f"{tag} card {smi}; {n} ranks on cuda:0 ({MESH_SERVE_SHAPE} over "
+        f"{MESH_SERVE_AXES}), attention strategy {strategy!r}; {split} of "
+        f"{len(values)} weights split; at rest a rank holds "
+        f"{', '.join(f'{b / 1e6:.1f}' for b in at_rest)} MB of "
+        f"{total / 1e6:.1f} MB ({cfg.param_count() / 1e9:.3f} B "
+        f"parameters), placing them peaked at {placed_peak / 1e9:.3f} GB "
+        f"above the {held / 1e9:.3f} GB held; max_memory_allocated while "
+        f"serving {serve_peak / 1e9:.3f} GB (phase 5's weights and the "
+        f"placed copy)")
+    checks["(b) every rank holds within 5% of an eighth of the "
+           "weights"] = all(abs(b / (total / n) - 1) <= 0.05
+                            for b in at_rest)
+    checks["(b) every weight matrix is split"] = all(
+        isinstance(v, Sharded) for v in values if v.ndim == 2)
+    checks["(a) the same sequence ids"] = msids == sids
+    steps, ties, bad, worst, limit = _compare_greedy(ref_logits, ref_toks,
+                                                     watch, tag)
+    checks["(c) greedy tokens equal the single-device engine's (or differ "
+           "at logged near-ties)"] = bad == 0
+    checks["(c) logits within SERVE_RTOL x max |logit| of the "
+           "single-device engine's"] = worst <= limit
+    checks["(c) at most one fused_mesh drain a round"] = all(
+        ev in ([], ["fused_mesh"]) for ev, *_ in per_round)
+    checks[f"(c) K2 == {L} x {n} a round"] = all(
+        k2 == L * n for *_, k2 in per_round)
+    blocks = mesh.axis_size("model") if strategy == "heads" else 1
+    checks[f"(c) K3 == {L} x {blocks} per admission (one a block of "
+           "heads)"] = all(k == L * blocks for k in k3_per)
+    checks["(c) K7 and K1 ran on the path"] = \
+        path.get("psm_transfer", 0) > 0 and \
+        path.get("fused_dispatch", 0) > 0
+    log(f"{tag} (c) admitted {PROMPT_LENS}, forked, {ROUNDS} rounds: "
+        f"{steps} greedy steps, {ties} near-ties, {bad} unexcused; max "
+        f"|logit diff| vs single {worst:.3e} (limit {limit:.3e}); K1 / K7 "
+        f"/ K2 a round {[(k1, k7, k2) for _, k1, k7, k2 in per_round]}; "
+        f"fused_mesh a round {[len(ev) for ev, *_ in per_round]}; K3 per "
+        f"admission {k3_per}; the unplaced mesh engine's tokens "
+        f"{'equal' if whole_toks == ref_toks else 'differ from'} the "
+        "single engine's")
+    log(f"{tag} (d) ms a round (rounds 3-{ROUNDS}, median, host clock, "
+        f"synchronised), {smi}: placed {steady(placed_ms):.2f} ms, "
+        f"unplaced mesh (phase 22's engine) {steady(whole_ms):.2f} ms "
+        f"({steady(placed_ms) / steady(whole_ms):.2f}x), single device "
+        f"{steady(one_ms):.2f} ms")
+    prof = _profile_mesh_round(eng.decode_round, tag)
+    checks["(d) the profile saw K2"] = prof.get("K2_ms", 0) > 0
+    del eng
+    torch.cuda.empty_cache()
+
+    # (e) K3 over a block of query rows (q_offset): the last 2,048
+    # rows of a 4,096 prefill at llama3.2-3b's heads
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S, R = PLACED_K3_S, PLACED_K3_ROWS
+    off = S - R
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    q, k, v = _k3_inputs(gen, 1, R, H, KVH, D, S)
+
+    def kern():
+        return ops.flash_attention(q, k, v, q_offset=off,
+                                   use_kernel=True)
+
+    c0 = _counts()
+    out = kern()
+    want = ops.flash_attention(q, k, v, q_offset=off, use_kernel=False)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    typical = float(want.float().abs().mean())
+    limit_e = K3_OFFSET_RTOL * top
+    # the same rows of the whole prefill through K3 at offset 0
+    qf, _, _ = _k3_inputs(gen, 1, S, H, KVH, D)
+    qf[:, :, off:] = q
+    full = ops.flash_attention(qf, k, v, use_kernel=True)[:, :, off:]
+    torch.cuda.synchronize()
+    err_full = float((out.float() - full.float()).abs().max())
+    ms = time_ms(kern, scrub=scrub)
+    dev, _ = device_ms(kern, key="flash_kernel")
+    plain_ms = time_ms(lambda: ops.flash_attention(
+        q, k, v, q_offset=off, use_kernel=False), reps=3)
+    cols = torch.arange(S, device="cuda")
+    mask = cols[None, :] <= torch.arange(off, S, device="cuda")[:, None]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), scrub=scrub)
+    launched = _since(c0)["flash_attention"]
+    work = cost.k3_work(q, k, v, q_offset=off)
+    b_ops = work.flops / cost.BF16_FLOPS * 1e3
+    b_bytes = work.bytes / cost.HBM_BYTES_PER_S * 1e3
+    bound = max(b_ops, b_bytes)
+    log(f"{tag} (e) K3 q_offset {off}: rows {off}-{S - 1} of a {S} "
+        f"prefill (B=1, H={H}, KVH={KVH}, D={D}) over {S} keys: max "
+        f"|diff| vs plain {err:.3e} (limit {limit_e:.3e}: "
+        f"{K3_OFFSET_RTOL} x max |plain| {top:.3e}; mean |plain| "
+        f"{typical:.3e}), vs the whole prefill's rows through K3 "
+        f"{err_full:.3e} (limit 0: the same tiles); kernel {ms:.4f} ms "
+        f"(device only {_fmt_ms(dev)}), plain {plain_ms:.4f} ms, SDPA "
+        f"with the offset mask {lib_ms:.4f} ms, bound {bound:.5f} ms "
+        f"({'operations' if b_ops >= b_bytes else 'bytes'}: "
+        f"{work.flops:.3e} flop, {work.bytes} bytes), {smi}")
+    checks["(e) K3 with q_offset within K3_OFFSET_RTOL x max |out| of its "
+           "plain version"] = err <= limit_e and launched >= 2
+    checks["(e) K3 with q_offset equals the whole prefill's rows "
+           "bitwise"] = err_full == 0
+    del q, k, v, qf, out, want, full, mask
+    torch.cuda.empty_cache()
+    # (f) the dense cells walked with placed weights, a process each: they
+    # start once (a)-(e) are timed and profiled, and run beside the
+    # check run alone
+    t_walk = time.perf_counter()
+    with _walking(PLACED_DRY_CELLS) as walks:
+        # every K2 / K3 call of the admissions and the first round against
+        # its plain version (a check run, left out of the path)
+        def tapped_path():
+            tap = engine(model, mesh)
+            _admit_all(tap, prompts)
+            tap.decode_round()
+
+        _, reads = tapped(tapped_path)
+        torch.cuda.empty_cache()
+        calls = {op: r["calls"] for op, r in reads.items()}
+        checks["(c) the first round's K2 calls and the admissions' K3 calls "
+               "equal their plain versions"] = \
+            calls == {"flash_attention": L * blocks * len(prompts),
+                      "paged_attention_slab": L * n} and \
+            all(r["err"] <= r["limit"] for r in reads.values())
+        log(f"{tag} (c) every kernel call vs its plain version: "
+            + _fmt_reads(reads))
+        del model, values
+        torch.cuda.empty_cache()
+
+        rows, failed_walks = [], []
+        deadline = time.perf_counter() + PLACED_DRY_TIMEOUT
+        for proc, out_file, arch, shape in walks:
+            try:
+                proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            if proc.returncode == 0 and os.path.exists(out_file):
+                with open(out_file) as f:
+                    rows.extend(json.loads(line) for line in f)
+            else:
+                failed_walks.append((arch, shape, proc.returncode,
+                                     proc.stderr.read()[-400:]))
+            proc.stderr.close()
+    gib = 2 ** 30
+    for r in rows:
+        if r["status"] != "ok":
+            failed_walks.append((r["arch"], r["shape"], r["status"],
+                                 r.get("error", "")[:200]))
+            continue
+        m = r["memory"]
+        r["temp_gib"] = m["temp_size_in_bytes"] / gib
+        r["args_gib"] = m["argument_size_in_bytes"] / gib
+        log(f"{tag} (f) {r['arch']} {r['shape']} placed over (16, 16): "
+            f"{r['dominant']}-bound on rank {r['busiest_rank']}: t_compute "
+            f"{r['t_compute_s'] * 1e3:.4g} / t_memory "
+            f"{r['t_memory_s'] * 1e3:.4g} / t_peer "
+            f"{r['t_collective_s'] * 1e3:.4g} ms; temp {r['temp_gib']:.4g}"
+            f" + arguments {r['args_gib']:.4g} GiB; walk {r['compile_s']} s"
+            f"; peer bytes by path {r['collectives']}")
+    for w in failed_walks:
+        log(f"{tag} (f) FAILED walk {w}")
+    log(f"{tag} (f) {len(rows)} cells walked in "
+        f"{time.perf_counter() - t_walk:.1f} s (reckoned against the "
+        "published peaks, not measured)")
+    ok = [r for r in rows if r["status"] == "ok"]
+    checks["(f) every placed dense cell walked"] = \
+        not failed_walks and len(ok) == len(PLACED_DRY_CELLS)
+    checks[f"(f) every decode_32k cell's busiest rank holds under "
+           f"{DECODE_ARGS_GIB:.0f} GiB of arguments"] = all(
+        r["args_gib"] < DECODE_ARGS_GIB for r in ok
+        if r["shape"] == "decode_32k")
+    checks[f"(f) every prefill_32k cell fits {RANK_GIB} GiB on its busiest "
+           "rank"] = all(r["temp_gib"] + r["args_gib"] <= RANK_GIB
+                         for r in ok if r["shape"] == "prefill_32k")
+    log(f"{tag} phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok_ in checks.items():
+        log(f"{tag} {'ok  ' if ok_ else 'FAIL'} {name}")
+    failed = [k for k, ok_ in checks.items() if not ok_]
+    if failed:
+        raise AssertionError(f"placed serving checks failed: {failed}")
+    return {"llama3.2-3b placed serve": path}
+
+
 PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,),
-               21: (), 22: (5,), 23: (), 24: (21,), 25: ()}
+               21: (), 22: (5,), 23: (), 24: (21,), 25: (),
+               26: (5,)}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-25 by default), with
+    """The phases to run for ``--phases`` (all of 2-26 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 26))
+        return set(range(2, 27))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -7193,6 +7563,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if 22 in run:
         paths.update(phase_mesh_serve(params, smi))
+        torch.cuda.empty_cache()
+    if 26 in run:
+        paths.update(phase_placed_serve(params, smi, scrub))
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()

@@ -3,9 +3,11 @@
 // Replaces the TPU kernel `_flash_kernel` in src/repro/kernels/flash_attention.py
 // (entered through `flash_attention_pallas`, `pallas_call` at :93):
 // q (B, H, Sq, D) against k / v (B, KVH, Skv, D), non-causal (every key
-// below Skv is visible) or with a causal mask (key column <= query row, both
-// counted from 0) plus a prefix-LM exception (key positions < prefix_len are
-// visible to every query), GQA head h -> kv head h / group, the scale D^-0.5
+// below Skv is visible) or with a causal mask (key column <= query row +
+// q_offset, both counted from 0: q_offset is the position of q's first row,
+// 0 for a whole prompt, a block's first row for a block of query rows) plus
+// a prefix-LM exception (key positions < prefix_len are visible to every
+// query), GQA head h -> kv head h / group, the scale D^-0.5
 // applied to the fp32 scores after the product, online softmax in fp32,
 // output in bf16.  A fully masked row gives 0.  Sq and Skv differ for an
 // encoder-decoder's cross-attention (text queries over S_src frames; one
@@ -89,7 +91,7 @@ struct Shape {
 struct Params {
   __nv_bfloat16* out;
   long long osb, osh, oss;   // output strides (elements) of b, h, s
-  int Sq, Skv, H, KVH, causal, prefix_len;
+  int Sq, Skv, H, KVH, causal, prefix_len, q_offset;
   float scale_log2;          // D^-0.5 * log2(e)
 };
 
@@ -138,10 +140,11 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
   const int kvh = h / (p.H / p.KVH);
   const int Skv = p.Skv;
   // kv tiles to visit: all of them, or (causal) a prefix of them up to the
-  // causal edge or the prefix, whichever lies further
+  // causal edge of the tile's last row or the prefix, whichever lies further
   int n_kv = (Skv + kBK - 1) / kBK;
   if (p.causal) {
-    const int edge = max(qt + 1, (p.prefix_len + kBK - 1) / kBK);
+    const int edge = max((q0 + p.q_offset + kBQ - 1) / kBK + 1,
+                         (p.prefix_len + kBK - 1) / kBK);
     n_kv = min(n_kv, edge);
   }
   const int tid = threadIdx.x;
@@ -227,7 +230,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
 
     const int k0 = t * kBK;
     const bool edge = k0 + kBK > Skv;
-    const bool diag = p.causal && k0 + kBK - 1 > q0 && k0 + kBK > p.prefix_len;
+    const bool diag = p.causal && k0 + kBK - 1 > q0 + p.q_offset &&
+                      k0 + kBK > p.prefix_len;
     if (edge || diag) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -235,8 +239,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + 8 * j + cq + (e & 1);
           const int row = (e & 2) ? r1 : r0;
-          const bool ok = col < Skv && (!p.causal || col <= row ||
-                                      col < p.prefix_len);
+          const bool ok = col < Skv &&
+                          (!p.causal || col <= row + p.q_offset ||
+                           col < p.prefix_len);
           if (!ok) sc[4 * j + e] = -INFINITY;
         }
       }
@@ -360,8 +365,8 @@ int launch(void* q, void* k, void* v, const long long* st, int B, int H,
 extern "C" int rc_flash_attention(void* q, void* k, void* v, void* out,
                                   const long long* strides, int B, int H,
                                   int KVH, int Sq, int Skv, int head_dim,
-                                  int causal, int prefix_len, float scale,
-                                  void* stream) {
+                                  int causal, int prefix_len, int q_offset,
+                                  float scale, void* stream) {
   Params p;
   p.out = reinterpret_cast<__nv_bfloat16*>(out);
   p.osb = strides[9];
@@ -373,6 +378,7 @@ extern "C" int rc_flash_attention(void* q, void* k, void* v, void* out,
   p.KVH = KVH;
   p.causal = causal;
   p.prefix_len = prefix_len;
+  p.q_offset = q_offset;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (head_dim == 128) return launch<128>(q, k, v, strides, B, H, KVH, st, p);

@@ -166,22 +166,26 @@ def k2_work(q, k_slab, v_slab, share_mask, base, seq_lens, *, page: int,
     return Work(kv + nbytes(q) + B * H * (D + 2) * 4, 4.0 * H * D * pairs)
 
 
-def k3_pairs(Sq: int, Skv: int, causal: bool, prefix: int) -> int:
+def k3_pairs(Sq: int, Skv: int, causal: bool, prefix: int,
+             q_offset: int = 0) -> int:
     """(query, key) pairs K3 visits: all Sq x Skv without the causal mask;
-    with it, row r sees max(r + 1, prefix) keys (at most Skv)."""
+    with it, row r (at position r + q_offset) sees max(r + q_offset + 1,
+    prefix) keys (at most Skv)."""
     if not causal:
         return Sq * Skv
-    return int(np.minimum(np.maximum(np.arange(1, Sq + 1), prefix),
-                          Skv).sum())
+    return int(np.minimum(np.maximum(np.arange(1, Sq + 1) + q_offset,
+                                     prefix), Skv).sum())
 
 
-def k3_work(q, k, v, *, causal: bool = True, prefix_len: int = 0) -> Work:
+def k3_work(q, k, v, *, causal: bool = True, prefix_len: int = 0,
+            q_offset: int = 0) -> Work:
     """K3: q (B, H, Sq, D) read and its output written, k / v read once;
     ``4 D`` FLOPs a head for each visible (query, key) pair."""
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
     return Work(2 * nbytes(q) + nbytes(k) + nbytes(v),
-                4.0 * B * H * D * k3_pairs(Sq, Skv, causal, prefix_len))
+                4.0 * B * H * D * k3_pairs(Sq, Skv, causal, prefix_len,
+                                           q_offset))
 
 
 def k4_work(xb, dtb, cum, Bb, Cb) -> Work:

@@ -6,9 +6,11 @@ Replaces the TPU kernel ``_flash_kernel`` of
 plain version is :func:`repro_torch.kernels.ref.flash_attention`.
 
 q ``(B, H, Sq, D)`` against k / v ``(B, KVH, Skv, D)``: a decoder's causal
-prefill (Sq = Skv), an encoder's non-causal self-attention, and an
-encoder-decoder's cross-attention (text queries over the source frames,
-Sq != Skv, one query at a decode step).
+prefill (Sq = Skv), a block of its query rows over the keys up to the
+block's last row (``q_offset``, the block's first position: a placed
+model's ``"seq"`` attention), an encoder's non-causal self-attention, and
+an encoder-decoder's cross-attention (text queries over the source
+frames, Sq != Skv, one query at a decode step).
 
 Bound on the card: the larger of the FLOPs of the visible (query, key)
 pairs over 989 TFLOP/s and the bytes over 3.35 TB/s.  The kernel runs both
@@ -42,7 +44,7 @@ def _entry():
     """The C entry, its argument types set once when the library loads."""
     fn = library("flash_attention").rc_flash_attention
     fn.argtypes = [ctypes.c_void_p] * 4 + \
-        [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 8 + \
+        [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 9 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -67,14 +69,16 @@ def tma_strides(name: str, t: torch.Tensor) -> tuple:
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         prefix_len: int = 0):
+                         prefix_len: int = 0, q_offset: int = 0):
     """Launch the kernel once; q (B,H,Sq,D), k/v (B,KVH,Skv,D) bf16 on the
     card, any strides :func:`tma_strides` takes; returns (B,H,Sq,D) bf16, a
-    view of a (B,Sq,H,D) buffer.  Raises on inputs it does not take."""
+    view of a (B,Sq,H,D) buffer.  ``q_offset`` (>= 0): the position of q's
+    first row among the keys, which moves the causal edge.  Raises on
+    inputs it does not take."""
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS or H % KVH or k.shape != (B, KVH, Skv, D) \
-            or v.shape != k.shape or (Sq and not Skv):
+            or v.shape != k.shape or (Sq and not Skv) or q_offset < 0:
         raise ValueError(f"flash attention kernel: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} "
                          f"(head dim must be one of {HEAD_DIMS})")
@@ -89,7 +93,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         check(_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), (ctypes.c_longlong * 12)(*strides),
                        B, H, KVH, Sq, Skv, D, int(bool(causal)),
-                       int(prefix_len), D ** -0.5, stream_ptr(q.device)),
+                       int(prefix_len), int(q_offset), D ** -0.5,
+                       stream_ptr(q.device)),
               "flash attention kernel")
         COUNTER.n += 1
     return out.transpose(1, 2)

@@ -248,21 +248,19 @@ def paged_attention_slab(q, k_slab, v_slab, share_mask, base, seq_lens, *,
 
 
 def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0,
-                    use_kernel: Optional[bool] = None):
+                    q_offset: int = 0, use_kernel: Optional[bool] = None):
     """Prefill attention; q (B,H,Sq,D) against k/v (B,KVH,Skv,D):
-    causal (key column <= query row, both from 0) with the prefix-LM
-    exception, or non-causal (every key visible); Sq != Skv for an
-    encoder-decoder's cross-attention."""
+    causal (key column <= query row + ``q_offset``, both from 0) with the
+    prefix-LM exception, or non-causal (every key visible); Sq != Skv for
+    an encoder-decoder's cross-attention or a block of query rows."""
+    kw = dict(causal=causal, prefix_len=prefix_len, q_offset=q_offset)
     if cost.BOUNDARY is not None:
         return cost.BOUNDARY(
-            "K3", lambda d: cost.k3_work(q, k, v, causal=causal,
-                                         prefix_len=prefix_len),
-            [q, k, v], lambda: ref.flash_attention(q, k, v, causal=causal,
-                                                   prefix_len=prefix_len))
+            "K3", lambda d: cost.k3_work(q, k, v, **kw), [q, k, v],
+            lambda: ref.flash_attention(q, k, v, **kw))
     if use_kernel_for(q, use_kernel):
-        return flash_attention_cuda(q, k, v, causal=causal,
-                                    prefix_len=prefix_len)
-    return ref.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+        return flash_attention_cuda(q, k, v, **kw)
+    return ref.flash_attention(q, k, v, **kw)
 
 
 def ssd_intra_chunk(xb, dtb, cum, Bb, Cb, *,

@@ -254,11 +254,14 @@ def paged_attention_slab(q, k_slab, v_slab, share_mask, base, seq_lens, *,
     return acc.reshape(B, H, D), l.reshape(B, H), m.reshape(B, H)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0,
+                    q_offset: int = 0):
     """Prefill attention, q (B, H, Sq, D) against k / v (B, KVH, Skv, D):
     causal plus the prefix-LM exception, GQA ``h // group``, fp32 softmax,
     output in ``q.dtype``; a fully masked row gives 0
-    (``repro/kernels/flash_attention.py``)."""
+    (``repro/kernels/flash_attention.py``).  ``q_offset``: the position
+    of q's first row among the keys (a block of query rows; the causal
+    rule is key column <= query row + q_offset)."""
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     group = H // KVH
@@ -269,7 +272,7 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
     cols = torch.arange(Skv, device=q.device)[None, :]
     ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:
-        ok = cols <= rows
+        ok = cols <= rows + q_offset
         if prefix_len:
             ok = ok | (cols < prefix_len)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))

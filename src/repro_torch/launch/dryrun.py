@@ -18,10 +18,13 @@ A cell is the reference's: train the fp32 masters placed by
 ``build_train_step``'s ``shard_state`` and ``train_state`` over a batch of
 ``data.batch_specs`` (``TrainConfig()``, ``"fsdp"``); prefill the bf16
 weights' ``prefill(tokens, mesh=)`` (``prefill_state`` for the vlm, ssm,
-hybrid and encdec families); decode one ``decode_step`` (``decode_state``)
-over an identity-layout serve state whose every slot holds a sequence at
-``seq_len - 1`` tokens, with the step's appends taken from that declared
-layout (the port reads them from the block table otherwise).  Rows carry
+hybrid and encdec families), a dense model's weights placed over the mesh
+by ``weights.place_params`` as the reference's ``tree_shardings`` places
+them (the other families' still whole on the first rank); decode one
+``decode_step`` (``decode_state``) over an identity-layout serve state
+whose every slot holds a sequence at ``seq_len - 1`` tokens, with the
+step's appends taken from that declared layout (the port reads them from
+the block table otherwise).  Rows carry
 the reference's keys (``benchmarks/roofline.py table`` reads them); the
 "collective" term is the busiest rank's peer bytes over NVLink.
 
@@ -51,9 +54,10 @@ from repro_torch.kernels import cost
 from repro_torch.launch.mesh import DeviceMesh, make_production_mesh, place
 from repro_torch.launch.op_cost import Walk
 from repro_torch.launch.train import build_train_step, train_state
-from repro_torch.models.lm import ENTRY_PAIRS, LanguageModel, paged_state
+from repro_torch.models.lm import (ENTRY_PAIRS, PLACED_FAMILIES,
+                                  LanguageModel, paged_state)
 from repro_torch.models.paged import identity_layout
-from repro_torch.weights import params_axes
+from repro_torch.weights import params_axes, place_params
 
 #: the mesh names of the reference's rows
 MESH_NAMES = {False: "16x16", True: "2x16x16"}
@@ -108,7 +112,11 @@ def build_cell(arch: Union[str, ModelConfig],
         return (lambda: step(state, batch)), (state, batch)
 
     model = LanguageModel(cfg, dev)
-    weights = dict(model.named_parameters())
+    if cfg.family in PLACED_FAMILIES:
+        # the reference's p_sh16 = tree_shardings(mesh, params_bf16, axes)
+        place_params(model, mesh)
+    weights = dict(model.named_parameters()) if model.placement is None \
+        else model.placement.values
     facade = cfg.family in ENTRY_PAIRS["prefill_state / decode_state"]
     if shape.kind == "prefill":
         batch = {k: _empty(s, torch.long if dt == torch.int32 else dt, dev)

@@ -19,6 +19,17 @@ select, each on its rank's device, and stores a block once: ranks whose
 coordinates differ only in axes the spec does not name share the copy of
 the lowest of them.  :func:`gather` makes the whole tensor again.
 
+A placed model computes on :class:`Sharded` values as well (its weights
+by ``weights.place_params``, its activations block by block through
+:func:`map_blocks`), with three moves between the ranks' devices, as the
+reference's GSPMD collectives would make them: :func:`take` brings any
+slice of a value onto a rank from the blocks that hold it (the all-gather
+of a weight's ZeRO-3 dimension, or of a K/V row range; an all-to-all
+where the slice crosses another axis), and :func:`scatter_sum` sums the
+partial products of a contraction split over ranks into the blocks of
+another sharding (the reduce-scatter by sequence rows, or the all-reduce
+where the output is not split).
+
 Every move of a tensor onto a rank's device goes through :func:`to_rank`
 (or :func:`to_rank_of`), work done rank by rank runs inside
 :func:`rank_scope`, and a tensor made on a rank's device outside one is
@@ -32,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -366,6 +378,76 @@ def with_pieces(x: Union[torch.Tensor, Sharded],
     return tensors[0]
 
 
+def map_blocks(sharding: Sharding, shape: Sequence[int], fn) -> Sharded:
+    """The :class:`Sharded` of ``shape`` by ``sharding`` whose every
+    distinct block is ``fn(block, slices, rank)``, computed inside
+    :func:`rank_scope` of the lowest rank that holds it (``slices``: the
+    block's index in the whole)."""
+    shape = tuple(shape)
+    blocks = {}
+    for b, r in sharding.owners().items():
+        with rank_scope(r):
+            blocks[b] = fn(b, sharding.slices(b, shape), r)
+    return Sharded(sharding, shape, blocks)
+
+
+def take(x: Union[torch.Tensor, Sharded], rank: int,
+         index: Sequence[slice] = (), *, mesh: Optional[DeviceMesh] = None,
+         path: str = "gather") -> torch.Tensor:
+    """``x[index]`` on ``rank`` (``index``: one step-1 slice per leading
+    dimension, the rest whole): each block's part of the slice moves from
+    its owner (a view where the owner is ``rank``) and the parts are
+    joined there.  A whole tensor (``mesh`` then names the mesh) moves as
+    its slice."""
+    if not isinstance(x, Sharded):
+        return to_rank(x[tuple(index)], mesh, rank, path=path)
+    sh = x.sharding
+    nd = len(sh.spec)
+    ranges = [(index[i] if i < len(index) else slice(None)).indices(n)[:2]
+              for i, n in enumerate(x.shape)]
+    per_dim = []
+    for i, n in enumerate(sh.counts(nd)):
+        lo, hi = ranges[i]
+        if hi <= lo:
+            raise ValueError(f"empty slice {index[i]} of dimension {i} of "
+                             f"{tuple(x.shape)}")
+        size = x.shape[i] // n
+        per_dim.append([(b, slice(max(lo, b * size) - b * size,
+                                  min(hi, (b + 1) * size) - b * size))
+                        for b in range(lo // size, (hi - 1) // size + 1)])
+    rest = tuple(slice(lo, hi) for lo, hi in ranges[nd:])
+    parts = {}
+    for combo in itertools.product(*(enumerate(d) for d in per_dim)):
+        parts[tuple(k for k, _ in combo)] = (
+            x.blocks[tuple(b for _, (b, _) in combo)],
+            tuple(s for _, (_, s) in combo) + rest)
+    if WALK is not None and len(parts) > 1:
+        return WALK.join(list(parts.values()),
+                         [hi - lo for lo, hi in ranges], rank, path)
+
+    def part(t, index):
+        if any(s.start or s.stop < n for s, n in zip(index, t.shape)):
+            t = t[index]        # a view; a whole block is taken as is
+        return to_rank(t, sh.mesh, rank, path=path)
+
+    with rank_scope(rank):
+        return assemble({k: part(*v) for k, v in parts.items()},
+                        [len(d) for d in per_dim])
+
+
+def scatter_sum(partials: Sharded, sharding: Sharding,
+                dtype: torch.dtype) -> Sharded:
+    """The sum over the leading dimension of ``partials`` (C, *shape), one
+    partial product for each block of a contraction split over ranks,
+    laid out by ``sharding`` over ``shape``.  Each block of the result is its
+    slice of every partial, moved to its owner and summed there in fp32,
+    then cast to ``dtype``."""
+    shape = tuple(partials.shape[1:])
+    return map_blocks(sharding, shape, lambda b, sl, r: take(
+        partials, r, (slice(None),) + sl, path="sum").sum(
+            0, dtype=torch.float32).to(dtype))
+
+
 def rank_bytes(values, mesh: DeviceMesh) -> List[int]:
     """Bytes each rank of ``mesh`` holds of ``values`` (tensors and
     :class:`Sharded`): a block counts to its owner, a whole tensor to
@@ -383,8 +465,8 @@ def rank_bytes(values, mesh: DeviceMesh) -> List[int]:
 
 __all__ = ["POOL_AXES", "WALK", "DeviceMesh", "Sharded", "Sharding",
            "assemble", "gather", "make_production_mesh", "make_test_mesh",
-           "on_rank", "pieces", "place", "rank_scope", "to_rank",
-           "to_rank_of",
+           "map_blocks", "on_rank", "pieces", "place", "rank_scope",
+           "scatter_sum", "take", "to_rank", "to_rank_of",
            "pool_partition_spec", "pool_shard_axes", "pool_shard_count",
            "pool_shard_ranks", "rank_bytes", "sharding_for",
            "tree_shardings", "with_pieces"]

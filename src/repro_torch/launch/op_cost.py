@@ -336,7 +336,35 @@ class Walk:
         there already, else a copy whose bytes count to ``path``."""
         if self.rank_of(t) == rank:
             return t.to(t.device, memory_format=memory_format, copy=copy)
+        if not torch.is_grad_enabled():
+            with self._moving(int(rank), path):
+                return t.clone(memory_format=memory_format)
         return _Move.apply(t, self, int(rank), path, memory_format)
+
+    def join(self, pieces, shape, rank: int, path: str) -> torch.Tensor:
+        """The tensor of ``shape`` that ``launch.mesh.take`` joins on
+        ``rank`` from ``pieces`` ((tensor, index) pairs, each piece the
+        tensor's slice ``index``), counted as one op that reads every
+        piece where it lies and writes the result (as a collective writes
+        its output buffer): the bytes from other ranks count to ``path``.
+        Reckoned from the shapes, without a view or a copy a piece."""
+        rank = int(rank)
+        with self._moving(rank, path):
+            out = torch.empty(shape, dtype=pieces[0][0].dtype, device="meta")
+        if self._counting:
+            self.bytes[rank] += cost.nbytes(out)
+            for t, index in pieces:
+                n = t.element_size()
+                for s, size in zip(index, t.shape):
+                    n *= len(range(*s.indices(size)))
+                for dim in t.shape[len(index):]:
+                    n *= dim
+                src = self.rank_of(t)
+                self.bytes[src] += n
+                if src != rank:
+                    self.peer[rank] += n
+                    self.rank_paths[rank][path] += n
+        return out
 
     @contextlib.contextmanager
     def _moving(self, rank: int, path: str):

@@ -57,8 +57,12 @@ rank and LSE-combines the partials (models/paged.py).  A moe FFN takes
 the path the mesh gives it, in prefill and decode alike (``models/moe.py
 moe_ffn``: a prompt whose length the ``model`` axis divides goes through
 the all-to-all over the experts).  The rest of the model (QKV, RoPE, a
-dense FFN, logits) runs whole on the mesh's first device; prefill writes
-reach the slabs through ``RowCloneEngine.write_blocks``.
+dense FFN, logits) runs whole on the mesh's first device, unless the
+weights are placed over the mesh (``weights.place_params``, the dense
+family): each rank then computes its blocks of every layer in prefill and
+decode, and the logits come back joined on the first device for
+sampling.  Prefill writes reach the slabs through
+``RowCloneEngine.write_blocks``.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
@@ -228,9 +232,10 @@ class ServingEngine:
                     resolve_device(device) != self.device:
                 raise ValueError(f"device {device} is not the mesh's first "
                                  f"shard's {self.device}")
-        if params.embed.device.type != self.device.type:
-            raise ValueError(f"weights on {params.embed.device}, engine on "
+        if params.device.type != self.device.type:
+            raise ValueError(f"weights on {params.device}, engine on "
                              f"{self.device}")
+        params.check_placed(mesh)
         self.cfg = cfg
         self.rc = rc or RowCloneConfig()
         self.mesh = mesh
@@ -439,6 +444,9 @@ class ServingEngine:
                                  device=self.device)[None]
         if cfg.family in DECODER_FAMILIES:
             logits, k, v = self.model.prefill(tokens, self.mesh)
+            if self.model.placement is not None:
+                # one batch group: the prompt's stacks on its first rank
+                (k,), (v,) = k, v
             dtype = self.engine.group["k"].dtype
             return logits, (kv_to_pools(k, page, dtype, n_blocks),
                             kv_to_pools(v, page, dtype, n_blocks)), {}

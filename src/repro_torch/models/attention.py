@@ -15,18 +15,24 @@
   kernel; the port's training forward likewise calls no kernel
   (``models/transformer.py`` chooses by ``impl=``).
 
+* Placed prefill: :func:`prefill_attention_placed`, K3 once for each
+  block of a placed model's q, on the block's rank, by the strategy
+  ``sharding.rules.attn_strategy`` picks: its heads with the K/V heads
+  they read (``"heads"``), or its query rows over the K/V rows up to its
+  last one (``"seq"``, K3's ``q_offset``).
+
 Decode attention is K2, called from models/paged.py; under a rank mesh
 its per-rank partials meet in :func:`lse_combine`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import (Sharding, assemble, rank_scope,
-                                     to_rank, to_rank_of)
+from repro_torch.launch.mesh import (Sharded, Sharding, assemble, map_blocks,
+                                     rank_scope, take, to_rank, to_rank_of)
 from repro_torch.models.common import checkpointed
 from repro_torch.sharding.rules import logical_to_spec
 
@@ -44,15 +50,75 @@ class MaskInfo(NamedTuple):
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True,
-                      prefix_len: int = 0) -> torch.Tensor:
+                      causal: bool = True, prefix_len: int = 0,
+                      q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, KVH, D) -> (B, Sq, H, D) in
-    q.dtype, through K3.  The kernel writes its output in (B, Sq, H, D)
+    q.dtype, through K3 (``q_offset``: the position of q's first row, for
+    a block of query rows).  The kernel writes its output in (B, Sq, H, D)
     order, so the result is contiguous for the o-projection."""
     out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal=causal,
-                               prefix_len=prefix_len)
+                               prefix_len=prefix_len, q_offset=q_offset)
     return out.transpose(1, 2)
+
+
+#: the logical axes of a placed prefill's q, by strategy (the reference's
+#: ``attention_train`` constraints, ``attention.py:102-122``): its heads
+#: over ``model``, or its query positions
+PLACED_Q_AXES = {"heads": ("batch", None, "act_heads"),
+                 "seq": ("batch", "act_seq_tp", None)}
+
+
+def placed_qkv_shardings(mesh, strategy: str, B: int, S: int, H: int,
+                         KVH: int) -> Tuple[Sharding, Sharding]:
+    """The layouts of a placed prefill's post-RoPE q (B, S, H * D) and k
+    (B, S, KVH * D): q by :data:`PLACED_Q_AXES` ``[strategy]`` (a dim the
+    axes do not divide stays whole, as the reference's ``constrain``);
+    k by its heads over ``model`` under ``"heads"`` where they divide
+    (``act_kv_heads``), else by sequence rows like the residual, so that
+    each rank rotates its own share.  Resolved on head counts, applied to
+    the flat (heads x head dim) columns."""
+    qspec = logical_to_spec(PLACED_Q_AXES[strategy], mesh, dims=(B, S, H))
+    kspec = logical_to_spec(("batch", None, "act_kv_heads"), mesh,
+                            dims=(B, S, KVH))
+    if strategy == "seq" or kspec[2] is None:
+        kspec = logical_to_spec(("batch", "act_seq_tp", None), mesh,
+                                dims=(B, S, KVH))
+    return Sharding(mesh, qspec), Sharding(mesh, kspec)
+
+
+def prefill_attention_placed(q: Sharded, k: Sharded, v: Sharded, H: int,
+                             KVH: int, D: int) -> Sharded:
+    """Causal prefill attention of a placed model, each block of ``q``
+    (post-RoPE (B, S, H * D), laid out by :func:`placed_qkv_shardings`) on
+    its owner through K3: its query rows against the K/V rows up to its
+    last one (a block of rows passes its first position as K3's
+    ``q_offset``) and the K/V heads its q heads read, taken from ``k``
+    (post-RoPE) and ``v`` wherever they lie.  Returns the output laid out
+    as q."""
+    group = H // KVH
+    B, S, _ = q.shape
+
+    def one(b, sl, r):
+        rows, seq, cols = sl
+        s0, s1 = seq.indices(S)[:2]
+        h0, h1 = cols.start // D, cols.stop // D
+        kv0, kv1 = h0 // group, (h1 - 1) // group + 1
+        kv = [take(t, r, (rows, slice(0, s1), slice(kv0 * D, kv1 * D)))
+              .reshape(-1, s1, kv1 - kv0, D) for t in (k, v)]
+        read = [h // group - kv0 for h in range(h0, h1)]
+        per = (h1 - h0) // (kv1 - kv0)
+        if (h1 - h0) % (kv1 - kv0) or read != [i // per for i in
+                                               range(h1 - h0)]:
+            # the block's q heads straddle a group unevenly: one K/V head
+            # per q head
+            idx = torch.as_tensor(read, device=kv[0].device)
+            kv = [t.index_select(2, idx) for t in kv]
+        qb = q.blocks[b].reshape(-1, s1 - s0, h1 - h0, D)
+        o = prefill_attention(qb, *kv, causal=True, q_offset=s0)
+        return o.reshape(qb.shape[0], s1 - s0, (h1 - h0) * D)
+
+    return map_blocks(q.sharding, q.shape, one)
 
 
 def _mask(pos_q: torch.Tensor, pos_kv: torch.Tensor, kv_valid: torch.Tensor,
@@ -198,5 +264,7 @@ def lse_combine(accs: Sequence[torch.Tensor], ls: Sequence[torch.Tensor],
     return acc_g / l_g.clamp_min(1e-30)[..., None]
 
 
-__all__ = ["MaskInfo", "NEG_INF", "TRAIN_Q_AXES", "attention_train",
-           "flash_attention", "lse_combine", "prefill_attention"]
+__all__ = ["MaskInfo", "NEG_INF", "PLACED_Q_AXES", "TRAIN_Q_AXES",
+           "attention_train", "flash_attention", "lse_combine",
+           "placed_qkv_shardings", "prefill_attention",
+           "prefill_attention_placed"]

@@ -2,12 +2,29 @@
 a ``(1 + scale)`` gain, split-half rotary embeddings, the SwiGLU MLP, the
 embedding lookup and the sequence-chunked training cross-entropy.  Plain
 tensor code: the JAX package computed these outside any Pallas kernel too.
+
+The blocks of a placed model (``weights.place_params``) compute on
+:class:`~repro_torch.launch.mesh.Sharded` activations, each block on the
+rank that holds it, as the reference's GSPMD computes the same functions
+on the weights ``tree_shardings`` placed: :func:`col_parallel` (a
+product whose output columns split as the weight's, over ``model``),
+:func:`row_parallel` (a product whose contraction splits over ``model``,
+the partial products summed into the output's blocks), and over them the
+norm, the SwiGLU MLP (``act_ffn``), the embedding lookup over the
+``vocab``-split table and the logits by ``act_vocab`` slices.  A weight's
+``embed`` (``data``) dimension is gathered for its use and freed after
+(ZeRO-3).
 """
 from __future__ import annotations
+
+from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch.mesh import (Sharded, Sharding, gather, map_blocks,
+                                     scatter_sum, take)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -105,5 +122,154 @@ def chunked_softmax_xent(x_final: torch.Tensor, w_out: torch.Tensor,
     return loss_sum / denom + z_loss * z_sum / denom
 
 
+# ---------------------------------------------------------------------------
+# the blocks of a placed model
+# ---------------------------------------------------------------------------
+
+#: a placed weight: blocks on their ranks, or whole on the first rank
+Placed = Union[torch.Tensor, Sharded]
+
+
+def spec_entry(w: Placed, dim: int):
+    """The mesh axes ``w``'s dimension ``dim`` splits over (None: whole)."""
+    if not isinstance(w, Sharded) or dim >= len(w.sharding.spec):
+        return None
+    return w.sharding.spec[dim]
+
+
+def blockwise(fn, x: Sharded, *others: Sharded) -> Sharded:
+    """``fn(block of x, blocks of others)`` block by block on the owners
+    (``others`` laid out as ``x``)."""
+    return map_blocks(x.sharding, x.shape, lambda b, sl, r: fn(
+        x.blocks[b], *(o.blocks[b] for o in others)))
+
+
+def rms_norm_placed(x: Sharded, scale: Placed, eps: float = 1e-5
+                    ) -> Sharded:
+    """:func:`rms_norm` of every block, the gain gathered on its rank."""
+    mesh = x.sharding.mesh
+    return map_blocks(x.sharding, x.shape, lambda b, sl, r: rms_norm(
+        x.blocks[b], take(scale, r, mesh=mesh), eps))
+
+
+def col_parallel(h: Sharded, *weights) -> Tuple[Sharded, ...]:
+    """``h @ w (+ bias)`` for each ``(w, bias)`` of ``weights`` (bias None
+    or placed): h (B, S, d) split by batch (any layout), w (d, n).  Each
+    output (B, S, n) splits its batch as h and its columns as w's
+    (``model``: the reference's ``qkv`` / ``ffn`` / ``act_ffn``); each
+    block runs on its owner over h's rows of its batch block, gathered
+    there once for every product (the all-gather before a
+    column-parallel block), and w's columns of its block, whole over
+    ``d``."""
+    mesh = h.sharding.mesh
+    B, S, _ = h.shape
+    rows_on = {}
+
+    def h_on(r, rows):
+        key = (r, rows.start, rows.stop)
+        if key not in rows_on:
+            rows_on[key] = take(h, r, (rows,))
+        return rows_on[key]
+
+    def product(w, bias):
+        def one(b, sl, r):
+            rows, _, cols = sl
+            hb = h_on(r, rows)
+            y = hb @ take(w, r, (slice(None), cols), mesh=mesh).to(hb.dtype)
+            if bias is not None:
+                y = y + take(bias, r, (cols,), mesh=mesh).to(hb.dtype)
+            return y
+
+        sh = Sharding(mesh, (h.sharding.spec[0], None, spec_entry(w, 1)))
+        return map_blocks(sh, (B, S, w.shape[1]), one)
+
+    return tuple(product(w, bias) for w, bias in weights)
+
+
+def row_parallel(a: Placed, w: Placed, out: Sharding) -> Sharded:
+    """``a @ w`` laid out by ``out``: a (B, S, k) in any layout (or whole on
+    the mesh's first rank), w (k, d)
+    with its rows split as its spec says (``model``: the reference's
+    ``qkv`` / ``ffn`` rows of ``wo`` / ``w_down``).  Each rank multiplies
+    its block of a's columns by its block of w's rows (the partial
+    product of its batch block, all S rows), and the partials are summed
+    into ``out``'s blocks (:func:`~repro_torch.launch.mesh.scatter_sum`:
+    by sequence rows where ``out`` splits them)."""
+    mesh = out.mesh
+    B, S, k = a.shape
+    psh = Sharding(mesh, (spec_entry(w, 0), out.spec[0], None, None))
+    C = psh.counts(1)[0]
+    kc = k // C
+
+    def one(b, sl, r):
+        cols = slice(b[0] * kc, (b[0] + 1) * kc)
+        ab = take(a, r, (sl[1], slice(None), cols), mesh=mesh)
+        return (ab @ take(w, r, (cols,), mesh=mesh).to(ab.dtype))[None]
+
+    return scatter_sum(map_blocks(psh, (C, B, S, w.shape[1]), one), out,
+                       a.dtype)
+
+
+def swiglu_mlp_placed(h: Sharded, w_gate: Placed, w_up: Placed,
+                      w_down: Placed, out: Sharding) -> Sharded:
+    """:func:`swiglu_mlp` on placed weights: ``w_gate`` / ``w_up``
+    column-parallel (the reference's ``act_ffn`` over ``model``),
+    ``w_down`` row-parallel with the sum, the result laid out by
+    ``out``."""
+    g, u = col_parallel(h, (w_gate, None), (w_up, None))
+    return row_parallel(blockwise(lambda gb, ub: F.silu(gb) * ub, g, u),
+                        w_down, out)
+
+
+def embed_placed(table: Placed, tokens: torch.Tensor, dtype: torch.dtype,
+                 out: Sharding) -> Sharded:
+    """:func:`embed` over the ``vocab``-split table: tokens (B, S) on the
+    mesh's first rank; each rank looks up the tokens of its batch block
+    that fall in its vocabulary block (0 elsewhere), and the sum over the
+    vocabulary blocks gives each row, laid out by ``out`` over (B, S, d)
+    (exact: one term of the sum is not 0)."""
+    mesh = out.mesh
+    V, d = table.shape
+    B, S = tokens.shape
+    psh = Sharding(mesh, (spec_entry(table, 0), out.spec[0], None, None))
+    C = psh.counts(1)[0]
+    vc = V // C
+
+    def one(b, sl, r):
+        local = take(tokens, r, (sl[1],), mesh=mesh) - b[0] * vc
+        hit = (local >= 0) & (local < vc)
+        rows = take(table, r, (slice(b[0] * vc, (b[0] + 1) * vc),),
+                    mesh=mesh)[local.clamp(0, vc - 1)].to(dtype)
+        return torch.where(hit[..., None], rows,
+                           torch.zeros((), dtype=dtype,
+                                       device=rows.device))[None]
+
+    return scatter_sum(map_blocks(psh, (C, B, S, d), one), out, dtype)
+
+
+def logits_placed(xn: Sharded, head: Placed, tied: bool) -> torch.Tensor:
+    """The bf16 head product of xn (B, 1, d), each rank its batch block
+    over its ``act_vocab`` slice of the head (``head``: the embedding
+    (V, d) when ``tied``, else the (d, V) head), joined fp32 (B, V) on the
+    mesh's first rank for sampling."""
+    mesh = xn.sharding.mesh
+    B = xn.shape[0]
+    V = head.shape[0] if tied else head.shape[1]
+    sh = Sharding(mesh, (xn.sharding.spec[0], None,
+                         spec_entry(head, 0 if tied else 1)))
+
+    def one(b, sl, r):
+        rows, _, cols = sl
+        w = take(head, r, (cols,), mesh=mesh).T if tied else \
+            take(head, r, (slice(None), cols), mesh=mesh)
+        return (take(xn, r, (rows,)).to(torch.bfloat16)
+                @ w.to(torch.bfloat16)).float()
+
+    return gather(map_blocks(sh, (B, 1, V), one), mesh.devices[0])[:, 0]
+
+
 __all__ = ["rms_norm", "rope_frequencies", "apply_rope", "swiglu_mlp",
-           "embed", "checkpointed", "chunked_softmax_xent"]
+           "embed", "checkpointed", "chunked_softmax_xent", "Placed",
+           "blockwise", "col_parallel", "embed_placed", "logits_placed",
+           "rms_norm_placed", "row_parallel", "spec_entry",
+           "swiglu_mlp_placed"]

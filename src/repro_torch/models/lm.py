@@ -19,21 +19,29 @@ Every family trains through :meth:`LanguageModel.loss_fn` (the module's
 ``forward``): the reference's ``_backbone_train`` and ``loss_fn``, with
 autograd, no kernel and the stacks checkpointed.  The serving pairs run
 under ``torch.no_grad``.
+
+A dense model whose weights ``weights.place_params`` placed over a mesh
+(:data:`PLACED_FAMILIES`; :attr:`LanguageModel.placement`) serves through
+``prefill(mesh=)`` / ``decode_step(mesh=)`` of that mesh, each rank
+computing its blocks (``models/transformer.py``); every other entry
+point refuses a placed model (:data:`PLACED_REFUSAL`).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs import (DECODER_FAMILIES, ModelConfig,
                                  RowCloneConfig)
-from repro_torch.launch.mesh import (DeviceMesh, on_rank, pool_shard_count,
-                                     pool_shard_ranks)
+from repro_torch.launch.mesh import (DeviceMesh, Sharding, map_blocks,
+                                     on_rank, pool_shard_count,
+                                     pool_shard_ranks, rank_scope, take)
 from repro_torch.models.attention import MaskInfo
 from repro_torch.models.common import (checkpointed, chunked_softmax_xent,
-                                       embed, rms_norm)
+                                       embed, embed_placed, logits_placed,
+                                       rms_norm, rms_norm_placed)
 from repro_torch.models.mamba2 import (Mamba2Layer, mamba2_decode_step,
                                        mamba2_layer)
 from repro_torch.models.paged import (batch_shard_count, identity_layout,
@@ -41,8 +49,11 @@ from repro_torch.models.paged import (batch_shard_count, identity_layout,
 from repro_torch.models.transformer import (DecoderLayer, attn_block_train,
                                             cross_block_train,
                                             decoder_layer_decode,
+                                            decoder_layer_decode_placed,
+                                            decoder_layer_placed,
                                             decoder_layer_train,
                                             decoder_stack_train, remat_call)
+from repro_torch.sharding.rules import attn_strategy, logical_to_spec
 
 #: the families each entry pair takes: the engine's pair (``prefill`` /
 #: ``decode_step``) and the facade's (``prefill_state`` / ``decode_state``
@@ -51,6 +62,23 @@ ENTRY_PAIRS = {"prefill / decode_step": DECODER_FAMILIES,
                "prefill_state / decode_state": ("vlm", "ssm", "hybrid",
                                                 "encdec")}
 PORTED_FAMILIES = tuple(f for fams in ENTRY_PAIRS.values() for f in fams)
+
+#: the families whose placed weights serve (``weights.place_params``)
+PLACED_FAMILIES = ("dense",)
+#: why a placed model of another family is refused
+PLACED_REFUSAL = ("placed weights (weights.place_params) serve the dense "
+                  "decoder only: the placed serving path of the {family!r} "
+                  "family is not ported yet (moe, then the ssm / hybrid / "
+                  "vlm / encdec facades); serve it unplaced over the mesh")
+
+
+class Placement(NamedTuple):
+    """Where :func:`repro_torch.weights.place_params` put a model's
+    weights: the mesh, and each parameter's placed value by its
+    ``named_parameters`` name."""
+
+    mesh: DeviceMesh
+    values: Dict[str, object]
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -78,6 +106,8 @@ class LanguageModel(nn.Module):
         if cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
+        #: the :class:`Placement` of the weights, None while whole
+        self.placement: Optional[Placement] = None
         self.page = rc.page_size
         dt = param_dtype or model_dtype(cfg)
         self.embed = nn.Parameter(
@@ -111,6 +141,29 @@ class LanguageModel(nn.Module):
     def act_dtype(self) -> torch.dtype:
         return model_dtype(self.cfg)
 
+    @property
+    def device(self) -> torch.device:
+        """The device the model serves from: its weights', or a placed
+        model's first rank's."""
+        if self.placement is not None:
+            return self.placement.mesh.devices[0]
+        return self.embed.device
+
+    def check_placed(self, mesh: Optional[DeviceMesh]) -> bool:
+        """Whether a serving call over ``mesh`` runs the placed path: False
+        for unplaced weights; raise for a placed model of a family
+        :data:`PLACED_FAMILIES` does not hold, or over another mesh than
+        its placement's."""
+        if self.placement is None:
+            return False
+        if self.cfg.family not in PLACED_FAMILIES:
+            raise ValueError(PLACED_REFUSAL.format(family=self.cfg.family))
+        if mesh != self.placement.mesh:
+            raise ValueError(f"a model placed over a mesh of shape "
+                             f"{self.placement.mesh.shape} runs over that "
+                             f"mesh (mesh=), not {mesh}")
+        return True
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """The head is a bf16 product whatever the config dtype (as
         ``lm.py:94-98`` of the reference); logits come back fp32."""
@@ -143,6 +196,9 @@ class LanguageModel(nn.Module):
         Differentiable; no kernel runs (the training attention and SSD
         term are model-level functions)."""
         cfg = self.cfg
+        if self.placement is not None:
+            raise ValueError("loss_fn: placed weights (weights.place_params) "
+                             "serve only; train the unplaced model")
         x, aux, prefix = self._backbone_train(batch, remat, mesh)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         if prefix:
@@ -247,8 +303,13 @@ class LanguageModel(nn.Module):
         ``mesh`` gives it (``moe.moe_ffn``: all-to-all over ``model``,
         FSDP, or local); everything else runs whole on the model's device,
         the function GSPMD computes.  A moe layer's aux loss is dropped,
-        as the reference's serving path drops it."""
+        as the reference's serving path drops it.  A placed dense model
+        computes each rank's blocks over its placement's ``mesh`` and
+        returns k / v as one (L, B_g, S, KVH, D) stack per batch group, on
+        the group's first rank (:meth:`_prefill_placed`)."""
         self._pair_of("prefill / decode_step", "prefill")
+        if self.check_placed(mesh):
+            return self._prefill_placed(tokens, mesh)
         cfg = self.cfg
         B, S = tokens.shape
         x = embed(self.embed, tokens, self.act_dtype)
@@ -280,19 +341,31 @@ class LanguageModel(nn.Module):
         ``appends``: the step's ``paged.rank_appends`` where the caller
         knows them (the dry-run's declared layout), else read from the
         block table (one host sync).  Everything but the paged attention
-        runs whole on the model's device."""
+        runs whole on the model's device, but for a placed dense model,
+        whose ranks compute their blocks (its placement's ``mesh``)."""
         self._pair_of("prefill / decode_step", "decode_step")
+        placed = self.check_placed(mesh)
         cfg, page = self.cfg, self.page
         ks = list(k_pools) if isinstance(k_pools, (list, tuple)) \
             else [k_pools]
         vs = list(v_pools) if isinstance(v_pools, (list, tuple)) \
             else [v_pools]
         pos = seq_lens.long()
-        x = embed(self.embed, tokens, self.act_dtype)
         if appends is None:
             appends = rank_appends(*append_slots(pos, block_table, page),
                                    [s.shape[1] for s in ks])
         seq_incl = (pos + 1).to(torch.int32)
+        if placed:
+            B = tokens.shape[0]
+            xs = Sharding(mesh, logical_to_spec(
+                ("batch", None, None), mesh, dims=(B, 1, cfg.d_model)))
+            x = embed_placed(self.embed, tokens[:, None], self.act_dtype, xs)
+            for li, layer in enumerate(self.layers):
+                x = decoder_layer_decode_placed(
+                    layer, x, pos, [s[li] for s in ks], [s[li] for s in vs],
+                    appends, share_mask, base, seq_incl, cfg, page, mesh)
+            return self._logits_placed(x)
+        x = embed(self.embed, tokens, self.act_dtype)
         for li, layer in enumerate(self.layers):
             x = decoder_layer_decode(layer, x, pos, [s[li] for s in ks],
                                      [s[li] for s in vs], appends,
@@ -300,6 +373,56 @@ class LanguageModel(nn.Module):
                                      mesh=mesh)
         xn = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self._logits(xn)
+
+    def _prefill_placed(self, tokens: torch.Tensor, mesh: DeviceMesh):
+        """:meth:`prefill` of a placed dense model: the residual Sharded by
+        ``("batch", "act_seq_tp", None)`` (a dim the axes do not divide
+        stays whole), each layer :func:`~repro_torch.models.transformer
+        .decoder_layer_placed` by ``attn_strategy``, the logits by
+        vocabulary slices joined on the mesh's first rank.  Returns
+        (logits (B, V) fp32, k, v): k / v lists with one (L, B_g, S, KVH,
+        D) stack a batch group, on the group's first rank."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        L, KVH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        xs = Sharding(mesh, logical_to_spec(("batch", "act_seq_tp", None),
+                                            mesh, dims=(B, S, cfg.d_model)))
+        x = embed_placed(self.embed, tokens, self.act_dtype, xs)
+        pos = map_blocks(Sharding(mesh, xs.spec[:2]), (B, S), lambda b, sl, r:
+                         torch.arange(*sl[1].indices(S)[:2],
+                                      device=mesh.devices[r]).expand(
+                             sl[0].stop - sl[0].start, -1))
+        strategy = attn_strategy(cfg.num_heads, mesh)
+        # each batch group's first rank, in group order, and its stacks
+        homes = list(Sharding(mesh, xs.spec[:1]).owners().values())
+        Bg = B // len(homes)
+        ks, vs = [], []
+        for r in homes:
+            with rank_scope(r):
+                for out in (ks, vs):
+                    out.append(torch.empty((L, Bg, S, KVH, D),
+                                           dtype=self.act_dtype,
+                                           device=mesh.devices[r]))
+        for li, layer in enumerate(self.layers):
+            x, k, v = decoder_layer_placed(layer, x, pos, cfg, strategy)
+            for g, r in enumerate(homes):
+                rows = slice(g * Bg, (g + 1) * Bg)
+                for stack, t in ((ks[g], k), (vs[g], v)):
+                    with rank_scope(r):
+                        stack[li].copy_(take(t, r, (rows,)).reshape(
+                            Bg, S, KVH, D))
+        last = map_blocks(Sharding(mesh, (xs.spec[0], None, None)),
+                          (B, 1, cfg.d_model), lambda b, sl, r: take(
+                              x, r, (sl[0], slice(S - 1, S))))
+        return self._logits_placed(last), ks, vs
+
+    def _logits_placed(self, x) -> torch.Tensor:
+        """The final norm and the logits of a placed model's x (B, 1, d),
+        joined (B, V) fp32 on the mesh's first rank."""
+        cfg = self.cfg
+        xn = rms_norm_placed(x, self.final_norm, cfg.norm_eps)
+        head = self.embed if cfg.tie_embeddings else self.lm_head
+        return logits_placed(xn, head, cfg.tie_embeddings)
 
     # ------------------------------------------------------------------
     # the facade pair over a serve state (vlm, ssm, hybrid, encdec)
@@ -396,6 +519,7 @@ class LanguageModel(nn.Module):
         goes through the block table into the slab that holds its
         block."""
         self._pair_of("prefill_state / decode_state", "prefill_state")
+        self.check_placed(mesh)
         cfg, page = self.cfg, self.page
         for name, given, fam in (("patch_embeds", patch_embeds, "vlm"),
                                  ("src_embeds", src_embeds, "encdec")):
@@ -471,6 +595,7 @@ class LanguageModel(nn.Module):
         refuses it, when the ranks do not divide the block count.
         ``appends``: as :meth:`decode_step`'s."""
         self._pair_of("prefill_state / decode_state", "decode_state")
+        self.check_placed(mesh)
         cfg, page = self.cfg, self.page
         pos = state["seq_lens"].long()
         seq_incl = (pos + 1).to(torch.int32)
@@ -612,5 +737,6 @@ def kv_to_pools(kv: torch.Tensor, page: int, dtype: torch.dtype,
     return kv.reshape(L, B * nper, page, KVH, D).to(dtype)
 
 
-__all__ = ["ENTRY_PAIRS", "LanguageModel", "PORTED_FAMILIES", "append_slots",
+__all__ = ["ENTRY_PAIRS", "LanguageModel", "PLACED_FAMILIES",
+           "PLACED_REFUSAL", "PORTED_FAMILIES", "Placement", "append_slots",
            "kv_to_pools", "model_dtype", "paged_state"]

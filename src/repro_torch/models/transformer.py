@@ -10,7 +10,18 @@ the same in both packages.
 The full-sequence functions serve prefill (K3, ``impl="pallas"``) and
 training (``impl="jax"``: the model-level attention of models/attention.py
 that the reference trains through); :func:`decoder_stack_train` is the
-training stack, each layer under a remat policy (:data:`REMAT_POLICIES`)."""
+training stack, each layer under a remat policy (:data:`REMAT_POLICIES`).
+
+A dense layer whose weights ``weights.place_params`` placed runs through
+:func:`decoder_layer_placed` (prefill) and
+:func:`decoder_layer_decode_placed` (decode) on a
+:class:`~repro_torch.launch.mesh.Sharded` residual: by sequence rows
+over ``model`` (``act_seq_tp``) in prefill where they divide, by batch
+over (``pod``, ``data``) in both; the q / k / v projections
+column-parallel, ``wo`` and the MLP's ``w_down`` row-parallel with the sum
+over ``model`` (``models/common.py``), prefill attention by block
+(``attention.prefill_attention_placed``), decode attention over the slabs
+as for an unplaced model (``paged.paged_attend_append``)."""
 from __future__ import annotations
 
 import functools
@@ -23,11 +34,17 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     noop_context_fn)
 
 from repro_torch.configs import ModelConfig
-from repro_torch.launch.mesh import DeviceMesh
+from repro_torch.launch.mesh import (DeviceMesh, Sharded, Sharding,
+                                     map_blocks, take)
 from repro_torch.models.attention import (MaskInfo, attention_train,
-                                         flash_attention, prefill_attention)
-from repro_torch.models.common import (apply_rope, checkpointed, rms_norm,
-                                       swiglu_mlp)
+                                         flash_attention,
+                                         placed_qkv_shardings,
+                                         prefill_attention,
+                                         prefill_attention_placed)
+from repro_torch.models.common import (apply_rope, blockwise, checkpointed,
+                                       col_parallel, rms_norm,
+                                       rms_norm_placed, row_parallel,
+                                       swiglu_mlp, swiglu_mlp_placed)
 from repro_torch.models.moe import MoEFFN, moe_ffn
 from repro_torch.models.paged import paged_attend_append
 from repro_torch.sharding.rules import attn_strategy
@@ -322,7 +339,93 @@ def decoder_layer_decode(layer: DecoderLayer, x: torch.Tensor,
     return layer.ffn(x[:, None, :], cfg, mesh)[0][:, 0]
 
 
+def _placed_qkv(layer: DecoderLayer, h: Sharded, cfg: ModelConfig):
+    """The column-parallel q / k / v projections of a placed layer, the
+    biases added after the product."""
+    return col_parallel(h, *((getattr(layer, w), getattr(layer, b) if
+                              cfg.qkv_bias else None)
+                             for w, b in (("wq", "bq"), ("wk", "bk"),
+                                          ("wv", "bv"))))
+
+
+def _placed_ffn(layer: DecoderLayer, x: Sharded, cfg: ModelConfig
+                ) -> Sharded:
+    """x + the SwiGLU MLP of norm(x), laid out as x."""
+    h = rms_norm_placed(x, layer.ln2, cfg.norm_eps)
+    y = swiglu_mlp_placed(h, layer.w_gate, layer.w_up, layer.w_down,
+                          x.sharding)
+    return blockwise(torch.add, x, y)
+
+
+def _rope_blocks(t: Sharded, sharding: Sharding, pos: Sharded,
+                 cfg: ModelConfig) -> Sharded:
+    """RoPE of a flat (B, S, heads * D) projection ``t`` laid out by
+    ``sharding`` (whole heads a block), each block rotated on its owner at
+    the positions ``pos`` (B, S) holds for it."""
+    D = cfg.head_dim
+
+    def one(b, sl, r):
+        blk = take(t, r, sl)
+        Bb, Sb = blk.shape[:2]
+        return apply_rope(blk.reshape(Bb, Sb, -1, D), take(pos, r, sl[:2]),
+                          cfg.rope_theta).reshape(Bb, Sb, -1)
+
+    return map_blocks(sharding, t.shape, one)
+
+
+def decoder_layer_placed(layer: DecoderLayer, x: Sharded, pos: Sharded,
+                         cfg: ModelConfig, strategy: str
+                         ) -> Tuple[Sharded, Sharded, Sharded]:
+    """A placed dense layer over a full causal sequence (prefill): x (B,
+    S, d) Sharded by ``("batch", "act_seq_tp", None)``, pos (B, S) laid
+    out as its first two dims; the attention by ``strategy``
+    (``sharding.rules.attn_strategy``).  Returns the new x (laid out as
+    x) and this layer's post-RoPE k and v (B, S, KVH * D) Sharded."""
+    B, S, _ = x.shape
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    h = rms_norm_placed(x, layer.ln1, cfg.norm_eps)
+    q, k, v = _placed_qkv(layer, h, cfg)
+    qsh, ksh = placed_qkv_shardings(x.sharding.mesh, strategy, B, S, H, KVH)
+    q = _rope_blocks(q, qsh, pos, cfg)
+    k = _rope_blocks(k, ksh, pos, cfg)
+    o = prefill_attention_placed(q, k, v, H, KVH, cfg.head_dim)
+    x = blockwise(torch.add, x, row_parallel(o, layer.wo, x.sharding))
+    return _placed_ffn(layer, x, cfg), k, v
+
+
+def decoder_layer_decode_placed(layer: DecoderLayer, x: Sharded,
+                                pos: torch.Tensor,
+                                k_slabs: Sequence[torch.Tensor],
+                                v_slabs: Sequence[torch.Tensor], appends,
+                                share_mask: torch.Tensor,
+                                base: torch.Tensor,
+                                seq_lens_incl: torch.Tensor,
+                                cfg: ModelConfig, page: int,
+                                mesh: DeviceMesh) -> Sharded:
+    """One token per sequence through a placed dense layer: x (B, 1, d)
+    Sharded by batch, pos (B,) on the mesh's first rank.  The projections
+    run column-parallel on the ranks; q, k and v meet on the first rank
+    for RoPE and :func:`~repro_torch.models.paged.paged_attend_append`
+    (K2 on every rank's slab, the partials LSE-combined, as for an
+    unplaced model), whose output goes back through ``wo`` row-parallel.
+    Returns the new x, laid out as x."""
+    B = x.shape[0]
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = rms_norm_placed(x, layer.ln1, cfg.norm_eps)
+    q, k, v = (take(t, 0) for t in _placed_qkv(layer, h, cfg))
+    q = apply_rope(q.reshape(B, 1, H, D), pos[:, None], cfg.rope_theta)[:, 0]
+    k = apply_rope(k.reshape(B, 1, KVH, D), pos[:, None],
+                   cfg.rope_theta)[:, 0]
+    o = paged_attend_append(mesh, q, k, v.reshape(B, KVH, D), k_slabs,
+                            v_slabs, appends, share_mask, base,
+                            seq_lens_incl, page=page)
+    x = blockwise(torch.add, x, row_parallel(o.reshape(B, 1, H * D),
+                                             layer.wo, x.sharding))
+    return _placed_ffn(layer, x, cfg)
+
+
 __all__ = ["ATTENTION_IMPLS", "CrossAttention", "DecoderLayer",
            "REMAT_POLICIES", "attn_block_train", "cross_block_train",
-           "decoder_layer_decode", "decoder_layer_train",
+           "decoder_layer_decode", "decoder_layer_decode_placed",
+           "decoder_layer_placed", "decoder_layer_train",
            "decoder_stack_train", "remat_call"]

@@ -22,7 +22,15 @@
 * :func:`param_axes` gives each parameter the reference's logical axes
   (``split_params``'s axes tree, without the stacked ``"layers"`` entry,
   which resolves to no mesh axis under either rule set): what the
-  training state is placed by over a mesh (``launch/train.py``).
+  training state is placed by over a mesh (``launch/train.py``), and the
+  serving weights by :func:`place_params`.
+* :func:`place_params` places a model's serving weights over a mesh as
+  the reference's dry-run places its bf16 weights (``p_sh16 =
+  tree_shardings(mesh, params_bf16, axes)``): each parameter split by its
+  logical axes under the active rules (``DEFAULT_RULES``: ``embed`` over
+  ``data``, ``qkv`` / ``heads`` / ``ffn`` / ``vocab`` over ``model``, a
+  rule whose axes do not divide the dim leaving it whole), each block on
+  its rank's device and the model's own tensors released.
 
 Serving holds the matrices in the model dtype; training holds every
 parameter in fp32 (``param_dtype=torch.float32``), the reference's master
@@ -39,7 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig, RowCloneConfig
-from repro_torch.models.lm import LanguageModel
+from repro_torch.launch.mesh import DeviceMesh, place, sharding_for
+from repro_torch.models.lm import LanguageModel, Placement
 from repro_torch.models.mamba2 import Mamba2Layer
 from repro_torch.models.transformer import DecoderLayer
 
@@ -206,6 +215,33 @@ def params_axes(model: LanguageModel) -> Dict[str, Tuple[str, ...]]:
     return {n: param_axes(n) for n, _ in model.named_parameters()}
 
 
+def place_params(model: LanguageModel, mesh: DeviceMesh) -> LanguageModel:
+    """Place ``model``'s weights over ``mesh`` IN PLACE and return it: each
+    parameter becomes ``launch.mesh.place`` of it by
+    ``sharding_for(mesh, shape, param_axes(name))`` (a
+    :class:`~repro_torch.launch.mesh.Sharded` whose blocks lie on their
+    owners' devices, or the tensor on the first rank where the spec
+    splits nothing), set on its module in place of the parameter, and
+    listed in ``model.placement``.  Nothing of a split weight stays
+    whole: its blocks are copies and the parameter is dropped.  The
+    dense family serves placed (``models/lm.py PLACED_FAMILIES``); the
+    other families' entry points refuse a placed model."""
+    if model.placement is not None:
+        raise ValueError("the model's weights are placed already")
+    values = {}
+    for name, p in list(model.named_parameters()):
+        values[name] = place(p, sharding_for(mesh, tuple(p.shape),
+                                             param_axes(name)))
+        owner, attr = model, name
+        if "." in name:
+            path, attr = name.rsplit(".", 1)
+            owner = model.get_submodule(path)
+        del owner._parameters[attr]
+        setattr(owner, attr, values[name])
+    model.placement = Placement(mesh, values)
+    return model
+
+
 def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
                     rc: RowCloneConfig = RowCloneConfig(),
                     param_dtype: Optional[torch.dtype] = None
@@ -231,4 +267,4 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
 
 
 __all__ = ["resolve_device", "init_params", "from_jax_params", "jax_path",
-           "param_axes", "params_axes"]
+           "param_axes", "params_axes", "place_params"]

@@ -5,6 +5,10 @@
   ``status == "ok"`` over a (2, 2) mesh, with the kernels each path
   reaches counted at their boundary (K3 in prefill, K4 in the ssm and
   hybrid prefill, K2 in decode, none in training).
+* The dense serving cells place their weights as the reference's
+  ``tree_shardings`` does: llama3.2-3b's decode_32k over (16, 16) ranks
+  holds at most 1/16 of any weight matrix on a rank, and under 8 GiB of
+  arguments on every rank.
 * Skips follow the reference's ``shape_applicable``.
 * The decode cell's declared appends equal what the engine's path reads
   from the block table, and a decode step given them returns what the
@@ -30,8 +34,9 @@ FAMILIES = {"dense": "llama3.2-3b", "moe": "deepseek-moe-16b",
             "hybrid": "zamba2-2.7b", "encdec": "seamless-m4t-medium"}
 
 #: the kernels each (family, kind) reaches, and their calls over 2 x 2
-#: ranks at the reduced depth
-KERNELS = {("dense", "prefill"): {"K3": 4}, ("moe", "prefill"): {"K3": 4},
+#: ranks at the reduced depth (the dense prefill's weights placed: K3 once
+#: a layer for each of its 2 batch x 2 head blocks)
+KERNELS = {("dense", "prefill"): {"K3": 16}, ("moe", "prefill"): {"K3": 4},
            ("vlm", "prefill"): {"K3": 4}, ("ssm", "prefill"): {"K4": 4},
            ("hybrid", "prefill"): {"K4": 4, "K3": 2},
            ("encdec", "prefill"): {"K3": 10},
@@ -164,3 +169,32 @@ def test_production_mesh_and_row_keys(tmp_path):
     assert t["status"] == "ok" and t["temp_gib"] >= 0
     assert t["t_memory_ms"] == pytest.approx(row["t_memory_s"] * 1e3)
     assert np.isfinite(row["roofline_fraction"])
+
+
+def test_dense_decode_cell_places_its_weights():
+    """llama3.2-3b's decode_32k cell over the production (16, 16) mesh,
+    built on ``meta``: every weight matrix is split over ``data`` and
+    ``model`` (``weights.place_params``), so no rank holds more than 1/16
+    of one (1/256 each), and the arguments a rank holds at rest (its
+    blocks, its KV slabs) stay under 8 GiB on every rank, where they were
+    7.74 GiB of whole bf16 weights and slabs on rank 0.  The walk's
+    accounting of the arguments, without running the step."""
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.mesh import Sharded, rank_bytes
+    from repro_torch.launch.op_cost import Walk
+    mesh = make_production_mesh()
+    shape = SHAPES["decode_32k"]
+    walk = Walk(mesh.size, fill=shape.seq_len)
+    with walk:
+        fn, arguments = build_cell("llama3.2-3b", shape, mesh)
+        walk.run(lambda: None, arguments)
+    weights = arguments[0]
+    matrices = {n: v for n, v in weights.items() if v.ndim == 2}
+    assert len(matrices) == 28 * 7 + 1
+    for name, v in matrices.items():
+        assert isinstance(v, Sharded), name
+        held = rank_bytes([v], mesh)
+        assert max(held) <= v.shape.numel() * 2 // 16, name
+        assert min(held) == v.shape.numel() * 2 // 256, name
+    assert 0 < max(walk.arguments) < 8 * 2 ** 30
+    assert walk.arguments[0] < 7.74 * 2 ** 30 / 2
