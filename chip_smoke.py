@@ -133,7 +133,8 @@ Phases (each raises on failure; the script then exits non-zero):
     ``param_count()``, finite logits, the first round's logits against the
     same admissions and round through the plain versions (fed the same
     round-1 tokens) with the routing flips between the two runs counted
-    (``RouteLog``; if the logits differ with flips, the plain run replays
+    (``models/moe.py RouteLog``; if the logits differ with flips, the
+    plain run replays
     the kernel run's routing), then every K2 / K3 call of the admissions
     and the first round against its plain version on the same inputs
     (``tapped``).  Prints admission ms, ms per round, tokens/s and the
@@ -434,6 +435,34 @@ Phases (each raises on failure; the script then exits non-zero):
     started once (a)-(e) are timed, beside (c)'s check run): the decode
     cells under 8 GiB of arguments on the busiest rank, the prefill cells
     within 74.5 GiB.
+27. (run after phase 23, every earlier model freed, before phase 21) the
+    moe decoder's serving weights placed over a rank mesh
+    (``phase_placed_moe``; ``models/moe.py moe_ffn_placed``):
+    deepseek-moe-16b at full width and depth, seed 0.  (a) phase 12's
+    protocol through the single-device engine, its tokens, logits, slots
+    and routes (``moe.RouteLog``) kept on the host, and a batched prefill
+    of 2 x 512 on one device and over (2, 4) on the whole weights (the
+    all-to-all); (b) the same model placed in place over (2, 4)
+    (``place_params`` drops each whole weight as it places it): each
+    rank's weight bytes within 5% of an eighth, the peak of placing; (c)
+    the placed ``ServingEngine(mesh=)`` fed (a)'s tokens: greedy choices
+    by phase 22's near-tie rule, logits within ``SERVE_RTOL``, route flips
+    counted against (a)'s routes with the rows matched through the two
+    engines' slots (replayed under (a)'s routes where the logits differ
+    with flips), K2 28 x 8 a round, K3 28 x 4 per admission, at most one
+    ``fused_mesh`` drain a round, K1 and K7 on the path, the local moe
+    path in every admission and round, every K2 / K3 call of the
+    admissions and first round against its plain version; (d) the placed
+    batched prefill: the all-to-all in all 28 layers, logits within
+    ``SERVE_RTOL`` of the unplaced mesh prefill's; (e) ms a round placed
+    and single-device and one profiled round (the expert products, take's
+    joins, K2, the host gap, the idle share); (f) phi3.5-moe cut to 8 of
+    32 layers: a batched prefill (the all-to-all) and 3 decode steps
+    placed over (2, 4) against the unplaced run; (g) deepseek's and
+    phi3.5's decode_32k cells walked with placed weights (a process each,
+    started once (a)-(e) are timed, beside (c)'s check run and (f)): equal
+    to the CPU walk's rows, under 4 GiB of arguments on the busiest
+    rank.
 
 The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -1262,7 +1291,8 @@ PORT_KERNEL_KEYS = ("paged_attn", "flash_kernel", "ssd_intra",
                     "drain_kernel")
 #: the moe stages that the profiles split out: (function of
 #: ``models/moe.py``, the profiler range it runs in)
-MOE_STAGES = (("route", "moe.routing"), ("expert_ffn", "moe.experts"))
+MOE_STAGES = (("route", "moe.routing"), ("expert_ffn", "moe.experts"),
+              ("placed_experts", "moe.experts"))
 
 
 #: name fragments of the cuBLAS / CUTLASS matrix-product kernels
@@ -2365,38 +2395,6 @@ SHORT_PROMPT_LENS, SHORT_ROUNDS = (250, 512), 4
 QKV_BIAS_SCALE = 0.5
 
 
-class RouteLog:
-    """``models.moe.ROUTE_HOOK`` over runs of one protocol: in ``record``
-    mode it keeps each route call's top-k expert indices; in ``compare``
-    mode it counts, call by call in the same order, the choices a later
-    run makes that the recorded run did not (flips); ``replay`` counts
-    them too and routes the later run by the recorded indices."""
-
-    def __init__(self, num_experts: int):
-        self.E = num_experts
-        self.calls = []
-        self.reset("record")
-
-    def reset(self, mode: str) -> None:
-        self.mode, self.i, self.flips, self.choices = mode, 0, [], 0
-
-    def __call__(self, idx):
-        if self.mode == "record":
-            self.calls.append(idx.clone())
-            return idx
-        ref = self.calls[self.i]
-        self.i += 1
-        one_hot = torch.nn.functional.one_hot
-        mine = one_hot(idx, self.E).sum(-2)
-        theirs = one_hot(ref, self.E).sum(-2)
-        self.flips.append((mine > theirs).sum())
-        self.choices += idx.numel()
-        return ref if self.mode == "replay" else idx
-
-    def flipped(self) -> int:
-        return int(torch.stack(self.flips).sum()) if self.flips else 0
-
-
 def _draw_qkv_bias(model, seed: int) -> None:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for layer in model.layers:
@@ -2468,7 +2466,8 @@ def phase_decoder_serve(arch: str, layers=None, prompt_lens=PROMPT_LENS,
         f"pools {eng.engine.pools['k'].numel() * 2 / 1e9:.2f} GB each; "
         f"{cfg.num_kv_heads} KV heads per page, {page_kib} KiB per page "
         "and layer)")
-    routes = RouteLog(cfg.num_experts) if cfg.family == "moe" else None
+    routes = moe.RouteLog(cfg.num_experts) if cfg.family == "moe" \
+        else None
     counters = ops.KERNEL_COUNTERS
     for c in counters.values():
         c.reset()
@@ -6883,9 +6882,10 @@ DRY_ARCH, DRY_B, DRY_S = TRAIN_ARCH, TRAIN_B, TRAIN_S
 #: (a) the walk's peak against ``max_memory_allocated``: within 10% (the
 #: caching allocator rounds each block up and holds cuBLAS's workspace)
 DRY_PEAK_RTOL = 0.10
-#: (c) the sweep's share of the phase: seconds, worker processes (phase
-#: 26 walks the placed dense cells)
-DRY_SWEEP_S, DRY_WORKERS = 80.0, 6
+#: (c) the sweep's share of the phase: seconds, worker processes (phases
+#: 26-27 walk placed serving cells; the facades' cells, which the sweep
+#: takes first, finish within 10 s of walk each)
+DRY_SWEEP_S, DRY_WORKERS = 50.0, 6
 
 
 class _NoModules:
@@ -7194,6 +7194,78 @@ def _start_walks(cells, out_dir):
     return procs
 
 
+def _walked_rows(walks, deadline: float) -> tuple:
+    """Wait for :func:`_start_walks`' processes until ``deadline`` (on the
+    ``perf_counter`` clock), stopping any still running then; returns the
+    rows they wrote and the walks that failed (arch, shape, exit code or
+    status, the end of their error output)."""
+    import os
+    rows, failed = [], []
+    for proc, out_file, arch, shape in walks:
+        try:
+            proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        if proc.returncode == 0 and os.path.exists(out_file):
+            with open(out_file) as f:
+                rows.extend(json.loads(line) for line in f)
+        else:
+            failed.append((arch, shape, proc.returncode,
+                           proc.stderr.read()[-400:]))
+        proc.stderr.close()
+    failed += [(r["arch"], r["shape"], r["status"], r.get("error", "")[:200])
+               for r in rows if r["status"] != "ok"]
+    return [r for r in rows if r["status"] == "ok"], failed
+
+
+def _placed_protocol(eng, prompts, events, watch=None, ref_toks=None,
+                     counted=None, before_round=None) -> tuple:
+    """Phase 5's protocol on ``eng`` for phases 26-27: admit ``prompts``,
+    fork the first sequence into 2 before round 2, :data:`ROUNDS` rounds.
+    ``watch`` (a :class:`_GreedyWatch`) feeds each round ``ref_toks``'
+    tokens, ``before_round(eng)`` runs before each round, ``counted`` sums
+    the run's launches.  Returns the sequence ids, each admission's K3
+    launches, the admissions' moe paths, per round (the drains the launch
+    hook put in ``events``, K1, K7, K2, the moe paths) and its ms
+    (synchronised host clock), the tokens of each round (``watch`` None)
+    and the logits each round chose from."""
+    from repro_torch.models import moe
+    k3, rounds, ms, toks, logits = [], [], [], [], []
+    c_all = _counts()
+    sids = []
+    moe.PATH_COUNTS.clear()
+    for p in prompts:
+        c0 = _counts()
+        sids.append(eng.add_request(p))
+        k3.append(_since(c0)["flash_attention"])
+    admitted = dict(moe.PATH_COUNTS)
+    for rnd in range(ROUNDS):
+        if rnd == 1:
+            eng.fork(sids[0], 2)
+        if before_round is not None:
+            before_round(eng)
+        logits.append({s: lg.copy() for s, lg in eng.last_logits.items()})
+        e0, c0 = len(events), _counts()
+        moe.PATH_COUNTS.clear()
+        t = time.perf_counter()
+        if watch is None:
+            toks.append(eng.decode_round())
+        else:
+            watch.round(ref_toks[rnd])
+            eng.decode_round(sample_fn=watch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        ran = _since(c0)
+        rounds.append((events[e0:], ran["fused_dispatch"],
+                       ran["psm_transfer"], ran["paged_attention"],
+                       dict(moe.PATH_COUNTS)))
+    if counted is not None:
+        for k, v in _since(c_all).items():
+            counted[k] = counted.get(k, 0) + v
+    return sids, k3, admitted, rounds, ms, toks, logits
+
+
 def phase_placed_serve(params, smi: str, scrub) -> dict:
     """Phase 26: llama3.2-3b's weights placed over (2, 4) ranks of the card
     (``weights.place_params`` under ``DEFAULT_RULES``) and served by
@@ -7201,9 +7273,6 @@ def phase_placed_serve(params, smi: str, scrub) -> dict:
     width and depth, against the single-device engine on phase 5's
     weights (the same seed).  Returns the launch counts of the placed
     engine's run."""
-    import os
-    import tempfile
-
     import torch.nn.functional as F
     from repro_torch.kernels import fused_dispatch as fd
     from repro_torch.kernels import ops
@@ -7229,47 +7298,21 @@ def phase_placed_serve(params, smi: str, scrub) -> dict:
                              max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, mesh=m)
 
     def serve(eng, watch=None, counted=None):
-        """Phase 5's protocol; per admission its K3 launches, per round
-        (drains, K1, K7, K2) and ms (synchronised host clock)."""
-        k3, rounds, ms, toks, logits = [], [], [], [], []
-        c_all = _counts()
-        sids = []
-        for p in prompts:
-            c0 = _counts()
-            sids.append(eng.add_request(p))
-            k3.append(_since(c0)["flash_attention"])
-        for rnd in range(ROUNDS):
-            if rnd == 1:
-                eng.fork(sids[0], 2)
-            logits.append({s: lg.copy() for s, lg in eng.last_logits.items()})
-            e0, c0 = len(events), _counts()
-            t = time.perf_counter()
-            if watch is None:
-                toks.append(eng.decode_round())
-            else:
-                watch.round(ref_toks[rnd])
-                eng.decode_round(sample_fn=watch)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t) * 1e3)
-            ran = _since(c0)
-            rounds.append((events[e0:], ran["fused_dispatch"],
-                           ran["psm_transfer"], ran["paged_attention"]))
-        if counted is not None:
-            for k, v in _since(c_all).items():
-                counted[k] = counted.get(k, 0) + v
-        return sids, k3, rounds, ms, toks, logits
+        return _placed_protocol(eng, prompts, events, watch, ref_toks,
+                                counted)
 
     steady = lambda xs: float(np.median(xs[2:]))
+    ref_toks = None
     fd.add_launch_hook(hook)
     try:
         # (a) the single-device engine, then phase 22's unplaced mesh
         # engine, on phase 5's weights
         one = engine(params, None)
-        sids, _, _, one_ms, ref_toks, ref_logits = serve(one)
+        sids, _, _, _, one_ms, ref_toks, ref_logits = serve(one)
         del one
         torch.cuda.empty_cache()
         whole = engine(params, mesh)
-        _, _, _, whole_ms, whole_toks, _ = serve(whole)
+        _, _, _, _, whole_ms, whole_toks, _ = serve(whole)
         del whole
         torch.cuda.empty_cache()
         # (b) the weights placed: a second copy made from the same seed
@@ -7286,7 +7329,8 @@ def phase_placed_serve(params, smi: str, scrub) -> dict:
         torch.cuda.reset_peak_memory_stats()
         eng = engine(model, mesh)
         watch = _GreedyWatch()
-        msids, k3_per, per_round, placed_ms, _, _ = serve(eng, watch, path)
+        msids, k3_per, _, per_round, placed_ms, _, _ = serve(eng, watch,
+                                                             path)
         serve_peak = torch.cuda.max_memory_allocated()
     finally:
         fd.remove_launch_hook(hook)
@@ -7315,7 +7359,7 @@ def phase_placed_serve(params, smi: str, scrub) -> dict:
     checks["(c) at most one fused_mesh drain a round"] = all(
         ev in ([], ["fused_mesh"]) for ev, *_ in per_round)
     checks[f"(c) K2 == {L} x {n} a round"] = all(
-        k2 == L * n for *_, k2 in per_round)
+        r[3] == L * n for r in per_round)
     blocks = mesh.axis_size("model") if strategy == "heads" else 1
     checks[f"(c) K3 == {L} x {blocks} per admission (one a block of "
            "heads)"] = all(k == L * blocks for k in k3_per)
@@ -7325,7 +7369,7 @@ def phase_placed_serve(params, smi: str, scrub) -> dict:
     log(f"{tag} (c) admitted {PROMPT_LENS}, forked, {ROUNDS} rounds: "
         f"{steps} greedy steps, {ties} near-ties, {bad} unexcused; max "
         f"|logit diff| vs single {worst:.3e} (limit {limit:.3e}); K1 / K7 "
-        f"/ K2 a round {[(k1, k7, k2) for _, k1, k7, k2 in per_round]}; "
+        f"/ K2 a round {[r[1:4] for r in per_round]}; "
         f"fused_mesh a round {[len(ev) for ev, *_ in per_round]}; K3 per "
         f"admission {k3_per}; the unplaced mesh engine's tokens "
         f"{'equal' if whole_toks == ref_toks else 'differ from'} the "
@@ -7420,27 +7464,10 @@ def phase_placed_serve(params, smi: str, scrub) -> dict:
         del model, values
         torch.cuda.empty_cache()
 
-        rows, failed_walks = [], []
-        deadline = time.perf_counter() + PLACED_DRY_TIMEOUT
-        for proc, out_file, arch, shape in walks:
-            try:
-                proc.wait(timeout=max(deadline - time.perf_counter(), 1))
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-            if proc.returncode == 0 and os.path.exists(out_file):
-                with open(out_file) as f:
-                    rows.extend(json.loads(line) for line in f)
-            else:
-                failed_walks.append((arch, shape, proc.returncode,
-                                     proc.stderr.read()[-400:]))
-            proc.stderr.close()
+        ok, failed_walks = _walked_rows(
+            walks, time.perf_counter() + PLACED_DRY_TIMEOUT)
     gib = 2 ** 30
-    for r in rows:
-        if r["status"] != "ok":
-            failed_walks.append((r["arch"], r["shape"], r["status"],
-                                 r.get("error", "")[:200]))
-            continue
+    for r in ok:
         m = r["memory"]
         r["temp_gib"] = m["temp_size_in_bytes"] / gib
         r["args_gib"] = m["argument_size_in_bytes"] / gib
@@ -7453,10 +7480,9 @@ def phase_placed_serve(params, smi: str, scrub) -> dict:
             f"; peer bytes by path {r['collectives']}")
     for w in failed_walks:
         log(f"{tag} (f) FAILED walk {w}")
-    log(f"{tag} (f) {len(rows)} cells walked in "
+    log(f"{tag} (f) {len(ok)} cells walked in "
         f"{time.perf_counter() - t_walk:.1f} s (reckoned against the "
         "published peaks, not measured)")
-    ok = [r for r in rows if r["status"] == "ok"]
     checks["(f) every placed dense cell walked"] = \
         not failed_walks and len(ok) == len(PLACED_DRY_CELLS)
     checks[f"(f) every decode_32k cell's busiest rank holds under "
@@ -7475,16 +7501,498 @@ def phase_placed_serve(params, smi: str, scrub) -> dict:
     return {"llama3.2-3b placed serve": path}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the moe decoder's serving weights placed over a rank mesh
+# (weights.place_params; models/moe.py moe_ffn_placed: the all-to-all and
+# local paths on the experts where they lie)
+# ---------------------------------------------------------------------------
+
+#: (a), (d), (f) the batched prefill: B x S, which the all-to-all over (2,
+#: 4) takes (2 data groups, 4 model ranks of 128 positions)
+PLACED_MOE_B, PLACED_MOE_S = 2, 512
+#: (f) phi3.5-moe cut as phase 13 cuts it, its decode steps, and the
+#: blocks a sequence of its state (a multiple of the 4 model ranks of a
+#: batch group, so that each sequence's blocks lie in its group's slabs)
+PLACED_PHI_LAYERS, PLACED_PHI_STEPS, PLACED_PHI_NPER = 8, 3, 12
+#: (g) the moe decode cells walked with placed weights, and the busiest
+#: rank's argument bytes and FLOPs that ``python -m
+#: repro_torch.launch.dryrun`` reckons for them on a CPU
+PLACED_MOE_DRY = {("deepseek-moe-16b", "decode_32k"):
+                  (3_891_046_400, 129_003_421_696),
+                  ("phi3.5-moe-42b-a6.6b", "decode_32k"):
+                  (2_475_739_648, 332_224_528_384)}
+#: (g) a moe decode cell's bound on the busiest rank's arguments (GiB)
+#: and the seconds its walk may take
+PLACED_MOE_ARGS_GIB, PLACED_MOE_DRY_TIMEOUT = 4.0, 300
+
+
+def _slot_rows(eng, slots: dict) -> list:
+    """Row j of ``eng``'s decode batch as the row (slot) the recorded
+    engine held the same sequence in (``slots``: sid -> slot); -1 for a
+    slot with no sequence."""
+    out = [-1] * eng.cache.max_seqs
+    for sid in eng.tokens:
+        out[eng.cache.slot_of(sid)] = slots[sid]
+    return out
+
+
+def _profile_placed_round(step, tag: str) -> dict:
+    """One profiled round of a placed moe engine: wall and device busy ms,
+    the idle share, the device ms of the expert products (the kernels
+    launched inside ``moe.placed_experts``, which also gathers each
+    expert block's weights), of the joins of ``launch.mesh.take`` (the
+    moves between ranks: on one card each is a concatenation), of K2 and
+    of the rest, and the host gap."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe
+    saved = moe.placed_experts
+
+    def ranged(*args, **kw):
+        with record_function("moe.experts"):
+            return saved(*args, **kw)
+
+    moe.placed_experts = ranged
+    try:
+        torch.cuda.synchronize()
+        opening = torch.zeros(1, device="cuda")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            opening.add_(1)
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        moe.placed_experts = saved
+    cuda = torch.autograd.DeviceType.CUDA
+    avgs = prof.key_averages()
+    # a range's device-side span carries its CPU range's name: not a kernel
+    ranges = {a.key for a in avgs if a.device_type != cuda}
+    rows, experts = [], 0.0
+    for avg in avgs:
+        if avg.key == "moe.experts":
+            if avg.device_type != cuda:
+                experts += getattr(avg, "device_time_total", 0.0)
+            continue
+        if avg.device_type != cuda or avg.key in ranges:
+            continue
+        dev = getattr(avg, "self_device_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev, avg.count, avg.key))
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        log(f"{tag} (e) device time: not measured (the profiler recorded "
+            "no kernel)")
+        return {}
+
+    def of(key):
+        return sum(r[0] for r in rows if key in r[2]) / 1e3
+
+    out = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+           "idle": 1 - busy / wall_us, "experts_ms": experts / 1e3,
+           "joins_ms": of("CatArrayBatchedCopy"), "K2_ms": of("paged_attn")}
+    out["other_ms"] = out["busy_ms"] - out["experts_ms"] - out["K2_ms"]
+    log(f"{tag} (e) one profiled round: wall {out['wall_ms']:.2f} ms, "
+        f"device busy {out['busy_ms']:.2f} ms, idle share "
+        f"{out['idle']:.3f}; the expert products (kernels inside "
+        f"placed_experts, their weights' gathers included) "
+        f"{out['experts_ms']:.3f} ms, take's joins (concatenations, in "
+        f"and out of that range) {out['joins_ms']:.3f} ms, K2 "
+        f"{out['K2_ms']:.3f} ms, the rest {out['other_ms']:.3f} ms, host "
+        f"gap {out['wall_ms'] - out['busy_ms']:.2f} ms")
+    for dev, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"{tag} (e)   {dev / 1e3:8.3f} ms {count:5d} calls  {key[:90]}")
+    return out
+
+
+def _placed_phi_leg(mesh, smi: str, checks: dict) -> None:
+    """(f) phi3.5-moe cut to :data:`PLACED_PHI_LAYERS` layers at its
+    published widths, seed 0: the batched prefill of the unplaced model
+    over ``mesh`` (the all-to-all on whole weights) and one device's, then
+    :data:`PLACED_PHI_STEPS` decode steps on one device over the mesh
+    prefill's K/V; the same model placed in place over ``mesh``: its
+    batched prefill (the all-to-all) and decode steps (the local path) fed
+    the same tokens, held to ``SERVE_RTOL``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.lm import _page_writer, paged_state
+    from repro_torch.weights import init_params, place_params
+    arch = "phi3.5-moe-42b-a6.6b"
+    tag = f"[{arch} placed]"
+    cfg = dataclasses.replace(get_config(arch), num_layers=PLACED_PHI_LAYERS)
+    L, B, S, nper = cfg.num_layers, PLACED_MOE_B, PLACED_MOE_S, \
+        PLACED_PHI_NPER
+    model = init_params(cfg, seed=SEED, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 13).integers(
+        2, cfg.vocab_size, (B, S))).cuda()
+    page = model.page
+    routes = moe.RouteLog(cfg.num_experts)
+
+    def run(mesh_, feed, mode="record"):
+        """The prefill over ``mesh`` (placed or not), then the decode steps
+        over ``mesh_`` (None: one device) from its K/V, fed ``feed``'s
+        tokens where given, else its own greedy ones, under ``routes`` in
+        ``mode``; the logits of every call on the host, the tokens fed,
+        and the moe paths."""
+        routes.reset(mode)
+        moe.ROUTE_HOOK = routes
+        try:
+            return _steps(mesh_, feed)
+        finally:
+            moe.ROUTE_HOOK = None
+
+    def _steps(mesh_, feed):
+        moe.PATH_COUNTS.clear()
+        logits, k, v = model.prefill(tokens, mesh=mesh)
+        paths = [dict(moe.PATH_COUNTS)]
+        if isinstance(k, list):
+            k, v = torch.cat(k, dim=1), torch.cat(v, dim=1)
+        state = paged_state(cfg, B, nper * page, page, mesh_,
+                            model.act_dtype, "cuda")
+        write = _page_writer(state, page, nper)
+        for li in range(L):
+            write(li, k[li], v[li])
+        del k, v
+        out, toks = [logits.cpu().numpy()], []
+        seq = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        for step in range(PLACED_PHI_STEPS):
+            tok = feed[step] if feed else logits.argmax(-1)
+            moe.PATH_COUNTS.clear()
+            logits = model.decode_step(
+                tok, seq, state["k_pools"], state["v_pools"],
+                state["block_table"], state["share_mask"], state["base"],
+                mesh=mesh_)
+            paths.append(dict(moe.PATH_COUNTS))
+            out.append(logits.cpu().numpy())
+            toks.append(tok)
+            seq = seq + 1
+        del state
+        torch.cuda.empty_cache()
+        return out, toks, paths
+
+    one = model.prefill(tokens)[0].cpu().numpy()
+    ref, feed, ref_paths = run(None, None)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    place_params(model, mesh)
+    peak = torch.cuda.max_memory_allocated() - held
+    got, _, paths = run(mesh, feed, "compare")
+    limits = [SERVE_RTOL * float(np.abs(r).max()) for r in ref]
+
+    def diffs(out):
+        return [float(np.abs(g - r).max()) for g, r in zip(out, ref)]
+
+    flips, choices = routes.flipped(), routes.choices
+    errs = diffs(got)
+    compared = ", ".join(f"{e:.3e}" for e in errs)
+    if flips and any(e > x for e, x in zip(errs, limits)):
+        # phase 12's rule: the placed run under the unplaced run's routes
+        got, _, _ = run(mesh, feed, "replay")
+        errs = diffs(got)
+    del model
+    torch.cuda.empty_cache()
+    agree = [float(np.mean(g.argmax(-1) == r.argmax(-1)))
+             for g, r in zip(got, ref)]
+    one_err = float(np.abs(one - ref[0]).max())
+    replayed = "" if routes.mode == "compare" else (
+        "; under the unplaced run's routes "
+        + ", ".join(f"{e:.3e}" for e in errs))
+    log(f"{tag} {cfg.num_layers} of 32 layers (phase 13's cut), "
+        f"{cfg.num_experts} experts top-{cfg.top_k}, no shared expert, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads}; placed in place "
+        f"over {MESH_SERVE_SHAPE} (peak {peak / 1e9:.3f} GB above the "
+        f"{held / 1e9:.3f} GB held); prefill {B} x {S} then "
+        f"{PLACED_PHI_STEPS} decode steps fed the unplaced run's tokens: "
+        f"max |logit diff| placed vs unplaced over the mesh {compared} "
+        f"with {flips} route flips of {choices} choices{replayed} (limits "
+        f"{', '.join(f'{x:.3e}' for x in limits)}), argmax agreement "
+        f"{agree}; paths placed {paths}, unplaced {ref_paths}; the "
+        f"unplaced mesh prefill (all-to-all) vs one device's (local path, "
+        f"capacity from S) max |logit diff| {one_err:.3e} ({smi})")
+    want = [{"a2a": L}] + [{"local": L}] * PLACED_PHI_STEPS
+    checks[f"(f) {arch}: the placed prefill takes the all-to-all, the "
+           "decode steps the local path, in every layer"] = \
+        paths == want == ref_paths
+    checks[f"(f) {arch}: placed logits within SERVE_RTOL x max |logit| of "
+           "the unplaced mesh run's"] = all(
+        e <= x for e, x in zip(errs, limits)) and all(
+        np.isfinite(g).all() for g in got)
+
+
+def phase_placed_moe(smi: str) -> dict:
+    """Phase 27: deepseek-moe-16b's weights placed over (2, 4) ranks of the
+    card (``weights.place_params`` under ``DEFAULT_RULES``: 16 experts a
+    ``model`` rank, ``embed`` over ``data``) and served by
+    ``ServingEngine(mesh=)``, each rank computing with the experts it
+    holds, at full width and depth, against the single-device engine on
+    the same weights (placed in place after it ran: two copies do not fit
+    beside the pools); then phi3.5-moe cut to 8 layers, and the walks of
+    both models' decode_32k cells.  Returns the launch counts of the
+    placed engine's run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_dispatch as fd
+    from repro_torch.launch.mesh import Sharded, make_test_mesh, rank_bytes
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import moe
+    from repro_torch.sharding.rules import attn_strategy
+    from repro_torch.weights import init_params, place_params
+    arch = "deepseek-moe-16b"
+    tag = f"[{arch} placed]"
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    mesh = make_test_mesh(MESH_SERVE_SHAPE, MESH_SERVE_AXES, devices="cuda")
+    n = mesh.size
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(2, cfg.vocab_size, size=k).astype(np.int32)
+               for k in PROMPT_LENS]
+    batch = torch.from_numpy(np.random.default_rng(SEED + 27).integers(
+        2, cfg.vocab_size, (PLACED_MOE_B, PLACED_MOE_S))).cuda()
+    checks, path, events = {}, {}, []
+    hook = lambda n_, p_, mech: events.append(mech)
+    routes = moe.RouteLog(cfg.num_experts)
+    pre_routes = moe.RouteLog(cfg.num_experts)
+    slots = {}
+
+    def engine(model, m):
+        return ServingEngine(cfg, model, max_seqs=MAX_SEQS,
+                             max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, mesh=m)
+
+    def serve(eng, watch=None, counted=None, mapped=False):
+        """Phase 12's protocol (:func:`_placed_protocol`) under ``routes``,
+        each round's rows mapped through the engines' slots (``mapped``)."""
+        moe.ROUTE_HOOK = routes
+        try:
+            return _placed_protocol(
+                eng, prompts, events, watch, ref_toks, counted,
+                (lambda e: routes.map_rows(_slot_rows(e, slots)))
+                if mapped else None)
+        finally:
+            moe.ROUTE_HOOK = None
+
+    steady = lambda xs: float(np.median(xs[2:]))
+
+    def prefill(model, m, hook=None):
+        """The batched prefill over ``m`` (under the route hook ``hook``):
+        the logits on the host and the moe paths."""
+        moe.PATH_COUNTS.clear()
+        moe.ROUTE_HOOK = hook
+        try:
+            logits = model.prefill(batch, mesh=m)[0].cpu().numpy()
+        finally:
+            moe.ROUTE_HOOK = None
+        torch.cuda.empty_cache()
+        return logits, dict(moe.PATH_COUNTS)
+
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    ref_toks = None
+    fd.add_launch_hook(hook)
+    try:
+        # (a) the single-device engine (routes recorded), the batched
+        # prefill on one device and over the mesh on the whole weights
+        one = engine(model, None)
+        sids, _, _, _, one_ms, ref_toks, ref_logits = serve(one)
+        slots.update({s: one.cache.slot_of(s) for s in one.tokens})
+        del one
+        torch.cuda.empty_cache()
+        one_pre, _ = prefill(model, None)
+        ref_pre, ref_pre_paths = prefill(model, mesh, pre_routes)
+        # (b) the same weights placed in place
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        place_params(model, mesh)
+        placed_peak = torch.cuda.max_memory_allocated() - held
+        values = list(model.placement.values.values())
+        at_rest = rank_bytes(values, mesh)
+        total = sum(at_rest)
+        # (c) the placed engine, fed the single engine's tokens
+        torch.cuda.reset_peak_memory_stats()
+        routes.reset("compare")
+        eng = engine(model, mesh)
+        watch = _GreedyWatch()
+        msids, k3_per, admitted, per_round, placed_ms, _, _ = serve(
+            eng, watch, path, mapped=True)
+        serve_peak = torch.cuda.max_memory_allocated()
+        flips, choices = routes.flipped(), routes.choices
+        consumed = routes.consumed()
+    finally:
+        fd.remove_launch_hook(hook)
+    strategy = attn_strategy(cfg.num_heads, mesh)
+    split3 = sum(isinstance(v, Sharded) for v in values if v.ndim == 3)
+    log(f"{tag} card {smi}; {n} ranks on cuda:0 ({MESH_SERVE_SHAPE} over "
+        f"{MESH_SERVE_AXES}), attention strategy {strategy!r}; "
+        f"{cfg.param_count() / 1e9:.3f} B parameters ({total / 1e9:.3f} "
+        f"GB) made in {t_init:.1f} s; {split3} of {3 * L} expert matrices "
+        f"split; at rest a rank holds "
+        f"{', '.join(f'{b / 1e9:.4f}' for b in at_rest)} GB (an eighth: "
+        f"{total / n / 1e9:.4f}); placing in place peaked at "
+        f"{placed_peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB held; "
+        f"max_memory_allocated while serving {serve_peak / 1e9:.3f} GB")
+    checks["(b) every rank holds within 5% of an eighth of the "
+           "weights"] = all(abs(b / (total / n) - 1) <= 0.05
+                            for b in at_rest)
+    checks["(b) every weight matrix is split"] = all(
+        isinstance(v, Sharded) for v in values if v.ndim >= 2)
+    checks["(a) the same sequence ids"] = msids == sids
+    steps, ties, bad, worst, limit = _compare_greedy(ref_logits, ref_toks,
+                                                     watch, tag)
+    log(f"{tag} (c) admitted {PROMPT_LENS}, forked, {ROUNDS} rounds: "
+        f"{steps} greedy steps, {ties} near-ties, {bad} unexcused; max "
+        f"|logit diff| vs single {worst:.3e} (limit {limit:.3e}); route "
+        f"flips {flips} of {choices} choices (rows matched through the "
+        f"engines' slots: {consumed})")
+    if worst > limit and flips:
+        # phase 12's rule: the placed run again under the single engine's
+        # routes, held to the same limit
+        routes.reset("replay")
+        fd.add_launch_hook(hook)
+        try:
+            replay = _GreedyWatch()
+            serve(engine(model, mesh), replay, mapped=True)
+        finally:
+            fd.remove_launch_hook(hook)
+        torch.cuda.empty_cache()
+        steps, ties, bad, worst, limit = _compare_greedy(
+            ref_logits, ref_toks, replay, tag + " (replayed routes)")
+        log(f"{tag} (c) replayed under the single engine's routes: "
+            f"{ties} near-ties, {bad} unexcused; max |logit diff| "
+            f"{worst:.3e} (limit {limit:.3e})")
+    checks["(c) the single engine's routes matched row by row"] = consumed
+    checks["(c) greedy tokens equal the single-device engine's (or differ "
+           "at logged near-ties)"] = bad == 0
+    checks["(c) logits within SERVE_RTOL x max |logit| of the "
+           "single-device engine's"] = worst <= limit
+    checks["(c) at most one fused_mesh drain a round"] = all(
+        ev in ([], ["fused_mesh"]) for ev, *_ in per_round)
+    checks[f"(c) K2 == {L} x {n} a round"] = all(
+        r[3] == L * n for r in per_round)
+    blocks = mesh.axis_size("model") if strategy == "heads" else 1
+    checks[f"(c) K3 == {L} x {blocks} per admission (one a block of "
+           "heads)"] = all(k == L * blocks for k in k3_per)
+    checks["(c) K7 and K1 ran on the path"] = \
+        path.get("psm_transfer", 0) > 0 and \
+        path.get("fused_dispatch", 0) > 0
+    checks["(c) every admission's and round's moe FFN took the local "
+           "path"] = admitted == {"local": L * len(PROMPT_LENS)} and all(
+        r[4] == {"local": L} for r in per_round)
+    log(f"{tag} (c) K1 / K7 / K2 a round "
+        f"{[r[1:4] for r in per_round]}; fused_mesh a "
+        f"round {[len(ev) for ev, *_ in per_round]}; K3 per admission "
+        f"{k3_per}; moe paths of the admissions {admitted}, of a round "
+        f"{per_round[0][4]}")
+
+    # (d) the placed batched prefill against the unplaced one over the mesh
+    pre_routes.reset("compare")
+    got_pre, pre_paths = prefill(model, mesh, pre_routes)
+    pre_err = float(np.abs(got_pre - ref_pre).max())
+    pre_limit = SERVE_RTOL * float(np.abs(ref_pre).max())
+    pre_flips = pre_routes.flipped()
+    if pre_err > pre_limit and pre_flips:
+        pre_routes.reset("replay")
+        got_pre, _ = prefill(model, mesh, pre_routes)
+        pre_err = float(np.abs(got_pre - ref_pre).max())
+        log(f"{tag} (d) replayed under the unplaced prefill's routes: max "
+            f"|logit diff| {pre_err:.3e}")
+    log(f"{tag} (d) batched prefill {PLACED_MOE_B} x {PLACED_MOE_S}: paths "
+        f"placed {pre_paths}, unplaced over the mesh {ref_pre_paths}; max "
+        f"|logit diff| vs the unplaced mesh prefill {pre_err:.3e} (limit "
+        f"{pre_limit:.3e}), route flips {pre_flips} of "
+        f"{pre_routes.choices} choices; argmax agreement "
+        f"{float(np.mean(got_pre.argmax(-1) == ref_pre.argmax(-1))):.2f}; "
+        f"the unplaced mesh prefill (all-to-all) vs one device's (local "
+        f"path, capacity from S) {float(np.abs(ref_pre - one_pre).max()):.3e}")
+    checks[f"(d) the placed batched prefill takes the all-to-all in all "
+           f"{L} layers"] = pre_paths == ref_pre_paths == {"a2a": L}
+    checks["(d) its logits within SERVE_RTOL x max |logit| of the "
+           "unplaced mesh prefill's"] = pre_err <= pre_limit and \
+        bool(np.isfinite(got_pre).all())
+
+    # (e) ms a round and one profiled round
+    log(f"{tag} (e) ms a round (rounds 3-{ROUNDS}, median, host clock, "
+        f"synchronised), {smi}: placed {steady(placed_ms):.2f} ms, single "
+        f"device {steady(one_ms):.2f} ms "
+        f"({steady(placed_ms) / steady(one_ms):.2f}x)")
+    prof = _profile_placed_round(eng.decode_round, tag)
+    checks["(e) the profile saw the expert products and K2"] = \
+        prof.get("experts_ms", 0) > 0 and prof.get("K2_ms", 0) > 0
+    del eng
+    torch.cuda.empty_cache()
+
+    # (g)'s walks, a process each: they start once (a)-(e) are timed and
+    # profiled, and run beside the check run and (f)
+    t_walk = time.perf_counter()
+    with _walking(list(PLACED_MOE_DRY)) as walks:
+        # every K2 / K3 call of the admissions and the first round against
+        # its plain version (a check run, left out of the path)
+        def tapped_path():
+            tap = engine(model, mesh)
+            _admit_all(tap, prompts)
+            tap.decode_round()
+
+        _, reads = tapped(tapped_path)
+        calls = {op: r["calls"] for op, r in reads.items()}
+        checks["(c) the first round's K2 calls and the admissions' K3 "
+               "calls equal their plain versions"] = \
+            calls == {"flash_attention": L * blocks * len(prompts),
+                      "paged_attention_slab": L * n} and \
+            all(r["err"] <= r["limit"] for r in reads.values())
+        log(f"{tag} (c) every kernel call vs its plain version: "
+            + _fmt_reads(reads))
+        del model, values
+        torch.cuda.empty_cache()
+        # (f) phi3.5-moe cut to 8 layers
+        _placed_phi_leg(mesh, smi, checks)
+        ok, failed_walks = _walked_rows(walks,
+                                        t_walk + PLACED_MOE_DRY_TIMEOUT)
+    gib = 2 ** 30
+    equal = []
+    for r in ok:
+        m = r["memory"]
+        args, flops = m["argument_size_in_bytes"], r["hlo_flops_per_dev"]
+        equal.append((args, flops) == PLACED_MOE_DRY[(r["arch"],
+                                                      r["shape"])])
+        log(f"{tag} (g) {r['arch']} {r['shape']} placed over (16, 16): "
+            f"{r['dominant']}-bound on rank {r['busiest_rank']}: t_compute "
+            f"{r['t_compute_s'] * 1e3:.4g} / t_memory "
+            f"{r['t_memory_s'] * 1e3:.4g} / t_peer "
+            f"{r['t_collective_s'] * 1e3:.4g} ms; temp "
+            f"{m['temp_size_in_bytes'] / gib:.4g} + arguments "
+            f"{args / gib:.4g} GiB ({args} B, {flops:.6e} FLOPs: "
+            f"{'equal to' if equal[-1] else 'NOT the'} CPU walk's); walk "
+            f"{r['compile_s']} s; peer bytes by path {r['collectives']}")
+    for w in failed_walks:
+        log(f"{tag} (g) FAILED walk {w}")
+    checks["(g) both moe decode cells walked, equal to the CPU walk"] = \
+        not failed_walks and len(ok) == len(PLACED_MOE_DRY) and all(equal)
+    checks[f"(g) their busiest rank holds under {PLACED_MOE_ARGS_GIB:.0f} "
+           f"GiB of arguments"] = all(
+        r["memory"]["argument_size_in_bytes"] < PLACED_MOE_ARGS_GIB * gib
+        for r in ok)
+    log(f"{tag} phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok_ in checks.items():
+        log(f"{tag} {'ok  ' if ok_ else 'FAIL'} {name}")
+    failed = [k for k, ok_ in checks.items() if not ok_]
+    if failed:
+        raise AssertionError(f"placed moe serving checks failed: {failed}")
+    return {f"{arch} placed serve": path}
+
+
 PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,),
                21: (), 22: (5,), 23: (), 24: (21,), 25: (),
-               26: (5,)}
+               26: (5,), 27: ()}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-26 by default), with
+    """The phases to run for ``--phases`` (all of 2-27 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 27))
+        return set(range(2, 28))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -7630,6 +8138,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if 23 in run:
         paths.update(phase_mesh_model(smi))
+        torch.cuda.empty_cache()
+    if 27 in run:
+        # every earlier model freed: deepseek-moe-16b is placed in place
+        paths.update(phase_placed_moe(smi))
         torch.cuda.empty_cache()
     if 21 in run:
         # every earlier model is freed: the 3.2B model's fp32 training

@@ -18,9 +18,12 @@ A cell is the reference's: train the fp32 masters placed by
 ``build_train_step``'s ``shard_state`` and ``train_state`` over a batch of
 ``data.batch_specs`` (``TrainConfig()``, ``"fsdp"``); prefill the bf16
 weights' ``prefill(tokens, mesh=)`` (``prefill_state`` for the vlm, ssm,
-hybrid and encdec families), a dense model's weights placed over the mesh
-by ``weights.place_params`` as the reference's ``tree_shardings`` places
-them (the other families' still whole on the first rank); decode one
+hybrid and encdec families), a dense or moe model's weights placed over
+the mesh by ``weights.place_params`` as the reference's
+``tree_shardings`` places them (the facades' families still whole on the
+first rank; a moe FFN's expert gathers, all-to-all and partial sums count
+as peer bytes by their paths, ``"gather"``, ``"all-to-all"``, ``"sum"``);
+decode one
 ``decode_step`` (``decode_state``) over an identity-layout serve state
 whose every slot holds a sequence at ``seq_len - 1`` tokens, with the
 step's appends taken from that declared layout (the port reads them from

@@ -28,7 +28,8 @@ of a weight's ZeRO-3 dimension, or of a K/V row range; an all-to-all
 where the slice crosses another axis), and :func:`scatter_sum` sums the
 partial products of a contraction split over ranks into the blocks of
 another sharding (the reduce-scatter by sequence rows, or the all-reduce
-where the output is not split).
+where the output is not split); :func:`relayout` takes a value into
+another layout.
 
 Every move of a tensor onto a rank's device goes through :func:`to_rank`
 (or :func:`to_rank_of`), work done rank by rank runs inside
@@ -448,6 +449,17 @@ def scatter_sum(partials: Sharded, sharding: Sharding,
             0, dtype=torch.float32).to(dtype))
 
 
+def relayout(x: Sharded, sharding: Sharding, path: str = "gather"
+             ) -> Sharded:
+    """``x`` laid out by ``sharding``: x itself where it lies so already,
+    else each block of the new layout taken onto its owner
+    (:func:`take`)."""
+    if x.sharding == sharding:
+        return x
+    return map_blocks(sharding, x.shape, lambda b, sl, r: take(
+        x, r, sl, path=path))
+
+
 def rank_bytes(values, mesh: DeviceMesh) -> List[int]:
     """Bytes each rank of ``mesh`` holds of ``values`` (tensors and
     :class:`Sharded`): a block counts to its owner, a whole tensor to
@@ -468,5 +480,5 @@ __all__ = ["POOL_AXES", "WALK", "DeviceMesh", "Sharded", "Sharding",
            "map_blocks", "on_rank", "pieces", "place", "rank_scope",
            "scatter_sum", "take", "to_rank", "to_rank_of",
            "pool_partition_spec", "pool_shard_axes", "pool_shard_count",
-           "pool_shard_ranks", "rank_bytes", "sharding_for",
+           "pool_shard_ranks", "rank_bytes", "relayout", "sharding_for",
            "tree_shardings", "with_pieces"]

@@ -30,12 +30,14 @@ backward and checkpoint recomputations included, per rank of a mesh:
   shard's buffer) on ``r``.  An in-place op runs where its target lies,
   any other op inside a rank scope on the scope's rank, else on its first
   tensor input's rank; a tensor made outside any scope lies on rank 0,
-  where the port computes everything but attention and moe.  An input on
-  another rank is read there and its bytes count as **peer bytes** into
-  the op's rank (the counterpart of collective wire bytes), by the path
-  that moved it (``"gather"``, ``"place"``, ``"attention"``,
-  ``"all-to-all"``, ``"moe"``, ``"lse_combine"``; ``"other"`` for an
-  operand read where it lies);
+  where the port computes what an unplaced model computes but attention
+  and moe.  An input on another rank is read there and its bytes count
+  as **peer bytes** into the op's rank (the counterpart of collective
+  wire bytes), by the path that moved it (``"gather"``, a placed
+  weight's ZeRO-3 gather included, ``"place"``, ``"attention"``,
+  ``"all-to-all"``, ``"moe"``, ``"sum"``, the partial sums over
+  ``model``, ``"lse_combine"``; ``"other"`` for an operand read where it
+  lies);
 * **peak live bytes** per rank: every storage an op makes is live from
   its op until the storage is freed.
 

@@ -58,10 +58,13 @@ the path the mesh gives it, in prefill and decode alike (``models/moe.py
 moe_ffn``: a prompt whose length the ``model`` axis divides goes through
 the all-to-all over the experts).  The rest of the model (QKV, RoPE, a
 dense FFN, logits) runs whole on the mesh's first device, unless the
-weights are placed over the mesh (``weights.place_params``, the dense
-family): each rank then computes its blocks of every layer in prefill and
-decode, and the logits come back joined on the first device for
-sampling.  Prefill writes reach the slabs through
+weights are placed over the mesh (``weights.place_params``, the dense and
+moe families): each rank then computes its blocks of every layer in
+prefill and decode, a moe layer's experts where they lie (the admission's
+one prompt, which the data axes do not divide, and every decode step take
+the local path: each batch group routes on its first rank and its
+``model`` ranks run their experts), and the logits come back joined on
+the first device for sampling.  Prefill writes reach the slabs through
 ``RowCloneEngine.write_blocks``.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu

@@ -20,11 +20,13 @@ Every family trains through :meth:`LanguageModel.loss_fn` (the module's
 autograd, no kernel and the stacks checkpointed.  The serving pairs run
 under ``torch.no_grad``.
 
-A dense model whose weights ``weights.place_params`` placed over a mesh
-(:data:`PLACED_FAMILIES`; :attr:`LanguageModel.placement`) serves through
-``prefill(mesh=)`` / ``decode_step(mesh=)`` of that mesh, each rank
-computing its blocks (``models/transformer.py``); every other entry
-point refuses a placed model (:data:`PLACED_REFUSAL`).
+A dense or moe model whose weights ``weights.place_params`` placed over
+a mesh (:data:`PLACED_FAMILIES`; :attr:`LanguageModel.placement`) serves
+through ``prefill(mesh=)`` / ``decode_step(mesh=)`` of that mesh, each
+rank computing its blocks, a moe layer's experts where they lie
+(``models/transformer.py``, ``models/moe.py moe_ffn_placed``); the
+facades of the other families and the training loss refuse a placed
+model (:data:`PLACED_REFUSAL`).
 """
 from __future__ import annotations
 
@@ -64,11 +66,11 @@ ENTRY_PAIRS = {"prefill / decode_step": DECODER_FAMILIES,
 PORTED_FAMILIES = tuple(f for fams in ENTRY_PAIRS.values() for f in fams)
 
 #: the families whose placed weights serve (``weights.place_params``)
-PLACED_FAMILIES = ("dense",)
+PLACED_FAMILIES = ("dense", "moe")
 #: why a placed model of another family is refused
 PLACED_REFUSAL = ("placed weights (weights.place_params) serve the dense "
-                  "decoder only: the placed serving path of the {family!r} "
-                  "family is not ported yet (moe, then the ssm / hybrid / "
+                  "and moe decoders only: the placed serving path of the "
+                  "{family!r} family is not ported yet (the ssm / hybrid / "
                   "vlm / encdec facades); serve it unplaced over the mesh")
 
 
@@ -152,8 +154,8 @@ class LanguageModel(nn.Module):
     def check_placed(self, mesh: Optional[DeviceMesh]) -> bool:
         """Whether a serving call over ``mesh`` runs the placed path: False
         for unplaced weights; raise for a placed model of a family
-        :data:`PLACED_FAMILIES` does not hold, or over another mesh than
-        its placement's."""
+        :data:`PLACED_FAMILIES` does not hold (the facades' ssm, hybrid,
+        vlm and encdec), or over another mesh than its placement's."""
         if self.placement is None:
             return False
         if self.cfg.family not in PLACED_FAMILIES:
@@ -303,8 +305,8 @@ class LanguageModel(nn.Module):
         ``mesh`` gives it (``moe.moe_ffn``: all-to-all over ``model``,
         FSDP, or local); everything else runs whole on the model's device,
         the function GSPMD computes.  A moe layer's aux loss is dropped,
-        as the reference's serving path drops it.  A placed dense model
-        computes each rank's blocks over its placement's ``mesh`` and
+        as the reference's serving path drops it.  A placed dense or moe
+        model computes each rank's blocks over its placement's ``mesh`` and
         returns k / v as one (L, B_g, S, KVH, D) stack per batch group, on
         the group's first rank (:meth:`_prefill_placed`)."""
         self._pair_of("prefill / decode_step", "prefill")
@@ -341,8 +343,9 @@ class LanguageModel(nn.Module):
         ``appends``: the step's ``paged.rank_appends`` where the caller
         knows them (the dry-run's declared layout), else read from the
         block table (one host sync).  Everything but the paged attention
-        runs whole on the model's device, but for a placed dense model,
-        whose ranks compute their blocks (its placement's ``mesh``)."""
+        runs whole on the model's device, but for a placed dense or moe
+        model, whose ranks compute their blocks (its placement's
+        ``mesh``)."""
         self._pair_of("prefill / decode_step", "decode_step")
         placed = self.check_placed(mesh)
         cfg, page = self.cfg, self.page
@@ -375,7 +378,7 @@ class LanguageModel(nn.Module):
         return self._logits(xn)
 
     def _prefill_placed(self, tokens: torch.Tensor, mesh: DeviceMesh):
-        """:meth:`prefill` of a placed dense model: the residual Sharded by
+        """:meth:`prefill` of a placed model: the residual Sharded by
         ``("batch", "act_seq_tp", None)`` (a dim the axes do not divide
         stays whole), each layer :func:`~repro_torch.models.transformer
         .decoder_layer_placed` by ``attn_strategy``, the logits by

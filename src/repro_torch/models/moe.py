@@ -24,6 +24,13 @@ batch rows through the local path.  Each rank's work runs on its rank's
 device, so ranks that share a device exchange tensors by reindexing and
 ranks on other cards by a copy.
 
+A model whose weights ``weights.place_params`` placed runs
+:func:`moe_ffn_placed` on a :class:`~repro_torch.launch.mesh.Sharded`
+activation: the same path by :func:`moe_path`, each rank computing with
+the experts it holds (the reference's ``shard_map`` boundary and
+``constrain`` points on the weights ``tree_shardings`` placed), the
+shared experts column- / row-parallel as a dense MLP.
+
 The expert products are plain ``torch`` products: the reference computes
 them as ``jnp.einsum`` outside any Pallas kernel.
 """
@@ -38,9 +45,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import ModelConfig
-from repro_torch.launch.mesh import (DeviceMesh, rank_scope, to_rank,
-                                     to_rank_of)
-from repro_torch.models.common import swiglu_mlp
+from repro_torch.launch.mesh import (DeviceMesh, Sharded, Sharding,
+                                     map_blocks, rank_scope, relayout, take,
+                                     to_rank, to_rank_of)
+from repro_torch.models.common import (blockwise, spec_entry, swiglu_mlp,
+                                       swiglu_mlp_placed)
 from repro_torch.models.paged import batch_shard_axes, batch_shard_count
 from repro_torch.sharding.rules import active_rules
 
@@ -48,9 +57,9 @@ CAPACITY_FACTOR = 1.25
 
 #: when set, :func:`route` hands each call's top-k expert indices (B, N, k)
 #: to it and routes by the indices it returns (the gates are then read
-#: from the call's own probabilities).  ``chip_smoke.py`` sets it to
-#: record one run's choices and count or replay them in another; None
-#: everywhere else.
+#: from the call's own probabilities).  A :class:`RouteLog` set here
+#: records one run's choices and counts or replays them in another
+#: (``chip_smoke.py``); None everywhere else.
 ROUTE_HOOK: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 #: calls of :func:`moe_ffn` by the path they took (``"local"``,
@@ -102,6 +111,72 @@ def route(x: torch.Tensor, router: torch.Tensor, k: int, C: int):
     return gate_k, idx_k, pos_k.clamp(max=C - 1), keep_k, probs, logits
 
 
+class RouteLog:
+    """A :data:`ROUTE_HOOK` over runs of one protocol.  In ``record`` mode
+    it keeps each route call's top-k expert indices (B, N, k); in
+    ``compare`` mode it counts, against the recorded calls in order, the
+    choices a later run makes that the recorded run did not (flips);
+    ``replay`` counts them too and routes the later run by the recorded
+    indices.  Calls are matched by their tokens' rows: a later call may
+    route a block of a recorded call's batch rows, and consecutive calls
+    then take consecutive rows of it (a placed model's batch groups route
+    their rows apart, in row order, where one device routes them in one
+    call); :meth:`map_rows` says which recorded row each row of the later
+    run's batch is (an engine over a mesh puts its sequences in other
+    slots).  A call that matches no rows raises."""
+
+    def __init__(self, num_experts: int):
+        self.E = num_experts
+        self.calls = []
+        self.reset("record")
+
+    def reset(self, mode: str) -> None:
+        """Start a run in ``mode`` (``record``, ``compare``, ``replay``),
+        its rows those of the recorded run."""
+        self.mode, self.i, self.row, self.rows = mode, 0, 0, None
+        self.flips, self.choices = [], 0
+
+    def map_rows(self, rows: Optional[Sequence[int]]) -> None:
+        """From the next call on, row j of this run's batch is the recorded
+        run's row ``rows[j]`` (-1: a row the recorded run did not hold,
+        neither counted nor replayed); None: row j is row j."""
+        self.rows = None if rows is None else torch.as_tensor(rows)
+
+    def __call__(self, idx: torch.Tensor) -> torch.Tensor:
+        if self.mode == "record":
+            self.calls.append(idx.clone())
+            return idx
+        b = idx.shape[0]
+        full = self.calls[self.i] if self.i < len(self.calls) else None
+        if full is None or idx.shape[1:] != full.shape[1:] or \
+                self.row + b > full.shape[0]:
+            raise ValueError(
+                f"route call of {tuple(idx.shape)} matches no rows of the "
+                f"recorded call {self.i}, from row {self.row} (of "
+                f"{len(self.calls)} calls)")
+        sel = torch.arange(self.row, self.row + b) if self.rows is None \
+            else self.rows[self.row:self.row + b]
+        self.row += b
+        if self.row == full.shape[0]:
+            self.i, self.row = self.i + 1, 0
+        held = sel >= 0
+        self.choices += int(held.sum()) * idx[0].numel()
+        ref = torch.where(held.to(idx.device)[:, None, None],
+                          full[sel.clamp(min=0)].to(idx.device), idx)
+        mine = F.one_hot(idx, self.E).sum(-2)
+        theirs = F.one_hot(ref, self.E).sum(-2)
+        self.flips.append((mine > theirs).sum())
+        return ref if self.mode == "replay" else idx
+
+    def flipped(self) -> int:
+        """Choices of this run that the recorded run did not make."""
+        return int(torch.stack(self.flips).sum()) if self.flips else 0
+
+    def consumed(self) -> bool:
+        """Whether this run's calls covered every recorded row."""
+        return self.i == len(self.calls) and self.row == 0
+
+
 class SwiGLU(nn.Module):
     """The weights of one dense SwiGLU (the shared experts)."""
 
@@ -149,11 +224,22 @@ def moe_ffn_local(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig
     """The single-device path (the reference's ``_moe_ffn_local``): x
     (B, S, d) -> (y (B, S, d) in x's dtype, aux loss fp32 scalar), on x's
     device."""
+    y, routed = _routed(x, p.router, cfg, lambda rows: expert_ffn(p, rows))
+    return _shared(p, x, y), _aux(*routed, cfg.num_experts)
+
+
+def _routed(x: torch.Tensor, router, cfg: ModelConfig, experts):
+    """The local path's routed experts on x (B, S, d), on x's device:
+    route each batch row with capacity ``capacity(cfg, S)``, scatter the
+    kept choices into the capacity buffer, expert-major, run
+    ``experts(rows (E, B * C, d)) -> (E, B * C, d)`` on it, and gather
+    back weighted by gate * keep.  Returns (y, (idx_k, probs, logits)),
+    what :func:`_aux` reads."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     C = capacity(cfg, S)
     dt = x.dtype
-    gate_k, idx_k, pos_k, keep_k, probs, logits = route(x, p.router, k, C)
+    gate_k, idx_k, pos_k, keep_k, probs, logits = route(x, router, k, C)
 
     # scatter the kept choices into the capacity buffer, expert-major
     eidx = idx_k.reshape(-1)
@@ -164,13 +250,12 @@ def moe_ffn_local(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig
     buf = torch.zeros((E, B, C, d), dtype=dt, device=x.device)
     buf.index_put_((eidx, bidx, cidx), xb.reshape(-1, d), accumulate=True)
 
-    out = expert_ffn(p, buf.view(E, B * C, d)).view(E, B, C, d)
+    out = experts(buf.view(E, B * C, d)).view(E, B, C, d)
 
     # gather back, weighted by gate * keep
     picked = out[eidx, bidx, cidx].view(B, S, k, d)
     w = (gate_k * keep_k).to(dt)
-    y = (w[:, :, None, :] @ picked)[:, :, 0, :]
-    return _shared(p, x, y), _aux(idx_k, probs, logits, E)
+    return (w[:, :, None, :] @ picked)[:, :, 0, :], (idx_k, probs, logits)
 
 
 def _aux(idx_k: torch.Tensor, probs: torch.Tensor, logits: torch.Tensor,
@@ -308,31 +393,61 @@ def route_local(xf: torch.Tensor, router: torch.Tensor, k: int, C: int):
 
 def moe_ffn_a2a(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig,
                 mesh: DeviceMesh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``_moe_ffn_a2a`` as a per-rank dataflow.
-
-    Rank (g, t) of the (pod, data) group g and ``model`` index t holds
-    the token shard x[g-th B/dp rows, t-th S/T positions], routes its
-    N_loc = (B/dp)(S/T) tokens with capacity C from N_loc (not from S),
-    and packs an (E, C, d) send buffer.  The all-to-all hands rank u of
-    the group slice u, (E/T, C, d), of every rank's buffer; rank u runs
-    its E/T experts (its slice of the weights) over its (E/T, T·C, d)
-    tokens; the inverse exchange returns each rank its (E, C, d) outputs,
-    which it combines with its gates.  A slice that stays on its device is
-    a view, one that changes device a copy.  aux is the sum of the shards'
-    over ``n_dev = T·dp``.  The shared experts then run on the whole x.
-    The local path where :func:`a2a_layout` says the reference falls
-    back."""
+    """The reference's ``_moe_ffn_a2a`` as a per-rank dataflow
+    (:func:`_a2a`) over x whole on its device: each rank's token shard is
+    copied there from x, the router and each rank's E/T experts move to
+    the rank's device with the work, and each rank's output is written
+    back into y on x's device.  aux is the sum of the shards' over
+    ``n_dev = T·dp``.  The shared experts then run on the whole x.  The
+    local path where :func:`a2a_layout` says the reference falls back."""
     layout = a2a_layout(mesh, x.shape, cfg)
     if layout is None:
         return moe_ffn_local(p, x, cfg)
+    _, dps, T = layout
+    d = x.shape[2]
+    E_l = cfg.num_experts // T
+    y = torch.empty_like(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def put(rows, seqs, r, yl):
+        y[rows, seqs] = to_rank_of(yl, x, path="all-to-all")
+
+    for a in _a2a(cfg, mesh, layout, x.shape, x.dtype,
+                  lambda r, rows, seqs: to_rank(x[rows, seqs].reshape(-1, d),
+                                                mesh, r, path="all-to-all"),
+                  lambda r: p.router,
+                  lambda r, u, rows: expert_ffn(
+                      p, rows, slice(u * E_l, (u + 1) * E_l)),
+                  put, with_aux=True):
+        aux = aux + to_rank_of(a, x, path="all-to-all")
+    return _shared(p, x, y), aux / (T * dps)
+
+
+def _a2a(cfg: ModelConfig, mesh: DeviceMesh, layout, shape, dtype,
+         tokens_on, router_on, experts_on, put, with_aux: bool = False
+         ) -> list:
+    """The all-to-all's dataflow (the reference's ``_moe_ffn_a2a``).
+
+    Rank (g, t) of the (pod, data) group g and ``model`` index t holds
+    the token shard [g-th B/dp rows, t-th S/T positions] of x (``shape``
+    (B, S, d)), given by ``tokens_on(r, rows, seqs)`` as (N_loc, d) on
+    its device; it routes its N_loc = (B/dp)(S/T) tokens through
+    ``router_on(r)`` with capacity C from N_loc (not from S) and packs an
+    (E, C, d) send buffer.  The all-to-all hands rank u of the group
+    slice u, (E/T, C, d), of every rank's buffer; rank u runs its E/T
+    experts, ``experts_on(r, u, rows (E/T, T·C, d))``, over its tokens;
+    the inverse exchange returns each rank its (E, C, d) outputs, which
+    it combines with its gates into (B/dp, S/T, d), handed to
+    ``put(rows, seqs, r, y)``.  A slice that stays on its device is a
+    view, one that changes device a copy.  Returns each rank's aux loss
+    on its device, in rank order (``with_aux``; else [])."""
     dp_axes, dps, T = layout
-    B, S, d = x.shape
+    B, S, d = shape
     E, k = cfg.num_experts, cfg.top_k
     E_l, B_l, S_l = E // T, B // dps, S // T
     N = B_l * S_l
     C = capacity(cfg, N)
-    y = torch.empty_like(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    auxs = []
     for g in range(dps):
         coord = _coords(mesh, dp_axes, g)
         ranks = [_rank(mesh, dict(coord, model=t)) for t in range(T)]
@@ -341,19 +456,18 @@ def moe_ffn_a2a(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig,
         for t, r in enumerate(ranks):
             with rank_scope(r):
                 dev = mesh.devices[r]
-                xf = to_rank(x[rows, t * S_l:(t + 1) * S_l].reshape(N, d),
-                             mesh, r, path="all-to-all")
+                xf = tokens_on(r, rows, slice(t * S_l, (t + 1) * S_l))
                 gate_k, idx_k, pos_k, keep_k, probs, logits = route_local(
-                    xf, p.router, k, C)
+                    xf, router_on(r), k, C)
                 xk = torch.where(keep_k[..., None], xf[:, None, :],
-                                 torch.zeros((), dtype=x.dtype, device=dev))
-                buf = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
+                                 torch.zeros((), dtype=dtype, device=dev))
+                buf = torch.zeros((E, C, d), dtype=dtype, device=dev)
                 buf.index_put_((idx_k.reshape(-1), pos_k.reshape(-1)),
                                xk.reshape(-1, d), accumulate=True)
                 sends.append(buf.view(T, E_l, C, d))
                 routes.append((gate_k, idx_k, pos_k, keep_k))
-                a = _aux(idx_k, probs, logits, E)
-            aux = aux + to_rank_of(a, x, path="all-to-all")
+                if with_aux:
+                    auxs.append(_aux(idx_k, probs, logits, E))
         # exchange: rank u's tokens are slice u of every rank's buffer,
         # laid out (E_l, T, C, d) as the reference's swapaxes
         outs = []
@@ -362,8 +476,7 @@ def moe_ffn_a2a(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig,
                 tokens = torch.stack([to_rank(s[u], mesh, r,
                                               path="all-to-all")
                                       for s in sends], 1)
-                outs.append(expert_ffn(p, tokens.view(E_l, T * C, d),
-                                       slice(u * E_l, (u + 1) * E_l))
+                outs.append(experts_on(r, u, tokens.view(E_l, T * C, d))
                             .view(E_l, T, C, d))
         # the inverse exchange and each rank's combine
         for t, r in enumerate(ranks):
@@ -372,14 +485,177 @@ def moe_ffn_a2a(p: MoEFFN, x: torch.Tensor, cfg: ModelConfig,
                                           path="all-to-all") for o in outs])
                 gate_k, idx_k, pos_k, keep_k = routes[t]
                 picked = mine[idx_k, pos_k]                      # (N, k, d)
-                w = (gate_k * keep_k).to(x.dtype)
+                w = (gate_k * keep_k).to(dtype)
                 yl = (w[:, None, :] @ picked)[:, 0, :]
-            y[rows, t * S_l:(t + 1) * S_l] = to_rank_of(
-                yl.view(B_l, S_l, d), x, path="all-to-all")
-    return _shared(p, x, y), aux / (T * dps)
+            put(rows, slice(t * S_l, (t + 1) * S_l), r,
+                yl.view(B_l, S_l, d))
+    return auxs
 
 
-__all__ = ["CAPACITY_FACTOR", "PATH_COUNTS", "RECOMPUTE_COUNTS", "ROUTE_HOOK",
-           "MoEFFN", "SwiGLU", "a2a_layout", "capacity", "expert_ffn", "fsdp_batch_axes",
-           "moe_ffn", "moe_ffn_a2a", "moe_ffn_fsdp", "moe_ffn_local",
-           "moe_path", "route", "route_local"]
+# ---------------------------------------------------------------------------
+# a placed model's moe FFN
+# ---------------------------------------------------------------------------
+
+def _entry(axes: Sequence[str]):
+    """The spec entry of a joint split over ``axes`` (None: none)."""
+    return None if not axes else axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def placed_experts(p: MoEFFN, rows: torch.Tensor, rank: int,
+                   mesh: DeviceMesh, experts: slice = slice(None),
+                   ffn: slice = slice(None)) -> torch.Tensor:
+    """:func:`expert_ffn` of a placed FFN on ``rank``: rows (E', n, d) of
+    the experts ``experts`` through their SwiGLU restricted to the hidden
+    columns ``ffn`` (a partial output, to be summed, where ``ffn`` is not
+    all of them), each weight's slice taken onto the rank from the blocks
+    that hold it (``launch.mesh.take``: the ZeRO-3 gather of its
+    ``embed`` dimension over ``data``)."""
+    dt = rows.dtype
+    g = torch.bmm(rows, take(p.w_gate, rank, (experts, slice(None), ffn),
+                             mesh=mesh).to(dt))
+    u = torch.bmm(rows, take(p.w_up, rank, (experts, slice(None), ffn),
+                             mesh=mesh).to(dt))
+    return torch.bmm(F.silu(g) * u, take(p.w_down, rank, (experts, ffn),
+                                         mesh=mesh).to(dt))
+
+
+def _expert_ranks(p: MoEFFN, rows: torch.Tensor, home: int,
+                  mesh: DeviceMesh) -> torch.Tensor:
+    """The local path's experts for one batch group, whose capacity
+    buffer rows (E, n, d) lies on the group's first rank ``home``, on
+    the ranks of the group that hold the experts (the reference's
+    ``act_experts`` / ``act_ffn`` constraints, ``moe.py:108-116``):
+
+    * ``experts`` split over ``model`` (E divides it): rank t of the
+      group runs the E/T experts of its block on their rows of the
+      buffer, and the outputs are gathered back to ``home`` (each
+      expert's output whole, so the combine that follows is the one
+      device's arithmetic);
+    * ``ffn`` split instead: every rank of the group runs every expert on
+      its hidden columns (its columns of ``w_gate`` / ``w_up``, its rows of
+      ``w_down``), and the partial outputs are summed on ``home`` in fp32;
+    * neither: ``home`` runs every expert, the weights gathered whole.
+
+    Returns the outputs (E, n, d) on ``home``."""
+    e_axes, f_axes = spec_entry(p.w_gate, 0), spec_entry(p.w_gate, 2)
+    axes = e_axes or f_axes
+    if axes is None:
+        return placed_experts(p, rows, home, mesh)
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    n = math.prod(mesh.axis_size(a) for a in names)
+    E, F_ = rows.shape[0], p.w_gate.shape[2]
+    coord = mesh.coords(home)
+    outs = []
+    for t in range(n):
+        r = _rank(mesh, dict(coord, **_coords(mesh, names, t)))
+        with rank_scope(r):
+            if e_axes:
+                sl = slice(t * E // n, (t + 1) * E // n)
+                out = placed_experts(p, to_rank(rows[sl], mesh, r,
+                                                path="all-to-all"),
+                                     r, mesh, experts=sl)
+            else:
+                cols = slice(t * F_ // n, (t + 1) * F_ // n)
+                out = placed_experts(p, to_rank(rows, mesh, r,
+                                                path="all-to-all"),
+                                     r, mesh, ffn=cols)
+        outs.append(to_rank(out, mesh, home,
+                            path="all-to-all" if e_axes else "sum"))
+    if e_axes:
+        return torch.cat(outs)
+    return torch.stack(outs).sum(0, dtype=torch.float32).to(rows.dtype)
+
+
+def _local_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig) -> Sharded:
+    """The local path over placed weights: each batch group of h (its
+    batch block, the rows whole on the group's first rank) routes its
+    rows there with capacity from S, and :func:`_expert_ranks` runs the
+    experts where they lie; the output lies by batch groups."""
+    mesh = h.sharding.mesh
+    groups = Sharding(mesh, (h.sharding.spec[0], None, None))
+    return map_blocks(groups, h.shape, lambda b, sl, r: _routed(
+        take(h, r, (sl[0],)), take(p.router, r, mesh=mesh), cfg,
+        lambda rows: _expert_ranks(p, rows, r, mesh))[0])
+
+
+def _fsdp_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig) -> Sharded:
+    """The FSDP path over placed weights: the batch shards over
+    :func:`fsdp_batch_axes`, and each shard's rank routes its rows and
+    runs every expert, the weights gathered whole there (the reference's
+    ``in_specs P()``)."""
+    mesh = h.sharding.mesh
+    sh = Sharding(mesh, (_entry(fsdp_batch_axes(mesh, h.shape[0])), None,
+                         None))
+    return map_blocks(sh, h.shape, lambda b, sl, r: _routed(
+        take(h, r, (sl[0],), path="moe"), take(p.router, r, mesh=mesh), cfg,
+        lambda rows: placed_experts(p, rows, r, mesh))[0])
+
+
+def _a2a_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig,
+                layout) -> Sharded:
+    """The all-to-all over placed weights (:func:`_a2a`): rank (g, t)
+    routes its own block of h where it lies (h laid out by ``("batch",
+    "act_seq_tp", None)`` is the exchange's token shards; another layout
+    is taken into them), with the router gathered there, and rank u runs
+    the E/T experts of its ``model`` block, gathered over ``data``.  The
+    output lies by the token shards."""
+    mesh = h.sharding.mesh
+    E_l = cfg.num_experts // layout[2]
+    d = h.shape[2]
+    sh = Sharding(mesh, (_entry(layout[0]), "model", None))
+    blocks = {}
+
+    def put(rows, seqs, r, yl):
+        blocks[sh.block_of(r)] = yl
+
+    _a2a(cfg, mesh, layout, h.shape, h.dtype,
+         lambda r, rows, seqs: take(h, r, (rows, seqs),
+                                    path="all-to-all").reshape(-1, d),
+         lambda r: take(p.router, r, mesh=mesh),
+         lambda r, u, rows: placed_experts(
+             p, rows, r, mesh, experts=slice(u * E_l, (u + 1) * E_l)),
+         put)
+    return Sharded(sh, h.shape, blocks)
+
+
+def moe_ffn_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig,
+                   out: Sharding) -> Sharded:
+    """The moe FFN of a placed model (``weights.place_params``) on the
+    normed residual h (B, S, d), laid out by ``out``: the path
+    :func:`moe_path` names for h's shape over ``out.mesh`` (counted in
+    :data:`PATH_COUNTS`), each rank computing with the experts it holds,
+    and the shared experts by ``models/common.py swiglu_mlp_placed``
+    (``w_gate`` / ``w_up`` column-parallel, ``w_down`` row-parallel with
+    the sum over ``model``).  Serving discards the aux loss, so these
+    paths do not compute it.
+
+    * ``"a2a"`` (:func:`_a2a_placed`): each rank routes its token shard
+      in place and runs its E/T experts;
+    * ``"local"`` (:func:`_local_placed`; decode, a batch the data axes
+      do not divide, an odd length, or E % T): each batch group routes
+      its rows on its first rank, its ``model`` ranks run their experts
+      (or their ``ffn`` columns), and the outputs come back to that rank
+      for the combine;
+    * ``"fsdp"`` (:func:`_fsdp_placed`; a mesh without ``model``): each
+      batch shard's rank runs every expert, gathered whole."""
+    mesh = out.mesh
+    path = moe_path(mesh, h.shape, cfg)
+    PATH_COUNTS[path] += 1
+    if path == "a2a":
+        y = _a2a_placed(p, h, cfg, a2a_layout(mesh, h.shape, cfg))
+    elif path == "fsdp":
+        y = _fsdp_placed(p, h, cfg)
+    else:
+        y = _local_placed(p, h, cfg)
+    y = relayout(y, out)
+    if p.shared is None:
+        return y
+    return blockwise(torch.add, y, swiglu_mlp_placed(
+        h, p.shared.w_gate, p.shared.w_up, p.shared.w_down, out))
+
+
+__all__ = ["CAPACITY_FACTOR", "PATH_COUNTS", "RECOMPUTE_COUNTS",
+           "ROUTE_HOOK", "MoEFFN", "RouteLog", "SwiGLU", "a2a_layout",
+           "capacity", "expert_ffn", "fsdp_batch_axes", "moe_ffn",
+           "moe_ffn_a2a", "moe_ffn_fsdp", "moe_ffn_local", "moe_ffn_placed",
+           "moe_path", "placed_experts", "route", "route_local"]

@@ -12,16 +12,18 @@ training (``impl="jax"``: the model-level attention of models/attention.py
 that the reference trains through); :func:`decoder_stack_train` is the
 training stack, each layer under a remat policy (:data:`REMAT_POLICIES`).
 
-A dense layer whose weights ``weights.place_params`` placed runs through
-:func:`decoder_layer_placed` (prefill) and
+A dense or moe layer whose weights ``weights.place_params`` placed runs
+through :func:`decoder_layer_placed` (prefill) and
 :func:`decoder_layer_decode_placed` (decode) on a
 :class:`~repro_torch.launch.mesh.Sharded` residual: by sequence rows
 over ``model`` (``act_seq_tp``) in prefill where they divide, by batch
 over (``pod``, ``data``) in both; the q / k / v projections
 column-parallel, ``wo`` and the MLP's ``w_down`` row-parallel with the sum
-over ``model`` (``models/common.py``), prefill attention by block
-(``attention.prefill_attention_placed``), decode attention over the slabs
-as for an unplaced model (``paged.paged_attend_append``)."""
+over ``model`` (``models/common.py``), a moe FFN by its mesh path with
+each rank's experts where they lie (``moe.moe_ffn_placed``), prefill
+attention by block (``attention.prefill_attention_placed``), decode
+attention over the slabs as for an unplaced model
+(``paged.paged_attend_append``)."""
 from __future__ import annotations
 
 import functools
@@ -45,7 +47,7 @@ from repro_torch.models.common import (apply_rope, blockwise, checkpointed,
                                        col_parallel, rms_norm,
                                        rms_norm_placed, row_parallel,
                                        swiglu_mlp, swiglu_mlp_placed)
-from repro_torch.models.moe import MoEFFN, moe_ffn
+from repro_torch.models.moe import MoEFFN, moe_ffn, moe_ffn_placed
 from repro_torch.models.paged import paged_attend_append
 from repro_torch.sharding.rules import attn_strategy
 
@@ -350,10 +352,14 @@ def _placed_qkv(layer: DecoderLayer, h: Sharded, cfg: ModelConfig):
 
 def _placed_ffn(layer: DecoderLayer, x: Sharded, cfg: ModelConfig
                 ) -> Sharded:
-    """x + the SwiGLU MLP of norm(x), laid out as x."""
+    """x + the FFN of norm(x), laid out as x: the SwiGLU MLP, or a moe
+    layer's experts where they lie (``moe.moe_ffn_placed``)."""
     h = rms_norm_placed(x, layer.ln2, cfg.norm_eps)
-    y = swiglu_mlp_placed(h, layer.w_gate, layer.w_up, layer.w_down,
-                          x.sharding)
+    if cfg.family == "moe":
+        y = moe_ffn_placed(layer.moe, h, cfg, x.sharding)
+    else:
+        y = swiglu_mlp_placed(h, layer.w_gate, layer.w_up, layer.w_down,
+                              x.sharding)
     return blockwise(torch.add, x, y)
 
 
@@ -376,8 +382,8 @@ def _rope_blocks(t: Sharded, sharding: Sharding, pos: Sharded,
 def decoder_layer_placed(layer: DecoderLayer, x: Sharded, pos: Sharded,
                          cfg: ModelConfig, strategy: str
                          ) -> Tuple[Sharded, Sharded, Sharded]:
-    """A placed dense layer over a full causal sequence (prefill): x (B,
-    S, d) Sharded by ``("batch", "act_seq_tp", None)``, pos (B, S) laid
+    """A placed dense or moe layer over a full causal sequence (prefill):
+    x (B, S, d) Sharded by ``("batch", "act_seq_tp", None)``, pos (B, S) laid
     out as its first two dims; the attention by ``strategy``
     (``sharding.rules.attn_strategy``).  Returns the new x (laid out as
     x) and this layer's post-RoPE k and v (B, S, KVH * D) Sharded."""
@@ -402,8 +408,8 @@ def decoder_layer_decode_placed(layer: DecoderLayer, x: Sharded,
                                 seq_lens_incl: torch.Tensor,
                                 cfg: ModelConfig, page: int,
                                 mesh: DeviceMesh) -> Sharded:
-    """One token per sequence through a placed dense layer: x (B, 1, d)
-    Sharded by batch, pos (B,) on the mesh's first rank.  The projections
+    """One token per sequence through a placed dense or moe layer: x (B,
+    1, d) Sharded by batch, pos (B,) on the mesh's first rank.  The projections
     run column-parallel on the ranks; q, k and v meet on the first rank
     for RoPE and :func:`~repro_torch.models.paged.paged_attend_append`
     (K2 on every rank's slab, the partials LSE-combined, as for an

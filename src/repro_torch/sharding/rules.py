@@ -13,8 +13,8 @@ training rules (the batch over every axis), activated with
 :func:`logical_to_spec` returns the reference's ``PartitionSpec`` as a
 plain tuple: one entry per dimension, ``None``, a mesh axis name, or a
 tuple of axis names sharded jointly.  ``launch/mesh.py`` ``sharding_for``
-reads it to place the training state and a dense model's serving weights
-(``weights.place_params``); ``models/attention.py attention_train`` to
+reads it to place the training state and a dense or moe model's serving
+weights (``weights.place_params``); ``models/attention.py attention_train`` to
 split the training attention into the blocks the reference's
 ``constrain`` names, and the placed model's blocks (``models/lm.py``,
 ``models/attention.py placed_qkv_shardings``) to lay out its residual,
@@ -24,8 +24,8 @@ attention layouts to use.  The reference's ``constrain`` and
 ``named_sharding`` have no counterpart: they hand a placement to GSPMD,
 and the port places every tensor explicitly, so there is nothing to
 annotate.  What is placed: the training state; the pools' slabs; a
-dense model's serving weights and its activations by blocks on their
-ranks; a moe FFN's mesh paths.  Everything else (the other families'
+dense or moe model's serving weights and its activations by blocks on
+their ranks; a moe FFN's mesh paths.  Everything else (the facades'
 serving weights and activations, training's loss and bf16 views) lies
 whole on the model's device.
 """

@@ -28,9 +28,11 @@
   the reference's dry-run places its bf16 weights (``p_sh16 =
   tree_shardings(mesh, params_bf16, axes)``): each parameter split by its
   logical axes under the active rules (``DEFAULT_RULES``: ``embed`` over
-  ``data``, ``qkv`` / ``heads`` / ``ffn`` / ``vocab`` over ``model``, a
-  rule whose axes do not divide the dim leaving it whole), each block on
-  its rank's device and the model's own tensors released.
+  ``data``, ``qkv`` / ``heads`` / ``ffn`` / ``vocab`` / ``experts`` over
+  ``model``, a rule whose axes do not divide the dim leaving it whole, so
+  that a moe FFN's ``ffn`` takes ``model`` where its experts do not
+  divide it), each block on its rank's device and the model's own
+  tensors released.
 
 Serving holds the matrices in the model dtype; training holds every
 parameter in fp32 (``param_dtype=torch.float32``), the reference's master
@@ -223,20 +225,27 @@ def place_params(model: LanguageModel, mesh: DeviceMesh) -> LanguageModel:
     owners' devices, or the tensor on the first rank where the spec
     splits nothing), set on its module in place of the parameter, and
     listed in ``model.placement``.  Nothing of a split weight stays
-    whole: its blocks are copies and the parameter is dropped.  The
-    dense family serves placed (``models/lm.py PLACED_FAMILIES``); the
-    other families' entry points refuse a placed model."""
+    whole: its blocks are copies and the parameter is dropped before the
+    next is placed (the peak is the model and one weight's blocks).  The
+    dense and moe families serve placed (``models/lm.py
+    PLACED_FAMILIES``: a moe FFN's router ``(embed, experts)``, experts
+    ``(experts, embed, ffn)`` / ``(experts, ffn, embed)`` and shared
+    experts as a dense MLP); the facades' families refuse a placed
+    model."""
     if model.placement is not None:
         raise ValueError("the model's weights are placed already")
     values = {}
-    for name, p in list(model.named_parameters()):
-        values[name] = place(p, sharding_for(mesh, tuple(p.shape),
-                                             param_axes(name)))
+    # one parameter at a time: each whole weight is released as soon as
+    # its blocks exist, so placing in place holds one extra weight at most
+    for name in [n for n, _ in model.named_parameters()]:
         owner, attr = model, name
         if "." in name:
             path, attr = name.rsplit(".", 1)
             owner = model.get_submodule(path)
-        del owner._parameters[attr]
+        p = owner._parameters.pop(attr)
+        values[name] = place(p, sharding_for(mesh, tuple(p.shape),
+                                             param_axes(name)))
+        del p
         setattr(owner, attr, values[name])
     model.placement = Placement(mesh, values)
     return model

@@ -34,9 +34,9 @@ FAMILIES = {"dense": "llama3.2-3b", "moe": "deepseek-moe-16b",
             "hybrid": "zamba2-2.7b", "encdec": "seamless-m4t-medium"}
 
 #: the kernels each (family, kind) reaches, and their calls over 2 x 2
-#: ranks at the reduced depth (the dense prefill's weights placed: K3 once
-#: a layer for each of its 2 batch x 2 head blocks)
-KERNELS = {("dense", "prefill"): {"K3": 16}, ("moe", "prefill"): {"K3": 4},
+#: ranks at the reduced depth (the dense and moe prefills' weights placed:
+#: K3 once a layer for each of their 2 batch x 2 head blocks)
+KERNELS = {("dense", "prefill"): {"K3": 16}, ("moe", "prefill"): {"K3": 16},
            ("vlm", "prefill"): {"K3": 4}, ("ssm", "prefill"): {"K4": 4},
            ("hybrid", "prefill"): {"K4": 4, "K3": 2},
            ("encdec", "prefill"): {"K3": 10},
@@ -198,3 +198,33 @@ def test_dense_decode_cell_places_its_weights():
         assert min(held) == v.shape.numel() * 2 // 256, name
     assert 0 < max(walk.arguments) < 8 * 2 ** 30
     assert walk.arguments[0] < 7.74 * 2 ** 30 / 2
+
+
+def test_moe_decode_cell_places_its_experts():
+    """deepseek-moe-16b's decode_32k cell over the production (16, 16)
+    mesh, built on ``meta``: every expert matrix (64 experts split over
+    ``model``, ``embed`` over ``data``), router and shared-expert matrix
+    is split by ``weights.place_params``, so each rank holds exactly
+    1/256 of one and no rank more than 1/16, and the busiest rank's
+    arguments at rest (its blocks, its KV slabs) stay under 4 GiB, where
+    they were 34.9 GiB of whole bf16 weights and slabs on rank 0.  The
+    walk's accounting of the arguments, without running the step."""
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.mesh import Sharded, rank_bytes
+    from repro_torch.launch.op_cost import Walk
+    mesh = make_production_mesh()
+    shape = SHAPES["decode_32k"]
+    walk = Walk(mesh.size, fill=shape.seq_len)
+    with walk:
+        fn, arguments = build_cell("deepseek-moe-16b", shape, mesh)
+        walk.run(lambda: None, arguments)
+    weights = arguments[0]
+    experts = {n: v for n, v in weights.items() if ".moe." in n}
+    assert len(experts) == 28 * 7
+    assert sum(v.ndim == 3 for v in experts.values()) == 28 * 3
+    for name, v in experts.items():
+        assert isinstance(v, Sharded), name
+        held = rank_bytes([v], mesh)
+        assert max(held) <= v.shape.numel() * 2 // 16, name
+        assert min(held) == max(held) == v.shape.numel() * 2 // 256, name
+    assert 0 < max(walk.arguments) < 4 * 2 ** 30

@@ -19,8 +19,8 @@ for the reduced llama3.2-3b over (2, 4) and (1, 8) ranks of ``("data",
 
 In this process: (c) ``ServingEngine(mesh=)`` over the placed model
 decodes the unplaced mesh engine's tokens over 4 rounds with a fork, at
-most one fused drain a round; (d) the odd-length rule; (e) a moe and an
-ssm model placed are refused with a ``ValueError``; and K3's ``q_offset``
+most one fused drain a round; (d) the odd-length rule; (e) a hybrid and
+an ssm model placed are refused with a ``ValueError``; and K3's ``q_offset``
 in its plain version against the reference's model-level
 ``flash_attention`` with ``pos_q`` offset, at D = 32 and 128 (fp32, atol
 1e-4 as tests/test_torch_attention.py).
@@ -319,30 +319,26 @@ def test_odd_prompt_length_keeps_rows_whole():
     np.testing.assert_allclose(vp[0].numpy(), vw.numpy(), atol=KV_ATOL)
 
 
-@pytest.mark.parametrize("arch,family", [("deepseek-moe-16b", "moe"),
+@pytest.mark.parametrize("arch,family", [("zamba2-2.7b", "hybrid"),
                                          ("mamba2-780m", "ssm")])
 def test_placed_model_of_other_family_is_refused(arch, family):
-    """(e) Only the dense family serves placed: a placed moe model's
-    ``prefill`` / ``decode_step`` and engine, and a placed ssm model's
-    ``prefill_state`` / ``decode_state``, raise a plain ``ValueError``
-    naming the dense decoder."""
+    """(e) Only the dense and moe families serve placed: a placed hybrid
+    model's ``prefill_state`` / ``decode_state`` and engine, and a placed
+    ssm model's ``prefill_state`` / ``decode_state``, raise a plain
+    ``ValueError`` naming the dense and moe decoders."""
     assert family not in PLACED_FAMILIES
     cfg = get_config(arch).reduced()
     mesh = mesh_of("heads (2, 4)")
     model = place_params(init_params(cfg, seed=0, device="cpu"), mesh)
     tokens = torch.ones((2, 16), dtype=torch.long)
-    if family == "moe":
-        calls = [lambda: model.prefill(tokens, mesh=mesh),
-                 lambda: model.decode_step(tokens[:, 0], tokens[:, 0],
-                                           None, None, None, None, None,
-                                           mesh=mesh),
-                 lambda: ServingEngine(cfg, model, mesh=mesh, max_seqs=4,
-                                       max_blocks_per_seq=4, num_slabs=4)]
-    else:
-        calls = [lambda: model.prefill_state(tokens, mesh=mesh),
-                 lambda: model.decode_state({}, tokens[:, 0], mesh=mesh)]
+    calls = [lambda: model.prefill_state(tokens, mesh=mesh),
+             lambda: model.decode_state({}, tokens[:, 0], mesh=mesh)]
+    if family == "hybrid":
+        calls.append(lambda: ServingEngine(cfg, model, mesh=mesh,
+                                           max_seqs=4, max_blocks_per_seq=4,
+                                           num_slabs=4))
     for call in calls:
-        with pytest.raises(ValueError, match="dense decoder"):
+        with pytest.raises(ValueError, match="dense and moe decoders"):
             call()
 
 
