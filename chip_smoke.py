@@ -409,8 +409,9 @@ Phases (each raises on failure; the script then exits non-zero):
     (arch, shape), a process a cell, ``DRY_WORKERS`` at once, cheapest
     first, for ``DRY_SWEEP_S`` seconds: each row, the counts of ok / skip
     / error / not finished and the time; an error fails the phase.  No
-    K1-K7 launch: the walk reckons kernels at their boundary.  The placed
-    dense serving cells come last in the sweep: phase 26 walks them.
+    K1-K7 launch: the walk reckons kernels at their boundary.  The
+    serving cells (all placed) come first by their layers, the train
+    cells last.
 26. (run after phase 22, on phase 5's weights) the dense decoder's
     serving weights placed over a rank mesh (``phase_placed_serve``;
     ``weights.place_params``, ``prefill`` / ``decode_step`` on placed
@@ -463,6 +464,33 @@ Phases (each raises on failure; the script then exits non-zero):
     started once (a)-(e) are timed, beside (c)'s check run and (f)): equal
     to the CPU walk's rows, under 4 GiB of arguments on the busiest
     rank.
+28. (run after phase 27, before phase 21) the facades' serving weights
+    placed over a rank mesh (``phase_placed_facades``; ``models/mamba2.py
+    mamba2_layer_placed``, ``models/lm.py state_logical_axes``), at
+    published widths, seed 0: (a) mamba2-780m (48 layers) and
+    zamba2-2.7b (54) over (2, 4), (b) paligemma-3b over (1, 16), the
+    production ``model`` size (its 8 heads take ``"seq"``: K3 on row
+    blocks of 40 at ``q_offset`` with the 256-patch prefix), (c)
+    seamless-m4t-medium over (2, 4).  Each leg: the single-device facade
+    (``prefill_state`` at B = 2 over a 384-token prompt, 8 greedy
+    ``decode_state`` steps), then the same weights placed in place
+    (``rank_bytes`` at rest, the peak of placing) fed its tokens: logits
+    within ``SERVE_RTOL`` (where a Mamba2 leg's free run drifts past it,
+    held again with each Mamba2 layer fed one device's input: phase 12's
+    replay, ``_LayerReplay``), tokens equal but at logged near-ties, K4 once a
+    Mamba2 layer and head block, K3 once an attention layer and block, K2
+    once a layer and slab a step; every K2 / K3 / K4 call of the prefill
+    and the first step against its plain version (``tapped``); ms a
+    prefill and a step against one device and one profiled step's idle
+    share (reported, not judged); K3 at the vlm's straddling row block
+    and K4 at a rank's head block timed beside their bounds.  (d)
+    ``ServingEngine(mesh=)`` over placed zamba2-2.7b and
+    seamless-m4t-medium admits ``PROMPT_LENS``: the blocks staged and
+    promoted, the per-sequence state and the logits against the unplaced
+    mesh engine's (zamba2 replayed as in (a) where it drifts), at most one
+    ``fused_mesh`` drain a round.  (e) The four
+    facade decode_32k cells walked (a process each, started after (a)-(c)
+    are timed): equal to the CPU walk's rows.
 
 The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -6130,10 +6158,11 @@ def _global_mask(cache) -> np.ndarray:
     return mask
 
 
-def _profile_mesh_round(step, tag: str) -> dict:
+def _profile_mesh_round(step, tag: str, label: str = "(d)") -> dict:
     """One profiled round of the mesh engine: wall and device busy ms, the
     idle share, and the device ms of K2, K1, K7 and the LSE combine (the
-    kernels launched inside ``lse_combine``, run in a profiler range)."""
+    kernels launched inside ``lse_combine``, run in a profiler range);
+    ``label`` leads its log lines."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.models import paged
     saved = paged.lse_combine
@@ -6175,8 +6204,8 @@ def _profile_mesh_round(step, tag: str) -> dict:
             rows.append((dev, avg.count, avg.key))
     busy = sum(r[0] for r in rows)
     if not busy:
-        log(f"{tag} (d) device time: not measured (the profiler recorded "
-            "no kernel)")
+        log(f"{tag} {label} device time: not measured (the profiler "
+            "recorded no kernel)")
         return {}
 
     def of(key):
@@ -6188,7 +6217,7 @@ def _profile_mesh_round(step, tag: str) -> dict:
            "combine_ms": combine / 1e3}
     out["other_ms"] = out["busy_ms"] - out["K2_ms"] - out["K1_ms"] \
         - out["K7_ms"] - out["combine_ms"]
-    log(f"{tag} (d) one profiled round: wall {out['wall_ms']:.2f} ms, "
+    log(f"{tag} {label} one profiled round: wall {out['wall_ms']:.2f} ms, "
         f"device busy {out['busy_ms']:.2f} ms, idle share "
         f"{out['idle']:.3f}; K2 {out['K2_ms']:.3f} ms "
         f"({sum(r[1] for r in rows if 'paged_attn' in r[2])} launches), "
@@ -6197,7 +6226,8 @@ def _profile_mesh_round(step, tag: str) -> dict:
         f"{out['other_ms']:.3f} ms, host gap "
         f"{out['wall_ms'] - out['busy_ms']:.2f} ms")
     for dev, count, key in sorted(rows, reverse=True)[:8]:
-        log(f"{tag} (d)   {dev / 1e3:8.3f} ms {count:5d} calls  {key[:90]}")
+        log(f"{tag} {label}   {dev / 1e3:8.3f} ms {count:5d} calls  "
+            f"{key[:90]}")
     return out
 
 
@@ -6882,10 +6912,10 @@ DRY_ARCH, DRY_B, DRY_S = TRAIN_ARCH, TRAIN_B, TRAIN_S
 #: (a) the walk's peak against ``max_memory_allocated``: within 10% (the
 #: caching allocator rounds each block up and holds cuBLAS's workspace)
 DRY_PEAK_RTOL = 0.10
-#: (c) the sweep's share of the phase: seconds, worker processes (phases
-#: 26-27 walk placed serving cells; the facades' cells, which the sweep
-#: takes first, finish within 10 s of walk each)
-DRY_SWEEP_S, DRY_WORKERS = 50.0, 6
+#: (c) the sweep's share of the phase: seconds, worker processes (every
+#: serving cell is placed: the cheapest prefill_32k cell,
+#: paligemma-3b's, walks in 50-65 s on a CPU)
+DRY_SWEEP_S, DRY_WORKERS = 80.0, 6
 
 
 class _NoModules:
@@ -6910,22 +6940,21 @@ def _dry_walk(cfg, shape, mesh):
 
 def _sweep_cells() -> list:
     """Every (arch, shape) of the ``--mesh single`` sweep, cheapest first:
-    the prefill and decode cells whose weights lie whole on the first rank
-    (few ops), then those of the placed families (every rank computes its
-    blocks: 0.4-2.5 M ops a cell; phase 26 walks them), then the train
-    cells by their layers' attention blocks (256 a layer over 16 x 16
-    ranks; an ssm stack has none)."""
+    the serving cells (every family's weights placed: each rank computes
+    its blocks) by their layers, a Mamba2 stack's prefill eight times its
+    layers (each rank loops over the chunks of its sequence), then the
+    train cells by their layers' attention blocks (256 a layer over 16 x
+    16 ranks; an ssm stack has none)."""
     from repro_torch.configs import SHAPES, get_config, list_archs
-    from repro_torch.models.lm import PLACED_FAMILIES
-    order = {"prefill": 0, "decode": 1, "train": 3}
 
     def weight(cell):
         cfg, shape = get_config(cell[0]), SHAPES[cell[1]]
-        kind = order[shape.kind]
-        if kind < 2 and cfg.family in PLACED_FAMILIES:
-            kind = 2
-        return (kind, cfg.num_attn_layers + cfg.encoder_layers
-                if shape.kind == "train" else 0, cell)
+        layers = cfg.num_layers + cfg.encoder_layers
+        if shape.kind == "train":
+            return (1, cfg.num_attn_layers + cfg.encoder_layers, cell)
+        if shape.kind == "prefill" and cfg.family in ("ssm", "hybrid"):
+            layers *= 8
+        return (0, layers, cell)
 
     return sorted(((a, s) for a in list_archs() for s in SHAPES), key=weight)
 
@@ -7983,16 +8012,504 @@ def phase_placed_moe(smi: str) -> dict:
     return {f"{arch} placed serve": path}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the facades' serving weights placed over a rank mesh (the
+# Mamba2 layer of ssm and hybrid, the vlm's prefix, the encdec's encoder and
+# cross-attention; the serve state placed by state_logical_axes)
+# ---------------------------------------------------------------------------
+
+#: (a)-(c) the legs: arch, mesh shape over ``MESH_SERVE_AXES`` and text
+#: tokens a prompt (``PROMPT_LENS[2]``); paligemma-3b over the production
+#: ``model`` size, where its 8 heads take ``"seq"`` and 256 patches + 384
+#: tokens split into row blocks of 40
+PLACED_FACADE_LEGS = (("mamba2-780m", MESH_SERVE_SHAPE, PROMPT_LENS[2]),
+                      ("zamba2-2.7b", MESH_SERVE_SHAPE, PROMPT_LENS[2]),
+                      ("paligemma-3b", (1, 16), PROMPT_LENS[2]),
+                      ("seamless-m4t-medium", MESH_SERVE_SHAPE,
+                       PROMPT_LENS[2]))
+PLACED_FACADE_B, PLACED_FACADE_STEPS = 2, 8
+#: (d) the families whose engine admits placed
+PLACED_FACADE_ENGINES = ("zamba2-2.7b", "seamless-m4t-medium")
+#: (e) the CPU walk's (arguments bytes, FLOPs) on the busiest rank of each
+#: facade decode_32k cell over (16, 16) (``python -m
+#: repro_torch.launch.dryrun``); seconds the walks may take
+PLACED_FACADE_DRY = {
+    ("mamba2-780m", "decode_32k"): (45054528, 798867456.0),
+    ("zamba2-2.7b", "decode_32k"): (1567465064, 4706536448.0),
+    ("paligemma-3b", "decode_32k"): (322658304, 4924637184.0),
+    ("seamless-m4t-medium", "decode_32k"): (4035236864, 4515430400.0)}
+PLACED_FACADE_DRY_TIMEOUT = 300
+
+
+class _CallLog:
+    """Wraps the ``kernels/ops.py`` entry ``op`` while on: keeps the
+    arguments of the first call ``pick(args, kw)`` accepts (without its
+    ``use_kernel``)."""
+
+    def __init__(self, op: str, pick):
+        from repro_torch.kernels import ops
+        self.ops, self.op, self.pick = ops, op, pick
+        self.saved, self.call = getattr(ops, op), None
+
+    def __enter__(self):
+        def call(*args, **kw):
+            if self.call is None and self.pick(args, kw):
+                self.call = (args, {k: v for k, v in kw.items()
+                                    if k != "use_kernel"})
+            return self.saved(*args, **kw)
+        setattr(self.ops, self.op, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.op, self.saved)
+
+
+class _LayerReplay:
+    """Phase 12's replay for a random Mamba2 stack: its rounding drift, not
+    a route, is what a reordered sum perturbs (a K4 in float64 reads 0.92
+    of ``SERVE_RTOL``'s limit, ROADMAP §3).  ``record()`` keeps each
+    Mamba2 layer's input x of a run through the unplaced layers, in call
+    order (``models/lm.py`` ``mamba2_layer`` / ``mamba2_decode_step``);
+    ``replay()`` feeds them, in the same order, to the placed layers of
+    another run (``mamba2_layer_placed`` / ``mamba2_decode_step_placed``,
+    each block taken from the recorded whole), so that each layer and the
+    shared blocks after it start from the first run's input."""
+
+    NAMES = {"record": ("mamba2_layer", "mamba2_decode_step"),
+             "replay": ("mamba2_layer_placed", "mamba2_decode_step_placed")}
+
+    def __init__(self):
+        self.inputs, self.mode, self.fed = [], None, 0
+
+    def record(self):
+        self.mode, self.inputs = "record", []
+        return self
+
+    def replay(self):
+        self.mode, self.fed = "replay", 0
+        return self
+
+    def __enter__(self):
+        from repro_torch.launch.mesh import map_blocks
+        from repro_torch.models import lm
+        self.lm = lm
+        self.saved = {n: getattr(lm, n) for n in self.NAMES[self.mode]}
+
+        def recorded(fn):
+            def call(layer, x, *args, **kw):
+                self.inputs.append(x.clone())
+                return fn(layer, x, *args, **kw)
+            return call
+
+        def replayed(fn):
+            def call(layer, x, *args, **kw):
+                src = self.inputs[self.fed].reshape(x.shape)
+                self.fed += 1
+                x = map_blocks(x.sharding, x.shape, lambda b, sl, r: src[sl]
+                               .to(x.dtype).clone())
+                return fn(layer, x, *args, **kw)
+            return call
+
+        wrap = recorded if self.mode == "record" else replayed
+        for n, fn in self.saved.items():
+            setattr(lm, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.lm, n, fn)
+
+
+def _timed_call(op: str, call, key: str, smi: str, tag: str) -> None:
+    """The recorded call of ``op`` through its kernel: card and device-only
+    ms, its plain version's ms, the bound of ``kernels/cost.py`` and, for
+    K3, SDPA over the same mask (a yardstick: the port never calls it),
+    each logged with the card."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import cost, ops
+    args, kw = call
+    fn = getattr(ops, op)
+    ms = time_ms(lambda: fn(*args, use_kernel=True, **kw))
+    dev, _ = device_ms(lambda: fn(*args, use_kernel=True, **kw), key=key)
+    plain = time_ms(lambda: fn(*args, use_kernel=False, **kw), reps=3)
+    lib = "none"
+    if op == "flash_attention":
+        q, k, v = args
+        mask = None
+        if kw.get("causal", True):
+            rows = torch.arange(q.shape[2], device=q.device)[:, None]
+            cols = torch.arange(k.shape[2], device=q.device)[None, :]
+            mask = (cols <= rows + kw.get("q_offset", 0)) | \
+                (cols < kw.get("prefix_len", 0))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+        lib = f"SDPA {lib_ms:.4f} ms"
+    work = cost.k3_work(*args, **kw) if op == "flash_attention" \
+        else cost.k4_work(*args)
+    b_ops = work.flops / cost.BF16_FLOPS * 1e3
+    b_bytes = work.bytes / cost.HBM_BYTES_PER_S * 1e3
+    shapes = ", ".join(str(tuple(a.shape)) for a in args)
+    log(f"{tag} {op} at {shapes} {kw}: kernel {ms:.4f} ms (device only "
+        f"{_fmt_ms(dev)}), plain {plain:.4f} ms, library {lib}, bound "
+        f"{max(b_ops, b_bytes):.5f} ms "
+        f"({'operations' if b_ops >= b_bytes else 'bytes'}: "
+        f"{work.flops:.3e} flop, {work.bytes} bytes), {smi}")
+
+
+def _expected_launches(cfg, mesh, B: int, S: int) -> tuple:
+    """(K4, K3 of a prefill; K2, K3 of a decode step) of a placed facade
+    over ``mesh``: K4 once a Mamba2 layer and head block, K3 once an
+    attention layer and q block (the encoder's over its frames, the
+    cross-attention's as the self-attention's), K2 once a layer and slab,
+    an encdec step's K3 once a layer and batch block."""
+    from repro_torch.launch.mesh import Sharding
+    from repro_torch.models.attention import placed_qkv_shardings
+    from repro_torch.models.mamba2 import ssm_layouts
+    from repro_torch.sharding.rules import attn_strategy, logical_to_spec
+    fam, L = cfg.family, cfg.num_layers
+    if fam in ("ssm", "hybrid"):
+        k4 = L * len(ssm_layouts(mesh, B, S, cfg)[0].owners())
+    else:
+        k4 = 0
+    k3 = 0
+    if cfg.num_attn_layers:
+        strategy = "heads" if fam == "hybrid" else \
+            attn_strategy(cfg.num_heads, mesh)
+
+        def blocks(n):
+            return len(placed_qkv_shardings(mesh, strategy, B, n,
+                                            cfg.num_heads,
+                                            cfg.num_kv_heads)[0].owners())
+        k3 = cfg.num_attn_layers * blocks(S)
+        if fam == "encdec":
+            k3 += L * blocks(S) + cfg.encoder_layers * blocks(
+                max(S // cfg.src_frames_ratio, 1))
+    groups = len(Sharding(mesh, logical_to_spec(("batch",), mesh,
+                                                dims=(B,))).owners())
+    return (k4, k3, cfg.num_attn_layers * mesh.size,
+            L * groups if fam == "encdec" else 0)
+
+
+def _placed_facade_leg(arch: str, shape, text: int, smi: str,
+                       checks: dict) -> dict:
+    """(a)-(c) one leg: the single-device facade, then the same weights
+    placed in place over ``shape`` fed its tokens.  Returns the placed
+    run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh, rank_bytes
+    from repro_torch.weights import init_params, place_params
+    cfg = get_config(arch)
+    tag = f"[{arch} placed facade]"
+    mesh = make_test_mesh(shape, MESH_SERVE_AXES, devices="cuda")
+    n, B, steps = mesh.size, PLACED_FACADE_B, PLACED_FACADE_STEPS
+    model = init_params(cfg, seed=SEED, device="cuda")
+    tokens, extra = _facade_inputs(cfg, np.random.default_rng(SEED), B,
+                                   text)
+    S = text + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+    page = model.page
+    # decode room: B x nper blocks a multiple of the ranks (the
+    # reference's shard_map condition)
+    nper = -(-(S + steps) // page)
+    while (B * nper) % n:
+        nper += 1
+    margin = nper * page - S
+
+    def run(m, feed):
+        """The prefill and ``steps`` greedy steps over ``m`` (None: one
+        device), fed ``feed``'s tokens where given: logits, tokens, the
+        prefill's ms and launches, each step's ms and launches."""
+        torch.cuda.synchronize()
+        c0, t = _counts(), time.perf_counter()
+        logits, state = model.prefill_state(tokens, margin_tokens=margin,
+                                            mesh=m, **extra)
+        torch.cuda.synchronize()
+        pre_ms, pre = (time.perf_counter() - t) * 1e3, _since(c0)
+        out, toks, ms, per = [logits], [], [], []
+        for i in range(steps):
+            toks.append(feed[i] if feed else out[-1].argmax(-1))
+            c1, t = _counts(), time.perf_counter()
+            logits, state = model.decode_state(state, toks[-1], mesh=m)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            per.append(_since(c1))
+            out.append(logits)
+        return out, toks, pre_ms, pre, ms, per, state
+
+    mamba = cfg.family in ("ssm", "hybrid")
+    layers = _LayerReplay()
+    with (layers.record() if mamba else contextlib.nullcontext()):
+        ref, toks, one_pre_ms, _, one_ms, _, state = run(None, None)
+    del state
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    place_params(model, mesh)
+    peak = torch.cuda.max_memory_allocated() - held
+    at_rest = rank_bytes(list(model.placement.values.values()), mesh)
+    total = sum(at_rest)
+    log(f"{tag} {n} ranks on cuda:0 ({shape} over {MESH_SERVE_AXES}), "
+        f"{cfg.param_count() / 1e9:.3f} B parameters ({total / 1e9:.3f} "
+        f"GB); at rest a rank holds "
+        f"{', '.join(f'{b / 1e9:.4f}' for b in at_rest)} GB (1/{n}: "
+        f"{total / n / 1e9:.4f}); placing in place peaked at "
+        f"{peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB held")
+    c_all = _counts()
+    got, _, pre_ms, pre, ms, per, state = run(mesh, toks)
+    path = _since(c_all)
+    k4, k3, k2, k3_step = _expected_launches(cfg, mesh, B, S)
+    checks[f"{arch}: prefill K4 == {k4}, K3 == {k3}, no K2"] = \
+        pre["ssd_intra_chunk"] == k4 and pre["flash_attention"] == k3 and \
+        pre["paged_attention"] == 0
+    checks[f"{arch}: a step K2 == {k2}, K3 == {k3_step}"] = all(
+        p["paged_attention"] == k2 and p["flash_attention"] == k3_step
+        and p["ssd_intra_chunk"] == 0 for p in per)
+    limit = max(SERVE_RTOL * float(b.abs().max()) for b in ref)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    worst, replayed, ties, bad, flips = max(errs), None, 0, 0, []
+    if mamba and worst > limit:
+        # the placed run again with every Mamba2 layer fed one device's
+        # input (phase 12's rule: the drift, not the layers, is replayed)
+        with layers.replay():
+            replayed = [float((a - b).abs().max()) for a, b in zip(
+                run(mesh, toks)[0], ref)]
+        torch.cuda.empty_cache()
+    for step, (a, b) in enumerate(zip(got, ref)):
+        for s in (a.argmax(-1) != b.argmax(-1)).nonzero()[:, 0].tolist():
+            margin_ = _top2(b[s].float().cpu().numpy())
+            d = float((a[s] - b[s]).abs().max())
+            flips.append((step, s, margin_))
+            if margin_ <= 2 * d:
+                ties += 1
+                log(f"{tag} near-tie at seed {SEED}, step {step}, sequence "
+                    f"{s}: margin {margin_:.3e} <= 2 x |logit diff| "
+                    f"{d:.3e}")
+            else:
+                bad += 1
+    checks[f"{arch}: logits within SERVE_RTOL x max |logit| of one "
+           "device's (with each Mamba2 layer fed one device's input where "
+           "the free run drifts past it)"] = \
+        max(replayed or errs) <= limit and all(
+            bool(torch.isfinite(g).all()) for g in got)
+    checks[f"{arch}: greedy tokens equal one device's but at near-ties"] = \
+        bad == 0
+    med = lambda xs: float(np.median(xs[1:]))
+    log(f"{tag} B={B} x {S} positions (margin {margin}), {steps} steps fed "
+        f"one device's tokens: prefill K4 {pre['ssd_intra_chunk']} K3 "
+        f"{pre['flash_attention']}; a step K2 "
+        f"{sorted({p['paged_attention'] for p in per})} K3 "
+        f"{sorted({p['flash_attention'] for p in per})}; max |logit diff| "
+        f"by call {', '.join(f'{e:.3e}' for e in errs)} (limit "
+        f"{limit:.3e}, {worst / limit:.2f} of it)"
+        + ("" if replayed is None else
+           f"; each Mamba2 layer fed one device's input: "
+           f"{', '.join(f'{e:.3e}' for e in replayed)} "
+           f"({max(replayed) / limit:.2f} of the limit)")
+        + f"; argmax mismatches (step, sequence, margin) {flips or 'none'}, "
+        f"{ties} near-ties, {bad} unexcused")
+    log(f"{tag} ms (host clock, synchronised), {smi}: prefill placed "
+        f"{pre_ms:.1f}, one device {one_pre_ms:.1f} "
+        f"({pre_ms / one_pre_ms:.2f}x); a step (steps 2-{steps}, median) "
+        f"placed {med(ms):.2f}, one device {med(one_ms):.2f} "
+        f"({med(ms) / med(one_ms):.2f}x)")
+    tok = toks[-1]
+    _profile_mesh_round(lambda: model.decode_state(state, tok, mesh=mesh),
+                        tag, "(step)")
+    del state, got, ref
+    torch.cuda.empty_cache()
+
+    # every K2 / K3 / K4 call of the prefill and the first step against its
+    # plain version (a check run, left out of the path), keeping one K3
+    # call (the row block across the vlm's prefix end, else the first) and
+    # the first K4 call to time
+    def taps():
+        _, st = model.prefill_state(tokens, margin_tokens=margin,
+                                    mesh=mesh, **extra)
+        model.decode_state(st, toks[0], mesh=mesh)
+
+    prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+    with _CallLog("flash_attention", lambda a, kw: not prefix or (
+            kw.get("q_offset", 0) < prefix < kw.get("q_offset", 0)
+            + a[0].shape[2])) as k3_log, \
+            _CallLog("ssd_intra_chunk", lambda a, kw: True) as k4_log:
+        _, reads = tapped(taps)
+    want = {"ssd_intra_chunk": k4, "flash_attention": k3 + k3_step,
+            "paged_attention_slab": k2}
+    checks[f"{arch}: every K2 / K3 / K4 call of the prefill and the first "
+           "step equals its plain version"] = \
+        {op: r["calls"] for op, r in reads.items()} == \
+        {op: c for op, c in want.items() if c} and \
+        all(r["err"] <= r["limit"] for r in reads.values())
+    log(f"{tag} every kernel call vs its plain version (one launch a "
+        f"call): " + _fmt_reads(reads))
+    for op, lg, key in (("flash_attention", k3_log, "flash_kernel"),
+                        ("ssd_intra_chunk", k4_log, "ssd_intra")):
+        if lg.call is not None:
+            _timed_call(op, lg.call, key, smi, tag)
+    del model, k3_log, k4_log
+    torch.cuda.empty_cache()
+    return path
+
+
+def _facade_admissions(cfg, model, mesh, prompts, events) -> tuple:
+    """(d) ``prompts`` admitted by ``ServingEngine(mesh=)`` and its
+    admission rounds drained: per admission the blocks, logits and
+    per-sequence state on the host, the pools' promoted blocks, and the
+    drains of each round."""
+    from repro_torch.launch.serve import ServingEngine
+    eng = ServingEngine(cfg, model, max_seqs=MAX_SEQS,
+                        max_blocks_per_seq=MAX_BLOCKS_PER_SEQ, mesh=mesh)
+    drains, out = [], {}
+    for p in prompts:
+        sid = eng.add_request(p)
+        e0 = len(events)
+        eng.stream.flush()
+        eng._post_flush()
+        drains.append(events[e0:])
+        blocks = list(eng.cache.seqs[sid].blocks)
+        out[sid] = dict(blocks=blocks, logits=eng.last_logits[sid].copy(),
+                        extras={k: t.float().cpu() for k, t in
+                                eng._extras.get(sid, {}).items()},
+                        pages={name: eng.engine.pools[name][:, blocks]
+                               .float().cpu() for name in ("k", "v")})
+    del eng
+    torch.cuda.empty_cache()
+    return out, drains
+
+
+def _admitted_alike(placed: dict, whole: dict) -> tuple:
+    """(same ids, blocks and state keys; max |diff| and max |value| of
+    the logits, pages and per-sequence state) of two
+    :func:`_facade_admissions`."""
+    worst = {"logits": 0.0, "pages": 0.0, "extras": 0.0}
+    scale = dict(worst)
+    same = list(placed) == list(whole)
+    for sid, w in whole.items():
+        g = placed.get(sid, w)
+        same &= g["blocks"] == w["blocks"] and \
+            set(g["extras"]) == set(w["extras"])
+        pairs = [("logits", g["logits"], w["logits"])] + \
+            [("pages", g["pages"][k], w["pages"][k]) for k in w["pages"]] + \
+            [("extras", g["extras"][k], w["extras"][k]) for k in w["extras"]
+             if k in g["extras"]]
+        for key, a, b in pairs:
+            a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+            worst[key] = max(worst[key], float(np.abs(a - b).max()))
+            scale[key] = max(scale[key], float(np.abs(b).max()))
+    return same, worst, scale
+
+
+def phase_placed_facades(smi: str) -> dict:
+    """Phase 28: the facades' weights placed over ranks of the card and
+    served through ``prefill_state`` / ``decode_state(mesh=)`` and
+    ``ServingEngine(mesh=)`` admission, each rank computing with the blocks
+    it holds, against one device (or the unplaced mesh engine) on the same
+    weights.  Returns the launch counts of each placed leg's run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_dispatch as fd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.weights import init_params, place_params
+    t_phase = time.perf_counter()
+    checks, paths, events = {}, {}, []
+    hook = lambda n_, p_, mech: events.append(mech)
+    mesh = make_test_mesh(MESH_SERVE_SHAPE, MESH_SERVE_AXES, devices="cuda")
+    # (e)'s walks, a process each, run beside the legs (the phase keeps
+    # within its time; a leg's ms are reported, not judged)
+    with _walking(list(PLACED_FACADE_DRY)) as walks:
+        for arch, shape, text in PLACED_FACADE_LEGS:
+            paths[f"{arch} placed facade"] = _placed_facade_leg(
+                arch, shape, text, smi, checks)
+        log(f"[placed facades] (a)-(c) took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        for arch in PLACED_FACADE_ENGINES:
+            tag = f"[{arch} placed facade]"
+            cfg = get_config(arch)
+            rng = np.random.default_rng(SEED)
+            prompts = [rng.integers(2, cfg.vocab_size, size=k).astype(
+                np.int32) for k in PROMPT_LENS]
+            model = init_params(cfg, seed=SEED, device="cuda")
+            layers = _LayerReplay()
+            fd.add_launch_hook(hook)
+            try:
+                with (layers.record() if cfg.family == "hybrid"
+                      else contextlib.nullcontext()):
+                    whole, _ = _facade_admissions(cfg, model, mesh, prompts,
+                                                  events)
+                place_params(model, mesh)
+                c0 = _counts()
+                placed, drains = _facade_admissions(cfg, model, mesh,
+                                                    prompts, events)
+                ran = _since(c0)
+                same, worst, scale = _admitted_alike(placed, whole)
+                replayed = None
+                if cfg.family == "hybrid" and any(
+                        worst[k] > SERVE_RTOL * scale[k] for k in worst):
+                    # (a)'s rule: each Mamba2 layer fed the unplaced
+                    # engine's input
+                    with layers.replay():
+                        again, _ = _facade_admissions(cfg, model, mesh,
+                                                      prompts, events)
+                    replayed = _admitted_alike(again, whole)[1]
+            finally:
+                fd.remove_launch_hook(hook)
+            del model, layers
+            torch.cuda.empty_cache()
+            paths[f"{arch} placed admission"] = ran
+            judged = replayed or worst
+            log(f"{tag} (d) ServingEngine(mesh={MESH_SERVE_SHAPE}) admits "
+                f"{PROMPT_LENS} placed against unplaced: same ids and "
+                f"blocks {same}; max |diff| (max |unplaced|) " + ", ".join(
+                    f"{k} {worst[k]:.3e} ({scale[k]:.3e})" for k in worst)
+                + ("" if replayed is None else "; each Mamba2 layer fed "
+                   "the unplaced engine's input: " + ", ".join(
+                       f"{k} {replayed[k]:.3e}" for k in replayed))
+                + f"; drains a round {[len(d) for d in drains]}; launches "
+                f"{ {k: v for k, v in ran.items() if v} }")
+            checks[f"(d) {arch}: the placed engine admits like the unplaced "
+                   "mesh engine (ids, blocks, logits, staged pages and "
+                   "state within SERVE_RTOL x max |value|)"] = same and all(
+                judged[k] <= SERVE_RTOL * scale[k] for k in judged)
+            checks[f"(d) {arch}: at most one fused_mesh drain a round"] = \
+                all(d in ([], ["fused_mesh"]) for d in drains)
+        ok, failed_walks = _walked_rows(walks,
+                                        t_phase + PLACED_FACADE_DRY_TIMEOUT)
+    gib = 2 ** 30
+    equal = []
+    for r in ok:
+        m = r["memory"]
+        args, flops = m["argument_size_in_bytes"], r["hlo_flops_per_dev"]
+        equal.append((args, flops) == PLACED_FACADE_DRY[(r["arch"],
+                                                         r["shape"])])
+        log(f"[placed facades] (e) {r['arch']} {r['shape']} placed over "
+            f"(16, 16): {r['dominant']}-bound on rank {r['busiest_rank']}: "
+            f"temp {m['temp_size_in_bytes'] / gib:.4g} + arguments "
+            f"{args / gib:.4g} GiB ({args} B, {flops:.6e} FLOPs: "
+            f"{'equal to' if equal[-1] else 'NOT the'} CPU walk's); walk "
+            f"{r['compile_s']} s; peer bytes by path {r['collectives']}")
+    for w in failed_walks:
+        log(f"[placed facades] (e) FAILED walk {w}")
+    checks["(e) the four facade decode_32k cells walked, equal to the CPU "
+           "walk"] = not failed_walks and len(ok) == len(
+        PLACED_FACADE_DRY) and all(equal)
+    log(f"[placed facades] phase 28 took {time.perf_counter() - t_phase:.1f}"
+        " s")
+    for name, ok_ in checks.items():
+        log(f"[placed facades] {'ok  ' if ok_ else 'FAIL'} {name}")
+    failed = [k for k, ok_ in checks.items() if not ok_]
+    if failed:
+        raise AssertionError(f"placed facade checks failed: {failed}")
+    return paths
+
+
 PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,),
                21: (), 22: (5,), 23: (), 24: (21,), 25: (),
-               26: (5,), 27: ()}
+               26: (5,), 27: (), 28: ()}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-27 by default), with
+    """The phases to run for ``--phases`` (all of 2-28 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 28))
+        return set(range(2, 29))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -8142,6 +8659,9 @@ def main(argv=None) -> int:
     if 27 in run:
         # every earlier model freed: deepseek-moe-16b is placed in place
         paths.update(phase_placed_moe(smi))
+        torch.cuda.empty_cache()
+    if 28 in run:
+        paths.update(phase_placed_facades(smi))
         torch.cuda.empty_cache()
     if 21 in run:
         # every earlier model is freed: the 3.2B model's fp32 training

@@ -18,16 +18,20 @@ A cell is the reference's: train the fp32 masters placed by
 ``build_train_step``'s ``shard_state`` and ``train_state`` over a batch of
 ``data.batch_specs`` (``TrainConfig()``, ``"fsdp"``); prefill the bf16
 weights' ``prefill(tokens, mesh=)`` (``prefill_state`` for the vlm, ssm,
-hybrid and encdec families), a dense or moe model's weights placed over
-the mesh by ``weights.place_params`` as the reference's
-``tree_shardings`` places them (the facades' families still whole on the
-first rank; a moe FFN's expert gathers, all-to-all and partial sums count
-as peer bytes by their paths, ``"gather"``, ``"all-to-all"``, ``"sum"``);
-decode one
-``decode_step`` (``decode_state``) over an identity-layout serve state
-whose every slot holds a sequence at ``seq_len - 1`` tokens, with the
-step's appends taken from that declared layout (the port reads them from
-the block table otherwise).  Rows carry
+hybrid and encdec families), every family's weights placed over the mesh
+by ``weights.place_params`` as the reference's ``tree_shardings`` places
+them (``p_sh16``); decode one ``decode_step`` (``decode_state``) over an
+identity-layout serve state whose every slot holds a sequence at
+``seq_len - 1`` tokens, a facade's recurrent and cross leaves placed by
+``state_logical_axes`` (the reference's ``st_sh``), with the step's
+appends taken from that declared layout (the port reads them from the
+block table otherwise).  The moves count as peer bytes by their paths:
+``"gather"`` (a weight's ZeRO-3 dimension, a K/V row range), ``"sum"``
+(the row-parallel partial sums), ``"all-to-all"`` (a moe FFN's
+dispatch), ``"pages"`` (a facade prefill's K/V into the slabs), and a
+Mamba2 layer's ``"ssm_columns"`` (the ``w_in`` product's column joins),
+``"ssm_bc"`` (the B / C gathers) and ``"gate_norm"`` (the gate norm's
+sums of squares).  Rows carry
 the reference's keys (``benchmarks/roofline.py table`` reads them); the
 "collective" term is the busiest rank's peer bytes over NVLink.
 
@@ -57,8 +61,7 @@ from repro_torch.kernels import cost
 from repro_torch.launch.mesh import DeviceMesh, make_production_mesh, place
 from repro_torch.launch.op_cost import Walk
 from repro_torch.launch.train import build_train_step, train_state
-from repro_torch.models.lm import (ENTRY_PAIRS, PLACED_FAMILIES,
-                                  LanguageModel, paged_state)
+from repro_torch.models.lm import ENTRY_PAIRS, LanguageModel, paged_state
 from repro_torch.models.paged import identity_layout
 from repro_torch.weights import params_axes, place_params
 
@@ -114,12 +117,9 @@ def build_cell(arch: Union[str, ModelConfig],
                  for k, v in batch.items()}
         return (lambda: step(state, batch)), (state, batch)
 
-    model = LanguageModel(cfg, dev)
-    if cfg.family in PLACED_FAMILIES:
-        # the reference's p_sh16 = tree_shardings(mesh, params_bf16, axes)
-        place_params(model, mesh)
-    weights = dict(model.named_parameters()) if model.placement is None \
-        else model.placement.values
+    # the reference's p_sh16 = tree_shardings(mesh, params_bf16, axes)
+    model = place_params(LanguageModel(cfg, dev), mesh)
+    weights = model.placement.values
     facade = cfg.family in ENTRY_PAIRS["prefill_state / decode_state"]
     if shape.kind == "prefill":
         batch = {k: _empty(s, torch.long if dt == torch.int32 else dt, dev)
@@ -138,6 +138,7 @@ def build_cell(arch: Union[str, ModelConfig],
     fill = S - 1
     tokens = _empty((B,), torch.long, dev)
     if facade:
+        # placed by state_logical_axes (the reference's st_sh)
         state = model.make_serve_state(B, S, mesh=mesh)
     else:
         state = paged_state(cfg, B, S, model.page, mesh, model.act_dtype, dev)

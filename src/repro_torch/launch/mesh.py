@@ -392,6 +392,15 @@ def map_blocks(sharding: Sharding, shape: Sequence[int], fn) -> Sharded:
     return Sharded(sharding, shape, blocks)
 
 
+def zeros(sharding: Sharding, shape: Sequence[int], dtype: torch.dtype
+          ) -> Sharded:
+    """A :class:`Sharded` of zeros of ``shape`` laid out by ``sharding``,
+    each block made on its owner's device (nothing whole is made)."""
+    return map_blocks(sharding, shape, lambda b, sl, r: torch.zeros(
+        [s.stop - s.start for s in sl] + list(shape[len(sl):]),
+        dtype=dtype, device=sharding.mesh.devices[r]))
+
+
 def take(x: Union[torch.Tensor, Sharded], rank: int,
          index: Sequence[slice] = (), *, mesh: Optional[DeviceMesh] = None,
          path: str = "gather") -> torch.Tensor:
@@ -481,4 +490,4 @@ __all__ = ["POOL_AXES", "WALK", "DeviceMesh", "Sharded", "Sharding",
            "scatter_sum", "take", "to_rank", "to_rank_of",
            "pool_partition_spec", "pool_shard_axes", "pool_shard_count",
            "pool_shard_ranks", "rank_bytes", "relayout", "sharding_for",
-           "tree_shardings", "with_pieces"]
+           "tree_shardings", "with_pieces", "zeros"]

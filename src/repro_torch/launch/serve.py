@@ -1,7 +1,7 @@
 """Serving engine: continuous batched greedy decode over a RowClone-managed
 pool (port of ``repro/launch/serve.py``: the dense and moe families
 served, the hybrid and encdec families admitted, on one device or over a
-rank mesh).
+rank mesh, with whole or placed weights).
 
 * ``add_request`` runs the prefill (K3 in every layer), writes the prompt's
   KV pages into the staging ring, and enqueues the stage→KV promotion
@@ -58,13 +58,15 @@ the path the mesh gives it, in prefill and decode alike (``models/moe.py
 moe_ffn``: a prompt whose length the ``model`` axis divides goes through
 the all-to-all over the experts).  The rest of the model (QKV, RoPE, a
 dense FFN, logits) runs whole on the mesh's first device, unless the
-weights are placed over the mesh (``weights.place_params``, the dense and
-moe families): each rank then computes its blocks of every layer in
-prefill and decode, a moe layer's experts where they lie (the admission's
-one prompt, which the data axes do not divide, and every decode step take
-the local path: each batch group routes on its first rank and its
-``model`` ranks run their experts), and the logits come back joined on
-the first device for sampling.  Prefill writes reach the slabs through
+weights are placed over the mesh (``weights.place_params``, every
+family): each rank then computes its blocks of every layer in prefill and
+decode, a moe layer's experts where they lie (the admission's one prompt,
+which the data axes do not divide, and every decode step take the local
+path: each batch group routes on its first rank and its ``model`` ranks
+run their experts), and the logits come back joined on the first device
+for sampling.  A placed hybrid or encdec prompt is admitted through the
+placed ``prefill_state(mesh=)``, its slabs and placed state gathered
+onto the engine's device as the unplaced admission holds them.  Prefill writes reach the slabs through
 ``RowCloneEngine.write_blocks``.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
@@ -87,7 +89,7 @@ from repro_torch.core.cow_cache import PagedCoWCache
 from repro_torch.core.journal import RecoveryReport
 from repro_torch.core.rowclone import RowCloneEngine
 from repro_torch.kernels.fused_dispatch import notify_launch
-from repro_torch.launch.mesh import (DeviceMesh, pool_shard_count,
+from repro_torch.launch.mesh import (DeviceMesh, gather, pool_shard_count,
                                      pool_shard_ranks)
 from repro_torch.models.lm import LanguageModel, kv_to_pools, model_dtype
 from repro_torch.models.paged import batch_shard_count, make_serving_pools
@@ -458,10 +460,21 @@ class ServingEngine:
             extra["src_embeds"] = torch.zeros(
                 (1, max(len(prompt) // cfg.src_frames_ratio, 1),
                  cfg.d_model), dtype=torch.float32, device=self.device)
+        if self.model.placement is None:
+            logits, st = self.model.prefill_state(tokens, margin_tokens=0,
+                                                  **extra)
+            return logits, (st["k_pools"], st["v_pools"]), \
+                {k: st[k] for k in EXTRA_KEYS if k in st}
+        # a placed model prefills over its mesh: its slabs and its placed
+        # recurrent / cross state come back whole onto the engine's device,
+        # as the unplaced admission delivers them
         logits, st = self.model.prefill_state(tokens, margin_tokens=0,
-                                              **extra)
-        return logits, (st["k_pools"], st["v_pools"]), \
-            {k: st[k] for k in EXTRA_KEYS if k in st}
+                                              mesh=self.mesh, **extra)
+        pools = tuple(torch.cat([s.to(self.device) for s in (
+            st[key] if isinstance(st[key], list) else [st[key]])], dim=1)
+            for key in ("k_pools", "v_pools"))
+        return logits, pools, {k: gather(st[k], self.device)
+                               for k in EXTRA_KEYS if k in st}
 
     def _admitted(self, sid: int, prompt: np.ndarray, logits: torch.Tensor,
                   extras: Dict[str, torch.Tensor]) -> int:

@@ -19,7 +19,8 @@
   block of a placed model's q, on the block's rank, by the strategy
   ``sharding.rules.attn_strategy`` picks: its heads with the K/V heads
   they read (``"heads"``), or its query rows over the K/V rows up to its
-  last one (``"seq"``, K3's ``q_offset``).
+  last one or the prefix's end (``"seq"``, K3's ``q_offset`` with
+  ``prefix_len``); every K/V row for an encoder or a cross-attention.
 
 Decode attention is K2, called from models/paged.py; under a rank mesh
 its per-rank partials meet in :func:`lse_combine`.
@@ -88,24 +89,30 @@ def placed_qkv_shardings(mesh, strategy: str, B: int, S: int, H: int,
 
 
 def prefill_attention_placed(q: Sharded, k: Sharded, v: Sharded, H: int,
-                             KVH: int, D: int) -> Sharded:
-    """Causal prefill attention of a placed model, each block of ``q``
-    (post-RoPE (B, S, H * D), laid out by :func:`placed_qkv_shardings`) on
-    its owner through K3: its query rows against the K/V rows up to its
-    last one (a block of rows passes its first position as K3's
-    ``q_offset``) and the K/V heads its q heads read, taken from ``k``
-    (post-RoPE) and ``v`` wherever they lie.  Returns the output laid out
-    as q."""
+                             KVH: int, D: int, *, causal: bool = True,
+                             prefix_len: int = 0) -> Sharded:
+    """Prefill attention of a placed model, each block of ``q`` (post-RoPE
+    (B, S, H * D), laid out by :func:`placed_qkv_shardings`) on its owner
+    through K3, with the K/V heads its q heads read, taken from ``k``
+    (post-RoPE, (B, Skv, KVH * D)) and ``v`` wherever they lie.  Causal:
+    a block of query rows ``[s0, s1)`` reads the K/V rows up to
+    ``max(s1, prefix_len)`` (prefix keys past s1 are visible: the vlm's
+    patches) and passes s0 as K3's ``q_offset``; ``causal=False`` (an
+    encoder, a cross-attention with Skv != S): every block reads every
+    K/V row.  Returns the output laid out as q."""
     group = H // KVH
     B, S, _ = q.shape
+    Skv = k.shape[1]
 
     def one(b, sl, r):
         rows, seq, cols = sl
         s0, s1 = seq.indices(S)[:2]
+        kv_end = min(max(s1, prefix_len), Skv) if causal else Skv
         h0, h1 = cols.start // D, cols.stop // D
         kv0, kv1 = h0 // group, (h1 - 1) // group + 1
-        kv = [take(t, r, (rows, slice(0, s1), slice(kv0 * D, kv1 * D)))
-              .reshape(-1, s1, kv1 - kv0, D) for t in (k, v)]
+        kv = [take(t, r, (rows, slice(0, kv_end),
+                          slice(kv0 * D, kv1 * D)))
+              .reshape(-1, kv_end, kv1 - kv0, D) for t in (k, v)]
         read = [h // group - kv0 for h in range(h0, h1)]
         per = (h1 - h0) // (kv1 - kv0)
         if (h1 - h0) % (kv1 - kv0) or read != [i // per for i in
@@ -115,7 +122,9 @@ def prefill_attention_placed(q: Sharded, k: Sharded, v: Sharded, H: int,
             idx = torch.as_tensor(read, device=kv[0].device)
             kv = [t.index_select(2, idx) for t in kv]
         qb = q.blocks[b].reshape(-1, s1 - s0, h1 - h0, D)
-        o = prefill_attention(qb, *kv, causal=True, q_offset=s0)
+        o = prefill_attention(qb, *kv, causal=causal,
+                              prefix_len=prefix_len if causal else 0,
+                              q_offset=s0 if causal else 0)
         return o.reshape(qb.shape[0], s1 - s0, (h1 - h0) * D)
 
     return map_blocks(q.sharding, q.shape, one)

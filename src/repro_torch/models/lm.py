@@ -20,13 +20,18 @@ Every family trains through :meth:`LanguageModel.loss_fn` (the module's
 autograd, no kernel and the stacks checkpointed.  The serving pairs run
 under ``torch.no_grad``.
 
-A dense or moe model whose weights ``weights.place_params`` placed over
-a mesh (:data:`PLACED_FAMILIES`; :attr:`LanguageModel.placement`) serves
-through ``prefill(mesh=)`` / ``decode_step(mesh=)`` of that mesh, each
-rank computing its blocks, a moe layer's experts where they lie
-(``models/transformer.py``, ``models/moe.py moe_ffn_placed``); the
-facades of the other families and the training loss refuse a placed
-model (:data:`PLACED_REFUSAL`).
+A model whose weights ``weights.place_params`` placed over a mesh
+(every serving family, :data:`PLACED_FAMILIES`;
+:attr:`LanguageModel.placement`) serves over that mesh, each rank
+computing its blocks: a dense or moe model through ``prefill(mesh=)`` /
+``decode_step(mesh=)``, a moe layer's experts where they lie
+(``models/transformer.py``, ``models/moe.py moe_ffn_placed``); a vlm,
+ssm, hybrid or encdec model through ``prefill_state(mesh=)`` /
+``decode_state(mesh=)``, its Mamba2 layers by batch and head blocks
+(``models/mamba2.py mamba2_layer_placed``), its encoder and
+cross-attention by blocks, and its serve state's recurrent and cross
+leaves placed by :meth:`LanguageModel.state_logical_axes`.  The training
+loss refuses a placed model.
 """
 from __future__ import annotations
 
@@ -37,15 +42,17 @@ from torch import nn
 
 from repro_torch.configs import (DECODER_FAMILIES, ModelConfig,
                                  RowCloneConfig)
-from repro_torch.launch.mesh import (DeviceMesh, Sharding, map_blocks,
-                                     on_rank, pool_shard_count,
-                                     pool_shard_ranks, rank_scope, take)
+from repro_torch.launch.mesh import (DeviceMesh, Sharded, Sharding,
+                                     map_blocks, on_rank, pool_shard_count,
+                                     pool_shard_ranks, rank_scope,
+                                     sharding_for, take, zeros)
 from repro_torch.models.attention import MaskInfo
 from repro_torch.models.common import (checkpointed, chunked_softmax_xent,
                                        embed, embed_placed, logits_placed,
                                        rms_norm, rms_norm_placed)
 from repro_torch.models.mamba2 import (Mamba2Layer, mamba2_decode_step,
-                                       mamba2_layer)
+                                       mamba2_decode_step_placed,
+                                       mamba2_layer, mamba2_layer_placed)
 from repro_torch.models.paged import (batch_shard_count, identity_layout,
                                      rank_appends)
 from repro_torch.models.transformer import (DecoderLayer, attn_block_train,
@@ -65,13 +72,23 @@ ENTRY_PAIRS = {"prefill / decode_step": DECODER_FAMILIES,
                                                 "encdec")}
 PORTED_FAMILIES = tuple(f for fams in ENTRY_PAIRS.values() for f in fams)
 
-#: the families whose placed weights serve (``weights.place_params``)
-PLACED_FAMILIES = ("dense", "moe")
-#: why a placed model of another family is refused
-PLACED_REFUSAL = ("placed weights (weights.place_params) serve the dense "
-                  "and moe decoders only: the placed serving path of the "
-                  "{family!r} family is not ported yet (the ssm / hybrid / "
-                  "vlm / encdec facades); serve it unplaced over the mesh")
+#: the families whose placed weights serve (``weights.place_params``):
+#: every one
+PLACED_FAMILIES = PORTED_FAMILIES
+
+#: the reference's logical axes of each serve-state leaf
+#: (``lm.py:256-276``); ``conv_state`` / ``ssm_state`` past their layer
+#: axes (one for ssm, the hybrid's two), which lead with ``None``s
+STATE_AXES = {
+    "seq_lens": ("batch",), "block_table": ("batch", None),
+    "share_mask": ("kv_blocks", None), "base": ("kv_blocks",),
+    "k_pools": ("layers", "kv_blocks", None, None, None),
+    "v_pools": ("layers", "kv_blocks", None, None, None),
+    "conv_state": ("batch", None, "act_ffn"),
+    "ssm_state": ("batch", "act_heads", None, None),
+    "cross_k": (None, "batch", None, None, None),
+    "cross_v": (None, "batch", None, None, None),
+}
 
 
 class Placement(NamedTuple):
@@ -153,13 +170,10 @@ class LanguageModel(nn.Module):
 
     def check_placed(self, mesh: Optional[DeviceMesh]) -> bool:
         """Whether a serving call over ``mesh`` runs the placed path: False
-        for unplaced weights; raise for a placed model of a family
-        :data:`PLACED_FAMILIES` does not hold (the facades' ssm, hybrid,
-        vlm and encdec), or over another mesh than its placement's."""
+        for unplaced weights; raise for a placed model over another mesh
+        than its placement's."""
         if self.placement is None:
             return False
-        if self.cfg.family not in PLACED_FAMILIES:
-            raise ValueError(PLACED_REFUSAL.format(family=self.cfg.family))
         if mesh != self.placement.mesh:
             raise ValueError(f"a model placed over a mesh of shape "
                              f"{self.placement.mesh.shape} runs over that "
@@ -391,10 +405,7 @@ class LanguageModel(nn.Module):
         xs = Sharding(mesh, logical_to_spec(("batch", "act_seq_tp", None),
                                             mesh, dims=(B, S, cfg.d_model)))
         x = embed_placed(self.embed, tokens, self.act_dtype, xs)
-        pos = map_blocks(Sharding(mesh, xs.spec[:2]), (B, S), lambda b, sl, r:
-                         torch.arange(*sl[1].indices(S)[:2],
-                                      device=mesh.devices[r]).expand(
-                             sl[0].stop - sl[0].start, -1))
+        pos = _positions(xs, B, S)
         strategy = attn_strategy(cfg.num_heads, mesh)
         # each batch group's first rank, in group order, and its stacks
         homes = list(Sharding(mesh, xs.spec[:1]).owners().values())
@@ -407,17 +418,14 @@ class LanguageModel(nn.Module):
                                            dtype=self.act_dtype,
                                            device=mesh.devices[r]))
         for li, layer in enumerate(self.layers):
-            x, k, v = decoder_layer_placed(layer, x, pos, cfg, strategy)
+            x, k, v, _ = decoder_layer_placed(layer, x, pos, cfg, strategy)
             for g, r in enumerate(homes):
                 rows = slice(g * Bg, (g + 1) * Bg)
                 for stack, t in ((ks[g], k), (vs[g], v)):
                     with rank_scope(r):
                         stack[li].copy_(take(t, r, (rows,)).reshape(
                             Bg, S, KVH, D))
-        last = map_blocks(Sharding(mesh, (xs.spec[0], None, None)),
-                          (B, 1, cfg.d_model), lambda b, sl, r: take(
-                              x, r, (sl[0], slice(S - 1, S))))
-        return self._logits_placed(last), ks, vs
+        return self._logits_placed(_last_row(x)), ks, vs
 
     def _logits_placed(self, x) -> torch.Tensor:
         """The final norm and the logits of a placed model's x (B, 1, d),
@@ -454,12 +462,26 @@ class LanguageModel(nn.Module):
         fp32, with the layer axis split (n_seg, shared_attn_every) for the
         hybrid; for encdec ``cross_k`` / ``cross_v`` (L, B, S_src, KVH, D)
         in ``dtype``, ``S_src = max(seq_len // src_frames_ratio, 1)`` (the
-        reference's ``lm.py:248-253``)."""
+        reference's ``lm.py:248-253``).  A placed model (over its
+        placement's ``mesh``) holds ``conv_state``, ``ssm_state``,
+        ``cross_k`` and ``cross_v`` as :class:`~repro_torch.launch.mesh
+        .Sharded` zeros placed by :meth:`state_logical_axes` (each block
+        made on its owner); the pools are the slabs as above, and the
+        layout leaves (``seq_lens``, the table, mask and base, which the
+        host reads) stay whole on the first rank."""
         self._pair_of("prefill_state / decode_state", "make_serve_state")
+        placed = self.check_placed(mesh)
         cfg, page = self.cfg, self.page
-        dev = self.embed.device
+        dev = self.device
         dtype = self.act_dtype if dtype is None else dtype
         filled = seq_len - 1 if filled is None else filled
+
+        def new(key, shape, dt):
+            if not placed:
+                return torch.zeros(shape, dtype=dt, device=dev)
+            return zeros(sharding_for(mesh, shape, _leaf_axes(key, len(shape))),
+                         shape, dt)
+
         state = {"seq_lens": torch.full((batch,), filled, dtype=torch.int32,
                                         device=dev)}
         if cfg.num_attn_layers:
@@ -467,10 +489,9 @@ class LanguageModel(nn.Module):
                                      dev))
         if cfg.family == "encdec":
             S_src = max(seq_len // cfg.src_frames_ratio, 1)
-            state["cross_k"] = torch.zeros(
-                (cfg.num_layers, batch, S_src, cfg.num_kv_heads,
-                 cfg.head_dim), dtype=dtype, device=dev)
-            state["cross_v"] = torch.zeros_like(state["cross_k"])
+            for key in ("cross_k", "cross_v"):
+                state[key] = new(key, (cfg.num_layers, batch, S_src,
+                                       cfg.num_kv_heads, cfg.head_dim), dtype)
         if cfg.family not in ("ssm", "hybrid"):
             return state
         lead = (cfg.num_layers,)
@@ -478,22 +499,35 @@ class LanguageModel(nn.Module):
             k = cfg.shared_attn_every
             lead = (cfg.num_layers // k, k)
         C = cfg.ssm_d_inner + 2 * cfg.ssm_state
-        state["conv_state"] = torch.zeros(
-            lead + (batch, cfg.ssm_conv_width - 1, C),
-            dtype=torch.float32, device=dev)
-        state["ssm_state"] = torch.zeros(
-            lead + (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
-            dtype=torch.float32, device=dev)
+        state["conv_state"] = new(
+            "conv_state", lead + (batch, cfg.ssm_conv_width - 1, C),
+            torch.float32)
+        state["ssm_state"] = new(
+            "ssm_state", lead + (batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                 cfg.ssm_state), torch.float32)
         return state
+
+    def state_logical_axes(self, state: Dict[str, object]
+                           ) -> Dict[str, Tuple[Optional[str], ...]]:
+        """The reference's logical axes of each leaf of a serve state
+        (``lm.py:256-276``, :data:`STATE_AXES`): the recurrent states'
+        lead with a ``None`` for each layer axis (two for the hybrid's
+        (n_seg, every))."""
+        return {key: _leaf_axes(key, _ndim(v)) for key, v in state.items()
+                if key in STATE_AXES}
 
     def _per_layer(self, state: Dict[str, torch.Tensor]):
         """Views of the recurrent states with one leading layer axis (the
         hybrid's (n_seg, every) axes merged), and the number of Mamba2
-        layers between shared-block calls (all of them for ssm)."""
+        layers between shared-block calls (all of them for ssm).  A placed
+        state's leaves give, for each layer, a :class:`~repro_torch.launch
+        .mesh.Sharded` of views into their blocks."""
         cfg = self.cfg
         L = cfg.num_layers
         conv, ssm = state["conv_state"], state["ssm_state"]
         every = cfg.shared_attn_every if cfg.family == "hybrid" else L
+        if isinstance(conv, Sharded):
+            return (_LayerViews(conv, 3), _LayerViews(ssm, 4), every)
         return (conv.view((L,) + conv.shape[-3:]),
                 ssm.view((L,) + ssm.shape[-4:]), every)
 
@@ -519,16 +553,20 @@ class LanguageModel(nn.Module):
         state is :meth:`make_serve_state`'s for that mesh (per-rank slabs,
         local mask columns when the batch shards); the forward runs whole
         on the model's device (the function GSPMD computes), and each page
-        goes through the block table into the slab that holds its
-        block."""
+        goes through the block table into the slab that holds its block.
+        A placed model computes each rank's blocks over its placement's
+        ``mesh`` (:meth:`_prefill_state_placed`)."""
         self._pair_of("prefill_state / decode_state", "prefill_state")
-        self.check_placed(mesh)
+        placed = self.check_placed(mesh)
         cfg, page = self.cfg, self.page
         for name, given, fam in (("patch_embeds", patch_embeds, "vlm"),
                                  ("src_embeds", src_embeds, "encdec")):
             if (given is None) == (cfg.family == fam):
                 raise ValueError(f"{name}: required for the {fam} family, "
                                  f"refused for {cfg.family!r}")
+        if placed:
+            return self._prefill_state_placed(tokens, patch_embeds,
+                                              margin_tokens, src_embeds, mesh)
         x = embed(self.embed, tokens, self.act_dtype)
         prefix = 0
         if patch_embeds is not None:
@@ -570,6 +608,97 @@ class LanguageModel(nn.Module):
         xn = rms_norm(x[:, -1, :], self.final_norm, cfg.norm_eps)
         return self._logits(xn), state
 
+    def _prefill_state_placed(self, tokens: torch.Tensor,
+                              patch_embeds: Optional[torch.Tensor],
+                              margin_tokens: Optional[int],
+                              src_embeds: Optional[torch.Tensor],
+                              mesh: DeviceMesh
+                              ) -> Tuple[torch.Tensor, Dict[str, object]]:
+        """:meth:`prefill_state` of a placed model.  The residual is
+        Sharded by ``("batch", None, None)`` for a Mamba2 stack (the
+        reference's ``_embed``: each rank's SSD needs its batch block's
+        whole sequence) and by ``("batch", "act_seq_tp", None)`` for a
+        decoder stack (the vlm's patches in front, prefix-LM; an encdec's
+        encoder over its frames, non-causal), a dim the axes do not divide
+        whole.  Mamba2 layers by :func:`~repro_torch.models.mamba2
+        .mamba2_layer_placed`, decoder layers (the hybrid's shared block
+        with ``"heads"``, the reference's ``lm.py:167``) by
+        :func:`~repro_torch.models.transformer.decoder_layer_placed`; each
+        page of K/V is taken onto the rank of the slab that holds its
+        block, the recurrent and cross states' blocks onto their owners.
+        Returns the logits (B, V) fp32, joined on the first rank, and the
+        state."""
+        cfg, page = self.cfg, self.page
+        B, S_text = tokens.shape
+        prefix = 0 if patch_embeds is None else patch_embeds.shape[1]
+        S = prefix + S_text
+        margin = page if margin_tokens is None else margin_tokens
+        nper = (S + margin + page - 1) // page
+        state = self.make_serve_state(B, nper * page, mesh=mesh, filled=S)
+        mamba = cfg.family in ("ssm", "hybrid")
+        xs = Sharding(mesh, logical_to_spec(
+            ("batch", None if mamba else "act_seq_tp", None), mesh,
+            dims=(B, S, cfg.d_model)))
+        if prefix:
+            text = embed_placed(self.embed, tokens, self.act_dtype,
+                                Sharding(mesh, xs.spec[:1]))
+            x = map_blocks(xs, (B, S, cfg.d_model), lambda b, sl, r:
+                           _prefixed(patch_embeds, text, r, sl, prefix,
+                                     mesh))
+        else:
+            x = embed_placed(self.embed, tokens, self.act_dtype, xs)
+        pos = _positions(xs, B, S)
+        if cfg.num_attn_layers:
+            to_pools = _placed_page_writer(state, page, nper, mesh)
+        if mamba:
+            conv, ssm, every = self._per_layer(state)
+            for li, layer in enumerate(self.layers):
+                x, h_final, tail = mamba2_layer_placed(layer, x, cfg)
+                _store(ssm[li], h_final)
+                _store(conv[li], tail)
+                if cfg.family == "hybrid" and (li + 1) % every == 0:
+                    x, k, v, _ = decoder_layer_placed(self.shared, x, pos,
+                                                      cfg, "heads")
+                    to_pools(li // every, k, v)
+            return self._logits_placed(_last_row(x)), state
+        strategy = attn_strategy(cfg.num_heads, mesh)
+        enc = None
+        if cfg.family == "encdec":
+            enc = self._encode_placed(src_embeds, mesh, strategy)
+            # the cross state holds the frames given (as the reference's
+            # prefill, whatever make_serve_state's S_src)
+            shape = (cfg.num_layers, B, enc.shape[1], cfg.num_kv_heads,
+                     cfg.head_dim)
+            for key in ("cross_k", "cross_v"):
+                state[key] = zeros(sharding_for(mesh, shape, STATE_AXES[key]),
+                                   shape, state[key].dtype)
+        for li, layer in enumerate(self.layers):
+            x, k, v, xkv = decoder_layer_placed(
+                layer, x, pos, cfg, strategy, prefix_len=prefix,
+                enc_out=enc)
+            to_pools(li, k, v)
+            if xkv is not None:
+                for key, t in zip(("cross_k", "cross_v"), xkv):
+                    _store(_LayerViews(state[key], 4)[li], t)
+        return self._logits_placed(_last_row(x)), state
+
+    def _encode_placed(self, src: torch.Tensor, mesh: DeviceMesh,
+                       strategy: str) -> Sharded:
+        """:meth:`_encode` of a placed model: the frames src (B, S_src, d),
+        whole on the first rank, Sharded by ``("batch", "act_seq_tp",
+        None)``, each encoder layer by blocks without the causal mask,
+        then ``enc_norm`` block by block."""
+        B, S_src, d = src.shape
+        xe = Sharding(mesh, logical_to_spec(("batch", "act_seq_tp", None),
+                                            mesh, dims=(B, S_src, d)))
+        x = map_blocks(xe, (B, S_src, d), lambda b, sl, r: take(
+            src, r, sl[:2], mesh=mesh).to(self.act_dtype))
+        pos = _positions(xe, B, S_src)
+        for layer in self.enc_layers:
+            x, _, _, _ = decoder_layer_placed(layer, x, pos, self.cfg,
+                                              strategy, causal=False)
+        return rms_norm_placed(x, self.enc_norm, self.cfg.norm_eps)
+
     def _encode(self, src: torch.Tensor) -> torch.Tensor:
         """The encoder stack over frames src (B, S_src, d), then
         ``enc_norm``: RoPE over positions 0..S_src-1 and no causal mask
@@ -594,11 +723,14 @@ class LanguageModel(nn.Module):
         (its pools are per-rank slabs); each rank appends the tokens that
         land in its slab and runs K2 over it, and the partials are
         LSE-combined (``paged.paged_attend_append``); the rest runs whole
-        on the model's device.  Refused, as the reference's ``shard_map``
-        refuses it, when the ranks do not divide the block count.
-        ``appends``: as :meth:`decode_step`'s."""
+        on the model's device, but for a placed model, whose ranks compute
+        their blocks and update their blocks of the recurrent states in
+        place (the state :meth:`prefill_state` or :meth:`make_serve_state`
+        made over its placement's ``mesh``).  Refused, as the reference's
+        ``shard_map`` refuses it, when the ranks do not divide the block
+        count.  ``appends``: as :meth:`decode_step`'s."""
         self._pair_of("prefill_state / decode_state", "decode_state")
-        self.check_placed(mesh)
+        placed = self.check_placed(mesh)
         cfg, page = self.cfg, self.page
         pos = state["seq_lens"].long()
         seq_incl = (pos + 1).to(torch.int32)
@@ -610,26 +742,47 @@ class LanguageModel(nn.Module):
                     pos, state["block_table"], page),
                     [s.shape[1] for s in ks])
 
-        def attend(layer: DecoderLayer, x: torch.Tensor,
-                   i: int) -> torch.Tensor:
-            cross = (state["cross_k"][i], state["cross_v"][i]) \
-                if cfg.family == "encdec" else None
-            return decoder_layer_decode(
-                layer, x, pos, [s[i] for s in ks], [s[i] for s in vs],
-                appends, state["share_mask"], state["base"], seq_incl, cfg,
-                page, cross_kv=cross, mesh=mesh)
+        def attend(layer: DecoderLayer, x, i: int):
+            if cfg.family != "encdec":
+                cross = None
+            elif placed:
+                cross = tuple(_LayerViews(state[k], 4)[i]
+                              for k in ("cross_k", "cross_v"))
+            else:
+                cross = (state["cross_k"][i], state["cross_v"][i])
+            args = (layer, x, pos, [s[i] for s in ks], [s[i] for s in vs],
+                    appends, state["share_mask"], state["base"], seq_incl,
+                    cfg, page)
+            if placed:
+                return decoder_layer_decode_placed(*args, mesh,
+                                                   cross_kv=cross)
+            return decoder_layer_decode(*args, cross_kv=cross, mesh=mesh)
 
-        x = embed(self.embed, tokens, self.act_dtype)
+        if placed:
+            B = tokens.shape[0]
+            x = embed_placed(self.embed, tokens[:, None], self.act_dtype,
+                             Sharding(mesh, logical_to_spec(
+                                 ("batch", None, None), mesh,
+                                 dims=(B, 1, cfg.d_model))))
+            step = mamba2_decode_step_placed
+        else:
+            x = embed(self.embed, tokens, self.act_dtype)
+            step = mamba2_decode_step
         if cfg.family in ("vlm", "encdec"):
             for li, layer in enumerate(self.layers):
                 x = attend(layer, x, li)
         else:
             conv, ssm, every = self._per_layer(state)
             for li, layer in enumerate(self.layers):
-                x, conv[li], ssm[li] = mamba2_decode_step(layer, x, conv[li],
-                                                          ssm[li], cfg)
+                if placed:
+                    x = step(layer, x, conv[li], ssm[li], cfg)
+                else:
+                    x, conv[li], ssm[li] = step(layer, x, conv[li], ssm[li],
+                                                cfg)
                 if cfg.family == "hybrid" and (li + 1) % every == 0:
                     x = attend(self.shared, x, li // every)
+        if placed:
+            return self._logits_placed(x), dict(state, seq_lens=seq_incl)
         xn = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self._logits(xn), dict(state, seq_lens=seq_incl)
 
@@ -662,6 +815,122 @@ def paged_state(cfg: ModelConfig, batch: int, seq_len: int, page: int,
             dtype=dtype, device=mesh.devices[r]), r)
             for i, r in enumerate(ranks)]
     return state
+
+
+def _leaf_axes(key: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """:data:`STATE_AXES` of leaf ``key``, led by a ``None`` for each layer
+    axis of a recurrent state of ``ndim`` dims."""
+    ax = STATE_AXES[key]
+    return (None,) * (ndim - len(ax)) + ax
+
+
+def _ndim(v) -> int:
+    """Dims of a state leaf: a tensor, a Sharded or a slab list."""
+    return v[0].ndim if isinstance(v, (list, tuple)) else v.ndim
+
+
+class _LayerViews:
+    """Layer i of a placed state leaf with ``tail`` dims past its layer
+    axes: ``views[i]`` is a :class:`~repro_torch.launch.mesh.Sharded` over
+    the leaf's shape past those axes whose blocks are views into the
+    leaf's blocks (a write into them writes the state)."""
+
+    def __init__(self, leaf: Sharded, tail: int):
+        self.leaf, self.lead = leaf, leaf.ndim - tail
+
+    def __getitem__(self, i: int) -> Sharded:
+        leaf, lead = self.leaf, self.lead
+        return Sharded(
+            Sharding(leaf.sharding.mesh, leaf.sharding.spec[lead:]),
+            leaf.shape[lead:],
+            {b[lead:]: t.view((-1,) + t.shape[lead:])[i]
+             for b, t in leaf.blocks.items()})
+
+
+def _store(dst: Sharded, src) -> None:
+    """Copy ``src`` (a Sharded or tensor of ``dst``'s shape, or of its
+    elements with its whole trailing dims merged) into ``dst``'s blocks,
+    each taken onto its owner."""
+    owners = dst.sharding.owners()
+    for b, blk in dst.blocks.items():
+        r = owners[b]
+        sl = tuple(s if n == dst.shape[i] else slice(None) for i, (s, n) in
+                   enumerate(zip(dst.sharding.slices(b, dst.shape),
+                                 src.shape)))
+        with rank_scope(r):
+            blk.copy_(take(src, r, sl, mesh=dst.sharding.mesh)
+                      .reshape(blk.shape))
+
+
+def _positions(xs: Sharding, B: int, S: int) -> Sharded:
+    """The positions (B, S) laid out as the first two dims of ``xs``."""
+    mesh = xs.mesh
+    return map_blocks(Sharding(mesh, xs.spec[:2]), (B, S), lambda b, sl, r:
+                      torch.arange(*sl[1].indices(S)[:2],
+                                   device=mesh.devices[r]).expand(
+                          sl[0].stop - sl[0].start, -1))
+
+
+def _last_row(x: Sharded) -> Sharded:
+    """The last position of a placed residual (B, S, d), (B, 1, d) by its
+    batch blocks."""
+    B, S, d = x.shape
+    return map_blocks(Sharding(x.sharding.mesh, (x.sharding.spec[0], None,
+                                                 None)),
+                      (B, 1, d), lambda b, sl, r: take(
+                          x, r, (sl[0], slice(S - 1, S))))
+
+
+def _prefixed(patches: torch.Tensor, text: Sharded, r: int, sl, prefix: int,
+              mesh: DeviceMesh) -> torch.Tensor:
+    """The block ``sl`` of the vlm's sequence on rank ``r``: its rows of the
+    patch embeddings (whole on the first rank) in front of its rows of
+    the text's embeddings."""
+    rows, seq = sl[0], sl[1]
+    s0, s1 = seq.start, seq.stop
+    parts = []
+    if s0 < prefix:
+        parts.append(take(patches, r, (rows, slice(s0, min(s1, prefix))),
+                          mesh=mesh).to(text.dtype))
+    if s1 > prefix:
+        parts.append(take(text, r, (rows, slice(max(s0, prefix) - prefix,
+                                                s1 - prefix))))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _placed_page_writer(state: Dict[str, object], page: int, nper: int,
+                        mesh: DeviceMesh):
+    """``to_pools(i, k, v)``: write a placed prefill's layer-i K / V (B, S,
+    KVH * D), Sharded, into the state's slabs (the identity layout of
+    :func:`_page_writer`): each slab's pages taken from the blocks that
+    hold their rows onto the slab's rank (path ``"pages"``); pages past S
+    stay zero."""
+    ks, vs = _slab_list(state["k_pools"]), _slab_list(state["v_pools"])
+    ranks = pool_shard_ranks(mesh)
+
+    def to_pools(i: int, k: Sharded, v: Sharded) -> None:
+        S = k.shape[1]
+        for kv, slabs in ((k, ks), (v, vs)):
+            start = 0
+            for slab, r in zip(slabs, ranks):
+                n = slab.shape[1]
+                flat = slab[i].view((n * page,) + tuple(slab.shape[3:]))
+                for b in range(start // nper, -(-(start + n) // nper)):
+                    r0, r1 = max(start, b * nper), min(start + n,
+                                                       (b + 1) * nper)
+                    p0, p1 = (r0 - b * nper) * page, \
+                        min((r1 - b * nper) * page, S)
+                    if p1 <= p0:
+                        continue
+                    at = (r0 - start) * page
+                    with rank_scope(r):
+                        flat[at:at + p1 - p0].copy_(take(
+                            kv, r, (slice(b, b + 1), slice(p0, p1)),
+                            path="pages").reshape((p1 - p0,) +
+                                                  flat.shape[1:]))
+                start += n
+
+    return to_pools
 
 
 def _slab_list(pools) -> list:
@@ -741,5 +1010,5 @@ def kv_to_pools(kv: torch.Tensor, page: int, dtype: torch.dtype,
 
 
 __all__ = ["ENTRY_PAIRS", "LanguageModel", "PLACED_FAMILIES",
-           "PLACED_REFUSAL", "PORTED_FAMILIES", "Placement", "append_slots",
+           "PORTED_FAMILIES", "Placement", "STATE_AXES", "append_slots",
            "kv_to_pools", "model_dtype", "paged_state"]

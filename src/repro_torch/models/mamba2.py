@@ -14,6 +14,21 @@ Dtypes follow the reference: the projections run in the activation dtype,
 the conv in fp32, ``dt`` and ``A`` in fp32; ``ssd_chunked`` returns ``y``
 in ``x.dtype`` and the final state in fp32.  Weights keep the JAX layout
 ``(in, out)``.
+
+A layer whose weights ``weights.place_params`` placed runs through
+:func:`mamba2_layer_placed` (prefill) and :func:`mamba2_decode_step_placed`
+on a :class:`~repro_torch.launch.mesh.Sharded` residual split by batch, as
+the reference's GSPMD computes over its constraints (``proj`` over
+``act_ffn``, ``xs`` over ``act_heads``): ``w_in`` column-parallel over its
+blocks at rest, whose columns straddle ``z | xBC | dt``, so each rank's
+``z`` and ``dt`` (by heads) and pre-conv ``xBC`` (by ``conv_ch``) are
+joined from the product blocks that hold their columns; the conv by
+channel block; each rank's heads through the SSD (K4) over its batch
+block's whole sequence, with ``B`` and ``C`` (the last ``2N`` channels,
+on the last ``model`` ranks after the conv) gathered onto it;
+``gate_norm`` over all ``d_inner`` channels from the blocks' fp32 sums of
+squares; ``w_out`` row-parallel.  The moves count to the op-cost walk's
+paths :data:`PLACED_PATHS`.
 """
 from __future__ import annotations
 
@@ -24,7 +39,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models.common import rms_norm
+from repro_torch.launch.mesh import (Sharded, Sharding, map_blocks,
+                                     rank_scope, take)
+from repro_torch.models.common import (blockwise, col_parallel, rms_norm,
+                                       rms_norm_placed, row_parallel)
+from repro_torch.sharding.rules import logical_to_spec
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -245,6 +264,196 @@ def mamba2_decode_step(layer: Mamba2Layer, x, conv_state, ssm_state,
     return x + out, conv_state, ssm_state
 
 
-__all__ = ["Mamba2Layer", "SSD_IMPLS", "ssd_intra_chunk", "ssd_chunked",
-           "causal_conv1d", "conv_step",
-           "mamba2_layer", "xbc_tail", "mamba2_decode_step"]
+# ---------------------------------------------------------------------------
+# a placed layer (weights.place_params): each rank computes its blocks
+# ---------------------------------------------------------------------------
+
+#: the op-cost walk's path of each move of the placed layer: the joins of
+#: the ``w_in`` product's columns into each rank's ``z`` / ``xBC`` / ``dt``
+#: and of the conv's channels into its heads, the ``B`` / ``C`` gathers and
+#: the gate norm's sums of squares (the ``w_out`` partial sums are
+#: ``"sum"``, ``common.row_parallel``'s)
+PLACED_PATHS = {"columns": "ssm_columns", "bc": "ssm_bc",
+                "gate": "gate_norm"}
+
+
+def ssm_layouts(mesh, B: int, S: int, cfg: ModelConfig
+                ) -> Tuple[Sharding, Sharding]:
+    """The layouts of a placed layer's activations over (B, S, ...): by
+    heads (``("batch", None, "act_heads")``: ``z``, ``dt``, ``xs`` and
+    ``y``, ``d_inner`` split as the heads) and by conv channel
+    (``("batch", None, "act_ffn")``: the conv's ``xBC``), each resolved
+    on its dims (a dim its axes do not divide stays whole)."""
+    H, C = cfg.ssm_heads, cfg.ssm_d_inner + 2 * cfg.ssm_state
+    return tuple(Sharding(mesh, logical_to_spec(("batch", None, ax), mesh,
+                                                dims=(B, S, n)))
+                 for ax, n in (("act_heads", H), ("act_ffn", C)))
+
+
+def _placed_in(layer: Mamba2Layer, x: Sharded, cfg: ModelConfig):
+    """norm(x) @ ``w_in`` column-parallel over ``w_in``'s blocks at rest,
+    and each rank's pieces joined from the product blocks that hold their
+    columns: ``z`` (B, S, d_inner) and ``dt_raw`` (B, S, H) by heads, the
+    pre-conv ``xBC`` (B, S, C) by conv channel."""
+    B, S, _ = x.shape
+    di, N, H = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    h = rms_norm_placed(x, layer.norm, cfg.norm_eps)
+    proj, = col_parallel(h, (layer.w_in, None))
+    hsh, csh = ssm_layouts(x.sharding.mesh, B, S, cfg)
+
+    def cols(c0):
+        return lambda b, sl, r: take(
+            proj, r, (sl[0], sl[1], slice(c0 + sl[2].start,
+                                          c0 + sl[2].stop)),
+            path=PLACED_PATHS["columns"])
+
+    return (map_blocks(hsh, (B, S, di), cols(0)),
+            map_blocks(csh, (B, S, di + 2 * N), cols(di)),
+            map_blocks(hsh, (B, S, H), cols(2 * di + 2 * N)))
+
+
+def _heads_of(layer: Mamba2Layer, xc: Sharded, dt_raw: torch.Tensor,
+              r: int, rows: slice, heads: slice, cfg: ModelConfig):
+    """On rank ``r``, for its batch block ``rows`` and head block
+    ``heads``: its ``xs`` channels joined from the conv's channel blocks,
+    ``B`` and ``C`` gathered, ``dt`` (softplus with its ``dt_bias``), ``A``
+    and ``D`` of its heads."""
+    di, N, P = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    mesh = xc.sharding.mesh
+
+    def chans(c0, c1, path):
+        return take(xc, r, (rows, slice(None), slice(c0, c1)), path=path)
+
+    xs = chans(heads.start * P, heads.stop * P, PLACED_PATHS["columns"])
+    Bm = chans(di, di + N, PLACED_PATHS["bc"])
+    Cm = chans(di + N, di + 2 * N, PLACED_PATHS["bc"])
+    par = [take(getattr(layer, n), r, (heads,), mesh=mesh).float()
+           for n in ("dt_bias", "A_log", "D")]
+    dt = F.softplus(dt_raw.float() + par[0])
+    return xs, Bm, Cm, dt, -torch.exp(par[1]), par[2]
+
+
+def gate_norm_placed(layer: Mamba2Layer, gated: Sharded, ssq: Sharded,
+               cfg: ModelConfig, dtype: torch.dtype) -> Sharded:
+    """``rms_norm`` over all ``d_inner`` channels of ``gated`` (laid out by
+    heads): each block's fp32 sums of squares ``ssq`` (one column a head
+    block) gathered onto every rank of its batch block and added there,
+    each block then scaled by the mean and its ``gate_norm`` slice.
+    Returns the blocks in ``dtype``."""
+    di, eps = cfg.ssm_d_inner, cfg.norm_eps
+    mesh = gated.sharding.mesh
+
+    def one(b, sl, r):
+        total = take(ssq, r, (sl[0],), path=PLACED_PATHS["gate"]).sum(
+            -1, keepdim=True)
+        y = gated.blocks[b].float() * torch.rsqrt(total / di + eps)
+        scale = take(layer.gate_norm, r, (sl[2],), mesh=mesh).float()
+        return (y * (1.0 + scale)).to(dtype)
+
+    return map_blocks(gated.sharding, gated.shape, one)
+
+
+def _by_heads(hsh: Sharding, B: int, S: int, fn, cfg: ModelConfig):
+    """``fn(b, rows, heads, r)`` -> (gated block, state block) on each head
+    block's owner; returns gated (B, S, d_inner) laid out by ``hsh``, its
+    sums of squares (B, S, head blocks) and the states (B, H, P, N) laid
+    out by (batch, heads)."""
+    di, H, P, N = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_head_dim, \
+        cfg.ssm_state
+    nh = hsh.counts(3)[2]
+    per = H // nh
+    gated, ssq, states = {}, {}, {}
+    for b, r in hsh.owners().items():
+        rows = hsh.slices(b, (B, S, di))[0]
+        heads = slice(b[2] * per, (b[2] + 1) * per)
+        with rank_scope(r):
+            gated[b], states[(b[0], b[2])] = fn(b, rows, heads, r)
+            ssq[b] = gated[b].float().square().sum(-1, keepdim=True)
+    ssh = Sharding(hsh.mesh, (hsh.spec[0], hsh.spec[2]))
+    return (Sharded(hsh, (B, S, di), gated), Sharded(hsh, (B, S, nh), ssq),
+            Sharded(ssh, (B, H, P, N), states))
+
+
+def mamba2_layer_placed(layer: Mamba2Layer, x: Sharded, cfg: ModelConfig
+                        ) -> Tuple[Sharded, Sharded, Sharded]:
+    """:func:`mamba2_layer` (prefill, K4) of a placed layer: x (B, S, d)
+    Sharded by batch (the reference's ``("batch", None, None)``; any
+    layout works).  Each rank runs the SSD over its batch block's whole
+    sequence and its heads: K4 once a rank and layer.  Returns the new x
+    (laid out as x), the final state (B, H, P, N) fp32 laid out by
+    (batch, ``act_heads``) and the conv tail (B, W-1, C) fp32 by (batch,
+    None, ``act_ffn``), the last W-1 pre-conv rows of each channel block
+    (the reference recomputes them from the layer's input: the same
+    product)."""
+    B, S, _ = x.shape
+    W = cfg.ssm_conv_width
+    mesh = x.sharding.mesh
+    z, xbc, dt_raw = _placed_in(layer, x, cfg)
+    dtype = x.dtype
+    xc = map_blocks(xbc.sharding, xbc.shape, lambda b, sl, r: causal_conv1d(
+        xbc.blocks[b], take(layer.conv_w, r, (slice(None), sl[2]),
+                            mesh=mesh),
+        take(layer.conv_b, r, (sl[2],), mesh=mesh)).to(dtype))
+    hsh = z.sharding
+
+    def ssd(b, rows, heads, r):
+        xs, Bm, Cm, dt, A, D = _heads_of(layer, xc, dt_raw.blocks[b], r,
+                                         rows, heads, cfg)
+        Bg, nh = xs.shape[0], heads.stop - heads.start
+        y, h_final = ssd_chunked(xs.reshape(Bg, S, nh, cfg.ssm_head_dim),
+                                 dt, A, Bm, Cm, D, cfg.ssm_chunk)
+        y = y.reshape(Bg, S, -1)
+        return y * F.silu(z.blocks[b].float()).to(y.dtype), h_final
+
+    gated, ssq, h_final = _by_heads(hsh, B, S, ssd, cfg)
+    y = gate_norm_placed(layer, gated, ssq, cfg, dtype)
+    x = blockwise(torch.add, x, row_parallel(y, layer.w_out, x.sharding))
+    tail = map_blocks(xbc.sharding, (B, W - 1, xbc.shape[2]),
+                      lambda b, sl, r: xbc.blocks[b][:, S - (W - 1):].float())
+    return x, h_final, tail
+
+
+def mamba2_decode_step_placed(layer: Mamba2Layer, x: Sharded,
+                              conv_state: Sharded, ssm_state: Sharded,
+                              cfg: ModelConfig) -> Sharded:
+    """:func:`mamba2_decode_step` of a placed layer: x (B, 1, d) Sharded by
+    batch; ``conv_state`` (B, W-1, C) and ``ssm_state`` (B, H, P, N) this
+    layer's state leaves, laid out by the serve state's axes (batch and
+    ``act_ffn`` / ``act_heads``), updated IN PLACE by channel and head
+    block.  Returns the new x, laid out as x."""
+    B = x.shape[0]
+    mesh = x.sharding.mesh
+    z, xbc, dt_raw = _placed_in(layer, x, cfg)
+
+    def conv(b, sl, r):
+        cs = conv_state.blocks[conv_state.sharding.block_of(r)]
+        y, new = conv_step(cs, xbc.blocks[b][:, 0].float(), take(
+            layer.conv_w, r, (slice(None), sl[2]), mesh=mesh).float(),
+            take(layer.conv_b, r, (sl[2],), mesh=mesh).float())
+        cs.copy_(new)
+        return y[:, None]
+
+    xc = map_blocks(xbc.sharding, xbc.shape, conv)
+
+    def step(b, rows, heads, r):
+        xt, Bt, Ct, dt, A, D = _heads_of(layer, xc, dt_raw.blocks[b][:, 0],
+                                         r, rows, heads, cfg)
+        Bg, nh = xt.shape[0], heads.stop - heads.start
+        xt = xt[:, 0].reshape(Bg, nh, cfg.ssm_head_dim)
+        Bt, Ct = Bt[:, 0], Ct[:, 0]
+        st = ssm_state.blocks[ssm_state.sharding.block_of(r)]
+        decay = torch.exp(dt * A[None, :])
+        dbx = (xt * dt[..., None])[..., None] * Bt[:, None, None, :]
+        st.copy_(st * decay[..., None, None] + dbx)
+        y = torch.einsum("bhpn,bn->bhp", st, Ct) + xt * D[None, :, None]
+        return y.reshape(Bg, 1, -1) * F.silu(z.blocks[b].float()), st
+
+    gated, ssq, _ = _by_heads(z.sharding, B, 1, step, cfg)
+    y = gate_norm_placed(layer, gated, ssq, cfg, x.dtype)
+    return blockwise(torch.add, x, row_parallel(y, layer.w_out, x.sharding))
+
+
+__all__ = ["Mamba2Layer", "PLACED_PATHS", "SSD_IMPLS", "ssd_intra_chunk",
+           "ssd_chunked", "causal_conv1d", "conv_step", "mamba2_layer",
+           "gate_norm_placed", "mamba2_layer_placed", "mamba2_decode_step",
+           "mamba2_decode_step_placed", "ssm_layouts", "xbc_tail"]

@@ -12,8 +12,9 @@ training (``impl="jax"``: the model-level attention of models/attention.py
 that the reference trains through); :func:`decoder_stack_train` is the
 training stack, each layer under a remat policy (:data:`REMAT_POLICIES`).
 
-A dense or moe layer whose weights ``weights.place_params`` placed runs
-through :func:`decoder_layer_placed` (prefill) and
+A layer whose weights ``weights.place_params`` placed (every serving
+family's decoder layers, an encdec's encoder layers, the hybrid's shared
+block) runs through :func:`decoder_layer_placed` (prefill) and
 :func:`decoder_layer_decode_placed` (decode) on a
 :class:`~repro_torch.launch.mesh.Sharded` residual: by sequence rows
 over ``model`` (``act_seq_tp``) in prefill where they divide, by batch
@@ -21,9 +22,11 @@ over (``pod``, ``data``) in both; the q / k / v projections
 column-parallel, ``wo`` and the MLP's ``w_down`` row-parallel with the sum
 over ``model`` (``models/common.py``), a moe FFN by its mesh path with
 each rank's experts where they lie (``moe.moe_ffn_placed``), prefill
-attention by block (``attention.prefill_attention_placed``), decode
-attention over the slabs as for an unplaced model
-(``paged.paged_attend_append``)."""
+attention by block (``attention.prefill_attention_placed``: causal with
+the vlm's prefix, or non-causal for an encoder), an encdec's
+cross-attention by block (:func:`cross_block_placed`; in decode over the
+batch-split cross state), decode self-attention over the slabs as for an
+unplaced model (``paged.paged_attend_append``)."""
 from __future__ import annotations
 
 import functools
@@ -37,7 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 
 from repro_torch.configs import ModelConfig
 from repro_torch.launch.mesh import (DeviceMesh, Sharded, Sharding,
-                                     map_blocks, take)
+                                     map_blocks, relayout, take)
 from repro_torch.models.attention import (MaskInfo, attention_train,
                                          flash_attention,
                                          placed_qkv_shardings,
@@ -379,14 +382,45 @@ def _rope_blocks(t: Sharded, sharding: Sharding, pos: Sharded,
     return map_blocks(sharding, t.shape, one)
 
 
+def cross_block_placed(layer: DecoderLayer, x: Sharded, enc_out: Sharded,
+                       cfg: ModelConfig, strategy: str
+                       ) -> Tuple[Sharded, Tuple[Sharded, Sharded]]:
+    """:func:`cross_block_train` of a placed encdec layer: q column-parallel
+    from the decoder's normed stream x (B, S, d), k / v column-parallel
+    from the placed, normed encoder output (B, S_src, d); the attention by
+    the blocks of q's layout for ``strategy`` (K3, non-causal, every
+    frame); ``xattn.wo`` row-parallel.  Returns the new x (laid out as x)
+    and the cross k, v (B, S_src, KVH * D), the serve state's ``cross_k``
+    / ``cross_v`` of this layer."""
+    B, S, _ = x.shape
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    xa = layer.xattn
+    h = rms_norm_placed(x, layer.ln_x, cfg.norm_eps)
+    q, = col_parallel(h, (xa.wq, None))
+    k, v = col_parallel(enc_out, (xa.wk, None), (xa.wv, None))
+    qsh, _ = placed_qkv_shardings(x.sharding.mesh, strategy, B, S, H, KVH)
+    o = prefill_attention_placed(relayout(q, qsh), k, v, H, KVH,
+                                 cfg.head_dim, causal=False)
+    return blockwise(torch.add, x, row_parallel(o, xa.wo, x.sharding)), \
+        (k, v)
+
+
 def decoder_layer_placed(layer: DecoderLayer, x: Sharded, pos: Sharded,
-                         cfg: ModelConfig, strategy: str
-                         ) -> Tuple[Sharded, Sharded, Sharded]:
-    """A placed dense or moe layer over a full causal sequence (prefill):
-    x (B, S, d) Sharded by ``("batch", "act_seq_tp", None)``, pos (B, S) laid
-    out as its first two dims; the attention by ``strategy``
-    (``sharding.rules.attn_strategy``).  Returns the new x (laid out as
-    x) and this layer's post-RoPE k and v (B, S, KVH * D) Sharded."""
+                         cfg: ModelConfig, strategy: str,
+                         prefix_len: int = 0, causal: bool = True,
+                         enc_out: Optional[Sharded] = None
+                         ) -> Tuple[Sharded, Sharded, Sharded,
+                                    Optional[Tuple[Sharded, Sharded]]]:
+    """A placed decoder (or encoder) layer over a full sequence (prefill):
+    x (B, S, d) Sharded (by ``("batch", "act_seq_tp", None)`` for a
+    decoder stack, by batch for the hybrid's shared block), pos (B, S)
+    laid out as its first two dims; the attention by ``strategy``
+    (``sharding.rules.attn_strategy``), causal with the ``prefix_len``
+    keys visible to every query (the vlm's patches) or ``causal=False``
+    (an encoder layer); with ``enc_out`` (the placed, normed encoder
+    output) :func:`cross_block_placed` after the self-attention.  Returns
+    the new x (laid out as x), this layer's post-RoPE k and v (B, S, KVH *
+    D) Sharded, and the cross (k, v) (None without ``enc_out``)."""
     B, S, _ = x.shape
     H, KVH = cfg.num_heads, cfg.num_kv_heads
     h = rms_norm_placed(x, layer.ln1, cfg.norm_eps)
@@ -394,9 +428,13 @@ def decoder_layer_placed(layer: DecoderLayer, x: Sharded, pos: Sharded,
     qsh, ksh = placed_qkv_shardings(x.sharding.mesh, strategy, B, S, H, KVH)
     q = _rope_blocks(q, qsh, pos, cfg)
     k = _rope_blocks(k, ksh, pos, cfg)
-    o = prefill_attention_placed(q, k, v, H, KVH, cfg.head_dim)
+    o = prefill_attention_placed(q, k, v, H, KVH, cfg.head_dim,
+                                 causal=causal, prefix_len=prefix_len)
     x = blockwise(torch.add, x, row_parallel(o, layer.wo, x.sharding))
-    return _placed_ffn(layer, x, cfg), k, v
+    xkv = None
+    if enc_out is not None:
+        x, xkv = cross_block_placed(layer, x, enc_out, cfg, strategy)
+    return _placed_ffn(layer, x, cfg), k, v, xkv
 
 
 def decoder_layer_decode_placed(layer: DecoderLayer, x: Sharded,
@@ -407,14 +445,21 @@ def decoder_layer_decode_placed(layer: DecoderLayer, x: Sharded,
                                 base: torch.Tensor,
                                 seq_lens_incl: torch.Tensor,
                                 cfg: ModelConfig, page: int,
-                                mesh: DeviceMesh) -> Sharded:
-    """One token per sequence through a placed dense or moe layer: x (B,
-    1, d) Sharded by batch, pos (B,) on the mesh's first rank.  The projections
+                                mesh: DeviceMesh,
+                                cross_kv: Optional[Tuple[Sharded,
+                                                         Sharded]] = None
+                                ) -> Sharded:
+    """One token per sequence through a placed decoder layer: x (B, 1, d)
+    Sharded by batch, pos (B,) on the mesh's first rank.  The projections
     run column-parallel on the ranks; q, k and v meet on the first rank
     for RoPE and :func:`~repro_torch.models.paged.paged_attend_append`
     (K2 on every rank's slab, the partials LSE-combined, as for an
     unplaced model), whose output goes back through ``wo`` row-parallel.
-    Returns the new x, laid out as x."""
+    With ``cross_kv`` (this layer's ``cross_k`` / ``cross_v`` (B, S_src,
+    KVH, D) Sharded by batch) the token then attends over its batch
+    block's frames on the block's rank (K3, one query, non-causal), q
+    column-parallel and ``xattn.wo`` row-parallel.  Returns the new x,
+    laid out as x."""
     B = x.shape[0]
     H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = rms_norm_placed(x, layer.ln1, cfg.norm_eps)
@@ -427,11 +472,26 @@ def decoder_layer_decode_placed(layer: DecoderLayer, x: Sharded,
                             seq_lens_incl, page=page)
     x = blockwise(torch.add, x, row_parallel(o.reshape(B, 1, H * D),
                                              layer.wo, x.sharding))
+    if cross_kv is not None:
+        xa = layer.xattn
+        qx, = col_parallel(rms_norm_placed(x, layer.ln_x, cfg.norm_eps),
+                           (xa.wq, None))
+
+        def cross(b, sl, r):
+            qb = take(qx, r, sl[:1])
+            kb, vb = (take(t, r, sl[:1]) for t in cross_kv)
+            return prefill_attention(qb.reshape(-1, 1, H, D), kb, vb,
+                                     causal=False).reshape(-1, 1, H * D)
+
+        ox = map_blocks(Sharding(mesh, (x.sharding.spec[0], None, None)),
+                        (B, 1, H * D), cross)
+        x = blockwise(torch.add, x, row_parallel(ox, xa.wo, x.sharding))
     return _placed_ffn(layer, x, cfg)
 
 
 __all__ = ["ATTENTION_IMPLS", "CrossAttention", "DecoderLayer",
-           "REMAT_POLICIES", "attn_block_train", "cross_block_train",
+           "REMAT_POLICIES", "attn_block_train", "cross_block_placed",
+           "cross_block_train",
            "decoder_layer_decode", "decoder_layer_decode_placed",
            "decoder_layer_placed", "decoder_layer_train",
            "decoder_stack_train", "remat_call"]

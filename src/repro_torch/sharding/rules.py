@@ -13,21 +13,23 @@ training rules (the batch over every axis), activated with
 :func:`logical_to_spec` returns the reference's ``PartitionSpec`` as a
 plain tuple: one entry per dimension, ``None``, a mesh axis name, or a
 tuple of axis names sharded jointly.  ``launch/mesh.py`` ``sharding_for``
-reads it to place the training state and a dense or moe model's serving
-weights (``weights.place_params``); ``models/attention.py attention_train`` to
+reads it to place the training state, every serving family's weights
+(``weights.place_params``) and a placed model's serve state; ``models/attention.py attention_train`` to
 split the training attention into the blocks the reference's
 ``constrain`` names, and the placed model's blocks (``models/lm.py``,
-``models/attention.py placed_qkv_shardings``) to lay out its residual,
-q and k as the reference's ``constrain`` points do;
+``models/attention.py placed_qkv_shardings``, ``models/mamba2.py
+ssm_layouts``) to lay out its residual, q, k and a Mamba2 layer's heads
+and channels as the reference's ``constrain`` points do;
 ``models/transformer.py`` asks :func:`attn_strategy` which of its two
 attention layouts to use.  The reference's ``constrain`` and
 ``named_sharding`` have no counterpart: they hand a placement to GSPMD,
 and the port places every tensor explicitly, so there is nothing to
-annotate.  What is placed: the training state; the pools' slabs; a
-dense or moe model's serving weights and its activations by blocks on
-their ranks; a moe FFN's mesh paths.  Everything else (the facades'
-serving weights and activations, training's loss and bf16 views) lies
-whole on the model's device.
+annotate.  What is placed: the training state; the pools' slabs; every
+serving family's weights (``weights.place_params``) and its activations
+by blocks on their ranks, with a facade's recurrent and cross state
+(``models/lm.py STATE_AXES``); a moe FFN's mesh paths.  Everything else
+(an unplaced model's serving weights and activations, training's loss
+and bf16 views) lies whole on the model's device.
 """
 from __future__ import annotations
 

@@ -226,12 +226,17 @@ def place_params(model: LanguageModel, mesh: DeviceMesh) -> LanguageModel:
     splits nothing), set on its module in place of the parameter, and
     listed in ``model.placement``.  Nothing of a split weight stays
     whole: its blocks are copies and the parameter is dropped before the
-    next is placed (the peak is the model and one weight's blocks).  The
-    dense and moe families serve placed (``models/lm.py
-    PLACED_FAMILIES``: a moe FFN's router ``(embed, experts)``, experts
+    next is placed (the peak is the model and one weight's blocks).
+    Every serving family serves placed (``models/lm.py
+    PLACED_FAMILIES``): a moe FFN's router ``(embed, experts)``, experts
     ``(experts, embed, ffn)`` / ``(experts, ffn, embed)`` and shared
-    experts as a dense MLP); the facades' families refuse a placed
-    model."""
+    experts as a dense MLP; a Mamba2 layer's ``w_in`` ``(embed,
+    ssm_inner)`` (its column blocks straddle ``z | xBC | dt``), conv
+    ``(conv_w, conv_ch)``, ``dt_bias`` / ``A_log`` / ``D``
+    ``(ssm_heads_p,)``, ``gate_norm`` ``(ssm_inner,)`` and ``w_out``
+    ``(ssm_inner, embed)``; an encdec's ``xattn.*``, ``ln_x``,
+    ``enc_layers.*`` and ``enc_norm`` and the hybrid's ``shared.*`` as a
+    decoder layer's."""
     if model.placement is not None:
         raise ValueError("the model's weights are placed already")
     values = {}

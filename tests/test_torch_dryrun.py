@@ -34,16 +34,19 @@ FAMILIES = {"dense": "llama3.2-3b", "moe": "deepseek-moe-16b",
             "hybrid": "zamba2-2.7b", "encdec": "seamless-m4t-medium"}
 
 #: the kernels each (family, kind) reaches, and their calls over 2 x 2
-#: ranks at the reduced depth (the dense and moe prefills' weights placed:
-#: K3 once a layer for each of their 2 batch x 2 head blocks)
+#: ranks at the reduced depth (every serving family's weights placed: K3
+#: once an attention layer for each of its 2 batch x 2 head blocks, the
+#: encdec's 2 encoder, 4 self- and 4 cross-attention layers; K4 once a
+#: Mamba2 layer on each rank's batch and head block; in decode K2 once a
+#: layer and slab, the encdec's cross step once a layer and batch block)
 KERNELS = {("dense", "prefill"): {"K3": 16}, ("moe", "prefill"): {"K3": 16},
-           ("vlm", "prefill"): {"K3": 4}, ("ssm", "prefill"): {"K4": 4},
-           ("hybrid", "prefill"): {"K4": 4, "K3": 2},
-           ("encdec", "prefill"): {"K3": 10},
+           ("vlm", "prefill"): {"K3": 16}, ("ssm", "prefill"): {"K4": 16},
+           ("hybrid", "prefill"): {"K4": 16, "K3": 8},
+           ("encdec", "prefill"): {"K3": 40},
            ("dense", "decode"): {"K2": 16}, ("moe", "decode"): {"K2": 16},
            ("vlm", "decode"): {"K2": 16}, ("ssm", "decode"): {},
            ("hybrid", "decode"): {"K2": 8},
-           ("encdec", "decode"): {"K2": 16, "K3": 4}}
+           ("encdec", "decode"): {"K2": 16, "K3": 8}}
 
 #: the reference's row keys (``analyse`` and ``run_cell``)
 REF_KEYS = {"arch", "shape", "mesh", "status", "lower_s", "compile_s",
@@ -163,7 +166,8 @@ def test_production_mesh_and_row_keys(tmp_path):
     row = rows[0]
     assert REF_KEYS <= set(row) and MEMORY_KEYS == set(row["memory"])
     assert row["dominant"] in ("compute", "memory", "collective")
-    # an ssm decode runs whole on the first rank: it is the busiest
+    # a placed ssm decode: the first rank, which joins the logits, is the
+    # busiest; the step runs no kernel (the recurrence is tensor code)
     assert row["busiest_rank"] == 0 and row["kernels"] == {}
     t, = table(rows)
     assert t["status"] == "ok" and t["temp_gib"] >= 0

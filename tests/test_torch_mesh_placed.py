@@ -19,11 +19,11 @@ for the reduced llama3.2-3b over (2, 4) and (1, 8) ranks of ``("data",
 
 In this process: (c) ``ServingEngine(mesh=)`` over the placed model
 decodes the unplaced mesh engine's tokens over 4 rounds with a fork, at
-most one fused drain a round; (d) the odd-length rule; (e) a hybrid and
-an ssm model placed are refused with a ``ValueError``; and K3's ``q_offset``
-in its plain version against the reference's model-level
+most one fused drain a round; (d) the odd-length rule; and K3's
+``q_offset`` in its plain version against the reference's model-level
 ``flash_attention`` with ``pos_q`` offset, at D = 32 and 128 (fp32, atol
-1e-4 as tests/test_torch_attention.py).
+1e-4 as tests/test_torch_attention.py).  The facades' placed weights:
+tests/test_torch_mesh_placed_facades.py.
 """
 import json
 
@@ -42,7 +42,6 @@ from repro_torch.kernels.fused_dispatch import (add_launch_hook,
                                                 remove_launch_hook)
 from repro_torch.launch.mesh import Sharded, make_test_mesh, rank_bytes
 from repro_torch.launch.serve import ServingEngine
-from repro_torch.models.lm import PLACED_FAMILIES
 from repro_torch.sharding.rules import attn_strategy
 from repro_torch.weights import init_params, place_params
 
@@ -317,29 +316,6 @@ def test_odd_prompt_length_keeps_rows_whole():
     np.testing.assert_allclose(lp.numpy(), lw.numpy(), atol=LOGIT_ATOL)
     np.testing.assert_allclose(kp[0].numpy(), kw_.numpy(), atol=KV_ATOL)
     np.testing.assert_allclose(vp[0].numpy(), vw.numpy(), atol=KV_ATOL)
-
-
-@pytest.mark.parametrize("arch,family", [("zamba2-2.7b", "hybrid"),
-                                         ("mamba2-780m", "ssm")])
-def test_placed_model_of_other_family_is_refused(arch, family):
-    """(e) Only the dense and moe families serve placed: a placed hybrid
-    model's ``prefill_state`` / ``decode_state`` and engine, and a placed
-    ssm model's ``prefill_state`` / ``decode_state``, raise a plain
-    ``ValueError`` naming the dense and moe decoders."""
-    assert family not in PLACED_FAMILIES
-    cfg = get_config(arch).reduced()
-    mesh = mesh_of("heads (2, 4)")
-    model = place_params(init_params(cfg, seed=0, device="cpu"), mesh)
-    tokens = torch.ones((2, 16), dtype=torch.long)
-    calls = [lambda: model.prefill_state(tokens, mesh=mesh),
-             lambda: model.decode_state({}, tokens[:, 0], mesh=mesh)]
-    if family == "hybrid":
-        calls.append(lambda: ServingEngine(cfg, model, mesh=mesh,
-                                           max_seqs=4, max_blocks_per_seq=4,
-                                           num_slabs=4))
-    for call in calls:
-        with pytest.raises(ValueError, match="dense and moe decoders"):
-            call()
 
 
 def test_placed_prefill_refuses_another_mesh():
