@@ -369,26 +369,38 @@ Phases (each raises on failure; the script then exits non-zero):
 
 24. (run after phase 21, with phase 21's model freed) training over a
     rank mesh (``phase_mesh_train``; ``make_train_step(mesh=)``,
-    ``build_train_step``, the placed ``TrainState``, ``attention_train``
-    by blocks, the moe mesh paths in training, ``runtime/elastic.py``).
+    ``build_train_step``, the placed ``TrainState``, the placed step:
+    every block of the loss and its backward on the rank that holds it,
+    the moe placed paths with their aux, ``runtime/elastic.py``).
     (a) llama3.2-3b at full width and depth over 8 ranks of the card
     ((2, 4) over ``("data", "model")``) under ``"fsdp"``, phase 21 (a)'s
-    ``TrainConfig``, weights (seed 0) and batches, 8 steps: each step's
-    loss and grad_norm against phase 21 (a)'s within
-    ``MESH_LOSS0_RTOL`` / ``MESH_LOSS_RTOL`` / ``MESH_GNORM0_RTOL`` /
-    ``MESH_GNORM_RTOL``, ms a step (median of steps 2-7) and its ratio to
-    phase 21's, ``max_memory_allocated`` beside phase 21's, the bytes of
-    masters and moments each rank holds (stored once), the ms of one
-    bf16 gather of the views, a profile of one step.  (b) the same under
-    ``"tp"`` (``DEFAULT_RULES``: heads over ``model``, the batch over
-    ``data``), 3 steps, and its profile.  (c) deepseek-moe-16b at published width (64
+    ``TrainConfig``, weights (seed 0) and 8 batches: each step's loss and
+    grad_norm against phase 21 (a)'s within ``MESH_LOSS0_RTOL`` /
+    ``MESH_LOSS_RTOL`` / ``MESH_GNORM0_RTOL``, every grad_norm within
+    ``MESH_GNORM_RTOL`` or ``MESH_DRIFT_FACTOR`` times the furthest that
+    one device's step over the same batches in ``MESH_TWIN_MICROBATCHES``
+    microbatches (the same per-sequence partial sums) strays from phase
+    21 (a)'s, ms a step (the median of steps 2-7) and its ratio to phase
+    21's, ``max_memory_allocated`` beside phase 21's, the bytes of
+    masters and moments each rank holds (stored once), a profile of one
+    step (idle share), then (after every leg is timed) the walk of one
+    step on ``meta`` ranks sharing one device: its peak against the
+    steps' own peak, and the bytes each rank gathered (weights' ZeRO-3
+    blocks, activation rows).  (b) the same under ``"tp"``
+    (``DEFAULT_RULES``: heads over ``model``, the batch over ``data``), 3
+    steps, step 0's loss within ``MESH_TP_LOSS0_RTOL``.  (e) the same
+    under ``"fsdp"`` at B =
+    ``MESH_FULL_B`` (the batch over ``("data", "model")``: every rank
+    holds a sequence), 3 steps, against one device's steps over the same
+    batches.  (c) deepseek-moe-16b at published width (64
     experts top 6) cut to ``MOE_TRAIN_LAYERS`` layers (the reckoning
     printed), 3 steps over ``("model",)`` 8 under ``"tp"`` (the
     all-to-all) and ``("data",)`` 8 under ``"fsdp"``: forward and
     recomputed path counts, finite losses, step 0's within [ln V - 1,
     ln V + 2] beside the loss without a mesh under ``no_grad``; then one
     layer's loss and grads (fp32 activations) over 8 card ranks against 8
-    CPU ranks: routes equal, loss and grads within the stated limits.  (d) ``train_loop``
+    CPU ranks: routes equal, loss and grads within the stated limits.
+    (d) ``train_loop``
     of llama3.2-3b reduced over the 8 ranks, a checkpoint every 5 steps
     and a ``NodeFailure`` at 7, ``plan_remesh`` to 4 ranks,
     ``elastic_restore`` onto them and the steps resumed: losses of steps
@@ -397,18 +409,22 @@ Phases (each raises on failure; the script then exits non-zero):
 25. (run last, on a card no earlier phase holds) the dry-run
     (``phase_dryrun``; ``launch/dryrun.py``, ``launch/op_cost.py``,
     ``kernels/cost.py``).  (a) phase 21's cell (llama3.2-3b, fp32
-    masters, B = 2 x S = 1,024, remat ``"minimal"``) walked over ``meta``
-    on one rank against the real step on the card: the walk's peak
-    against ``max_memory_allocated`` (``DRY_PEAK_RTOL``), its FLOPs equal
-    to ``FlopCounterMode``'s over the step, its roofline time at most the
+    masters, B = 2 x S = 1,024, remat ``"minimal"``), the placed step
+    over (2, 4) ranks under ``"fsdp"``, walked over ``meta`` ranks
+    sharing one device against the real step over 8 ranks of the card:
+    the walk's peak against ``max_memory_allocated``
+    (``DRY_PEAK_RTOL``), its FLOPs over the ranks equal to
+    ``FlopCounterMode``'s over the step, its roofline time at most the
     step's device busy ms.  (b) phase 5's serving cells at full width:
     one decode round over 8 sequences x 64 full blocks and a 512-token
     prefill, walked; K2's and K3's calls (one a layer) and bytes a call
     equal to phases 2 and 4's rule over card tensors of the same calls.
     (c) ``python -m repro_torch.launch.dryrun --mesh single`` over every
     (arch, shape), a process a cell, ``DRY_WORKERS`` at once, cheapest
-    first, for ``DRY_SWEEP_S`` seconds: each row, the counts of ok / skip
-    / error / not finished and the time; an error fails the phase.  No
+    first, for ``DRY_SWEEP_S`` seconds (up to ``DRY_SWEEP_GRACE_S`` more
+    until a prefill_32k and a decode_32k cell are ok), beside (a) and
+    (b): each row, the counts of ok / skip / error / not finished and the
+    time; an error, or no ok cell of either kind, fails the phase.  No
     K1-K7 launch: the walk reckons kernels at their boundary.  The
     serving cells (all placed) come first by their layers, the train
     cells last.
@@ -502,6 +518,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -5459,33 +5476,57 @@ def train_split(events) -> dict:
     return out
 
 
-def profile_train_step(step, smi: str, tag: str, step_ms: float) -> None:
+def profile_train_step(step, smi: str, tag: str, step_ms: float,
+                       split: bool = True) -> None:
     """One more training step under torch.profiler with
     :class:`TrainRanges`: wall and device busy ms, idle share (also
     against ``step_ms``, the unprofiled step: the profiler's own host
     work stretches the profiled one), the ten largest kernels, and the
     split (:func:`train_split`) into the training attention, the matrix
     products, the optimizer, the rest of the device time and the host
-    gap."""
+    gap.  ``split=False`` records the device only and reads its kernels
+    from the exported trace, with no split (a placed mesh step's hundreds
+    of thousands of CPU ops would take minutes to read)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with TrainRanges(), profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    ranges_on = TrainRanges() if split else contextlib.nullcontext()
+    if split:
+        activities.insert(0, ProfilerActivity.CPU)
+    with ranges_on, profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    # device-side events, less the ranges' spans (ours and autograd's:
-    # a span carries its CPU range's name)
-    ranges = {e.name for e in events if e.device_type != cuda}
     kernels = {}
-    for e in events:
-        if e.device_type == cuda and e.name not in ranges \
-                and not getattr(e, "is_user_annotation", False):
-            us, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    if split:
+        cuda = torch.autograd.DeviceType.CUDA
+        events = prof.events()
+        # device-side events, less the ranges' spans (ours and autograd's:
+        # a span carries its CPU range's name)
+        ranges = {e.name for e in events if e.device_type != cuda}
+        for e in events:
+            if e.device_type == cuda and e.name not in ranges \
+                    and not getattr(e, "is_user_annotation", False):
+                us, n = kernels.get(e.name, (0.0, 0))
+                kernels[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    else:
+        # the trace's kernel records, read from its JSON (building the
+        # profiler's event objects takes tens of seconds a placed step)
+        import os
+        import tempfile
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+        finally:
+            os.remove(path)
+        for e in trace.get("traceEvents", []):
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+                us, n = kernels.get(e["name"], (0.0, 0))
+                kernels[e["name"]] = (us + float(e.get("dur", 0)), n + 1)
     rows = [(us, n, name) for name, (us, n) in kernels.items()]
     busy = sum(r[0] for r in rows)
     if not busy:
@@ -5498,6 +5539,8 @@ def profile_train_step(step, smi: str, tag: str, step_ms: float) -> None:
         f"{1 - busy / 1e3 / step_ms:.3f} ({smi})")
     for dev, count, key in sorted(rows, reverse=True)[:10]:
         log(f"{tag}   {dev / 1e3:8.3f} ms {count:6d} calls  {key[:90]}")
+    if not split:
+        return
     split = train_split(events)
     cats = ("attention", "gemm", "optimizer", "other")
     log(f"{tag} split: training attention {split['attention'] / 1e3:.2f} "
@@ -5718,27 +5761,52 @@ def phase_train(smi: str) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 24: training over a rank mesh (make_train_step(mesh=) under
-# TrainConfig.sharding, build_train_step's shardings, attention_train by
-# blocks, moe training through the mesh paths, the elastic restore)
+# TrainConfig.sharding, build_train_step's shardings, every block of the
+# loss on the rank that holds it, moe training through the placed paths,
+# the elastic restore)
 # ---------------------------------------------------------------------------
 
-#: (a) / (b): phase 21 (a)'s weights and batches over 8 ranks of the card
+#: (a) / (b): phase 21 (a)'s weights and batches over 8 ranks of the card,
+#: (a) all 8 of them, (b) the first MESH_TP_STEPS
 MESH_TRAIN_SHAPE, MESH_TRAIN_AXES = (2, 4), ("data", "model")
 MESH_TP_STEPS = 3
 #: (a) / (b) limits against phase 21 (a)'s single-device run.  Step 0's
-#: loss is the same function with the training attention run by blocks
-#: (batch rows, or heads: fp32 products of other shapes): rtol 1e-5.
+#: loss is the same function with every product run by the rows of a
+#: batch block (the same products: rtol 1e-5, bitwise on an H100) and
+#: the training attention by blocks (fp32 products of other shapes).
+#: Under "tp" the products also split by output columns and by
+#: contraction over the ranks, bf16 products of other shapes that round
+#: to other bf16 values, and the reference's own jitted "tp" step
+#: leaves its one-device step's loss by 1.9e-5 at step 0
+#: (tests/test_torch_mesh_train.py::
+#: test_placed_steps_leave_one_device_as_the_reference_does, reduced
+#: llama3.2-3b in bf16 over (2, 4) CPU ranks; the port's 2.2e-5 there):
+#: MESH_TP_LOSS0_RTOL.
 #: Later losses: Adam moves a weight by about lr x sign(g) a step, and a
 #: grad within its error of zero may step either way, so the weights
 #: drift apart by up to 2 lr a step: rtol 1e-3.  grad_norm, the norm of
 #: bf16 cotangents summed per block in another order: rtol 1e-3 at step
 #: 0, 1e-2 later (phase 21 (b)'s)
-MESH_LOSS0_RTOL, MESH_LOSS_RTOL = 1e-5, 1e-3
+MESH_LOSS0_RTOL, MESH_LOSS_RTOL, MESH_TP_LOSS0_RTOL = 1e-5, 1e-3, 5e-5
 MESH_GNORM0_RTOL, MESH_GNORM_RTOL = 1e-3, 1e-2
-#: (c) deepseek-moe-16b at its published width, the depth cut to what fits
-#: beside 18 B a parameter (fp32 masters, grads, m, v, bf16 views); the
-#: batch (B divisible by 8 for ("data",) 8, S by 8 for ("model",) 8)
-MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 8, 512, 3
+#: (a) runs 8 steps.  Each of its two batch ranks sums one sequence's
+#: weight grads, rounded to bf16 on that rank, into the fp32 masters,
+#: where one device rounds the sum over both sequences once, and Adam
+#: carries that difference on: the grad_norms of the random model (10.4
+#: to 1.8 over the 8 steps) leave one device's by 1e-2 to 5e-2 at steps
+#: 5-6 (an H100 at 700 W), as the reference's sharded step leaves its
+#: one-device step (the test above).  One device's own step over the
+#: same batches in MESH_TWIN_MICROBATCHES microbatches makes the same
+#: per-sequence sums: every grad_norm of (a) is held within
+#: MESH_GNORM_RTOL of phase 21 (a)'s, or within MESH_DRIFT_FACTOR times
+#: the furthest that this twin strays from phase 21 (a)'s, and printed
+#: beside the twin's
+MESH_TWIN_MICROBATCHES, MESH_DRIFT_FACTOR = 2, 3.0
+#: (c) deepseek-moe-16b at its published width, the depth cut to 2 layers
+#: (4 fit beside 18 B a parameter: fp32 masters, grads, m, v, bf16 views;
+#: 2 keep the script within its time); the batch (B divisible by 8 for
+#: ("data",) 8, S by 8 for ("model",) 8)
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 2, 8, 512, 3
 #: (c) one layer on 8 card ranks against 8 CPU ranks: the tokens; fp32
 #: activations (the bf16 ones of the published config round the CPU's and
 #: the card's products apart, and the router then ranks experts apart:
@@ -5755,6 +5823,15 @@ MOE_XDEV_LOSS_RTOL, MOE_XDEV_GRAD_SHARE = 1e-4, 2 ** -5
 #: tests/test_torch_mesh_elastic.py, holds 1e-4)
 ELASTIC_B, ELASTIC_S, ELASTIC_STEPS = 4, 64, 10
 ELASTIC_EVERY, ELASTIC_FAIL, ELASTIC_RTOL = 5, 7, 1e-3
+#: (e) a batch every rank of (2, 4) holds a block of under "fsdp" (the
+#: batch over ("data", "model"): one sequence a rank, S = TRAIN_S) and
+#: its steps, against one device's steps over the same batches (60.8 GB
+#: reckoned by the walk; in 4 microbatches the fp32 accumulators take it
+#: past the card's 80 GB): the limits of (a) / (b)
+MESH_FULL_B, MESH_FULL_STEPS = 8, 3
+#: seconds the legs' walks (a process each, 17-21 s on the card's host),
+#: started once every leg is timed, may take
+MESH_WALK_TIMEOUT = 240
 
 
 def _within(a: float, b: float, rtol: float) -> bool:
@@ -5765,11 +5842,49 @@ def _loss_without_mesh(model, params, batch, tcfg) -> float:
     """The loss of ``batch`` against bf16 views of ``params`` gathered on
     the card, without a mesh (every moe FFN on the local path), under
     ``no_grad``."""
+    from repro_torch.launch.mesh import gather
     from repro_torch.launch.train import bf16_views
     with torch.no_grad():
+        views = {n: gather(v, "cuda") for n, v in bf16_views(params).items()}
         _, met = torch.func.functional_call(
-            model, bf16_views(params, "cuda"), (batch, tcfg.remat_policy))
+            model, views, (batch, tcfg.remat_policy))
     return float(met["loss"])
+
+
+def _mesh_walk(cfg, tcfg, B: int, S: int, shape=MESH_TRAIN_SHAPE,
+               axes=MESH_TRAIN_AXES):
+    """The op-cost walk of one placed step of ``cfg`` at B x S under
+    ``tcfg`` over ``meta`` ranks of ``shape``, all on one device as the
+    card's ranks are (``Walk(one_device=True)``): its ``peak_all`` is the
+    card's reckoned peak, its ``"gather"`` peer bytes a rank the blocks
+    each rank took (weights' ZeRO-3 blocks, activation rows), its FLOPs
+    the step's.  Returns (the walk, walk seconds)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.op_cost import Walk
+    mesh = make_test_mesh(shape, axes, devices="meta")
+    walk = Walk(mesh.size, one_device=True)
+    t0 = time.perf_counter()
+    with walk:
+        fn, arguments = build_cell(cfg, ShapeConfig("train", S, B, "train"),
+                                   mesh, tcfg)
+        walk.run(fn, arguments)
+    return walk, time.perf_counter() - t0
+
+
+def _mesh_walks(out: str, sharding: str, b: int) -> None:
+    """:func:`_mesh_walk` of one of phase 24's llama3.2-3b legs, for a
+    process of its own: writes the walk's ``peak_all``, its ``"gather"``
+    bytes a rank and seconds as JSON to ``out``."""
+    from repro_torch.configs import TrainConfig, get_config
+    walk, secs = _mesh_walk(get_config(TRAIN_ARCH), TrainConfig(
+        total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 10, 1),
+        sharding=sharding), b, TRAIN_S)
+    with open(out, "w") as f:
+        json.dump({"peak_all": walk.peak_all, "seconds": secs,
+                   "gather": [p.get("gather", 0) for p in walk.rank_paths]},
+                  f)
 
 
 def _mesh_train_run(cfg, tcfg, mesh, batches, before=None) -> dict:
@@ -5777,13 +5892,13 @@ def _mesh_train_run(cfg, tcfg, mesh, batches, before=None) -> dict:
     by ``build_train_step``'s ``shard_state`` over ``mesh`` (the model's
     own tensors released), one step a batch.  ``before(model, params)``
     runs first.  Returns the metrics, the step times, the peak allocation
-    (reset before the weights), the parameter count, the bytes each rank
-    holds, the ms of one bf16 gather of the views, and the model, state
-    and step."""
+    (reset before the weights) and the steps' own peak above what was
+    held before the weights (reset after the state is placed), the
+    parameter count, the bytes each rank holds, and the model, state and
+    step."""
     from repro_torch.data import batch_logical_axes
     from repro_torch.launch.mesh import rank_bytes
-    from repro_torch.launch.train import (bf16_views, build_train_step,
-                                          train_state)
+    from repro_torch.launch.train import build_train_step, train_state
     from repro_torch.models import moe
     from repro_torch.weights import init_params, params_axes
     torch.cuda.empty_cache()
@@ -5803,6 +5918,9 @@ def _mesh_train_run(cfg, tcfg, mesh, batches, before=None) -> dict:
         out["before"] = before(model, state.params)
     moe.PATH_COUNTS.clear()
     moe.RECOMPUTE_COUNTS.clear()
+    peak_init = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     metrics, times = [], []
     for batch in batches:
         torch.cuda.synchronize()
@@ -5811,26 +5929,52 @@ def _mesh_train_run(cfg, tcfg, mesh, batches, before=None) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in m.items()})
+    step_peak = torch.cuda.max_memory_allocated()
     out.update(metrics=metrics, times=times,
-               peak=torch.cuda.max_memory_allocated(),
+               peak=max(peak_init, step_peak), step_peak=step_peak - held,
                paths=dict(moe.PATH_COUNTS),
                recomputed=dict(moe.RECOMPUTE_COUNTS))
-    with torch.no_grad():
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        views = bf16_views(state.params, "cuda")
-        t1.record()
-        torch.cuda.synchronize()
-        out["gather_ms"] = t0.elapsed_time(t1)
-        del views
     out.update(model=model, state=state, step=step)
     return out
 
 
+def _single_run(cfg, base, batches) -> dict:
+    """One device's steps over ``batches`` from seed-``SEED`` fp32
+    weights under ``base``: phase 21 (a)'s keys (losses, grad_norms, ms:
+    the slower of steps 1-2, peak) for :func:`_held_against_single`."""
+    from repro_torch.launch.train import make_train_step, train_state
+    from repro_torch.weights import init_params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed=SEED, device="cuda",
+                        param_dtype=torch.float32)
+    state = train_state(model)
+    step = make_train_step(model, base)
+    losses, gnorms, times = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": gnorms,
+            "ms": 1e3 * max(times[1:]), "peak": peak}
+
+
 def _held_against_single(run: dict, single: dict, steps: int, tag: str,
-                         what: str, smi: str, checks: dict) -> None:
-    """Print and check a mesh run of llama3.2-3b against phase 21 (a)."""
+                         what: str, smi: str, checks: dict,
+                         loss0_rtol: float = MESH_LOSS0_RTOL,
+                         twin: dict = None) -> None:
+    """Print and check a mesh run of llama3.2-3b against one device's run
+    of the same batches (phase 21 (a)'s, or :func:`_single_run`'s for
+    (e)); with ``twin`` (one device's run of the same batches in
+    microbatches) every grad_norm within :data:`MESH_GNORM_RTOL` or
+    :data:`MESH_DRIFT_FACTOR` times the furthest the twin's strays."""
     gb = 1e9
     ms_ = run["metrics"]
     losses = [m["loss"] for m in ms_]
@@ -5842,25 +5986,51 @@ def _held_against_single(run: dict, single: dict, steps: int, tag: str,
         f"{a:.6f}/{b:.6f}" for a, b in zip(losses, single["losses"])))
     log(f"{tag} {what}: grad_norm " + " ".join(
         f"{a:.5f}/{b:.5f}" for a, b in zip(gnorms, single["grad_norms"])))
+    gnorm_rtol = MESH_GNORM_RTOL
+    if twin is not None:
+        def apart(xs):
+            return [abs(a - b) / abs(b)
+                    for a, b in zip(xs, single["grad_norms"])]
+        stray = max(apart(twin["grad_norms"]))
+        gnorm_rtol = max(MESH_GNORM_RTOL, MESH_DRIFT_FACTOR * stray)
+        log(f"{tag} {what}: one device in {MESH_TWIN_MICROBATCHES} "
+            "microbatches: losses " + " ".join(
+                f"{x:.6f}" for x in twin["losses"]) + "; grad_norm "
+            + " ".join(f"{x:.5f}" for x in twin["grad_norms"])
+            + "; grad_norm apart from one device's (twin / mesh) "
+            + " ".join(f"{a:.2e}/{b:.2e}" for a, b in zip(
+                apart(twin["grad_norms"]), apart(gnorms)))
+            + f"; the twin's furthest {stray:.3e}, the limit "
+            f"{gnorm_rtol:.3e}; mesh against the twin "
+            + " ".join(f"{abs(a - b) / abs(b):.2e}" for a, b in zip(
+                gnorms, twin["grad_norms"])))
     log(f"{tag} {what}: step ms " + " ".join(
         f"{1e3 * t:.1f}" for t in run["times"])
-        + f"; steady {ms:.1f} ms against phase 21's {single['ms']:.1f} ms "
-        f"= {ms / single['ms']:.3f}x; peak max_memory_allocated "
-        f"{run['peak'] / gb:.2f} GB (phase 21: {single['peak'] / gb:.2f} "
+        + f"; steady {ms:.1f} ms against one device's {single['ms']:.1f} "
+        f"ms = {ms / single['ms']:.3f}x; peak max_memory_allocated "
+        f"{run['peak'] / gb:.2f} GB (one device: {single['peak'] / gb:.2f} "
         f"GB; {run['held'] / gb:.2f} GB held before); per rank "
         + " ".join(f"{b / gb:.3f}" for b in run["rank_bytes"])
         + f" GB of masters and moments ({sum(run['rank_bytes']) / gb:.2f}"
-        f" GB); one bf16 gather of the views {run['gather_ms']:.2f} ms "
-        f"({smi})")
-    checks[f"{what}: step 0's loss within rtol {MESH_LOSS0_RTOL}"] = \
-        _within(losses[0], single["losses"][0], MESH_LOSS0_RTOL)
+        f" GB) ({smi})")
+    walk = run.get("walk")
+    if walk is not None:
+        log(f"{tag} {what}: the steps' own peak {run['step_peak'] / gb:.3f}"
+            f" GB above what was held, the walk's reckoning of one step on "
+            f"one card {walk['peak_all'] / gb:.3f} GB (ratio "
+            f"{run['step_peak'] / walk['peak_all']:.4f}; walked in "
+            f"{walk['seconds']:.1f} s); gathered a step (walk, \"gather\": "
+            "weights' ZeRO-3 blocks and activation rows) per rank "
+            + " ".join(f"{g / gb:.3f}" for g in walk["gather"]) + " GB")
+    checks[f"{what}: step 0's loss within rtol {loss0_rtol}"] = \
+        _within(losses[0], single["losses"][0], loss0_rtol)
     checks[f"{what}: every loss within rtol {MESH_LOSS_RTOL}"] = all(
         _within(a, b, MESH_LOSS_RTOL)
         for a, b in zip(losses, single["losses"]))
     checks[f"{what}: step 0's grad_norm within rtol {MESH_GNORM0_RTOL}"] = \
         _within(gnorms[0], single["grad_norms"][0], MESH_GNORM0_RTOL)
-    checks[f"{what}: every grad_norm within rtol {MESH_GNORM_RTOL}"] = all(
-        _within(a, b, MESH_GNORM_RTOL)
+    checks[f"{what}: every grad_norm within rtol {gnorm_rtol:.3e}"] = all(
+        _within(a, b, gnorm_rtol)
         for a, b in zip(gnorms, single["grad_norms"]))
     checks[f"{what}: peak under 80 GB"] = run["peak"] < 80e9
 
@@ -5928,18 +6098,11 @@ def phase_mesh_train(smi: str, single: dict) -> None:
     """Phase 24: training over ranks of the card (see the module
     docstring); ``single`` is phase 21 (a)'s run."""
     import dataclasses
-    import math
-    import shutil
+    import os
     import tempfile
-    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import TrainConfig, get_config
-    from repro_torch.data import batch_logical_axes, make_batch, to_device
+    from repro_torch.data import make_batch, to_device
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.train import (build_train_step, train_loop,
-                                          train_state)
-    from repro_torch.runtime import (NodeFailure, build_mesh,
-                                     elastic_restore, plan_remesh)
-    from repro_torch.weights import init_params, params_axes
     tag = "[mesh training]"
     t_phase = time.perf_counter()
     c0 = _counts()
@@ -5952,27 +6115,104 @@ def phase_mesh_train(smi: str, single: dict) -> None:
     B = single["B"]
     batches = [to_device(make_batch(cfg, B, TRAIN_S, i), "cuda")
                for i in range(TRAIN_STEPS)]
+    fbatches = [to_device(make_batch(cfg, MESH_FULL_B, TRAIN_S, i), "cuda")
+                for i in range(MESH_FULL_STEPS)]
     base = TrainConfig(total_steps=TRAIN_STEPS,
                        warmup_steps=max(TRAIN_STEPS // 10, 1))
-    for what, sharding, steps in (("(a) fsdp", "fsdp", TRAIN_STEPS),
-                                  ("(b) tp", "tp", MESH_TP_STEPS)):
+    legs = [("(a) fsdp", "fsdp", B, batches),
+            ("(b) tp", "tp", B, batches[:MESH_TP_STEPS]),
+            (f"(e) fsdp B = {MESH_FULL_B}", "fsdp", MESH_FULL_B, fbatches)]
+    # (e) every rank holds a batch block: one device steps the same batches
+    # first
+    refs = [single, single, _single_run(cfg, base, fbatches)]
+    runs = []
+    for (what, sharding, b, leg_batches), ref in zip(legs, refs):
+        t_leg = time.perf_counter()
         tcfg = dataclasses.replace(base, sharding=sharding)
-        run = _mesh_train_run(cfg, tcfg, mesh, batches[:steps])
-        _held_against_single(run, single, steps, tag, what, smi, checks)
+        steps = len(leg_batches)
+        run = _mesh_train_run(cfg, tcfg, mesh, leg_batches)
         checks[f"{what}: masters and moments stored once "
                f"({12 * run['n_par'] / gb:.2f} GB)"] = \
             sum(run["rank_bytes"]) == 12 * run["n_par"]
         checks[f"{what}: the model's own parameters released"] = all(
             p.numel() == 0 for p in run["model"].parameters())
         tail = sorted(run["times"][2:] if steps > 3 else run["times"][1:])
-        profile_train_step(lambda: run["step"](run["state"], batches[0]),
-                           smi, f"{tag} {what}", 1e3 * tail[len(tail) // 2])
-        del run
+        t_prof = time.perf_counter()
+        profile_train_step(
+            lambda: run["step"](run["state"], leg_batches[0]), smi,
+            f"{tag} {what}", 1e3 * tail[len(tail) // 2], split=False)
+        t_prof = time.perf_counter() - t_prof
+        del run["model"], run["state"], run["step"]
         torch.cuda.empty_cache()
+        log(f"{tag} {what} took {time.perf_counter() - t_leg:.1f} s "
+            f"(the profiled step and its reading {t_prof:.1f} s)")
+        runs.append((run, ref, steps, what, sharding))
+    # every leg is timed: each leg's walk in a process of its own, beside
+    # what follows, whose times are not compared (one device's twin of (a)
+    # in microbatches, (c), (d)); read after (d)
+    walk_outs, walkers = [], []
+    for _, sharding, b, _ in legs:
+        out = tempfile.NamedTemporaryFile(suffix=".json", delete=False)
+        out.close()
+        walk_outs.append(out.name)
+        walkers.append(subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             "sys.argv[1]); import chip_smoke; chip_smoke._mesh_walks("
+             "sys.argv[2], sys.argv[3], int(sys.argv[4]))", str(ROOT),
+             out.name, sharding, str(b)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+    try:
+        _mesh_train_rest(cfg, base, mesh, batches, runs, walkers,
+                         walk_outs, smi, tag, checks)
+    finally:
+        for w in walkers:
+            if w.poll() is None:
+                w.kill()
+            w.wait()
+            w.stderr.close()
+        for out in walk_outs:
+            os.unlink(out)
+    launched = {n: c for n, c in _since(c0).items() if c}
+    checks["no K1-K7 launch in mesh training"] = not launched
+    log(f"{tag} kernel launches in phase 24: {launched or 'none'}")
+    log(f"{tag} phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh training checks failed: {failed}")
+
+
+def _mesh_train_rest(cfg, base, mesh, batches, runs, walkers, walk_outs,
+                     smi: str, tag: str, checks: dict) -> None:
+    """Phase 24 after (a), (b) and (e) are timed, beside their walks
+    (``walkers``, writing ``walk_outs``): one device's twin of (a), (c)
+    and (d), whose times are not compared; then the walks read and every
+    leg held against one device."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import batch_logical_axes, make_batch, to_device
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import (build_train_step, train_loop,
+                                          train_state)
+    from repro_torch.runtime import (NodeFailure, build_mesh,
+                                     elastic_restore, plan_remesh)
+    from repro_torch.weights import init_params, params_axes
+    gb = 1e9
+    t_leg = time.perf_counter()
+    twin = _single_run(cfg, dataclasses.replace(
+        base, microbatches=MESH_TWIN_MICROBATCHES), batches)
     del batches
     torch.cuda.empty_cache()
+    log(f"{tag} one device's twin of (a) took "
+        f"{time.perf_counter() - t_leg:.1f} s")
 
     # (c) deepseek-moe-16b at published width, depth cut -------------------
+    t_leg = time.perf_counter()
     mcfg = dataclasses.replace(get_config("deepseek-moe-16b"),
                                num_layers=MOE_TRAIN_LAYERS)
     n_par = mcfg.param_count()
@@ -6001,7 +6241,7 @@ def phase_mesh_train(smi: str, single: dict) -> None:
             + f" (step 0 without a mesh, no_grad: {run['before']:.4f}); "
             f"aux " + " ".join(f"{m['aux']:.4f}" for m in run["metrics"])
             + f"; forward paths {run['paths']}, recomputed "
-            f"{run['recomputed']}; step ms " + " ".join(
+            f"{run['recomputed']}; step ms (beside the walks) " + " ".join(
                 f"{1e3 * t:.1f}" for t in run["times"])
             + f" (the slower of steps 1-2 {1e3 * tail[len(tail) // 2]:.1f}); "
             f"peak {run['peak'] / gb:.2f} GB; per rank " + " ".join(
@@ -6020,6 +6260,8 @@ def phase_mesh_train(smi: str, single: dict) -> None:
     torch.cuda.empty_cache()
     _moe_xdev_layer(dataclasses.replace(base, sharding="tp"), checks, tag)
     torch.cuda.empty_cache()
+    log(f"{tag} (c) took {time.perf_counter() - t_leg:.1f} s")
+    t_leg = time.perf_counter()
 
     # (d) elastic: a failure over 8 ranks, resumed on 4 ----------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
@@ -6072,15 +6314,23 @@ def phase_mesh_train(smi: str, single: dict) -> None:
         del model, state, step, example
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launched = {n: c for n, c in _since(c0).items() if c}
-    checks["no K1-K7 launch in mesh training"] = not launched
-    log(f"{tag} kernel launches in phase 24: {launched or 'none'}")
-    log(f"{tag} phase 24 took {time.perf_counter() - t_phase:.1f} s")
-    for name, ok in checks.items():
-        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"mesh training checks failed: {failed}")
+    log(f"{tag} (d) took {time.perf_counter() - t_leg:.1f} s")
+    t_leg = time.perf_counter()
+    walks = []
+    for w, out in zip(walkers, walk_outs):
+        err = w.communicate(timeout=MESH_WALK_TIMEOUT)[1]
+        if w.returncode != 0:
+            raise RuntimeError(f"a leg's walk failed: {err[-2000:]!r}")
+        with open(out) as f:
+            walks.append(json.load(f))
+    log(f"{tag} the walks of (a), (b) and (e) ended "
+        f"{time.perf_counter() - t_leg:.1f} s after (d)")
+    for (run, ref, steps, what, sharding), walk in zip(runs, walks):
+        run["walk"] = walk
+        _held_against_single(run, ref, steps, tag, what, smi, checks,
+                             MESH_TP_LOSS0_RTOL if sharding == "tp"
+                             else MESH_LOSS0_RTOL,
+                             twin if what == "(a) fsdp" else None)
 
 
 # ---------------------------------------------------------------------------
@@ -6914,8 +7164,11 @@ DRY_ARCH, DRY_B, DRY_S = TRAIN_ARCH, TRAIN_B, TRAIN_S
 DRY_PEAK_RTOL = 0.10
 #: (c) the sweep's share of the phase: seconds, worker processes (every
 #: serving cell is placed: the cheapest prefill_32k cell,
-#: paligemma-3b's, walks in 50-65 s on a CPU)
-DRY_SWEEP_S, DRY_WORKERS = 80.0, 6
+#: paligemma-3b's, walks in 50-65 s on a CPU, over 80 s on a slow host),
+#: and the seconds its running cells may go on past them while no cell
+#: of a kind of DRY_SWEEP_KINDS has walked to ok
+DRY_SWEEP_S, DRY_WORKERS, DRY_SWEEP_GRACE_S = 80.0, 6, 60.0
+DRY_SWEEP_KINDS = frozenset({"prefill_32k", "decode_32k"})
 
 
 class _NoModules:
@@ -6959,11 +7212,20 @@ def _sweep_cells() -> list:
     return sorted(((a, s) for a in list_archs() for s in SHAPES), key=weight)
 
 
-def dry_sweep(budget_s: float, workers: int, tag: str) -> dict:
+def _sweep_kinds_ok(rows) -> bool:
+    """Whether a cell of every kind of :data:`DRY_SWEEP_KINDS` walked to
+    ok."""
+    return {r["shape"] for r in rows if r["status"] == "ok"} >= \
+        DRY_SWEEP_KINDS
+
+
+def dry_sweep(budget_s: float, workers: int, grace_s: float = 0.0) -> dict:
     """``python -m repro_torch.launch.dryrun --mesh single`` over every
     cell, one process a cell, ``workers`` at once, for ``budget_s``
-    seconds: a cell still running then is stopped and counted as not
-    finished.  Returns the rows and the counts."""
+    seconds (and the cells then running for up to ``grace_s`` more while
+    :func:`_sweep_kinds_ok` is not yet true): a cell still running then is
+    stopped and counted as not finished.  Returns the rows and the
+    counts."""
     import os
     import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -6997,7 +7259,10 @@ def dry_sweep(budget_s: float, workers: int, tag: str) -> dict:
                     if item[0].poll() is not None:
                         running.remove(item)
                         reap(*item)
-                if time.perf_counter() - t0 >= budget_s:
+                elapsed = time.perf_counter() - t0
+                if elapsed >= budget_s and (
+                        elapsed >= budget_s + grace_s or not running
+                        or _sweep_kinds_ok(rows)):
                     break
                 time.sleep(0.2)
         finally:
@@ -7008,7 +7273,12 @@ def dry_sweep(budget_s: float, workers: int, tag: str) -> dict:
          for s in ("ok", "skip", "error")}
     n["not finished"] = len(running) + len(cells)
     n["seconds"] = time.perf_counter() - t0
-    for r in rows:
+    return {"rows": rows, "counts": n}
+
+
+def _log_sweep(sweep: dict, tag: str) -> None:
+    """One line a row of :func:`dry_sweep`."""
+    for r in sweep["rows"]:
         what = r.get("dominant") or r.get("reason") or r.get("error", "")
         extra = ""
         if r["status"] == "ok":
@@ -7020,48 +7290,97 @@ def dry_sweep(budget_s: float, workers: int, tag: str) -> dict:
                      f"GiB, walk {r['compile_s']} s")
         log(f"{tag} (c) {r['arch']} {r['shape']}: {r['status']} "
             f"{str(what)[:100]}{extra}")
-    return {"rows": rows, "counts": n}
 
 
 def phase_dryrun(smi: str) -> None:
-    """Phase 25: the dry-run.  (a) llama3.2-3b at phase 21's cell, one
-    device: the walk over ``meta`` against the real step on the card, in
-    the same call: its peak against ``max_memory_allocated``, its FLOPs
-    against ``FlopCounterMode``'s over the step (equal: the same formulas
-    over the same ops), its roofline time against the step's device busy
-    ms (a bound: at most the busy time).  (b) phase 5's serving cells at
+    """Phase 25: the dry-run.  (a) llama3.2-3b at phase 21's cell, the
+    placed step over (2, 4) ranks of the card (``"fsdp"``): the walk over
+    ``meta`` ranks sharing one device (``Walk(one_device=True)``) against
+    the real step, in the same call: its peak against
+    ``max_memory_allocated``, its FLOPs over the ranks against
+    ``FlopCounterMode``'s over the step (equal: the same formulas over the
+    same ops), its roofline time (every rank's FLOPs and bytes on one
+    card) against the step's device busy ms (a bound: at most the busy
+    time).  (b) phase 5's serving cells at
     full width: one decode round's K2 calls (8 sequences x 64 blocks, the
     identity layout full) and a 512-token prefill's K3 calls, the walk's
     bytes a call equal to the bound bytes of phases 2 and 4's rule over
     card tensors of the same call.  (c) the ``--mesh single`` sweep, as
-    much of it as :data:`DRY_SWEEP_S` holds."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
-    from repro_torch.data import make_batch, to_device
-    from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.train import make_train_step, train_state
-    from repro_torch.models.paged import identity_layout
-    from repro_torch.weights import init_params
+    much of it as :data:`DRY_SWEEP_S` holds (longer, up to
+    :data:`DRY_SWEEP_GRACE_S`, until a cell of each kind is ok), in
+    processes beside (a) and (b)."""
     tag = "[dry-run]"
     t_phase = time.perf_counter()
     checks = {}
+    # (c) the sweep, in processes beside (a) and (b), read after them
+    box = {}
+
+    def sweep_run():
+        try:
+            box["sweep"] = dry_sweep(DRY_SWEEP_S, DRY_WORKERS,
+                                     DRY_SWEEP_GRACE_S)
+        except BaseException as e:      # re-raised in the phase
+            box["error"] = e
+
+    sweeper = threading.Thread(target=sweep_run)
+    sweeper.start()
+    try:
+        _dryrun_walk_checks(smi, checks, tag)
+    finally:
+        sweeper.join()
+    if "error" in box:
+        raise box["error"]
+
+    # (c) the sweep -----------------------------------------------------
+    sweep = box["sweep"]
+    _log_sweep(sweep, tag)
+    n = sweep["counts"]
+    log(f"{tag} (c) --mesh single sweep: {n['ok']} ok, {n['skip']} skip, "
+        f"{n['error']} error, {n['not finished']} not finished in "
+        f"{n['seconds']:.1f} s ({DRY_WORKERS} processes, a "
+        f"{DRY_SWEEP_S:.0f} s budget, up to {DRY_SWEEP_GRACE_S:.0f} s more "
+        "for a cell of each kind; beside (a) and (b))")
+    checks["(c) no sweep cell errs"] = n["error"] == 0
+    checks["(c) the sweep reached a cell of each kind"] = \
+        _sweep_kinds_ok(sweep["rows"])
+    log(f"{tag} phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"dry-run checks failed: {failed}")
+
+
+def _dryrun_walk_checks(smi: str, checks: dict, tag: str) -> None:
+    """Phase 25 (a) and (b) (see :func:`phase_dryrun`)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config
+    from repro_torch.data import batch_logical_axes, make_batch, to_device
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import build_train_step, train_state
+    from repro_torch.models.paged import identity_layout
+    from repro_torch.weights import init_params, params_axes
     one = make_test_mesh((1, 1), devices="meta")
     gb = 1e9
 
-    # (a) the walk against the real step --------------------------------
+    # (a) the walk against the real placed step ---------------------------
     cfg = get_config(DRY_ARCH)
-    shape = ShapeConfig("train", DRY_S, DRY_B, "train")
-    walk, row, t_walk = _dry_walk(cfg, shape, one)
-    walk_peak = walk.peak[0]
+    walk, t_walk = _mesh_walk(cfg, TrainConfig(), DRY_B, DRY_S)
+    walk_peak, walk_flops = walk.peak_all, sum(walk.flops)
+    walk_bytes = sum(walk.bytes)
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     model = init_params(cfg, seed=SEED, device="cuda",
                         param_dtype=torch.float32)
-    state = train_state(model)
-    step = make_train_step(model, TrainConfig())
+    mesh = make_test_mesh(MESH_TRAIN_SHAPE, MESH_TRAIN_AXES, devices="cuda")
+    step, shard_state, _ = build_train_step(
+        model, TrainConfig(), mesh, params_axes(model),
+        batch_logical_axes(cfg))
+    state = train_state(model, shard_state(dict(model.named_parameters())))
     batch = to_device(make_batch(cfg, DRY_B, DRY_S, 0), "cuda")
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state, _ = step(state, batch)
     torch.cuda.synchronize()
@@ -7085,22 +7404,23 @@ def phase_dryrun(smi: str) -> None:
                if e.device_type == cuda) / 1e3
     del model, state, step, batch, fc, prof
     torch.cuda.empty_cache()
-    t_roof = max(row["t_compute_s"], row["t_memory_s"]) * 1e3
-    log(f"{tag} (a) {DRY_ARCH} train B = {DRY_B} x S = {DRY_S}, one "
-        f"device: walk {row['ops']:,} ops in {t_walk:.1f} s; peak "
-        f"{walk_peak / gb:.3f} GB reckoned (arguments "
-        f"{row['memory']['argument_size_in_bytes'] / gb:.3f} GB), "
+    # one card computes every rank's blocks: its roofline is the ranks'
+    # FLOPs and bytes together
+    t_roof = max(walk_flops / cost.BF16_FLOPS,
+                 walk_bytes / cost.HBM_BYTES_PER_S) * 1e3
+    log(f"{tag} (a) {DRY_ARCH} train B = {DRY_B} x S = {DRY_S}, the placed "
+        f"step over {MESH_TRAIN_SHAPE} ranks of one device (\"fsdp\"): walk "
+        f"{walk.ops:,} ops in {t_walk:.1f} s; peak {walk_peak / gb:.3f} GB "
+        f"reckoned (arguments {sum(walk.arguments) / gb:.3f} GB), "
         f"max_memory_allocated {peak / gb:.3f} GB (ratio "
-        f"{walk_peak / peak:.4f}); FLOPs {walk.flops[0]:.6e} reckoned, "
-        f"FlopCounterMode {real_flops:.6e}; HBM bytes "
-        f"{walk.bytes[0]:.6e}; roofline {t_roof:.2f} ms ({row['dominant']}"
-        f"-bound: compute {row['t_compute_s'] * 1e3:.2f}, memory "
-        f"{row['t_memory_s'] * 1e3:.2f} ms) against the step's device "
-        f"busy {busy:.2f} ms ({t_roof / busy:.3f} of it) and wall "
-        f"{step_ms:.1f} ms ({smi})")
+        f"{walk_peak / peak:.4f}); FLOPs {walk_flops:.6e} reckoned, "
+        f"FlopCounterMode {real_flops:.6e}; HBM bytes {walk_bytes:.6e}; "
+        f"roofline {t_roof:.2f} ms against the step's device busy "
+        f"{busy:.2f} ms ({t_roof / busy:.3f} of it) and wall {step_ms:.1f} "
+        f"ms ({smi})")
     checks.update({
         "(a) the walk's FLOPs equal FlopCounterMode's":
-            walk.flops[0] == real_flops,
+            walk_flops == real_flops,
         f"(a) the walk's peak within {DRY_PEAK_RTOL:.0%} of "
         "max_memory_allocated": abs(walk_peak / peak - 1) <= DRY_PEAK_RTOL,
         "(a) the roofline time at most the device busy time":
@@ -7151,24 +7471,6 @@ def phase_dryrun(smi: str) -> None:
             k3["bytes"] == want3.bytes * k3["calls"]
             and want3.bytes == 8_388_608,
     })
-
-    # (c) the sweep -----------------------------------------------------
-    sweep = dry_sweep(DRY_SWEEP_S, DRY_WORKERS, tag)
-    n = sweep["counts"]
-    log(f"{tag} (c) --mesh single sweep: {n['ok']} ok, {n['skip']} skip, "
-        f"{n['error']} error, {n['not finished']} not finished in "
-        f"{n['seconds']:.1f} s ({DRY_WORKERS} processes, a "
-        f"{DRY_SWEEP_S:.0f} s budget)")
-    checks["(c) no sweep cell errs"] = n["error"] == 0
-    checks["(c) the sweep reached a cell of each kind"] = {
-        r["shape"] for r in sweep["rows"] if r["status"] == "ok"} >= {
-        "prefill_32k", "decode_32k"}
-    log(f"{tag} phase 25 took {time.perf_counter() - t_phase:.1f} s")
-    for name, ok in checks.items():
-        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"dry-run checks failed: {failed}")
 
 
 # ---------------------------------------------------------------------------

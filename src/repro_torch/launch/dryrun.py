@@ -16,7 +16,10 @@ the published peaks (``kernels/cost.py``), not a measurement.
 
 A cell is the reference's: train the fp32 masters placed by
 ``build_train_step``'s ``shard_state`` and ``train_state`` over a batch of
-``data.batch_specs`` (``TrainConfig()``, ``"fsdp"``); prefill the bf16
+``data.batch_specs`` placed by its ``batch_shardings`` (``TrainConfig()``,
+``"fsdp"``), the step computing every block of the loss and its backward
+on the rank that holds it (each rank's ZeRO-3 gathers count to
+``"gather"``, the loss's partial sums to ``"loss"``); prefill the bf16
 weights' ``prefill(tokens, mesh=)`` (``prefill_state`` for the vlm, ssm,
 hybrid and encdec families), every family's weights placed over the mesh
 by ``weights.place_params`` as the reference's ``tree_shardings`` places
@@ -32,8 +35,10 @@ dispatch), ``"pages"`` (a facade prefill's K/V into the slabs), and a
 Mamba2 layer's ``"ssm_columns"`` (the ``w_in`` product's column joins),
 ``"ssm_bc"`` (the B / C gathers) and ``"gate_norm"`` (the gate norm's
 sums of squares).  Rows carry
-the reference's keys (``benchmarks/roofline.py table`` reads them); the
-"collective" term is the busiest rank's peer bytes over NVLink.
+the reference's keys (``benchmarks/roofline.py table`` reads them) and
+the port's ``busiest_rank``, ``temp_range_bytes`` (the least and the most
+temporary bytes of any rank), ``kernels`` and ``ops``; the "collective"
+term is the busiest rank's peer bytes over NVLink.
 
 CLI:
 
@@ -48,7 +53,7 @@ import json
 import os
 import time
 import traceback
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -94,13 +99,16 @@ def declared_appends(table: np.ndarray, fill: int, page: int,
 
 
 def build_cell(arch: Union[str, ModelConfig],
-               shape: Union[str, ShapeConfig], mesh: DeviceMesh
+               shape: Union[str, ShapeConfig], mesh: DeviceMesh,
+               tcfg: Optional[TrainConfig] = None
                ) -> Tuple[Callable[[], object], object]:
     """``(fn, arguments)`` of one cell on ``mesh`` (its ranks on
     ``meta``): ``fn()`` runs the cell's step, ``arguments`` holds what
     the reference passes the compiled step (the state, the weights, the
-    batch).  Build it inside an active :class:`~repro_torch.launch
-    .op_cost.Walk`, which places the tensors on their ranks."""
+    batch).  ``tcfg``: a train cell's ``TrainConfig`` (default the
+    reference's ``TrainConfig()``).  Build it inside an active
+    :class:`~repro_torch.launch.op_cost.Walk`, which places the tensors on
+    their ranks."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     dev = mesh.devices[0]
@@ -108,7 +116,7 @@ def build_cell(arch: Union[str, ModelConfig],
     if shape.kind == "train":
         model = LanguageModel(cfg, dev, param_dtype=torch.float32)
         step, shard_state, batch_shardings = build_train_step(
-            model, TrainConfig(), mesh, params_axes(model),
+            model, tcfg or TrainConfig(), mesh, params_axes(model),
             batch_logical_axes(cfg))
         state = train_state(model, shard_state(dict(model.named_parameters())))
         batch = {k: _empty(s, dt, dev)
@@ -169,6 +177,7 @@ def analyse(walk: Walk, cfg: ModelConfig, shape: ShapeConfig,
     FLOPs by the reference's formula (6 N D for train, else 2 N D, over
     the ranks)."""
     r = walk.busiest()
+    t = [p - a for p, a in zip(walk.peak, walk.arguments)]
     terms = walk.terms(r)
     flops, byts = walk.flops[r], walk.bytes[r]
     t_compute, t_memory, t_coll = (terms["compute"], terms["memory"],
@@ -206,6 +215,8 @@ def analyse(walk: Walk, cfg: ModelConfig, shape: ShapeConfig,
         "roofline_fraction": per_dev / cost.BF16_FLOPS / worst
         if worst > 0 else 0.0,
         "busiest_rank": r,
+        # the least and the most temporary bytes of any rank
+        "temp_range_bytes": [min(t), max(t)],
         "kernels": walk.kernels,
         "ops": walk.ops,
     }

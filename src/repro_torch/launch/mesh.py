@@ -264,17 +264,23 @@ class Sharding:
 
 class Sharded:
     """A tensor held as the blocks of its :class:`Sharding`, each on the
-    device of the lowest rank that holds it (:func:`place`)."""
+    device of the lowest rank that holds it (:func:`place`).  With
+    ``cast``, the value is the blocks read as that dtype: :func:`take` and
+    :func:`gather` cast each block's part on its owner as they read it (a
+    training step's bf16 view of its fp32 masters, whose readers' grads
+    then meet in fp32 on the masters)."""
 
     def __init__(self, sharding: Sharding, shape: Sequence[int],
-                 blocks: Dict[Tuple[int, ...], torch.Tensor]):
+                 blocks: Dict[Tuple[int, ...], torch.Tensor],
+                 cast: Optional[torch.dtype] = None):
         self.sharding = sharding
         self.shape = torch.Size(shape)
         self.blocks = blocks
+        self.cast = cast
 
     @property
     def dtype(self) -> torch.dtype:
-        return next(iter(self.blocks.values())).dtype
+        return self.cast or next(iter(self.blocks.values())).dtype
 
     @property
     def ndim(self) -> int:
@@ -347,6 +353,7 @@ def gather(x: Union[torch.Tensor, Sharded], device=None,
     through :func:`place` is bitwise."""
     if isinstance(x, torch.Tensor):
         return x.to(dtype or x.dtype).to(device or x.device)
+    dtype = dtype or x.cast
     mesh = x.sharding.mesh
     # the rank that receives: the first block's owner, or the lowest rank
     # on ``device`` (None: a device outside the mesh)
@@ -406,9 +413,9 @@ def take(x: Union[torch.Tensor, Sharded], rank: int,
          path: str = "gather") -> torch.Tensor:
     """``x[index]`` on ``rank`` (``index``: one step-1 slice per leading
     dimension, the rest whole): each block's part of the slice moves from
-    its owner (a view where the owner is ``rank``) and the parts are
-    joined there.  A whole tensor (``mesh`` then names the mesh) moves as
-    its slice."""
+    its owner (a view where the owner is ``rank``; cast there first when
+    ``x.cast`` says so) and the parts are joined there.  A whole tensor
+    (``mesh`` then names the mesh) moves as its slice."""
     if not isinstance(x, Sharded):
         return to_rank(x[tuple(index)], mesh, rank, path=path)
     sh = x.sharding
@@ -431,13 +438,15 @@ def take(x: Union[torch.Tensor, Sharded], rank: int,
         parts[tuple(k for k, _ in combo)] = (
             x.blocks[tuple(b for _, (b, _) in combo)],
             tuple(s for _, (_, s) in combo) + rest)
-    if WALK is not None and len(parts) > 1:
+    if WALK is not None and (len(parts) > 1 or x.cast is not None):
         return WALK.join(list(parts.values()),
-                         [hi - lo for lo, hi in ranges], rank, path)
+                         [hi - lo for lo, hi in ranges], rank, path, x.cast)
 
     def part(t, index):
         if any(s.start or s.stop < n for s, n in zip(index, t.shape)):
             t = t[index]        # a view; a whole block is taken as is
+        if x.cast is not None:
+            t = t.to(x.cast)    # on the block's own device
         return to_rank(t, sh.mesh, rank, path=path)
 
     with rank_scope(rank):

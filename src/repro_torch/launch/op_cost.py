@@ -39,7 +39,8 @@ backward and checkpoint recomputations included, per rank of a mesh:
   ``model``, ``"lse_combine"``; ``"other"`` for an operand read where it
   lies);
 * **peak live bytes** per rank: every storage an op makes is live from
-  its op until the storage is freed.
+  its op until the storage is freed; ``peak_all`` is the peak of their sum
+  over the ranks (what one device that holds every rank would hold).
 
 The walk reckons ``meta`` tensors only: any other tensor in its ops
 raises (a host scalar, an empty host tensor and a host array uploaded
@@ -147,6 +148,78 @@ class _Move(torch.autograd.Function):
             return g.clone(), None, None, None, None
 
 
+class _Join(torch.autograd.Function):
+    """:meth:`Walk.join` under autograd: its backward hands each piece its
+    slice of the grad on the piece's rank, counted to the join's path.
+    Many joins read one piece (every rank's gather of a weight's ZeRO-3
+    blocks), and autograd would sum their grads with an op a pair: the
+    first grad a piece receives in a backward pass is a tensor of the
+    piece's shape on its rank, and each later one is reckoned as that
+    add (the buffer read and written again) and handed over as None, so
+    the walk runs one op a piece, not one a reader and piece."""
+
+    @staticmethod
+    def forward(ctx, walk, rank, path, shape, indices, dtype, *tensors):
+        ctx.walk, ctx.rank, ctx.path = walk, rank, path
+        # each piece's autograd identity: its node and output, or a leaf
+        edges = [None if not t.requires_grad else
+                 (t.grad_fn, t.output_nr) if t.grad_fn is not None
+                 else (t, 0) for t in tensors]
+        # every rank joins the same pieces (a weight's blocks): their
+        # description is made once and shared by the joins' contexts,
+        # keyed by the pieces' nodes, which the entry holds (so their ids
+        # stay unique while it lives)
+        key = None if None in edges else \
+            (tuple((id(e[0]), e[1]) for e in edges), indices, dtype)
+        ctx.pieces = walk._join_pieces.get(key)
+        if ctx.pieces is None:
+            # a grad moves as the piece was read (``dtype``) and is summed
+            # in the piece's own dtype where it lies
+            ctx.pieces = tuple(
+                (tuple(t.shape), t.dtype, walk.rank_of(t), edge,
+                 _slice_bytes(t.shape, dtype or t.dtype, index),
+                 _slice_bytes(t.shape, t.dtype, ()))
+                for t, index, edge in zip(tensors, indices, edges))
+            if key is not None:
+                walk._join_pieces[key] = ctx.pieces
+        return walk._join(list(zip(tensors, indices)), shape, rank, path,
+                          dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        walk, grads = ctx.walk, []
+        task = torch._C._current_graph_task_id()
+        for shape, dtype, src, edge, n, full in ctx.pieces:
+            if edge is None:
+                grads.append(None)
+                continue
+            key = (task, id(edge[0]), edge[1])
+            first = key not in walk._grads_seen
+            if first:
+                walk._grads_seen.add(key)
+                with walk._moving(src, ctx.path):
+                    grads.append(torch.empty(shape, dtype=dtype,
+                                             device="meta"))
+            else:
+                grads.append(None)
+            if walk._counting:
+                walk.bytes[ctx.rank] += n
+                walk.bytes[src] += full if first else 3 * full
+                if src != ctx.rank:
+                    walk.peer[src] += n
+                    walk.rank_paths[src][ctx.path] += n
+        return (None,) * 6 + tuple(grads)
+
+
+def _slice_bytes(shape, dtype, index) -> int:
+    """Bytes of the slice ``index`` (leading step-1 slices) of a tensor of
+    ``shape`` and ``dtype``."""
+    n = dtype.itemsize
+    for i, size in enumerate(shape):
+        n *= len(range(*index[i].indices(size))) if i < len(index) else size
+    return n
+
+
 class _Mode(TorchDispatchMode):
     def __init__(self, walk: "Walk"):
         super().__init__()
@@ -161,10 +234,16 @@ class Walk:
     cell's tensors on ``meta`` inside (they are placed, nothing is
     counted), then :meth:`run` the function: the counts are of that call.
     ``fill``: the declared tokens each sequence of a serve state holds
-    after a decode step's append (K2's shape-only form)."""
+    after a decode step's append (K2's shape-only form).  ``one_device``:
+    the ranks share one device (a mesh of ranks on one card), so a move
+    between ranks is the tensor itself, as ``.to`` of its own device
+    returns it, not a copy (its bytes still count as peer bytes to its
+    path): ``peak_all`` is then that device's peak."""
 
-    def __init__(self, n_ranks: int = 1, *, fill: Optional[int] = None):
+    def __init__(self, n_ranks: int = 1, *, fill: Optional[int] = None,
+                 one_device: bool = False):
         self.n = int(n_ranks)
+        self.one_device = one_device
         self.declared = {"fill": fill}
         self._cache: Dict = {}
         self._storages: Dict[int, list] = {}
@@ -173,6 +252,10 @@ class Walk:
         self._scope: Optional[int] = None
         self._dest: Optional[int] = None
         self._path = "other"
+        #: the pieces a join's backward has handed a grad, by graph task
+        self._grads_seen = set()
+        #: the description of each set of pieces joined under autograd
+        self._join_pieces: Dict = {}
         self._mode = _Mode(self)
         self.reset()
 
@@ -189,6 +272,7 @@ class Walk:
         self.kernels: Dict[str, Dict[str, float]] = {}
         self.live = [0] * n
         self.peak = [0] * n
+        self.live_all = self.peak_all = 0
         self.arguments = [0] * n
         self.outputs = [0] * n
         self.aliased = [0] * n
@@ -245,6 +329,8 @@ class Walk:
                 raise WalkError(f"the walk reckons meta tensors only, not a "
                                 f"{tuple(t.shape)} tensor on {t.device}")
         self.reset()
+        self._grads_seen.clear()
+        self._join_pieces.clear()
         for e in self._storages.values():
             e[2] = False
         seen = set()
@@ -306,11 +392,15 @@ class Walk:
         e = self._storages.pop(key, None)
         if e is not None and e[2]:
             self.live[e[0]] -= e[1]
+            self.live_all -= e[1]
 
     def _grow(self, rank: int, n: int) -> None:
         self.live[rank] += n
+        self.live_all += n
         if self.live[rank] > self.peak[rank]:
             self.peak[rank] = self.live[rank]
+        if self.live_all > self.peak_all:
+            self.peak_all = self.live_all
 
     def rank_of(self, t: torch.Tensor) -> int:
         """The rank ``t`` lies on (0 for one the walk has not placed)."""
@@ -328,6 +418,7 @@ class Walk:
         elif e[0] != rank:
             if e[2]:
                 self.live[e[0]] -= e[1]
+                self.live_all -= e[1]
                 self._grow(int(rank), e[1])
             e[0] = int(rank)
 
@@ -336,33 +427,53 @@ class Walk:
              ) -> torch.Tensor:
         """``t`` on ``rank``: itself (or a copy, ``copy``) where it lies
         there already, else a copy whose bytes count to ``path``."""
-        if self.rank_of(t) == rank:
+        src = self.rank_of(t)
+        if src == rank:
             return t.to(t.device, memory_format=memory_format, copy=copy)
+        if self.one_device:
+            with self._moving(int(rank), path):
+                out = t.to(t.device, memory_format=memory_format, copy=copy)
+            if out is t and self._counting:
+                self.peer[rank] += cost.nbytes(t)
+                self.rank_paths[rank][path] += cost.nbytes(t)
+            return out
         if not torch.is_grad_enabled():
             with self._moving(int(rank), path):
                 return t.clone(memory_format=memory_format)
         return _Move.apply(t, self, int(rank), path, memory_format)
 
-    def join(self, pieces, shape, rank: int, path: str) -> torch.Tensor:
+    def join(self, pieces, shape, rank: int, path: str,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """The tensor of ``shape`` that ``launch.mesh.take`` joins on
         ``rank`` from ``pieces`` ((tensor, index) pairs, each piece the
         tensor's slice ``index``), counted as one op that reads every
         piece where it lies and writes the result (as a collective writes
         its output buffer): the bytes from other ranks count to ``path``.
-        Reckoned from the shapes, without a view or a copy a piece."""
-        rank = int(rank)
+        With ``dtype`` each piece is read as that dtype (cast where it
+        lies: the bytes that move are the cast's), and so is the result.
+        Reckoned from the shapes, without a view or a copy a piece; under
+        autograd (a piece that requires grad) backward hands each piece
+        its slice of the grad on the piece's rank, counted to ``path``."""
+        tensors = [t for t, _ in pieces]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            return _Join.apply(self, int(rank), path, tuple(shape),
+                               tuple(tuple(index) for _, index in pieces),
+                               dtype, *tensors)
+        return self._join(pieces, shape, int(rank), path, dtype)
+
+    def _join(self, pieces, shape, rank: int, path: str,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         with self._moving(rank, path):
-            out = torch.empty(shape, dtype=pieces[0][0].dtype, device="meta")
+            out = torch.empty(shape, dtype=dtype or pieces[0][0].dtype,
+                              device="meta")
         if self._counting:
             self.bytes[rank] += cost.nbytes(out)
             for t, index in pieces:
-                n = t.element_size()
-                for s, size in zip(index, t.shape):
-                    n *= len(range(*s.indices(size)))
-                for dim in t.shape[len(index):]:
-                    n *= dim
+                n = _slice_bytes(t.shape, dtype or t.dtype, index)
                 src = self.rank_of(t)
-                self.bytes[src] += n
+                # the piece read where it lies (and its cast written there)
+                self.bytes[src] += n if dtype is None else \
+                    n + _slice_bytes(t.shape, t.dtype, index)
                 if src != rank:
                     self.peer[rank] += n
                     self.rank_paths[rank][path] += n

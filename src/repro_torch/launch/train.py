@@ -7,10 +7,11 @@ Mixed precision is the reference's ``cast_bf16``: the fp32 master weights
 are held as the model's parameters, and each step computes the loss
 against bf16 views of every fp32 parameter with ``ndim > 1`` (``conv_w``
 and the moe router included; 1-D leaves stay fp32).  The views are made
-through autograd, so the grads land on the fp32 masters; the model runs
-with them in place of its parameters (``torch.func.functional_call``)
-through its forward AND its backward, because backward recomputes the
-checkpointed blocks from the module's attributes.  At the reduced
+through autograd, so the grads land on the fp32 masters; the views are
+set on the model's modules in place of its parameters for the call
+(:func:`_views_set`), through its forward AND its backward, because
+backward recomputes the checkpointed blocks from the module's
+attributes.  At the reduced
 configs (fp32 activations) the bf16-rounded weights then meet fp32
 activations, as in the reference.
 
@@ -23,11 +24,15 @@ parameter's ``launch.mesh.Sharding`` from its logical axes
 (``weights.params_axes``), and ``train_state(model, shardings)`` places
 the fp32 masters and both moments as the blocks each rank's coordinates
 select, each once, on its rank's device, releasing the model's own
-tensors.  A step casts each block to bf16 where it lies and gathers the
-views on the loss device (the mesh's first rank's), where the loss runs
-whole but for a moe FFN's mesh path and the training attention, which
-run rank by rank; autograd brings each block its grads, and AdamW updates
-each block where it lies.
+tensors.  A step casts each block to bf16 where it lies (the views stay
+placed: nothing is gathered whole), sets the views on the model's modules
+for the call, lays the batch out by the reference's batch shardings, and
+the model computes every block of the loss, and of its backward and
+backward's recomputations, on the rank that holds it
+(``LanguageModel.loss_fn(mesh=)``): a weight's ZeRO-3 dimension gathered
+on each rank for its use, the partial products summed into their blocks,
+the loss's sums added on the mesh's first rank.  Autograd brings each
+block its grads where it lies, and AdamW updates each block there.
 
 CLI (CPU-sized by default, ``--full`` for the published width):
 
@@ -37,17 +42,17 @@ CLI (CPU-sized by default, ``--full`` for the published width):
 from __future__ import annotations
 
 import argparse
+import contextlib
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.data import batch_logical_axes, make_batch, to_device
-from repro_torch.launch.mesh import (DeviceMesh, gather, pieces, place,
-                                     sharding_for, tree_shardings,
-                                     with_pieces)
+from repro_torch.launch.mesh import (DeviceMesh, Sharded, gather, map_blocks,
+                                     pieces, place, sharding_for, take,
+                                     tree_shardings, with_pieces)
 from repro_torch.models.lm import LanguageModel
 from repro_torch.optim import AdamWState, apply_updates, init_state
 from repro_torch.runtime import HeartbeatLedger, NodeFailure
@@ -90,30 +95,82 @@ def train_state(model: LanguageModel,
     return TrainState(params, init_state(params))
 
 
-def bf16_views(params: Dict, device=None) -> Dict[str, torch.Tensor]:
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """The reference's ``cast_bf16`` of one tensor: bf16 for an fp32
+    tensor of ``ndim > 1``, else itself."""
+    return t.to(torch.bfloat16) if t.dtype == torch.float32 and t.ndim > 1 \
+        else t
+
+
+def bf16_views(params: Dict, device=None) -> Dict[str, object]:
     """The reference's ``cast_bf16``: every fp32 parameter with ``ndim >
-    1`` as a bf16 tensor made through autograd, the others as they are,
-    each whole on ``device`` (default its own; a sharded one's blocks
-    are cast where they lie, then gathered)."""
-    return {n: gather(p, device, torch.bfloat16 if p.dtype == torch.float32
-                      and p.ndim > 1 else None)
-            for n, p in params.items()}
+    1`` as a bf16 value made through autograd, the others as they are.  A
+    ``Sharded`` master stays a ``Sharded`` of the same blocks read as bf16
+    (``Sharded.cast``): each reader's ``take`` casts its part of a block
+    where the block lies and moves the bf16 bytes, nothing is gathered,
+    and the readers' bf16 grads are summed in fp32 on the master block
+    (the sum of per-rank partial products that one device's fp32
+    accumulation would make, rounded once a rank); a tensor is cast on its
+    device (moved to ``device`` when one is given)."""
+    out = {}
+    for n, p in params.items():
+        if isinstance(p, Sharded):
+            out[n] = Sharded(p.sharding, p.shape, p.blocks, torch.bfloat16) \
+                if p.dtype == torch.float32 and p.ndim > 1 else p
+        else:
+            v = _bf16(p)
+            out[n] = v if device is None else v.to(device)
+    return out
 
 
-class _LossAndGrads(nn.Module):
-    """The loss and its grads in one call, so that ``functional_call``'s
-    substitution lasts through backward's recomputations."""
+@contextlib.contextmanager
+def _views_set(model: LanguageModel, views: Dict[str, object]):
+    """``model``'s modules hold ``views`` (bf16 values, placed or not,
+    which are not parameters) in place of their parameters for the call,
+    forward and backward's recomputations, as ``weights.place_params``
+    sets its blocks; the parameters come back on exit."""
+    popped = []
+    try:
+        for name, v in views.items():
+            owner, attr = model, name
+            if "." in name:
+                path, attr = name.rsplit(".", 1)
+                owner = model.get_submodule(path)
+            popped.append((owner, attr, owner._parameters.pop(attr)))
+            setattr(owner, attr, v)
+        yield
+    finally:
+        for owner, attr, p in popped:
+            owner.__dict__.pop(attr, None)
+            owner._parameters[attr] = p
 
-    def __init__(self, model: LanguageModel):
-        super().__init__()
-        self.model = model
 
-    def forward(self, batch, remat: str, wrt: List[torch.Tensor],
-                mesh: Optional[DeviceMesh] = None):
-        total, metrics = self.model.loss_fn(batch, remat, mesh)
-        grads = torch.autograd.grad(total, wrt)
-        return total.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            grads
+def place_batch(batch: Dict, mesh: DeviceMesh, tcfg: TrainConfig,
+                axes: Dict[str, tuple], rows: Optional[slice] = None
+                ) -> Dict[str, object]:
+    """Each leaf of ``batch`` laid out by the reference's
+    ``batch_shardings`` (``axes``: ``data.batch_logical_axes``, under
+    :func:`train_rules`): a leaf placed so already is used as it lies, any
+    other (whole on any device, or placed otherwise) has each block taken
+    onto its owner.  ``rows``: only those leading rows (a microbatch: the
+    reference's reshape ``(m, B / m, ...)`` takes microbatch i's rows
+    ``[i B / m, (i + 1) B / m)``), laid out by the spec of their shape."""
+    out = {}
+    with use_rules(train_rules(tcfg)):
+        for k, v in batch.items():
+            lo = 0 if rows is None else rows.start
+            shape = tuple(v.shape) if rows is None else \
+                (rows.stop - rows.start,) + tuple(v.shape[1:])
+            sh = sharding_for(mesh, shape, axes[k])
+            if rows is None and isinstance(v, Sharded) and v.sharding == sh:
+                out[k] = v
+            elif rows is None and not isinstance(v, Sharded):
+                out[k] = place(v, sh)
+            else:
+                out[k] = map_blocks(sh, shape, lambda b, sl, r, _v=v: take(
+                    _v, r, (slice(lo + sl[0].start, lo + sl[0].stop),)
+                    + sl[1:], mesh=mesh, path="place"))
+    return out
 
 
 def loss_and_grads(model: LanguageModel, params: Dict, batch: Dict,
@@ -121,27 +178,37 @@ def loss_and_grads(model: LanguageModel, params: Dict, batch: Dict,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict]:
     """The loss of ``batch`` against bf16 views of ``params`` and its
     grads, laid out as ``params`` (a sharded parameter's grads as its
-    blocks).  Over ``mesh`` the views, the batch and the loss lie on the
-    mesh's first rank's device, and everything runs under
-    :func:`train_rules`, backward's recomputations included.  Returns
-    (total, {"loss", "aux"}, grads).  Each piece of ``params`` is made to
-    require grad (a restored state's too)."""
-    device = mesh.devices[0] if mesh is not None else None
+    blocks).  Over ``mesh`` of more than one rank the views stay placed
+    (:func:`bf16_views`), the batch is laid out by :func:`place_batch`,
+    and the model computes every block of the loss, and of its backward,
+    on the rank that holds it (``LanguageModel.loss_fn(mesh=)``, with the
+    views set on its modules), under :func:`train_rules`, backward's
+    recomputations included; the loss lies on the mesh's first rank.
+    Returns (total, {"loss", "aux"}, grads).  Each piece of ``params`` is
+    made to require grad (a restored state's too)."""
     wrt = [t.requires_grad_(True) for p in params.values()
            for t in pieces(p)]
-    views = bf16_views(params, device)
-    if device is not None:
-        batch = {k: gather(v, device) for k, v in batch.items()}
+    placed = mesh is not None and mesh.size > 1
+    if placed:
+        views = bf16_views(params)
+        batch = place_batch(batch, mesh, tcfg,
+                            batch_logical_axes(model.cfg))
+    else:
+        device = mesh.devices[0] if mesh is not None else None
+        views = bf16_views(params, device)
+        if device is not None:
+            batch = {k: gather(v, device) for k, v in batch.items()}
     # ranks on two devices: backward on one thread, since torch's
     # non-reentrant checkpoint starts a frame's recomputation without a
-    # lock, and two autograd device threads (the aux loss reaches a rank's
-    # router at once) would both start it
-    one_thread = mesh is not None and len(set(mesh.devices)) > 1
-    with use_rules(train_rules(tcfg)), \
+    # lock, and two autograd device threads would both start it
+    one_thread = placed and len(set(mesh.devices)) > 1
+    with use_rules(train_rules(tcfg)), _views_set(model, views), \
             torch.autograd.set_multithreading_enabled(not one_thread):
-        total, metrics, flat = torch.func.functional_call(
-            _LossAndGrads(model), {f"model.{n}": v for n, v in views.items()},
-            (batch, tcfg.remat_policy, wrt, mesh))
+        total, metrics = model.loss_fn(batch, tcfg.remat_policy,
+                                       mesh if placed else None)
+        flat = torch.autograd.grad(total, wrt)
+    total = total.detach()
+    metrics = {k: v.detach() for k, v in metrics.items()}
     grads, i = {}, 0
     for n, p in params.items():
         k = len(pieces(p))
@@ -157,30 +224,40 @@ def make_train_step(model: LanguageModel, tcfg: TrainConfig,
     """Returns ``train_step(state, batch) -> (state, metrics)``, the state
     updated IN PLACE (``optim/adamw.py``).  ``batch``: tensors on the
     model's device (``data.to_device``); over ``mesh`` on any device, or
-    placed, and gathered on the mesh's first rank's device.
-    ``tcfg.microbatches = m > 1`` splits the batch's leading dim into m
-    slices, sums their fp32 grads and divides the grads and the loss by
-    m.  Metrics: ``loss`` (the cross-entropy; with m > 1 the mean total),
+    placed, and laid out by the reference's batch shardings
+    (:func:`place_batch`: a placed batch is used as it lies, nothing is
+    gathered).  ``tcfg.microbatches = m > 1`` splits the batch's leading
+    dim into m slices (over a mesh each laid out again by the batch spec),
+    sums their fp32 grads and divides the grads and the loss by m.
+    Metrics: ``loss`` (the cross-entropy; with m > 1 the mean total),
     ``aux`` (m = 1), ``grad_norm`` and ``lr``, as 0-d tensors."""
+    placed = mesh is not None and mesh.size > 1
+    axes = batch_logical_axes(model.cfg)
+
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
-        if mesh is not None:
-            batch = {k: gather(v, mesh.devices[0]) for k, v in batch.items()}
         m = tcfg.microbatches
         if m > 1:
-            mbs = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])
-                   for k, v in batch.items()}
+            B = next(iter(batch.values())).shape[0]
+            if placed:
+                mbs = [place_batch(batch, mesh, tcfg, axes,
+                                   slice(i * B // m, (i + 1) * B // m))
+                       for i in range(m)]
+            else:
+                mbs = [{k: v.reshape((m, B // m) + v.shape[1:])[i]
+                        for k, v in batch.items()} for i in range(m)]
             acc = {n: with_pieces(p, [torch.zeros_like(
                 t, dtype=torch.float32) for t in pieces(p)])
                 for n, p in params.items()}
             loss = 0.0
-            for i in range(m):
-                total, _, grads = loss_and_grads(
-                    model, params, {k: v[i] for k, v in mbs.items()}, tcfg,
-                    mesh)
+            for mb in mbs:
+                total, _, grads = loss_and_grads(model, params, mb, tcfg,
+                                                 mesh)
                 for n, g in grads.items():
                     for a, t in zip(pieces(acc[n]), pieces(g)):
                         a.add_(t.float())
+                # one microbatch's grads live at a time, beside the sums
+                del grads
                 loss = loss + total
             grads = {n: with_pieces(a, [t.div_(m) for t in pieces(a)])
                      for n, a in acc.items()}

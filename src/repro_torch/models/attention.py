@@ -9,12 +9,16 @@
 * Training: :func:`attention_train` and :func:`flash_attention`, the
   reference's model-level online softmax over KV chunks, each chunk's body
   checkpointed so that backward recomputes its scores instead of keeping
-  O(Sq x Skv) softmax residuals; over a rank mesh one call per block of
-  the layout the reference constrains q to, on the block's rank.  The
+  O(Sq x Skv) softmax residuals, on one device.  The
   reference trains through this function and never through a Pallas
   kernel; the port's training forward likewise calls no kernel
   (``models/transformer.py`` chooses by ``impl=``).
 
+* Placed training: :func:`attention_train_placed`, :func:`flash_attention`
+  once for each block of a placed model's q (laid out by
+  :data:`PLACED_Q_AXES`, as the reference's ``constrain``), on the block's
+  rank, over every K/V row of its batch block and the K/V heads its q
+  heads read, taken from wherever they lie.
 * Placed prefill: :func:`prefill_attention_placed`, K3 once for each
   block of a placed model's q, on the block's rank, by the strategy
   ``sharding.rules.attn_strategy`` picks: its heads with the K/V heads
@@ -32,8 +36,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import (Sharded, Sharding, assemble, map_blocks,
-                                     rank_scope, take, to_rank, to_rank_of)
+from repro_torch.launch.mesh import (Sharded, Sharding, map_blocks, take,
+                                     to_rank_of)
 from repro_torch.models.common import checkpointed
 from repro_torch.sharding.rules import logical_to_spec
 
@@ -63,7 +67,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2)
 
 
-#: the logical axes of a placed prefill's q, by strategy (the reference's
+#: the logical axes of a placed model's q in prefill and training, by
+#: strategy (the reference's
 #: ``attention_train`` constraints, ``attention.py:102-122``): its heads
 #: over ``model``, or its query positions
 PLACED_Q_AXES = {"heads": ("batch", None, "act_heads"),
@@ -192,13 +197,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
-#: the logical axes of q that the reference's ``attention_train``
-#: constrains it to, by strategy (``attention.py:102-122``): its heads
-#: over ``model``, or its query positions
-TRAIN_Q_AXES = {"heads": ("batch", None, "act_heads", None),
-                "seq": ("batch", "act_seq_tp", None, None)}
-
-
 def _kv_for(k: torch.Tensor, heads: slice, group: int) -> torch.Tensor:
     """The K/V heads that q heads ``heads`` read (head h reads h // group):
     a slice where the block holds whole groups, else one K/V head per q
@@ -211,39 +209,58 @@ def _kv_for(k: torch.Tensor, heads: slice, group: int) -> torch.Tensor:
 
 
 def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    pos: torch.Tensor, info: MaskInfo, mesh=None,
-                    strategy: str = "heads",
+                    pos: torch.Tensor, info: MaskInfo,
                     kv_chunk: int = 512) -> torch.Tensor:
-    """Full-sequence attention for training: q (B, S, H, D), k / v
-    (B, S, KVH, D), pos (B, S), every key valid.
-
-    Over a ``mesh`` of more than one rank, q splits by the spec that
-    :data:`TRAIN_Q_AXES` ``[strategy]`` resolves to under the active rules
-    (``sharding.rules.logical_to_spec`` with q's dims: a dim that its axes
-    do not divide stays whole, as the reference's ``constrain``), and each
-    distinct block runs :func:`flash_attention` on the device of the
-    lowest rank that holds it: its batch rows, its query positions against
-    every key of those rows (``"seq"``), its heads against the K/V heads
-    they read (``"heads"``).  The outputs come back to q's device.  The
-    function is the whole call's: attention of a row, position and head
-    reads nothing of another."""
+    """Full-sequence attention for training on q's device: q (B, S, H,
+    D), k / v (B, S, KVH, D), pos (B, S), every key valid
+    (:func:`flash_attention`).  Over a mesh the training step runs
+    :func:`attention_train_placed`."""
     kv_valid = torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
-    if mesh is None or mesh.size == 1:
-        return flash_attention(q, k, v, pos, pos, kv_valid, info, kv_chunk)
-    sh = Sharding(mesh, logical_to_spec(TRAIN_Q_AXES[strategy], mesh,
-                                        dims=tuple(q.shape)))
-    group = q.shape[2] // k.shape[2]
-    outs = {}
-    for block, rank in sh.owners().items():
-        rows, seq, heads, _ = sh.slices(block, q.shape)
-        with rank_scope(rank):
-            o = flash_attention(*(
-                to_rank(t, mesh, rank, path="attention") for t in (
-                    q[rows, seq, heads], _kv_for(k[rows], heads, group),
-                    _kv_for(v[rows], heads, group), pos[rows, seq],
-                    pos[rows], kv_valid[rows])), info, kv_chunk)
-        outs[block] = to_rank_of(o, q, path="attention")
-    return assemble(outs, sh.counts(4))
+    return flash_attention(q, k, v, pos, pos, kv_valid, info, kv_chunk)
+
+
+def attention_train_placed(q: Sharded, k: Sharded, v: Sharded,
+                           pos: Optional[Sharded], H: int, KVH: int, D: int,
+                           info: MaskInfo, kv_chunk: int = 512) -> Sharded:
+    """Training attention of a placed model (:func:`attention_train` by
+    blocks): q post-RoPE (B, S, H * D), laid out by
+    :func:`placed_qkv_shardings` (whose q layout is :data:`PLACED_Q_AXES`
+    ``[strategy]``, the reference's ``attention_train`` constraint on the
+    flat heads); k, v (B, Skv, KVH * D) in any
+    layout.  Each block of q runs :func:`flash_attention` on its owner
+    over every K/V row of its batch rows (masked as ``info`` says, at the
+    positions ``pos`` (B, S) gives its query rows and the K/V rows; with
+    ``info.causal`` False, ``pos`` may be None: every row is visible) and
+    the K/V heads its q heads read.  Returns the output laid out as q.
+    The function is the whole call's: a row, position and head of the
+    output reads nothing of another."""
+    group = H // KVH
+    B, S, _ = q.shape
+    Skv = k.shape[1]
+
+    def one(b, sl, r):
+        rows, seq, cols = sl
+        s0, s1 = seq.indices(S)[:2]
+        h0, h1 = cols.start // D, cols.stop // D
+        kv0, kv1 = h0 // group, (h1 - 1) // group + 1
+        kv = [_kv_for(take(t, r, (rows, slice(None),
+                                  slice(kv0 * D, kv1 * D)))
+                      .reshape(-1, Skv, kv1 - kv0, D),
+                      slice(h0 - kv0 * group, h1 - kv0 * group), group)
+              for t in (k, v)]
+        qb = q.blocks[b].reshape(-1, s1 - s0, h1 - h0, D)
+        Bb, dev = qb.shape[0], qb.device
+        if info.causal:
+            pq, pk = (take(pos, r, index, mesh=q.sharding.mesh)
+                      for index in ((rows, seq), (rows,)))
+        else:
+            pq = torch.zeros((Bb, s1 - s0), dtype=torch.long, device=dev)
+            pk = torch.zeros((Bb, Skv), dtype=torch.long, device=dev)
+        valid = torch.ones((Bb, Skv), dtype=torch.bool, device=dev)
+        o = flash_attention(qb, *kv, pq, pk, valid, info, kv_chunk)
+        return o.reshape(Bb, s1 - s0, (h1 - h0) * D)
+
+    return map_blocks(q.sharding, q.shape, one)
 
 
 def lse_combine(accs: Sequence[torch.Tensor], ls: Sequence[torch.Tensor],
@@ -273,7 +290,7 @@ def lse_combine(accs: Sequence[torch.Tensor], ls: Sequence[torch.Tensor],
     return acc_g / l_g.clamp_min(1e-30)[..., None]
 
 
-__all__ = ["MaskInfo", "NEG_INF", "PLACED_Q_AXES", "TRAIN_Q_AXES",
-           "attention_train", "flash_attention", "lse_combine",
+__all__ = ["MaskInfo", "NEG_INF", "PLACED_Q_AXES", "attention_train",
+           "attention_train_placed", "flash_attention", "lse_combine",
            "placed_qkv_shardings", "prefill_attention",
            "prefill_attention_placed"]

@@ -11,9 +11,12 @@ product whose output columns split as the weight's, over ``model``),
 :func:`row_parallel` (a product whose contraction splits over ``model``,
 the partial products summed into the output's blocks), and over them the
 norm, the SwiGLU MLP (``act_ffn``), the embedding lookup over the
-``vocab``-split table and the logits by ``act_vocab`` slices.  A weight's
-``embed`` (``data``) dimension is gathered for its use and freed after
-(ZeRO-3).
+``vocab``-split table, the logits by ``act_vocab`` slices and the training
+cross-entropy by batch and vocabulary blocks
+(:func:`chunked_softmax_xent_placed`).  A weight's ``embed`` (``data``)
+dimension is gathered for its use and freed after (ZeRO-3).  Every placed
+block carries gradients: a training step runs them under autograd, and
+backward moves each block's grad back along the moves that fed it.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import (Sharded, Sharding, gather, map_blocks,
-                                     scatter_sum, take)
+                                     rank_scope, scatter_sum, take, to_rank)
+from repro_torch.sharding.rules import logical_to_spec
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -137,6 +141,21 @@ def spec_entry(w: Placed, dim: int):
     return w.sharding.spec[dim]
 
 
+def _entry_axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
+def free_entry(entry, taken):
+    """``entry``, or None where it shares a mesh axis with the entry
+    ``taken`` (a spec splits a mesh axis over one dimension only: under
+    ``FSDP_RULES`` a weight's ZeRO-3 dimension may take the axes the
+    batch takes, and a product over it then gathers the weight whole
+    instead)."""
+    return None if set(_entry_axes(entry)) & set(_entry_axes(taken)) \
+        else entry
+
+
 def blockwise(fn, x: Sharded, *others: Sharded) -> Sharded:
     """``fn(block of x, blocks of others)`` block by block on the owners
     (``others`` laid out as ``x``)."""
@@ -180,7 +199,8 @@ def col_parallel(h: Sharded, *weights) -> Tuple[Sharded, ...]:
                 y = y + take(bias, r, (cols,), mesh=mesh).to(hb.dtype)
             return y
 
-        sh = Sharding(mesh, (h.sharding.spec[0], None, spec_entry(w, 1)))
+        sh = Sharding(mesh, (h.sharding.spec[0], None, free_entry(
+            spec_entry(w, 1), h.sharding.spec[0])))
         return map_blocks(sh, (B, S, w.shape[1]), one)
 
     return tuple(product(w, bias) for w, bias in weights)
@@ -197,7 +217,8 @@ def row_parallel(a: Placed, w: Placed, out: Sharding) -> Sharded:
     by sequence rows where ``out`` splits them)."""
     mesh = out.mesh
     B, S, k = a.shape
-    psh = Sharding(mesh, (spec_entry(w, 0), out.spec[0], None, None))
+    psh = Sharding(mesh, (free_entry(spec_entry(w, 0), out.spec[0]),
+                          out.spec[0], None, None))
     C = psh.counts(1)[0]
     kc = k // C
 
@@ -231,7 +252,8 @@ def embed_placed(table: Placed, tokens: torch.Tensor, dtype: torch.dtype,
     mesh = out.mesh
     V, d = table.shape
     B, S = tokens.shape
-    psh = Sharding(mesh, (spec_entry(table, 0), out.spec[0], None, None))
+    psh = Sharding(mesh, (free_entry(spec_entry(table, 0), out.spec[0]),
+                          out.spec[0], None, None))
     C = psh.counts(1)[0]
     vc = V // C
 
@@ -268,8 +290,100 @@ def logits_placed(xn: Sharded, head: Placed, tied: bool) -> torch.Tensor:
     return gather(map_blocks(sh, (B, 1, V), one), mesh.devices[0])[:, 0]
 
 
+def _head_block(head: Placed, tied: bool, r: int, cols: slice, mesh
+                ) -> torch.Tensor:
+    """The head's vocabulary columns ``cols`` as (d, n) on rank ``r`` (the
+    embedding (V, d) transposed when ``tied``)."""
+    if tied:
+        return take(head, r, (cols,), mesh=mesh).T
+    return take(head, r, (slice(None), cols), mesh=mesh)
+
+
+def chunked_softmax_xent_placed(x: Sharded, head: Placed, tied: bool,
+                                labels, mask, offset: int = 0,
+                                chunk: int = 512, z_loss: float = 1e-4
+                                ) -> torch.Tensor:
+    """:func:`chunked_softmax_xent` by blocks (the reference's logits
+    constrained ``("batch", None, "act_vocab")``): x (B, offset + S, d)
+    placed, its rows from ``offset`` on scored against ``labels`` / ``mask``
+    (B, S), placed or whole; ``head`` the embedding (V, d) when ``tied``,
+    else the (d, V) head.  Each rank of the logits' layout takes its batch
+    block's rows and its vocabulary columns of the head, and for each
+    sequence chunk (the reference's: ``max(S // chunk, 1)`` chunks, the
+    last one shorter where they do not divide S) computes the bf16 logits
+    read as fp32, their log-partition and the gold logit where its block
+    holds the label, checkpointed (backward recomputes the logits).  The
+    log-partitions of a batch block's vocabulary blocks are combined on
+    its first rank (max, then the log of the summed exponentials, as
+    ``attention.lse_combine``), the gold logit summed (one term is not 0),
+    and the masked sums of the cross-entropy, the squared log-partition
+    and the mask are added in fp32 on the mesh's first rank.  Returns the
+    mean cross-entropy plus ``z_loss`` times the mean squared
+    log-partition, fp32, on the mesh's first rank."""
+    mesh = x.sharding.mesh
+    B, S = labels.shape
+    V = head.shape[0] if tied else head.shape[1]
+    n_chunks = max(S // chunk, 1)
+    chunk = -(-S // n_chunks)
+    sh = Sharding(mesh, logical_to_spec(("batch", None, "act_vocab"), mesh,
+                                        dims=(B, S, V)))
+    counts = sh.counts(3)
+    Bb, Vb = B // counts[0], V // counts[2]
+    owners = sh.owners()
+
+    def body(xb, w, lb, v0):
+        logits = (xb.to(torch.bfloat16) @ w.to(torch.bfloat16)).float()
+        local = lb.long() - v0
+        hit = (local >= 0) & (local < w.shape[1])
+        gold = torch.gather(logits, -1, local.clamp(0, w.shape[1] - 1)
+                            [..., None])[..., 0]
+        return torch.logsumexp(logits, dim=-1), torch.where(
+            hit, gold, torch.zeros((), device=gold.device))
+
+    # each block's (log-partition, gold logit) of every chunk
+    parts = {}
+    for (bi, _, vj), r in owners.items():
+        rows = slice(bi * Bb, (bi + 1) * Bb)
+        cols = slice(vj * Vb, (vj + 1) * Vb)
+        with rank_scope(r):
+            w = _head_block(head, tied, r, cols, mesh)
+            for c in range(n_chunks):
+                s0, s1 = c * chunk, min((c + 1) * chunk, S)
+                xb = take(x, r, (rows, slice(offset + s0, offset + s1)))
+                lb = take(labels, r, (rows, slice(s0, s1)), mesh=mesh)
+                parts[bi, vj, c] = checkpointed(body, xb, w, lb,
+                                                vj * Vb)
+    sums = []
+    for bi in range(counts[0]):
+        home = owners[bi, 0, 0]
+        rows = slice(bi * Bb, (bi + 1) * Bb)
+        with rank_scope(home):
+            for c in range(n_chunks):
+                s0, s1 = c * chunk, min((c + 1) * chunk, S)
+                got = [[to_rank(t, mesh, home, path="loss")
+                        for t in parts[bi, vj, c]] for vj in range(counts[2])]
+                if len(got) == 1:
+                    lse, gold = got[0]
+                else:
+                    lses = torch.stack([g[0] for g in got])
+                    m = lses.amax(0).detach()
+                    lse = m + torch.log(torch.exp(lses - m).sum(0))
+                    gold = torch.stack([g[1] for g in got]).sum(0)
+                mb = take(mask, home, (rows, slice(s0, s1)),
+                          mesh=mesh).float()
+                sums.append(torch.stack([((lse - gold) * mb).sum(),
+                                         (lse.square() * mb).sum(),
+                                         mb.sum()]))
+    with rank_scope(0):
+        total = torch.stack([to_rank(t, mesh, 0, path="loss")
+                             for t in sums]).sum(0)
+        denom = total[2].clamp_min(1.0)
+        return total[0] / denom + z_loss * total[1] / denom
+
+
 __all__ = ["rms_norm", "rope_frequencies", "apply_rope", "swiglu_mlp",
-           "embed", "checkpointed", "chunked_softmax_xent", "Placed",
+           "embed", "checkpointed", "chunked_softmax_xent",
+           "chunked_softmax_xent_placed", "Placed",
            "blockwise", "col_parallel", "embed_placed", "logits_placed",
-           "rms_norm_placed", "row_parallel", "spec_entry",
+           "free_entry", "rms_norm_placed", "row_parallel", "spec_entry",
            "swiglu_mlp_placed"]

@@ -17,8 +17,11 @@ decodes through one pair (:data:`ENTRY_PAIRS`):
 
 Every family trains through :meth:`LanguageModel.loss_fn` (the module's
 ``forward``): the reference's ``_backbone_train`` and ``loss_fn``, with
-autograd, no kernel and the stacks checkpointed.  The serving pairs run
-under ``torch.no_grad``.
+autograd, no kernel and the stacks checkpointed; over a mesh of more than
+one rank every block of the loss, and of its backward, runs on the rank
+that holds it (:meth:`LanguageModel._loss_placed`, on the placed bf16
+views a training step sets on the modules).  The serving pairs run under
+``torch.no_grad``.
 
 A model whose weights ``weights.place_params`` placed over a mesh
 (every serving family, :data:`PLACED_FAMILIES`;
@@ -31,7 +34,7 @@ ssm, hybrid or encdec model through ``prefill_state(mesh=)`` /
 (``models/mamba2.py mamba2_layer_placed``), its encoder and
 cross-attention by blocks, and its serve state's recurrent and cross
 leaves placed by :meth:`LanguageModel.state_logical_axes`.  The training
-loss refuses a placed model.
+loss refuses a model placed for serving.
 """
 from __future__ import annotations
 
@@ -48,8 +51,9 @@ from repro_torch.launch.mesh import (DeviceMesh, Sharded, Sharding,
                                      sharding_for, take, zeros)
 from repro_torch.models.attention import MaskInfo
 from repro_torch.models.common import (checkpointed, chunked_softmax_xent,
-                                       embed, embed_placed, logits_placed,
-                                       rms_norm, rms_norm_placed)
+                                       chunked_softmax_xent_placed, embed,
+                                       embed_placed, logits_placed, rms_norm,
+                                       rms_norm_placed)
 from repro_torch.models.mamba2 import (Mamba2Layer, mamba2_decode_step,
                                        mamba2_decode_step_placed,
                                        mamba2_layer, mamba2_layer_placed)
@@ -61,7 +65,10 @@ from repro_torch.models.transformer import (DecoderLayer, attn_block_train,
                                             decoder_layer_decode_placed,
                                             decoder_layer_placed,
                                             decoder_layer_train,
-                                            decoder_stack_train, remat_call)
+                                            decoder_layer_train_placed,
+                                            decoder_stack_train,
+                                            decoder_stack_train_placed,
+                                            remat_call)
 from repro_torch.sharding.rules import attn_strategy, logical_to_spec
 
 #: the families each entry pair takes: the engine's pair (``prefill`` /
@@ -189,7 +196,7 @@ class LanguageModel(nn.Module):
     # ------------------------------------------------------------------
     # training forward (full sequence; the reference's _backbone_train)
     # ------------------------------------------------------------------
-    def forward(self, batch: Dict[str, torch.Tensor],
+    def forward(self, batch: Dict[str, object],
                 remat: str = "minimal", mesh: Optional[DeviceMesh] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The module's forward is the training loss (:meth:`loss_fn`)."""
@@ -198,24 +205,28 @@ class LanguageModel(nn.Module):
     def loss_fn(self, batch: Dict[str, torch.Tensor],
                 remat: str = "minimal", mesh: Optional[DeviceMesh] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The training loss of a ``data.make_batch`` batch on this
-        model's device: ``tokens`` / ``labels`` / ``mask`` (B, S), a vlm's
-        ``patch_embeds`` and an encdec's ``src_embeds``.  Returns (total,
-        {"loss", "aux"}): the masked mean cross-entropy with its z-loss
+        """The training loss of a ``data.make_batch`` batch: ``tokens`` /
+        ``labels`` / ``mask`` (B, S), a vlm's ``patch_embeds`` and an
+        encdec's ``src_embeds``.  Returns (total, {"loss", "aux"}): the
+        masked mean cross-entropy with its z-loss
         (``common.chunked_softmax_xent``), the moe layers' aux losses
         summed (0 for the other families), ``total = loss + 1e-2 aux``.
         ``remat`` names the decoder stack's policy
-        (``transformer.REMAT_POLICIES``).  Over ``mesh`` every decoder
-        stack (the hybrid's shared block too) runs its training attention
-        by blocks on their ranks and a moe FFN by its mesh path, under the
-        active rules; the rest runs whole on the model's device.
+        (``transformer.REMAT_POLICIES``).  Without a mesh (or over one
+        rank) everything runs on this model's device.  Over a ``mesh`` of
+        more than one rank every block runs on the rank that holds it
+        (:meth:`_loss_placed`), reading the weights the modules hold: a
+        training step sets its placed bf16 views on them for the call
+        (``launch/train.py``); the batch may be placed or whole.
         Differentiable; no kernel runs (the training attention and SSD
         term are model-level functions)."""
         cfg = self.cfg
         if self.placement is not None:
             raise ValueError("loss_fn: placed weights (weights.place_params) "
                              "serve only; train the unplaced model")
-        x, aux, prefix = self._backbone_train(batch, remat, mesh)
+        if mesh is not None and mesh.size > 1:
+            return self._loss_placed(batch, remat, mesh)
+        x, aux, prefix = self._backbone_train(batch, remat)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         if prefix:
             x = x[:, prefix:, :]
@@ -224,8 +235,7 @@ class LanguageModel(nn.Module):
         total = loss + 1e-2 * aux
         return total, {"loss": loss, "aux": aux}
 
-    def _backbone_train(self, batch: Dict[str, torch.Tensor], remat: str,
-                        mesh: Optional[DeviceMesh] = None
+    def _backbone_train(self, batch: Dict[str, torch.Tensor], remat: str
                         ) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """(final hidden (B, S, d) before the final norm, aux loss fp32,
         the length of the patch prefix to drop before the loss)."""
@@ -243,12 +253,12 @@ class LanguageModel(nn.Module):
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family in ("dense", "moe", "vlm"):
             x, aux = decoder_stack_train(self.layers, x, pos, cfg, info,
-                                         remat=remat, mesh=mesh)
+                                         remat=remat)
             return x, aux, prefix
         if cfg.family == "ssm":
             return self._mamba_stack_train(x), zero, 0
         if cfg.family == "hybrid":
-            x, aux = self._hybrid_stack_train(x, pos, info, remat, mesh)
+            x, aux = self._hybrid_stack_train(x, pos, info, remat)
             return x, aux, 0
         # encdec: the encoder over the source frames, then the decoder
         # with cross-attention
@@ -256,11 +266,10 @@ class LanguageModel(nn.Module):
         B_e, S_src, _ = enc.shape
         pos_e = torch.arange(S_src, device=x.device).expand(B_e, S_src)
         enc, _ = decoder_stack_train(self.enc_layers, enc, pos_e, cfg,
-                                     MaskInfo(causal=False), remat=remat,
-                                     mesh=mesh)
+                                     MaskInfo(causal=False), remat=remat)
         enc = rms_norm(enc, self.enc_norm, cfg.norm_eps)
         x, aux = decoder_stack_train(self.layers, x, pos, cfg, info,
-                                     enc_out=enc, remat=remat, mesh=mesh)
+                                     enc_out=enc, remat=remat)
         return x, aux, 0
 
     def _mamba_stack_train(self, x: torch.Tensor) -> torch.Tensor:
@@ -274,8 +283,7 @@ class LanguageModel(nn.Module):
         return x
 
     def _hybrid_stack_train(self, x: torch.Tensor, pos: torch.Tensor,
-                            info: MaskInfo, remat: str,
-                            mesh: Optional[DeviceMesh] = None
+                            info: MaskInfo, remat: str
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The hybrid's segments: ``shared_attn_every`` Mamba2 layers then
         the shared decoder layer, each segment under the remat policy; the
@@ -289,8 +297,7 @@ class LanguageModel(nn.Module):
                 h = mamba2_layer(layer, h, cfg, impl="jax")[0]
             h, a, _ = decoder_layer_train(self.shared, h, pos, cfg,
                                           info.prefix_len, info.causal,
-                                          impl="jax", mesh=mesh,
-                                          strategy="heads")
+                                          impl="jax")
             return h, a
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -299,6 +306,94 @@ class LanguageModel(nn.Module):
                               x)
             aux = aux + a
         return x, aux
+
+    def _loss_placed(self, batch: Dict[str, object], remat: str,
+                     mesh: DeviceMesh
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """:meth:`loss_fn` over ``mesh``, every block on the rank that
+        holds it, as the reference's GSPMD computes its step: the residual
+        laid out by ``("batch", "act_seq_tp", None)`` for a decoder stack
+        and by ``("batch", None, None)`` for a Mamba2 stack (each rank's
+        SSD needs its batch block's whole sequence), a dim the axes do not
+        divide whole; the embedding by ``common.embed_placed`` (the vlm's
+        patches in front, by batch block); decoder and encoder stacks by
+        ``transformer.decoder_stack_train_placed`` (an encdec's encoder
+        non-causal, then ``enc_norm`` by blocks, its decoder with the
+        cross blocks); a Mamba2 layer by ``mamba2.mamba2_layer_placed``
+        with the model-level SSD term, each layer checkpointed (ssm) or
+        each hybrid segment under ``remat`` with the shared block's
+        ``"heads"`` attention; the final norm by blocks; the loss by
+        ``common.chunked_softmax_xent_placed``.  The loss, the aux loss and
+        the total lie on the mesh's first rank."""
+        cfg = self.cfg
+        x, pos, prefix = self._embed_placed(batch["tokens"],
+                                            batch.get("patch_embeds"), mesh)
+        info = MaskInfo(causal=True, prefix_len=prefix)
+        with rank_scope(0):
+            aux = torch.zeros((), dtype=torch.float32,
+                              device=mesh.devices[0])
+        if cfg.family == "ssm":
+            def body(layer, h):
+                return mamba2_layer_placed(layer, h, cfg, impl="jax")[0]
+
+            for layer in self.layers:
+                x = checkpointed(body, layer, x)
+        elif cfg.family == "hybrid":
+            every = cfg.shared_attn_every
+
+            def segment(seg, h):
+                for layer in seg:
+                    h = mamba2_layer_placed(layer, h, cfg, impl="jax")[0]
+                return decoder_layer_train_placed(self.shared, h, pos, cfg,
+                                                  "heads", info)
+
+            for s in range(cfg.num_layers // every):
+                x, a = remat_call(remat, segment,
+                                  self.layers[s * every:(s + 1) * every], x)
+                with rank_scope(0):
+                    aux = aux + a
+        else:
+            enc = None
+            if cfg.family == "encdec":
+                enc = self._encode_placed(batch["src_embeds"], mesh,
+                                          remat=remat)
+            x, aux = decoder_stack_train_placed(self.layers, x, pos, cfg,
+                                                info, enc_out=enc,
+                                                remat=remat)
+        xn = rms_norm_placed(x, self.final_norm, cfg.norm_eps)
+        head = self.embed if cfg.tie_embeddings else self.lm_head
+        loss = chunked_softmax_xent_placed(xn, head, cfg.tie_embeddings,
+                                           batch["labels"], batch["mask"],
+                                           offset=prefix)
+        with rank_scope(0):
+            total = loss + 1e-2 * aux
+        return total, {"loss": loss, "aux": aux}
+
+    def _embed_placed(self, tokens, patch_embeds, mesh: DeviceMesh):
+        """The residual of a placed forward over the full sequence: the
+        tokens' (B, S) embeddings by ``common.embed_placed``, a vlm's
+        ``patch_embeds`` (placed or whole) in front of them by batch
+        block, laid out by ``("batch", None, None)`` for a Mamba2 stack
+        (each rank's SSD needs its batch block's whole sequence) and by
+        ``("batch", "act_seq_tp", None)`` for a decoder stack, a dim the
+        axes do not divide whole.  Returns (x, the positions (B, S) laid
+        out as x's first two dims, the prefix's length)."""
+        cfg = self.cfg
+        B, S_text = tokens.shape
+        prefix = 0 if patch_embeds is None else patch_embeds.shape[1]
+        S, d = prefix + S_text, cfg.d_model
+        mamba = cfg.family in ("ssm", "hybrid")
+        xs = Sharding(mesh, logical_to_spec(
+            ("batch", None if mamba else "act_seq_tp", None), mesh,
+            dims=(B, S, d)))
+        if prefix:
+            text = embed_placed(self.embed, tokens, self.act_dtype,
+                                Sharding(mesh, xs.spec[:1]))
+            x = map_blocks(xs, (B, S, d), lambda b, sl, r: _prefixed(
+                patch_embeds, text, r, sl, prefix, mesh))
+        else:
+            x = embed_placed(self.embed, tokens, self.act_dtype, xs)
+        return x, _positions(xs, B, S), prefix
 
     def _pair_of(self, pair: str, what: str) -> None:
         """Raise unless this model's family takes ``pair`` of
@@ -629,25 +724,13 @@ class LanguageModel(nn.Module):
         Returns the logits (B, V) fp32, joined on the first rank, and the
         state."""
         cfg, page = self.cfg, self.page
-        B, S_text = tokens.shape
-        prefix = 0 if patch_embeds is None else patch_embeds.shape[1]
-        S = prefix + S_text
+        B = tokens.shape[0]
+        x, pos, prefix = self._embed_placed(tokens, patch_embeds, mesh)
+        S = x.shape[1]
         margin = page if margin_tokens is None else margin_tokens
         nper = (S + margin + page - 1) // page
         state = self.make_serve_state(B, nper * page, mesh=mesh, filled=S)
         mamba = cfg.family in ("ssm", "hybrid")
-        xs = Sharding(mesh, logical_to_spec(
-            ("batch", None if mamba else "act_seq_tp", None), mesh,
-            dims=(B, S, cfg.d_model)))
-        if prefix:
-            text = embed_placed(self.embed, tokens, self.act_dtype,
-                                Sharding(mesh, xs.spec[:1]))
-            x = map_blocks(xs, (B, S, cfg.d_model), lambda b, sl, r:
-                           _prefixed(patch_embeds, text, r, sl, prefix,
-                                     mesh))
-        else:
-            x = embed_placed(self.embed, tokens, self.act_dtype, xs)
-        pos = _positions(xs, B, S)
         if cfg.num_attn_layers:
             to_pools = _placed_page_writer(state, page, nper, mesh)
         if mamba:
@@ -682,21 +765,28 @@ class LanguageModel(nn.Module):
                     _store(_LayerViews(state[key], 4)[li], t)
         return self._logits_placed(_last_row(x)), state
 
-    def _encode_placed(self, src: torch.Tensor, mesh: DeviceMesh,
-                       strategy: str) -> Sharded:
+    def _encode_placed(self, src, mesh: DeviceMesh,
+                       strategy: Optional[str] = None,
+                       remat: Optional[str] = None) -> Sharded:
         """:meth:`_encode` of a placed model: the frames src (B, S_src, d),
-        whole on the first rank, Sharded by ``("batch", "act_seq_tp",
-        None)``, each encoder layer by blocks without the causal mask,
-        then ``enc_norm`` block by block."""
+        placed or whole, laid out by ``("batch", "act_seq_tp", None)``,
+        each encoder layer by blocks without the causal mask (prefill;
+        with ``remat``, the training stack under that policy), then
+        ``enc_norm`` block by block."""
         B, S_src, d = src.shape
         xe = Sharding(mesh, logical_to_spec(("batch", "act_seq_tp", None),
                                             mesh, dims=(B, S_src, d)))
         x = map_blocks(xe, (B, S_src, d), lambda b, sl, r: take(
             src, r, sl[:2], mesh=mesh).to(self.act_dtype))
         pos = _positions(xe, B, S_src)
-        for layer in self.enc_layers:
-            x, _, _, _ = decoder_layer_placed(layer, x, pos, self.cfg,
-                                              strategy, causal=False)
+        if remat is not None:
+            x, _ = decoder_stack_train_placed(
+                self.enc_layers, x, pos, self.cfg, MaskInfo(causal=False),
+                remat=remat)
+        else:
+            for layer in self.enc_layers:
+                x, _, _, _ = decoder_layer_placed(layer, x, pos, self.cfg,
+                                                  strategy, causal=False)
         return rms_norm_placed(x, self.enc_norm, self.cfg.norm_eps)
 
     def _encode(self, src: torch.Tensor) -> torch.Tensor:

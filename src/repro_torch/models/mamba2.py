@@ -15,8 +15,10 @@ the conv in fp32, ``dt`` and ``A`` in fp32; ``ssd_chunked`` returns ``y``
 in ``x.dtype`` and the final state in fp32.  Weights keep the JAX layout
 ``(in, out)``.
 
-A layer whose weights ``weights.place_params`` placed runs through
-:func:`mamba2_layer_placed` (prefill) and :func:`mamba2_decode_step_placed`
+A layer whose weights ``weights.place_params`` placed (or a training
+step's placed bf16 views) runs through :func:`mamba2_layer_placed`
+(prefill, and training with ``impl="jax"``) and
+:func:`mamba2_decode_step_placed`
 on a :class:`~repro_torch.launch.mesh.Sharded` residual split by batch, as
 the reference's GSPMD computes over its constraints (``proj`` over
 ``act_ffn``, ``xs`` over ``act_heads``): ``w_in`` column-parallel over its
@@ -374,12 +376,15 @@ def _by_heads(hsh: Sharding, B: int, S: int, fn, cfg: ModelConfig):
             Sharded(ssh, (B, H, P, N), states))
 
 
-def mamba2_layer_placed(layer: Mamba2Layer, x: Sharded, cfg: ModelConfig
+def mamba2_layer_placed(layer: Mamba2Layer, x: Sharded, cfg: ModelConfig,
+                        impl: str = "pallas"
                         ) -> Tuple[Sharded, Sharded, Sharded]:
-    """:func:`mamba2_layer` (prefill, K4) of a placed layer: x (B, S, d)
-    Sharded by batch (the reference's ``("batch", None, None)``; any
-    layout works).  Each rank runs the SSD over its batch block's whole
-    sequence and its heads: K4 once a rank and layer.  Returns the new x
+    """:func:`mamba2_layer` of a placed layer: x (B, S, d) Sharded by batch
+    (the reference's ``("batch", None, None)``; any layout works).  Each
+    rank runs the SSD over its batch block's whole sequence and its heads,
+    its intra-chunk term by ``impl`` (:data:`SSD_IMPLS`): K4 once a rank
+    and layer in prefill, the model-level function in training (a
+    training step's placed views, under autograd).  Returns the new x
     (laid out as x), the final state (B, H, P, N) fp32 laid out by
     (batch, ``act_heads``) and the conv tail (B, W-1, C) fp32 by (batch,
     None, ``act_ffn``), the last W-1 pre-conv rows of each channel block
@@ -401,7 +406,7 @@ def mamba2_layer_placed(layer: Mamba2Layer, x: Sharded, cfg: ModelConfig
                                          rows, heads, cfg)
         Bg, nh = xs.shape[0], heads.stop - heads.start
         y, h_final = ssd_chunked(xs.reshape(Bg, S, nh, cfg.ssm_head_dim),
-                                 dt, A, Bm, Cm, D, cfg.ssm_chunk)
+                                 dt, A, Bm, Cm, D, cfg.ssm_chunk, impl)
         y = y.reshape(Bg, S, -1)
         return y * F.silu(z.blocks[b].float()).to(y.dtype), h_final
 

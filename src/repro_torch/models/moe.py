@@ -24,12 +24,13 @@ batch rows through the local path.  Each rank's work runs on its rank's
 device, so ranks that share a device exchange tensors by reindexing and
 ranks on other cards by a copy.
 
-A model whose weights ``weights.place_params`` placed runs
-:func:`moe_ffn_placed` on a :class:`~repro_torch.launch.mesh.Sharded`
-activation: the same path by :func:`moe_path`, each rank computing with
-the experts it holds (the reference's ``shard_map`` boundary and
-``constrain`` points on the weights ``tree_shardings`` placed), the
-shared experts column- / row-parallel as a dense MLP.
+A model whose weights ``weights.place_params`` placed, or a training
+step's placed bf16 views, runs :func:`moe_ffn_placed` on a
+:class:`~repro_torch.launch.mesh.Sharded` activation: the same path by
+:func:`moe_path`, each rank computing with the experts it holds (the
+reference's ``shard_map`` boundary and ``constrain`` points on the
+weights ``tree_shardings`` placed), the shared experts column- /
+row-parallel as a dense MLP, and in training the path's aux loss.
 
 The expert products are plain ``torch`` products: the reference computes
 them as ``jnp.einsum`` outside any Pallas kernel.
@@ -566,39 +567,82 @@ def _expert_ranks(p: MoEFFN, rows: torch.Tensor, home: int,
     return torch.stack(outs).sum(0, dtype=torch.float32).to(rows.dtype)
 
 
-def _local_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig) -> Sharded:
+def _aux_sums(idx_k: torch.Tensor, probs: torch.Tensor,
+              logits: torch.Tensor, E: int) -> torch.Tensor:
+    """The sums :func:`_aux` takes means of, over the tokens of one batch
+    group, in one fp32 tensor (2E + 2,): each expert's count of tokens that
+    chose it, each expert's summed probability, the summed squared
+    log-partition and the token count."""
+    dims = tuple(range(idx_k.dim() - 1))
+    n = torch.full((1,), float(math.prod(idx_k.shape[:-1])),
+                   device=probs.device)
+    return torch.cat([(F.one_hot(idx_k, E).sum(-2) > 0).float().sum(dims),
+                      probs.sum(dims),
+                      torch.logsumexp(logits, dim=-1).square().sum()[None],
+                      n])
+
+
+def _aux_of_sums(sums: torch.Tensor, E: int) -> torch.Tensor:
+    """:func:`_aux` over every token from the groups' :func:`_aux_sums`
+    added: the local path's aux over the whole batch."""
+    n = sums[2 * E + 1]
+    return E * (sums[:E] / n * (sums[E:2 * E] / n)).sum() + \
+        1e-3 * sums[2 * E] / n
+
+
+def _local_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig,
+                  auxs: Optional[list] = None) -> Sharded:
     """The local path over placed weights: each batch group of h (its
     batch block, the rows whole on the group's first rank) routes its
     rows there with capacity from S, and :func:`_expert_ranks` runs the
-    experts where they lie; the output lies by batch groups."""
+    experts where they lie; the output lies by batch groups.  With
+    ``auxs``, each group's :func:`_aux_sums` are appended to it (on the
+    group's first rank)."""
     mesh = h.sharding.mesh
     groups = Sharding(mesh, (h.sharding.spec[0], None, None))
-    return map_blocks(groups, h.shape, lambda b, sl, r: _routed(
-        take(h, r, (sl[0],)), take(p.router, r, mesh=mesh), cfg,
-        lambda rows: _expert_ranks(p, rows, r, mesh))[0])
+
+    def one(b, sl, r):
+        y, routed = _routed(take(h, r, (sl[0],)),
+                            take(p.router, r, mesh=mesh), cfg,
+                            lambda rows: _expert_ranks(p, rows, r, mesh))
+        if auxs is not None:
+            auxs.append(_aux_sums(*routed, cfg.num_experts))
+        return y
+
+    return map_blocks(groups, h.shape, one)
 
 
-def _fsdp_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig) -> Sharded:
+def _fsdp_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig,
+                 auxs: Optional[list] = None) -> Sharded:
     """The FSDP path over placed weights: the batch shards over
     :func:`fsdp_batch_axes`, and each shard's rank routes its rows and
     runs every expert, the weights gathered whole there (the reference's
-    ``in_specs P()``)."""
+    ``in_specs P()``).  With ``auxs``, each shard's aux loss is appended
+    to it (on the shard's rank)."""
     mesh = h.sharding.mesh
     sh = Sharding(mesh, (_entry(fsdp_batch_axes(mesh, h.shape[0])), None,
                          None))
-    return map_blocks(sh, h.shape, lambda b, sl, r: _routed(
-        take(h, r, (sl[0],), path="moe"), take(p.router, r, mesh=mesh), cfg,
-        lambda rows: placed_experts(p, rows, r, mesh))[0])
+
+    def one(b, sl, r):
+        y, routed = _routed(take(h, r, (sl[0],), path="moe"),
+                            take(p.router, r, mesh=mesh), cfg,
+                            lambda rows: placed_experts(p, rows, r, mesh))
+        if auxs is not None:
+            auxs.append(_aux(*routed, cfg.num_experts))
+        return y
+
+    return map_blocks(sh, h.shape, one)
 
 
 def _a2a_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig,
-                layout) -> Sharded:
+                layout, auxs: Optional[list] = None) -> Sharded:
     """The all-to-all over placed weights (:func:`_a2a`): rank (g, t)
     routes its own block of h where it lies (h laid out by ``("batch",
     "act_seq_tp", None)`` is the exchange's token shards; another layout
     is taken into them), with the router gathered there, and rank u runs
     the E/T experts of its ``model`` block, gathered over ``data``.  The
-    output lies by the token shards."""
+    output lies by the token shards.  With ``auxs``, each rank's aux loss
+    is appended to it (on its rank)."""
     mesh = h.sharding.mesh
     E_l = cfg.num_experts // layout[2]
     d = h.shape[2]
@@ -608,50 +652,69 @@ def _a2a_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig,
     def put(rows, seqs, r, yl):
         blocks[sh.block_of(r)] = yl
 
-    _a2a(cfg, mesh, layout, h.shape, h.dtype,
-         lambda r, rows, seqs: take(h, r, (rows, seqs),
-                                    path="all-to-all").reshape(-1, d),
-         lambda r: take(p.router, r, mesh=mesh),
-         lambda r, u, rows: placed_experts(
-             p, rows, r, mesh, experts=slice(u * E_l, (u + 1) * E_l)),
-         put)
+    got = _a2a(cfg, mesh, layout, h.shape, h.dtype,
+               lambda r, rows, seqs: take(h, r, (rows, seqs),
+                                          path="all-to-all").reshape(-1, d),
+               lambda r: take(p.router, r, mesh=mesh),
+               lambda r, u, rows: placed_experts(
+                   p, rows, r, mesh, experts=slice(u * E_l, (u + 1) * E_l)),
+               put, with_aux=auxs is not None)
+    if auxs is not None:
+        auxs.extend(got)
     return Sharded(sh, h.shape, blocks)
 
 
 def moe_ffn_placed(p: MoEFFN, h: Sharded, cfg: ModelConfig,
-                   out: Sharding) -> Sharded:
-    """The moe FFN of a placed model (``weights.place_params``) on the
-    normed residual h (B, S, d), laid out by ``out``: the path
-    :func:`moe_path` names for h's shape over ``out.mesh`` (counted in
-    :data:`PATH_COUNTS`), each rank computing with the experts it holds,
-    and the shared experts by ``models/common.py swiglu_mlp_placed``
-    (``w_gate`` / ``w_up`` column-parallel, ``w_down`` row-parallel with
-    the sum over ``model``).  Serving discards the aux loss, so these
-    paths do not compute it.
+                   out: Sharding, with_aux: bool = False):
+    """The moe FFN of a placed model (``weights.place_params``, or a
+    training step's placed bf16 views) on the normed residual h (B, S, d),
+    laid out by ``out``: the path :func:`moe_path` names for h's shape
+    over ``out.mesh`` (counted in :data:`PATH_COUNTS`, or in
+    :data:`RECOMPUTE_COUNTS` when backward recomputes it), each rank
+    computing with the experts it holds, and the shared experts by
+    ``models/common.py swiglu_mlp_placed`` (``w_gate`` / ``w_up``
+    column-parallel, ``w_down`` row-parallel with the sum over
+    ``model``).  Returns y; with ``with_aux`` (training) (y, the aux loss
+    fp32 on the mesh's first rank, each path's as the reference's).
 
     * ``"a2a"`` (:func:`_a2a_placed`): each rank routes its token shard
-      in place and runs its E/T experts;
+      in place and runs its E/T experts; aux is the sum of the ranks'
+      over ``T·dp`` (the reference's ``psum / n_dev``);
     * ``"local"`` (:func:`_local_placed`; decode, a batch the data axes
       do not divide, an odd length, or E % T): each batch group routes
       its rows on its first rank, its ``model`` ranks run their experts
       (or their ``ffn`` columns), and the outputs come back to that rank
-      for the combine;
+      for the combine; aux is the whole batch's, from the groups' sums;
     * ``"fsdp"`` (:func:`_fsdp_placed`; a mesh without ``model``): each
-      batch shard's rank runs every expert, gathered whole."""
+      batch shard's rank runs every expert, gathered whole; aux is the
+      mean of the shards' (the reference's ``pmean``)."""
     mesh = out.mesh
     path = moe_path(mesh, h.shape, cfg)
-    PATH_COUNTS[path] += 1
+    in_backward = torch._C._current_graph_task_id() != -1
+    (RECOMPUTE_COUNTS if in_backward else PATH_COUNTS)[path] += 1
+    auxs = [] if with_aux else None
     if path == "a2a":
-        y = _a2a_placed(p, h, cfg, a2a_layout(mesh, h.shape, cfg))
+        layout = a2a_layout(mesh, h.shape, cfg)
+        y = _a2a_placed(p, h, cfg, layout, auxs)
     elif path == "fsdp":
-        y = _fsdp_placed(p, h, cfg)
+        y = _fsdp_placed(p, h, cfg, auxs)
     else:
-        y = _local_placed(p, h, cfg)
+        y = _local_placed(p, h, cfg, auxs)
     y = relayout(y, out)
-    if p.shared is None:
+    if p.shared is not None:
+        y = blockwise(torch.add, y, swiglu_mlp_placed(
+            h, p.shared.w_gate, p.shared.w_up, p.shared.w_down, out))
+    if not with_aux:
         return y
-    return blockwise(torch.add, y, swiglu_mlp_placed(
-        h, p.shared.w_gate, p.shared.w_up, p.shared.w_down, out))
+    with rank_scope(0):
+        on0 = [to_rank(a, mesh, 0, path="moe") for a in auxs]
+        if path == "a2a":
+            aux = torch.stack(on0).sum() / (layout[1] * layout[2])
+        elif path == "fsdp":
+            aux = torch.stack(on0).mean()
+        else:
+            aux = _aux_of_sums(torch.stack(on0).sum(0), cfg.num_experts)
+    return y, aux
 
 
 __all__ = ["CAPACITY_FACTOR", "PATH_COUNTS", "RECOMPUTE_COUNTS",

@@ -10,7 +10,9 @@ the same in both packages.
 The full-sequence functions serve prefill (K3, ``impl="pallas"``) and
 training (``impl="jax"``: the model-level attention of models/attention.py
 that the reference trains through); :func:`decoder_stack_train` is the
-training stack, each layer under a remat policy (:data:`REMAT_POLICIES`).
+training stack on one device, each layer under a remat policy
+(:data:`REMAT_POLICIES`), :func:`decoder_stack_train_placed` its
+counterpart over a mesh, on placed views.
 
 A layer whose weights ``weights.place_params`` placed (every serving
 family's decoder layers, an encdec's encoder layers, the hybrid's shared
@@ -26,7 +28,10 @@ attention by block (``attention.prefill_attention_placed``: causal with
 the vlm's prefix, or non-causal for an encoder), an encdec's
 cross-attention by block (:func:`cross_block_placed`; in decode over the
 batch-split cross state), decode self-attention over the slabs as for an
-unplaced model (``paged.paged_attend_append``)."""
+unplaced model (``paged.paged_attend_append``).  A training step over a
+mesh runs the same blocks on its placed bf16 views under autograd
+(:func:`decoder_layer_train_placed`): the attention by
+``attention.attention_train_placed``, a moe FFN with its aux loss."""
 from __future__ import annotations
 
 import functools
@@ -40,8 +45,9 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 
 from repro_torch.configs import ModelConfig
 from repro_torch.launch.mesh import (DeviceMesh, Sharded, Sharding,
-                                     map_blocks, relayout, take)
+                                     map_blocks, rank_scope, relayout, take)
 from repro_torch.models.attention import (MaskInfo, attention_train,
+                                         attention_train_placed,
                                          flash_attention,
                                          placed_qkv_shardings,
                                          prefill_attention,
@@ -145,29 +151,23 @@ ATTENTION_IMPLS = ("pallas", "jax")
 
 
 def _self_attention(q, k, v, pos, prefix_len: int, causal: bool,
-                    impl: str, mesh: Optional[DeviceMesh] = None,
-                    strategy: str = "heads") -> torch.Tensor:
+                    impl: str) -> torch.Tensor:
     if impl == "pallas":
         return prefill_attention(q, k, v, causal=causal,
                                  prefix_len=prefix_len)
     if impl == "jax":
-        return attention_train(q, k, v, pos, MaskInfo(causal, prefix_len),
-                               mesh, strategy)
+        return attention_train(q, k, v, pos, MaskInfo(causal, prefix_len))
     raise ValueError(f"impl {impl!r}: one of {ATTENTION_IMPLS}")
 
 
 def attn_block_train(layer: DecoderLayer, x: torch.Tensor,
                      pos: torch.Tensor, cfg: ModelConfig, prefix_len: int = 0,
-                     causal: bool = True, impl: str = "pallas",
-                     mesh: Optional[DeviceMesh] = None,
-                     strategy: str = "heads"
+                     causal: bool = True, impl: str = "pallas"
                      ) -> Tuple[torch.Tensor,
                                 Tuple[torch.Tensor, torch.Tensor]]:
-    """The self-attention block over a full sequence: x (B, S, d), pos
-    (B, S).  Returns x plus the attention's output and this layer's
-    post-RoPE (k, v), each (B, S, KVH, D).  The training attention
-    (``impl="jax"``) splits over ``mesh`` by ``strategy``
-    (``attention.attention_train``); K3 runs whole."""
+    """The self-attention block over a full sequence on x's device: x (B,
+    S, d), pos (B, S).  Returns x plus the attention's output and this
+    layer's post-RoPE (k, v), each (B, S, KVH, D)."""
     B, S, _ = x.shape
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     q, k, v = layer.qkv(h)
@@ -176,8 +176,7 @@ def attn_block_train(layer: DecoderLayer, x: torch.Tensor,
     k = apply_rope(_heads(k, cfg.num_kv_heads, cfg.head_dim), pos,
                    cfg.rope_theta)
     v = _heads(v, cfg.num_kv_heads, cfg.head_dim)
-    o = _self_attention(q, k, v, pos, prefix_len, causal, impl, mesh,
-                        strategy)
+    o = _self_attention(q, k, v, pos, prefix_len, causal, impl)
     return x + o.reshape(B, S, cfg.q_dim) @ layer.wo.to(x.dtype), (k, v)
 
 
@@ -218,8 +217,7 @@ def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
                         prefix_len: int = 0, causal: bool = True,
                         enc_out: Optional[torch.Tensor] = None,
                         impl: str = "pallas",
-                        mesh: Optional[DeviceMesh] = None,
-                        strategy: str = "heads"
+                        mesh: Optional[DeviceMesh] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor,
                                    Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence layer: x (B, S, d), pos (B, S); key positions below
@@ -229,13 +227,10 @@ def decoder_layer_train(layer: DecoderLayer, x: torch.Tensor,
     the cross-attention block runs after the self-attention.  ``impl``
     chooses the attention (:data:`ATTENTION_IMPLS`: K3 for prefill, the
     model-level function for training); ``mesh`` reaches the FFN (a moe
-    layer's mesh path) and the training attention, which splits by
-    ``strategy`` (``sharding.rules.attn_strategy``); K3, the
-    cross-attention and the rest run whole on x's device, the function
-    GSPMD computes.  Returns the new x, the FFN's aux loss (fp32 scalar, 0
+    layer's mesh path); the attention, the cross-attention and the rest
+    run whole on x's device, the function GSPMD computes.  Returns the new x, the FFN's aux loss (fp32 scalar, 0
     for dense) and this layer's post-RoPE (k, v), each (B, S, KVH, D)."""
-    x, kv = attn_block_train(layer, x, pos, cfg, prefix_len, causal, impl,
-                             mesh, strategy)
+    x, kv = attn_block_train(layer, x, pos, cfg, prefix_len, causal, impl)
     if enc_out is not None:
         x, _ = cross_block_train(layer, x, enc_out, cfg, impl)
     x, aux = layer.ffn(x, cfg, mesh)
@@ -277,22 +272,16 @@ def remat_call(remat: str, fn, *args):
 def decoder_stack_train(layers, x: torch.Tensor, pos: torch.Tensor,
                         cfg: ModelConfig, info: MaskInfo,
                         enc_out: Optional[torch.Tensor] = None,
-                        remat: str = "minimal",
-                        mesh: Optional[DeviceMesh] = None
+                        remat: str = "minimal"
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The training forward of a decoder (or encoder) stack: each layer
-    under the remat policy ``remat``, the training attention
-    (``impl="jax"``), over ``mesh`` by the strategy
-    ``sharding.rules.attn_strategy`` picks (the reference's
-    ``transformer.py:162``).  Returns (x, the layers' aux losses
-    summed)."""
-    strategy = attn_strategy(cfg.num_heads, mesh) if mesh is not None \
-        else "heads"
-
+    """The training forward of a decoder (or encoder) stack on one device:
+    each layer under the remat policy ``remat``, the training attention
+    (``impl="jax"``).  Over a mesh a stack runs
+    :func:`decoder_stack_train_placed`.  Returns (x, the layers' aux
+    losses summed)."""
     def body(layer, h):
         h, a, _ = decoder_layer_train(layer, h, pos, cfg, info.prefix_len,
-                                      info.causal, enc_out, impl="jax",
-                                      mesh=mesh, strategy=strategy)
+                                      info.causal, enc_out, impl="jax")
         return h, a
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -353,17 +342,29 @@ def _placed_qkv(layer: DecoderLayer, h: Sharded, cfg: ModelConfig):
                                           ("wv", "bv"))))
 
 
-def _placed_ffn(layer: DecoderLayer, x: Sharded, cfg: ModelConfig
-                ) -> Sharded:
+def _placed_ffn(layer: DecoderLayer, x: Sharded, cfg: ModelConfig,
+                with_aux: bool = False):
     """x + the FFN of norm(x), laid out as x: the SwiGLU MLP, or a moe
-    layer's experts where they lie (``moe.moe_ffn_placed``)."""
+    layer's experts where they lie (``moe.moe_ffn_placed``).  With
+    ``with_aux`` (training) (x, the aux loss fp32 on the mesh's first
+    rank: 0 for a dense layer)."""
     h = rms_norm_placed(x, layer.ln2, cfg.norm_eps)
     if cfg.family == "moe":
-        y = moe_ffn_placed(layer.moe, h, cfg, x.sharding)
+        y = moe_ffn_placed(layer.moe, h, cfg, x.sharding, with_aux)
+        y, aux = y if with_aux else (y, None)
     else:
         y = swiglu_mlp_placed(h, layer.w_gate, layer.w_up, layer.w_down,
                               x.sharding)
-    return blockwise(torch.add, x, y)
+        aux = None
+    x = blockwise(torch.add, x, y)
+    if not with_aux:
+        return x
+    if aux is None:
+        mesh = x.sharding.mesh
+        with rank_scope(0):
+            aux = torch.zeros((), dtype=torch.float32,
+                              device=mesh.devices[0])
+    return x, aux
 
 
 def _rope_blocks(t: Sharded, sharding: Sharding, pos: Sharded,
@@ -383,26 +384,54 @@ def _rope_blocks(t: Sharded, sharding: Sharding, pos: Sharded,
 
 
 def cross_block_placed(layer: DecoderLayer, x: Sharded, enc_out: Sharded,
-                       cfg: ModelConfig, strategy: str
+                       cfg: ModelConfig, strategy: str, train: bool = False
                        ) -> Tuple[Sharded, Tuple[Sharded, Sharded]]:
     """:func:`cross_block_train` of a placed encdec layer: q column-parallel
     from the decoder's normed stream x (B, S, d), k / v column-parallel
     from the placed, normed encoder output (B, S_src, d); the attention by
-    the blocks of q's layout for ``strategy`` (K3, non-causal, every
-    frame); ``xattn.wo`` row-parallel.  Returns the new x (laid out as x)
-    and the cross k, v (B, S_src, KVH * D), the serve state's ``cross_k``
-    / ``cross_v`` of this layer."""
+    the blocks of q's layout for ``strategy``, non-causal, every frame (K3
+    in prefill, :func:`~repro_torch.models.attention
+    .attention_train_placed` with ``train``); ``xattn.wo`` row-parallel.
+    Returns the new x (laid out as x) and the cross k, v (B, S_src, KVH *
+    D), the serve state's ``cross_k`` / ``cross_v`` of this layer."""
     B, S, _ = x.shape
-    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xa = layer.xattn
     h = rms_norm_placed(x, layer.ln_x, cfg.norm_eps)
     q, = col_parallel(h, (xa.wq, None))
     k, v = col_parallel(enc_out, (xa.wk, None), (xa.wv, None))
     qsh, _ = placed_qkv_shardings(x.sharding.mesh, strategy, B, S, H, KVH)
-    o = prefill_attention_placed(relayout(q, qsh), k, v, H, KVH,
-                                 cfg.head_dim, causal=False)
+    if train:
+        o = attention_train_placed(relayout(q, qsh), k, v, None, H, KVH, D,
+                                   MaskInfo(causal=False))
+    else:
+        o = prefill_attention_placed(relayout(q, qsh), k, v, H, KVH, D,
+                                     causal=False)
     return blockwise(torch.add, x, row_parallel(o, xa.wo, x.sharding)), \
         (k, v)
+
+
+def _self_attention_placed(layer: DecoderLayer, x: Sharded, pos: Sharded,
+                           cfg: ModelConfig, strategy: str, info: MaskInfo,
+                           train: bool):
+    """x plus the self-attention block of a placed layer (the q / k / v
+    projections column-parallel, RoPE on each block of q's and k's
+    layouts, the attention by q's blocks: K3, or the training attention
+    with ``train``, ``wo`` row-parallel), and the post-RoPE k and v."""
+    B, S, _ = x.shape
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = rms_norm_placed(x, layer.ln1, cfg.norm_eps)
+    q, k, v = _placed_qkv(layer, h, cfg)
+    qsh, ksh = placed_qkv_shardings(x.sharding.mesh, strategy, B, S, H, KVH)
+    q = _rope_blocks(q, qsh, pos, cfg)
+    k = _rope_blocks(k, ksh, pos, cfg)
+    if train:
+        o = attention_train_placed(q, k, v, pos, H, KVH, D, info)
+    else:
+        o = prefill_attention_placed(q, k, v, H, KVH, D, causal=info.causal,
+                                     prefix_len=info.prefix_len)
+    return blockwise(torch.add, x, row_parallel(o, layer.wo, x.sharding)), \
+        k, v
 
 
 def decoder_layer_placed(layer: DecoderLayer, x: Sharded, pos: Sharded,
@@ -421,20 +450,58 @@ def decoder_layer_placed(layer: DecoderLayer, x: Sharded, pos: Sharded,
     output) :func:`cross_block_placed` after the self-attention.  Returns
     the new x (laid out as x), this layer's post-RoPE k and v (B, S, KVH *
     D) Sharded, and the cross (k, v) (None without ``enc_out``)."""
-    B, S, _ = x.shape
-    H, KVH = cfg.num_heads, cfg.num_kv_heads
-    h = rms_norm_placed(x, layer.ln1, cfg.norm_eps)
-    q, k, v = _placed_qkv(layer, h, cfg)
-    qsh, ksh = placed_qkv_shardings(x.sharding.mesh, strategy, B, S, H, KVH)
-    q = _rope_blocks(q, qsh, pos, cfg)
-    k = _rope_blocks(k, ksh, pos, cfg)
-    o = prefill_attention_placed(q, k, v, H, KVH, cfg.head_dim,
-                                 causal=causal, prefix_len=prefix_len)
-    x = blockwise(torch.add, x, row_parallel(o, layer.wo, x.sharding))
+    x, k, v = _self_attention_placed(layer, x, pos, cfg, strategy,
+                                     MaskInfo(causal, prefix_len), False)
     xkv = None
     if enc_out is not None:
         x, xkv = cross_block_placed(layer, x, enc_out, cfg, strategy)
     return _placed_ffn(layer, x, cfg), k, v, xkv
+
+
+def decoder_layer_train_placed(layer: DecoderLayer, x: Sharded, pos: Sharded,
+                               cfg: ModelConfig, strategy: str,
+                               info: MaskInfo,
+                               enc_out: Optional[Sharded] = None
+                               ) -> Tuple[Sharded, torch.Tensor]:
+    """The training counterpart of :func:`decoder_layer_placed` (the
+    reference's ``decoder_layer_train`` under GSPMD): the same blocks on
+    the same ranks, the attention by :func:`~repro_torch.models.attention
+    .attention_train_placed` (masked as ``info`` says), the cross block's
+    too, a moe FFN with its aux loss.  Returns the new x (laid out as x)
+    and the aux loss (fp32, on the mesh's first rank; 0 for dense)."""
+    x, _, _ = _self_attention_placed(layer, x, pos, cfg, strategy, info,
+                                     True)
+    if enc_out is not None:
+        x, _ = cross_block_placed(layer, x, enc_out, cfg, strategy,
+                                  train=True)
+    return _placed_ffn(layer, x, cfg, with_aux=True)
+
+
+def decoder_stack_train_placed(layers, x: Sharded, pos: Sharded,
+                               cfg: ModelConfig, info: MaskInfo,
+                               enc_out: Optional[Sharded] = None,
+                               remat: str = "minimal"
+                               ) -> Tuple[Sharded, torch.Tensor]:
+    """:func:`decoder_stack_train` over placed views: x (B, S, d) laid out
+    by ``("batch", "act_seq_tp", None)`` (the reference's ``constrain`` at
+    each layer's ends), each layer :func:`decoder_layer_train_placed`
+    under the remat policy ``remat``, the attention by the strategy
+    ``sharding.rules.attn_strategy`` picks.  Returns (x, the layers' aux
+    losses summed on the mesh's first rank)."""
+    mesh = x.sharding.mesh
+    strategy = attn_strategy(cfg.num_heads, mesh)
+
+    def body(layer, h):
+        return decoder_layer_train_placed(layer, h, pos, cfg, strategy,
+                                          info, enc_out)
+
+    with rank_scope(0):
+        aux = torch.zeros((), dtype=torch.float32, device=mesh.devices[0])
+    for layer in layers:
+        x, a = remat_call(remat, body, layer, x)
+        with rank_scope(0):
+            aux = aux + a
+    return x, aux
 
 
 def decoder_layer_decode_placed(layer: DecoderLayer, x: Sharded,
@@ -494,4 +561,5 @@ __all__ = ["ATTENTION_IMPLS", "CrossAttention", "DecoderLayer",
            "cross_block_train",
            "decoder_layer_decode", "decoder_layer_decode_placed",
            "decoder_layer_placed", "decoder_layer_train",
-           "decoder_stack_train", "remat_call"]
+           "decoder_layer_train_placed", "decoder_stack_train",
+           "decoder_stack_train_placed", "remat_call"]

@@ -24,12 +24,14 @@ and channels as the reference's ``constrain`` points do;
 attention layouts to use.  The reference's ``constrain`` and
 ``named_sharding`` have no counterpart: they hand a placement to GSPMD,
 and the port places every tensor explicitly, so there is nothing to
-annotate.  What is placed: the training state; the pools' slabs; every
-serving family's weights (``weights.place_params``) and its activations
-by blocks on their ranks, with a facade's recurrent and cross state
-(``models/lm.py STATE_AXES``); a moe FFN's mesh paths.  Everything else
-(an unplaced model's serving weights and activations, training's loss
-and bf16 views) lies whole on the model's device.
+annotate.  What is placed: the training state, a training step's bf16
+views, batch and every activation of its loss and backward (by blocks on
+their ranks); the pools' slabs; every serving family's weights
+(``weights.place_params``) and its activations by blocks on their ranks,
+with a facade's recurrent and cross state (``models/lm.py
+STATE_AXES``); a moe FFN's mesh paths.  Everything else (an unplaced
+model's serving weights and activations) lies whole on the model's
+device.
 """
 from __future__ import annotations
 

@@ -9,6 +9,8 @@
   ``tree_shardings`` does: llama3.2-3b's decode_32k over (16, 16) ranks
   holds at most 1/16 of any weight matrix on a rank, and under 8 GiB of
   arguments on every rank.
+* The reduced train cell of every family walks the placed step: no rank's
+  temporaries exceed 1.5x the least loaded batch-holding rank's.
 * Skips follow the reference's ``shape_applicable``.
 * The decode cell's declared appends equal what the engine's path reads
   from the block table, and a decode step given them returns what the
@@ -81,6 +83,30 @@ def test_reduced_cell_of_every_family(family, kind):
     if kind == "train":
         # the masters, moments and batch are placed over the ranks
         assert min(walk.arguments) > 0
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_reduced_train_cell_balances_its_ranks(family):
+    """The reduced train cell over (2, 2) meta ranks walks the placed
+    step: each rank computes its batch block's forward and backward, so
+    no rank's temporaries exceed 1.5x the least loaded batch-holding
+    rank's (the step that gathered the views and the batch onto the first
+    rank held there what every rank's blocks needed)."""
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.mesh import Sharded
+    from repro_torch.launch.op_cost import Walk
+    cfg = get_config(FAMILIES[family]).reduced()
+    shape = ShapeConfig("train", 128, 4, "train")
+    mesh = make_test_mesh((2, 2), devices="meta")
+    walk = Walk(mesh.size, fill=shape.seq_len)
+    with walk:
+        fn, arguments = build_cell(cfg, shape, mesh)
+        walk.run(fn, arguments)
+    tokens = arguments[1]["tokens"]
+    assert isinstance(tokens, Sharded)
+    holders = set(tokens.sharding.owners().values())
+    temps = [p - a for p, a in zip(walk.peak, walk.arguments)]
+    assert max(temps) <= 1.5 * min(temps[r] for r in holders), temps
 
 
 def test_skips_follow_the_reference():

@@ -7,18 +7,21 @@ CPU (the moe cases, the elastic restore and the DP all-reduce are in
   jitted step under the same mesh with ``build_jit_train_step``'s
   shardings applied (forced JAX host devices in a subprocess, marker
   ``mesh``): llama3.2-3b reduced over (2, 2, 2) and (2, 4) under both
-  ``TrainConfig.sharding`` values, paligemma-3b and seamless-m4t-medium
-  over (2, 2).  The tolerances are ``tests/test_torch_train_loop.py``'s:
-  loss rtol 1e-5, ``grad_norm`` rtol 1e-3, each updated weight within
-  2e-6 + 1e-2 x lr where its grad is firm (else 2 lr), each moment within
-  3% of the leaf's largest; every parameter's resolved spec equals the
+  ``TrainConfig.sharding`` values (and under ``"fsdp"`` with two
+  microbatches, each laid out again by the batch spec), paligemma-3b,
+  seamless-m4t-medium, mamba2-780m and zamba2-2.7b over (2, 2), each block
+  of the loss computed on the rank that holds it.  The tolerances are
+  ``tests/test_torch_train_loop.py``'s: loss rtol 1e-5, ``grad_norm``
+  rtol 1e-3, each updated weight within 2e-6 + 1e-2 x lr where its grad
+  is firm (else 2 lr), each moment within 3% of the leaf's largest; every parameter's resolved spec equals the
   reference's ``NamedSharding`` spec (its stacked layer axis dropped);
-* ``attention_train`` over each strategy and layout (heads over
-  ``model`` with K/V heads sharded, replicated and straddling a group;
-  query positions over ``model``, and whole where 4 does not divide S;
-  batch rows under ``FSDP_RULES``): outputs and grads against the whole
-  call (each block is the same online softmax on fewer rows or heads:
-  atol 1e-6 on outputs, 1e-5 on grads), and the blocks it ran;
+* ``attention_train_placed`` over each strategy and layout (q, k and v
+  placed by ``placed_qkv_shardings``: heads over ``model`` with K/V heads
+  sharded, replicated and straddling a group; query positions over
+  ``model``, and whole where 4 does not divide S; batch rows under
+  ``FSDP_RULES``): outputs and grads against ``attention_train`` whole
+  (each block is the same online softmax on fewer rows or heads: atol
+  1e-6 on outputs, 1e-5 on grads), and the blocks it ran;
 * ``place`` / ``gather`` round trips, bitwise, and each block's owner;
 * the parameter-axes table against ``split_params``'s axes tree for every
   family.
@@ -49,7 +52,8 @@ pytestmark = pytest.mark.usefixtures("one_thread")
 LR = 1e-3
 LOSS_RTOL, GNORM_RTOL, MOMENT_SHARE = 1e-5, 1e-3, 3e-2
 
-#: name -> (arch, mesh shape, axes, sharding, B, S, config overrides)
+#: name -> (arch, mesh shape, axes, sharding, B, S, config overrides[,
+#: TrainConfig overrides])
 STEP_CASES = {
     "llama fsdp 2x4": ("llama3.2-3b", (2, 4), ("data", "model"), "fsdp",
                        4, 64, {}),
@@ -63,6 +67,13 @@ STEP_CASES = {
                      4, 48, {}),
     "encdec tp 2x2": ("seamless-m4t-medium", (2, 2), ("data", "model"),
                       "tp", 4, 64, {}),
+    "ssm fsdp 2x2": ("mamba2-780m", (2, 2), ("data", "model"), "fsdp",
+                     4, 64, {}),
+    "hybrid tp 2x2": ("zamba2-2.7b", (2, 2), ("data", "model"), "tp",
+                      4, 64, {}),
+    "llama fsdp 2x4, 2 microbatches": ("llama3.2-3b", (2, 4),
+                                       ("data", "model"), "fsdp", 8, 64, {},
+                                       {"microbatches": 2}),
 }
 
 STEP_CHILD = r"""
@@ -121,13 +132,16 @@ def entries(spec):
 
 
 out = {}
-for name, (arch, shape, axes, sharding, B, S, over) in cases.items():
+for name, (arch, shape, axes, sharding, B, S, over, *tover) in cases.items():
     jc = dataclasses.replace(jget_config(arch).reduced(), **over)
     tc = dataclasses.replace(get_config(arch).reduced(), **over)
     jmodel = build_model(jc)
     params, paxes = split_params(jmodel.init_params(jax.random.key(0)))
     kw = dict(total_steps=8, warmup_steps=1, learning_rate=LR,
-              sharding=sharding)
+              sharding=sharding, **(tover[0] if tover else {}))
+    # a step over microbatches reports no aux, the reference's neither
+    aux_of = (lambda m: 0.0 if "aux" not in m else float("nan")) \
+        if kw.get("microbatches", 1) > 1 else (lambda m: float(m["aux"]))
     n = int(np.prod(shape))
     jm = Mesh(np.asarray(jax.devices()[:n]).reshape(shape), tuple(axes))
     step_fn, shard_state, bshard = jtrain.build_jit_train_step(
@@ -182,8 +196,8 @@ for name, (arch, shape, axes, sharding, B, S, over) in cases.items():
         "loss": [float(tmet["loss"]), float(jmet["loss"])],
         "grad_norm": [float(tmet["grad_norm"]), float(jmet["grad_norm"])],
         "lr": [float(tmet["lr"]), float(jmet["lr"])],
-        "aux": [float(tmet["aux"]), float(jmet["aux"])],
-        "local": [float(lmet["loss"]), float(lmet["aux"])],
+        "aux": [aux_of(tmet), aux_of(jmet)],
+        "local": [float(lmet["loss"]), aux_of(lmet)],
         "step": [int(state.opt.step), int(jstate.opt.step)],
         "firm_worst": firm_worst, "any_worst": any_worst,
         "moment_worst": mom_worst, "spec_diff": spec_diff,
@@ -231,6 +245,140 @@ def test_mesh_train_step_matches_reference(step_results, case):
     assert r["aux"] == [0.0, 0.0]
     np.testing.assert_allclose(r["local"][0], r["loss"][1], rtol=LOSS_RTOL)
     assert r["paths"] == r["recomputed"] == {} and r["ref_paths"] == []
+
+
+# ---------------------------------------------------------------------------
+# eight steps in bf16: the placed step against one device, as the reference's
+# ---------------------------------------------------------------------------
+
+#: llama3.2-3b reduced with bf16 activations (the published configs'),
+#: over (2, 4), B x S, steps at the default learning rate and schedule
+DRIFT_B, DRIFT_S, DRIFT_STEPS = 2, 64, 8
+#: a distance over the steps may be this many times the reference's
+DRIFT_FACTOR = 3.0
+
+DRIFT_CHILD = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import dataclasses, json, sys
+import jax, jax.numpy as jnp, numpy as np, torch
+from jax.sharding import Mesh
+
+from repro.configs import TrainConfig as JTrainConfig
+from repro.configs import get_config as jget_config
+from repro.data import batch_logical_axes as jbatch_axes
+from repro.data import make_batch as jmake_batch
+from repro.launch import train as jtrain
+from repro.models import build_model, split_params
+from repro.optim import init_state as jinit_state
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.data import batch_logical_axes, make_batch, to_device
+from repro_torch.launch import train as ttrain
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.weights import from_jax_params, params_axes
+
+torch.set_num_threads(1)
+B, S, steps = (int(a) for a in sys.argv[1:4])
+shape, axes = (2, 4), ("data", "model")
+over = {"dtype": "bfloat16"}
+jc = dataclasses.replace(jget_config("llama3.2-3b").reduced(), **over)
+tc = dataclasses.replace(get_config("llama3.2-3b").reduced(), **over)
+jmodel = build_model(jc)
+params, paxes = split_params(jmodel.init_params(jax.random.key(0)))
+tree = jax.tree_util.tree_map(np.asarray, params)
+jbs = [{k: jnp.asarray(v) for k, v in jmake_batch(jc, B, S, i).items()}
+       for i in range(steps)]
+tbs = [to_device(make_batch(tc, B, S, i), "cpu") for i in range(steps)]
+jm = Mesh(np.asarray(jax.devices()[:8]).reshape(shape), axes)
+
+
+def trace(step, state, batches, put=lambda b: b):
+    out = []
+    for b in batches:
+        state, m = step(state, put(b))
+        out.append([float(m["loss"]), float(m["grad_norm"])])
+    return out
+
+
+out = {}
+for sharding in ("fsdp", "tp"):
+    kw = dict(total_steps=steps, warmup_steps=1, sharding=sharding)
+    res = {}
+    res["ref_one"] = trace(
+        jax.jit(jtrain.make_train_step(jmodel, JTrainConfig(**kw), None)),
+        jtrain.TrainState(params, jinit_state(params)), jbs)
+    step_fn, shard_state, bshard = jtrain.build_jit_train_step(
+        jmodel, JTrainConfig(**kw), jm, paxes, jbatch_axes(jc))
+    st_sh, b_sh = shard_state(params), bshard(jbs[0])
+    res["ref_mesh"] = trace(
+        jax.jit(step_fn, in_shardings=(st_sh, b_sh)),
+        jax.device_put(jtrain.TrainState(params, jinit_state(params)), st_sh),
+        jbs, lambda b: jax.device_put(b, b_sh))
+    model = from_jax_params(tree, tc, "cpu", param_dtype=torch.float32)
+    res["one"] = trace(ttrain.make_train_step(model, TrainConfig(**kw)),
+                       ttrain.train_state(model), tbs)
+    model = from_jax_params(tree, tc, "cpu", param_dtype=torch.float32)
+    tm = make_test_mesh(shape, axes, devices="cpu")
+    step, tshard, _ = ttrain.build_train_step(
+        model, TrainConfig(**kw), tm, params_axes(model),
+        batch_logical_axes(tc))
+    res["mesh"] = trace(step, ttrain.train_state(
+        model, tshard(dict(model.named_parameters()))), tbs)
+    out[sharding] = res
+print("RESULTS:" + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def drift_results(tmp_path_factory):
+    return run_device_subprocess(
+        DRIFT_CHILD, args=[str(DRIFT_B), str(DRIFT_S), str(DRIFT_STEPS)],
+        tmp_path=tmp_path_factory.mktemp("drift"), timeout=900)
+
+
+def _apart(a, b, i):
+    """Each step's relative distance of metric ``i`` (0 loss, 1
+    grad_norm) of run ``a`` from run ``b``."""
+    return [abs(x[i] - y[i]) / abs(y[i]) for x, y in zip(a, b)]
+
+
+@pytest.mark.mesh
+@pytest.mark.parametrize("sharding", ["fsdp", "tp"])
+def test_placed_steps_leave_one_device_as_the_reference_does(drift_results,
+                                                             sharding):
+    """Eight steps of reduced llama3.2-3b in bf16 activations over (2, 4)
+    CPU ranks: the port's placed step (``mesh``), its one-device step
+    (``one``), the reference's jitted sharded step (``ref_mesh``) and its
+    jitted one-device step (``ref_one``) from the same weights and
+    batches.  A partitioned step rounds other bf16 products than one
+    device does (a rank's partial weight grads, a column or contraction
+    block's products), and Adam carries the difference on, so its losses
+    and grad_norms leave one device's step by more than the one-step
+    tolerances over a few steps: the reference's own do (step 0's
+    ``"tp"`` loss 1.9e-5 apart, grad_norms up to 1.6e-3 apart by step 4
+    in ``"fsdp"``).  Held: at every step, and at step 0 alone, the port's
+    placed step is no further from the port's one-device step than
+    DRIFT_FACTOR times the reference's sharded step is from the
+    reference's one-device step, and no further from the reference's
+    sharded step than DRIFT_FACTOR times the two one-device steps are
+    from each other (each a floor of 1e-6)."""
+    r = drift_results[sharding]
+    for i in (0, 1):
+        mine = _apart(r["mesh"], r["one"], i)
+        ref = _apart(r["ref_mesh"], r["ref_one"], i)
+        ones = _apart(r["one"], r["ref_one"], i)
+        across = _apart(r["mesh"], r["ref_mesh"], i)
+        # the readings (pytest -s): step 0's and the largest distance
+        print(f"{sharding} {('loss', 'grad_norm')[i]}: placed / one "
+              f"{mine[0]:.2e} {max(mine):.2e}, reference's mesh / one "
+              f"{ref[0]:.2e} {max(ref):.2e}, the two one-device steps "
+              f"{max(ones):.2e}, placed / reference's mesh "
+              f"{max(across):.2e}")
+        assert mine[0] <= DRIFT_FACTOR * ref[0] + 1e-6, (i, mine, ref)
+        assert max(mine) <= DRIFT_FACTOR * max(ref) + 1e-6, (i, mine, ref)
+        assert max(across) <= DRIFT_FACTOR * max(ones) + 1e-6, \
+            (i, across, ones)
 
 
 # ---------------------------------------------------------------------------
@@ -282,11 +430,20 @@ def test_attention_train_over_mesh_matches_whole_call(case, monkeypatch):
     mesh = tmesh.make_test_mesh(shape, axes, devices="cpu")
     table = {"default": rules.DEFAULT_RULES, "fsdp": rules.FSDP_RULES}
     with rules.use_rules(table[rule_set]):
-        got = tatt.attention_train(q, k, v, pos, info, mesh, strategy,
-                                   kv_chunk=8)
-    gm = torch.autograd.grad((got * dout).sum(), (q, k, v))
+        qsh, ksh = tatt.placed_qkv_shardings(mesh, strategy, B, S, H, KVH)
+        got = tatt.attention_train_placed(
+            tmesh.map_blocks(qsh, (B, S, H * D), lambda b, sl, r: tmesh.take(
+                q.reshape(B, S, H * D), r, sl, mesh=mesh)),
+            *(tmesh.map_blocks(ksh, (B, S, KVH * D),
+                               lambda b, sl, r, _t=t: tmesh.take(
+                                   _t.reshape(B, S, KVH * D), r, sl,
+                                   mesh=mesh)) for t in (k, v)),
+            tmesh.place(pos, tmesh.Sharding(mesh, qsh.spec[:2])), H, KVH, D,
+            info, kv_chunk=8)
+    out = tmesh.gather(got).reshape(B, S, H, D)
+    gm = torch.autograd.grad((out * dout).sum(), (q, k, v))
     assert len(blocks) == n_blocks and set(blocks) == {block_q}, blocks
-    np.testing.assert_allclose(got.detach().numpy(), whole.detach().numpy(),
+    np.testing.assert_allclose(out.detach().numpy(), whole.detach().numpy(),
                                atol=1e-6)
     for a, b in zip(gm, gw):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)

@@ -31,8 +31,9 @@ from test_torch_contract import one_thread, jax_and_port_models
 
 from repro.models import attention as jatt
 from repro.models import common as jcommon
+from repro_torch.configs import TrainConfig
 from repro_torch.data import make_batch, to_device
-from repro_torch.launch.train import _LossAndGrads, bf16_views, train_state
+from repro_torch.launch.train import loss_and_grads, train_state
 from repro_torch.models import attention as tatt
 from repro_torch.models import common as tcommon
 from repro_torch.weights import jax_path
@@ -134,10 +135,12 @@ def test_flash_attention_matches_reference(case):
 
 
 def test_attention_train_is_causal_flash_and_takes_a_mesh():
-    """Without a mesh (or over one rank) the call is ``flash_attention``
-    with every key valid; over (2, 4) CPU ranks it runs by blocks (the
-    cases are in ``tests/test_torch_mesh_train.py``) to the same values."""
-    from repro_torch.launch.mesh import make_test_mesh
+    """On one device the call is ``flash_attention`` with every key valid;
+    over (2, 4) CPU ranks the placed training attention runs it by blocks
+    (the cases are in ``tests/test_torch_mesh_train.py`` and
+    ``tests/test_torch_placed_train.py``) to the same values."""
+    from repro_torch.launch.mesh import make_test_mesh, gather, place
+    from repro_torch.sharding import rules
     rng = np.random.default_rng(0)
     q = torch.tensor(rng.standard_normal((2, 8, 4, 16)), dtype=torch.float32)
     pos = torch.arange(8).expand(2, 8)
@@ -146,12 +149,15 @@ def test_attention_train_is_causal_flash_and_takes_a_mesh():
     want = tatt.flash_attention(q, q, q, pos, pos,
                                 torch.ones((2, 8), dtype=torch.bool), info)
     assert torch.equal(out, want)
-    one = make_test_mesh((1,), ("model",), devices="cpu")
-    assert torch.equal(tatt.attention_train(q, q, q, pos, info, one), want)
     mesh = make_test_mesh((2, 4), ("data", "model"), devices="cpu")
-    np.testing.assert_allclose(
-        tatt.attention_train(q, q, q, pos, info, mesh).numpy(), want.numpy(),
-        atol=1e-6)
+    with rules.use_rules(rules.DEFAULT_RULES):
+        qsh, ksh = tatt.placed_qkv_shardings(mesh, "heads", 2, 8, 4, 4)
+    flat = q.reshape(2, 8, 64)
+    got = tatt.attention_train_placed(
+        place(flat, qsh), place(flat, ksh), place(flat, ksh),
+        place(pos, type(qsh)(mesh, qsh.spec[:2])), 4, 4, 16, info)
+    np.testing.assert_allclose(gather(got).reshape(2, 8, 4, 16).numpy(),
+                               want.numpy(), atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -169,12 +175,8 @@ def port_value_and_grad(model, batch, remat="minimal"):
     """(total, metrics, {name: grad}) of the port's loss under its bf16
     views (the train step's ``grads_of``)."""
     state = train_state(model)
-    run = _LossAndGrads(model)
-    views = bf16_views(state.params)
-    total, metrics, grads = torch.func.functional_call(
-        run, {f"model.{n}": v for n, v in views.items()},
-        (batch, remat, list(state.params.values())))
-    return total, metrics, dict(zip(state.params, grads))
+    return loss_and_grads(model, state.params, batch,
+                          TrainConfig(remat_policy=remat))
 
 
 def leaf(tree, name):
