@@ -507,6 +507,26 @@ Phases (each raises on failure; the script then exits non-zero):
     ``fused_mesh`` drain a round.  (e) The four
     facade decode_32k cells walked (a process each, started after (a)-(c)
     are timed): equal to the CPU walk's rows.
+29. (run after phase 28, before phase 21) the port's examples on the card,
+    in process (``phase_examples``; ``examples/torch_quickstart.py``,
+    ``torch_serve_cow.py``, ``torch_train_e2e.py``).  (a) the quickstart's
+    five sections on bf16 pools: its printed lines equal a ``--device
+    cpu`` run's, its pools bitwise equal the same script's under
+    ``ops.plain_versions()`` on the card, every engine launch a kernel
+    launch (which of K1 / K5a / K5b / K6 / K7 it reached, printed).  (b)
+    serve_cow with the reference's defaults, which on the card serves
+    yi-6b's published widths (the reduced config's fp32 at head dim 32 is
+    not one K2 and K3 take): at most one bulk launch a round, K1, K2 and
+    K3 launched, the bookkeeping lines equal a ``--device cpu`` run's at
+    the reduced config and its byte counts those times the ratio of the
+    two engines' pool bytes; ms a round and tokens/s.  (c) train_e2e at the example's
+    widths (llama-100m, B = 8 x S = 512) cut to ``E2E_STEPS`` steps, the
+    failure at its default step, the restart from the checkpoint saved
+    just before it, and an uninterrupted twin: the restart restores step
+    50 and runs 50 steps, every loss finite, the last below the first,
+    step 50's loss within ``E2E_RTOL`` of the twin's; the largest
+    relative gap over steps 50-99, ms a step and the checkpoint ms; no
+    kernel launched.
 
 The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -8802,16 +8822,202 @@ def phase_placed_facades(smi: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the port's examples on the card
+# ---------------------------------------------------------------------------
+
+#: each kernel's id in the table of TPU kernels (PERF.md), by counter name
+KERNEL_IDS = {"fused_dispatch": "K1", "paged_attention": "K2",
+              "flash_attention": "K3", "ssd_intra_chunk": "K4",
+              "fpm_copy": "K5a", "fpm_copy_cross": "K5b", "zero_init": "K6",
+              "psm_transfer": "K7"}
+#: phase 29 (c): ``torch_train_e2e`` cut to 100 steps (its default is
+#: 300); the failure comes at the example's own default, steps // 2
+E2E_STEPS = 100
+#: (c): the restarted run's first loss against the uninterrupted run's at
+#: the same step.  Both hold the same fp32 state, restored bit for bit or
+#: kept; only sums the card orders anew between runs (the embedding's
+#: scattered grads) can part them, by fp32 rounding grown over 50 steps
+E2E_RTOL = 1e-4
+
+
+def _example(name: str):
+    """``examples/torch_<name>.py``, loaded by file path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}_example", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _printed(fn, tag: str):
+    """(``fn()``, the lines it printed), the lines echoed under ``tag``."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"{tag} | {line}")
+    return out, lines
+
+
+def _reached(counts: dict) -> str:
+    return " ".join(f"{KERNEL_IDS[n]} {c}" for n, c in counts.items()
+                    if c) or "none"
+
+
+def _bookkeeping(lines, drop=()) -> list:
+    """An example's printed lines without the tuned profile's notice (a
+    CPU run loads ``configs/tuned/cpu.json``, the card none) and without
+    the lines that start with one of ``drop``."""
+    return [x for x in lines if not x.startswith(("[obs] ",) + tuple(drop))]
+
+
+def _e2e_leg(e2e, fail_at: int, tag: str):
+    """One ``train_e2e`` run of ``E2E_STEPS`` steps at the example's widths
+    on the card, its checkpoints in a directory removed after; returns
+    (the run, its printed lines)."""
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    try:
+        return _printed(lambda: e2e.train_e2e(E2E_STEPS, fail_at=fail_at,
+                                              device="cuda", ckpt_dir=d),
+                        tag)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_examples(smi: str) -> dict:
+    """Phase 29: the port's examples on the card, in process (see the
+    module docstring).  Returns the launch counts of (a)'s, (b)'s and
+    (c)'s card runs, by path."""
+    import math
+    from repro_torch.kernels import ops
+    tag = "[examples]"
+    t_phase = time.perf_counter()
+    checks, paths = {}, {}
+
+    # (a) quickstart ------------------------------------------------------
+    qs = _example("quickstart")
+    _, cpu = _printed(lambda: qs.main(["--device", "cpu"]), f"{tag} (a) cpu")
+    with ops.plain_versions():
+        plain, _ = _printed(lambda: qs.main([]), f"{tag} (a) plain")
+    for c in ops.KERNEL_COUNTERS.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card, lines = _printed(lambda: qs.main([]), f"{tag} (a)")
+    torch.cuda.synchronize()
+    qs_s = time.perf_counter() - t0
+    paths["quickstart"] = launched = _counts()
+    checks["(a) printed lines equal the --device cpu run's"] = \
+        _bookkeeping(lines) == _bookkeeping(cpu)
+    checks["(a) pools bitwise equal to the plain versions' run on the card"] \
+        = all(card.pools[n].is_cuda and _bitwise_equal(card.pools[n],
+                                                       plain.pools[n])
+              for n in ("k", "v"))
+    checks["(a) every engine launch a kernel launch, K1 among them"] = \
+        sum(launched.values()) == card.stats.launches and \
+        launched["fused_dispatch"] > 0
+    log(f"{tag} (a) quickstart on the card in {qs_s:.3f} s; kernels "
+        f"launched: {_reached(launched)} (engine launches "
+        f"{card.stats.launches})")
+    del qs, plain, card
+
+    # (b) serve_cow, the reference's defaults (published widths on the card)
+    sc = _example("serve_cow")
+    cpu_run, cpu = _printed(lambda: sc.main(["--device", "cpu"]),
+                            f"{tag} (b) cpu")
+    for c in ops.KERNEL_COUNTERS.values():
+        c.reset()
+    torch.cuda.synchronize()
+    run, lines = _printed(lambda: sc.main([]), f"{tag} (b)")
+    torch.cuda.synchronize()
+    paths["serve_cow (yi-6b)"] = launched = _counts()
+    # a byte count scales with the bytes of a block; the counts do not
+    full_b = run.engine.engine.pool_bytes_resident()
+    cpu_b = cpu_run.engine.engine.pool_bytes_resident()
+    s, c = run.engine.engine.stats, cpu_run.engine.engine.stats
+    drop = ("[serve] resident pool bytes", "[serve] generated ",
+            "[serve] demo stream flush", "  bytes moved by DMA",
+            "  bytes avoided entirely", "  seq ")
+    checks["(b) bookkeeping lines equal the --device cpu run's"] = \
+        _bookkeeping(lines, drop) == _bookkeeping(cpu, drop)
+    checks["(b) bytes equal the cpu run's scaled by the block bytes"] = all(
+        getattr(s, f) * cpu_b == getattr(c, f) * full_b
+        for f in ("bytes_fpm", "bytes_avoided", "bytes_baseline",
+                  "bytes_psm"))
+    checks["(b) demo stream: one command, one launch"] = any(
+        x.startswith("[serve] demo stream flush: 1 command(s), 1 launch(es)")
+        for x in lines)
+    checks["(b) at most 1 bulk launch a round"] = 0 < run.max_launches <= 1
+    checks["(b) K1, K2 and K3 launched"] = all(
+        launched[n] > 0 for n in ("fused_dispatch", "paged_attention",
+                                  "flash_attention"))
+    log(f"{tag} (b) serve_cow yi-6b at published width: {run.rounds} "
+        f"rounds x {len(run.engine.cache.seqs)} sequences, "
+        f"{1e3 * run.seconds / run.rounds:.3f} ms a round, "
+        f"{run.tokens / run.seconds:.1f} tokens/s ({smi}); max "
+        f"{run.max_launches} bulk launch a round; kernels launched: "
+        f"{_reached(launched)}")
+    del sc, run, cpu_run
+    torch.cuda.empty_cache()
+
+    # (c) train_e2e: a failure and a restart, and an uninterrupted twin ---
+    e2e = _example("train_e2e")
+    e2e.register_100m()
+    for c in ops.KERNEL_COUNTERS.values():
+        c.reset()
+    restarted, lines = _e2e_leg(e2e, E2E_STEPS // 2, f"{tag} (c)")
+    paths["train_e2e"] = launched = _counts()
+    twin, _ = _e2e_leg(e2e, E2E_STEPS, f"{tag} (c) twin")
+    half = E2E_STEPS // 2
+    gaps = [abs(a - b) / abs(b) for a, b in zip(restarted.losses,
+                                                twin.losses[half:])]
+    every = restarted.losses + twin.losses
+    checks["(c) restored step 50 and ran its 50 steps"] = \
+        f"[train] restored step {half}" in lines and restarted.restarted \
+        and len(restarted.losses) == E2E_STEPS - half
+    checks["(c) the twin ran without a failure"] = \
+        not twin.restarted and len(twin.losses) == E2E_STEPS
+    checks["(c) every loss finite"] = all(math.isfinite(x) for x in every)
+    checks["(c) the last loss below the first"] = \
+        restarted.losses[-1] < restarted.losses[0] and \
+        twin.losses[-1] < twin.losses[0]
+    checks[f"(c) step {half}'s loss within rtol {E2E_RTOL} of the twin's"] \
+        = gaps[0] <= E2E_RTOL
+    checks["(c) training launches no kernel"] = not any(launched.values())
+    ms_step = 1e3 * twin.finished_s / E2E_STEPS
+    log(f"{tag} (c) train_e2e llama-100m B 8 x S 512, {E2E_STEPS} steps: "
+        f"step {half} loss restarted {restarted.losses[0]:.6f} vs twin "
+        f"{twin.losses[half]:.6f} (rel {gaps[0]:.3e}); largest relative "
+        f"gap over steps {half}-{E2E_STEPS - 1} {max(gaps):.3e}; loss "
+        f"{twin.losses[0]:.4f} -> {twin.losses[-1]:.4f}; twin "
+        f"{ms_step:.2f} ms a step (set-up and checkpoints included), "
+        f"restarted run {1e3 * restarted.finished_s / half:.2f}, failed "
+        f"run {1e3 * restarted.failed_s / half:.2f}; checkpoint ms "
+        f"{restarted.ckpt_ms} ({smi})")
+    log(f"{tag} phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"example checks failed: {failed}")
+    return paths
+
+
 PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,),
                21: (), 22: (5,), 23: (), 24: (21,), 25: (),
-               26: (5,), 27: (), 28: ()}
+               26: (5,), 27: (), 28: (), 29: ()}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-28 by default), with
+    """The phases to run for ``--phases`` (all of 2-29 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 29))
+        return set(range(2, 30))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -8964,6 +9170,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if 28 in run:
         paths.update(phase_placed_facades(smi))
+        torch.cuda.empty_cache()
+    if 29 in run:
+        paths.update(phase_examples(smi))
         torch.cuda.empty_cache()
     if 21 in run:
         # every earlier model is freed: the 3.2B model's fp32 training

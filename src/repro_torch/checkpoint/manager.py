@@ -20,6 +20,11 @@ as whole arrays, as the reference's ``np.asarray`` saves a sharded
 ``jax.Array``, so a checkpoint does not depend on the mesh it came from;
 :meth:`CheckpointManager.restore` places each leaf by the ``Sharding``
 it is given (an elastic restore passes the new mesh's).
+
+Each save, write and restore records its microseconds on the port's clock
+in the histograms ``ckpt.save_us`` (the host copy on the calling thread),
+``ckpt.write_us`` (the disk write, on the background thread when async)
+and ``ckpt.restore_us`` (``obs/metrics.py``).
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import torch
 
 from repro_torch.core.journal import from_host, to_host
 from repro_torch.launch.mesh import Sharded, Sharding, gather, place
+from repro_torch.obs import metrics as obs_metrics
 
 
 def _leaves(tree) -> List[Any]:
@@ -92,7 +98,9 @@ class CheckpointManager:
         before this returns; the disk write runs on a background thread
         unless ``async_save`` is off or ``blocking`` is set."""
         self.wait()  # one in-flight save at a time
+        t0 = obs_metrics.now()
         flat = {f"a{i}": _host_copy(v) for i, v in enumerate(_leaves(state))}
+        obs_metrics.observe("ckpt.save_us", (obs_metrics.now() - t0) * 1e6)
         if self.async_save and not blocking:
             self._thread = threading.Thread(target=self._write,
                                             args=(step, flat), daemon=True)
@@ -101,6 +109,7 @@ class CheckpointManager:
             self._write(step, flat)
 
     def _write(self, step: int, flat: Dict[str, np.ndarray]) -> None:
+        t0 = obs_metrics.now()
         try:
             tmp = os.path.join(self.dir, f"step_{step}.tmp")
             final = os.path.join(self.dir, f"step_{step}")
@@ -110,7 +119,7 @@ class CheckpointManager:
             np.savez(os.path.join(tmp, "arrays.npz"), **flat)
             manifest = {
                 "step": step,
-                "time": time.time(),
+                "time": time.time(),  # rowlint: disable=RC105 (manifest time-of-day stamp)
                 "keys": sorted(flat),
                 "shapes": {k: list(v.shape) for k, v in flat.items()},
                 "dtypes": {k: str(v.dtype) for k, v in flat.items()},
@@ -121,6 +130,8 @@ class CheckpointManager:
                 shutil.rmtree(final)
             os.replace(tmp, final)
             self._gc()
+            obs_metrics.observe("ckpt.write_us",
+                                (obs_metrics.now() - t0) * 1e6)
         except BaseException as e:  # surfaced on next wait()
             self._error = e
 
@@ -158,6 +169,7 @@ class CheckpointManager:
         its own (``launch.mesh.place``) in the example's dtype.  Returns
         ``(state, step)``."""
         self.wait()
+        t0 = obs_metrics.now()
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -174,6 +186,7 @@ class CheckpointManager:
                 elif isinstance(ex, torch.Tensor):
                     a = from_host(a, ex.dtype, ex.device)
                 loaded.append(a)
+        obs_metrics.observe("ckpt.restore_us", (obs_metrics.now() - t0) * 1e6)
         return _rebuild(example_state, iter(loaded)), step
 
     def _gc(self) -> None:

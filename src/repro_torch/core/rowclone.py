@@ -525,10 +525,13 @@ class RowCloneEngine:
 
     @property
     def n_primary(self) -> int:
+        """Number of primary pools (every plain command moves a block
+        in each)."""
         return self.group.n_primary
 
     @property
     def primary_names(self) -> Tuple[str, ...]:
+        """Names of the primary pools, in the group's order."""
         return self.group.primary_names
 
     def _pool_block_bytes(self, name: str) -> int:

@@ -24,6 +24,7 @@ import weakref
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.cmdqueue import CommandQueue
 from repro_torch.core.poolspec import BlockRef
@@ -96,12 +97,16 @@ class FlushTicket:
                     ) -> Union[np.ndarray, Dict[str, np.ndarray]]:
         """Post-drain contents of one block, copied to the host.  A
         :class:`BlockRef` returns that pool's block; a bare int (a primary
-        id) returns ``{pool name: block}`` over every primary pool."""
+        id) returns ``{pool name: block}`` over every primary pool.  A
+        bfloat16 block comes back as float32 values, each exact (numpy has
+        no bfloat16)."""
         eng = self._engine
-        ba = eng.block_axis
 
         def fetch(name: str, b: int) -> np.ndarray:
-            return eng.block(name, b).to("cpu", copy=True).numpy()
+            blk = eng.block(name, b)
+            if blk.dtype == torch.bfloat16:
+                blk = blk.float()
+            return blk.to("cpu", copy=True).numpy()
 
         if isinstance(ref, BlockRef):
             self._check_live([ref.pool])
@@ -144,34 +149,49 @@ class CommandStream:
 
     # the engine's verbs, routed onto this stream --------------------------
     def memcopy(self, pairs, dst_is_fresh: bool = False):
+        """Enqueue block copies (``RowCloneEngine.memcopy``)."""
         with self.capture():
             return self.engine.memcopy(pairs, dst_is_fresh=dst_is_fresh)
 
     def memcopy_cross(self, pairs):
+        """Enqueue pool-to-pool block copies
+        (``RowCloneEngine.memcopy_cross``)."""
         with self.capture():
             return self.engine.memcopy_cross(pairs)
 
     def meminit(self, ids, lazy: Optional[bool] = None):
+        """Enqueue block zero-inits, lazy or materialised
+        (``RowCloneEngine.meminit``)."""
         with self.capture():
             return self.engine.meminit(ids, lazy=lazy)
 
     def memand(self, triples):
+        """Enqueue bitwise ANDs of two blocks into a third
+        (``RowCloneEngine.memand``)."""
         with self.capture():
             return self.engine.memand(triples)
 
     def memor(self, triples):
+        """Enqueue bitwise ORs of two blocks into a third
+        (``RowCloneEngine.memor``)."""
         with self.capture():
             return self.engine.memor(triples)
 
     def memnot(self, pairs):
+        """Enqueue bitwise NOTs of a block into another
+        (``RowCloneEngine.memnot``)."""
         with self.capture():
             return self.engine.memnot(pairs)
 
     def materialize_zeros(self, ids):
+        """Enqueue the reserved-zero-row copies that materialise
+        lazily zeroed blocks (``RowCloneEngine.materialize_zeros``)."""
         with self.capture():
             return self.engine.materialize_zeros(ids)
 
     def promote_staged(self, pairs):
+        """Enqueue staging -> primary promotions
+        (``RowCloneEngine.promote_staged``)."""
         with self.capture():
             return self.engine.promote_staged(pairs)
 

@@ -45,6 +45,7 @@ class LaunchCounter:
         self.n = 0
 
     def reset(self) -> None:
+        """Set the count to 0."""
         self.n = 0
 
 

@@ -63,6 +63,7 @@ def _host(t) -> np.ndarray:
 
 
 def nbytes(t: torch.Tensor) -> int:
+    """Bytes of ``t``'s elements."""
     return t.numel() * t.element_size()
 
 

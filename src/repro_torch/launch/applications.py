@@ -64,6 +64,9 @@ def _timed(fn: Callable[[], None], device: torch.device) -> float:
 
 
 def forkbench(cfg, params, on: bool, device) -> Dict:
+    """Fig. 2's fork benchmark: admit a 48-token prompt, fork it into
+    4 and decode 6 rounds; the bytes moved through compute, by FPM and
+    avoided, and the tokens."""
     eng = _engine(cfg, params, on, device)
     rng = np.random.default_rng(0)
 
@@ -82,6 +85,9 @@ def forkbench(cfg, params, on: bool, device) -> Dict:
 
 
 def buz_init(cfg, params, on: bool, device) -> Dict:
+    """Fig. 2's bulk zeroing: 24 fresh 64-token sequences, lazily zeroed
+    (ZI) when ``on``, else every block materialised; the blocks and
+    the zeroing counts."""
     eng = _engine(cfg, params, on, device, max_seqs=32)
     sids: List[int] = []
 
@@ -102,6 +108,9 @@ def buz_init(cfg, params, on: bool, device) -> Dict:
 
 
 def migrate(cfg, params, on: bool, device) -> Dict:
+    """Fig. 2's page migration: four 64-token sequences homed on slab 0
+    rebalanced over the slabs (``core/migration.py``); the blocks moved
+    and the bytes moved by PSM or through compute."""
     eng = _engine(cfg, params, on, device)
     for _ in range(4):
         sid = eng.cache.new_sequence(prompt_len=64, prefer_slab=0)

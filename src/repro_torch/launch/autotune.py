@@ -227,6 +227,8 @@ def measure_ring(ring: Optional[int], rounds: int = RING_ROUNDS,
 def sweep_ring(rounds: int = RING_ROUNDS,
                candidates: Sequence[Optional[int]] = RING_CANDIDATES,
                device="cuda", model=None) -> List[Dict]:
+    """:func:`measure_ring` for each staging-ring capacity of
+    ``candidates``, printing each row; returns the rows."""
     rows = []
     for ring in candidates:
         row = measure_ring(ring, rounds=rounds, device=device, model=model)

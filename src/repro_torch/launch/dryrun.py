@@ -51,7 +51,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 import traceback
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -68,6 +67,7 @@ from repro_torch.launch.op_cost import Walk
 from repro_torch.launch.train import build_train_step, train_state
 from repro_torch.models.lm import ENTRY_PAIRS, LanguageModel, paged_state
 from repro_torch.models.paged import identity_layout
+from repro_torch.obs.metrics import now
 from repro_torch.weights import params_axes, place_params
 
 #: the mesh names of the reference's rows
@@ -228,11 +228,11 @@ def walk_cell(arch: Union[str, ModelConfig], shape: Union[str, ShapeConfig],
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     walk = Walk(mesh.size, fill=shape.seq_len)
     with walk:
-        t0 = time.perf_counter()
+        t0 = now()
         fn, arguments = build_cell(arch, shape, mesh)
-        t1 = time.perf_counter()
+        t1 = now()
         walk.run(fn, arguments)
-    return walk, t1 - t0, time.perf_counter() - t1
+    return walk, t1 - t0, now() - t1
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool) -> Dict:

@@ -84,6 +84,7 @@ class DeviceMesh:
         return len(self.devices)
 
     def axis_size(self, name: str) -> int:
+        """Number of ranks along the axis ``name``."""
         return int(self.shape[self.axis_names.index(name)])
 
     def coords(self, rank: int) -> Dict[str, int]:
@@ -280,10 +281,13 @@ class Sharded:
 
     @property
     def dtype(self) -> torch.dtype:
+        """The value's dtype: ``cast`` where the blocks are read as
+        another, else the blocks'."""
         return self.cast or next(iter(self.blocks.values())).dtype
 
     @property
     def ndim(self) -> int:
+        """Number of dimensions of the whole value."""
         return len(self.shape)
 
 

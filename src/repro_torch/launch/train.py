@@ -326,15 +326,18 @@ def train_loop(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 128,
     """Synthetic ``data.make_batch`` batches through the train step, with
     checkpoints every ``checkpoint_every`` steps into ``ckpt_dir`` (and a
     restore from its latest checkpoint on entry) and a ``NodeFailure``
-    raised at step ``inject_failure_at``.  The weights are fp32 masters
-    from ``init_params(cfg, seed)`` unless ``model`` (fp32 parameters, on
-    ``device``) is given; ``async_save=False`` writes each checkpoint
-    before the next step.  Over ``mesh`` the model is made on the mesh's
-    first rank's device, the state is placed by :func:`build_train_step`'s
-    shardings (``TrainConfig.sharding``'s default rules, as the
-    reference's loop), the batches are made there, and a restore places
-    the checkpoint for this mesh, whatever mesh saved it.  Returns (the
-    state, the losses of the steps run)."""
+    raised at step ``inject_failure_at`` (once the checkpoint written
+    before it has landed: the reference's loop does not wait for it, and
+    its restart may miss a checkpoint saved just before the failure).
+    The weights are fp32 masters from ``init_params(cfg, seed)`` unless
+    ``model`` (fp32 parameters, on ``device``) is given;
+    ``async_save=False`` writes each checkpoint before the next step.
+    Over ``mesh`` the model is made on the mesh's first rank's device, the
+    state is placed by :func:`build_train_step`'s shardings
+    (``TrainConfig.sharding``'s default rules, as the reference's loop),
+    the batches are made there, and a restore places the checkpoint for
+    this mesh, whatever mesh saved it.  Returns (the state, the losses of
+    the steps run)."""
     device = mesh.devices[0] if mesh is not None else resolve_device(device)
     cfg = get_config(arch)
     if smoke:
@@ -364,24 +367,30 @@ def train_loop(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 128,
         print(f"[train] restored step {start}")
 
     losses = []
-    for step in range(start, steps):
-        if inject_failure_at is not None and step == inject_failure_at:
-            raise NodeFailure(f"injected at step {step}")
-        ledger.step_start()
-        state, metrics = step_fn(
-            state, to_device(make_batch(cfg, batch, seq_len, step), device))
-        losses.append(float(metrics["loss"]))
-        rep = ledger.step_end(step)
-        if rep is not None:
-            print(f"[straggler] step {rep.step} {rep.ratio:.1f}x median")
-        if step % log_every == 0:
-            print(f"[train] step {step} loss {losses[-1]:.4f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):.3f}")
-        if ckpt and (step + 1) % checkpoint_every == 0:
-            ckpt.save(step + 1, state)
-    if ckpt:
-        ckpt.wait()
+    try:
+        for step in range(start, steps):
+            if inject_failure_at is not None and step == inject_failure_at:
+                raise NodeFailure(f"injected at step {step}")
+            ledger.step_start()
+            state, metrics = step_fn(
+                state,
+                to_device(make_batch(cfg, batch, seq_len, step), device))
+            losses.append(float(metrics["loss"]))
+            rep = ledger.step_end(step)
+            if rep is not None:
+                print(f"[straggler] step {rep.step} {rep.ratio:.1f}x median")
+            if step % log_every == 0:
+                print(f"[train] step {step} loss {losses[-1]:.4f} "
+                      f"lr {float(metrics['lr']):.2e} "
+                      f"gnorm {float(metrics['grad_norm']):.3f}")
+            if ckpt and (step + 1) % checkpoint_every == 0:
+                ckpt.save(step + 1, state)
+    finally:
+        # a save issued before a failure lands before the failure
+        # propagates, so that a restart finds it (a failure right after a
+        # checkpoint would race its background write)
+        if ckpt:
+            ckpt.wait()
     return state, losses
 
 

@@ -877,6 +877,17 @@ class LanguageModel(nn.Module):
         return self._logits(xn), dict(state, seq_lens=seq_incl)
 
 
+def build_model(cfg: ModelConfig, device="cuda",
+                rc: RowCloneConfig = RowCloneConfig(),
+                param_dtype: Optional[torch.dtype] = None) -> LanguageModel:
+    """The model of ``cfg`` on ``device`` with every weight zero (the
+    reference's ``build_model``, which builds the module and no weights):
+    :func:`repro_torch.weights.init_params` (random weights from a seed)
+    and :func:`repro_torch.weights.from_jax_params` (the reference's)
+    build it filled."""
+    return LanguageModel(cfg, device, rc, param_dtype=param_dtype)
+
+
 def paged_state(cfg: ModelConfig, batch: int, seq_len: int, page: int,
                 mesh: Optional[DeviceMesh], dtype: torch.dtype, device
                 ) -> Dict[str, object]:
@@ -1101,4 +1112,4 @@ def kv_to_pools(kv: torch.Tensor, page: int, dtype: torch.dtype,
 
 __all__ = ["ENTRY_PAIRS", "LanguageModel", "PLACED_FAMILIES",
            "PORTED_FAMILIES", "Placement", "STATE_AXES", "append_slots",
-           "kv_to_pools", "model_dtype", "paged_state"]
+           "build_model", "kv_to_pools", "model_dtype", "paged_state"]

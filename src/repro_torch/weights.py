@@ -50,7 +50,7 @@ import torch
 
 from repro_torch.configs import ModelConfig, RowCloneConfig
 from repro_torch.launch.mesh import DeviceMesh, place, sharding_for
-from repro_torch.models.lm import LanguageModel, Placement
+from repro_torch.models.lm import LanguageModel, Placement, build_model
 from repro_torch.models.mamba2 import Mamba2Layer
 from repro_torch.models.transformer import DecoderLayer
 
@@ -75,7 +75,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     ``param_dtype=torch.float32`` makes every parameter fp32 (training's
     master weights), by default the matrices are in the model dtype."""
     device = resolve_device(device)
-    model = LanguageModel(cfg, device, rc, param_dtype=param_dtype)
+    model = build_model(cfg, device, rc, param_dtype=param_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -266,7 +266,7 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cpu",
     tree exactly (training's master weights); by default the matrices
     are rounded to the model dtype, as for serving."""
     device = resolve_device(device)
-    model = LanguageModel(cfg, device, rc, param_dtype=param_dtype)
+    model = build_model(cfg, device, rc, param_dtype=param_dtype)
     for name, p in model.named_parameters():
         path, idx = jax_path(name)
         a = tree

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor anything of the
 JAX package ``repro`` (not even its JAX-free modules), and neither do the
-card scripts (``chip_smoke.py``, ``chip_ab.py``, ``chip_k4_logits.py``) nor
-the card tests (``tests/test_torch_card.py``), which run where JAX is not
-installed.  A
+card scripts (``chip_smoke.py``, ``chip_ab.py``, ``chip_k4_logits.py``), the
+port's examples (``examples/torch_*.py``) nor the card tests
+(``tests/test_torch_card.py``), which run where JAX is not installed.  A
 CUDA kernel wrapper refuses
 CPU tensors instead of quietly running something else."""
 import pkgutil
@@ -16,6 +16,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+
+#: the port's examples, run on the card by chip_smoke.py
+EXAMPLES = tuple(ROOT / "examples" / f"torch_{name}.py"
+                 for name in ("quickstart", "serve_cow", "train_e2e"))
 
 #: an import of jax or of the reference package; ``repro_torch`` does not
 #: match (``repro`` must end the module name or be followed by a dot)
@@ -85,12 +89,13 @@ def test_import_everything_loads_no_jax_or_reference():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
     + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
-       ROOT / "chip_k4_logits.py", ROOT / "tests" / "test_torch_card.py"]))
+       ROOT / "chip_k4_logits.py", ROOT / "tests" / "test_torch_card.py"]
+    + list(EXAMPLES)))
 def test_source_has_no_forbidden_import(path):
     """No source file of the port, none of the card scripts
-    (chip_smoke.py, chip_ab.py, chip_k4_logits.py) and not the card tests
-    (tests/test_torch_card.py) names jax or the reference package in an
-    import statement."""
+    (chip_smoke.py, chip_ab.py, chip_k4_logits.py), none of the port's
+    examples and not the card tests (tests/test_torch_card.py) names jax
+    or the reference package in an import statement."""
     text = (ROOT / path).read_text()
     hits = FORBIDDEN.findall(text)
     assert not hits, f"{path}: {hits}"
@@ -171,6 +176,30 @@ def test_entry_points_default_to_the_card():
     from repro_torch.launch.train import train_loop
     with pytest.raises(RuntimeError):
         train_loop("llama3.2-3b", steps=1)
+
+
+@pytest.mark.parametrize("example", EXAMPLES, ids=lambda p: p.stem)
+def test_example_loads_no_jax_and_defaults_to_the_card(example):
+    """Each example of the port runs in an interpreter where ``jax`` and
+    ``repro`` cannot be imported, as far as its first check: without a
+    GPU and without ``--device cpu`` it raises rather than running on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    code = ("import runpy, sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = [sys.argv[0]]\n"
+            "try:\n"
+            f"    runpy.run_path({str(example)!r}, run_name='__main__')\n"
+            "except RuntimeError as e:\n"
+            "    print('REFUSED=' + str('no CUDA device' in str(e)))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "REFUSED=True" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
