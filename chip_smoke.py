@@ -374,27 +374,29 @@ Phases (each raises on failure; the script then exits non-zero):
     the moe placed paths with their aux, ``runtime/elastic.py``).
     (a) llama3.2-3b at full width and depth over 8 ranks of the card
     ((2, 4) over ``("data", "model")``) under ``"fsdp"``, phase 21 (a)'s
-    ``TrainConfig``, weights (seed 0) and 8 batches: each step's loss and
+    ``TrainConfig``, weights (seed 0) and its first ``MESH_FSDP_STEPS``
+    batches: each step's loss and
     grad_norm against phase 21 (a)'s within ``MESH_LOSS0_RTOL`` /
     ``MESH_LOSS_RTOL`` / ``MESH_GNORM0_RTOL``, every grad_norm within
     ``MESH_GNORM_RTOL`` or ``MESH_DRIFT_FACTOR`` times the furthest that
     one device's step over the same batches in ``MESH_TWIN_MICROBATCHES``
     microbatches (the same per-sequence partial sums) strays from phase
-    21 (a)'s, ms a step (the median of steps 2-7) and its ratio to phase
+    21 (a)'s, ms a step (the median of steps 2-3) and its ratio to phase
     21's, ``max_memory_allocated`` beside phase 21's, the bytes of
     masters and moments each rank holds (stored once), a profile of one
     step (idle share), then (after every leg is timed) the walk of one
     step on ``meta`` ranks sharing one device: its peak against the
     steps' own peak, and the bytes each rank gathered (weights' ZeRO-3
     blocks, activation rows).  (b) the same under ``"tp"``
-    (``DEFAULT_RULES``: heads over ``model``, the batch over ``data``), 3
-    steps, step 0's loss within ``MESH_TP_LOSS0_RTOL``.  (e) the same
-    under ``"fsdp"`` at B =
+    (``DEFAULT_RULES``: heads over ``model``, the batch over ``data``),
+    ``MESH_TP_STEPS`` steps, step 0's loss within
+    ``MESH_TP_LOSS0_RTOL``.  (e) the same under ``"fsdp"`` at B =
     ``MESH_FULL_B`` (the batch over ``("data", "model")``: every rank
-    holds a sequence), 3 steps, against one device's steps over the same
-    batches.  (c) deepseek-moe-16b at published width (64
+    holds a sequence), ``MESH_FULL_STEPS`` steps, against one device's
+    steps over the same batches.  (c) deepseek-moe-16b at published width (64
     experts top 6) cut to ``MOE_TRAIN_LAYERS`` layers (the reckoning
-    printed), 3 steps over ``("model",)`` 8 under ``"tp"`` (the
+    printed), ``MOE_TRAIN_STEPS`` steps over ``("model",)`` 8 under
+    ``"tp"`` (the
     all-to-all) and ``("data",)`` 8 under ``"fsdp"``: forward and
     recomputed path counts, finite losses, step 0's within [ln V - 1,
     ln V + 2] beside the loss without a mesh under ``no_grad``; then one
@@ -433,8 +435,9 @@ Phases (each raises on failure; the script then exits non-zero):
     ``weights.place_params``, ``prefill`` / ``decode_step`` on placed
     weights, ``ServingEngine(mesh=)``): llama3.2-3b at full width and
     depth, a second copy of phase 5's weights placed over (2, 4) ranks of
-    the card by ``DEFAULT_RULES``.  (a) phase 5's protocol through the
-    single-device engine and phase 22's unplaced mesh engine; (b) each
+    the card by ``DEFAULT_RULES``.  (a) phase 5's protocol, cut to
+    ``PLACED_ROUNDS`` rounds, through the single-device engine and phase
+    22's unplaced mesh engine; (b) each
     rank's weight bytes at rest (``rank_bytes``) within 5% of an eighth,
     every matrix split, the memory placing took; (c) the placed engine fed
     the single engine's tokens: its own greedy choice equal but at logged
@@ -456,7 +459,8 @@ Phases (each raises on failure; the script then exits non-zero):
     moe decoder's serving weights placed over a rank mesh
     (``phase_placed_moe``; ``models/moe.py moe_ffn_placed``):
     deepseek-moe-16b at full width and depth, seed 0.  (a) phase 12's
-    protocol through the single-device engine, its tokens, logits, slots
+    protocol, cut to ``PLACED_ROUNDS`` rounds, through the single-device
+    engine, its tokens, logits, slots
     and routes (``moe.RouteLog``) kept on the host, and a batched prefill
     of 2 x 512 on one device and over (2, 4) on the whole weights (the
     all-to-all); (b) the same model placed in place over (2, 4)
@@ -483,50 +487,69 @@ Phases (each raises on failure; the script then exits non-zero):
 28. (run after phase 27, before phase 21) the facades' serving weights
     placed over a rank mesh (``phase_placed_facades``; ``models/mamba2.py
     mamba2_layer_placed``, ``models/lm.py state_logical_axes``), at
-    published widths, seed 0: (a) mamba2-780m (48 layers) and
-    zamba2-2.7b (54) over (2, 4), (b) paligemma-3b over (1, 16), the
-    production ``model`` size (its 8 heads take ``"seq"``: K3 on row
-    blocks of 40 at ``q_offset`` with the 256-patch prefix), (c)
-    seamless-m4t-medium over (2, 4).  Each leg: the single-device facade
-    (``prefill_state`` at B = 2 over a 384-token prompt, 8 greedy
-    ``decode_state`` steps), then the same weights placed in place
-    (``rank_bytes`` at rest, the peak of placing) fed its tokens: logits
-    within ``SERVE_RTOL`` (where a Mamba2 leg's free run drifts past it,
-    held again with each Mamba2 layer fed one device's input: phase 12's
-    replay, ``_LayerReplay``), tokens equal but at logged near-ties, K4 once a
-    Mamba2 layer and head block, K3 once an attention layer and block, K2
-    once a layer and slab a step; every K2 / K3 / K4 call of the prefill
-    and the first step against its plain version (``tapped``); ms a
-    prefill and a step against one device and one profiled step's idle
-    share (reported, not judged); K3 at the vlm's straddling row block
-    and K4 at a rank's head block timed beside their bounds.  (d)
-    ``ServingEngine(mesh=)`` over placed zamba2-2.7b and
-    seamless-m4t-medium admits ``PROMPT_LENS``: the blocks staged and
-    promoted, the per-sequence state and the logits against the unplaced
-    mesh engine's (zamba2 replayed as in (a) where it drifts), at most one
-    ``fused_mesh`` drain a round.  (e) The four
-    facade decode_32k cells walked (a process each, started after (a)-(c)
-    are timed): equal to the CPU walk's rows.
+    published widths, seed 0: (a) mamba2-780m (48 layers) and zamba2-2.7b
+    (54) over (2, 4), (b) paligemma-3b over (1, 16), the production
+    ``model`` size (its 8 heads take ``"seq"``: K3 on row blocks of 40 at
+    ``q_offset`` with the 256-patch prefix), (c) seamless-m4t-medium over
+    (2, 4).  Each leg: the single-device facade (``prefill_state`` at B = 2
+    over a 384-token prompt, ``PLACED_FACADE_STEPS`` greedy ``decode_state``
+    steps), then the same weights placed in place (``rank_bytes`` at rest,
+    the peak of placing) fed its tokens: logits within ``SERVE_RTOL`` (where
+    a Mamba2 leg's free run drifts past it, held again with each Mamba2
+    layer fed one device's input: phase 12's replay, ``_LayerReplay``),
+    tokens equal but at logged near-ties, K4 once a Mamba2 layer and head
+    block, K3 once an attention layer and block, K2 once a layer and slab a
+    step; every K2 / K3 / K4 call of the prefill and the first step against
+    its plain version (``tapped``); ms a prefill and a step against one
+    device and one profiled step's idle share (reported, not judged); K3 at
+    the vlm's straddling row block and K4 at a rank's head block timed
+    beside their bounds.  (d) ``ServingEngine(mesh=)`` over placed
+    zamba2-2.7b and seamless-m4t-medium admits ``PROMPT_LENS``: the blocks
+    staged and promoted, the per-sequence state and the logits against the
+    unplaced mesh engine's (zamba2 replayed as in (a) where it drifts), at
+    most one ``fused_mesh`` drain a round.  (e) The four facade decode_32k
+    cells walked (a process each, started after (a)-(c) are timed): equal to
+    the CPU walk's rows.
 29. (run after phase 28, before phase 21) the port's examples on the card,
     in process (``phase_examples``; ``examples/torch_quickstart.py``,
     ``torch_serve_cow.py``, ``torch_train_e2e.py``).  (a) the quickstart's
-    five sections on bf16 pools: its printed lines equal a ``--device
-    cpu`` run's, its pools bitwise equal the same script's under
+    five sections on bf16 pools: its printed lines equal a ``--device cpu``
+    run's, its pools bitwise equal the same script's under
     ``ops.plain_versions()`` on the card, every engine launch a kernel
     launch (which of K1 / K5a / K5b / K6 / K7 it reached, printed).  (b)
-    serve_cow with the reference's defaults, which on the card serves
-    yi-6b's published widths (the reduced config's fp32 at head dim 32 is
-    not one K2 and K3 take): at most one bulk launch a round, K1, K2 and
-    K3 launched, the bookkeeping lines equal a ``--device cpu`` run's at
-    the reduced config and its byte counts those times the ratio of the
-    two engines' pool bytes; ms a round and tokens/s.  (c) train_e2e at the example's
+    serve_cow with the reference's defaults (yi-6b reduced, on any device,
+    as the reference): at most one bulk launch a round, K1, K2 and K3
+    launched, the bookkeeping lines (counts and bytes) equal a ``--device
+    cpu`` run's; ms a round and tokens/s.  (c) train_e2e at the example's
     widths (llama-100m, B = 8 x S = 512) cut to ``E2E_STEPS`` steps, the
-    failure at its default step, the restart from the checkpoint saved
-    just before it, and an uninterrupted twin: the restart restores step
-    50 and runs 50 steps, every loss finite, the last below the first,
-    step 50's loss within ``E2E_RTOL`` of the twin's; the largest
-    relative gap over steps 50-99, ms a step and the checkpoint ms; no
-    kernel launched.
+    failure at its default step, the restart from the checkpoint saved just
+    before it, and an uninterrupted twin: the restart restores step 50 and
+    runs 50 steps, every loss finite, the last below the first, step 50's
+    loss within ``E2E_RTOL`` of the twin's; the largest relative gap over
+    steps 50-99, ms a step and the checkpoint ms; no kernel launched.
+30. (run after phase 29, before phase 21) the ten registered configs at
+    ``.reduced()`` on the card (``phase_reduced``: fp32, head dim 32, the
+    Mamba2 head dim 32; K2, K3 and K4's fp32 instances), each against the
+    port's own CPU run from the same weights (``weights.init_params(cfg,
+    seed=0, device="cpu")``, copied to the card) and inputs, the card fed
+    the CPU's tokens.  dense and moe through ``ServingEngine``: 3 prompts
+    (``REDUCED_PROMPTS``), a fork of the first into 2 before round 2, 4
+    rounds; at most one bulk launch a round, K3 once a layer an admission
+    and K2 once a layer a round, the block tables equal.  ssm, hybrid,
+    vlm and encdec through ``prefill_state`` / ``decode_state`` (2 x 40
+    tokens, 4 steps): K2, K3 and K4 a prefill and a step as the family
+    launches them.  Every config: logits within ``REDUCED_LOGIT_RTOL`` x
+    max |logit| of the CPU run's (the head is a bf16 product), greedy
+    tokens equal but at near-ties (``_compare_greedy``'s rule, each
+    logged with its step and margin), and every K2 / K3 / K4 call of an
+    admission (prefill) and a round (step) within ``F32_ATOL`` of its
+    plain version; K2, K3 and K4 launched by every config that reaches
+    them.  Then each fp32 instance timed at the first shape the main path
+    gave it (card, device, plain ms, SDPA beside K3, the bound over the
+    fp32 peak of the CUDA cores), and ``python -m
+    repro_torch.launch.serve --smoke --requests 3 --steps 4 --fork 2``
+    in process on the card and with ``--device cpu``: its ``rowclone:``
+    stats equal.
 
 The last three lines are the ``kernels`` JSON (eight kernels; ``launches``
 sums the main-path runs that ``launches_by_path`` lists), the card's name
@@ -2243,14 +2266,15 @@ def _call_reading(op, got, want):
     return err, K4_RTOL * float(want.abs().max())
 
 
-def tapped(run, fault=None):
+def tapped(run, fault=None, f32_atol=None):
     """Call ``run()`` with every K2 / K3 / K4 call held against its plain
     version on the same inputs; ``fault`` = (op, fn) puts a planted fault
     in place of that op's kernel.  K3's plain version takes the call's
     bf16 inputs as fp32, so that it returns the attention before the bf16
     rounding: two correct bf16 results can lie one ulp apart (3.1e-2 at
     |x| >= 4, above ``K3_ATOL``), one correct result lies within half an
-    ulp of the fp32 one.  Returns run()'s result and, per op called, the
+    ulp of the fp32 one.  ``f32_atol``: the limit of every call on fp32
+    inputs (phase 30).  Returns run()'s result and, per op called, the
     number of calls and the reading (max |diff| and its limit) of the call
     nearest its limit.  Its launches come after the counted run and are
     not part of it."""
@@ -2268,6 +2292,8 @@ def tapped(run, fault=None):
                 if op == "flash_attention" else args
             err, limit = _call_reading(
                 op, got, saved[op](*plain_args, use_kernel=False, **kw))
+            if f32_atol is not None and args[0].dtype == torch.float32:
+                limit = f32_atol
             r = reads.setdefault(op, dict(calls=0, err=0.0, limit=limit))
             r["calls"] += 1
             if err / limit >= r["err"] / r["limit"]:
@@ -5787,9 +5813,10 @@ def phase_train(smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 #: (a) / (b): phase 21 (a)'s weights and batches over 8 ranks of the card,
-#: (a) all 8 of them, (b) the first MESH_TP_STEPS
+#: (a) the first MESH_FSDP_STEPS of its 8, (b) the first MESH_TP_STEPS
+#: (cut from 8 and 3 to keep the script within its time)
 MESH_TRAIN_SHAPE, MESH_TRAIN_AXES = (2, 4), ("data", "model")
-MESH_TP_STEPS = 3
+MESH_FSDP_STEPS, MESH_TP_STEPS = 4, 2
 #: (a) / (b) limits against phase 21 (a)'s single-device run.  Step 0's
 #: loss is the same function with every product run by the rows of a
 #: batch block (the same products: rtol 1e-5, bitwise on an H100) and
@@ -5809,11 +5836,11 @@ MESH_TP_STEPS = 3
 #: 0, 1e-2 later (phase 21 (b)'s)
 MESH_LOSS0_RTOL, MESH_LOSS_RTOL, MESH_TP_LOSS0_RTOL = 1e-5, 1e-3, 5e-5
 MESH_GNORM0_RTOL, MESH_GNORM_RTOL = 1e-3, 1e-2
-#: (a) runs 8 steps.  Each of its two batch ranks sums one sequence's
-#: weight grads, rounded to bf16 on that rank, into the fp32 masters,
-#: where one device rounds the sum over both sequences once, and Adam
-#: carries that difference on: the grad_norms of the random model (10.4
-#: to 1.8 over the 8 steps) leave one device's by 1e-2 to 5e-2 at steps
+#: (a) runs MESH_FSDP_STEPS steps.  Each of its two batch ranks sums one
+#: sequence's weight grads, rounded to bf16 on that rank, into the fp32
+#: masters, where one device rounds the sum over both sequences once, and
+#: Adam carries that difference on: over 8 steps the grad_norms of the
+#: random model (10.4 to 1.8) left one device's by 1e-2 to 5e-2 at steps
 #: 5-6 (an H100 at 700 W), as the reference's sharded step leaves its
 #: one-device step (the test above).  One device's own step over the
 #: same batches in MESH_TWIN_MICROBATCHES microbatches makes the same
@@ -5826,7 +5853,7 @@ MESH_TWIN_MICROBATCHES, MESH_DRIFT_FACTOR = 2, 3.0
 #: (4 fit beside 18 B a parameter: fp32 masters, grads, m, v, bf16 views;
 #: 2 keep the script within its time); the batch (B divisible by 8 for
 #: ("data",) 8, S by 8 for ("model",) 8)
-MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 2, 8, 512, 3
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 2, 8, 512, 2
 #: (c) one layer on 8 card ranks against 8 CPU ranks: the tokens; fp32
 #: activations (the bf16 ones of the published config round the CPU's and
 #: the card's products apart, and the router then ranks experts apart:
@@ -5848,7 +5875,7 @@ ELASTIC_EVERY, ELASTIC_FAIL, ELASTIC_RTOL = 5, 7, 1e-3
 #: its steps, against one device's steps over the same batches (60.8 GB
 #: reckoned by the walk; in 4 microbatches the fp32 accumulators take it
 #: past the card's 80 GB): the limits of (a) / (b)
-MESH_FULL_B, MESH_FULL_STEPS = 8, 3
+MESH_FULL_B, MESH_FULL_STEPS = 8, 2
 #: seconds the legs' walks (a process each, 17-21 s on the card's host),
 #: started once every leg is timed, may take
 MESH_WALK_TIMEOUT = 240
@@ -6139,7 +6166,7 @@ def phase_mesh_train(smi: str, single: dict) -> None:
                 for i in range(MESH_FULL_STEPS)]
     base = TrainConfig(total_steps=TRAIN_STEPS,
                        warmup_steps=max(TRAIN_STEPS // 10, 1))
-    legs = [("(a) fsdp", "fsdp", B, batches),
+    legs = [("(a) fsdp", "fsdp", B, batches[:MESH_FSDP_STEPS]),
             ("(b) tp", "tp", B, batches[:MESH_TP_STEPS]),
             (f"(e) fsdp B = {MESH_FULL_B}", "fsdp", MESH_FULL_B, fbatches)]
     # (e) every rank holds a batch block: one device steps the same batches
@@ -6225,7 +6252,8 @@ def _mesh_train_rest(cfg, base, mesh, batches, runs, walkers, walk_outs,
     gb = 1e9
     t_leg = time.perf_counter()
     twin = _single_run(cfg, dataclasses.replace(
-        base, microbatches=MESH_TWIN_MICROBATCHES), batches)
+        base, microbatches=MESH_TWIN_MICROBATCHES),
+        batches[:MESH_FSDP_STEPS])
     del batches
     torch.cuda.empty_cache()
     log(f"{tag} one device's twin of (a) took "
@@ -6385,7 +6413,8 @@ class _GreedyWatch:
         return next(self.feed)
 
 
-def _compare_greedy(ref_logits, ref_toks, watch, tag: str) -> tuple:
+def _compare_greedy(ref_logits, ref_toks, watch, tag: str,
+                    names=("mesh", "single")) -> tuple:
     """Each step's greedy choice of the mesh engine against the
     single-device engine's token (``ref_logits``: the logits each round's
     tokens were chosen from).  A step differs only where the single
@@ -6409,13 +6438,13 @@ def _compare_greedy(ref_logits, ref_toks, watch, tag: str) -> tuple:
             if margin <= 2 * diff:
                 ties += 1
                 log(f"{tag} near-tie at round {rnd + 1}, sequence {sid}: "
-                    f"mesh {own} vs single {toks[sid]}, margin {margin:.3e}"
-                    f" <= 2 x |logit diff| {diff:.3e}")
+                    f"{names[0]} {own} vs {names[1]} {toks[sid]}, margin "
+                    f"{margin:.3e} <= 2 x |logit diff| {diff:.3e}")
             else:
                 bad += 1
                 log(f"{tag} DIFFERS at round {rnd + 1}, sequence {sid}: "
-                    f"mesh {own} vs single {toks[sid]}, margin {margin:.3e}"
-                    f" > 2 x |logit diff| {diff:.3e}")
+                    f"{names[0]} {own} vs {names[1]} {toks[sid]}, margin "
+                    f"{margin:.3e} > 2 x |logit diff| {diff:.3e}")
     return steps, ties, bad, worst, limit
 
 
@@ -7499,6 +7528,9 @@ def _dryrun_walk_checks(smi: str, checks: dict, tag: str) -> None:
 # the placed weights; K3's q_offset)
 # ---------------------------------------------------------------------------
 
+#: phases 26-27's rounds (phase 5's 16, cut to keep the script within
+#: its time; the steady rounds 3-8 give the median)
+PLACED_ROUNDS = 8
 #: (e) K3's row block: the last 2,048 query rows of a 4,096 prefill
 PLACED_K3_S, PLACED_K3_ROWS = 4096, 2048
 #: (f) the dense cells walked again with placed weights, a process each
@@ -7573,7 +7605,8 @@ def _walked_rows(walks, deadline: float) -> tuple:
 def _placed_protocol(eng, prompts, events, watch=None, ref_toks=None,
                      counted=None, before_round=None) -> tuple:
     """Phase 5's protocol on ``eng`` for phases 26-27: admit ``prompts``,
-    fork the first sequence into 2 before round 2, :data:`ROUNDS` rounds.
+    fork the first sequence into 2 before round 2, :data:`PLACED_ROUNDS`
+    rounds.
     ``watch`` (a :class:`_GreedyWatch`) feeds each round ``ref_toks``'
     tokens, ``before_round(eng)`` runs before each round, ``counted`` sums
     the run's launches.  Returns the sequence ids, each admission's K3
@@ -7591,7 +7624,7 @@ def _placed_protocol(eng, prompts, events, watch=None, ref_toks=None,
         sids.append(eng.add_request(p))
         k3.append(_since(c0)["flash_attention"])
     admitted = dict(moe.PATH_COUNTS)
-    for rnd in range(ROUNDS):
+    for rnd in range(PLACED_ROUNDS):
         if rnd == 1:
             eng.fork(sids[0], 2)
         if before_round is not None:
@@ -7717,16 +7750,16 @@ def phase_placed_serve(params, smi: str, scrub) -> dict:
     checks["(c) K7 and K1 ran on the path"] = \
         path.get("psm_transfer", 0) > 0 and \
         path.get("fused_dispatch", 0) > 0
-    log(f"{tag} (c) admitted {PROMPT_LENS}, forked, {ROUNDS} rounds: "
-        f"{steps} greedy steps, {ties} near-ties, {bad} unexcused; max "
-        f"|logit diff| vs single {worst:.3e} (limit {limit:.3e}); K1 / K7 "
+    log(f"{tag} (c) admitted {PROMPT_LENS}, forked, {PLACED_ROUNDS} "
+        f"rounds: {steps} greedy steps, {ties} near-ties, {bad} unexcused; "
+        f"max |logit diff| vs single {worst:.3e} (limit {limit:.3e}); K1 / K7 "
         f"/ K2 a round {[r[1:4] for r in per_round]}; "
         f"fused_mesh a round {[len(ev) for ev, *_ in per_round]}; K3 per "
         f"admission {k3_per}; the unplaced mesh engine's tokens "
         f"{'equal' if whole_toks == ref_toks else 'differ from'} the "
         "single engine's")
-    log(f"{tag} (d) ms a round (rounds 3-{ROUNDS}, median, host clock, "
-        f"synchronised), {smi}: placed {steady(placed_ms):.2f} ms, "
+    log(f"{tag} (d) ms a round (rounds 3-{PLACED_ROUNDS}, median, host "
+        f"clock, synchronised), {smi}: placed {steady(placed_ms):.2f} ms, "
         f"unplaced mesh (phase 22's engine) {steady(whole_ms):.2f} ms "
         f"({steady(placed_ms) / steady(whole_ms):.2f}x), single device "
         f"{steady(one_ms):.2f} ms")
@@ -8193,9 +8226,9 @@ def phase_placed_moe(smi: str) -> dict:
     checks["(a) the same sequence ids"] = msids == sids
     steps, ties, bad, worst, limit = _compare_greedy(ref_logits, ref_toks,
                                                      watch, tag)
-    log(f"{tag} (c) admitted {PROMPT_LENS}, forked, {ROUNDS} rounds: "
-        f"{steps} greedy steps, {ties} near-ties, {bad} unexcused; max "
-        f"|logit diff| vs single {worst:.3e} (limit {limit:.3e}); route "
+    log(f"{tag} (c) admitted {PROMPT_LENS}, forked, {PLACED_ROUNDS} "
+        f"rounds: {steps} greedy steps, {ties} near-ties, {bad} unexcused; "
+        f"max |logit diff| vs single {worst:.3e} (limit {limit:.3e}); route "
         f"flips {flips} of {choices} choices (rows matched through the "
         f"engines' slots: {consumed})")
     if worst > limit and flips:
@@ -8265,9 +8298,9 @@ def phase_placed_moe(smi: str) -> dict:
         bool(np.isfinite(got_pre).all())
 
     # (e) ms a round and one profiled round
-    log(f"{tag} (e) ms a round (rounds 3-{ROUNDS}, median, host clock, "
-        f"synchronised), {smi}: placed {steady(placed_ms):.2f} ms, single "
-        f"device {steady(one_ms):.2f} ms "
+    log(f"{tag} (e) ms a round (rounds 3-{PLACED_ROUNDS}, median, host "
+        f"clock, synchronised), {smi}: placed {steady(placed_ms):.2f} ms, "
+        f"single device {steady(one_ms):.2f} ms "
         f"({steady(placed_ms) / steady(one_ms):.2f}x)")
     prof = _profile_placed_round(eng.decode_round, tag)
     checks["(e) the profile saw the expert products and K2"] = \
@@ -8349,7 +8382,7 @@ PLACED_FACADE_LEGS = (("mamba2-780m", MESH_SERVE_SHAPE, PROMPT_LENS[2]),
                       ("paligemma-3b", (1, 16), PROMPT_LENS[2]),
                       ("seamless-m4t-medium", MESH_SERVE_SHAPE,
                        PROMPT_LENS[2]))
-PLACED_FACADE_B, PLACED_FACADE_STEPS = 2, 8
+PLACED_FACADE_B, PLACED_FACADE_STEPS = 2, 4
 #: (d) the families whose engine admits placed
 PLACED_FACADE_ENGINES = ("zamba2-2.7b", "seamless-m4t-medium")
 #: (e) the CPU walk's (arguments bytes, FLOPs) on the busiest rank of each
@@ -8444,9 +8477,10 @@ class _LayerReplay:
 
 def _timed_call(op: str, call, key: str, smi: str, tag: str) -> None:
     """The recorded call of ``op`` through its kernel: card and device-only
-    ms, its plain version's ms, the bound of ``kernels/cost.py`` and, for
-    K3, SDPA over the same mask (a yardstick: the port never calls it),
-    each logged with the card."""
+    ms, its plain version's ms, the bound of ``kernels/cost.py`` (its FLOPs
+    over the bf16 peak, or for fp32 inputs the CUDA cores' fp32 peak) and,
+    for K3, SDPA over the same mask (a yardstick: the port never calls
+    it), each logged with the card."""
     import torch.nn.functional as F
     from repro_torch.kernels import cost, ops
     args, kw = call
@@ -8466,11 +8500,15 @@ def _timed_call(op: str, call, key: str, smi: str, tag: str) -> None:
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True))
         lib = f"SDPA {lib_ms:.4f} ms"
-    work = cost.k3_work(*args, **kw) if op == "flash_attention" \
-        else cost.k4_work(*args)
-    b_ops = work.flops / cost.BF16_FLOPS * 1e3
+    work = {"flash_attention": cost.k3_work,
+            "paged_attention_slab": cost.k2_work,
+            "ssd_intra_chunk": cost.k4_work}[op](*args, **kw)
+    peak = cost.F32_FLOPS if args[0].dtype == torch.float32 \
+        else cost.BF16_FLOPS
+    b_ops = work.flops / peak * 1e3
     b_bytes = work.bytes / cost.HBM_BYTES_PER_S * 1e3
-    shapes = ", ".join(str(tuple(a.shape)) for a in args)
+    shapes = ", ".join(str(tuple(a.shape)) for a in args
+                       if isinstance(a, torch.Tensor))
     log(f"{tag} {op} at {shapes} {kw}: kernel {ms:.4f} ms (device only "
         f"{_fmt_ms(dev)}), plain {plain:.4f} ms, library {lib}, bound "
         f"{max(b_ops, b_bytes):.5f} ms "
@@ -8928,7 +8966,7 @@ def phase_examples(smi: str) -> dict:
         f"{card.stats.launches})")
     del qs, plain, card
 
-    # (b) serve_cow, the reference's defaults (published widths on the card)
+    # (b) serve_cow, the reference's defaults (yi-6b reduced) ------------
     sc = _example("serve_cow")
     cpu_run, cpu = _printed(lambda: sc.main(["--device", "cpu"]),
                             f"{tag} (b) cpu")
@@ -8937,18 +8975,15 @@ def phase_examples(smi: str) -> dict:
     torch.cuda.synchronize()
     run, lines = _printed(lambda: sc.main([]), f"{tag} (b)")
     torch.cuda.synchronize()
-    paths["serve_cow (yi-6b)"] = launched = _counts()
-    # a byte count scales with the bytes of a block; the counts do not
-    full_b = run.engine.engine.pool_bytes_resident()
-    cpu_b = cpu_run.engine.engine.pool_bytes_resident()
+    paths["serve_cow (yi-6b reduced)"] = launched = _counts()
+    # the rate line's timing and the sampled ids (the card's weights are
+    # its own generator's) differ; every count and byte is the CPU's
     s, c = run.engine.engine.stats, cpu_run.engine.engine.stats
-    drop = ("[serve] resident pool bytes", "[serve] generated ",
-            "[serve] demo stream flush", "  bytes moved by DMA",
-            "  bytes avoided entirely", "  seq ")
+    drop = ("[serve] generated ", "  seq ")
     checks["(b) bookkeeping lines equal the --device cpu run's"] = \
         _bookkeeping(lines, drop) == _bookkeeping(cpu, drop)
-    checks["(b) bytes equal the cpu run's scaled by the block bytes"] = all(
-        getattr(s, f) * cpu_b == getattr(c, f) * full_b
+    checks["(b) bytes equal the cpu run's"] = all(
+        getattr(s, f) == getattr(c, f)
         for f in ("bytes_fpm", "bytes_avoided", "bytes_baseline",
                   "bytes_psm"))
     checks["(b) demo stream: one command, one launch"] = any(
@@ -8958,7 +8993,7 @@ def phase_examples(smi: str) -> dict:
     checks["(b) K1, K2 and K3 launched"] = all(
         launched[n] > 0 for n in ("fused_dispatch", "paged_attention",
                                   "flash_attention"))
-    log(f"{tag} (b) serve_cow yi-6b at published width: {run.rounds} "
+    log(f"{tag} (b) serve_cow yi-6b reduced: {run.rounds} "
         f"rounds x {len(run.engine.cache.seqs)} sequences, "
         f"{1e3 * run.seconds / run.rounds:.3f} ms a round, "
         f"{run.tokens / run.seconds:.1f} tokens/s ({smi}); max "
@@ -9008,16 +9043,336 @@ def phase_examples(smi: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 30: every reduced config on the card (fp32, head dim 32)
+# ---------------------------------------------------------------------------
+
+#: the ten registered configs, each at ``.reduced()``
+REDUCED_ARCHS = ("llama3.2-3b", "yi-6b", "mistral-nemo-12b", "qwen2-72b",
+                 "deepseek-moe-16b", "phi3.5-moe-42b-a6.6b", "mamba2-780m",
+                 "zamba2-2.7b", "paligemma-3b", "seamless-m4t-medium")
+#: the engine legs (dense, moe): prompts of these lengths (one page, two
+#: pages, a few tokens), rounds, the first prompt forked into
+#: REDUCED_FORK before round 2; the staging ring sized explicitly (the
+#: CPU run would otherwise read configs/tuned/cpu.json, the card none)
+REDUCED_PROMPTS = (24, 70, 5)
+REDUCED_ROUNDS, REDUCED_FORK, REDUCED_RING = 4, 2, 8
+#: the facade legs (ssm, hybrid, vlm, encdec): B prompts of S tokens (two
+#: Mamba2 chunks of 32, the second padded), decode steps
+REDUCED_B, REDUCED_S, REDUCED_STEPS = 2, 40, 4
+#: every K2 / K3 / K4 call on fp32 inputs against its plain version: both
+#: sum fp32 products in other orders (TF32 off), as the JAX tests' fp32
+#: limit (tests/test_kernels.py)
+F32_ATOL = 1e-4
+#: the ops timed in a config's leg, at their first call, and the profiler
+#: key of each fp32 instance
+REDUCED_TIMED = {"llama3.2-3b": ("flash_attention", "paged_attention_slab"),
+                 "mamba2-780m": ("ssd_intra_chunk",)}
+REDUCED_TIMED_KEYS = {"flash_attention": "flash_fma",
+                      "paged_attention_slab": "paged_attn",
+                      "ssd_intra_chunk": "ssd_intra_fma"}
+#: the kernel row (``kernels`` JSON) of each tapped op
+TAPPED_NAMES = {"flash_attention": "flash_attention",
+                "paged_attention_slab": "paged_attention",
+                "ssd_intra_chunk": "ssd_intra_chunk"}
+#: logits of the card run against the CPU run: the head is a bf16 product
+#: whatever the config dtype (as the reference's lm.py:94-98), so a logit
+#: whose fp32 sum rounds to the other side of a bf16 step moves by one
+#: bf16 ulp, up to 2^-7 of the largest |logit|; everything before the head
+#: is fp32 (read beside it: the share of logits off by more than 1e-4 of
+#: the largest)
+REDUCED_LOGIT_RTOL = 2 ** -7
+
+
+def _logit_reading(got, want) -> tuple:
+    """(max |got - want|, its limit, share of entries off by more than 1e-4
+    x max |want|) over lists of (B, V) or {sid: (V,)} logits."""
+    pairs = []
+    for a, b in zip(got, want):
+        if isinstance(b, dict):
+            pairs += [(np.asarray(a[s]), np.asarray(b[s])) for s in b]
+        else:
+            pairs.append((a.float().cpu().numpy(), b.float().cpu().numpy()))
+    scale = max(float(np.abs(b).max()) for _, b in pairs)
+    worst = max(float(np.abs(a - b).max()) for a, b in pairs)
+    off = sum(int((np.abs(a - b) > 1e-4 * scale).sum()) for a, b in pairs)
+    total = sum(b.size for _, b in pairs)
+    return worst, REDUCED_LOGIT_RTOL * scale, off / total
+
+
+def _reduced_engine_leg(arch: str, tag: str, checks: dict, errs: dict,
+                        logs) -> dict:
+    """A dense or moe config at ``.reduced()``: ``ServingEngine`` on the
+    CPU, then on the card from the same weights, fed the CPU's tokens
+    (``logs``: :class:`_CallLog` s on while it runs).  Returns the card
+    run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.weights import init_params
+    cfg = get_config(arch).reduced()
+    kw = dict(max_seqs=MAX_SEQS, max_admit_pages=REDUCED_RING)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in REDUCED_PROMPTS]
+
+    def script(eng, watch=None):
+        """Admit, fork before round 2, run the rounds; returns the logits
+        each round chose from, its tokens, its K1 launches a round and the
+        last logits."""
+        k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+        sids = [eng.add_request(p) for p in prompts]
+        chose, toks, k1_rounds = [], [], []
+        for rnd in range(REDUCED_ROUNDS):
+            if rnd == 1:
+                eng.fork(sids[0], REDUCED_FORK)
+            chose.append({s: eng.last_logits[s].copy()
+                          for s in eng.cache.seqs})
+            if watch is not None:
+                watch.round(ref_toks[rnd])
+            n0 = k1.n
+            toks.append(eng.decode_round(sample_fn=watch))
+            k1_rounds.append(k1.n - n0)
+        return chose, toks, k1_rounds, {s: lg.copy() for s, lg in
+                                        eng.last_logits.items()}
+
+    cpu = ServingEngine(cfg, init_params(cfg, seed=SEED, device="cpu"),
+                        device="cpu", **kw)
+    ref_logits, ref_toks, _, ref_last = script(cpu)
+    model = init_params(cfg, seed=SEED, device="cpu").to("cuda")
+    eng = ServingEngine(cfg, model, device="cuda", **kw)
+    watch = _GreedyWatch()
+    c0 = _counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as on:
+        for c in logs:
+            on.enter_context(c)
+        chose, _, k1_rounds, last = script(eng, watch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    path = _since(c0)
+    steps, ties, bad, _, _ = _compare_greedy(ref_logits, ref_toks, watch,
+                                             tag, names=("card", "cpu"))
+    worst, limit, off = _logit_reading(chose + [last], ref_logits + [ref_last])
+    L = cfg.num_attn_layers
+    checks[f"{arch}: logits within 2^-7 x max |logit| of the CPU run's"] = \
+        worst <= limit and all(np.isfinite(x).all() for x in last.values())
+    checks[f"{arch}: greedy tokens equal the CPU's but at near-ties"] = \
+        bad == 0
+    checks[f"{arch}: at most one bulk launch a round"] = max(k1_rounds) <= 1
+    checks[f"{arch}: K3 {L} an admission, K2 {L} a round, K1 launched"] = \
+        path["flash_attention"] == L * len(prompts) and \
+        path["paged_attention"] == L * REDUCED_ROUNDS and \
+        path["fused_dispatch"] > 0
+    checks[f"{arch}: block tables equal the CPU engine's"] = all(
+        eng.cache.blocks_of(s) == cpu.cache.blocks_of(s)
+        for s in cpu.cache.seqs)
+    log(f"{tag} {len(prompts)} prompts {REDUCED_PROMPTS}, fork into "
+        f"{REDUCED_FORK}, {REDUCED_ROUNDS} rounds in {secs:.2f} s: K1 a "
+        f"round {k1_rounds}; kernels {_reached(path)}; logits vs the CPU "
+        f"run over admission and {REDUCED_ROUNDS} rounds: max |diff| "
+        f"{worst:.3e} (limit {limit:.3e}), share off by > 1e-4 x max "
+        f"{off:.2e}; {steps} greedy steps, {ties} excused near-ties, {bad} "
+        "differing")
+
+    # every K2 / K3 call of a fresh engine's admissions and first round
+    # against its plain version (a check run, left out of the path)
+    def taps():
+        e = ServingEngine(cfg, model, device="cuda", **kw)
+        for p in prompts:
+            e.add_request(p)
+        e.decode_round()
+
+    _, reads = tapped(taps, f32_atol=F32_ATOL)
+    want = {"flash_attention": L * len(prompts), "paged_attention_slab": L}
+    checks[f"{arch}: every K2 / K3 call within {F32_ATOL} of its plain "
+           "version"] = {op: r["calls"] for op, r in reads.items()} == want \
+        and all(r["err"] <= r["limit"] for r in reads.values())
+    log(f"{tag} every kernel call vs its plain version: "
+        + _fmt_reads(reads))
+    for op, r in reads.items():
+        errs[op] = max(errs.get(op, 0.0), r["err"])
+    del cpu, eng, model
+    return path
+
+
+def _reduced_facade_leg(arch: str, tag: str, checks: dict, errs: dict,
+                        logs) -> dict:
+    """An ssm, hybrid, vlm or encdec config at ``.reduced()`` through
+    ``prefill_state`` / ``decode_state``: on the CPU, then on the card from
+    the same weights and inputs, fed the CPU's tokens (``logs``:
+    :class:`_CallLog` s on while it runs).  Returns the card run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.weights import init_params
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                           (REDUCED_B, REDUCED_S)))
+    extra = {}
+    n = {"vlm": cfg.vision_tokens,
+         "encdec": max(REDUCED_S // max(cfg.src_frames_ratio, 1), 1)
+         }.get(cfg.family)
+    if n:
+        key = "patch_embeds" if cfg.family == "vlm" else "src_embeds"
+        extra[key] = torch.from_numpy((rng.standard_normal(
+            (REDUCED_B, n, cfg.d_model)) * 0.02).astype(np.float32))
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+
+    def run(model, dev, feed=None):
+        logits, state = model.prefill_state(
+            tokens.to(dev), **{k: v.to(dev) for k, v in extra.items()})
+        out, toks, bulk = [logits], [], []
+        for step in range(REDUCED_STEPS):
+            toks.append(logits.argmax(-1).cpu())
+            n0 = k1.n
+            logits, state = model.decode_state(
+                state, (toks[-1] if feed is None else feed[step]).to(dev))
+            bulk.append(k1.n - n0)
+            out.append(logits)
+        return out, toks, bulk
+
+    ref, ref_toks, _ = run(init_params(cfg, seed=SEED, device="cpu"), "cpu")
+    model = init_params(cfg, seed=SEED, device="cpu").to("cuda")
+    c0 = _counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as on:
+        for c in logs:
+            on.enter_context(c)
+        got, own, bulk = run(model, "cuda", feed=ref_toks)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    path = _since(c0)
+    worst, limit, off = _logit_reading(got, ref)
+    flips, bad = [], 0
+    for step, (mine, theirs) in enumerate(zip(own, ref_toks)):
+        for b in (mine != theirs).nonzero()[:, 0].tolist():
+            lg = ref[step][b].numpy()
+            margin = _top2(lg)
+            diff = float((got[step][b].cpu() - ref[step][b]).abs().max())
+            flips.append((step, b, margin))
+            bad += margin > 2 * diff
+            log(f"{tag} near-tie at step {step}, sequence {b}: card "
+                f"{int(mine[b])} vs cpu {int(theirs[b])}, margin "
+                f"{margin:.3e}, 2 x |logit diff| {2 * diff:.3e}")
+    L = cfg.num_attn_layers
+    k3 = {"vlm": L, "hybrid": L, "encdec": cfg.encoder_layers + 2 * L,
+          "ssm": 0}[cfg.family] + (L * REDUCED_STEPS
+                                   if cfg.family == "encdec" else 0)
+    k4 = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    checks[f"{arch}: logits within 2^-7 x max |logit| of the CPU run's"] = \
+        worst <= limit and all(bool(torch.isfinite(g).all()) for g in got)
+    checks[f"{arch}: greedy tokens equal the CPU's but at near-ties"] = \
+        bad == 0
+    checks[f"{arch}: at most one bulk launch a step"] = max(bulk) <= 1
+    checks[f"{arch}: K2 {L} a step, K3 {k3}, K4 {k4}"] = \
+        path["paged_attention"] == L * REDUCED_STEPS and \
+        path["flash_attention"] == k3 and path["ssd_intra_chunk"] == k4
+    log(f"{tag} {REDUCED_B} x {REDUCED_S} tokens"
+        f"{' + %d patches' % n if cfg.family == 'vlm' else ''}"
+        f"{' over %d frames' % n if cfg.family == 'encdec' else ''}, "
+        f"prefill and {REDUCED_STEPS} steps in {secs:.2f} s: kernels "
+        f"{_reached(path)}; logits vs the CPU run: max |diff| {worst:.3e} "
+        f"(limit {limit:.3e}), share off by > 1e-4 x max {off:.2e}; "
+        f"argmax flips (step, sequence, margin) {flips or 'none'}")
+
+    def taps():
+        _, st = model.prefill_state(
+            tokens.cuda(), **{k: v.cuda() for k, v in extra.items()})
+        model.decode_state(st, ref_toks[0].cuda())
+
+    _, reads = tapped(taps, f32_atol=F32_ATOL)
+    want = {op: c for op, c in (
+        ("flash_attention", k3 - (L * (REDUCED_STEPS - 1)
+                                  if cfg.family == "encdec" else 0)),
+        ("paged_attention_slab", L), ("ssd_intra_chunk", k4)) if c}
+    checks[f"{arch}: every K2 / K3 / K4 call within {F32_ATOL} of its "
+           "plain version"] = \
+        {op: r["calls"] for op, r in reads.items()} == want and \
+        all(r["err"] <= r["limit"] for r in reads.values())
+    log(f"{tag} every kernel call vs its plain version: "
+        + (_fmt_reads(reads) or "none"))
+    for op, r in reads.items():
+        errs[op] = max(errs.get(op, 0.0), r["err"])
+    del model
+    return path
+
+
+def _serve_cli(args) -> list:
+    """The lines ``python -m repro_torch.launch.serve`` prints for
+    ``args``, run in process."""
+    from repro_torch.launch import serve
+    saved = sys.argv
+    sys.argv = ["repro_torch.launch.serve", *args]
+    try:
+        return _printed(serve.main, "[reduced] serve CLI")[1]
+    finally:
+        sys.argv = saved
+
+
+def phase_reduced(smi: str) -> tuple:
+    """Phase 30: the ten registered configs at ``.reduced()`` on the card
+    (see the module docstring).  Returns (each config's card launches by
+    path, the fp32 kernels' max |diff| by kernel name)."""
+    tag = "[reduced]"
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    checks, paths, errs = {}, {}, {}
+    from repro_torch.configs import DECODER_FAMILIES, get_config
+    for arch in REDUCED_ARCHS:
+        t_leg = time.perf_counter()
+        leg = (_reduced_engine_leg if get_config(arch).family in
+               DECODER_FAMILIES else _reduced_facade_leg)
+        # the fp32 instances timed at the first call the main path
+        # (llama3.2-3b; mamba2-780m for K4) gives them
+        logs = [_CallLog(op, lambda a, k: True)
+                for op in REDUCED_TIMED.get(arch, ())]
+        paths[f"{arch} reduced"] = leg(arch, f"{tag} {arch}", checks, errs,
+                                       logs)
+        for c in logs:
+            _timed_call(c.op, c.call, REDUCED_TIMED_KEYS[c.op], smi,
+                        f"{tag} {arch} fp32")
+        log(f"{tag} {arch} took {time.perf_counter() - t_leg:.1f} s")
+        del logs
+        torch.cuda.empty_cache()
+    reach = {"paged_attention": lambda c: c.num_attn_layers > 0,
+             "flash_attention": lambda c: c.num_attn_layers > 0,
+             "ssd_intra_chunk": lambda c: c.family in ("ssm", "hybrid")}
+    for name, reaches in reach.items():
+        who = [a for a in REDUCED_ARCHS if reaches(get_config(a).reduced())]
+        checks[f"{KERNEL_IDS[name]} launched by each of the {len(who)} "
+               "configs that reach it"] = all(
+            paths[f"{a} reduced"][name] > 0 for a in who)
+    log(f"{tag} max |diff| of the fp32 calls against their plain versions: "
+        + ", ".join(f"{op} {e:.3e}" for op, e in errs.items()))
+    # the serve CLI's smoke run on the card against --device cpu
+    cli = ["--smoke", "--requests", "3", "--steps", "4", "--fork", "2"]
+    card = _serve_cli(cli)
+    cpu = _serve_cli(cli + ["--device", "cpu"])
+    stat = lambda lines: [x for x in lines if "rowclone:" in x]
+    checks["serve --smoke on the card: its rowclone stats equal the "
+           "--device cpu run's"] = stat(card) == stat(cpu) and \
+        len(stat(card)) == 1
+    log(f"{tag} phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    for name, ok in checks.items():
+        log(f"{tag} {'ok  ' if ok else 'FAIL'} {name}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"reduced config checks failed: {failed}")
+    return paths, {TAPPED_NAMES[op]: e for op, e in errs.items()}
+
+
 PHASE_NEEDS = {7: (6,), 8: (5, 6), 15: (5,), 17: (5,), 18: (5,), 19: (5,),
                21: (), 22: (5,), 23: (), 24: (21,), 25: (),
-               26: (5,), 27: (), 28: (), 29: ()}
+               26: (5,), 27: (), 28: (), 29: (), 30: ()}
 
 
 def _selected(spec) -> set:
-    """The phases to run for ``--phases`` (all of 2-29 by default), with
+    """The phases to run for ``--phases`` (all of 2-30 by default), with
     what they need; phase 1 always runs."""
     if spec is None:
-        return set(range(2, 30))
+        return set(range(2, 31))
     chosen = {int(x) for x in spec.split(",") if x.strip()}
     for n in list(chosen):
         chosen.update(PHASE_NEEDS.get(n, ()))
@@ -9173,6 +9528,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if 29 in run:
         paths.update(phase_examples(smi))
+        torch.cuda.empty_cache()
+    if 30 in run:
+        reduced, f32_errs = phase_reduced(smi)
+        paths.update(reduced)
+        for name, err in f32_errs.items():
+            if name in rows:
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                err)
         torch.cuda.empty_cache()
     if 21 in run:
         # every earlier model is freed: the 3.2B model's fp32 training

@@ -11,10 +11,9 @@ Table 1 / Fig 2 quantities.  The weights are random, from seed 0.
     PYTHONPATH=src python examples/torch_serve_cow.py --arch yi-6b \\
         --requests 4 [--device cpu]
 
-On the CPU it serves the reduced config of ``--arch``, as the reference
-does; on the card it serves the published widths, since the reduced
-configs compute in fp32 at head dim 32 and the card's attention kernels
-take bf16 at head dims 64, 80, 128 and 256.
+It serves the reduced config of ``--arch`` on any device, as the
+reference does (fp32 at head dim 32: the card runs K1-K3's fp32
+instances).
 """
 import argparse
 from typing import NamedTuple
@@ -26,7 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import BlockRef
 from repro_torch.launch.serve import ServingEngine
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.weights import init_params, resolve_device
+from repro_torch.weights import init_params
 
 
 class ServeRun(NamedTuple):
@@ -60,9 +59,7 @@ def main(argv=None) -> ServeRun:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if resolve_device(args.device).type == "cpu":
-        cfg = cfg.reduced()
+    cfg = get_config(args.arch).reduced()
     params = init_params(cfg, seed=0, device=args.device)
     eng = ServingEngine(cfg, params,
                         max_seqs=args.requests * (args.samples_per_request

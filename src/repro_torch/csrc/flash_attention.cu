@@ -62,6 +62,10 @@
 // * The output is written straight from the accumulators to the caller's
 //   (B, Sq, H, D) buffer (strided), rows >= Sq masked.
 //
+// fp32 inputs (the reduced configs) take a second body below, on the CUDA
+// cores, with fp32 output: the Pallas kernel takes any dtype and returns
+// q's.
+//
 // The mbarrier, TMA, descriptor and wgmma helpers live in hopper.cuh, which
 // K4 (ssd_chunk.cu) shares.
 #include <math.h>
@@ -355,6 +359,199 @@ int launch(void* q, void* k, void* v, const long long* st, int B, int H,
   return (int)cudaGetLastError();
 }
 
+// ---- fp32: CUDA cores ---------------------------------------------------
+//
+// fp32 q / k / v (the reduced configs' head dim 32, and 64-256) run here:
+// wgmma takes no fp32 operand, and TF32 keeps a 10-bit mantissa, far from
+// the 1e-4 the fp32 contract holds.  The function is the bf16 path's (the
+// same masks, q_offset, GQA, strided views, the (B, Sq, H, D) output) with
+// fp32 output.  One CTA of 256 threads per (64-row q tile, head, batch),
+// the q tiles longest first; the tile and each 64-key K / V tile sit in
+// shared memory (rows padded by one float, so that the 16 threads reading
+// 16 K rows at one column hit 16 banks).  Thread (ty, tx) of a 16 x 16
+// grid owns rows 4 ty .. 4 ty + 3: scores of keys tx + 16 i (i < 4) by fp32
+// FMA, an online softmax per row over the 16 threads of the row (shuffles
+// inside a half-warp), P through shared memory, and O columns tx + 16 c (c
+// < D / 16).  Causal tiles past the last row's edge (and the prefix) are
+// never loaded.  Bound on this card: at the reduced shapes a launch's
+// latency; at the published ones the FMA rate (67 TFLOP/s), not the tensor
+// cores.
+constexpr int kF32Rows = 64;                  // q rows of a CTA
+constexpr int kF32Keys = 64;                  // keys of a K / V tile
+constexpr int kF32Threads = 256;
+
+struct ParamsF32 {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;
+  long long qs[3], ks[3], vs[3], os[3];      // (b, h, s) strides, elements
+  int Sq, Skv, H, KVH, causal, prefix_len, q_offset;
+  float scale_log2;
+};
+
+template <int kD>
+constexpr int f32_smem_bytes() {
+  return 4 * (2 * kF32Rows * (kD + 1) + kF32Keys * kD +
+              kF32Rows * (kF32Keys + 1));
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kF32Threads)
+flash_fma_kernel(const ParamsF32 p) {
+  constexpr int kQS = kD + 1;                 // padded q / K row
+  constexpr int kPS = kF32Keys + 1;           // padded P row
+  constexpr int kC = kD / 16;                 // O columns of a thread
+  static_assert(kD % 16 == 0, "16 threads split a row's O columns");
+  extern __shared__ float fsm[];
+  float* qs = fsm;                            // kF32Rows x kQS
+  float* ks = qs + kF32Rows * kQS;            // kF32Keys x kQS
+  float* vs = ks + kF32Keys * kQS;            // kF32Keys x kD
+  float* ps = vs + kF32Keys * kD;             // kF32Rows x kPS
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kF32Rows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (p.H / p.KVH);
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const int Skv = p.Skv;
+  int n_kv = (Skv + kF32Keys - 1) / kF32Keys;
+  if (p.causal) {
+    const int edge = max((q0 + p.q_offset + kF32Rows - 1) / kF32Keys + 1,
+                         (p.prefix_len + kF32Keys - 1) / kF32Keys);
+    n_kv = min(n_kv, edge);
+  }
+
+  const float* qb = p.q + b * p.qs[0] + h * p.qs[1];
+  for (int e = tid; e < kF32Rows * kD; e += kF32Threads) {
+    const int r = e / kD, d = e - (e / kD) * kD;
+    qs[r * kQS + d] = q0 + r < p.Sq ? qb[(q0 + r) * p.qs[2] + d] : 0.f;
+  }
+  const float* kb = p.k + b * p.ks[0] + kvh * p.ks[1];
+  const float* vb = p.v + b * p.vs[0] + kvh * p.vs[1];
+
+  float o[4][kC];
+  float m[4], l[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) o[r][c] = 0.f;
+  }
+  const float sl2 = p.scale_log2;
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * kF32Keys;
+    __syncthreads();                // the last tile's K, V and P are read
+    for (int e = tid; e < kF32Keys * kD; e += kF32Threads) {
+      const int r = e / kD, d = e - (e / kD) * kD;
+      const bool in = k0 + r < Skv;
+      ks[r * kQS + d] = in ? kb[(k0 + r) * p.ks[2] + d] : 0.f;
+      vs[r * kD + d] = in ? vb[(k0 + r) * p.vs[2] + d] : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < kD; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) qv[r] = qs[(4 * ty + r) * kQS + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) kv[i] = ks[(tx + 16 * i) * kQS + d];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[r][i] = fmaf(qv[r], kv[i], s[r][i]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = q0 + 4 * ty + r;
+      float mx = m[r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + tx + 16 * i;
+        const bool ok = col < Skv &&
+                        (!p.causal || col <= row + p.q_offset ||
+                         col < p.prefix_len);
+        if (!ok) s[r][i] = -INFINITY;
+        mx = fmaxf(mx, s[r][i]);
+      }
+#pragma unroll
+      for (int o2 = 8; o2 > 0; o2 >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+      // a row with no visible key yet keeps max -inf: offset 0 then gives
+      // exp2(-inf) = 0 for every masked score instead of NaN
+      const float base = mx == -INFINITY ? 0.f : mx * sl2;
+      const float corr = exp2f(m[r] * sl2 - base);
+      m[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float e = exp2f(fmaf(s[r][i], sl2, -base));
+        ps[(4 * ty + r) * kPS + tx + 16 * i] = e;
+        sum += e;
+      }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) o[r][c] *= corr;
+    }
+    __syncthreads();                // P is whole
+
+#pragma unroll 4
+    for (int j = 0; j < kF32Keys; ++j) {
+      float pv[4], vv[kC];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pv[r] = ps[(4 * ty + r) * kPS + j];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) vv[c] = vs[j * kD + tx + 16 * c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < kC; ++c) o[r][c] = fmaf(pv[r], vv[c], o[r][c]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float lr = l[r];
+#pragma unroll
+    for (int o2 = 8; o2 > 0; o2 >>= 1)
+      lr += __shfl_xor_sync(0xffffffffu, lr, o2);
+    const int row = q0 + 4 * ty + r;
+    if (row < p.Sq) {
+      const float inv = 1.f / fmaxf(lr, 1e-30f);
+      float* ob = p.out + b * p.os[0] + h * p.os[1] + row * p.os[2];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) ob[tx + 16 * c] = o[r][c] * inv;
+    }
+  }
+}
+
+template <int kD>
+int launch_f32(const ParamsF32& p, int B, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes<kD>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fma_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  dim3 grid((p.Sq + kF32Rows - 1) / kF32Rows, p.H, B);
+  flash_fma_kernel<kD><<<grid, kF32Threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B, H, Sq, D), k / v (B, KVH, Skv, D) bf16 at any strides whose last
@@ -385,5 +582,43 @@ extern "C" int rc_flash_attention(void* q, void* k, void* v, void* out,
   if (head_dim == 80) return launch<80>(q, k, v, strides, B, H, KVH, st, p);
   if (head_dim == 256) return launch<256>(q, k, v, strides, B, H, KVH, st, p);
   if (head_dim == 64) return launch<64>(q, k, v, strides, B, H, KVH, st, p);
+  return (int)cudaErrorInvalidValue;
+}
+
+// fp32 q (B, H, Sq, D), k / v (B, KVH, Skv, D) at any strides whose last one
+// is 1: `strides` as above; the output (fp32) at strides[9..11].  head_dim
+// must be 32, 64, 80, 128 or 256 (anything else gives
+// cudaErrorInvalidValue).
+extern "C" int rc_flash_attention_f32(void* q, void* k, void* v, void* out,
+                                      const long long* strides, int B, int H,
+                                      int KVH, int Sq, int Skv, int head_dim,
+                                      int causal, int prefix_len,
+                                      int q_offset, float scale,
+                                      void* stream) {
+  ParamsF32 p;
+  p.q = reinterpret_cast<const float*>(q);
+  p.k = reinterpret_cast<const float*>(k);
+  p.v = reinterpret_cast<const float*>(v);
+  p.out = reinterpret_cast<float*>(out);
+  for (int i = 0; i < 3; ++i) {
+    p.qs[i] = strides[i];
+    p.ks[i] = strides[3 + i];
+    p.vs[i] = strides[6 + i];
+    p.os[i] = strides[9 + i];
+  }
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.H = H;
+  p.KVH = KVH;
+  p.causal = causal;
+  p.prefix_len = prefix_len;
+  p.q_offset = q_offset;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (head_dim == 32) return launch_f32<32>(p, B, st);
+  if (head_dim == 64) return launch_f32<64>(p, B, st);
+  if (head_dim == 80) return launch_f32<80>(p, B, st);
+  if (head_dim == 128) return launch_f32<128>(p, B, st);
+  if (head_dim == 256) return launch_f32<256>(p, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,9 @@
 // per sequence attends over a pool slab (nblk, page, KVH, D).  Block `blk` is
 // visible to sequence b when share_mask[blk, b] > 0 and
 // base[blk] + slot < seq_lens[b]; GQA maps query head h to kv head h / group;
-// scores are scaled by D^-0.5.  Returns the unnormalised acc (B, H, D) and
+// scores are scaled by D^-0.5.  q, K and V are bf16 or fp32 (the Pallas
+// kernel casts either to fp32 in its body; here each instance reads its own
+// type and computes in fp32).  Returns the unnormalised acc (B, H, D) and
 // the softmax partials l, m (B, H), all fp32.  A sequence with no visible
 // position returns m = -1e30, l = 0, acc = 0.  CoW-shared blocks count for
 // every reader (all-pairs mode).
@@ -28,7 +30,9 @@
 //   through two shared-memory stages with cp.async (16-byte copies, only the
 //   page's valid slots): page t + 1 is in flight while page t is scored.
 //   Rows are padded by 16 bytes, so the 16-byte reads of neighbouring slots
-//   fall in distinct banks.
+//   fall in distinct banks.  An fp32 page is twice a bf16 one's bytes: at
+//   D = 256 two stages of K and V would take 260 KB, so that instance
+//   waits for each page before scoring it (one stage).
 // * Scores: thread t takes slot t % 64 and part t / 64 of the head dim
 //   (halves; quarters at D = 256), for all `group` query heads of its kv
 //   head at once (the query, pre-scaled, sits in shared memory as fp32), so
@@ -37,8 +41,9 @@
 // * P V from shared memory: thread t owns output pair t % (D / 2) of every
 //   head of the group, over a quarter, a third or half of the page's slots
 //   (a quarter at D = 64, where 128 threads give each of the 32 pairs four;
-//   half at D = 256, where the CTA's 256 threads give every pair two
-//   threads); the slot subsets are summed once, after the last page.
+//   an eighth at D = 32, eight threads a pair; half at D = 256, where the
+//   CTA's 256 threads give every pair two threads); the slot subsets are
+//   summed once, after the last page.
 // * Merge through distributed shared memory: each CTA leaves its (acc, l,
 //   m) in its own shared memory; after a cluster barrier rank 0 reads all
 //   eight and merges them with the reference's `lse_combine` rule
@@ -66,19 +71,25 @@ constexpr int kMaxGroup = 8;
 constexpr int kMaxPage = 64;        // slots of a page (the serving page)
 constexpr float kNegInf = -1e30f;
 
-// the CTA's threads and shared-memory layout for head dim kD (offsets in
-// bytes): 128 threads score a slot in two halves of the head dim and give
-// each output pair two to four slot subsets up to D = 128 (four at D = 64);
-// 256 threads, in quarters and with two subsets, at D = 256
-template <int kD>
+// the CTA's threads and shared-memory layout for element type T and head
+// dim kD (offsets in bytes): 128 threads score a slot in two halves of the
+// head dim and give each output pair two to eight slot subsets up to D = 128
+// (eight at D = 32, four at D = 64); 256 threads, in quarters and with two
+// subsets, at D = 256.  A page row is padded by 16 bytes.  Two stages of K
+// and V fit 227 KB everywhere but fp32 at D = 256 (4 x 65 KB): that
+// instance streams its pages through one stage.
+template <typename T, int kD>
 struct Layout {
   static constexpr int kThreads = kD > 128 ? 256 : 128;
   static constexpr int kParts = kThreads / kMaxPage;      // of a slot's score
-  static constexpr int kRow = kD + 8;                     // padded bf16 row
-  static constexpr int kTile = kMaxPage * kRow;           // bf16 of a page
-  static constexpr int kK = 0;                            // K, 2 stages
-  static constexpr int kV = kK + 2 * kTile * 2;           // V, 2 stages
-  static constexpr int kQ = kV + 2 * kTile * 2;           // group x D fp32
+  static constexpr int kVec = 16 / (int)sizeof(T);        // of a 16-B chunk
+  static constexpr int kRow = kD + kVec;                  // padded row
+  static constexpr int kTile = kMaxPage * kRow;           // T of a page
+  static constexpr int kTileBytes = kTile * (int)sizeof(T);
+  static constexpr int kStages = 4 * kTileBytes > 160 * 1024 ? 1 : 2;
+  static constexpr int kK = 0;                            // K stages
+  static constexpr int kV = kK + kStages * kTileBytes;    // V stages
+  static constexpr int kQ = kV + kStages * kTileBytes;    // group x D fp32
   static constexpr int kPart = kQ + kMaxGroup * kD * 4;   // parts' scores
   static constexpr int kP = kPart + kParts * kMaxGroup * kMaxPage * 4;
   static constexpr int kAcc = kP + kMaxGroup * kMaxPage * 4;
@@ -89,6 +100,36 @@ struct Layout {
            (kThreads / 8) * (size_t)((nblk + kThreads - 1) / kThreads);
   }
 };
+
+// a 16-byte chunk of a page row, or a query element, as fp32
+__device__ __forceinline__ void chunk_f32(const __nv_bfloat16* p,
+                                          float (&f)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h2[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void chunk_f32(const float* p, float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x;
+  f[1] = x.y;
+  f[2] = x.z;
+  f[3] = x.w;
+}
+__device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 pair_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float elem_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float elem_f32(float x) { return x; }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -102,36 +143,42 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-template <int kD>
+template <typename T, int kD>
 __global__ void __cluster_dims__(kSplits, 1, 1)
-    __launch_bounds__(Layout<kD>::kThreads)
-paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+    __launch_bounds__(Layout<T, kD>::kThreads)
+paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v,
                   const int8_t* __restrict__ mask,
                   const int* __restrict__ base,
                   const int* __restrict__ lens, float* __restrict__ acc_out,
                   float* __restrict__ l_out, float* __restrict__ m_out,
                   int nblk, int page, int kvh_n, int batch, int group,
                   float scale) {
-  using Lay = Layout<kD>;
+  using Lay = Layout<T, kD>;
   constexpr int kThreads = Lay::kThreads;
   constexpr int kWarps = kThreads / 32;
   constexpr int kParts = Lay::kParts;
+  constexpr int kVec = Lay::kVec;
   constexpr int kRow = Lay::kRow;
   constexpr int kTile = Lay::kTile;
-  constexpr int kChunks = kD / 8;            // 16-byte chunks of a row
+  constexpr int kStages = Lay::kStages;
+  constexpr int kChunks = kD / kVec;         // 16-byte chunks of a row
   constexpr int kPairs = kD / 2;             // output pairs of a head
   constexpr int kSub = kThreads / kPairs;    // slot subsets of P V
   static_assert(kD % 16 == 0 && kSub >= 2 && kChunks % kParts == 0 &&
                     kThreads == kParts * kMaxPage,
                 "kParts threads score a slot, two or more own an output "
                 "pair");
+  static_assert(kSub * kMaxGroup * kD * 4 <= kStages * Lay::kTileBytes,
+                "the slot subsets' sums fit the K stages");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + Lay::kK);
-  __nv_bfloat16* sv = reinterpret_cast<__nv_bfloat16*>(smem + Lay::kV);
+  T* sk = reinterpret_cast<T*>(smem + Lay::kK);
+  T* sv = reinterpret_cast<T*>(smem + Lay::kV);
   float* q_s = reinterpret_cast<float*>(smem + Lay::kQ);
   float* part = reinterpret_cast<float*>(smem + Lay::kPart);
   float* p_s = reinterpret_cast<float*>(smem + Lay::kP);
@@ -163,9 +210,9 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
     if (lane == 0) bits[(c0 >> 5) + warp] = bal;
   }
   // the group's query heads, pre-scaled
-  const __nv_bfloat16* qb = q + ((long long)b * heads + kvh * group) * kD;
+  const T* qb = q + ((long long)b * heads + kvh * group) * kD;
   for (int e = tid; e < group * kD; e += kThreads)
-    q_s[e] = __bfloat162float(qb[e]) * scale;
+    q_s[e] = elem_f32(qb[e]) * scale;
   if (tid < kMaxGroup) {
     ml_s[tid] = kNegInf;
     ml_s[kMaxGroup + tid] = 0.f;
@@ -205,11 +252,11 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
     const int nvalid = min(page, len - base[blk]);
     if (tid == 0) s_nvalid[stage] = nvalid;
     const long long blk0 = ((long long)blk * page * kvh_n + kvh) * kD;
-    __nv_bfloat16* dk = sk + stage * kTile;
-    __nv_bfloat16* dv = sv + stage * kTile;
+    T* dk = sk + stage * kTile;
+    T* dv = sv + stage * kTile;
     for (int e = tid; e < nvalid * kChunks; e += kThreads) {
       const int slot = e / kChunks;
-      const int c = (e - slot * kChunks) * 8;
+      const int c = (e - slot * kChunks) * kVec;
       const long long g = blk0 + slot * slot_stride + c;
       cp_async16(dk + slot * kRow + c, k + g);
       cp_async16(dv + slot * kRow + c, v + g);
@@ -225,10 +272,14 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   if (n_mine > 0) load_page(0, 0);
   cp_async_commit();
   for (int t = 0; t < n_mine; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_mine) load_page(t + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();
+    const int st = kStages == 2 ? (t & 1) : 0;
+    if constexpr (kStages == 2) {    // page t + 1 flies while t is scored
+      if (t + 1 < n_mine) load_page(t + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
     __syncthreads();                 // page t is in shared memory
     const int nvalid = s_nvalid[st];
 
@@ -240,30 +291,22 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g) sc[g] = 0.f;
       if (j < nvalid) {
-        const __nv_bfloat16* kr = sk + st * kTile + j * kRow;
+        const T* kr = sk + st * kTile + j * kRow;
 #pragma unroll
         for (int c = 0; c < kChunks / kParts; ++c) {
-          const int d0 = (slice * (kChunks / kParts) + c) * 8;
-          const uint4 raw = *reinterpret_cast<const uint4*>(kr + d0);
-          const __nv_bfloat162* h2 =
-              reinterpret_cast<const __nv_bfloat162*>(&raw);
-          float kf[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 f = __bfloat1622float2(h2[i]);
-            kf[2 * i] = f.x;
-            kf[2 * i + 1] = f.y;
-          }
+          const int d0 = (slice * (kChunks / kParts) + c) * kVec;
+          float kf[kVec];
+          chunk_f32(kr + d0, kf);
 #pragma unroll
           for (int g = 0; g < kMaxGroup; ++g) {
             if (g < group) {
-              const float4 qa =
-                  *reinterpret_cast<const float4*>(q_s + g * kD + d0);
-              const float4 qc =
-                  *reinterpret_cast<const float4*>(q_s + g * kD + d0 + 4);
-              sc[g] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] +
-                       qa.w * kf[3] + qc.x * kf[4] + qc.y * kf[5] +
-                       qc.z * kf[6] + qc.w * kf[7];
+#pragma unroll
+              for (int i = 0; i < kVec; i += 4) {
+                const float4 qa =
+                    *reinterpret_cast<const float4*>(q_s + g * kD + d0 + i);
+                sc[g] += qa.x * kf[i] + qa.y * kf[i + 1] +
+                         qa.z * kf[i + 2] + qa.w * kf[i + 3];
+              }
             }
           }
         }
@@ -315,10 +358,9 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
       float pv[kMaxGroup][2];
 #pragma unroll
       for (int g = 0; g < kMaxGroup; ++g) pv[g][0] = pv[g][1] = 0.f;
-      const __nv_bfloat16* vc = sv + st * kTile + 2 * pr;
+      const T* vc = sv + st * kTile + 2 * pr;
       for (int j = sub; j < nvalid; j += kSub) {
-        const float2 vv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vc + j * kRow));
+        const float2 vv = pair_f32(vc + j * kRow);
 #pragma unroll
         for (int g = 0; g < kMaxGroup; ++g) {
           if (g < group) {
@@ -337,6 +379,10 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     __syncthreads();                 // stage st is free again
+    if constexpr (kStages == 1) {
+      if (t + 1 < n_mine) load_page(t + 1, 0);
+      cp_async_commit();
+    }
   }
 
   // sum the slot subsets into acc_s (the K stages are free: scratch)
@@ -396,42 +442,51 @@ paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
   cluster.sync();
 }
 
-template <int kD>
+template <typename T, int kD>
 int launch(void* q, void* k, void* v, void* mask, void* base, void* lens,
            void* acc, void* l, void* m, int nblk, int page, int kvh,
            int batch, int group, float scale, void* stream) {
-  using Lay = Layout<kD>;
+  using Lay = Layout<T, kD>;
   const size_t smem = Lay::bytes(nblk);
   static size_t allowed = 48 * 1024;   // raised once per larger slab
   if (smem > allowed) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_attn_kernel<T, kD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     allowed = smem;
   }
   dim3 grid(kSplits, kvh, batch);
-  paged_attn_kernel<kD><<<grid, Lay::kThreads, smem,
-                          reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q),
-      reinterpret_cast<const __nv_bfloat16*>(k),
-      reinterpret_cast<const __nv_bfloat16*>(v),
-      reinterpret_cast<const int8_t*>(mask),
+  paged_attn_kernel<T, kD><<<grid, Lay::kThreads, smem,
+                             reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k),
+      reinterpret_cast<const T*>(v), reinterpret_cast<const int8_t*>(mask),
       reinterpret_cast<const int*>(base), reinterpret_cast<const int*>(lens),
       reinterpret_cast<float*>(acc), reinterpret_cast<float*>(l),
       reinterpret_cast<float*>(m), nblk, page, kvh, batch, group, scale);
   return (int)cudaGetLastError();
 }
 
+// the instances (element type, dtype code, head dim): bf16 at the published
+// configs' D = 64, 80, 128, 256; fp32, the Pallas kernel's other input type,
+// at the reduced configs' D = 32 and at 64, 80, 128, 256
+#define RC_PAGED_INSTANCES(X)                                             \
+  X(__nv_bfloat16, 1, 64) X(__nv_bfloat16, 1, 80)                         \
+  X(__nv_bfloat16, 1, 128) X(__nv_bfloat16, 1, 256) X(float, 0, 32)       \
+  X(float, 0, 64) X(float, 0, 80) X(float, 0, 128) X(float, 0, 256)
+
 }  // namespace
 
 // Shared memory a call takes for `nblk` slab blocks (the wrapper checks it
-// against the card's 227 KB).
-extern "C" long long rc_paged_attention_smem(int head_dim, int nblk) {
-  if (head_dim == 64) return (long long)Layout<64>::bytes(nblk);
-  if (head_dim == 128) return (long long)Layout<128>::bytes(nblk);
-  if (head_dim == 80) return (long long)Layout<80>::bytes(nblk);
-  if (head_dim == 256) return (long long)Layout<256>::bytes(nblk);
+// against the card's 227 KB); dtype 1 = bf16, 0 = fp32; -1 for an instance
+// that does not exist.
+extern "C" long long rc_paged_attention_smem(int head_dim, int nblk,
+                                             int dtype) {
+#define RC_SMEM(T, DT, D)                                                 \
+  if (dtype == DT && head_dim == D)                                       \
+    return (long long)Layout<T, D>::bytes(nblk);
+  RC_PAGED_INSTANCES(RC_SMEM)
+#undef RC_SMEM
   return -1;
 }
 
@@ -441,24 +496,19 @@ extern "C" int rc_paged_attention_splits() { return kSplits; }
 extern "C" int rc_paged_attention_max_page() { return kMaxPage; }
 extern "C" int rc_paged_attention_max_group() { return kMaxGroup; }
 
-// head_dim must be 64, 80, 128 or 256 and page <= 64, group <= 8 (the wrapper
-// checks; another head dim is refused with cudaErrorInvalidValue)
+// q, k, v of one dtype (1 = bf16 at head_dim 64, 80, 128 or 256; 0 = fp32
+// at 32, 64, 80, 128 or 256), page <= 64, group <= 8 (the wrapper checks;
+// another instance is refused with cudaErrorInvalidValue)
 extern "C" int rc_paged_attention(void* q, void* k, void* v, void* mask,
                                   void* base, void* lens, void* acc, void* l,
                                   void* m, int nblk, int page, int kvh,
                                   int batch, int group, int head_dim,
-                                  float scale, void* stream) {
-  if (head_dim == 128)
-    return launch<128>(q, k, v, mask, base, lens, acc, l, m, nblk, page, kvh,
-                       batch, group, scale, stream);
-  if (head_dim == 80)
-    return launch<80>(q, k, v, mask, base, lens, acc, l, m, nblk, page, kvh,
-                      batch, group, scale, stream);
-  if (head_dim == 256)
-    return launch<256>(q, k, v, mask, base, lens, acc, l, m, nblk, page, kvh,
-                       batch, group, scale, stream);
-  if (head_dim == 64)
-    return launch<64>(q, k, v, mask, base, lens, acc, l, m, nblk, page, kvh,
-                      batch, group, scale, stream);
+                                  int dtype, float scale, void* stream) {
+#define RC_LAUNCH(T, DT, D)                                               \
+  if (dtype == DT && head_dim == D)                                       \
+    return launch<T, D>(q, k, v, mask, base, lens, acc, l, m, nblk, page,   \
+                        kvh, batch, group, scale, stream);
+  RC_PAGED_INSTANCES(RC_LAUNCH)
+#undef RC_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -10,9 +10,10 @@
 //                   cum[b, j, h]) * dt[b, j, h] * x[b, j, h, :]
 //
 // with x (Bc, Q, H, P), dt and cum (Bc, Q, H) fp32, B and C (Bc, Q, N),
-// x / B / C in bf16 or fp32, and y (Bc, Q, H, P) fp32; P = 64, N <= 256,
-// Q <= 256.  The caller folds the chunks of a prefill into Bc, so one launch
-// covers a whole Mamba2 layer.
+// x / B / C in bf16 or fp32, and y (Bc, Q, H, P) fp32; P = 64 (bf16 or
+// fp32) or 32 (fp32: the reduced configs' ssm_head_dim), N <= 256,
+// Q <= 256.  The caller folds the chunks of a prefill into Bc, so one
+// launch covers a whole Mamba2 layer.
 //
 // Bound on this card: at the models' shapes (Q = 256, N = 64-128, P = 64)
 // the bytes (inputs once, the fp32 output once) over 3.35 TB/s exceed the
@@ -65,8 +66,8 @@
 //
 // fp32 inputs keep the first version's body: fp32 FMA on shared-memory
 // tiles, one CTA of 256 threads per (64-row i-tile, head, chunk row), the
-// scores recomputed per head.  No card path passes fp32 x / B / C (the
-// models pass bf16); the instance stays for the wrapper's fp32 contract.
+// scores recomputed per head, at P = 64 and P = 32 (the reduced configs,
+// which compute in fp32; the Pallas kernel takes any P).
 #include <math.h>
 
 #include "hopper.cuh"
@@ -342,20 +343,25 @@ int launch_wgmma(void* x, const void* dt, const void* cum, void* Bm, void* Cm,
 
 // ---- fp32: the first version's FMA body ----------------------------------
 
-constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 scores each
 constexpr int kTS = kT + 4;     // padded stride of the transposed tiles
 
+// head dim kPF: 64 (the published configs) or 32 (the reduced ones); a
+// thread owns kPF / 16 columns of its 4 output rows
+template <int kPF>
 __global__ void __launch_bounds__(kThreads)
 ssd_intra_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ cum,
                      const float* __restrict__ Bm,
                      const float* __restrict__ Cm, float* __restrict__ y,
                      int Q, int H, int N) {
+  constexpr int kPC = kPF / 16;       // output columns of a thread
+  static_assert(kPC == 2 || kPC == 4, "P = 32 or 64");
   extern __shared__ float smem[];
   float* Ct = smem;                   // N x kTS: C_i transposed
   float* Bt = Ct + N * kTS;           // N x kTS: B_j transposed
-  float* Xs = Bt + N * kTS;           // kT x kP: x_j
-  float* Wt = Xs + kT * kP;           // kT x kTS: W transposed (j, i)
+  float* Xs = Bt + N * kTS;           // kT x kPF: x_j
+  float* Wt = Xs + kT * kPF;           // kT x kTS: W transposed (j, i)
   float* cum_i = Wt + kT * kTS;       // kT
   float* cum_j = cum_i + kT;          // kT
   float* dt_j = cum_j + kT;           // kT
@@ -365,14 +371,15 @@ ssd_intra_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;            // rows 4 ty .. 4 ty + 3
-  const int tx = tid & 15;            // columns 4 tx .. 4 tx + 3
+  const int tx = tid & 15;            // score columns 4 tx .. 4 tx + 3,
+                                      // output columns kPC tx ..
   const int i0 = it * kT;
 
   const float* Cb = Cm + (long long)b * Q * N;
   const float* Bb = Bm + (long long)b * Q * N;
   const float* dtb = dt + (long long)b * Q * H + h;
   const float* cumb = cum + (long long)b * Q * H + h;
-  const float* xb = x + ((long long)b * Q * H + h) * kP;
+  const float* xb = x + ((long long)b * Q * H + h) * kPF;
 
   // C_i, transposed; consecutive threads read consecutive n (coalesced)
   for (int e = tid; e < kT * N; e += kThreads) {
@@ -385,11 +392,11 @@ ssd_intra_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     cum_i[tid] = gi < Q ? cumb[(long long)gi * H] : 0.f;
   }
 
-  float acc[4][4];
+  float acc[4][kPC];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < kPC; ++c) acc[a][c] = 0.f;
 
   for (int jt = 0; jt <= it; ++jt) {
     const int j0 = jt * kT;
@@ -399,11 +406,11 @@ ssd_intra_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       const int gj = j0 + r;
       Bt[n * kTS + r] = gj < Q ? Bb[(long long)gj * N + n] : 0.f;
     }
-    for (int e = tid; e < kT * kP; e += kThreads) {
-      const int r = e / kP, p = e % kP;
+    for (int e = tid; e < kT * kPF; e += kThreads) {
+      const int r = e / kPF, p = e % kPF;
       const int gj = j0 + r;
-      Xs[r * kP + p] =
-          gj < Q ? xb[(long long)gj * H * kP + p] : 0.f;
+      Xs[r * kPF + p] =
+          gj < Q ? xb[(long long)gj * H * kPF + p] : 0.f;
     }
     if (tid < kT) {
       const int gj = j0 + tid;
@@ -447,13 +454,14 @@ ssd_intra_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     // acc += W x_j over this j-tile
     for (int j = 0; j < kT; ++j) {
       const float4 wv = *reinterpret_cast<const float4*>(Wt + j * kTS + 4 * ty);
-      const float4 xv = *reinterpret_cast<const float4*>(Xs + j * kP + 4 * tx);
       const float wa[4] = {wv.x, wv.y, wv.z, wv.w};
-      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+      float xa[kPC];
+#pragma unroll
+      for (int c = 0; c < kPC; ++c) xa[c] = Xs[j * kPF + kPC * tx + c];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] += wa[a] * xa[c];
+        for (int c = 0; c < kPC; ++c) acc[a][c] += wa[a] * xa[c];
     }
   }
 
@@ -461,28 +469,30 @@ ssd_intra_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   for (int a = 0; a < 4; ++a) {
     const int gi = i0 + 4 * ty + a;
     if (gi < Q) {
-      float4* yp = reinterpret_cast<float4*>(
-          y + (((long long)b * Q + gi) * H + h) * kP + 4 * tx);
-      *yp = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+      float* yp = y + (((long long)b * Q + gi) * H + h) * kPF + kPC * tx;
+#pragma unroll
+      for (int c = 0; c < kPC; ++c) yp[c] = acc[a][c];
     }
   }
 }
 
+template <int kPF>
 size_t fma_smem_bytes(int N) {
   return sizeof(float) *
-         ((size_t)2 * N * kTS + kT * kP + kT * kTS + 3 * kT);
+         ((size_t)2 * N * kTS + kT * kPF + kT * kTS + 3 * kT);
 }
 
+template <int kPF>
 int launch_fma(const void* x, const void* dt, const void* cum, const void* Bm,
                const void* Cm, void* y, int batch, int Q, int H, int N,
                cudaStream_t st) {
-  const size_t smem = fma_smem_bytes(N);
+  const size_t smem = fma_smem_bytes<kPF>(N);
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_intra_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_intra_fma_kernel<kPF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Q + kT - 1) / kT, H, batch);
-  ssd_intra_fma_kernel<<<grid, kThreads, smem, st>>>(
+  ssd_intra_fma_kernel<kPF><<<grid, kThreads, smem, st>>>(
       reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(dt),
       reinterpret_cast<const float*>(cum), reinterpret_cast<const float*>(Bm),
       reinterpret_cast<const float*>(Cm), reinterpret_cast<float*>(y), Q, H,
@@ -496,17 +506,20 @@ int launch_fma(const void* x, const void* dt, const void* cum, const void* Bm,
 // the CPU emulation (chip_smoke.py holds the two copies equal).
 extern "C" int rc_ssd_heads_per_cta() { return kHeads; }
 
-// dtype: 0 = fp32 inputs x / B / C (FMA body), 1 = bf16 (tensor cores; N a
-// multiple of 8 and 16-byte aligned x / B / C, which the wrapper checks;
-// w_parts, 2 or 3, the bf16 parts of W).  P is fixed at 64.  A tensor-map
-// failure gives 10000 + its CUresult.
+// dtype: 0 = fp32 inputs x / B / C (FMA body, P = 32 or 64), 1 = bf16
+// (tensor cores, P = 64; N a multiple of 8 and 16-byte aligned x / B / C,
+// which the wrapper checks; w_parts, 2 or 3, the bf16 parts of W).  Another
+// P gives cudaErrorInvalidValue; a tensor-map failure 10000 + its CUresult.
 extern "C" int rc_ssd_intra_chunk(void* x, void* dt, void* cum, void* Bm,
                                   void* Cm, void* y, int batch, int Q, int H,
-                                  int N, int dtype, int w_parts,
+                                  int N, int P, int dtype, int w_parts,
                                   void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_fma(x, dt, cum, Bm, Cm, y, batch, Q, H, N, st);
+  if (dtype == 0 && P == 64)
+    return launch_fma<64>(x, dt, cum, Bm, Cm, y, batch, Q, H, N, st);
+  if (dtype == 0 && P == 32)
+    return launch_fma<32>(x, dt, cum, Bm, Cm, y, batch, Q, H, N, st);
+  if (dtype != 1 || P != kP) return (int)cudaErrorInvalidValue;
   if (w_parts == 3)
     return launch_wgmma<3>(x, dt, cum, Bm, Cm, y, batch, Q, H, N, st);
   if (w_parts == 2)

@@ -30,6 +30,8 @@ import torch
 #: peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+#: fp32 on the CUDA cores (the fp32 instances of K2, K3 and K4)
+F32_FLOPS = 67e12
 #: NVLink 4, each way, one card
 NVLINK_BYTES_PER_S = 450e9
 
@@ -200,7 +202,8 @@ def k4_work(xb, dtb, cum, Bb, Cb) -> Work:
                 2.0 * Q * Q * (N + P) * Bc * H)
 
 
-__all__ = ["BF16_FLOPS", "BOUNDARY", "HBM_BYTES_PER_S", "K1_READS",
-           "NVLINK_BYTES_PER_S", "Work", "block_bytes", "block_move_bytes",
-           "k1_bytes", "k1_work", "k2_slots", "k2_work", "k3_pairs",
-           "k3_work", "k4_work", "k5_work", "k6_work", "k7_work", "nbytes"]
+__all__ = ["BF16_FLOPS", "BOUNDARY", "F32_FLOPS", "HBM_BYTES_PER_S",
+           "K1_READS", "NVLINK_BYTES_PER_S", "Work", "block_bytes",
+           "block_move_bytes", "k1_bytes", "k1_work", "k2_slots", "k2_work",
+           "k3_pairs", "k3_work", "k4_work", "k5_work", "k6_work",
+           "k7_work", "nbytes"]

@@ -20,6 +20,11 @@ strided views (the model passes the ``(B, S, H, D)`` activations
 transposed, without a copy).  The output is written in ``(B, Sq, H, D)``
 memory order and returned as its ``(B, H, Sq, D)`` view, so the caller's
 transpose back is contiguous.
+
+fp32 q / k / v (the reduced configs' head dim 32, and :data:`F32_HEAD_DIMS`)
+take a second body on the CUDA cores (``wgmma`` has no fp32 operand, and
+TF32 would miss the fp32 limit of 1e-4), with the same masks, views and
+output layout, and return fp32: the Pallas kernel returns ``q.dtype``.
 """
 from __future__ import annotations
 
@@ -37,12 +42,15 @@ COUNTER = LaunchCounter("flash_attention")
 #: shared block 80, llama3.2-3b 128, paligemma-3b 256: its head dim split
 #: over two warpgroups)
 HEAD_DIMS = (64, 80, 128, 256)
+#: fp32 head dims (every reduced config's 32, and the bf16 ones)
+F32_HEAD_DIMS = (32, 64, 80, 128, 256)
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """The C entry, its argument types set once when the library loads."""
-    fn = library("flash_attention").rc_flash_attention
+def _entry(name: str = "rc_flash_attention"):
+    """The C entry (bf16, or ``rc_flash_attention_f32``), its argument
+    types set once when the library loads."""
+    fn = getattr(library("flash_attention"), name)
     fn.argtypes = [ctypes.c_void_p] * 4 + \
         [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 9 + \
         [ctypes.c_float, ctypes.c_void_p]
@@ -51,7 +59,7 @@ def _entry():
 
 
 def tma_strides(name: str, t: torch.Tensor) -> tuple:
-    """The (b, h, s) strides of a (B, heads, S, D) bf16 operand, in
+    """The (b, h, s) strides of a (B, heads, S, D) bf16 or fp32 operand, in
     elements, as its tensor map takes them; raises ``ValueError`` unless
     the last dimension is contiguous, the other strides are positive
     multiples of 16 bytes and the data is 16-byte aligned.  A dimension of
@@ -60,7 +68,7 @@ def tma_strides(name: str, t: torch.Tensor) -> tuple:
     nb, nh, ns, d = t.shape
     out = (sb if nb > 1 else d, sh if nh > 1 else d, ss if ns > 1 else d)
     if sd != 1 or t.data_ptr() % 16 or min(out) <= 0 or \
-            (out[0] | out[1] | out[2]) % 8:
+            (out[0] | out[1] | out[2]) % (16 // t.element_size()):
         raise ValueError(f"flash attention kernel: {name} {tuple(t.shape)} "
                          f"with strides {t.stride()} (elements) needs a "
                          "contiguous last dimension, other strides positive "
@@ -70,34 +78,41 @@ def tma_strides(name: str, t: torch.Tensor) -> tuple:
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          prefix_len: int = 0, q_offset: int = 0):
-    """Launch the kernel once; q (B,H,Sq,D), k/v (B,KVH,Skv,D) bf16 on the
-    card, any strides :func:`tma_strides` takes; returns (B,H,Sq,D) bf16, a
-    view of a (B,Sq,H,D) buffer.  ``q_offset`` (>= 0): the position of q's
-    first row among the keys, which moves the causal edge.  Raises on
+    """Launch the kernel once; q (B,H,Sq,D), k/v (B,KVH,Skv,D) of one dtype
+    on the card (bf16 at :data:`HEAD_DIMS`, fp32 at :data:`F32_HEAD_DIMS`),
+    any strides :func:`tma_strides` takes; returns (B,H,Sq,D) in q's dtype,
+    a view of a (B,Sq,H,D) buffer.  ``q_offset`` (>= 0): the position of
+    q's first row among the keys, which moves the causal edge.  Raises on
     inputs it does not take."""
     B, H, Sq, D = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS or H % KVH or k.shape != (B, KVH, Skv, D) \
+    dims = {torch.bfloat16: HEAD_DIMS,
+            torch.float32: F32_HEAD_DIMS}.get(q.dtype, ())
+    if D not in dims or H % KVH or k.shape != (B, KVH, Skv, D) \
             or v.shape != k.shape or (Sq and not Skv) or q_offset < 0:
         raise ValueError(f"flash attention kernel: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} "
-                         f"(head dim must be one of {HEAD_DIMS})")
-    if not q.is_cuda or not (q.dtype == k.dtype == v.dtype == torch.bfloat16
+                         f"{q.dtype} (head dim must be one of {HEAD_DIMS} "
+                         f"in bf16, {F32_HEAD_DIMS} in fp32)")
+    if not q.is_cuda or not (q.dtype == k.dtype == v.dtype
                              and q.device == k.device == v.device):
-        raise ValueError("flash attention kernel: q, k, v must be bf16 "
-                         "tensors on one CUDA device")
+        raise ValueError("flash attention kernel: q, k, v must be bf16 or "
+                         "fp32 tensors of one dtype on one CUDA device")
     strides = tma_strides("q", q) + tma_strides("k", k) + \
         tma_strides("v", v) + (Sq * H * D, D, H * D)
-    out = torch.empty((B, Sq, H, D), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if Sq:
-        check(_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), (ctypes.c_longlong * 12)(*strides),
-                       B, H, KVH, Sq, Skv, D, int(bool(causal)),
-                       int(prefix_len), int(q_offset), D ** -0.5,
-                       stream_ptr(q.device)),
+        entry = _entry("rc_flash_attention" if q.dtype == torch.bfloat16
+                       else "rc_flash_attention_f32")
+        check(entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), (ctypes.c_longlong * 12)(*strides),
+                    B, H, KVH, Sq, Skv, D, int(bool(causal)),
+                    int(prefix_len), int(q_offset), D ** -0.5,
+                    stream_ptr(q.device)),
               "flash attention kernel")
         COUNTER.n += 1
     return out.transpose(1, 2)
 
 
-__all__ = ["COUNTER", "HEAD_DIMS", "flash_attention_cuda", "tma_strides"]
+__all__ = ["COUNTER", "F32_HEAD_DIMS", "HEAD_DIMS", "flash_attention_cuda",
+           "tma_strides"]

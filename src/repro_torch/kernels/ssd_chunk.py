@@ -15,7 +15,8 @@ B_j^T`` once per j-tile for its heads with ``wgmma``, and feeds each
 head's decay-weighted W to ``W x_j`` as :data:`W_PARTS` bf16 parts
 (three: W exact to fp32 rounding); TMA brings the tiles, x through a
 tensor map over its (Bc, Q, H, P) strides.  fp32 inputs keep the first
-version's FMA body.
+version's FMA body, at P = 64 and at the reduced configs' P = 32
+(:data:`F32_HEAD_DIMS`).
 """
 from __future__ import annotations
 
@@ -29,8 +30,10 @@ from repro_torch.kernels.build import LaunchCounter, check, library, stream_ptr
 #: launches of the CUDA SSD intra-chunk kernel (not of its plain version)
 COUNTER = LaunchCounter("ssd_intra_chunk")
 
-#: what the kernel is built for
+#: what the kernel is built for: the bf16 body's head dim P, and the fp32
+#: body's
 HEAD_DIM = 64
+F32_HEAD_DIMS = (32, 64)
 MAX_STATE = 256
 MAX_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,7 +48,7 @@ W_PARTS = 3
 def _entry():
     """The C entry, its argument types set once when the library loads."""
     fn = library("ssd_chunk").rc_ssd_intra_chunk
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -60,13 +63,15 @@ def kernel_constants() -> dict:
 
 def ssd_intra_chunk_cuda(xb, dtb, cum, Bb, Cb):
     """Launch the kernel once; xb (B,Q,H,P) and Bb / Cb (B,Q,N) of one
-    dtype (bf16 or fp32), dtb / cum (B,Q,H) fp32, all contiguous on the
-    card; returns (B,Q,H,P) fp32.  Raises on inputs it does not take."""
+    dtype (bf16 at P = 64, or fp32 at P = 32 or 64), dtb / cum (B,Q,H)
+    fp32, all contiguous on the card; returns (B,Q,H,P) fp32.  Raises on
+    inputs it does not take."""
     B, Q, H, P = xb.shape
     N = Bb.shape[-1]
-    if P != HEAD_DIM or not 0 < N <= MAX_STATE or not 0 < Q <= MAX_CHUNK:
-        raise ValueError(f"SSD intra-chunk kernel: x {tuple(xb.shape)}, "
-                         f"state {N} (needs P = {HEAD_DIM}, N <= "
+    heads = F32_HEAD_DIMS if xb.dtype == torch.float32 else (HEAD_DIM,)
+    if P not in heads or not 0 < N <= MAX_STATE or not 0 < Q <= MAX_CHUNK:
+        raise ValueError(f"SSD intra-chunk kernel: x {tuple(xb.shape)} "
+                         f"{xb.dtype}, state {N} (needs P in {heads}, N <= "
                          f"{MAX_STATE}, Q <= {MAX_CHUNK})")
     if tuple(dtb.shape) != (B, Q, H) or tuple(cum.shape) != (B, Q, H) \
             or tuple(Bb.shape) != (B, Q, N) or tuple(Cb.shape) != (B, Q, N):
@@ -86,7 +91,7 @@ def ssd_intra_chunk_cuda(xb, dtb, cum, Bb, Cb):
                          f"16-byte aligned x / B / C")
     y = torch.empty((B, Q, H, P), dtype=torch.float32, device=xb.device)
     check(_entry()(xb.data_ptr(), dtb.data_ptr(), cum.data_ptr(),
-                   Bb.data_ptr(), Cb.data_ptr(), y.data_ptr(), B, Q, H, N,
+                   Bb.data_ptr(), Cb.data_ptr(), y.data_ptr(), B, Q, H, N, P,
                    _DTYPES[xb.dtype], W_PARTS, stream_ptr(xb.device)),
           "SSD intra-chunk kernel")
     COUNTER.n += 1

@@ -405,3 +405,124 @@ def test_causal_mask_with_sq_ne_skv_matches_pallas(Sq, Skv):
                                   causal=True, bq=32, bk=32, interpret=True)
     got = ops.flash_attention(to_torch(q), to_torch(k), to_torch(v))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 instances (the reduced configs' head dim 32), emulated in torch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pages", SPLIT_CASES,
+                         ids=["long", "single", "all_empty"])
+def test_paged_attention_split_and_merge_fp32_head_dim_32_matches_pallas(
+        pages):
+    """K2's fp32 instance at the reduced configs' head dim 32 (a CTA of 128
+    threads: eight slot subsets an output pair), emulated as its cluster
+    runs it: the plain version on each split's page range, merged as rank
+    0 merges them, against the Pallas kernel in interpret mode (fp32, atol
+    1e-4 on acc, l and m)."""
+    q, k, v, mask, base, lens = _layout_case(3, pages, D=32, nblk=32)
+    page = k.shape[1]
+    qt, kt, vt, bt, lt = (to_torch(x) for x in (q, k, v, base, lens))
+    parts = [ops.paged_attention_slab(qt, kt, vt, to_torch(ms), bt, lt,
+                                      page=page)
+             for ms in _split_masks(mask, base, lens)]
+    got = _merge(parts)
+    want = paged_attention_slab_pallas(*(jnp.asarray(x) for x in
+                                         (q, k, v, mask, base, lens)),
+                                       page=page, block_chunk=4,
+                                       interpret=True)
+    for name, a, b in zip(("acc", "l", "m"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-5, err_msg=name)
+
+
+#: K3's fp32 body: q rows of a CTA and keys of a K / V tile
+K3_F32_TILE = 64
+
+
+def _k3_f32_emulation(q, k, v, *, causal=True, prefix_len=0, q_offset=0,
+                      skip=True):
+    """K3's fp32 body in plain torch: 64-row q tiles, each walking the
+    64-key tiles up to its last row's causal edge or the prefix (every
+    tile with ``skip=False``), an online softmax in base 2 whose offset is
+    0 while a row has seen no visible key, and O / l at the end."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    group = H // k.shape[1]
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    sl2 = D ** -0.5 * float(np.log2(np.e))
+    T = K3_F32_TILE
+    out = torch.zeros_like(q)
+    for q0 in range(0, Sq, T):
+        n_kv = -(-Skv // T)
+        if causal and skip:
+            n_kv = min(n_kv, max((q0 + q_offset + T - 1) // T + 1,
+                                 -(-prefix_len // T)))
+        qt = q[:, :, q0:q0 + T]
+        rows = torch.arange(q0, q0 + qt.shape[2])[:, None] + q_offset
+        m = torch.full(qt.shape[:3], float("-inf"))
+        l = torch.zeros(qt.shape[:3])
+        o = torch.zeros_like(qt)
+        for t in range(n_kv):
+            cols = torch.arange(t * T, min((t + 1) * T, Skv))[None, :]
+            s = qt @ kk[:, :, t * T:(t + 1) * T].transpose(-1, -2)
+            ok = torch.ones_like(s, dtype=torch.bool)
+            if causal:
+                ok = (cols <= rows) | (cols < prefix_len)
+            s = torch.where(ok, s, float("-inf"))
+            mx = torch.maximum(m, s.amax(-1))
+            base = torch.where(mx == float("-inf"), 0.0, mx * sl2)
+            corr = torch.exp2(m * sl2 - base)
+            p = torch.exp2(s * sl2 - base[..., None])
+            l = l * corr + p.sum(-1)
+            o = o * corr[..., None] + p @ vv[:, :, t * T:(t + 1) * T]
+            m = mx
+        out[:, :, q0:q0 + T] = o / l.clamp_min(1e-30)[..., None]
+    return out
+
+
+#: (Sq, Skv, causal, prefix, q_offset) of the fp32 body's mask modes: a
+#: causal prompt over three tiles, with a prefix reaching past the first
+#: row tile, non-causal with Sq != Skv both ways, and a block of query rows
+#: (q_offset) whose causal edge straddles a key tile
+K3_F32_MODES = ((192, 192, True, 0, 0), (128, 128, True, 80, 0),
+                (64, 192, False, 0, 0), (192, 64, False, 0, 0),
+                (64, 192, True, 0, 96))
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,prefix,q_offset", K3_F32_MODES,
+                         ids=["causal", "prefix", "cross_wide",
+                              "cross_narrow", "q_offset"])
+def test_prefill_attention_fp32_head_dim_32_emulation_matches_pallas(
+        Sq, Skv, causal, prefix, q_offset):
+    """K3's fp32 body at head dim 32 with GQA (4 heads over 2), emulated
+    tile by tile, against the Pallas kernel in interpret mode (fp32, atol
+    1e-4); a block of query rows against the rows ``q_offset ..`` of the
+    kernel's whole causal prompt.  The tiles the causal walk skips change
+    nothing: the walk over every tile gives the same output."""
+    B, H, KVH, D = 2, 4, 2, 32
+    rng = np.random.default_rng(Sq + Skv + prefix + q_offset)
+    q = rng.standard_normal((B, H, Sq, D)).astype(np.float32)
+    k = rng.standard_normal((B, KVH, Skv, D)).astype(np.float32)
+    v = rng.standard_normal((B, KVH, Skv, D)).astype(np.float32)
+    kw = dict(causal=causal, prefix_len=prefix, q_offset=q_offset)
+    got = _k3_f32_emulation(*(to_torch(x) for x in (q, k, v)), **kw)
+    every = _k3_f32_emulation(*(to_torch(x) for x in (q, k, v)), **kw,
+                              skip=False)
+    if q_offset:
+        whole = rng.standard_normal((B, H, Skv, D)).astype(np.float32)
+        whole[:, :, q_offset:q_offset + Sq] = q
+        want = np.asarray(flash_attention_pallas(
+            jnp.asarray(whole), jnp.asarray(k), jnp.asarray(v),
+            causal=True, prefix_len=prefix, bq=64, bk=64,
+            interpret=True))[:, :, q_offset:q_offset + Sq]
+    else:
+        want = np.asarray(flash_attention_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            prefix_len=prefix, bq=64, bk=64, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    np.testing.assert_allclose(every.numpy(), got.numpy(), atol=1e-6)
+    plain = ops.flash_attention(*(to_torch(x) for x in (q, k, v)), **kw)
+    assert plain.dtype == torch.float32
+    np.testing.assert_allclose(plain.numpy(), want, atol=1e-4)

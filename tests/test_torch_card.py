@@ -446,6 +446,167 @@ def test_cuda_attention_kernels_at_head_dim_64_match_plain_on_card(card):
             atol=2e-2, rtol=0)
 
 
+#: the fp32 instances' limit: both sides sum fp32 products in other orders
+F32_ATOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", (32, 64, 80, 128, 256))
+def test_cuda_attention_kernels_fp32_match_plain_on_card(card, D):
+    """K2 and K3 on fp32 q / K / V at every head dim they take in fp32 (the
+    reduced configs' 32, and 64-256), against their plain versions within
+    atol 1e-4 (TF32 off: both sides fp32).  K2 on a slab with a 64-page
+    sequence, CoW-shared blocks and an empty slot, and on 2-5 pages each,
+    at group 4 and 1.  K3 causal (ragged, over three key tiles), with a
+    prefix, non-causal with Sq != Skv both ways, one query, a block of
+    query rows (``q_offset``), GQA, on the transposed (B, S, H, D) views
+    the model passes; its output is fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for H, KVH in ((8, 2), (4, 4)):
+        for pages in ((64, 3, 1, 0), (2, 2, 5, 1)):
+            case = _layout_case(29 + D, pages, H=H, KVH=KVH, D=D, page=64,
+                                nblk=80)
+            args = [torch.from_numpy(x).cuda() for x in case]
+            acc, l, m = ops.paged_attention_slab(*args, page=64)
+            acc_p, l_p, m_p = ops.paged_attention_slab(*args, page=64,
+                                                       use_kernel=False)
+            torch.testing.assert_close(
+                acc / l.clamp_min(1e-30)[..., None],
+                acc_p / l_p.clamp_min(1e-30)[..., None], atol=F32_ATOL,
+                rtol=0)
+            torch.testing.assert_close(m, m_p, atol=F32_ATOL, rtol=0)
+            torch.testing.assert_close(l, l_p, atol=F32_ATOL, rtol=1e-5)
+            empty = args[5] == 0
+            assert (m[empty] == NEG_INF).all() and (l[empty] == 0).all()
+    rng = np.random.default_rng(D)
+    for B, Sq, Skv, causal, prefix, q_off in (
+            (2, 150, 150, True, 0, 0), (1, 130, 130, True, 80, 0),
+            (2, 64, 190, False, 0, 0), (1, 190, 14, False, 0, 0),
+            (2, 1, 70, False, 0, 0), (1, 70, 200, True, 0, 130),
+            (1, 1, 1, True, 0, 0)):
+        qq = torch.from_numpy(rng.standard_normal((B, Sq, 8, D)).astype(
+            np.float32)).cuda().transpose(1, 2)
+        kk, vv = (torch.from_numpy(rng.standard_normal((B, Skv, 2, D))
+                                   .astype(np.float32)).cuda()
+                  .transpose(1, 2) for _ in range(2))
+        kw = dict(causal=causal, prefix_len=prefix, q_offset=q_off)
+        got = ops.flash_attention(qq, kk, vv, **kw)
+        assert got.dtype == torch.float32 and got.shape == (B, 8, Sq, D)
+        torch.testing.assert_close(
+            got, ops.flash_attention(qq, kk, vv, use_kernel=False, **kw),
+            atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_intra_chunk_head_dim_32_matches_plain_on_card(card):
+    """K4's fp32 body at the reduced configs' head dim P = 32 and state 16:
+    the reduced chunk (Q = 32, 8 heads), two tiles, and a ragged chunk of
+    four, against its plain version within atol 1e-4."""
+    for Q, H in ((32, 8), (96, 8), (250, 3)):
+        args = [torch.from_numpy(a).cuda() for a in
+                _chunk_case(Q + 1, 4, Q, H, 32, 16)]
+        got = ops.ssd_intra_chunk(*args)
+        want = ops.ssd_intra_chunk(*args, use_kernel=False)
+        assert got.shape == (4, Q, H, 32)
+        torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_fp16_and_unlisted_shapes(card):
+    """On CUDA tensors K2, K3 and K4 raise on what they do not take (fp16,
+    bf16 at head dim 32, an unlisted fp32 head dim or P) and launch
+    nothing: no fallback to the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_slab_cuda
+    from repro_torch.kernels.ssd_chunk import ssd_intra_chunk_cuda
+    before = {n: c.n for n, c in ops.KERNEL_COUNTERS.items()}
+    tables = [torch.ones((3, 2), dtype=torch.int8, device="cuda"),
+              torch.zeros(3, dtype=torch.int32, device="cuda"),
+              torch.ones(2, dtype=torch.int32, device="cuda")]
+    for dtype, D in ((torch.float16, 32), (torch.float16, 128),
+                     (torch.bfloat16, 32), (torch.float32, 96)):
+        q = torch.zeros((2, 4, D), dtype=dtype, device="cuda")
+        kv = torch.zeros((3, 16, 4, D), dtype=dtype, device="cuda")
+        with pytest.raises(ValueError):
+            paged_attention_slab_cuda(q, kv, kv, *tables, page=16)
+        qq = torch.zeros((1, 4, 8, D), dtype=dtype, device="cuda")
+        with pytest.raises(ValueError):
+            flash_attention_cuda(qq, qq, qq)
+    for dtype, P in ((torch.float16, 64), (torch.bfloat16, 32),
+                     (torch.float32, 16)):
+        x = torch.zeros((1, 32, 2, P), dtype=dtype, device="cuda")
+        f = torch.zeros((1, 32, 2), device="cuda")
+        bc = torch.zeros((1, 32, 16), dtype=dtype, device="cuda")
+        with pytest.raises(ValueError):
+            ssd_intra_chunk_cuda(x, f, f, bc, bc)
+    assert {n: c.n for n, c in ops.KERNEL_COUNTERS.items()} == before
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_engine_matches_the_cpu_engine(card):
+    """``ServingEngine`` at ``llama3.2-3b.reduced()`` (fp32, head dim 32)
+    on the card through K1-K3 against the same engine on the CPU, from the
+    same weights: 3 prompts, a round, a fork, 3 rounds, each card round fed
+    the CPU engine's tokens.  Every round drains in at most one bulk
+    launch; the card's greedy choices equal the CPU's but at a near-tie
+    (a top-1 / top-2 margin within twice the two logits' largest
+    difference); the logits agree
+    within 2^-7 x max |logit| (the head is a bf16 product in either
+    dtype, as the reference's, so a logit may step one bf16 ulp); the
+    block tables are equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.weights import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3.2-3b").reduced()
+    kw = dict(max_seqs=8)
+    engines = {"cpu": ServingEngine(cfg, init_params(cfg, 0, "cpu"),
+                                    device="cpu", **kw),
+               "card": ServingEngine(cfg, init_params(cfg, 0, "cpu").to(
+                   "cuda"), device="cuda", **kw)}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (24, 70, 5)]
+    counted = {n: ops.KERNEL_COUNTERS[n].n for n in
+               ("fused_dispatch", "paged_attention", "flash_attention")}
+    sids = {n: [e.add_request(p) for p in prompts]
+            for n, e in engines.items()}
+    assert sids["cpu"] == sids["card"]
+    k1 = ops.KERNEL_COUNTERS["fused_dispatch"]
+    for rnd in range(4):
+        if rnd == 1:
+            for e in engines.values():
+                e.fork(sids["cpu"][0], 2)
+        live = sorted(engines["cpu"].cache.seqs)
+        before = {s: engines["cpu"].last_logits[s].copy() for s in live}
+        card_logits = {s: engines["card"].last_logits[s].copy()
+                       for s in live}
+        toks = engines["cpu"].decode_round()
+        own = []
+
+        def feed(logits, order=iter([toks[s] for s in sorted(toks)])):
+            own.append(int(np.argmax(logits)))
+            return next(order)
+
+        n0 = k1.n
+        assert engines["card"].decode_round(sample_fn=feed) == toks
+        assert k1.n - n0 <= 1
+        for s, mine in zip(sorted(toks), own):
+            # a differing choice only at a near-tie of the CPU's logits
+            top = np.sort(before[s])[-2:]
+            assert mine == toks[s] or top[1] - top[0] <= 2 * float(
+                np.abs(before[s] - card_logits[s]).max())
+        cpu, got = engines["cpu"].last_logits, engines["card"].last_logits
+        scale = max(float(np.abs(x).max()) for x in cpu.values())
+        for s in cpu:
+            assert float(np.abs(got[s] - cpu[s]).max()) <= 2 ** -7 * scale
+    for n, c in counted.items():
+        assert ops.KERNEL_COUNTERS[n].n > c, n
+    cpu, card_e = engines["cpu"], engines["card"]
+    for s in cpu.cache.seqs:
+        assert card_e.cache.blocks_of(s) == cpu.cache.blocks_of(s)
+
+
 # ---------------------------------------------------------------------------
 # K4, the SSD intra-chunk term
 # ---------------------------------------------------------------------------

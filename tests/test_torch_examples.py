@@ -124,6 +124,45 @@ def test_serve_cow_prints_the_reference_bookkeeping(capsys):
     assert run.tokens == 6 * len(run.engine.cache.seqs)
 
 
+class _Picked(Exception):
+    """Raised by the stand-in for ``init_params``: the entry chose its
+    config and would now make weights on the device."""
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("entry", ["serve --smoke", "serve_cow"])
+def test_smoke_entries_pick_the_reduced_config_whatever_the_device(
+        entry, device, monkeypatch):
+    """``python -m repro_torch.launch.serve --smoke`` and
+    ``examples/torch_serve_cow.py`` serve the reduced config of their arch
+    on the card as on the CPU, as the reference's CLI and example do: the
+    config each hands ``init_params`` (stopped there, before any device is
+    touched)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    picked = []
+
+    def stand_in(cfg, *args, **kw):
+        picked.append((cfg, kw.get("device")))
+        raise _Picked
+
+    if entry == "serve_cow":
+        mod = _example("serve_cow")
+        monkeypatch.setattr(mod, "init_params", stand_in)
+        with pytest.raises(_Picked):
+            mod.main(["--device", device])
+        want = get_config("yi-6b").reduced()
+    else:
+        monkeypatch.setattr(serve, "init_params", stand_in)
+        monkeypatch.setattr(sys, "argv", ["serve", "--smoke", "--device",
+                                          device])
+        with pytest.raises(_Picked):
+            serve.main()
+        want = get_config("llama3.2-3b").reduced()
+    assert picked == [(want, device)]
+    assert want.dtype == "float32" and want.head_dim == 32
+
+
 #: a decimal number in a printed line
 _NUMBER = re.compile(r"-?\d+\.\d+(?:e[-+]\d+)?")
 

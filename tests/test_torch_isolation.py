@@ -118,7 +118,7 @@ def test_card_tests_import_without_jax():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     marked = out.stdout.split("CUDA=")[1].split()[0].split(",")
-    assert len(marked) == 27, marked
+    assert len(marked) == 31, marked
     marker = "@pytest.mark." + "cuda"
     others = [p for p in (ROOT / "tests").glob("test_torch_*.py")
               if p.name != "test_torch_card.py" and marker in p.read_text()]

@@ -126,6 +126,50 @@ def test_ssd_intra_chunk_tensor_core_numerics_match_oracle(Q, H, N):
     assert err[0] * 20 < err[1] and err[1] * 20 < err[2]
 
 
+def _k4_fp32_emulation(xb, dtb, cum, Bb, Cb, *, tile=64):
+    """K4's fp32 FMA body in plain torch, as its CTAs walk the chunk: for
+    each head and 64-row i-tile, every j-tile up to the diagonal, the
+    scores ``C_i B_j^T`` recomputed per head, ``W = S exp(cum_i - cum_j)
+    dt_j`` in fp32 where j <= i and i < Q (nothing evaluated above the
+    diagonal), summed as ``W x_j``."""
+    B, Q, H, P = xb.shape
+    y = torch.zeros((B, Q, H, P))
+    for h in range(H):
+        for i0 in range(0, Q, tile):
+            i1 = min(i0 + tile, Q)
+            rows = torch.arange(i0, i1)[:, None]
+            for j0 in range(0, i1, tile):
+                j1 = min(j0 + tile, Q)
+                low = torch.arange(j0, j1)[None, :] <= rows
+                S = Cb[:, i0:i1] @ Bb[:, j0:j1].transpose(1, 2)
+                seg = cum[:, i0:i1, None, h] - cum[:, None, j0:j1, h]
+                W = torch.where(low, S * torch.exp(torch.where(low, seg, 0.0)),
+                                0.0) * dtb[:, None, j0:j1, h]
+                y[:, i0:i1, h] += W @ xb[:, j0:j1, h]
+    return y
+
+
+@pytest.mark.parametrize("Q,H,N", [(32, 8, 16), (96, 8, 16), (250, 3, 16)],
+                         ids=["reduced_chunk", "two_tiles", "ragged"])
+def test_ssd_intra_chunk_fp32_head_dim_32_emulation_matches_pallas(Q, H, N):
+    """K4's fp32 body at the reduced configs' head dim P = 32 (two output
+    columns a thread) and state 16: the reduced chunk (Q = 32, 8 heads),
+    two i-tiles, and a ragged chunk of four tiles, emulated tile by tile
+    against the Pallas kernel in interpret mode and the JAX oracle (fp32,
+    atol 1e-4)."""
+    args = _chunk_case(Q + H, 2, Q, H, 32, N)
+    got = _k4_fp32_emulation(*(to_torch(a) for a in args))
+    want_pl = ssd_intra_chunk_pallas(*(jnp.asarray(a) for a in args),
+                                     interpret=True)
+    want = jm2._ssd_intra_chunk_jnp(*(jnp.asarray(a) for a in args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_pl),
+                               atol=F32_ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL)
+    plain = ops.ssd_intra_chunk(*(to_torch(a) for a in args))
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want_pl),
+                               atol=F32_ATOL)
+
+
 def _scan_case(seed, B, S, H, P, N):
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((B, S, H, P)) * 0.5).astype(np.float32)
